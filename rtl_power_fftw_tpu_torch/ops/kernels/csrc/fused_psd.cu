@@ -1,11 +1,11 @@
 // Fused averaged-PSD device step for NVIDIA Hopper (sm_90a).
 //
 // Replaces rtl_power_fftw_tpu/ops/kernels/fused_psd.py:make_fused_psd_fn,
-// the unwindowed single-stream variant at default precision (K1). It
-// computes the same function: raw interleaved u8 IQ frames (F, 2N) ->
-// dequantize (u8 - 127) -> length-N DFT -> |X|^2 -> drop frames
-// f >= n_valid -> sum over frames, as an (N,) float32 vector of bins in
-// natural (unshifted) order.
+// the single-stream variant at default precision, unwindowed (K1) and
+// windowed (K2). It computes the same function: raw interleaved u8 IQ
+// frames (F, 2N) -> dequantize (u8 - 127) -> [times window[n] in FP32]
+// -> length-N DFT -> |X|^2 -> drop frames f >= n_valid -> sum over
+// frames, as an (N,) float32 vector of bins in natural (unshifted) order.
 //
 // What bounds it on an H100. A radix-2 FFT of length N costs about
 // 5 N log2(N) FP32 flops per frame against 2N bytes read from device
@@ -19,6 +19,12 @@
 //  * device memory is touched once per input byte: each frame is read
 //    coalesced as 32-bit words (two IQ pairs), dequantized in registers
 //    and stored to shared memory as one 16-byte vector per thread;
+//  * the window (K2) costs no memory traffic per frame: a thread loads
+//    the same words w in every frame, so it loads its window values
+//    (samples 2w and 2w+1, one float2 per word) into registers once per
+//    block and multiplies in registers before the store. The windowed
+//    and unwindowed kernels are two instantiations of one template, so
+//    a null window compiles to the K1 code unchanged;
 //  * the FFT is an in-place decimation-in-frequency radix-2 transform in
 //    shared memory. It takes input in natural order (no bank-conflicting
 //    bit-reversed scatter on the load) and leaves bins bit-reversed; each
@@ -30,8 +36,9 @@
 //    neighbouring addresses; the table is computed on the host in
 //    float64 and rounded once to float32 (no fast-math, no __sinf);
 //  * no float atomics: block g writes the f32 sum of its frames to
-//    partial row g, and a second kernel sums the G rows of each bin in a
-//    fixed order in float64, so the result is the same on every run.
+//    partial row g, and a second kernel (psd_sum.cuh) sums the G rows of
+//    each bin in a fixed order in float64, so the result is the same on
+//    every run.
 //
 // Eligibility (Hopper facts): power-of-two N with 64 <= N <= 16384. The
 // complex f32 frame lives in shared memory, 8N bytes: 128 KB at 16384,
@@ -40,19 +47,19 @@
 // butterflies of a stage fill exactly one warp.
 //
 // Tensor-core forms (the DFT as matrix products, as the TPU kernel does)
-// and overlapping the next frame's load with the current transform are
-// later work.
+// are in fused_psd_fast.cu for the relaxed tier; overlapping the next
+// frame's load with the current transform is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "psd_sum.cuh"
 
 namespace {
 
 constexpr int kMinLog2N = 6;
 constexpr int kMaxLog2N = 14;
 constexpr int kMaxThreads = 512;
-constexpr int kSumBins = 32;   // pass 2: bins per block, one warp wide
-constexpr int kSumLanes = 8;   // pass 2: rows summed in parallel per bin
 
 template <int LOG2N>
 struct Shape {
@@ -69,16 +76,26 @@ __device__ __forceinline__ int bit_reverse(int i) {
 
 // Pass 1: block g transforms frames [g*group, min((g+1)*group, F, n_valid))
 // one after another and writes the f32 sum of their |X|^2 to partial row g.
-template <int LOG2N>
+template <int LOG2N, bool WINDOWED>
 __global__ void __launch_bounds__(Shape<LOG2N>::THREADS)
 psd_group_kernel(const uint32_t* __restrict__ raw,     // (F, N/2) words
                  const float2* __restrict__ twiddle,   // (N - 1,) per stage
+                 const float2* __restrict__ window,    // (N/2,) or null
                  float* __restrict__ partial,          // (G, N)
                  int F, int group, int n_valid) {
   using S = Shape<LOG2N>;
+  constexpr int WORDS = S::HALF / S::THREADS;          // words per thread
   extern __shared__ float4 smem[];
   float2* x = reinterpret_cast<float2*>(smem);         // (N,) complex
   const int tid = threadIdx.x;
+
+  // K2: window values of samples 2w and 2w+1 for each word w this thread
+  // loads, held in registers across all frames of the block.
+  float2 win[WINDOWED ? WORDS : 1];
+  if constexpr (WINDOWED) {
+#pragma unroll
+    for (int r = 0; r < WORDS; ++r) win[r] = __ldg(window + tid + r * S::THREADS);
+  }
 
   float acc[S::PER_THREAD];
 #pragma unroll
@@ -90,13 +107,20 @@ psd_group_kernel(const uint32_t* __restrict__ raw,     // (F, N/2) words
     // Word w holds samples 2w and 2w+1 as bytes (re, im, re, im).
     const uint32_t* frame = raw + static_cast<size_t>(f) * S::HALF;
 #pragma unroll
-    for (int r = 0; r < S::HALF / S::THREADS; ++r) {
+    for (int r = 0; r < WORDS; ++r) {
       const int w = tid + r * S::THREADS;
       const uint32_t v = __ldg(frame + w);
-      smem[w] = make_float4(static_cast<float>(static_cast<int>(v & 0xFFu) - 127),
-                            static_cast<float>(static_cast<int>((v >> 8) & 0xFFu) - 127),
-                            static_cast<float>(static_cast<int>((v >> 16) & 0xFFu) - 127),
-                            static_cast<float>(static_cast<int>(v >> 24) - 127));
+      float4 q = make_float4(static_cast<float>(static_cast<int>(v & 0xFFu) - 127),
+                             static_cast<float>(static_cast<int>((v >> 8) & 0xFFu) - 127),
+                             static_cast<float>(static_cast<int>((v >> 16) & 0xFFu) - 127),
+                             static_cast<float>(static_cast<int>(v >> 24) - 127));
+      if constexpr (WINDOWED) {
+        q.x = __fmul_rn(q.x, win[r].x);
+        q.y = __fmul_rn(q.y, win[r].x);
+        q.z = __fmul_rn(q.z, win[r].y);
+        q.w = __fmul_rn(q.w, win[r].y);
+      }
+      smem[w] = q;
     }
     __syncthreads();
 
@@ -138,46 +162,34 @@ psd_group_kernel(const uint32_t* __restrict__ raw,     // (F, N/2) words
   }
 }
 
-// Pass 2: out[bin] = sum over g of partial[g, bin], rows taken in a fixed
-// order (lane l sums rows l, l + kSumLanes, ...; lanes are then added in
-// order), in float64.
-__global__ void __launch_bounds__(kSumBins * kSumLanes)
-psd_sum_kernel(const float* __restrict__ partial, int G, int N,
-               float* __restrict__ out) {
-  __shared__ double lane_sum[kSumLanes][kSumBins];
-  const int b = threadIdx.x % kSumBins;
-  const int lane = threadIdx.x / kSumBins;
-  const int bin = blockIdx.x * kSumBins + b;
-  double s = 0.0;
-#pragma unroll 4
-  for (int g = lane; g < G; g += kSumLanes) {
-    s += static_cast<double>(partial[static_cast<size_t>(g) * N + bin]);
-  }
-  lane_sum[lane][b] = s;
-  __syncthreads();
-  if (lane == 0) {
-    double t = 0.0;
-    for (int l = 0; l < kSumLanes; ++l) t += lane_sum[l][b];
-    out[bin] = static_cast<float>(t);
-  }
-}
-
-template <int LOG2N>
-cudaError_t launch_groups(const void* raw, const void* twiddle, void* partial,
-                          int F, int group, int G, int n_valid,
-                          cudaStream_t stream) {
+template <int LOG2N, bool WINDOWED>
+cudaError_t launch_groups(const void* raw, const void* twiddle,
+                          const void* window, void* partial, int F,
+                          int group, int G, int n_valid, cudaStream_t stream) {
   using S = Shape<LOG2N>;
   const int smem = static_cast<int>(sizeof(float2)) * S::N;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        psd_group_kernel<LOG2N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        psd_group_kernel<LOG2N, WINDOWED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  psd_group_kernel<LOG2N><<<G, S::THREADS, smem, stream>>>(
+  psd_group_kernel<LOG2N, WINDOWED><<<G, S::THREADS, smem, stream>>>(
       static_cast<const uint32_t*>(raw), static_cast<const float2*>(twiddle),
-      static_cast<float*>(partial), F, group, n_valid);
+      static_cast<const float2*>(window), static_cast<float*>(partial), F,
+      group, n_valid);
   return cudaGetLastError();
+}
+
+template <int LOG2N>
+cudaError_t launch_groups(const void* raw, const void* twiddle,
+                          const void* window, void* partial, int F,
+                          int group, int G, int n_valid, cudaStream_t stream) {
+  return window == nullptr
+             ? launch_groups<LOG2N, false>(raw, twiddle, window, partial, F,
+                                           group, G, n_valid, stream)
+             : launch_groups<LOG2N, true>(raw, twiddle, window, partial, F,
+                                          group, G, n_valid, stream);
 }
 
 }  // namespace
@@ -185,12 +197,12 @@ cudaError_t launch_groups(const void* raw, const void* twiddle, void* partial,
 extern "C" {
 
 // Launches both passes on `stream`. raw: (F, 2N) u8, 4-byte aligned;
-// twiddle: (N - 1, 2) f32; partial: (ceil(F / group), N) f32 scratch;
-// out: (N,) f32. Returns a cudaError_t (0 on success); does not
-// synchronise.
-int rpf_fused_psd(const void* raw, const void* twiddle, void* partial,
-                  void* out, int device, int log2n, int F, int group,
-                  int n_valid, void* stream) {
+// twiddle: (N - 1, 2) f32; window: (N,) f32, 8-byte aligned, or null for
+// K1; partial: (ceil(F / group), N) f32 scratch; out: (N,) f32. Returns a
+// cudaError_t (0 on success); does not synchronise.
+int rpf_fused_psd(const void* raw, const void* twiddle, const void* window,
+                  void* partial, void* out, int device, int log2n, int F,
+                  int group, int n_valid, void* stream) {
   if (log2n < kMinLog2N || log2n > kMaxLog2N || F <= 0 || group <= 0 ||
       n_valid < 0 || n_valid > F) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -200,22 +212,19 @@ int rpf_fused_psd(const void* raw, const void* twiddle, void* partial,
   const int G = (F + group - 1) / group;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (log2n) {
-    case 6: e = launch_groups<6>(raw, twiddle, partial, F, group, G, n_valid, s); break;
-    case 7: e = launch_groups<7>(raw, twiddle, partial, F, group, G, n_valid, s); break;
-    case 8: e = launch_groups<8>(raw, twiddle, partial, F, group, G, n_valid, s); break;
-    case 9: e = launch_groups<9>(raw, twiddle, partial, F, group, G, n_valid, s); break;
-    case 10: e = launch_groups<10>(raw, twiddle, partial, F, group, G, n_valid, s); break;
-    case 11: e = launch_groups<11>(raw, twiddle, partial, F, group, G, n_valid, s); break;
-    case 12: e = launch_groups<12>(raw, twiddle, partial, F, group, G, n_valid, s); break;
-    case 13: e = launch_groups<13>(raw, twiddle, partial, F, group, G, n_valid, s); break;
-    case 14: e = launch_groups<14>(raw, twiddle, partial, F, group, G, n_valid, s); break;
+    case 6: e = launch_groups<6>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
+    case 7: e = launch_groups<7>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
+    case 8: e = launch_groups<8>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
+    case 9: e = launch_groups<9>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
+    case 10: e = launch_groups<10>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
+    case 11: e = launch_groups<11>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
+    case 12: e = launch_groups<12>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
+    case 13: e = launch_groups<13>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
+    case 14: e = launch_groups<14>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int N = 1 << log2n;
-  psd_sum_kernel<<<N / kSumBins, kSumBins * kSumLanes, 0, s>>>(
-      static_cast<const float*>(partial), G, N, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_psd_sum(partial, G, 1 << log2n, out, s));
 }
 
 const char* rpf_cuda_error_string(int error) {

@@ -1,0 +1,45 @@
+// Pass 2 of the fused PSD kernels (fused_psd.cu, fused_psd_fast.cu):
+// out[bin] = sum over g of partial[g, bin], rows taken in a fixed order
+// (lane l sums rows l, l + kSumLanes, ...; lanes are then added in order),
+// in float64. Pass 1 writes one f32 partial row per block, so the result
+// is the same on every run and no float atomics are needed.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSumBins = 32;   // bins per block, one warp wide
+constexpr int kSumLanes = 8;   // rows summed in parallel per bin
+
+__global__ void __launch_bounds__(kSumBins * kSumLanes)
+psd_sum_kernel(const float* __restrict__ partial, int G, int N,
+               float* __restrict__ out) {
+  __shared__ double lane_sum[kSumLanes][kSumBins];
+  const int b = threadIdx.x % kSumBins;
+  const int lane = threadIdx.x / kSumBins;
+  const int bin = blockIdx.x * kSumBins + b;
+  double s = 0.0;
+#pragma unroll 4
+  for (int g = lane; g < G; g += kSumLanes) {
+    s += static_cast<double>(partial[static_cast<size_t>(g) * N + bin]);
+  }
+  lane_sum[lane][b] = s;
+  __syncthreads();
+  if (lane == 0) {
+    double t = 0.0;
+    for (int l = 0; l < kSumLanes; ++l) t += lane_sum[l][b];
+    out[bin] = static_cast<float>(t);
+  }
+}
+
+// N a multiple of kSumBins; partial (G, N) f32; out (N,) f32.
+inline cudaError_t launch_psd_sum(const void* partial, int G, int N, void* out,
+                                  cudaStream_t stream) {
+  psd_sum_kernel<<<N / kSumBins, kSumBins * kSumLanes, 0, stream>>>(
+      static_cast<const float*>(partial), G, N, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+}  // namespace

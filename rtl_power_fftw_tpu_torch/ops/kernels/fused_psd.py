@@ -1,10 +1,12 @@
 """Fused averaged-PSD step: raw u8 IQ frames -> (N,) f32 partial power sum.
 
 Replaces ``rtl_power_fftw_tpu/ops/kernels/fused_psd.py:make_fused_psd_fn``
-(the unwindowed, single-stream, default-precision kernel, K1) with a CUDA
-C++ kernel written for Hopper (``csrc/fused_psd.cu``). The computation:
+at default precision, single-stream, unwindowed (K1) and windowed (K2),
+with a CUDA C++ kernel written for Hopper (``csrc/fused_psd.cu``). The
+computation:
 
-1. dequantize: re = byte[2n] - 127, im = byte[2n+1] - 127;
+1. dequantize: re = byte[2n] - 127, im = byte[2n+1] - 127; with a
+   window, re·w[n] and im·w[n] in float32;
 2. length-N DFT in float32;
 3. |X|^2;
 4. zero the frames f >= ``n_valid``;
@@ -21,12 +23,14 @@ the 2 bytes per sample it reads from device memory.
 :func:`fused_psd` dispatches on the tensor's device: a CPU tensor goes to
 the plain PyTorch version :func:`fused_psd_reference`; a CUDA tensor goes
 to the kernel, or raises. :data:`COUNTS` records which one served each
-call, so a run can show that its main path went through the kernel.
+call (K1 and K2 launches apart), so a run can show that its main path
+went through the kernel.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,17 +52,19 @@ class KernelLaunchError(RuntimeError):
 
 
 class LaunchCounts:
-    """Calls served by the CUDA kernel and by the plain version.
+    """Calls served by the CUDA kernel and by the plain version;
+    ``kernel_windowed`` counts the kernel's windowed launches (K2) apart
+    from its unwindowed ones (``kernel``, K1).
 
-    Incremented by :func:`fused_psd` only; a session's single consumer
-    thread is its only caller while a session runs."""
+    Incremented by the wrappers only; a session's single consumer thread
+    is their only caller while a session runs."""
 
     def __init__(self) -> None:
-        self.kernel = 0
-        self.plain = 0
+        self.reset()
 
     def reset(self) -> None:
         self.kernel = 0
+        self.kernel_windowed = 0
         self.plain = 0
 
 
@@ -99,56 +105,91 @@ def frames_per_block(F: int, chunk: int) -> int:
     return group
 
 
-def fused_psd_reference(raw_u8: torch.Tensor, n_valid: int,
-                        chunk: int) -> torch.Tensor:
+def fused_psd_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+                        window: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """The plain PyTorch version: (F, 2N) uint8 -> (N,) float32."""
     F, two_n = raw_u8.shape
     N = two_n // 2
     v = raw_u8.reshape(F, N, 2).to(torch.int32)
     re = (v[..., 0] - 127).to(torch.float32)
     im = (v[..., 1] - 127).to(torch.float32)
+    if window is not None:
+        re = re * window
+        im = im * window
     X = torch.fft.fft(torch.complex(re, im), dim=-1)
     pwr = X.real * X.real + X.imag * X.imag
     pwr[n_valid:] = 0.0
     return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
 
 
-def _check(raw_u8: torch.Tensor, n_valid: int, chunk: int) -> None:
+def check_args(kernel: str, eligible, raw_u8: torch.Tensor, n_valid: int,
+               chunk: int, window: Optional[torch.Tensor]) -> None:
+    """Raise on arguments ``kernel``'s wrapper does not take: frames that
+    are not a contiguous (F, 2N) uint8 tensor with ``eligible(N)``, a
+    ``chunk`` that does not divide F, ``n_valid`` outside [0, F], or a
+    window that is not None or an (N,) contiguous float32 tensor on the
+    frames' device."""
     if not isinstance(raw_u8, torch.Tensor) or raw_u8.dtype != torch.uint8:
-        raise TypeError("fused_psd takes a uint8 tensor of raw IQ frames")
+        raise TypeError(f"{kernel} takes a uint8 tensor of raw IQ frames")
     if raw_u8.dim() != 2 or raw_u8.shape[0] < 1 or raw_u8.shape[1] % 2:
         raise ValueError(f"raw frames must be (F, 2N), got "
                          f"{tuple(raw_u8.shape)}")
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
-    if not fused_psd_eligible(N):
-        raise ValueError(f"fused_psd takes power-of-two N in "
-                         f"[{MIN_N}, {MAX_N}], got N={N}")
+    if not eligible(N):
+        raise ValueError(f"{kernel} does not take N={N}")
     if not raw_u8.is_contiguous():
         raise ValueError("raw frames must be contiguous")
     if chunk < 1 or F % chunk:
         raise ValueError(f"chunk={chunk} must divide F={F}")
     if not 0 <= n_valid <= F:
         raise ValueError(f"n_valid={n_valid} outside [0, {F}]")
+    if window is None:
+        return
+    if (not isinstance(window, torch.Tensor)
+            or window.dtype != torch.float32 or window.shape != (N,)
+            or not window.is_contiguous()):
+        raise ValueError(f"window must be a contiguous ({N},) float32 "
+                         "tensor")
+    if window.device != raw_u8.device:
+        raise ValueError(f"window on {window.device}, frames on "
+                         f"{raw_u8.device}")
 
 
-def fused_psd(raw_u8: torch.Tensor, n_valid: int, chunk: int) -> torch.Tensor:
+def check_alignment(kernel: str, raw_u8: torch.Tensor, raw_align: int,
+                    window: Optional[torch.Tensor], window_align: int) -> None:
+    """Raise unless the pointers meet ``kernel``'s vector loads: frames
+    ``raw_align``-byte aligned, the window ``window_align``-byte aligned
+    (a misaligned load is a sticky error that breaks the CUDA context)."""
+    if raw_u8.data_ptr() % raw_align:
+        raise ValueError(f"{kernel}: raw frames must be {raw_align}-byte "
+                         "aligned on the device")
+    if window is not None and window.data_ptr() % window_align:
+        raise ValueError(f"{kernel}: window must be {window_align}-byte "
+                         "aligned on the device")
+
+
+def fused_psd(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+              window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(F, 2N) uint8 frames, ``n_valid`` real frames -> (N,) float32 sum of
-    |DFT|^2 over those frames, on the tensor's device.
+    |DFT|^2 over those frames, on the tensor's device. ``window``: an
+    (N,) float32 tensor on the same device (K2), or None (K1).
 
     A CUDA tensor runs the kernel on the current stream (asynchronously);
     a CPU tensor runs the plain version."""
     n_valid = int(n_valid)
-    _check(raw_u8, n_valid, chunk)
+    check_args("fused_psd", fused_psd_eligible, raw_u8, n_valid, chunk,
+               window)
     if raw_u8.device.type == "cpu":
         COUNTS.plain += 1
-        return fused_psd_reference(raw_u8, n_valid, chunk)
+        return fused_psd_reference(raw_u8, n_valid, chunk, window)
     if raw_u8.device.type != "cuda":
         raise ValueError(f"fused_psd runs on cuda or cpu tensors, not "
                          f"{raw_u8.device}")
-    if raw_u8.data_ptr() % 4:
-        raise ValueError("raw frames must be 4-byte aligned on the device")
+    # 32-bit IQ words; the window as float2 (two samples per word).
+    check_alignment("fused_psd", raw_u8, 4, window, 8)
     from . import _build
-    lib = _build.load()
+    lib = _build.load("fused_psd")
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
     group = frames_per_block(F, chunk)
     device = raw_u8.device
@@ -158,6 +199,7 @@ def fused_psd(raw_u8: torch.Tensor, n_valid: int, chunk: int) -> torch.Tensor:
     twiddle = _device_twiddles(N, device)
     stream = torch.cuda.current_stream(device)
     err = lib.rpf_fused_psd(raw_u8.data_ptr(), twiddle.data_ptr(),
+                            None if window is None else window.data_ptr(),
                             partial.data_ptr(), out.data_ptr(), device.index,
                             N.bit_length() - 1, F, group, n_valid,
                             stream.cuda_stream)
@@ -165,5 +207,8 @@ def fused_psd(raw_u8: torch.Tensor, n_valid: int, chunk: int) -> torch.Tensor:
         raise KernelLaunchError(
             f"fused_psd launch failed: "
             f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
-    COUNTS.kernel += 1
+    if window is None:
+        COUNTS.kernel += 1
+    else:
+        COUNTS.kernel_windowed += 1
     return out

@@ -18,6 +18,7 @@ import torch
 from rtl_power_fftw_tpu.exceptions import ReturnValue, RPFexception
 
 from .kernels.fused_psd import MAX_N, MIN_N, fused_psd, fused_psd_eligible
+from .kernels.fused_psd_fast import fused_psd_fast, fused_psd_fast_eligible
 
 # Frames are reduced in chunks of this size before the cross-chunk sum;
 # two-stage summation keeps f32 rounding error at ~(CHUNK + F/CHUNK)·ε.
@@ -52,10 +53,13 @@ class PsdStep:
     """A device step: (F, 2N) u8 frames -> (N,) f32 partial power sum.
 
     ``n_valid`` masks out padding rows so the step shape never changes.
-    On a CUDA device the step is the hand-written kernel
-    (``kernels/csrc/fused_psd.cu``); on the CPU it is the kernel's plain
-    PyTorch version. The result is a tensor on ``device``; on CUDA it is
-    computed asynchronously on the current stream.
+    On a CUDA device the step is a hand-written kernel: at the default
+    precision ``kernels/csrc/fused_psd.cu`` (K1, or K2 with a window); at
+    ``precision="high"`` the tensor-core kernel
+    ``kernels/csrc/fused_psd_fast.cu`` (K3), windowed or not. On the CPU
+    it is the kernel's plain PyTorch version. The result is a tensor on
+    ``device``; on CUDA it is computed asynchronously on the current
+    stream. The window is copied to the device once, here.
     """
 
     def __init__(self, N: int, frames_per_step: int, device,
@@ -66,13 +70,13 @@ class PsdStep:
             raise ValueError("N must be even")
         if precision not in ("highest", "high"):
             raise ValueError("precision must be 'highest' or 'high'")
+        fast = precision == "high"
         unported = None
-        if window is not None:
-            unported = "windowed spectra (-w, --window-function)"
-        elif precision != "highest":
-            unported = "--precision high"
-        elif backend not in ("auto", "pallas"):
+        if backend not in ("auto", "pallas"):
             unported = f"--fft-backend {backend}"
+        elif fast and not fused_psd_fast_eligible(N):
+            unported = (f"--precision high at {N} bins (the tensor-core "
+                        "step takes powers of two from 256 to 16384)")
         elif not fused_psd_eligible(N):
             unported = (f"{N} bins (the CUDA step takes powers of two "
                         f"from {MIN_N} to {MAX_N})")
@@ -84,9 +88,19 @@ class PsdStep:
         self.F, self._chunk = adapt_batch(frames_per_step)
         self.device = torch.device(device)
         self.backend = backend
-        #: "cuda" (the hand-written kernel) or "plain" (its PyTorch
+        self.window = None
+        if window is not None:
+            w = np.asarray(window, dtype=np.float32)
+            if w.shape != (N,):
+                raise ValueError(f"window must have shape ({N},), got "
+                                 f"{w.shape}")
+            self.window = torch.from_numpy(w.copy()).to(self.device)
+        self._kernel = fused_psd_fast if fast else fused_psd
+        #: "cuda" or "cuda_fast" (the hand-written kernel at default or
+        #: relaxed precision), "plain" or "plain_fast" (its PyTorch
         #: version, on the CPU).
-        self.path = "cuda" if self.device.type == "cuda" else "plain"
+        self.path = (("cuda" if self.device.type == "cuda" else "plain")
+                     + ("_fast" if fast else ""))
         self.takes_u16 = False
 
     def __call__(self, raw, n_valid: int) -> torch.Tensor:
@@ -94,7 +108,7 @@ class PsdStep:
         step's device, or a numpy array, which is copied there first."""
         if isinstance(raw, np.ndarray):
             raw = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
-        return fused_psd(raw, n_valid, self._chunk)
+        return self._kernel(raw, n_valid, self._chunk, self.window)
 
 
 class FrameSlicer:

@@ -86,7 +86,8 @@ class Datastore:
     reference's single Datastore, rtl_power_fftw.cxx:112).
     """
 
-    def __init__(self, params: Params, device, max_in_flight: int = 4):
+    def __init__(self, params: Params, device,
+                 window: Optional[np.ndarray] = None, max_in_flight: int = 4):
         self.params = params
         self.N = params.N
         hop = welch_hop(params.N, params.welch_overlap)
@@ -99,7 +100,7 @@ class Datastore:
             frames_per_step = max(1, min(params.buf_length // (2 * params.N), 4096))
         self.device = torch.device(device)
         self.step = PsdStep(params.N, frames_per_step, self.device,
-                            backend=params.fft_backend,
+                            window=window, backend=params.fft_backend,
                             precision=params.precision)
         self.slicer = FrameSlicer(params.N, hop=hop)
         self.max_in_flight = max_in_flight
@@ -129,7 +130,8 @@ class Datastore:
 
     @property
     def transform_path(self) -> str:
-        """Which step serves the session: "cuda" or "plain"."""
+        """Which step serves the session: "cuda", "cuda_fast", "plain" or
+        "plain_fast" (PsdStep.path)."""
         return self.step.path
 
     def bytes_needed(self) -> int:

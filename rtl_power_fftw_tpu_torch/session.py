@@ -65,12 +65,6 @@ def check_ported(params: Params) -> None:
         unported.append("--sk-file")
     if params.sk_excise > 0.0:
         unported.append("--sk-excise")
-    if params.window:
-        unported.append("-w/--window")
-    if params.window_function:
-        unported.append("--window-function")
-    if params.precision != "highest":
-        unported.append("--precision high")
     if params.profile_dir:
         unported.append("--profile")
     if unported:
@@ -291,7 +285,7 @@ def run_session(params: Params, source: IQSource, aux: AuxData, *,
     plan = Plan(params, actual_samplerate)
     plan.print(file=err)
 
-    data = Datastore(params, device)
+    data = Datastore(params, device, window=aux.window_values)
 
     if _chatty(params):
         print(f"Transform path: {data.transform_path} "

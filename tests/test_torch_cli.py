@@ -38,15 +38,27 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
     ["--multitaper", "2"],
     ["--sk-file", "sk.dat"],
     ["--sk-excise", "3"],
-    ["-w", "window.txt"],
-    ["--window-function", "hann"],
-    ["--precision", "high"],
+    ["--fft-backend", "fourstep"],
+    ["--fft-backend", "xla", "--window-function", "hann"],
+    ["--precision", "high", "-b", "128"],
     ["--profile", "trace"],
     ["--fft-backend", "matmul"],
 ])
 def test_unported_options_exit_3(extra, capsys):
     assert cli.main(SMALL + extra, device=CPU) == 3
     assert "Not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra,path", [
+    (["--window-function", "hann"], "plain"),
+    (["--precision", "high"], "plain_fast"),
+    (["--precision", "high", "--window-function", "blackman"], "plain_fast"),
+])
+def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
+    assert cli.main(SMALL + extra, device=CPU) == 0
+    captured = capsys.readouterr()
+    assert captured.out.startswith("# rtl-power-fftw output\n")
+    assert f"Transform path: {path} " in captured.err
 
 
 def test_ineligible_bins_exit_3(capsys):
@@ -133,9 +145,7 @@ def _exit_code(argv):
     (["-b", "-5"], 3),                                  # InvalidArgument
     (["--bogus-flag"], 4),                              # CLI parse error
     (["-B", "/does/not/exist", "-n", "1", "--source", "synthetic:"], 5),
-    # The JAX package exits 5 here (unreadable window file); windows are
-    # not ported yet, so the option itself is refused first.
-    (["-w", "/does/not/exist", "-n", "1"], 3),
+    (["-w", "/does/not/exist", "-n", "1"], 5),           # as the JAX package
 ])
 def test_exit_code_table(argv, code, capsys):
     assert _exit_code(argv) == code

@@ -1,4 +1,5 @@
-"""The PyTorch package's fused PSD step against the JAX Pallas kernel.
+"""The PyTorch package's fused PSD step (K1, and K2 with a window)
+against the JAX Pallas kernel.
 
 On the CPU the wrapper ``fused_psd`` runs the kernel's plain PyTorch
 version; the JAX kernel runs in interpret mode, as tests/test_kernels.py
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from rtl_power_fftw_tpu.auxdata import make_window
 from rtl_power_fftw_tpu.ops.kernels import make_fused_psd_fn
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
 
@@ -40,12 +42,30 @@ def test_matches_jax_kernel_and_golden(N, F, n_valid):
     np.testing.assert_allclose(got, want_jax, rtol=2e-5)
 
 
-def kernel_transcription(raw: np.ndarray, n_valid: int, chunk: int):
+@pytest.mark.parametrize("N,F,n_valid,window", [
+    (256, 64, 64, "hann"), (512, 64, 37, "blackman"), (1024, 32, 32, "hann"),
+    (2048, 16, 16, "flattop")])
+def test_windowed_matches_jax_kernel_and_golden(N, F, n_valid, window):
+    raw = frames(F, N, 2 * N + n_valid)
+    w = make_window(window, N)
+    jax_fn = make_fused_psd_fn(N, F, windowed=True, interpret=True)
+    want_jax = np.asarray(jax_fn(raw.view(np.uint16), n_valid, w), np.float64)
+    got = fp.fused_psd(torch.from_numpy(raw), n_valid, 16,
+                       torch.from_numpy(w)).numpy()
+    gold, _ = golden_accumulate(raw[:n_valid].ravel(), N, n_valid, window=w)
+    np.testing.assert_allclose(got, unshift(gold), rtol=1e-5)
+    np.testing.assert_allclose(want_jax, unshift(gold), rtol=1e-5)
+    np.testing.assert_allclose(got, want_jax, rtol=2e-5)
+
+
+def kernel_transcription(raw: np.ndarray, n_valid: int, chunk: int,
+                         window=None):
     """numpy transcription of csrc/fused_psd.cu: word-wise dequantization,
-    in-place radix-2 decimation-in-frequency stages with the per-stage
-    twiddle table, f32 accumulation per block of frames_per_block frames,
-    bit-reversed slot -> bin on the partial-row write, and the float64
-    sum of partial rows."""
+    the window pair of each word (K2: a float2 per 32-bit word, held in
+    registers), in-place radix-2 decimation-in-frequency stages with the
+    per-stage twiddle table, f32 accumulation per block of
+    frames_per_block frames, bit-reversed slot -> bin on the partial-row
+    write, and the float64 sum of partial rows."""
     F, N = raw.shape[0], raw.shape[1] // 2
     log2n = N.bit_length() - 1
     tw = fp.stage_twiddles(N)
@@ -53,6 +73,8 @@ def kernel_transcription(raw: np.ndarray, n_valid: int, chunk: int):
     group = fp.frames_per_block(F, chunk)
     rev = np.array([int(format(i, f"0{log2n}b")[::-1], 2) for i in range(N)])
     j = np.arange(N // 2)
+    if window is not None:
+        win = np.asarray(window, np.float32).reshape(N // 2, 2)  # by word
     out = np.zeros(N, np.float64)
     for f0 in range(0, F, group):
         acc = np.zeros(N, np.float32)
@@ -61,6 +83,11 @@ def kernel_transcription(raw: np.ndarray, n_valid: int, chunk: int):
             x = np.empty(N, np.complex64)
             x[0::2] = ((w & 0xFF) - 127) + 1j * (((w >> 8) & 0xFF) - 127)
             x[1::2] = (((w >> 16) & 0xFF) - 127) + 1j * ((w >> 24) - 127)
+            if window is not None:
+                x[0::2] = ((x[0::2].real * win[:, 0])
+                           + 1j * (x[0::2].imag * win[:, 0]))
+                x[1::2] = ((x[1::2].real * win[:, 1])
+                           + 1j * (x[1::2].imag * win[:, 1]))
             for s in range(log2n - 1, -1, -1):
                 m = 1 << s
                 k = j & (m - 1)
@@ -75,12 +102,14 @@ def kernel_transcription(raw: np.ndarray, n_valid: int, chunk: int):
     return out
 
 
-@pytest.mark.parametrize("N,F,n_valid", [(64, 16, 16), (256, 24, 13),
-                                         (2048, 8, 8)])
-def test_kernel_transcription_matches_golden(N, F, n_valid):
+@pytest.mark.parametrize("N,F,n_valid,window", [
+    (64, 16, 16, None), (256, 24, 13, None), (2048, 8, 8, None),
+    (64, 16, 16, "hann"), (256, 24, 13, "blackman"), (2048, 8, 8, "hann")])
+def test_kernel_transcription_matches_golden(N, F, n_valid, window):
     raw = frames(F, N, 3 * N + n_valid)
-    got = kernel_transcription(raw, n_valid, 8)
-    gold, _ = golden_accumulate(raw[:n_valid].ravel(), N, n_valid)
+    w = None if window is None else make_window(window, N)
+    got = kernel_transcription(raw, n_valid, 8, w)
+    gold, _ = golden_accumulate(raw[:n_valid].ravel(), N, n_valid, window=w)
     np.testing.assert_allclose(got, unshift(gold), rtol=1e-5)
 
 
@@ -133,26 +162,61 @@ def test_rejects_what_the_kernel_does_not_take(make, n_valid, chunk, exc):
         fp.fused_psd(make(), n_valid, chunk)
 
 
+@pytest.mark.parametrize("window", [
+    torch.ones(128), torch.ones(256, dtype=torch.float64),
+    torch.ones((16, 16)), torch.ones(512)[::2], np.ones(256, np.float32),
+    torch.ones(256, device="meta")])
+def test_rejects_windows_the_kernel_does_not_take(window):
+    with pytest.raises(ValueError):
+        fp.fused_psd(torch.zeros((8, 512), dtype=torch.uint8), 8, 8, window)
+
+
+@pytest.mark.parametrize("raw_offset,window_offset,ok", [
+    (0, 0, True), (4, 2, True), (1, 0, False), (2, 0, False), (0, 1, False),
+    (4, 3, False)])
+def test_alignment_check_matches_the_kernels_loads(raw_offset, window_offset,
+                                                   ok):
+    """K1/K2 load the frames as 32-bit words and the window as float2: a
+    contiguous view at an offset the loads cannot take must raise before
+    a launch (the wrapper runs this check on CUDA tensors only)."""
+    raw = torch.zeros(8 * 512 + 8, dtype=torch.uint8)
+    raw = raw[raw_offset:raw_offset + 8 * 512].view(8, 512)
+    window = torch.ones(256 + 4)[window_offset:window_offset + 256]
+    assert raw.is_contiguous() and window.is_contiguous()
+    fp.check_args("fused_psd", fp.fused_psd_eligible, raw, 8, 8, window)
+    if ok:
+        fp.check_alignment("fused_psd", raw, 4, window, 8)
+    else:
+        with pytest.raises(ValueError, match="aligned"):
+            fp.check_alignment("fused_psd", raw, 4, window, 8)
+
+
 def test_cpu_calls_count_as_plain():
     counts = fp.COUNTS
     counts.reset()
     fp.fused_psd(torch.zeros((8, 128), dtype=torch.uint8), 8, 8)
-    assert (counts.kernel, counts.plain) == (0, 1)
+    fp.fused_psd(torch.zeros((8, 128), dtype=torch.uint8), 8, 8,
+                 torch.ones(64))
+    assert (counts.kernel, counts.kernel_windowed, counts.plain) == (0, 0, 2)
     counts.reset()
-    assert (counts.kernel, counts.plain) == (0, 0)
+    assert (counts.kernel, counts.kernel_windowed, counts.plain) == (0, 0, 0)
 
 
+@pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """Runs only where a CUDA device is present (the chip smoke covers it
     in full); on a CPU host it skips."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+        pytest.skip("needs a CUDA device (run on the card: chip_smoke.py)")
     N, F = 2048, 64
     raw = torch.from_numpy(frames(F, N, 11)).cuda()
-    before = fp.COUNTS.kernel
-    got = fp.fused_psd(raw, 50, 64)
-    want = fp.fused_psd_reference(raw, 50, 64)
-    torch.cuda.synchronize()
-    assert fp.COUNTS.kernel == before + 1
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=1e-5)
+    w = torch.from_numpy(make_window("hann", N)).cuda()
+    before = (fp.COUNTS.kernel, fp.COUNTS.kernel_windowed)
+    for window in (None, w):
+        got = fp.fused_psd(raw, 50, 64, window)
+        want = fp.fused_psd_reference(raw, 50, 64, window)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5)
+    assert (fp.COUNTS.kernel, fp.COUNTS.kernel_windowed) == (before[0] + 1,
+                                                             before[1] + 1)

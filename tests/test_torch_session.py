@@ -5,7 +5,11 @@ and invariant to read chunking). The JAX side runs its Pallas kernel in
 interpret mode (``--fft-backend pallas``); the port runs on the CPU, so
 its step is the kernel's plain PyTorch version. Text headers, frequencies,
 ``.met`` files (timestamps masked) and stderr printouts must match byte
-for byte; spectra must agree within 1e-5 relative in linear power.
+for byte; spectra must agree within 1e-5 relative in linear power, or,
+under ``--precision high``, within the relaxed tier's RELAXED_RTOL: both
+sides run the fast bf16-split scheme, but at different N1 x N2 splits
+(the JAX kernel's 128-lane rule against the port's tensor-core rule), so
+their f32 rounding differs.
 """
 
 import io
@@ -18,7 +22,7 @@ import pytest
 import torch
 
 import rtl_power_fftw_tpu.interrupts as interrupts
-from rtl_power_fftw_tpu.auxdata import AuxData
+from rtl_power_fftw_tpu.auxdata import AuxData, make_window
 from rtl_power_fftw_tpu.config import parse_args
 from rtl_power_fftw_tpu.exceptions import RPFexception
 from rtl_power_fftw_tpu.session import run_session as jax_run_session
@@ -35,8 +39,8 @@ SCAN_DRIVE = ["-f", "100M:106M", "-n", "16", "-b", "256", "-q",
               "--frames-per-step", "8", "--fft-backend", "pallas",
               "--source", "synthetic:tone=104.9M/40,noise=5,seed=2,dead=103M"]
 LINEAR_RTOL = 1e-5
-# 1e-5 relative in linear power, in dB.
-DB_TOL = 10.0 * np.log10(1.0 + LINEAR_RTOL)
+# tests/test_kernels.py:144 holds the fast kernel to 1e-4 of the golden.
+RELAXED_RTOL = 1e-4
 TIMESTAMP = re.compile(r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d UTC")
 
 
@@ -67,8 +71,11 @@ def last_digit_unit(text: str) -> float:
 
 
 def assert_text_outputs_match(jax_out: str, port_out: str,
-                              linear: bool = False) -> int:
-    """Returns the number of spectrum values compared."""
+                              linear: bool = False,
+                              rtol: float = LINEAR_RTOL) -> int:
+    """Returns the number of spectrum values compared. ``rtol`` is
+    relative in linear power (converted to dB unless ``linear``)."""
+    db_tol = 10.0 * np.log10(1.0 + rtol)
     a, b = jax_out.split("\n"), port_out.split("\n")
     assert len(a) == len(b)
     n_values = 0
@@ -79,7 +86,7 @@ def assert_text_outputs_match(jax_out: str, port_out: str,
         (fx, vx), (fy, vy) = x.split(), y.split()
         assert fx == fy
         # Each side is rounded to six significant digits when printed.
-        tol = (LINEAR_RTOL * abs(float(vx)) if linear else DB_TOL) \
+        tol = (rtol * abs(float(vx)) if linear else db_tol) \
             + max(last_digit_unit(vx), last_digit_unit(vy))
         assert abs(float(vx) - float(vy)) <= tol, (x, y)
         n_values += 1
@@ -206,6 +213,12 @@ def outcome(argv, port: bool):
     return int(rv), out, mask_stderr(err)
 
 
+def _aux_file(tmp_path, name, values):
+    p = tmp_path / name
+    p.write_text("\n".join(f"{v:.9g}" for v in values) + "\n")
+    return str(p)
+
+
 def _file_source(tmp_path, n_bytes):
     p = tmp_path / "stream.iq"
     np.random.default_rng(8).integers(0, 256, n_bytes, dtype=np.uint8) \
@@ -241,6 +254,27 @@ SCENARIOS = {
     "small buffers": lambda tmp: [
         "-f", "100M", "--buffers", "2", "-s", "32768", "-n", "100",
         "-b", "512", "--source", "synthetic:tone=99.5M/30,noise=5,seed=9"],
+    "hann window": lambda tmp: [
+        "-f", "100M", "-n", "30", "-b", "512", "--window-function", "hann",
+        "--source", "synthetic:tone=100.3M/35,noise=5,seed=12"],
+    "window file (-w)": lambda tmp: [
+        "-f", "100M", "-n", "24", "-b", "256",
+        "-w", _aux_file(tmp, "blackman.txt", make_window("blackman", 256)),
+        "--source", "synthetic:tone=99.7M/30,noise=5,seed=13"],
+    # BASELINE config 2's shape (Welch 50%, Hann, baseline) at N = 1024.
+    "welch + hann + baseline": lambda tmp: [
+        "-f", "100M", "-n", "40", "-b", "1024", "--window-function", "hann",
+        "--welch-overlap", "50",
+        "-B", _aux_file(tmp, "base.dat",
+                        [-60.0 + 0.003 * i for i in range(1024)]),
+        "--source", "synthetic:tone=100.2M/35,noise=6,seed=1"],
+    "precision high": lambda tmp: [
+        "-f", "100M", "-n", "30", "-b", "512", "--precision", "high",
+        "--source", "synthetic:tone=100.3M/35,noise=5,seed=14"],
+    "precision high + hann": lambda tmp: [
+        "-f", "100M", "-n", "30", "-b", "1024", "--precision", "high",
+        "--window-function", "hann",
+        "--source", "synthetic:tone=100.4M/35,noise=5,seed=15"],
 }
 
 
@@ -254,7 +288,8 @@ def test_scenario_matches_jax_session(name, tmp_path):
     res_j, out_j, err_j = outcome(argv, port=False)
     res_p, out_p, err_p = outcome(argv, port=True)
     assert res_p == res_j
-    n_values = assert_text_outputs_match(out_j, out_p)
+    rtol = RELAXED_RTOL if "--precision" in argv else LINEAR_RTOL
+    n_values = assert_text_outputs_match(out_j, out_p, rtol=rtol)
     assert n_values > 0 or isinstance(res_j, tuple)
     assert err_p == err_j
 

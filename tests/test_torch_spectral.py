@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from rtl_power_fftw_tpu.auxdata import make_window
 from rtl_power_fftw_tpu.config import parse_args
 from rtl_power_fftw_tpu.exceptions import ReturnValue, RPFexception
 from rtl_power_fftw_tpu.ops import spectral as jax_spectral
@@ -105,8 +106,9 @@ def test_psd_step_matches_jax_step_and_golden(N, F, n_valid):
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(window=np.ones(512, np.float32)), "windowed"),
-    (dict(precision="high"), "--precision high"),
+    (dict(window=np.ones(512, np.float32), backend="fourstep"),
+     "--fft-backend fourstep"),
+    (dict(N=128, precision="high"), "--precision high at 128 bins"),
     (dict(backend="matmul"), "--fft-backend matmul"),
     (dict(N=500), "500 bins"),
     (dict(N=32768), "32768 bins"),
@@ -118,6 +120,60 @@ def test_psd_step_rejects_unported(kwargs, what):
         spectral.PsdStep(**args)
     assert e.value.return_value == ReturnValue.InvalidArgument
     assert "Not yet ported" in str(e.value) and what in str(e.value)
+
+
+@pytest.mark.parametrize("N,F,n_valid,window,precision", [
+    (512, 40, 33, "hann", "highest"), (256, 16, 16, "blackman", "highest"),
+    (512, 40, 40, None, "high"), (1024, 16, 9, "hann", "high")])
+def test_psd_step_routes_window_and_precision(N, F, n_valid, window,
+                                              precision):
+    """The port's step at a window and precision against the JAX
+    package's Pallas step at the same options, and the golden."""
+    raw = np.random.default_rng(N + F).integers(0, 256, (F, 2 * N),
+                                                dtype=np.uint8)
+    w = None if window is None else make_window(window, N)
+    step = spectral.PsdStep(N, F, CPU, window=w, precision=precision)
+    fast = precision == "high"
+    assert step.path == ("plain_fast" if fast else "plain")
+    assert step.window is None or (step.window.dtype == torch.float32
+                                   and step.window.device == CPU)
+    got = step(raw, n_valid).numpy()
+    want = np.asarray(jax_spectral.PsdStep(N, F, window=w, backend="pallas",
+                                           precision=precision)(raw, n_valid),
+                      np.float64)
+    gold, _ = golden_accumulate(raw[:n_valid].ravel(), N, n_valid, window=w)
+    # --precision high: both run the fast scheme at different splits.
+    rtol = 1e-4 if fast else 1e-5
+    np.testing.assert_allclose(got, np.fft.ifftshift(gold), rtol=rtol)
+    np.testing.assert_allclose(got, want, rtol=2 * rtol)
+
+
+def test_psd_step_rejects_a_window_of_the_wrong_length():
+    with pytest.raises(ValueError):
+        spectral.PsdStep(512, 16, CPU, window=np.ones(256, np.float32))
+
+
+def test_datastore_passes_the_window_to_its_step():
+    N, repeats = 256, 20
+    params = parse_args(["-b", str(N), "-n", str(repeats),
+                         "--frames-per-step", "8", "--welch-overlap", "50"],
+                        stderr=io.StringIO())
+    w = make_window("hann", N)
+    ds = datastore.Datastore(params, CPU, window=w, max_in_flight=2)
+    stream = np.random.default_rng(6).integers(0, 256, 2 * N * repeats,
+                                               dtype=np.uint8)
+    ds.begin_acquisition()
+    ds.acquire_slot()
+    ds.push_buffer(stream)
+    result = ds.finish_acquisition()
+    assert result.repeats_done == repeats
+    hop = N // 2
+    want = np.zeros(N)
+    for f in range(repeats):
+        seg = stream[2 * hop * f:2 * hop * f + 2 * N]
+        p, _ = golden_accumulate(seg, N, 1, window=w)
+        want += p
+    np.testing.assert_allclose(result.pwr, np.fft.ifftshift(want), rtol=1e-5)
 
 
 def test_datastore_carries_frames_and_caps_repeats():
