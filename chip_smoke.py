@@ -25,15 +25,27 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the ``--precision high`` drive gives it, and under 12 seeds of
    35 dB tones against the JAX fast scheme's own error on the same
    realizations;
-6. times of K1, K2, K3 and their plain versions with CUDA events;
-7. end to end through ``cli.main`` in-process: the canonical 2048-bin
+6. K4 (``fused_psd_streams``, the ``--streams`` step) against its plain
+   version, the per-stream float64 golden and K1 (or K2) run on each
+   stream's own frames and count, at BASELINE config 5's step (16
+   streams, 2048 bins, 256 frames), at 4 streams of 8192 bins with Hann,
+   at 3 streams of 256 bins with counts (F, 0, 5) and at the windowed
+   streams scan drive's own step (4 streams, 256 bins, Hann, the frames
+   per step its acquisition picks, 32 valid frames per stream), each run
+   twice for determinism, rows of zero count exactly 0; then 12 seeds of
+   35 dB tones at config 5's step, the combined sum against the scipy
+   float32 FFT (the FFTW-class budget);
+7. times of K1, K2, K3, K4 and their plain versions with CUDA events;
+8. end to end through ``cli.main`` in-process: the canonical 2048-bin
    20,000-spectrum drive (K1), a hopping matrix drive with a dead hop
    (K1), BASELINE config 2 (8192 bins, Hann, 50% Welch overlap; K2)
    against a float64 Welch transcription of the recorded stream, fed
-   back to itself with ``-B``, and a ``--precision high`` drive with a
-   Blackman window file (K3). Every launch counter is reset just before
-   each drive; the drive's kernel must have launched and no plain
-   version may have run.
+   back to itself with ``-B``, a ``--precision high`` drive with a
+   Blackman window file (K3), BASELINE config 5 (``--streams 16``; K4)
+   against the float64 golden of the 16 recorded streams, and a windowed
+   hopping matrix drive over 4 streams with a dead hop (K4 windowed).
+   Every launch counter is reset just before each drive; the drive's
+   kernel must have launched and no plain version may have run.
 
 Stdout ends with a ``{"kernels": [...]}`` line and then the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -72,6 +84,14 @@ FAST_FLOOR_TONE = 4e-5
 # The drives' synthetic source: a 35 dB tone at 100.2 MHz, 2 MS/s.
 SOURCE = "synthetic:tone=100.2M/35,noise=6,seed=1"
 RATE = 2_000_000
+# BASELINE config 5 (bench_configs.py:159-198): 16 streams.
+C5_STREAMS = 16
+# The windowed hopping matrix drive over 4 streams (K4 windowed), less its
+# "-m <path>".
+STREAMS_SCAN_ARGV = ["-f", "100M:106M", "-n", "32", "-b", "256",
+                     "--streams", "4", "--window-function", "hann", "-q",
+                     "--source",
+                     "synthetic:tone=104.9M/40,noise=5,seed=2,dead=103M"]
 
 
 class SmokeFailure(AssertionError):
@@ -334,6 +354,111 @@ def phase_k3(dev, rng, ff, adapt_batch, make_window):
     return max_abs
 
 
+def streams_scan_plan(dev) -> dict:
+    """The step the streams scan drive runs: its options parsed as the CLI
+    parses them, and the shape the multi-stream acquisition builds from
+    them (a stand-in source per stream; only their number is read)."""
+    from rtl_power_fftw_tpu.config import parse_args
+    from rtl_power_fftw_tpu_torch.parallel.multistream import (
+        MultiStreamAcquisition)
+    params = parse_args(STREAMS_SCAN_ARGV + ["-m", "unused"])
+    acq = MultiStreamAcquisition(params, [None] * params.streams, [dev],
+                                 frames_per_step=params.frames_per_step)
+    return {"S": acq.S, "N": params.N, "F": acq.step.F,
+            "chunk": acq.step._chunk, "repeats": params.repeats}
+
+
+def phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep):
+    """K4 against its plain version, the per-stream golden and K1/K2 on
+    each stream alone, then 35 dB tones at config 5's step. Returns K4's
+    max abs error at config 5's step, unwindowed and with Hann."""
+    scan = streams_scan_plan(dev)
+    cases = [  # (label, S, N, frames_per_step, counts or None for F, window)
+        ("config 5 step", C5_STREAMS, 2048, 256, None, None),
+        ("config 5 step hann", C5_STREAMS, 2048, 256, None, "hann"),
+        ("S=4 N=8192 hann", 4, 8192, 64, None, "hann"),
+        ("S=3 N=256 uneven", 3, 256, 64, lambda F: [F, 0, 5], None),
+        ("streams scan drive step", scan["S"], scan["N"], scan["F"],
+         lambda F: [scan["repeats"]] * scan["S"], "hann"),
+    ]
+    max_abs = {}
+    for label, S, N, fps, counts, wname in cases:
+        F, chunk = adapt_batch(fps)
+        if label.startswith("streams scan"):
+            check((F, chunk) == (scan["F"], scan["chunk"]),
+                  f"K4 {label}: step {F}/{chunk} is not the drive's {scan}")
+        nv = np.array(counts(F) if counts else [F] * S, np.int32)
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        nv_dev = torch.from_numpy(nv).to(dev)
+        fp.COUNTS.reset()
+        got = fp.fused_psd_streams(raw, nv_dev, chunk, w)
+        again = fp.fused_psd_streams(raw, nv_dev, chunk, w)
+        want = fp.fused_psd_streams_reference(raw, nv_dev, chunk, w)
+        alone = torch.stack([fp.fused_psd(raw[s], int(nv[s]), chunk, w)
+                             for s in range(S)])
+        torch.cuda.synchronize()
+        k4 = ("kernel_streams" if w is None else "kernel_streams_windowed")
+        check(getattr(fp.COUNTS, k4) == 2 and fp.COUNTS.plain == 0,
+              f"K4 {label}: launch counter {vars(fp.COUNTS)}")
+        check(torch.equal(got, again), f"K4 {label}: not deterministic")
+        got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+        alone_np = alone.cpu().numpy()
+        check(np.all(np.isfinite(got_np)), f"K4 {label}: non-finite output")
+        check(not got_np[nv == 0].any(), f"K4 {label}: a zero-count row "
+              "is not exactly 0")
+        errs = []
+        for s in range(S):
+            gold = golden_partial(raw_np[s], int(nv[s]), w_np)
+            errs.append((max_rel(got_np[s], want_np[s]),
+                         max_rel(got_np[s], gold),
+                         max_rel(got_np[s], alone_np[s])))
+        e_plain, e_gold, e_alone = (max(e[i] for e in errs) for i in range(3))
+        print(f"K4 {label} (S={S} N={N} F={F} chunk={chunk} frames/block "
+              f"{fp.frames_per_block(S * F, chunk)} n_valid="
+              f"{nv.tolist() if counts else F}): max rel per stream vs plain "
+              f"{e_plain:.3e}, vs float64 golden {e_gold:.3e}, vs "
+              f"{'K1' if w is None else 'K2'} on the stream alone "
+              f"{e_alone:.3e}")
+        check(e_plain <= UNIFORM_RTOL, f"K4 {label}: {e_plain} vs plain")
+        check(e_gold <= GOLDEN_RTOL, f"K4 {label}: {e_gold} vs golden")
+        check(e_alone <= UNIFORM_RTOL, f"K4 {label}: {e_alone} vs K1/K2")
+        if label.startswith("config 5 step"):
+            max_abs[wname] = float(np.abs(got_np.astype(np.float64)
+                                          - want_np).max())
+
+    # Under 35 dB tones: the combined sum of config 5's step within the
+    # FFTW-class budget, median <= 1.5x and max <= 3x the scipy float32
+    # FFT's error.
+    S, N, F = C5_STREAMS, 2048, 256
+    step = ShardedPsdStep([dev], N, F, streams=S)
+    full = np.full(S, F, np.int32)
+    ours, plain, yard = [], [], []
+    for seed in range(12):
+        raw_np = tone_frames(N, S * F, 700 + seed)
+        gold = golden_partial(raw_np, S * F)
+        _, combined = step(raw_np.reshape(S, F, 2 * N), full)
+        ours.append(max_rel(combined.cpu().numpy(), gold))
+        raw = torch.from_numpy(raw_np.reshape(S, F, 2 * N)).to(dev)
+        plain.append(max_rel(fp.fused_psd_streams_reference(
+            raw, torch.from_numpy(full).to(dev), 64).sum(0).cpu().numpy(),
+            gold))
+        yard.append(max_rel(scipy_f32_class(raw_np), gold))
+    med_r = statistics.median(ours) / statistics.median(yard)
+    max_r = max(ours) / max(yard)
+    print(f"K4 35 dB tone, config 5 step (S={S} N={N} F={F}), combined, "
+          f"12 seeds: max rel median {statistics.median(ours):.3e} / max "
+          f"{max(ours):.3e}; scipy f32 {statistics.median(yard):.3e} / "
+          f"{max(yard):.3e}; plain (cuFFT) {statistics.median(plain):.3e} / "
+          f"{max(plain):.3e}; ratios median {med_r:.2f}x (<= 1.5), max "
+          f"{max_r:.2f}x (<= 3)")
+    check(med_r <= 1.5 and max_r <= 3.0,
+          "K4 tone error above the FFTW-class budget")
+    return max_abs
+
+
 def phase_times(dev, rng, fp, ff, adapt_batch, make_window, card):
     """Median CUDA-event times (us/step): kernel, plain, kernel again."""
     times = {}
@@ -341,25 +466,34 @@ def phase_times(dev, rng, fp, ff, adapt_batch, make_window, card):
               ("K2", 2048, 4096, "hann"), ("K2", 8192, 1024, "hann"),
               ("K2", 8192, 104, "hann"), ("K3", 2048, 4096, None),
               ("K3", 2048, 4096, "hann"), ("K3", 8192, 1024, None),
-              ("K3", 2048, 400, "blackman")]
+              ("K3", 2048, 400, "blackman"), ("K4", 2048, 256, None),
+              ("K4", 2048, 256, "hann")]
     for name, N, fps, wname in shapes:
         F, chunk = adapt_batch(fps)
-        raw = torch.from_numpy(
-            rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)).to(dev)
+        S = C5_STREAMS if name == "K4" else 1
+        raw = torch.from_numpy(rng.integers(
+            0, 256, (S, F, 2 * N) if name == "K4" else (F, 2 * N),
+            dtype=np.uint8)).to(dev)
         w = (None if wname is None
              else torch.from_numpy(make_window(wname, N)).to(dev))
-        if name == "K3":
+        nv = F
+        if name == "K4":
+            kernel, plain = fp.fused_psd_streams, fp.fused_psd_streams_reference
+            nv = torch.full((S,), F, dtype=torch.int32, device=dev)
+        elif name == "K3":
             kernel, plain = ff.fused_psd_fast, ff.fused_psd_fast_reference
         else:
             kernel, plain = fp.fused_psd, fp.fused_psd_reference
-        k_us = event_times_us(lambda: kernel(raw, F, chunk, w))
-        p_us = event_times_us(lambda: plain(raw, F, chunk, w))
-        k_us2 = event_times_us(lambda: kernel(raw, F, chunk, w))
+        k_us = event_times_us(lambda: kernel(raw, nv, chunk, w))
+        p_us = event_times_us(lambda: plain(raw, nv, chunk, w))
+        k_us2 = event_times_us(lambda: kernel(raw, nv, chunk, w))
         times[(name, N, F, wname)] = (k_us, p_us, k_us2)
-        print(f"time {name} N={N} F={F} window={wname} on {card}: kernel "
-              f"{k_us:.1f} us/step ({F * N / k_us / 1e3:.2f} GS/s; repeat "
-              f"{k_us2:.1f} us), plain {p_us:.1f} us/step "
-              f"({F * N / p_us / 1e3:.2f} GS/s)")
+        frames = S * F
+        print(f"time {name} N={N} F={F}{f' S={S}' if S > 1 else ''} window="
+              f"{wname} on {card}: kernel {k_us:.1f} us/step "
+              f"({frames * N / k_us / 1e3:.2f} GS/s; repeat {k_us2:.1f} us), "
+              f"plain {p_us:.1f} us/step "
+              f"({frames * N / p_us / 1e3:.2f} GS/s)")
     return times
 
 
@@ -371,8 +505,9 @@ def reset_counts(fp, ff) -> None:
 def launch_counts(fp, ff) -> dict:
     """Every launch counter by the kernel (or plain version) it counts."""
     return {"K1": fp.COUNTS.kernel, "K2": fp.COUNTS.kernel_windowed,
-            "K3": ff.COUNTS.kernel, "plain": fp.COUNTS.plain,
-            "plain_fast": ff.COUNTS.plain}
+            "K3": ff.COUNTS.kernel, "K4": fp.COUNTS.kernel_streams,
+            "K4 windowed": fp.COUNTS.kernel_streams_windowed,
+            "plain": fp.COUNTS.plain, "plain_fast": ff.COUNTS.plain}
 
 
 def check_only(counts: dict, kernel: str, label: str) -> None:
@@ -381,12 +516,12 @@ def check_only(counts: dict, kernel: str, label: str) -> None:
           f"{label} did not run through {kernel} alone: {counts}")
 
 
-def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol):
+def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1):
     """One drive through ``cli.main`` with every launch counter reset just
-    before it: exit 0, the transform path of ``kernel``, a finite N-bin
-    linear spectrum peaking at 100.2 MHz within ``rtol`` of
-    ``golden_fn()``, and launches of ``kernel`` alone. Returns its
-    launches."""
+    before it: exit 0, the transform path of ``kernel`` (over ``streams``
+    streams), a finite N-bin linear spectrum peaking at 100.2 MHz within
+    ``rtol`` of ``golden_fn()``, and launches of ``kernel`` alone. Returns
+    its launches."""
     reset_counts(fp, ff)
     rc, out, err, wall = run_cli(argv, cli.main)
     counts = launch_counts(fp, ff)
@@ -394,15 +529,21 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol):
     check(rc == 0, f"{label} drive exited {rc}")
     path = "cuda_fast" if kernel == "K3" else "cuda"
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
+    if streams > 1:
+        check(f"Parallel streams: {streams} (mesh size 1)" in err,
+              f"{label} drive: not over {streams} streams")
     freqs, vals, _ = spectrum(out)
     check(len(vals) == N and np.all(np.isfinite(vals)),
           f"{label} drive: malformed spectrum")
     peak = freqs[int(np.argmax(vals))]
     check(abs(peak - 100.2e6) <= RATE / N, f"{label} drive: peak at {peak}")
     err_gold = max_rel(vals, golden_fn())
+    hist = [line for line in err.splitlines()
+            if line.startswith("Buffer queue histogram:")]
     print(f"e2e {label} ({' '.join(argv)}): exit 0 in {wall:.2f} s wall; "
           f"peak {peak / 1e6:.4f} MHz; max rel vs float64 golden "
-          f"{err_gold:.3e} (<= {rtol:g}); launches {counts}")
+          f"{err_gold:.3e} (<= {rtol:g}); {hist[-1] if hist else ''}; "
+          f"launches {counts}")
     check(err_gold <= rtol, f"{label} drive vs float64 golden")
     check_only(counts, kernel, f"{label} drive")
     return counts[kernel]
@@ -476,6 +617,59 @@ def drive_precision_high(cli, fp, ff, make_window, tmp):
                  RELAXED_RTOL)
 
 
+def drive_config5(cli, fp, ff, tmp):
+    """BASELINE config 5 through the CLI (K4): 16 streams, the combined
+    linear spectrum against the float64 golden of the 16 recorded
+    streams. Returns the K4 launches of the drive."""
+    N, repeats = 2048, 4000
+    record = os.path.join(tmp, "config5.iq")
+    argv = ["-f", "100M", "-n", str(repeats), "-b", str(N), "--streams",
+            str(C5_STREAMS), "--frames-per-step", "256", "-l", "--record",
+            record, "--source", SOURCE]
+
+    def golden():
+        # The combined spectrum averages S·repeats spectra: the mean of
+        # the per-stream linear goldens.
+        return sum(recorded_golden(f"{record}.s{s}", N, repeats, N)
+                   for s in range(C5_STREAMS)) / C5_STREAMS
+
+    return drive("config 5", argv, cli, fp, ff, "K4", N, golden, GOLDEN_RTOL,
+                 streams=C5_STREAMS)
+
+
+def drive_streams_scan(cli, fp, ff, tmp):
+    """A windowed hopping matrix drive over 4 streams with a dead hop
+    (K4 windowed). Returns its launches."""
+    scan = os.path.join(tmp, "streams_scan")
+    argv = STREAMS_SCAN_ARGV + ["-m", scan]
+    reset_counts(fp, ff)
+    rc, _, err, wall = run_cli(argv, cli.main)
+    counts = launch_counts(fp, ff)
+    log(err[-800:])
+    check(rc == 0, f"streams scan drive exited {rc}")
+    check("Parallel streams: 4 (mesh size 1)" in err
+          and "Transform path: cuda " in err, "streams scan drive off K4")
+    check("Unable to tune to 103000000. Dropping from frequency list."
+          in err, "streams scan drive: dead hop not dropped")
+    with open(scan + ".met") as f:
+        meta = [line.split("#")[0].strip() for line in f]
+    cols, nrows = int(meta[0]), int(meta[1])
+    data = np.fromfile(scan + ".bin", dtype=np.float32)
+    check(cols == 2 * 256 and nrows == 1 and data.size == cols
+          and np.all(np.isfinite(data)),
+          f"streams scan drive: .met says {cols}x{nrows}, .bin has "
+          f"{data.size}")
+    hop = int(np.argmax(data)) // 256
+    peak = 105e6 + (int(np.argmax(data)) % 256 - 128) * RATE / 256
+    check(hop == 1 and abs(peak - 104.9e6) <= RATE / 256,
+          f"streams scan drive: peak at {peak} Hz in hop {hop}")
+    print(f"e2e streams scan drive ({' '.join(STREAMS_SCAN_ARGV)}): exit 0 in "
+          f"{wall:.2f} s wall; dead hop dropped; .met {cols}x{nrows}, .bin "
+          f"{data.nbytes} bytes; peak {peak / 1e6:.4f} MHz; launches {counts}")
+    check_only(counts, "K4 windowed", "streams scan drive")
+    return counts["K4 windowed"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -487,6 +681,7 @@ def main() -> int:
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_fast as ff
     from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch
+    from rtl_power_fftw_tpu_torch.parallel import ShardedPsdStep
     COUNTS, fused_psd, fused_psd_reference = (fp.COUNTS, fp.fused_psd,
                                               fp.fused_psd_reference)
 
@@ -573,14 +768,15 @@ def main() -> int:
     check(med_ratio <= 1.5 and max_ratio <= 3.0,
           "tone error above the FFTW-class budget")
 
-    # 4.-5. K2 and K3.
+    # 4.-6. K2, K3 and K4.
     k2_abs = phase_k2(dev, rng, fp, adapt_batch, make_window)
     k3_abs = phase_k3(dev, rng, ff, adapt_batch, make_window)
+    k4_abs = phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep)
 
-    # 6. Times (median of 60 event-timed calls after 10 warm-ups).
+    # 7. Times (median of 60 event-timed calls after 10 warm-ups).
     times = phase_times(dev, rng, fp, ff, adapt_batch, make_window, card)
 
-    # 7. End to end, in-process through the CLI.
+    # 8. End to end, in-process through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
         record = os.path.join(tmp, "canonical.iq")
         N, repeats = 2048, 20000
@@ -618,6 +814,8 @@ def main() -> int:
 
         k2_launches = drive_config2(cli, fp, ff, make_window, tmp)
         k3_launches = drive_precision_high(cli, fp, ff, make_window, tmp)
+        k4_launches = drive_config5(cli, fp, ff, tmp)
+        k4w_launches = drive_streams_scan(cli, fp, ff, tmp)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
@@ -636,6 +834,10 @@ def main() -> int:
               k2_abs, ("K2", 2048, 4096, "hann")),
         entry("fused_psd_fast", "fused_psd_fast.cu", "298", k3_launches,
               k3_abs, ("K3", 2048, 4096, None)),
+        entry("fused_psd_streams", "fused_psd.cu", "327", k4_launches,
+              k4_abs[None], ("K4", 2048, 256, None)),
+        entry("fused_psd_streams (windowed)", "fused_psd.cu", "327",
+              k4w_launches, k4_abs["hann"], ("K4", 2048, 256, "hann")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -39,6 +39,10 @@ SIGNATURES = {
         # raw, twiddle, window, partial, out, device, log2n, F, group,
         # n_valid, stream
         "rpf_fused_psd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # raw, twiddle, window, n_valid, partial, out, device, log2n, S, F,
+        # group, stream
+        "rpf_fused_psd_streams": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _P],
     },
     "fused_psd_fast": {
         # raw, window, w1r, w1i, twiddle, w2, partial, out, device, log2n,

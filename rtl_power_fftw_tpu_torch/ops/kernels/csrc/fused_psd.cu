@@ -1,11 +1,14 @@
 // Fused averaged-PSD device step for NVIDIA Hopper (sm_90a).
 //
-// Replaces rtl_power_fftw_tpu/ops/kernels/fused_psd.py:make_fused_psd_fn,
-// the single-stream variant at default precision, unwindowed (K1) and
-// windowed (K2). It computes the same function: raw interleaved u8 IQ
-// frames (F, 2N) -> dequantize (u8 - 127) -> [times window[n] in FP32]
-// -> length-N DFT -> |X|^2 -> drop frames f >= n_valid -> sum over
-// frames, as an (N,) float32 vector of bins in natural (unshifted) order.
+// Replaces rtl_power_fftw_tpu/ops/kernels/fused_psd.py:make_fused_psd_fn
+// at default precision: single-stream unwindowed (K1) and windowed (K2),
+// and the streams variant of either (K4, streams=S>1). It computes the
+// same function: raw interleaved u8 IQ frames (F, 2N) -> dequantize
+// (u8 - 127) -> [times window[n] in FP32] -> length-N DFT -> |X|^2 ->
+// drop frames f >= n_valid -> sum over frames, as an (N,) float32 vector
+// of bins in natural (unshifted) order. K4 takes S streams of F frames
+// each, (S*F, 2N), with a count n_valid[s] per stream, and gives one such
+// vector per stream, (S, N).
 //
 // What bounds it on an H100. A radix-2 FFT of length N costs about
 // 5 N log2(N) FP32 flops per frame against 2N bytes read from device
@@ -38,7 +41,13 @@
 //  * no float atomics: block g writes the f32 sum of its frames to
 //    partial row g, and a second kernel (psd_sum.cuh) sums the G rows of
 //    each bin in a fixed order in float64, so the result is the same on
-//    every run.
+//    every run;
+//  * streams (K4) are a different split of the same grid, not another
+//    kernel: block g serves stream g / G_s and its frames never cross a
+//    stream (the wrapper takes a group that divides F), so stream s owns
+//    partial rows [s*G_s, (s+1)*G_s) and the sum pass gives it its own
+//    row of the output. The per-stream counts are an (S,) device array
+//    each block reads once, since --streams has no upper bound.
 //
 // Eligibility (Hopper facts): power-of-two N with 64 <= N <= 16384. The
 // complex f32 frame lives in shared memory, 8N bytes: 128 KB at 16384,
@@ -74,15 +83,19 @@ __device__ __forceinline__ int bit_reverse(int i) {
   return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - LOG2N));
 }
 
-// Pass 1: block g transforms frames [g*group, min((g+1)*group, F, n_valid))
-// one after another and writes the f32 sum of their |X|^2 to partial row g.
+// Pass 1: block g serves stream s = g / G_s (G_s blocks per stream; one
+// stream for K1/K2) and transforms that stream's frames [j*group,
+// min((j+1)*group, F, n_valid_s)), j = g mod G_s, one after another. It
+// writes the f32 sum of their |X|^2 to partial row g. n_valid_s is
+// stream_n_valid[s] where that array is given (K4), else n_valid.
 template <int LOG2N, bool WINDOWED>
 __global__ void __launch_bounds__(Shape<LOG2N>::THREADS)
-psd_group_kernel(const uint32_t* __restrict__ raw,     // (F, N/2) words
+psd_group_kernel(const uint32_t* __restrict__ raw,     // (S*F, N/2) words
                  const float2* __restrict__ twiddle,   // (N - 1,) per stage
                  const float2* __restrict__ window,    // (N/2,) or null
-                 float* __restrict__ partial,          // (G, N)
-                 int F, int group, int n_valid) {
+                 float* __restrict__ partial,          // (S*G_s, N)
+                 int F, int group, int blocks_per_stream, int n_valid,
+                 const int* __restrict__ stream_n_valid) {  // (S,) or null
   using S = Shape<LOG2N>;
   constexpr int WORDS = S::HALF / S::THREADS;          // words per thread
   extern __shared__ float4 smem[];
@@ -101,11 +114,15 @@ psd_group_kernel(const uint32_t* __restrict__ raw,     // (F, N/2) words
 #pragma unroll
   for (int i = 0; i < S::PER_THREAD; ++i) acc[i] = 0.0f;
 
-  const int f0 = blockIdx.x * group;
-  const int f1 = min(f0 + group, min(F, n_valid));
+  const int stream = blockIdx.x / blocks_per_stream;
+  const int nv = stream_n_valid == nullptr ? n_valid
+                                           : __ldg(stream_n_valid + stream);
+  const int f0 = (blockIdx.x - stream * blocks_per_stream) * group;
+  const int f1 = min(f0 + group, min(F, nv));
+  const uint32_t* frames = raw + static_cast<size_t>(stream) * F * S::HALF;
   for (int f = f0; f < f1; ++f) {
     // Word w holds samples 2w and 2w+1 as bytes (re, im, re, im).
-    const uint32_t* frame = raw + static_cast<size_t>(f) * S::HALF;
+    const uint32_t* frame = frames + static_cast<size_t>(f) * S::HALF;
 #pragma unroll
     for (int r = 0; r < WORDS; ++r) {
       const int w = tid + r * S::THREADS;
@@ -165,7 +182,8 @@ psd_group_kernel(const uint32_t* __restrict__ raw,     // (F, N/2) words
 template <int LOG2N, bool WINDOWED>
 cudaError_t launch_groups(const void* raw, const void* twiddle,
                           const void* window, void* partial, int F,
-                          int group, int G, int n_valid, cudaStream_t stream) {
+                          int group, int G_s, int blocks, int n_valid,
+                          const void* stream_n_valid, cudaStream_t stream) {
   using S = Shape<LOG2N>;
   const int smem = static_cast<int>(sizeof(float2)) * S::N;
   if (smem > 48 * 1024) {
@@ -174,22 +192,49 @@ cudaError_t launch_groups(const void* raw, const void* twiddle,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  psd_group_kernel<LOG2N, WINDOWED><<<G, S::THREADS, smem, stream>>>(
+  psd_group_kernel<LOG2N, WINDOWED><<<blocks, S::THREADS, smem, stream>>>(
       static_cast<const uint32_t*>(raw), static_cast<const float2*>(twiddle),
       static_cast<const float2*>(window), static_cast<float*>(partial), F,
-      group, n_valid);
+      group, G_s, n_valid, static_cast<const int*>(stream_n_valid));
   return cudaGetLastError();
 }
 
 template <int LOG2N>
 cudaError_t launch_groups(const void* raw, const void* twiddle,
                           const void* window, void* partial, int F,
-                          int group, int G, int n_valid, cudaStream_t stream) {
+                          int group, int G_s, int blocks, int n_valid,
+                          const void* stream_n_valid, cudaStream_t stream) {
   return window == nullptr
              ? launch_groups<LOG2N, false>(raw, twiddle, window, partial, F,
-                                           group, G, n_valid, stream)
+                                           group, G_s, blocks, n_valid,
+                                           stream_n_valid, stream)
              : launch_groups<LOG2N, true>(raw, twiddle, window, partial, F,
-                                          group, G, n_valid, stream);
+                                          group, G_s, blocks, n_valid,
+                                          stream_n_valid, stream);
+}
+
+// Both passes for S streams of F frames, G_s blocks per stream.
+int launch_both(const void* raw, const void* twiddle, const void* window,
+                const void* stream_n_valid, void* partial, void* out,
+                int device, int log2n, int S, int F, int group, int G_s,
+                int n_valid, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = S * G_s;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RPF_CASE(L)                                                         \
+  case L:                                                                   \
+    e = launch_groups<L>(raw, twiddle, window, partial, F, group, G_s,      \
+                         blocks, n_valid, stream_n_valid, st);              \
+    break;
+  switch (log2n) {
+    RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
+    RPF_CASE(11) RPF_CASE(12) RPF_CASE(13) RPF_CASE(14)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_CASE
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_psd_sum(partial, G_s, 1 << log2n, out, st, S));
 }
 
 }  // namespace
@@ -207,24 +252,27 @@ int rpf_fused_psd(const void* raw, const void* twiddle, const void* window,
       n_valid < 0 || n_valid > F) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int G = (F + group - 1) / group;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (log2n) {
-    case 6: e = launch_groups<6>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
-    case 7: e = launch_groups<7>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
-    case 8: e = launch_groups<8>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
-    case 9: e = launch_groups<9>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
-    case 10: e = launch_groups<10>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
-    case 11: e = launch_groups<11>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
-    case 12: e = launch_groups<12>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
-    case 13: e = launch_groups<13>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
-    case 14: e = launch_groups<14>(raw, twiddle, window, partial, F, group, G, n_valid, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  return launch_both(raw, twiddle, window, nullptr, partial, out, device,
+                     log2n, 1, F, group, (F + group - 1) / group, n_valid,
+                     stream);
+}
+
+// K4: S streams of F frames. raw: (S*F, 2N) u8, 4-byte aligned, stream s
+// in rows [s*F, (s+1)*F); n_valid: (S,) int32 on the device, read by the
+// kernel when it runs (a count outside [0, F] acts as its nearest bound);
+// group must divide F; partial: (S*F/group, N) f32 scratch; out: (S, N)
+// f32. Other arguments as rpf_fused_psd.
+int rpf_fused_psd_streams(const void* raw, const void* twiddle,
+                          const void* window, const void* n_valid,
+                          void* partial, void* out, int device, int log2n,
+                          int S, int F, int group, void* stream) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || S <= 0 || F <= 0 ||
+      group <= 0 || F % group != 0 || n_valid == nullptr ||
+      static_cast<long long>(S) * (F / group) > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_psd_sum(partial, G, 1 << log2n, out, s));
+  return launch_both(raw, twiddle, window, n_valid, partial, out, device,
+                     log2n, S, F, group, F / group, 0, stream);
 }
 
 const char* rpf_cuda_error_string(int error) {

@@ -49,6 +49,25 @@ def pad_frames(batch: np.ndarray, F: int) -> np.ndarray:
         [batch, np.zeros((F - n, batch.shape[1]), np.uint8)])
 
 
+def check_step_ported(N: int, backend: str, fast: bool = False) -> None:
+    """Raise RPFexception(InvalidArgument) unless a CUDA step of this
+    package takes ``N`` bins with ``backend`` (at relaxed precision when
+    ``fast``)."""
+    unported = None
+    if backend not in ("auto", "pallas"):
+        unported = f"--fft-backend {backend}"
+    elif fast and not fused_psd_fast_eligible(N):
+        unported = (f"--precision high at {N} bins (the tensor-core "
+                    "step takes powers of two from 256 to 16384)")
+    elif not fused_psd_eligible(N):
+        unported = (f"{N} bins (the CUDA step takes powers of two "
+                    f"from {MIN_N} to {MAX_N})")
+    if unported is not None:
+        raise RPFexception(
+            f"Not yet ported to the PyTorch/CUDA package: {unported}. "
+            "Exiting.", ReturnValue.InvalidArgument)
+
+
 class PsdStep:
     """A device step: (F, 2N) u8 frames -> (N,) f32 partial power sum.
 
@@ -71,19 +90,7 @@ class PsdStep:
         if precision not in ("highest", "high"):
             raise ValueError("precision must be 'highest' or 'high'")
         fast = precision == "high"
-        unported = None
-        if backend not in ("auto", "pallas"):
-            unported = f"--fft-backend {backend}"
-        elif fast and not fused_psd_fast_eligible(N):
-            unported = (f"--precision high at {N} bins (the tensor-core "
-                        "step takes powers of two from 256 to 16384)")
-        elif not fused_psd_eligible(N):
-            unported = (f"{N} bins (the CUDA step takes powers of two "
-                        f"from {MIN_N} to {MAX_N})")
-        if unported is not None:
-            raise RPFexception(
-                f"Not yet ported to the PyTorch/CUDA package: {unported}. "
-                "Exiting.", ReturnValue.InvalidArgument)
+        check_step_ported(N, backend, fast)
         self.N = N
         self.F, self._chunk = adapt_batch(frames_per_step)
         self.device = torch.device(device)

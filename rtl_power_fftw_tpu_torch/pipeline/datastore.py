@@ -15,17 +15,19 @@ Reference-parity details preserved:
 
 On a CUDA device each batch is packed into a pinned host slot and copied
 to the device asynchronously on the consumer's own stream. A ring of
-``max_in_flight + 1`` slots lets up to ``max_in_flight`` steps run while
-the next batch is packed; a slot is refilled only after the event
-recorded behind its copy has completed.
+``max_in_flight + 1`` slots (:class:`SlotRing`, which the multi-stream
+consumer shares) lets up to ``max_in_flight`` steps run while the next
+batch is packed; a slot is refilled only after the event recorded behind
+its copy has completed.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
-from typing import Deque, List, Optional
+from typing import Deque, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +73,77 @@ def unique_complex_samples(N: int, hop: Optional[int],
     return hop * (repeats_done - 1) + N
 
 
+class SlotRing:
+    """Host slots feeding asynchronous device steps, for one consumer.
+
+    ``max_in_flight + 1`` slots, each a tuple of tensors of ``specs``
+    ((shape, dtype) pairs), pinned on a CUDA device. The consumer fills
+    :meth:`slot`, calls :meth:`upload` for the step's inputs and hands the
+    step's outputs to :meth:`submit`. On CUDA the copies run non-blocking
+    on the ring's own stream, and a slot is handed out again only after the
+    event recorded behind its copies has fired, so a step never reads a
+    later fill. At most ``max_in_flight`` steps' outputs wait on the
+    device; each is read back with ``.cpu()`` and passed to its callback
+    in submission order. Run the consumer inside :meth:`active`."""
+
+    def __init__(self, device: torch.device, specs, max_in_flight: int):
+        self.device = device
+        cuda = device.type == "cuda"
+        self._stream = torch.cuda.Stream(device) if cuda else None
+        self._slots = [tuple(torch.empty(shape, dtype=dtype, pin_memory=cuda)
+                             for shape, dtype in specs)
+                       for _ in range(max_in_flight + 1)]
+        self._copied: List[Optional[torch.cuda.Event]] = (
+            [None] * len(self._slots))
+        self._cur = 0
+        self.max_in_flight = max_in_flight
+        self._pending: Deque = collections.deque()  # (outputs, callback)
+
+    @contextlib.contextmanager
+    def active(self):
+        """Run the enclosed steps on the ring's stream, from a clean ring."""
+        self._pending.clear()
+        if self._stream is None:
+            yield
+            return
+        # Copies of an aborted run may still read the slots.
+        self._stream.synchronize()
+        self._copied = [None] * len(self._slots)
+        with torch.cuda.stream(self._stream):
+            yield
+
+    def slot(self) -> Tuple[torch.Tensor, ...]:
+        """The host tensors that are free to fill now."""
+        return self._slots[self._cur]
+
+    def upload(self) -> Tuple[torch.Tensor, ...]:
+        """The current slot's tensors on the device (the slot itself on
+        the CPU, whose steps finish before returning)."""
+        host = self._slots[self._cur]
+        if self._stream is None:
+            return host
+        on_device = tuple(t.to(self.device, non_blocking=True) for t in host)
+        self._copied[self._cur] = torch.cuda.Event()
+        self._copied[self._cur].record(self._stream)
+        return on_device
+
+    def submit(self, outputs: Tuple[torch.Tensor, ...], callback) -> None:
+        """Queue a step's outputs, move to the next slot (waiting for its
+        last copies to land) and read back all but ``max_in_flight`` queued
+        steps: ``callback(*arrays)`` with each output as a numpy array."""
+        self._pending.append((outputs, callback))
+        self._cur = (self._cur + 1) % len(self._slots)
+        if self._copied[self._cur] is not None:
+            self._copied[self._cur].synchronize()
+        self.drain(self.max_in_flight)
+
+    def drain(self, to_len: int = 0) -> None:
+        while len(self._pending) > to_len:
+            outputs, callback = self._pending.popleft()
+            # .cpu() waits for the step on this thread's stream.
+            callback(*(t.cpu().numpy() for t in outputs))
+
+
 def print_queue_histogram(histogram, stderr=None) -> None:
     """datastore.cxx:98-103."""
     import sys
@@ -103,13 +176,9 @@ class Datastore:
                             window=window, backend=params.fft_backend,
                             precision=params.precision)
         self.slicer = FrameSlicer(params.N, hop=hop)
-        self.max_in_flight = max_in_flight
-
-        cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if cuda else None
-        self._slots = [torch.empty((self.step.F, 2 * self.N), dtype=torch.uint8,
-                                   pin_memory=cuda)
-                       for _ in range(max_in_flight + 1)]
+        self._ring = SlotRing(self.device,
+                              [((self.step.F, 2 * self.N), torch.uint8)],
+                              max_in_flight)
 
         # Buffer pool bookkeeping (datastore.h:40-47). Buffers here are just
         # numpy arrays owned by the queue; the pool bound provides the
@@ -202,57 +271,38 @@ class Datastore:
 
     def _consume(self) -> None:
         try:
-            if self._stream is None:
-                self._consume_batches()
-            else:
-                # The current device and stream are per thread in torch.
+            if self.device.type == "cuda":
+                # The current device is per thread in torch.
                 torch.cuda.set_device(self.device)
-                # Copies of an aborted acquisition may still read the slots.
-                self._stream.synchronize()
-                with torch.cuda.stream(self._stream):
-                    self._consume_batches()
+            with self._ring.active():
+                self._consume_batches()
         except BaseException as e:  # surfaced to the producer
             with self._status_change:
                 self._consumer_error = e
                 self._status_change.notify_all()
 
     def _consume_batches(self) -> None:
-        pending: Deque[torch.Tensor] = collections.deque()  # in-flight partials
         acc = self._acc
+        ring = self._ring
 
-        def drain(to_len: int) -> None:
-            while len(pending) > to_len:
-                # .cpu() waits for the step on this thread's stream.
-                np.add(acc, pending.popleft().cpu().numpy(), out=acc)
+        def accumulate(partial: np.ndarray) -> None:
+            np.add(acc, partial, out=acc)
 
         F = self.step.F
-        slots = self._slots
-        copied: List[Optional[torch.cuda.Event]] = [None] * len(slots)
-        cur = 0
-        staging = slots[cur].numpy()
+        staging = ring.slot()[0].numpy()
         staged = 0
 
         def flush_staging() -> None:
-            nonlocal cur, staging, staged
+            nonlocal staging, staged
             if staged == 0:
                 return
             if staged < F:
                 staging[staged:] = 0
-            if self._stream is None:
-                # CPU steps finish before returning: the slot is free again.
-                raw = slots[cur]
-            else:
-                raw = slots[cur].to(self.device, non_blocking=True)
-                copied[cur] = torch.cuda.Event()
-                copied[cur].record(self._stream)
-            pending.append(self.step(raw, staged))
+            raw, = ring.upload()
+            ring.submit((self.step(raw, staged),), accumulate)
             self.repeats_done += staged
             staged = 0
-            cur = (cur + 1) % len(slots)
-            if copied[cur] is not None:
-                copied[cur].synchronize()   # its last copy must have landed
-            staging = slots[cur].numpy()
-            drain(self.max_in_flight)
+            staging = ring.slot()[0].numpy()
 
         while True:
             with self._status_change:
@@ -278,7 +328,7 @@ class Datastore:
                     flush_staging()
 
         flush_staging()
-        drain(0)
+        ring.drain()
 
     # --- diagnostics ---
 

@@ -1,8 +1,9 @@
 """Session driver: per-hop acquisition and the outer measurement loop.
 
-Port of ``rtl_power_fftw_tpu/session.py`` for the single-stream averaged
-PSD. It re-implements the reference's ``Acquisition`` controller
-(acquisition.cxx:211-441) and ``main``'s session loop
+Port of ``rtl_power_fftw_tpu/session.py`` for the averaged PSD of one
+stream or of ``--streams`` parallel sources. It re-implements the
+reference's ``Acquisition`` controller (acquisition.cxx:211-441) and
+``main``'s session loop
 (rtl_power_fftw.cxx:50-233): tune-with-retries, the producer read loop with
 dropped-sample retry and strict-time deadline, per-hop output, frequency
 hopping with TuneError dropping, endless/duration-bounded sessions, SIGINT
@@ -33,8 +34,11 @@ from rtl_power_fftw_tpu.output.stats import SessionStats
 from rtl_power_fftw_tpu.output.text import TextWriter
 from rtl_power_fftw_tpu.planning import Plan
 from rtl_power_fftw_tpu.sources.base import IQSource
+from rtl_power_fftw_tpu.sources.registry import make_sources
 
 from .ops.spectral import bin_frequencies, finalize_psd
+from .parallel.mesh import make_mesh
+from .parallel.multistream import MultiStreamAcquisition
 from .pipeline.datastore import Datastore
 
 
@@ -53,8 +57,6 @@ def check_ported(params: Params) -> None:
     """Raise RPFexception(InvalidArgument) for options whose path this
     package does not have yet."""
     unported = []
-    if params.streams > 1:
-        unported.append("--streams > 1")
     if params.shard_transform:
         unported.append("--shard-transform")
     if params.pfb_taps:
@@ -78,8 +80,9 @@ class Acquisition:
     """One data acquisition at one tuned frequency (acquisition.cxx:211-348)."""
 
     def __init__(self, params: Params, aux: AuxData, source: IQSource,
-                 data: Datastore, actual_samplerate: int, freq: int,
+                 data: Optional[Datastore], actual_samplerate: int, freq: int,
                  stats: SessionStats, stderr: Optional[IO[str]] = None,
+                 multistream: Optional[MultiStreamAcquisition] = None,
                  record=None):
         self.params = params
         self.aux = aux
@@ -96,6 +99,8 @@ class Acquisition:
         self.successfulReadouts = 0
         self.repeats_done = 0
         self.pwr: Optional[np.ndarray] = None
+        self.multistream = multistream
+        self.multistream_repeats: Optional[np.ndarray] = None
         self.record = record      # open binary file: raw consumed IQ copy
         self.stream_eof = False
 
@@ -122,6 +127,33 @@ class Acquisition:
 
         if _chatty(params):
             print(f"Device tuned to: {self.tuned_freq} Hz", file=self.err)
+
+        if self.multistream is not None:
+            # Parallel streams: the engine drives its own per-stream
+            # producers and the cross-stream sum. Tune EVERY stream before
+            # the scan-start bookkeeping: a dead extra stream must drop the
+            # hop BEFORE begin_scan, or the failed attempt's timestamp
+            # poisons the .met metadata (the reference tunes before
+            # recording scan time, acquisition.cxx:229-249 vs 259-264).
+            self.multistream.tune_all(self.freq)
+            self.startAcqTimestamp = current_datetime()
+            self.stats.begin_scan(self.startAcqTimestamp)
+            if _chatty(params):
+                print(f"Acquisition started at {self.startAcqTimestamp}",
+                      file=self.err)
+            result = self.multistream.run(self.freq)
+            self.endAcqTimestamp = current_datetime()
+            self.stats.end_scan(self.endAcqTimestamp)
+            if _chatty(params):
+                print(f"Acquisition done at {self.endAcqTimestamp}",
+                      file=self.err)
+            self.pwr = result.pwr
+            self.repeats_done = int(result.repeats_done.sum())
+            self.multistream_repeats = result.repeats_done
+            self.deviceReadouts = result.device_readouts
+            self.successfulReadouts = result.successful_readouts
+            self.stream_eof = result.stream_eof
+            return
 
         self.data.begin_acquisition()
 
@@ -198,6 +230,9 @@ class Acquisition:
     def unique_samples(self) -> int:
         """Unique (complex) samples consumed — N·repeats_done, except in
         Welch-overlap mode where frames share samples."""
+        if self.multistream is not None:
+            # Per-stream overlap: sum hop·(r_s−1)+N over streams.
+            return self.multistream.unique_samples(self.multistream_repeats)
         return self.data.unique_samples(self.repeats_done)
 
     def print_summary(self) -> None:
@@ -285,10 +320,39 @@ def run_session(params: Params, source: IQSource, aux: AuxData, *,
     plan = Plan(params, actual_samplerate)
     plan.print(file=err)
 
-    data = Datastore(params, device, window=aux.window_values)
+    # One engine owns the compute path: with --streams (extension; BASELINE
+    # config 5) the multi-stream engine, else the single-stream Datastore.
+    # Stream 0 is the primary source (keeps tune/retry semantics); extra
+    # streams come from the same --source spec.
+    multistream = None
+    data = None
+    if params.streams > 1:
+        extra = make_sources(params.source, params.streams - 1,
+                             params.sample_rate)
+        for s in extra:
+            # Extras get the full device setup the primary received
+            # (rtl_power_fftw.cxx:77-101): matched gain, ppm, rate —
+            # averaging streams with mismatched gains would silently skew
+            # the combined spectrum.
+            s.set_gain(s.nearest_gain(params.gain))
+            if params.ppm_error != 0:
+                s.set_freq_correction(params.ppm_error)
+            s.set_sample_rate(params.sample_rate)
+        if params.precision != "highest":
+            print("Warning: --precision high does not apply to the "
+                  "multi-stream sharded path.", file=err)
+        multistream = MultiStreamAcquisition(
+            params, [source] + extra, make_mesh(device),
+            window=aux.window_values, frames_per_step=params.frames_per_step)
+        print(f"Parallel streams: {params.streams} "
+              f"(mesh size {len(multistream.step.devices)})", file=err)
+        transform_path = multistream.step.path
+    else:
+        data = Datastore(params, device, window=aux.window_values)
+        transform_path = data.transform_path
 
     if _chatty(params):
-        print(f"Transform path: {data.transform_path} "
+        print(f"Transform path: {transform_path} "
               f"(backend={params.fft_backend}, N={params.N})", file=err)
 
     if install_sigint:
@@ -307,11 +371,15 @@ def run_session(params: Params, source: IQSource, aux: AuxData, *,
     record = None
     stats_stream = None
     try:
-        if params.record_file:
+        if params.record_file and multistream is None:
             # Raw-IQ capture (extension): one file for the whole session;
             # with hopping the per-hop streams are appended in scan order.
             record = open(params.record_file, "wb")
             print(f"Recording raw IQ to {params.record_file}", file=err)
+        elif params.record_file:
+            # Multi-stream: one file per stream (<file>.s<i>), written by
+            # the per-stream producers.
+            multistream.start_recording(params.record_file, stderr=err)
         if params.stats_json:
             stats_stream = open(params.stats_json, "a")
         if params.stitch_file:
@@ -324,21 +392,26 @@ def run_session(params: Params, source: IQSource, aux: AuxData, *,
         for f in (record, stats_stream):
             if f is not None:
                 f.close()
+        if multistream is not None:
+            multistream.stop_recording()
         if isinstance(e, OSError):
             raise RPFexception(f"Could not open output file: {e}. Exiting.",
                                ReturnValue.InvalidInput)
         raise
 
     try:
-        return _session_loop(params, aux, source, data, record, plan, stats,
-                             actual_samplerate, text_writer, matrix_writer,
-                             err, exit_time, stats_stream)
+        return _session_loop(params, aux, source, data, multistream, record,
+                             plan, stats, actual_samplerate, transform_path,
+                             text_writer, matrix_writer, err, exit_time,
+                             stats_stream)
     finally:
         # Close capture files on EVERY exit path (errors included), so
         # buffered tails are flushed and library callers don't leak fds.
         for f in (record, stats_stream):
             if f is not None:
                 f.close()
+        if multistream is not None:
+            multistream.stop_recording()
 
 
 def _write_stitch(stitch_file: str, pass_spectra, linear: bool) -> None:
@@ -355,9 +428,9 @@ def _write_stitch(stitch_file: str, pass_spectra, linear: bool) -> None:
     os.replace(tmp, stitch_file)
 
 
-def _session_loop(params, aux, source, data, record, plan, stats,
-                  actual_samplerate, text_writer, matrix_writer, err,
-                  exit_time, stats_stream) -> ReturnValue:
+def _session_loop(params, aux, source, data, multistream, record, plan,
+                  stats, actual_samplerate, transform_path, text_writer,
+                  matrix_writer, err, exit_time, stats_stream) -> ReturnValue:
     """The measurement loop proper (rtl_power_fftw.cxx:132-225)."""
     params.finalfreq = plan.freqs_to_tune[-1]
     freqs_meta_needed = True
@@ -365,16 +438,20 @@ def _session_loop(params, aux, source, data, record, plan, stats,
     last_repeats_done = 0
     any_written = False
     stream_ended = False
+    # In --streams mode there is no single-stream Datastore; the queue
+    # diagnostics come from the multistream engine.
+    hist_source = multistream if multistream is not None else data
 
     while not do_exit:
         i = 0
         pass_spectra = []   # (freqs, values) per hop for the live stitch
         while i < len(plan.freqs_to_tune):
             freq = plan.freqs_to_tune[i]
-            hist_before = list(data.queue_histogram)
+            hist_before = list(hist_source.queue_histogram)
             acquisition = Acquisition(params, aux, source, data,
                                       actual_samplerate, freq, stats,
-                                      stderr=err, record=record)
+                                      stderr=err, multistream=multistream,
+                                      record=record)
             try:
                 acquisition.run()
                 i += 1
@@ -430,7 +507,7 @@ def _session_loop(params, aux, source, data, record, plan, stats,
             if stats_stream is not None:
                 stats_stream.write(json.dumps({
                     "tuned_freq": acquisition.tuned_freq,
-                    "transform_path": data.transform_path,
+                    "transform_path": transform_path,
                     "start": acquisition.startAcqTimestamp,
                     "end": acquisition.endAcqTimestamp,
                     "repeats_done": acquisition.repeats_done,
@@ -442,13 +519,13 @@ def _session_loop(params, aux, source, data, record, plan, stats,
                     # Per-scan delta (the histogram is cumulative
                     # across the session).
                     "queue_histogram": [a - b for a, b in
-                                        zip(data.queue_histogram,
+                                        zip(hist_source.queue_histogram,
                                             hist_before)],
                 }) + "\n")
                 stats_stream.flush()
 
             if _chatty(params):
-                data.print_queue_histogram(stderr=err)
+                hist_source.print_queue_histogram(stderr=err)
 
             if acquisition.stream_eof:
                 # Partial spectrum written; nothing more will ever arrive.

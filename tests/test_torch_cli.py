@@ -32,7 +32,7 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--streams", "2"],
+    ["--streams", "2", "--pfb-taps", "4"],
     ["--shard-transform"],
     ["--pfb-taps", "4"],
     ["--multitaper", "2"],
@@ -43,6 +43,11 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
     ["--precision", "high", "-b", "128"],
     ["--profile", "trace"],
     ["--fft-backend", "matmul"],
+    ["--streams", "2", "--shard-transform"],
+    ["--streams", "2", "--multitaper", "2"],
+    ["--streams", "2", "--sk-file", "sk.dat"],
+    ["--streams", "2", "--sk-excise", "3"],
+    ["--streams", "2", "--fft-backend", "xla"],
 ])
 def test_unported_options_exit_3(extra, capsys):
     assert cli.main(SMALL + extra, device=CPU) == 3
@@ -53,6 +58,8 @@ def test_unported_options_exit_3(extra, capsys):
     (["--window-function", "hann"], "plain"),
     (["--precision", "high"], "plain_fast"),
     (["--precision", "high", "--window-function", "blackman"], "plain_fast"),
+    (["--streams", "4"], "plain"),
+    (["--streams", "2", "--window-function", "hann"], "plain"),
 ])
 def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
     assert cli.main(SMALL + extra, device=CPU) == 0
@@ -106,17 +113,29 @@ def _python(*args: str) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, timeout=120)
 
 
-def test_port_never_imports_jax():
-    proc = _python(
+def _imports_of_a_cpu_session(argv) -> subprocess.CompletedProcess:
+    """Runs cli.main(argv) on the CPU in a fresh interpreter; prints the
+    exit code and every jax module imported."""
+    return _python(
         "-c",
         "import io, sys, contextlib, torch\n"
         "import rtl_power_fftw_tpu_torch\n"
         "from rtl_power_fftw_tpu_torch.cli import main\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
-        f"    rc = main({SMALL!r}, device=torch.device('cpu'))\n"
+        f"    rc = main({argv!r}, device=torch.device('cpu'))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes'))\n"
         "print(rc, bad)\n")
+
+
+def test_port_never_imports_jax():
+    proc = _imports_of_a_cpu_session(SMALL)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "0 []"
+
+
+def test_streams_session_never_imports_jax():
+    proc = _imports_of_a_cpu_session(SMALL + ["--streams", "3"])
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "0 []"
 
