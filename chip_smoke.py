@@ -35,7 +35,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    twice for determinism, rows of zero count exactly 0; then 12 seeds of
    35 dB tones at config 5's step, the combined sum against the scipy
    float32 FFT (the FFTW-class budget);
-7. times of K1, K2, K3, K4 and their plain versions with CUDA events;
+7. times of K1, K2, K3, K4, the large-N kernel, their plain versions and
+   ``torch.fft.fft`` with CUDA events;
 8. end to end through ``cli.main`` in-process: the canonical 2048-bin
    20,000-spectrum drive (K1), a hopping matrix drive with a dead hop
    (K1), BASELINE config 2 (8192 bins, Hann, 50% Welch overlap; K2)
@@ -44,10 +45,33 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    Blackman window file (K3), BASELINE config 5 (``--streams 16``; K4)
    against the float64 golden of the 16 recorded streams, and a windowed
    hopping matrix drive over 4 streams with a dead hop (K4 windowed).
+   Then BASELINE config 3 (``-b 1048576 -t 10``, the large-N kernel)
+   against the float64 golden of its recorded stream, a windowed
+   large-N drive (``-b 65536 --window-function hann``), and a sweep of
+   8-spectrum matrix-mode drives at every size the large kernel takes
+   (32768 to 2^22), unwindowed and with Hann, each against its recorded
+   stream's golden (1e-5, or 3x the scipy float32 FFT's error on the same
+   frames where that is larger).
    Every launch counter is reset just before each drive; the drive's
-   kernel must have launched and no plain version may have run.
+   kernel must have launched and no plain version may have run;
+9. the large-N kernel (``fused_psd_large``, K1/K2 from 32768 and P15 at
+   2^20): against its plain version and the float64 golden at every size
+   from N = 32768 to 2^22, with and without windows and masked, each run
+   twice for determinism; its 60-seed tone yard at 32768, 65536 and 2^20,
+   unwindowed and Hann, against the scipy float32 class with the
+   per-seed p99; its times, and ptxas's register and spill lines for
+   every instantiation. (Runs before the drives; numbered here for the
+   kernels line.)
+10. a profile of the config 3 drive under ``torch.profiler``: device time
+   by kernel and copy per step, and the device's busy share of the wall.
 
-Stdout ends with a ``{"kernels": [...]}`` line and then the result line
+Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
+(the larger of its bytes over 3.35 TB/s and its operations over the
+card's peak for their type, from the entry's shape), its launches in its
+drive, and the time of ``torch.fft.fft`` on the same frames already in
+complex64 on the card (the transform alone, not the whole function).
+
+Stdout ends with that line and then the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -57,7 +81,9 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -86,6 +112,21 @@ SOURCE = "synthetic:tone=100.2M/35,noise=6,seed=1"
 RATE = 2_000_000
 # BASELINE config 5 (bench_configs.py:159-198): 16 streams.
 C5_STREAMS = 16
+# The large-N drives' source: a weak line (amplitude 2 counts, under the
+# noise's 6) in noise, as long integrations look for. Under SOURCE's
+# stronger tone the float32 error of any FFT at 2^20 (the scipy float32
+# class's too) exceeds 1e-5 of the golden in the bins far below the tone;
+# the tone yard holds the kernel to that class instead.
+LINE_SOURCE = "synthetic:tone=100.2M/2,noise=6,seed=1"
+# BASELINE config 3 (bench_configs.py:149-153): 2^20 bins; -t 10 cuts its
+# time-limited continuous accumulation to 10 s of stream (20 spectra).
+C3_N = 1 << 20
+C3_SECONDS = 10
+# The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
+# device memory, FP32 on the CUDA cores, dense bf16 on the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # The windowed hopping matrix drive over 4 streams (K4 windowed), less its
 # "-m <path>".
 STREAMS_SCAN_ARGV = ["-f", "100M:106M", "-n", "32", "-b", "256",
@@ -358,7 +399,7 @@ def streams_scan_plan(dev) -> dict:
     """The step the streams scan drive runs: its options parsed as the CLI
     parses them, and the shape the multi-stream acquisition builds from
     them (a stand-in source per stream; only their number is read)."""
-    from rtl_power_fftw_tpu.config import parse_args
+    from rtl_power_fftw_tpu_torch.config import parse_args
     from rtl_power_fftw_tpu_torch.parallel.multistream import (
         MultiStreamAcquisition)
     params = parse_args(STREAMS_SCAN_ARGV + ["-m", "unused"])
@@ -459,15 +500,19 @@ def phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep):
     return max_abs
 
 
-def phase_times(dev, rng, fp, ff, adapt_batch, make_window, card):
-    """Median CUDA-event times (us/step): kernel, plain, kernel again."""
+def phase_times(dev, rng, fp, ff, fl, adapt_batch, make_window, card):
+    """Median CUDA-event times (us/step): kernel, plain, kernel again, and
+    torch.fft.fft over the same frames already in complex64 on the card
+    (the transform alone: the library yardstick)."""
     times = {}
     shapes = [("K1", 2048, 4096, None), ("K1", 2048, 400, None),
               ("K2", 2048, 4096, "hann"), ("K2", 8192, 1024, "hann"),
               ("K2", 8192, 104, "hann"), ("K3", 2048, 4096, None),
               ("K3", 2048, 4096, "hann"), ("K3", 8192, 1024, None),
               ("K3", 2048, 400, "blackman"), ("K4", 2048, 256, None),
-              ("K4", 2048, 256, "hann")]
+              ("K4", 2048, 256, "hann"), ("L", C3_N, 8, None),
+              ("L", C3_N, 8, "hann"), ("L", 65536, 16, "hann"),
+              ("L", 32768, 32, None), ("L", 1 << 22, 8, None)]
     for name, N, fps, wname in shapes:
         F, chunk = adapt_batch(fps)
         S = C5_STREAMS if name == "K4" else 1
@@ -482,18 +527,27 @@ def phase_times(dev, rng, fp, ff, adapt_batch, make_window, card):
             nv = torch.full((S,), F, dtype=torch.int32, device=dev)
         elif name == "K3":
             kernel, plain = ff.fused_psd_fast, ff.fused_psd_fast_reference
+        elif name == "L":
+            kernel, plain = fl.fused_psd_large, fl.fused_psd_large_reference
         else:
             kernel, plain = fp.fused_psd, fp.fused_psd_reference
+        flat = raw.reshape(S * F, 2 * N)
+        z = torch.complex(flat[:, 0::2].float() - 127.0,
+                          flat[:, 1::2].float() - 127.0)
         k_us = event_times_us(lambda: kernel(raw, nv, chunk, w))
         p_us = event_times_us(lambda: plain(raw, nv, chunk, w))
+        lib_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
         k_us2 = event_times_us(lambda: kernel(raw, nv, chunk, w))
-        times[(name, N, F, wname)] = (k_us, p_us, k_us2)
+        b_ms, b_by = bound_ms(name, S * F, N, w is not None, S)
+        times[(name, N, F, wname)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by)
         frames = S * F
         print(f"time {name} N={N} F={F}{f' S={S}' if S > 1 else ''} window="
               f"{wname} on {card}: kernel {k_us:.1f} us/step "
               f"({frames * N / k_us / 1e3:.2f} GS/s; repeat {k_us2:.1f} us), "
               f"plain {p_us:.1f} us/step "
-              f"({frames * N / p_us / 1e3:.2f} GS/s)")
+              f"({frames * N / p_us / 1e3:.2f} GS/s), torch.fft.fft of the "
+              f"complex64 frames {lib_us:.1f} us, bound {1e3 * b_ms:.1f} us "
+              f"({b_by})")
     return times
 
 
@@ -503,10 +557,13 @@ def reset_counts(fp, ff) -> None:
 
 
 def launch_counts(fp, ff) -> dict:
-    """Every launch counter by the kernel (or plain version) it counts."""
+    """Every launch counter by the kernel (or plain version) it counts;
+    "L" is the large-N kernel."""
     return {"K1": fp.COUNTS.kernel, "K2": fp.COUNTS.kernel_windowed,
             "K3": ff.COUNTS.kernel, "K4": fp.COUNTS.kernel_streams,
             "K4 windowed": fp.COUNTS.kernel_streams_windowed,
+            "L": fp.COUNTS.kernel_large,
+            "L windowed": fp.COUNTS.kernel_large_windowed,
             "plain": fp.COUNTS.plain, "plain_fast": ff.COUNTS.plain}
 
 
@@ -527,7 +584,8 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1):
     counts = launch_counts(fp, ff)
     log(err[-1200:])
     check(rc == 0, f"{label} drive exited {rc}")
-    path = "cuda_fast" if kernel == "K3" else "cuda"
+    path = {"K3": "cuda_fast", "L": "cuda_large",
+            "L windowed": "cuda_large"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -670,16 +728,303 @@ def drive_streams_scan(cli, fp, ff, tmp):
     return counts["K4 windowed"]
 
 
+def tone_frames_dev(N: int, F: int, seed: int, dev) -> torch.Tensor:
+    """tone_frames made on the card (a torch generator seeded with
+    ``seed``): (F, 2N) uint8, a 35 dB tone at a random frequency and
+    phase over unit noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f0 = 0.05 + 0.4 * torch.rand((), generator=g, device=dev,
+                                 dtype=torch.float64)
+    ph = 2 * np.pi * torch.rand((), generator=g, device=dev,
+                                dtype=torch.float64)
+    t = torch.arange(F * N, device=dev, dtype=torch.float64)
+    arg = 2 * np.pi * f0 * t + ph
+    noise = torch.randn((2, F * N), generator=g, device=dev,
+                        dtype=torch.float64)
+    re = torch.clamp(torch.round(100.0 * torch.cos(arg) + noise[0] + 127),
+                     0, 255)
+    im = torch.clamp(torch.round(100.0 * torch.sin(arg) + noise[1] + 127),
+                     0, 255)
+    return torch.stack([re, im], dim=-1).to(torch.uint8).reshape(F, 2 * N)
+
+
+def golden_partial_dev(raw: torch.Tensor, window=None) -> np.ndarray:
+    """The float64 golden of every frame of ``raw`` computed on the card
+    (cuFFT in float64), unshifted bins: for the tone yards at sizes where
+    the numpy golden would take minutes."""
+    z = torch.complex(raw[:, 0::2].double() - 127.0,
+                      raw[:, 1::2].double() - 127.0)
+    if window is not None:
+        z = z * window.double()
+    X = torch.fft.fft(z, dim=1)
+    return (X.real ** 2 + X.imag ** 2).sum(0).cpu().numpy()
+
+
+def bound_ms(kind: str, frames: int, N: int, windowed: bool,
+             out_rows: int = 1):
+    """The least time the card could take for one call, and what bounds
+    it: the larger of the bytes the function must move (frames in, the
+    window, the output out) over the memory rate, and its operations
+    over the peak rate of their type. An FFT-based step (K1, K2, K4, the
+    large-N kernel) does ~5 N log2(N) FP32 flops per frame for the
+    transform and ~4N (+2N with a window) for dequantization, |X|^2 and
+    the sum; K3 does 2 N (12 N1 + 9 N2) bf16 flops per frame on the
+    tensor cores (24 N1 windowed, fused_psd_fast.cu) and ~10N FP32."""
+    nbytes = frames * 2 * N + (4 * N if windowed else 0) + 4 * N * out_rows
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if kind == "K3":
+        n1 = 1 << ((N.bit_length() - 1) // 2)
+        n2 = N // n1
+        mma = frames * 2 * N * ((24 if windowed else 12) * n1 + 9 * n2)
+        t_ops = mma / BF16_FLOP_PER_S + frames * 10 * N / FP32_FLOP_PER_S
+    else:
+        log2n = N.bit_length() - 1
+        ops = frames * N * (5 * log2n + (6 if windowed else 4))
+        t_ops = ops / FP32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_lines(log_text: str, kernel_marker: str):
+    """(entry, registers/spill summary) for each instantiation ptxas
+    reports in ``log_text`` whose mangled name contains
+    ``kernel_marker``."""
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            # _Z...large_pass_aILi20ELb1E... -> large_pass_a<20, 1>
+            m = re.search(r"(\w+?)ILi(\d+)E(?:Lb([01])E)?", name)
+            if m:
+                name = m.group(1)[-12:] + "<" + ", ".join(
+                    g for g in m.groups()[1:] if g is not None) + ">"
+            spill = ""
+            continue
+        if name and kernel_marker in name:
+            if "spill" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                out.append((name, line.split("ptxas info    :")[-1].strip()
+                            + "; " + spill))
+                name = None
+    return out
+
+
+def phase_large(dev, rng, fp, fl, adapt_batch, make_window):
+    """The large-N kernel against its plain version and the float64
+    golden, twice each, then its 60-seed tone yard. Returns its max abs
+    error against the plain version at config 3's step and at the
+    windowed drive's step."""
+    cases = [  # (label, N, frames_per_step, n_valid or None, window)
+        ("N=32768 F=8", 32768, 8, None, None),
+        ("N=32768 F=8 hann", 32768, 8, None, "hann"),
+        ("N=32768 session step", 32768, 25, None, None),
+        ("N=65536 F=8", 65536, 8, None, None),
+        ("N=65536 F=8 hann masked", 65536, 8, 5, "hann"),
+        ("N=65536 hann (windowed drive step)", 65536, 12, None, "hann"),
+        ("N=2^17 F=8 hann", 1 << 17, 1, None, "hann"),
+        ("N=2^18 F=8", 1 << 18, 1, None, None),
+        ("N=2^19 F=8 masked", 1 << 19, 1, 6, None),
+        ("N=2^20 F=8 (config 3 step)", C3_N, 1, None, None),
+        ("N=2^20 F=8 hann", C3_N, 1, None, "hann"),
+        ("N=2^20 F=8 masked", C3_N, 1, 3, None),
+        ("N=2^21 F=8 hann", 1 << 21, 1, None, "hann"),
+        ("N=2^22 F=8 blackman", 1 << 22, 1, None, "blackman"),
+    ]
+    fp.COUNTS.reset()
+    max_abs = {}
+    n_windowed = 0
+    for label, N, fps, n_valid, wname in cases:
+        F, chunk = adapt_batch(fps)
+        nv = F if n_valid is None else n_valid
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        n_windowed += w is not None
+        raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        got = fl.fused_psd_large(raw, nv, chunk, w)
+        again = fl.fused_psd_large(raw, nv, chunk, w)
+        want = fl.fused_psd_large_reference(raw, nv, chunk, w)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"large {label}: not deterministic")
+        got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+        gold = golden_partial(raw_np, nv, w_np)
+        err_plain, err_gold = max_rel(got_np, want_np), max_rel(got_np, gold)
+        print(f"large {label} (N={N} F={F} chunk={chunk} n_valid={nv} "
+              f"window={wname}; N1 x N2 = {fl.large_split(N)}, frames/block "
+              f"{fl.frames_per_block(F, chunk, N)}): max rel vs plain "
+              f"{err_plain:.3e}, vs float64 golden {err_gold:.3e} (plain vs "
+              f"golden {max_rel(want_np, gold):.3e})")
+        check(np.all(np.isfinite(got_np)), f"large {label}: non-finite")
+        check(err_plain <= UNIFORM_RTOL, f"large {label}: {err_plain} vs plain")
+        check(err_gold <= GOLDEN_RTOL, f"large {label}: {err_gold} vs golden")
+        if label.startswith("N=2^20 F=8 (config 3") or "drive step" in label:
+            max_abs[wname] = float(np.abs(got_np.astype(np.float64)
+                                          - want_np).max())
+    check(fp.COUNTS.kernel_large == 2 * (len(cases) - n_windowed)
+          and fp.COUNTS.kernel_large_windowed == 2 * n_windowed
+          and fp.COUNTS.plain == 0,
+          f"large launch counter did not move as expected: {vars(fp.COUNTS)}")
+
+    # Admission yard: 60 seeds of 35 dB tones per size, unwindowed and
+    # Hann, median <= 1.5x and max <= 3x the scipy float32 class.
+    for N, fps in ((32768, 32), (65536, 16), (C3_N, 8)):
+        F, chunk = adapt_batch(fps)
+        for wname in (None, "hann"):
+            w_np = None if wname is None else make_window(wname, N)
+            w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+            ours, cls, plain = [], [], []
+            for seed in range(60):
+                raw = tone_frames_dev(N, F, 9000 + seed, dev)
+                gold = golden_partial_dev(raw, w)
+                ours.append(max_rel(fl.fused_psd_large(raw, F, chunk, w)
+                                    .cpu().numpy(), gold))
+                plain.append(max_rel(fl.fused_psd_large_reference(
+                    raw, F, chunk, w).cpu().numpy(), gold))
+                cls.append(max_rel(scipy_f32_class(raw.cpu().numpy(), w_np),
+                                   gold))
+            e, c = np.asarray(ours), np.asarray(cls)
+            r = e / c
+            med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
+            print(f"large yard N={N} F={F} window={wname}, 60 seeds of 35 dB "
+                  f"tones: max rel median {np.median(e):.3e} / max "
+                  f"{e.max():.3e}; scipy f32 {np.median(c):.3e} / "
+                  f"{c.max():.3e}; plain {np.median(plain):.3e} / "
+                  f"{max(plain):.3e}; ratio median {med_r:.2f}x (<= 1.5), "
+                  f"max {max_r:.2f}x (<= 3), per-seed p99 "
+                  f"{np.quantile(r, 0.99):.2f}x, per-seed max {r.max():.2f}x")
+            check(med_r <= 1.5 and max_r <= 3.0,
+                  f"large yard N={N} window={wname}: above the FFTW-class "
+                  "budget")
+    return max_abs
+
+
+def drive_config3(cli, fp, ff, tmp):
+    """BASELINE config 3 through the CLI (the large-N kernel): 2^20 bins,
+    -t 10, against the float64 golden of the recorded stream. Returns the
+    kernel's launches and the drive's argv."""
+    N = C3_N
+    repeats = math.ceil(RATE * C3_SECONDS / N)
+    record = os.path.join(tmp, "config3.iq")
+    argv = ["-f", "100M", "-b", str(N), "-t", str(C3_SECONDS), "-l",
+            "--record", record, "--source", LINE_SOURCE]
+    launches = drive("config 3", argv, cli, fp, ff, "L", N,
+                     lambda: recorded_golden(record, N, repeats, N),
+                     GOLDEN_RTOL)
+    return launches, argv
+
+
+def drive_large_windowed(cli, fp, ff, make_window, tmp):
+    """A windowed large-N drive (-b 65536 --window-function hann) against
+    the windowed float64 golden of its recorded stream. Returns the
+    kernel's windowed launches."""
+    N, repeats = 65536, 500
+    record = os.path.join(tmp, "large_hann.iq")
+    argv = ["-f", "100M", "-n", str(repeats), "-b", str(N),
+            "--window-function", "hann", "-l", "--record", record,
+            "--source", LINE_SOURCE]
+    w = make_window("hann", N)
+    return drive("large windowed", argv, cli, fp, ff, "L windowed", N,
+                 lambda: recorded_golden(record, N, repeats, N, w),
+                 GOLDEN_RTOL)
+
+
+def drive_large_sweep(cli, fp, ff, make_window, tmp) -> None:
+    """Every size the large-N kernel takes (32768 to 2^22), unwindowed and
+    with Hann, through the CLI in matrix mode: 8 spectra each, through the
+    large kernel alone, the float32 ``.bin`` row (no printed digits to
+    round) against the float64 golden of the recorded stream, within 1e-5
+    or 3x the scipy float32 FFT's error on the same frames (the FFTW-class
+    budget), whichever is larger."""
+    repeats = 8
+    for log2n in range(15, 23):
+        N = 1 << log2n
+        for wname in (None, "hann"):
+            label = f"large sweep 2^{log2n}" + (f" {wname}" if wname else "")
+            kernel = "L" if wname is None else "L windowed"
+            record = os.path.join(tmp, "sweep.iq")
+            matrix = os.path.join(tmp, "sweep")
+            argv = (["-f", "100M", "-n", str(repeats), "-b", str(N), "-l",
+                     "-q", "-m", matrix, "--record", record, "--source",
+                     LINE_SOURCE]
+                    + ([] if wname is None else ["--window-function", wname]))
+            reset_counts(fp, ff)
+            rc, _, err, wall = run_cli(argv, cli.main)
+            counts = launch_counts(fp, ff)
+            check(rc == 0, f"{label} drive exited {rc}")
+            check_only(counts, kernel, f"{label} drive")
+            vals = np.fromfile(matrix + ".bin", dtype=np.float32)
+            check(vals.size == N and np.all(np.isfinite(vals)),
+                  f"{label} drive: .bin holds {vals.size} values")
+            peak = 100e6 + (int(np.argmax(vals)) - N // 2) * RATE / N
+            check(abs(peak - 100.2e6) <= RATE / N,
+                  f"{label} drive: peak at {peak}")
+            w = None if wname is None else make_window(wname, N)
+            frames = np.fromfile(record, dtype=np.uint8)[:2 * N * repeats] \
+                .reshape(repeats, 2 * N)
+            gold = golden_finalize_linear(
+                np.fft.fftshift(golden_partial(frames, repeats, w)), repeats,
+                RATE)
+            cls = golden_finalize_linear(
+                np.fft.fftshift(scipy_f32_class(frames, w)), repeats, RATE)
+            err_gold, err_cls = max_rel(vals, gold), max_rel(cls, gold)
+            # 1e-5, or 3x the float32 class where the class itself is near
+            # it: at 2^22 the deepest of 4M bins of 8 spectra take scipy's
+            # float32 FFT to ~1.1e-5 of the golden on this stream.
+            budget = max(GOLDEN_RTOL, 3.0 * err_cls)
+            print(f"e2e {label} ({' '.join(argv)}): exit 0 in {wall:.2f} s "
+                  f"wall; peak {peak / 1e6:.4f} MHz; .bin max rel vs float64 "
+                  f"golden {err_gold:.3e} (<= {budget:.3g}); scipy float32 on "
+                  f"the same frames {err_cls:.3e}; launches {counts}")
+            check(err_gold <= budget, f"{label} drive vs float64 golden")
+
+
+def profile_drive(label, argv, cli, markers) -> None:
+    """One more run of a drive under torch.profiler: device time by
+    kernel (and copy) name, per call, and the device's busy share of the
+    drive's wall time. Prints "not measured" where the profiler sees no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        rc, _, _, wall = run_cli(argv, cli.main)
+    check(rc == 0, f"profiled {label} drive exited {rc}")
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        rows.append((evt.key, evt.count, us))
+    busy = sum(us for _, _, us in rows)
+    if not rows or busy <= 0:
+        print(f"profile {label}: the profiler recorded no device time "
+              "(device times not measured)")
+        return
+    parts = []
+    for marker in markers:
+        hit = [(k, n, us) for k, n, us in rows if marker in k]
+        n = sum(c for _, c, _ in hit)
+        us = sum(t for _, _, t in hit)
+        parts.append(f"{marker}: {n} calls, {us / max(n, 1):.1f} us/call, "
+                     f"{us / 1e3:.2f} ms")
+    print(f"profile {label} ({' '.join(argv)}): wall {wall:.2f} s, device "
+          f"busy {busy / 1e3:.2f} ms ({100.0 * busy / 1e6 / wall:.3f}% of "
+          f"wall); " + "; ".join(parts))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
         return 1
 
-    from rtl_power_fftw_tpu.auxdata import make_window
+    from rtl_power_fftw_tpu_torch.auxdata import make_window
     from rtl_power_fftw_tpu_torch import cli
     from rtl_power_fftw_tpu_torch.ops.kernels import _build
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_fast as ff
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large as fl
     from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch
     from rtl_power_fftw_tpu_torch.parallel import ShardedPsdStep
     COUNTS, fused_psd, fused_psd_reference = (fp.COUNTS, fp.fused_psd,
@@ -705,6 +1050,11 @@ def main() -> int:
     for name, info in infos.items():
         log(info.log.strip())
         print(f"build: {info.path.name} by nvcc in {info.seconds:.1f} s")
+    large_ptxas = ptxas_lines(infos["fused_psd_large"].log, "large_pass")
+    for entry_name, summary in large_ptxas:
+        print(f"ptxas fused_psd_large {entry_name}: {summary}")
+    check(len(large_ptxas) == 24 or not infos["fused_psd_large"].log,
+          f"ptxas reported {len(large_ptxas)} large-N instantiations, not 24")
     print(f"build: all sources in {time.perf_counter() - t0:.1f} s wall")
 
     # 3. K1 against the plain version (and the float64 golden).
@@ -772,9 +1122,10 @@ def main() -> int:
     k2_abs = phase_k2(dev, rng, fp, adapt_batch, make_window)
     k3_abs = phase_k3(dev, rng, ff, adapt_batch, make_window)
     k4_abs = phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep)
+    large_abs = phase_large(dev, rng, fp, fl, adapt_batch, make_window)
 
     # 7. Times (median of 60 event-timed calls after 10 warm-ups).
-    times = phase_times(dev, rng, fp, ff, adapt_batch, make_window, card)
+    times = phase_times(dev, rng, fp, ff, fl, adapt_batch, make_window, card)
 
     # 8. End to end, in-process through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
@@ -816,16 +1167,27 @@ def main() -> int:
         k3_launches = drive_precision_high(cli, fp, ff, make_window, tmp)
         k4_launches = drive_config5(cli, fp, ff, tmp)
         k4w_launches = drive_streams_scan(cli, fp, ff, tmp)
+        large_launches, c3_argv = drive_config3(cli, fp, ff, tmp)
+        large_w_launches = drive_large_windowed(cli, fp, ff, make_window,
+                                                tmp)
+        drive_large_sweep(cli, fp, ff, make_window, tmp)
+        # 10. Where the config 3 drive's device time goes.
+        profile_drive("config 3", c3_argv, cli,
+                      ["Memcpy HtoD", "large_pass_a", "large_pass_b",
+                       "psd_sum_kernel", "Memcpy DtoH"])
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
     def entry(name, source, replaces, launches, max_abs, key):
-        k_us, p_us, _ = times[key]
+        k_us, p_us, _, lib_us, b_ms, b_by = times[key]
         return {"name": name, "route": "cuda", "source": CSRC + source,
-                "replaces": TPU_KERNEL + replaces, "launches": launches,
-                "max_abs_err": max_abs, "ms": k_us / 1000.0,
-                "plain_ms": p_us / 1000.0}
+                "replaces": (replaces if ".py:" in replaces
+                             else TPU_KERNEL + replaces),
+                "launches": launches, "max_abs_err": max_abs,
+                "ms": k_us / 1000.0, "plain_ms": p_us / 1000.0,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_us / 1000.0}
 
     print(json.dumps({"kernels": [
         entry("fused_psd", "fused_psd.cu", "435", launches, max_abs_2048,
@@ -838,6 +1200,12 @@ def main() -> int:
               k4_abs[None], ("K4", 2048, 256, None)),
         entry("fused_psd_streams (windowed)", "fused_psd.cu", "327",
               k4w_launches, k4_abs["hann"], ("K4", 2048, 256, "hann")),
+        entry("fused_psd_large", "fused_psd_large.cu",
+              "probes/big_kernel.py:113", large_launches, large_abs[None],
+              ("L", C3_N, 8, None)),
+        entry("fused_psd_large (windowed)", "fused_psd_large.cu", "261",
+              large_w_launches, large_abs["hann"],
+              ("L", 65536, 16, "hann")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

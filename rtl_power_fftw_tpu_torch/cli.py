@@ -14,13 +14,12 @@ from typing import List, Optional
 
 import torch
 
-from rtl_power_fftw_tpu.auxdata import AuxData
-from rtl_power_fftw_tpu.config import parse_args
-from rtl_power_fftw_tpu.exceptions import ReturnValue, RPFexception
-from rtl_power_fftw_tpu.sources.registry import open_device
-
+from .auxdata import AuxData
+from .config import parse_args
 from .device import device_runtime_errors, require_cuda
+from .exceptions import ReturnValue, RPFexception
 from .session import check_ported, run_session
+from .sources.registry import open_device
 
 
 def main(argv: Optional[List[str]] = None,

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from rtl_power_fftw_tpu.exceptions import ReturnValue, RPFexception
+from .exceptions import ReturnValue, RPFexception
 
 from .ops.kernels.fused_psd import KernelLaunchError
 

@@ -20,7 +20,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from rtl_power_fftw_tpu.planning import Plan
+from ..planning import Plan
 
 from ..ops.spectral import (PsdStep, bin_frequencies, finalize_psd,
                             pad_frames)
@@ -76,7 +76,7 @@ def scan_psd(hop_captures: np.ndarray,
         return (np.concatenate([f for f, _ in out]),
                 np.concatenate([p for _, p in out]))
     if stitch == "merge":
-        from rtl_power_fftw_tpu.utils.stitch import merge_spectra
+        from ..utils.stitch import merge_spectra
         return merge_spectra(out, db=not linear)
     raise ValueError(f"unknown stitch mode: {stitch}")
 
@@ -85,7 +85,7 @@ def plan_hop_freqs(startfreq: int, stopfreq: int, sample_rate: int,
                    min_overlap: float = 0.0) -> List[int]:
     """The session's exact hop-center arithmetic (planning.Plan) exposed
     for recorded-scan workflows."""
-    from rtl_power_fftw_tpu.config import Params
+    from ..config import Params
     p = Params()
     p.freq_hopping_isSet = True
     p.startfreq = int(startfreq)

@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from rtl_power_fftw_tpu.auxdata import make_window
+from ..auxdata import make_window
 
 from ..ops.spectral import bin_frequencies, finalize_psd
 from .bartlett import _accumulate

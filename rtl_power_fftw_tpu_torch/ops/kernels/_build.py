@@ -50,6 +50,12 @@ SIGNATURES = {
         "rpf_fused_psd_fast": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _P],
     },
+    "fused_psd_large": {
+        # raw, twiddle, inter, window, scratch, partial, out, device, log2n,
+        # F, group, n_valid, stream
+        "rpf_fused_psd_large": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _P],
+    },
 }
 
 

@@ -29,11 +29,12 @@
 //    and unwindowed kernels are two instantiations of one template, so
 //    a null window compiles to the K1 code unchanged;
 //  * the FFT is an in-place decimation-in-frequency radix-2 transform in
-//    shared memory. It takes input in natural order (no bank-conflicting
-//    bit-reversed scatter on the load) and leaves bins bit-reversed; each
-//    thread accumulates |X|^2 of fixed shared-memory slots in registers
-//    across frames and un-reverses the bin index only once per block,
-//    when it writes its partial row;
+//    shared memory (fft_radix2.cuh, shared with fused_psd_large.cu). It
+//    takes input in natural order (no bank-conflicting bit-reversed
+//    scatter on the load) and leaves bins bit-reversed; each thread
+//    accumulates |X|^2 of fixed shared-memory slots in registers across
+//    frames and un-reverses the bin index only once per block, when it
+//    writes its partial row;
 //  * twiddles come from a per-stage table (stage with half-span m holds
 //    W_{2m}^k, k < m, at offset m - 1) so neighbouring threads read
 //    neighbouring addresses; the table is computed on the host in
@@ -52,8 +53,9 @@
 // Eligibility (Hopper facts): power-of-two N with 64 <= N <= 16384. The
 // complex f32 frame lives in shared memory, 8N bytes: 128 KB at 16384,
 // which needs the opt-in above 48 KB (cudaFuncSetAttribute) and fits the
-// 227 KB a block may use; 32768 (256 KB) does not. At N = 64 the N/2
-// butterflies of a stage fill exactly one warp.
+// 227 KB a block may use; 32768 (256 KB) does not, and larger N go to the
+// two-pass four-step of fused_psd_large.cu. At N = 64 the N/2 butterflies
+// of a stage fill exactly one warp.
 //
 // Tensor-core forms (the DFT as matrix products, as the TPU kernel does)
 // are in fused_psd_fast.cu for the relaxed tier; overlapping the next
@@ -62,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fft_radix2.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -77,11 +80,6 @@ struct Shape {
   static constexpr int THREADS = HALF < kMaxThreads ? HALF : kMaxThreads;
   static constexpr int PER_THREAD = N / THREADS;   // accumulated slots
 };
-
-template <int LOG2N>
-__device__ __forceinline__ int bit_reverse(int i) {
-  return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - LOG2N));
-}
 
 // Pass 1: block g serves stream s = g / G_s (G_s blocks per stream; one
 // stream for K1/K2) and transforms that stream's frames [j*group,
@@ -142,26 +140,7 @@ psd_group_kernel(const uint32_t* __restrict__ raw,     // (S*F, N/2) words
     __syncthreads();
 
     // Decimation in frequency: half-span m = N/2, N/4, ..., 1.
-#pragma unroll
-    for (int s = LOG2N - 1; s >= 0; --s) {
-      const int m = 1 << s;
-      const float2* tw = twiddle + (m - 1);
-#pragma unroll
-      for (int r = 0; r < S::HALF / S::THREADS; ++r) {
-        const int j = tid + r * S::THREADS;
-        const int k = j & (m - 1);
-        const int i0 = ((j >> s) << (s + 1)) + k;
-        const int i1 = i0 + m;
-        const float2 a = x[i0];
-        const float2 b = x[i1];
-        const float2 w = __ldg(tw + k);
-        const float dr = a.x - b.x;
-        const float di = a.y - b.y;
-        x[i0] = make_float2(a.x + b.x, a.y + b.y);
-        x[i1] = make_float2(dr * w.x - di * w.y, dr * w.y + di * w.x);
-      }
-      __syncthreads();
-    }
+    dif_radix2<LOG2N, S::THREADS>(x, twiddle, tid);
 
     // Slot i now holds bin bit_reverse(i).
 #pragma unroll

@@ -40,8 +40,9 @@ import torch
 
 #: Eligible sizes: powers of two whose complex f32 frame (8N bytes) fits
 #: the 227 KB of shared memory a Hopper block may use (N = 16384 takes
-#: 128 KB; 32768 would take 256 KB), from the size whose N/2 butterflies
-#: fill one warp. Kept in step with kMinLog2N/kMaxLog2N in the source.
+#: 128 KB; 32768 would take 256 KB and goes to fused_psd_large), from the
+#: size whose N/2 butterflies fill one warp. Kept in step with
+#: kMinLog2N/kMaxLog2N in the source.
 MIN_N = 64
 MAX_N = 16384
 
@@ -55,10 +56,12 @@ class KernelLaunchError(RuntimeError):
 
 
 class LaunchCounts:
-    """Calls served by the CUDA kernel and by the plain version;
-    ``kernel_windowed`` counts the kernel's windowed launches (K2) apart
-    from its unwindowed ones (``kernel``, K1), and ``kernel_streams`` /
-    ``kernel_streams_windowed`` the streams launches (K4) likewise.
+    """Calls served by the CUDA kernels of this module and of
+    :mod:`.fused_psd_large`, and by their plain versions; ``kernel_windowed``
+    counts the kernel's windowed launches (K2) apart from its unwindowed
+    ones (``kernel``, K1), ``kernel_streams`` / ``kernel_streams_windowed``
+    the streams launches (K4) likewise, and ``kernel_large`` /
+    ``kernel_large_windowed`` the large-N kernel's.
 
     Incremented by the wrappers only; a session's single consumer thread
     is their only caller while a session runs."""
@@ -71,6 +74,8 @@ class LaunchCounts:
         self.kernel_windowed = 0
         self.kernel_streams = 0
         self.kernel_streams_windowed = 0
+        self.kernel_large = 0
+        self.kernel_large_windowed = 0
         self.plain = 0
 
 

@@ -10,15 +10,17 @@ float64 accumulation on the host.
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from rtl_power_fftw_tpu.exceptions import ReturnValue, RPFexception
-
-from .kernels.fused_psd import MAX_N, MIN_N, fused_psd, fused_psd_eligible
+from ..exceptions import ReturnValue, RPFexception
+from .kernels.fused_psd import MIN_N, fused_psd, fused_psd_eligible
 from .kernels.fused_psd_fast import fused_psd_fast, fused_psd_fast_eligible
+from .kernels.fused_psd_large import (MAX_N, fused_psd_large,
+                                      fused_psd_large_eligible)
 
 # Frames are reduced in chunks of this size before the cross-chunk sum;
 # two-stage summation keeps f32 rounding error at ~(CHUNK + F/CHUNK)·ε.
@@ -52,15 +54,19 @@ def pad_frames(batch: np.ndarray, F: int) -> np.ndarray:
 def check_step_ported(N: int, backend: str, fast: bool = False) -> None:
     """Raise RPFexception(InvalidArgument) unless a CUDA step of this
     package takes ``N`` bins with ``backend`` (at relaxed precision when
-    ``fast``)."""
+    ``fast``). Above the tensor-core step's sizes ``--precision high`` runs
+    the large-N kernel at full precision, as the JAX package's own ladder
+    does there, but not under an explicit ``--fft-backend pallas``."""
     unported = None
     if backend not in ("auto", "pallas"):
         unported = f"--fft-backend {backend}"
-    elif fast and not fused_psd_fast_eligible(N):
-        unported = (f"--precision high at {N} bins (the tensor-core "
-                    "step takes powers of two from 256 to 16384)")
-    elif not fused_psd_eligible(N):
-        unported = (f"{N} bins (the CUDA step takes powers of two "
+    elif fast and not fused_psd_fast_eligible(N) and not (
+            backend == "auto" and fused_psd_large_eligible(N)):
+        unported = (f"--precision high at {N} bins with --fft-backend "
+                    f"{backend} (the tensor-core step takes powers of two "
+                    "from 256 to 16384)")
+    elif not (fused_psd_eligible(N) or fused_psd_large_eligible(N)):
+        unported = (f"{N} bins (the CUDA steps take powers of two "
                     f"from {MIN_N} to {MAX_N})")
     if unported is not None:
         raise RPFexception(
@@ -72,13 +78,15 @@ class PsdStep:
     """A device step: (F, 2N) u8 frames -> (N,) f32 partial power sum.
 
     ``n_valid`` masks out padding rows so the step shape never changes.
-    On a CUDA device the step is a hand-written kernel: at the default
-    precision ``kernels/csrc/fused_psd.cu`` (K1, or K2 with a window); at
-    ``precision="high"`` the tensor-core kernel
-    ``kernels/csrc/fused_psd_fast.cu`` (K3), windowed or not. On the CPU
-    it is the kernel's plain PyTorch version. The result is a tensor on
-    ``device``; on CUDA it is computed asynchronously on the current
-    stream. The window is copied to the device once, here.
+    On a CUDA device the step is a hand-written kernel: up to 16384 bins,
+    at the default precision ``kernels/csrc/fused_psd.cu`` (K1, or K2 with
+    a window) and at ``precision="high"`` the tensor-core kernel
+    ``kernels/csrc/fused_psd_fast.cu`` (K3), windowed or not; from 32768
+    to 2^22 bins the two-pass four-step ``kernels/csrc/fused_psd_large.cu``
+    at full precision, windowed or not. On the CPU it is the kernel's plain
+    PyTorch version. The result is a tensor on ``device``; on CUDA it is
+    computed asynchronously on the current stream. The window is copied to
+    the device once, here.
     """
 
     def __init__(self, N: int, frames_per_step: int, device,
@@ -102,12 +110,23 @@ class PsdStep:
                 raise ValueError(f"window must have shape ({N},), got "
                                  f"{w.shape}")
             self.window = torch.from_numpy(w.copy()).to(self.device)
-        self._kernel = fused_psd_fast if fast else fused_psd
-        #: "cuda" or "cuda_fast" (the hand-written kernel at default or
-        #: relaxed precision), "plain" or "plain_fast" (its PyTorch
-        #: version, on the CPU).
-        self.path = (("cuda" if self.device.type == "cuda" else "plain")
-                     + ("_fast" if fast else ""))
+        on_card = "cuda" if self.device.type == "cuda" else "plain"
+        #: "cuda", "cuda_fast" or "cuda_large" (the hand-written kernel at
+        #: default or relaxed precision, or the large-N one), "plain",
+        #: "plain_fast" or "plain_large" (its PyTorch version, on the CPU).
+        if fused_psd_large_eligible(N):
+            if fast:
+                # The JAX package's CPU ladder says the same of its FFT
+                # four-step rung above 16384 (ops/spectral.py there).
+                print("Note: --precision high is a no-op on the FFT "
+                      f"four-step path selected here (backend={backend}, "
+                      f"N={N}): its FFT stages have no matmul precision "
+                      "knob.", file=sys.stderr)
+            self._kernel = fused_psd_large
+            self.path = on_card + "_large"
+        else:
+            self._kernel = fused_psd_fast if fast else fused_psd
+            self.path = on_card + ("_fast" if fast else "")
         self.takes_u16 = False
 
     def __call__(self, raw, n_valid: int) -> torch.Tensor:

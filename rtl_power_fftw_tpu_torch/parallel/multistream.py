@@ -40,10 +40,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from rtl_power_fftw_tpu.config import BASE_BUF, Params
-from rtl_power_fftw_tpu.exceptions import RPFexception, StreamEOF, TuneError
-from rtl_power_fftw_tpu.interrupts import InterruptState, check_interrupt
-from rtl_power_fftw_tpu.sources.base import IQSource
+from ..config import BASE_BUF, Params
+from ..exceptions import RPFexception, StreamEOF, TuneError
+from ..interrupts import InterruptState, check_interrupt
+from ..sources.base import IQSource
 
 from ..ops.spectral import _SUM_CHUNK, FrameSlicer
 from ..pipeline.datastore import (SlotRing, print_queue_histogram,

@@ -20,9 +20,10 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from rtl_power_fftw_tpu.exceptions import ReturnValue, RPFexception
+from ..exceptions import ReturnValue, RPFexception
 
-from ..ops.kernels.fused_psd import fused_psd_streams
+from ..ops.kernels.fused_psd import (MAX_N, MIN_N, fused_psd_eligible,
+                                     fused_psd_streams)
 from ..ops.spectral import adapt_batch, check_step_ported
 
 
@@ -48,6 +49,12 @@ class ShardedPsdStep:
                 f"over {len(devices)} devices. Exiting.",
                 ReturnValue.InvalidArgument)
         check_step_ported(N, backend)
+        if not fused_psd_eligible(N):
+            raise RPFexception(
+                "Not yet ported to the PyTorch/CUDA package: --streams at "
+                f"{N} bins (the streams kernel takes powers of two from "
+                f"{MIN_N} to {MAX_N}). Exiting.",
+                ReturnValue.InvalidArgument)
         self.devices = list(devices)
         self.device = torch.device(devices[0])
         self.N = N

@@ -32,7 +32,7 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
-from rtl_power_fftw_tpu.config import Params
+from ..config import Params
 
 from ..ops.spectral import FrameSlicer, PsdStep
 
@@ -199,8 +199,9 @@ class Datastore:
 
     @property
     def transform_path(self) -> str:
-        """Which step serves the session: "cuda", "cuda_fast", "plain" or
-        "plain_fast" (PsdStep.path)."""
+        """Which step serves the session: "cuda", "cuda_fast",
+        "cuda_large", or on the CPU "plain", "plain_fast", "plain_large"
+        (PsdStep.path)."""
         return self.step.path
 
     def bytes_needed(self) -> int:

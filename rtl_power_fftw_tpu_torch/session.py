@@ -23,23 +23,20 @@ from typing import IO, Optional
 import numpy as np
 import torch
 
-from rtl_power_fftw_tpu.auxdata import AuxData
-from rtl_power_fftw_tpu.config import BASE_BUF, Params
-from rtl_power_fftw_tpu.exceptions import (ReturnValue, RPFexception,
-                                           StreamEOF, TuneError)
-from rtl_power_fftw_tpu.interrupts import (InterruptState, check_interrupt,
-                                           set_ctrl_c_handler)
-from rtl_power_fftw_tpu.output.matrix import MatrixWriter
-from rtl_power_fftw_tpu.output.stats import SessionStats
-from rtl_power_fftw_tpu.output.text import TextWriter
-from rtl_power_fftw_tpu.planning import Plan
-from rtl_power_fftw_tpu.sources.base import IQSource
-from rtl_power_fftw_tpu.sources.registry import make_sources
-
+from .auxdata import AuxData
+from .config import BASE_BUF, Params
+from .exceptions import ReturnValue, RPFexception, StreamEOF, TuneError
+from .interrupts import InterruptState, check_interrupt, set_ctrl_c_handler
 from .ops.spectral import bin_frequencies, finalize_psd
+from .output.matrix import MatrixWriter
+from .output.stats import SessionStats
+from .output.text import TextWriter
 from .parallel.mesh import make_mesh
 from .parallel.multistream import MultiStreamAcquisition
 from .pipeline.datastore import Datastore
+from .planning import Plan
+from .sources.base import IQSource
+from .sources.registry import make_sources
 
 
 def current_datetime() -> str:
@@ -417,7 +414,7 @@ def run_session(params: Params, source: IQSource, aux: AuxData, *,
 def _write_stitch(stitch_file: str, pass_spectra, linear: bool) -> None:
     """Rewrite the merged wideband spectrum (overlaps averaged in linear
     power unless --linear; utils/stitch.py) atomically."""
-    from rtl_power_fftw_tpu.utils.stitch import merge_spectra
+    from .utils.stitch import merge_spectra
     sfreqs, svals = merge_spectra(pass_spectra, db=not linear)
     tmp = stitch_file + ".tmp"
     with open(tmp, "w") as sf:

@@ -8,7 +8,7 @@ import sys
 import pytest
 import torch
 
-import rtl_power_fftw_tpu.interrupts as interrupts
+import rtl_power_fftw_tpu_torch.interrupts as interrupts
 from rtl_power_fftw_tpu_torch import cli
 from rtl_power_fftw_tpu_torch.ops.kernels.fused_psd import KernelLaunchError
 

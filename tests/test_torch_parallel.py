@@ -25,19 +25,20 @@ import numpy as np
 import pytest
 import torch
 
-import rtl_power_fftw_tpu.interrupts as interrupts
-from rtl_power_fftw_tpu.auxdata import make_window
-from rtl_power_fftw_tpu.config import parse_args
-from rtl_power_fftw_tpu.exceptions import RPFexception, TuneError
+import rtl_power_fftw_tpu.interrupts as jax_interrupts
+import rtl_power_fftw_tpu_torch.interrupts as interrupts
 from rtl_power_fftw_tpu.ops.kernels import make_fused_psd_fn
 from rtl_power_fftw_tpu.parallel import ShardedPsdStep as JaxShardedPsdStep
 from rtl_power_fftw_tpu.parallel import make_mesh as jax_make_mesh
-from rtl_power_fftw_tpu.sources import FileSource, SyntheticSource
-from rtl_power_fftw_tpu.sources.registry import make_sources
+from rtl_power_fftw_tpu_torch.auxdata import make_window
+from rtl_power_fftw_tpu_torch.config import parse_args
+from rtl_power_fftw_tpu_torch.exceptions import RPFexception, TuneError
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
 from rtl_power_fftw_tpu_torch.ops.spectral import _SUM_CHUNK, adapt_batch
 from rtl_power_fftw_tpu_torch.parallel import (MultiStreamAcquisition,
                                                ShardedPsdStep, make_mesh)
+from rtl_power_fftw_tpu_torch.sources import FileSource, SyntheticSource
+from rtl_power_fftw_tpu_torch.sources.registry import make_sources
 
 from golden import golden_accumulate
 from test_torch_session import (LINEAR_RTOL, TIMESTAMP,
@@ -50,9 +51,11 @@ RTOL = 1e-5
 
 @pytest.fixture(autouse=True)
 def _reset_interrupts():
-    interrupts.reset()
+    for module in (interrupts, jax_interrupts):
+        module.reset()
     yield
-    interrupts.reset()
+    for module in (interrupts, jax_interrupts):
+        module.reset()
 
 
 def make_streams(S, F, N, seed):

@@ -21,13 +21,18 @@ import numpy as np
 import pytest
 import torch
 
-import rtl_power_fftw_tpu.interrupts as interrupts
-from rtl_power_fftw_tpu.auxdata import AuxData, make_window
-from rtl_power_fftw_tpu.config import parse_args
-from rtl_power_fftw_tpu.exceptions import RPFexception
+import rtl_power_fftw_tpu.interrupts as jax_interrupts
+import rtl_power_fftw_tpu_torch.interrupts as interrupts
+from rtl_power_fftw_tpu import auxdata as jax_auxdata
+from rtl_power_fftw_tpu import config as jax_config
+from rtl_power_fftw_tpu.exceptions import RPFexception as JaxRPFexception
 from rtl_power_fftw_tpu.session import run_session as jax_run_session
-from rtl_power_fftw_tpu.sources.registry import open_device
+from rtl_power_fftw_tpu.sources import registry as jax_registry
+from rtl_power_fftw_tpu_torch.auxdata import AuxData, make_window
+from rtl_power_fftw_tpu_torch.config import parse_args
+from rtl_power_fftw_tpu_torch.exceptions import RPFexception
 from rtl_power_fftw_tpu_torch.session import run_session
+from rtl_power_fftw_tpu_torch.sources.registry import open_device
 
 from golden import golden_accumulate, golden_finalize
 
@@ -47,15 +52,25 @@ MESH_SIZE = re.compile(r"\(mesh size \d+\)")
 
 @pytest.fixture(autouse=True)
 def _reset_interrupts():
-    interrupts.reset()
+    for module in (interrupts, jax_interrupts):
+        module.reset()
     yield
-    interrupts.reset()
+    for module in (interrupts, jax_interrupts):
+        module.reset()
 
 
 def run(argv, port: bool):
-    params = parse_args(argv, stderr=io.StringIO())
-    aux = AuxData(params, stderr=io.StringIO())
-    source = open_device(params)
+    """One session of the port (on the CPU) or of the JAX package, each
+    with its own parameters, aux data and source: the port raises and
+    catches its own exception classes."""
+    if port:
+        params = parse_args(argv, stderr=io.StringIO())
+        aux = AuxData(params, stderr=io.StringIO())
+        source = open_device(params)
+    else:
+        params = jax_config.parse_args(argv, stderr=io.StringIO())
+        aux = jax_auxdata.AuxData(params, stderr=io.StringIO())
+        source = jax_registry.open_device(params)
     out, err = io.StringIO(), io.StringIO()
     kwargs = {"device": CPU} if port else {}
     fn = run_session if port else jax_run_session
@@ -212,7 +227,7 @@ def outcome(argv, port: bool):
     (exit code, message)."""
     try:
         rv, out, err = run(argv, port=port)
-    except RPFexception as e:
+    except (RPFexception, JaxRPFexception) as e:
         return (int(e.return_value), str(e)), "", []
     return int(rv), out, mask_stderr(err)
 
@@ -309,9 +324,10 @@ def test_scenario_matches_jax_session(name, tmp_path):
 def test_interrupts_match_jax_session(n_interrupts, argv, said):
     results = []
     for port in (False, True):
-        interrupts.reset()
+        module = interrupts if port else jax_interrupts
+        module.reset()
         for _ in range(n_interrupts):
-            interrupts.raise_interrupt()
+            module.raise_interrupt()
         results.append(outcome(argv, port=port))
     (res_j, out_j, err_j), (res_p, out_p, err_p) = results
     assert res_p == res_j == 0
@@ -323,7 +339,7 @@ def test_met_sidecar_matches_golden_fixture(tmp_path, monkeypatch):
     """tests/test_met_golden.py's frozen-clock 2-hop matrix session,
     byte-compared against the same checked-in fixture."""
     import time
-    from rtl_power_fftw_tpu.sources import SyntheticSource
+    from rtl_power_fftw_tpu_torch.sources import SyntheticSource
 
     epoch = 1_767_323_045  # 2026-01-02 03:04:05 UTC
     calls = {"n": 0}

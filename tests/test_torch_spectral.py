@@ -7,11 +7,11 @@ import numpy as np
 import pytest
 import torch
 
-from rtl_power_fftw_tpu.auxdata import make_window
-from rtl_power_fftw_tpu.config import parse_args
-from rtl_power_fftw_tpu.exceptions import ReturnValue, RPFexception
 from rtl_power_fftw_tpu.ops import spectral as jax_spectral
 from rtl_power_fftw_tpu.pipeline import datastore as jax_datastore
+from rtl_power_fftw_tpu_torch.auxdata import make_window
+from rtl_power_fftw_tpu_torch.config import parse_args
+from rtl_power_fftw_tpu_torch.exceptions import ReturnValue, RPFexception
 from rtl_power_fftw_tpu_torch.ops import spectral
 from rtl_power_fftw_tpu_torch.pipeline import datastore
 
@@ -111,7 +111,7 @@ def test_psd_step_matches_jax_step_and_golden(N, F, n_valid):
     (dict(N=128, precision="high"), "--precision high at 128 bins"),
     (dict(backend="matmul"), "--fft-backend matmul"),
     (dict(N=500), "500 bins"),
-    (dict(N=32768), "32768 bins"),
+    (dict(N=1 << 23), "8388608 bins"),
 ])
 def test_psd_step_rejects_unported(kwargs, what):
     args = dict(N=512, frames_per_step=16, device=CPU)
