@@ -63,7 +63,32 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    every instantiation. (Runs before the drives; numbered here for the
    kernels line.)
 10. a profile of the config 3 drive under ``torch.profiler``: device time
-   by kernel and copy per step, and the device's busy share of the wall.
+   by kernel and copy per step, and the device's busy share of the wall;
+11. the stage-attribution probes (``fused_psd_probe``: P1, P18 and P13 as
+   variants of K3's template, K1's cuts, P12's relayouts), right after the
+   build: every variant against its plain version at N = 2048, F = 4096,
+   with all frames valid and with 1000, twice for determinism; P1 ``full``
+   and ``dg3d`` bit-identical to the shipping K3, ``k1_full`` to K1, the
+   layout variants of the 6-product scheme to its ``full``; P12 equal to
+   torch's reshape/permute; ptxas's registers and spills of every
+   instantiation at N = 2048 (the shipping K1 and K3 beside them); each
+   variant's slope time (the probes' own method), its plain version's, its
+   bound and ``torch.fft.fft``'s;
+   and device time by kernel under ``torch.profiler`` for K3, ``dg3d``,
+   K1 and the gather cut (the row sum's own time beside each group
+   kernel's); then each variant's registers, spill, shared memory and
+   resident blocks per SM, and its time again with its occupancy pinned
+   to that of the whole kernel it is compared with (K3's and the
+   6-product scheme's for K3's template, K1's for K1's cuts), its output
+   unchanged;
+12. the probes' entry points (``python -m
+   rtl_power_fftw_tpu_torch.probes.{profile_kernel,s1_lanes,s1_lanes2,
+   cast_test}``) in-process, each with every launch counter reset just
+   before it: exit 0, one line per default variant, and every one of those
+   variants launched (P1's ``launches`` are this run's); then
+   ``profile_kernel`` again over a sweep of frames per block
+   (``variant:tile``) for K3, ``dg3d`` and K1, its launches on a line of
+   their own.
 
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -552,19 +577,24 @@ def phase_times(dev, rng, fp, ff, fl, adapt_batch, make_window, card):
 
 
 def reset_counts(fp, ff) -> None:
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     fp.COUNTS.reset()
     ff.COUNTS.reset()
+    fpp.COUNTS.reset()
 
 
 def launch_counts(fp, ff) -> dict:
     """Every launch counter by the kernel (or plain version) it counts;
-    "L" is the large-N kernel."""
+    "L" is the large-N kernel, "probes" every probe variant together."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     return {"K1": fp.COUNTS.kernel, "K2": fp.COUNTS.kernel_windowed,
             "K3": ff.COUNTS.kernel, "K4": fp.COUNTS.kernel_streams,
             "K4 windowed": fp.COUNTS.kernel_streams_windowed,
             "L": fp.COUNTS.kernel_large,
             "L windowed": fp.COUNTS.kernel_large_windowed,
-            "plain": fp.COUNTS.plain, "plain_fast": ff.COUNTS.plain}
+            "plain": fp.COUNTS.plain, "plain_fast": ff.COUNTS.plain,
+            "probes": sum(fpp.COUNTS.kernel.values())
+            + sum(fpp.COUNTS.plain.values())}
 
 
 def check_only(counts: dict, kernel: str, label: str) -> None:
@@ -760,54 +790,29 @@ def golden_partial_dev(raw: torch.Tensor, window=None) -> np.ndarray:
     return (X.real ** 2 + X.imag ** 2).sum(0).cpu().numpy()
 
 
-def bound_ms(kind: str, frames: int, N: int, windowed: bool,
-             out_rows: int = 1):
-    """The least time the card could take for one call, and what bounds
-    it: the larger of the bytes the function must move (frames in, the
-    window, the output out) over the memory rate, and its operations
-    over the peak rate of their type. An FFT-based step (K1, K2, K4, the
-    large-N kernel) does ~5 N log2(N) FP32 flops per frame for the
-    transform and ~4N (+2N with a window) for dequantization, |X|^2 and
-    the sum; K3 does 2 N (12 N1 + 9 N2) bf16 flops per frame on the
-    tensor cores (24 N1 windowed, fused_psd_fast.cu) and ~10N FP32."""
-    nbytes = frames * 2 * N + (4 * N if windowed else 0) + 4 * N * out_rows
+def rate_bound_ms(nbytes: float, bf16_flops: float, fp32_ops: float):
+    """The least time the card could take for this work, and what bounds
+    it: the larger of the bytes over the memory rate and the operations
+    over the peak rate of their type."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    if kind == "K3":
-        n1 = 1 << ((N.bit_length() - 1) // 2)
-        n2 = N // n1
-        mma = frames * 2 * N * ((24 if windowed else 12) * n1 + 9 * n2)
-        t_ops = mma / BF16_FLOP_PER_S + frames * 10 * N / FP32_FLOP_PER_S
-    else:
-        log2n = N.bit_length() - 1
-        ops = frames * N * (5 * log2n + (6 if windowed else 4))
-        t_ops = ops / FP32_FLOP_PER_S
+    t_ops = bf16_flops / BF16_FLOP_PER_S + fp32_ops / FP32_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def ptxas_lines(log_text: str, kernel_marker: str):
-    """(entry, registers/spill summary) for each instantiation ptxas
-    reports in ``log_text`` whose mangled name contains
-    ``kernel_marker``."""
-    out, name, spill = [], None, ""
-    for line in log_text.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1] if "'" in line else line
-            # _Z...large_pass_aILi20ELb1E... -> large_pass_a<20, 1>
-            m = re.search(r"(\w+?)ILi(\d+)E(?:Lb([01])E)?", name)
-            if m:
-                name = m.group(1)[-12:] + "<" + ", ".join(
-                    g for g in m.groups()[1:] if g is not None) + ">"
-            spill = ""
-            continue
-        if name and kernel_marker in name:
-            if "spill" in line:
-                spill = line.strip()
-            elif "Used" in line and "registers" in line:
-                out.append((name, line.split("ptxas info    :")[-1].strip()
-                            + "; " + spill))
-                name = None
-    return out
+def bound_ms(kind: str, frames: int, N: int, windowed: bool,
+             out_rows: int = 1):
+    """rate_bound_ms of one call: K3's work as the probes count it
+    (fused_psd_probe.k3_work; 2 N (12 N1 + 9 N2) bf16 flops per frame, 24
+    N1 windowed), and the FFT-based steps' (K1, K2, K4, the large-N
+    kernel "L") as k1_work does (~5 N log2 N FP32 flops per frame)."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    if kind == "K3":
+        return rate_bound_ms(*fpp.k3_work(frames, N, 6 if windowed else 3,
+                                          windowed=windowed))
+    return rate_bound_ms(*fpp.k1_work(frames, N, windowed=windowed,
+                                      out_rows=out_rows,
+                                      twiddle_table=kind != "L"))
 
 
 def phase_large(dev, rng, fp, fl, adapt_batch, make_window):
@@ -979,24 +984,27 @@ def drive_large_sweep(cli, fp, ff, make_window, tmp) -> None:
             check(err_gold <= budget, f"{label} drive vs float64 golden")
 
 
+def device_rows(prof):
+    """[(kernel or copy name, calls, device us)] of a torch.profiler run."""
+    from torch.autograd import DeviceType
+    return [(evt.key, evt.count,
+             getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0)))
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA]
+
+
 def profile_drive(label, argv, cli, markers) -> None:
     """One more run of a drive under torch.profiler: device time by
     kernel (and copy) name, per call, and the device's busy share of the
     drive's wall time. Prints "not measured" where the profiler sees no
     device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         rc, _, _, wall = run_cli(argv, cli.main)
     check(rc == 0, f"profiled {label} drive exited {rc}")
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0.0))
-        rows.append((evt.key, evt.count, us))
+    rows = device_rows(prof)
     busy = sum(us for _, _, us in rows)
     if not rows or busy <= 0:
         print(f"profile {label}: the profiler recorded no device time "
@@ -1014,6 +1022,228 @@ def profile_drive(label, argv, cli, markers) -> None:
           f"wall); " + "; ".join(parts))
 
 
+def template_ptxas(log_text: str, marker: str, first_arg: str = ""):
+    """(marker<template arguments>, registers/spill summary) for each
+    instantiation ptxas reports in ``log_text`` whose mangled name holds
+    ``marker`` (and whose first template argument is ``first_arg``, when
+    given): the integer and bool arguments in order, variant parameters
+    included."""
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1] if "'" in line else line
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name = (f"{marker}<{', '.join(args)}>"
+                    if marker in mangled and args
+                    and (not first_arg or args[0] == first_arg) else None)
+            spill = ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            out.append((name, line.split("ptxas info    :")[-1].strip()
+                        + "; " + spill))
+            name = None
+    return out
+
+
+def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
+    """Every stage-attribution probe variant against its plain version and
+    its parity class, twice each, then its time. Returns {variant or P12
+    case: (ms, plain_ms, bound_ms, bound_by, max_abs, library_ms)}."""
+    from rtl_power_fftw_tpu_torch.probes._timing import slope_us
+    N = fpp.N
+    F, chunk = adapt_batch(4096)
+    raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                        dtype=np.uint8)).to(dev)
+    z = torch.complex(raw[:, 0::2].float() - 127.0,
+                      raw[:, 1::2].float() - 127.0)
+    fft_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
+    masked = min(1000, F // 4)   # 1000 of the 4096 frames
+    ship = {("K3", nv): ff.fused_psd_fast(raw, nv, chunk) for nv in (F, masked)}
+    ship.update({("K1", nv): fp.fused_psd(raw, nv, chunk)
+                 for nv in (F, masked)})
+    fpp.COUNTS.reset()
+    results, launched = {}, 0
+    for name, v in fpp.VARIANTS.items():
+        errs = []
+        for nv in (F, masked):
+            got = fpp.fused_psd_probe(name, raw, nv, chunk)
+            again = fpp.fused_psd_probe(name, raw, nv, chunk)
+            want = fpp.fused_psd_probe_reference(name, raw, nv, chunk)
+            torch.cuda.synchronize()
+            launched += 2
+            check(torch.equal(got, again), f"probe {name}: not deterministic")
+            check(bool(torch.isfinite(got).all()), f"probe {name}: non-finite")
+            err = max_rel(got.cpu().numpy(), want.cpu().numpy())
+            errs.append(err)
+            check(err <= v.rtol, f"probe {name} n_valid={nv}: {err} vs plain "
+                  f"(<= {v.rtol:g})")
+            if v.parity in ("K3", "K1"):
+                check(torch.equal(got, ship[(v.parity, nv)]),
+                      f"probe {name} n_valid={nv}: not bit-identical to "
+                      f"the shipping {v.parity}")
+            elif v.parity == "tpu6":
+                check(torch.equal(got, ship[("tpu6", nv)]),
+                      f"probe {name} n_valid={nv}: not bit-identical to tpu6")
+            if name == "tpu6":
+                ship[("tpu6", nv)] = got
+            if nv == F:
+                max_abs = float((got.double() - want.double()).abs().max())
+        k_us = slope_us(lambda it: fpp.fused_psd_probe(name, raw, F, chunk,
+                                                       iters=it))
+        p_us = event_times_us(
+            lambda: fpp.fused_psd_probe_reference(name, raw, F, chunk),
+            iters=20, warmup=3)
+        b_ms, b_by = rate_bound_ms(*v.work(F))
+        results[name] = (k_us / 1e3, p_us / 1e3, b_ms, b_by, max_abs,
+                         fft_us / 1e3)
+        print(f"probe {name} ({'; '.join(v.tpu)}) N={N} F={F} chunk={chunk} "
+              f"frames/block {fp.frames_per_block(F, chunk)} on {card}: "
+              f"{k_us:.1f} us/step ({F * N / k_us / 1e3:.2f} GS/s), plain "
+              f"{p_us:.1f} us, bound {1e3 * b_ms:.1f} us ({b_by}), "
+              f"torch.fft.fft {fft_us:.1f} us; max rel vs plain "
+              f"{errs[0]:.3e} / masked {errs[1]:.3e} (<= {v.rtol:g}); "
+              f"parity {v.parity}")
+    check(sum(fpp.COUNTS.kernel.values()) >= launched
+          and not fpp.COUNTS.plain,
+          f"probe launch counter did not move as expected: {fpp.COUNTS.kernel}"
+          f", plain {fpp.COUNTS.plain}")
+    for name in ("k3", "zplanes", "k1_full", "gather"):
+        profile_calls(f"probe {name} N={N} F={F}",
+                      lambda: fpp.fused_psd_probe(name, raw, F, chunk),
+                      ("group_kernel", "psd_sum_kernel"))
+    probe_occupancy(fpp, raw, F, chunk, card, slope_us)
+
+    n = fpp.T * fpp._N1 * fpp._N2
+    for case, r in fpp.RELAYOUTS.items():
+        x = torch.arange(n, dtype=torch.float32, device=dev).reshape(r.in_shape)
+        got = fpp.relayout(case, x)
+        want = fpp.relayout_reference(case, x)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"P12 {r.name}: not equal to torch's")
+        k_us = slope_us(lambda it: fpp.relayout(case, x, iters=it))
+        p_us = event_times_us(lambda: fpp.relayout_reference(case, x))
+        lib_us = event_times_us(lambda: r.fn(x).contiguous())
+        b_ms, b_by = rate_bound_ms(2 * 4 * n, 0.0, 0.0)
+        results[case] = (k_us / 1e3, p_us / 1e3, b_ms, b_by, 0.0,
+                         lib_us / 1e3)
+        print(f"probe P12 {r.name} {r.in_shape} -> {r.out_shape} on {card}: "
+              f"{k_us:.2f} us/step, plain (torch, contiguous) {p_us:.2f} us, "
+              f"bound {1e3 * b_ms:.3f} us ({b_by}); exact")
+    return results
+
+
+def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
+    """Each probe variant's registers, spill, shared memory and resident
+    blocks per SM as it launches, and its time again at the occupancy of
+    the whole kernels it is compared with: K3's and the 6-product scheme's
+    (every variant of K3's template at both), K1's (K1's cuts). A pinned
+    launch pads the block's shared memory (largest carveout) so that no
+    more blocks reside; its output must not change. K3 pinned at its own
+    occupancy is the control: what the padding and carveout alone cost."""
+    pins = {kernel: fpp.probe_attributes(name)["blocks_per_sm"]
+            for kernel, name in (("k3", "k3"), ("tpu6", "tpu6"),
+                                 ("k1", "k1_full"))}
+    for name, v in fpp.VARIANTS.items():
+        a = fpp.probe_attributes(name)
+        base = fpp.fused_psd_probe(name, raw, F, chunk)
+        k_us = slope_us(lambda it: fpp.fused_psd_probe(name, raw, F, chunk,
+                                                       iters=it))
+        parts = []
+        for b in sorted({pins["k1"]} if v.kernel == "k1"
+                        else {pins["k3"], pins["tpu6"]}, reverse=True):
+            p = fpp.probe_attributes(name, b)
+            got = fpp.fused_psd_probe(name, raw, F, chunk, blocks_per_sm=b)
+            torch.cuda.synchronize()
+            check(torch.equal(got, base), f"probe {name} at {b} blocks/SM: "
+                  "output changed")
+            check(p["blocks_per_sm"] <= b, f"probe {name}: {p} at pin {b}")
+            p_us = slope_us(lambda it: fpp.fused_psd_probe(
+                name, raw, F, chunk, iters=it, blocks_per_sm=b))
+            parts.append(f"at {b} blocks/SM ({p['blocks_per_sm']} resident, "
+                         f"{p['dynamic_smem']} B dynamic) {p_us:.1f} us/step")
+        print(f"probe occupancy {name} on {card}: {a['registers']} registers, "
+              f"{a['spill_bytes']} B spill, {a['static_smem']} + "
+              f"{a['dynamic_smem']} B shared, {a['blocks_per_sm']} "
+              f"blocks/SM: {k_us:.1f} us/step; " + "; ".join(parts))
+
+
+def profile_calls(label, fn, markers, calls: int = 10) -> None:
+    """Device time by kernel name of ``calls`` calls of ``fn`` under
+    torch.profiler, per call ("not measured" where the profiler sees no
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows or sum(us for _, _, us in rows) <= 0:
+        print(f"profile {label}: the profiler recorded no device time "
+              "(device times not measured)")
+        return
+    parts = []
+    for marker in markers:
+        hit = [(n, us) for k, n, us in rows if marker in k]
+        parts.append(f"{marker} {sum(us for _, us in hit) / calls:.1f} us/call"
+                     f" ({sum(n for n, _ in hit)} launches)")
+    print(f"profile {label}, {calls} calls: " + "; ".join(parts))
+
+
+#: profile_kernel's frames-per-block sweep (the default is 4 at F = 4096).
+TILE_SWEEP = ["full:1", "full:2", "full:8", "full:16", "dg3d:1", "dg3d:16",
+              "k1_full:1", "k1_full:2", "k1_full:8", "k1_full:16"]
+
+
+def drive_probes(fpp) -> dict:
+    """The probes' four entry points in-process, every launch counter
+    reset just before each: exit 0, one line per default variant, each of
+    those variants launched and no plain version run. Returns {TPU probe:
+    launches}."""
+    import importlib
+    launches = {}
+    for tpu, module in (("P1", "profile_kernel"), ("P18", "s1_lanes"),
+                        ("P13", "s1_lanes2"), ("P12", "cast_test")):
+        entry = importlib.import_module(
+            f"rtl_power_fftw_tpu_torch.probes.{module}")
+        fpp.COUNTS.reset()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = entry.main([])
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        print(text, end="")
+        lines = [ln for ln in text.splitlines() if not ln.startswith("#")]
+        want = (list(fpp.RELAYOUTS) if tpu == "P12"
+                else [fpp.PROBES[tpu].variants[v]
+                      for v in fpp.PROBES[tpu].default])
+        missing = [v for v in want if fpp.COUNTS.kernel[v] == 0]
+        print(f"e2e probe {module} ({tpu}): exit {rc} in {wall:.2f} s wall; "
+              f"{len(lines)} lines; launches {dict(fpp.COUNTS.kernel)}")
+        check(rc == 0, f"probe entry {module} exited {rc}")
+        check(len(lines) == len(want), f"probe entry {module}: {len(lines)} "
+              f"lines for {len(want)} variants")
+        check(not missing and not fpp.COUNTS.plain,
+              f"probe entry {module}: not launched {missing}, plain "
+              f"{dict(fpp.COUNTS.plain)}")
+        launches[tpu] = sum(fpp.COUNTS.kernel.values())
+    from rtl_power_fftw_tpu_torch.probes import profile_kernel
+    fpp.COUNTS.reset()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = profile_kernel.main(TILE_SWEEP)
+    print(out.getvalue(), end="")
+    check(rc == 0 and len(out.getvalue().splitlines()) == len(TILE_SWEEP) + 1,
+          f"profile_kernel tile sweep exited {rc}")
+    print(f"e2e probe profile_kernel tile sweep (P1): launches "
+          f"{dict(fpp.COUNTS.kernel)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -1025,6 +1255,7 @@ def main() -> int:
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_fast as ff
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large as fl
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch
     from rtl_power_fftw_tpu_torch.parallel import ShardedPsdStep
     COUNTS, fused_psd, fused_psd_reference = (fp.COUNTS, fp.fused_psd,
@@ -1050,12 +1281,27 @@ def main() -> int:
     for name, info in infos.items():
         log(info.log.strip())
         print(f"build: {info.path.name} by nvcc in {info.seconds:.1f} s")
-    large_ptxas = ptxas_lines(infos["fused_psd_large"].log, "large_pass")
-    for entry_name, summary in large_ptxas:
-        print(f"ptxas fused_psd_large {entry_name}: {summary}")
+    large_ptxas = [line for marker in ("large_pass_a", "large_pass_b")
+                   for line in template_ptxas(infos["fused_psd_large"].log,
+                                              marker)]
     check(len(large_ptxas) == 24 or not infos["fused_psd_large"].log,
           f"ptxas reported {len(large_ptxas)} large-N instantiations, not 24")
+    for lib, marker, first in (
+            ("fused_psd_large", "large_pass_a", ""),
+            ("fused_psd_large", "large_pass_b", ""),
+            ("fused_psd", "psd_group_kernel", "11"),
+            ("fused_psd_fast", "psd_fast_group_kernel", "11"),
+            ("fused_psd_probe", "psd_group_kernel", "11"),
+            ("fused_psd_probe", "psd_fast_group_kernel", "11")):
+        for entry_name, summary in template_ptxas(infos[lib].log, marker,
+                                                  first):
+            print(f"ptxas {lib} {entry_name}: {summary}")
     print(f"build: all sources in {time.perf_counter() - t0:.1f} s wall")
+
+    # 11.-12. The stage-attribution probes, then their entry points.
+    probe_times = phase_probes(dev, np.random.default_rng(0), fpp, ff, fp,
+                               adapt_batch, card)
+    probe_launches = drive_probes(fpp)
 
     # 3. K1 against the plain version (and the float64 golden).
     rng = np.random.default_rng(20261016)
@@ -1189,6 +1435,16 @@ def main() -> int:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib_us / 1000.0}
 
+    def probe_entry(name, tpu, key):
+        ms, plain_ms, b_ms, b_by, max_abs, lib_ms = probe_times[key]
+        source = ("probes/cast_test.py:16" if tpu == "P12"
+                  else fpp.PROBES[tpu].source)
+        return {"name": name, "route": "cuda",
+                "source": CSRC + "fused_psd_probe.cu", "replaces": source,
+                "launches": probe_launches[tpu], "max_abs_err": max_abs,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}
+
     print(json.dumps({"kernels": [
         entry("fused_psd", "fused_psd.cu", "435", launches, max_abs_2048,
               ("K1", 2048, 4096, None)),
@@ -1206,7 +1462,15 @@ def main() -> int:
         entry("fused_psd_large (windowed)", "fused_psd_large.cu", "261",
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
-    ]}))
+    ] + [probe_entry(name, tpu, key)
+         for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
+                                 "P1", "k3"),
+                                ("fused_psd_probe P18 (s1_lanes: full)",
+                                 "P18", "tpu6"),
+                                ("fused_psd_probe P13 (s1_lanes2: i32tr)",
+                                 "P13", "tpu6_wide32"),
+                                ("relayout_probe P12 (cast_test: C control)",
+                                 "P12", "C"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

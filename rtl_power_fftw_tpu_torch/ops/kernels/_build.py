@@ -2,9 +2,12 @@
 
 Each ``csrc/*.cu`` has a plain C interface and is compiled by ``nvcc``
 alone into its own shared library, without PyTorch's headers, and bound
-with :mod:`ctypes`. The first :func:`load` in a process starts one
-``nvcc`` per source that has no library yet, all at once, and waits for
-them. A library is keyed on a hash of its source, every ``csrc/*.cuh``
+with :mod:`ctypes`. :func:`load` builds the one library it is asked for,
+if it has no build yet, so a session compiles only the kernels it runs
+(never the stage-attribution probes of ``fused_psd_probe.cu``);
+:func:`build` starts one ``nvcc`` per named source that has no library
+yet, all at once, and waits for them. A library is keyed on a hash of its
+source, every ``csrc/*.cuh``
 header and the flags, so an edited source rebuilds. It is written under a
 temporary name and renamed, so a concurrent process never loads a
 half-written file. A failed build raises with nvcc's own message; there
@@ -22,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).with_name("csrc")
 #: Build outputs; listed in .gitignore.
@@ -55,6 +58,16 @@ SIGNATURES = {
         # F, group, n_valid, stream
         "rpf_fused_psd_large": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _P],
+    },
+    "fused_psd_probe": {
+        # variant, raw, w1r, w1i, twiddle, w2, partial, out, device, F,
+        # group, n_valid, blocks_per_sm, iters, stream
+        "rpf_fused_psd_probe": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _P],
+        # variant, blocks_per_sm, device, attrs (int[5])
+        "rpf_probe_attributes": [_I, _I, _I, _P],
+        # which, in, out, device, iters, stream
+        "rpf_relayout_probe": [_I, _P, _P, _I, _I, _P],
     },
 }
 
@@ -99,10 +112,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Dict[str, BuildInfo]:
-    """Compile every library that has no build of its exact sources, one
-    nvcc process per source, all started together."""
-    outs = {name: library_path(name) for name in SIGNATURES}
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildInfo]:
+    """Compile each library of ``names`` (default: every source) that has
+    no build of its exact sources, one nvcc process per source, all
+    started together."""
+    outs = {name: library_path(name)
+            for name in (SIGNATURES if names is None else names)}
     infos = {name: BuildInfo(out, 0.0, "") for name, out in outs.items()
              if out.is_file()}
     missing = [name for name in outs if name not in infos]
@@ -134,16 +149,15 @@ def build() -> Dict[str, BuildInfo]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (all are built on the first call in a
-    process)."""
+    """The loaded library ``name``, built on its first load in a process
+    if it has no build of its exact sources."""
     with _lock:
-        if not _libs:
-            for lib_name, info in build().items():
-                lib = ctypes.CDLL(str(info.path))
-                for fn, argtypes in SIGNATURES[lib_name].items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-                lib.rpf_cuda_error_string.argtypes = [ctypes.c_int]
-                lib.rpf_cuda_error_string.restype = ctypes.c_char_p
-                _libs[lib_name] = lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build([name])[name].path))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.rpf_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.rpf_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
         return _libs[name]

@@ -60,103 +60,21 @@
 // Tensor-core forms (the DFT as matrix products, as the TPU kernel does)
 // are in fused_psd_fast.cu for the relaxed tier; overlapping the next
 // frame's load with the current transform is later work.
+//
+// The group kernel itself is the template of fused_psd.cuh; this file
+// instantiates its default cut (the whole step) at every size.
+// fused_psd_probe.cu instantiates its stage-attribution cuts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fft_radix2.cuh"
+#include "fused_psd.cuh"
 #include "psd_sum.cuh"
 
 namespace {
 
 constexpr int kMinLog2N = 6;
 constexpr int kMaxLog2N = 14;
-constexpr int kMaxThreads = 512;
-
-template <int LOG2N>
-struct Shape {
-  static constexpr int N = 1 << LOG2N;
-  static constexpr int HALF = N / 2;
-  static constexpr int THREADS = HALF < kMaxThreads ? HALF : kMaxThreads;
-  static constexpr int PER_THREAD = N / THREADS;   // accumulated slots
-};
-
-// Pass 1: block g serves stream s = g / G_s (G_s blocks per stream; one
-// stream for K1/K2) and transforms that stream's frames [j*group,
-// min((j+1)*group, F, n_valid_s)), j = g mod G_s, one after another. It
-// writes the f32 sum of their |X|^2 to partial row g. n_valid_s is
-// stream_n_valid[s] where that array is given (K4), else n_valid.
-template <int LOG2N, bool WINDOWED>
-__global__ void __launch_bounds__(Shape<LOG2N>::THREADS)
-psd_group_kernel(const uint32_t* __restrict__ raw,     // (S*F, N/2) words
-                 const float2* __restrict__ twiddle,   // (N - 1,) per stage
-                 const float2* __restrict__ window,    // (N/2,) or null
-                 float* __restrict__ partial,          // (S*G_s, N)
-                 int F, int group, int blocks_per_stream, int n_valid,
-                 const int* __restrict__ stream_n_valid) {  // (S,) or null
-  using S = Shape<LOG2N>;
-  constexpr int WORDS = S::HALF / S::THREADS;          // words per thread
-  extern __shared__ float4 smem[];
-  float2* x = reinterpret_cast<float2*>(smem);         // (N,) complex
-  const int tid = threadIdx.x;
-
-  // K2: window values of samples 2w and 2w+1 for each word w this thread
-  // loads, held in registers across all frames of the block.
-  float2 win[WINDOWED ? WORDS : 1];
-  if constexpr (WINDOWED) {
-#pragma unroll
-    for (int r = 0; r < WORDS; ++r) win[r] = __ldg(window + tid + r * S::THREADS);
-  }
-
-  float acc[S::PER_THREAD];
-#pragma unroll
-  for (int i = 0; i < S::PER_THREAD; ++i) acc[i] = 0.0f;
-
-  const int stream = blockIdx.x / blocks_per_stream;
-  const int nv = stream_n_valid == nullptr ? n_valid
-                                           : __ldg(stream_n_valid + stream);
-  const int f0 = (blockIdx.x - stream * blocks_per_stream) * group;
-  const int f1 = min(f0 + group, min(F, nv));
-  const uint32_t* frames = raw + static_cast<size_t>(stream) * F * S::HALF;
-  for (int f = f0; f < f1; ++f) {
-    // Word w holds samples 2w and 2w+1 as bytes (re, im, re, im).
-    const uint32_t* frame = frames + static_cast<size_t>(f) * S::HALF;
-#pragma unroll
-    for (int r = 0; r < WORDS; ++r) {
-      const int w = tid + r * S::THREADS;
-      const uint32_t v = __ldg(frame + w);
-      float4 q = make_float4(static_cast<float>(static_cast<int>(v & 0xFFu) - 127),
-                             static_cast<float>(static_cast<int>((v >> 8) & 0xFFu) - 127),
-                             static_cast<float>(static_cast<int>((v >> 16) & 0xFFu) - 127),
-                             static_cast<float>(static_cast<int>(v >> 24) - 127));
-      if constexpr (WINDOWED) {
-        q.x = __fmul_rn(q.x, win[r].x);
-        q.y = __fmul_rn(q.y, win[r].x);
-        q.z = __fmul_rn(q.z, win[r].y);
-        q.w = __fmul_rn(q.w, win[r].y);
-      }
-      smem[w] = q;
-    }
-    __syncthreads();
-
-    // Decimation in frequency: half-span m = N/2, N/4, ..., 1.
-    dif_radix2<LOG2N, S::THREADS>(x, twiddle, tid);
-
-    // Slot i now holds bin bit_reverse(i).
-#pragma unroll
-    for (int i = 0; i < S::PER_THREAD; ++i) {
-      const float2 X = x[tid + i * S::THREADS];
-      acc[i] += X.x * X.x + X.y * X.y;
-    }
-    __syncthreads();   // the next frame's load overwrites x
-  }
-
-  float* row = partial + static_cast<size_t>(blockIdx.x) * S::N;
-#pragma unroll
-  for (int i = 0; i < S::PER_THREAD; ++i) {
-    row[bit_reverse<LOG2N>(tid + i * S::THREADS)] = acc[i];
-  }
-}
 
 template <int LOG2N, bool WINDOWED>
 cudaError_t launch_groups(const void* raw, const void* twiddle,

@@ -1,0 +1,373 @@
+// Stage-attribution probes for Hopper (sm_90a): where K3's and K1's time
+// goes at N = 2048.
+//
+// Replaces the TPU probes that asked where the fused kernel's time goes:
+//   P1   probes/profile_pallas.py:build (pallas_call 115): K3's scheme with
+//        stage 1, stage 2, the twiddle or the f32 relayout changed;
+//   P18  probes/s1_lanes.py:build (151): the chain cut after stage 1, the
+//        twiddle or the Z relayout, and dequantization alone;
+//   P13  probes/s1_lanes2.py:build (156): the relayout apart from the
+//        dequantization, and other element types for the relayout;
+//   P12  probes/cast_test.py:try_cast (16): nine in-kernel relayouts.
+//
+// On this card the TPU probes' bf16 four-step scheme is K3
+// (fused_psd_fast.cuh), so P1, P18 and P13 are instantiations of K3's
+// template with compile-time variant parameters; K1's cuts
+// (fused_psd.cuh) ask P1's question of the FP32 radix-2 kernel. Every
+// variant runs at the probes' N = 2048 and at K3's own split, N1 x N2 =
+// 32 x 64 (the TPU probes ran 16 x 128), on raw interleaved u8 IQ frames,
+// and writes an (N,) f32 output through the same float64 row sum
+// (psd_sum.cuh) as the shipping kernels. Which output each variant
+// writes, and its plain PyTorch version, is in fused_psd_probe.py.
+//
+// What bounds them: as K3 and K1 (fused_psd_fast.cu, fused_psd.cu), the
+// work around the products and the shared-memory traffic, not device
+// memory; the cuts exist to measure how that time splits. P12's
+// relayouts move 64 KB each way: one block, launch-bound.
+//
+// A call launches its kernel `iters` times back to back on the stream
+// (each launch rewrites the same output), so that the slope of the time
+// against `iters` is the device's time per step, not the host's.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fused_psd.cuh"
+#include "fused_psd_fast.cuh"
+#include "psd_sum.cuh"
+
+namespace {
+
+constexpr int kLog2N = 11;   // the probes' N = 2048
+
+// Variant codes; kept in step with fused_psd_probe.py:VARIANTS.
+enum : int {
+  kK3 = 0,          // P1 full: the shipping K3
+  kS2x1 = 1,        // P1 s2x1
+  kS1x1 = 2,        // P1 s1x1
+  kNoMM = 3,        // P1 nomm
+  kNoTw = 4,        // P1 notw
+  kZPlanes = 5,     // P1 dg3d
+  kTpu6 = 6,        // P18 full, P13 full
+  kTpu6Bf16 = 7,    // P18 widedq, P13 f32tr
+  kTpu6Wide32 = 8,  // P13 i32tr
+  kS1Only = 9,      // P18 s1only
+  kS1Tw = 10,       // P18 s1tw
+  kS1TwZ = 11,      // P18 s1tw2
+  kDqOnly = 12,     // P18 dqonly
+  kDqWide = 13,     // P18 dqwide
+  kGather = 14,     // P13 traw
+  kDqLinear = 15,   // P13 dqnotr
+  kDqPair32 = 16,   // P13 u32tr
+  kK1 = 20,         // K1, whole
+  kK1Dq = 21,       // K1, load + dequantize + store
+  kK1NoFftCut = 22, // K1 without the transform
+};
+
+// The shared-memory carveout (percent of the largest) of a launch pinned to
+// an occupancy: half, so that L1 keeps about as much room as the shipping
+// kernels' own launches leave it.
+constexpr int kPinCarveout = 50;
+
+// Sets up `kernel` for launches of `threads` threads with `smem` bytes of
+// its own dynamic shared memory and sets *dyn to the dynamic shared memory
+// to launch with. blocks_per_sm = 0: as the shipping kernels launch (the
+// default carveout, *dyn = smem). blocks_per_sm = b > 0: a carveout of
+// kPinCarveout and the least dynamic shared memory (>= smem) with which the
+// occupancy calculator lets at most b blocks reside on an SM, whatever the
+// variant's registers allow; the variants of one chain then run at one
+// occupancy. With attrs, also writes the launch's attributes there (see
+// rpf_probe_attributes).
+template <class Kernel>
+cudaError_t configure(Kernel* kernel, int threads, int smem, int blocks_per_sm,
+                      int* dyn, int* attrs) {
+  *dyn = smem;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      blocks_per_sm > 0 ? kPinCarveout : cudaSharedmemCarveoutDefault);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  int device = 0, optin = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  // The dynamic shared memory a launch may ask for: all there is when
+  // pinned; else the default 48 KB (less the static), or smem past it.
+  const int most = optin - static_cast<int>(fa.sharedSizeBytes);
+  const int usual = 48 * 1024 - static_cast<int>(fa.sharedSizeBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        blocks_per_sm > 0 ? most : smem > usual ? smem : usual);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  if (blocks_per_sm > 0 && blocks > blocks_per_sm) {
+    // Occupancy falls as the shared memory grows: bisect in 128-byte steps
+    // for the least that holds it to blocks_per_sm.
+    int lo = smem, hi = most & ~127;
+    while (hi - lo > 128) {
+      const int mid = (lo + (hi - lo) / 2) & ~127;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, mid);
+      if (e != cudaSuccess) return e;
+      (blocks > blocks_per_sm ? lo : hi) = mid;
+    }
+    *dyn = hi;
+  }
+  if (attrs == nullptr) return cudaSuccess;
+  attrs[0] = fa.numRegs;
+  attrs[1] = static_cast<int>(fa.localSizeBytes);
+  attrs[2] = static_cast<int>(fa.sharedSizeBytes);
+  attrs[3] = *dyn;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&attrs[4], kernel,
+                                                       threads, *dyn);
+}
+
+// Variant V of K3's template, `iters` times: group kernel, then row sum.
+template <class V>
+cudaError_t launch_fast_variant(const void* raw, const void* w1r,
+                                const void* w1i, const void* twiddle,
+                                const void* w2, void* partial, void* out,
+                                int F, int group, int G, int n_valid,
+                                int blocks_per_sm, int iters, int* attrs,
+                                cudaStream_t stream) {
+  using S = FastShape<kLog2N>;
+  auto* kernel = psd_fast_group_kernel<kLog2N, false, V>;
+  int smem = 0;
+  cudaError_t e = configure(kernel, S::THREADS,
+                            FastSmem<kLog2N, false, V>::BYTES, blocks_per_sm,
+                            &smem, attrs);
+  for (int it = 0; it < iters && e == cudaSuccess && attrs == nullptr; ++it) {
+    kernel<<<G, S::THREADS, smem, stream>>>(
+        static_cast<const uint4*>(raw), nullptr,
+        static_cast<const uint2*>(w1r), static_cast<const uint2*>(w1i),
+        static_cast<const float4*>(twiddle), static_cast<const uint2*>(w2),
+        static_cast<float*>(partial), F, group, n_valid);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = launch_psd_sum(partial, G, 1 << kLog2N, out,
+                                             stream);
+  }
+  return e;
+}
+
+// K1's cut CUT, `iters` times: group kernel, then row sum.
+template <int CUT>
+cudaError_t launch_k1_cut(const void* raw, const void* twiddle, void* partial,
+                          void* out, int F, int group, int G, int n_valid,
+                          int blocks_per_sm, int iters, int* attrs,
+                          cudaStream_t stream) {
+  using S = Shape<kLog2N>;
+  auto* kernel = psd_group_kernel<kLog2N, false, CUT>;
+  int smem = 0;
+  cudaError_t e =
+      configure(kernel, S::THREADS, static_cast<int>(sizeof(float2)) * S::N,
+                blocks_per_sm, &smem, attrs);
+  for (int it = 0; it < iters && e == cudaSuccess && attrs == nullptr; ++it) {
+    kernel<<<G, S::THREADS, smem, stream>>>(
+        static_cast<const uint32_t*>(raw),
+        static_cast<const float2*>(twiddle), nullptr,
+        static_cast<float*>(partial), F, group, G, n_valid, nullptr);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = launch_psd_sum(partial, G, 1 << kLog2N, out,
+                                             stream);
+  }
+  return e;
+}
+
+// Launches variant `variant` `iters` times, or, with attrs, only sets it
+// up and writes its attributes.
+cudaError_t launch_variant(int variant, const void* raw, const void* w1r,
+                           const void* w1i, const void* twiddle,
+                           const void* w2, void* partial, void* out, int F,
+                           int group, int G, int n_valid, int blocks_per_sm,
+                           int iters, int* attrs, cudaStream_t s) {
+#define RPF_FAST(CODE, ...)                                                   \
+  case CODE:                                                                  \
+    return launch_fast_variant<FastVariant<__VA_ARGS__>>(                     \
+        raw, w1r, w1i, twiddle, w2, partial, out, F, group, G, n_valid,       \
+        blocks_per_sm, iters, attrs, s);
+#define RPF_K1(CODE, CUT)                                                     \
+  case CODE:                                                                  \
+    return launch_k1_cut<CUT>(raw, twiddle, partial, out, F, group, G,        \
+                              n_valid, blocks_per_sm, iters, attrs, s);
+  switch (variant) {
+    RPF_FAST(kK3, 3, 3)
+    RPF_FAST(kS2x1, 3, 1)
+    RPF_FAST(kS1x1, 1, 1)
+    RPF_FAST(kNoMM, 0, 3, true, kCutZStore)
+    RPF_FAST(kNoTw, 3, 3, false)
+    RPF_FAST(kZPlanes, 3, 3, true, kCutFull, kInRaw, kS2FromPlanes)
+    RPF_FAST(kTpu6, 3, 6)
+    RPF_FAST(kTpu6Bf16, 3, 6, true, kCutFull, kInBf16)
+    RPF_FAST(kTpu6Wide32, 3, 6, true, kCutFull, kInWide32)
+    RPF_FAST(kS1Only, 3, 3, false, kCutStage1)
+    RPF_FAST(kS1Tw, 3, 3, true, kCutTwiddle)
+    RPF_FAST(kS1TwZ, 3, 3, true, kCutZStore)
+    RPF_FAST(kDqOnly, 3, 3, false, kCutDequant, kInRaw)
+    RPF_FAST(kDqWide, 3, 3, false, kCutDequant, kInBf16)
+    RPF_FAST(kGather, 3, 3, false, kCutGather, kInRaw)
+    RPF_FAST(kDqLinear, 3, 3, false, kCutDequant, kInLinear)
+    RPF_FAST(kDqPair32, 3, 3, false, kCutDequant, kInPair32)
+    RPF_K1(kK1, kK1Full)
+    RPF_K1(kK1Dq, kK1Dequant)
+    RPF_K1(kK1NoFftCut, kK1NoFft)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RPF_K1
+#undef RPF_FAST
+}
+
+// P12: cast_test.py's shapes (T, N1, N2, P, Q) = (8, 16, 128, 8, 16); the
+// input is (T * N2 * N1,) f32, 64 KB, staged whole in shared memory.
+constexpr int kT = 8, kN1 = 16, kN2 = 128, kP = 8, kQ = 16;
+constexpr int kRelayoutElems = kT * kN2 * kN1;
+constexpr int kRelayoutThreads = 1024;
+constexpr int kRelayoutCases = 9;
+
+// The input element that element i of case CASE's output comes from,
+// by the case's own shapes (cast_test.py:30-62).
+template <int CASE>
+__device__ __forceinline__ int relayout_source(int i) {
+  if constexpr (CASE == 0) {
+    // A: (T*N2, N1) -> (T*Q, P*N1), a reshape.
+    return i;
+  } else if constexpr (CASE == 1 || CASE == 3) {
+    // B: (T*Q, P*N1) as (T, Q, P, N1), transposed (0, 3, 1, 2), merged to
+    // (T*N1, N2); D: (T, Q, P, N1) -> (T, N1, Q, P), the same order.
+    const int p = i % kP, q = (i / kP) % kQ, n1 = (i / (kP * kQ)) % kN1;
+    const int t = i / (kP * kQ * kN1);
+    return ((t * kQ + q) * kP + p) * kN1 + n1;
+  } else if constexpr (CASE == 2) {
+    // C: (T, N1, N2) -> swap (1, 2) -> (T*N2, N1).
+    const int n1 = i % kN1, n2 = (i / kN1) % kN2, t = i / (kN1 * kN2);
+    return (t * kN1 + n1) * kN2 + n2;
+  } else if constexpr (CASE == 4 || CASE == 8) {
+    // E: (T, Q, P, N1) -> concat_p x[:, :, p, :] -> (T, Q, P*N1); I: the
+    // same through transpose (0, 2, 1, 3) and index p.
+    const int col = i % (kP * kN1), p = col / kN1, n1 = col % kN1;
+    const int q = (i / (kP * kN1)) % kQ, t = i / (kP * kN1 * kQ);
+    return ((t * kQ + q) * kP + p) * kN1 + n1;
+  } else if constexpr (CASE == 5) {
+    // F: (T, Q, P*N1) -> concat_p swap(x[:, :, p*N1:(p+1)*N1], 1, 2) ->
+    // (T*N1, N2).
+    const int col = i % kN2, p = col / kQ, q = col % kQ;
+    const int n1 = (i / kN2) % kN1, t = i / (kN2 * kN1);
+    return (t * kQ + q) * (kP * kN1) + p * kN1 + n1;
+  } else if constexpr (CASE == 6) {
+    // G: (T, N2, N1) -> (T, Q, P, N1), a reshape.
+    return i;
+  } else {
+    // H: (T, N2, N1) -> concat_p x[:, p::P, :] -> (T, Q, P*N1).
+    const int col = i % (kP * kN1), p = col / kN1, n1 = col % kN1;
+    const int q = (i / (kP * kN1)) % kQ, t = i / (kP * kN1 * kQ);
+    return (t * kN2 + q * kP + p) * kN1 + n1;
+  }
+}
+
+template <int CASE>
+__global__ void __launch_bounds__(kRelayoutThreads)
+relayout_kernel(const float4* __restrict__ in, float* __restrict__ out) {
+  extern __shared__ float4 buf4[];
+  const float* buf = reinterpret_cast<const float*>(buf4);
+  for (int i = threadIdx.x; i < kRelayoutElems / 4; i += kRelayoutThreads)
+    buf4[i] = __ldg(in + i);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kRelayoutElems; i += kRelayoutThreads)
+    out[i] = buf[relayout_source<CASE>(i)];
+}
+
+template <int CASE>
+cudaError_t launch_relayout(const void* in, void* out, int iters,
+                            cudaStream_t s) {
+  constexpr int smem = kRelayoutElems * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      relayout_kernel<CASE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  for (int it = 0; it < iters && e == cudaSuccess; ++it) {
+    relayout_kernel<CASE><<<1, kRelayoutThreads, smem, s>>>(
+        static_cast<const float4*>(in), static_cast<float*>(out));
+    e = cudaGetLastError();
+  }
+  return e;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Runs variant `variant` (the codes above) `iters` times on `stream`, each
+// time both passes. raw: (F, 2N) u8, 16-byte aligned, N = 2048; K3's
+// variants take w1r, w1i, twiddle ((N2, N1, 2) f32) and w2 (6 B-fragment
+// planes, or 9 for the 6-product scheme) as fused_psd_fast.py packs them;
+// K1's cuts take its stage twiddles ((N - 1, 2) f32) as `twiddle` and
+// ignore w1r, w1i and w2. partial: (ceil(F / group), N) f32 scratch; out:
+// (N,) f32. blocks_per_sm: 0 to launch as the shipping kernels do, b > 0 to
+// let at most b blocks reside on an SM (configure above). Returns a
+// cudaError_t (0 on success); does not synchronise.
+int rpf_fused_psd_probe(int variant, const void* raw, const void* w1r,
+                        const void* w1i, const void* twiddle, const void* w2,
+                        void* partial, void* out, int device, int F,
+                        int group, int n_valid, int blocks_per_sm, int iters,
+                        void* stream) {
+  if (F <= 0 || group <= 0 || n_valid < 0 || n_valid > F || iters <= 0 ||
+      blocks_per_sm < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int G = (F + group - 1) / group;
+  return static_cast<int>(launch_variant(
+      variant, raw, w1r, w1i, twiddle, w2, partial, out, F, group, G, n_valid,
+      blocks_per_sm, iters, nullptr, static_cast<cudaStream_t>(stream)));
+}
+
+// Writes what variant `variant`'s group kernel gets at `blocks_per_sm` (as
+// rpf_fused_psd_probe) into attrs[0..4]: registers per thread, local
+// (spill) bytes per thread, static and dynamic shared bytes per block, and
+// the blocks that reside on one SM. Launches nothing.
+int rpf_probe_attributes(int variant, int blocks_per_sm, int device,
+                         int* attrs) {
+  if (blocks_per_sm < 0 || attrs == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_variant(variant, nullptr, nullptr, nullptr,
+                                         nullptr, nullptr, nullptr, nullptr, 1,
+                                         1, 1, 1, blocks_per_sm, 1, attrs,
+                                         nullptr));
+}
+
+// Runs P12's relayout case `which` (0..8 = A..I) `iters` times on
+// `stream`: in, out (T*N2*N1,) f32, 16-byte aligned.
+int rpf_relayout_probe(int which, const void* in, void* out, int device,
+                       int iters, void* stream) {
+  if (which < 0 || which >= kRelayoutCases || iters <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (which) {
+    case 0: e = launch_relayout<0>(in, out, iters, s); break;
+    case 1: e = launch_relayout<1>(in, out, iters, s); break;
+    case 2: e = launch_relayout<2>(in, out, iters, s); break;
+    case 3: e = launch_relayout<3>(in, out, iters, s); break;
+    case 4: e = launch_relayout<4>(in, out, iters, s); break;
+    case 5: e = launch_relayout<5>(in, out, iters, s); break;
+    case 6: e = launch_relayout<6>(in, out, iters, s); break;
+    case 7: e = launch_relayout<7>(in, out, iters, s); break;
+    default: e = launch_relayout<8>(in, out, iters, s); break;
+  }
+  return static_cast<int>(e);
+}
+
+const char* rpf_cuda_error_string(int error) {
+  return cudaGetErrorString(static_cast<cudaError_t>(error));
+}
+
+}  // extern "C"

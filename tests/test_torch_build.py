@@ -4,6 +4,8 @@ the build key, and that a missing nvcc raises instead of falling back."""
 
 import re
 import shutil
+import types
+from pathlib import Path
 
 import ctypes
 import pytest
@@ -63,3 +65,40 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(_build.KernelBuildError):
         _build.build()
     assert not (tmp_path / "build").exists()
+
+
+def test_a_load_builds_only_its_own_library(tmp_path, monkeypatch):
+    """The first load of ``fused_psd`` (a session's) compiles that source
+    alone, never the probes' library; a later load of ``fused_psd_probe``
+    builds it then. nvcc is faked by a script that writes its -o file."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\nwhile [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then : > \"$2\"; fi\n"
+                    "  shift\ndone\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    loaded = []
+
+    class FakeLib:
+        def __init__(self, path):
+            loaded.append(Path(path).name)
+
+        def __getattr__(self, fn):
+            return types.SimpleNamespace()
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+
+    def built():
+        return sorted(p.name.split("-")[0]
+                      for p in (tmp_path / "build").glob("*.so"))
+
+    _build.load("fused_psd")
+    assert built() == ["libfused_psd"]
+    _build.load("fused_psd")
+    assert len(loaded) == 1
+    _build.load("fused_psd_probe")
+    assert built() == ["libfused_psd", "libfused_psd_probe"]
+    assert loaded == [_build.library_path("fused_psd").name,
+                      _build.library_path("fused_psd_probe").name]
