@@ -63,32 +63,40 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    every instantiation. (Runs before the drives; numbered here for the
    kernels line.)
 10. a profile of the config 3 drive under ``torch.profiler``: device time
-   by kernel and copy per step, and the device's busy share of the wall;
-11. the stage-attribution probes (``fused_psd_probe``: P1, P18 and P13 as
-   variants of K3's template, K1's cuts, P12's relayouts), right after the
-   build: every variant against its plain version at N = 2048, F = 4096,
-   with all frames valid and with 1000, twice for determinism; P1 ``full``
-   and ``dg3d`` bit-identical to the shipping K3, ``k1_full`` to K1, the
-   layout variants of the 6-product scheme to its ``full``; P12 equal to
-   torch's reshape/permute; ptxas's registers and spills of every
-   instantiation at N = 2048 (the shipping K1 and K3 beside them); each
-   variant's slope time (the probes' own method), its plain version's, its
-   bound and ``torch.fft.fft``'s;
+   by kernel and copy per step (the result's read-back into pinned memory
+   among them), and the device's busy share of the wall; and one more
+   config 5 drive with the consumer's calls timed on its own thread: its
+   rounds split into waiting for the producers, filling the pinned slot,
+   the upload, the step's enqueue, the event waits and the float64
+   accumulation;
+11. the stage-attribution and stage-2 probes (``fused_psd_probe``: P1,
+   P18, P13, P14, P16, P19 and P11 as variants of K3's template, K1's
+   cuts, P12's relayouts), right after the build: every variant against
+   its plain version at N = 2048, F = 4096, with all frames valid and with
+   1000, twice for determinism; P1 ``full`` and ``dg3d`` bit-identical to
+   the shipping K3, ``k1_full`` to K1, the layout variants and the
+   schedules (P19 ``ilv``, ``ilv4``, P11 ``pipe``) of the 6-product
+   scheme to its ``full``; P12 equal to torch's reshape/permute; ptxas's
+   registers and spills of every instantiation at N = 2048 (the shipping
+   K1 and K3 beside them); each variant's slope time (the probes' own
+   method), its plain version's, its bound and ``torch.fft.fft``'s;
    and device time by kernel under ``torch.profiler`` for K3, ``dg3d``,
    K1 and the gather cut (the row sum's own time beside each group
    kernel's); then each variant's registers, spill, shared memory and
    resident blocks per SM, and its time again with its occupancy pinned
    to that of the whole kernel it is compared with (K3's and the
-   6-product scheme's for K3's template, K1's for K1's cuts), its output
-   unchanged;
+   6-product scheme's for K3's template, and for the 6-product scheme's
+   variants also the least any of them gets; K1's for K1's cuts), its
+   output unchanged;
 12. the probes' entry points (``python -m
    rtl_power_fftw_tpu_torch.probes.{profile_kernel,s1_lanes,s1_lanes2,
-   cast_test}``) in-process, each with every launch counter reset just
-   before it: exit 0, one line per default variant, and every one of those
-   variants launched (P1's ``launches`` are this run's); then
-   ``profile_kernel`` again over a sweep of frames per block
-   (``variant:tile``) for K3, ``dg3d`` and K1, its launches on a line of
-   their own.
+   cast_test,s2_fourmult,s2_left,s2_ilv,s2_pipe}``) in-process, each with
+   every launch counter reset just before it: exit 0, one line per
+   default variant, and every one of those variants launched (the probes'
+   ``launches`` are this run's); then ``profile_kernel`` again over a
+   sweep of frames per block (``variant:tile``) for K3, ``dg3d`` and K1,
+   and ``s2_pipe`` and ``s2_ilv`` at 16 frames a block, their launches on
+   lines of their own.
 
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -705,15 +713,21 @@ def drive_precision_high(cli, fp, ff, make_window, tmp):
                  RELAXED_RTOL)
 
 
+def config5_argv(record: str):
+    """BASELINE config 5's drive: 16 streams of 4,000 2048-bin spectra,
+    256 frames a step, recorded to ``record``.s<i>."""
+    return ["-f", "100M", "-n", "4000", "-b", "2048", "--streams",
+            str(C5_STREAMS), "--frames-per-step", "256", "-l", "--record",
+            record, "--source", SOURCE]
+
+
 def drive_config5(cli, fp, ff, tmp):
     """BASELINE config 5 through the CLI (K4): 16 streams, the combined
     linear spectrum against the float64 golden of the 16 recorded
     streams. Returns the K4 launches of the drive."""
     N, repeats = 2048, 4000
     record = os.path.join(tmp, "config5.iq")
-    argv = ["-f", "100M", "-n", str(repeats), "-b", str(N), "--streams",
-            str(C5_STREAMS), "--frames-per-step", "256", "-l", "--record",
-            record, "--source", SOURCE]
+    argv = config5_argv(record)
 
     def golden():
         # The combined spectrum averages S·repeats spectra: the mean of
@@ -1022,6 +1036,73 @@ def profile_drive(label, argv, cli, markers) -> None:
           f"wall); " + "; ".join(parts))
 
 
+def profile_consumer(label, argv, cli) -> None:
+    """One more run of a ``--streams`` drive with the consumer's calls
+    timed on the host clock, on the consumer's thread only (the one that
+    runs ``MultiStreamAcquisition._consume``): its rounds split into
+    waiting for the producers' batches (the semaphore), filling the pinned
+    slot (``_fill``), the upload (``SlotRing.upload``), the step's enqueue
+    (``ShardedPsdStep.__call__``), the waits on CUDA events (slot reuse and
+    read-back) and the float64 accumulation (the read-back's callback), per
+    round. cProfile is not used: from Python 3.12 it traces every thread
+    on one stack, and the producers' frames land in the consumer's."""
+    import threading
+    from rtl_power_fftw_tpu_torch.parallel import multistream, sharded
+    from rtl_power_fftw_tpu_torch.pipeline import datastore
+    spent, calls, consumer = {}, {}, []
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            if key != "consumer" and (
+                    not consumer or threading.get_ident() != consumer[0]):
+                return fn(*args, **kwargs)
+            if key == "consumer":
+                consumer.append(threading.get_ident())
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+                calls[key] = calls.get(key, 0) + 1
+        return wrapper
+
+    submit = datastore.SlotRing.submit
+    patches = [
+        (multistream.MultiStreamAcquisition, "_consume", "consumer"),
+        (multistream.MultiStreamAcquisition, "_fill", "fill"),
+        (datastore.SlotRing, "upload", "upload"),
+        (sharded.ShardedPsdStep, "__call__", "step enqueue"),
+        (torch.cuda.Event, "synchronize", "event waits"),
+        (threading.Semaphore, "acquire", "wait for producers")]
+    saved = [(owner, name, owner.__dict__[name]) for owner, name, _ in patches]
+    try:
+        for owner, name, key in patches:
+            fn = getattr(owner, name)
+            wrapped = timed(key, fn)
+            setattr(owner, name, staticmethod(wrapped)
+                    if isinstance(owner.__dict__[name], staticmethod)
+                    else wrapped)
+        datastore.SlotRing.submit = lambda self, outputs, callback: submit(
+            self, outputs, timed("float64 accumulation", callback))
+        rc, _, _, wall = run_cli(argv, cli.main)
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+        datastore.SlotRing.submit = submit
+    check(rc == 0, f"timed {label} drive exited {rc}")
+    rounds, total = calls.get("fill", 0), spent.get("consumer", 0.0)
+    check(rounds > 0 and total > 0, f"{label}: no consumer rounds timed")
+    parts = [(key, spent.get(key, 0.0)) for _, _, key in patches[1:]] + [
+        ("float64 accumulation", spent.get("float64 accumulation", 0.0))]
+    rest = total - sum(t for _, t in parts)
+    print(f"profile {label} consumer (host clock, {' '.join(argv)}): wall "
+          f"{wall:.2f} s, consumer {total:.3f} s over {rounds} rounds, "
+          f"{1e3 * total / rounds:.2f} ms a round: "
+          + ", ".join(f"{name} {1e3 * t / rounds:.2f} ms"
+                      for name, t in parts)
+          + f", the rest (sweeps, bookkeeping) {1e3 * rest / rounds:.2f} ms")
+
+
 def template_ptxas(log_text: str, marker: str, first_arg: str = ""):
     """(marker<template arguments>, registers/spill summary) for each
     instantiation ptxas reports in ``log_text`` whose mangled name holds
@@ -1144,6 +1225,11 @@ def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
     pins = {kernel: fpp.probe_attributes(name)["blocks_per_sm"]
             for kernel, name in (("k3", "k3"), ("tpu6", "tpu6"),
                                  ("k1", "k1_full"))}
+    # The 6-product scheme's variants also at the least occupancy any of
+    # them gets (the chained ones' registers allow one block).
+    tpu6_family = [n for n in fpp.VARIANTS if n.startswith("tpu6")]
+    family_pins = {pins["k3"], pins["tpu6"]} | {
+        fpp.probe_attributes(n)["blocks_per_sm"] for n in tpu6_family}
     for name, v in fpp.VARIANTS.items():
         a = fpp.probe_attributes(name)
         base = fpp.fused_psd_probe(name, raw, F, chunk)
@@ -1151,6 +1237,7 @@ def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
                                                        iters=it))
         parts = []
         for b in sorted({pins["k1"]} if v.kernel == "k1"
+                        else family_pins if name in tpu6_family
                         else {pins["k3"], pins["tpu6"]}, reverse=True):
             p = fpp.probe_attributes(name, b)
             got = fpp.fused_psd_probe(name, raw, F, chunk, blocks_per_sm=b)
@@ -1193,20 +1280,25 @@ def profile_calls(label, fn, markers, calls: int = 10) -> None:
     print(f"profile {label}, {calls} calls: " + "; ".join(parts))
 
 
-#: profile_kernel's frames-per-block sweep (the default is 4 at F = 4096).
+#: profile_kernel's frames-per-block sweep (the default is 4 at F = 4096),
+#: and the schedules' at 16 frames a block beside the 6-product scheme's.
 TILE_SWEEP = ["full:1", "full:2", "full:8", "full:16", "dg3d:1", "dg3d:16",
               "k1_full:1", "k1_full:2", "k1_full:8", "k1_full:16"]
+SCHEDULE_SWEEP = {"s2_pipe": ["base:16", "pipe:16"],
+                  "s2_ilv": ["ilv:16", "ilv4:16"]}
 
 
 def drive_probes(fpp) -> dict:
-    """The probes' four entry points in-process, every launch counter
+    """The probes' eight entry points in-process, every launch counter
     reset just before each: exit 0, one line per default variant, each of
     those variants launched and no plain version run. Returns {TPU probe:
     launches}."""
     import importlib
     launches = {}
     for tpu, module in (("P1", "profile_kernel"), ("P18", "s1_lanes"),
-                        ("P13", "s1_lanes2"), ("P12", "cast_test")):
+                        ("P13", "s1_lanes2"), ("P12", "cast_test"),
+                        ("P14", "s2_fourmult"), ("P16", "s2_left"),
+                        ("P19", "s2_ilv"), ("P11", "s2_pipe")):
         entry = importlib.import_module(
             f"rtl_power_fftw_tpu_torch.probes.{module}")
         fpp.COUNTS.reset()
@@ -1241,6 +1333,18 @@ def drive_probes(fpp) -> dict:
           f"profile_kernel tile sweep exited {rc}")
     print(f"e2e probe profile_kernel tile sweep (P1): launches "
           f"{dict(fpp.COUNTS.kernel)}")
+    for module, specs in SCHEDULE_SWEEP.items():
+        entry = importlib.import_module(
+            f"rtl_power_fftw_tpu_torch.probes.{module}")
+        fpp.COUNTS.reset()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = entry.main(specs)
+        print(out.getvalue(), end="")
+        check(rc == 0 and len(out.getvalue().splitlines()) == len(specs) + 1,
+              f"{module} tile sweep exited {rc}")
+        print(f"e2e probe {module} tile sweep: launches "
+              f"{dict(fpp.COUNTS.kernel)}")
     return launches
 
 
@@ -1417,10 +1521,13 @@ def main() -> int:
         large_w_launches = drive_large_windowed(cli, fp, ff, make_window,
                                                 tmp)
         drive_large_sweep(cli, fp, ff, make_window, tmp)
-        # 10. Where the config 3 drive's device time goes.
+        # 10. Where the config 3 drive's device time goes, and config 5's
+        # consumer's host time.
         profile_drive("config 3", c3_argv, cli,
                       ["Memcpy HtoD", "large_pass_a", "large_pass_b",
                        "psd_sum_kernel", "Memcpy DtoH"])
+        profile_consumer("config 5", config5_argv(
+            os.path.join(tmp, "config5_profiled.iq")), cli)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
@@ -1470,7 +1577,15 @@ def main() -> int:
                                 ("fused_psd_probe P13 (s1_lanes2: i32tr)",
                                  "P13", "tpu6_wide32"),
                                 ("relayout_probe P12 (cast_test: C control)",
-                                 "P12", "C"))]}))
+                                 "P12", "C"),
+                                ("fused_psd_probe P14 (s2_fourmult: v7)",
+                                 "P14", "tpu6_4mult"),
+                                ("fused_psd_probe P16 (s2_left: e2left)",
+                                 "P16", "tpu6_e2left"),
+                                ("fused_psd_probe P19 (s2_ilv: ilv)",
+                                 "P19", "tpu6_ilv2"),
+                                ("fused_psd_probe P11 (s2_pipe: pipe)",
+                                 "P11", "tpu6_pipe"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -60,10 +60,10 @@ SIGNATURES = {
                                 _I, _P],
     },
     "fused_psd_probe": {
-        # variant, raw, w1r, w1i, twiddle, w2, partial, out, device, F,
-        # group, n_valid, blocks_per_sm, iters, stream
-        "rpf_fused_psd_probe": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _P],
+        # variant, raw, w1r, w1i, twiddle, w2, offsets, partial, out,
+        # device, F, group, n_valid, blocks_per_sm, iters, stream
+        "rpf_fused_psd_probe": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _P],
         # variant, blocks_per_sm, device, attrs (int[5])
         "rpf_probe_attributes": [_I, _I, _I, _P],
         # which, in, out, device, iters, stream

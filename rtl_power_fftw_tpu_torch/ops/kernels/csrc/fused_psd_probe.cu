@@ -1,5 +1,5 @@
-// Stage-attribution probes for Hopper (sm_90a): where K3's and K1's time
-// goes at N = 2048.
+// Stage-attribution and stage-2 probes for Hopper (sm_90a): where K3's
+// and K1's time goes at N = 2048, and what other forms of stage 2 cost.
 //
 // Replaces the TPU probes that asked where the fused kernel's time goes:
 //   P1   probes/profile_pallas.py:build (pallas_call 115): K3's scheme with
@@ -8,22 +8,31 @@
 //        twiddle or the Z relayout, and dequantization alone;
 //   P13  probes/s1_lanes2.py:build (156): the relayout apart from the
 //        dequantization, and other element types for the relayout;
-//   P12  probes/cast_test.py:try_cast (16): nine in-kernel relayouts.
+//   P12  probes/cast_test.py:try_cast (16): nine in-kernel relayouts;
+// and the TPU probes that restructured its stage 2, each from the TPU's
+// shipping 6-product scheme (here tpu6):
+//   P14  probes/s2_fourmult.py:build (132): the 4-mult complex product;
+//   P16  probes/s2_left.py:build (171): the dequantization offset folded
+//        after stage 1 (e2), stage 2 with Z as the right operand (left);
+//   P19  probes/s2_ilv.py:build (117): 2 or 4 independent frame chains;
+//   P11  probes/s2_pipe.py:build (150): a 1-deep software pipeline.
 //
 // On this card the TPU probes' bf16 four-step scheme is K3
-// (fused_psd_fast.cuh), so P1, P18 and P13 are instantiations of K3's
-// template with compile-time variant parameters; K1's cuts
-// (fused_psd.cuh) ask P1's question of the FP32 radix-2 kernel. Every
-// variant runs at the probes' N = 2048 and at K3's own split, N1 x N2 =
-// 32 x 64 (the TPU probes ran 16 x 128), on raw interleaved u8 IQ frames,
-// and writes an (N,) f32 output through the same float64 row sum
+// (fused_psd_fast.cuh), so P1, P18, P13, P14, P16, P19 and P11 are
+// instantiations of K3's template with compile-time variant parameters;
+// K1's cuts (fused_psd.cuh) ask P1's question of the FP32 radix-2 kernel.
+// Every variant runs at the probes' N = 2048 and at K3's own split, N1 x
+// N2 = 32 x 64 (the TPU probes ran 16 x 128), on raw interleaved u8 IQ
+// frames, and writes an (N,) f32 output through the same float64 row sum
 // (psd_sum.cuh) as the shipping kernels. Which output each variant
-// writes, and its plain PyTorch version, is in fused_psd_probe.py.
+// writes, and its plain PyTorch version, is in fused_psd_probe.py. The
+// TPU probes' tile (frames per grid step) is the frames a block sums.
 //
 // What bounds them: as K3 and K1 (fused_psd_fast.cu, fused_psd.cu), the
 // work around the products and the shared-memory traffic, not device
-// memory; the cuts exist to measure how that time splits. P12's
-// relayouts move 64 KB each way: one block, launch-bound.
+// memory; the cuts exist to measure how that time splits, the stage-2
+// variants whether another form or schedule of the same work moves it.
+// P12's relayouts move 64 KB each way: one block, launch-bound.
 //
 // A call launches its kernel `iters` times back to back on the stream
 // (each launch rewrites the same output), so that the slope of the time
@@ -62,6 +71,13 @@ enum : int {
   kK1 = 20,         // K1, whole
   kK1Dq = 21,       // K1, load + dequantize + store
   kK1NoFftCut = 22, // K1 without the transform
+  kTpu6Pipe = 30,   // P11 pipe
+  kTpu6Ilv2 = 31,   // P19 ilv
+  kTpu6Ilv4 = 32,   // P19 ilv4
+  kTpu6FourMult = 33, // P14 v7
+  kTpu6E2 = 34,     // P16 e2
+  kTpu6Left = 35,   // P16 left
+  kTpu6E2Left = 36, // P16 e2left
 };
 
 // The shared-memory carveout (percent of the largest) of a launch pinned to
@@ -128,13 +144,14 @@ cudaError_t configure(Kernel* kernel, int threads, int smem, int blocks_per_sm,
 }
 
 // Variant V of K3's template, `iters` times: group kernel, then row sum.
+// offsets: the RAW_BYTES variants' cR, cI, in the window's place.
 template <class V>
 cudaError_t launch_fast_variant(const void* raw, const void* w1r,
                                 const void* w1i, const void* twiddle,
-                                const void* w2, void* partial, void* out,
-                                int F, int group, int G, int n_valid,
-                                int blocks_per_sm, int iters, int* attrs,
-                                cudaStream_t stream) {
+                                const void* w2, const void* offsets,
+                                void* partial, void* out, int F, int group,
+                                int G, int n_valid, int blocks_per_sm,
+                                int iters, int* attrs, cudaStream_t stream) {
   using S = FastShape<kLog2N>;
   auto* kernel = psd_fast_group_kernel<kLog2N, false, V>;
   int smem = 0;
@@ -143,7 +160,8 @@ cudaError_t launch_fast_variant(const void* raw, const void* w1r,
                             &smem, attrs);
   for (int it = 0; it < iters && e == cudaSuccess && attrs == nullptr; ++it) {
     kernel<<<G, S::THREADS, smem, stream>>>(
-        static_cast<const uint4*>(raw), nullptr,
+        static_cast<const uint4*>(raw),
+        V::RAW_BYTES ? static_cast<const float*>(offsets) : nullptr,
         static_cast<const uint2*>(w1r), static_cast<const uint2*>(w1i),
         static_cast<const float4*>(twiddle), static_cast<const uint2*>(w2),
         static_cast<float*>(partial), F, group, n_valid);
@@ -182,14 +200,15 @@ cudaError_t launch_k1_cut(const void* raw, const void* twiddle, void* partial,
 // up and writes its attributes.
 cudaError_t launch_variant(int variant, const void* raw, const void* w1r,
                            const void* w1i, const void* twiddle,
-                           const void* w2, void* partial, void* out, int F,
-                           int group, int G, int n_valid, int blocks_per_sm,
-                           int iters, int* attrs, cudaStream_t s) {
+                           const void* w2, const void* offsets, void* partial,
+                           void* out, int F, int group, int G, int n_valid,
+                           int blocks_per_sm, int iters, int* attrs,
+                           cudaStream_t s) {
 #define RPF_FAST(CODE, ...)                                                   \
   case CODE:                                                                  \
     return launch_fast_variant<FastVariant<__VA_ARGS__>>(                     \
-        raw, w1r, w1i, twiddle, w2, partial, out, F, group, G, n_valid,       \
-        blocks_per_sm, iters, attrs, s);
+        raw, w1r, w1i, twiddle, w2, offsets, partial, out, F, group, G,       \
+        n_valid, blocks_per_sm, iters, attrs, s);
 #define RPF_K1(CODE, CUT)                                                     \
   case CODE:                                                                  \
     return launch_k1_cut<CUT>(raw, twiddle, partial, out, F, group, G,        \
@@ -212,6 +231,19 @@ cudaError_t launch_variant(int variant, const void* raw, const void* w1r,
     RPF_FAST(kGather, 3, 3, false, kCutGather, kInRaw)
     RPF_FAST(kDqLinear, 3, 3, false, kCutDequant, kInLinear)
     RPF_FAST(kDqPair32, 3, 3, false, kCutDequant, kInPair32)
+    RPF_FAST(kTpu6Pipe, 3, 6, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
+             false, 1, true)
+    RPF_FAST(kTpu6Ilv2, 3, 6, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
+             false, 2)
+    RPF_FAST(kTpu6Ilv4, 3, 6, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
+             false, 4)
+    RPF_FAST(kTpu6FourMult, 3, 6, true, kCutFull, kInRaw, kS2FromZ,
+             kS2FourMult)
+    RPF_FAST(kTpu6E2, 3, 6, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
+             true)
+    RPF_FAST(kTpu6Left, 3, 6, true, kCutFull, kInRaw, kS2FromZ, kS2Left)
+    RPF_FAST(kTpu6E2Left, 3, 6, true, kCutFull, kInRaw, kS2FromZ, kS2Left,
+             true)
     RPF_K1(kK1, kK1Full)
     RPF_K1(kK1Dq, kK1Dequant)
     RPF_K1(kK1NoFftCut, kK1NoFft)
@@ -302,15 +334,18 @@ extern "C" {
 // Runs variant `variant` (the codes above) `iters` times on `stream`, each
 // time both passes. raw: (F, 2N) u8, 16-byte aligned, N = 2048; K3's
 // variants take w1r, w1i, twiddle ((N2, N1, 2) f32) and w2 (6 B-fragment
-// planes, or 9 for the 6-product scheme) as fused_psd_fast.py packs them;
-// K1's cuts take its stage twiddles ((N - 1, 2) f32) as `twiddle` and
-// ignore w1r, w1i and w2. partial: (ceil(F / group), N) f32 scratch; out:
+// planes, or 9 for the 6-product scheme; the left form's 9 A-fragment
+// planes) as fused_psd_fast.py and fused_psd_probe.py pack them, and the
+// e2 variants offsets ((2, N1) f32 cR, cI; else null); K1's cuts take
+// its stage twiddles ((N - 1, 2) f32) as `twiddle` and ignore w1r, w1i,
+// w2 and offsets. partial: (ceil(F / group), N) f32 scratch; out:
 // (N,) f32. blocks_per_sm: 0 to launch as the shipping kernels do, b > 0 to
 // let at most b blocks reside on an SM (configure above). Returns a
 // cudaError_t (0 on success); does not synchronise.
 int rpf_fused_psd_probe(int variant, const void* raw, const void* w1r,
                         const void* w1i, const void* twiddle, const void* w2,
-                        void* partial, void* out, int device, int F,
+                        const void* offsets, void* partial, void* out,
+                        int device, int F,
                         int group, int n_valid, int blocks_per_sm, int iters,
                         void* stream) {
   if (F <= 0 || group <= 0 || n_valid < 0 || n_valid > F || iters <= 0 ||
@@ -321,8 +356,9 @@ int rpf_fused_psd_probe(int variant, const void* raw, const void* w1r,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int G = (F + group - 1) / group;
   return static_cast<int>(launch_variant(
-      variant, raw, w1r, w1i, twiddle, w2, partial, out, F, group, G, n_valid,
-      blocks_per_sm, iters, nullptr, static_cast<cudaStream_t>(stream)));
+      variant, raw, w1r, w1i, twiddle, w2, offsets, partial, out, F, group, G,
+      n_valid, blocks_per_sm, iters, nullptr,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Writes what variant `variant`'s group kernel gets at `blocks_per_sm` (as
@@ -337,9 +373,9 @@ int rpf_probe_attributes(int variant, int blocks_per_sm, int device,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_variant(variant, nullptr, nullptr, nullptr,
-                                         nullptr, nullptr, nullptr, nullptr, 1,
-                                         1, 1, 1, blocks_per_sm, 1, attrs,
-                                         nullptr));
+                                         nullptr, nullptr, nullptr, nullptr,
+                                         nullptr, 1, 1, 1, 1, blocks_per_sm, 1,
+                                         attrs, nullptr));
 }
 
 // Runs P12's relayout case `which` (0..8 = A..I) `iters` times on

@@ -17,7 +17,9 @@ valid counts in a pinned slot beside it, and both are copied to the device
 asynchronously on the consumer's own CUDA stream. ``MAX_IN_FLIGHT + 1``
 slot pairs form a ring (the single-stream ``Datastore``'s ``SlotRing``); a
 pair is refilled only after the event recorded behind its copies has
-fired, so a step never reads a later round's frames or counts. The kernel
+fired, so a step never reads a later round's frames or counts; the
+step's (S, N) and (N,) sums come back into pinned slots of the same ring
+by non-blocking copies, each read after its own event. The kernel
 never reads frames at or above a stream's count, so a slot is not zeroed
 between rounds.
 
@@ -112,7 +114,9 @@ class MultiStreamAcquisition:
         self.device = self.step.device
         self._ring = SlotRing(
             self.device, [((S, self.step.F, 2 * params.N), torch.uint8),
-                          ((S,), torch.int32)], self.MAX_IN_FLIGHT)
+                          ((S,), torch.int32)], self.MAX_IN_FLIGHT,
+            out_specs=[((S, params.N), torch.float32),
+                       ((params.N,), torch.float32)])
         # Welch overlap applies per stream, same as the single-stream
         # Datastore (shared formula).
         self._hop = welch_hop(params.N, params.welch_overlap)
@@ -403,12 +407,18 @@ class MultiStreamAcquisition:
             # --- dispatch the (possibly partial) round ---
             if not got:
                 continue
-            frames, counts = (t.numpy() for t in ring.slot())
-            counts[:] = 0
-            for s, (batch, nv, _t) in got.items():
-                frames[s, :nv] = batch
-                counts[s] = nv
-            done[:] += counts
+            done[:] += self._fill(ring.slot(), got)
             ring.submit(self.step(*ring.upload()), accumulate)
         ring.drain()
         return pwr, per_stream, done
+
+    @staticmethod
+    def _fill(slot, got) -> np.ndarray:
+        """Pack one round's batches into the host slot (frames, counts);
+        returns the counts."""
+        frames, counts = (t.numpy() for t in slot)
+        counts[:] = 0
+        for s, (batch, nv, _t) in got.items():
+            frames[s, :nv] = batch
+            counts[s] = nv
+        return counts

@@ -18,7 +18,9 @@ to the device asynchronously on the consumer's own stream. A ring of
 ``max_in_flight + 1`` slots (:class:`SlotRing`, which the multi-stream
 consumer shares) lets up to ``max_in_flight`` steps run while the next
 batch is packed; a slot is refilled only after the event recorded behind
-its copy has completed.
+its copy has completed. Each step's result comes back the same way: a
+non-blocking copy into the slot's pinned output tensor, read only after
+the event behind it has fired.
 """
 
 from __future__ import annotations
@@ -77,27 +79,39 @@ class SlotRing:
     """Host slots feeding asynchronous device steps, for one consumer.
 
     ``max_in_flight + 1`` slots, each a tuple of tensors of ``specs``
-    ((shape, dtype) pairs), pinned on a CUDA device. The consumer fills
-    :meth:`slot`, calls :meth:`upload` for the step's inputs and hands the
-    step's outputs to :meth:`submit`. On CUDA the copies run non-blocking
-    on the ring's own stream, and a slot is handed out again only after the
-    event recorded behind its copies has fired, so a step never reads a
-    later fill. At most ``max_in_flight`` steps' outputs wait on the
-    device; each is read back with ``.cpu()`` and passed to its callback
-    in submission order. Run the consumer inside :meth:`active`."""
+    ((shape, dtype) pairs) for a step's inputs and of ``out_specs`` for its
+    outputs, pinned on a CUDA device. The consumer fills :meth:`slot`,
+    calls :meth:`upload` for the step's inputs and hands the step's outputs
+    to :meth:`submit`. On CUDA every copy runs non-blocking on the ring's
+    own stream: a slot is handed out again only after the event recorded
+    behind its uploads has fired, so a step never reads a later fill, and
+    each step's outputs are copied into the slot's pinned output tensors
+    behind an event of their own. At most ``max_in_flight`` steps' outputs
+    wait; each is passed to its callback in submission order once its
+    event has fired, as numpy views of the pinned slot that stay valid
+    until the callback returns (the ring never rewrites a slot whose
+    read-back is pending: fewer are pending than there are slots). On the
+    CPU the outputs are passed as they are. Run the consumer inside
+    :meth:`active`."""
 
-    def __init__(self, device: torch.device, specs, max_in_flight: int):
+    def __init__(self, device: torch.device, specs, max_in_flight: int,
+                 out_specs=()):
         self.device = device
         cuda = device.type == "cuda"
         self._stream = torch.cuda.Stream(device) if cuda else None
-        self._slots = [tuple(torch.empty(shape, dtype=dtype, pin_memory=cuda)
-                             for shape, dtype in specs)
-                       for _ in range(max_in_flight + 1)]
+
+        def pinned(spec):
+            return tuple(torch.empty(shape, dtype=dtype, pin_memory=cuda)
+                         for shape, dtype in spec)
+        self._slots = [pinned(specs) for _ in range(max_in_flight + 1)]
+        self._out = [pinned(out_specs) if cuda else ()
+                     for _ in range(max_in_flight + 1)]
         self._copied: List[Optional[torch.cuda.Event]] = (
             [None] * len(self._slots))
         self._cur = 0
         self.max_in_flight = max_in_flight
-        self._pending: Deque = collections.deque()  # (outputs, callback)
+        # (outputs, event or None, callback)
+        self._pending: Deque = collections.deque()
 
     @contextlib.contextmanager
     def active(self):
@@ -128,10 +142,26 @@ class SlotRing:
         return on_device
 
     def submit(self, outputs: Tuple[torch.Tensor, ...], callback) -> None:
-        """Queue a step's outputs, move to the next slot (waiting for its
-        last copies to land) and read back all but ``max_in_flight`` queued
-        steps: ``callback(*arrays)`` with each output as a numpy array."""
-        self._pending.append((outputs, callback))
+        """Queue a step's outputs (on CUDA: start their copies into the
+        current slot's pinned output tensors), move to the next slot
+        (waiting for its last uploads to land) and read back all but
+        ``max_in_flight`` queued steps: ``callback(*arrays)`` with each
+        output as a numpy array."""
+        read = None
+        if self._stream is not None:
+            host = self._out[self._cur]
+            if [(tuple(t.shape), t.dtype) for t in outputs] != [
+                    (tuple(h.shape), h.dtype) for h in host]:
+                raise ValueError(
+                    f"step outputs {[(tuple(t.shape), t.dtype) for t in outputs]}"
+                    f" do not match the ring's output slots "
+                    f"{[(tuple(h.shape), h.dtype) for h in host]}")
+            for h, t in zip(host, outputs):
+                h.copy_(t, non_blocking=True)
+            read = torch.cuda.Event()
+            read.record(self._stream)
+            outputs = host
+        self._pending.append((outputs, read, callback))
         self._cur = (self._cur + 1) % len(self._slots)
         if self._copied[self._cur] is not None:
             self._copied[self._cur].synchronize()
@@ -139,9 +169,10 @@ class SlotRing:
 
     def drain(self, to_len: int = 0) -> None:
         while len(self._pending) > to_len:
-            outputs, callback = self._pending.popleft()
-            # .cpu() waits for the step on this thread's stream.
-            callback(*(t.cpu().numpy() for t in outputs))
+            outputs, read, callback = self._pending.popleft()
+            if read is not None:
+                read.synchronize()
+            callback(*(t.numpy() for t in outputs))
 
 
 def print_queue_histogram(histogram, stderr=None) -> None:
@@ -178,7 +209,8 @@ class Datastore:
         self.slicer = FrameSlicer(params.N, hop=hop)
         self._ring = SlotRing(self.device,
                               [((self.step.F, 2 * self.N), torch.uint8)],
-                              max_in_flight)
+                              max_in_flight,
+                              out_specs=[((self.N,), torch.float32)])
 
         # Buffer pool bookkeeping (datastore.h:40-47). Buffers here are just
         # numpy arrays owned by the queue; the pool bound provides the

@@ -1,5 +1,6 @@
-"""What the probe entry points share: argument parsing, the frames and
-their float64 golden, and the TPU probes' slope timing.
+"""What the probe entry points share: argument parsing, the frames (random
+u8 IQ, or the TPU probes' 35 dB tone) and their float64 golden, and the
+TPU probes' slope timing.
 
 The timing is the probes' slope method (``probes/profile_pallas.py:
 134-146``): CUDA events around ``ITER_LO`` and ``ITER_HI`` launches
@@ -85,6 +86,19 @@ def card(dev: torch.device) -> str:
         return torch.cuda.get_device_name(dev)
 
 
+def tone_frames(F: int, N: int) -> np.ndarray:
+    """The TPU probes' tone input (``probes/s2_fourmult.py:150-163``):
+    a 35 dB tone at 0.1303 of the sample rate, amplitude 100 over unit
+    complex noise, quantized to u8 IQ; (F, 2N) uint8."""
+    rng = np.random.default_rng(0)
+    t = np.arange(F * N)
+    x = 100.0 * np.exp(2j * np.pi * 0.1303 * t) + (
+        rng.standard_normal(F * N) + 1j * rng.standard_normal(F * N))
+    re = np.clip(np.round(x.real + 127), 0, 255).astype(np.uint8)
+    im = np.clip(np.round(x.imag + 127), 0, 255).astype(np.uint8)
+    return np.stack([re, im], axis=-1).reshape(F, 2 * N)
+
+
 def split_specs(specs: Iterable[str]) -> List[Tuple[str, Optional[int]]]:
     """"name[:tile]" -> (name, tile or None)."""
     out = []
@@ -97,37 +111,53 @@ def split_specs(specs: Iterable[str]) -> List[Tuple[str, Optional[int]]]:
 def run_probe(tpu: str, argv: Optional[Sequence[str]] = None) -> int:
     """The entry point of TPU probe ``tpu`` (a key of ``fpp.PROBES``):
     each variant once against the float64 golden where its output is a
-    spectrum, then its slope time on the card."""
+    spectrum, then its slope time on the card. A probe that takes
+    ``tone`` (as its TPU probe does) then runs on the tone input."""
     probe = fpp.PROBES[tpu]
     args = parse(argv, f"python -m rtl_power_fftw_tpu_torch.probes."
                        f"{probe.module}",
-                 f"{tpu} ({probe.source}) on the port's kernels")
+                 f"{tpu} ({probe.source}) on the port's kernels"
+                 + (" ('tone': on the TPU probe's 35 dB tone)"
+                    if probe.tone else ""))
+    tone = probe.tone and "tone" in args.variants
     try:
-        specs = split_specs(args.variants or probe.default)
+        specs = split_specs([a for a in args.variants
+                             if not (tone and a == "tone")]
+                            or probe.default)
     except ValueError as e:
         print(f"bad variant[:tile]: {e}", file=sys.stderr)
         return 2
     unknown = [name for name, _ in specs if name not in probe.variants]
     if unknown:
         print(f"unknown {tpu} variant(s) {', '.join(unknown)}; known: "
-              f"{', '.join(probe.variants)}", file=sys.stderr)
+              f"{', '.join(probe.variants)}"
+              + (" (and 'tone')" if probe.tone else ""), file=sys.stderr)
         return 2
     dev = device_or_none(args.device)
     if dev is None:
         return 1
     F, chunk = adapt_batch(FRAMES if dev.type == "cuda" else CPU_FRAMES)
-    rng = np.random.default_rng(0)
-    raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * fpp.N),
-                                        dtype=np.uint8)).to(dev)
+    try:
+        groups = [fpp.block_frames(probe.variants[name], F, chunk, tile)
+                  for name, tile in specs]
+    except ValueError as e:
+        print(f"bad variant[:tile]: {e}", file=sys.stderr)
+        return 2
+    if tone:
+        raw_np = tone_frames(F, fpp.N)
+    else:
+        raw_np = np.random.default_rng(0).integers(0, 256, (F, 2 * fpp.N),
+                                                   dtype=np.uint8)
+    raw = torch.from_numpy(raw_np).to(dev)
     z = torch.complex(raw[:, 0::2].double() - 127.0,
                       raw[:, 1::2].double() - 127.0)
     X = torch.fft.fft(z, dim=1)
     gold = (X.real ** 2 + X.imag ** 2).sum(0)
     print(f"# {tpu} ({probe.source}) on {card(dev)}: N = {fpp.N} "
-          f"(N1 x N2 = {fpp.N1} x {fpp.N2}), F = {F}, chunk {chunk}")
-    for name, tile in specs:
+          f"(N1 x N2 = {fpp.N1} x {fpp.N2}), F = {F}, chunk {chunk}"
+          + (", 35 dB tone" if tone else ""))
+    for (name, _), group in zip(specs, groups):
         v = fpp.VARIANTS[probe.variants[name]]
-        group = tile or fpp.frames_per_block(F, chunk)
         got = fpp.fused_psd_probe(v.name, raw, F, chunk, group=group)
         if v.psd:
             rel = ((got.double() - gold).abs() / gold.abs().clamp_min(1e-30))
