@@ -69,14 +69,16 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    rounds split into waiting for the producers, filling the pinned slot,
    the upload, the step's enqueue, the event waits and the float64
    accumulation;
-11. the stage-attribution and stage-2 probes (``fused_psd_probe``: P1,
-   P18, P13, P14, P16, P19 and P11 as variants of K3's template, K1's
-   cuts, P12's relayouts), right after the build: every variant against
-   its plain version at N = 2048, F = 4096, with all frames valid and with
-   1000, twice for determinism; P1 ``full`` and ``dg3d`` bit-identical to
-   the shipping K3, ``k1_full`` to K1, the layout variants and the
-   schedules (P19 ``ilv``, ``ilv4``, P11 ``pipe``) of the 6-product
-   scheme to its ``full``; P12 equal to torch's reshape/permute; ptxas's
+11. the stage-attribution, stage-2 and stage-1 packing probes
+   (``fused_psd_probe``: P1, P18, P13, P14, P16, P19, P11, P17, P2, P6 and
+   P5 as variants of K3's template, K1's cuts, P12's relayouts), right
+   after the build: every variant against its plain version at N = 2048,
+   F = 4096, with all frames valid and with 1000, twice for determinism;
+   P1 ``full`` and ``dg3d`` and P2 ``pack8`` bit-identical to the
+   shipping K3, ``k1_full`` to K1, the layout variants and the schedules
+   (P19 ``ilv``, ``ilv4``, P11 ``pipe``) of the 6-product scheme to its
+   ``full``, P17 ``u32t`` to P16 ``e2``; P12 equal to torch's
+   reshape/permute; ptxas's
    registers and spills of every instantiation at N = 2048 (the shipping
    K1 and K3 beside them); each variant's slope time (the probes' own
    method), its plain version's, its bound and ``torch.fft.fft``'s;
@@ -86,14 +88,16 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    resident blocks per SM, and its time again with its occupancy pinned
    to that of the whole kernel it is compared with (K3's and the
    6-product scheme's for K3's template, and for the 6-product scheme's
-   variants also the least any of them gets; K1's for K1's cuts), its
+   variants and for the others each also the least any of that family
+   gets; K1's for K1's cuts), its
    output unchanged;
 12. the probes' entry points (``python -m
    rtl_power_fftw_tpu_torch.probes.{profile_kernel,s1_lanes,s1_lanes2,
-   cast_test,s2_fourmult,s2_left,s2_ilv,s2_pipe}``) in-process, each with
-   every launch counter reset just before it: exit 0, one line per
-   default variant, and every one of those variants launched (the probes'
-   ``launches`` are this run's); then ``profile_kernel`` again over a
+   cast_test,s2_fourmult,s2_left,s2_ilv,s2_pipe,s2_u32t}``, and
+   ``profile_kernel pack8c s1wide s1wide:8``) in-process, each with every launch
+   counter reset just before it: exit 0, one line per variant run, and
+   every one of those variants launched (the probes' ``launches`` are
+   this run's); then ``profile_kernel`` again over a
    sweep of frames per block (``variant:tile``) for K3, ``dg3d`` and K1,
    and ``s2_pipe`` and ``s2_ilv`` at 16 frames a block, their launches on
    lines of their own.
@@ -1159,15 +1163,12 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
             errs.append(err)
             check(err <= v.rtol, f"probe {name} n_valid={nv}: {err} vs plain "
                   f"(<= {v.rtol:g})")
-            if v.parity in ("K3", "K1"):
+            if v.parity != "plain":
+                # the shipping K3 or K1, or a variant run before it
                 check(torch.equal(got, ship[(v.parity, nv)]),
                       f"probe {name} n_valid={nv}: not bit-identical to "
-                      f"the shipping {v.parity}")
-            elif v.parity == "tpu6":
-                check(torch.equal(got, ship[("tpu6", nv)]),
-                      f"probe {name} n_valid={nv}: not bit-identical to tpu6")
-            if name == "tpu6":
-                ship[("tpu6", nv)] = got
+                      f"{v.parity}")
+            ship[(name, nv)] = got
             if nv == F:
                 max_abs = float((got.double() - want.double()).abs().max())
         k_us = slope_us(lambda it: fpp.fused_psd_probe(name, raw, F, chunk,
@@ -1218,18 +1219,24 @@ def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
     """Each probe variant's registers, spill, shared memory and resident
     blocks per SM as it launches, and its time again at the occupancy of
     the whole kernels it is compared with: K3's and the 6-product scheme's
-    (every variant of K3's template at both), K1's (K1's cuts). A pinned
+    (every variant of K3's template at both, and at the least its family
+    gets), K1's (K1's cuts). A pinned
     launch pads the block's shared memory (largest carveout) so that no
     more blocks reside; its output must not change. K3 pinned at its own
     occupancy is the control: what the padding and carveout alone cost."""
     pins = {kernel: fpp.probe_attributes(name)["blocks_per_sm"]
             for kernel, name in (("k3", "k3"), ("tpu6", "tpu6"),
                                  ("k1", "k1_full"))}
-    # The 6-product scheme's variants also at the least occupancy any of
-    # them gets (the chained ones' registers allow one block).
+    # The variants of the 6-product scheme, and the others of K3's
+    # template, also at the least occupancy any of their family gets (the
+    # chained ones' and the wide stage 1's registers allow one block).
     tpu6_family = [n for n in fpp.VARIANTS if n.startswith("tpu6")]
-    family_pins = {pins["k3"], pins["tpu6"]} | {
-        fpp.probe_attributes(n)["blocks_per_sm"] for n in tpu6_family}
+    k3_family = [n for n, v in fpp.VARIANTS.items()
+                 if v.kernel == "k3" and n not in tpu6_family]
+    family_pins = {
+        name: {pins["k3"], pins["tpu6"],
+               min(fpp.probe_attributes(n)["blocks_per_sm"] for n in family)}
+        for family in (tpu6_family, k3_family) for name in family}
     for name, v in fpp.VARIANTS.items():
         a = fpp.probe_attributes(name)
         base = fpp.fused_psd_probe(name, raw, F, chunk)
@@ -1237,8 +1244,7 @@ def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
                                                        iters=it))
         parts = []
         for b in sorted({pins["k1"]} if v.kernel == "k1"
-                        else family_pins if name in tpu6_family
-                        else {pins["k3"], pins["tpu6"]}, reverse=True):
+                        else family_pins[name], reverse=True):
             p = fpp.probe_attributes(name, b)
             got = fpp.fused_psd_probe(name, raw, F, chunk, blocks_per_sm=b)
             torch.cuda.synchronize()
@@ -1288,41 +1294,61 @@ SCHEDULE_SWEEP = {"s2_pipe": ["base:16", "pipe:16"],
                   "s2_ilv": ["ilv:16", "ilv4:16"]}
 
 
+#: The probes' entry-point runs: (module, argv, the TPU probes it drives).
+#: profile_kernel's run without argv is P1's and P2's (pack8), as the TPU
+#: module's; P6 and P5 are its builds by name, s1wide at 4 and 8 frames a
+#: block (the TPU's tiles 128 and 256, profile_pallas.py:508-511).
+PROBE_RUNS = (("profile_kernel", [], ("P1", "P2")),
+              ("profile_kernel", ["pack8c", "s1wide", "s1wide:8"],
+               ("P6", "P5")),
+              ("s1_lanes", [], ("P18",)), ("s1_lanes2", [], ("P13",)),
+              ("cast_test", [], ("P12",)), ("s2_fourmult", [], ("P14",)),
+              ("s2_left", [], ("P16",)), ("s2_ilv", [], ("P19",)),
+              ("s2_pipe", [], ("P11",)), ("s2_u32t", [], ("P17",)))
+
+
 def drive_probes(fpp) -> dict:
-    """The probes' eight entry points in-process, every launch counter
-    reset just before each: exit 0, one line per default variant, each of
-    those variants launched and no plain version run. Returns {TPU probe:
-    launches}."""
+    """The probes' entry points in-process (PROBE_RUNS), every launch
+    counter reset just before each run: exit 0, one line per variant run,
+    each of those variants launched and no plain version run. Returns
+    {TPU probe: launches of its variants in the run that drove it}."""
     import importlib
     launches = {}
-    for tpu, module in (("P1", "profile_kernel"), ("P18", "s1_lanes"),
-                        ("P13", "s1_lanes2"), ("P12", "cast_test"),
-                        ("P14", "s2_fourmult"), ("P16", "s2_left"),
-                        ("P19", "s2_ilv"), ("P11", "s2_pipe")):
+    for module, argv, tpus in PROBE_RUNS:
         entry = importlib.import_module(
             f"rtl_power_fftw_tpu_torch.probes.{module}")
         fpp.COUNTS.reset()
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = entry.main([])
+            rc = entry.main(list(argv))
         wall = time.perf_counter() - t0
         text = out.getvalue()
         print(text, end="")
         lines = [ln for ln in text.splitlines() if not ln.startswith("#")]
-        want = (list(fpp.RELAYOUTS) if tpu == "P12"
-                else [fpp.PROBES[tpu].variants[v]
-                      for v in fpp.PROBES[tpu].default])
+        if tpus == ("P12",):
+            want, runs = list(fpp.RELAYOUTS), len(fpp.RELAYOUTS)
+        else:
+            probes = [fpp.PROBES[tpu] for tpu in tpus]
+            variants = {k: v for p in probes for k, v in p.variants.items()}
+            names = ([a.partition(":")[0] for a in argv]
+                     or list(probes[0].default))
+            want = [variants[n] for n in names]
+            runs = len(names)
         missing = [v for v in want if fpp.COUNTS.kernel[v] == 0]
-        print(f"e2e probe {module} ({tpu}): exit {rc} in {wall:.2f} s wall; "
-              f"{len(lines)} lines; launches {dict(fpp.COUNTS.kernel)}")
+        print(f"e2e probe {' '.join([module] + argv)} ({', '.join(tpus)}): "
+              f"exit {rc} in {wall:.2f} s wall; {len(lines)} lines; launches "
+              f"{dict(fpp.COUNTS.kernel)}")
         check(rc == 0, f"probe entry {module} exited {rc}")
-        check(len(lines) == len(want), f"probe entry {module}: {len(lines)} "
-              f"lines for {len(want)} variants")
+        check(len(lines) == runs, f"probe entry {module}: {len(lines)} "
+              f"lines for {runs} variant runs")
         check(not missing and not fpp.COUNTS.plain,
               f"probe entry {module}: not launched {missing}, plain "
               f"{dict(fpp.COUNTS.plain)}")
-        launches[tpu] = sum(fpp.COUNTS.kernel.values())
+        for tpu in tpus:
+            own = (fpp.RELAYOUTS if tpu == "P12"
+                   else set(fpp.PROBES[tpu].variants.values()))
+            launches[tpu] = sum(fpp.COUNTS.kernel[v] for v in own)
     from rtl_power_fftw_tpu_torch.probes import profile_kernel
     fpp.COUNTS.reset()
     out = io.StringIO()
@@ -1364,6 +1390,10 @@ def main() -> int:
     from rtl_power_fftw_tpu_torch.parallel import ShardedPsdStep
     COUNTS, fused_psd, fused_psd_reference = (fp.COUNTS, fp.fused_psd,
                                               fp.fused_psd_reference)
+    t_start = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        print(f"wall: {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     # 1. Machine.
     smi = subprocess.run(
@@ -1405,7 +1435,9 @@ def main() -> int:
     # 11.-12. The stage-attribution probes, then their entry points.
     probe_times = phase_probes(dev, np.random.default_rng(0), fpp, ff, fp,
                                adapt_batch, card)
+    lap("probe variants")
     probe_launches = drive_probes(fpp)
+    lap("probe entry points")
 
     # 3. K1 against the plain version (and the float64 golden).
     rng = np.random.default_rng(20261016)
@@ -1472,10 +1504,13 @@ def main() -> int:
     k2_abs = phase_k2(dev, rng, fp, adapt_batch, make_window)
     k3_abs = phase_k3(dev, rng, ff, adapt_batch, make_window)
     k4_abs = phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep)
+    lap("K1 to K4 against plain")
     large_abs = phase_large(dev, rng, fp, fl, adapt_batch, make_window)
+    lap("the large kernel against plain")
 
     # 7. Times (median of 60 event-timed calls after 10 warm-ups).
     times = phase_times(dev, rng, fp, ff, fl, adapt_batch, make_window, card)
+    lap("times")
 
     # 8. End to end, in-process through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
@@ -1521,6 +1556,7 @@ def main() -> int:
         large_w_launches = drive_large_windowed(cli, fp, ff, make_window,
                                                 tmp)
         drive_large_sweep(cli, fp, ff, make_window, tmp)
+        lap("drives")
         # 10. Where the config 3 drive's device time goes, and config 5's
         # consumer's host time.
         profile_drive("config 3", c3_argv, cli,
@@ -1528,6 +1564,7 @@ def main() -> int:
                        "psd_sum_kernel", "Memcpy DtoH"])
         profile_consumer("config 5", config5_argv(
             os.path.join(tmp, "config5_profiled.iq")), cli)
+        lap("profiles")
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
@@ -1585,7 +1622,15 @@ def main() -> int:
                                 ("fused_psd_probe P19 (s2_ilv: ilv)",
                                  "P19", "tpu6_ilv2"),
                                 ("fused_psd_probe P11 (s2_pipe: pipe)",
-                                 "P11", "tpu6_pipe"))]}))
+                                 "P11", "tpu6_pipe"),
+                                ("fused_psd_probe P17 (s2_u32t: u32t)",
+                                 "P17", "tpu6_u32t"),
+                                ("fused_psd_probe P2 (profile_kernel: pack8)",
+                                 "P2", "k3_pack"),
+                                ("fused_psd_probe P6 (profile_kernel: "
+                                 "pack8c)", "P6", "k3_pack_pq"),
+                                ("fused_psd_probe P5 (profile_kernel: "
+                                 "s1wide)", "P5", "k3_s1wide"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

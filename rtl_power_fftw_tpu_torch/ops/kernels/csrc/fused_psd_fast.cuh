@@ -6,9 +6,11 @@
 // of V are the probes of fused_psd_probe.cu, the Hopper counterparts of
 // probes/profile_pallas.py:build (P1), s1_lanes.py:build (P18),
 // s1_lanes2.py:build (P13), s2_fourmult.py:build (P14), s2_left.py:build
-// (P16), s2_ilv.py:build (P19) and s2_pipe.py:build (P11). Each parameter
-// is a compile-time constant, so a variant pays for nothing it does not
-// run, and each addition is a branch that the default discards:
+// (P16), s2_ilv.py:build (P19), s2_pipe.py:build (P11), s2_u32t.py:build
+// (P17) and profile_pallas.py:build_pack8 (P2), build_pack8c (P6) and
+// build_s1wide (P5). Each parameter is a compile-time constant, so a
+// variant pays for nothing it does not run, and each addition is a branch
+// that the default discards:
 //
 //   S1_TERMS     stage-1 weight terms: 3 (K3), 1, or 0 (no stage-1
 //                products: Y is the dequantized frame in (n2, n1) order);
@@ -30,7 +32,13 @@
 //                cR = 127 colsum(WR), cI = 127 colsum(WI), passed in the
 //                window's place (P16 e2, probes/s2_left.py:51-61, 87-88;
 //                the TPU's select/duplicate matmul is its way to relayout
-//                the bytes and has no counterpart here);
+//                the bytes and has no counterpart here). With INPUT =
+//                kInPair32 (P17 u32t) each A register comes from one pair
+//                word: bytes 0 and 2 are re(n1), re(n1 + 1), bytes 1 and 3
+//                im; the TPU permutes its weight rows to [even n1 | odd
+//                n1] only because its byte planes come out as even and odd
+//                halves, and a register here holds n1, n1 + 1 in order, so
+//                that permutation has no counterpart either;
 //   CHAINS       frames a block takes at a time (P19): it loads 1, 2 or 4
 //                frames, runs stage 1 of each into its own Z buffer,
 //                syncs, then runs their stage 2 in one loop whose inner
@@ -39,7 +47,14 @@
 //   PIPELINE     (P11) one __syncthreads a frame: iteration i runs stage
 //                1 of frame i into Z buffer i % 2 and stage 2 of frame
 //                i - 1 from the other, while frame i + 1 travels through
-//                registers into the other raw buffer.
+//                registers into the other raw buffer;
+//   S1_FORM      how stage 1 multiplies (kS1* below): K3's K-stack; its
+//                rows packed PACK = 128 / N1 to a 128-column lane group
+//                against block-diagonal weights, Z in K3's order (P2) or
+//                in (p, q) order (P6) (stage1_packed); or two products
+//                against N-stacked weights (P5: stage1_wide). Each takes
+//                K3's raw input, 3 terms and twiddle and leaves Z in f32
+//                for stage 2's own code (P6's weights permuted to match).
 // The two schedules run the 6-product scheme (tpu6) through the
 // tpu6_stage1 / tpu6_stage2 helpers below, the same arithmetic in the
 // same order per accumulator as the frame loop's, so their output equals
@@ -125,10 +140,22 @@ enum : int {
                      // Z (columns k1); D holds X in bin order
 };
 
+// How stage 1 multiplies.
+enum : int {
+  kS1KStack = 0,    // K3: A = [ar ai] rows n2 x columns n1, against the
+                    // K-stacked (6 N1, N1) WR and WI
+  kS1Packed = 1,    // P2 pack8: A rows q, columns (p, n1) of n2 = PACK q +
+                    // p, against kron(I_PACK, block) of each K-stack block
+  kS1PackedPQ = 2,  // P6 pack8c: kS1Packed with Z stored at row p Q + q
+  kS1Wide = 3,      // P5 s1wide: ar and ai each against the N-stacked
+                    // (N1, 6 N1) [w1r0 w1r1 w1r2 w1i0 w1i1 w1i2]
+};
+
 template <int S1_TERMS_ = 3, int S2_PRODUCTS_ = 3, bool TWIDDLE_ = true,
           int CUT_ = kCutFull, int INPUT_ = kInRaw,
           int S2_SOURCE_ = kS2FromZ, int S2_FORM_ = kS2Karatsuba,
-          bool RAW_BYTES_ = false, int CHAINS_ = 1, bool PIPELINE_ = false>
+          bool RAW_BYTES_ = false, int CHAINS_ = 1, bool PIPELINE_ = false,
+          int S1_FORM_ = kS1KStack>
 struct FastVariant {
   static constexpr int S1_TERMS = S1_TERMS_;
   static constexpr int S2_PRODUCTS = S2_PRODUCTS_;
@@ -140,6 +167,7 @@ struct FastVariant {
   static constexpr bool RAW_BYTES = RAW_BYTES_;
   static constexpr int CHAINS = CHAINS_;
   static constexpr bool PIPELINE = PIPELINE_;
+  static constexpr int S1_FORM = S1_FORM_;
   static constexpr bool SCHEDULED = CHAINS > 1 || PIPELINE;
   static_assert(S1_TERMS == 0 || S1_TERMS == 1 || S1_TERMS == 3, "terms");
   static_assert(S2_PRODUCTS == 1 || S2_PRODUCTS == 3 || S2_PRODUCTS == 6,
@@ -151,9 +179,14 @@ struct FastVariant {
   static_assert(S2_FORM == kS2Karatsuba ||
                     (S2_PRODUCTS == 6 && S2_SOURCE == kS2FromZ),
                 "the 4-mult and left forms take 3-term splits of Z");
-  static_assert(!RAW_BYTES || (INPUT == kInRaw && S1_TERMS == 3 &&
-                               CUT == kCutFull),
-                "raw bytes on the raw input path, whole step");
+  static_assert(!RAW_BYTES || ((INPUT == kInRaw || INPUT == kInPair32) &&
+                               S1_TERMS == 3 && CUT == kCutFull),
+                "raw bytes on the raw or pair-word input path, whole step");
+  static_assert(S1_FORM == kS1KStack ||
+                    (S1_TERMS == 3 && TWIDDLE && CUT == kCutFull &&
+                     INPUT == kInRaw && S2_SOURCE == kS2FromZ &&
+                     S2_FORM == kS2Karatsuba && !RAW_BYTES && !SCHEDULED),
+                "a packed or wide stage 1 takes K3's input and leaves Z");
   static_assert(CHAINS == 1 || CHAINS == 2 || CHAINS == 4, "chains");
   static_assert(!SCHEDULED ||
                     (!(CHAINS > 1 && PIPELINE) && S1_TERMS == 3 &&
@@ -514,6 +547,160 @@ __device__ __forceinline__ void tpu6_stage2(
   }
 }
 
+// The A register of two bytes, one in the low byte of each 16-bit half of
+// v: their bf16 pair, low half first (exact: 0..255 needs 8 significant
+// bits, bf16 has 8).
+__device__ __forceinline__ uint32_t bf16_byte_pair(uint32_t v) {
+  return pack2(__float2bfloat16_rn(static_cast<float>(v & 0xFFu)),
+               __float2bfloat16_rn(static_cast<float>(v >> 16)));
+}
+
+// Y at (k1, k1 + 1) of one row, (ar, ai) and (br, bi), times the twiddle's
+// two values tw: Z as (re, im, re, im), K3's arithmetic.
+__device__ __forceinline__ float4 twiddled(float ar, float ai, float br,
+                                           float bi, float4 tw) {
+  return make_float4(__fsub_rn(__fmul_rn(ar, tw.x), __fmul_rn(ai, tw.y)),
+                     __fadd_rn(__fmul_rn(ar, tw.y), __fmul_rn(ai, tw.x)),
+                     __fsub_rn(__fmul_rn(br, tw.z), __fmul_rn(bi, tw.w)),
+                     __fadd_rn(__fmul_rn(br, tw.w), __fmul_rn(bi, tw.z)));
+}
+
+// Stage 1 and twiddle with the frame's rows packed PACK = 128 / N1 to a
+// 128-column lane group (P2 pack8, P6 pack8c; profile_pallas.py:182-199,
+// 541-559): A row q of Q = N2 / PACK holds the columns (p, n1) of the
+// samples n2 = PACK q + p, and each of K3's six K-stack blocks of WR and
+// WI becomes kron(I_PACK, block), (6 PACK N1, PACK N1) B fragments a
+// plane. The zero blocks are multiplied: that is the probe (the TPU paid
+// for them to fill its 128-wide unit), PACK times K3's products and PACK^2
+// its weight bytes, read through L1/L2 as K3's. Per accumulator the
+// nonzero products come in K3's order. The twiddle is K3's (N2, N1) array
+// read as (Q, PACK N1). Z goes to K3's row n2 (P2) or to row p Q + q (PQ:
+// P6, whose stage-2 weight rows are permuted to match, 529-533).
+template <int LOG2N, bool PQ>
+__device__ __forceinline__ void stage1_packed(
+    const uint16_t* iq, float2* z, const uint2* __restrict__ w1r,
+    const uint2* __restrict__ w1i, const float4* __restrict__ twiddle,
+    int warp, int lane) {
+  using S = FastShape<LOG2N>;
+  constexpr int N1 = S::N1, N2 = S::N2;
+  constexpr int PACK = 128 / N1, Q = N2 / PACK, W = PACK * N1;
+  static_assert(PACK >= 1 && Q % 16 == 0 && (Q / 16) * (W / 16) == S::ITEMS,
+                "16-row tiles of q, 16-column items of (p, k1)");
+  const int g = lane >> 2, t = lane & 3;
+  for (int item = warp; item < S::ITEMS; item += S::WARPS) {
+    const int mt = item / (W / 16);
+    const int ng = item % (W / 16);
+    float yr[2][4] = {}, yi[2][4] = {};
+    for (int c = 0; c < W / 16; ++c) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        // A[row q][col (p, n1)] = x[N2 n1 + PACK q + p]; the pair is n1,
+        // n1 + 1 of one p.
+        const int col = 16 * c + 2 * t + 8 * (q >> 1);
+        const int n = N2 * (col % N1) + PACK * (16 * mt + g + 8 * (q & 1)) +
+                      col / N1;
+        const uint32_t v0 = iq[n], v1 = iq[n + N2];
+        a[0][q] = pack2(__float2bfloat16_rn(dequant(v0 & 0xFFu)),
+                        __float2bfloat16_rn(dequant(v1 & 0xFFu)));
+        a[1][q] = pack2(__float2bfloat16_rn(dequant(v0 >> 8)),
+                        __float2bfloat16_rn(dequant(v1 >> 8)));
+      }
+#pragma unroll
+      for (int b = 0; b < 6; ++b) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int idx = ((b * (W / 16) + c) * (W / 8) + 2 * ng + j) * 32 + lane;
+          mma_bf16(yr[j], a[b & 1], __ldg(w1r + idx));
+          mma_bf16(yi[j], a[b & 1], __ldg(w1i + idx));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = 16 * mt + g + 8 * h;
+        const int col = 16 * ng + 8 * j + 2 * t;   // even: k1, k1 + 1 of one p
+        const int p = col / N1, k1 = col % N1;
+        const float4 o = twiddled(yr[j][2 * h], yi[j][2 * h], yr[j][2 * h + 1],
+                                  yi[j][2 * h + 1],
+                                  __ldg(twiddle + (q * W + col) / 2));
+        const int row = PQ ? p * Q + q : PACK * q + p;
+        reinterpret_cast<float4*>(z)[(row * N1 + k1) / 2] = o;
+      }
+    }
+  }
+}
+
+// Stage 1 and twiddle as two products a row block (P5 s1wide,
+// profile_pallas.py:444-459): K3's items, the A fragments of ar and ai
+// gathered once, each against the N-stacked (N1, 6 N1) [w1r0 w1r1 w1r2
+// w1i0 w1i1 w1i2] (w1: its B fragments), into six f32 accumulators a
+// plane, combined after: yr = (ar.w1r0 + ar.w1r1 + ar.w1r2) - (ai.w1i0 +
+// ai.w1i1 + ai.w1i2), yi = (ar.w1i0 + ...) + (ai.w1r0 + ...). K3's
+// products with half its weight bytes (no negated copies) and 96
+// accumulator registers against 16.
+template <int LOG2N>
+__device__ __forceinline__ void stage1_wide(
+    const uint16_t* iq, float2* z, const uint2* __restrict__ w1,
+    const float4* __restrict__ twiddle, int warp, int lane) {
+  using S = FastShape<LOG2N>;
+  constexpr int N1 = S::N1, N2 = S::N2;
+  const int g = lane >> 2, t = lane & 3;
+  for (int item = warp; item < S::ITEMS; item += S::WARPS) {
+    const int mt = item / (N1 / 16);
+    const int ng = item % (N1 / 16);
+    float acc[2][6][2][4] = {};   // [ar, ai][weight group][n-tile][e]
+    for (int c = 0; c < N1 / 16; ++c) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n = N2 * (16 * c + 2 * t + 8 * (q >> 1)) + 16 * mt + g +
+                      8 * (q & 1);
+        const uint32_t v0 = iq[n], v1 = iq[n + N2];
+        a[0][q] = pack2(__float2bfloat16_rn(dequant(v0 & 0xFFu)),
+                        __float2bfloat16_rn(dequant(v1 & 0xFFu)));
+        a[1][q] = pack2(__float2bfloat16_rn(dequant(v0 >> 8)),
+                        __float2bfloat16_rn(dequant(v1 >> 8)));
+      }
+#pragma unroll
+      for (int gr = 0; gr < 6; ++gr)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          // One B fragment for both planes.
+          const uint2 b =
+              __ldg(w1 + ((c * 6 + gr) * (N1 / 8) + 2 * ng + j) * 32 + lane);
+          mma_bf16(acc[0][gr][j], a[0], b);
+          mma_bf16(acc[1][gr][j], a[1], b);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float yr[4], yi[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float (&r)[6][2][4] = acc[0];
+        const float (&i)[6][2][4] = acc[1];
+        yr[e] = __fsub_rn(
+            __fadd_rn(__fadd_rn(r[0][j][e], r[1][j][e]), r[2][j][e]),
+            __fadd_rn(__fadd_rn(i[3][j][e], i[4][j][e]), i[5][j][e]));
+        yi[e] = __fadd_rn(
+            __fadd_rn(__fadd_rn(r[3][j][e], r[4][j][e]), r[5][j][e]),
+            __fadd_rn(__fadd_rn(i[0][j][e], i[1][j][e]), i[2][j][e]));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n2 = 16 * mt + g + 8 * h;
+        const int k1 = 16 * ng + 8 * j + 2 * t;
+        reinterpret_cast<float4*>(z)[(n2 * N1 + k1) / 2] =
+            twiddled(yr[2 * h], yi[2 * h], yr[2 * h + 1], yi[2 * h + 1],
+                     __ldg(twiddle + (n2 * N1 + k1) / 2));
+      }
+    }
+  }
+}
+
 // Block g transforms frames [g*group, min((g+1)*group, F, n_valid)) one
 // after another and writes the f32 sum of their |X|^2 to partial row g
 // (a cut variant: the sums its CUT names, see the top of this file).
@@ -676,6 +863,12 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
     }
     __syncthreads();   // also orders the window copy before its first use
 
+    if constexpr (V::S1_FORM == kS1Packed || V::S1_FORM == kS1PackedPQ) {
+      stage1_packed<LOG2N, V::S1_FORM == kS1PackedPQ>(iq, z, w1r, w1i,
+                                                      twiddle, warp, lane);
+    } else if constexpr (V::S1_FORM == kS1Wide) {
+      stage1_wide<LOG2N>(iq, z, w1r, twiddle, warp, lane);
+    } else {
     // Stage 1 and twiddle: item = (16 rows n2) x (16 columns k1).
     for (int item = warp; item < S::ITEMS; item += S::WARPS) {
       const int mt = item / (N1 / 16);
@@ -708,6 +901,14 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
         } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
+          if constexpr (V::INPUT == kInPair32 && V::RAW_BYTES) {
+            // P17 u32t: the pair word of n1, n1 + 1 (n1 even) of row n2;
+            // bytes 0 and 2 are the re plane's register, 1 and 3 the im's.
+            const uint32_t w = reinterpret_cast<const uint32_t*>(raw4)[
+                (8 * c + t + 4 * (q >> 1)) * N2 + 16 * mt + g + 8 * (q & 1)];
+            a[0][q] = bf16_byte_pair(__byte_perm(w, 0u, 0x4240));
+            a[1][q] = bf16_byte_pair(__byte_perm(w, 0u, 0x4341));
+          } else {
           // A[row n2][col n1] = x[N2*n1 + n2]; the pair is n1, n1 + 1.
           const int n = N2 * (16 * c + 2 * t + 8 * (q >> 1)) + 16 * mt + g +
                         8 * (q & 1);
@@ -751,6 +952,7 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
               a[2 * p][q] = pack2(sr0[p], sr1[p]);
               a[2 * p + 1][q] = pack2(si0[p], si1[p]);
             }
+          }
           }
           }
         }
@@ -836,6 +1038,7 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
         }
       }
       }
+    }
     }
     __syncthreads();
 

@@ -15,11 +15,20 @@
 //   P16  probes/s2_left.py:build (171): the dequantization offset folded
 //        after stage 1 (e2), stage 2 with Z as the right operand (left);
 //   P19  probes/s2_ilv.py:build (117): 2 or 4 independent frame chains;
-//   P11  probes/s2_pipe.py:build (150): a 1-deep software pipeline.
+//   P11  probes/s2_pipe.py:build (150): a 1-deep software pipeline;
+// and the TPU probes that relaid and packed stage 1's operands:
+//   P17  probes/s2_u32t.py:build (154): u16 pairs as u32 words before the
+//        transpose, raw bytes, the offset folded after stage 1 (on tpu6);
+//   P2   probes/profile_pallas.py:build_pack8 (227): stage-1 rows packed
+//        128 / N1 to a lane group against block-diagonal weights;
+//   P6   profile_pallas.py:build_pack8c (588): P2 with Z in (p, q) order;
+//   P5   profile_pallas.py:build_s1wide (492): stage 1 as two products
+//        against N-stacked weights.
 //
 // On this card the TPU probes' bf16 four-step scheme is K3
-// (fused_psd_fast.cuh), so P1, P18, P13, P14, P16, P19 and P11 are
-// instantiations of K3's template with compile-time variant parameters;
+// (fused_psd_fast.cuh), so P1, P18, P13, P14, P16, P19, P11, P17, P2, P6
+// and P5 are instantiations of K3's template with compile-time variant
+// parameters;
 // K1's cuts (fused_psd.cuh) ask P1's question of the FP32 radix-2 kernel.
 // Every variant runs at the probes' N = 2048 and at K3's own split, N1 x
 // N2 = 32 x 64 (the TPU probes ran 16 x 128), on raw interleaved u8 IQ
@@ -78,6 +87,10 @@ enum : int {
   kTpu6E2 = 34,     // P16 e2
   kTpu6Left = 35,   // P16 left
   kTpu6E2Left = 36, // P16 e2left
+  kTpu6U32t = 37,   // P17 u32t
+  kK3Pack = 38,     // P2 pack8
+  kK3PackPQ = 39,   // P6 pack8c
+  kK3S1Wide = 40,   // P5 s1wide
 };
 
 // The shared-memory carveout (percent of the largest) of a launch pinned to
@@ -244,6 +257,14 @@ cudaError_t launch_variant(int variant, const void* raw, const void* w1r,
     RPF_FAST(kTpu6Left, 3, 6, true, kCutFull, kInRaw, kS2FromZ, kS2Left)
     RPF_FAST(kTpu6E2Left, 3, 6, true, kCutFull, kInRaw, kS2FromZ, kS2Left,
              true)
+    RPF_FAST(kTpu6U32t, 3, 6, true, kCutFull, kInPair32, kS2FromZ,
+             kS2Karatsuba, true)
+    RPF_FAST(kK3Pack, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
+             false, 1, false, kS1Packed)
+    RPF_FAST(kK3PackPQ, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
+             false, 1, false, kS1PackedPQ)
+    RPF_FAST(kK3S1Wide, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
+             false, 1, false, kS1Wide)
     RPF_K1(kK1, kK1Full)
     RPF_K1(kK1Dq, kK1Dequant)
     RPF_K1(kK1NoFftCut, kK1NoFft)
@@ -335,8 +356,11 @@ extern "C" {
 // time both passes. raw: (F, 2N) u8, 16-byte aligned, N = 2048; K3's
 // variants take w1r, w1i, twiddle ((N2, N1, 2) f32) and w2 (6 B-fragment
 // planes, or 9 for the 6-product scheme; the left form's 9 A-fragment
-// planes) as fused_psd_fast.py and fused_psd_probe.py pack them, and the
-// e2 variants offsets ((2, N1) f32 cR, cI; else null); K1's cuts take
+// planes; P6's 6 with permuted rows) as fused_psd_fast.py and
+// fused_psd_probe.py pack them (the packed forms' w1r, w1i: the
+// block-diagonal stacks; the wide form's w1r: its N-stacked weights, w1i
+// unread), and the e2 and u32t variants offsets ((2, N1) f32 cR, cI; else
+// null); K1's cuts take
 // its stage twiddles ((N - 1, 2) f32) as `twiddle` and ignore w1r, w1i,
 // w2 and offsets. partial: (ceil(F / group), N) f32 scratch; out:
 // (N,) f32. blocks_per_sm: 0 to launch as the shipping kernels do, b > 0 to

@@ -1,13 +1,16 @@
-"""Stage-attribution and stage-2 probes of K3 and K1 on Hopper, and P12's
-relayouts.
+"""Stage-attribution, stage-2 and stage-1 packing probes of K3 and K1 on
+Hopper, and P12's relayouts.
 
 Replaces the TPU probes that asked where the fused kernel's time goes:
 P1 (``probes/profile_pallas.py:build``, ``pallas_call`` at 115), P18
 (``probes/s1_lanes.py:build``, 151), P13 (``probes/s1_lanes2.py:build``,
-156) and P12 (``probes/cast_test.py:try_cast``, 16), and those that
+156) and P12 (``probes/cast_test.py:try_cast``, 16); those that
 restructured its stage 2: P14 (``probes/s2_fourmult.py:build``, 132), P16
 (``probes/s2_left.py:build``, 171), P19 (``probes/s2_ilv.py:build``, 117)
-and P11 (``probes/s2_pipe.py:build``, 150), with hand-written CUDA C++ for
+and P11 (``probes/s2_pipe.py:build``, 150); and those that relaid and
+packed stage 1's operands: P17 (``probes/s2_u32t.py:build``, 154), P2
+(``probes/profile_pallas.py:build_pack8``, 227), P6 (``build_pack8c``,
+588) and P5 (``build_s1wide``, 492), with hand-written CUDA C++ for
 sm_90a (``csrc/fused_psd_probe.cu``). On this card the TPU probes' bf16
 four-step scheme is K3, so each TPU variant becomes one compile-time
 variant of K3's template (``csrc/fused_psd_fast.cuh``); K1's cuts
@@ -17,10 +20,15 @@ split N1 x N2 = 32 x 64 (the TPU probes ran 16 x 128). The stage-2 probes
 start from the TPU's shipping 6-product scheme, ``tpu6`` here; their
 ``base``/``v6`` is it, and each other TPU variant is a variant of it:
 ``tpu6_4mult`` (P14 v7), ``tpu6_e2``, ``tpu6_left``, ``tpu6_e2left``
-(P16), ``tpu6_ilv2``, ``tpu6_ilv4`` (P19) and ``tpu6_pipe`` (P11). The
+(P16), ``tpu6_ilv2``, ``tpu6_ilv4`` (P19), ``tpu6_pipe`` (P11) and
+``tpu6_u32t`` (P17: e2's raw bytes from u32 pair words). The
 schedules (ilv, pipe) compute tpu6's arithmetic in another order of
 frames and phases, so their plain version is tpu6's and their output
-must equal tpu6's bit for bit.
+must equal tpu6's bit for bit. P2, P6 and P5 change K3's stage 1:
+``k3_pack`` (rows packed :data:`PACK` to a 128-column lane group against
+block-diagonal weights, zero blocks multiplied), ``k3_pack_pq`` (the
+same with Z in (p, q) order and stage-2 weight rows permuted to match)
+and ``k3_s1wide`` (two products against N-stacked weights).
 
 :data:`VARIANTS` is the registry: each Hopper variant, the TPU probe
 variants it stands for (two TPU names that became one Hopper variant are
@@ -31,8 +39,11 @@ which defines the variant's output; ``fused_psd_fast_reference`` is its
 base. The outputs, all (N,) float32 summed over the frames < n_valid:
 
 - whole-step variants: |X|^2 in bin order, as K3 (``k3`` is K3 itself;
-  ``tpu6_e2``/``tpu6_e2left`` multiply the raw bytes in stage 1 and
-  subtract :func:`e2_offsets` after it, ``tpu6_4mult`` multiplies by
+  ``tpu6_e2``/``tpu6_e2left``/``tpu6_u32t`` multiply the raw bytes in
+  stage 1 and subtract :func:`e2_offsets` after it, ``tpu6_u32t`` from
+  the pair words of :func:`_pair_word_planes`, ``k3_pack``/``k3_pack_pq``
+  multiply :func:`packed_weights`, ``k3_s1wide`` :func:`wide_weights`,
+  ``tpu6_4mult`` multiplies by
   :func:`fourmult_weights`, the ``left`` forms contract n2 from the left);
   ``nomm`` and the cuts after stage 1, the twiddle and the Z store: the
   sums of |Y|^2 or |Z|^2 in (n2, k1) order, index n2*N1 + k1;
@@ -79,6 +90,12 @@ CUT_FULL, CUT_GATHER, CUT_DEQUANT, CUT_STAGE1, CUT_TWIDDLE, CUT_ZSTORE = \
 IN_RAW, IN_BF16, IN_WIDE32, IN_PAIR32, IN_LINEAR = range(5)
 # Stage-2 forms (kS2Karatsuba, kS2FourMult, kS2Left).
 KARATSUBA, FOURMULT, LEFT = "karatsuba", "fourmult", "left"
+# Stage-1 forms (kS1KStack, kS1Packed, kS1PackedPQ, kS1Wide).
+KSTACK, PACKED, PACKED_PQ, WIDE = "kstack", "packed", "packed_pq", "wide"
+#: The packed forms' rows a lane group (profile_pallas.py:163), and the
+#: packed frame's rows q: n2 = PACK·q + p.
+PACK = max(1, 128 // N1)
+PACK_ROWS = N2 // PACK
 
 # Tolerances against the plain version, per bin, relative. K3-scheme
 # outputs: the same bf16 terms and products, only the order of f32 sums
@@ -96,8 +113,9 @@ RTOL_K1 = 1e-5
 class Variant:
     """One Hopper variant: of K3's template (``kernel`` "k3") or a cut of
     K1 ("k1"). ``parity``: the kernel's output must equal the named
-    shipping kernel's or variant's bit for bit ("K3", "K1", "tpu6"), or
-    only its plain version's within ``rtol`` ("plain"). ``psd``: the
+    shipping kernel's ("K3", "K1") or earlier variant's ("tpu6",
+    "tpu6_e2") bit for bit, or only its plain version's within ``rtol``
+    ("plain"). ``psd``: the
     output is a power spectrum, held to the float64 golden by the probe
     entry points."""
     name: str
@@ -118,6 +136,7 @@ class Variant:
     raw_bytes: bool = False
     chains: int = 1
     pipeline: bool = False
+    s1_form: str = KSTACK
 
     def work(self, F: int) -> Tuple[float, float, float]:
         """(bytes, bf16 tensor-core flops, FP32 ops) of one step over F
@@ -128,24 +147,29 @@ class Variant:
             return k1_work(F, N, self.k1_cut)
         return k3_work(F, N, self.s1_terms, self.s2_products, self.twiddle,
                        self.cut, s2_form=self.s2_form,
-                       raw_bytes=self.raw_bytes)
+                       raw_bytes=self.raw_bytes, s1_form=self.s1_form)
 
 
 def k3_work(F: int, n: int, s1_terms: int = 3, s2_products: int = 3,
             twiddle: bool = True, cut: int = CUT_FULL,
             windowed: bool = False, s2_form: str = KARATSUBA,
-            raw_bytes: bool = False) -> Tuple[float, float, float]:
+            raw_bytes: bool = False,
+            s1_form: str = KSTACK) -> Tuple[float, float, float]:
     """(bytes, bf16 tensor-core flops, FP32 ops) of K3's step, or of a cut
     of it, over F frames of n bins. Bytes: each input read once (the
     frames, the window, the stage-1 weights, twiddle and stage-2 weights
     the variant reads, e2's (2, N1) offsets) and the (n,) output written
     once. Flops a frame: 8·terms·n·N1 for the stage-1 products
-    (``s1_terms`` K-stacked weight terms, 6 with a window) and, for stage
-    2, 6·products·n·N2 as a Karatsuba (3 parts, either operand order) or
-    48·n·N2 as the 4-mult product (24 real products of the 6-term splits,
-    2 weight matrices); FP32: 2n to dequantize (4n with a window), 2n
-    more to subtract e2's offsets after stage 1 (``raw_bytes``), 6n for
-    the twiddle, 2n for |.|^2 and the sum. With the defaults this is the
+    (``s1_terms`` K-stacked weight terms, 6 with a window; the packed
+    forms multiply their zero blocks too, P = max(1, 128 / N1) times as
+    many against P² times the weight bytes; the wide form K3's products
+    against half its weight bytes) and, for stage 2, 6·products·n·N2 as a
+    Karatsuba (3 parts, either operand order) or 48·n·N2 as the 4-mult
+    product (24 real products of the 6-term splits, 2 weight matrices);
+    FP32: 2n to dequantize (4n with a window), 2n more to subtract e2's
+    offsets after stage 1 (``raw_bytes``), 2n for stage 1 (8n more to
+    combine the wide form's six accumulators a plane), 6n for the
+    twiddle, 2n for |.|^2 and the sum. With the defaults this is the
     shipping K3's work."""
     n1, n2 = ff.fast_split(n)
     full = cut == CUT_FULL
@@ -157,8 +181,13 @@ def k3_work(F: int, n: int, s1_terms: int = 3, s2_products: int = 3,
         nbytes += 2 * n1 * 4
         fp32 += 2 * n
     if full or cut >= CUT_STAGE1:
-        mma += 8 * s1_terms * n * n1
-        nbytes += 2 * (2 * s1_terms * n1) * n1 * 2
+        pack = max(1, 128 // n1) if s1_form in (PACKED, PACKED_PQ) else 1
+        mma += 8 * s1_terms * n * n1 * pack
+        if s1_form == WIDE:
+            nbytes += n1 * (2 * s1_terms * n1) * 2
+            fp32 += 8 * n
+        else:
+            nbytes += 2 * (2 * s1_terms * n1 * pack) * (n1 * pack) * 2
         fp32 += 2 * n
     if twiddle and (full or cut >= CUT_TWIDDLE):
         nbytes += 8 * n
@@ -205,6 +234,10 @@ P14_SRC = "probes/s2_fourmult.py:65-123"
 P16_SRC = "probes/s2_left.py:71-159"
 P19_SRC = "probes/s2_ilv.py:42-108"
 P11_SRC = "probes/s2_pipe.py:46-137"
+P17_SRC = "probes/s2_u32t.py:43-143"
+P2_SRC = "probes/profile_pallas.py:161-219"
+P6_SRC = "probes/profile_pallas.py:516-580"
+P5_SRC = "probes/profile_pallas.py:431-483"
 
 #: Every Hopper variant, by name; codes as in fused_psd_probe.cu.
 VARIANTS: Dict[str, Variant] = {v.name: v for v in (
@@ -252,6 +285,16 @@ VARIANTS: Dict[str, Variant] = {v.name: v for v in (
         s2_form=LEFT),
     _k3("tpu6_e2left", 36, (f"P16 e2left ({P16_SRC})",), s2_products=6,
         s2_form=LEFT, raw_bytes=True),
+    # After tpu6_e2: e2's A registers from pair words, its products in
+    # its order.
+    _k3("tpu6_u32t", 37, (f"P17 u32t ({P17_SRC})",), parity="tpu6_e2",
+        s2_products=6, layout=IN_PAIR32, raw_bytes=True),
+    # The zero blocks add exact zeros to each accumulator between K3's
+    # own products, in K3's order.
+    _k3("k3_pack", 38, (f"P2 pack8 ({P2_SRC})",), parity="K3",
+        s1_form=PACKED),
+    _k3("k3_pack_pq", 39, (f"P6 pack8c ({P6_SRC})",), s1_form=PACKED_PQ),
+    _k3("k3_s1wide", 40, (f"P5 s1wide ({P5_SRC})",), s1_form=WIDE),
     Variant("k1_full", 20, "k1", ("K1 whole (P1's question of K1)",), "K1",
             RTOL_K1, psd=True),
     Variant("k1_dqonly", 21, "k1",
@@ -273,13 +316,28 @@ class Probe:
     tone: bool = False  # takes "tone": the TPU probe's 35 dB tone input
 
 
+# The other builds of profile_pallas.py, which its argv names (243, 508,
+# 604); profile_kernel takes them beside P1's.
+_PROFILE_PALLAS = (
+    Probe("P2", "probes/profile_pallas.py:227", "profile_kernel",
+          {"pack8": "k3_pack"}, ("pack8",)),
+    Probe("P6", "probes/profile_pallas.py:588", "profile_kernel",
+          {"pack8c": "k3_pack_pq"}, ("pack8c",)),
+    Probe("P5", "probes/profile_pallas.py:492", "profile_kernel",
+          {"s1wide": "k3_s1wide"}, ("s1wide",)),
+)
+
 PROBES: Dict[str, Probe] = {p.tpu: p for p in (
+    # With no argv profile_pallas.py runs P1's variants and pack8 (148,
+    # 243); here P1's six, K1's three cuts and pack8.
     Probe("P1", "probes/profile_pallas.py:115", "profile_kernel",
           {"full": "k3", "s2x1": "s2x1", "s1x1": "s1x1", "nomm": "nomm",
            "notw": "notw", "dg3d": "zplanes", "k1_full": "k1_full",
-           "k1_nofft": "k1_nofft", "k1_dqonly": "k1_dqonly"},
+           "k1_nofft": "k1_nofft", "k1_dqonly": "k1_dqonly",
+           **{k: v for p in _PROFILE_PALLAS for k, v in p.variants.items()}},
           ("full", "s2x1", "s1x1", "nomm", "notw", "dg3d", "k1_full",
-           "k1_nofft", "k1_dqonly")),
+           "k1_nofft", "k1_dqonly", "pack8")),
+    *_PROFILE_PALLAS,
     Probe("P18", "probes/s1_lanes.py:151", "s1_lanes",
           {"full": "tpu6", "widedq": "tpu6_bf16in", "s1only": "s1only",
            "s1tw": "s1tw", "s1tw2": "s1tw_z", "dqonly": "dq_gather",
@@ -302,6 +360,8 @@ PROBES: Dict[str, Probe] = {p.tpu: p for p in (
           ("base", "ilv", "ilv4")),
     Probe("P11", "probes/s2_pipe.py:150", "s2_pipe",
           {"base": "tpu6", "pipe": "tpu6_pipe"}, ("base", "pipe")),
+    Probe("P17", "probes/s2_u32t.py:154", "s2_u32t",
+          {"base": "tpu6", "u32t": "tpu6_u32t"}, ("base", "u32t")),
 )}
 
 
@@ -368,14 +428,25 @@ def _k3_reference(v: Variant, raw_u8: torch.Tensor, n_valid: int,
     if v.cut == CUT_GATHER:
         u16 = (v8[..., 0] + 256 * v8[..., 1])[:n_valid].to(torch.float64)
         return _everywhere(reps * u16.sum())
-    offset = 0 if v.raw_bytes else 127
-    re = (v8[..., 0] - offset).to(torch.float32)
-    im = (v8[..., 1] - offset).to(torch.float32)
+    if v.layout == IN_PAIR32 and v.raw_bytes:
+        re, im = _pair_word_planes(raw_u8)
+    else:
+        offset = 0 if v.raw_bytes else 127
+        re = (v8[..., 0] - offset).to(torch.float32)
+        im = (v8[..., 1] - offset).to(torch.float32)
     if v.cut == CUT_DEQUANT:
         return _everywhere(reps * (re[:n_valid].to(torch.float64).sum()
                                    + im[:n_valid].to(torch.float64).sum()))
+    if v.s1_form in (PACKED, PACKED_PQ):
+        zr, zi = _packed_stage1(v.s1_form == PACKED_PQ, re, im, twr, twi)
+        if v.s1_form == PACKED_PQ:
+            perm = torch.from_numpy(pq_permutation()).to(raw_u8.device)
+            w2r, w2i, w2s = (w[:, perm] for w in (w2r, w2i, w2s))
+        return _stage2_sum(v, zr, zi, w2r, w2i, w2s, n_valid, chunk)
     if v.s1_terms == 0:
         yr, yi = re, im        # Y[n2][k1] = x[N2·k1 + n2]
+    elif v.s1_form == WIDE:
+        yr, yi = _wide_stage1(re, im)
     else:
         lhs = torch.cat([re, im] * v.s1_terms, dim=-1).reshape(F * N2, -1)
         rows = 2 * v.s1_terms * N1
@@ -408,6 +479,14 @@ def _k3_reference(v: Variant, raw_u8: torch.Tensor, n_valid: int,
         return _frame_sum(xr * xr + xi * xi, n_valid, chunk)
     zr = zr.transpose(1, 2).reshape(F * N1, N2)
     zi = zi.transpose(1, 2).reshape(F * N1, N2)
+    return _stage2_sum(v, zr, zi, w2r, w2i, w2s, n_valid, chunk)
+
+
+def _stage2_sum(v: Variant, zr: torch.Tensor, zi: torch.Tensor, w2r, w2i,
+                w2s, n_valid: int, chunk: int) -> torch.Tensor:
+    """Stage 2 of Z, (F·N1, N2) rows (f, k1) in the order of w2's rows,
+    |X|^2, the frame mask and the sum, in bin order."""
+    F = zr.shape[0] // N1
     if v.s2_form == FOURMULT:
         # One K-stacked lhs for both outputs (s2_fourmult.py:92-97), its
         # 12 blocks of depth N2 summed in stack order, as the kernel's mma
@@ -416,7 +495,7 @@ def _k3_reference(v: Variant, raw_u8: torch.Tensor, n_valid: int,
         z0r, z1r, z2r = ff._split3(zr)
         z0i, z1i, z2i = ff._split3(zi)
         lhs2 = (z0r, z0r, z0r, z1r, z1r, z2r, z0i, z0i, z0i, z1i, z1i, z2i)
-        XR, XI = (torch.from_numpy(ff.bf16_value(m)).to(raw_u8.device)
+        XR, XI = (torch.from_numpy(ff.bf16_value(m)).to(zr.device)
                   .reshape(12, N2, N2) for m in fourmult_weights())
         xr, xi = lhs2[0] @ XR[0], lhs2[0] @ XI[0]
         for b in range(1, 12):
@@ -433,6 +512,64 @@ def _k3_reference(v: Variant, raw_u8: torch.Tensor, n_valid: int,
     pwr[n_valid:] = 0.0
     s = pwr.reshape(F // chunk, chunk, N1, N2).sum(dim=1).sum(dim=0)
     return s.t().reshape(N)        # (k2, k1) row-major = bin order
+
+
+def _pair_word_planes(raw_u8: torch.Tensor):
+    """P17's relayout as the kernel reads it: the u32 word of each pair
+    (n1, n1 + 1), n1 even, of column n2 (bytes re(n1), im(n1), re(n1 + 1),
+    im(n1 + 1): the bitcast of ``probes/s2_u32t.py:74-75``), transposed to
+    rows n2 (76-77); the re plane is bytes 0 and 2 of each word, the im
+    plane bytes 1 and 3, raw 0..255 in columns n1 in order (78-87 take
+    them as even and odd halves). (F, N2, N1) float32 each."""
+    F = raw_u8.shape[0]
+    words = (raw_u8.reshape(F, N1 // 2, 2, N2, 2).permute(0, 1, 3, 2, 4)
+             .reshape(F, N1 // 2, N2, 4))          # word (p, n2), bytes 0..3
+    wt = words.transpose(1, 2).to(torch.float32)   # (F, N2, N1/2, 4)
+    return (wt[..., 0::2].reshape(F, N2, N1), wt[..., 1::2].reshape(F, N2, N1))
+
+
+def _packed_stage1(pq: bool, re: torch.Tensor, im: torch.Tensor, twr, twi):
+    """Stage 1 and twiddle of P2 (``profile_pallas.py:182-203``) and, with
+    ``pq``, P6 (541-563) on K3's K-stacked terms: the dequantized (F, N2,
+    N1) planes read flat as (F·Q, PACK·N1) (Q = :data:`PACK_ROWS`), row q
+    and column (p, n1) of n2 = PACK·q + p, times the block-diagonal
+    :func:`packed_weights`, the twiddle read as (Q, PACK·N1); Z in stage
+    2's layout (F·N1, N2), rows (f, k1), columns n2 (P2) or p·Q + q (P6)."""
+    F, W = re.shape[0], PACK * N1
+    lhs = torch.cat([re.reshape(F * PACK_ROWS, W),
+                     im.reshape(F * PACK_ROWS, W)] * 3, dim=-1)
+    PWR, PWI = (torch.from_numpy(ff.bf16_value(m)).to(re.device)
+                for m in packed_weights())
+    yr = (lhs @ PWR).reshape(F, PACK_ROWS, W)
+    yi = (lhs @ PWI).reshape(F, PACK_ROWS, W)
+    tr, ti = twr.reshape(PACK_ROWS, W), twi.reshape(PACK_ROWS, W)
+    zr = yr * tr - yi * ti
+    zi = yr * ti + yi * tr
+
+    def to2(x):
+        if pq:   # concat over p of (F, N1, Q) slices: columns p·Q + q
+            return torch.cat([x[:, :, p * N1:(p + 1) * N1].transpose(1, 2)
+                              for p in range(PACK)], dim=-1).reshape(F * N1, N2)
+        # (F, q, p, k1) -> (F, k1, q, p): columns PACK·q + p = n2
+        return x.reshape(F, PACK_ROWS, PACK, N1).permute(0, 3, 1, 2) \
+            .reshape(F * N1, N2)
+    return to2(zr), to2(zi)
+
+
+def _wide_stage1(re: torch.Tensor, im: torch.Tensor):
+    """P5's stage 1 (``profile_pallas.py:444-459``): ar and ai each times
+    the N-stacked :func:`wide_weights`, the six column groups summed in
+    order and combined; (yr, yi) (F, N2, N1)."""
+    F = re.shape[0]
+    Wc = torch.from_numpy(ff.bf16_value(wide_weights())).to(re.device)
+    A = re.reshape(F * N2, N1) @ Wc
+    B = im.reshape(F * N2, N1) @ Wc
+
+    def g(t, j):
+        return t[:, j * N1:(j + 1) * N1]
+    yr = (g(A, 0) + g(A, 1) + g(A, 2)) - (g(B, 3) + g(B, 4) + g(B, 5))
+    yi = (g(A, 3) + g(A, 4) + g(A, 5)) + (g(B, 0) + g(B, 1) + g(B, 2))
+    return yr.reshape(F, N2, N1), yi.reshape(F, N2, N1)
 
 
 def _k1_reference(v: Variant, raw_u8: torch.Tensor, n_valid: int,
@@ -486,6 +623,42 @@ def fourmult_weights() -> Tuple[np.ndarray, np.ndarray]:
     return XR, XI
 
 
+# --- the stage-1 probes' constants ---
+
+@functools.lru_cache(maxsize=1)
+def packed_weights() -> Tuple[np.ndarray, np.ndarray]:
+    """(PWR, PWI), (6·PACK·N1, PACK·N1) bf16 bit patterns: each of the six
+    N1-row K-stack blocks of K3's WR and WI as kron(I_PACK, block), rows
+    (block, p, n1) and columns (p, k1), zero bits elsewhere (the TPU's
+    ``packw``, ``probes/profile_pallas.py:167-170``, of its own terms)."""
+    WR, WI, *_ = ff.constants(N, N1, N2, False)
+
+    def pack(W):
+        out = np.zeros((6, PACK, N1, PACK, N1), np.uint16)
+        for p in range(PACK):
+            out[:, p, :, p, :] = W.reshape(6, N1, N1)
+        return out.reshape(6 * PACK * N1, PACK * N1)
+    return pack(WR), pack(WI)
+
+
+def pq_permutation() -> np.ndarray:
+    """P6's stage-2 weight rows (``profile_pallas.py:530``): row p·Q + q
+    is w2's row PACK·q + p."""
+    return np.array([PACK * q + p for p in range(PACK)
+                     for q in range(PACK_ROWS)])
+
+
+@functools.lru_cache(maxsize=1)
+def wide_weights() -> np.ndarray:
+    """(N1, 6·N1) bf16 bit patterns [w1r0 w1r1 w1r2 w1i0 w1i1 w1i2]
+    (``probes/profile_pallas.py:434-436``): the three bf16 terms of the
+    length-N1 DFT's real and imaginary parts, blocks 2j of K3's WR and
+    WI."""
+    WR, WI, *_ = ff.constants(N, N1, N2, False)
+    return np.hstack([W[2 * j * N1:(2 * j + 1) * N1]
+                      for W in (WR, WI) for j in range(3)])
+
+
 def pack_a_fragments(bits: np.ndarray) -> np.ndarray:
     """An (M, K) bf16 matrix as ``mma.m16n8k16`` A fragments: (M/16,
     K/16, 32, 8) uint16, where lane l of tile (mt, kc) holds its four A
@@ -529,6 +702,33 @@ def _left_w2(device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=4)
 def _e2_offsets(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(e2_offsets()).to(device)
+
+
+def _b_fragments(bits: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(ff.pack_b_fragments(bits).view(np.int16)).to(
+        device)
+
+
+@functools.lru_cache(maxsize=4)
+def _packed_w1(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed forms' stage-1 weights: the block-diagonal stacks of
+    :func:`packed_weights` as B fragments."""
+    return tuple(_b_fragments(m, device) for m in packed_weights())
+
+
+@functools.lru_cache(maxsize=4)
+def _wide_w1(device: torch.device) -> torch.Tensor:
+    return _b_fragments(wide_weights(), device)
+
+
+@functools.lru_cache(maxsize=4)
+def _pq_w2(device: torch.device) -> torch.Tensor:
+    """K3's 6 stage-2 B-fragment planes with rows in P6's (p, q) order."""
+    _, _, _, _, w2r, w2i, w2s = ff.constants(N, N1, N2, False)
+    perm = pq_permutation()
+    w2 = np.stack([ff.pack_b_fragments(m[j][perm]) for m in (w2r, w2i, w2s)
+                   for j in (0, 1)])
+    return torch.from_numpy(w2.view(np.int16)).to(device)
 
 
 def _eligible(n: int) -> bool:
@@ -591,8 +791,13 @@ def fused_psd_probe(variant: str, raw_u8: torch.Tensor, n_valid: int,
     else:
         ops = ff._device_operands(N, False, device)
         w1r, w1i, tw = (t.data_ptr() for t in ops[:3])
+        if v.s1_form in (PACKED, PACKED_PQ):
+            w1r, w1i = (t.data_ptr() for t in _packed_w1(device))
+        elif v.s1_form == WIDE:
+            w1r = w1i = _wide_w1(device).data_ptr()
         w2 = (_left_w2(device) if v.s2_form == LEFT
               else _tpu6_w2(device) if v.s2_products == 6
+              else _pq_w2(device) if v.s1_form == PACKED_PQ
               else ops[3]).data_ptr()
         if v.raw_bytes:
             offsets = _e2_offsets(device).data_ptr()

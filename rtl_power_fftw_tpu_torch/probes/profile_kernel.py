@@ -1,12 +1,15 @@
 """P1 (``probes/profile_pallas.py:build``) on the card: K3's time with its
 stages changed (full, s2x1, s1x1, nomm, notw, dg3d), and P1's question of
-K1 (k1_full, k1_nofft, k1_dqonly).
+K1 (k1_full, k1_nofft, k1_dqonly); and the module's other builds by the
+names its argv takes: P2 ``pack8`` (``build_pack8``), P6 ``pack8c``
+(``build_pack8c``) and P5 ``s1wide`` (``build_s1wide``, which the TPU ran
+at tiles 128 and 256: here ``s1wide s1wide:8``).
 
 Run: ``python -m rtl_power_fftw_tpu_torch.probes.profile_kernel
-[variant[:tile] ...] [--device cpu|cuda]``. Prints one line
-per variant (by default all of them), ``name tile per-step µs GS/s
-max_rel|(timing only)``, with the Hopper variant it runs in brackets;
-tile is the frames one block sums. See
+[variant[:tile] ...] [--device cpu|cuda]``. Prints one line per variant
+(by default P1's nine and pack8, as the TPU module's run without argv),
+``name tile per-step µs GS/s max_rel|(timing only)``, with the Hopper
+variant it runs in brackets; tile is the frames one block sums. See
 :mod:`rtl_power_fftw_tpu_torch.ops.kernels.fused_psd_probe` for the
 variants.
 """
