@@ -88,8 +88,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    resident blocks per SM, and its time again with its occupancy pinned
    to that of the whole kernel it is compared with (K3's and the
    6-product scheme's for K3's template, and for the 6-product scheme's
-   variants and for the others each also the least any of that family
-   gets; K1's for K1's cuts), its
+   variants, K3 and the other variants that get fewer blocks than K3
+   also the least any of that family gets; K1's for K1's cuts), its
    output unchanged;
 12. the probes' entry points (``python -m
    rtl_power_fftw_tpu_torch.probes.{profile_kernel,s1_lanes,s1_lanes2,
@@ -1177,12 +1177,18 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
             lambda: fpp.fused_psd_probe_reference(name, raw, F, chunk),
             iters=20, warmup=3)
         b_ms, b_by = rate_bound_ms(*v.work(F))
+        done = ""
+        if v.s1_form in (fpp.PACKED, fpp.PACKED_PQ):
+            # the bound is the spectrum's (K3's) work; this, the zero
+            # blocks' too
+            d_ms, d_by = rate_bound_ms(*v.work(F, zero_blocks=True))
+            done = f" ({1e3 * d_ms:.1f} us, {d_by}, with its zero blocks)"
         results[name] = (k_us / 1e3, p_us / 1e3, b_ms, b_by, max_abs,
                          fft_us / 1e3)
         print(f"probe {name} ({'; '.join(v.tpu)}) N={N} F={F} chunk={chunk} "
               f"frames/block {fp.frames_per_block(F, chunk)} on {card}: "
               f"{k_us:.1f} us/step ({F * N / k_us / 1e3:.2f} GS/s), plain "
-              f"{p_us:.1f} us, bound {1e3 * b_ms:.1f} us ({b_by}), "
+              f"{p_us:.1f} us, bound {1e3 * b_ms:.1f} us ({b_by}){done}, "
               f"torch.fft.fft {fft_us:.1f} us; max rel vs plain "
               f"{errs[0]:.3e} / masked {errs[1]:.3e} (<= {v.rtol:g}); "
               f"parity {v.parity}")
@@ -1219,32 +1225,40 @@ def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
     """Each probe variant's registers, spill, shared memory and resident
     blocks per SM as it launches, and its time again at the occupancy of
     the whole kernels it is compared with: K3's and the 6-product scheme's
-    (every variant of K3's template at both, and at the least its family
-    gets), K1's (K1's cuts). A pinned
+    (every variant of K3's template at both; the 6-product scheme's
+    variants, and K3 and those of the others that get fewer blocks than
+    K3, also at the least occupancy any of that family gets), K1's (K1's
+    cuts). A pinned
     launch pads the block's shared memory (largest carveout) so that no
     more blocks reside; its output must not change. K3 pinned at its own
     occupancy is the control: what the padding and carveout alone cost."""
-    pins = {kernel: fpp.probe_attributes(name)["blocks_per_sm"]
-            for kernel, name in (("k3", "k3"), ("tpu6", "tpu6"),
-                                 ("k1", "k1_full"))}
-    # The variants of the 6-product scheme, and the others of K3's
-    # template, also at the least occupancy any of their family gets (the
-    # chained ones' and the wide stage 1's registers allow one block).
+    own = {name: fpp.probe_attributes(name)["blocks_per_sm"]
+           for name in fpp.VARIANTS}
+    pins = {"k3": own["k3"], "tpu6": own["tpu6"], "k1": own["k1_full"]}
+    # The chained variants' and the wide stage 1's registers allow one
+    # block a SM.
     tpu6_family = [n for n in fpp.VARIANTS if n.startswith("tpu6")]
-    k3_family = [n for n, v in fpp.VARIANTS.items()
-                 if v.kernel == "k3" and n not in tpu6_family]
-    family_pins = {
-        name: {pins["k3"], pins["tpu6"],
-               min(fpp.probe_attributes(n)["blocks_per_sm"] for n in family)}
-        for family in (tpu6_family, k3_family) for name in family}
+    least_tpu6 = min(own[n] for n in tpu6_family)
+    least_k3 = min(own[n] for n, v in fpp.VARIANTS.items()
+                   if v.kernel == "k3" and n not in tpu6_family)
+
+    def pins_of(name: str, v) -> set:
+        if v.kernel == "k1":
+            return {pins["k1"]}
+        both = {pins["k3"], pins["tpu6"]}
+        if name in tpu6_family:
+            return both | {least_tpu6}
+        if name == "k3" or own[name] < pins["k3"]:
+            return both | {least_k3}
+        return both
+
     for name, v in fpp.VARIANTS.items():
         a = fpp.probe_attributes(name)
         base = fpp.fused_psd_probe(name, raw, F, chunk)
         k_us = slope_us(lambda it: fpp.fused_psd_probe(name, raw, F, chunk,
                                                        iters=it))
         parts = []
-        for b in sorted({pins["k1"]} if v.kernel == "k1"
-                        else family_pins[name], reverse=True):
+        for b in sorted(pins_of(name, v), reverse=True):
             p = fpp.probe_attributes(name, b)
             got = fpp.fused_psd_probe(name, raw, F, chunk, blocks_per_sm=b)
             torch.cuda.synchronize()
@@ -1295,9 +1309,9 @@ SCHEDULE_SWEEP = {"s2_pipe": ["base:16", "pipe:16"],
 
 
 #: The probes' entry-point runs: (module, argv, the TPU probes it drives).
-#: profile_kernel's run without argv is P1's and P2's (pack8), as the TPU
-#: module's; P6 and P5 are its builds by name, s1wide at 4 and 8 frames a
-#: block (the TPU's tiles 128 and 256, profile_pallas.py:508-511).
+#: profile_kernel's run without argv is P1's, then P2's (pack8), as the
+#: TPU module's; P6 and P5 are its builds by name, s1wide at 4 and 8
+#: frames a block (the TPU's tiles 128 and 256, profile_pallas.py:508-511).
 PROBE_RUNS = (("profile_kernel", [], ("P1", "P2")),
               ("profile_kernel", ["pack8c", "s1wide", "s1wide:8"],
                ("P6", "P5")),
@@ -1329,12 +1343,9 @@ def drive_probes(fpp) -> dict:
         if tpus == ("P12",):
             want, runs = list(fpp.RELAYOUTS), len(fpp.RELAYOUTS)
         else:
-            probes = [fpp.PROBES[tpu] for tpu in tpus]
-            variants = {k: v for p in probes for k, v in p.variants.items()}
-            names = ([a.partition(":")[0] for a in argv]
-                     or list(probes[0].default))
-            want = [variants[n] for n in names]
-            runs = len(names)
+            want = [p.variants[name] for p, name in fpp.entry_variants(
+                tpus[0], [a.partition(":")[0] for a in argv])]
+            runs = len(want)
         missing = [v for v in want if fpp.COUNTS.kernel[v] == 0]
         print(f"e2e probe {' '.join([module] + argv)} ({', '.join(tpus)}): "
               f"exit {rc} in {wall:.2f} s wall; {len(lines)} lines; launches "

@@ -71,7 +71,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -138,32 +138,36 @@ class Variant:
     pipeline: bool = False
     s1_form: str = KSTACK
 
-    def work(self, F: int) -> Tuple[float, float, float]:
+    def work(self, F: int,
+             zero_blocks: bool = False) -> Tuple[float, float, float]:
         """(bytes, bf16 tensor-core flops, FP32 ops) of one step over F
         frames: the work its bound counts (:func:`k3_work`,
         :func:`k1_work`). A schedule (chains, pipeline) does its scheme's
-        work."""
+        work; ``zero_blocks``: a packed form's work done, its zero blocks
+        included."""
         if self.kernel == "k1":
             return k1_work(F, N, self.k1_cut)
         return k3_work(F, N, self.s1_terms, self.s2_products, self.twiddle,
                        self.cut, s2_form=self.s2_form,
-                       raw_bytes=self.raw_bytes, s1_form=self.s1_form)
+                       raw_bytes=self.raw_bytes, s1_form=self.s1_form,
+                       zero_blocks=zero_blocks)
 
 
 def k3_work(F: int, n: int, s1_terms: int = 3, s2_products: int = 3,
             twiddle: bool = True, cut: int = CUT_FULL,
             windowed: bool = False, s2_form: str = KARATSUBA,
-            raw_bytes: bool = False,
-            s1_form: str = KSTACK) -> Tuple[float, float, float]:
+            raw_bytes: bool = False, s1_form: str = KSTACK,
+            zero_blocks: bool = False) -> Tuple[float, float, float]:
     """(bytes, bf16 tensor-core flops, FP32 ops) of K3's step, or of a cut
     of it, over F frames of n bins. Bytes: each input read once (the
     frames, the window, the stage-1 weights, twiddle and stage-2 weights
     the variant reads, e2's (2, N1) offsets) and the (n,) output written
     once. Flops a frame: 8·terms·n·N1 for the stage-1 products
-    (``s1_terms`` K-stacked weight terms, 6 with a window; the packed
-    forms multiply their zero blocks too, P = max(1, 128 / N1) times as
-    many against P² times the weight bytes; the wide form K3's products
-    against half its weight bytes) and, for stage 2, 6·products·n·N2 as a
+    (``s1_terms`` K-stacked weight terms, 6 with a window; the wide form
+    K3's products against half its weight bytes; the packed forms compute
+    K3's spectrum and count K3's work, or with ``zero_blocks`` the work
+    they do: P = max(1, 128 / N1) times the products against P² times the
+    weight bytes) and, for stage 2, 6·products·n·N2 as a
     Karatsuba (3 parts, either operand order) or 48·n·N2 as the 4-mult
     product (24 real products of the 6-term splits, 2 weight matrices);
     FP32: 2n to dequantize (4n with a window), 2n more to subtract e2's
@@ -181,7 +185,8 @@ def k3_work(F: int, n: int, s1_terms: int = 3, s2_products: int = 3,
         nbytes += 2 * n1 * 4
         fp32 += 2 * n
     if full or cut >= CUT_STAGE1:
-        pack = max(1, 128 // n1) if s1_form in (PACKED, PACKED_PQ) else 1
+        pack = (max(1, 128 // n1) if zero_blocks
+                and s1_form in (PACKED, PACKED_PQ) else 1)
         mma += 8 * s1_terms * n * n1 * pack
         if s1_form == WIDE:
             nbytes += n1 * (2 * s1_terms * n1) * 2
@@ -314,30 +319,28 @@ class Probe:
     variants: Dict[str, str]
     default: Tuple[str, ...]
     tone: bool = False  # takes "tone": the TPU probe's 35 dB tone input
+    # Probes whose defaults its entry point runs after its own when given
+    # no variant names.
+    then: Tuple[str, ...] = ()
 
 
-# The other builds of profile_pallas.py, which its argv names (243, 508,
-# 604); profile_kernel takes them beside P1's.
-_PROFILE_PALLAS = (
+PROBES: Dict[str, Probe] = {p.tpu: p for p in (
+    # With no argv profile_pallas.py runs P1's variants, then pack8 (148,
+    # 243); here P1's six and K1's three cuts, then P2's pack8.
+    Probe("P1", "probes/profile_pallas.py:115", "profile_kernel",
+          {"full": "k3", "s2x1": "s2x1", "s1x1": "s1x1", "nomm": "nomm",
+           "notw": "notw", "dg3d": "zplanes", "k1_full": "k1_full",
+           "k1_nofft": "k1_nofft", "k1_dqonly": "k1_dqonly"},
+          ("full", "s2x1", "s1x1", "nomm", "notw", "dg3d", "k1_full",
+           "k1_nofft", "k1_dqonly"), then=("P2",)),
+    # The other builds of profile_pallas.py, which its argv names (243,
+    # 508, 604): profile_kernel takes them beside P1's.
     Probe("P2", "probes/profile_pallas.py:227", "profile_kernel",
           {"pack8": "k3_pack"}, ("pack8",)),
     Probe("P6", "probes/profile_pallas.py:588", "profile_kernel",
           {"pack8c": "k3_pack_pq"}, ("pack8c",)),
     Probe("P5", "probes/profile_pallas.py:492", "profile_kernel",
           {"s1wide": "k3_s1wide"}, ("s1wide",)),
-)
-
-PROBES: Dict[str, Probe] = {p.tpu: p for p in (
-    # With no argv profile_pallas.py runs P1's variants and pack8 (148,
-    # 243); here P1's six, K1's three cuts and pack8.
-    Probe("P1", "probes/profile_pallas.py:115", "profile_kernel",
-          {"full": "k3", "s2x1": "s2x1", "s1x1": "s1x1", "nomm": "nomm",
-           "notw": "notw", "dg3d": "zplanes", "k1_full": "k1_full",
-           "k1_nofft": "k1_nofft", "k1_dqonly": "k1_dqonly",
-           **{k: v for p in _PROFILE_PALLAS for k, v in p.variants.items()}},
-          ("full", "s2x1", "s1x1", "nomm", "notw", "dg3d", "k1_full",
-           "k1_nofft", "k1_dqonly", "pack8")),
-    *_PROFILE_PALLAS,
     Probe("P18", "probes/s1_lanes.py:151", "s1_lanes",
           {"full": "tpu6", "widedq": "tpu6_bf16in", "s1only": "s1only",
            "s1tw": "s1tw", "s1tw2": "s1tw_z", "dqonly": "dq_gather",
@@ -363,6 +366,36 @@ PROBES: Dict[str, Probe] = {p.tpu: p for p in (
     Probe("P17", "probes/s2_u32t.py:154", "s2_u32t",
           {"base": "tpu6", "u32t": "tpu6_u32t"}, ("base", "u32t")),
 )}
+
+
+def entry_probes(tpu: str) -> List[Probe]:
+    """The probes whose variant names probe ``tpu``'s entry point takes:
+    its own, then the others of its module (``profile_kernel``: P1's,
+    P2's, P6's and P5's)."""
+    own = PROBES[tpu]
+    return [own] + [p for p in PROBES.values()
+                    if p.module == own.module and p is not own]
+
+
+def entry_variants(tpu: str,
+                   names: Sequence[str] = ()) -> List[Tuple[Probe, str]]:
+    """What probe ``tpu``'s entry point runs for the variant names
+    ``names``, as (the probe that has the name, the name), each looked up
+    in :func:`entry_probes` in order; with no names, its default and then
+    the defaults of the probes in its ``then``. KeyError for a name none
+    of them has."""
+    if not names:
+        own = PROBES[tpu]
+        return [(p, name) for p in [own] + [PROBES[t] for t in own.then]
+                for name in p.default]
+    probes = entry_probes(tpu)
+    out = []
+    for name in names:
+        hit = [p for p in probes if name in p.variants]
+        if not hit:
+            raise KeyError(name)
+        out.append((hit[0], name))
+    return out
 
 
 class ProbeCounts:

@@ -111,8 +111,10 @@ def split_specs(specs: Iterable[str]) -> List[Tuple[str, Optional[int]]]:
 def run_probe(tpu: str, argv: Optional[Sequence[str]] = None) -> int:
     """The entry point of TPU probe ``tpu`` (a key of ``fpp.PROBES``):
     each variant once against the float64 golden where its output is a
-    spectrum, then its slope time on the card. A probe that takes
-    ``tone`` (as its TPU probe does) then runs on the tone input."""
+    spectrum, then its slope time on the card. It also takes the variant
+    names of the other probes of its module (``fpp.entry_variants``), each
+    run under its own probe's header. A probe that takes ``tone`` (as its
+    TPU probe does) then runs on the tone input."""
     probe = fpp.PROBES[tpu]
     args = parse(argv, f"python -m rtl_power_fftw_tpu_torch.probes."
                        f"{probe.module}",
@@ -122,24 +124,26 @@ def run_probe(tpu: str, argv: Optional[Sequence[str]] = None) -> int:
     tone = probe.tone and "tone" in args.variants
     try:
         specs = split_specs([a for a in args.variants
-                             if not (tone and a == "tone")]
-                            or probe.default)
+                             if not (tone and a == "tone")])
     except ValueError as e:
         print(f"bad variant[:tile]: {e}", file=sys.stderr)
         return 2
-    unknown = [name for name, _ in specs if name not in probe.variants]
+    known = [name for p in fpp.entry_probes(tpu) for name in p.variants]
+    unknown = [name for name, _ in specs if name not in known]
     if unknown:
         print(f"unknown {tpu} variant(s) {', '.join(unknown)}; known: "
-              f"{', '.join(probe.variants)}"
+              f"{', '.join(known)}"
               + (" (and 'tone')" if probe.tone else ""), file=sys.stderr)
         return 2
+    runs = fpp.entry_variants(tpu, [name for name, _ in specs])
+    tiles = [tile for _, tile in specs] or [None] * len(runs)
     dev = device_or_none(args.device)
     if dev is None:
         return 1
     F, chunk = adapt_batch(FRAMES if dev.type == "cuda" else CPU_FRAMES)
     try:
-        groups = [fpp.block_frames(probe.variants[name], F, chunk, tile)
-                  for name, tile in specs]
+        groups = [fpp.block_frames(p.variants[name], F, chunk, tile)
+                  for (p, name), tile in zip(runs, tiles)]
     except ValueError as e:
         print(f"bad variant[:tile]: {e}", file=sys.stderr)
         return 2
@@ -153,11 +157,14 @@ def run_probe(tpu: str, argv: Optional[Sequence[str]] = None) -> int:
                       raw[:, 1::2].double() - 127.0)
     X = torch.fft.fft(z, dim=1)
     gold = (X.real ** 2 + X.imag ** 2).sum(0)
-    print(f"# {tpu} ({probe.source}) on {card(dev)}: N = {fpp.N} "
-          f"(N1 x N2 = {fpp.N1} x {fpp.N2}), F = {F}, chunk {chunk}"
-          + (", 35 dB tone" if tone else ""))
-    for (name, _), group in zip(specs, groups):
-        v = fpp.VARIANTS[probe.variants[name]]
+    head = None
+    for (p, name), group in zip(runs, groups):
+        if p is not head:
+            head = p
+            print(f"# {p.tpu} ({p.source}) on {card(dev)}: N = {fpp.N} "
+                  f"(N1 x N2 = {fpp.N1} x {fpp.N2}), F = {F}, chunk {chunk}"
+                  + (", 35 dB tone" if tone else ""))
+        v = fpp.VARIANTS[p.variants[name]]
         got = fpp.fused_psd_probe(v.name, raw, F, chunk, group=group)
         if v.psd:
             rel = ((got.double() - gold).abs() / gold.abs().clamp_min(1e-30))

@@ -7,7 +7,8 @@ at tiles 128 and 256: here ``s1wide s1wide:8``).
 
 Run: ``python -m rtl_power_fftw_tpu_torch.probes.profile_kernel
 [variant[:tile] ...] [--device cpu|cuda]``. Prints one line per variant
-(by default P1's nine and pack8, as the TPU module's run without argv),
+(by default P1's nine, then pack8, as the TPU module's run without argv),
+each under its TPU probe's header line,
 ``name tile per-step µs GS/s max_rel|(timing only)``, with the Hopper
 variant it runs in brackets; tile is the frames one block sums. See
 :mod:`rtl_power_fftw_tpu_torch.ops.kernels.fused_psd_probe` for the

@@ -527,7 +527,8 @@ def test_entry_point_on_cpu(module, capsys):
     assert entry.main(["--device", "cpu"]) == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if not ln.startswith("#")]
-    names = (list(fpp.PROBES[ENTRY[module]].default) if module in ENTRY
+    names = ([name for _, name in fpp.entry_variants(ENTRY[module])]
+             if module in ENTRY
              else [r.name for r in fpp.RELAYOUTS.values()])
     assert [ln.split()[0] for ln in lines] == [n.split()[0] for n in names]
     assert all("per-step not measured (cpu)" in ln for ln in lines)

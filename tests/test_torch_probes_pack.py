@@ -508,21 +508,35 @@ def test_probes_rows():
         assert probe.source == f"probes/profile_pallas.py:{line}"
         assert probe.module == "profile_kernel"
         assert probe.variants == {name: hopper}
-        # profile_kernel takes the TPU module's own argv name
-        assert fpp.PROBES["P1"].variants[name] == hopper
-    # with no argv the TPU module runs P1's variants and pack8 (148, 243)
-    assert fpp.PROBES["P1"].default[-1] == "pack8"
+        # profile_kernel takes the TPU module's own argv name, as P2's,
+        # P6's or P5's, not P1's
+        assert name not in fpp.PROBES["P1"].variants
+        assert fpp.entry_variants("P1", [name, "full"]) == [
+            (probe, name), (fpp.PROBES["P1"], "full")]
+        assert probe in fpp.entry_probes("P1")
+    # with no argv the TPU module runs P1's variants, then pack8 (148, 243)
+    assert fpp.PROBES["P1"].then == ("P2",)
+    assert fpp.entry_variants("P1")[-1] == (fpp.PROBES["P2"], "pack8")
+    with pytest.raises(KeyError):
+        fpp.entry_variants("P17", ["pack8"])
 
 
 def test_work_counts():
     F_ = 4096
     k3 = fpp.k3_work(F_, N)
     s1 = 8 * 3 * N * N1
-    nbytes, mma, fp32 = fpp.VARIANTS["k3_pack"].work(F_)
-    assert mma - k3[1] == F_ * (PACK - 1) * s1        # zero blocks counted
+    # the packed forms compute K3's spectrum: their bound is K3's
+    for name in ("k3_pack", "k3_pack_pq"):
+        assert fpp.VARIANTS[name].work(F_) == k3
+    nbytes, mma, fp32 = fpp.VARIANTS["k3_pack"].work(F_, zero_blocks=True)
+    assert mma - k3[1] == F_ * (PACK - 1) * s1        # zero blocks done
     assert nbytes - k3[0] == (PACK ** 2 - 1) * 24 * 1024
     assert fp32 == k3[2]
-    assert fpp.VARIANTS["k3_pack_pq"].work(F_) == (nbytes, mma, fp32)
+    assert fpp.VARIANTS["k3_pack_pq"].work(F_, zero_blocks=True) == (
+        nbytes, mma, fp32)
+    # only the packed forms do more
+    assert fpp.VARIANTS["k3_s1wide"].work(F_, zero_blocks=True) == \
+        fpp.VARIANTS["k3_s1wide"].work(F_)
     nbytes, mma, fp32 = fpp.VARIANTS["k3_s1wide"].work(F_)
     assert mma == k3[1] and k3[0] - nbytes == 12 * 1024
     assert fp32 == k3[2] + F_ * 8 * N
@@ -565,11 +579,17 @@ def test_profile_kernel_default_is_p1s_and_pack8(capsys):
     from rtl_power_fftw_tpu_torch.probes import profile_kernel
     fpp.COUNTS.reset()
     assert profile_kernel.main(["--device", "cpu"]) == 0
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if not ln.startswith("#")]
-    assert [ln.split()[0] for ln in lines] == list(fpp.PROBES["P1"].default)
+    out = capsys.readouterr().out.splitlines()
+    lines = [ln for ln in out if not ln.startswith("#")]
+    assert [ln.split()[0] for ln in lines] == \
+        list(fpp.PROBES["P1"].default) + ["pack8"]
     assert "[k3_pack]" in lines[-1]
     assert fpp.COUNTS.plain["k3_pack"] == 1
+    # P1's lines under P1's header, pack8's under P2's
+    heads = [i for i, ln in enumerate(out) if ln.startswith("#")]
+    assert heads == [0, len(out) - 2]
+    assert out[0].startswith("# P1 (probes/profile_pallas.py:115)")
+    assert out[-2].startswith("# P2 (probes/profile_pallas.py:227)")
 
 
 @pytest.mark.parametrize("argv,names,tiles", [
@@ -581,9 +601,13 @@ def test_profile_kernel_takes_the_tpu_modules_names(argv, names, tiles,
                                                     capsys):
     from rtl_power_fftw_tpu_torch.probes import profile_kernel
     assert profile_kernel.main(argv + ["--device", "cpu"]) == 0
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if not ln.startswith("#")]
+    out = capsys.readouterr().out.splitlines()
+    lines = [ln for ln in out if not ln.startswith("#")]
     assert [ln.split()[0] for ln in lines] == names
+    # each run of one probe's lines under that probe's header
+    tpu = {"pack8": "P2", "pack8c": "P6", "s1wide": "P5"}
+    want = [tpu[n] for i, n in enumerate(names) if i == 0 or names[i - 1] != n]
+    assert [ln.split()[1] for ln in out if ln.startswith("#")] == want
     assert [int(ln.split("tile=")[1].split()[0]) for ln in lines] == tiles
     assert all("per-step not measured (cpu)" in ln and "max_rel=" in ln
                for ln in lines)
