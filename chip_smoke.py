@@ -69,15 +69,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    rounds split into waiting for the producers, filling the pinned slot,
    the upload, the step's enqueue, the event waits and the float64
    accumulation;
-11. the stage-attribution, stage-2 and stage-1 packing probes
-   (``fused_psd_probe``: P1, P18, P13, P14, P16, P19, P11, P17, P2, P6 and
-   P5 as variants of K3's template, K1's cuts, P12's relayouts), right
-   after the build: every variant against its plain version at N = 2048,
+11. the stage-attribution, stage-2, stage-1 packing and Karatsuba probes
+   (``fused_psd_probe``: P1, P18, P13, P14, P16, P19, P11, P17, P2, P6,
+   P5, P3, P4, P7 and P8 as variants of K3's template, K1's cuts, P12's
+   relayouts), right after the build: every variant against its plain
+   version at N = 2048,
    F = 4096, with all frames valid and with 1000, twice for determinism;
    P1 ``full`` and ``dg3d`` and P2 ``pack8`` bit-identical to the
    shipping K3, ``k1_full`` to K1, the layout variants and the schedules
    (P19 ``ilv``, ``ilv4``, P11 ``pipe``) of the 6-product scheme to its
-   ``full``, P17 ``u32t`` to P16 ``e2``; P12 equal to torch's
+   ``full``, P17 ``u32t`` to P16 ``e2``, P4 ``s1cat`` to P3
+   ``dg3dall``; P12 equal to torch's
    reshape/permute; ptxas's
    registers and spills of every instantiation at N = 2048 (the shipping
    K1 and K3 beside them); each variant's slope time (the probes' own
@@ -94,7 +96,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 12. the probes' entry points (``python -m
    rtl_power_fftw_tpu_torch.probes.{profile_kernel,s1_lanes,s1_lanes2,
    cast_test,s2_fourmult,s2_left,s2_ilv,s2_pipe,s2_u32t}``, and
-   ``profile_kernel pack8c s1wide s1wide:8``) in-process, each with every launch
+   ``profile_kernel pack8c s1wide s1wide:8`` and ``profile_kernel
+   dg3dall s1cat s1k32 s1k96 best best:8``) in-process, each with every launch
    counter reset just before it: exit 0, one line per variant run, and
    every one of those variants launched (the probes' ``launches`` are
    this run's); then ``profile_kernel`` again over a
@@ -1178,9 +1181,8 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
             iters=20, warmup=3)
         b_ms, b_by = rate_bound_ms(*v.work(F))
         done = ""
-        if v.s1_form in (fpp.PACKED, fpp.PACKED_PQ):
-            # the bound is the spectrum's (K3's) work; this, the zero
-            # blocks' too
+        if v.s1_form in fpp.ZERO_BLOCK_FORMS:
+            # the bound is the spectrum's work; this, the zero blocks' too
             d_ms, d_by = rate_bound_ms(*v.work(F, zero_blocks=True))
             done = f" ({1e3 * d_ms:.1f} us, {d_by}, with its zero blocks)"
         results[name] = (k_us / 1e3, p_us / 1e3, b_ms, b_by, max_abs,
@@ -1310,11 +1312,15 @@ SCHEDULE_SWEEP = {"s2_pipe": ["base:16", "pipe:16"],
 
 #: The probes' entry-point runs: (module, argv, the TPU probes it drives).
 #: profile_kernel's run without argv is P1's, then P2's (pack8), as the
-#: TPU module's; P6 and P5 are its builds by name, s1wide at 4 and 8
-#: frames a block (the TPU's tiles 128 and 256, profile_pallas.py:508-511).
+#: TPU module's; P6, P5, P3, P4, P7 and P8 are its builds by name, s1wide
+#: and best at 4 and 8 frames a block (the TPU's tiles 128 and 256,
+#: profile_pallas.py:508-511, 782-787).
 PROBE_RUNS = (("profile_kernel", [], ("P1", "P2")),
               ("profile_kernel", ["pack8c", "s1wide", "s1wide:8"],
                ("P6", "P5")),
+              ("profile_kernel", ["dg3dall", "s1cat", "s1k32", "s1k96",
+                                  "best", "best:8"],
+               ("P3", "P4", "P7", "P8")),
               ("s1_lanes", [], ("P18",)), ("s1_lanes2", [], ("P13",)),
               ("cast_test", [], ("P12",)), ("s2_fourmult", [], ("P14",)),
               ("s2_left", [], ("P16",)), ("s2_ilv", [], ("P19",)),
@@ -1641,7 +1647,15 @@ def main() -> int:
                                 ("fused_psd_probe P6 (profile_kernel: "
                                  "pack8c)", "P6", "k3_pack_pq"),
                                 ("fused_psd_probe P5 (profile_kernel: "
-                                 "s1wide)", "P5", "k3_s1wide"))]}))
+                                 "s1wide)", "P5", "k3_s1wide"),
+                                ("fused_psd_probe P3 (profile_kernel: "
+                                 "dg3dall)", "P3", "k3_dg3dall"),
+                                ("fused_psd_probe P4 (profile_kernel: "
+                                 "s1cat)", "P4", "k3_s1cat"),
+                                ("fused_psd_probe P7 (profile_kernel: "
+                                 "s1k32)", "P7", "k3_s1k32"),
+                                ("fused_psd_probe P8 (profile_kernel: "
+                                 "best)", "P8", "k3_best"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

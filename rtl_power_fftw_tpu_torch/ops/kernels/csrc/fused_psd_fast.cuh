@@ -7,8 +7,9 @@
 // probes/profile_pallas.py:build (P1), s1_lanes.py:build (P18),
 // s1_lanes2.py:build (P13), s2_fourmult.py:build (P14), s2_left.py:build
 // (P16), s2_ilv.py:build (P19), s2_pipe.py:build (P11), s2_u32t.py:build
-// (P17) and profile_pallas.py:build_pack8 (P2), build_pack8c (P6) and
-// build_s1wide (P5). Each parameter is a compile-time constant, so a
+// (P17) and profile_pallas.py:build_pack8 (P2), build_pack8c (P6),
+// build_s1wide (P5), build_dg3dall (P3), build_s1cat (P4), build_s1k (P7)
+// and build_best (P8). Each parameter is a compile-time constant, so a
 // variant pays for nothing it does not run, and each addition is a branch
 // that the default discards:
 //
@@ -26,7 +27,8 @@
 //                gather (kIn* below);
 //   S2_SOURCE    where stage 2 takes its A fragments (kS2From* below);
 //   S2_FORM      how stage 2 multiplies (kS2Karatsuba, kS2FourMult,
-//                kS2Left below; the last two with S2_PRODUCTS = 6);
+//                kS2Left below; the last two with S2_PRODUCTS = 6, the
+//                4-mult also with 3: P8's 2-term form);
 //   RAW_BYTES    stage 1 multiplies the raw bytes 0..255 (exact in bf16)
 //                and subtracts the -127 offset's image after it, per k1:
 //                cR = 127 colsum(WR), cI = 127 colsum(WI), passed in the
@@ -52,9 +54,13 @@
 //                rows packed PACK = 128 / N1 to a 128-column lane group
 //                against block-diagonal weights, Z in K3's order (P2) or
 //                in (p, q) order (P6) (stage1_packed); or two products
-//                against N-stacked weights (P5: stage1_wide). Each takes
-//                K3's raw input, 3 terms and twiddle and leaves Z in f32
-//                for stage 2's own code (P6's weights permuted to match).
+//                against N-stacked weights (P5: stage1_wide); or, inside
+//                the frame loop's items, the Karatsuba of 3 products
+//                (P3), its block-diagonal product (P4), both
+//                (stage1_karatsuba), or the K-stack in three chains (P7:
+//                stage1_split_k). Each takes K3's raw input, 3 terms and
+//                twiddle and leaves Z in f32 for stage 2's own code (P6's
+//                weights permuted to match); P3 leaves Z's split planes.
 // The two schedules run the 6-product scheme (tpu6) through the
 // tpu6_stage1 / tpu6_stage2 helpers below, the same arithmetic in the
 // same order per accumulator as the frame loop's, so their output equals
@@ -134,7 +140,10 @@ enum : int {
                      // u1 - u2 (K3, the TPU's v6)
   kS2FourMult = 1,   // the 4-mult complex product (P14 v7): xr = zr.r -
                      // zi.i, xi = zr.i + zi.r, 6 A planes (no zs), the 6
-                     // B planes r0..2, i0..2, 24 mma per (chunk, n-tile)
+                     // B planes r0..2, i0..2, 24 mma per (chunk, n-tile);
+                     // with S2_PRODUCTS = 3 (P8 best) the 2-term splits,
+                     // A planes z0r, z1r, z0i, z1i, B planes K3's r0, r1,
+                     // i0, i1, z1.c1 dropped: 12 mma
   kS2Left = 2,       // Karatsuba with the operands swapped (P16 left):
                      // A = the weights as A fragments (rows k2), B = split
                      // Z (columns k1); D holds X in bin order
@@ -149,6 +158,14 @@ enum : int {
   kS1PackedPQ = 2,  // P6 pack8c: kS1Packed with Z stored at row p Q + q
   kS1Wide = 3,      // P5 s1wide: ar and ai each against the N-stacked
                     // (N1, 6 N1) [w1r0 w1r1 w1r2 w1i0 w1i1 w1i2]
+  kS1Karatsuba = 4, // P3 dg3dall: t1 = ar.w1r, t2 = ai.w1i, t3 = as.w1s
+                    // (as = ar + ai, w1s = split(w1r + w1i)), 3 terms each
+                    // from 9 (N1, N1) planes; yr = t1 - t2, yi = t3 - t1 - t2
+  kS1KaratsubaCat = 5,  // P4 s1cat: the same as one product of [ar ar ar
+                        // ai ai ai as as as] with the block-diagonal
+                        // (9 N1, 3 N1) weights, zero blocks multiplied
+  kS1SplitK = 6,    // P7 s1k32: K3's K-stack in three chains, term j's
+                    // blocks [w1r_j; -w1i_j] in chain j, summed after
 };
 
 template <int S1_TERMS_ = 3, int S2_PRODUCTS_ = 3, bool TWIDDLE_ = true,
@@ -177,16 +194,21 @@ struct FastVariant {
   static_assert(S1_TERMS > 0 || (INPUT == kInRaw && CUT >= kCutStage1),
                 "Y = x reads the raw frame at the D-fragment positions");
   static_assert(S2_FORM == kS2Karatsuba ||
-                    (S2_PRODUCTS == 6 && S2_SOURCE == kS2FromZ),
-                "the 4-mult and left forms take 3-term splits of Z");
+                    (S2_SOURCE == kS2FromZ &&
+                     (S2_PRODUCTS == 6 ||
+                      (S2_FORM == kS2FourMult && S2_PRODUCTS == 3))),
+                "the 4-mult and left forms take 3-term splits of Z, the "
+                "4-mult also 2-term");
   static_assert(!RAW_BYTES || ((INPUT == kInRaw || INPUT == kInPair32) &&
                                S1_TERMS == 3 && CUT == kCutFull),
                 "raw bytes on the raw or pair-word input path, whole step");
   static_assert(S1_FORM == kS1KStack ||
                     (S1_TERMS == 3 && TWIDDLE && CUT == kCutFull &&
-                     INPUT == kInRaw && S2_SOURCE == kS2FromZ &&
+                     INPUT == kInRaw &&
+                     (S2_SOURCE == kS2FromZ || S1_FORM == kS1Karatsuba) &&
                      S2_FORM == kS2Karatsuba && !RAW_BYTES && !SCHEDULED),
-                "a packed or wide stage 1 takes K3's input and leaves Z");
+                "another stage 1 takes K3's input and leaves Z (the "
+                "Karatsuba form also Z's split planes)");
   static_assert(CHAINS == 1 || CHAINS == 2 || CHAINS == 4, "chains");
   static_assert(!SCHEDULED ||
                     (!(CHAINS > 1 && PIPELINE) && S1_TERMS == 3 &&
@@ -295,6 +317,31 @@ __device__ __forceinline__ float bf16_pair_sum(uint32_t v) {
 
 __device__ __forceinline__ float add_norm(float acc, float re, float im) {
   return __fadd_rn(acc, __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+}
+
+// K3's stage-1 A fragments of chunk c for row tile mt: A[row n2][col n1]
+// = x[N2 n1 + n2], the pair n1, n1 + 1, dequantized: planes ar, ai and,
+// with PLANES = 3, as = ar + ai (integers of at most 256 in magnitude,
+// exact in bf16).
+template <int LOG2N, int PLANES>
+__device__ __forceinline__ void gather_k3(const uint16_t* iq, int c, int mt,
+                                          int lane, uint32_t (&a)[PLANES][4]) {
+  constexpr int N2 = FastShape<LOG2N>::N2;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int n = N2 * (16 * c + 2 * t + 8 * (q >> 1)) + 16 * mt + g +
+                  8 * (q & 1);
+    const uint32_t v0 = iq[n], v1 = iq[n + N2];
+    const float r0 = dequant(v0 & 0xFFu), i0 = dequant(v0 >> 8);
+    const float r1 = dequant(v1 & 0xFFu), i1 = dequant(v1 >> 8);
+    a[0][q] = pack2(__float2bfloat16_rn(r0), __float2bfloat16_rn(r1));
+    a[1][q] = pack2(__float2bfloat16_rn(i0), __float2bfloat16_rn(i1));
+    if constexpr (PLANES == 3) {
+      a[2][q] = pack2(__float2bfloat16_rn(__fadd_rn(r0, i0)),
+                      __float2bfloat16_rn(__fadd_rn(r1, i1)));
+    }
+  }
 }
 
 // One Karatsuba part of the 6-product stage 2: 3-term splits z0, z1, z2
@@ -435,16 +482,7 @@ __device__ __forceinline__ void tpu6_stage1(
     float yr[2][4] = {}, yi[2][4] = {};
     for (int c = 0; c < N1 / 16; ++c) {
       uint32_t a[2][4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int n = N2 * (16 * c + 2 * t + 8 * (q >> 1)) + 16 * mt + g +
-                      8 * (q & 1);
-        const uint32_t v0 = iq[n], v1 = iq[n + N2];
-        a[0][q] = pack2(__float2bfloat16_rn(dequant(v0 & 0xFFu)),
-                        __float2bfloat16_rn(dequant(v1 & 0xFFu)));
-        a[1][q] = pack2(__float2bfloat16_rn(dequant(v0 >> 8)),
-                        __float2bfloat16_rn(dequant(v1 >> 8)));
-      }
+      gather_k3<LOG2N, 2>(iq, c, mt, lane, a);
 #pragma unroll
       for (int b = 0; b < 6; ++b) {
 #pragma unroll
@@ -701,6 +739,93 @@ __device__ __forceinline__ void stage1_wide(
   }
 }
 
+// Y of the frame loop's stage-1 item (mt, ng) as the Karatsuba of 3
+// products (P3 dg3dall, profile_pallas.py:267-283): t1 = ar.w1r, t2 =
+// ai.w1i, t3 = as.w1s over the 3 terms of each, 9 mma per (chunk,
+// n-tile) against K3's 12, from w1: the 9 (N1, N1) planes w1r0..2,
+// w1i0..2, w1s0..2 as B fragments (plane p = 3 g + j). With CAT (P4
+// s1cat, 331-358): one product of [ar ar ar ai ai ai as as as] with the
+// block-diagonal (9 N1, 3 N1) weights (w1: its B fragments), block (b, g)
+// = term b % 3 of weight g where g == b / 3 and zero elsewhere; the zero
+// blocks are multiplied (27 mma), and add exact zeros between P3's
+// products, which come in P3's order per accumulator, so Y is P3's bit
+// for bit. yr = t1 - t2, yi = (t3 - t1) - t2.
+template <int LOG2N, bool CAT>
+__device__ __forceinline__ void stage1_karatsuba(
+    const uint16_t* iq, const uint2* __restrict__ w1, int mt, int ng,
+    int lane, float (&yr)[2][4], float (&yi)[2][4]) {
+  constexpr int N1 = FastShape<LOG2N>::N1;
+  float tk[3][2][4] = {};   // t1, t2, t3
+  for (int c = 0; c < N1 / 16; ++c) {
+    uint32_t a[3][4];
+    gather_k3<LOG2N, 3>(iq, c, mt, lane, a);
+    if constexpr (CAT) {
+#pragma unroll
+      for (int b = 0; b < 9; ++b)
+#pragma unroll
+        for (int gw = 0; gw < 3; ++gw)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int idx = ((b * (N1 / 16) + c) * (3 * N1 / 8) +
+                             gw * (N1 / 8) + 2 * ng + j) * 32 + lane;
+            mma_bf16(tk[gw][j], a[b / 3], __ldg(w1 + idx));
+          }
+    } else {
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int gw = 0; gw < 3; ++gw)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int idx = (((3 * gw + term) * (N1 / 16) + c) * (N1 / 8) +
+                             2 * ng + j) * 32 + lane;
+            mma_bf16(tk[gw][j], a[gw], __ldg(w1 + idx));
+          }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      yr[j][e] = __fsub_rn(tk[0][j][e], tk[1][j][e]);
+      yi[j][e] = __fsub_rn(__fsub_rn(tk[2][j][e], tk[0][j][e]), tk[1][j][e]);
+    }
+}
+
+// Y of stage-1 item (mt, ng) as K3's K-stack in three chains (P7 s1k32,
+// build_s1k(reps=1), profile_pallas.py:616-617, 641-645): chain j
+// multiplies [ar ai] by K3's blocks 2j, 2j + 1 ([w1r_j; -w1i_j] into yr,
+// [w1i_j; w1r_j] into yi), K = 2 N1, and Y = (chain 0 + chain 1) + chain
+// 2: K3's products and weights with three times its accumulators.
+template <int LOG2N>
+__device__ __forceinline__ void stage1_split_k(
+    const uint16_t* iq, const uint2* __restrict__ w1r,
+    const uint2* __restrict__ w1i, int mt, int ng, int lane,
+    float (&yr)[2][4], float (&yi)[2][4]) {
+  constexpr int N1 = FastShape<LOG2N>::N1;
+  float cr[3][2][4] = {}, ci[3][2][4] = {};
+  for (int c = 0; c < N1 / 16; ++c) {
+    uint32_t a[2][4];
+    gather_k3<LOG2N, 2>(iq, c, mt, lane, a);
+#pragma unroll
+    for (int b = 0; b < 6; ++b)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int idx =
+            ((b * (N1 / 16) + c) * (N1 / 8) + 2 * ng + j) * 32 + lane;
+        mma_bf16(cr[b / 2][j], a[b & 1], __ldg(w1r + idx));
+        mma_bf16(ci[b / 2][j], a[b & 1], __ldg(w1i + idx));
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      yr[j][e] = __fadd_rn(__fadd_rn(cr[0][j][e], cr[1][j][e]), cr[2][j][e]);
+      yi[j][e] = __fadd_rn(__fadd_rn(ci[0][j][e], ci[1][j][e]), ci[2][j][e]);
+    }
+}
+
 // Block g transforms frames [g*group, min((g+1)*group, F, n_valid)) one
 // after another and writes the f32 sum of their |X|^2 to partial row g
 // (a cut variant: the sums its CUT names, see the top of this file).
@@ -886,6 +1011,12 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
             yr[j][e] = dequant(v & 0xFFu);
             yi[j][e] = dequant(v >> 8);
           }
+      } else if constexpr (V::S1_FORM == kS1Karatsuba ||
+                           V::S1_FORM == kS1KaratsubaCat) {
+        stage1_karatsuba<LOG2N, V::S1_FORM == kS1KaratsubaCat>(
+            iq, w1r, mt, ng, lane, yr, yi);
+      } else if constexpr (V::S1_FORM == kS1SplitK) {
+        stage1_split_k<LOG2N>(iq, w1r, w1i, mt, ng, lane, yr, yi);
       } else {
       for (int c = 0; c < N1 / 16; ++c) {
         uint32_t a[P::PLANES][4];
@@ -1086,6 +1217,14 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
           split2(p1.x, r1);
           split2(p0.y, i0);
           split2(p1.y, i1);
+          if constexpr (V::S2_FORM == kS2FourMult) {
+            // No zs: planes z0r, z1r, z0i, z1i.
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              a[e][q] = pack2(r0[e], r1[e]);
+              a[2 + e][q] = pack2(i0[e], i1[e]);
+            }
+          } else {
           split2(__fadd_rn(p0.x, p0.y), s0);
           split2(__fadd_rn(p1.x, p1.y), s1);
 #pragma unroll
@@ -1093,6 +1232,7 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
             a[e][q] = pack2(r0[e], r1[e]);
             a[2 + e][q] = pack2(i0[e], i1[e]);
             a[4 + e][q] = pack2(s0[e], s1[e]);
+          }
           }
           } else {
             __nv_bfloat16 r0[3], r1[3], i0[3], i1[3], s0[3], s1[3];
@@ -1123,7 +1263,33 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const uint2* b = w2 + (c * (N2 / 8) + 2 * ng + j) * 32 + lane;
-          if constexpr (V::S2_PRODUCTS == 3) {
+          if constexpr (V::S2_FORM == kS2FourMult && TERMS2 == 2) {
+            // P8 best (profile_pallas.py:718-721, 743-749): lhs [z0r z0r
+            // z1r z0i z0i z1i] against [r0 r1 r0 -i0 -i1 -i0] into u1
+            // (xr) and [i0 i1 i0 r0 r1 r0] into u2 (xi), in that order;
+            // K3's planes r0, r1, i0, i1 each read once, -i as the bf16
+            // sign bits of z0i, z1i.
+            const uint2 r0 = __ldg(b), r1 = __ldg(b + W2_PLANE);
+            const uint2 i0 = __ldg(b + 2 * W2_PLANE),
+                        i1 = __ldg(b + 3 * W2_PLANE);
+            uint32_t n[2][4];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) n[e][q] = a[2 + e][q] ^ 0x80008000u;
+            mma_bf16(u1[j], a[0], r0);
+            mma_bf16(u1[j], a[0], r1);
+            mma_bf16(u1[j], a[1], r0);
+            mma_bf16(u1[j], n[0], i0);
+            mma_bf16(u1[j], n[0], i1);
+            mma_bf16(u1[j], n[1], i0);
+            mma_bf16(u2[j], a[0], i0);
+            mma_bf16(u2[j], a[0], i1);
+            mma_bf16(u2[j], a[1], i0);
+            mma_bf16(u2[j], a[2], r0);
+            mma_bf16(u2[j], a[2], r1);
+            mma_bf16(u2[j], a[3], r0);
+          } else if constexpr (V::S2_PRODUCTS == 3) {
           const uint2 br0 = __ldg(b), br1 = __ldg(b + W2_PLANE);
           const uint2 bi0 = __ldg(b + 2 * W2_PLANE), bi1 = __ldg(b + 3 * W2_PLANE);
           const uint2 bs0 = __ldg(b + 4 * W2_PLANE), bs1 = __ldg(b + 5 * W2_PLANE);

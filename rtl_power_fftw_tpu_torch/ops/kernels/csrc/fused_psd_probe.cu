@@ -23,12 +23,21 @@
 //        128 / N1 to a lane group against block-diagonal weights;
 //   P6   profile_pallas.py:build_pack8c (588): P2 with Z in (p, q) order;
 //   P5   profile_pallas.py:build_s1wide (492): stage 1 as two products
-//        against N-stacked weights.
+//        against N-stacked weights;
+// and the TPU probes that asked what Karatsuba and K-stacking are worth:
+//   P3   profile_pallas.py:build_dg3dall (309): a Karatsuba stage 1 of 3
+//        products, then P1 dg3d's stage 2 (Z's split planes);
+//   P4   profile_pallas.py:build_s1cat (390): that stage 1 as one
+//        block-diagonal product;
+//   P7   profile_pallas.py:build_s1k (680): K3's K-stack in three chains
+//        (reps 1; reps 3, s1k96, is K3 itself);
+//   P8   profile_pallas.py:build_best (766): K3's stage 1, then a 2-term
+//        4-mult stage 2.
 //
 // On this card the TPU probes' bf16 four-step scheme is K3
-// (fused_psd_fast.cuh), so P1, P18, P13, P14, P16, P19, P11, P17, P2, P6
-// and P5 are instantiations of K3's template with compile-time variant
-// parameters;
+// (fused_psd_fast.cuh), so P1, P18, P13, P14, P16, P19, P11, P17, P2, P6,
+// P5, P3, P4, P7 and P8 are instantiations of K3's template with
+// compile-time variant parameters;
 // K1's cuts (fused_psd.cuh) ask P1's question of the FP32 radix-2 kernel.
 // Every variant runs at the probes' N = 2048 and at K3's own split, N1 x
 // N2 = 32 x 64 (the TPU probes ran 16 x 128), on raw interleaved u8 IQ
@@ -91,6 +100,10 @@ enum : int {
   kK3Pack = 38,     // P2 pack8
   kK3PackPQ = 39,   // P6 pack8c
   kK3S1Wide = 40,   // P5 s1wide
+  kK3Dg3dAll = 41,  // P3 dg3dall
+  kK3S1Cat = 42,    // P4 s1cat
+  kK3S1k32 = 43,    // P7 s1k32
+  kK3Best = 44,     // P8 best
 };
 
 // The shared-memory carveout (percent of the largest) of a launch pinned to
@@ -265,6 +278,13 @@ cudaError_t launch_variant(int variant, const void* raw, const void* w1r,
              false, 1, false, kS1PackedPQ)
     RPF_FAST(kK3S1Wide, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
              false, 1, false, kS1Wide)
+    RPF_FAST(kK3Dg3dAll, 3, 3, true, kCutFull, kInRaw, kS2FromPlanes,
+             kS2Karatsuba, false, 1, false, kS1Karatsuba)
+    RPF_FAST(kK3S1Cat, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
+             false, 1, false, kS1KaratsubaCat)
+    RPF_FAST(kK3S1k32, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
+             false, 1, false, kS1SplitK)
+    RPF_FAST(kK3Best, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2FourMult)
     RPF_K1(kK1, kK1Full)
     RPF_K1(kK1Dq, kK1Dequant)
     RPF_K1(kK1NoFftCut, kK1NoFft)
@@ -358,8 +378,10 @@ extern "C" {
 // planes, or 9 for the 6-product scheme; the left form's 9 A-fragment
 // planes; P6's 6 with permuted rows) as fused_psd_fast.py and
 // fused_psd_probe.py pack them (the packed forms' w1r, w1i: the
-// block-diagonal stacks; the wide form's w1r: its N-stacked weights, w1i
-// unread), and the e2 and u32t variants offsets ((2, N1) f32 cR, cI; else
+// block-diagonal stacks; the wide form's w1r: its N-stacked weights, the
+// Karatsuba forms' w1r: the 9 planes or their block-diagonal (9 N1, 3 N1)
+// matrix, w1i unread in all three; P8's w2: K3's 6 planes, 4 read), and
+// the e2 and u32t variants offsets ((2, N1) f32 cR, cI; else
 // null); K1's cuts take
 // its stage twiddles ((N - 1, 2) f32) as `twiddle` and ignore w1r, w1i,
 // w2 and offsets. partial: (ceil(F / group), N) f32 scratch; out:

@@ -1,5 +1,5 @@
-"""Stage-attribution, stage-2 and stage-1 packing probes of K3 and K1 on
-Hopper, and P12's relayouts.
+"""Stage-attribution, stage-2, stage-1 packing and Karatsuba probes of K3
+and K1 on Hopper, and P12's relayouts.
 
 Replaces the TPU probes that asked where the fused kernel's time goes:
 P1 (``probes/profile_pallas.py:build``, ``pallas_call`` at 115), P18
@@ -10,8 +10,11 @@ restructured its stage 2: P14 (``probes/s2_fourmult.py:build``, 132), P16
 and P11 (``probes/s2_pipe.py:build``, 150); and those that relaid and
 packed stage 1's operands: P17 (``probes/s2_u32t.py:build``, 154), P2
 (``probes/profile_pallas.py:build_pack8``, 227), P6 (``build_pack8c``,
-588) and P5 (``build_s1wide``, 492), with hand-written CUDA C++ for
-sm_90a (``csrc/fused_psd_probe.cu``). On this card the TPU probes' bf16
+588) and P5 (``build_s1wide``, 492); and those that asked what Karatsuba
+and K-stacking are worth: P3 (``build_dg3dall``, 309), P4
+(``build_s1cat``, 390), P7 (``build_s1k``, 680) and P8 (``build_best``,
+766), with hand-written CUDA C++ for sm_90a
+(``csrc/fused_psd_probe.cu``). On this card the TPU probes' bf16
 four-step scheme is K3, so each TPU variant becomes one compile-time
 variant of K3's template (``csrc/fused_psd_fast.cuh``); K1's cuts
 (``csrc/fused_psd.cuh``) ask P1's question of the FP32 radix-2 kernel.
@@ -28,7 +31,14 @@ must equal tpu6's bit for bit. P2, P6 and P5 change K3's stage 1:
 ``k3_pack`` (rows packed :data:`PACK` to a 128-column lane group against
 block-diagonal weights, zero blocks multiplied), ``k3_pack_pq`` (the
 same with Z in (p, q) order and stage-2 weight rows permuted to match)
-and ``k3_s1wide`` (two products against N-stacked weights).
+and ``k3_s1wide`` (two products against N-stacked weights). P3, P4 and
+P7 change it again: ``k3_dg3dall`` (the Karatsuba of 3 products against
+:func:`karatsuba_weights`, with P1 dg3d's stage 2, ``zplanes``),
+``k3_s1cat`` (the same as one product against the block-diagonal
+:func:`s1cat_weights`, zero blocks multiplied: P3's output bit for bit)
+and ``k3_s1k32`` (K3's K-stack in three chains, P7's reps 1; its reps 3,
+``s1k96``, is ``k3``); P8's ``k3_best`` keeps K3's stage 1 and multiplies
+stage 2 as the 2-term 4-mult product (:func:`best_weights`).
 
 :data:`VARIANTS` is the registry: each Hopper variant, the TPU probe
 variants it stands for (two TPU names that became one Hopper variant are
@@ -43,8 +53,10 @@ base. The outputs, all (N,) float32 summed over the frames < n_valid:
   stage 1 and subtract :func:`e2_offsets` after it, ``tpu6_u32t`` from
   the pair words of :func:`_pair_word_planes`, ``k3_pack``/``k3_pack_pq``
   multiply :func:`packed_weights`, ``k3_s1wide`` :func:`wide_weights`,
-  ``tpu6_4mult`` multiplies by
-  :func:`fourmult_weights`, the ``left`` forms contract n2 from the left);
+  ``k3_dg3dall``/``k3_s1cat`` :func:`karatsuba_weights`/
+  :func:`s1cat_weights`, ``tpu6_4mult`` and ``k3_best`` multiply by
+  :func:`fourmult_weights`/:func:`best_weights`, the ``left`` forms
+  contract n2 from the left);
   ``nomm`` and the cuts after stage 1, the twiddle and the Z store: the
   sums of |Y|^2 or |Z|^2 in (n2, k1) order, index n2*N1 + k1;
 - the gather and dequantization cuts: the sum of every value the kernel
@@ -90,8 +102,12 @@ CUT_FULL, CUT_GATHER, CUT_DEQUANT, CUT_STAGE1, CUT_TWIDDLE, CUT_ZSTORE = \
 IN_RAW, IN_BF16, IN_WIDE32, IN_PAIR32, IN_LINEAR = range(5)
 # Stage-2 forms (kS2Karatsuba, kS2FourMult, kS2Left).
 KARATSUBA, FOURMULT, LEFT = "karatsuba", "fourmult", "left"
-# Stage-1 forms (kS1KStack, kS1Packed, kS1PackedPQ, kS1Wide).
+# Stage-1 forms (kS1KStack, kS1Packed, kS1PackedPQ, kS1Wide, kS1Karatsuba,
+# kS1KaratsubaCat, kS1SplitK).
 KSTACK, PACKED, PACKED_PQ, WIDE = "kstack", "packed", "packed_pq", "wide"
+KARATSUBA3, CAT, SPLIT_K = "karatsuba3", "cat", "split_k"
+#: The forms that multiply zero blocks of their weights.
+ZERO_BLOCK_FORMS = (PACKED, PACKED_PQ, CAT)
 #: The packed forms' rows a lane group (profile_pallas.py:163), and the
 #: packed frame's rows q: n2 = PACK·q + p.
 PACK = max(1, 128 // N1)
@@ -143,8 +159,8 @@ class Variant:
         """(bytes, bf16 tensor-core flops, FP32 ops) of one step over F
         frames: the work its bound counts (:func:`k3_work`,
         :func:`k1_work`). A schedule (chains, pipeline) does its scheme's
-        work; ``zero_blocks``: a packed form's work done, its zero blocks
-        included."""
+        work; ``zero_blocks``: a form of :data:`ZERO_BLOCK_FORMS`, its work
+        done, its zero blocks included."""
         if self.kernel == "k1":
             return k1_work(F, N, self.k1_cut)
         return k3_work(F, N, self.s1_terms, self.s2_products, self.twiddle,
@@ -164,17 +180,22 @@ def k3_work(F: int, n: int, s1_terms: int = 3, s2_products: int = 3,
     the variant reads, e2's (2, N1) offsets) and the (n,) output written
     once. Flops a frame: 8·terms·n·N1 for the stage-1 products
     (``s1_terms`` K-stacked weight terms, 6 with a window; the wide form
-    K3's products against half its weight bytes; the packed forms compute
-    K3's spectrum and count K3's work, or with ``zero_blocks`` the work
-    they do: P = max(1, 128 / N1) times the products against P² times the
-    weight bytes) and, for stage 2, 6·products·n·N2 as a
-    Karatsuba (3 parts, either operand order) or 48·n·N2 as the 4-mult
-    product (24 real products of the 6-term splits, 2 weight matrices);
-    FP32: 2n to dequantize (4n with a window), 2n more to subtract e2's
-    offsets after stage 1 (``raw_bytes``), 2n for stage 1 (8n more to
-    combine the wide form's six accumulators a plane), 6n for the
-    twiddle, 2n for |.|^2 and the sum. With the defaults this is the
-    shipping K3's work."""
+    and the three chains K3's products, the wide form against half its
+    weight bytes; the packed forms compute K3's spectrum and count K3's
+    work, or with ``zero_blocks`` the work they do: P = max(1, 128 / N1)
+    times the products against P² times the weight bytes; the Karatsuba
+    forms 18·n·N1 against 9 (N1, N1) weight planes, or with
+    ``zero_blocks`` the block-diagonal product's 54·n·N1 against its 27
+    blocks) and, for stage 2, 6·products·n·N2 as a Karatsuba (3 parts,
+    either operand order) or 4·products·2·n·N2 as the 4-mult product
+    (48·n·N2 for the 24 real products of the 3-term splits, 24·n·N2 for
+    the 12 of the 2-term; 2 weight matrices); FP32: 2n to dequantize (4n
+    with a window), 2n more to subtract e2's offsets after stage 1
+    (``raw_bytes``), 2n for stage 1 (8n more to combine the wide form's
+    six accumulators a plane, 4n the three chains', 4n for the Karatsuba
+    forms' as = ar + ai and their combination), 6n for the twiddle, 2n
+    for |.|^2 and the sum. With the defaults this is the shipping K3's
+    work."""
     n1, n2 = ff.fast_split(n)
     full = cut == CUT_FULL
     nbytes = F * 2 * n + 4 * n + (4 * n if windowed else 0)
@@ -185,14 +206,22 @@ def k3_work(F: int, n: int, s1_terms: int = 3, s2_products: int = 3,
         nbytes += 2 * n1 * 4
         fp32 += 2 * n
     if full or cut >= CUT_STAGE1:
-        pack = (max(1, 128 // n1) if zero_blocks
-                and s1_form in (PACKED, PACKED_PQ) else 1)
-        mma += 8 * s1_terms * n * n1 * pack
-        if s1_form == WIDE:
-            nbytes += n1 * (2 * s1_terms * n1) * 2
-            fp32 += 8 * n
+        if s1_form in (KARATSUBA3, CAT):
+            blocks = 27 if zero_blocks and s1_form == CAT else 9
+            mma += 2 * blocks * n * n1
+            nbytes += blocks * n1 * n1 * 2
+            fp32 += 4 * n
         else:
-            nbytes += 2 * (2 * s1_terms * n1 * pack) * (n1 * pack) * 2
+            pack = (max(1, 128 // n1) if zero_blocks
+                    and s1_form in ZERO_BLOCK_FORMS else 1)
+            mma += 8 * s1_terms * n * n1 * pack
+            if s1_form == WIDE:
+                nbytes += n1 * (2 * s1_terms * n1) * 2
+                fp32 += 8 * n
+            else:
+                nbytes += 2 * (2 * s1_terms * n1 * pack) * (n1 * pack) * 2
+            if s1_form == SPLIT_K:
+                fp32 += 4 * n
         fp32 += 2 * n
     if twiddle and (full or cut >= CUT_TWIDDLE):
         nbytes += 8 * n
@@ -200,7 +229,7 @@ def k3_work(F: int, n: int, s1_terms: int = 3, s2_products: int = 3,
     if full:
         terms = {1: 1, 3: 2, 6: 3}[s2_products]
         if s2_form == FOURMULT:
-            mma += 48 * n * n2
+            mma += 4 * s2_products * 2 * n * n2
             nbytes += 2 * terms * n2 * n2 * 2
         else:
             mma += 6 * s2_products * n * n2
@@ -243,10 +272,16 @@ P17_SRC = "probes/s2_u32t.py:43-143"
 P2_SRC = "probes/profile_pallas.py:161-219"
 P6_SRC = "probes/profile_pallas.py:516-580"
 P5_SRC = "probes/profile_pallas.py:431-483"
+P3_SRC = "probes/profile_pallas.py:255-323"
+P4_SRC = "probes/profile_pallas.py:326-404"
+P7_SRC = "probes/profile_pallas.py:611-694"
+P8_SRC = "probes/profile_pallas.py:708-780"
 
 #: Every Hopper variant, by name; codes as in fused_psd_probe.cu.
 VARIANTS: Dict[str, Variant] = {v.name: v for v in (
-    _k3("k3", 0, (f"P1 full ({P1_SRC})",), parity="K3"),
+    # P7's reps 3 is K3's own K-stack (fused_psd.py:166-169).
+    _k3("k3", 0, (f"P1 full ({P1_SRC})", f"P7 s1k96 ({P7_SRC})"),
+        parity="K3"),
     _k3("s2x1", 1, (f"P1 s2x1 ({P1_SRC})",), s2_products=1),
     _k3("s1x1", 2, (f"P1 s1x1 ({P1_SRC})",), s1_terms=1, s2_products=1),
     _k3("nomm", 3, (f"P1 nomm ({P1_SRC})",), s1_terms=0, cut=CUT_ZSTORE),
@@ -300,6 +335,14 @@ VARIANTS: Dict[str, Variant] = {v.name: v for v in (
         s1_form=PACKED),
     _k3("k3_pack_pq", 39, (f"P6 pack8c ({P6_SRC})",), s1_form=PACKED_PQ),
     _k3("k3_s1wide", 40, (f"P5 s1wide ({P5_SRC})",), s1_form=WIDE),
+    _k3("k3_dg3dall", 41, (f"P3 dg3dall ({P3_SRC})",), s2_planes=True,
+        s1_form=KARATSUBA3),
+    # After k3_dg3dall: its zero blocks add exact zeros between P3's
+    # products in P3's order, and zplanes is K3 bit for bit.
+    _k3("k3_s1cat", 42, (f"P4 s1cat ({P4_SRC})",), parity="k3_dg3dall",
+        s1_form=CAT),
+    _k3("k3_s1k32", 43, (f"P7 s1k32 ({P7_SRC})",), s1_form=SPLIT_K),
+    _k3("k3_best", 44, (f"P8 best ({P8_SRC})",), s2_form=FOURMULT),
     Variant("k1_full", 20, "k1", ("K1 whole (P1's question of K1)",), "K1",
             RTOL_K1, psd=True),
     Variant("k1_dqonly", 21, "k1",
@@ -334,13 +377,22 @@ PROBES: Dict[str, Probe] = {p.tpu: p for p in (
           ("full", "s2x1", "s1x1", "nomm", "notw", "dg3d", "k1_full",
            "k1_nofft", "k1_dqonly"), then=("P2",)),
     # The other builds of profile_pallas.py, which its argv names (243,
-    # 508, 604): profile_kernel takes them beside P1's.
+    # 419, 424, 508, 604, 696-705, 782): profile_kernel takes them beside
+    # P1's.
     Probe("P2", "probes/profile_pallas.py:227", "profile_kernel",
           {"pack8": "k3_pack"}, ("pack8",)),
     Probe("P6", "probes/profile_pallas.py:588", "profile_kernel",
           {"pack8c": "k3_pack_pq"}, ("pack8c",)),
     Probe("P5", "probes/profile_pallas.py:492", "profile_kernel",
           {"s1wide": "k3_s1wide"}, ("s1wide",)),
+    Probe("P3", "probes/profile_pallas.py:309", "profile_kernel",
+          {"dg3dall": "k3_dg3dall"}, ("dg3dall",)),
+    Probe("P4", "probes/profile_pallas.py:390", "profile_kernel",
+          {"s1cat": "k3_s1cat"}, ("s1cat",)),
+    Probe("P7", "probes/profile_pallas.py:680", "profile_kernel",
+          {"s1k32": "k3_s1k32", "s1k96": "k3"}, ("s1k32", "s1k96")),
+    Probe("P8", "probes/profile_pallas.py:766", "profile_kernel",
+          {"best": "k3_best"}, ("best",)),
     Probe("P18", "probes/s1_lanes.py:151", "s1_lanes",
           {"full": "tpu6", "widedq": "tpu6_bf16in", "s1only": "s1only",
            "s1tw": "s1tw", "s1tw2": "s1tw_z", "dqonly": "dq_gather",
@@ -371,7 +423,7 @@ PROBES: Dict[str, Probe] = {p.tpu: p for p in (
 def entry_probes(tpu: str) -> List[Probe]:
     """The probes whose variant names probe ``tpu``'s entry point takes:
     its own, then the others of its module (``profile_kernel``: P1's,
-    P2's, P6's and P5's)."""
+    P2's, P6's, P5's, P3's, P4's, P7's and P8's)."""
     own = PROBES[tpu]
     return [own] + [p for p in PROBES.values()
                     if p.module == own.module and p is not own]
@@ -480,6 +532,19 @@ def _k3_reference(v: Variant, raw_u8: torch.Tensor, n_valid: int,
         yr, yi = re, im        # Y[n2][k1] = x[N2·k1 + n2]
     elif v.s1_form == WIDE:
         yr, yi = _wide_stage1(re, im)
+    elif v.s1_form in (KARATSUBA3, CAT):
+        yr, yi = _karatsuba_stage1(v.s1_form == CAT, re, im)
+    elif v.s1_form == SPLIT_K:
+        # P7 reps 1 (profile_pallas.py:638-645): [ar ai] times each term's
+        # (2·N1, N1) block of WR and WI, summed in term order
+        lhs = torch.cat([re, im], dim=-1).reshape(F * N2, 2 * N1)
+
+        def chains(W):
+            y = lhs @ W[:2 * N1]
+            for j in (1, 2):
+                y = y + lhs @ W[2 * j * N1:2 * (j + 1) * N1]
+            return y.reshape(F, N2, N1)
+        yr, yi = chains(WR), chains(WI)
     else:
         lhs = torch.cat([re, im] * v.s1_terms, dim=-1).reshape(F * N2, -1)
         rows = 2 * v.s1_terms * N1
@@ -521,17 +586,24 @@ def _stage2_sum(v: Variant, zr: torch.Tensor, zi: torch.Tensor, w2r, w2i,
     |X|^2, the frame mask and the sum, in bin order."""
     F = zr.shape[0] // N1
     if v.s2_form == FOURMULT:
-        # One K-stacked lhs for both outputs (s2_fourmult.py:92-97), its
-        # 12 blocks of depth N2 summed in stack order, as the kernel's mma
-        # (one f32 product of depth 12·N2 here is 2x further from the
-        # golden under a 35 dB tone).
+        # One K-stacked lhs for both outputs (s2_fourmult.py:92-97; P8's
+        # 2-term form, profile_pallas.py:743-749), its blocks of depth N2
+        # summed in stack order, as the kernel's mma (one f32 product of
+        # depth 12·N2 here is 2x further from the golden under a 35 dB
+        # tone).
         z0r, z1r, z2r = ff._split3(zr)
         z0i, z1i, z2i = ff._split3(zi)
-        lhs2 = (z0r, z0r, z0r, z1r, z1r, z2r, z0i, z0i, z0i, z1i, z1i, z2i)
+        if v.s2_products == 3:
+            lhs2 = (z0r, z0r, z1r, z0i, z0i, z1i)
+            mats = best_weights()
+        else:
+            lhs2 = (z0r, z0r, z0r, z1r, z1r, z2r, z0i, z0i, z0i, z1i, z1i,
+                    z2i)
+            mats = fourmult_weights()
         XR, XI = (torch.from_numpy(ff.bf16_value(m)).to(zr.device)
-                  .reshape(12, N2, N2) for m in fourmult_weights())
+                  .reshape(len(lhs2), N2, N2) for m in mats)
         xr, xi = lhs2[0] @ XR[0], lhs2[0] @ XI[0]
-        for b in range(1, 12):
+        for b in range(1, len(lhs2)):
             xr = xr + lhs2[b] @ XR[b]
             xi = xi + lhs2[b] @ XI[b]
     else:
@@ -602,6 +674,29 @@ def _wide_stage1(re: torch.Tensor, im: torch.Tensor):
         return t[:, j * N1:(j + 1) * N1]
     yr = (g(A, 0) + g(A, 1) + g(A, 2)) - (g(B, 3) + g(B, 4) + g(B, 5))
     yi = (g(A, 3) + g(A, 4) + g(A, 5)) + (g(B, 0) + g(B, 1) + g(B, 2))
+    return yr.reshape(F, N2, N1), yi.reshape(F, N2, N1)
+
+
+def _karatsuba_stage1(cat: bool, re: torch.Tensor, im: torch.Tensor):
+    """P3's stage 1 (``profile_pallas.py:267-283``): t1 = ar·w1r, t2 =
+    ai·w1i, t3 = as·w1s (as = ar + ai) against :func:`karatsuba_weights`,
+    each the sum of its 3 terms' products in term order; with ``cat``,
+    P4's (352-358): one product of [ar ar ar ai ai ai as as as] with the
+    block-diagonal :func:`s1cat_weights`, sliced into t1, t2, t3. yr = t1 -
+    t2, yi = t3 - t1 - t2; (F, N2, N1) each."""
+    F = re.shape[0]
+    planes = [p.reshape(F * N2, N1) for p in (re, im, re + im)]
+    if cat:
+        B = torch.from_numpy(ff.bf16_value(s1cat_weights())).to(re.device)
+        t = torch.cat([p for p in planes for _ in range(3)], dim=-1) @ B
+        t1, t2, t3 = (t[:, g * N1:(g + 1) * N1] for g in range(3))
+    else:
+        W = torch.from_numpy(ff.bf16_value(karatsuba_weights())).to(
+            re.device).reshape(3, 3, N1, N1)
+        t1, t2, t3 = (p @ W[g, 0] + p @ W[g, 1] + p @ W[g, 2]
+                      for g, p in enumerate(planes))
+    yr = t1 - t2
+    yi = t3 - t1 - t2
     return yr.reshape(F, N2, N1), yi.reshape(F, N2, N1)
 
 
@@ -692,6 +787,52 @@ def wide_weights() -> np.ndarray:
                       for W in (WR, WI) for j in range(3)])
 
 
+@functools.lru_cache(maxsize=1)
+def karatsuba_weights() -> np.ndarray:
+    """(9·N1, N1) bf16 bit patterns [w1r0 w1r1 w1r2 w1i0 w1i1 w1i2 w1s0
+    w1s1 w1s2]: the 3 bf16 terms of the length-N1 DFT's real part, its
+    imaginary part and their sum w1s = w1r + w1i, each split from float64
+    by successive rounding through float32 (as ``ml_dtypes`` rounds): the
+    Karatsuba stage 1's weights (``probes/profile_pallas.py:262, 281``,
+    from the ``_constants`` of its time; today's builds no w1s). w1r's and
+    w1i's terms are blocks 2j of K3's WR and WI."""
+    a = np.arange(N1, dtype=np.float64)
+    ang = -2.0 * np.pi * (np.outer(a, a) % N1) / N1
+    w1r, w1i = np.cos(ang), np.sin(ang)
+    return np.concatenate([ff.bf16_terms(w, 3) for w in (w1r, w1i, w1r + w1i)
+                           ]).reshape(9 * N1, N1)
+
+
+@functools.lru_cache(maxsize=1)
+def s1cat_weights() -> np.ndarray:
+    """(9·N1, 3·N1) bf16 bit patterns: P4's block-diagonal B
+    (``probes/profile_pallas.py:331-335``), rows (3g + j, n1), columns
+    (g, k1): term j of weight g (w1r, w1i, w1s of
+    :func:`karatsuba_weights`) where the column block is g, zero bits
+    elsewhere (18 of the 27 blocks)."""
+    K = karatsuba_weights().reshape(3, 3, N1, N1)
+    B = np.zeros((9, N1, 3, N1), np.uint16)
+    for g in range(3):
+        for j in range(3):
+            B[3 * g + j, :, g, :] = K[g, j]
+    return B.reshape(9 * N1, 3 * N1)
+
+
+@functools.lru_cache(maxsize=1)
+def best_weights() -> Tuple[np.ndarray, np.ndarray]:
+    """(XR, XI), (6·N2, N2) bf16 bit patterns: P8's stage-2 stacks
+    against the lhs [z0r z0r z1r z0i z0i z1i], vstack(r0 r1 r0 -i0 -i1
+    -i0) and vstack(i0 i1 i0 r0 r1 r0) of the 2-term splits of the
+    length-N2 DFT (``probes/profile_pallas.py:718-721``): K3's own
+    stage-2 terms r0, r1, i0, i1."""
+    _, _, _, _, r, i, _ = ff.constants(N, N1, N2, False)
+    order = (0, 1, 0)
+    neg = np.uint16(0x8000)
+    XR = np.vstack([r[j] for j in order] + [i[j] ^ neg for j in order])
+    XI = np.vstack([i[j] for j in order] + [r[j] for j in order])
+    return XR, XI
+
+
 def pack_a_fragments(bits: np.ndarray) -> np.ndarray:
     """An (M, K) bf16 matrix as ``mma.m16n8k16`` A fragments: (M/16,
     K/16, 32, 8) uint16, where lane l of tile (mt, kc) holds its four A
@@ -752,6 +893,14 @@ def _packed_w1(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
 @functools.lru_cache(maxsize=4)
 def _wide_w1(device: torch.device) -> torch.Tensor:
     return _b_fragments(wide_weights(), device)
+
+
+@functools.lru_cache(maxsize=4)
+def _karatsuba_w1(device: torch.device, cat: bool) -> torch.Tensor:
+    """The Karatsuba forms' stage-1 weights as B fragments: the 9 planes
+    stacked, or P4's block-diagonal matrix."""
+    return _b_fragments(s1cat_weights() if cat else karatsuba_weights(),
+                        device)
 
 
 @functools.lru_cache(maxsize=4)
@@ -828,6 +977,8 @@ def fused_psd_probe(variant: str, raw_u8: torch.Tensor, n_valid: int,
             w1r, w1i = (t.data_ptr() for t in _packed_w1(device))
         elif v.s1_form == WIDE:
             w1r = w1i = _wide_w1(device).data_ptr()
+        elif v.s1_form in (KARATSUBA3, CAT):
+            w1r = w1i = _karatsuba_w1(device, v.s1_form == CAT).data_ptr()
         w2 = (_left_w2(device) if v.s2_form == LEFT
               else _tpu6_w2(device) if v.s2_products == 6
               else _pq_w2(device) if v.s1_form == PACKED_PQ
