@@ -69,17 +69,19 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    rounds split into waiting for the producers, filling the pinned slot,
    the upload, the step's enqueue, the event waits and the float64
    accumulation;
-11. the stage-attribution, stage-2, stage-1 packing and Karatsuba probes
-   (``fused_psd_probe``: P1, P18, P13, P14, P16, P19, P11, P17, P2, P6,
-   P5, P3, P4, P7 and P8 as variants of K3's template, K1's cuts, P12's
-   relayouts), right after the build: every variant against its plain
-   version at N = 2048,
+11. the stage-attribution, stage-2, stage-1 packing, Karatsuba and
+   K-stacking probes (``fused_psd_probe``: P1, P18, P13, P14, P16, P19,
+   P11, P17, P2, P6, P5, P3, P4, P7, P8, P9 and P10 as variants of K3's
+   template, K1's cuts, P12's relayouts), right after the build: every
+   variant against its plain version at N = 2048,
    F = 4096, with all frames valid and with 1000, twice for determinism;
-   P1 ``full`` and ``dg3d`` and P2 ``pack8`` bit-identical to the
-   shipping K3, ``k1_full`` to K1, the layout variants and the schedules
-   (P19 ``ilv``, ``ilv4``, P11 ``pipe``) of the 6-product scheme to its
-   ``full``, P17 ``u32t`` to P16 ``e2``, P4 ``s1cat`` to P3
-   ``dg3dall``; P12 equal to torch's
+   P1 ``full`` and ``dg3d``, P2 ``pack8`` and P9 ``v5left`` bit-identical
+   to the shipping K3, ``k1_full`` to K1, the layout variants and the
+   schedules (P19 ``ilv``, ``ilv4``, P11 ``pipe``) of the 6-product
+   scheme and its order from Z's 3-term split planes (``tpu6_zplanes``)
+   to its ``full``, P17 ``u32t`` to P16 ``e2``, P4 ``s1cat`` to P3
+   ``dg3dall``; P10 ``v6k``'s largest difference from the 6-product
+   scheme printed; P12 equal to torch's
    reshape/permute; ptxas's
    registers and spills of every instantiation at N = 2048 (the shipping
    K1 and K3 beside them); each variant's slope time (the probes' own
@@ -90,14 +92,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    resident blocks per SM, and its time again with its occupancy pinned
    to that of the whole kernel it is compared with (K3's and the
    6-product scheme's for K3's template, and for the 6-product scheme's
-   variants, K3 and the other variants that get fewer blocks than K3
-   also the least any of that family gets; K1's for K1's cuts), its
-   output unchanged;
+   variants, the left forms (P9 ``v5left`` among them), K3 and the other
+   variants that get fewer blocks than K3 also the least any of the
+   6-product family gets; K1's for K1's cuts), its output unchanged;
 12. the probes' entry points (``python -m
    rtl_power_fftw_tpu_torch.probes.{profile_kernel,s1_lanes,s1_lanes2,
    cast_test,s2_fourmult,s2_left,s2_ilv,s2_pipe,s2_u32t}``, and
-   ``profile_kernel pack8c s1wide s1wide:8`` and ``profile_kernel
-   dg3dall s1cat s1k32 s1k96 best best:8``) in-process, each with every launch
+   ``profile_kernel pack8c s1wide s1wide:8``, ``profile_kernel dg3dall
+   s1cat s1k32 s1k96 best best:8`` and ``profile_kernel v5 v5left v6
+   v6k``) in-process, each with every launch
    counter reset just before it: exit 0, one line per variant run, and
    every one of those variants launched (the probes' ``launches`` are
    this run's); then ``profile_kernel`` again over a
@@ -1172,6 +1175,12 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
                       f"probe {name} n_valid={nv}: not bit-identical to "
                       f"{v.parity}")
             ship[(name, nv)] = got
+            if v.s2_form == fpp.KSTACKED:
+                # the 6-product scheme's products in another f32 order
+                vs = max_rel(got.cpu().numpy(),
+                             ship[("tpu6", nv)].cpu().numpy())
+                print(f"probe {name} n_valid={nv} against tpu6: max rel "
+                      f"{vs:.3e}")
             if nv == F:
                 max_abs = float((got.double() - want.double()).abs().max())
         k_us = slope_us(lambda it: fpp.fused_psd_probe(name, raw, F, chunk,
@@ -1238,8 +1247,10 @@ def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
            for name in fpp.VARIANTS}
     pins = {"k3": own["k3"], "tpu6": own["tpu6"], "k1": own["k1_full"]}
     # The chained variants' and the wide stage 1's registers allow one
-    # block a SM.
-    tpu6_family = [n for n in fpp.VARIANTS if n.startswith("tpu6")]
+    # block a SM. The left forms (P16's, P9's) run at this family's pins
+    # too.
+    tpu6_family = [n for n, v in fpp.VARIANTS.items()
+                   if n.startswith("tpu6") or v.s2_form == fpp.LEFT]
     least_tpu6 = min(own[n] for n in tpu6_family)
     least_k3 = min(own[n] for n, v in fpp.VARIANTS.items()
                    if v.kernel == "k3" and n not in tpu6_family)
@@ -1312,15 +1323,17 @@ SCHEDULE_SWEEP = {"s2_pipe": ["base:16", "pipe:16"],
 
 #: The probes' entry-point runs: (module, argv, the TPU probes it drives).
 #: profile_kernel's run without argv is P1's, then P2's (pack8), as the
-#: TPU module's; P6, P5, P3, P4, P7 and P8 are its builds by name, s1wide
-#: and best at 4 and 8 frames a block (the TPU's tiles 128 and 256,
-#: profile_pallas.py:508-511, 782-787).
+#: TPU module's; P6, P5, P3, P4, P7, P8, P9 and P10 are its builds by
+#: name, s1wide and best at 4 and 8 frames a block (the TPU's tiles 128
+#: and 256, profile_pallas.py:508-511, 782-787).
 PROBE_RUNS = (("profile_kernel", [], ("P1", "P2")),
               ("profile_kernel", ["pack8c", "s1wide", "s1wide:8"],
                ("P6", "P5")),
               ("profile_kernel", ["dg3dall", "s1cat", "s1k32", "s1k96",
                                   "best", "best:8"],
                ("P3", "P4", "P7", "P8")),
+              ("profile_kernel", ["v5", "v5left", "v6", "v6k"],
+               ("P9", "P10")),
               ("s1_lanes", [], ("P18",)), ("s1_lanes2", [], ("P13",)),
               ("cast_test", [], ("P12",)), ("s2_fourmult", [], ("P14",)),
               ("s2_left", [], ("P16",)), ("s2_ilv", [], ("P19",)),
@@ -1655,7 +1668,11 @@ def main() -> int:
                                 ("fused_psd_probe P7 (profile_kernel: "
                                  "s1k32)", "P7", "k3_s1k32"),
                                 ("fused_psd_probe P8 (profile_kernel: "
-                                 "best)", "P8", "k3_best"))]}))
+                                 "best)", "P8", "k3_best"),
+                                ("fused_psd_probe P9 (profile_kernel: "
+                                 "v5left)", "P9", "k3_left"),
+                                ("fused_psd_probe P10 (profile_kernel: "
+                                 "v6k)", "P10", "tpu6_kstack"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

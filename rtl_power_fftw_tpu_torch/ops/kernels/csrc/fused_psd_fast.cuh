@@ -8,10 +8,10 @@
 // s1_lanes2.py:build (P13), s2_fourmult.py:build (P14), s2_left.py:build
 // (P16), s2_ilv.py:build (P19), s2_pipe.py:build (P11), s2_u32t.py:build
 // (P17) and profile_pallas.py:build_pack8 (P2), build_pack8c (P6),
-// build_s1wide (P5), build_dg3dall (P3), build_s1cat (P4), build_s1k (P7)
-// and build_best (P8). Each parameter is a compile-time constant, so a
-// variant pays for nothing it does not run, and each addition is a branch
-// that the default discards:
+// build_s1wide (P5), build_dg3dall (P3), build_s1cat (P4), build_s1k (P7),
+// build_best (P8), build_v5 (P9) and build_v6 (P10). Each parameter is a
+// compile-time constant, so a variant pays for nothing it does not run,
+// and each addition is a branch that the default discards:
 //
 //   S1_TERMS     stage-1 weight terms: 3 (K3), 1, or 0 (no stage-1
 //                products: Y is the dequantized frame in (n2, n1) order);
@@ -26,9 +26,14 @@
 //   INPUT        how the frame sits in shared memory for the stage-1
 //                gather (kIn* below);
 //   S2_SOURCE    where stage 2 takes its A fragments (kS2From* below);
+//                the split planes hold 2-term splits, or 3-term ones at
+//                S2_PRODUCTS = 6 (9 planes: the narrow 6-product order
+//                from them is tpu6 bit for bit);
 //   S2_FORM      how stage 2 multiplies (kS2Karatsuba, kS2FourMult,
-//                kS2Left below; the last two with S2_PRODUCTS = 6, the
-//                4-mult also with 3: P8's 2-term form);
+//                kS2Left, kS2KStacked below; the 4-mult and left forms
+//                with S2_PRODUCTS = 6 or 3 (P8's 2-term 4-mult, P9
+//                v5left's 3-product left form), the K-stacked one with 6
+//                from the split planes (P10 v6k);
 //   RAW_BYTES    stage 1 multiplies the raw bytes 0..255 (exact in bf16)
 //                and subtracts the -127 offset's image after it, per k1:
 //                cR = 127 colsum(WR), cI = 127 colsum(WI), passed in the
@@ -146,7 +151,15 @@ enum : int {
                      // i0, i1, z1.c1 dropped: 12 mma
   kS2Left = 2,       // Karatsuba with the operands swapped (P16 left):
                      // A = the weights as A fragments (rows k2), B = split
-                     // Z (columns k1); D holds X in bin order
+                     // Z (columns k1); D holds X in bin order; with
+                     // S2_PRODUCTS = 3 (P9 v5left) 6 weight planes and
+                     // 2-term splits of Z, c0.z0 + c1.z0 + c0.z1 a part
+  kS2KStacked = 3,   // the 6-product Karatsuba with its K loop
+                     // block-major (P10 v6k: one product of [z0 z0 z0 z1
+                     // z1 z2] with vstack(c0 c1 c2 c0 c1 c0) a part): the
+                     // term pair outer, the chunk inner, each mma loading
+                     // its A plane by ldmatrix from the 9 split planes and
+                     // its B fragment from tpu6's 9 weight planes
 };
 
 // How stage 1 multiplies.
@@ -189,16 +202,14 @@ struct FastVariant {
   static_assert(S1_TERMS == 0 || S1_TERMS == 1 || S1_TERMS == 3, "terms");
   static_assert(S2_PRODUCTS == 1 || S2_PRODUCTS == 3 || S2_PRODUCTS == 6,
                 "products");
-  static_assert(S2_SOURCE == kS2FromZ || S2_PRODUCTS <= 3,
-                "split planes hold 2-term splits");
   static_assert(S1_TERMS > 0 || (INPUT == kInRaw && CUT >= kCutStage1),
                 "Y = x reads the raw frame at the D-fragment positions");
   static_assert(S2_FORM == kS2Karatsuba ||
-                    (S2_SOURCE == kS2FromZ &&
-                     (S2_PRODUCTS == 6 ||
-                      (S2_FORM == kS2FourMult && S2_PRODUCTS == 3))),
-                "the 4-mult and left forms take 3-term splits of Z, the "
-                "4-mult also 2-term");
+                    (S2_FORM == kS2KStacked
+                         ? S2_SOURCE == kS2FromPlanes && S2_PRODUCTS == 6
+                         : S2_SOURCE == kS2FromZ && S2_PRODUCTS >= 3),
+                "the 4-mult and left forms take 3- or 2-term splits of Z, "
+                "the K-stacked form Z's 3-term split planes");
   static_assert(!RAW_BYTES || ((INPUT == kInRaw || INPUT == kInPair32) &&
                                S1_TERMS == 3 && CUT == kCutFull),
                 "raw bytes on the raw or pair-word input path, whole step");
@@ -220,7 +231,8 @@ struct FastVariant {
 
 // Shared memory of one block, in float4 units: [Z f32 | input | window |
 // Z split planes], each part present only where the variant uses it, the
-// Z and raw parts BUFS times for a schedule (2 pipelined, else CHAINS).
+// Z and raw parts BUFS times for a schedule (2 pipelined, else CHAINS),
+// the split planes 6 (2-term splits) or 9 (3-term, S2_PRODUCTS = 6).
 // The default variant gets K3's layout: Z 8N, raw 2N, window 4N bytes.
 template <int LOG2N, bool WINDOWED, class V>
 struct FastSmem {
@@ -237,8 +249,10 @@ struct FastSmem {
             : V::INPUT == kInBf16 ? 2 * N1 * ROW * 2 / 16 : BUFS * N / 8);
   static constexpr int ZP = WIN + (WINDOWED ? N / 4 : 0);
   static constexpr int ZP_PLANE = N1 * ROW;   // bf16 elements
+  static constexpr int ZP_PLANES = V::S2_PRODUCTS == 6 ? 9 : 6;
   static constexpr int BYTES =
-      16 * (ZP + (V::S2_SOURCE == kS2FromPlanes ? 6 * ZP_PLANE * 2 / 16 : 0));
+      16 * (ZP + (V::S2_SOURCE == kS2FromPlanes
+                      ? ZP_PLANES * ZP_PLANE * 2 / 16 : 0));
 };
 
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -258,6 +272,18 @@ __device__ __forceinline__ void split3(float x, __nv_bfloat16 (&t)[3]) {
   const float r1 = __fsub_rn(x, __bfloat162float(t[0]));
   t[1] = __float2bfloat16_rn(r1);
   t[2] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(t[1])));
+}
+
+// split2 or split3, by the number of terms.
+template <int TERMS>
+__device__ __forceinline__ void split_terms(float x,
+                                            __nv_bfloat16 (&t)[TERMS]) {
+  static_assert(TERMS == 2 || TERMS == 3, "terms");
+  if constexpr (TERMS == 3) {
+    split3(x, t);
+  } else {
+    split2(x, t);
+  }
 }
 
 // d += a * b on the tensor cores: a 16x16 bf16 (row major), b 16x8 bf16
@@ -394,14 +420,27 @@ __device__ __forceinline__ void six_products_left(float (&u)[4],
   mma_bf16(u, c0, z2);
 }
 
+// The 3-product left form's part (P9 v5left, probes/profile_pallas.py:838,
+// in its order): 2-term weights c0, c1 as A, 2-term splits of z as B,
+// c0.z0 + c1.z0 + c0.z1.
+__device__ __forceinline__ void three_products_left(float (&u)[4],
+                                                    const uint32_t (&c0)[4],
+                                                    const uint32_t (&c1)[4],
+                                                    uint2 z0, uint2 z1) {
+  mma_bf16(u, c0, z0);
+  mma_bf16(u, c1, z0);
+  mma_bf16(u, c0, z1);
+}
+
 // Stage 2 in the left form (P16 left): X[k2][k1] = sum_n2 W2[k2][n2]
-// Z[n2][k1], the 6-product Karatsuba, |X|^2 added to acc. Item = (32 rows
-// k2: two m16 tiles) x (8 columns k1: one n8 tile), so two warps, not
-// four, gather and split each Z element; each warp reads twice the
-// weights (A fragments, 16 bytes a lane, packed by
-// fused_psd_probe.py:pack_a_fragments). acc[i][m] is m-tile m's D
-// fragment: X at k2 = 32kh + 16m + g + 8(e >> 1), k1 = 8nt + 2t + (e & 1).
-template <int LOG2N>
+// Z[n2][k1], the 6-product Karatsuba (PRODUCTS = 3: P9 v5left's 2-term
+// form), |X|^2 added to acc. Item = (32 rows k2: two m16 tiles) x (8
+// columns k1: one n8 tile), so two warps, not four, gather and split each
+// Z element; each warp reads twice the weights (A fragments, 16 bytes a
+// lane, packed by fused_psd_probe.py:pack_a_fragments). acc[i][m] is
+// m-tile m's D fragment: X at k2 = 32kh + 16m + g + 8(e >> 1), k1 = 8nt +
+// 2t + (e & 1).
+template <int LOG2N, int PRODUCTS>
 __device__ __forceinline__ void stage2_left(
     const float2* z, const uint4* __restrict__ w2,
     float (&acc)[FastShape<LOG2N>::ITEMS_PER_WARP][2][4], int warp,
@@ -409,7 +448,9 @@ __device__ __forceinline__ void stage2_left(
   using S = FastShape<LOG2N>;
   constexpr int N1 = S::N1, N2 = S::N2;
   static_assert(N2 >= 32 && (N2 / 32) * (N1 / 8) == S::ITEMS, "items");
-  // 9 A-fragment planes (w2r0..2, w2i0..2, w2s0..2), each [m-tile][chunk].
+  static_assert(PRODUCTS == 6 || PRODUCTS == 3, "products");
+  // 3 TERMS A-fragment planes (w2r0.., w2i0.., w2s0..), each [m-tile][chunk].
+  constexpr int TERMS = PRODUCTS == 6 ? 3 : 2;
   constexpr int PLANE = (N2 / 16) * (N2 / 16) * 32;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -423,33 +464,40 @@ __device__ __forceinline__ void stage2_left(
       const int n2 = 16 * c + 2 * t;
       const float2 p[4] = {z[n2 * N1 + k1], z[(n2 + 1) * N1 + k1],
                            z[(n2 + 8) * N1 + k1], z[(n2 + 9) * N1 + k1]};
-      __nv_bfloat16 r[4][3], im[4][3], s[4][3];
+      __nv_bfloat16 r[4][TERMS], im[4][TERMS], s[4][TERMS];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        split3(p[k].x, r[k]);
-        split3(p[k].y, im[k]);
-        split3(__fadd_rn(p[k].x, p[k].y), s[k]);
+        split_terms<TERMS>(p[k].x, r[k]);
+        split_terms<TERMS>(p[k].y, im[k]);
+        split_terms<TERMS>(__fadd_rn(p[k].x, p[k].y), s[k]);
       }
-      uint2 b[9];
+      uint2 b[3 * TERMS];
 #pragma unroll
-      for (int e = 0; e < 3; ++e) {
+      for (int e = 0; e < TERMS; ++e) {
         b[e] = make_uint2(pack2(r[0][e], r[1][e]), pack2(r[2][e], r[3][e]));
-        b[3 + e] = make_uint2(pack2(im[0][e], im[1][e]),
-                              pack2(im[2][e], im[3][e]));
-        b[6 + e] = make_uint2(pack2(s[0][e], s[1][e]), pack2(s[2][e], s[3][e]));
+        b[TERMS + e] = make_uint2(pack2(im[0][e], im[1][e]),
+                                  pack2(im[2][e], im[3][e]));
+        b[2 * TERMS + e] =
+            make_uint2(pack2(s[0][e], s[1][e]), pack2(s[2][e], s[3][e]));
       }
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         const uint4* a = w2 + ((2 * kh + m) * (N2 / 16) + c) * 32 + lane;
-        uint32_t w[9][4];
+        uint32_t w[3 * TERMS][4];
 #pragma unroll
-        for (int pl = 0; pl < 9; ++pl) {
+        for (int pl = 0; pl < 3 * TERMS; ++pl) {
           const uint4 v = __ldg(a + pl * PLANE);
           w[pl][0] = v.x, w[pl][1] = v.y, w[pl][2] = v.z, w[pl][3] = v.w;
         }
-        six_products_left(u1[m], w[0], w[1], w[2], b[0], b[1], b[2]);
-        six_products_left(u2[m], w[3], w[4], w[5], b[3], b[4], b[5]);
-        six_products_left(u3[m], w[6], w[7], w[8], b[6], b[7], b[8]);
+        if constexpr (TERMS == 3) {
+          six_products_left(u1[m], w[0], w[1], w[2], b[0], b[1], b[2]);
+          six_products_left(u2[m], w[3], w[4], w[5], b[3], b[4], b[5]);
+          six_products_left(u3[m], w[6], w[7], w[8], b[6], b[7], b[8]);
+        } else {
+          three_products_left(u1[m], w[0], w[1], b[0], b[1]);
+          three_products_left(u2[m], w[2], w[3], b[2], b[3]);
+          three_products_left(u3[m], w[4], w[5], b[4], b[5]);
+        }
       }
     }
 #pragma unroll
@@ -460,6 +508,67 @@ __device__ __forceinline__ void stage2_left(
         const float xi = __fsub_rn(__fsub_rn(u3[m][e], u1[m][e]), u2[m][e]);
         acc[i][m][e] = __fadd_rn(
             acc[i][m][e], __fadd_rn(__fmul_rn(xr, xr), __fmul_rn(xi, xi)));
+      }
+  }
+}
+
+// Stage 2 K-stacked (P10 v6k, probes/profile_pallas.py:938-943, 973-977):
+// per Karatsuba part one product of lhs2 = [z0 z0 z0 z1 z1 z2] (rows k1,
+// 6 N2 columns) with vstack(c0 c1 c2 c0 c1 c0), its K loop block-major as
+// the TPU's one dot walks it: the six (z term, weight term) blocks outer,
+// the N2 / 16 chunks of each inner. tpu6's 18 mma per (chunk, n-tile), in
+// another order of f32 sums: each A fragment is loaded by ldmatrix from
+// Z's 9 split planes zp ([k1][n2], rows of ROW bf16: zr0..2, zi0..2,
+// zs0..2, written once by stage 1) for the block that uses it, so z0's
+// three times and z1's twice, and each B fragment from tpu6's 9 weight
+// planes w2 (w2r0..2, w2i0..2, w2s0..2) for its one mma. Items, D
+// fragments and |X|^2 as the frame loop's Karatsuba stage 2.
+template <int LOG2N, int ROW>
+__device__ __forceinline__ void stage2_kstacked(
+    const __nv_bfloat16* zp, const uint2* __restrict__ w2,
+    float (&acc)[FastShape<LOG2N>::ITEMS_PER_WARP][2][4], int warp,
+    int lane) {
+  using S = FastShape<LOG2N>;
+  constexpr int N1 = S::N1, N2 = S::N2;
+  constexpr int ZP_PLANE = N1 * ROW;
+  constexpr int W2_PLANE = (N2 / 16) * (N2 / 8) * 32;
+  // Matrix m = lane >> 3 of an A fragment: rows k1 = 16mt + 8(m & 1) +
+  // (lane & 7), columns n2 from 16c + 8(m >> 1).
+  const int m = lane >> 3;
+#pragma unroll
+  for (int i = 0; i < S::ITEMS_PER_WARP; ++i) {
+    const int item = warp + i * S::WARPS;
+    const int mt = item / (N2 / 16);
+    const int ng = item % (N2 / 16);
+    float u[3][2][4] = {};   // u1, u2, u3 (parts r, i, s) by n-tile
+    const uint32_t at = shared_addr(
+        zp + (16 * mt + 8 * (m & 1) + (lane & 7)) * ROW + 8 * (m >> 1));
+#pragma unroll
+    for (int blk = 0; blk < 6; ++blk) {
+      // Block blk of [z0 z0 z0 z1 z1 z2] against [c0 c1 c2 c0 c1 c0].
+      const int zt = blk < 3 ? 0 : blk < 5 ? 1 : 2;
+      const int ct = blk < 3 ? blk : blk < 5 ? blk - 3 : 0;
+      for (int c = 0; c < N2 / 16; ++c) {
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          uint32_t a[4];
+          ldmatrix_x4(a, at + 2 * ((3 * p + zt) * ZP_PLANE + 16 * c));
+          const uint2* b = w2 + (3 * p + ct) * W2_PLANE +
+                           (c * (N2 / 8) + 2 * ng) * 32 + lane;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) mma_bf16(u[p][j], a, __ldg(b + 32 * j));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xr = __fsub_rn(u[0][j][e], u[1][j][e]);
+        const float xi = __fsub_rn(__fsub_rn(u[2][j][e], u[0][j][e]),
+                                   u[1][j][e]);
+        acc[i][j][e] = __fadd_rn(
+            acc[i][j][e], __fadd_rn(__fmul_rn(xr, xr), __fmul_rn(xi, xi)));
       }
   }
 }
@@ -1145,21 +1254,23 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
             acc[0][j][2 * h] = add_norm(acc[0][j][2 * h], o.x, o.y);
             acc[0][j][2 * h + 1] = add_norm(acc[0][j][2 * h + 1], o.z, o.w);
           } else if constexpr (V::S2_SOURCE == kS2FromPlanes) {
-            // Planes zr0, zr1, zi0, zi1, zs0, zs1, each [k1][n2].
+            // Planes zr0.., zi0.., zs0.. (TERMS2 each: zr0, zr1, zi0, ...,
+            // or the 3-term splits tpu6's stage 2 takes of the same f32
+            // values), each [k1][n2].
             __nv_bfloat16* zp = reinterpret_cast<__nv_bfloat16*>(smem + M::ZP);
             const float zr[2] = {o.x, o.z}, zi[2] = {o.y, o.w};
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
-              __nv_bfloat16 r[2], i[2], s[2];
-              split2(zr[u], r);
-              split2(zi[u], i);
-              split2(__fadd_rn(zr[u], zi[u]), s);
+              __nv_bfloat16 r[TERMS2], i[TERMS2], s[TERMS2];
+              split_terms<TERMS2>(zr[u], r);
+              split_terms<TERMS2>(zi[u], i);
+              split_terms<TERMS2>(__fadd_rn(zr[u], zi[u]), s);
               const int at = (k1 + u) * M::ROW + n2;
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
+              for (int e = 0; e < TERMS2; ++e) {
                 zp[e * M::ZP_PLANE + at] = r[e];
-                zp[(2 + e) * M::ZP_PLANE + at] = i[e];
-                zp[(4 + e) * M::ZP_PLANE + at] = s[e];
+                zp[(TERMS2 + e) * M::ZP_PLANE + at] = i[e];
+                zp[(2 * TERMS2 + e) * M::ZP_PLANE + at] = s[e];
               }
             }
           } else {
@@ -1181,8 +1292,12 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
         accz[r][1] = add_norm(accz[r][1], v.z, v.w);
       }
     } else if constexpr (V::CUT == kCutFull && V::S2_FORM == kS2Left) {
-      stage2_left<LOG2N>(z, reinterpret_cast<const uint4*>(w2), acc, warp,
-                         lane);
+      stage2_left<LOG2N, V::S2_PRODUCTS>(
+          z, reinterpret_cast<const uint4*>(w2), acc, warp, lane);
+    } else if constexpr (V::CUT == kCutFull && V::S2_FORM == kS2KStacked) {
+      stage2_kstacked<LOG2N, M::ROW>(
+          reinterpret_cast<const __nv_bfloat16*>(smem + M::ZP), w2, acc, warp,
+          lane);
     } else if constexpr (V::CUT == kCutFull) {
     // Stage 2: item = (16 rows k1) x (16 columns k2), the same items in
     // every frame.
@@ -1203,7 +1318,8 @@ psd_fast_group_kernel(const uint4* __restrict__ raw,       // (F, N/8) words
               (16 * mt + 8 * (m & 1) + (lane & 7)) * M::ROW + 16 * c +
               8 * (m >> 1));
 #pragma unroll
-          for (int e = 0; e < 6; ++e) ldmatrix_x4(a[e], at + 2 * e * M::ZP_PLANE);
+          for (int e = 0; e < 3 * TERMS2; ++e)
+            ldmatrix_x4(a[e], at + 2 * e * M::ZP_PLANE);
         } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {

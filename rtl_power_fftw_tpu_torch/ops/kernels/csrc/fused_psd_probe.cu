@@ -32,11 +32,19 @@
 //   P7   profile_pallas.py:build_s1k (680): K3's K-stack in three chains
 //        (reps 1; reps 3, s1k96, is K3 itself);
 //   P8   profile_pallas.py:build_best (766): K3's stage 1, then a 2-term
-//        4-mult stage 2.
+//        4-mult stage 2;
+// and the last two builds of profile_pallas.py, K3's stage 1 with another
+// stage 2:
+//   P9   profile_pallas.py:build_v5 (880): kar is K3 itself; left the
+//        3-product 2-term stage 2 with the weights as the left operand;
+//   P10  profile_pallas.py:build_v6 (1005): the 6-product stage 2, narrow
+//        (tpu6 itself) or K-stacked (one product of [z0 z0 z0 z1 z1 z2] a
+//        part, block-major), here from Z's 3-term split planes; with the
+//        narrow order from the same planes (tpu6_zplanes) as the control.
 //
 // On this card the TPU probes' bf16 four-step scheme is K3
 // (fused_psd_fast.cuh), so P1, P18, P13, P14, P16, P19, P11, P17, P2, P6,
-// P5, P3, P4, P7 and P8 are instantiations of K3's template with
+// P5, P3, P4, P7, P8, P9 and P10 are instantiations of K3's template with
 // compile-time variant parameters;
 // K1's cuts (fused_psd.cuh) ask P1's question of the FP32 radix-2 kernel.
 // Every variant runs at the probes' N = 2048 and at K3's own split, N1 x
@@ -104,6 +112,9 @@ enum : int {
   kK3S1Cat = 42,    // P4 s1cat
   kK3S1k32 = 43,    // P7 s1k32
   kK3Best = 44,     // P8 best
+  kK3Left = 45,     // P9 v5left
+  kTpu6ZPlanes = 46,  // tpu6 from Z's 3-term split planes (P10's control)
+  kTpu6KStack = 47, // P10 v6k
 };
 
 // The shared-memory carveout (percent of the largest) of a launch pinned to
@@ -285,6 +296,10 @@ cudaError_t launch_variant(int variant, const void* raw, const void* w1r,
     RPF_FAST(kK3S1k32, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2Karatsuba,
              false, 1, false, kS1SplitK)
     RPF_FAST(kK3Best, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2FourMult)
+    RPF_FAST(kK3Left, 3, 3, true, kCutFull, kInRaw, kS2FromZ, kS2Left)
+    RPF_FAST(kTpu6ZPlanes, 3, 6, true, kCutFull, kInRaw, kS2FromPlanes)
+    RPF_FAST(kTpu6KStack, 3, 6, true, kCutFull, kInRaw, kS2FromPlanes,
+             kS2KStacked)
     RPF_K1(kK1, kK1Full)
     RPF_K1(kK1Dq, kK1Dequant)
     RPF_K1(kK1NoFftCut, kK1NoFft)
@@ -375,9 +390,10 @@ extern "C" {
 // Runs variant `variant` (the codes above) `iters` times on `stream`, each
 // time both passes. raw: (F, 2N) u8, 16-byte aligned, N = 2048; K3's
 // variants take w1r, w1i, twiddle ((N2, N1, 2) f32) and w2 (6 B-fragment
-// planes, or 9 for the 6-product scheme; the left form's 9 A-fragment
-// planes; P6's 6 with permuted rows) as fused_psd_fast.py and
-// fused_psd_probe.py pack them (the packed forms' w1r, w1i: the
+// planes, or 9 for the 6-product scheme, K-stacked too; the left form's
+// 9 A-fragment planes, 6 at 3 products; P6's 6 with permuted rows) as
+// fused_psd_fast.py and fused_psd_probe.py pack them (the packed forms'
+// w1r, w1i: the
 // block-diagonal stacks; the wide form's w1r: its N-stacked weights, the
 // Karatsuba forms' w1r: the 9 planes or their block-diagonal (9 N1, 3 N1)
 // matrix, w1i unread in all three; P8's w2: K3's 6 planes, 4 read), and

@@ -1,5 +1,5 @@
-"""Stage-attribution, stage-2, stage-1 packing and Karatsuba probes of K3
-and K1 on Hopper, and P12's relayouts.
+"""Stage-attribution, stage-2, stage-1 packing, Karatsuba and K-stacking
+probes of K3 and K1 on Hopper, and P12's relayouts.
 
 Replaces the TPU probes that asked where the fused kernel's time goes:
 P1 (``probes/profile_pallas.py:build``, ``pallas_call`` at 115), P18
@@ -13,7 +13,8 @@ packed stage 1's operands: P17 (``probes/s2_u32t.py:build``, 154), P2
 588) and P5 (``build_s1wide``, 492); and those that asked what Karatsuba
 and K-stacking are worth: P3 (``build_dg3dall``, 309), P4
 (``build_s1cat``, 390), P7 (``build_s1k``, 680) and P8 (``build_best``,
-766), with hand-written CUDA C++ for sm_90a
+766); and the module's last two builds, P9 (``build_v5``, 880) and P10
+(``build_v6``, 1005), with hand-written CUDA C++ for sm_90a
 (``csrc/fused_psd_probe.cu``). On this card the TPU probes' bf16
 four-step scheme is K3, so each TPU variant becomes one compile-time
 variant of K3's template (``csrc/fused_psd_fast.cuh``); K1's cuts
@@ -38,7 +39,16 @@ P7 change it again: ``k3_dg3dall`` (the Karatsuba of 3 products against
 :func:`s1cat_weights`, zero blocks multiplied: P3's output bit for bit)
 and ``k3_s1k32`` (K3's K-stack in three chains, P7's reps 1; its reps 3,
 ``s1k96``, is ``k3``); P8's ``k3_best`` keeps K3's stage 1 and multiplies
-stage 2 as the 2-term 4-mult product (:func:`best_weights`).
+stage 2 as the 2-term 4-mult product (:func:`best_weights`). P9's ``kar``
+(argv ``v5``) is ``k3`` and its ``left`` (``v5left``) ``k3_left``, K3's
+Karatsuba stage 2 at 3 products with the 2-term weights as the left
+operand (:func:`left_w2`; K3 bit for bit on the card); P10's narrow form
+(``v6``) is ``tpu6`` and its K-stacked one (``v6k``) ``tpu6_kstack``:
+tpu6's 18 products from Z's 3-term split planes in the order of one
+product of [z0 z0 z0 z1 z1 z2] with :func:`kstack_weights` (the six
+blocks outer, the chunks inner); ``tpu6_zplanes``, tpu6's own order from
+the same planes, is the control that separates the staging from the
+order (tpu6 bit for bit).
 
 :data:`VARIANTS` is the registry: each Hopper variant, the TPU probe
 variants it stands for (two TPU names that became one Hopper variant are
@@ -56,7 +66,8 @@ base. The outputs, all (N,) float32 summed over the frames < n_valid:
   ``k3_dg3dall``/``k3_s1cat`` :func:`karatsuba_weights`/
   :func:`s1cat_weights`, ``tpu6_4mult`` and ``k3_best`` multiply by
   :func:`fourmult_weights`/:func:`best_weights`, the ``left`` forms
-  contract n2 from the left);
+  contract n2 from the left, ``tpu6_kstack`` sums the blocks of
+  :func:`kstack_weights` in stack order);
   ``nomm`` and the cuts after stage 1, the twiddle and the Z store: the
   sums of |Y|^2 or |Z|^2 in (n2, k1) order, index n2*N1 + k1;
 - the gather and dequantization cuts: the sum of every value the kernel
@@ -100,8 +111,9 @@ N1, N2 = ff.fast_split(N)
 CUT_FULL, CUT_GATHER, CUT_DEQUANT, CUT_STAGE1, CUT_TWIDDLE, CUT_ZSTORE = \
     range(6)
 IN_RAW, IN_BF16, IN_WIDE32, IN_PAIR32, IN_LINEAR = range(5)
-# Stage-2 forms (kS2Karatsuba, kS2FourMult, kS2Left).
-KARATSUBA, FOURMULT, LEFT = "karatsuba", "fourmult", "left"
+# Stage-2 forms (kS2Karatsuba, kS2FourMult, kS2Left, kS2KStacked).
+KARATSUBA, FOURMULT, LEFT, KSTACKED = ("karatsuba", "fourmult", "left",
+                                       "kstacked")
 # Stage-1 forms (kS1KStack, kS1Packed, kS1PackedPQ, kS1Wide, kS1Karatsuba,
 # kS1KaratsubaCat, kS1SplitK).
 KSTACK, PACKED, PACKED_PQ, WIDE = "kstack", "packed", "packed_pq", "wide"
@@ -276,12 +288,15 @@ P3_SRC = "probes/profile_pallas.py:255-323"
 P4_SRC = "probes/profile_pallas.py:326-404"
 P7_SRC = "probes/profile_pallas.py:611-694"
 P8_SRC = "probes/profile_pallas.py:708-780"
+P9_SRC = "probes/profile_pallas.py:790-894"
+P10_SRC = "probes/profile_pallas.py:909-1019"
 
 #: Every Hopper variant, by name; codes as in fused_psd_probe.cu.
 VARIANTS: Dict[str, Variant] = {v.name: v for v in (
-    # P7's reps 3 is K3's own K-stack (fused_psd.py:166-169).
-    _k3("k3", 0, (f"P1 full ({P1_SRC})", f"P7 s1k96 ({P7_SRC})"),
-        parity="K3"),
+    # P7's reps 3 is K3's own K-stack (fused_psd.py:166-169); P9's kar is
+    # it with integer dequantization, the same bf16 values.
+    _k3("k3", 0, (f"P1 full ({P1_SRC})", f"P7 s1k96 ({P7_SRC})",
+                  f"P9 v5 ({P9_SRC})"), parity="K3"),
     _k3("s2x1", 1, (f"P1 s2x1 ({P1_SRC})",), s2_products=1),
     _k3("s1x1", 2, (f"P1 s1x1 ({P1_SRC})",), s1_terms=1, s2_products=1),
     _k3("nomm", 3, (f"P1 nomm ({P1_SRC})",), s1_terms=0, cut=CUT_ZSTORE),
@@ -289,8 +304,8 @@ VARIANTS: Dict[str, Variant] = {v.name: v for v in (
     _k3("zplanes", 5, (f"P1 dg3d ({P1_SRC})",), parity="K3",
         s2_planes=True),
     # Also P14 v6, P16 base, P19 base and P11 base (PROBES).
-    _k3("tpu6", 6, (f"P18 full ({P18_SRC})", f"P13 full ({P13_SRC})"),
-        s2_products=6),
+    _k3("tpu6", 6, (f"P18 full ({P18_SRC})", f"P13 full ({P13_SRC})",
+                    f"P10 v6 ({P10_SRC})"), s2_products=6),
     _k3("tpu6_bf16in", 7, (f"P18 widedq ({P18_SRC})",
                            f"P13 f32tr ({P13_SRC})"),
         parity="tpu6", s2_products=6, layout=IN_BF16),
@@ -343,6 +358,17 @@ VARIANTS: Dict[str, Variant] = {v.name: v for v in (
         s1_form=CAT),
     _k3("k3_s1k32", 43, (f"P7 s1k32 ({P7_SRC})",), s1_form=SPLIT_K),
     _k3("k3_best", 44, (f"P8 best ({P8_SRC})",), s2_form=FOURMULT),
+    # K3's products transposed, in K3's order per accumulator: on the
+    # H100 the mma gives the same f32 sums either way round (measured).
+    _k3("k3_left", 45, (f"P9 v5left ({P9_SRC})",), parity="K3",
+        s2_form=LEFT),
+    # After tpu6: the same f32 Z split once into 9 planes by stage 1, the
+    # same bf16 terms and products in tpu6's order per accumulator.
+    _k3("tpu6_zplanes", 46, (f"control of P10: v6 from Z's split planes "
+                             f"({P10_SRC})",), parity="tpu6",
+        s2_products=6, s2_planes=True),
+    _k3("tpu6_kstack", 47, (f"P10 v6k ({P10_SRC})",), s2_products=6,
+        s2_planes=True, s2_form=KSTACKED),
     Variant("k1_full", 20, "k1", ("K1 whole (P1's question of K1)",), "K1",
             RTOL_K1, psd=True),
     Variant("k1_dqonly", 21, "k1",
@@ -377,8 +403,8 @@ PROBES: Dict[str, Probe] = {p.tpu: p for p in (
           ("full", "s2x1", "s1x1", "nomm", "notw", "dg3d", "k1_full",
            "k1_nofft", "k1_dqonly"), then=("P2",)),
     # The other builds of profile_pallas.py, which its argv names (243,
-    # 419, 424, 508, 604, 696-705, 782): profile_kernel takes them beside
-    # P1's.
+    # 419, 424, 508, 604, 696-705, 782, 896-906, 1021-1027):
+    # profile_kernel takes them beside P1's.
     Probe("P2", "probes/profile_pallas.py:227", "profile_kernel",
           {"pack8": "k3_pack"}, ("pack8",)),
     Probe("P6", "probes/profile_pallas.py:588", "profile_kernel",
@@ -393,6 +419,11 @@ PROBES: Dict[str, Probe] = {p.tpu: p for p in (
           {"s1k32": "k3_s1k32", "s1k96": "k3"}, ("s1k32", "s1k96")),
     Probe("P8", "probes/profile_pallas.py:766", "profile_kernel",
           {"best": "k3_best"}, ("best",)),
+    # The argv names of build_v5 and build_v6 (896-906, 1021-1027).
+    Probe("P9", "probes/profile_pallas.py:880", "profile_kernel",
+          {"v5": "k3", "v5left": "k3_left"}, ("v5", "v5left")),
+    Probe("P10", "probes/profile_pallas.py:1005", "profile_kernel",
+          {"v6": "tpu6", "v6k": "tpu6_kstack"}, ("v6", "v6k")),
     Probe("P18", "probes/s1_lanes.py:151", "s1_lanes",
           {"full": "tpu6", "widedq": "tpu6_bf16in", "s1only": "s1only",
            "s1tw": "s1tw", "s1tw2": "s1tw_z", "dqonly": "dq_gather",
@@ -423,7 +454,7 @@ PROBES: Dict[str, Probe] = {p.tpu: p for p in (
 def entry_probes(tpu: str) -> List[Probe]:
     """The probes whose variant names probe ``tpu``'s entry point takes:
     its own, then the others of its module (``profile_kernel``: P1's,
-    P2's, P6's, P5's, P3's, P4's, P7's and P8's)."""
+    P2's, P6's, P5's, P3's, P4's, P7's, P8's, P9's and P10's)."""
     own = PROBES[tpu]
     return [own] + [p for p in PROBES.values()
                     if p.module == own.module and p is not own]
@@ -564,11 +595,14 @@ def _k3_reference(v: Variant, raw_u8: torch.Tensor, n_valid: int,
     if v.cut in (CUT_TWIDDLE, CUT_ZSTORE):
         return _frame_sum(zr * zr + zi * zi, n_valid, chunk)
     if v.s2_form == LEFT:
-        # X[k2][k1] = sum_n2 W2ᵀ[k2][n2] Z[n2][k1] (s2_left.py:109-130),
-        # (F, k2, k1): bin order with no final swap.
+        # X[k2][k1] = sum_n2 W2ᵀ[k2][n2] Z[n2][k1] (s2_left.py:109-130;
+        # at 3 products profile_pallas.py:831-838), (F, k2, k1): bin order
+        # with no final swap.
         def left(z, w2):
             z0, z1, z2 = ff._split3(z)
             wt = w2.transpose(1, 2)
+            if v.s2_products == 3:
+                return wt[0] @ z0 + wt[1] @ z0 + wt[0] @ z1
             return (wt[0] @ z0 + wt[1] @ z0 + wt[2] @ z0 + wt[0] @ z1
                     + wt[1] @ z1 + wt[0] @ z2)
         u1, u2, u3 = left(zr, w2r), left(zi, w2i), left(zr + zi, w2s)
@@ -602,21 +636,40 @@ def _stage2_sum(v: Variant, zr: torch.Tensor, zi: torch.Tensor, w2r, w2i,
             mats = fourmult_weights()
         XR, XI = (torch.from_numpy(ff.bf16_value(m)).to(zr.device)
                   .reshape(len(lhs2), N2, N2) for m in mats)
-        xr, xi = lhs2[0] @ XR[0], lhs2[0] @ XI[0]
-        for b in range(1, len(lhs2)):
-            xr = xr + lhs2[b] @ XR[b]
-            xi = xi + lhs2[b] @ XI[b]
+        xr, xi = (_block_sum(lhs2, M) for M in (XR, XI))
     else:
         zs = zr + zi
-        u1 = _stage2(zr, w2r, v.s2_products)
-        u2 = _stage2(zi, w2i, v.s2_products)
-        u3 = _stage2(zs, w2s, v.s2_products)
+        if v.s2_form == KSTACKED:
+            # P10 v6k (profile_pallas.py:973-977): per part one lhs [z0 z0
+            # z0 z1 z1 z2] against the text's stack, blocks in stack order
+            def part(z, stack):
+                z0, z1, z2 = ff._split3(z)
+                W = torch.from_numpy(ff.bf16_value(stack)).to(z.device)
+                return _block_sum([z0, z0, z0, z1, z1, z2],
+                                  W.reshape(6, N2, N2))
+            u1, u2, u3 = (part(z, m)
+                          for z, m in zip((zr, zi, zs), kstack_weights()))
+        else:
+            u1 = _stage2(zr, w2r, v.s2_products)
+            u2 = _stage2(zi, w2i, v.s2_products)
+            u3 = _stage2(zs, w2s, v.s2_products)
         xr = u1 - u2
         xi = u3 - u1 - u2
     pwr = (xr * xr + xi * xi).reshape(F, N1, N2)
     pwr[n_valid:] = 0.0
     s = pwr.reshape(F // chunk, chunk, N1, N2).sum(dim=1).sum(dim=0)
     return s.t().reshape(N)        # (k2, k1) row-major = bin order
+
+
+def _block_sum(lhs2, W: torch.Tensor) -> torch.Tensor:
+    """A K-stacked product lhs2 · vstack(W) as its blocks of depth N2,
+    each an f32 product, summed in stack order (the kernels' mma add each
+    block's products to the running sum in that order; one f32 product
+    of the whole depth sums otherwise)."""
+    out = lhs2[0] @ W[0]
+    for b in range(1, len(lhs2)):
+        out = out + lhs2[b] @ W[b]
+    return out
 
 
 def _pair_word_planes(raw_u8: torch.Tensor):
@@ -833,6 +886,31 @@ def best_weights() -> Tuple[np.ndarray, np.ndarray]:
     return XR, XI
 
 
+@functools.lru_cache(maxsize=1)
+def kstack_weights() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """P10 v6k's stage-2 stacks (``probes/profile_pallas.py:938-943``),
+    (6·N2, N2) bf16 bit patterns each: vstack(c0 c1 c2 c0 c1 c0) of the
+    3-term splits of the length-N2 DFT's real part, imaginary part and
+    their sum, against the lhs [z0 z0 z0 z1 z1 z2] of each part; tpu6's
+    own terms (the kernel reads them as tpu6's 9 B-fragment planes)."""
+    *_, w2r, w2i, w2s = ff.constants(N, N1, N2, False)
+    order = (0, 1, 2, 0, 1, 0)
+    return tuple(np.vstack([m[j] for j in order]) for m in (w2r, w2i, w2s))
+
+
+@functools.lru_cache(maxsize=2)
+def left_w2(products: int) -> np.ndarray:
+    """The left form's stage-2 weights: the terms of w2r, w2i and w2s
+    transposed (rows k2, columns n2) as A-fragment planes, 3 terms each at
+    6 products (tpu6's, P16 left) or 2 at 3 (K3's, P9 v5left,
+    ``probes/profile_pallas.py:799-805``): (3·terms, N2/16, N2/16, 32, 8)
+    uint16 in the order w2r0.., w2i0.., w2s0.."""
+    terms = {6: 3, 3: 2}[products]
+    *_, w2r, w2i, w2s = ff.constants(N, N1, N2, False)
+    return np.stack([pack_a_fragments(np.ascontiguousarray(m[j].T))
+                     for m in (w2r, w2i, w2s) for j in range(terms)])
+
+
 def pack_a_fragments(bits: np.ndarray) -> np.ndarray:
     """An (M, K) bf16 matrix as ``mma.m16n8k16`` A fragments: (M/16,
     K/16, 32, 8) uint16, where lane l of tile (mt, kc) holds its four A
@@ -863,14 +941,9 @@ def _tpu6_w2(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(w2.view(np.int16)).to(device)
 
 
-@functools.lru_cache(maxsize=4)
-def _left_w2(device: torch.device) -> torch.Tensor:
-    """The left form's stage-2 weights: the 9 terms transposed (rows k2,
-    columns n2) as A-fragment planes, in tpu6's order."""
-    _, _, _, _, w2r, w2i, w2s = ff.constants(N, N1, N2, False)
-    w2 = np.stack([pack_a_fragments(np.ascontiguousarray(m[j].T))
-                   for m in (w2r, w2i, w2s) for j in range(3)])
-    return torch.from_numpy(w2.view(np.int16)).to(device)
+@functools.lru_cache(maxsize=8)
+def _left_w2(device: torch.device, products: int) -> torch.Tensor:
+    return torch.from_numpy(left_w2(products).view(np.int16)).to(device)
 
 
 @functools.lru_cache(maxsize=4)
@@ -979,7 +1052,7 @@ def fused_psd_probe(variant: str, raw_u8: torch.Tensor, n_valid: int,
             w1r = w1i = _wide_w1(device).data_ptr()
         elif v.s1_form in (KARATSUBA3, CAT):
             w1r = w1i = _karatsuba_w1(device, v.s1_form == CAT).data_ptr()
-        w2 = (_left_w2(device) if v.s2_form == LEFT
+        w2 = (_left_w2(device, v.s2_products) if v.s2_form == LEFT
               else _tpu6_w2(device) if v.s2_products == 6
               else _pq_w2(device) if v.s1_form == PACKED_PQ
               else ops[3]).data_ptr()

@@ -1,6 +1,6 @@
-"""The port's probe entry points: the stage-attribution, stage-2 and
-stage-1 packing probes of the TPU kernels, asked of the port's Hopper
-kernels.
+"""The port's probe entry points: the stage-attribution, stage-2, stage-1
+packing, Karatsuba and K-stacking probes of the TPU kernels, asked of the
+port's Hopper kernels.
 
 Each module runs as ``python -m rtl_power_fftw_tpu_torch.probes.<name>
 [variant[:tile] ...] [--device cpu|cuda]`` and prints one
@@ -8,8 +8,9 @@ line per variant, ``name tile per-step µs GS/s max_rel|(timing only)``:
 
 - ``profile_kernel``: P1 (``probes/profile_pallas.py:build``) on K3's
   template, and K1's cuts (``k1_full``, ``k1_nofft``, ``k1_dqonly``);
-  also P2 ``pack8``, P6 ``pack8c`` and P5 ``s1wide`` (the same module's
-  ``build_pack8``, ``build_pack8c`` and ``build_s1wide``);
+  also P2 ``pack8``, P6 ``pack8c``, P5 ``s1wide``, P3 ``dg3dall``, P4
+  ``s1cat``, P7 ``s1k32``/``s1k96``, P8 ``best``, P9 ``v5``/``v5left``
+  and P10 ``v6``/``v6k`` (the same module's other builds);
 - ``s1_lanes``: P18 (``probes/s1_lanes.py:build``);
 - ``s1_lanes2``: P13 (``probes/s1_lanes2.py:build``);
 - ``cast_test``: P12's nine relayouts (``probes/cast_test.py``);

@@ -361,8 +361,9 @@ def test_registry_is_consistent():
            "fused_psd_probe.cu").read_text()
     for v in fpp.VARIANTS.values():
         assert f" = {v.code}," in src
-    # two TPU names against one Hopper variant
-    assert len(fpp.VARIANTS["tpu6"].tpu) == 2
+    # more TPU names against one Hopper variant (P18 full, P13 full, P10
+    # v6)
+    assert len(fpp.VARIANTS["tpu6"].tpu) == 3
     assert len(fpp.VARIANTS["tpu6_bf16in"].tpu) == 2
     # every TPU variant of the four probes is in the registry
     assert set(fpp.PROBES["P1"].variants) >= {
