@@ -9,11 +9,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 1. machine: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles every CUDA source in ``ops/kernels/csrc`` with nvcc,
    one process per source, started together;
-3. K1 (``fused_psd``) against its plain PyTorch version on the card, at
-   the shapes the main path gives it and at N = 256, 2048, 16384, with a
-   masked ``n_valid`` case, against a float64 transcription of
-   ``tests/golden.py:golden_accumulate``, and under 35 dB tones against
-   the scipy float32 FFT (the FFTW-class error budget);
+3. K1 (``fused_psd``, the register transform of ``fused_psd_regs.cuh``)
+   against its plain PyTorch version on the card, at the shapes the main
+   path gives it and at N = 256, 2048, 16384, with a masked ``n_valid``
+   case, against a float64 transcription of
+   ``tests/golden.py:golden_accumulate``, run twice for determinism, and
+   its admission yard: 60 seeds of 35 dB tones, unwindowed, at N = 256,
+   2048 and 16384 against the scipy float32 FFT of the same frames (the
+   FFTW-class error budget), with the per-seed p99 of the ratio;
 4. K2 (``fused_psd`` with a window) against its plain version and the
    windowed float64 golden (Hann and Blackman, N = 256, 2048, 8192, one
    masked case, run twice for determinism), and its admission yard: 60
@@ -36,7 +39,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    35 dB tones at config 5's step, the combined sum against the scipy
    float32 FFT (the FFTW-class budget);
 7. times of K1, K2, K3, K4, the large-N kernel, their plain versions and
-   ``torch.fft.fft`` with CUDA events;
+   ``torch.fft.fft`` with CUDA events, and at each K1/K2 shape the
+   radix-2 kernel K1 and K2 were (``fused_psd_probe.radix2_psd``, the
+   control) before and after them, the ratio printed;
 8. end to end through ``cli.main`` in-process: the canonical 2048-bin
    20,000-spectrum drive (K1), a hopping matrix drive with a dead hop
    (K1), BASELINE config 2 (8192 bins, Hann, 50% Welch overlap; K2)
@@ -76,7 +81,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    variant against its plain version at N = 2048,
    F = 4096, with all frames valid and with 1000, twice for determinism;
    P1 ``full`` and ``dg3d``, P2 ``pack8`` and P9 ``v5left`` bit-identical
-   to the shipping K3, ``k1_full`` to K1, the layout variants and the
+   to the shipping K3, ``k1r_full`` to K1 and ``k1_full`` (the radix-2
+   control) within 1e-5 of it, the layout variants and the
    schedules (P19 ``ilv``, ``ilv4``, P11 ``pipe``) of the 6-product
    scheme and its order from Z's 3-term split planes (``tpu6_zplanes``)
    to its ``full``, P17 ``u32t`` to P16 ``e2``, P4 ``s1cat`` to P3
@@ -84,7 +90,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    scheme printed; P12 equal to torch's
    reshape/permute; ptxas's
    registers and spills of every instantiation at N = 2048 (the shipping
-   K1 and K3 beside them); each variant's slope time (the probes' own
+   K1's and K3's beside them, and K1's blocks per SM at every size);
+   each variant's slope time (the probes' own
    method), its plain version's, its bound and ``torch.fft.fft``'s;
    and device time by kernel under ``torch.profiler`` for K3, ``dg3d``,
    K1 and the gather cut (the row sum's own time beside each group
@@ -94,17 +101,20 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    6-product scheme's for K3's template, and for the 6-product scheme's
    variants, the left forms (P9 ``v5left`` among them), K3 and the other
    variants that get fewer blocks than K3 also the least any of the
-   6-product family gets; K1's for K1's cuts), its output unchanged;
+   6-product family gets; K1's for K1's cuts, the radix-2 kernel's for
+   its cuts), its output unchanged;
 12. the probes' entry points (``python -m
    rtl_power_fftw_tpu_torch.probes.{profile_kernel,s1_lanes,s1_lanes2,
    cast_test,s2_fourmult,s2_left,s2_ilv,s2_pipe,s2_u32t}``, and
    ``profile_kernel pack8c s1wide s1wide:8``, ``profile_kernel dg3dall
-   s1cat s1k32 s1k96 best best:8`` and ``profile_kernel v5 v5left v6
-   v6k``) in-process, each with every launch
+   s1cat s1k32 s1k96 best best:8``, ``profile_kernel v5 v5left v6
+   v6k`` and the register kernel's cuts, ``profile_kernel k1r_full
+   k1r_dqonly k1r_nofft``) in-process, each with every launch
    counter reset just before it: exit 0, one line per variant run, and
    every one of those variants launched (the probes' ``launches`` are
    this run's); then ``profile_kernel`` again over a
-   sweep of frames per block (``variant:tile``) for K3, ``dg3d`` and K1,
+   sweep of frames per block (``variant:tile``) for K3, ``dg3d``, the
+   radix-2 kernel and K1,
    and ``s2_pipe`` and ``s2_ilv`` at 16 frames a block, their launches on
    lines of their own.
 
@@ -335,14 +345,24 @@ def phase_k2(dev, rng, fp, adapt_batch, make_window):
           and fp.COUNTS.kernel == 0 and fp.COUNTS.plain == 0,
           f"K2 launch counter did not move as expected: {vars(fp.COUNTS)}")
 
-    # Admission yard (ROADMAP): 60 seeds, Hann, 35 dB tones, median <=
-    # 1.5x and max <= 3x the scipy float32 class, per-seed p99 printed.
-    for N, F in ((2048, 64), (8192, 64), (16384, 32)):
-        w_np = make_window("hann", N)
-        w = torch.from_numpy(w_np).to(dev)
+    # Admission yard (ROADMAP): 60 seeds, Hann, 35 dB tones.
+    tone_yard("K2", dev, fp, make_window, "hann",
+              ((2048, 64), (8192, 64), (16384, 32)), 3000)
+    return max_abs
+
+
+def tone_yard(label, dev, fp, make_window, wname, sizes, seed0) -> None:
+    """A kernel's admission yard (ROADMAP North star): 60 seeds of 35 dB
+    tones at each (N, F) of ``sizes`` through ``fused_psd`` (windowed by
+    ``wname``, or not), against the scipy float32 FFT of the same input:
+    median <= 1.5x and max <= 3x its error, the per-seed p99 of the ratio
+    printed."""
+    for N, F in sizes:
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
         ours, cls, plain = [], [], []
         for seed in range(60):
-            raw_np = tone_frames(N, F, 3000 + seed)
+            raw_np = tone_frames(N, F, seed0 + seed)
             gold = golden_partial(raw_np, F, w_np)
             raw = torch.from_numpy(raw_np).to(dev)
             ours.append(max_rel(fp.fused_psd(raw, F, F, w).cpu().numpy(),
@@ -353,15 +373,15 @@ def phase_k2(dev, rng, fp, adapt_batch, make_window):
         e, c = np.asarray(ours), np.asarray(cls)
         r = e / c
         med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
-        print(f"K2 yard N={N} F={F} hann, 60 seeds of 35 dB tones: max rel "
-              f"median {np.median(e):.3e} / max {e.max():.3e}; scipy f32 "
-              f"{np.median(c):.3e} / {c.max():.3e}; plain (cuFFT) "
-              f"{np.median(plain):.3e} / {max(plain):.3e}; ratio median "
-              f"{med_r:.2f}x (<= 1.5), max {max_r:.2f}x (<= 3), per-seed "
-              f"p99 {np.quantile(r, 0.99):.2f}x, per-seed max {r.max():.2f}x")
+        print(f"{label} yard N={N} F={F} window={wname}, 60 seeds of 35 dB "
+              f"tones: max rel median {np.median(e):.3e} / max "
+              f"{e.max():.3e}; scipy f32 {np.median(c):.3e} / "
+              f"{c.max():.3e}; plain (cuFFT) {np.median(plain):.3e} / "
+              f"{max(plain):.3e}; ratio median {med_r:.2f}x (<= 1.5), max "
+              f"{max_r:.2f}x (<= 3), per-seed p99 "
+              f"{np.quantile(r, 0.99):.2f}x, per-seed max {r.max():.2f}x")
         check(med_r <= 1.5 and max_r <= 3.0,
-              f"K2 yard N={N}: above the FFTW-class budget")
-    return max_abs
+              f"{label} yard N={N}: above the FFTW-class budget")
 
 
 def phase_k3(dev, rng, ff, adapt_batch, make_window):
@@ -501,7 +521,7 @@ def phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep):
                          max_rel(got_np[s], alone_np[s])))
         e_plain, e_gold, e_alone = (max(e[i] for e in errs) for i in range(3))
         print(f"K4 {label} (S={S} N={N} F={F} chunk={chunk} frames/block "
-              f"{fp.frames_per_block(S * F, chunk)} n_valid="
+              f"{fp.k1_group(S * F, chunk, N)} n_valid="
               f"{nv.tolist() if counts else F}): max rel per stream vs plain "
               f"{e_plain:.3e}, vs float64 golden {e_gold:.3e}, vs "
               f"{'K1' if w is None else 'K2'} on the stream alone "
@@ -543,12 +563,16 @@ def phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep):
     return max_abs
 
 
-def phase_times(dev, rng, fp, ff, fl, adapt_batch, make_window, card):
+def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
     """Median CUDA-event times (us/step): kernel, plain, kernel again, and
     torch.fft.fft over the same frames already in complex64 on the card
-    (the transform alone: the library yardstick)."""
-    times = {}
+    (the transform alone: the library yardstick); at the K1/K2 shapes also
+    the radix-2 control (``fpp.radix2_psd``) before and after them, its
+    output within 1e-5 of the kernel's. Returns the times by shape and the
+    control's (first, second) by shape."""
+    times, control = {}, {}
     shapes = [("K1", 2048, 4096, None), ("K1", 2048, 400, None),
+              ("K1", 256, 3200, None), ("K1", 16384, 256, None),
               ("K2", 2048, 4096, "hann"), ("K2", 8192, 1024, "hann"),
               ("K2", 8192, 104, "hann"), ("K3", 2048, 4096, None),
               ("K3", 2048, 4096, "hann"), ("K3", 8192, 1024, None),
@@ -577,12 +601,29 @@ def phase_times(dev, rng, fp, ff, fl, adapt_batch, make_window, card):
         flat = raw.reshape(S * F, 2 * N)
         z = torch.complex(flat[:, 0::2].float() - 127.0,
                           flat[:, 1::2].float() - 127.0)
+        radix2 = name in ("K1", "K2") and N in fpp.RADIX2_N
+        if radix2:
+            vs = max_rel(fpp.radix2_psd(raw, nv, chunk, w).cpu().numpy(),
+                         kernel(raw, nv, chunk, w).cpu().numpy())
+            check(vs <= UNIFORM_RTOL, f"time {name} N={N}: the radix-2 "
+                  f"control is {vs} from the kernel")
+            r_us = event_times_us(lambda: fpp.radix2_psd(raw, nv, chunk, w))
         k_us = event_times_us(lambda: kernel(raw, nv, chunk, w))
         p_us = event_times_us(lambda: plain(raw, nv, chunk, w))
         lib_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
         k_us2 = event_times_us(lambda: kernel(raw, nv, chunk, w))
         b_ms, b_by = bound_ms(name, S * F, N, w is not None, S)
         times[(name, N, F, wname)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by)
+        if radix2:
+            r_us2 = event_times_us(lambda: fpp.radix2_psd(raw, nv, chunk,
+                                                          w))
+            control[(name, N, F, wname)] = (r_us, r_us2)
+            print(f"time {name} N={N} F={F} window={wname} on {card}: the "
+                  f"radix-2 control {r_us:.1f} / {r_us2:.1f} us/step "
+                  f"(frames/block {fp.frames_per_block(F, chunk)}; max rel "
+                  f"from the kernel {vs:.3e}), the kernel {k_us:.1f} / "
+                  f"{k_us2:.1f} (frames/block {fp.k1_group(F, chunk, N)}):"
+                  f" kernel/control {min(k_us, k_us2) / min(r_us, r_us2):.3f}")
         frames = S * F
         print(f"time {name} N={N} F={F}{f' S={S}' if S > 1 else ''} window="
               f"{wname} on {card}: kernel {k_us:.1f} us/step "
@@ -591,7 +632,7 @@ def phase_times(dev, rng, fp, ff, fl, adapt_batch, make_window, card):
               f"({frames * N / p_us / 1e3:.2f} GS/s), torch.fft.fft of the "
               f"complex64 frames {lib_us:.1f} us, bound {1e3 * b_ms:.1f} us "
               f"({b_by})")
-    return times
+    return times, control
 
 
 def reset_counts(fp, ff) -> None:
@@ -828,15 +869,18 @@ def bound_ms(kind: str, frames: int, N: int, windowed: bool,
              out_rows: int = 1):
     """rate_bound_ms of one call: K3's work as the probes count it
     (fused_psd_probe.k3_work; 2 N (12 N1 + 9 N2) bf16 flops per frame, 24
-    N1 windowed), and the FFT-based steps' (K1, K2, K4, the large-N
-    kernel "L") as k1_work does (~5 N log2 N FP32 flops per frame)."""
+    N1 windowed), and the FFT-based steps' (K1, K2, K4 with their
+    pass_twiddles table, the large-N kernel "L") as k1_work does (~5 N
+    log2 N FP32 flops per frame)."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     if kind == "K3":
         return rate_bound_ms(*fpp.k3_work(frames, N, 6 if windowed else 3,
                                           windowed=windowed))
-    return rate_bound_ms(*fpp.k1_work(frames, N, windowed=windowed,
-                                      out_rows=out_rows,
-                                      twiddle_table=kind != "L"))
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
+    return rate_bound_ms(*fpp.k1_work(
+        frames, N, windowed=windowed, out_rows=out_rows,
+        twiddle_table=kind != "L",
+        table_rows=None if kind == "L" else len(fp.pass_twiddles(N))))
 
 
 def phase_large(dev, rng, fp, fl, adapt_batch, make_window):
@@ -1175,6 +1219,14 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
                       f"probe {name} n_valid={nv}: not bit-identical to "
                       f"{v.parity}")
             ship[(name, nv)] = got
+            if name == "k1_full":
+                # the radix-2 control against K1 as it ships
+                vs = max_rel(got.cpu().numpy(),
+                             ship[("K1", nv)].cpu().numpy())
+                print(f"probe k1_full n_valid={nv} against K1 (register "
+                      f"transform): max rel {vs:.3e} (<= {UNIFORM_RTOL:g})")
+                check(vs <= UNIFORM_RTOL, f"probe k1_full n_valid={nv}: "
+                      f"{vs} from K1")
             if v.s2_form == fpp.KSTACKED:
                 # the 6-product scheme's products in another f32 order
                 vs = max_rel(got.cpu().numpy(),
@@ -1197,7 +1249,7 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
         results[name] = (k_us / 1e3, p_us / 1e3, b_ms, b_by, max_abs,
                          fft_us / 1e3)
         print(f"probe {name} ({'; '.join(v.tpu)}) N={N} F={F} chunk={chunk} "
-              f"frames/block {fp.frames_per_block(F, chunk)} on {card}: "
+              f"frames/block {fpp.block_frames(name, F, chunk)} on {card}: "
               f"{k_us:.1f} us/step ({F * N / k_us / 1e3:.2f} GS/s), plain "
               f"{p_us:.1f} us, bound {1e3 * b_ms:.1f} us ({b_by}){done}, "
               f"torch.fft.fft {fft_us:.1f} us; max rel vs plain "
@@ -1207,10 +1259,10 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
           and not fpp.COUNTS.plain,
           f"probe launch counter did not move as expected: {fpp.COUNTS.kernel}"
           f", plain {fpp.COUNTS.plain}")
-    for name in ("k3", "zplanes", "k1_full", "gather"):
+    for name in ("k3", "zplanes", "k1_full", "k1r_full", "gather"):
         profile_calls(f"probe {name} N={N} F={F}",
                       lambda: fpp.fused_psd_probe(name, raw, F, chunk),
-                      ("group_kernel", "psd_sum_kernel"))
+                      ("group_kernel", "regs_kernel", "psd_sum_kernel"))
     probe_occupancy(fpp, raw, F, chunk, card, slope_us)
 
     n = fpp.T * fpp._N1 * fpp._N2
@@ -1238,14 +1290,15 @@ def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
     the whole kernels it is compared with: K3's and the 6-product scheme's
     (every variant of K3's template at both; the 6-product scheme's
     variants, and K3 and those of the others that get fewer blocks than
-    K3, also at the least occupancy any of that family gets), K1's (K1's
-    cuts). A pinned
+    K3, also at the least occupancy any of that family gets), the radix-2
+    kernel's (its cuts), K1's (the register kernel's cuts). A pinned
     launch pads the block's shared memory (largest carveout) so that no
     more blocks reside; its output must not change. K3 pinned at its own
     occupancy is the control: what the padding and carveout alone cost."""
     own = {name: fpp.probe_attributes(name)["blocks_per_sm"]
            for name in fpp.VARIANTS}
-    pins = {"k3": own["k3"], "tpu6": own["tpu6"], "k1": own["k1_full"]}
+    pins = {"k3": own["k3"], "tpu6": own["tpu6"], "k1": own["k1_full"],
+            "k1r": own["k1r_full"]}
     # The chained variants' and the wide stage 1's registers allow one
     # block a SM. The left forms (P16's, P9's) run at this family's pins
     # too.
@@ -1256,8 +1309,8 @@ def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
                    if v.kernel == "k3" and n not in tpu6_family)
 
     def pins_of(name: str, v) -> set:
-        if v.kernel == "k1":
-            return {pins["k1"]}
+        if v.kernel in ("k1", "k1r"):
+            return {pins[v.kernel]}
         both = {pins["k3"], pins["tpu6"]}
         if name in tpu6_family:
             return both | {least_tpu6}
@@ -1316,7 +1369,8 @@ def profile_calls(label, fn, markers, calls: int = 10) -> None:
 #: profile_kernel's frames-per-block sweep (the default is 4 at F = 4096),
 #: and the schedules' at 16 frames a block beside the 6-product scheme's.
 TILE_SWEEP = ["full:1", "full:2", "full:8", "full:16", "dg3d:1", "dg3d:16",
-              "k1_full:1", "k1_full:2", "k1_full:8", "k1_full:16"]
+              "k1_full:1", "k1_full:2", "k1_full:8", "k1_full:16",
+              "k1r_full:4", "k1r_full:8", "k1r_full:32"]
 SCHEDULE_SWEEP = {"s2_pipe": ["base:16", "pipe:16"],
                   "s2_ilv": ["ilv:16", "ilv4:16"]}
 
@@ -1325,7 +1379,9 @@ SCHEDULE_SWEEP = {"s2_pipe": ["base:16", "pipe:16"],
 #: profile_kernel's run without argv is P1's, then P2's (pack8), as the
 #: TPU module's; P6, P5, P3, P4, P7, P8, P9 and P10 are its builds by
 #: name, s1wide and best at 4 and 8 frames a block (the TPU's tiles 128
-#: and 256, profile_pallas.py:508-511, 782-787).
+#: and 256, profile_pallas.py:508-511, 782-787); the register kernel's
+#: cuts run under P1's map, and a probe's launches are those of the first
+#: run that drives it.
 PROBE_RUNS = (("profile_kernel", [], ("P1", "P2")),
               ("profile_kernel", ["pack8c", "s1wide", "s1wide:8"],
                ("P6", "P5")),
@@ -1334,6 +1390,8 @@ PROBE_RUNS = (("profile_kernel", [], ("P1", "P2")),
                ("P3", "P4", "P7", "P8")),
               ("profile_kernel", ["v5", "v5left", "v6", "v6k"],
                ("P9", "P10")),
+              ("profile_kernel", ["k1r_full", "k1r_dqonly", "k1r_nofft"],
+               ("P1",)),
               ("s1_lanes", [], ("P18",)), ("s1_lanes2", [], ("P13",)),
               ("cast_test", [], ("P12",)), ("s2_fourmult", [], ("P14",)),
               ("s2_left", [], ("P16",)), ("s2_ilv", [], ("P19",)),
@@ -1378,7 +1436,7 @@ def drive_probes(fpp) -> dict:
         for tpu in tpus:
             own = (fpp.RELAYOUTS if tpu == "P12"
                    else set(fpp.PROBES[tpu].variants.values()))
-            launches[tpu] = sum(fpp.COUNTS.kernel[v] for v in own)
+            launches.setdefault(tpu, sum(fpp.COUNTS.kernel[v] for v in own))
     from rtl_power_fftw_tpu_torch.probes import profile_kernel
     fpp.COUNTS.reset()
     out = io.StringIO()
@@ -1453,14 +1511,24 @@ def main() -> int:
     for lib, marker, first in (
             ("fused_psd_large", "large_pass_a", ""),
             ("fused_psd_large", "large_pass_b", ""),
-            ("fused_psd", "psd_group_kernel", "11"),
+            ("fused_psd", "psd_regs_kernel", ""),
             ("fused_psd_fast", "psd_fast_group_kernel", "11"),
-            ("fused_psd_probe", "psd_group_kernel", "11"),
+            ("fused_psd_probe", "psd_group_kernel", ""),
+            ("fused_psd_probe", "psd_regs_kernel", ""),
             ("fused_psd_probe", "psd_fast_group_kernel", "11")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
     print(f"build: all sources in {time.perf_counter() - t0:.1f} s wall")
+    for N in sorted(fp.PASS_PLAN):
+        for windowed in (False, True):
+            a = fp.kernel_attributes(N, windowed)
+            print(f"occupancy fused_psd N={N} "
+                  f"{'windowed' if windowed else 'unwindowed'} on {card}: "
+                  f"{a['registers']} registers, {a['spill_bytes']} B spill, "
+                  f"{a['static_smem']} + {a['dynamic_smem']} B shared, "
+                  f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM "
+                  f"(k1_group's table: {fp.BLOCKS_PER_SM[N]})")
 
     # 11.-12. The stage-attribution probes, then their entry points.
     probe_times = phase_probes(dev, np.random.default_rng(0), fpp, ff, fp,
@@ -1508,27 +1576,10 @@ def main() -> int:
     check(COUNTS.kernel == 2 * len(cases) and COUNTS.plain == 0,
           f"launch counter did not move as expected: {vars(COUNTS)}")
 
-    # Under a 35 dB tone the f32 error is class-relative (CLAUDE.md):
-    # median <= 1.5x and max <= 3x the scipy float32 FFT's error.
-    N, F = 2048, 64
-    ours, plain, yard = [], [], []
-    for seed in range(12):
-        raw_np = tone_frames(N, F, 500 + seed)
-        gold = golden_partial(raw_np, F)
-        raw = torch.from_numpy(raw_np).to(dev)
-        ours.append(max_rel(fused_psd(raw, F, 64).cpu().numpy(), gold))
-        plain.append(max_rel(fused_psd_reference(raw, F, 64).cpu().numpy(),
-                             gold))
-        yard.append(max_rel(scipy_f32_class(raw_np), gold))
-    med_ratio = statistics.median(ours) / statistics.median(yard)
-    max_ratio = max(ours) / max(yard)
-    print(f"kernel 35 dB tone N={N} F={F}, 12 seeds: max rel median "
-          f"{statistics.median(ours):.3e} / max {max(ours):.3e}; scipy f32 "
-          f"{statistics.median(yard):.3e} / {max(yard):.3e}; plain (cuFFT) "
-          f"{statistics.median(plain):.3e} / {max(plain):.3e}; ratios "
-          f"median {med_ratio:.2f}x, max {max_ratio:.2f}x")
-    check(med_ratio <= 1.5 and max_ratio <= 3.0,
-          "tone error above the FFTW-class budget")
+    # Admission yard of the register transform (ROADMAP North star): 60
+    # seeds of 35 dB tones, unwindowed, against the scipy float32 class.
+    tone_yard("K1", dev, fp, make_window, None,
+              ((256, 64), (2048, 64), (16384, 32)), 500)
 
     # 4.-6. K2, K3 and K4.
     k2_abs = phase_k2(dev, rng, fp, adapt_batch, make_window)
@@ -1539,7 +1590,8 @@ def main() -> int:
     lap("the large kernel against plain")
 
     # 7. Times (median of 60 event-timed calls after 10 warm-ups).
-    times = phase_times(dev, rng, fp, ff, fl, adapt_batch, make_window, card)
+    times, control = phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch,
+                                 make_window, card)
     lap("times")
 
     # 8. End to end, in-process through the CLI.

@@ -46,6 +46,8 @@ SIGNATURES = {
         # group, stream
         "rpf_fused_psd_streams": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _P],
+        # log2n, windowed, device, attrs (int[6])
+        "rpf_fused_psd_attributes": [_I, _I, _I, _P],
     },
     "fused_psd_fast": {
         # raw, window, w1r, w1i, twiddle, w2, partial, out, device, log2n,
@@ -68,6 +70,9 @@ SIGNATURES = {
         "rpf_probe_attributes": [_I, _I, _I, _P],
         # which, in, out, device, iters, stream
         "rpf_relayout_probe": [_I, _P, _P, _I, _I, _P],
+        # raw, twiddle, window, partial, out, device, log2n, F, group,
+        # n_valid, stream
+        "rpf_radix2_psd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -1,48 +1,53 @@
 // Fused averaged-PSD device step for NVIDIA Hopper (sm_90a).
 //
 // Replaces rtl_power_fftw_tpu/ops/kernels/fused_psd.py:make_fused_psd_fn
-// at default precision: single-stream unwindowed (K1) and windowed (K2),
-// and the streams variant of either (K4, streams=S>1). It computes the
-// same function: raw interleaved u8 IQ frames (F, 2N) -> dequantize
-// (u8 - 127) -> [times window[n] in FP32] -> length-N DFT -> |X|^2 ->
-// drop frames f >= n_valid -> sum over frames, as an (N,) float32 vector
-// of bins in natural (unshifted) order. K4 takes S streams of F frames
-// each, (S*F, 2N), with a count n_valid[s] per stream, and gives one such
-// vector per stream, (S, N).
+// (353-470, pallas_call 435) at default precision: single-stream
+// unwindowed (K1) and windowed (K2), and the streams variant of either
+// (K4, streams=S>1). It computes the same function: raw interleaved u8 IQ
+// frames (F, 2N) -> dequantize (u8 - 127) -> [times window[n] in FP32] ->
+// length-N DFT -> |X|^2 -> drop frames f >= n_valid -> sum over frames, as
+// an (N,) float32 vector of bins in natural (unshifted) order. K4 takes S
+// streams of F frames each, (S*F, 2N), with a count n_valid[s] per stream,
+// and gives one such vector per stream, (S, N).
 //
-// What bounds it on an H100. A radix-2 FFT of length N costs about
-// 5 N log2(N) FP32 flops per frame against 2N bytes read from device
-// memory: ~27 flop/byte at N = 2048, above the ~20 flop/byte where the
-// FP32 CUDA cores stop being fed by 3.35 TB/s. Each radix-2 butterfly
-// also moves 32 bytes through shared memory (two complex loads, two
-// stores) for ~10 flops, so shared-memory bandwidth and the barrier
-// after each of the log2(N) stages bound this kernel, not device memory.
+// What bounds it on an H100. The transform is ~5 N log2(N) FP32 flops a
+// frame against the 2N bytes read from device memory (~27 flop/byte at
+// N = 2048, ~7 us of FP32 work and ~5 us of device memory at F = 4096), so
+// neither the memory nor the FP32 rate is the first limit: the traffic
+// through shared memory and the barriers around it are. An in-place
+// radix-2 FFT in shared memory (fft_radix2.cuh, the kernel this one
+// replaced, kept as the probes' control in fused_psd_probe.cu) moves
+// 32 bytes of shared memory a butterfly, ~360 KB a frame at 2048, with a
+// block barrier after each of its log2(N) stages.
 //
-// What the design does about it:
-//  * device memory is touched once per input byte: each frame is read
-//    coalesced as 32-bit words (two IQ pairs), dequantized in registers
-//    and stored to shared memory as one 16-byte vector per thread;
-//  * the window (K2) costs no memory traffic per frame: a thread loads
-//    the same words w in every frame, so it loads its window values
-//    (samples 2w and 2w+1, one float2 per word) into registers once per
-//    block and multiplies in registers before the store. The windowed
-//    and unwindowed kernels are two instantiations of one template, so
-//    a null window compiles to the K1 code unchanged;
-//  * the FFT is an in-place decimation-in-frequency radix-2 transform in
-//    shared memory (fft_radix2.cuh, shared with fused_psd_large.cu). It
-//    takes input in natural order (no bank-conflicting bit-reversed
-//    scatter on the load) and leaves bins bit-reversed; each thread
-//    accumulates |X|^2 of fixed shared-memory slots in registers across
-//    frames and un-reverses the bin index only once per block, when it
-//    writes its partial row;
-//  * twiddles come from a per-stage table (stage with half-span m holds
-//    W_{2m}^k, k < m, at offset m - 1) so neighbouring threads read
-//    neighbouring addresses; the table is computed on the host in
-//    float64 and rounded once to float32 (no fast-math, no __sinf);
+// What the design does about it (the group kernel: fused_psd_regs.cuh,
+// its transform fft_regs.cuh):
+//  * the transform is in registers: each thread holds 16 complex values
+//    (8 at N = 64) and does radix-16 (or smaller) butterflies on them;
+//    shared memory carries only the exchange between passes, 2-4 passes
+//    by the pass plan (2048 = 16*16*8: two exchanges, ~64 KB a frame, and
+//    three barriers), in buffers padded one float2 per 16 so that no pass
+//    collides on banks;
+//  * the next frame is in flight: cp.async copies its raw bytes, 16 B a
+//    thread, into a second ring slot in shared memory while the current
+//    frame is transformed; a thread reads its samples from the ring as
+//    u16 pairs and dequantizes them exactly in registers (u8 - 127 by
+//    float bits, no conversion instruction); the window (K2) is held in
+//    registers for the whole block;
+//  * |X|^2 is summed in f32 registers for each of the thread's output
+//    slots across its frames; the slot -> bin map (the pass plan's digit
+//    reversal) is applied once a block, when the partial row is written;
+//  * fewer, longer blocks: the wrapper gives each block as many frames as
+//    put the grid within the blocks the card holds resident (one wave),
+//    so the second pass reads a quarter of the partial rows it read
+//    before at N = 2048, F = 4096;
+//  * twiddles between passes come from one table (pass_twiddles in
+//    fused_psd.py) computed on the host in float64 and rounded once to
+//    float32; the radix-16 constants likewise (no fast-math, no __sinf);
 //  * no float atomics: block g writes the f32 sum of its frames to
-//    partial row g, and a second kernel (psd_sum.cuh) sums the G rows of
-//    each bin in a fixed order in float64, so the result is the same on
-//    every run;
+//    partial row g (its lanes added in a fixed order), and a second kernel
+//    (psd_sum.cuh) sums the G rows of each bin in a fixed order in
+//    float64, so the result is the same on every run;
 //  * streams (K4) are a different split of the same grid, not another
 //    kernel: block g serves stream g / G_s and its frames never cross a
 //    stream (the wrapper takes a group that divides F), so stream s owns
@@ -50,25 +55,19 @@
 //    row of the output. The per-stream counts are an (S,) device array
 //    each block reads once, since --streams has no upper bound.
 //
-// Eligibility (Hopper facts): power-of-two N with 64 <= N <= 16384. The
-// complex f32 frame lives in shared memory, 8N bytes: 128 KB at 16384,
-// which needs the opt-in above 48 KB (cudaFuncSetAttribute) and fits the
-// 227 KB a block may use; 32768 (256 KB) does not, and larger N go to the
-// two-pass four-step of fused_psd_large.cu. At N = 64 the N/2 butterflies
-// of a stage fill exactly one warp.
+// Eligibility (Hopper facts): power-of-two N with 64 <= N <= 16384. A lane
+// holds its padded complex f32 frame and two raw ring slots in shared
+// memory, 12.5 N bytes: 200 KB at 16384, which needs the opt-in above
+// 48 KB (cudaFuncSetAttribute) and fits the 227 KB a block may use;
+// larger N go to the two-pass four-step of fused_psd_large.cu.
 //
 // Tensor-core forms (the DFT as matrix products, as the TPU kernel does)
-// are in fused_psd_fast.cu for the relaxed tier; overlapping the next
-// frame's load with the current transform is later work.
-//
-// The group kernel itself is the template of fused_psd.cuh; this file
-// instantiates its default cut (the whole step) at every size.
-// fused_psd_probe.cu instantiates its stage-attribution cuts.
+// are in fused_psd_fast.cu for the relaxed tier.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fused_psd.cuh"
+#include "fused_psd_regs.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -76,23 +75,29 @@ namespace {
 constexpr int kMinLog2N = 6;
 constexpr int kMaxLog2N = 14;
 
+// Sets the kernel's dynamic shared memory limit (above 48 KB by opt-in).
+template <int LOG2N, bool WINDOWED>
+cudaError_t prepare(int* smem) {
+  *smem = RegsShape<LOG2N>::SMEM_BYTES;
+  return cudaFuncSetAttribute(psd_regs_kernel<LOG2N, WINDOWED>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *smem);
+}
+
 template <int LOG2N, bool WINDOWED>
 cudaError_t launch_groups(const void* raw, const void* twiddle,
                           const void* window, void* partial, int F,
                           int group, int G_s, int blocks, int n_valid,
                           const void* stream_n_valid, cudaStream_t stream) {
-  using S = Shape<LOG2N>;
-  const int smem = static_cast<int>(sizeof(float2)) * S::N;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        psd_group_kernel<LOG2N, WINDOWED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  psd_group_kernel<LOG2N, WINDOWED><<<blocks, S::THREADS, smem, stream>>>(
-      static_cast<const uint32_t*>(raw), static_cast<const float2*>(twiddle),
-      static_cast<const float2*>(window), static_cast<float*>(partial), F,
-      group, G_s, n_valid, static_cast<const int*>(stream_n_valid));
+  int smem = 0;
+  const cudaError_t e = prepare<LOG2N, WINDOWED>(&smem);
+  if (e != cudaSuccess) return e;
+  psd_regs_kernel<LOG2N, WINDOWED>
+      <<<blocks, RegsShape<LOG2N>::THREADS, smem, stream>>>(
+          static_cast<const uint8_t*>(raw),
+          static_cast<const float2*>(twiddle),
+          static_cast<const float*>(window), static_cast<float*>(partial), F,
+          group, G_s, n_valid, static_cast<const int*>(stream_n_valid));
   return cudaGetLastError();
 }
 
@@ -108,6 +113,28 @@ cudaError_t launch_groups(const void* raw, const void* twiddle,
              : launch_groups<LOG2N, true>(raw, twiddle, window, partial, F,
                                           group, G_s, blocks, n_valid,
                                           stream_n_valid, stream);
+}
+
+// What the group kernel gets on the current device: registers and spill
+// bytes a thread, static and dynamic shared bytes a block, threads a
+// block, and the blocks that reside on one SM.
+template <int LOG2N, bool WINDOWED>
+cudaError_t attributes(int* attrs) {
+  int smem = 0;
+  cudaError_t e = prepare<LOG2N, WINDOWED>(&smem);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) {
+    e = cudaFuncGetAttributes(&fa, psd_regs_kernel<LOG2N, WINDOWED>);
+  }
+  if (e != cudaSuccess) return e;
+  attrs[0] = fa.numRegs;
+  attrs[1] = static_cast<int>(fa.localSizeBytes);
+  attrs[2] = static_cast<int>(fa.sharedSizeBytes);
+  attrs[3] = smem;
+  attrs[4] = RegsShape<LOG2N>::THREADS;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &attrs[5], psd_regs_kernel<LOG2N, WINDOWED>, RegsShape<LOG2N>::THREADS,
+      smem);
 }
 
 // Both passes for S streams of F frames, G_s blocks per stream.
@@ -138,8 +165,8 @@ int launch_both(const void* raw, const void* twiddle, const void* window,
 
 extern "C" {
 
-// Launches both passes on `stream`. raw: (F, 2N) u8, 4-byte aligned;
-// twiddle: (N - 1, 2) f32; window: (N,) f32, 8-byte aligned, or null for
+// Launches both passes on `stream`. raw: (F, 2N) u8, 16-byte aligned;
+// twiddle: pass_twiddles(N), (rows, 2) f32; window: (N,) f32, or null for
 // K1; partial: (ceil(F / group), N) f32 scratch; out: (N,) f32. Returns a
 // cudaError_t (0 on success); does not synchronise.
 int rpf_fused_psd(const void* raw, const void* twiddle, const void* window,
@@ -154,7 +181,7 @@ int rpf_fused_psd(const void* raw, const void* twiddle, const void* window,
                      stream);
 }
 
-// K4: S streams of F frames. raw: (S*F, 2N) u8, 4-byte aligned, stream s
+// K4: S streams of F frames. raw: (S*F, 2N) u8, 16-byte aligned, stream s
 // in rows [s*F, (s+1)*F); n_valid: (S,) int32 on the device, read by the
 // kernel when it runs (a count outside [0, F] acts as its nearest bound);
 // group must divide F; partial: (S*F/group, N) f32 scratch; out: (S, N)
@@ -170,6 +197,30 @@ int rpf_fused_psd_streams(const void* raw, const void* twiddle,
   }
   return launch_both(raw, twiddle, window, n_valid, partial, out, device,
                      log2n, S, F, group, F / group, 0, stream);
+}
+
+// Writes what the group kernel gets at N = 2^log2n, windowed or not, on
+// `device` into attrs[0..5]: registers and local (spill) bytes a thread,
+// static and dynamic shared bytes a block, threads a block, and the blocks
+// that reside on one SM. Launches nothing.
+int rpf_fused_psd_attributes(int log2n, int windowed, int device,
+                             int* attrs) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || attrs == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+#define RPF_CASE(L)                                                          \
+  case L:                                                                    \
+    e = windowed ? attributes<L, true>(attrs) : attributes<L, false>(attrs); \
+    break;
+  switch (log2n) {
+    RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
+    RPF_CASE(11) RPF_CASE(12) RPF_CASE(13) RPF_CASE(14)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_CASE
+  return static_cast<int>(e);
 }
 
 const char* rpf_cuda_error_string(int error) {

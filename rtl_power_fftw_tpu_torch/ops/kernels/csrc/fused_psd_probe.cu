@@ -46,7 +46,12 @@
 // (fused_psd_fast.cuh), so P1, P18, P13, P14, P16, P19, P11, P17, P2, P6,
 // P5, P3, P4, P7, P8, P9 and P10 are instantiations of K3's template with
 // compile-time variant parameters;
-// K1's cuts (fused_psd.cuh) ask P1's question of the FP32 radix-2 kernel.
+// K1's cuts (fused_psd.cuh) ask P1's question of the FP32 radix-2 kernel
+// that K1 was until its transform moved into registers, and the same cuts
+// of the register kernel (fused_psd_regs.cuh) ask it of K1 as it ships.
+// rpf_radix2_psd runs that radix-2 kernel whole at N = 256, 2048, 8192
+// and 16384, windowed or not: the control the register kernel is timed
+// against.
 // Every variant runs at the probes' N = 2048 and at K3's own split, N1 x
 // N2 = 32 x 64 (the TPU probes ran 16 x 128), on raw interleaved u8 IQ
 // frames, and writes an (N,) f32 output through the same float64 row sum
@@ -69,6 +74,7 @@
 
 #include "fused_psd.cuh"
 #include "fused_psd_fast.cuh"
+#include "fused_psd_regs.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -97,6 +103,9 @@ enum : int {
   kK1 = 20,         // K1, whole
   kK1Dq = 21,       // K1, load + dequantize + store
   kK1NoFftCut = 22, // K1 without the transform
+  kK1r = 23,        // K1 as it ships (the register transform), whole
+  kK1rDq = 24,      // its load (cp.async ring) + dequantize
+  kK1rNoFft = 25,   // it without the transform
   kTpu6Pipe = 30,   // P11 pipe
   kTpu6Ilv2 = 31,   // P19 ilv
   kTpu6Ilv4 = 32,   // P19 ilv4
@@ -233,6 +242,52 @@ cudaError_t launch_k1_cut(const void* raw, const void* twiddle, void* partial,
   return e;
 }
 
+// The register kernel's cut CUT, `iters` times: group kernel, then row
+// sum. twiddle: pass_twiddles(N).
+template <int CUT>
+cudaError_t launch_k1r_cut(const void* raw, const void* twiddle,
+                           void* partial, void* out, int F, int group, int G,
+                           int n_valid, int blocks_per_sm, int iters,
+                           int* attrs, cudaStream_t stream) {
+  using S = RegsShape<kLog2N>;
+  auto* kernel = psd_regs_kernel<kLog2N, false, CUT>;
+  int smem = 0;
+  cudaError_t e = configure(kernel, S::THREADS, S::SMEM_BYTES, blocks_per_sm,
+                            &smem, attrs);
+  for (int it = 0; it < iters && e == cudaSuccess && attrs == nullptr; ++it) {
+    kernel<<<G, S::THREADS, smem, stream>>>(
+        static_cast<const uint8_t*>(raw), static_cast<const float2*>(twiddle),
+        nullptr, static_cast<float*>(partial), F, group, G, n_valid, nullptr);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = launch_psd_sum(partial, G, 1 << kLog2N, out,
+                                             stream);
+  }
+  return e;
+}
+
+// The radix-2 kernel whole at N = 2^LOG2N, windowed or not: group kernel,
+// then row sum, as fused_psd.cu launched it before the register kernel.
+template <int LOG2N, bool WINDOWED>
+cudaError_t launch_radix2(const void* raw, const void* twiddle,
+                          const void* window, void* partial, void* out, int F,
+                          int group, int G, int n_valid, cudaStream_t stream) {
+  using S = Shape<LOG2N>;
+  const int smem = static_cast<int>(sizeof(float2)) * S::N;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        psd_group_kernel<LOG2N, WINDOWED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  psd_group_kernel<LOG2N, WINDOWED><<<G, S::THREADS, smem, stream>>>(
+      static_cast<const uint32_t*>(raw), static_cast<const float2*>(twiddle),
+      static_cast<const float2*>(window), static_cast<float*>(partial), F,
+      group, G, n_valid, nullptr);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_psd_sum(partial, G, S::N, out, stream);
+}
+
 // Launches variant `variant` `iters` times, or, with attrs, only sets it
 // up and writes its attributes.
 cudaError_t launch_variant(int variant, const void* raw, const void* w1r,
@@ -250,6 +305,10 @@ cudaError_t launch_variant(int variant, const void* raw, const void* w1r,
   case CODE:                                                                  \
     return launch_k1_cut<CUT>(raw, twiddle, partial, out, F, group, G,        \
                               n_valid, blocks_per_sm, iters, attrs, s);
+#define RPF_K1R(CODE, CUT)                                                    \
+  case CODE:                                                                  \
+    return launch_k1r_cut<CUT>(raw, twiddle, partial, out, F, group, G,       \
+                               n_valid, blocks_per_sm, iters, attrs, s);
   switch (variant) {
     RPF_FAST(kK3, 3, 3)
     RPF_FAST(kS2x1, 3, 1)
@@ -303,9 +362,13 @@ cudaError_t launch_variant(int variant, const void* raw, const void* w1r,
     RPF_K1(kK1, kK1Full)
     RPF_K1(kK1Dq, kK1Dequant)
     RPF_K1(kK1NoFftCut, kK1NoFft)
+    RPF_K1R(kK1r, kRegsFull)
+    RPF_K1R(kK1rDq, kRegsDequant)
+    RPF_K1R(kK1rNoFft, kRegsNoFft)
     default:
       return cudaErrorInvalidValue;
   }
+#undef RPF_K1R
 #undef RPF_K1
 #undef RPF_FAST
 }
@@ -400,7 +463,8 @@ extern "C" {
 // the e2 and u32t variants offsets ((2, N1) f32 cR, cI; else
 // null); K1's cuts take
 // its stage twiddles ((N - 1, 2) f32) as `twiddle` and ignore w1r, w1i,
-// w2 and offsets. partial: (ceil(F / group), N) f32 scratch; out:
+// w2 and offsets; the register kernel's cuts likewise, with its
+// pass_twiddles(N). partial: (ceil(F / group), N) f32 scratch; out:
 // (N,) f32. blocks_per_sm: 0 to launch as the shipping kernels do, b > 0 to
 // let at most b blocks reside on an SM (configure above). Returns a
 // cudaError_t (0 on success); does not synchronise.
@@ -438,6 +502,38 @@ int rpf_probe_attributes(int variant, int blocks_per_sm, int device,
                                          nullptr, nullptr, nullptr, nullptr,
                                          nullptr, 1, 1, 1, 1, blocks_per_sm, 1,
                                          attrs, nullptr));
+}
+
+// The radix-2 kernel whole (fused_psd.cuh at its default cut), as
+// rpf_fused_psd launched it before the register kernel: raw (F, 2N) u8,
+// 4-byte aligned; twiddle its stage twiddles ((N - 1, 2) f32); window
+// (N,) f32, 8-byte aligned, or null; partial (ceil(F / group), N) f32
+// scratch; out (N,) f32. N = 2^log2n: 256, 2048, 8192 or 16384. Returns a
+// cudaError_t (0 on success); does not synchronise.
+int rpf_radix2_psd(const void* raw, const void* twiddle, const void* window,
+                   void* partial, void* out, int device, int log2n, int F,
+                   int group, int n_valid, void* stream) {
+  if (F <= 0 || group <= 0 || n_valid < 0 || n_valid > F) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int G = (F + group - 1) / group;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool w = window != nullptr;
+#define RPF_CASE(L)                                                          \
+  case L:                                                                    \
+    e = w ? launch_radix2<L, true>(raw, twiddle, window, partial, out, F,    \
+                                   group, G, n_valid, s)                     \
+          : launch_radix2<L, false>(raw, twiddle, window, partial, out, F,   \
+                                    group, G, n_valid, s);                   \
+    break;
+  switch (log2n) {
+    RPF_CASE(8) RPF_CASE(11) RPF_CASE(13) RPF_CASE(14)
+    default: e = cudaErrorInvalidValue;
+  }
+#undef RPF_CASE
+  return static_cast<int>(e);
 }
 
 // Runs P12's relayout case `which` (0..8 = A..I) `iters` times on

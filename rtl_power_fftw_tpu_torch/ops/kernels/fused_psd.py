@@ -18,9 +18,16 @@ fftshift once, per the JAX package's convention). :func:`fused_psd_streams`
 valid count, one output row per stream.
 
 What bounds the kernel on an H100, and what its design does about it, is
-stated at the top of the CUDA source: a radix-2 transform in shared
-memory is bound by shared-memory traffic and per-stage barriers, not by
-the 2 bytes per sample it reads from device memory.
+stated at the top of the CUDA source: the traffic through shared memory
+and the barriers around it, not the 2 bytes per sample it reads from
+device memory; its transform runs in registers (``csrc/fft_regs.cuh``:
+radix-16 passes, one shared-memory exchange between passes, by the pass
+plan :data:`PASS_PLAN`, twiddles from :func:`pass_twiddles`), the next
+frame's bytes are copied into shared memory while the current one is
+transformed, and each block sums as many frames as put the grid within
+the blocks the card holds resident (:func:`k1_group`). The radix-2
+kernel it replaced (``csrc/fused_psd.cuh``, with :func:`stage_twiddles`
+and :func:`frames_per_block`) stays as the probes' control.
 
 :func:`fused_psd` and :func:`fused_psd_streams` dispatch on the tensor's
 device: a CPU tensor goes to the plain PyTorch version
@@ -46,9 +53,31 @@ import torch
 MIN_N = 64
 MAX_N = 16384
 
-#: Blocks the launch aims for: eight 256-thread blocks fill the 2048
-#: resident threads of each of the H100's 132 SMs (1056 blocks).
+#: Blocks the radix-2 kernel's launch aimed for (:func:`frames_per_block`,
+#: which K3 and the probes still use): eight 256-thread blocks fill the
+#: 2048 resident threads of each of the H100's 132 SMs (1056 blocks).
 _TARGET_BLOCKS = 1024
+
+#: The pass plan of the register transform: radices of its passes, first
+#: to last; the first is the values a thread holds. Kept in step with
+#: pass_radix in csrc/fft_regs.cuh.
+PASS_PLAN = {64: (8, 8), 128: (16, 8), 256: (16, 16), 512: (16, 16, 2),
+             1024: (16, 16, 4), 2048: (16, 16, 8), 4096: (16, 16, 16),
+             8192: (16, 16, 16, 2), 16384: (16, 16, 16, 4)}
+
+#: The H100's streaming multiprocessors.
+SMS = 132
+#: Blocks of the group kernel (csrc/fused_psd_regs.cuh) that reside on
+#: one SM, by N, unwindowed and windowed alike (the smaller of the two), as
+#: cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on an NVIDIA
+#: H100 80GB HBM3 (chip_smoke.py prints them, with its registers).
+BLOCKS_PER_SM = {64: 4, 128: 4, 256: 3, 512: 3, 1024: 3, 2048: 2,
+                 4096: 2, 8192: 1, 16384: 1}
+
+#: Alignment the group kernel's loads need: the frames are copied into
+#: shared memory 16 bytes a thread, the window read as floats.
+RAW_ALIGN = 16
+WINDOW_ALIGN = 4
 
 
 class KernelLaunchError(RuntimeError):
@@ -107,12 +136,51 @@ def _device_twiddles(N: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(stage_twiddles(N)).to(device)
 
 
+def pass_twiddles(N: int) -> np.ndarray:
+    """The register transform's twiddles between passes, (rows, 2)
+    float32 (re, im): for each pass j but the last, of radix R_j over
+    blocks of span L_j (L_0 = N, L_{j+1} = L_j / R_j) and stride
+    S_j = L_j / R_j, the L_j values W_{L_j}^(n2 k1) at row
+    offset_j + k1 S_j + n2 (k1 < R_j, n2 < S_j; offset_j the spans before
+    it). Computed in float64 and rounded once to float32."""
+    parts = []
+    L = N
+    for r in PASS_PLAN[N][:-1]:
+        S = L // r
+        kn = np.arange(r)[:, None] * np.arange(S)[None, :] % L
+        ang = -2.0 * np.pi * kn.astype(np.float64) / L
+        parts.append(np.stack([np.cos(ang), np.sin(ang)], -1).reshape(L, 2))
+        L = S
+    return np.concatenate(parts).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_pass_twiddles(N: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(pass_twiddles(N)).to(device)
+
+
 def frames_per_block(F: int, chunk: int) -> int:
-    """Frames one kernel block sums: ``chunk`` (the two-stage sum's first
-    stage), halved while that leaves fewer than the target block count."""
+    """Frames one block of the radix-2 kernel (K3's and the probes' grid)
+    sums: ``chunk`` (the two-stage sum's first stage), halved while that
+    leaves fewer than the target block count."""
     group = chunk
     while group > 1 and F // group < _TARGET_BLOCKS:
         group //= 2
+    return group
+
+
+def k1_group(F: int, chunk: int, N: int) -> int:
+    """Frames one block of the group kernel (K1, K2, K4) sums over F
+    frames of N bins: the least power of two, up to ``chunk`` (the
+    two-stage sum's first stage), for which the ceil(F / group) blocks fit
+    the blocks the card holds resident (:data:`SMS` times
+    :data:`BLOCKS_PER_SM`), so that the grid runs in one wave. For K4, F
+    is all S*F frames, and a group up to a power-of-two chunk that divides
+    each stream's F divides it too."""
+    resident = SMS * BLOCKS_PER_SM[N]
+    group = 1
+    while group < chunk and -(-F // group) > resident:
+        group *= 2
     return group
 
 
@@ -240,19 +308,20 @@ def _launch(kernel: str, raw_u8: torch.Tensor,
             window: Optional[torch.Tensor], rows: int, out_shape,
             call) -> torch.Tensor:
     """The launch :func:`fused_psd` and :func:`fused_psd_streams` share:
-    check the vector loads' alignment (32-bit IQ words; the window as
-    float2, two samples per word), make the (rows, N) partial and the
-    output, and run ``call(lib, raw, twiddle, window, partial, out,
-    stream)`` with device pointers and the current stream's handle, on
+    check the loads' alignment (:data:`RAW_ALIGN`, :data:`WINDOW_ALIGN`),
+    make the (rows, N) partial and the output, and run ``call(lib, raw,
+    twiddle, window, partial, out, stream)`` with device pointers (the
+    twiddles :func:`pass_twiddles`) and the current stream's handle, on
     which the kernel runs asynchronously. Returns the output."""
-    check_alignment(kernel, raw_u8, 4, window, 8)
+    check_alignment(kernel, raw_u8, RAW_ALIGN, window, WINDOW_ALIGN)
     from . import _build
     lib = _build.load("fused_psd")
     N = raw_u8.shape[-1] // 2
     device = raw_u8.device
     partial = torch.empty((rows, N), dtype=torch.float32, device=device)
     out = torch.empty(out_shape, dtype=torch.float32, device=device)
-    err = call(lib, raw_u8.data_ptr(), _device_twiddles(N, device).data_ptr(),
+    err = call(lib, raw_u8.data_ptr(),
+               _device_pass_twiddles(N, device).data_ptr(),
                None if window is None else window.data_ptr(),
                partial.data_ptr(), out.data_ptr(),
                torch.cuda.current_stream(device).cuda_stream)
@@ -278,7 +347,7 @@ def fused_psd(raw_u8: torch.Tensor, n_valid: int, chunk: int,
         COUNTS.plain += 1
         return fused_psd_reference(raw_u8, n_valid, chunk, window)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
-    group = frames_per_block(F, chunk)
+    group = k1_group(F, chunk, N)
     index = raw_u8.device.index
     out = _launch(
         "fused_psd", raw_u8, window, -(-F // group), (N,),
@@ -311,7 +380,7 @@ def fused_psd_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
     S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
     # Blocks are counted over all S*F frames; a group is a power of two no
     # larger than chunk, which divides F, so no block crosses a stream.
-    group = frames_per_block(S * F, chunk)
+    group = k1_group(S * F, chunk, N)
     if F % group:
         raise ValueError(f"frames per block {group} must divide F={F}")
     index = raw_u8.device.index
@@ -326,3 +395,26 @@ def fused_psd_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
     else:
         COUNTS.kernel_streams_windowed += 1
     return out
+
+
+def kernel_attributes(N: int, windowed: bool = False,
+                      device: Optional[torch.device] = None) -> dict:
+    """What the group kernel gets at N bins (windowed: K2's instantiation)
+    on the card: registers and spill bytes a thread, static and dynamic
+    shared bytes and threads a block, and the blocks that reside on one
+    SM. Launches nothing."""
+    import ctypes
+    if not fused_psd_eligible(N):
+        raise ValueError(f"fused_psd does not take N={N}")
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    from . import _build
+    lib = _build.load("fused_psd")
+    attrs = (ctypes.c_int * 6)()
+    err = lib.rpf_fused_psd_attributes(N.bit_length() - 1, int(windowed),
+                                       device.index or 0, attrs)
+    if err != 0:
+        raise KernelLaunchError(
+            f"fused_psd attributes at N={N}: "
+            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))

@@ -17,8 +17,11 @@ and K-stacking are worth: P3 (``build_dg3dall``, 309), P4
 (``build_v6``, 1005), with hand-written CUDA C++ for sm_90a
 (``csrc/fused_psd_probe.cu``). On this card the TPU probes' bf16
 four-step scheme is K3, so each TPU variant becomes one compile-time
-variant of K3's template (``csrc/fused_psd_fast.cuh``); K1's cuts
-(``csrc/fused_psd.cuh``) ask P1's question of the FP32 radix-2 kernel.
+variant of K3's template (``csrc/fused_psd_fast.cuh``); K1's cuts ask
+P1's question of the FP32 radix-2 kernel K1 was (``csrc/fused_psd.cuh``,
+``k1_*``) and of K1 as it ships (``csrc/fused_psd_regs.cuh``, ``k1r_*``),
+and :func:`radix2_psd` runs that radix-2 kernel whole at the sizes the
+redesign is timed at, as its control.
 All run at the probes' N = 2048 on raw interleaved u8 IQ, at K3's own
 split N1 x N2 = 32 x 64 (the TPU probes ran 16 x 128). The stage-2 probes
 start from the TPU's shipping 6-product scheme, ``tpu6`` here; their
@@ -74,8 +77,10 @@ base. The outputs, all (N,) float32 summed over the frames < n_valid:
   gathers (each element N1/16 times, once for each column block of
   stage 1), raw u16 values or dequantized re + im, in every bin (the TPU
   probes' ``consume``, ``probes/s1_lanes2.py:52-60``);
-- K1's cuts: ``k1_full`` is K1; ``k1_nofft`` the sum of |x[n]|^2 and
-  ``k1_dqonly`` of re + im of each sample n, in natural order.
+- K1's cuts: ``k1_full`` (the radix-2 kernel) and ``k1r_full`` (K1) the
+  spectrum; ``k1_nofft``/``k1r_nofft`` the sum of |x[n]|^2 and
+  ``k1_dqonly``/``k1r_dqonly`` of re + im of each sample n, in natural
+  order.
 
 :func:`fused_psd_probe` and :func:`relayout` dispatch on the tensor's
 device: a CPU tensor runs the plain version, a CUDA tensor the kernel or
@@ -100,8 +105,10 @@ import numpy as np
 import torch
 
 from . import fused_psd_fast as ff
-from .fused_psd import (KernelLaunchError, _device_twiddles, check_alignment,
-                        check_args, frames_per_block, fused_psd_reference)
+from .fused_psd import (KernelLaunchError, _device_pass_twiddles,
+                        _device_twiddles, check_alignment, check_args,
+                        frames_per_block, fused_psd_reference, k1_group,
+                        pass_twiddles)
 
 #: The probes' transform size and K3's split of it.
 N = 2048
@@ -139,8 +146,9 @@ RTOL_K1 = 1e-5
 
 @dataclasses.dataclass(frozen=True)
 class Variant:
-    """One Hopper variant: of K3's template (``kernel`` "k3") or a cut of
-    K1 ("k1"). ``parity``: the kernel's output must equal the named
+    """One Hopper variant: of K3's template (``kernel`` "k3"), a cut of
+    the radix-2 kernel K1 was ("k1") or of K1 as it ships, the register
+    transform ("k1r"). ``parity``: the kernel's output must equal the named
     shipping kernel's ("K3", "K1") or earlier variant's ("tpu6",
     "tpu6_e2") bit for bit, or only its plain version's within ``rtol``
     ("plain"). ``psd``: the
@@ -175,6 +183,9 @@ class Variant:
         done, its zero blocks included."""
         if self.kernel == "k1":
             return k1_work(F, N, self.k1_cut)
+        if self.kernel == "k1r":
+            return k1_work(F, N, self.k1_cut,
+                           table_rows=len(pass_twiddles(N)))
         return k3_work(F, N, self.s1_terms, self.s2_products, self.twiddle,
                        self.cut, s2_form=self.s2_form,
                        raw_bytes=self.raw_bytes, s1_form=self.s1_form,
@@ -250,19 +261,20 @@ def k3_work(F: int, n: int, s1_terms: int = 3, s2_products: int = 3,
 
 
 def k1_work(F: int, n: int, cut: str = "full", windowed: bool = False,
-            out_rows: int = 1,
-            twiddle_table: bool = True) -> Tuple[float, float, float]:
+            out_rows: int = 1, twiddle_table: bool = True,
+            table_rows: Optional[int] = None) -> Tuple[float, float, float]:
     """(bytes, 0, FP32 ops) of K1's step (or K2's, windowed; K4's, with
     ``out_rows`` output rows), or of a cut of it, over F frames of n bins.
-    Bytes: the frames, the window and K1's twiddle table (n - 1 float2;
-    ``twiddle_table=False`` for a kernel with tables of its own) read once,
-    the output written once. FP32 a frame: 5 n log2 n for the radix-2
-    transform, 2n to dequantize, 2n for |X|^2 and the sum, 2n more for a
-    window."""
+    Bytes: the frames, the window and the twiddle table (``table_rows``
+    float2: the register transform's :func:`pass_twiddles`; by default the
+    radix-2 kernel's n - 1; ``twiddle_table=False`` for a kernel with
+    tables of its own) read once, the output written once. FP32 a frame:
+    5 n log2 n for the transform (the radix-2 count, for either kernel),
+    2n to dequantize, 2n for |X|^2 and the sum, 2n more for a window."""
     log2n = n.bit_length() - 1
     nbytes = F * 2 * n + 4 * n * out_rows + (4 * n if windowed else 0)
     if cut == "full" and twiddle_table:
-        nbytes += 8 * (n - 1)
+        nbytes += 8 * (n - 1 if table_rows is None else table_rows)
     fp32 = {"full": 5 * n * log2n + 4 * n, "nofft": 4 * n,
             "dequant": 2 * n}[cut] + (2 * n if windowed else 0)
     return float(nbytes), 0.0, float(F * fp32)
@@ -369,13 +381,27 @@ VARIANTS: Dict[str, Variant] = {v.name: v for v in (
         s2_products=6, s2_planes=True),
     _k3("tpu6_kstack", 47, (f"P10 v6k ({P10_SRC})",), s2_products=6,
         s2_planes=True, s2_form=KSTACKED),
-    Variant("k1_full", 20, "k1", ("K1 whole (P1's question of K1)",), "K1",
+    # The radix-2 kernel K1 was until the register transform: the control
+    # the redesign is timed against, held to the plain version (and its
+    # difference from K1 printed).
+    Variant("k1_full", 20, "k1", ("K1 whole (P1's question of K1)",), "plain",
             RTOL_K1, psd=True),
     Variant("k1_dqonly", 21, "k1",
             ("K1 load + dequantize + store (P1's question of K1)",),
             "plain", RTOL_SUMS, k1_cut="dequant"),
     Variant("k1_nofft", 22, "k1", ("K1 without the transform: P1 nomm",),
             "plain", RTOL_SUMS, k1_cut="nofft"),
+    # The same three cuts of K1 as it ships (csrc/fused_psd_regs.cuh), on
+    # its own grid (k1_group): the whole one is K1 bit for bit.
+    Variant("k1r_full", 23, "k1r",
+            ("K1 whole, register transform (P1's question of K1)",), "K1",
+            RTOL_K1, psd=True),
+    Variant("k1r_dqonly", 24, "k1r",
+            ("K1 load (cp.async ring) + dequantize, register transform",),
+            "plain", RTOL_SUMS, k1_cut="dequant"),
+    Variant("k1r_nofft", 25, "k1r",
+            ("K1 without the transform, register transform",), "plain",
+            RTOL_SUMS, k1_cut="nofft"),
 )}
 
 
@@ -395,11 +421,14 @@ class Probe:
 
 PROBES: Dict[str, Probe] = {p.tpu: p for p in (
     # With no argv profile_pallas.py runs P1's variants, then pack8 (148,
-    # 243); here P1's six and K1's three cuts, then P2's pack8.
+    # 243); here P1's six and the radix-2 kernel's three cuts, then P2's
+    # pack8. The register kernel's cuts run by name.
     Probe("P1", "probes/profile_pallas.py:115", "profile_kernel",
           {"full": "k3", "s2x1": "s2x1", "s1x1": "s1x1", "nomm": "nomm",
            "notw": "notw", "dg3d": "zplanes", "k1_full": "k1_full",
-           "k1_nofft": "k1_nofft", "k1_dqonly": "k1_dqonly"},
+           "k1_nofft": "k1_nofft", "k1_dqonly": "k1_dqonly",
+           "k1r_full": "k1r_full", "k1r_dqonly": "k1r_dqonly",
+           "k1r_nofft": "k1r_nofft"},
           ("full", "s2x1", "s1x1", "nomm", "notw", "dg3d", "k1_full",
            "k1_nofft", "k1_dqonly"), then=("P2",)),
     # The other builds of profile_pallas.py, which its argv names (243,
@@ -770,7 +799,7 @@ def fused_psd_probe_reference(variant: str, raw_u8: torch.Tensor,
     """The plain PyTorch version of ``variant``: (F, 2N) uint8 -> (N,)
     float32; see the module docstring for what each variant outputs."""
     v = VARIANTS[variant]
-    if v.kernel == "k1":
+    if v.kernel in ("k1", "k1r"):
         return _k1_reference(v, raw_u8, n_valid, chunk)
     return _k3_reference(v, raw_u8, n_valid, chunk)
 
@@ -993,11 +1022,14 @@ def _eligible(n: int) -> bool:
 def block_frames(variant: str, F: int, chunk: int,
                  group: Optional[int] = None) -> int:
     """Frames one block of ``variant`` sums (the TPU probes' tile):
-    ``group``, or the shipping kernels' ``frames_per_block`` rounded up to
-    a multiple of the variant's chains. Raises ValueError for a group that
-    is not a positive multiple of its chains (the TPU's tile split into
-    chains, ``probes/s2_ilv.py:38-39``)."""
+    ``group``, or K3's and the radix-2 kernel's ``frames_per_block``
+    rounded up to a multiple of the variant's chains (the register
+    kernel's cuts: K1's own ``k1_group``). Raises ValueError for a group
+    that is not a positive multiple of its chains (the TPU's tile split
+    into chains, ``probes/s2_ilv.py:38-39``)."""
     chains = VARIANTS[variant].chains
+    if group is None and VARIANTS[variant].kernel == "k1r":
+        return k1_group(F, chunk, N)
     if group is None:
         return -(-frames_per_block(F, chunk) // chains) * chains
     group = int(group)
@@ -1040,9 +1072,10 @@ def fused_psd_probe(variant: str, raw_u8: torch.Tensor, n_valid: int,
     lib = _build.load("fused_psd_probe")
     device = raw_u8.device
     offsets = None
-    if v.kernel == "k1":
+    if v.kernel in ("k1", "k1r"):
         w1r = w1i = w2 = None
-        tw = _device_twiddles(N, device).data_ptr()
+        tw = (_device_twiddles if v.kernel == "k1"
+              else _device_pass_twiddles)(N, device).data_ptr()
     else:
         ops = ff._device_operands(N, False, device)
         w1r, w1i, tw = (t.data_ptr() for t in ops[:3])
@@ -1094,6 +1127,52 @@ def probe_attributes(variant: str, blocks_per_sm: int = 0,
             f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
     return dict(zip(("registers", "spill_bytes", "static_smem",
                      "dynamic_smem", "blocks_per_sm"), attrs))
+
+
+# --- the radix-2 control ---
+
+#: The sizes the radix-2 control takes: the K1/K2 shapes chip_smoke.py
+#: times.
+RADIX2_N = (256, 2048, 8192, 16384)
+
+
+def radix2_psd(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+               window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The radix-2 kernel whole (``csrc/fused_psd.cuh`` at its default cut,
+    on :func:`frames_per_block`'s grid, with :func:`stage_twiddles`), as
+    K1 and K2 were until the register transform: (F, 2N) uint8 frames, N
+    in :data:`RADIX2_N` -> (N,) float32, the redesign's control. A CPU
+    tensor runs the plain version (``fused_psd_reference``). Counted as
+    ``COUNTS.kernel["radix2"]``."""
+    n_valid = int(n_valid)
+    check_args("radix2_psd", lambda n: n in RADIX2_N, raw_u8, n_valid, chunk,
+               window)
+    if raw_u8.device.type == "cpu":
+        COUNTS.plain["radix2"] += 1
+        return fused_psd_reference(raw_u8, n_valid, chunk, window)
+    if raw_u8.device.type != "cuda":
+        raise ValueError(f"radix2_psd runs on cuda or cpu tensors, not "
+                         f"{raw_u8.device}")
+    check_alignment("radix2_psd", raw_u8, 4, window, 8)
+    from . import _build
+    lib = _build.load("fused_psd_probe")
+    F, n = raw_u8.shape[0], raw_u8.shape[1] // 2
+    group = frames_per_block(F, chunk)
+    device = raw_u8.device
+    partial = torch.empty((-(-F // group), n), dtype=torch.float32,
+                          device=device)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    err = lib.rpf_radix2_psd(
+        raw_u8.data_ptr(), _device_twiddles(n, device).data_ptr(),
+        None if window is None else window.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), device.index, n.bit_length() - 1, F, group, n_valid,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise KernelLaunchError(
+            f"radix2_psd launch failed: "
+            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+    COUNTS.kernel["radix2"] += 1
+    return out
 
 
 # --- P12: nine relayouts (probes/cast_test.py:30-62) ---

@@ -1,7 +1,7 @@
 """Whether the kernels of an earlier tree compile to the same SASS here.
 
-K3's ``fused_psd_fast`` and the probes' ``fused_psd_probe`` are each
-compiled twice with the build's own nvcc flags, from ``csrc/`` and from
+K3's ``fused_psd_fast``, the large-N ``fused_psd_large`` and the probes'
+``fused_psd_probe`` are each compiled twice with the build's own nvcc flags, from ``csrc/`` and from
 the earlier tree's ``csrc/``, and ``cuobjdump -sass`` of the two
 libraries is compared kernel by kernel:
 every kernel of the earlier build must be in this one with the same
@@ -63,7 +63,7 @@ def main(argv=None) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     earlier = Path(args[0])
-    sources = ("fused_psd_fast", "fused_psd_probe")
+    sources = ("fused_psd_fast", "fused_psd_large", "fused_psd_probe")
     nvcc = _build._nvcc()
     bin_dir = os.path.dirname(nvcc)
     ok = True
