@@ -38,10 +38,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    twice for determinism, rows of zero count exactly 0; then 12 seeds of
    35 dB tones at config 5's step, the combined sum against the scipy
    float32 FFT (the FFTW-class budget);
-7. times of K1, K2, K3, K4, the large-N kernel, their plain versions and
-   ``torch.fft.fft`` with CUDA events, and at each K1/K2 shape the
-   radix-2 kernel K1 and K2 were (``fused_psd_probe.radix2_psd``, the
-   control) before and after them, the ratio printed;
+7. device times of K1, K2, K3, K4, the large-N kernel, their plain
+   versions and ``torch.fft.fft`` (CUDA events around calls queued behind
+   a sleep kernel, so that the host's enqueue is not counted; the
+   kernel's time a call, host included, beside them), and at each K1/K2
+   shape the radix-2 kernel K1 and K2 were (``fused_psd_probe.radix2_psd``,
+   the control) before and after them, the ratio printed; K1 at N = 2048,
+   F = 4096 and K2 at N = 8192, F = 1024 with Hann must take at most half
+   the control's time;
 8. end to end through ``cli.main`` in-process: the canonical 2048-bin
    20,000-spectrum drive (K1), a hopping matrix drive with a dead hop
    (K1), BASELINE config 2 (8192 bins, Hann, 50% Welch overlap; K2)
@@ -94,15 +98,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    each variant's slope time (the probes' own
    method), its plain version's, its bound and ``torch.fft.fft``'s;
    and device time by kernel under ``torch.profiler`` for K3, ``dg3d``,
-   K1 and the gather cut (the row sum's own time beside each group
-   kernel's); then each variant's registers, spill, shared memory and
-   resident blocks per SM, and its time again with its occupancy pinned
+   the radix-2 kernel, K1 and the gather cut (the row sum's own time
+   beside each group kernel's); K1's cuts again at the canonical step
+   (F = 400) beside ``torch.fft.fft``; then each variant's registers,
+   spill, shared memory and resident blocks per SM, and its time again
+   with its occupancy pinned
    to that of the whole kernel it is compared with (K3's and the
    6-product scheme's for K3's template, and for the 6-product scheme's
    variants, the left forms (P9 ``v5left`` among them), K3 and the other
    variants that get fewer blocks than K3 also the least any of the
-   6-product family gets; K1's for K1's cuts, the radix-2 kernel's for
-   its cuts), its output unchanged;
+   6-product family gets; the radix-2 kernel's for its cuts, K1's for
+   K1's), its output unchanged;
 12. the probes' entry points (``python -m
    rtl_power_fftw_tpu_torch.probes.{profile_kernel,s1_lanes,s1_lanes2,
    cast_test,s2_fourmult,s2_left,s2_ilv,s2_pipe,s2_u32t}``, and
@@ -122,7 +128,8 @@ Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
 drive, and the time of ``torch.fft.fft`` on the same frames already in
-complex64 on the card (the transform alone, not the whole function).
+complex64 on the card (the transform alone, not the whole function); its
+times are device times (phase 7; the probes' slope times).
 
 Stdout ends with that line and then the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -295,6 +302,35 @@ def event_times_us(fn, iters: int = 60, warmup: int = 10) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return 1000.0 * statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_times_us(fn, calls: int = 20, reps: int = 3) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``calls``
+    calls enqueued behind a sleep kernel that outlasts the host's enqueue
+    of them (twice the host time they took, at up to 2 GHz), so that they
+    run back to back and no host time is counted; the least of ``reps``.
+    A call whose device time is below its host time (a wrapper's Python,
+    its allocations and launches) measures that host time per call in
+    event_times_us, and its device time here."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(2 * (time.perf_counter() - t0) * 2e9)
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, 1000.0 * start.elapsed_time(end) / calls)
+    return best
 
 
 def run_cli(argv, main):
@@ -564,12 +600,14 @@ def phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep):
 
 
 def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
-    """Median CUDA-event times (us/step): kernel, plain, kernel again, and
-    torch.fft.fft over the same frames already in complex64 on the card
-    (the transform alone: the library yardstick); at the K1/K2 shapes also
-    the radix-2 control (``fpp.radix2_psd``) before and after them, its
-    output within 1e-5 of the kernel's. Returns the times by shape and the
-    control's (first, second) by shape."""
+    """Device times (us/step, device_times_us): kernel, plain, kernel
+    again, and torch.fft.fft over the same frames already in complex64 on
+    the card (the transform alone: the library yardstick), and the
+    kernel's median CUDA-event time a call (event_times_us, the host's
+    enqueue included where it is the longer); at the K1/K2 shapes also the
+    radix-2 control (``fpp.radix2_psd``) before and after them, its output
+    within 1e-5 of the kernel's. Returns the times by shape (device times)
+    and the control's (first, second) by shape."""
     times, control = {}, {}
     shapes = [("K1", 2048, 4096, None), ("K1", 2048, 400, None),
               ("K1", 256, 3200, None), ("K1", 16384, 256, None),
@@ -607,16 +645,18 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
                          kernel(raw, nv, chunk, w).cpu().numpy())
             check(vs <= UNIFORM_RTOL, f"time {name} N={N}: the radix-2 "
                   f"control is {vs} from the kernel")
-            r_us = event_times_us(lambda: fpp.radix2_psd(raw, nv, chunk, w))
-        k_us = event_times_us(lambda: kernel(raw, nv, chunk, w))
-        p_us = event_times_us(lambda: plain(raw, nv, chunk, w))
-        lib_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
-        k_us2 = event_times_us(lambda: kernel(raw, nv, chunk, w))
+            r_us = device_times_us(lambda: fpp.radix2_psd(raw, nv, chunk,
+                                                          w))
+        k_us = device_times_us(lambda: kernel(raw, nv, chunk, w))
+        p_us = device_times_us(lambda: plain(raw, nv, chunk, w))
+        lib_us = device_times_us(lambda: torch.fft.fft(z, dim=-1))
+        k_us2 = device_times_us(lambda: kernel(raw, nv, chunk, w))
+        call_us = event_times_us(lambda: kernel(raw, nv, chunk, w))
         b_ms, b_by = bound_ms(name, S * F, N, w is not None, S)
         times[(name, N, F, wname)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by)
         if radix2:
-            r_us2 = event_times_us(lambda: fpp.radix2_psd(raw, nv, chunk,
-                                                          w))
+            r_us2 = device_times_us(lambda: fpp.radix2_psd(raw, nv, chunk,
+                                                           w))
             control[(name, N, F, wname)] = (r_us, r_us2)
             print(f"time {name} N={N} F={F} window={wname} on {card}: the "
                   f"radix-2 control {r_us:.1f} / {r_us2:.1f} us/step "
@@ -627,7 +667,8 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
         frames = S * F
         print(f"time {name} N={N} F={F}{f' S={S}' if S > 1 else ''} window="
               f"{wname} on {card}: kernel {k_us:.1f} us/step "
-              f"({frames * N / k_us / 1e3:.2f} GS/s; repeat {k_us2:.1f} us), "
+              f"({frames * N / k_us / 1e3:.2f} GS/s; repeat {k_us2:.1f} us; "
+              f"{call_us:.1f} us a call, the host's enqueue included), "
               f"plain {p_us:.1f} us/step "
               f"({frames * N / p_us / 1e3:.2f} GS/s), torch.fft.fft of the "
               f"complex64 frames {lib_us:.1f} us, bound {1e3 * b_ms:.1f} us "
@@ -1263,6 +1304,22 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
         profile_calls(f"probe {name} N={N} F={F}",
                       lambda: fpp.fused_psd_probe(name, raw, F, chunk),
                       ("group_kernel", "regs_kernel", "psd_sum_kernel"))
+    # K1's cuts at the canonical drive's step, where torch.fft.fft of the
+    # same frames takes less than K1.
+    Fc, cc = adapt_batch(400)
+    few, zc = raw[:Fc], z[:Fc]
+    cuts = []
+    for name in ("k1r_full", "k1r_dqonly", "k1r_nofft"):
+        us = slope_us(lambda it: fpp.fused_psd_probe(name, few, Fc, cc,
+                                                     iters=it))
+        cuts.append(f"{name} {us:.1f}")
+    print(f"probe K1's cuts N={N} F={Fc} chunk={cc} frames/block "
+          f"{fpp.block_frames('k1r_full', Fc, cc)} on {card}: "
+          f"{', '.join(cuts)} us/step; torch.fft.fft "
+          f"{device_times_us(lambda: torch.fft.fft(zc, dim=-1)):.1f} us")
+    profile_calls(f"probe k1r_full N={N} F={Fc}",
+                  lambda: fpp.fused_psd_probe("k1r_full", few, Fc, cc),
+                  ("regs_kernel", "psd_sum_kernel"))
     probe_occupancy(fpp, raw, F, chunk, card, slope_us)
 
     n = fpp.T * fpp._N1 * fpp._N2
@@ -1592,6 +1649,16 @@ def main() -> int:
     # 7. Times (median of 60 event-timed calls after 10 warm-ups).
     times, control = phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch,
                                  make_window, card)
+    # The redesign against the radix-2 kernel it replaced, in this run:
+    # at most half its device time at the two shapes the ROADMAP ranks.
+    for key in (("K1", 2048, 4096, None), ("K2", 8192, 1024, "hann")):
+        k_us = min(times[key][0], times[key][2])
+        r_us = min(control[key])
+        print(f"redesign {key[0]} N={key[1]} F={key[2]} window={key[3]} on "
+              f"{card}: {k_us:.1f} us against the radix-2 control's "
+              f"{r_us:.1f} us, {k_us / r_us:.3f} (<= 0.5)")
+        check(k_us <= 0.5 * r_us, f"{key}: {k_us} us is above half the "
+              f"radix-2 control's {r_us} us")
     lap("times")
 
     # 8. End to end, in-process through the CLI.

@@ -12,9 +12,10 @@
 //
 // What bounds it on an H100. The transform is ~5 N log2(N) FP32 flops a
 // frame against the 2N bytes read from device memory (~27 flop/byte at
-// N = 2048, ~7 us of FP32 work and ~5 us of device memory at F = 4096), so
-// neither the memory nor the FP32 rate is the first limit: the traffic
-// through shared memory and the barriers around it are. An in-place
+// N = 2048; at F = 4096, ~7 us of FP32 work at 67 TFLOP/s and ~5 us of
+// device memory at 3.35 TB/s, the H100 SXM's peaks at 700 W), so neither
+// the memory nor the FP32 rate is the first limit: the traffic through
+// shared memory and the barriers around it are. An in-place
 // radix-2 FFT in shared memory (fft_radix2.cuh, the kernel this one
 // replaced, kept as the probes' control in fused_psd_probe.cu) moves
 // 32 bytes of shared memory a butterfly, ~360 KB a frame at 2048, with a

@@ -39,6 +39,7 @@ its main path went through the kernel.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -70,8 +71,10 @@ SMS = 132
 #: Blocks of the group kernel (csrc/fused_psd_regs.cuh) that reside on
 #: one SM, by N, unwindowed and windowed alike (the smaller of the two), as
 #: cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on an NVIDIA
-#: H100 80GB HBM3 (chip_smoke.py prints them, with its registers).
-BLOCKS_PER_SM = {64: 4, 128: 4, 256: 3, 512: 3, 1024: 3, 2048: 2,
+#: H100 80GB HBM3 at 700 W with nvcc's sm_90a build of this tree
+#: (chip_smoke.py prints them, with the registers; K1 alone gets 3 from
+#: 512 to 4096 bins, K2's 128 registers 2).
+BLOCKS_PER_SM = {64: 5, 128: 2, 256: 2, 512: 2, 1024: 2, 2048: 2,
                  4096: 2, 8192: 1, 16384: 1}
 
 #: Alignment the group kernel's loads need: the frames are copied into
@@ -403,7 +406,6 @@ def kernel_attributes(N: int, windowed: bool = False,
     on the card: registers and spill bytes a thread, static and dynamic
     shared bytes and threads a block, and the blocks that reside on one
     SM. Launches nothing."""
-    import ctypes
     if not fused_psd_eligible(N):
         raise ValueError(f"fused_psd does not take N={N}")
     device = device or torch.device("cuda", torch.cuda.current_device())

@@ -60,7 +60,10 @@ def test_windowed_matches_jax_kernel_and_golden(N, F, n_valid, window):
 
 def kernel_transcription(raw: np.ndarray, n_valid: int, chunk: int,
                          window=None):
-    """numpy transcription of csrc/fused_psd.cu: word-wise dequantization,
+    """numpy transcription of csrc/fused_psd.cuh, the radix-2 kernel K1
+    and K2 were, kept as the probes' control (``fused_psd_probe``'s
+    ``k1_full`` and ``radix2_psd``; K1 as it ships is transcribed in
+    test_torch_fused_psd_regs.py): word-wise dequantization,
     the window pair of each word (K2: a float2 per 32-bit word, held in
     registers), in-place radix-2 decimation-in-frequency stages with the
     per-stage twiddle table, f32 accumulation per block of
@@ -176,9 +179,10 @@ def test_rejects_windows_the_kernel_does_not_take(window):
     (4, 3, False)])
 def test_alignment_check_matches_the_kernels_loads(raw_offset, window_offset,
                                                    ok):
-    """K1/K2 load the frames as 32-bit words and the window as float2: a
-    contiguous view at an offset the loads cannot take must raise before
-    a launch (the wrapper runs this check on CUDA tensors only)."""
+    """The radix-2 control loads the frames as 32-bit words and the window
+    as float2: a contiguous view at an offset the loads cannot take must
+    raise before a launch (the wrappers run this check on CUDA tensors
+    only)."""
     raw = torch.zeros(8 * 512 + 8, dtype=torch.uint8)
     raw = raw[raw_offset:raw_offset + 8 * 512].view(8, 512)
     window = torch.ones(256 + 4)[window_offset:window_offset + 256]
@@ -189,6 +193,25 @@ def test_alignment_check_matches_the_kernels_loads(raw_offset, window_offset,
     else:
         with pytest.raises(ValueError, match="aligned"):
             fp.check_alignment("fused_psd", raw, 4, window, 8)
+
+
+@pytest.mark.parametrize("raw_offset,window_offset,ok", [
+    (0, 0, True), (16, 1, True), (4, 0, False), (8, 1, False),
+    (0, 2, True)])
+def test_alignment_of_the_register_kernel(raw_offset, window_offset, ok):
+    """K1/K2/K4 copy the frames into shared memory 16 bytes a thread and
+    read the window as floats: frames 16-byte aligned, the window 4."""
+    assert (fp.RAW_ALIGN, fp.WINDOW_ALIGN) == (16, 4)
+    raw = torch.zeros(8 * 512 + 16, dtype=torch.uint8)
+    raw = raw[raw_offset:raw_offset + 8 * 512].view(8, 512)
+    window = torch.ones(256 + 4)[window_offset:window_offset + 256]
+    if ok:
+        fp.check_alignment("fused_psd", raw, fp.RAW_ALIGN, window,
+                           fp.WINDOW_ALIGN)
+    else:
+        with pytest.raises(ValueError, match="aligned"):
+            fp.check_alignment("fused_psd", raw, fp.RAW_ALIGN, window,
+                               fp.WINDOW_ALIGN)
 
 
 def test_cpu_calls_count_as_plain():

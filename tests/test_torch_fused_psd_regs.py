@@ -319,14 +319,16 @@ def test_transcription_matches_the_jax_kernel(N, F, n_valid, windowed):
 
 
 def test_lanes_split_a_block_and_add_in_order():
-    """At N = 256 a block is 16 lanes: 40 frames a block go to lanes
-    f % 16, and a masked count leaves the later lanes short."""
-    N, F = 256, 64
+    """At N = 256 a block is 16 lanes of 16 threads; at F = 4096 a block
+    sums 16 frames, one a lane, and the masked count leaves the last
+    block's later lanes without a frame."""
+    N, F, n_valid = 256, 4096, 4090
+    assert max(MIN_THREADS, N // 16) // (N // 16) == 16
+    assert fp.k1_group(F, 64, N) == 16
     raw = frames(F, N, 3)
-    got = regs_transcription(raw, 37, 64)
-    gold, _ = golden_accumulate(raw[:37].ravel(), N, 37)
+    got = regs_transcription(raw, n_valid, 64)
+    gold, _ = golden_accumulate(raw[:n_valid].ravel(), N, n_valid)
     np.testing.assert_allclose(got, unshift(gold), rtol=1e-5)
-    assert fp.k1_group(F, 64, N) == 1 or 256 // 16 == 16
 
 
 # --- the grid rule ---
@@ -425,3 +427,85 @@ def test_ring_reads_are_free_of_bank_conflicts(N):
             lane, t = tid // TF, tid % TF
             byte = lane * ring_lane + 2 * (t + k * TF)
             assert wavefronts(np.unique(byte // 4)) == 1
+
+
+# --- the probe cuts and the radix-2 control ---
+
+def test_probe_cuts_of_the_register_kernel():
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    src = (CSRC / "fused_psd_probe.cu").read_text()
+    cuts = {"k1r_full": ("full", "K1"), "k1r_dqonly": ("dequant", "plain"),
+            "k1r_nofft": ("nofft", "plain")}
+    for name, (cut, parity) in cuts.items():
+        v = fpp.VARIANTS[name]
+        assert v.kernel == "k1r" and v.k1_cut == cut and v.parity == parity
+        assert f" = {v.code}," in src
+        assert fpp.PROBES["P1"].variants[name] == name
+        # on K1's own grid, not the radix-2 kernel's
+        assert fpp.block_frames(name, 4096, 64) == fp.k1_group(4096, 64,
+                                                               fpp.N)
+        # the radix-2 cut's work with the pass table's bytes
+        radix2 = fpp.VARIANTS["k1_" + name[4:]].work(4096)
+        nbytes, mma, fp32 = v.work(4096)
+        assert (mma, fp32) == radix2[1:]
+        extra = 8 * (len(fp.pass_twiddles(fpp.N)) - (fpp.N - 1))
+        assert nbytes == radix2[0] + (extra if cut == "full" else 0)
+    # the radix-2 control is no longer K1 bit for bit
+    assert fpp.VARIANTS["k1_full"].parity == "plain"
+    assert set(fpp.PROBES["P1"].default) == {
+        "full", "s2x1", "s1x1", "nomm", "notw", "dg3d", "k1_full",
+        "k1_nofft", "k1_dqonly"}
+
+
+@pytest.mark.parametrize("name", ["k1r_full", "k1r_dqonly", "k1r_nofft"])
+def test_probe_cuts_plain_on_the_cpu(name):
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    raw = torch.from_numpy(frames(16, fpp.N, 31))
+    fpp.COUNTS.reset()
+    got = fpp.fused_psd_probe(name, raw, 11, 16)
+    twin = fpp.fused_psd_probe_reference("k1_" + name[4:], raw, 11, 16)
+    assert torch.equal(got, twin)
+    assert fpp.COUNTS.plain[name] == 1 and not fpp.COUNTS.kernel
+
+
+@pytest.mark.parametrize("N,window", [(256, None), (2048, "hann"),
+                                      (8192, None), (16384, "blackman")])
+def test_radix2_control_on_the_cpu(N, window):
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    assert N in fpp.RADIX2_N
+    raw = torch.from_numpy(frames(8, N, N))
+    w = None if window is None else torch.from_numpy(make_window(window, N))
+    fpp.COUNTS.reset()
+    got = fpp.radix2_psd(raw, 6, 8, w)
+    assert torch.equal(got, fp.fused_psd_reference(raw, 6, 8, w))
+    assert fpp.COUNTS.plain["radix2"] == 1 and not fpp.COUNTS.kernel
+
+
+def test_radix2_control_takes_only_its_sizes():
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    with pytest.raises(ValueError):
+        fpp.radix2_psd(torch.zeros((8, 2 * 1024), dtype=torch.uint8), 8, 8)
+    src = (CSRC / "fused_psd_probe.cu").read_text()
+    body = src[src.index("int rpf_radix2_psd"):]
+    body = body[:body.index("#undef RPF_CASE")]
+    assert sorted(1 << int(n) for n in re.findall(r"RPF_CASE\((\d+)\)",
+                                                  body)) \
+        == list(fpp.RADIX2_N)
+
+
+@pytest.mark.cuda
+def test_register_kernel_on_card():
+    """Runs only where a CUDA device is present (chip_smoke.py covers it
+    in full); on a CPU host it skips."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: chip_smoke.py)")
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    raw = torch.from_numpy(frames(256, 2048, 13)).cuda()
+    w = torch.from_numpy(make_window("hann", 2048)).cuda()
+    for window in (None, w):
+        got = fp.fused_psd(raw, 200, 64, window)
+        want = fp.fused_psd_reference(raw, 200, 64, window)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5)
+    assert torch.equal(fpp.fused_psd_probe("k1r_full", raw, 200, 64),
+                       fp.fused_psd(raw, 200, 64))

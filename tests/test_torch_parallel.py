@@ -139,15 +139,15 @@ def test_streams_reference_matches_jax_streams_kernel(S, windowed):
 
 def k4_transcription(raw, n_valid, chunk, window=None):
     """numpy transcription of K4 in csrc/fused_psd.cu and psd_sum.cuh:
-    frames_per_block over all S*F frames; block g serves stream
+    k1_group over all S*F frames; block g serves stream
     s = g // G_s and frames [j*group, min((j+1)*group, F, n_valid[s])) of
     it, j = g % G_s, accumulating |X|^2 in f32 into partial row g; the sum
     pass adds stream s's G_s rows per bin in float64, lane l taking rows
     l, l + 8, ..., lanes added in order. The transform itself is numpy's
-    (the radix-2 form is pinned in test_torch_fused_psd.py)."""
+    (the register transform is pinned in test_torch_fused_psd_regs.py)."""
     S, F, two_n = raw.shape
     N = two_n // 2
-    group = fp.frames_per_block(S * F, chunk)
+    group = fp.k1_group(S * F, chunk, N)
     assert F % group == 0
     G_s = F // group
     flat = raw.reshape(S * F, two_n)
@@ -176,10 +176,10 @@ def k4_transcription(raw, n_valid, chunk, window=None):
 
 
 @pytest.mark.parametrize("S,N,fps,n_valid,window,group", [
-    (16, 64, 256, None, None, 4),            # config 5's F and block count
+    (16, 64, 256, None, None, 8),            # config 5's F: one wave
     (3, 256, 64, [64, 0, 5], None, 1),       # chip_smoke's uneven case
     (4, 128, 24, [24, 9, 0, 17], "hann", 1),
-    (2, 64, 8192, [8192, 3000], None, 16),   # 16 frames a block
+    (2, 64, 8192, [8192, 3000], None, 32),   # 32 frames a block
     (3, 64, 64, [-3, 70, 64], None, 1),      # counts act as their bounds
 ])
 def test_k4_block_arithmetic_matches_plain(S, N, fps, n_valid, window,
