@@ -38,14 +38,16 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    twice for determinism, rows of zero count exactly 0; then 12 seeds of
    35 dB tones at config 5's step, the combined sum against the scipy
    float32 FFT (the FFTW-class budget);
-7. device times of K1, K2, K3, K4, the large-N kernel, their plain
-   versions and ``torch.fft.fft`` (CUDA events around calls queued behind
-   a sleep kernel, so that the host's enqueue is not counted; the
-   kernel's time a call, host included, beside them), and at each K1/K2
-   shape the radix-2 kernel K1 and K2 were (``fused_psd_probe.radix2_psd``,
-   the control) before and after them, the ratio printed; K1 at N = 2048,
-   F = 4096 and K2 at N = 8192, F = 1024 with Hann must take at most half
-   the control's time;
+7. times a call of K1, K2, K3, K4, the large-N kernel, their plain
+   versions and ``torch.fft.fft`` with CUDA events (the host's enqueue
+   counted where it is the longer), and beside them the device times of
+   each kernel and of ``torch.fft.fft`` (CUDA events around calls queued
+   behind a sleep kernel, so that the host's enqueue is not counted); at
+   each K1/K2 shape the radix-2 kernel K1 and K2 were
+   (``fused_psd_probe.radix2_psd``, the control) before and after them,
+   both ways, the ratios printed; K1 at N = 2048, F = 4096 and K2 at
+   N = 8192, F = 1024 with Hann must take at most half the control's
+   device time;
 8. end to end through ``cli.main`` in-process: the canonical 2048-bin
    20,000-spectrum drive (K1), a hopping matrix drive with a dead hop
    (K1), BASELINE config 2 (8192 bins, Hann, 50% Welch overlap; K2)
@@ -128,8 +130,10 @@ Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
 drive, and the time of ``torch.fft.fft`` on the same frames already in
-complex64 on the card (the transform alone, not the whole function); its
-times are device times (phase 7; the probes' slope times).
+complex64 on the card (the transform alone, not the whole function). Its
+``ms``, ``plain_ms`` and ``library_ms`` are phase 7's times a call, its
+``device_ms`` the kernel's device time (a probe's: its slope time, for
+both ``ms`` and ``device_ms``).
 
 Stdout ends with that line and then the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -288,7 +292,8 @@ def spectrum(out: str):
 
 
 def event_times_us(fn, iters: int = 60, warmup: int = 10) -> float:
-    """Median device time of one call, from CUDA events around each."""
+    """Median time of one call on the stream, from CUDA events around
+    each: its device time, or the host's enqueue where that is longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -556,8 +561,10 @@ def phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep):
                          max_rel(got_np[s], gold),
                          max_rel(got_np[s], alone_np[s])))
         e_plain, e_gold, e_alone = (max(e[i] for e in errs) for i in range(3))
+        group = fp.k1_group(S * F, chunk, fp.resident_blocks(
+            N, w is not None, raw.device.index))
         print(f"K4 {label} (S={S} N={N} F={F} chunk={chunk} frames/block "
-              f"{fp.k1_group(S * F, chunk, N)} n_valid="
+              f"{group} n_valid="
               f"{nv.tolist() if counts else F}): max rel per stream vs plain "
               f"{e_plain:.3e}, vs float64 golden {e_gold:.3e}, vs "
               f"{'K1' if w is None else 'K2'} on the stream alone "
@@ -600,14 +607,16 @@ def phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep):
 
 
 def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
-    """Device times (us/step, device_times_us): kernel, plain, kernel
-    again, and torch.fft.fft over the same frames already in complex64 on
-    the card (the transform alone: the library yardstick), and the
-    kernel's median CUDA-event time a call (event_times_us, the host's
-    enqueue included where it is the longer); at the K1/K2 shapes also the
-    radix-2 control (``fpp.radix2_psd``) before and after them, its output
-    within 1e-5 of the kernel's. Returns the times by shape (device times)
-    and the control's (first, second) by shape."""
+    """Median CUDA-event times a call (us/step, event_times_us: what a
+    caller waits, the host's enqueue included where it is the longer):
+    kernel, plain, kernel again, and torch.fft.fft over the same frames
+    already in complex64 on the card (the transform alone: the library
+    yardstick); beside them the device times of the kernel and of
+    torch.fft.fft (device_times_us: the calls queued behind a sleep
+    kernel). At the K1/K2 shapes also the radix-2 control
+    (``fpp.radix2_psd``) before and after them both ways, its output
+    within 1e-5 of the kernel's. Returns the times by shape and the
+    control's (event, device, event again, device again) by shape."""
     times, control = {}, {}
     shapes = [("K1", 2048, 4096, None), ("K1", 2048, 400, None),
               ("K1", 256, 3200, None), ("K1", 16384, 256, None),
@@ -639,40 +648,50 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
         flat = raw.reshape(S * F, 2 * N)
         z = torch.complex(flat[:, 0::2].float() - 127.0,
                           flat[:, 1::2].float() - 127.0)
+
+        def radix2_call():
+            return fpp.radix2_psd(raw, nv, chunk, w)
+
         radix2 = name in ("K1", "K2") and N in fpp.RADIX2_N
         if radix2:
-            vs = max_rel(fpp.radix2_psd(raw, nv, chunk, w).cpu().numpy(),
+            vs = max_rel(radix2_call().cpu().numpy(),
                          kernel(raw, nv, chunk, w).cpu().numpy())
             check(vs <= UNIFORM_RTOL, f"time {name} N={N}: the radix-2 "
                   f"control is {vs} from the kernel")
-            r_us = device_times_us(lambda: fpp.radix2_psd(raw, nv, chunk,
-                                                          w))
-        k_us = device_times_us(lambda: kernel(raw, nv, chunk, w))
-        p_us = device_times_us(lambda: plain(raw, nv, chunk, w))
-        lib_us = device_times_us(lambda: torch.fft.fft(z, dim=-1))
-        k_us2 = device_times_us(lambda: kernel(raw, nv, chunk, w))
-        call_us = event_times_us(lambda: kernel(raw, nv, chunk, w))
+            before = (event_times_us(radix2_call),
+                      device_times_us(radix2_call))
+        k_us = event_times_us(lambda: kernel(raw, nv, chunk, w))
+        p_us = event_times_us(lambda: plain(raw, nv, chunk, w))
+        lib_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
+        k_us2 = event_times_us(lambda: kernel(raw, nv, chunk, w))
+        kd_us = device_times_us(lambda: kernel(raw, nv, chunk, w))
+        libd_us = device_times_us(lambda: torch.fft.fft(z, dim=-1))
         b_ms, b_by = bound_ms(name, S * F, N, w is not None, S)
-        times[(name, N, F, wname)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by)
+        times[(name, N, F, wname)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by,
+                                      kd_us, libd_us)
         if radix2:
-            r_us2 = device_times_us(lambda: fpp.radix2_psd(raw, nv, chunk,
-                                                           w))
-            control[(name, N, F, wname)] = (r_us, r_us2)
+            after = (event_times_us(radix2_call),
+                     device_times_us(radix2_call))
+            control[(name, N, F, wname)] = before + after
+            group = fp.k1_group(F, chunk, fp.resident_blocks(
+                N, w is not None, dev.index))
+            k_best, r_best = min(k_us, k_us2), min(before[0], after[0])
             print(f"time {name} N={N} F={F} window={wname} on {card}: the "
-                  f"radix-2 control {r_us:.1f} / {r_us2:.1f} us/step "
+                  f"radix-2 control {before[0]:.1f} / {after[0]:.1f} us a "
+                  f"call, device {before[1]:.1f} / {after[1]:.1f} us "
                   f"(frames/block {fp.frames_per_block(F, chunk)}; max rel "
                   f"from the kernel {vs:.3e}), the kernel {k_us:.1f} / "
-                  f"{k_us2:.1f} (frames/block {fp.k1_group(F, chunk, N)}):"
-                  f" kernel/control {min(k_us, k_us2) / min(r_us, r_us2):.3f}")
+                  f"{k_us2:.1f} a call, device {kd_us:.1f} (frames/block "
+                  f"{group}): kernel/control {k_best / r_best:.3f} a call, "
+                  f"{kd_us / min(before[1], after[1]):.3f} on the device")
         frames = S * F
         print(f"time {name} N={N} F={F}{f' S={S}' if S > 1 else ''} window="
-              f"{wname} on {card}: kernel {k_us:.1f} us/step "
+              f"{wname} on {card}: kernel {k_us:.1f} us a call "
               f"({frames * N / k_us / 1e3:.2f} GS/s; repeat {k_us2:.1f} us; "
-              f"{call_us:.1f} us a call, the host's enqueue included), "
-              f"plain {p_us:.1f} us/step "
+              f"device {kd_us:.1f} us), plain {p_us:.1f} us a call "
               f"({frames * N / p_us / 1e3:.2f} GS/s), torch.fft.fft of the "
-              f"complex64 frames {lib_us:.1f} us, bound {1e3 * b_ms:.1f} us "
-              f"({b_by})")
+              f"complex64 frames {lib_us:.1f} us a call (device "
+              f"{libd_us:.1f}), bound {1e3 * b_ms:.2f} us ({b_by})")
     return times, control
 
 
@@ -910,18 +929,16 @@ def bound_ms(kind: str, frames: int, N: int, windowed: bool,
              out_rows: int = 1):
     """rate_bound_ms of one call: K3's work as the probes count it
     (fused_psd_probe.k3_work; 2 N (12 N1 + 9 N2) bf16 flops per frame, 24
-    N1 windowed), and the FFT-based steps' (K1, K2, K4 with their
-    pass_twiddles table, the large-N kernel "L") as k1_work does (~5 N
-    log2 N FP32 flops per frame)."""
+    N1 windowed), and the FFT-based steps' (K1, K2, K4, the large-N
+    kernel "L") as k1_work does: the function's least work, the frames
+    and output's bytes and the split-radix count, 4 N log2 N - 6 N + 8
+    FP32 flops per frame, and dequantize and |X|^2."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     if kind == "K3":
         return rate_bound_ms(*fpp.k3_work(frames, N, 6 if windowed else 3,
                                           windowed=windowed))
-    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
-    return rate_bound_ms(*fpp.k1_work(
-        frames, N, windowed=windowed, out_rows=out_rows,
-        twiddle_table=kind != "L",
-        table_rows=None if kind == "L" else len(fp.pass_twiddles(N))))
+    return rate_bound_ms(*fpp.k1_work(frames, N, windowed=windowed,
+                                      out_rows=out_rows))
 
 
 def phase_large(dev, rng, fp, fl, adapt_batch, make_window):
@@ -1290,7 +1307,8 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
         results[name] = (k_us / 1e3, p_us / 1e3, b_ms, b_by, max_abs,
                          fft_us / 1e3)
         print(f"probe {name} ({'; '.join(v.tpu)}) N={N} F={F} chunk={chunk} "
-              f"frames/block {fpp.block_frames(name, F, chunk)} on {card}: "
+              f"frames/block {fpp.block_frames(name, F, chunk, None, dev)} "
+              f"on {card}: "
               f"{k_us:.1f} us/step ({F * N / k_us / 1e3:.2f} GS/s), plain "
               f"{p_us:.1f} us, bound {1e3 * b_ms:.1f} us ({b_by}){done}, "
               f"torch.fft.fft {fft_us:.1f} us; max rel vs plain "
@@ -1314,7 +1332,7 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
                                                      iters=it))
         cuts.append(f"{name} {us:.1f}")
     print(f"probe K1's cuts N={N} F={Fc} chunk={cc} frames/block "
-          f"{fpp.block_frames('k1r_full', Fc, cc)} on {card}: "
+          f"{fpp.block_frames('k1r_full', Fc, cc, None, dev)} on {card}: "
           f"{', '.join(cuts)} us/step; torch.fft.fft "
           f"{device_times_us(lambda: torch.fft.fft(zc, dim=-1)):.1f} us")
     profile_calls(f"probe k1r_full N={N} F={Fc}",
@@ -1584,8 +1602,9 @@ def main() -> int:
                   f"{'windowed' if windowed else 'unwindowed'} on {card}: "
                   f"{a['registers']} registers, {a['spill_bytes']} B spill, "
                   f"{a['static_smem']} + {a['dynamic_smem']} B shared, "
-                  f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM "
-                  f"(k1_group's table: {fp.BLOCKS_PER_SM[N]})")
+                  f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM; "
+                  f"k1_group's grid aims at "
+                  f"{fp.resident_blocks(N, windowed, dev.index)} blocks")
 
     # 11.-12. The stage-attribution probes, then their entry points.
     probe_times = phase_probes(dev, np.random.default_rng(0), fpp, ff, fp,
@@ -1646,19 +1665,24 @@ def main() -> int:
     large_abs = phase_large(dev, rng, fp, fl, adapt_batch, make_window)
     lap("the large kernel against plain")
 
-    # 7. Times (median of 60 event-timed calls after 10 warm-ups).
+    # 7. Times (median of 60 event-timed calls after 10 warm-ups; device
+    # times beside them).
     times, control = phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch,
                                  make_window, card)
-    # The redesign against the radix-2 kernel it replaced, in this run:
-    # at most half its device time at the two shapes the ROADMAP ranks.
+    # The redesign against the radix-2 kernel it replaced, in this run, at
+    # the two shapes the ROADMAP ranks: a call (what a caller waits), and
+    # the device's work, which must be at most half the control's.
     for key in (("K1", 2048, 4096, None), ("K2", 8192, 1024, "hann")):
-        k_us = min(times[key][0], times[key][2])
-        r_us = min(control[key])
+        k_call, k_dev = min(times[key][0], times[key][2]), times[key][6]
+        r_call = min(control[key][0], control[key][2])
+        r_dev = min(control[key][1], control[key][3])
         print(f"redesign {key[0]} N={key[1]} F={key[2]} window={key[3]} on "
-              f"{card}: {k_us:.1f} us against the radix-2 control's "
-              f"{r_us:.1f} us, {k_us / r_us:.3f} (<= 0.5)")
-        check(k_us <= 0.5 * r_us, f"{key}: {k_us} us is above half the "
-              f"radix-2 control's {r_us} us")
+              f"{card}: a call {k_call:.1f} us against the radix-2 "
+              f"control's {r_call:.1f} us, {k_call / r_call:.3f}; device "
+              f"{k_dev:.1f} us against {r_dev:.1f} us, {k_dev / r_dev:.3f} "
+              f"(<= 0.5)")
+        check(k_dev <= 0.5 * r_dev, f"{key}: {k_dev} us of device time is "
+              f"above half the radix-2 control's {r_dev} us")
     lap("times")
 
     # 8. End to end, in-process through the CLI.
@@ -1719,14 +1743,14 @@ def main() -> int:
                   for m in sys.modules), "jax was imported")
 
     def entry(name, source, replaces, launches, max_abs, key):
-        k_us, p_us, _, lib_us, b_ms, b_by = times[key]
+        k_us, p_us, _, lib_us, b_ms, b_by, kd_us, _ = times[key]
         return {"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": (replaces if ".py:" in replaces
                              else TPU_KERNEL + replaces),
                 "launches": launches, "max_abs_err": max_abs,
                 "ms": k_us / 1000.0, "plain_ms": p_us / 1000.0,
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_us / 1000.0}
+                "library_ms": lib_us / 1000.0, "device_ms": kd_us / 1000.0}
 
     def probe_entry(name, tpu, key):
         ms, plain_ms, b_ms, b_by, max_abs, lib_ms = probe_times[key]
@@ -1736,7 +1760,7 @@ def main() -> int:
                 "source": CSRC + "fused_psd_probe.cu", "replaces": source,
                 "launches": probe_launches[tpu], "max_abs_err": max_abs,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms}
+                "bound_by": b_by, "library_ms": lib_ms, "device_ms": ms}
 
     print(json.dumps({"kernels": [
         entry("fused_psd", "fused_psd.cu", "435", launches, max_abs_2048,

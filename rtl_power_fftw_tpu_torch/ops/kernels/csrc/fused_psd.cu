@@ -10,10 +10,11 @@
 // streams of F frames each, (S*F, 2N), with a count n_valid[s] per stream,
 // and gives one such vector per stream, (S, N).
 //
-// What bounds it on an H100. The transform is ~5 N log2(N) FP32 flops a
-// frame against the 2N bytes read from device memory (~27 flop/byte at
-// N = 2048; at F = 4096, ~7 us of FP32 work at 67 TFLOP/s and ~5 us of
-// device memory at 3.35 TB/s, the H100 SXM's peaks at 700 W), so neither
+// What bounds it on an H100. The transform needs ~4 N log2(N) FP32 flops
+// a frame (split radix) against the 2N bytes read from device memory (~21
+// flop/byte at N = 2048; at F = 4096, ~5.3 us of FP32 work at 67 TFLOP/s
+// and ~5 us of device memory at 3.35 TB/s, the H100 SXM's peaks at
+// 700 W), so neither
 // the memory nor the FP32 rate is the first limit: the traffic through
 // shared memory and the barriers around it are. An in-place
 // radix-2 FFT in shared memory (fft_radix2.cuh, the kernel this one
@@ -68,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "fused_psd_regs.cuh"
 #include "psd_sum.cuh"
 
@@ -76,22 +79,34 @@ namespace {
 constexpr int kMinLog2N = 6;
 constexpr int kMaxLog2N = 14;
 
-// Sets the kernel's dynamic shared memory limit (above 48 KB by opt-in).
+// Opts the kernel into its dynamic shared memory where that is above the
+// 48 KB default: once per device (bit d of a mask for device d < 64; a
+// device beyond that sets it every call), so that a launch costs no
+// driver call for it. Two threads may both set it; that is harmless.
 template <int LOG2N, bool WINDOWED>
-cudaError_t prepare(int* smem) {
+cudaError_t prepare(int device, int* smem) {
   *smem = RegsShape<LOG2N>::SMEM_BYTES;
-  return cudaFuncSetAttribute(psd_regs_kernel<LOG2N, WINDOWED>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              *smem);
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (bit != 0 && (done.load(std::memory_order_relaxed) & bit) != 0) {
+    return cudaSuccess;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      psd_regs_kernel<LOG2N, WINDOWED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 template <int LOG2N, bool WINDOWED>
 cudaError_t launch_groups(const void* raw, const void* twiddle,
                           const void* window, void* partial, int F,
                           int group, int G_s, int blocks, int n_valid,
-                          const void* stream_n_valid, cudaStream_t stream) {
+                          const void* stream_n_valid, int device,
+                          cudaStream_t stream) {
   int smem = 0;
-  const cudaError_t e = prepare<LOG2N, WINDOWED>(&smem);
+  const cudaError_t e = prepare<LOG2N, WINDOWED>(device, &smem);
   if (e != cudaSuccess) return e;
   psd_regs_kernel<LOG2N, WINDOWED>
       <<<blocks, RegsShape<LOG2N>::THREADS, smem, stream>>>(
@@ -106,23 +121,24 @@ template <int LOG2N>
 cudaError_t launch_groups(const void* raw, const void* twiddle,
                           const void* window, void* partial, int F,
                           int group, int G_s, int blocks, int n_valid,
-                          const void* stream_n_valid, cudaStream_t stream) {
+                          const void* stream_n_valid, int device,
+                          cudaStream_t stream) {
   return window == nullptr
              ? launch_groups<LOG2N, false>(raw, twiddle, window, partial, F,
                                            group, G_s, blocks, n_valid,
-                                           stream_n_valid, stream)
+                                           stream_n_valid, device, stream)
              : launch_groups<LOG2N, true>(raw, twiddle, window, partial, F,
                                           group, G_s, blocks, n_valid,
-                                          stream_n_valid, stream);
+                                          stream_n_valid, device, stream);
 }
 
 // What the group kernel gets on the current device: registers and spill
 // bytes a thread, static and dynamic shared bytes a block, threads a
 // block, and the blocks that reside on one SM.
 template <int LOG2N, bool WINDOWED>
-cudaError_t attributes(int* attrs) {
+cudaError_t attributes(int device, int* attrs) {
   int smem = 0;
-  cudaError_t e = prepare<LOG2N, WINDOWED>(&smem);
+  cudaError_t e = prepare<LOG2N, WINDOWED>(device, &smem);
   cudaFuncAttributes fa;
   if (e == cudaSuccess) {
     e = cudaFuncGetAttributes(&fa, psd_regs_kernel<LOG2N, WINDOWED>);
@@ -150,7 +166,7 @@ int launch_both(const void* raw, const void* twiddle, const void* window,
 #define RPF_CASE(L)                                                         \
   case L:                                                                   \
     e = launch_groups<L>(raw, twiddle, window, partial, F, group, G_s,      \
-                         blocks, n_valid, stream_n_valid, st);              \
+                         blocks, n_valid, stream_n_valid, device, st);      \
     break;
   switch (log2n) {
     RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
@@ -213,7 +229,8 @@ int rpf_fused_psd_attributes(int log2n, int windowed, int device,
   if (e != cudaSuccess) return static_cast<int>(e);
 #define RPF_CASE(L)                                                          \
   case L:                                                                    \
-    e = windowed ? attributes<L, true>(attrs) : attributes<L, false>(attrs); \
+    e = windowed ? attributes<L, true>(device, attrs)                        \
+                 : attributes<L, false>(device, attrs);                      \
     break;
   switch (log2n) {
     RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)

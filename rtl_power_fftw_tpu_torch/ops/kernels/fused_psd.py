@@ -25,7 +25,8 @@ radix-16 passes, one shared-memory exchange between passes, by the pass
 plan :data:`PASS_PLAN`, twiddles from :func:`pass_twiddles`), the next
 frame's bytes are copied into shared memory while the current one is
 transformed, and each block sums as many frames as put the grid within
-the blocks the card holds resident (:func:`k1_group`). The radix-2
+the blocks the card holds resident (:func:`k1_group`,
+:func:`resident_blocks`). The radix-2
 kernel it replaced (``csrc/fused_psd.cuh``, with :func:`stage_twiddles`
 and :func:`frames_per_block`) stays as the probes' control.
 
@@ -65,17 +66,6 @@ _TARGET_BLOCKS = 1024
 PASS_PLAN = {64: (8, 8), 128: (16, 8), 256: (16, 16), 512: (16, 16, 2),
              1024: (16, 16, 4), 2048: (16, 16, 8), 4096: (16, 16, 16),
              8192: (16, 16, 16, 2), 16384: (16, 16, 16, 4)}
-
-#: The H100's streaming multiprocessors.
-SMS = 132
-#: Blocks of the group kernel (csrc/fused_psd_regs.cuh) that reside on
-#: one SM, by N, unwindowed and windowed alike (the smaller of the two), as
-#: cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on an NVIDIA
-#: H100 80GB HBM3 at 700 W with nvcc's sm_90a build of this tree
-#: (chip_smoke.py prints them, with the registers; K1 alone gets 3 from
-#: 512 to 4096 bins, K2's 128 registers 2).
-BLOCKS_PER_SM = {64: 5, 128: 2, 256: 2, 512: 2, 1024: 2, 2048: 2,
-                 4096: 2, 8192: 1, 16384: 1}
 
 #: Alignment the group kernel's loads need: the frames are copied into
 #: shared memory 16 bytes a thread, the window read as floats.
@@ -172,19 +162,30 @@ def frames_per_block(F: int, chunk: int) -> int:
     return group
 
 
-def k1_group(F: int, chunk: int, N: int) -> int:
+def k1_group(F: int, chunk: int, resident: int) -> int:
     """Frames one block of the group kernel (K1, K2, K4) sums over F
-    frames of N bins: the least power of two, up to ``chunk`` (the
-    two-stage sum's first stage), for which the ceil(F / group) blocks fit
-    the blocks the card holds resident (:data:`SMS` times
-    :data:`BLOCKS_PER_SM`), so that the grid runs in one wave. For K4, F
-    is all S*F frames, and a group up to a power-of-two chunk that divides
-    each stream's F divides it too."""
-    resident = SMS * BLOCKS_PER_SM[N]
-    group = 1
-    while group < chunk and -(-F // group) > resident:
-        group *= 2
-    return group
+    frames: the least divisor of ``chunk`` (the two-stage sum's first
+    stage) for which the ceil(F / group) blocks fit ``resident``, the
+    blocks the card holds at once (:func:`resident_blocks`), so that the
+    grid runs in one wave; ``chunk`` itself where none does. A divisor of
+    chunk divides F too, so for K4 (F all S*F frames) no block crosses a
+    stream."""
+    for group in range(-(-F // resident), chunk):
+        if chunk % group == 0:
+            return group
+    return chunk
+
+
+@functools.lru_cache(maxsize=64)
+def resident_blocks(N: int, windowed: bool, index: int) -> int:
+    """Blocks of the group kernel at N bins (windowed: K2's instantiation)
+    that card ``index`` holds resident: its SMs times the blocks one SM
+    holds, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them
+    (:func:`kernel_attributes`). Asked of the card once per key."""
+    device = torch.device("cuda", index)
+    per_sm = kernel_attributes(N, windowed, device)["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * max(1, per_sm)
 
 
 def _frame_power(raw_u8: torch.Tensor,
@@ -350,8 +351,8 @@ def fused_psd(raw_u8: torch.Tensor, n_valid: int, chunk: int,
         COUNTS.plain += 1
         return fused_psd_reference(raw_u8, n_valid, chunk, window)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
-    group = k1_group(F, chunk, N)
     index = raw_u8.device.index
+    group = k1_group(F, chunk, resident_blocks(N, window is not None, index))
     out = _launch(
         "fused_psd", raw_u8, window, -(-F // group), (N,),
         lambda lib, raw, twiddle, win, partial, out, stream:
@@ -381,12 +382,11 @@ def fused_psd_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
         COUNTS.plain += 1
         return fused_psd_streams_reference(raw_u8, n_valid, chunk, window)
     S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
-    # Blocks are counted over all S*F frames; a group is a power of two no
-    # larger than chunk, which divides F, so no block crosses a stream.
-    group = k1_group(S * F, chunk, N)
-    if F % group:
-        raise ValueError(f"frames per block {group} must divide F={F}")
+    # Blocks are counted over all S*F frames; a group divides chunk, which
+    # divides F, so no block crosses a stream.
     index = raw_u8.device.index
+    group = k1_group(S * F, chunk,
+                     resident_blocks(N, window is not None, index))
     out = _launch(
         "fused_psd_streams", raw_u8, window, S * (F // group), (S, N),
         lambda lib, raw, twiddle, win, partial, out, stream:

@@ -108,7 +108,7 @@ from . import fused_psd_fast as ff
 from .fused_psd import (KernelLaunchError, _device_pass_twiddles,
                         _device_twiddles, check_alignment, check_args,
                         frames_per_block, fused_psd_reference, k1_group,
-                        pass_twiddles)
+                        resident_blocks)
 
 #: The probes' transform size and K3's split of it.
 N = 2048
@@ -181,11 +181,8 @@ class Variant:
         :func:`k1_work`). A schedule (chains, pipeline) does its scheme's
         work; ``zero_blocks``: a form of :data:`ZERO_BLOCK_FORMS`, its work
         done, its zero blocks included."""
-        if self.kernel == "k1":
+        if self.kernel in ("k1", "k1r"):
             return k1_work(F, N, self.k1_cut)
-        if self.kernel == "k1r":
-            return k1_work(F, N, self.k1_cut,
-                           table_rows=len(pass_twiddles(N)))
         return k3_work(F, N, self.s1_terms, self.s2_products, self.twiddle,
                        self.cut, s2_form=self.s2_form,
                        raw_bytes=self.raw_bytes, s1_form=self.s1_form,
@@ -261,21 +258,17 @@ def k3_work(F: int, n: int, s1_terms: int = 3, s2_products: int = 3,
 
 
 def k1_work(F: int, n: int, cut: str = "full", windowed: bool = False,
-            out_rows: int = 1, twiddle_table: bool = True,
-            table_rows: Optional[int] = None) -> Tuple[float, float, float]:
+            out_rows: int = 1) -> Tuple[float, float, float]:
     """(bytes, 0, FP32 ops) of K1's step (or K2's, windowed; K4's, with
-    ``out_rows`` output rows), or of a cut of it, over F frames of n bins.
-    Bytes: the frames, the window and the twiddle table (``table_rows``
-    float2: the register transform's :func:`pass_twiddles`; by default the
-    radix-2 kernel's n - 1; ``twiddle_table=False`` for a kernel with
-    tables of its own) read once, the output written once. FP32 a frame:
-    5 n log2 n for the transform (the radix-2 count, for either kernel),
-    2n to dequantize, 2n for |X|^2 and the sum, 2n more for a window."""
+    ``out_rows`` output rows), or of a cut of it, over F frames of n bins:
+    the least the function needs, whatever kernel computes it. Bytes: the
+    frames and the window read once, the output written once (twiddles
+    are the implementation's). FP32 a frame: 4 n log2 n - 6n + 8 for the
+    transform (split radix, the fewest of the usual algorithms), 2n to
+    dequantize, 2n for |X|^2 and the sum, 2n more for a window."""
     log2n = n.bit_length() - 1
     nbytes = F * 2 * n + 4 * n * out_rows + (4 * n if windowed else 0)
-    if cut == "full" and twiddle_table:
-        nbytes += 8 * (n - 1 if table_rows is None else table_rows)
-    fp32 = {"full": 5 * n * log2n + 4 * n, "nofft": 4 * n,
+    fp32 = {"full": 4 * n * log2n - 2 * n + 8, "nofft": 4 * n,
             "dequant": 2 * n}[cut] + (2 * n if windowed else 0)
     return float(nbytes), 0.0, float(F * fp32)
 
@@ -1020,16 +1013,20 @@ def _eligible(n: int) -> bool:
 
 
 def block_frames(variant: str, F: int, chunk: int,
-                 group: Optional[int] = None) -> int:
+                 group: Optional[int] = None,
+                 device: Optional[torch.device] = None) -> int:
     """Frames one block of ``variant`` sums (the TPU probes' tile):
     ``group``, or K3's and the radix-2 kernel's ``frames_per_block``
     rounded up to a multiple of the variant's chains (the register
-    kernel's cuts: K1's own ``k1_group``). Raises ValueError for a group
-    that is not a positive multiple of its chains (the TPU's tile split
-    into chains, ``probes/s2_ilv.py:38-39``)."""
+    kernel's cuts: K1's own ``k1_group`` on the CUDA ``device``; on the
+    CPU, whose plain version has no grid, ``chunk``). Raises ValueError
+    for a group that is not a positive multiple of its chains (the TPU's
+    tile split into chains, ``probes/s2_ilv.py:38-39``)."""
     chains = VARIANTS[variant].chains
     if group is None and VARIANTS[variant].kernel == "k1r":
-        return k1_group(F, chunk, N)
+        if device is None or device.type != "cuda":
+            return chunk
+        return k1_group(F, chunk, resident_blocks(N, False, device.index))
     if group is None:
         return -(-frames_per_block(F, chunk) // chains) * chains
     group = int(group)
@@ -1057,7 +1054,7 @@ def fused_psd_probe(variant: str, raw_u8: torch.Tensor, n_valid: int,
     n_valid = int(n_valid)
     check_args("fused_psd_probe", _eligible, raw_u8, n_valid, chunk, None)
     F = raw_u8.shape[0]
-    group = block_frames(variant, F, chunk, group)
+    group = block_frames(variant, F, chunk, group, raw_u8.device)
     if iters < 1 or blocks_per_sm < 0:
         raise ValueError(f"iters={iters} must be >= 1 and "
                          f"blocks_per_sm={blocks_per_sm} >= 0")

@@ -142,7 +142,7 @@ def run_probe(tpu: str, argv: Optional[Sequence[str]] = None) -> int:
         return 1
     F, chunk = adapt_batch(FRAMES if dev.type == "cuda" else CPU_FRAMES)
     try:
-        groups = [fpp.block_frames(p.variants[name], F, chunk, tile)
+        groups = [fpp.block_frames(p.variants[name], F, chunk, tile, dev)
                   for (p, name), tile in zip(runs, tiles)]
     except ValueError as e:
         print(f"bad variant[:tile]: {e}", file=sys.stderr)

@@ -33,6 +33,16 @@ CSRC = REPO / "rtl_power_fftw_tpu_torch/ops/kernels/csrc"
 SIZES = sorted(fp.PASS_PLAN)
 MIN_THREADS = 256          # kRegsMinThreads
 SMEM_PER_BLOCK = 232448    # the 227 KB a Hopper block may use
+#: resident_blocks on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's
+#: occupancy lines: 132 SMs times K1's and K2's blocks per SM by N), the
+#: grid rule's input at the shapes the card runs.
+H100_BLOCKS = {64: (5, 5), 128: (2, 2), 256: (2, 2), 512: (3, 2),
+               1024: (3, 2), 2048: (3, 2), 4096: (3, 2), 8192: (1, 1),
+               16384: (1, 1)}
+
+
+def h100_resident(N, windowed=False):
+    return 132 * H100_BLOCKS[N][int(windowed)]
 
 
 def header_plan():
@@ -178,7 +188,7 @@ def regs_transcription(raw, n_valid, chunk, window=None):
     tw = fp.pass_twiddles(N)
     tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
     w16 = header_w16().astype(np.complex64)
-    group = fp.k1_group(F, chunk, N)
+    group = fp.k1_group(F, chunk, h100_resident(N, window is not None))
     rows = []
     for f0 in range(0, F, group):
         acc = np.zeros((lanes, N), np.float32)
@@ -324,7 +334,7 @@ def test_lanes_split_a_block_and_add_in_order():
     block's later lanes without a frame."""
     N, F, n_valid = 256, 4096, 4090
     assert max(MIN_THREADS, N // 16) // (N // 16) == 16
-    assert fp.k1_group(F, 64, N) == 16
+    assert fp.k1_group(F, 64, h100_resident(N)) == 16
     raw = frames(F, N, 3)
     got = regs_transcription(raw, n_valid, 64)
     gold, _ = golden_accumulate(raw[:n_valid].ravel(), N, n_valid)
@@ -337,12 +347,29 @@ def test_lanes_split_a_block_and_add_in_order():
 @pytest.mark.parametrize("F,chunk", [(8, 8), (400, 16), (1024, 64),
                                      (4096, 64), (3200, 64), (65536, 64)])
 def test_k1_group_fits_one_wave(N, F, chunk):
-    group = fp.k1_group(F, chunk, N)
-    resident = fp.SMS * fp.BLOCKS_PER_SM[N]
-    assert 1 <= group <= chunk and group & (group - 1) == 0
-    assert -(-F // group) <= resident or group == chunk
-    # the least such group: half as many frames would not fit
-    assert group == 1 or -(-F // (group // 2)) > resident
+    for windowed in (False, True):
+        resident = h100_resident(N, windowed)
+        group = fp.k1_group(F, chunk, resident)
+        assert 1 <= group <= chunk and chunk % group == 0
+        assert -(-F // group) <= resident or group == chunk
+        # the least such group: no smaller divisor of chunk fits
+        assert all(-(-F // g) > resident for g in range(1, group)
+                   if chunk % g == 0)
+
+
+@pytest.mark.parametrize("F,chunk,resident,group", [
+    (4000, 100, 264, 20),    # needs 16 frames a block: 20 divides 100
+    (400, 100, 10, 50),
+    (400, 100, 3, 100),      # nothing fits: chunk itself
+    (4096, 96, 396, 12),     # 11 would fit; 12 is the least divisor
+    (72, 12, 10, 12),        # K4, S = 3 streams of F = 24
+    (72, 12, 20, 4)])
+def test_k1_group_divides_a_chunk_that_is_not_a_power_of_two(F, chunk,
+                                                            resident, group):
+    """The group is the least divisor of chunk that fits, never above it:
+    a chunk of 100 gives 20, not the 32 a power of two would."""
+    assert fp.k1_group(F, chunk, resident) == group
+    assert group <= chunk and chunk % group == 0
 
 
 @pytest.mark.parametrize("S,N,fps", [(16, 2048, 256), (4, 8192, 64),
@@ -350,8 +377,9 @@ def test_k1_group_fits_one_wave(N, F, chunk):
                                      (2, 64, 8192)])
 def test_k1_group_divides_each_streams_frames(S, N, fps):
     F, chunk = adapt_batch(fps)
-    group = fp.k1_group(S * F, chunk, N)
-    assert F % group == 0 and group <= chunk
+    for windowed in (False, True):
+        group = fp.k1_group(S * F, chunk, h100_resident(N, windowed))
+        assert F % group == 0 and group <= chunk
 
 
 @pytest.mark.parametrize("N,F,rows", [(2048, 4096, 256), (8192, 1024, None),
@@ -360,8 +388,10 @@ def test_rows_at_the_timed_shapes(N, F, rows):
     """A quarter of the radix-2 grid's 1024 partial rows, or fewer, at
     N = 2048, F = 4096; one wave at the others."""
     F, chunk = adapt_batch(F)
-    G = -(-F // fp.k1_group(F, chunk, N))
-    assert G <= fp.SMS * fp.BLOCKS_PER_SM[N]
+    windowed = N == 8192
+    resident = h100_resident(N, windowed)
+    G = -(-F // fp.k1_group(F, chunk, resident))
+    assert G <= resident
     if rows is not None:
         assert G <= rows < F // fp.frames_per_block(F, chunk)
 
@@ -370,6 +400,28 @@ def test_radix2_grid_is_unchanged():
     """K3's and the probes' grid rule stays as it was."""
     assert fp.frames_per_block(4096, 64) == 4
     assert fp.frames_per_block(65536, 64) == 64
+
+
+@pytest.mark.parametrize("N,F,windowed,out_rows", [
+    (2048, 4096, False, 1), (8192, 1024, True, 1), (256, 3200, False, 1),
+    (2048, 4096, False, 16)])
+def test_k1_work_is_the_functions_least(N, F, windowed, out_rows):
+    """The bound's work: the frames (and window) read once and the output
+    written once, no twiddle table; the split-radix transform, 4 N log2 N
+    - 6 N + 8 FP32 flops a frame, and 4N (6N windowed) for the rest."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    log2n = N.bit_length() - 1
+    nbytes, mma, fp32 = fpp.k1_work(F, N, windowed=windowed,
+                                    out_rows=out_rows)
+    assert nbytes == F * 2 * N + 4 * N * (out_rows + windowed)
+    assert mma == 0
+    assert fp32 == F * (4 * N * log2n - 6 * N + 8 + (6 if windowed else 4)
+                        * N)
+    if (N, F, windowed, out_rows) == (2048, 4096, False, 1):
+        # the FP32 work sets the bound: ~5.26 us at 67 TFLOP/s, above the
+        # ~5.01 us of 16.8 MB at 3.35 TB/s
+        assert 5.2 < fp32 / 67e12 * 1e6 < 5.3
+        assert 5.0 < nbytes / 3.35e12 * 1e6 < fp32 / 67e12 * 1e6
 
 
 # --- shared-memory banks ---
@@ -431,8 +483,10 @@ def test_ring_reads_are_free_of_bank_conflicts(N):
 
 # --- the probe cuts and the radix-2 control ---
 
-def test_probe_cuts_of_the_register_kernel():
+def test_probe_cuts_of_the_register_kernel(monkeypatch):
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    monkeypatch.setattr(fpp, "resident_blocks",
+                        lambda N, windowed, index: h100_resident(N, windowed))
     src = (CSRC / "fused_psd_probe.cu").read_text()
     cuts = {"k1r_full": ("full", "K1"), "k1r_dqonly": ("dequant", "plain"),
             "k1r_nofft": ("nofft", "plain")}
@@ -441,15 +495,14 @@ def test_probe_cuts_of_the_register_kernel():
         assert v.kernel == "k1r" and v.k1_cut == cut and v.parity == parity
         assert f" = {v.code}," in src
         assert fpp.PROBES["P1"].variants[name] == name
-        # on K1's own grid, not the radix-2 kernel's
-        assert fpp.block_frames(name, 4096, 64) == fp.k1_group(4096, 64,
-                                                               fpp.N)
-        # the radix-2 cut's work with the pass table's bytes
-        radix2 = fpp.VARIANTS["k1_" + name[4:]].work(4096)
-        nbytes, mma, fp32 = v.work(4096)
-        assert (mma, fp32) == radix2[1:]
-        extra = 8 * (len(fp.pass_twiddles(fpp.N)) - (fpp.N - 1))
-        assert nbytes == radix2[0] + (extra if cut == "full" else 0)
+        # on K1's own grid on the card, not the radix-2 kernel's; on the
+        # CPU, whose plain version has no grid, the chunk
+        card = torch.device("cuda", 0)
+        assert fpp.block_frames(name, 4096, 64, None, card) == 16 == \
+            fp.k1_group(4096, 64, h100_resident(fpp.N))
+        assert fpp.block_frames(name, 4096, 64) == 64
+        # the radix-2 cut's work: one count of the function for both
+        assert v.work(4096) == fpp.VARIANTS["k1_" + name[4:]].work(4096)
     # the radix-2 control is no longer K1 bit for bit
     assert fpp.VARIANTS["k1_full"].parity == "plain"
     assert set(fpp.PROBES["P1"].default) == {

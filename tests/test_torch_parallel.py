@@ -137,9 +137,15 @@ def test_streams_reference_matches_jax_streams_kernel(S, windowed):
                                atol=1e-2)
 
 
+#: resident_blocks on an NVIDIA H100 80GB HBM3 at 700 W by N, unwindowed
+#: and windowed alike at these sizes (132 SMs times 5, 2, 2 blocks).
+H100_RESIDENT = {64: 660, 128: 264, 256: 264}
+
+
 def k4_transcription(raw, n_valid, chunk, window=None):
     """numpy transcription of K4 in csrc/fused_psd.cu and psd_sum.cuh:
-    k1_group over all S*F frames; block g serves stream
+    k1_group over all S*F frames at the H100's resident blocks; block g
+    serves stream
     s = g // G_s and frames [j*group, min((j+1)*group, F, n_valid[s])) of
     it, j = g % G_s, accumulating |X|^2 in f32 into partial row g; the sum
     pass adds stream s's G_s rows per bin in float64, lane l taking rows
@@ -147,7 +153,7 @@ def k4_transcription(raw, n_valid, chunk, window=None):
     (the register transform is pinned in test_torch_fused_psd_regs.py)."""
     S, F, two_n = raw.shape
     N = two_n // 2
-    group = fp.k1_group(S * F, chunk, N)
+    group = fp.k1_group(S * F, chunk, H100_RESIDENT[N])
     assert F % group == 0
     G_s = F // group
     flat = raw.reshape(S * F, two_n)
