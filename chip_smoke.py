@@ -8,7 +8,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 
 1. machine: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles every CUDA source in ``ops/kernels/csrc`` with nvcc,
-   one process per source, started together;
+   one process per source, started together; ptxas's registers and spill
+   of every instantiation (24 of the large kernel's radix-2 control, 24
+   of its register passes), each large-N pass's registers, spill, shared
+   memory and blocks per SM at every N, and every earlier kernel of
+   ``fused_psd_fast``, ``fused_psd_large`` and ``fused_psd_probe`` held
+   to the parent tree's SASS (``ops/kernels/sass_digest.json``, written by
+   ``sass_diff --write-digest`` from that tree's ``csrc/``);
 3. K1 (``fused_psd``, the register transform of ``fused_psd_regs.cuh``)
    against its plain PyTorch version on the card, at the shapes the main
    path gives it and at N = 256, 2048, 16384, with a masked ``n_valid``
@@ -47,7 +53,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (``fused_psd_probe.radix2_psd``, the control) before and after them,
    both ways, the ratios printed; K1 at N = 2048, F = 4096 and K2 at
    N = 8192, F = 1024 with Hann must take at most half the control's
-   device time;
+   device time. At each large-N shape (32768 F=32, 65536 Hann F=16, 2^20
+   F=8 unwindowed and Hann, 2^22 F=8) the large kernel's radix-2 passes
+   (``fused_psd_probe.large_radix2_psd``, with the wrapper they had) are
+   the control, before and after it both ways, within 1e-5 of it, and
+   the host part of a call of each wrapper (no sync) is timed; the
+   register passes must take at most half the control's device time at
+   2^20 F=8 (config 3's step) and at most the control's at the others;
 8. end to end through ``cli.main`` in-process: the canonical 2048-bin
    20,000-spectrum drive (K1), a hopping matrix drive with a dead hop
    (K1), BASELINE config 2 (8192 bins, Hann, 50% Welch overlap; K2)
@@ -74,8 +86,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    every instantiation. (Runs before the drives; numbered here for the
    kernels line.)
 10. a profile of the config 3 drive under ``torch.profiler``: device time
-   by kernel and copy per step (the result's read-back into pinned memory
-   among them), and the device's busy share of the wall; and one more
+   by kernel and copy per step (pass A, pass B and the row sums apart;
+   the result's read-back into pinned memory among them), and the
+   device's busy share of the wall; and one more
    config 5 drive with the consumer's calls timed on its own thread: its
    rounds split into waiting for the producers, filling the pinned slot,
    the upload, the step's enqueue, the event waits and the float64
@@ -133,7 +146,9 @@ drive, and the time of ``torch.fft.fft`` on the same frames already in
 complex64 on the card (the transform alone, not the whole function). Its
 ``ms``, ``plain_ms`` and ``library_ms`` are phase 7's times a call, its
 ``device_ms`` the kernel's device time (a probe's: its slope time, for
-both ``ms`` and ``device_ms``).
+both ``ms`` and ``device_ms``); where a radix-2 control was timed,
+``control_ms`` and ``control_device_ms`` are its, and for the large
+kernel ``host_ms`` and ``control_host_ms`` the two wrappers' host parts.
 
 Stdout ends with that line and then the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -336,6 +351,20 @@ def device_times_us(fn, calls: int = 20, reps: int = 3) -> float:
         end.synchronize()
         best = min(best, 1000.0 * start.elapsed_time(end) / calls)
     return best
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one call of ``fn`` on the host's clock, with no sync:
+    a wrapper's work up to its launches (the queue is never full here);
+    the device is waited for after the clock stops."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
 
 
 def run_cli(argv, main):
@@ -614,9 +643,12 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
     yardstick); beside them the device times of the kernel and of
     torch.fft.fft (device_times_us: the calls queued behind a sleep
     kernel). At the K1/K2 shapes also the radix-2 control
-    (``fpp.radix2_psd``) before and after them both ways, its output
-    within 1e-5 of the kernel's. Returns the times by shape and the
-    control's (event, device, event again, device again) by shape."""
+    (``fpp.radix2_psd``), and at the large-N shapes the large kernel's
+    radix-2 passes (``fpp.large_radix2_psd``), before and after them both
+    ways, its output within 1e-5 of the kernel's; at the large-N shapes
+    also the host part of a call of each wrapper (host_us). Returns the
+    times by shape and the control's (event, device, event again, device
+    again[, host, the kernel's host]) by shape."""
     times, control = {}, {}
     shapes = [("K1", 2048, 4096, None), ("K1", 2048, 400, None),
               ("K1", 256, 3200, None), ("K1", 16384, 256, None),
@@ -649,10 +681,14 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
         z = torch.complex(flat[:, 0::2].float() - 127.0,
                           flat[:, 1::2].float() - 127.0)
 
-        def radix2_call():
-            return fpp.radix2_psd(raw, nv, chunk, w)
+        control_fn = (fpp.large_radix2_psd if name == "L"
+                      else fpp.radix2_psd)
 
-        radix2 = name in ("K1", "K2") and N in fpp.RADIX2_N
+        def radix2_call():
+            return control_fn(raw, nv, chunk, w)
+
+        radix2 = name == "L" or (name in ("K1", "K2")
+                                 and N in fpp.RADIX2_N)
         if radix2:
             vs = max_rel(radix2_call().cpu().numpy(),
                          kernel(raw, nv, chunk, w).cpu().numpy())
@@ -660,6 +696,7 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
                   f"control is {vs} from the kernel")
             before = (event_times_us(radix2_call),
                       device_times_us(radix2_call))
+            host_before = host_us(radix2_call) if name == "L" else None
         k_us = event_times_us(lambda: kernel(raw, nv, chunk, w))
         p_us = event_times_us(lambda: plain(raw, nv, chunk, w))
         lib_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
@@ -669,7 +706,28 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
         b_ms, b_by = bound_ms(name, S * F, N, w is not None, S)
         times[(name, N, F, wname)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by,
                                       kd_us, libd_us)
-        if radix2:
+        if radix2 and name == "L":
+            after = (event_times_us(radix2_call),
+                     device_times_us(radix2_call))
+            k_host = host_us(lambda: kernel(raw, nv, chunk, w))
+            r_host = min(host_before, host_us(radix2_call))
+            control[(name, N, F, wname)] = before + after + (r_host, k_host)
+            grid = fl.regs_grid(F, N, fl.resident_blocks(
+                N, fl.PASS_A if w is None else fl.PASS_A_WINDOWED,
+                dev.index), fl.resident_blocks(N, fl.PASS_B, dev.index))
+            k_best, r_best = min(k_us, k_us2), min(before[0], after[0])
+            print(f"time {name} N={N} F={F} window={wname} on {card}: the "
+                  f"radix-2 control {before[0]:.1f} / {after[0]:.1f} us a "
+                  f"call, device {before[1]:.1f} / {after[1]:.1f} us, host "
+                  f"{r_host:.1f} us (frames/block "
+                  f"{fl.frames_per_block(F, chunk, N)}; max rel from the "
+                  f"kernel {vs:.3e}), the kernel {k_us:.1f} / {k_us2:.1f} a "
+                  f"call, device {kd_us:.1f}, host {k_host:.1f} us (frames "
+                  f"a pass-A block, a pass-B block, partial rows {grid}): "
+                  f"kernel/control {k_best / r_best:.3f} a call, "
+                  f"{kd_us / min(before[1], after[1]):.3f} on the device, "
+                  f"{k_host / r_host:.3f} on the host")
+        elif radix2:
             after = (event_times_us(radix2_call),
                      device_times_us(radix2_call))
             control[(name, N, F, wname)] = before + after
@@ -981,9 +1039,13 @@ def phase_large(dev, rng, fp, fl, adapt_batch, make_window):
         got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
         gold = golden_partial(raw_np, nv, w_np)
         err_plain, err_gold = max_rel(got_np, want_np), max_rel(got_np, gold)
+        grid = fl.regs_grid(F, N, fl.resident_blocks(
+            N, fl.PASS_A if w is None else fl.PASS_A_WINDOWED, dev.index),
+            fl.resident_blocks(N, fl.PASS_B, dev.index))
         print(f"large {label} (N={N} F={F} chunk={chunk} n_valid={nv} "
-              f"window={wname}; N1 x N2 = {fl.large_split(N)}, frames/block "
-              f"{fl.frames_per_block(F, chunk, N)}): max rel vs plain "
+              f"window={wname}; N1 x N2 = {fl.large_split(N)}, frames a "
+              f"pass-A block, a pass-B block, partial rows {grid}): max rel "
+              "vs plain "
               f"{err_plain:.3e}, vs float64 golden {err_gold:.3e} (plain vs "
               f"golden {max_rel(want_np, gold):.3e})")
         check(np.all(np.isfinite(got_np)), f"large {label}: non-finite")
@@ -1583,9 +1645,17 @@ def main() -> int:
                                               marker)]
     check(len(large_ptxas) == 24 or not infos["fused_psd_large"].log,
           f"ptxas reported {len(large_ptxas)} large-N instantiations, not 24")
+    regs_ptxas = [line for marker in ("large_regs_a", "large_regs_b")
+                  for line in template_ptxas(infos["fused_psd_large"].log,
+                                             marker)]
+    check(len(regs_ptxas) == 24 or not infos["fused_psd_large"].log,
+          f"ptxas reported {len(regs_ptxas)} register-pass instantiations, "
+          "not 24")
     for lib, marker, first in (
             ("fused_psd_large", "large_pass_a", ""),
             ("fused_psd_large", "large_pass_b", ""),
+            ("fused_psd_large", "large_regs_a", ""),
+            ("fused_psd_large", "large_regs_b", ""),
             ("fused_psd", "psd_regs_kernel", ""),
             ("fused_psd_fast", "psd_fast_group_kernel", "11"),
             ("fused_psd_probe", "psd_group_kernel", ""),
@@ -1595,6 +1665,34 @@ def main() -> int:
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
     print(f"build: all sources in {time.perf_counter() - t0:.1f} s wall")
+    # Every kernel of the parent tree's three earlier libraries, as its
+    # digest (sass_diff --write-digest) holds them, unchanged here.
+    from rtl_power_fftw_tpu_torch.ops.kernels import sass_diff
+    want_nvcc, have_nvcc, diffs = sass_diff.check_digest(
+        {name: infos[name].path for name in sass_diff.SOURCES})
+    for name, (n_old, other, n_new) in diffs.items():
+        print(f"sass_diff {name} against the parent tree's digest (built "
+              f"by nvcc {want_nvcc}; here {have_nvcc}): {n_old} earlier "
+              f"kernels, {n_old - len(other)} identical here, {len(other)} "
+              f"missing or different; {n_new} new")
+        for k in other:
+            print(f"  differs: {k}")
+    check(want_nvcc == have_nvcc, "sass_diff: the digest was built by "
+          f"another nvcc ({want_nvcc}, here {have_nvcc})")
+    check(not any(other for _, other, _ in diffs.values()),
+          "sass_diff: an earlier kernel changed")
+    for log2n in range(15, 23):
+        N = 1 << log2n
+        for which, pname in ((fl.PASS_A, "pass A"),
+                             (fl.PASS_A_WINDOWED, "pass A windowed"),
+                             (fl.PASS_B, "pass B")):
+            a = fl.kernel_attributes(N, which)
+            print(f"occupancy fused_psd_large N={N} {pname} on {card}: "
+                  f"{a['registers']} registers, {a['spill_bytes']} B spill, "
+                  f"{a['static_smem']} + {a['dynamic_smem']} B shared, "
+                  f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM; "
+                  f"large_group's grid aims at "
+                  f"{fl.resident_blocks(N, which, dev.index)} blocks")
     for N in sorted(fp.PASS_PLAN):
         for windowed in (False, True):
             a = fp.kernel_attributes(N, windowed)
@@ -1683,6 +1781,22 @@ def main() -> int:
               f"(<= 0.5)")
         check(k_dev <= 0.5 * r_dev, f"{key}: {k_dev} us of device time is "
               f"above half the radix-2 control's {r_dev} us")
+    # The large kernel's register passes against its radix-2 passes: at
+    # most half the control's device time at config 3's step, at most
+    # the control's at every other large shape.
+    for key in [k for k in times if k[0] == "L"]:
+        k_call, k_dev = min(times[key][0], times[key][2]), times[key][6]
+        r_call = min(control[key][0], control[key][2])
+        r_dev = min(control[key][1], control[key][3])
+        limit = 0.5 if key == ("L", C3_N, 8, None) else 1.0
+        print(f"redesign L N={key[1]} F={key[2]} window={key[3]} on {card}: "
+              f"a call {k_call:.1f} us against the radix-2 control's "
+              f"{r_call:.1f} us, {k_call / r_call:.3f}; device {k_dev:.1f} us "
+              f"against {r_dev:.1f} us, {k_dev / r_dev:.3f} (<= {limit}); "
+              f"host {control[key][5]:.1f} us against {control[key][4]:.1f} "
+              f"us, {control[key][5] / control[key][4]:.3f}")
+        check(k_dev <= limit * r_dev, f"{key}: {k_dev} us of device time is "
+              f"above {limit} of the radix-2 control's {r_dev} us")
     lap("times")
 
     # 8. End to end, in-process through the CLI.
@@ -1733,8 +1847,8 @@ def main() -> int:
         # 10. Where the config 3 drive's device time goes, and config 5's
         # consumer's host time.
         profile_drive("config 3", c3_argv, cli,
-                      ["Memcpy HtoD", "large_pass_a", "large_pass_b",
-                       "psd_sum_kernel", "Memcpy DtoH"])
+                      ["Memcpy HtoD", "large_regs_a", "large_regs_b",
+                       "psd_rows_sum", "psd_sum_kernel", "Memcpy DtoH"])
         profile_consumer("config 5", config5_argv(
             os.path.join(tmp, "config5_profiled.iq")), cli)
         lap("profiles")
@@ -1744,13 +1858,21 @@ def main() -> int:
 
     def entry(name, source, replaces, launches, max_abs, key):
         k_us, p_us, _, lib_us, b_ms, b_by, kd_us, _ = times[key]
-        return {"name": name, "route": "cuda", "source": CSRC + source,
-                "replaces": (replaces if ".py:" in replaces
-                             else TPU_KERNEL + replaces),
-                "launches": launches, "max_abs_err": max_abs,
-                "ms": k_us / 1000.0, "plain_ms": p_us / 1000.0,
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_us / 1000.0, "device_ms": kd_us / 1000.0}
+        out = {"name": name, "route": "cuda", "source": CSRC + source,
+               "replaces": (replaces if ".py:" in replaces
+                            else TPU_KERNEL + replaces),
+               "launches": launches, "max_abs_err": max_abs,
+               "ms": k_us / 1000.0, "plain_ms": p_us / 1000.0,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_us / 1000.0, "device_ms": kd_us / 1000.0}
+        if key in control:   # the radix-2 control it was timed against
+            c = control[key]
+            out["control_ms"] = min(c[0], c[2]) / 1000.0
+            out["control_device_ms"] = min(c[1], c[3]) / 1000.0
+            if len(c) > 4:
+                out["host_ms"] = c[5] / 1000.0
+                out["control_host_ms"] = c[4] / 1000.0
+        return out
 
     def probe_entry(name, tpu, key):
         ms, plain_ms, b_ms, b_by, max_abs, lib_ms = probe_times[key]

@@ -57,9 +57,16 @@ SIGNATURES = {
     },
     "fused_psd_large": {
         # raw, twiddle, inter, window, scratch, partial, out, device, log2n,
-        # F, group, n_valid, stream
+        # F, group_a, group_b, n_valid, stream
         "rpf_fused_psd_large": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _P],
+                                _I, _I, _P],
+        # log2n, which (0 pass A, 1 pass A windowed, 2 pass B), device,
+        # attrs (int[6])
+        "rpf_fused_psd_large_attributes": [_I, _I, _I, _P],
+        # the radix-2 control: raw, twiddle, inter, window, scratch,
+        # partial, out, device, log2n, F, group, n_valid, stream
+        "rpf_fused_psd_large_radix2": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _I, _P],
     },
     "fused_psd_probe": {
         # variant, raw, w1r, w1i, twiddle, w2, offsets, partial, out,

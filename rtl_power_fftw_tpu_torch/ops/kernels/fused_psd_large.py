@@ -19,25 +19,40 @@ N = N1·N2 (:func:`large_split`), sample n = n1·N2 + n2, bin k = k1 + N1·k2:
 
 What bounds the kernel on an H100, and what its design does about it, is
 stated at the top of the CUDA source: the complex scratch between its two
-passes crosses device memory twice per frame.
+passes crosses device memory twice per frame. Its passes run the column
+and row DFTs in registers (``csrc/fft_regs.cuh``, the pass plan
+:data:`.fused_psd.PASS_PLAN`, twiddles :func:`.fused_psd.pass_twiddles`),
+several transforms a block (:func:`regs_layout`), with the next frame's
+tile in flight, each on a grid of its own (:func:`large_group`, from the
+blocks the card holds, :func:`resident_blocks`); one partial row is
+written as the output, 2..8 are added by a few-rows sum. The radix-2
+passes it replaced (:func:`large_tiles`, :func:`frames_per_block`,
+:func:`stage_twiddles` tables) stay as the control
+(``fused_psd_probe.large_radix2_psd``).
 
 :func:`fused_psd_large` dispatches on the tensor's device: a CPU tensor
 goes to the plain PyTorch version (:func:`fused_psd_large_reference`, the
 same four steps in torch ops, so their index arithmetic runs on the CPU);
 a CUDA tensor goes to the kernel, or raises. ``COUNTS.kernel_large`` and
 ``COUNTS.kernel_large_windowed`` (in :mod:`.fused_psd`) count its launches.
+Its host path does the least it can a call: the grid, the tables and their
+pointers are cached per (N, F, chunk, windowed, device), the scratch and
+partial rows per (N, F, rows, device, stream), so a call allocates only
+its output.
 """
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .fused_psd import (COUNTS, KernelLaunchError, _on_cuda, check_alignment,
-                        check_args, stage_twiddles)
+                        check_args, pass_twiddles, stage_twiddles)
 
 #: Eligible sizes: powers of two above fused_psd's 16384, up to the size
 #: whose N1 and N2 (2048 each) keep pass A's and pass B's tiles within the
@@ -46,9 +61,35 @@ from .fused_psd import (COUNTS, KernelLaunchError, _on_cuda, check_alignment,
 MIN_N = 32768
 MAX_N = 1 << 22
 
-#: Blocks a pass aims for per launch: about one per SM of the H100's 132
-#: (pass A holds 131 KB of shared memory at N1 = 1024, one block per SM).
+#: Blocks a pass of the radix-2 control aims for per launch: about one per
+#: SM of the H100's 132 (its pass A holds 131 KB of shared memory at
+#: N1 = 1024, one block per SM).
 _TARGET_BLOCKS = 128
+
+#: Pass A's layout by N1 (``col_shape`` in the source): B columns
+#: transformed at once, C columns a tile, V columns side by side in a
+#: half-warp, the exchange's padding (1: ``pad_index``), its float2 slots
+#: a column XS and the column's XOR multiplier.
+COL_SHAPE = {128: (16, 16, 16, 0, 128, 1), 256: (16, 16, 16, 0, 256, 1),
+             512: (8, 16, 1, 1, 544, 2), 1024: (4, 8, 1, 1, 1088, 4),
+             2048: (2, 8, 1, 1, 2176, 8)}
+
+#: Pass B's float row stride for its bins in shared memory, by N2
+#: (``row_sum_stride`` in the source).
+ROW_SUM_STRIDE = {256: 273, 512: 546, 1024: 1092, 2048: 2176}
+
+#: Partial rows the few-rows sum takes (``kSumLanes``); more go to
+#: psd_sum.cuh.
+FEW_ROWS = 8
+
+#: The pass :func:`kernel_attributes` and :func:`resident_blocks` ask of:
+#: pass A unwindowed, pass A windowed, pass B.
+PASS_A, PASS_A_WINDOWED, PASS_B = 0, 1, 2
+
+#: Alignment of the loads: frames copied 16 bytes a thread, the window
+#: read as floats.
+RAW_ALIGN = 16
+WINDOW_ALIGN = 4
 
 
 def fused_psd_large_eligible(N: int) -> bool:
@@ -74,15 +115,100 @@ def large_tiles(N: int) -> dict:
 
 
 def frames_per_block(F: int, chunk: int, N: int) -> int:
-    """Frames one block of either pass takes: ``chunk`` (the two-stage
-    sum's first stage), halved while the pass with fewer tiles would get
-    fewer than the target block count."""
+    """Frames one block of either pass of the radix-2 control takes:
+    ``chunk`` (the two-stage sum's first stage), halved while the pass
+    with fewer tiles would get fewer than the target block count."""
     t = large_tiles(N)
     tiles = min(t["tiles_a"], t["tiles_b"])
     group = chunk
     while group > 1 and tiles * (F // group) < _TARGET_BLOCKS:
         group //= 2
     return group
+
+
+def regs_layout(N: int) -> dict:
+    """The register passes' shapes at N (``LargeRegs<LOG2N>`` in the
+    source). Pass A: B columns a batch of C a tile, TF1 = N1 / 16 threads
+    a column, V columns side by side in a half-warp, the exchange (XS
+    float2 slots a column, ``pad``, ``xmul``) and the ring (two slots of N1
+    rows of 2C bytes). Pass B: B2 rows of TF2 = N2 / 16 threads, 256
+    threads, K1's exchange (XS2 = N2 + N2 / 16 a row) and two ring slots
+    of B2 rows of RS = N2 + 2 values, filled from scratch's runs of B2 * B
+    values. Shared memory in bytes."""
+    n1, n2 = large_split(N)
+    b, c, v, padded, xs, xmul = COL_SHAPE[n1]
+    tf1, tf2 = n1 // 16, n2 // 16
+    b2 = 256 // tf2
+    return {"N1": n1, "N2": n2, "B": b, "C": c, "V": v, "pad": bool(padded),
+            "XS": xs, "xmul": xmul, "TF1": tf1, "threads_a": b * tf1,
+            "subs": c // b, "tiles_a": n2 // c,
+            "smem_a": 8 * b * xs + 2 * n1 * 2 * c,
+            "TF2": tf2, "B2": b2, "threads_b": 256, "tiles_b": n1 // b2,
+            "XS2": n2 + n2 // 16, "XSR": ROW_SUM_STRIDE[n2], "RS": n2 + 2,
+            "run": b2 * b,
+            "smem_b": 8 * b2 * (n2 + n2 // 16) + 2 * 8 * b2 * (n2 + 2)}
+
+
+def scratch_index(N: int, k1, n2):
+    """Where the register passes keep value (k1, n2) of a frame in
+    scratch: batch-major, ((n2 / B) * N1 + k1) * B + n2 % B."""
+    t = regs_layout(N)
+    b = t["B"]
+    return ((n2 // b) * t["N1"] + k1) * b + n2 % b
+
+
+def large_group(F: int, tiles: int, resident: int) -> int:
+    """Frames a block of a register pass takes over F frames when the pass
+    has ``tiles`` tiles a frame and the card holds ``resident`` of its
+    blocks at once: the fewest for which tiles * ceil(F / group) blocks fit
+    (one wave), or all F where even one frame a block does not fit. Pass
+    A sums nothing, so any group will do; pass B's group sets its partial
+    rows, ceil(F / group)."""
+    return -(-F // max(1, resident // tiles))
+
+
+def regs_grid(F: int, N: int, resident_a: int, resident_b: int
+              ) -> Tuple[int, int, int]:
+    """(frames a pass-A block, frames a pass-B block, partial rows) over F
+    frames at N, from the blocks of each pass the card holds at once."""
+    t = regs_layout(N)
+    group_a = large_group(F, t["tiles_a"], resident_a)
+    group_b = large_group(F, t["tiles_b"], resident_b)
+    return group_a, group_b, -(-F // group_b)
+
+
+def kernel_attributes(N: int, which: int,
+                      device: Optional[torch.device] = None) -> dict:
+    """What a register pass gets at N bins on the card (``which``:
+    :data:`PASS_A`, :data:`PASS_A_WINDOWED` or :data:`PASS_B`): registers
+    and spill bytes a thread, static and dynamic shared bytes and threads
+    a block, and the blocks that reside on one SM. Launches nothing."""
+    if not fused_psd_large_eligible(N):
+        raise ValueError(f"fused_psd_large does not take N={N}")
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    from . import _build
+    lib = _build.load("fused_psd_large")
+    attrs = (ctypes.c_int * 6)()
+    err = lib.rpf_fused_psd_large_attributes(N.bit_length() - 1, which,
+                                             device.index or 0, attrs)
+    if err != 0:
+        raise KernelLaunchError(
+            f"fused_psd_large attributes at N={N}: "
+            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+
+
+@functools.lru_cache(maxsize=64)
+def resident_blocks(N: int, which: int, index: int) -> int:
+    """Blocks of a register pass at N bins that card ``index`` holds at
+    once: its SMs times the blocks one SM holds, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them
+    (:func:`kernel_attributes`). Asked of the card once per key."""
+    device = torch.device("cuda", index)
+    per_sm = kernel_attributes(N, which, device)["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * max(1, per_sm)
 
 
 def inter_tables(N: int) -> np.ndarray:
@@ -97,13 +223,24 @@ def inter_tables(N: int) -> np.ndarray:
 
 
 def inter_twiddle(N: int) -> np.ndarray:
-    """(N1, N2) complex64: W_N^(k1·n2) as the kernel forms it, the float64
-    product of the two table entries rounded once to float32."""
+    """(N1, N2) complex64: W_N^(k1·n2), the float64 product of the two
+    table entries rounded once to float32: the table the register passes
+    read, and the value the radix-2 control forms on the device."""
     n1, n2 = large_split(N)
     tab = inter_tables(N)
     tab = tab[:, 0] + 1j * tab[:, 1]
     m = np.arange(n1)[:, None] * np.arange(n2)[None, :]
     return (tab[m % n2] * tab[n2 + m // n2]).astype(np.complex64)
+
+
+def regs_inter_twiddle(N: int) -> np.ndarray:
+    """(N,) complex64: :func:`inter_twiddle` in the register passes'
+    scratch order (:func:`scratch_index`), the table pass A reads."""
+    n1, n2 = large_split(N)
+    out = np.empty(N, np.complex64)
+    out[scratch_index(N, np.arange(n1)[:, None],
+                      np.arange(n2)[None, :])] = inter_twiddle(N)
+    return out
 
 
 @functools.lru_cache(maxsize=4)
@@ -114,8 +251,8 @@ def _plain_twiddle(N: int, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=8)
 def _device_tables(N: int, device: torch.device
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's tables on ``device``: the per-stage twiddles of N1 then
-    N2 (float32) and the inter-stage tables (float64)."""
+    """The radix-2 control's tables on ``device``: the per-stage twiddles
+    of N1 then N2 (float32) and the inter-stage tables (float64)."""
     n1, n2 = large_split(N)
     stages = np.concatenate([stage_twiddles(n1), stage_twiddles(n2)])
     return (torch.from_numpy(stages).to(device),
@@ -147,6 +284,77 @@ def fused_psd_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
 
 
+class _Plan(NamedTuple):
+    """What a call of :func:`fused_psd_large` needs beyond its arguments,
+    cached per (N, F, chunk, windowed, device): the library, the grid
+    (:func:`regs_grid`) and the tables (kept alive here) with their
+    pointers."""
+    lib: ctypes.CDLL
+    log2n: int
+    group_a: int
+    group_b: int
+    rows: int
+    twiddle: int
+    inter: int
+    tables: Tuple[torch.Tensor, torch.Tensor]
+
+
+_plans: dict = {}
+#: Scratch and partial rows by (N, F, rows, device, stream), the newest
+#: few: the kernel is stream-ordered, so a later call on the same stream
+#: may reuse them, and a dropped buffer goes back to the allocator on the
+#: stream it was made on.
+_workspaces: collections.OrderedDict = collections.OrderedDict()
+_WORKSPACES = 4
+
+
+def _plan(N: int, F: int, chunk: int, windowed: bool,
+          device: torch.device) -> _Plan:
+    key = (N, F, chunk, windowed, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        from . import _build
+        n1, n2 = large_split(N)
+        tables = (torch.from_numpy(np.concatenate(
+            [pass_twiddles(n1), pass_twiddles(n2)])).to(device),
+                  torch.from_numpy(regs_inter_twiddle(N)).to(device))
+        plan = _plans[key] = _Plan(
+            _build.load("fused_psd_large"), N.bit_length() - 1,
+            *regs_grid(F, N,
+                       resident_blocks(N, PASS_A_WINDOWED if windowed
+                                       else PASS_A, device.index),
+                       resident_blocks(N, PASS_B, device.index)),
+            tables[0].data_ptr(), tables[1].data_ptr(), tables)
+    return plan
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream's handle on device ``index``, without building
+    a ``torch.cuda.Stream``."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _workspace(N: int, F: int, rows: int, device: torch.device,
+               stream: int) -> Tuple[int, int]:
+    """Pointers to the (F, N, 2) scratch and, for rows > 1, the (rows, N)
+    partial rows (else 0), both float32, in one buffer."""
+    key = (N, F, rows, device.index, stream)
+    buf = _workspaces.get(key)
+    if buf is None:
+        buf = torch.empty(F * N * 2 + (rows * N if rows > 1 else 0),
+                          dtype=torch.float32, device=device)
+        _workspaces[key] = buf
+        while len(_workspaces) > _WORKSPACES:
+            _workspaces.popitem(last=False)
+    else:
+        _workspaces.move_to_end(key)
+    ptr = buf.data_ptr()
+    return ptr, (ptr + F * N * 8 if rows > 1 else 0)
+
+
 def fused_psd_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                     window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(F, 2N) uint8 frames, 32768 <= N <= 2^22, ``n_valid`` real frames ->
@@ -161,28 +369,24 @@ def fused_psd_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     if not _on_cuda("fused_psd_large", raw_u8):
         COUNTS.plain += 1
         return fused_psd_large_reference(raw_u8, n_valid, chunk, window)
-    # 32-bit IQ words; the window as float2, two samples per word.
-    check_alignment("fused_psd_large", raw_u8, 4, window, 8)
-    from . import _build
-    lib = _build.load("fused_psd_large")
+    check_alignment("fused_psd_large", raw_u8, RAW_ALIGN, window,
+                    WINDOW_ALIGN)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
-    group = frames_per_block(F, chunk, N)
     device = raw_u8.device
-    twiddle, inter = _device_tables(N, device)
-    scratch = torch.empty((F, N, 2), dtype=torch.float32, device=device)
-    partial = torch.empty((-(-F // group), N), dtype=torch.float32,
-                          device=device)
+    plan = _plan(N, F, chunk, window is not None, device)
+    stream = _raw_stream(device.index)
+    scratch, partial = _workspace(N, F, plan.rows, device, stream)
     out = torch.empty((N,), dtype=torch.float32, device=device)
-    err = lib.rpf_fused_psd_large(
-        raw_u8.data_ptr(), twiddle.data_ptr(), inter.data_ptr(),
-        None if window is None else window.data_ptr(), scratch.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), device.index,
-        N.bit_length() - 1, F, group, n_valid,
-        torch.cuda.current_stream(device).cuda_stream)
+    err = plan.lib.rpf_fused_psd_large(
+        raw_u8.data_ptr(), plan.twiddle, plan.inter,
+        None if window is None else window.data_ptr(), scratch, partial,
+        out.data_ptr(), device.index, plan.log2n, F, plan.group_a,
+        plan.group_b, n_valid, stream)
     if err != 0:
         raise KernelLaunchError(
             f"fused_psd_large launch failed: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+            f"{plan.lib.rpf_cuda_error_string(err).decode()} (cudaError "
+            f"{err})")
     if window is None:
         COUNTS.kernel_large += 1
     else:

@@ -21,7 +21,9 @@ variant of K3's template (``csrc/fused_psd_fast.cuh``); K1's cuts ask
 P1's question of the FP32 radix-2 kernel K1 was (``csrc/fused_psd.cuh``,
 ``k1_*``) and of K1 as it ships (``csrc/fused_psd_regs.cuh``, ``k1r_*``),
 and :func:`radix2_psd` runs that radix-2 kernel whole at the sizes the
-redesign is timed at, as its control.
+redesign is timed at, as its control; :func:`large_radix2_psd` runs the
+large-N kernel's radix-2 passes likewise, as the control of its register
+passes.
 All run at the probes' N = 2048 on raw interleaved u8 IQ, at K3's own
 split N1 x N2 = 32 x 64 (the TPU probes ran 16 x 128). The stage-2 probes
 start from the TPU's shipping 6-product scheme, ``tpu6`` here; their
@@ -1169,6 +1171,52 @@ def radix2_psd(raw_u8: torch.Tensor, n_valid: int, chunk: int,
             f"radix2_psd launch failed: "
             f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
     COUNTS.kernel["radix2"] += 1
+    return out
+
+
+def large_radix2_psd(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+                     window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The large-N kernel as it was before its register passes: the
+    radix-2 passes ``large_pass_a``/``large_pass_b`` and the row sum
+    (``rpf_fused_psd_large_radix2``) on ``fused_psd_large.frames_per_block``'s
+    grid, with the wrapper's host path of that time (three allocations, a
+    Stream object, the C entry's ``cudaSetDevice``): (F, 2N) uint8 frames,
+    32768 <= N <= 2^22 -> (N,) float32, the redesign's control. A CPU
+    tensor runs the plain version (``fused_psd_large_reference``). Counted
+    as ``COUNTS.kernel["large_radix2"]``."""
+    from . import fused_psd_large as fl
+    n_valid = int(n_valid)
+    check_args("large_radix2_psd", fl.fused_psd_large_eligible, raw_u8,
+               n_valid, chunk, window)
+    if raw_u8.device.type == "cpu":
+        COUNTS.plain["large_radix2"] += 1
+        return fl.fused_psd_large_reference(raw_u8, n_valid, chunk, window)
+    if raw_u8.device.type != "cuda":
+        raise ValueError(f"large_radix2_psd runs on cuda or cpu tensors, "
+                         f"not {raw_u8.device}")
+    # 32-bit IQ words; the window as float2, two samples per word.
+    check_alignment("large_radix2_psd", raw_u8, 4, window, 8)
+    from . import _build
+    lib = _build.load("fused_psd_large")
+    F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
+    group = fl.frames_per_block(F, chunk, N)
+    device = raw_u8.device
+    twiddle, inter = fl._device_tables(N, device)
+    scratch = torch.empty((F, N, 2), dtype=torch.float32, device=device)
+    partial = torch.empty((-(-F // group), N), dtype=torch.float32,
+                          device=device)
+    out = torch.empty((N,), dtype=torch.float32, device=device)
+    err = lib.rpf_fused_psd_large_radix2(
+        raw_u8.data_ptr(), twiddle.data_ptr(), inter.data_ptr(),
+        None if window is None else window.data_ptr(), scratch.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), device.index,
+        N.bit_length() - 1, F, group, n_valid,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise KernelLaunchError(
+            f"large_radix2_psd launch failed: "
+            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+    COUNTS.kernel["large_radix2"] += 1
     return out
 
 

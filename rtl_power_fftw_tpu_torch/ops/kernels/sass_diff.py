@@ -17,10 +17,19 @@ tar -x -C DIR`` and then ``python -m
 rtl_power_fftw_tpu_torch.ops.kernels.sass_diff
 DIR/rtl_power_fftw_tpu_torch/ops/kernels/csrc``. Prints one line per
 source and exits 1 if any earlier kernel is missing or differs.
+
+``--write-digest FILE`` (after DIR) also writes the earlier tree's
+kernels as a digest, {library: {kernel: sha256 of its normalized SASS}},
+with the nvcc release that built them (:data:`DIGEST`, committed beside
+the sources): ``chip_smoke.py`` holds the libraries it builds to it
+(:func:`check_digest`), so that a run from a checkout alone compares
+every earlier kernel without the earlier sources.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 import re
 import subprocess
@@ -30,6 +39,40 @@ from pathlib import Path
 from typing import Dict
 
 from . import _build
+
+SOURCES = ("fused_psd_fast", "fused_psd_large", "fused_psd_probe")
+#: The parent tree's kernels, written by ``--write-digest``.
+DIGEST = Path(__file__).with_name("sass_digest.json")
+
+
+def nvcc_release(nvcc: str) -> str:
+    """The "release x.y, Vx.y.z" part of ``nvcc --version``."""
+    text = subprocess.run([nvcc, "--version"], capture_output=True,
+                          text=True, check=True).stdout
+    m = re.search(r"release [^\n]*", text)
+    return m.group(0) if m else text.strip().splitlines()[-1]
+
+
+def digest(lib: Path, bin_dir: str) -> Dict[str, str]:
+    """{kernel: sha256 of its normalized SASS} of a library."""
+    return {k: hashlib.sha256(v.encode()).hexdigest()
+            for k, v in listing(lib, bin_dir).items()}
+
+
+def check_digest(libs: Dict[str, Path], path: Path = DIGEST):
+    """Hold built libraries ({source: library}) to a digest: returns the
+    nvcc release of each side and, per source, (earlier kernels, those
+    missing or different here, kernels new here)."""
+    nvcc = _build._nvcc()
+    bin_dir = os.path.dirname(nvcc)
+    want = json.loads(Path(path).read_text())
+    out = {}
+    for name in SOURCES:
+        old = want["kernels"][name]
+        new = digest(libs[name], bin_dir)
+        out[name] = (len(old), sorted(k for k in old if new.get(k) != old[k]),
+                     len(set(new) - set(old)))
+    return want["nvcc"], nvcc_release(nvcc), out
 
 
 def listing(lib: Path, bin_dir: str) -> Dict[str, str]:
@@ -59,11 +102,14 @@ def listing(lib: Path, bin_dir: str) -> Dict[str, str]:
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else list(argv)
-    if len(args) != 1:
+    write = None
+    if len(args) == 3 and args[1] == "--write-digest":
+        write = Path(args[2])
+    elif len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     earlier = Path(args[0])
-    sources = ("fused_psd_fast", "fused_psd_large", "fused_psd_probe")
+    sources = SOURCES
     nvcc = _build._nvcc()
     bin_dir = os.path.dirname(nvcc)
     ok = True
@@ -92,6 +138,13 @@ def main(argv=None) -> int:
             for k in other:
                 print(f"  differs: {k}")
             ok &= not other
+        if write is not None:
+            write.write_text(json.dumps({
+                "nvcc": nvcc_release(nvcc), "flags": list(_build.NVCC_FLAGS),
+                "kernels": {name: digest(libs[("earlier", name)], bin_dir)
+                            for name in sources}}, indent=1, sort_keys=True)
+                + "\n")
+            print(f"sass_diff: wrote the earlier tree's digest to {write}")
     return 0 if ok else 1
 
 
