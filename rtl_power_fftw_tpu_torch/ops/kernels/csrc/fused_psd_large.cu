@@ -385,6 +385,10 @@ struct LargeRegs {
   static constexpr int COPIES_A = SLOT_A / 16 / THREADS_A;
   static constexpr int XBYTES_A = B * XS * 8;
   static constexpr int SMEM_A = XBYTES_A + 2 * SLOT_A;
+  // Stores a thread issues at once at the end of a batch: all 16 from
+  // N1 = 1024 (their twiddle loads in flight together), 4 below, where
+  // 16 spill.
+  static constexpr int STORE_UNROLL = LOG2N1 >= 10 ? 16 : 4;
   // Blocks an SM is to hold: 3 at N1 = 1024 (80 registers, no spill,
   // 67.6 KB), 2 elsewhere (at N1 = 256 and 512 a cap of 85 registers
   // spills).
@@ -533,12 +537,12 @@ __device__ __forceinline__ void first_pass(float2 (&v)[16], float2* x,
 // ((n2 / B) * N1 + k1) * B + n2 % B, so that a batch writes one run of
 // B * N1 values and pass B's rows k0 .. k0 + B2 - 1 of B columns are runs
 // of B2 * B values.
-// The window comes from registers where the tile is one batch (win[k]),
-// else from device memory (L2: a block's tile of it is read once a frame).
-template <int LOG2N, bool WINDOWED, int WIN>
+// The window's values come from device memory (L2) with the samples: a
+// block reads its tile of it once a frame (held in registers across the
+// frames, 16 to 64 values a thread, it spilled).
+template <int LOG2N, bool WINDOWED>
 __device__ __forceinline__ void regs_a_batch(
-    int s, const uint8_t* tile, const float (&win)[WIN],
-    const float* __restrict__ window, float2* x,
+    int s, const uint8_t* tile, const float* __restrict__ window, float2* x,
     const float2* __restrict__ twiddle, const float2* __restrict__ inter,
     float2* __restrict__ out, int c, int t, int c0) {
   using L = LargeRegs<LOG2N>;
@@ -556,12 +560,7 @@ __device__ __forceinline__ void regs_a_batch(
     float re = dequant_byte(u & 0xFFu);
     float im = dequant_byte(u >> 8);
     if constexpr (WINDOWED) {
-      float w;
-      if constexpr (WIN > 1) {
-        w = win[k];
-      } else {
-        w = __ldg(window + (row << L::LOG2N2) + c0 + col);
-      }
+      const float w = __ldg(window + (row << L::LOG2N2) + c0 + col);
       re = __fmul_rn(re, w);
       im = __fmul_rn(im, w);
     }
@@ -586,7 +585,7 @@ __device__ __forceinline__ void regs_a_batch(
   }
   __syncthreads();
   const int run = (c0 / L::B + s) * L::N1 * L::B;
-#pragma unroll
+#pragma unroll(L::STORE_UNROLL)
   for (int j = 0; j < 16; ++j) {
     const int e = threadIdx.x + j * L::THREADS_A;   // k1 = e / B, e % B
     const float2 y = x[col_index<LOG2N>(e % L::B, e / L::B)];
@@ -621,16 +620,6 @@ large_regs_a(const uint8_t* __restrict__ raw,      // (F, 2N), 16 B aligned
   const int f0 = (blockIdx.x / L::TILES_A) * group;
   const int frames = max(min(f0 + group, min(F, n_valid)) - f0, 0);
 
-  // A one-batch tile's window at the thread's samples, for every frame.
-  constexpr bool WIN_REGS = WINDOWED && L::SUBS == 1;
-  float win[WIN_REGS ? 16 : 1];
-  if constexpr (WIN_REGS) {
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      win[k] = __ldg(window + ((t + k * TF) << L::LOG2N2) + c0 + c);
-    }
-  }
-
   // Frame i of the block's tile into ring slot i & 1 (an empty group past
   // its last frame, so that every thread counts the same groups).
   auto prefetch = [&](int i) {
@@ -659,8 +648,8 @@ large_regs_a(const uint8_t* __restrict__ raw,      // (F, 2N), 16 B aligned
     float2* out = scratch + static_cast<size_t>(f0 + i) * L::N;
 #pragma unroll 1
     for (int s = 0; s < L::SUBS; ++s) {
-      regs_a_batch<LOG2N, WINDOWED>(s, tile, win, window, x, twiddle, inter,
-                                    out, c, t, c0);
+      regs_a_batch<LOG2N, WINDOWED>(s, tile, window, x, twiddle, inter, out,
+                                    c, t, c0);
     }
   }
   cp_async_wait<0>();

@@ -134,7 +134,7 @@ def regs_layout(N: int) -> dict:
     rows of 2C bytes). Pass B: B2 rows of TF2 = N2 / 16 threads, 256
     threads, K1's exchange (XS2 = N2 + N2 / 16 a row) and two ring slots
     of B2 rows of RS = N2 + 2 values, filled from scratch's runs of B2 * B
-    values. Shared memory in bytes."""
+    values (:func:`scratch_index`). Shared memory in bytes."""
     n1, n2 = large_split(N)
     b, c, v, padded, xs, xmul = COL_SHAPE[n1]
     tf1, tf2 = n1 // 16, n2 // 16

@@ -213,16 +213,16 @@ def pass_a(raw_f, window, t, w16):
 def ring_b(scratch_f, t):
     """Pass B's ring slot of every row tile, as its copies fill it: copy q
     takes values 2q, 2q + 1 of the tile's N2 / B runs of B2 * B values
-    to row (rem / B), column g * B + rem % B (RS a row)."""
-    N1, N2, B, B2, RS, RUN = (t["N1"], t["N2"], t["B"], t["B2"], t["RS"],
-                              t["run"])
+    (N1 * B apart, from the tile's first, k0 * B) to row rem / B, column
+    g * B + rem % B (RS a row)."""
+    N1, N2, B, B2, RS = t["N1"], t["N2"], t["B"], t["B2"], t["RS"]
     tiles = N1 // B2
     ring = np.full((tiles, B2 * RS), np.nan, np.complex64)
     e = 2 * np.arange(B2 * N2 // 2)
-    g, rem = e // RUN, e % RUN
+    g, rem = e // (B2 * B), e % (B2 * B)
     for half in (0, 1):
-        src = (g * N1 * B)[None] + (np.arange(tiles) * B2 * B)[:, None] \
-            + rem[None] + half
+        src = (np.arange(tiles) * B2 * B)[:, None] \
+            + (g * N1 * B + rem + half)[None]
         ring[:, (rem // B) * RS + g * B + rem % B + half] = scratch_f[src]
     return ring
 
@@ -483,17 +483,19 @@ def test_staging_is_free_of_bank_conflicts(N1):
 
 @pytest.mark.parametrize("N", SIZES)
 def test_scratch_is_batch_major_and_pass_b_reads_rows(N):
-    """scratch_index is a bijection; a batch's values are one run and its
-    stores are adjacent; pass B's ring rows hold rows k0 + r in order."""
+    """scratch_index is a bijection; a batch's values are one run, so a
+    warp's 32 stores are adjacent; pass B's ring rows hold rows k0 + r
+    in order."""
     t = fl.regs_layout(N)
     N1, N2, B = t["N1"], t["N2"], t["B"]
     k1, n2 = np.meshgrid(np.arange(N1), np.arange(N2), indexing="ij")
     at = fl.scratch_index(N, k1, n2)
     assert np.array_equal(np.sort(at.ravel()), np.arange(N))
-    # batch g: columns g*B .. g*B + B - 1 -> values [g*N1*B, (g+1)*N1*B)
+    # batch g: columns g*B .. g*B + B - 1 -> values [g*N1*B, (g+1)*N1*B),
+    # value e of the batch (k1 = e / B, column e % B) at g*N1*B + e
     for g in (0, N2 // B - 1):
-        assert set(at[:, g * B:(g + 1) * B].ravel().tolist()) == set(
-            range(g * N1 * B, (g + 1) * N1 * B))
+        e = np.arange(N1 * B)
+        assert np.array_equal(at[e // B, g * B + e % B], g * N1 * B + e)
     values = (k1 * N2 + n2).astype(np.complex64)   # exact below 2^24
     scratch = np.empty(N, np.complex64)
     scratch[at] = values
@@ -510,8 +512,8 @@ def test_pass_b_ring_is_free_of_bank_conflicts(N):
     """Pass B's 16-byte copies into its rows take the least wavefronts a
     warp can (4), and its reads of a row one a half-warp."""
     t = fl.regs_layout(N)
-    B, B2, N2, RS, RUN, TF = (t["B"], t["B2"], t["N2"], t["RS"], t["run"],
-                              t["TF2"])
+    B, B2, N2, RS, TF = t["B"], t["B2"], t["N2"], t["RS"], t["TF2"]
+    RUN = B2 * B
     for q0 in range(0, B2 * N2 // 2, 32):
         e = 2 * np.arange(q0, q0 + 32)
         g, rem = e // RUN, e % RUN
