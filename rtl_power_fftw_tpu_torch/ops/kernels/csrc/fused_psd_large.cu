@@ -18,8 +18,9 @@
 // Form: a four-step FFT over device memory. N = N1 * N2 with N1 =
 // 2^floor(log2 N / 2) and N2 = N / N1 (128 x 256 at 32768, 1024 x 1024 at
 // 2^20, 2048 x 2048 at 2^22); sample n = n1 * N2 + n2, bin k = k1 + N1 k2.
-// Pass A transforms the columns n2 (length N1) and writes complex f32
-// scratch[f][k1][n2] times the inter-stage twiddle W_N^(n2 k1); pass B
+// Pass A transforms the columns n2 (length N1) and writes them times the
+// inter-stage twiddle W_N^(n2 k1) to a complex f32 scratch (the control:
+// scratch[f][k1][n2]; the register passes: batch-major, below); pass B
 // transforms the rows k1 (length N2) and sums |X|^2 over frames.
 //
 // The inter-stage twiddle W_N^m, m = n2 k1 < N, is the f32 rounding of a
@@ -28,11 +29,11 @@
 // passes read it from an f32 table made on the host once per N
 // (fused_psd_large.regs_inter_twiddle, in scratch's order): 8N bytes,
 // read as pass A's stores are written and held in L2 across the frames
-// of a tile. The control forms
-// it on the device from the float64 tables (four FP64 multiply-adds an
-// element), whose two gathers a warp makes touch up to 32 lines each;
-// an f32 sincosf(2 pi m / N) would lose ~log2(N) bits of the angle.
-
+// of a tile. The control forms it on the device from the float64 tables
+// (four FP64 multiply-adds an element), whose two gathers a warp makes
+// touch up to 32 lines each; an f32 sincosf(2 pi m / N) would lose
+// ~log2(N) bits of the angle.
+//
 // What bounds it on an H100. The function reads 2N bytes per frame for
 // ~5 N log2(N) FP32 flops (~9.8 us at 2^20, F = 8, on the FP32 cores).
 // This two-pass form also writes and reads back 8N bytes of complex
@@ -47,9 +48,9 @@
 //  * several transforms a block: pass A runs the C columns of its tile as
 //    C / B batches of B columns on B * N1 / 16 threads (256; 128 at
 //    N1 = 128), pass B the B2 = 256 / (N2 / 16) adjacent rows of its tile
-//    on 256 threads, so that a block needs <= 102 KB of shared memory and
-//    2 blocks reside on an SM (the control's single 131 KB block of pass A
-//    at 2^20 was the one to beat);
+//    on 256 threads, so that a block needs <= 101 KB of shared memory and
+//    2 blocks (pass A at N1 = 1024: 3) reside on an SM (the control's
+//    single 131 KB block of pass A at 2^20 was the one to beat);
 //  * the next frame in flight: pass A copies its next frame's tile (N1
 //    rows of 2C bytes, rows 2 N2 bytes apart), pass B its next frame's B2
 //    rows, into the other slot of a two-slot ring by cp.async, 16 B a
@@ -80,7 +81,8 @@
 //    regs.py;
 //  * grids of their own (fused_psd_large.py: large_group): pass A sums
 //    nothing, so its frames a block are the fewest that keep its grid
-//    within the blocks the card holds at once (2 frames of 8 at 2^20);
+//    within the blocks the card holds at once (3 frames of 8 at 2^20:
+//    384 blocks of 396);
 //    pass B's frames a block set the partial rows;
 //  * no row sum where it adds nothing: one partial row (2^20 and 2^22 at
 //    F = 8) is written to `out` by pass B itself; 2..8 rows go through

@@ -105,7 +105,7 @@ def large_split(N: int) -> Tuple[int, int]:
 
 
 def large_tiles(N: int) -> dict:
-    """The kernel's tiles at N (``Large<LOG2N>`` in the source): C columns
+    """The radix-2 control's tiles at N (``Large<LOG2N>`` in the source): C columns
     per pass-A block, R rows per pass-B block, and the tile counts."""
     n1, n2 = large_split(N)
     c = 16 if n1 <= 1024 else 8
