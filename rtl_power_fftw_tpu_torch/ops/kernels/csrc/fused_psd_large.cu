@@ -687,19 +687,22 @@ large_regs_b(const float2* __restrict__ scratch,   // (F, N), batch-major
   for (int k = 0; k < 16; ++k) acc[k] = 0.0f;
 
   // Frame i's B2 rows into ring slot i & 1, row-major (RS a row): copy q
-  // takes values 2q, 2q + 1 of the N2 / B runs of B2 * B values.
+  // takes values 2q, 2q + 1 of the N2 / B runs of B2 * B values. Copy j
+  // of a thread is its copy 0 moved by j * 512 values: 512 / RUN runs on.
+  static_assert(512 % L::RUN == 0, "a thread's copies are RUN-aligned");
+  const int run0 = 2 * tid / L::RUN;
+  const int rem0 = 2 * tid % L::RUN;
+  const int dst0 = (rem0 / L::B) * L::RS + run0 * L::B + rem0 % L::B;
+  const int src0 = (k0 + run0 * L::N1) * L::B + rem0;
   auto prefetch = [&](int i) {
     if (i < frames) {
-      const float2* src = scratch + static_cast<size_t>(f0 + i) * L::N +
-                          k0 * L::B;
-      float2* dst = reinterpret_cast<float2*>(ring + (i & 1) * L::SLOT_B);
+      const float2* src = scratch + static_cast<size_t>(f0 + i) * L::N + src0;
+      float2* dst =
+          reinterpret_cast<float2*>(ring + (i & 1) * L::SLOT_B) + dst0;
 #pragma unroll
       for (int j = 0; j < L::COPIES_B; ++j) {
-        const int e = 2 * (tid + j * L::THREADS_B);
-        const int run = e / L::RUN;
-        const int rem = e % L::RUN;
-        cp_async16(dst + (rem / L::B) * L::RS + run * L::B + rem % L::B,
-                   src + static_cast<size_t>(run) * L::N1 * L::B + rem);
+        cp_async16(dst + j * (512 / L::RUN) * L::B,
+                   src + j * (512 / L::RUN) * L::N1 * L::B);
       }
     }
     cp_async_commit();
