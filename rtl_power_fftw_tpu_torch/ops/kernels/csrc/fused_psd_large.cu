@@ -52,10 +52,15 @@
 //    2 blocks (pass A at N1 = 1024: 3) reside on an SM (the control's
 //    single 131 KB block of pass A at 2^20 was the one to beat);
 //  * the next frame in flight: pass A copies its next frame's tile (N1
-//    rows of 2C bytes, rows 2 N2 bytes apart), pass B its next frame's B2
-//    rows, into the other slot of a two-slot ring by cp.async, 16 B a
-//    thread, while the current frame is transformed, as
-//    fused_psd_regs.cuh does for K1;
+//    rows of 2C bytes, rows 2 N2 bytes apart) into the other slot of a
+//    two-slot ring by cp.async, 16 B a thread, while the current frame is
+//    transformed, as fused_psd_regs.cuh does for K1; pass B has the copy
+//    engine move its next frame's scratch runs (cp.async.bulk, one a run,
+//    counted on an mbarrier) into its one-slot ring as soon as the
+//    current frame's rows are in registers, so that they land while it
+//    is transformed (at 2^20 the bulk copies took pass B below the
+//    16-byte cp.async form's time, at 2^22, whose runs are 32 bytes,
+//    above it: chip_smoke.py's times);
 //  * column tiles of whole 32-byte sectors where that leaves the SM's
 //    registers to bind: C = 16 columns (2C = 32 B a row) up to N1 = 512;
 //    at N1 >= 1024 C = 8, 16 B rows (the neighbouring tile's block reads
@@ -67,16 +72,18 @@
 //    (value (k1, n2) at ((n2 / B) N1 + k1) B + n2 mod B), so a warp
 //    stores 256 adjacent bytes and reads the inter-stage twiddles, kept
 //    in the same order, likewise; pass B's B2 rows of a frame are then
-//    N2 / B runs of B2 B values (128 B at 2^20), which its copies put
-//    row-major into the ring (N2 + 2 a row);
+//    N2 / B runs of B2 B values (128 B at 2^20), which its bulk copies
+//    move whole into the ring, B values apart (none at B = 16);
 //  * no bank conflicts: pass A's thread map puts V columns side by side
 //    in a half-warp, and its exchange places column c's element e at
 //    c * XS + ((pad(e) or e) ^ ((XMUL * c) mod 16)), a layout (col_shape
 //    below) under which every pass, the staging's writes by k1 and its
 //    reads in scratch order fall on distinct banks for each half-warp;
-//    pass B's rows are K1's lanes (pad_index, N2 + N2/16 a row). The
-//    ring's 16-byte halves of a 32-byte row swap every fourth row (its
-//    u16 reads bank-free at N1 <= 256, 2-way at 512 and above). Each
+//    pass B's rows are K1's lanes (pad_index, N2 + N2/16 a row), and the
+//    gaps between its ring's runs put the runs a half-warp reads on
+//    different banks. Pass A's ring's 16-byte halves of a 32-byte row swap
+//    every fourth row (its u16 reads bank-free at N1 <= 256, 2-way at 512
+//    and above). Each
 //    claim is checked by a bank model in tests/test_torch_fused_psd_large_
 //    regs.py;
 //  * grids of their own (fused_psd_large.py: large_group): pass A sums
@@ -402,11 +409,14 @@ struct LargeRegs {
   static constexpr int TILES_B = N1 / B2;
   static constexpr int XS2 = N2 + N2 / 16;      // an exchange row, float2
   static constexpr int XBYTES_B = B2 * XS2 * 8;
-  static constexpr int RS = N2 + 2;              // a ring row, float2
   static constexpr int RUN = B2 * B;             // a scratch run, float2
-  static constexpr int SLOT_B = B2 * RS * 8;
-  static constexpr int COPIES_B = B2 * N2 * 8 / 16 / THREADS_B;
-  static constexpr int SMEM_B = XBYTES_B + 2 * SLOT_B;
+  static constexpr int RUNS = N2 / B;            // runs a frame's tile
+  // The ring keeps a frame's runs as they are, run g at g * GS: a gap of
+  // B values after each (none at B = 16) puts the runs a half-warp reads
+  // on different banks.
+  static constexpr int GS = RUN + (B == 16 ? 0 : B);
+  static constexpr int SLOT_B = RUNS * GS * 8;
+  static constexpr int SMEM_B = XBYTES_B + SLOT_B + 8;   // + an mbarrier
   static constexpr int XSR = row_sum_stride(LOG2N2);
 
   static_assert(RegsPlan<LOG2N1>::R == 16 && RegsPlan<LOG2N2>::R == 16,
@@ -421,9 +431,53 @@ struct LargeRegs {
                 "a tile splits into 16-byte copies evenly");
   static_assert(B % 2 == 0, "a 16-byte copy stays in one scratch run");
   static_assert(XBYTES_A % 16 == 0 && XBYTES_B % 16 == 0 &&
-                SLOT_B % 16 == 0, "the ring slots start 16-byte aligned");
+                SLOT_B % 16 == 0 && (GS * 8) % 16 == 0 && RUN * 8 % 16 == 0,
+                "bulk copies move 16-byte aligned runs");
   static_assert(B2 * XSR <= 2 * B2 * XS2, "the bins fit the exchange");
 };
+
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_address(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that expects `bytes` of bulk copies before the phase ends.
+__device__ __forceinline__ void mbarrier_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_address(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global to shared memory by the copy
+// engine, counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_address(dst)),
+      "l"(src), "r"(bytes), "r"(smem_address(bar))
+      : "memory");
+}
 
 // Pass A's thread map: thread tid serves column col_of(tid) of a batch and
 // is thread row_of(tid) of that column's transform. A half-warp is V
@@ -686,38 +740,46 @@ large_regs_b(const float2* __restrict__ scratch,   // (F, N), batch-major
 #pragma unroll
   for (int k = 0; k < 16; ++k) acc[k] = 0.0f;
 
-  // Frame i's B2 rows into ring slot i & 1, row-major (RS a row): copy q
-  // takes values 2q, 2q + 1 of the N2 / B runs of B2 * B values. Copy j
-  // of a thread is its copy 0 moved by j * 512 values: 512 / RUN runs on.
-  static_assert(512 % L::RUN == 0, "a thread's copies are RUN-aligned");
-  const int run0 = 2 * tid / L::RUN;
-  const int rem0 = 2 * tid % L::RUN;
-  const int dst0 = (rem0 / L::B) * L::RS + run0 * L::B + rem0 % L::B;
-  const int src0 = (k0 + run0 * L::N1) * L::B + rem0;
+  // Frame i's B2 rows into the ring: its N2 / B runs of B2 * B values,
+  // one bulk copy each, counted on the ring's mbarrier (phase i mod 2;
+  // thread 0 arms it for a frame's bytes before a barrier that comes
+  // before any of that frame's copies).
+  constexpr int kFrameBytes = L::RUNS * L::RUN * 8;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + L::SLOT_B);
+  const float2* ring2 = reinterpret_cast<const float2*>(ring);
   auto prefetch = [&](int i) {
     if (i < frames) {
-      const float2* src = scratch + static_cast<size_t>(f0 + i) * L::N + src0;
-      float2* dst =
-          reinterpret_cast<float2*>(ring + (i & 1) * L::SLOT_B) + dst0;
-#pragma unroll
-      for (int j = 0; j < L::COPIES_B; ++j) {
-        cp_async16(dst + j * (512 / L::RUN) * L::B,
-                   src + j * (512 / L::RUN) * L::N1 * L::B);
+      const float2* src = scratch + static_cast<size_t>(f0 + i) * L::N +
+                          k0 * L::B;
+      float2* dst = reinterpret_cast<float2*>(ring);
+      for (int run = tid; run < L::RUNS; run += L::THREADS_B) {
+        bulk_copy(dst + run * L::GS,
+                  src + static_cast<size_t>(run) * L::N1 * L::B, L::RUN * 8,
+                  bar);
       }
     }
-    cp_async_commit();
   };
 
+  if (tid == 0) {
+    mbarrier_init(bar, 1);
+    if (frames > 0) mbarrier_expect(bar, kFrameBytes);
+  }
+  __syncthreads();
   prefetch(0);
   for (int i = 0; i < frames; ++i) {
-    prefetch(i + 1);
-    cp_async_wait<1>();   // this thread's copies of frame i have landed
-    __syncthreads();      // everyone's; x is free (last pass of frame i-1)
-    const float2* row = reinterpret_cast<const float2*>(
-                            ring + (i & 1) * L::SLOT_B) + r * L::RS;
+    mbarrier_wait(bar, i & 1);   // frame i's runs have landed
+    __syncthreads();             // x is free (last pass of frame i - 1)
     float2 v[16];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) v[k] = row[t + k * TF];
+    for (int k = 0; k < 16; ++k) {
+      const int n2 = t + k * TF;
+      v[k] = ring2[(n2 / L::B) * L::GS + r * L::B + n2 % L::B];
+    }
+    if (tid == 0 && i + 1 < frames) mbarrier_expect(bar, kFrameBytes);
+    // The ring's reads (generic proxy) before the copy engine's writes.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();             // every row is in registers
+    prefetch(i + 1);             // frame i + 1 lands while i is transformed
     first_pass<L::LOG2N2>(v, x, twiddle, t,
                           [](int e) { return pad_index(e); });
     __syncthreads();
@@ -729,7 +791,6 @@ large_regs_b(const float2* __restrict__ scratch,   // (F, N), batch-major
 #pragma unroll
     for (int k = 0; k < 16; ++k) acc[k] += v[k].x * v[k].x + v[k].y * v[k].y;
   }
-  cp_async_wait<0>();
   __syncthreads();   // every row is done with the exchange
 
   // Bin k0 + r + N1 k2 through shared memory, so that a warp writes runs

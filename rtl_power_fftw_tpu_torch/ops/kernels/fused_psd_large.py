@@ -78,10 +78,6 @@ COL_SHAPE = {128: (16, 16, 16, 0, 128, 1), 256: (16, 16, 16, 0, 256, 1),
 #: (``row_sum_stride`` in the source).
 ROW_SUM_STRIDE = {256: 273, 512: 546, 1024: 1092, 2048: 2176}
 
-#: Partial rows the few-rows sum takes (``kSumLanes``); more go to
-#: psd_sum.cuh.
-FEW_ROWS = 8
-
 #: The pass :func:`kernel_attributes` and :func:`resident_blocks` ask of:
 #: pass A unwindowed, pass A windowed, pass B.
 PASS_A, PASS_A_WINDOWED, PASS_B = 0, 1, 2
@@ -132,9 +128,10 @@ def regs_layout(N: int) -> dict:
     a column, V columns side by side in a half-warp, the exchange (XS
     float2 slots a column, ``pad``, ``xmul``) and the ring (two slots of N1
     rows of 2C bytes). Pass B: B2 rows of TF2 = N2 / 16 threads, 256
-    threads, K1's exchange (XS2 = N2 + N2 / 16 a row) and two ring slots
-    of B2 rows of RS = N2 + 2 values, filled from scratch's runs of B2 * B
-    values (:func:`scratch_index`). Shared memory in bytes."""
+    threads, K1's exchange (XS2 = N2 + N2 / 16 a row) and a ring of the
+    frame's N2 / B scratch runs of B2 * B values (:func:`scratch_index`),
+    run g at g * GS (B values apart below B = 16), filled by bulk copies
+    counted on an mbarrier. Shared memory in bytes."""
     n1, n2 = large_split(N)
     b, c, v, padded, xs, xmul = COL_SHAPE[n1]
     tf1, tf2 = n1 // 16, n2 // 16
@@ -144,9 +141,10 @@ def regs_layout(N: int) -> dict:
             "subs": c // b, "tiles_a": n2 // c,
             "smem_a": 8 * b * xs + 2 * n1 * 2 * c,
             "TF2": tf2, "B2": b2, "threads_b": 256, "tiles_b": n1 // b2,
-            "XS2": n2 + n2 // 16, "XSR": ROW_SUM_STRIDE[n2], "RS": n2 + 2,
-            "run": b2 * b,
-            "smem_b": 8 * b2 * (n2 + n2 // 16) + 2 * 8 * b2 * (n2 + 2)}
+            "XS2": n2 + n2 // 16, "XSR": ROW_SUM_STRIDE[n2],
+            "run": b2 * b, "GS": b2 * b + (0 if b == 16 else b),
+            "smem_b": 8 * b2 * (n2 + n2 // 16)
+            + 8 * (n2 // b) * (b2 * b + (0 if b == 16 else b)) + 8}
 
 
 def scratch_index(N: int, k1, n2):

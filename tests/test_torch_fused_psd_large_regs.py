@@ -33,6 +33,8 @@ from test_torch_fused_psd_regs import (dif_regs, header_w16, pad, pass_bin,
 REPO = Path(__file__).resolve().parents[1]
 SOURCE = REPO / "rtl_power_fftw_tpu_torch/ops/kernels/csrc/fused_psd_large.cu"
 SIZES = [1 << k for k in range(15, 23)]
+#: Partial rows the few-rows sum takes (psd_sum.cuh's kSumLanes).
+SUM_LANES = 8
 GOLDEN_RTOL = 1e-5
 CROSS_RTOL = 2e-5
 #: Shared memory of an H100 SM (228 KB) and what each block reserves.
@@ -211,20 +213,22 @@ def pass_a(raw_f, window, t, w16):
 
 
 def ring_b(scratch_f, t):
-    """Pass B's ring slot of every row tile, as its copies fill it: copy q
-    takes values 2q, 2q + 1 of the tile's N2 / B runs of B2 * B values
-    (N1 * B apart, from the tile's first, k0 * B) to row rem / B, column
-    g * B + rem % B (RS a row)."""
-    N1, N2, B, B2, RS = t["N1"], t["N2"], t["B"], t["B2"], t["RS"]
-    tiles = N1 // B2
-    ring = np.full((tiles, B2 * RS), np.nan, np.complex64)
-    e = 2 * np.arange(B2 * N2 // 2)
-    g, rem = e // (B2 * B), e % (B2 * B)
-    for half in (0, 1):
-        src = (np.arange(tiles) * B2 * B)[:, None] \
-            + (g * N1 * B + rem + half)[None]
-        ring[:, (rem // B) * RS + g * B + rem % B + half] = scratch_f[src]
+    """Pass B's ring of every row tile, as its bulk copies fill it: run g
+    of the tile (values k0 * B + g * N1 * B onward, B2 * B of them) at
+    g * GS."""
+    N1, N2, B, B2, GS = t["N1"], t["N2"], t["B"], t["B2"], t["GS"]
+    tiles, runs, run = N1 // B2, N2 // B, B2 * B
+    ring = np.full((tiles, runs * GS), np.nan, np.complex64)
+    g, e = np.meshgrid(np.arange(runs), np.arange(run), indexing="ij")
+    for j in range(tiles):
+        ring[j, (g * GS + e).ravel()] = \
+            scratch_f[(j * B2 * B + g * N1 * B + e).ravel()]
     return ring
+
+
+def ring_index(t, r, n2):
+    """Where pass B's thread of row r reads sample n2 of the ring."""
+    return (n2 // t["B"]) * t["GS"] + r * t["B"] + n2 % t["B"]
 
 
 def pass_b(scratch_f, acc, t, w16):
@@ -235,7 +239,7 @@ def pass_b(scratch_f, acc, t, w16):
     tid = np.arange(256)
     r, th = tid // TF, tid % TF
     e = th[:, None] + np.arange(16)[None, :] * TF
-    v = ring_b(scratch_f, t)[:, r[:, None] * t["RS"] + e]
+    v = ring_b(scratch_f, t)[:, ring_index(t, r[:, None], e)]
     rr = np.broadcast_to(r, v.shape[:-1])
     y = batch_transform(v, th, lambda e: rr * t["XS2"] + pad(e), N2, tw, w16,
                         B2 * t["XS2"])
@@ -304,7 +308,7 @@ def regs_transcription(raw, n_valid, window=None,
     rows = np.asarray(rows)
     if G == 1:
         return rows[0], rows
-    return (few_rows_sum(rows) if G <= fl.FEW_ROWS
+    return (few_rows_sum(rows) if G <= SUM_LANES
             else psd_sum_order(rows)), rows
 
 
@@ -502,30 +506,25 @@ def test_scratch_is_batch_major_and_pass_b_reads_rows(N):
     ring = ring_b(scratch, t)
     for j in (0, t["tiles_b"] - 1):
         for r in range(t["B2"]):
-            row = ring[j, r * t["RS"]:r * t["RS"] + N2]
+            row = ring[j, ring_index(t, r, np.arange(N2))]
             assert np.array_equal(row.real,
                                   (j * t["B2"] + r) * N2 + np.arange(N2))
 
 
 @pytest.mark.parametrize("N", SIZES)
 def test_pass_b_ring_is_free_of_bank_conflicts(N):
-    """Pass B's 16-byte copies into its rows take the least wavefronts a
-    warp can (4), and its reads of a row one a half-warp."""
+    """Pass B's bulk copies move whole runs, 16-byte aligned, to slots that
+    do not overlap; its reads of a row take one wavefront a half-warp."""
     t = fl.regs_layout(N)
-    B, B2, N2, RS, TF = t["B"], t["B2"], t["N2"], t["RS"], t["TF2"]
-    RUN = B2 * B
-    for q0 in range(0, B2 * N2 // 2, 32):
-        e = 2 * np.arange(q0, q0 + 32)
-        g, rem = e // RUN, e % RUN
-        d = (rem // B) * RS + g * B + rem % B
-        assert np.all(d % 2 == 0)                     # 16-byte aligned
-        assert wavefronts(np.concatenate([2 * d + i for i in range(4)])) \
-            == 4
+    B, B2, N2, GS, TF = t["B"], t["B2"], t["N2"], t["GS"], t["TF2"]
+    run = B2 * B
+    assert (8 * run) % 16 == 0 and (8 * GS) % 16 == 0 and GS >= run
+    assert (8 * t["N1"] * B) % 16 == 0 and (8 * B2 * B) % 16 == 0
     for w0 in range(0, 256, 32):
         tid = np.arange(w0, w0 + 32)
         r, th = tid // TF, tid % TF
         for k in range(16):
-            assert half_warp_wavefronts(r * RS + th + k * TF) == 1
+            assert half_warp_wavefronts(ring_index(t, r, th + k * TF)) == 1
 
 
 # --- the bins ---
@@ -618,9 +617,8 @@ def test_few_rows_sum_is_psd_sums_order(G):
 def test_sum_sources_agree_on_the_row_limit():
     text = SOURCE.read_text()
     assert "groups_b <= kSumLanes" in text
-    assert "constexpr int kSumLanes = 8;" in (
+    assert f"constexpr int kSumLanes = {SUM_LANES};" in (
         SOURCE.with_name("psd_sum.cuh").read_text())
-    assert fl.FEW_ROWS == 8
 
 
 # --- the grid rules ---
