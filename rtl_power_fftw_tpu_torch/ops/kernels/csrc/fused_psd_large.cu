@@ -108,7 +108,8 @@
 // large_radix2_psd); they are never on a session's path.
 //
 // Later work: a single-pass form at 32768-65536 (a frame spread over a
-// thread-block cluster's distributed shared memory) and TMA/wgmma forms.
+// thread-block cluster's distributed shared memory), tensor-map TMA and
+// wgmma forms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
