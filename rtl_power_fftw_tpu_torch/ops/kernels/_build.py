@@ -54,6 +54,11 @@ SIGNATURES = {
         # F, group, n_valid, stream
         "rpf_fused_psd_fast": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _P],
+        # log2n, windowed, device, attrs (int[6])
+        "rpf_fused_psd_fast_attributes": [_I, _I, _I, _P],
+        # the control, with rpf_fused_psd_fast's arguments
+        "rpf_fused_psd_fast_control": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _P],
     },
     "fused_psd_large": {
         # raw, twiddle, inter, window, scratch, partial, out, device, log2n,

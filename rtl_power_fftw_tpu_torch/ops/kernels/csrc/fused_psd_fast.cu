@@ -27,50 +27,43 @@
 // N2 = N / N1, so both are multiples of 16, the depth of one bf16
 // mma.sync.m16n8k16: 16x16 at N = 256, 32x64 at 2048, 64x128 at 8192,
 // 128x128 at 16384. Each stage is cut into N/256 work items of 16 x 16
-// outputs (two m16n8 tiles); a block has min(8, N/256) warps.
+// outputs (two m16n8 tiles); a block's warps are kSmemPlan's.
 //
 // What bounds it on an H100. The scheme costs 12 (24 windowed) real
 // products of depth N1 and 9 of depth N2 per output: N(12 N1 + 9 N2)
 // MACs a frame, 3.9 MFLOP at N = 2048 against 4 KB read, so device
 // memory is not the limit and the 989 TFLOP/s of the tensor cores is far
-// away. What bounds this first version is the work around the products:
-// every A fragment is gathered element by element from shared memory and
-// split into bf16 terms in registers (8 elements x 3 planes per mma
-// group), and every B fragment (the weights) is read from L1/L2 once per
-// warp that uses it: ~(N2/16) * 24 N1^2 + (N1/16) * 12 N2^2 bytes a frame,
-// ~200 KB at N = 2048, so L1/L2 bandwidth and the fragment gathers, not
-// the mma issue rate, set the time.
+// away (2.4 us at N = 2048, F = 400, windowed). What bounds the kernel is
+// the traffic around the products: the operand fragments and the
+// barriers of a frame.
 //
-// What the design does about it:
-//  * the frame is read from device memory once, as 16-byte words, into
-//    shared memory as raw IQ pairs (2N bytes); dequantization, the window
-//    multiply and the input split happen in registers while the stage-1
-//    A fragments are built, so no split plane is ever stored;
-//  * the weights are packed on the host in the exact per-lane order of
-//    the mma B fragment, so each lane fetches its two B registers with one
-//    coalesced 8-byte load (32 lanes read 256 contiguous bytes);
-//  * a warp keeps its A fragments for all K-stack blocks and both n8
-//    tiles of an item, so each gathered element feeds 6 to 24 mma;
-//  * stage 1 writes Z (8N bytes, f32 complex) to shared memory once;
-//    stage 2 splits it in registers; each warp owns the same stage-2
-//    items in every frame, so |X|^2 accumulates in its D fragments in
-//    registers across frames and is written once per block;
-//  * no float atomics, as in K1: a partial row per block and a fixed-
-//    order float64 row sum, so the result is the same on every run.
+// The kernel (psd_smem_kernel, fused_psd_fast_smem.cuh, whose note says
+// what its design does about that): the stage weights resident in shared
+// memory where they fit, copied once a block by bulk copies and read by
+// ldmatrix; Z staged once as six bf16 split planes; the next frame's
+// bytes in flight by cp.async; about one resident wave of blocks, each
+// summing several frames (fused_psd.k1_group with this kernel's
+// occupancy, rpf_fused_psd_fast_attributes). No float atomics: a partial
+// row per block and the fixed-order float64 row sum (psd_sum.cuh), so the
+// result is the same on every run.
 //
-// Shared memory per block: Z 8N + raw 2N (+ window 4N) bytes, 224 KB at
-// N = 16384 windowed, within the 227 KB a block may use (opt-in above
-// 48 KB). wgmma and TMA, and keeping the weights in shared memory, are
-// later work.
-//
-// The group kernel itself is the template of fused_psd_fast.cuh; this
-// file instantiates its default variant (the shipping K3) at every size.
-// fused_psd_probe.cu instantiates its stage-attribution variants.
+// The control (rpf_fused_psd_fast_control): the kernel this one replaced,
+// psd_fast_group_kernel (the template of fused_psd_fast.cuh, whose other
+// values are fused_psd_probe.cu's stage-attribution variants), launched
+// as it was, on the radix-2 kernel's grid (fused_psd.frames_per_block):
+// every A fragment gathered element by element and split in registers,
+// every B fragment read from L1/L2 once per warp, per frame and per mma
+// (~200 KB a frame at N = 2048), Z in f32 in shared memory (8N bytes), no
+// copy in flight. chip_smoke.py times it beside the kernel; nothing else
+// launches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "fused_psd_fast.cuh"
+#include "fused_psd_fast_smem.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -111,20 +104,172 @@ cudaError_t launch_fast(const void* raw, const void* window, const void* w1r,
                                         partial, F, group, G, n_valid, stream);
 }
 
+// Opts the kernel into its dynamic shared memory (and the largest
+// carveout) where that is above the 48 KB default: once per device (bit d
+// of a mask for device d < 64; a device beyond that sets it every call),
+// so that a launch costs no driver call for it. Two threads may both set
+// it; that is harmless.
+template <int LOG2N, bool WINDOWED>
+cudaError_t prepare_smem(int device) {
+  constexpr int smem = SmemK3<LOG2N, WINDOWED>::BYTES;
+  if constexpr (smem <= 48 * 1024) {
+    return cudaSuccess;
+  } else {
+    static std::atomic<unsigned long long> done{0};
+    const unsigned long long bit = device < 64 ? 1ull << device : 0;
+    if (bit != 0 && (done.load(std::memory_order_relaxed) & bit) != 0) {
+      return cudaSuccess;
+    }
+    cudaError_t e = cudaFuncSetAttribute(
+        psd_smem_kernel<LOG2N, WINDOWED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(psd_smem_kernel<LOG2N, WINDOWED>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+    }
+    if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+    return e;
+  }
+}
+
+template <int LOG2N, bool WINDOWED>
+cudaError_t launch_smem(const void* raw, const void* window, const void* w1r,
+                        const void* w1i, const void* twiddle, const void* w2,
+                        void* partial, int F, int group, int G, int n_valid,
+                        int device, cudaStream_t stream) {
+  using K = SmemK3<LOG2N, WINDOWED>;
+  const cudaError_t e = prepare_smem<LOG2N, WINDOWED>(device);
+  if (e != cudaSuccess) return e;
+  psd_smem_kernel<LOG2N, WINDOWED><<<G, K::THREADS, K::BYTES, stream>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const float*>(window),
+      static_cast<const uint32_t*>(w1r), static_cast<const uint32_t*>(w1i),
+      static_cast<const float4*>(twiddle), static_cast<const uint32_t*>(w2),
+      static_cast<float*>(partial), F, group, n_valid);
+  return cudaGetLastError();
+}
+
+// What the kernel gets on the current device: registers and spill bytes a
+// thread, static and dynamic shared bytes a block, threads a block, and
+// the blocks that reside on one SM.
+template <int LOG2N, bool WINDOWED>
+cudaError_t smem_attributes(int device, int* attrs) {
+  using K = SmemK3<LOG2N, WINDOWED>;
+  cudaError_t e = prepare_smem<LOG2N, WINDOWED>(device);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) {
+    e = cudaFuncGetAttributes(&fa, psd_smem_kernel<LOG2N, WINDOWED>);
+  }
+  if (e != cudaSuccess) return e;
+  attrs[0] = fa.numRegs;
+  attrs[1] = static_cast<int>(fa.localSizeBytes);
+  attrs[2] = static_cast<int>(fa.sharedSizeBytes);
+  attrs[3] = K::BYTES;
+  attrs[4] = K::THREADS;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &attrs[5], psd_smem_kernel<LOG2N, WINDOWED>, K::THREADS, K::BYTES);
+}
+
+// The device of the calling thread, set only where it is another.
+cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current == device) return cudaSuccess;
+  return cudaSetDevice(device);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches both passes on `stream`. raw: (F, 2N) u8, 16-byte aligned;
-// window: (N,) f32 or null; w1r, w1i: stage-1 weights as B fragments
-// ((6 or 12) * N1/16, N1/8, 32 lanes, 4 bf16); twiddle: (N2, N1, 2) f32;
-// w2: (6, N2/16, N2/8, 32, 4) bf16 stage-2 B fragments; partial:
-// (ceil(F / group), N) f32 scratch; out: (N,) f32. Returns a cudaError_t
-// (0 on success); does not synchronise.
+// Launches both passes on `stream`: the kernel, then the row sum. raw:
+// (F, 2N) u8, 16-byte aligned (cp.async copies 16 bytes); window: (N,)
+// f32, 4-byte aligned, or null; w1r, w1i: the stage-1 weights, w2: the six
+// stage-2 planes, each as register-major B-fragment tiles
+// (fused_psd_fast.pack_b_ldmatrix), 16-byte aligned (the bulk copies);
+// twiddle: (N2, N1, 2) f32; partial: (ceil(F / group), N) f32 scratch;
+// out: (N,) f32. Returns a cudaError_t (0 on success); does not
+// synchronise.
 int rpf_fused_psd_fast(const void* raw, const void* window, const void* w1r,
                        const void* w1i, const void* twiddle, const void* w2,
                        void* partial, void* out, int device, int log2n, int F,
                        int group, int n_valid, void* stream) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || F <= 0 || group <= 0 ||
+      n_valid < 0 || n_valid > F) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int G = (F + group - 1) / group;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RPF_SMEM_CASE(L)                                                     \
+  case L:                                                                    \
+    e = window == nullptr                                                    \
+            ? launch_smem<L, false>(raw, window, w1r, w1i, twiddle, w2,      \
+                                    partial, F, group, G, n_valid, device,   \
+                                    s)                                       \
+            : launch_smem<L, true>(raw, window, w1r, w1i, twiddle, w2,       \
+                                   partial, F, group, G, n_valid, device,    \
+                                   s);                                       \
+    break;
+  switch (log2n) {
+    RPF_SMEM_CASE(8)
+    RPF_SMEM_CASE(9)
+    RPF_SMEM_CASE(10)
+    RPF_SMEM_CASE(11)
+    RPF_SMEM_CASE(12)
+    RPF_SMEM_CASE(13)
+    RPF_SMEM_CASE(14)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_SMEM_CASE
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_psd_sum(partial, G, 1 << log2n, out, s));
+}
+
+// Writes what the kernel gets at N = 2^log2n, windowed or not, on
+// `device` into attrs[0..5]: registers and local (spill) bytes a thread,
+// static and dynamic shared bytes a block, threads a block, and the blocks
+// that reside on one SM. Launches nothing.
+int rpf_fused_psd_fast_attributes(int log2n, int windowed, int device,
+                                  int* attrs) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || attrs == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+#define RPF_SMEM_CASE(L)                                                     \
+  case L:                                                                    \
+    e = windowed ? smem_attributes<L, true>(device, attrs)                   \
+                 : smem_attributes<L, false>(device, attrs);                 \
+    break;
+  switch (log2n) {
+    RPF_SMEM_CASE(8)
+    RPF_SMEM_CASE(9)
+    RPF_SMEM_CASE(10)
+    RPF_SMEM_CASE(11)
+    RPF_SMEM_CASE(12)
+    RPF_SMEM_CASE(13)
+    RPF_SMEM_CASE(14)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_SMEM_CASE
+  return static_cast<int>(e);
+}
+
+// The control: the kernel this file launched before, on its grid, with
+// its launch as it was. raw: (F, 2N) u8, 16-byte aligned; window: (N,)
+// f32 or null; w1r, w1i: stage-1 weights as B fragments ((6 or 12) *
+// N1/16, N1/8, 32 lanes, 4 bf16); twiddle: (N2, N1, 2) f32; w2: (6,
+// N2/16, N2/8, 32, 4) bf16 stage-2 B fragments; partial: (ceil(F /
+// group), N) f32 scratch; out: (N,) f32. Returns a cudaError_t (0 on
+// success); does not synchronise.
+int rpf_fused_psd_fast_control(const void* raw, const void* window,
+                               const void* w1r, const void* w1i,
+                               const void* twiddle, const void* w2,
+                               void* partial, void* out, int device,
+                               int log2n, int F, int group, int n_valid,
+                               void* stream) {
   if (log2n < kMinLog2N || log2n > kMaxLog2N || F <= 0 || group <= 0 ||
       n_valid < 0 || n_valid > F) {
     return static_cast<int>(cudaErrorInvalidValue);

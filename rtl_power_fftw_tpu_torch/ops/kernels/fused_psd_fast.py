@@ -33,14 +33,18 @@ exactly, so it differs from the kernel only in the order of f32 sums.
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .fused_psd import (KernelLaunchError, LaunchCounts, check_alignment,
-                        check_args, frames_per_block)
+from .fused_psd import (KernelLaunchError, LaunchCounts, _on_cuda,
+                        check_alignment, check_args, frames_per_block,
+                        k1_group)
+from .fused_psd_large import _raw_stream
 
 #: Eligible sizes: powers of two whose split N1 x N2 has both factors
 #: multiples of 16 (the bf16 mma tile depth) and whose frame fits the
@@ -52,6 +56,8 @@ MAX_N = 16384
 #: Launches of the kernel and calls of the plain version, counted by
 #: :func:`fused_psd_fast` only.
 COUNTS = LaunchCounts()
+#: The same for the control, :func:`fused_psd_fast_control`.
+CONTROL_COUNTS = LaunchCounts()
 
 
 def fused_psd_fast_eligible(N: int) -> bool:
@@ -234,29 +240,259 @@ def kernel_constants(N: int, windowed: bool):
             np.stack([twr, twi], axis=-1), w2)
 
 
+#: Shared-memory plan of the kernel by N (``kSmemPlan`` in
+#: ``csrc/fused_psd_fast_smem.cuh``): for the unwindowed and then the
+#: windowed instantiation, (warps a block, stage-1 weights resident,
+#: stage-2 weights resident, Z passes).
+SMEM_PLAN = {256: ((1, 1, 1, 1), (1, 1, 1, 1)),
+             512: ((2, 1, 1, 1), (2, 1, 1, 1)),
+             1024: ((4, 1, 1, 1), (4, 1, 1, 1)),
+             2048: ((8, 1, 1, 1), (8, 1, 0, 1)),
+             4096: ((16, 1, 1, 1), (16, 0, 1, 1)),
+             8192: ((16, 1, 0, 1), (16, 0, 0, 1)),
+             16384: ((16, 0, 0, 2), (16, 0, 0, 2))}
+
+#: Alignment of the kernel's copies: the frames by 16-byte cp.async, the
+#: window read as floats, the resident weights by bulk copies (16 bytes;
+#: the wrapper's own tensors, checked when a plan is made).
+RAW_ALIGN = 16
+WINDOW_ALIGN = 4
+BULK_ALIGN = 16
+
+
+def pack_b_ldmatrix(bits: np.ndarray) -> np.ndarray:
+    """:func:`pack_b_fragments` in the kernel's register-major order:
+    (K/16, C/8, 2, 32, 2) uint16, tile (kc, nt) the 32 lanes' first B
+    register (rows 2t, 2t + 1 of column g) and then their second (rows
+    2t + 8, 2t + 9), each 128 contiguous bytes, so that one ldmatrix.x4
+    reads the B fragments of two adjacent tiles."""
+    K, C = bits.shape
+    frag = pack_b_fragments(bits).reshape(K // 16, C // 8, 32, 2, 2)
+    return np.ascontiguousarray(frag.transpose(0, 1, 3, 2, 4))
+
+
+def smem_constants(N: int, windowed: bool):
+    """The kernel's constant operands as numpy arrays: (w1r, w1i,
+    twiddle, w2), :func:`kernel_constants` with every weight matrix in
+    :func:`pack_b_ldmatrix`'s order."""
+    N1, N2 = fast_split(N)
+    WR, WI, twr, twi, w2r, w2i, w2s = constants(N, N1, N2, windowed)
+    w2 = np.stack([pack_b_ldmatrix(m[j]) for m in (w2r, w2i, w2s)
+                   for j in (0, 1)])
+    return (pack_b_ldmatrix(WR), pack_b_ldmatrix(WI),
+            np.stack([twr, twi], axis=-1), w2)
+
+
+def smem_layout(N: int, windowed: bool) -> dict:
+    """The kernel's shapes at N (``SmemK3`` in the source): warps and
+    threads a block, which stage weights are resident, the Z passes (ZP),
+    the k1 columns of a pass (N1Z), items a warp a pass (IPW), and the
+    shared-memory offsets and bytes of each part: [WR WI | six stage-2
+    planes | six Z planes | two raw slots | window | mbarrier]."""
+    N1, N2 = fast_split(N)
+    warps, s1, s2, zp = SMEM_PLAN[N][int(windowed)]
+    blocks1 = 12 if windowed else 6
+    w1 = blocks1 * N1 * N1 * 2
+    w2 = N2 * N2 * 2
+    n1z = N1 // zp
+    off_w2 = 2 * w1 if s1 else 0
+    off_z = off_w2 + (6 * w2 if s2 else 0)
+    off_ring = off_z + 6 * N2 * n1z * 2
+    off_win = off_ring + 4 * N
+    off_bar = off_win + (4 * N if windowed else 0)
+    items = N // 256
+    return {"N1": N1, "N2": N2, "warps": warps, "threads": 32 * warps,
+            "min_blocks": 512 // (32 * warps), "s1": bool(s1),
+            "s2": bool(s2), "ZP": zp, "N1Z": n1z, "items": items,
+            "IPP": items // zp, "IPW": items // zp // warps,
+            "row_chunks": n1z // 8, "W1_BYTES": w1, "W2_BYTES": w2,
+            "ZPLANE": N2 * n1z, "OFF_W2": off_w2, "OFF_Z": off_z,
+            "OFF_RING": off_ring, "OFF_WIN": off_win, "OFF_BAR": off_bar,
+            "bytes": off_bar + 16, "resident": off_z,
+            "copies": 2 * N // 16 // (32 * warps)}
+
+
+def z_chunk(row_chunks: int, n2, c):
+    """The 16-byte chunk of Z-plane row n2 holding k1 chunk c (``z_chunk``
+    in the source)."""
+    shift = 0 if row_chunks >= 8 else (1 if row_chunks == 4 else 2)
+    mask = min(row_chunks, 8) - 1
+    return c ^ ((n2 >> shift) & mask)
+
+
+def z_offset(N: int, windowed: bool, n2, k1):
+    """bf16 element offset of (n2, k1 of the pass) in a Z plane."""
+    t = smem_layout(N, windowed)
+    return (n2 * t["N1Z"] + z_chunk(t["row_chunks"], n2, k1 >> 3) * 8
+            + (k1 & 7))
+
+
 @functools.lru_cache(maxsize=16)
-def _device_operands(N: int, windowed: bool, device: torch.device):
+def _device_operands(N: int, windowed: bool, device: torch.device,
+                     smem: bool = False):
+    make = smem_constants if smem else kernel_constants
     return tuple(torch.from_numpy(np.ascontiguousarray(
         a.view(np.int16) if a.dtype == np.uint16 else a)).to(device)
-        for a in kernel_constants(N, windowed))
+        for a in make(N, windowed))
+
+
+def kernel_attributes(N: int, windowed: bool = False,
+                      device: Optional[torch.device] = None) -> dict:
+    """What the kernel gets at N bins (windowed: its windowed
+    instantiation) on the card: registers and spill bytes a thread,
+    static and dynamic shared bytes and threads a block, and the blocks
+    that reside on one SM. Launches nothing."""
+    if not fused_psd_fast_eligible(N):
+        raise ValueError(f"fused_psd_fast does not take N={N}")
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    from . import _build
+    lib = _build.load("fused_psd_fast")
+    attrs = (ctypes.c_int * 6)()
+    err = lib.rpf_fused_psd_fast_attributes(N.bit_length() - 1,
+                                            int(windowed), device.index or 0,
+                                            attrs)
+    if err != 0:
+        raise KernelLaunchError(
+            f"fused_psd_fast attributes at N={N}: "
+            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+
+
+@functools.lru_cache(maxsize=64)
+def resident_blocks(N: int, windowed: bool, index: int) -> int:
+    """Blocks of the kernel at N bins that card ``index`` holds at once:
+    its SMs times the blocks one SM holds, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them
+    (:func:`kernel_attributes`). Asked of the card once per key."""
+    device = torch.device("cuda", index)
+    per_sm = kernel_attributes(N, windowed, device)["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * max(1, per_sm)
+
+
+def k3_group(F: int, chunk: int, resident: int) -> int:
+    """Frames a block of the kernel sums over F frames: the least divisor
+    of ``chunk`` for which the ceil(F / group) blocks fit ``resident``,
+    the blocks the card holds at once (one wave), as K1's
+    :func:`~.fused_psd.k1_group`; ``chunk`` where none does."""
+    return k1_group(F, chunk, resident)
+
+
+class _Plan(NamedTuple):
+    """What a call of :func:`fused_psd_fast` needs beyond its arguments,
+    cached per (N, F, chunk, windowed, device): the library, the grid
+    (:func:`k3_group`) and the constant operands (kept alive here) with
+    their pointers."""
+    lib: ctypes.CDLL
+    log2n: int
+    group: int
+    rows: int
+    w1r: int
+    w1i: int
+    twiddle: int
+    w2: int
+    operands: tuple
+
+
+_plans: dict = {}
+#: Partial rows by (N, rows, device, stream), the newest few: the kernel
+#: is stream-ordered, so a later call on the same stream may reuse them,
+#: and a dropped buffer goes back to the allocator on its stream.
+_workspaces: collections.OrderedDict = collections.OrderedDict()
+_WORKSPACES = 4
+
+
+def _plan(N: int, F: int, chunk: int, windowed: bool,
+          device: torch.device) -> _Plan:
+    key = (N, F, chunk, windowed, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        from . import _build
+        ops = _device_operands(N, windowed, device, smem=True)
+        for t in (ops[0], ops[1], ops[3]):
+            if t.data_ptr() % BULK_ALIGN:
+                raise ValueError("fused_psd_fast: weights must be "
+                                 f"{BULK_ALIGN}-byte aligned for the bulk "
+                                 "copies")
+        group = k3_group(F, chunk, resident_blocks(N, windowed,
+                                                   device.index))
+        plan = _plans[key] = _Plan(
+            _build.load("fused_psd_fast"), N.bit_length() - 1, group,
+            -(-F // group), ops[0].data_ptr(), ops[1].data_ptr(),
+            ops[2].data_ptr(), ops[3].data_ptr(), ops)
+    return plan
+
+
+def _workspace(N: int, rows: int, device: torch.device, stream: int) -> int:
+    """A pointer to (rows, N) float32 partial rows."""
+    key = (N, rows, device.index, stream)
+    buf = _workspaces.get(key)
+    if buf is None:
+        buf = torch.empty(rows * N, dtype=torch.float32, device=device)
+        _workspaces[key] = buf
+        while len(_workspaces) > _WORKSPACES:
+            _workspaces.popitem(last=False)
+    else:
+        _workspaces.move_to_end(key)
+    return buf.data_ptr()
+
+
+def _raise(lib, kernel: str, err: int) -> None:
+    raise KernelLaunchError(
+        f"{kernel} launch failed: "
+        f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
 
 
 def fused_psd_fast(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                    window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(F, 2N) uint8 frames -> (N,) float32 sum of |DFT|^2 over the first
     ``n_valid`` frames, at relaxed precision, on the tensor's device.
-    ``window``: an (N,) float32 tensor on the same device, or None."""
+    ``window``: an (N,) float32 tensor on the same device, or None.
+
+    A CUDA tensor runs the kernel on the current stream (asynchronously);
+    a CPU tensor runs the plain version."""
     n_valid = int(n_valid)
     check_args("fused_psd_fast", fused_psd_fast_eligible, raw_u8, n_valid,
                chunk, window)
-    if raw_u8.device.type == "cpu":
+    if not _on_cuda("fused_psd_fast", raw_u8):
         COUNTS.plain += 1
         return fused_psd_fast_reference(raw_u8, n_valid, chunk, window)
-    if raw_u8.device.type != "cuda":
-        raise ValueError(f"fused_psd_fast runs on cuda or cpu tensors, not "
-                         f"{raw_u8.device}")
+    check_alignment("fused_psd_fast", raw_u8, RAW_ALIGN, window,
+                    WINDOW_ALIGN)
+    F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
+    device = raw_u8.device
+    plan = _plan(N, F, chunk, window is not None, device)
+    stream = _raw_stream(device.index)
+    partial = _workspace(N, plan.rows, device, stream)
+    out = torch.empty(N, dtype=torch.float32, device=device)
+    err = plan.lib.rpf_fused_psd_fast(
+        raw_u8.data_ptr(), None if window is None else window.data_ptr(),
+        plan.w1r, plan.w1i, plan.twiddle, plan.w2, partial, out.data_ptr(),
+        device.index, plan.log2n, F, plan.group, n_valid, stream)
+    if err != 0:
+        _raise(plan.lib, "fused_psd_fast", err)
+    COUNTS.kernel += 1
+    return out
+
+
+def fused_psd_fast_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+                           window: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The control: the kernel :func:`fused_psd_fast` replaced
+    (``rpf_fused_psd_fast_control``, the template of
+    ``csrc/fused_psd_fast.cuh``), with the wrapper it had, on
+    :func:`~.fused_psd.frames_per_block`'s grid. Timed beside the kernel
+    by ``chip_smoke.py``; the main path never calls it. A CPU tensor runs
+    the plain version. Counted in :data:`CONTROL_COUNTS`."""
+    n_valid = int(n_valid)
+    check_args("fused_psd_fast_control", fused_psd_fast_eligible, raw_u8,
+               n_valid, chunk, window)
+    if not _on_cuda("fused_psd_fast_control", raw_u8):
+        CONTROL_COUNTS.plain += 1
+        return fused_psd_fast_reference(raw_u8, n_valid, chunk, window)
     # 16-byte (uint4) frame copies; the window as single floats.
-    check_alignment("fused_psd_fast", raw_u8, 16, window, 4)
+    check_alignment("fused_psd_fast_control", raw_u8, 16, window, 4)
     from . import _build
     lib = _build.load("fused_psd_fast")
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
@@ -267,14 +503,12 @@ def fused_psd_fast(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                           device=device)
     out = torch.empty(N, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device)
-    err = lib.rpf_fused_psd_fast(
+    err = lib.rpf_fused_psd_fast_control(
         raw_u8.data_ptr(), None if window is None else window.data_ptr(),
         w1r.data_ptr(), w1i.data_ptr(), tw.data_ptr(), w2.data_ptr(),
         partial.data_ptr(), out.data_ptr(), device.index,
         N.bit_length() - 1, F, group, n_valid, stream.cuda_stream)
     if err != 0:
-        raise KernelLaunchError(
-            f"fused_psd_fast launch failed: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
-    COUNTS.kernel += 1
+        _raise(lib, "fused_psd_fast_control", err)
+    CONTROL_COUNTS.kernel += 1
     return out
