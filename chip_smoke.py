@@ -29,11 +29,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    seeds of 35 dB tones with a Hann window at N = 2048, 8192 (BASELINE
    config 2's size) and 16384 against the scipy float32 FFT of the same
    windowed input, with the per-seed p99 of the ratio;
-5. K3 (``fused_psd_fast``, ``--precision high``) against its plain
-   version and the golden, unwindowed, Hann and Blackman, at the step
-   the ``--precision high`` drive gives it, and under 12 seeds of
-   35 dB tones against the JAX fast scheme's own error on the same
-   realizations;
+5. K3 (``fused_psd_fast``, ``--precision high``; the kernel of
+   ``fused_psd_fast_smem.cuh``) against its plain version and
+   the golden, unwindowed, Hann and Blackman, at the step the
+   ``--precision high`` drive gives it, run twice for determinism, a
+   frame of each case bit for bit the control's (K3 as it was before,
+   ``fused_psd_fast_control``), its registers, spill, shared memory and
+   blocks per SM at every N, and under 12 seeds of 35 dB tones against
+   the JAX fast scheme's own error on the same realizations;
 6. K4 (``fused_psd_streams``, the ``--streams`` step) against its plain
    version, the per-stream float64 golden and K1 (or K2) run on each
    stream's own frames and count, at BASELINE config 5's step (16
@@ -59,7 +62,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the control, before and after it both ways, within 1e-5 of it, and
    the host part of a call of each wrapper (no sync) is timed; the
    register passes must take at most half the control's device time at
-   2^20 F=8 (config 3's step) and at most the control's at the others;
+   2^20 F=8 (config 3's step) and at most the control's at the others.
+   At each K3 shape (2048 F=4096 unwindowed and Hann, 8192 F=1024, the
+   drive's 2048 F=400 Blackman) K3 as it was (``fused_psd_fast_control``,
+   with its wrapper and grid) is the control the same way, within 2e-5
+   of the kernel, the host parts timed too; the kernel must take at most
+   0.6 of the control's device time at 2048 F=4096 unwindowed and at
+   most the control's at the others; then K3's stage split at 2048
+   F=4096, unwindowed and Hann, from its cuts (``fused_psd_fast_cut``);
 8. end to end through ``cli.main`` in-process: the canonical 2048-bin
    20,000-spectrum drive (K1), a hopping matrix drive with a dead hop
    (K1), BASELINE config 2 (8192 bins, Hann, 50% Welch overlap; K2)
@@ -146,9 +156,10 @@ drive, and the time of ``torch.fft.fft`` on the same frames already in
 complex64 on the card (the transform alone, not the whole function). Its
 ``ms``, ``plain_ms`` and ``library_ms`` are phase 7's times a call, its
 ``device_ms`` the kernel's device time (a probe's: its slope time, for
-both ``ms`` and ``device_ms``); where a radix-2 control was timed,
-``control_ms`` and ``control_device_ms`` are its, and for the large
-kernel ``host_ms`` and ``control_host_ms`` the two wrappers' host parts.
+both ``ms`` and ``device_ms``); where a control was timed (the radix-2
+kernels, K3's earlier kernel), ``control_ms`` and ``control_device_ms`` are
+its, and for the large kernel and K3 ``host_ms`` and ``control_host_ms``
+the two wrappers' host parts.
 
 Stdout ends with that line and then the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -454,9 +465,26 @@ def tone_yard(label, dev, fp, make_window, wname, sizes, seed0) -> None:
               f"{label} yard N={N}: above the FFTW-class budget")
 
 
-def phase_k3(dev, rng, ff, adapt_batch, make_window):
-    """K3 against its plain version, the golden and the JAX fast scheme.
-    Returns K3's max abs error at N=2048 F=4096."""
+def phase_k3(dev, rng, ff, adapt_batch, make_window, card):
+    """K3 (the kernel of fused_psd_fast_smem.cuh) against its plain
+    version, the golden and the JAX fast scheme, and a frame of each case
+    against the control (its products and per-frame sums, so bit for
+    bit); its registers, spill, shared memory and blocks per SM at every
+    N. Returns K3's max abs error at N=2048 F=4096."""
+    for N in sorted(ff.SMEM_PLAN):
+        for windowed in (False, True):
+            a = ff.kernel_attributes(N, windowed)
+            lay = ff.smem_layout(N, windowed)
+            print(f"occupancy fused_psd_fast N={N} "
+                  f"{'windowed' if windowed else 'unwindowed'} on {card}: "
+                  f"{a['registers']} registers, {a['spill_bytes']} B spill, "
+                  f"{a['static_smem']} + {a['dynamic_smem']} B shared, "
+                  f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM "
+                  f"(stage weights resident: {int(lay['s1'])}{int(lay['s2'])}"
+                  f", Z passes {lay['ZP']}); its k1_group grid aims at "
+                  f"{ff.resident_blocks(N, windowed, dev.index)} blocks")
+            check(a["blocks_per_sm"] >= 1 and a["dynamic_smem"]
+                  == lay["bytes"], f"K3 N={N}: {a} against {lay}")
     ff.COUNTS.reset()
     max_abs = None
     cases = [  # (label, N, frames_per_step, n_valid or None, window, bound)
@@ -483,6 +511,11 @@ def phase_k3(dev, rng, ff, adapt_batch, make_window):
                                                  n1=jax_fast_n1(N))
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"K3 {label}: not deterministic")
+        # One frame: the control's products and sums, bit for bit.
+        one = raw[:8]
+        check(torch.equal(ff.fused_psd_fast(one, 1, 8, w),
+                          ff.fused_psd_fast_control(one, 1, 8, w)),
+              f"K3 {label}: a frame is not the control's bit for bit")
         got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
         gold = golden_partial(raw_np, nv, w_np)
         err_plain, err_gold = max_rel(got_np, want_np), max_rel(got_np, gold)
@@ -498,7 +531,7 @@ def phase_k3(dev, rng, ff, adapt_batch, make_window):
         check(err_gold <= bound, f"K3 {label}: vs golden")
         if label == "N=2048 F=4096":
             max_abs = float(np.abs(got_np.astype(np.float64) - want_np).max())
-    check(ff.COUNTS.kernel == 2 * len(cases) and ff.COUNTS.plain == 0,
+    check(ff.COUNTS.kernel == 3 * len(cases) and ff.COUNTS.plain == 0,
           f"K3 launch counter did not move as expected: {vars(ff.COUNTS)}")
 
     # Under 35 dB tones: within 2x of the JAX fast scheme's own error on
@@ -681,22 +714,27 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
         z = torch.complex(flat[:, 0::2].float() - 127.0,
                           flat[:, 1::2].float() - 127.0)
 
-        control_fn = (fpp.large_radix2_psd if name == "L"
-                      else fpp.radix2_psd)
+        control_fn = {"L": fpp.large_radix2_psd,
+                      "K3": ff.fused_psd_fast_control}.get(name,
+                                                           fpp.radix2_psd)
 
         def radix2_call():
             return control_fn(raw, nv, chunk, w)
 
-        radix2 = name == "L" or (name in ("K1", "K2")
-                                 and N in fpp.RADIX2_N)
+        radix2 = name in ("L", "K3") or (name in ("K1", "K2")
+                                         and N in fpp.RADIX2_N)
+        # The control: the radix-2 kernels, or the kernel K3 replaced
+        # (the same scheme; its sums in another order).
+        vs_limit = FAST_VS_PLAIN_RTOL if name == "K3" else UNIFORM_RTOL
         if radix2:
             vs = max_rel(radix2_call().cpu().numpy(),
                          kernel(raw, nv, chunk, w).cpu().numpy())
-            check(vs <= UNIFORM_RTOL, f"time {name} N={N}: the radix-2 "
-                  f"control is {vs} from the kernel")
+            check(vs <= vs_limit, f"time {name} N={N}: the control is {vs} "
+                  "from the kernel")
             before = (event_times_us(radix2_call),
                       device_times_us(radix2_call))
-            host_before = host_us(radix2_call) if name == "L" else None
+            host_before = (host_us(radix2_call) if name in ("L", "K3")
+                           else None)
         k_us = event_times_us(lambda: kernel(raw, nv, chunk, w))
         p_us = event_times_us(lambda: plain(raw, nv, chunk, w))
         lib_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
@@ -706,7 +744,27 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
         b_ms, b_by = bound_ms(name, S * F, N, w is not None, S)
         times[(name, N, F, wname)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by,
                                       kd_us, libd_us)
-        if radix2 and name == "L":
+        if radix2 and name == "K3":
+            after = (event_times_us(radix2_call),
+                     device_times_us(radix2_call))
+            k_host = host_us(lambda: kernel(raw, nv, chunk, w))
+            r_host = min(host_before, host_us(radix2_call))
+            control[(name, N, F, wname)] = before + after + (r_host, k_host)
+            group = fp.k1_group(F, chunk, ff.resident_blocks(
+                N, w is not None, dev.index))
+            k_best, r_best = min(k_us, k_us2), min(before[0], after[0])
+            print(f"time {name} N={N} F={F} window={wname} on {card}: the "
+                  f"control (the kernel K3 replaced) {before[0]:.1f} / "
+                  f"{after[0]:.1f} us a call, device {before[1]:.1f} / "
+                  f"{after[1]:.1f} us, host {r_host:.1f} us (frames/block "
+                  f"{fp.frames_per_block(F, chunk)}; max rel from the "
+                  f"kernel {vs:.3e}), the kernel {k_us:.1f} / {k_us2:.1f} a "
+                  f"call, device {kd_us:.1f}, host {k_host:.1f} us "
+                  f"(frames/block {group}): kernel/control "
+                  f"{k_best / r_best:.3f} a call, "
+                  f"{kd_us / min(before[1], after[1]):.3f} on the device, "
+                  f"{k_host / r_host:.3f} on the host")
+        elif radix2 and name == "L":
             after = (event_times_us(radix2_call),
                      device_times_us(radix2_call))
             k_host = host_us(lambda: kernel(raw, nv, chunk, w))
@@ -757,6 +815,8 @@ def reset_counts(fp, ff) -> None:
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     fp.COUNTS.reset()
     ff.COUNTS.reset()
+    ff.CONTROL_COUNTS.reset()
+    ff.CUT_COUNTS.reset()
     fpp.COUNTS.reset()
 
 
@@ -769,6 +829,8 @@ def launch_counts(fp, ff) -> dict:
             "K4 windowed": fp.COUNTS.kernel_streams_windowed,
             "L": fp.COUNTS.kernel_large,
             "L windowed": fp.COUNTS.kernel_large_windowed,
+            "K3 control": ff.CONTROL_COUNTS.kernel
+            + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "plain": fp.COUNTS.plain, "plain_fast": ff.COUNTS.plain,
             "probes": sum(fpp.COUNTS.kernel.values())
             + sum(fpp.COUNTS.plain.values())}
@@ -997,6 +1059,35 @@ def bound_ms(kind: str, frames: int, N: int, windowed: bool,
                                           windowed=windowed))
     return rate_bound_ms(*fpp.k1_work(frames, N, windowed=windowed,
                                       out_rows=out_rows))
+
+
+def k3_split(dev, rng, ff, make_window, card) -> None:
+    """Where K3's device time goes at N = 2048, F = 4096, unwindowed and
+    with Hann: its cuts (``fused_psd_fast_cut``: the frame's copies and
+    the stage-1 gather; then stage 1, the twiddle and Z's planes) and the
+    whole kernel, device times (device_times_us), each cut keeping the
+    work before it; the differences are the parts."""
+    N, F, chunk = 2048, 4096, 64
+    raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                        dtype=np.uint8)).to(dev)
+    for wname in (None, "hann"):
+        w = (None if wname is None
+             else torch.from_numpy(make_window(wname, N)).to(dev))
+        us = []
+        for cut in (ff.CUT_GATHER, ff.CUT_STAGE1):
+            a = ff.fused_psd_fast_cut(cut, raw, F, chunk, w)
+            b = ff.fused_psd_fast_cut(cut, raw, F, chunk, w)
+            torch.cuda.synchronize()
+            check(torch.equal(a, b) and bool(torch.isfinite(a).all()),
+                  f"K3 cut {cut}: not deterministic or not finite")
+            us.append(device_times_us(
+                lambda: ff.fused_psd_fast_cut(cut, raw, F, chunk, w)))
+        us.append(device_times_us(lambda: ff.fused_psd_fast(raw, F, chunk,
+                                                             w)))
+        print(f"split K3 N={N} F={F} window={wname} on {card}: device us "
+              f"copies + gather {us[0]:.1f}, + stage 1, twiddle and Z "
+              f"planes {us[1]:.1f} (+{us[1] - us[0]:.1f}), + stage 2 "
+              f"{us[2]:.1f} (+{us[2] - us[1]:.1f}); the row sum in each")
 
 
 def phase_large(dev, rng, fp, fl, adapt_batch, make_window):
@@ -1314,7 +1405,10 @@ def phase_probes(dev, rng, fpp, ff, fp, adapt_batch, card):
                       raw[:, 1::2].float() - 127.0)
     fft_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
     masked = min(1000, F // 4)   # 1000 of the 4096 frames
-    ship = {("K3", nv): ff.fused_psd_fast(raw, nv, chunk) for nv in (F, masked)}
+    # The probes' K3 is the kernel K3 replaced, on its grid: the
+    # control.
+    ship = {("K3", nv): ff.fused_psd_fast_control(raw, nv, chunk)
+            for nv in (F, masked)}
     ship.update({("K1", nv): fp.fused_psd(raw, nv, chunk)
                  for nv in (F, masked)})
     fpp.COUNTS.reset()
@@ -1657,6 +1751,7 @@ def main() -> int:
             ("fused_psd_large", "large_regs_a", ""),
             ("fused_psd_large", "large_regs_b", ""),
             ("fused_psd", "psd_regs_kernel", ""),
+            ("fused_psd_fast", "psd_smem_kernel", ""),
             ("fused_psd_fast", "psd_fast_group_kernel", "11"),
             ("fused_psd_probe", "psd_group_kernel", ""),
             ("fused_psd_probe", "psd_regs_kernel", ""),
@@ -1757,7 +1852,7 @@ def main() -> int:
 
     # 4.-6. K2, K3 and K4.
     k2_abs = phase_k2(dev, rng, fp, adapt_batch, make_window)
-    k3_abs = phase_k3(dev, rng, ff, adapt_batch, make_window)
+    k3_abs = phase_k3(dev, rng, ff, adapt_batch, make_window, card)
     k4_abs = phase_k4(dev, rng, fp, adapt_batch, make_window, ShardedPsdStep)
     lap("K1 to K4 against plain")
     large_abs = phase_large(dev, rng, fp, fl, adapt_batch, make_window)
@@ -1797,6 +1892,23 @@ def main() -> int:
               f"us, {control[key][5] / control[key][4]:.3f}")
         check(k_dev <= limit * r_dev, f"{key}: {k_dev} us of device time is "
               f"above {limit} of the radix-2 control's {r_dev} us")
+    # K3 against the kernel it replaced: at most 0.6 of its device time at
+    # N = 2048, F = 4096 unwindowed, at most the control's at its other
+    # shapes.
+    for key in [k for k in times if k[0] == "K3"]:
+        k_call, k_dev = min(times[key][0], times[key][2]), times[key][6]
+        r_call = min(control[key][0], control[key][2])
+        r_dev = min(control[key][1], control[key][3])
+        limit = 0.6 if key == ("K3", 2048, 4096, None) else 1.0
+        print(f"redesign K3 N={key[1]} F={key[2]} window={key[3]} on {card}: "
+              f"a call {k_call:.1f} us against the control's {r_call:.1f} "
+              f"us, {k_call / r_call:.3f}; device {k_dev:.1f} us against "
+              f"{r_dev:.1f} us, {k_dev / r_dev:.3f} (<= {limit}); host "
+              f"{control[key][5]:.1f} us against {control[key][4]:.1f} us, "
+              f"{control[key][5] / control[key][4]:.3f}")
+        check(k_dev <= limit * r_dev, f"{key}: {k_dev} us of device time is "
+              f"above {limit} of the control's {r_dev} us")
+    k3_split(dev, rng, ff, make_window, card)
     lap("times")
 
     # 8. End to end, in-process through the CLI.

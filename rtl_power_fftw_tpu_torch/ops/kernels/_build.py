@@ -50,13 +50,17 @@ SIGNATURES = {
         "rpf_fused_psd_attributes": [_I, _I, _I, _P],
     },
     "fused_psd_fast": {
-        # raw, window, w1r, w1i, twiddle, w2, partial, out, device, log2n,
-        # F, group, n_valid, stream
-        "rpf_fused_psd_fast": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _P],
+        # raw, window, w1, twiddle, w2, partial, out, device, log2n, F,
+        # group, n_valid, stream
+        "rpf_fused_psd_fast": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _P],
         # log2n, windowed, device, attrs (int[6])
         "rpf_fused_psd_fast_attributes": [_I, _I, _I, _P],
-        # the control, with rpf_fused_psd_fast's arguments
+        # a cut at N = 2048: cut, then rpf_fused_psd_fast's arguments
+        "rpf_fused_psd_fast_cut": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _P],
+        # the control: raw, window, w1r, w1i, twiddle, w2, partial, out,
+        # device, log2n, F, group, n_valid, stream
         "rpf_fused_psd_fast_control": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _P],
     },

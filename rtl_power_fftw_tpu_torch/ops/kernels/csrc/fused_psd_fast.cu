@@ -107,9 +107,9 @@ cudaError_t launch_fast(const void* raw, const void* window, const void* w1r,
 // Opts the kernel into its dynamic shared memory (and the largest
 // carveout) where that is above the 48 KB default: once per device (bit d
 // of a mask for device d < 64; a device beyond that sets it every call),
-// so that a launch costs no driver call for it. Two threads may both set
+// so that a launch makes no cudaFuncSetAttribute call. Two threads may set
 // it; that is harmless.
-template <int LOG2N, bool WINDOWED>
+template <int LOG2N, bool WINDOWED, int CUT = kK3Full>
 cudaError_t prepare_smem(int device) {
   constexpr int smem = SmemK3<LOG2N, WINDOWED>::BYTES;
   if constexpr (smem <= 48 * 1024) {
@@ -121,10 +121,10 @@ cudaError_t prepare_smem(int device) {
       return cudaSuccess;
     }
     cudaError_t e = cudaFuncSetAttribute(
-        psd_smem_kernel<LOG2N, WINDOWED>,
+        psd_smem_kernel<LOG2N, WINDOWED, CUT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(psd_smem_kernel<LOG2N, WINDOWED>,
+      e = cudaFuncSetAttribute(psd_smem_kernel<LOG2N, WINDOWED, CUT>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                100);
     }
@@ -133,18 +133,19 @@ cudaError_t prepare_smem(int device) {
   }
 }
 
-template <int LOG2N, bool WINDOWED>
-cudaError_t launch_smem(const void* raw, const void* window, const void* w1r,
-                        const void* w1i, const void* twiddle, const void* w2,
-                        void* partial, int F, int group, int G, int n_valid,
-                        int device, cudaStream_t stream) {
+template <int LOG2N, bool WINDOWED, int CUT = kK3Full>
+cudaError_t launch_smem(const void* raw, const void* window, const void* w1,
+                        const void* twiddle, const void* w2, void* partial,
+                        int F, int group, int G, int n_valid, int device,
+                        cudaStream_t stream) {
   using K = SmemK3<LOG2N, WINDOWED>;
-  const cudaError_t e = prepare_smem<LOG2N, WINDOWED>(device);
+  const cudaError_t e = prepare_smem<LOG2N, WINDOWED, CUT>(device);
   if (e != cudaSuccess) return e;
-  psd_smem_kernel<LOG2N, WINDOWED><<<G, K::THREADS, K::BYTES, stream>>>(
+  psd_smem_kernel<LOG2N, WINDOWED, CUT>
+      <<<G, K::THREADS, K::BYTES, stream>>>(
       static_cast<const uint8_t*>(raw), static_cast<const float*>(window),
-      static_cast<const uint32_t*>(w1r), static_cast<const uint32_t*>(w1i),
-      static_cast<const float4*>(twiddle), static_cast<const uint32_t*>(w2),
+      static_cast<const uint32_t*>(w1), static_cast<const float4*>(twiddle),
+      static_cast<const uint32_t*>(w2),
       static_cast<float*>(partial), F, group, n_valid);
   return cudaGetLastError();
 }
@@ -184,16 +185,16 @@ extern "C" {
 
 // Launches both passes on `stream`: the kernel, then the row sum. raw:
 // (F, 2N) u8, 16-byte aligned (cp.async copies 16 bytes); window: (N,)
-// f32, 4-byte aligned, or null; w1r, w1i: the stage-1 weights, w2: the six
-// stage-2 planes, each as register-major B-fragment tiles
-// (fused_psd_fast.pack_b_ldmatrix), 16-byte aligned (the bulk copies);
-// twiddle: (N2, N1, 2) f32; partial: (ceil(F / group), N) f32 scratch;
-// out: (N,) f32. Returns a cudaError_t (0 on success); does not
-// synchronise.
-int rpf_fused_psd_fast(const void* raw, const void* window, const void* w1r,
-                       const void* w1i, const void* twiddle, const void* w2,
-                       void* partial, void* out, int device, int log2n, int F,
-                       int group, int n_valid, void* stream) {
+// f32, 4-byte aligned, or null; w1: the stage-1 weights [r0; -i0; r1;
+// -i1; r2; -i2] (6 N1 x N1), w2: the six stage-2 planes, each as
+// register-major B-fragment tiles (fused_psd_fast.pack_b_ldmatrix),
+// 16-byte aligned (the bulk copies); twiddle: (N2, N1, 2) f32; partial:
+// (ceil(F / group), N) f32 scratch; out: (N,) f32. Returns a cudaError_t
+// (0 on success); does not synchronise.
+int rpf_fused_psd_fast(const void* raw, const void* window, const void* w1,
+                       const void* twiddle, const void* w2, void* partial,
+                       void* out, int device, int log2n, int F, int group,
+                       int n_valid, void* stream) {
   if (log2n < kMinLog2N || log2n > kMaxLog2N || F <= 0 || group <= 0 ||
       n_valid < 0 || n_valid > F) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -205,12 +206,10 @@ int rpf_fused_psd_fast(const void* raw, const void* window, const void* w1r,
 #define RPF_SMEM_CASE(L)                                                     \
   case L:                                                                    \
     e = window == nullptr                                                    \
-            ? launch_smem<L, false>(raw, window, w1r, w1i, twiddle, w2,      \
-                                    partial, F, group, G, n_valid, device,   \
-                                    s)                                       \
-            : launch_smem<L, true>(raw, window, w1r, w1i, twiddle, w2,       \
-                                   partial, F, group, G, n_valid, device,    \
-                                   s);                                       \
+            ? launch_smem<L, false>(raw, window, w1, twiddle, w2, partial,   \
+                                    F, group, G, n_valid, device, s)         \
+            : launch_smem<L, true>(raw, window, w1, twiddle, w2, partial, F, \
+                                   group, G, n_valid, device, s);            \
     break;
   switch (log2n) {
     RPF_SMEM_CASE(8)
@@ -255,6 +254,43 @@ int rpf_fused_psd_fast_attributes(int log2n, int windowed, int device,
   }
 #undef RPF_SMEM_CASE
   return static_cast<int>(e);
+}
+
+// A cut of the kernel at N = 2048 (its stage split): cut 1 the frame's
+// copies and the stage-1 gather, cut 2 also stage 1, the twiddle and Z's
+// planes (kK3Cut* in fused_psd_fast_smem.cuh), then the row sum; other
+// arguments as rpf_fused_psd_fast. Writes the cut's sums, not a spectrum.
+int rpf_fused_psd_fast_cut(int cut, const void* raw, const void* window,
+                           const void* w1, const void* twiddle,
+                           const void* w2, void* partial, void* out,
+                           int device, int log2n, int F, int group,
+                           int n_valid, void* stream) {
+  if (log2n != 11 || (cut != kK3CutGather && cut != kK3CutStage1) || F <= 0 ||
+      group <= 0 || n_valid < 0 || n_valid > F) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int G = (F + group - 1) / group;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool w = window != nullptr;
+  if (cut == kK3CutGather) {
+    e = w ? launch_smem<11, true, kK3CutGather>(raw, window, w1, twiddle, w2,
+                                                partial, F, group, G,
+                                                n_valid, device, s)
+          : launch_smem<11, false, kK3CutGather>(raw, window, w1, twiddle,
+                                                 w2, partial, F, group, G,
+                                                 n_valid, device, s);
+  } else {
+    e = w ? launch_smem<11, true, kK3CutStage1>(raw, window, w1, twiddle, w2,
+                                                partial, F, group, G,
+                                                n_valid, device, s)
+          : launch_smem<11, false, kK3CutStage1>(raw, window, w1, twiddle,
+                                                 w2, partial, F, group, G,
+                                                 n_valid, device, s);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_psd_sum(partial, G, 1 << log2n, out, s));
 }
 
 // The control: the kernel this file launched before, on its grid, with

@@ -14,7 +14,13 @@
 //
 // What it changes, against what held the control back:
 //  * the weights: the control reads every B fragment from L1/L2 once per
-//    warp, per frame and per mma (~200 KB a frame at N = 2048). Here a
+//    warp, per frame and per mma (~200 KB a frame at N = 2048). Stage 1
+//    needs only six distinct tiles a chunk, [r0; -i0; r1; -i1; r2; -i2]:
+//    WI's K-stack blocks are WR's with a pair swapped and one sign
+//    flipped (i_j = -(-i_j), r_j), and the windowed stack repeats terms
+//    (c0 c1 c2 c0 c1 c0), so a warp loads 6 tiles a chunk where the
+//    control loads 12 (24 windowed), and flips the bf16 sign bits in
+//    registers (exact). Here a
 //    block copies the stage weights it keeps (kSmemPlan) into shared
 //    memory once, by bulk copies counted on an mbarrier, in the register-
 //    major fragment order (fused_psd_fast.pack_b_ldmatrix: a tile is the
@@ -34,16 +40,20 @@
 //  * the next frame: cp.async copies frame i + 1's raw 2N bytes, 16 B a
 //    thread, into the other slot of a two-slot ring while frame i is
 //    computed (the pattern of fused_psd_regs.cuh); the window is copied
-//    into shared memory once a block;
+//    into shared memory once a block. Both keep the frame's rows n1 (N2
+//    samples) 16 bytes apart more than their length, so that the stage-1
+//    gather, whose lanes read rows 2t, 2t + 2, ... is free of bank
+//    conflicts (the control's gather is 4-way conflicted);
 //  * the grid: the wrapper gives each block the least divisor of the
 //    chunk as its frames such that the grid fits the blocks the card holds
 //    resident (fused_psd.k1_group with this kernel's occupancy), so the
 //    weights are fetched once per block of several frames and the row sum
 //    reads about one wave of partial rows;
 //  * Z passes: at N = 16384 the six planes of a whole frame (192 KB) do
-//    not fit beside the ring, so Z is built and consumed in two passes of
-//    half the k1 columns each (stage 1 of pass p writes k1 in
-//    [p N1/2, (p+1) N1/2), stage 2 of pass p reads those rows k1).
+//    not fit beside the ring, so Z is built and consumed in ZP passes of
+//    N1 / ZP k1 columns each (stage 1 of pass p writes k1 in
+//    [p N1/ZP, (p+1) N1/ZP), stage 2 of pass p reads those rows k1): two,
+//    or four beside the window.
 //
 // Items: as the control's, 16 x 16 outputs (two m16n8 tiles) a warp and
 // a stage; a pass has ITEMS / ZP of them, IPW a warp.
@@ -68,11 +78,18 @@ constexpr int kSmemPlan[7][2][4] = {
     {{1, 1, 1, 1}, {1, 1, 1, 1}},      // 256
     {{2, 1, 1, 1}, {2, 1, 1, 1}},      // 512
     {{4, 1, 1, 1}, {4, 1, 1, 1}},      // 1024
-    {{8, 1, 1, 1}, {8, 1, 0, 1}},      // 2048
-    {{16, 1, 1, 1}, {16, 0, 1, 1}},    // 4096
-    {{16, 1, 0, 1}, {16, 0, 0, 1}},    // 8192
-    {{16, 0, 0, 2}, {16, 0, 0, 2}},    // 16384
+    {{8, 1, 1, 1}, {8, 1, 1, 1}},      // 2048
+    {{16, 1, 1, 1}, {16, 1, 1, 1}},    // 4096
+    {{16, 1, 0, 1}, {16, 1, 0, 1}},    // 8192
+    {{16, 0, 0, 2}, {16, 0, 0, 4}},    // 16384
 };
+
+// Where a cut of the kernel stops (its stage split, timed by
+// chip_smoke.py): the whole step; the frame's copies and the stage-1
+// gather into A fragments (their bf16 values summed, so that nothing is
+// dropped); or stage 1, the twiddle and Z's planes (a word of Z read back
+// a thread and frame). A cut writes those sums, not a spectrum.
+enum : int { kK3Full = 0, kK3CutGather = 1, kK3CutStage1 = 2 };
 
 // Dynamic shared memory a block may use on an H100 (227 KB).
 constexpr int kMaxBlockSmem = 232448;
@@ -93,27 +110,33 @@ struct SmemK3 {
   static constexpr int IPP = ITEMS / ZP;     // items of a stage a pass
   static constexpr int IPW = IPP / WARPS;    // of them a warp's
   static constexpr int ROW_CHUNKS = N1Z / 8; // 16-byte chunks a Z row
-  static constexpr int BLOCKS1 = Stage1<WINDOWED>::BLOCKS;
-  // One stage-1 weight matrix (WR or WI), one stage-2 plane, bytes.
-  static constexpr int W1_BYTES = BLOCKS1 * N1 * N1 * 2;
+  // The stage-1 weights, [r0; -i0; r1; -i1; r2; -i2] (6 N1 x N1: the
+  // unwindowed WR), and one stage-2 plane, bytes.
+  static constexpr int W1_BYTES = 6 * N1 * N1 * 2;
   static constexpr int W2_BYTES = N2 * N2 * 2;
   static constexpr int ZPLANE = N2 * N1Z;    // bf16 elements a Z plane
-  static constexpr int SLOT = 2 * N;         // a raw frame, bytes
-  static constexpr int COPIES = SLOT / 16 / THREADS;   // cp.async a thread
-  // Offsets in bytes: [WR WI | six stage-2 planes | Z planes | ring |
+  // A raw frame in the ring: row n1 of N2 u16 samples at n1 * RING_ROW
+  // bytes, 16 bytes of padding a row, so that the stage-1 gather's lanes
+  // (rows 2t apart) fall on different banks. The window likewise: row n1
+  // of N2 floats at n1 * WIN_ROW floats.
+  static constexpr int RING_ROW = 2 * N2 + 16;
+  static constexpr int SLOT = N1 * RING_ROW;
+  static constexpr int WIN_ROW = N2 + 4;
+  static constexpr int COPIES = 2 * N / 16 / THREADS;  // cp.async a thread
+  // Offsets in bytes: [W1 | six stage-2 planes | Z planes | ring |
   // window | mbarrier], each part present only where used.
   static constexpr int OFF_W1 = 0;
-  static constexpr int OFF_W2 = OFF_W1 + (S1_RES ? 2 * W1_BYTES : 0);
+  static constexpr int OFF_W2 = OFF_W1 + (S1_RES ? W1_BYTES : 0);
   static constexpr int OFF_Z = OFF_W2 + (S2_RES ? 6 * W2_BYTES : 0);
   static constexpr int OFF_RING = OFF_Z + 6 * ZPLANE * 2;
   static constexpr int OFF_WIN = OFF_RING + 2 * SLOT;
-  static constexpr int OFF_BAR = OFF_WIN + (WINDOWED ? 4 * N : 0);
+  static constexpr int OFF_BAR = OFF_WIN + (WINDOWED ? 4 * N1 * WIN_ROW : 0);
   static constexpr int BYTES = OFF_BAR + 16;
   static constexpr int RESIDENT_BYTES = OFF_Z - OFF_W1;
 
   static_assert(IPP % WARPS == 0 && IPW >= 1, "whole items a warp");
   static_assert(N1Z % 16 == 0, "a Z pass holds whole k1 tiles");
-  static_assert(COPIES * 16 * THREADS == SLOT, "whole 16-byte copies");
+  static_assert(COPIES * 16 * THREADS == 2 * N, "whole 16-byte copies");
   static_assert(BYTES <= kMaxBlockSmem, "fits a block's shared memory");
 };
 
@@ -195,6 +218,12 @@ __device__ __forceinline__ void k3_bulk_copy(void* dst, const void* src,
   }
 }
 
+// The weight term of stage-1 K-stack pair m (blocks 2m, 2m + 1): c0 c1
+// c2, windowed c0 c1 c2 c0 c1 c0 (fused_psd_fast.constants).
+__device__ __forceinline__ constexpr int stage1_term(int m) {
+  return m < 3 ? m : (m == 4 ? 1 : 0);
+}
+
 // The B fragments of two adjacent n-tiles from their register-major words
 // (x of tile 0 for the 32 lanes, y of tile 0, x of tile 1, y of tile 1):
 // w[0], w[1] tile 0's b.x, b.y; w[2], w[3] tile 1's. From shared memory
@@ -216,14 +245,13 @@ __device__ __forceinline__ void load_b_pair(uint32_t (&w)[4],
 // Stage 1 and the twiddle of one pass for a warp's items: item q of the
 // pass = (16 rows n2: tile mt) x (16 columns k1: tile ng of the pass's
 // columns); Z's 2-term split planes stored at zp.
-template <int LOG2N, bool WINDOWED>
+template <int LOG2N, bool WINDOWED, int CUT>
 __device__ __forceinline__ void smem_stage1(const uint16_t* iq,
                                             const float* win,
-                                            const uint32_t* w1r,
-                                            const uint32_t* w1i,
+                                            const uint32_t* w1,
                                             const float4* __restrict__ twiddle,
                                             uint32_t* zp, int pass, int warp,
-                                            int lane) {
+                                            int lane, float& sink) {
   using K = SmemK3<LOG2N, WINDOWED>;
   using P = Stage1<WINDOWED>;
   constexpr int N1 = K::N1, N2 = K::N2;
@@ -240,16 +268,18 @@ __device__ __forceinline__ void smem_stage1(const uint16_t* iq,
 #pragma unroll
       for (int qq = 0; qq < 4; ++qq) {
         // A[row n2][col n1] = x[N2*n1 + n2]; the pair is n1, n1 + 1.
-        const int n = N2 * (16 * c + 2 * t + 8 * (qq >> 1)) + 16 * mt + g +
-                      8 * (qq & 1);
-        const uint32_t v0 = iq[n], v1 = iq[n + N2];
+        const int n1 = 16 * c + 2 * t + 8 * (qq >> 1);
+        const int n2 = 16 * mt + g + 8 * (qq & 1);
+        const int n = n1 * (K::RING_ROW / 2) + n2;
+        const uint32_t v0 = iq[n], v1 = iq[n + K::RING_ROW / 2];
         const float r0 = dequant(v0 & 0xFFu), i0 = dequant(v0 >> 8);
         const float r1 = dequant(v1 & 0xFFu), i1 = dequant(v1 >> 8);
         if constexpr (!WINDOWED) {
           a[0][qq] = pack2(__float2bfloat16_rn(r0), __float2bfloat16_rn(r1));
           a[1][qq] = pack2(__float2bfloat16_rn(i0), __float2bfloat16_rn(i1));
         } else {
-          const float c0 = win[n], c1 = win[n + N2];
+          const int wn = n1 * K::WIN_ROW + n2;
+          const float c0 = win[wn], c1 = win[wn + K::WIN_ROW];
           __nv_bfloat16 sr0[3], sr1[3], si0[3], si1[3];
           split3(__fmul_rn(r0, c0), sr0);
           split3(__fmul_rn(r1, c1), sr1);
@@ -262,20 +292,38 @@ __device__ __forceinline__ void smem_stage1(const uint16_t* iq,
           }
         }
       }
+      if constexpr (CUT == kK3CutGather) {
+#pragma unroll
+        for (int pl = 0; pl < P::PLANES; ++pl)
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq)
+            sink = __fadd_rn(sink, bf16_pair_sum(a[pl][qq]));
+        continue;
+      }
+      // The six distinct B tiles of chunk c: w[2j] = r_j, w[2j + 1] =
+      // -i_j (tiles (kc, 2ng) and (kc, 2ng + 1), 64 words each).
+      uint32_t w[6][4];
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        load_b_pair<K::S1_RES>(
+            w[k], w1 + ((k * (N1 / 16) + c) * (N1 / 8) + 2 * ng) * 64, lane);
 #pragma unroll
       for (int b = 0; b < P::BLOCKS; ++b) {
-        // Tiles (kc, 2ng) and (kc, 2ng + 1), 64 words each.
-        const int tile = ((b * (N1 / 16) + c) * (N1 / 8) + 2 * ng) * 64;
-        uint32_t wr[4], wi[4];
-        load_b_pair<K::S1_RES>(wr, w1r + tile, lane);
-        load_b_pair<K::S1_RES>(wi, w1i + tile, lane);
+        // K-stack block b = 2m + s holds weight term j = term(m): WR's
+        // block is w[2j + s]; WI's is i_j = -(-i_j) (s = 0) or r_j (s = 1).
+        const int j = stage1_term(b >> 1);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_bf16(yr[j], a[P::plane(b)], make_uint2(wr[2 * j], wr[2 * j + 1]));
-          mma_bf16(yi[j], a[P::plane(b)], make_uint2(wi[2 * j], wi[2 * j + 1]));
+        for (int n = 0; n < 2; ++n) {
+          const uint32_t* r = w[2 * j + (b & 1)];
+          const uint32_t* i = w[2 * j + 1 - (b & 1)];
+          const uint32_t flip = (b & 1) ? 0u : 0x80008000u;
+          mma_bf16(yr[n], a[P::plane(b)], make_uint2(r[2 * n], r[2 * n + 1]));
+          mma_bf16(yi[n], a[P::plane(b)],
+                   make_uint2(i[2 * n] ^ flip, i[2 * n + 1] ^ flip));
         }
       }
     }
+    if constexpr (CUT == kK3CutGather) continue;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -327,7 +375,9 @@ __device__ __forceinline__ void smem_stage2(
     const int mtl = item / (N2 / 16) - pass * (K::N1Z / 16);
     const int ng = item % (N2 / 16);
     float u1[2][4] = {}, u2[2][4] = {}, u3[2][4] = {};
-#pragma unroll 2
+    // Whole when there are at most 4 chunks (N2 <= 64), so that the
+    // loads of the next chunks issue ahead of this one's mma.
+#pragma unroll(N2 <= 64 ? N2 / 16 : 2)
     for (int c = 0; c < N2 / 16; ++c) {
       // Matrix m: rows n2 = 16c + 8(m >> 1) + (lane & 7), columns k1 from
       // 16mtl + 8(m & 1) (stored transposed: its rows are A's columns).
@@ -374,14 +424,14 @@ __device__ __forceinline__ void smem_stage2(
 }
 
 // Block g transforms frames [g*group, min((g+1)*group, F, n_valid)) one
-// after another and writes the f32 sum of their |X|^2 to partial row g.
-template <int LOG2N, bool WINDOWED>
+// after another and writes the f32 sum of their |X|^2 to partial row g
+// (a cut: the sums its CUT names, in every bin).
+template <int LOG2N, bool WINDOWED, int CUT = kK3Full>
 __global__ void __launch_bounds__(SmemK3<LOG2N, WINDOWED>::THREADS,
                                   SmemK3<LOG2N, WINDOWED>::MIN_BLOCKS)
 psd_smem_kernel(const uint8_t* __restrict__ raw,     // (F, 2N), 16 B aligned
                 const float* __restrict__ window,    // (N,) or null
-                const uint32_t* __restrict__ w1r,    // register-major tiles
-                const uint32_t* __restrict__ w1i,
+                const uint32_t* __restrict__ w1,     // register-major tiles
                 const float4* __restrict__ twiddle,  // (N2, N1/2)
                 const uint32_t* __restrict__ w2,     // six planes
                 float* __restrict__ partial,         // (G, N)
@@ -394,12 +444,8 @@ psd_smem_kernel(const uint8_t* __restrict__ raw,     // (F, 2N), 16 B aligned
   uint8_t* ring = reinterpret_cast<uint8_t*>(base + K::OFF_RING);
   float* win = reinterpret_cast<float*>(base + K::OFF_WIN);
   uint64_t* bar = reinterpret_cast<uint64_t*>(base + K::OFF_BAR);
-  const uint32_t* s1r =
-      K::S1_RES ? reinterpret_cast<const uint32_t*>(base + K::OFF_W1) : w1r;
-  const uint32_t* s1i =
-      K::S1_RES ? reinterpret_cast<const uint32_t*>(base + K::OFF_W1 +
-                                                    K::W1_BYTES)
-                : w1i;
+  const uint32_t* s1 =
+      K::S1_RES ? reinterpret_cast<const uint32_t*>(base + K::OFF_W1) : w1;
   const uint32_t* s2 =
       K::S2_RES ? reinterpret_cast<const uint32_t*>(base + K::OFF_W2) : w2;
   const int tid = threadIdx.x;
@@ -418,6 +464,7 @@ psd_smem_kernel(const uint8_t* __restrict__ raw,     // (F, 2N), 16 B aligned
 
   const int f0 = blockIdx.x * group;
   const int frames = max(min(f0 + group, min(F, n_valid)) - f0, 0);
+  float sink = 0.0f;   // a cut's sum
 
   // Frame i of the block into ring slot i & 1 (an empty group past the
   // last frame, so that every thread counts the same groups).
@@ -427,8 +474,10 @@ psd_smem_kernel(const uint8_t* __restrict__ raw,     // (F, 2N), 16 B aligned
       uint8_t* dst = ring + (i & 1) * K::SLOT;
 #pragma unroll
       for (int k = 0; k < K::COPIES; ++k) {
-        const int o = 16 * (tid + k * K::THREADS);
-        k3_cp_async16(dst + o, src + o);
+        // 16-byte piece q of the frame: row q / (N2 / 8), piece q % (N2 / 8).
+        const int q = tid + k * K::THREADS;
+        k3_cp_async16(dst + (q / (N2 / 8)) * K::RING_ROW + 16 * (q % (N2 / 8)),
+                      src + 16 * q);
       }
     }
     k3_cp_async_commit();
@@ -436,7 +485,8 @@ psd_smem_kernel(const uint8_t* __restrict__ raw,     // (F, 2N), 16 B aligned
 
   if (frames > 0) {
     if constexpr (WINDOWED) {
-      for (int i = tid; i < N; i += K::THREADS) win[i] = __ldg(window + i);
+      for (int i = tid; i < N; i += K::THREADS)
+        win[(i / N2) * K::WIN_ROW + i % N2] = __ldg(window + i);
     }
     if constexpr (K::RESIDENT_BYTES > 0) {
       if (tid == 0) k3_mbarrier_init(bar);
@@ -444,8 +494,7 @@ psd_smem_kernel(const uint8_t* __restrict__ raw,     // (F, 2N), 16 B aligned
       if (tid == 0) {
         k3_mbarrier_expect(bar, K::RESIDENT_BYTES);
         if constexpr (K::S1_RES) {
-          k3_bulk_copy(base + K::OFF_W1, w1r, K::W1_BYTES, bar);
-          k3_bulk_copy(base + K::OFF_W1 + K::W1_BYTES, w1i, K::W1_BYTES, bar);
+          k3_bulk_copy(base + K::OFF_W1, w1, K::W1_BYTES, bar);
         }
         if constexpr (K::S2_RES) {
           k3_bulk_copy(base + K::OFF_W2, w2, 6 * K::W2_BYTES, bar);
@@ -464,17 +513,26 @@ psd_smem_kernel(const uint8_t* __restrict__ raw,     // (F, 2N), 16 B aligned
 #pragma unroll
     for (int p = 0; p < K::ZP; ++p) {
       if (p > 0) __syncthreads();   // pass p - 1's stage 2 read Z
-      smem_stage1<LOG2N, WINDOWED>(iq, win, s1r, s1i, twiddle, zp, p, warp,
-                                   lane);
+      smem_stage1<LOG2N, WINDOWED, CUT>(iq, win, s1, twiddle, zp, p, warp,
+                                        lane, sink);
       __syncthreads();
-      smem_stage2<LOG2N, WINDOWED>(
-          reinterpret_cast<const __nv_bfloat16*>(zp), s2, acc[p], p, warp,
-          lane);
+      if constexpr (CUT == kK3Full) {
+        smem_stage2<LOG2N, WINDOWED>(
+            reinterpret_cast<const __nv_bfloat16*>(zp), s2, acc[p], p, warp,
+            lane);
+      } else if constexpr (CUT == kK3CutStage1) {
+        sink = __fadd_rn(sink, bf16_pair_sum(zp[tid % (3 * K::ZPLANE)]));
+      }
     }
   }
   k3_cp_async_wait<0>();
 
   float* row = partial + static_cast<size_t>(blockIdx.x) * N;
+  if constexpr (CUT != kK3Full) {
+    // Each thread's sum in bins tid, tid + THREADS, ...
+    for (int k = tid; k < N; k += K::THREADS) row[k] = sink;
+    return;
+  }
 #pragma unroll
   for (int p = 0; p < K::ZP; ++p)
 #pragma unroll

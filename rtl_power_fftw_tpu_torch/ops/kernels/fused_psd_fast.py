@@ -2,7 +2,8 @@
 
 Replaces ``rtl_power_fftw_tpu/ops/kernels/fused_psd.py:make_fused_psd_fn``
 with ``fast=True`` (K3), windowed or not, with a CUDA C++ kernel for
-Hopper tensor cores (``csrc/fused_psd_fast.cu``). It computes the JAX
+Hopper tensor cores (``csrc/fused_psd_fast.cu``, its group kernel
+``csrc/fused_psd_fast_smem.cuh``). It computes the JAX
 package's fast scheme, a four-step DFT N = N1·N2 (input index
 n = N2·n1 + n2, bin k = k1 + N1·k2) as bf16 products with f32 sums:
 
@@ -29,6 +30,22 @@ exactly, so it differs from the kernel only in the order of f32 sums.
 :func:`fused_psd_fast` dispatches on the tensor's device like
 :func:`~.fused_psd.fused_psd`: CPU tensor -> plain version, CUDA tensor
 -> the kernel or an exception. :data:`COUNTS` counts both.
+
+The kernel keeps the stage weights resident in shared memory where they
+fit (:data:`SMEM_PLAN`, :func:`smem_layout`), copied once a block in the
+register-major B-fragment order of :func:`pack_b_ldmatrix` (stage 1 as
+the six distinct blocks of :func:`smem_constants`, from which every
+K-stack block of WR and WI follows), stages Z once as six bf16 split
+planes (their rows swizzled, not padded), copies
+the next frame while the current one is computed, and gives each block
+as many frames as put the grid within one resident wave
+(:func:`~.fused_psd.k1_group` with :func:`resident_blocks`). Its host path does the
+least it can a call: the grid and the operands' pointers are cached per
+(N, F, chunk, windowed, device), the partial rows per (N, rows, device,
+stream), so a call allocates only its output. The kernel it replaced
+stays as the control, :func:`fused_psd_fast_control` (counted in
+:data:`CONTROL_COUNTS`), and its cuts, :func:`fused_psd_fast_cut`, give
+its stage split; ``chip_smoke.py`` alone calls either.
 """
 
 from __future__ import annotations
@@ -47,17 +64,20 @@ from .fused_psd import (KernelLaunchError, LaunchCounts, _on_cuda,
 from .fused_psd_large import _raw_stream
 
 #: Eligible sizes: powers of two whose split N1 x N2 has both factors
-#: multiples of 16 (the bf16 mma tile depth) and whose frame fits the
-#: shared memory of one block (10N bytes, 14N windowed: 224 KB at
-#: 16384). Kept in step with kMinLog2N/kMaxLog2N in the source.
+#: multiples of 16 (the bf16 mma tile depth) and whose frame's state
+#: fits the shared memory of one block (:func:`smem_layout`: 224 KB at
+#: 16384 windowed, its Z in four passes). Kept in step with
+#: kMinLog2N/kMaxLog2N in the source.
 MIN_N = 256
 MAX_N = 16384
 
 #: Launches of the kernel and calls of the plain version, counted by
 #: :func:`fused_psd_fast` only.
 COUNTS = LaunchCounts()
-#: The same for the control, :func:`fused_psd_fast_control`.
+#: The same for the control, :func:`fused_psd_fast_control`, and the
+#: kernel's cuts, :func:`fused_psd_fast_cut`.
 CONTROL_COUNTS = LaunchCounts()
+CUT_COUNTS = LaunchCounts()
 
 
 def fused_psd_fast_eligible(N: int) -> bool:
@@ -247,10 +267,10 @@ def kernel_constants(N: int, windowed: bool):
 SMEM_PLAN = {256: ((1, 1, 1, 1), (1, 1, 1, 1)),
              512: ((2, 1, 1, 1), (2, 1, 1, 1)),
              1024: ((4, 1, 1, 1), (4, 1, 1, 1)),
-             2048: ((8, 1, 1, 1), (8, 1, 0, 1)),
-             4096: ((16, 1, 1, 1), (16, 0, 1, 1)),
-             8192: ((16, 1, 0, 1), (16, 0, 0, 1)),
-             16384: ((16, 0, 0, 2), (16, 0, 0, 2))}
+             2048: ((8, 1, 1, 1), (8, 1, 1, 1)),
+             4096: ((16, 1, 1, 1), (16, 1, 1, 1)),
+             8192: ((16, 1, 0, 1), (16, 1, 0, 1)),
+             16384: ((16, 0, 0, 2), (16, 0, 0, 4))}
 
 #: Alignment of the kernel's copies: the frames by 16-byte cp.async, the
 #: window read as floats, the resident weights by bulk copies (16 bytes;
@@ -272,14 +292,18 @@ def pack_b_ldmatrix(bits: np.ndarray) -> np.ndarray:
 
 
 def smem_constants(N: int, windowed: bool):
-    """The kernel's constant operands as numpy arrays: (w1r, w1i,
-    twiddle, w2), :func:`kernel_constants` with every weight matrix in
-    :func:`pack_b_ldmatrix`'s order."""
+    """The kernel's constant operands as numpy arrays: (w1, twiddle, w2)
+    in :func:`pack_b_ldmatrix`'s order: w1 the six distinct stage-1
+    blocks [r0; -i0; r1; -i1; r2; -i2] (the unwindowed WR, from which the
+    kernel takes every block of WR and WI, windowed or not: WR's block
+    2m + s is w1 block 2j + s and WI's is w1 block 2j + 1 - s, its sign
+    flipped where s = 0, for the term j of pair m), the twiddle as
+    :func:`kernel_constants`, and the six stage-2 planes."""
     N1, N2 = fast_split(N)
-    WR, WI, twr, twi, w2r, w2i, w2s = constants(N, N1, N2, windowed)
+    _, _, twr, twi, w2r, w2i, w2s = constants(N, N1, N2, windowed)
     w2 = np.stack([pack_b_ldmatrix(m[j]) for m in (w2r, w2i, w2s)
                    for j in (0, 1)])
-    return (pack_b_ldmatrix(WR), pack_b_ldmatrix(WI),
+    return (pack_b_ldmatrix(constants(N, N1, N2, False)[0]),
             np.stack([twr, twi], axis=-1), w2)
 
 
@@ -287,44 +311,33 @@ def smem_layout(N: int, windowed: bool) -> dict:
     """The kernel's shapes at N (``SmemK3`` in the source): warps and
     threads a block, which stage weights are resident, the Z passes (ZP),
     the k1 columns of a pass (N1Z), items a warp a pass (IPW), and the
-    shared-memory offsets and bytes of each part: [WR WI | six stage-2
-    planes | six Z planes | two raw slots | window | mbarrier]."""
+    shared-memory offsets and bytes of each part: [w1 | six stage-2
+    planes | six Z planes | two raw slots | window | mbarrier]; a raw
+    slot keeps the frame's N1 rows of N2 u16 samples RING_ROW bytes
+    apart, the window its rows WIN_ROW floats apart."""
     N1, N2 = fast_split(N)
     warps, s1, s2, zp = SMEM_PLAN[N][int(windowed)]
-    blocks1 = 12 if windowed else 6
-    w1 = blocks1 * N1 * N1 * 2
+    w1 = 6 * N1 * N1 * 2
     w2 = N2 * N2 * 2
     n1z = N1 // zp
-    off_w2 = 2 * w1 if s1 else 0
+    off_w2 = w1 if s1 else 0
     off_z = off_w2 + (6 * w2 if s2 else 0)
     off_ring = off_z + 6 * N2 * n1z * 2
-    off_win = off_ring + 4 * N
-    off_bar = off_win + (4 * N if windowed else 0)
+    ring_row = 2 * N2 + 16
+    win_row = N2 + 4
+    off_win = off_ring + 2 * N1 * ring_row
+    off_bar = off_win + (4 * N1 * win_row if windowed else 0)
     items = N // 256
     return {"N1": N1, "N2": N2, "warps": warps, "threads": 32 * warps,
             "min_blocks": 512 // (32 * warps), "s1": bool(s1),
             "s2": bool(s2), "ZP": zp, "N1Z": n1z, "items": items,
             "IPP": items // zp, "IPW": items // zp // warps,
             "row_chunks": n1z // 8, "W1_BYTES": w1, "W2_BYTES": w2,
-            "ZPLANE": N2 * n1z, "OFF_W2": off_w2, "OFF_Z": off_z,
+            "ZPLANE": N2 * n1z, "RING_ROW": ring_row, "WIN_ROW": win_row,
+            "SLOT": N1 * ring_row, "OFF_W2": off_w2, "OFF_Z": off_z,
             "OFF_RING": off_ring, "OFF_WIN": off_win, "OFF_BAR": off_bar,
             "bytes": off_bar + 16, "resident": off_z,
             "copies": 2 * N // 16 // (32 * warps)}
-
-
-def z_chunk(row_chunks: int, n2, c):
-    """The 16-byte chunk of Z-plane row n2 holding k1 chunk c (``z_chunk``
-    in the source)."""
-    shift = 0 if row_chunks >= 8 else (1 if row_chunks == 4 else 2)
-    mask = min(row_chunks, 8) - 1
-    return c ^ ((n2 >> shift) & mask)
-
-
-def z_offset(N: int, windowed: bool, n2, k1):
-    """bf16 element offset of (n2, k1 of the pass) in a Z plane."""
-    t = smem_layout(N, windowed)
-    return (n2 * t["N1Z"] + z_chunk(t["row_chunks"], n2, k1 >> 3) * 8
-            + (k1 & 7))
 
 
 @functools.lru_cache(maxsize=16)
@@ -371,25 +384,17 @@ def resident_blocks(N: int, windowed: bool, index: int) -> int:
     return sms * max(1, per_sm)
 
 
-def k3_group(F: int, chunk: int, resident: int) -> int:
-    """Frames a block of the kernel sums over F frames: the least divisor
-    of ``chunk`` for which the ceil(F / group) blocks fit ``resident``,
-    the blocks the card holds at once (one wave), as K1's
-    :func:`~.fused_psd.k1_group`; ``chunk`` where none does."""
-    return k1_group(F, chunk, resident)
-
-
 class _Plan(NamedTuple):
     """What a call of :func:`fused_psd_fast` needs beyond its arguments,
     cached per (N, F, chunk, windowed, device): the library, the grid
-    (:func:`k3_group`) and the constant operands (kept alive here) with
+    (:func:`~.fused_psd.k1_group` with this kernel's occupancy) and the
+    constant operands (kept alive here) with
     their pointers."""
     lib: ctypes.CDLL
     log2n: int
     group: int
     rows: int
-    w1r: int
-    w1i: int
+    w1: int
     twiddle: int
     w2: int
     operands: tuple
@@ -410,17 +415,17 @@ def _plan(N: int, F: int, chunk: int, windowed: bool,
     if plan is None:
         from . import _build
         ops = _device_operands(N, windowed, device, smem=True)
-        for t in (ops[0], ops[1], ops[3]):
+        for t in (ops[0], ops[2]):
             if t.data_ptr() % BULK_ALIGN:
                 raise ValueError("fused_psd_fast: weights must be "
                                  f"{BULK_ALIGN}-byte aligned for the bulk "
                                  "copies")
-        group = k3_group(F, chunk, resident_blocks(N, windowed,
+        group = k1_group(F, chunk, resident_blocks(N, windowed,
                                                    device.index))
         plan = _plans[key] = _Plan(
             _build.load("fused_psd_fast"), N.bit_length() - 1, group,
             -(-F // group), ops[0].data_ptr(), ops[1].data_ptr(),
-            ops[2].data_ptr(), ops[3].data_ptr(), ops)
+            ops[2].data_ptr(), ops)
     return plan
 
 
@@ -468,11 +473,51 @@ def fused_psd_fast(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     out = torch.empty(N, dtype=torch.float32, device=device)
     err = plan.lib.rpf_fused_psd_fast(
         raw_u8.data_ptr(), None if window is None else window.data_ptr(),
-        plan.w1r, plan.w1i, plan.twiddle, plan.w2, partial, out.data_ptr(),
+        plan.w1, plan.twiddle, plan.w2, partial, out.data_ptr(),
         device.index, plan.log2n, F, plan.group, n_valid, stream)
     if err != 0:
         _raise(plan.lib, "fused_psd_fast", err)
     COUNTS.kernel += 1
+    return out
+
+
+#: Cuts of the kernel at N = 2048 (``kK3Cut*`` in the source), its stage
+#: split: the frame's copies and the stage-1 gather; also stage 1, the
+#: twiddle and Z's planes.
+CUT_GATHER, CUT_STAGE1 = 1, 2
+
+
+def fused_psd_fast_cut(cut: int, raw_u8: torch.Tensor, n_valid: int,
+                       chunk: int, window: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """A cut of the kernel (:data:`CUT_GATHER`, :data:`CUT_STAGE1`) on a
+    CUDA tensor at N = 2048, on :func:`fused_psd_fast`'s grid: the work up
+    to the cut, whose sums it writes (not a spectrum). Timed by
+    ``chip_smoke.py`` for the stage split; counted in
+    :data:`CUT_COUNTS`."""
+    n_valid = int(n_valid)
+    check_args("fused_psd_fast_cut", lambda n: n == 2048, raw_u8, n_valid,
+               chunk, window)
+    if cut not in (CUT_GATHER, CUT_STAGE1) or not _on_cuda(
+            "fused_psd_fast_cut", raw_u8):
+        raise ValueError("fused_psd_fast_cut takes cut 1 or 2 of a CUDA "
+                         "tensor")
+    check_alignment("fused_psd_fast_cut", raw_u8, RAW_ALIGN, window,
+                    WINDOW_ALIGN)
+    F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
+    device = raw_u8.device
+    plan = _plan(N, F, chunk, window is not None, device)
+    stream = _raw_stream(device.index)
+    partial = _workspace(N, plan.rows, device, stream)
+    out = torch.empty(N, dtype=torch.float32, device=device)
+    err = plan.lib.rpf_fused_psd_fast_cut(
+        cut, raw_u8.data_ptr(),
+        None if window is None else window.data_ptr(), plan.w1,
+        plan.twiddle, plan.w2, partial, out.data_ptr(), device.index,
+        plan.log2n, F, plan.group, n_valid, stream)
+    if err != 0:
+        _raise(plan.lib, "fused_psd_fast_cut", err)
+    CUT_COUNTS.kernel += 1
     return out
 
 

@@ -69,6 +69,33 @@ def source_plan():
             for a, b, n in rows}
 
 
+def z_chunk(row_chunks, n2, c):
+    """The 16-byte chunk of Z-plane row n2 holding k1 chunk c
+    (``z_chunk`` in the source)."""
+    shift = 0 if row_chunks >= 8 else (1 if row_chunks == 4 else 2)
+    mask = min(row_chunks, 8) - 1
+    return c ^ ((n2 >> shift) & mask)
+
+
+def z_offset(N, windowed, n2, k1):
+    """bf16 element offset of (n2, k1 of the pass) in a Z plane
+    (``z_offset`` in the source)."""
+    t = ff.smem_layout(N, windowed)
+    return (n2 * t["N1Z"] + z_chunk(t["row_chunks"], n2, k1 >> 3) * 8
+            + (k1 & 7))
+
+
+def stage1_blocks(windowed):
+    """For each K-stack block b of WR and WI (6 or 12), where the kernel
+    takes it from w1's six blocks: (WR block, WI block, WI's sign
+    flipped). Block b = 2m + s holds weight term j of the order c0 c1 c2
+    (windowed c0 c1 c2 c0 c1 c0): WR's is w1 block 2j + s; WI's is i_j,
+    w1 block 2j + 1 negated (s = 0), or r_j, w1 block 2j (s = 1)."""
+    order = (0, 1, 2, 0, 1, 0) if windowed else (0, 1, 2)
+    return tuple((2 * j + s, 2 * j + 1 - s, s == 0)
+                 for j in order for s in (0, 1))
+
+
 def blocks_per_sm(N, windowed):
     """The blocks an H100 SM holds by shared memory and by the launch
     bounds' register cap (128 a thread: MIN_BLOCKS), at most 2048
@@ -97,14 +124,15 @@ def test_layout_fits_and_partitions_the_block(N, windowed):
              (t["OFF_Z"], t["OFF_RING"]), (t["OFF_RING"], t["OFF_WIN"]),
              (t["OFF_WIN"], t["OFF_BAR"]), (t["OFF_BAR"], t["bytes"])]
     assert [b - a for a, b in parts] == [
-        2 * t["W1_BYTES"] * t["s1"], 6 * t["W2_BYTES"] * t["s2"],
-        6 * n2 * t["N1Z"] * 2, 4 * N, 4 * N * windowed, 16]
+        t["W1_BYTES"] * t["s1"], 6 * t["W2_BYTES"] * t["s2"],
+        6 * n2 * t["N1Z"] * 2, 2 * n1 * (2 * n2 + 16),
+        4 * n1 * (n2 + 4) * windowed, 16]
     # Every part starts 16-byte aligned (bulk copies, cp.async, uint4),
     # the mbarrier 8-byte aligned.
     assert all(a % 16 == 0 for a, _ in parts)
     # The weights a plan leaves in device memory would not fit beside
     # the rest: each zero of the plan is forced.
-    for flag, size in (("s1", 2 * t["W1_BYTES"]), ("s2", 6 * t["W2_BYTES"])):
+    for flag, size in (("s1", t["W1_BYTES"]), ("s2", 6 * t["W2_BYTES"])):
         if not t[flag]:
             assert t["bytes"] + size > (
                 BLOCK_MAX if t["min_blocks"] == 1
@@ -114,21 +142,53 @@ def test_layout_fits_and_partitions_the_block(N, windowed):
 @pytest.mark.parametrize("windowed,want", [
     (False, {256: 16, 512: 8, 1024: 4, 2048: 2, 4096: 1, 8192: 1,
              16384: 1}),
-    (True, {256: 10, 512: 6, 1024: 2, 2048: 2, 4096: 1, 8192: 1,
+    (True, {256: 16, 512: 8, 1024: 4, 2048: 2, 4096: 1, 8192: 1,
             16384: 1})])
 def test_blocks_an_sm(windowed, want):
     """Two blocks of 8 warps an SM at 2048 bins, windowed or not."""
     assert {N: blocks_per_sm(N, windowed) for N in SIZES} == want
 
 
-def test_weights_fit_as_the_issue_sized_them():
-    """At 2048 the resident weights are 72 KB unwindowed: WR + WI 24 KB
-    and the stage-2 planes 48 KB; windowed, WR + WI are 48 KB."""
-    t = ff.smem_layout(2048, False)
-    assert (2 * t["W1_BYTES"], 6 * t["W2_BYTES"]) == (24576, 49152)
-    assert t["resident"] == 73728
-    tw = ff.smem_layout(2048, True)
-    assert 2 * tw["W1_BYTES"] == 49152 and tw["resident"] == 49152
+def test_resident_weights_at_2048():
+    """At 2048 the resident weights are 60 KB, windowed or not: stage 1's
+    six distinct blocks 12 KB (the issue's WR + WI, 24 KB, 48 windowed)
+    and the stage-2 planes 48 KB."""
+    for windowed in (False, True):
+        t = ff.smem_layout(2048, windowed)
+        assert (t["W1_BYTES"], 6 * t["W2_BYTES"]) == (12288, 49152)
+        assert t["resident"] == 61440
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("N", [256, 2048, 16384])
+def test_stage1_blocks_are_wr_and_wi(N, windowed):
+    """Every K-stack block of WR and WI is one of w1's six blocks, WI's
+    with its bf16 sign bits flipped where stage1_blocks says."""
+    n1, n2 = ff.fast_split(N)
+    WR, WI = ff.constants(N, n1, n2, windowed)[:2]
+    w1 = ff.constants(N, n1, n2, False)[0]
+    blocks = stage1_blocks(windowed)
+    assert len(blocks) == WR.shape[0] // n1
+    for b, (r, i, flip) in enumerate(blocks):
+        np.testing.assert_array_equal(WR[b * n1:(b + 1) * n1],
+                                      w1[r * n1:(r + 1) * n1])
+        np.testing.assert_array_equal(
+            WI[b * n1:(b + 1) * n1],
+            w1[i * n1:(i + 1) * n1] ^ np.uint16(0x8000 if flip else 0))
+
+
+def test_stage1_term_is_the_sources():
+    """stage1_term in the source, m < 3 ? m : (m == 4 ? 1 : 0): the
+    K-stack's weight terms c0 c1 c2 and, windowed, c0 c1 c2 c0 c1 c0, as
+    stage1_blocks reads them."""
+    text = (CSRC / "fused_psd_fast_smem.cuh").read_text()
+    body = text[text.index("constexpr int stage1_term"):]
+    assert re.search(r"return (.*);", body).group(1) \
+        == "m < 3 ? m : (m == 4 ? 1 : 0)"
+    terms = [m if m < 3 else (1 if m == 4 else 0) for m in range(6)]
+    for windowed in (False, True):
+        want = [r // 2 for r, _, _ in stage1_blocks(windowed)[::2]]
+        assert terms[:len(want)] == want
 
 
 # --- the weights in register-major order, read by ldmatrix ---
@@ -186,7 +246,7 @@ def test_z_plane_is_a_bijection(N, windowed):
     t = ff.smem_layout(N, windowed)
     n2 = np.arange(t["N2"])[:, None]
     k1 = np.arange(t["N1Z"])[None, :]
-    off = ff.z_offset(N, windowed, n2, k1)
+    off = z_offset(N, windowed, n2, k1)
     assert sorted(off.ravel()) == list(range(t["ZPLANE"]))
     # A (k1, k1 + 1) pair is one aligned 32-bit word, a k1 chunk of 8
     # one 16-byte row of an ldmatrix matrix.
@@ -214,7 +274,7 @@ def z_store_addresses(N, windowed, mtl, ngl, j, h):
     stage-1 item (plane 0)."""
     n2 = 16 * mtl + G_ + 8 * h
     k1 = 16 * ngl + 8 * j + 2 * T_
-    return 2 * ff.z_offset(N, windowed, n2, k1)
+    return 2 * z_offset(N, windowed, n2, k1)
 
 
 def z_ldmatrix_addresses(N, windowed, mtl, c):
@@ -222,7 +282,7 @@ def z_ldmatrix_addresses(N, windowed, mtl, c):
     plane 0 for k1 tile mtl (of the pass) and n2 chunk c."""
     m = LANE >> 3
     n2 = 16 * c + 8 * (m >> 1) + (LANE & 7)
-    return 2 * ff.z_offset(N, windowed, n2, 16 * mtl + 8 * (m & 1))
+    return 2 * z_offset(N, windowed, n2, 16 * mtl + 8 * (m & 1))
 
 
 @pytest.mark.parametrize("windowed", [False, True])
@@ -248,16 +308,69 @@ def test_weight_ldmatrix_is_free_of_bank_conflicts():
         assert len(bank_groups(addr[8 * m:8 * m + 8])) == 8
 
 
+def ring_copies(N, windowed=False):
+    """(source, destination) byte offsets of every thread's cp.async
+    pieces of a frame, as the kernel's prefetch computes them."""
+    t = ff.smem_layout(N, windowed)
+    per_row = t["N2"] // 8
+    q = np.array([tid + k * t["threads"] for tid in range(t["threads"])
+                  for k in range(t["copies"])])
+    return 16 * q, (q // per_row) * t["RING_ROW"] + 16 * (q % per_row)
+
+
+def ring_index(N, n):
+    """u16 index in a ring slot of sample n = N2 n1 + n2."""
+    t = ff.smem_layout(N, False)
+    return (n // t["N2"]) * (t["RING_ROW"] // 2) + n % t["N2"]
+
+
 @pytest.mark.parametrize("N", SIZES)
 def test_ring_copies_fill_each_slot_once(N):
     t = ff.smem_layout(N, False)
-    offs = np.array([16 * (tid + k * t["threads"])
-                     for tid in range(t["threads"])
-                     for k in range(t["copies"])])
-    assert sorted(offs) == list(range(0, 2 * N, 16))
-    # A warp's copies are 512 contiguous bytes: whole lines.
-    first = offs.reshape(t["threads"], t["copies"])[:32, 0]
-    assert (np.diff(first) == 16).all()
+    src, dst = ring_copies(N)
+    assert sorted(src) == list(range(0, 2 * N, 16))
+    assert len(set(dst)) == len(dst) and (dst % 16 == 0).all()
+    assert dst.max() + 16 <= t["SLOT"]
+    # Each sample lands where the gather reads it.
+    n = np.arange(N)
+    where = np.empty(2 * N // 16, np.int64)
+    where[src // 16] = dst
+    np.testing.assert_array_equal(ring_index(N, n) * 2,
+                                  where[(2 * n) // 16] + (2 * n) % 16)
+    # A warp's copies are 512 contiguous bytes of the frame: whole lines.
+    assert (np.diff(src.reshape(t["threads"], t["copies"])[:32, 0]) == 16).all()
+
+
+def gather_addresses(N, windowed, mt, c, qq, second):
+    """Byte addresses of a warp's stage-1 u16 gather (element n of the
+    pair, or n + one row) and of its window reads."""
+    t = ff.smem_layout(N, windowed)
+    n1 = 16 * c + 2 * T_ + 8 * (qq >> 1) + second
+    n2 = 16 * mt + G_ + 8 * (qq & 1)
+    return (2 * (n1 * (t["RING_ROW"] // 2) + n2),
+            4 * (n1 * t["WIN_ROW"] + n2))
+
+
+@pytest.mark.parametrize("N", SIZES)
+def test_gather_is_free_of_bank_conflicts(N):
+    """The stage-1 gather of the ring (two lanes may share a word) and of
+    the window: one word a bank."""
+    n1, n2 = ff.fast_split(N)
+    for mt in range(n2 // 16):
+        for c in range(n1 // 16):
+            for qq in range(4):
+                for second in (0, 1):
+                    ring, win = gather_addresses(N, True, mt, c, qq, second)
+                    assert word_conflicts(ring) == 1
+                    assert word_conflicts(win) == 1
+
+
+def test_unpadded_gather_would_conflict():
+    """What the padding is for: rows 2t apart of a [n1][n2] frame at
+    2048 bins put the four t on one bank."""
+    n1 = 2 * T_
+    n2 = G_
+    assert word_conflicts(2 * (n1 * 64 + n2)) == 4
 
 
 # --- the grid ---
@@ -269,7 +382,7 @@ def test_grid_is_one_wave(N, windowed, fps):
     from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch
     F, chunk = adapt_batch(fps)
     resident = SMS * blocks_per_sm(N, windowed)
-    group = ff.k3_group(F, chunk, resident)
+    group = fp.k1_group(F, chunk, resident)
     rows = -(-F // group)
     assert chunk % group == 0
     fits = [g for g in range(1, chunk + 1)
@@ -284,7 +397,7 @@ def test_grid_is_one_wave(N, windowed, fps):
 def test_grid_at_the_timed_shapes(N, windowed, fps, group):
     from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch
     F, chunk = adapt_batch(fps)
-    assert ff.k3_group(F, chunk, SMS * blocks_per_sm(N, windowed)) == group
+    assert fp.k1_group(F, chunk, SMS * blocks_per_sm(N, windowed)) == group
 
 
 # --- the transcription ---
@@ -349,16 +462,14 @@ def kernel_transcription(raw, n_valid, chunk, window, resident):
     warps, IPP, IPW = t["warps"], t["IPP"], t["IPW"]
     planes_of = ff.input_planes(windowed)
     nplanes = 6 if windowed else 2
-    w1r, w1i, tw, w2 = ff.smem_constants(N, windowed)
-    w1r = w1r.reshape(-1).view(np.uint32)
-    w1i = w1i.reshape(-1).view(np.uint32)
+    w1, tw, w2 = ff.smem_constants(N, windowed)
+    w1 = w1.reshape(-1).view(np.uint32)
     w2 = w2.reshape(-1).view(np.uint32)
     plane_words = t["W2_BYTES"] // 4
     weights = np.zeros(t["OFF_Z"] // 4 + 1, np.uint32)
     # The resident weights, copied as the bulk copies do.
     if t["s1"]:
-        weights[:w1r.size] = w1r
-        weights[w1r.size:2 * w1r.size] = w1i
+        weights[:w1.size] = w1
     if t["s2"]:
         weights[t["OFF_W2"] // 4:t["OFF_W2"] // 4 + w2.size] = w2
     zwords = t["ZPLANE"] // 2
@@ -367,22 +478,32 @@ def kernel_transcription(raw, n_valid, chunk, window, resident):
         """The B fragments of two tiles from word `word` of a weight
         array: ldmatrix from shared memory where resident, else the four
         device-memory loads."""
-        res, arr, off = {"w1r": (t["s1"], w1r, 0),
-                         "w1i": (t["s1"], w1i, w1r.size),
+        res, arr, off = {"w1": (t["s1"], w1, 0),
                          "w2": (t["s2"], w2, t["OFF_W2"] // 4)}[which]
         if res:
             return regs_of(ldmatrix(weights,
                                     b_pair_addresses(4 * (off + word))))
         return arr[word:word + 128].reshape(4, 32).T.copy()
 
-    group = ff.k3_group(F, chunk, resident)
+    group = fp.k1_group(F, chunk, resident)
     rows = []
     for blk in range(-(-F // group)):
         f0 = blk * group
         fr = np.arange(f0, min(f0 + group, F, n_valid))
         nf = len(fr)
         power = np.zeros((nf, ZP, IPW, warps, 2, 32, 4), np.float32)
-        iq = raw[fr].view(np.uint16).astype(np.int64)       # (nf, N)
+        # The ring slot as the cp.async pieces fill it, and the window as
+        # the block stores it (padded rows).
+        src, dst = ring_copies(N, windowed)
+        slot = np.zeros((nf, t["SLOT"]), np.uint8)
+        for k in range(16):
+            slot[:, dst + k] = raw[fr][:, src + k]
+        iq = slot.view(np.uint16).astype(np.int64)       # (nf, SLOT / 2)
+        rr = t["RING_ROW"] // 2
+        if windowed:
+            wrows = np.zeros(N1 * t["WIN_ROW"], np.float32)
+            n = np.arange(N)
+            wrows[(n // N2) * t["WIN_ROW"] + n % N2] = window
         zp = np.zeros((nf, 3 * t["ZPLANE"]), np.uint32)     # six planes
         for p in range(ZP if nf else 0):
             for warp in range(warps):                       # stage 1
@@ -394,16 +515,17 @@ def kernel_transcription(raw, n_valid, chunk, window, resident):
                     for c in range(N1 // 16):
                         a = np.zeros((nplanes, nf, 32, 4), np.uint32)
                         for qq in range(4):
-                            n = (N2 * (16 * c + 2 * T_ + 8 * (qq >> 1))
-                                 + 16 * mt + G_ + 8 * (qq & 1))
+                            n1 = 16 * c + 2 * T_ + 8 * (qq >> 1)
+                            n2 = 16 * mt + G_ + 8 * (qq & 1)
                             vals = []
-                            for m in (n, n + N2):
+                            for h in range(2):
+                                m = (n1 + h) * rr + n2
                                 re = ((iq[:, m] & 0xFF) - 127).astype(
                                     np.float32)
                                 im = ((iq[:, m] >> 8) - 127).astype(
                                     np.float32)
                                 if windowed:
-                                    w = window[m].astype(np.float32)
+                                    w = wrows[(n1 + h) * t["WIN_ROW"] + n2]
                                     vals.append(split_bits(re * w, 3)
                                                 + split_bits(im * w, 3))
                                 else:
@@ -414,12 +536,13 @@ def kernel_transcription(raw, n_valid, chunk, window, resident):
                                        else pl)
                                 a[pl, :, :, qq] = pack(vals[0][src],
                                                        vals[1][src])
+                        w = [b_pair("w1", ((k * (N1 // 16) + c) * (N1 // 8)
+                                           + 2 * ng) * 64) for k in range(6)]
                         for b, plane in enumerate(planes_of):
-                            tile = ((b * (N1 // 16) + c) * (N1 // 8)
-                                    + 2 * ng) * 64
-                            wr, wi = b_pair("w1r", tile), b_pair("w1i", tile)
+                            r, i, flip = stage1_blocks(windowed)[b]
+                            wi = w[i] ^ np.uint32(0x80008000 if flip else 0)
                             for j in range(2):
-                                mma(yr[j], a[plane], wr[:, 2 * j:2 * j + 2])
+                                mma(yr[j], a[plane], w[r][:, 2 * j:2 * j + 2])
                                 mma(yi[j], a[plane], wi[:, 2 * j:2 * j + 2])
                     for j in range(2):
                         for h in range(2):
@@ -433,7 +556,7 @@ def kernel_transcription(raw, n_valid, chunk, window, resident):
                                 zi = (ar * s_ + ai * c_).astype(np.float32)
                                 z.append((zr, zi,
                                           (zr + zi).astype(np.float32)))
-                            at = ff.z_offset(N, windowed, n2,
+                            at = z_offset(N, windowed, n2,
                                              k1 - p * N1Z) // 2
                             for s in range(3):
                                 lo = split_bits(z[0][s], 2)
