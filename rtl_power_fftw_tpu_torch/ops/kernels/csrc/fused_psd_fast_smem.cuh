@@ -71,12 +71,14 @@ namespace {
 // By log2 N from 8: {warps a block, stage-1 weights resident, stage-2
 // weights resident, Z passes}, unwindowed then windowed. Two blocks of 8
 // warps an SM up to 2048 bins (where the frame's state and the resident
-// weights fit 113 KB), one block of 16 warps above; a stage's weights are
-// resident where they fit beside the frame's Z planes, ring and window.
+// weights fit 113 KB), one block of 16 warps above; from 1024 bins a
+// stage's weights are resident where they fit beside the frame's Z
+// planes, ring and window. Below, a block of one or two warps sums so few
+// frames that copying its weights costs more than reading them from L1.
 // Kept in step with fused_psd_fast.SMEM_PLAN.
 constexpr int kSmemPlan[7][2][4] = {
-    {{1, 1, 1, 1}, {1, 1, 1, 1}},      // 256
-    {{2, 1, 1, 1}, {2, 1, 1, 1}},      // 512
+    {{1, 0, 0, 1}, {1, 0, 0, 1}},      // 256
+    {{2, 0, 0, 1}, {2, 0, 0, 1}},      // 512
     {{4, 1, 1, 1}, {4, 1, 1, 1}},      // 1024
     {{8, 1, 1, 1}, {8, 1, 1, 1}},      // 2048
     {{16, 1, 1, 1}, {16, 1, 1, 1}},    // 4096
@@ -386,7 +388,8 @@ __device__ __forceinline__ void smem_stage2(
           zp + z_offset<LOG2N, WINDOWED>(n2, 16 * mtl + 8 * (m & 1)));
       uint32_t a[6][4];
 #pragma unroll
-      for (int e = 0; e < 6; ++e) ldmatrix_x4_trans(a[e], at + 2 * e * K::ZPLANE);
+      for (int e = 0; e < 6; ++e)
+        ldmatrix_x4_trans(a[e], at + 2 * e * K::ZPLANE);
       uint32_t w[6][4];
       const int tile = (c * (N2 / 8) + 2 * ng) * 64;
 #pragma unroll

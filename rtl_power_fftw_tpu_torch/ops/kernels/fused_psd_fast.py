@@ -32,20 +32,21 @@ exactly, so it differs from the kernel only in the order of f32 sums.
 -> the kernel or an exception. :data:`COUNTS` counts both.
 
 The kernel keeps the stage weights resident in shared memory where they
-fit (:data:`SMEM_PLAN`, :func:`smem_layout`), copied once a block in the
-register-major B-fragment order of :func:`pack_b_ldmatrix` (stage 1 as
-the six distinct blocks of :func:`smem_constants`, from which every
-K-stack block of WR and WI follows), stages Z once as six bf16 split
-planes (their rows swizzled, not padded), copies
-the next frame while the current one is computed, and gives each block
-as many frames as put the grid within one resident wave
-(:func:`~.fused_psd.k1_group` with :func:`resident_blocks`). Its host path does the
-least it can a call: the grid and the operands' pointers are cached per
-(N, F, chunk, windowed, device), the partial rows per (N, rows, device,
-stream), so a call allocates only its output. The kernel it replaced
-stays as the control, :func:`fused_psd_fast_control` (counted in
-:data:`CONTROL_COUNTS`), and its cuts, :func:`fused_psd_fast_cut`, give
-its stage split; ``chip_smoke.py`` alone calls either.
+fit from 1024 bins (:data:`SMEM_PLAN`, :func:`smem_layout`), copied once
+a block in the register-major B-fragment order of
+:func:`pack_b_ldmatrix` (stage 1 as the six distinct blocks of
+:func:`smem_constants`, from which every K-stack block of WR and WI
+follows), stages Z once as six bf16 split planes (their rows swizzled,
+not padded), copies the next frame while the current one is computed,
+and gives each block as many frames as put the grid within one resident
+wave (:func:`~.fused_psd.k1_group` with :func:`resident_blocks`). Its
+host path does the least it can a call: the grid and the operands'
+pointers are cached per (N, F, chunk, windowed, device), the partial
+rows per (N, rows, device, stream), so a call allocates only its output.
+The kernel it replaced stays as the control,
+:func:`fused_psd_fast_control` (counted in :data:`CONTROL_COUNTS`), and
+its cuts, :func:`fused_psd_fast_cut`, give its stage split;
+``chip_smoke.py`` alone calls either.
 """
 
 from __future__ import annotations
@@ -264,8 +265,8 @@ def kernel_constants(N: int, windowed: bool):
 #: ``csrc/fused_psd_fast_smem.cuh``): for the unwindowed and then the
 #: windowed instantiation, (warps a block, stage-1 weights resident,
 #: stage-2 weights resident, Z passes).
-SMEM_PLAN = {256: ((1, 1, 1, 1), (1, 1, 1, 1)),
-             512: ((2, 1, 1, 1), (2, 1, 1, 1)),
+SMEM_PLAN = {256: ((1, 0, 0, 1), (1, 0, 0, 1)),
+             512: ((2, 0, 0, 1), (2, 0, 0, 1)),
              1024: ((4, 1, 1, 1), (4, 1, 1, 1)),
              2048: ((8, 1, 1, 1), (8, 1, 1, 1)),
              4096: ((16, 1, 1, 1), (16, 1, 1, 1)),

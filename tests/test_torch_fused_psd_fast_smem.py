@@ -130,10 +130,10 @@ def test_layout_fits_and_partitions_the_block(N, windowed):
     # Every part starts 16-byte aligned (bulk copies, cp.async, uint4),
     # the mbarrier 8-byte aligned.
     assert all(a % 16 == 0 for a, _ in parts)
-    # The weights a plan leaves in device memory would not fit beside
-    # the rest: each zero of the plan is forced.
+    # From 1024 bins the weights a plan leaves in device memory would not
+    # fit beside the rest: each zero of the plan there is forced.
     for flag, size in (("s1", t["W1_BYTES"]), ("s2", 6 * t["W2_BYTES"])):
-        if not t[flag]:
+        if not t[flag] and N >= 1024:
             assert t["bytes"] + size > (
                 BLOCK_MAX if t["min_blocks"] == 1
                 else SM_SMEM // t["min_blocks"] - BLOCK_RESERVED)
@@ -338,7 +338,8 @@ def test_ring_copies_fill_each_slot_once(N):
     np.testing.assert_array_equal(ring_index(N, n) * 2,
                                   where[(2 * n) // 16] + (2 * n) % 16)
     # A warp's copies are 512 contiguous bytes of the frame: whole lines.
-    assert (np.diff(src.reshape(t["threads"], t["copies"])[:32, 0]) == 16).all()
+    first = src.reshape(t["threads"], t["copies"])[:32, 0]
+    assert (np.diff(first) == 16).all()
 
 
 def gather_addresses(N, windowed, mt, c, qq, second):
@@ -550,7 +551,8 @@ def kernel_transcription(raw, n_valid, chunk, window, resident):
                             k1 = 16 * ng + 8 * j + 2 * T_
                             z = []
                             for e in range(2):
-                                ar, ai = yr[j][..., 2 * h + e], yi[j][..., 2 * h + e]
+                                ar = yr[j][..., 2 * h + e]
+                                ai = yi[j][..., 2 * h + e]
                                 c_, s_ = tw[n2, k1 + e, 0], tw[n2, k1 + e, 1]
                                 zr = (ar * c_ - ai * s_).astype(np.float32)
                                 zi = (ar * s_ + ai * c_).astype(np.float32)
