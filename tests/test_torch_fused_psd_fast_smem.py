@@ -151,7 +151,7 @@ def test_blocks_an_sm(windowed, want):
 
 def test_resident_weights_at_2048():
     """At 2048 the resident weights are 60 KB, windowed or not: stage 1's
-    six distinct blocks 12 KB (the issue's WR + WI, 24 KB, 48 windowed)
+    six distinct blocks 12 KB (WR and WI in full: 24 KB, 48 windowed)
     and the stage-2 planes 48 KB."""
     for windowed in (False, True):
         t = ff.smem_layout(2048, windowed)
