@@ -149,6 +149,21 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    and ``s2_pipe`` and ``s2_ilv`` at 16 frames a block, their launches on
    lines of their own.
 
+13. the awkward-N kernels (``fused_psd_mixed``: even 7-smooth N up to
+   16384; ``fused_psd_bluestein``: the chirp-Z kernel, any even N up to
+   8192; and their streams entries): against their plain versions and the
+   float64 golden at N = 500 (the man-page drive's step), 2400 (also Hann
+   and masked), 12000, 998 (also Hann and masked) and 8182, and the
+   streams entries at counts (F, 0, 5), each run twice for determinism;
+   their 60-seed tone yards (500, 2400 unwindowed, 6000 Hann; 998
+   unwindowed and Hann) against the scipy float32 class with the
+   per-seed p99; a call, the device's and the wrapper's host time at
+   500/F=32, 2400/4096, 998/4096 and 8182/1024 beside ``torch.fft.fft``
+   and the bound (k1_work's count, log2 N real); the man-page drive
+   (``-f 144.1M:146.1M -b 500 -n 100 -m``, its .bin against the golden of
+   the recorded stream), its two-stream form, and -b 998 tone drives
+   (one and two streams), each through its kernel alone.
+
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
@@ -432,12 +447,16 @@ def phase_k2(dev, rng, fp, adapt_batch, make_window):
     return max_abs
 
 
-def tone_yard(label, dev, fp, make_window, wname, sizes, seed0) -> None:
+def tone_yard(label, dev, fp, make_window, wname, sizes, seed0,
+              kernel=None, plain_fn=None) -> None:
     """A kernel's admission yard (ROADMAP North star): 60 seeds of 35 dB
-    tones at each (N, F) of ``sizes`` through ``fused_psd`` (windowed by
-    ``wname``, or not), against the scipy float32 FFT of the same input:
-    median <= 1.5x and max <= 3x its error, the per-seed p99 of the ratio
+    tones at each (N, F) of ``sizes`` through ``kernel`` (default
+    ``fused_psd``; its plain version ``plain_fn``; windowed by ``wname``,
+    or not), against the scipy float32 FFT of the same input: median <=
+    1.5x and max <= 3x its error, the per-seed p99 of the ratio
     printed."""
+    kernel = kernel or fp.fused_psd
+    plain_fn = plain_fn or fp.fused_psd_reference
     for N, F in sizes:
         w_np = None if wname is None else make_window(wname, N)
         w = None if w_np is None else torch.from_numpy(w_np).to(dev)
@@ -446,9 +465,9 @@ def tone_yard(label, dev, fp, make_window, wname, sizes, seed0) -> None:
             raw_np = tone_frames(N, F, seed0 + seed)
             gold = golden_partial(raw_np, F, w_np)
             raw = torch.from_numpy(raw_np).to(dev)
-            ours.append(max_rel(fp.fused_psd(raw, F, F, w).cpu().numpy(),
+            ours.append(max_rel(kernel(raw, F, F, w).cpu().numpy(),
                                 gold))
-            plain.append(max_rel(fp.fused_psd_reference(raw, F, F, w)
+            plain.append(max_rel(plain_fn(raw, F, F, w)
                                  .cpu().numpy(), gold))
             cls.append(max_rel(scipy_f32_class(raw_np, w_np), gold))
         e, c = np.asarray(ours), np.asarray(cls)
@@ -822,13 +841,18 @@ def reset_counts(fp, ff) -> None:
 
 def launch_counts(fp, ff) -> dict:
     """Every launch counter by the kernel (or plain version) it counts;
-    "L" is the large-N kernel, "probes" every probe variant together."""
+    "L" is the large-N kernel, "M" the mixed-radix kernel, "B" the chirp-Z
+    kernel, "probes" every probe variant together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     return {"K1": fp.COUNTS.kernel, "K2": fp.COUNTS.kernel_windowed,
             "K3": ff.COUNTS.kernel, "K4": fp.COUNTS.kernel_streams,
             "K4 windowed": fp.COUNTS.kernel_streams_windowed,
             "L": fp.COUNTS.kernel_large,
             "L windowed": fp.COUNTS.kernel_large_windowed,
+            "M": fp.COUNTS.kernel_mixed,
+            "M streams": fp.COUNTS.kernel_mixed_streams,
+            "B": fp.COUNTS.kernel_bluestein,
+            "B streams": fp.COUNTS.kernel_bluestein_streams,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "plain": fp.COUNTS.plain, "plain_fast": ff.COUNTS.plain,
@@ -854,7 +878,9 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1):
     log(err[-1200:])
     check(rc == 0, f"{label} drive exited {rc}")
     path = {"K3": "cuda_fast", "L": "cuda_large",
-            "L windowed": "cuda_large"}.get(kernel, "cuda")
+            "L windowed": "cuda_large", "M": "cuda_mixed",
+            "M streams": "cuda_mixed", "B": "cuda_bluestein",
+            "B streams": "cuda_bluestein"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -1693,6 +1719,244 @@ def drive_probes(fpp) -> dict:
     return launches
 
 
+# The reference's documented example session (doc/rtl_power_fftw.1.md
+# 182-201: 144.1-146.1 MHz, 500 bins, 100 spectra, matrix mode) on a
+# synthetic tone in the band, less its "-m <path>".
+MAN_PAGE_ARGV = ["-f", "144.1M:146.1M", "-b", "500", "-n", "100",
+                 "--source", "synthetic:tone=145.3M/35,noise=6,seed=1"]
+# The frames a step of the man-page drive takes (the session's
+# buf_length // 2N, 32768 // 1000).
+MAN_PAGE_F = 32
+
+
+def awkward_bound_ms(frames: int, N: int, windowed: bool,
+                     out_rows: int = 1):
+    """rate_bound_ms of a step at N bins that need not be a power of two:
+    k1_work's count with a real-valued log2 N (the frames and output's
+    bytes; 4 N log2 N - 6 N + 8 FP32 flops a frame for the transform, 2 N
+    to dequantize, 2 N for |X|^2 and the sum, 2 N for a window)."""
+    nbytes = frames * 2 * N + 4 * N * out_rows + (4 * N if windowed else 0)
+    fp32 = 4 * N * math.log2(N) - 2 * N + 8 + (2 * N if windowed else 0)
+    return rate_bound_ms(nbytes, 0.0, frames * fp32)
+
+
+def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
+                  card):
+    """13. The awkward-N kernels (``fused_psd_mixed``, ``fused_psd_bluestein``
+    and their streams entries): against their plain versions and the
+    float64 golden, twice each; their 60-seed tone yards against the
+    scipy float32 class; their times beside ``torch.fft.fft`` and the
+    bound; the man-page drive, its two-stream form and -b 998 drives
+    through the CLI, each on its kernel alone. Returns the kernels-line
+    entries."""
+    t0 = time.perf_counter()
+    kernels = {"M": (fm.fused_psd_mixed, fp.fused_psd_reference),
+               "B": (fb.fused_psd_bluestein, fb.bluestein_psd_reference)}
+    cases = [  # (kernel, label, N, frames_per_step, n_valid or None, window)
+        ("M", "N=500 man-page step", 500, MAN_PAGE_F, None, None),
+        ("M", "N=2400 F=4096", 2400, 4096, None, None),
+        ("M", "N=2400 F=4096 hann masked", 2400, 4096, 3000, "hann"),
+        ("M", "N=12000 F=64", 12000, 64, None, None),
+        ("B", "N=998 F=4096", 998, 4096, None, None),
+        ("B", "N=998 F=4096 hann masked", 998, 4096, 2500, "hann"),
+        ("B", "N=8182 F=1024", 8182, 1024, None, None),
+    ]
+    reset_counts(fp, ff)
+    max_abs = {}
+    for name, label, N, fps, n_valid, wname in cases:
+        kernel, plain = kernels[name]
+        F, chunk = adapt_batch(fps)
+        nv = F if n_valid is None else n_valid
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        got = kernel(raw, nv, chunk, w)
+        again = kernel(raw, nv, chunk, w)
+        want = plain(raw, nv, chunk, w)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name} {label}: not deterministic")
+        got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+        gold = golden_partial(raw_np, nv, w_np)
+        err_plain, err_gold = max_rel(got_np, want_np), max_rel(got_np, gold)
+        print(f"awkward {name} {label} (N={N} F={F} chunk={chunk} "
+              f"n_valid={nv}): max rel vs plain {err_plain:.3e}, vs float64 "
+              f"golden {err_gold:.3e} (plain vs golden "
+              f"{max_rel(want_np, gold):.3e})")
+        check(np.all(np.isfinite(got_np)) and got_np.shape == (N,),
+              f"{name} {label}: malformed output")
+        check(err_plain <= UNIFORM_RTOL, f"{name} {label}: {err_plain} vs "
+              "plain")
+        check(err_gold <= GOLDEN_RTOL, f"{name} {label}: {err_gold} vs golden")
+        if wname is None and fps >= 1024:
+            max_abs[(name, N)] = float(np.abs(got_np.astype(np.float64)
+                                              - want_np).max())
+    counts = launch_counts(fp, ff)
+    n_m = 2 * sum(c[0] == "M" for c in cases)
+    check(counts["M"] == n_m and counts["B"] == 2 * len(cases) - n_m
+          and counts["plain"] == 0, f"awkward launch counts: {counts}")
+    # The streams entries: counts (F, 0, 5), per stream against plain and
+    # the golden, the empty stream exactly 0.
+    streams = {"M": (fm.fused_psd_mixed_streams,
+                     fp.fused_psd_streams_reference),
+               "B": (fb.fused_psd_bluestein_streams,
+                     fb.bluestein_psd_streams_reference)}
+    for name, N, F, wname in (("M", 500, 256, None), ("M", 2400, 64, "hann"),
+                              ("B", 998, 128, None), ("B", 510, 64, "hann")):
+        kernel, plain = streams[name]
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (3, F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        nv_np = np.array([F, 0, 5], np.int32)
+        nv = torch.from_numpy(nv_np).to(dev)
+        got, again = kernel(raw, nv, 64, w), kernel(raw, nv, 64, w)
+        want = plain(raw, nv, 64, w).cpu().numpy()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name} streams N={N}: not "
+              "deterministic")
+        got = got.cpu().numpy()
+        errs = [max_rel(got[s], golden_partial(raw_np[s], int(nv_np[s]),
+                                               w_np))
+                for s in (0, 2)]
+        err_plain = max(max_rel(got[s], want[s]) for s in (0, 2))
+        print(f"awkward {name} streams S=3 N={N} F={F} window={wname} counts "
+              f"{list(nv_np)}: max rel vs plain {err_plain:.3e}, vs float64 "
+              f"golden {max(errs):.3e}; empty stream max {got[1].max()}")
+        check(err_plain <= UNIFORM_RTOL and max(errs) <= GOLDEN_RTOL
+              and not got[1].any(), f"{name} streams N={N}")
+    print(f"wall: awkward checks in {time.perf_counter() - t0:.1f} s")
+
+    # The admission yards: median <= 1.5x, max <= 3x the scipy float32
+    # class; a band whose yard fails is not routed.
+    tone_yard("mixed", dev, fp, make_window, None, ((500, 64), (2400, 64)),
+              9000, *kernels["M"])
+    tone_yard("mixed", dev, fp, make_window, "hann", ((6000, 32),), 9100,
+              *kernels["M"])
+    for wname, seed0 in ((None, 9200), ("hann", 9300)):
+        tone_yard("chirp-Z", dev, fp, make_window, wname, ((998, 64),), seed0,
+                  *kernels["B"])
+    print(f"wall: awkward yards in {time.perf_counter() - t0:.1f} s")
+
+    # Times: a call, the device's part, the wrapper's host part, the plain
+    # version and torch.fft.fft on the same frames (complex64 on the card).
+    times = {}
+    for name, N, fps in (("M", 500, MAN_PAGE_F), ("M", 2400, 4096),
+                         ("B", 998, 4096), ("B", 8182, 1024)):
+        kernel, plain = kernels[name]
+        F, chunk = adapt_batch(fps)
+        raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        z = torch.complex(raw[:, 0::2].float() - 127.0,
+                          raw[:, 1::2].float() - 127.0)
+        k_us = event_times_us(lambda: kernel(raw, F, chunk))
+        p_us = event_times_us(lambda: plain(raw, F, chunk))
+        lib_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
+        k_us2 = event_times_us(lambda: kernel(raw, F, chunk))
+        kd_us = device_times_us(lambda: kernel(raw, F, chunk))
+        libd_us = device_times_us(lambda: torch.fft.fft(z, dim=-1))
+        host = host_us(lambda: kernel(raw, F, chunk))
+        b_ms, b_by = awkward_bound_ms(F, N, False)
+        times[(name, N)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by, kd_us,
+                            libd_us, host)
+        print(f"time awkward {name} N={N} F={F} on {card}: kernel {k_us:.1f} "
+              f"us a call (repeat {k_us2:.1f}; {F * N / k_us / 1e3:.2f} "
+              f"GS/s), device {kd_us:.1f} us, host {host:.1f} us; plain "
+              f"{p_us:.1f} us a call; torch.fft.fft of the complex64 frames "
+              f"{lib_us:.1f} us a call (device {libd_us:.1f}); bound "
+              f"{1e3 * b_ms:.2f} us ({b_by}); device/bound "
+              f"{kd_us / (1e3 * b_ms):.1f}x")
+    print(f"wall: awkward times in {time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its kernel alone.
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["M"] = drive_man_page(cli, fp, ff, tmp, 1)
+        launches["M streams"] = drive_man_page(cli, fp, ff, tmp, 2)
+        for S, key in ((1, "B"), (2, "B streams")):
+            record = os.path.join(tmp, f"b998_{S}.iq")
+            N, repeats = 998, 2000
+            argv = ["-f", "100M", "-n", str(repeats), "-b", str(N), "-l",
+                    "--record", record, "--source", SOURCE]
+            if S > 1:
+                argv += ["--streams", str(S)]
+
+            def golden(record=record, S=S, N=N, repeats=repeats):
+                if S == 1:
+                    return recorded_golden(record, N, repeats, N)
+                return sum(recorded_golden(f"{record}.s{s}", N, repeats, N)
+                           for s in range(S)) / S
+
+            launches[key] = drive(f"-b 998 tone{' --streams 2' * (S > 1)}",
+                                  argv, cli, fp, ff, key, N, golden,
+                                  GOLDEN_RTOL, streams=S)
+    print(f"wall: awkward phase in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, source, replaces, key, times_key):
+        k_us, p_us, k_us2, lib_us, b_ms, b_by, kd_us, libd_us, host = \
+            times[times_key]
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": max_abs[times_key],
+                "ms": min(k_us, k_us2) / 1000.0, "plain_ms": p_us / 1000.0,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_us / 1000.0, "device_ms": kd_us / 1000.0,
+                "host_ms": host / 1000.0}
+
+    xla_ladder = "rtl_power_fftw_tpu/ops/spectral.py:388"
+    chirp_z = "rtl_power_fftw_tpu/ops/dft.py:1069"
+    return [entry("fused_psd_mixed", "fused_psd_mixed.cu", xla_ladder, "M",
+                  ("M", 2400)),
+            entry("fused_psd_mixed_streams", "fused_psd_mixed.cu", xla_ladder,
+                  "M streams", ("M", 2400)),
+            entry("fused_psd_bluestein", "fused_psd_bluestein.cu", chirp_z,
+                  "B", ("B", 998)),
+            entry("fused_psd_bluestein_streams", "fused_psd_bluestein.cu",
+                  chirp_z, "B streams", ("B", 998))]
+
+
+def drive_man_page(cli, fp, ff, tmp, streams: int) -> int:
+    """The man-page session (matrix mode) through the CLI on the
+    mixed-radix kernel (its streams entry over ``streams`` > 1): exit 0,
+    the kernel's path, a .met of one 500-bin scan, a .bin (dB) within 1e-5
+    of the float64 golden of the recorded stream(s) in linear power, its
+    peak at the tone, and launches of the kernel alone. Returns them."""
+    N, repeats = 500, 100
+    stem = os.path.join(tmp, f"man_page_{streams}")
+    record = stem + ".iq"
+    argv = MAN_PAGE_ARGV + ["-m", stem, "--record", record]
+    key = "M" if streams == 1 else "M streams"
+    if streams > 1:
+        argv += ["--streams", str(streams)]
+    reset_counts(fp, ff)
+    rc, _, err, wall = run_cli(argv, cli.main)
+    counts = launch_counts(fp, ff)
+    log(err[-800:])
+    check(rc == 0, f"man-page drive ({streams} streams) exited {rc}")
+    check("Transform path: cuda_mixed " in err,
+          "man-page drive off the mixed-radix kernel")
+    with open(stem + ".met") as f:
+        meta = [line.split("#")[0].strip() for line in f]
+    data = np.fromfile(stem + ".bin", dtype=np.float32)
+    check(int(meta[0]) == N and int(meta[1]) == 1 and data.size == N
+          and np.all(np.isfinite(data)),
+          f"man-page drive: .met {meta[:2]}, .bin {data.size} values")
+    records = ([record] if streams == 1
+               else [f"{record}.s{s}" for s in range(streams)])
+    gold = sum(recorded_golden(r, N, repeats, N) for r in records) / streams
+    err_gold = max_rel(10.0 ** (data.astype(np.float64) / 10.0), gold)
+    peak = 145.1e6 + (int(np.argmax(data)) - N // 2) * RATE / N
+    print(f"e2e man-page drive ({' '.join(argv[:-4])}"
+          f"{f' --streams {streams}' * (streams > 1)}): exit 0 in {wall:.2f} "
+          f"s wall; .met {meta[0]}x{meta[1]}; peak {peak / 1e6:.4f} MHz; max "
+          f"rel vs float64 golden {err_gold:.3e} (<= {GOLDEN_RTOL:g}, the "
+          f".bin's float32 dB); launches {counts}")
+    check(abs(peak - 145.3e6) <= RATE / N, f"man-page drive: peak at {peak}")
+    check(err_gold <= GOLDEN_RTOL, "man-page drive vs float64 golden")
+    check_only(counts, key, "man-page drive")
+    return counts[key]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -1703,7 +1967,9 @@ def main() -> int:
     from rtl_power_fftw_tpu_torch.ops.kernels import _build
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_fast as ff
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_bluestein as fb
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large as fl
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch
     from rtl_power_fftw_tpu_torch.parallel import ShardedPsdStep
@@ -1755,7 +2021,9 @@ def main() -> int:
             ("fused_psd_fast", "psd_fast_group_kernel", "11"),
             ("fused_psd_probe", "psd_group_kernel", ""),
             ("fused_psd_probe", "psd_regs_kernel", ""),
-            ("fused_psd_probe", "psd_fast_group_kernel", "11")):
+            ("fused_psd_probe", "psd_fast_group_kernel", "11"),
+            ("fused_psd_mixed", "psd_mixed_kernel", ""),
+            ("fused_psd_bluestein", "psd_mixed_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -1798,6 +2066,18 @@ def main() -> int:
                   f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM; "
                   f"k1_group's grid aims at "
                   f"{fp.resident_blocks(N, windowed, dev.index)} blocks")
+    for label, N, attrs in (
+            [("fused_psd_mixed", N, fm.kernel_attributes(N, w))
+             for N in (500, 2400, 6000, 12000, 16200) for w in (False, True)]
+            + [("fused_psd_bluestein", N, fb.kernel_attributes(N))
+               for N in (500, 998, 8182)]):
+        shape = (fm.launch_shape(fm.mixed_plan(N), N)
+                 if label == "fused_psd_mixed" else fb.bluestein_launch(N))
+        print(f"occupancy {label} N={N} plan {shape.plan} on {card}: "
+              f"{attrs['registers']} registers, {attrs['spill_bytes']} B "
+              f"spill, {attrs['static_smem']} + {attrs['dynamic_smem']} B "
+              f"shared, {attrs['threads']} threads ({shape.lanes} lanes of "
+              f"{shape.tf}), {attrs['blocks_per_sm']} blocks/SM")
 
     # 11.-12. The stage-attribution probes, then their entry points.
     probe_times = phase_probes(dev, np.random.default_rng(0), fpp, ff, fp,
@@ -1965,6 +2245,11 @@ def main() -> int:
             os.path.join(tmp, "config5_profiled.iq")), cli)
         lap("profiles")
 
+    # 13. The awkward-N kernels.
+    awkward = phase_awkward(dev, np.random.default_rng(20261017), fp, fm, fb,
+                            adapt_batch, make_window, cli, ff, card)
+    lap("awkward N")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -2013,7 +2298,7 @@ def main() -> int:
         entry("fused_psd_large (windowed)", "fused_psd_large.cu", "261",
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
-    ] + [probe_entry(name, tpu, key)
+    ] + awkward + [probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),
                                 ("fused_psd_probe P18 (s1_lanes: full)",

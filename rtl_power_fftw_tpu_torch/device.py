@@ -6,6 +6,7 @@ import torch
 
 from .exceptions import ReturnValue, RPFexception
 
+from .ops.kernels._build import KernelBuildError
 from .ops.kernels.fused_psd import KernelLaunchError
 
 
@@ -22,11 +23,11 @@ def require_cuda() -> torch.device:
 
 def device_runtime_errors() -> tuple:
     """Exceptions that mean the device failed at run time (out of memory,
-    a CUDA error, a refused kernel launch) — this package's analogue of
-    a librtlsdr hardware failure, which exits 7 in the reference
-    (exceptions.h:25-34)."""
+    a CUDA error, a refused kernel launch, a kernel that does not build)
+    — this package's analogue of a librtlsdr hardware failure, which
+    exits 7 in the reference (exceptions.h:25-34)."""
     errors = [torch.cuda.OutOfMemoryError, torch.cuda.CudaError,
-              KernelLaunchError]
+              KernelLaunchError, KernelBuildError]
     accelerator_error = getattr(torch, "AcceleratorError", None)
     if accelerator_error is not None:
         errors.append(accelerator_error)

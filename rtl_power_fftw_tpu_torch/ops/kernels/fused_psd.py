@@ -78,12 +78,15 @@ class KernelLaunchError(RuntimeError):
 
 
 class LaunchCounts:
-    """Calls served by the CUDA kernels of this module and of
-    :mod:`.fused_psd_large`, and by their plain versions; ``kernel_windowed``
-    counts the kernel's windowed launches (K2) apart from its unwindowed
-    ones (``kernel``, K1), ``kernel_streams`` / ``kernel_streams_windowed``
-    the streams launches (K4) likewise, and ``kernel_large`` /
-    ``kernel_large_windowed`` the large-N kernel's.
+    """Calls served by the CUDA kernels of this module, of
+    :mod:`.fused_psd_large`, :mod:`.fused_psd_mixed` and
+    :mod:`.fused_psd_bluestein`, and by their plain versions;
+    ``kernel_windowed`` counts the kernel's windowed launches (K2) apart
+    from its unwindowed ones (``kernel``, K1), ``kernel_streams`` /
+    ``kernel_streams_windowed`` the streams launches (K4) likewise,
+    ``kernel_large`` / ``kernel_large_windowed`` the large-N kernel's, and
+    ``kernel_mixed`` / ``kernel_mixed_streams`` and ``kernel_bluestein`` /
+    ``kernel_bluestein_streams`` the awkward-N kernels' (windowed or not).
 
     Incremented by the wrappers only; a session's single consumer thread
     is their only caller while a session runs."""
@@ -98,6 +101,10 @@ class LaunchCounts:
         self.kernel_streams_windowed = 0
         self.kernel_large = 0
         self.kernel_large_windowed = 0
+        self.kernel_mixed = 0
+        self.kernel_mixed_streams = 0
+        self.kernel_bluestein = 0
+        self.kernel_bluestein_streams = 0
         self.plain = 0
 
 
@@ -264,19 +271,21 @@ def check_args(kernel: str, eligible, raw_u8: torch.Tensor, n_valid: int,
 
 
 def check_streams_args(raw_u8: torch.Tensor, n_valid: torch.Tensor,
-                       chunk: int, window: Optional[torch.Tensor]) -> None:
-    """Raise on arguments :func:`fused_psd_streams` does not take: frames
-    that are not a contiguous (S, F, 2N) uint8 tensor (each stream's
-    (F, 2N) block as :func:`check_args` takes it), or counts that are not
-    an (S,) contiguous int32 tensor on the frames' device."""
+                       chunk: int, window: Optional[torch.Tensor],
+                       kernel: str = "fused_psd_streams",
+                       eligible=fused_psd_eligible) -> None:
+    """Raise on arguments ``kernel`` (default :func:`fused_psd_streams`)
+    does not take: frames that are not a contiguous (S, F, 2N) uint8
+    tensor (each stream's (F, 2N) block as :func:`check_args` takes it,
+    with ``eligible(N)``), or counts that are not an (S,) contiguous int32
+    tensor on the frames' device."""
     if not isinstance(raw_u8, torch.Tensor) or raw_u8.dim() != 3:
         raise ValueError("raw frames must be an (S, F, 2N) tensor")
     S = raw_u8.shape[0]
     if S < 1 or not raw_u8.is_contiguous():
         raise ValueError(f"raw frames must be a contiguous (S, F, 2N) "
                          f"tensor with S >= 1, got {tuple(raw_u8.shape)}")
-    check_args("fused_psd_streams", fused_psd_eligible, raw_u8[0], 0, chunk,
-               window)
+    check_args(kernel, eligible, raw_u8[0], 0, chunk, window)
     if (not isinstance(n_valid, torch.Tensor)
             or n_valid.dtype != torch.int32 or n_valid.shape != (S,)
             or not n_valid.is_contiguous()):

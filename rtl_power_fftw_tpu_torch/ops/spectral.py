@@ -18,9 +18,14 @@ import torch
 
 from ..exceptions import ReturnValue, RPFexception
 from .kernels.fused_psd import MIN_N, fused_psd, fused_psd_eligible
+from .kernels.fused_psd_bluestein import MAX_N as BLUESTEIN_MAX_N
+from .kernels.fused_psd_bluestein import (fused_psd_bluestein,
+                                          fused_psd_bluestein_eligible)
 from .kernels.fused_psd_fast import fused_psd_fast, fused_psd_fast_eligible
 from .kernels.fused_psd_large import (MAX_N, fused_psd_large,
                                       fused_psd_large_eligible)
+from .kernels.fused_psd_mixed import MAX_N as MIXED_MAX_N
+from .kernels.fused_psd_mixed import fused_psd_mixed, fused_psd_mixed_eligible
 
 # Frames are reduced in chunks of this size before the cross-chunk sum;
 # two-stage summation keeps f32 rounding error at ~(CHUNK + F/CHUNK)·ε.
@@ -51,42 +56,92 @@ def pad_frames(batch: np.ndarray, F: int) -> np.ndarray:
         [batch, np.zeros((F - n, batch.shape[1]), np.uint8)])
 
 
+#: The kernels a step may run, by :func:`transform_route`: K1/K2
+#: (``fused_psd``), K3 (``fused_psd_fast``), the large-N kernel, the
+#: mixed-radix kernel and the chirp-Z kernel; each route's path names the
+#: kernel on the card ("cuda" + suffix) or its plain version on the CPU
+#: ("plain" + suffix).
+ROUTES = {"regs": (fused_psd, ""), "fast": (fused_psd_fast, "_fast"),
+          "large": (fused_psd_large, "_large"),
+          "mixed": (fused_psd_mixed, "_mixed"),
+          "bluestein": (fused_psd_bluestein, "_bluestein")}
+
+
+def _unported(what: str) -> RPFexception:
+    return RPFexception(f"Not yet ported to the PyTorch/CUDA package: {what}."
+                        " Exiting.", ReturnValue.InvalidArgument)
+
+
+def transform_route(N: int, backend: str = "auto", fast: bool = False
+                    ) -> str:
+    """The kernel a step of ``N`` bins runs with ``--fft-backend
+    backend`` (at ``--precision high`` when ``fast``): "regs" (K1/K2,
+    powers of two 64..16384), "fast" (K3, powers of two 256..16384 at
+    relaxed precision), "large" (powers of two 32768..2^22), "mixed" (the
+    mixed-radix kernel: every other even 7-smooth N up to 16384, 2..32
+    among them) or "bluestein" (the chirp-Z kernel: every other even N up
+    to 8192, and any even N up to 8192 under ``--fft-backend
+    bluestein``). ``auto`` and ``pallas`` route alike, but for
+    ``--precision high``: above the tensor-core step's sizes it runs the
+    large-N kernel at full precision under ``auto`` (as the JAX package's
+    own ladder does there), not under ``pallas``; at the N only the
+    mixed-radix and chirp-Z kernels take, it runs them at full precision.
+    Raises RPFexception(InvalidArgument), "Not yet ported", for every
+    other case. PsdStep, ShardedPsdStep and check_step_ported read this
+    one function."""
+    if backend == "bluestein":
+        if fused_psd_bluestein_eligible(N):
+            return "bluestein"
+        raise _unported(f"--fft-backend bluestein at {N} bins (the chirp-Z "
+                        f"step takes even N up to {BLUESTEIN_MAX_N})")
+    if backend not in ("auto", "pallas"):
+        raise _unported(f"--fft-backend {backend}")
+    if fused_psd_eligible(N) or fused_psd_large_eligible(N):
+        route = "regs" if fused_psd_eligible(N) else "large"
+        if not fast:
+            return route
+        if fused_psd_fast_eligible(N):
+            return "fast"
+        if route == "large" and backend == "auto":
+            return route
+        raise _unported(f"--precision high at {N} bins with --fft-backend "
+                        f"{backend} (the tensor-core step takes powers of "
+                        "two from 256 to 16384)")
+    if fused_psd_mixed_eligible(N):
+        return "mixed"
+    if fused_psd_bluestein_eligible(N):
+        return "bluestein"
+    raise _unported(f"{N} bins (the CUDA steps take powers of two from "
+                    f"{MIN_N} to {MAX_N}, even 7-smooth N up to "
+                    f"{MIXED_MAX_N} and other even N up to "
+                    f"{BLUESTEIN_MAX_N})")
+
+
 def check_step_ported(N: int, backend: str, fast: bool = False) -> None:
     """Raise RPFexception(InvalidArgument) unless a CUDA step of this
     package takes ``N`` bins with ``backend`` (at relaxed precision when
-    ``fast``). Above the tensor-core step's sizes ``--precision high`` runs
-    the large-N kernel at full precision, as the JAX package's own ladder
-    does there, but not under an explicit ``--fft-backend pallas``."""
-    unported = None
-    if backend not in ("auto", "pallas"):
-        unported = f"--fft-backend {backend}"
-    elif fast and not fused_psd_fast_eligible(N) and not (
-            backend == "auto" and fused_psd_large_eligible(N)):
-        unported = (f"--precision high at {N} bins with --fft-backend "
-                    f"{backend} (the tensor-core step takes powers of two "
-                    "from 256 to 16384)")
-    elif not (fused_psd_eligible(N) or fused_psd_large_eligible(N)):
-        unported = (f"{N} bins (the CUDA steps take powers of two "
-                    f"from {MIN_N} to {MAX_N})")
-    if unported is not None:
-        raise RPFexception(
-            f"Not yet ported to the PyTorch/CUDA package: {unported}. "
-            "Exiting.", ReturnValue.InvalidArgument)
+    ``fast``): :func:`transform_route`'s refusal."""
+    transform_route(N, backend, fast)
 
 
 class PsdStep:
     """A device step: (F, 2N) u8 frames -> (N,) f32 partial power sum.
 
     ``n_valid`` masks out padding rows so the step shape never changes.
-    On a CUDA device the step is a hand-written kernel: up to 16384 bins,
-    at the default precision ``kernels/csrc/fused_psd.cu`` (K1, or K2 with
-    a window) and at ``precision="high"`` the tensor-core kernel
+    On a CUDA device the step is a hand-written kernel, by
+    :func:`transform_route`: up to 16384 bins, at the default precision
+    ``kernels/csrc/fused_psd.cu`` (K1, or K2 with a window) and at
+    ``precision="high"`` the tensor-core kernel
     ``kernels/csrc/fused_psd_fast.cu`` (K3), windowed or not; from 32768
     to 2^22 bins the two-pass four-step ``kernels/csrc/fused_psd_large.cu``
-    at full precision, windowed or not. On the CPU it is the kernel's plain
-    PyTorch version. The result is a tensor on ``device``; on CUDA it is
-    computed asynchronously on the current stream. The window is copied to
-    the device once, here.
+    at full precision, windowed or not; at the other even 7-smooth N up
+    to 16384 the mixed-radix ``kernels/csrc/fused_psd_mixed.cu`` and at
+    every other even N up to 8192 the chirp-Z
+    ``kernels/csrc/fused_psd_bluestein.cu``, each at full precision,
+    windowed or not. On the CPU it is the kernel's plain PyTorch version.
+    The result is a tensor on ``device``; on CUDA it is computed
+    asynchronously on the current stream. The window is copied to the
+    device once, here.
     """
 
     def __init__(self, N: int, frames_per_step: int, device,
@@ -98,7 +153,7 @@ class PsdStep:
         if precision not in ("highest", "high"):
             raise ValueError("precision must be 'highest' or 'high'")
         fast = precision == "high"
-        check_step_ported(N, backend, fast)
+        route = transform_route(N, backend, fast)
         self.N = N
         self.F, self._chunk = adapt_batch(frames_per_step)
         self.device = torch.device(device)
@@ -110,23 +165,20 @@ class PsdStep:
                 raise ValueError(f"window must have shape ({N},), got "
                                  f"{w.shape}")
             self.window = torch.from_numpy(w.copy()).to(self.device)
-        on_card = "cuda" if self.device.type == "cuda" else "plain"
-        #: "cuda", "cuda_fast" or "cuda_large" (the hand-written kernel at
-        #: default or relaxed precision, or the large-N one), "plain",
-        #: "plain_fast" or "plain_large" (its PyTorch version, on the CPU).
-        if fused_psd_large_eligible(N):
-            if fast:
-                # The JAX package's CPU ladder says the same of its FFT
-                # four-step rung above 16384 (ops/spectral.py there).
-                print("Note: --precision high is a no-op on the FFT "
-                      f"four-step path selected here (backend={backend}, "
-                      f"N={N}): its FFT stages have no matmul precision "
-                      "knob.", file=sys.stderr)
-            self._kernel = fused_psd_large
-            self.path = on_card + "_large"
-        else:
-            self._kernel = fused_psd_fast if fast else fused_psd
-            self.path = on_card + ("_fast" if fast else "")
+        if fast and route != "fast":
+            # The JAX package's CPU ladder says the same of its FFT
+            # four-step rung above 16384 (ops/spectral.py there).
+            kind = {"large": "FFT four-step", "mixed": "mixed-radix FFT",
+                    "bluestein": "chirp-Z FFT"}[route]
+            print(f"Note: --precision high is a no-op on the {kind} path "
+                  f"selected here (backend={backend}, N={N}): its FFT "
+                  "stages have no matmul precision knob.", file=sys.stderr)
+        #: "cuda", "cuda_fast", "cuda_large", "cuda_mixed" or
+        #: "cuda_bluestein" (the hand-written kernel of the route), or
+        #: "plain" + the same suffix (its PyTorch version, on the CPU).
+        self._kernel, suffix = ROUTES[route]
+        self.path = ("cuda" if self.device.type == "cuda" else "plain") + \
+            suffix
         self.takes_u16 = False
 
     def __call__(self, raw, n_valid: int) -> torch.Tensor:

@@ -6,8 +6,12 @@ Port of ``rtl_power_fftw_tpu/parallel/sharded.py:ShardedPsdStep``
 The JAX step ran the fused Pallas kernel's streams variant on each mesh
 shard and summed the shards' per-stream partials with one ``psum``. Here
 the device list is one device (``mesh.make_mesh``), the per-stream step is
-the CUDA kernel K4 (``fused_psd_streams``; its plain PyTorch version on
-the CPU), and the cross-stream sum is a float32 sum of the (S, N) rows on
+a CUDA kernel's streams entry by ``ops.spectral.transform_route``: K4
+(``fused_psd_streams``) for powers of two up to 16384, the mixed-radix
+kernel's (``fused_psd_mixed_streams``) at the other even 7-smooth N up to
+16384 and the chirp-Z kernel's (``fused_psd_bluestein_streams``) at every
+other even N up to 8192 (their plain PyTorch versions on the CPU), and
+the cross-stream sum is a float32 sum of the (S, N) rows on
 that device, as the JAX step's psum of float32 shard sums. The TPU's
 transform-rung ladder, its compile fallback and its u16 host view have no
 counterpart: the kernel takes the u8 frames as they are.
@@ -22,9 +26,15 @@ import torch
 
 from ..exceptions import ReturnValue, RPFexception
 
-from ..ops.kernels.fused_psd import (MAX_N, MIN_N, fused_psd_eligible,
-                                     fused_psd_streams)
-from ..ops.spectral import adapt_batch, check_step_ported
+from ..ops.kernels.fused_psd import MAX_N, fused_psd_streams
+from ..ops.kernels.fused_psd_bluestein import fused_psd_bluestein_streams
+from ..ops.kernels.fused_psd_mixed import fused_psd_mixed_streams
+from ..ops.spectral import adapt_batch, transform_route
+
+#: The streams entry of each route that has one, and its path's suffix.
+STREAMS_ROUTES = {"regs": (fused_psd_streams, ""),
+                  "mixed": (fused_psd_mixed_streams, "_mixed"),
+                  "bluestein": (fused_psd_bluestein_streams, "_bluestein")}
 
 
 class ShardedPsdStep:
@@ -48,13 +58,13 @@ class ShardedPsdStep:
                 "Not yet ported to the PyTorch/CUDA package: streams split "
                 f"over {len(devices)} devices. Exiting.",
                 ReturnValue.InvalidArgument)
-        check_step_ported(N, backend)
-        if not fused_psd_eligible(N):
+        route = transform_route(N, backend)
+        if route not in STREAMS_ROUTES:
             raise RPFexception(
                 "Not yet ported to the PyTorch/CUDA package: --streams at "
-                f"{N} bins (the streams kernel takes powers of two from "
-                f"{MIN_N} to {MAX_N}). Exiting.",
-                ReturnValue.InvalidArgument)
+                f"{N} bins (the streams kernels take N up to {MAX_N}). "
+                "Exiting.", ReturnValue.InvalidArgument)
+        self._kernel, suffix = STREAMS_ROUTES[route]
         self.devices = list(devices)
         self.device = torch.device(devices[0])
         self.N = N
@@ -64,8 +74,11 @@ class ShardedPsdStep:
         if window is not None:
             self.window = torch.from_numpy(
                 np.asarray(window, dtype=np.float32).copy()).to(self.device)
-        #: "cuda" (K4) on a card, "plain" (its PyTorch version) on the CPU.
-        self.path = "cuda" if self.device.type == "cuda" else "plain"
+        #: "cuda", "cuda_mixed" or "cuda_bluestein" (K4 or the awkward-N
+        #: kernels' streams entries) on a card, "plain" + the same suffix
+        #: (their PyTorch versions) on the CPU.
+        self.path = ("cuda" if self.device.type == "cuda" else "plain") + \
+            suffix
 
     def __call__(self, raw, n_valid) -> Tuple[torch.Tensor, torch.Tensor]:
         """raw: (S, F, 2N) u8 and n_valid: (S,) counts in [0, F], each a
@@ -86,7 +99,7 @@ class ShardedPsdStep:
                 raise ValueError(f"n_valid must be ({self.S},) counts in "
                                  f"[0, {self.F}], got {counts}")
             n_valid = torch.from_numpy(counts.astype(np.int32))
-        per_stream = fused_psd_streams(raw.to(self.device),
-                                       n_valid.to(self.device), self._chunk,
-                                       self.window)
+        per_stream = self._kernel(raw.to(self.device),
+                                  n_valid.to(self.device), self._chunk,
+                                  self.window)
         return per_stream, per_stream.sum(dim=0)

@@ -10,6 +10,7 @@ import torch
 
 import rtl_power_fftw_tpu_torch.interrupts as interrupts
 from rtl_power_fftw_tpu_torch import cli
+from rtl_power_fftw_tpu_torch.ops.kernels._build import KernelBuildError
 from rtl_power_fftw_tpu_torch.ops.kernels.fused_psd import KernelLaunchError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,9 +70,9 @@ def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
 
 
 def test_ineligible_bins_exit_3(capsys):
-    assert cli.main(["-f", "100M", "-n", "4", "-b", "500", "--source",
+    assert cli.main(["-f", "100M", "-n", "4", "-b", "8194", "--source",
                      "synthetic:"], device=CPU) == 3
-    assert "500 bins" in capsys.readouterr().err
+    assert "8194 bins" in capsys.readouterr().err
 
 
 def test_parse_error_exits_4(capsys):
@@ -87,6 +88,7 @@ def test_cpu_session_exits_0(capsys):
 @pytest.mark.parametrize("error,code", [
     (torch.cuda.OutOfMemoryError("CUDA out of memory"), 7),
     (KernelLaunchError("fused_psd launch failed"), 7),
+    (KernelBuildError("nvcc failed on fused_psd_mixed.cu"), 7),
 ])
 def test_device_runtime_errors_exit_7(monkeypatch, capsys, error, code):
     def fail(*args, **kwargs):
