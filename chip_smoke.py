@@ -154,12 +154,16 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    8192; and their streams entries): against their plain versions and the
    float64 golden at N = 500 (the man-page drive's step), 2400 (also Hann
    and masked), 12000, 998 (also Hann and masked) and 8182, and the
-   streams entries at counts (F, 0, 5), each run twice for determinism;
+   streams entries at counts (F, 0, 5), each run twice for determinism,
+   and a sweep of every even 7-smooth N to 16384 and a spread of even N
+   to 8192 through the chirp-Z kernel (8 frames each);
    their 60-seed tone yards (500, 2400 unwindowed, 6000 Hann; 998
    unwindowed and Hann) against the scipy float32 class with the
    per-seed p99; a call, the device's and the wrapper's host time at
-   500/F=32, 2400/4096, 998/4096 and 8182/1024 beside ``torch.fft.fft``
-   and the bound (k1_work's count, log2 N real); the man-page drive
+   500 (F = 32, and the man-page drive's step, 120), 2400/4096, 998/4096,
+   8182/1024 and the streams entries at 2 x 2048 frames of 2400 and 998,
+   beside ``torch.fft.fft`` and the bound (k1_work's count, log2 N
+   real); the man-page drive
    (``-f 144.1M:146.1M -b 500 -n 100 -m``, its .bin against the golden of
    the recorded stream), its two-stream form, and -b 998 tone drives
    (one and two streams), each through its kernel alone.
@@ -1724,9 +1728,17 @@ def drive_probes(fpp) -> dict:
 # synthetic tone in the band, less its "-m <path>".
 MAN_PAGE_ARGV = ["-f", "144.1M:146.1M", "-b", "500", "-n", "100",
                  "--source", "synthetic:tone=145.3M/35,noise=6,seed=1"]
-# The frames a step of the man-page drive takes (the session's
-# buf_length // 2N, 32768 // 1000).
-MAN_PAGE_F = 32
+
+
+def man_page_frames_per_step() -> int:
+    """The frames a step of the man-page drive takes: its planned buffer
+    (the smallest multiple of BASE_BUF that holds 100 frames) // 2N, as
+    the session's Datastore sizes it (114 frames, a step of 120)."""
+    from rtl_power_fftw_tpu_torch.config import parse_args
+    from rtl_power_fftw_tpu_torch.planning import Plan
+    params = parse_args(MAN_PAGE_ARGV, stderr=io.StringIO())
+    Plan(params, RATE)
+    return max(1, min(params.buf_length // (2 * params.N), 4096))
 
 
 def awkward_bound_ms(frames: int, N: int, windowed: bool,
@@ -1750,10 +1762,15 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     through the CLI, each on its kernel alone. Returns the kernels-line
     entries."""
     t0 = time.perf_counter()
+    man_page_fps = man_page_frames_per_step()
     kernels = {"M": (fm.fused_psd_mixed, fp.fused_psd_reference),
-               "B": (fb.fused_psd_bluestein, fb.bluestein_psd_reference)}
+               "B": (fb.fused_psd_bluestein, fb.bluestein_psd_reference),
+               "Ms": (fm.fused_psd_mixed_streams,
+                      fp.fused_psd_streams_reference),
+               "Bs": (fb.fused_psd_bluestein_streams,
+                      fb.bluestein_psd_streams_reference)}
     cases = [  # (kernel, label, N, frames_per_step, n_valid or None, window)
-        ("M", "N=500 man-page step", 500, MAN_PAGE_F, None, None),
+        ("M", "N=500 man-page step", 500, man_page_fps, 100, None),
         ("M", "N=2400 F=4096", 2400, 4096, None, None),
         ("M", "N=2400 F=4096 hann masked", 2400, 4096, 3000, "hann"),
         ("M", "N=12000 F=64", 12000, 64, None, None),
@@ -1762,7 +1779,6 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
         ("B", "N=8182 F=1024", 8182, 1024, None, None),
     ]
     reset_counts(fp, ff)
-    max_abs = {}
     for name, label, N, fps, n_valid, wname in cases:
         kernel, plain = kernels[name]
         F, chunk = adapt_batch(fps)
@@ -1788,22 +1804,16 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
         check(err_plain <= UNIFORM_RTOL, f"{name} {label}: {err_plain} vs "
               "plain")
         check(err_gold <= GOLDEN_RTOL, f"{name} {label}: {err_gold} vs golden")
-        if wname is None and fps >= 1024:
-            max_abs[(name, N)] = float(np.abs(got_np.astype(np.float64)
-                                              - want_np).max())
     counts = launch_counts(fp, ff)
-    n_m = 2 * sum(c[0] == "M" for c in cases)
+    n_m = 2 * sum(case[0] == "M" for case in cases)
     check(counts["M"] == n_m and counts["B"] == 2 * len(cases) - n_m
           and counts["plain"] == 0, f"awkward launch counts: {counts}")
     # The streams entries: counts (F, 0, 5), per stream against plain and
     # the golden, the empty stream exactly 0.
-    streams = {"M": (fm.fused_psd_mixed_streams,
-                     fp.fused_psd_streams_reference),
-               "B": (fb.fused_psd_bluestein_streams,
-                     fb.bluestein_psd_streams_reference)}
-    for name, N, F, wname in (("M", 500, 256, None), ("M", 2400, 64, "hann"),
-                              ("B", 998, 128, None), ("B", 510, 64, "hann")):
-        kernel, plain = streams[name]
+    for name, N, F, wname in (("Ms", 500, 256, None),
+                              ("Ms", 2400, 64, "hann"),
+                              ("Bs", 998, 128, None), ("Bs", 510, 64, "hann")):
+        kernel, plain = kernels[name]
         w_np = None if wname is None else make_window(wname, N)
         w = None if w_np is None else torch.from_numpy(w_np).to(dev)
         raw_np = rng.integers(0, 256, (3, F, 2 * N), dtype=np.uint8)
@@ -1813,18 +1823,40 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
         got, again = kernel(raw, nv, 64, w), kernel(raw, nv, 64, w)
         want = plain(raw, nv, 64, w).cpu().numpy()
         torch.cuda.synchronize()
-        check(torch.equal(got, again), f"{name} streams N={N}: not "
-              "deterministic")
+        check(torch.equal(got, again), f"{name} N={N}: not deterministic")
         got = got.cpu().numpy()
         errs = [max_rel(got[s], golden_partial(raw_np[s], int(nv_np[s]),
                                                w_np))
                 for s in (0, 2)]
         err_plain = max(max_rel(got[s], want[s]) for s in (0, 2))
-        print(f"awkward {name} streams S=3 N={N} F={F} window={wname} counts "
-              f"{list(nv_np)}: max rel vs plain {err_plain:.3e}, vs float64 "
+        print(f"awkward {name} S=3 N={N} F={F} window={wname} counts "
+              f"{nv_np.tolist()}: max rel vs plain {err_plain:.3e}, vs float64 "
               f"golden {max(errs):.3e}; empty stream max {got[1].max()}")
         check(err_plain <= UNIFORM_RTOL and max(errs) <= GOLDEN_RTOL
-              and not got[1].any(), f"{name} streams N={N}")
+              and not got[1].any(), f"{name} N={N}")
+    # Every plan the mixed-radix kernel takes (each even 7-smooth N up
+    # to 16384) and a spread of the chirp-Z kernel's (every even N to 256,
+    # every 62nd to 8192, the top two), 8 random frames each, every third
+    # with Hann, against the float64 golden.
+    sweep = ([("M", N) for N in range(2, fm.MAX_N + 1, 2)
+              if fm.fused_psd_mixed_eligible(N)]
+             + [("B", N) for N in [*range(2, 258, 2), *range(258, 8190, 62),
+                                   8190, 8192]])
+    worst = (0.0, None)
+    for i, (name, N) in enumerate(sweep):
+        w = (torch.from_numpy(make_window("hann", N)).to(dev)
+             if i % 3 == 2 else None)
+        raw = torch.from_numpy(rng.integers(0, 256, (8, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        err = max_rel(kernels[name][0](raw, 8, 8, w).cpu().numpy(),
+                      golden_partial_dev(raw, w))
+        if err >= worst[0]:
+            worst = (err, (name, N, "hann" if w is not None else None))
+    print(f"awkward sweep of {len(sweep)} plans ("
+          f"{sum(n == 'M' for n, _ in sweep)} mixed-radix, "
+          f"{sum(n == 'B' for n, _ in sweep)} chirp-Z), 8 frames each: "
+          f"worst max rel vs float64 golden {worst[0]:.3e} at {worst[1]}")
+    check(worst[0] <= GOLDEN_RTOL, f"awkward sweep: {worst}")
     print(f"wall: awkward checks in {time.perf_counter() - t0:.1f} s")
 
     # The admission yards: median <= 1.5x, max <= 3x the scipy float32
@@ -1839,33 +1871,45 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     print(f"wall: awkward yards in {time.perf_counter() - t0:.1f} s")
 
     # Times: a call, the device's part, the wrapper's host part, the plain
-    # version and torch.fft.fft on the same frames (complex64 on the card).
+    # version and torch.fft.fft on the same frames (complex64 on the
+    # card); each entry's max abs error against its plain version there.
+    # 500 at F = 32 is the shape PERF.md's prediction named for the
+    # man-page step; the drive's own step is man_page_fps.
     times = {}
-    for name, N, fps in (("M", 500, MAN_PAGE_F), ("M", 2400, 4096),
-                         ("B", 998, 4096), ("B", 8182, 1024)):
+    for name, N, fps, S in (("M", 500, 32, 1), ("M", 500, man_page_fps, 1),
+                            ("M", 2400, 4096, 1), ("B", 998, 4096, 1),
+                            ("B", 8182, 1024, 1), ("Ms", 2400, 2048, 2),
+                            ("Bs", 998, 2048, 2)):
         kernel, plain = kernels[name]
         F, chunk = adapt_batch(fps)
-        raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+        shape = (S, F, 2 * N) if S > 1 else (F, 2 * N)
+        raw = torch.from_numpy(rng.integers(0, 256, shape,
                                             dtype=np.uint8)).to(dev)
-        z = torch.complex(raw[:, 0::2].float() - 127.0,
-                          raw[:, 1::2].float() - 127.0)
-        k_us = event_times_us(lambda: kernel(raw, F, chunk))
-        p_us = event_times_us(lambda: plain(raw, F, chunk))
+        nv = (torch.full((S,), F, dtype=torch.int32, device=dev) if S > 1
+              else F)
+        flat = raw.reshape(S * F, 2 * N)
+        z = torch.complex(flat[:, 0::2].float() - 127.0,
+                          flat[:, 1::2].float() - 127.0)
+        got = kernel(raw, nv, chunk).double()
+        max_abs = float((got - plain(raw, nv, chunk).double()).abs().max())
+        k_us = event_times_us(lambda: kernel(raw, nv, chunk))
+        p_us = event_times_us(lambda: plain(raw, nv, chunk))
         lib_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
-        k_us2 = event_times_us(lambda: kernel(raw, F, chunk))
-        kd_us = device_times_us(lambda: kernel(raw, F, chunk))
+        k_us2 = event_times_us(lambda: kernel(raw, nv, chunk))
+        kd_us = device_times_us(lambda: kernel(raw, nv, chunk))
         libd_us = device_times_us(lambda: torch.fft.fft(z, dim=-1))
-        host = host_us(lambda: kernel(raw, F, chunk))
-        b_ms, b_by = awkward_bound_ms(F, N, False)
-        times[(name, N)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by, kd_us,
-                            libd_us, host)
-        print(f"time awkward {name} N={N} F={F} on {card}: kernel {k_us:.1f} "
-              f"us a call (repeat {k_us2:.1f}; {F * N / k_us / 1e3:.2f} "
-              f"GS/s), device {kd_us:.1f} us, host {host:.1f} us; plain "
-              f"{p_us:.1f} us a call; torch.fft.fft of the complex64 frames "
-              f"{lib_us:.1f} us a call (device {libd_us:.1f}); bound "
-              f"{1e3 * b_ms:.2f} us ({b_by}); device/bound "
-              f"{kd_us / (1e3 * b_ms):.1f}x")
+        host = host_us(lambda: kernel(raw, nv, chunk))
+        b_ms, b_by = awkward_bound_ms(S * F, N, False, S)
+        times[(name, N, F)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by, kd_us,
+                               libd_us, host, max_abs)
+        print(f"time awkward {name} N={N} F={F}{f' S={S}' * (S > 1)} on "
+              f"{card}: kernel {k_us:.1f} us a call (repeat {k_us2:.1f}; "
+              f"{S * F * N / k_us / 1e3:.2f} GS/s), device {kd_us:.1f} us, "
+              f"host {host:.1f} us; plain {p_us:.1f} us a call; "
+              f"torch.fft.fft of the complex64 frames {lib_us:.1f} us a call "
+              f"(device {libd_us:.1f}); bound {1e3 * b_ms:.2f} us ({b_by}); "
+              f"device/bound {kd_us / (1e3 * b_ms):.1f}x; max abs vs plain "
+              f"{max_abs:.4g}")
     print(f"wall: awkward times in {time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its kernel alone.
@@ -1893,11 +1937,11 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     print(f"wall: awkward phase in {time.perf_counter() - t0:.1f} s")
 
     def entry(name, source, replaces, key, times_key):
-        k_us, p_us, k_us2, lib_us, b_ms, b_by, kd_us, libd_us, host = \
-            times[times_key]
+        (k_us, p_us, k_us2, lib_us, b_ms, b_by, kd_us, libd_us, host,
+         max_abs) = times[times_key]
         return {"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": replaces, "launches": launches[key],
-                "max_abs_err": max_abs[times_key],
+                "max_abs_err": max_abs,
                 "ms": min(k_us, k_us2) / 1000.0, "plain_ms": p_us / 1000.0,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib_us / 1000.0, "device_ms": kd_us / 1000.0,
@@ -1906,13 +1950,13 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     xla_ladder = "rtl_power_fftw_tpu/ops/spectral.py:388"
     chirp_z = "rtl_power_fftw_tpu/ops/dft.py:1069"
     return [entry("fused_psd_mixed", "fused_psd_mixed.cu", xla_ladder, "M",
-                  ("M", 2400)),
+                  ("M", 2400, 4096)),
             entry("fused_psd_mixed_streams", "fused_psd_mixed.cu", xla_ladder,
-                  "M streams", ("M", 2400)),
+                  "M streams", ("Ms", 2400, 2048)),
             entry("fused_psd_bluestein", "fused_psd_bluestein.cu", chirp_z,
-                  "B", ("B", 998)),
+                  "B", ("B", 998, 4096)),
             entry("fused_psd_bluestein_streams", "fused_psd_bluestein.cu",
-                  chirp_z, "B streams", ("B", 998))]
+                  chirp_z, "B streams", ("Bs", 998, 2048))]
 
 
 def drive_man_page(cli, fp, ff, tmp, streams: int) -> int:

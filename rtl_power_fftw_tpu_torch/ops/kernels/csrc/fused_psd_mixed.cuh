@@ -42,6 +42,7 @@
 #include <atomic>
 
 #include "fft_mixed.cuh"
+#include "fused_psd_regs.cuh"  // dequant_byte
 #include "psd_sum.cuh"
 
 namespace {
@@ -85,12 +86,6 @@ __device__ __forceinline__ int element_of_bin(const MixedPlan& p, int k) {
   return q;
 }
 
-// byte - 127 exactly, without a conversion instruction: 2^23 + byte as
-// float bits, less 2^23 + 127 (as fused_psd_regs.cuh's dequant_byte).
-__device__ __forceinline__ float dequant_u8(unsigned byte) {
-  return __uint_as_float(0x4B000000u | byte) - 8388735.0f;
-}
-
 // Pass 0 of one frame on lane thread t: butterflies b = t, t + tf, ... of
 // the n / R0, each over the samples b + n1 * S (S = n / R0), read from
 // the frame's bytes; its outputs go to elements b + k1 * S times their
@@ -110,7 +105,7 @@ __device__ __forceinline__ void first_pass(
       float2 y = make_float2(0.0f, 0.0f);
       if (!CHIRP || s < bins) {
         const unsigned u = __ldg(iq + s);
-        y = make_float2(dequant_u8(u & 0xFFu), dequant_u8(u >> 8));
+        y = make_float2(dequant_byte(u & 0xFFu), dequant_byte(u >> 8));
         if constexpr (CHIRP) {
           y = cmulf(y, __ldg(chirp + s));
         } else if constexpr (WINDOWED) {

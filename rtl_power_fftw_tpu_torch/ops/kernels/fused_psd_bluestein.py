@@ -42,9 +42,10 @@ import torch
 from .fused_psd import (COUNTS, _on_cuda, check_alignment, check_args,
                         check_streams_args)
 from .fused_psd_mixed import (MAX_PASSES, RAW_ALIGN, WINDOW_ALIGN,
-                              MixedLaunch, _device_twiddles, _raw_stream,
-                              element_of_bin, launch_error, launch_shape,
-                              mixed_group, mixed_plan, partial_rows)
+                              MixedLaunch, _device_twiddles, element_of_bin,
+                              launch_error, launch_shape, mixed_group,
+                              mixed_plan, partial_rows)
+from .fused_psd_large import _raw_stream
 
 #: Largest N the kernel takes: M = next_pow2(2N - 1) <= 16384, whose
 #: padded complex frame (139 KB) and N-float accumulator fit the 227 KB
@@ -62,6 +63,14 @@ def fused_psd_bluestein_eligible(N: int) -> bool:
     return 2 <= N <= MAX_N and N % 2 == 0
 
 
+def _chirp64(N: int) -> np.ndarray:
+    """a[n] = e^(-i pi n^2 / N), n < N, in float64, the angle reduced
+    exactly (n^2 mod 2N in int64)."""
+    n = np.arange(N, dtype=np.int64)
+    ang = -np.pi * ((n * n) % (2 * N)).astype(np.float64) / N
+    return np.cos(ang) + 1j * np.sin(ang)
+
+
 @functools.lru_cache(maxsize=8)
 def bluestein_constants(N: int) -> Tuple[int, np.ndarray, np.ndarray]:
     """(M, a, B): M = next_pow2(2N - 1), the chirp a[n] = e^(-i pi n^2 / N)
@@ -72,9 +81,7 @@ def bluestein_constants(N: int) -> Tuple[int, np.ndarray, np.ndarray]:
     ``rtl_power_fftw_tpu/ops/dft.py:_bluestein_constants`` builds them
     (which holds B in its four-step layout)."""
     M = next_pow2(2 * N - 1)
-    n = np.arange(N, dtype=np.int64)
-    ang = -np.pi * ((n * n) % (2 * N)).astype(np.float64) / N
-    a = np.cos(ang) + 1j * np.sin(ang)
+    a = _chirp64(N)
     v = np.zeros(M, np.complex128)
     v[:N] = np.conj(a)
     v[M - N + 1:] = np.conj(a[1:][::-1])
@@ -108,9 +115,7 @@ def spectrum_table(N: int) -> np.ndarray:
 def chirp_table(N: int, window: Optional[np.ndarray] = None) -> np.ndarray:
     """The kernel's chirp, (N, 2) float32 (re, im): a, or with a window
     the float64 product window[n] a[n] rounded once (a from float64)."""
-    n = np.arange(N, dtype=np.int64)
-    ang = -np.pi * ((n * n) % (2 * N)).astype(np.float64) / N
-    a = np.cos(ang) + 1j * np.sin(ang)
+    a = _chirp64(N)
     if window is not None:
         a = a * np.asarray(window, np.float32).astype(np.float64)
     a = a.astype(np.complex64)

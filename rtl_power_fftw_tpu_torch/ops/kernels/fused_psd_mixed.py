@@ -50,6 +50,7 @@ import torch
 from .fused_psd import (COUNTS, KernelLaunchError, _on_cuda, check_alignment,
                         check_args, check_streams_args, fused_psd_reference,
                         fused_psd_streams_reference, k1_group)
+from .fused_psd_large import _raw_stream
 
 #: Radices a pass may have; kept in step with kMixedRadices in
 #: csrc/fft_mixed.cuh.
@@ -282,15 +283,6 @@ def _plan(N: int, F: int, chunk: int, windowed: bool, streams: int,
             _build.load("fused_psd_mixed"), shape, ints, group,
             streams * -(-F // group), twiddle.data_ptr(), (twiddle,))
     return plan
-
-
-def _raw_stream(index: int) -> int:
-    """The current stream's handle on device ``index``, without building
-    a ``torch.cuda.Stream``."""
-    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if get is not None:
-        return get(index)
-    return torch.cuda.current_stream(index).cuda_stream
 
 
 #: Partial rows by (row, rows, device, stream), the newest few: the kernel

@@ -87,8 +87,7 @@ def transform_route(N: int, backend: str = "auto", fast: bool = False
     own ladder does there), not under ``pallas``; at the N only the
     mixed-radix and chirp-Z kernels take, it runs them at full precision.
     Raises RPFexception(InvalidArgument), "Not yet ported", for every
-    other case. PsdStep, ShardedPsdStep and check_step_ported read this
-    one function."""
+    other case. PsdStep and ShardedPsdStep read this one function."""
     if backend == "bluestein":
         if fused_psd_bluestein_eligible(N):
             return "bluestein"
@@ -115,13 +114,6 @@ def transform_route(N: int, backend: str = "auto", fast: bool = False
                     f"{MIN_N} to {MAX_N}, even 7-smooth N up to "
                     f"{MIXED_MAX_N} and other even N up to "
                     f"{BLUESTEIN_MAX_N})")
-
-
-def check_step_ported(N: int, backend: str, fast: bool = False) -> None:
-    """Raise RPFexception(InvalidArgument) unless a CUDA step of this
-    package takes ``N`` bins with ``backend`` (at relaxed precision when
-    ``fast``): :func:`transform_route`'s refusal."""
-    transform_route(N, backend, fast)
 
 
 class PsdStep:
