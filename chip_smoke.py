@@ -1844,14 +1844,13 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
                                    8190, 8192]])
     worst = (0.0, None)
     for i, (name, N) in enumerate(sweep):
-        w = (torch.from_numpy(make_window("hann", N)).to(dev)
-             if i % 3 == 2 else None)
-        raw = torch.from_numpy(rng.integers(0, 256, (8, 2 * N),
-                                            dtype=np.uint8)).to(dev)
-        err = max_rel(kernels[name][0](raw, 8, 8, w).cpu().numpy(),
-                      golden_partial_dev(raw, w))
+        w_np = make_window("hann", N) if i % 3 == 2 else None
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (8, 2 * N), dtype=np.uint8)
+        got = kernels[name][0](torch.from_numpy(raw_np).to(dev), 8, 8, w)
+        err = max_rel(got.cpu().numpy(), golden_partial(raw_np, 8, w_np))
         if err >= worst[0]:
-            worst = (err, (name, N, "hann" if w is not None else None))
+            worst = (err, (name, N, "hann" if w_np is not None else None))
     print(f"awkward sweep of {len(sweep)} plans ("
           f"{sum(n == 'M' for n, _ in sweep)} mixed-radix, "
           f"{sum(n == 'B' for n, _ in sweep)} chirp-Z), 8 frames each: "
