@@ -153,8 +153,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    16384; ``fused_psd_bluestein``: the chirp-Z kernel, any even N up to
    8192; and their streams entries): against their plain versions and the
    float64 golden at N = 500 (the man-page drive's step), 2400 (also Hann
-   and masked), 12000, 998 (also Hann and masked) and 8182, and the
-   streams entries at counts (F, 0, 5), each run twice for determinism,
+   and masked), 12000, 998 (also Hann and masked, and the -b 998 drive's
+   step, its last masked) and 8182, and the streams entries at counts
+   (F, 0, 5) and at the two-stream drives' steps (500 x 120 frames, 998 x
+   824), each run twice for determinism,
    and a sweep of every even 7-smooth N to 16384 and a spread of even N
    to 8192 through the chirp-Z kernel (8 frames each);
    their 60-seed tone yards (500, 2400 unwindowed, 6000 Hann; 998
@@ -1730,15 +1732,27 @@ MAN_PAGE_ARGV = ["-f", "144.1M:146.1M", "-b", "500", "-n", "100",
                  "--source", "synthetic:tone=145.3M/35,noise=6,seed=1"]
 
 
-def man_page_frames_per_step() -> int:
-    """The frames a step of the man-page drive takes: its planned buffer
-    (the smallest multiple of BASE_BUF that holds 100 frames) // 2N, as
-    the session's Datastore sizes it (114 frames, a step of 120)."""
+# The -b 998 tone drive of phase 13, less its "--record <path>".
+B998_ARGV = ["-f", "100M", "-n", "2000", "-b", "998", "-l", "--source",
+             SOURCE]
+
+
+def drive_frames_per_step(argv, streams: int = 1) -> int:
+    """The frames a step of the drive with ``argv`` takes, before
+    adapt_batch: its planned buffer // 2N, as the session sizes its step,
+    at most 4096 (the Datastore) or, over ``streams`` > 1, from 64 to 2048
+    (MultiStreamAcquisition). The man-page drive's buffer is the smallest
+    multiple of BASE_BUF that holds its 100 frames (114 frames, a step of
+    120); the -b 998 drive's is the default 1638400 bytes (820 frames, a
+    step of 824)."""
     from rtl_power_fftw_tpu_torch.config import parse_args
     from rtl_power_fftw_tpu_torch.planning import Plan
-    params = parse_args(MAN_PAGE_ARGV, stderr=io.StringIO())
+    params = parse_args(argv, stderr=io.StringIO())
     Plan(params, RATE)
-    return max(1, min(params.buf_length // (2 * params.N), 4096))
+    frames = params.buf_length // (2 * params.N)
+    if streams > 1:
+        return max(64, min(frames, 2048))
+    return max(1, min(frames, 4096))
 
 
 def awkward_bound_ms(frames: int, N: int, windowed: bool,
@@ -1762,7 +1776,9 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     through the CLI, each on its kernel alone. Returns the kernels-line
     entries."""
     t0 = time.perf_counter()
-    man_page_fps = man_page_frames_per_step()
+    man_page_fps = drive_frames_per_step(MAN_PAGE_ARGV)
+    b998_F = adapt_batch(drive_frames_per_step(B998_ARGV))[0]
+    b998_last = 2000 % b998_F
     kernels = {"M": (fm.fused_psd_mixed, fp.fused_psd_reference),
                "B": (fb.fused_psd_bluestein, fb.bluestein_psd_reference),
                "Ms": (fm.fused_psd_mixed_streams,
@@ -1776,6 +1792,9 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
         ("M", "N=12000 F=64", 12000, 64, None, None),
         ("B", "N=998 F=4096", 998, 4096, None, None),
         ("B", "N=998 F=4096 hann masked", 998, 4096, 2500, "hann"),
+        ("B", "N=998 -b 998 drive step", 998, b998_F, None, None),
+        ("B", "N=998 -b 998 drive's last step", 998, b998_F, b998_last,
+         None),
         ("B", "N=8182 F=1024", 8182, 1024, None, None),
     ]
     reset_counts(fp, ff)
@@ -1809,31 +1828,43 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     check(counts["M"] == n_m and counts["B"] == 2 * len(cases) - n_m
           and counts["plain"] == 0, f"awkward launch counts: {counts}")
     # The streams entries: counts (F, 0, 5), per stream against plain and
-    # the golden, the empty stream exactly 0.
-    for name, N, F, wname in (("Ms", 500, 256, None),
-                              ("Ms", 2400, 64, "hann"),
-                              ("Bs", 998, 128, None), ("Bs", 510, 64, "hann")):
+    # the golden, the empty stream exactly 0; then the steps of the
+    # two-stream drives, with their counts (the man-page drive's 100 of
+    # 120 frames a stream; the -b 998 drive's first step and its last).
+    for name, N, fps, counts, wname in (
+            ("Ms", 500, 256, None, None), ("Ms", 2400, 64, None, "hann"),
+            ("Bs", 998, 128, None, None), ("Bs", 510, 64, None, "hann"),
+            ("Ms", 500, drive_frames_per_step(MAN_PAGE_ARGV, 2), (100, 100),
+             None),
+            ("Bs", 998, drive_frames_per_step(B998_ARGV, 2),
+             (b998_F, b998_last), None)):
         kernel, plain = kernels[name]
+        F, chunk = adapt_batch(fps)
         w_np = None if wname is None else make_window(wname, N)
         w = None if w_np is None else torch.from_numpy(w_np).to(dev)
-        raw_np = rng.integers(0, 256, (3, F, 2 * N), dtype=np.uint8)
+        nv_np = np.array(counts or (F, 0, 5), np.int32)
+        raw_np = rng.integers(0, 256, (len(nv_np), F, 2 * N), dtype=np.uint8)
         raw = torch.from_numpy(raw_np).to(dev)
-        nv_np = np.array([F, 0, 5], np.int32)
         nv = torch.from_numpy(nv_np).to(dev)
-        got, again = kernel(raw, nv, 64, w), kernel(raw, nv, 64, w)
-        want = plain(raw, nv, 64, w).cpu().numpy()
+        got, again = kernel(raw, nv, chunk, w), kernel(raw, nv, chunk, w)
+        want = plain(raw, nv, chunk, w).cpu().numpy()
         torch.cuda.synchronize()
-        check(torch.equal(got, again), f"{name} N={N}: not deterministic")
+        check(torch.equal(got, again), f"{name} N={N} F={F}: not "
+              "deterministic")
         got = got.cpu().numpy()
+        live = [s for s in range(len(nv_np)) if nv_np[s] > 0]
         errs = [max_rel(got[s], golden_partial(raw_np[s], int(nv_np[s]),
                                                w_np))
-                for s in (0, 2)]
-        err_plain = max(max_rel(got[s], want[s]) for s in (0, 2))
-        print(f"awkward {name} S=3 N={N} F={F} window={wname} counts "
-              f"{nv_np.tolist()}: max rel vs plain {err_plain:.3e}, vs float64 "
-              f"golden {max(errs):.3e}; empty stream max {got[1].max()}")
+                for s in live]
+        err_plain = max(max_rel(got[s], want[s]) for s in live)
+        empty = [float(got[s].max()) for s in range(len(nv_np))
+                 if nv_np[s] == 0]
+        print(f"awkward {name} S={len(nv_np)} N={N} F={F} chunk={chunk} "
+              f"window={wname} counts {nv_np.tolist()}: max rel vs plain "
+              f"{err_plain:.3e}, vs float64 golden {max(errs):.3e}"
+              f"{f'; empty stream max {empty[0]}' if empty else ''}")
         check(err_plain <= UNIFORM_RTOL and max(errs) <= GOLDEN_RTOL
-              and not got[1].any(), f"{name} N={N}")
+              and not any(empty), f"{name} N={N} F={F}")
     # Every plan the mixed-radix kernel takes (each even 7-smooth N up
     # to 16384) and a spread of the chirp-Z kernel's (every even N to 256,
     # every 62nd to 8192, the top two), 8 random frames each, every third
@@ -1919,8 +1950,7 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
         for S, key in ((1, "B"), (2, "B streams")):
             record = os.path.join(tmp, f"b998_{S}.iq")
             N, repeats = 998, 2000
-            argv = ["-f", "100M", "-n", str(repeats), "-b", str(N), "-l",
-                    "--record", record, "--source", SOURCE]
+            argv = B998_ARGV + ["--record", record]
             if S > 1:
                 argv += ["--streams", str(S)]
 
@@ -1952,9 +1982,9 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
                   ("M", 2400, 4096)),
             entry("fused_psd_mixed_streams", "fused_psd_mixed.cu", xla_ladder,
                   "M streams", ("Ms", 2400, 2048)),
-            entry("fused_psd_bluestein", "fused_psd_bluestein.cu", chirp_z,
+            entry("fused_psd_bluestein", "fused_psd_mixed.cu", chirp_z,
                   "B", ("B", 998, 4096)),
-            entry("fused_psd_bluestein_streams", "fused_psd_bluestein.cu",
+            entry("fused_psd_bluestein_streams", "fused_psd_mixed.cu",
                   chirp_z, "B streams", ("Bs", 998, 2048))]
 
 
@@ -2065,8 +2095,7 @@ def main() -> int:
             ("fused_psd_probe", "psd_group_kernel", ""),
             ("fused_psd_probe", "psd_regs_kernel", ""),
             ("fused_psd_probe", "psd_fast_group_kernel", "11"),
-            ("fused_psd_mixed", "psd_mixed_kernel", ""),
-            ("fused_psd_bluestein", "psd_mixed_kernel", "")):
+            ("fused_psd_mixed", "psd_mixed_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -2109,14 +2138,15 @@ def main() -> int:
                   f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM; "
                   f"k1_group's grid aims at "
                   f"{fp.resident_blocks(N, windowed, dev.index)} blocks")
-    for label, N, attrs in (
-            [("fused_psd_mixed", N, fm.kernel_attributes(N, w))
+    for label, N, w, shape in (
+            [("fused_psd_mixed", N, w, fm.mixed_launch(N))
              for N in (500, 2400, 6000, 12000, 16200) for w in (False, True)]
-            + [("fused_psd_bluestein", N, fb.kernel_attributes(N))
-               for N in (500, 998, 8182)]):
-        shape = (fm.launch_shape(fm.mixed_plan(N), N)
-                 if label == "fused_psd_mixed" else fb.bluestein_launch(N))
-        print(f"occupancy {label} N={N} plan {shape.plan} on {card}: "
+            + [("fused_psd_bluestein", N, w, fb.bluestein_launch(N))
+               for N in (500, 998, 8182) for w in (False, True)]):
+        attrs = fm.kernel_attributes(shape, label == "fused_psd_bluestein", w)
+        print(f"occupancy {label} N={N} "
+              f"{'windowed' if w else 'unwindowed'} plan {shape.plan} on "
+              f"{card}: "
               f"{attrs['registers']} registers, {attrs['spill_bytes']} B "
               f"spill, {attrs['static_smem']} + {attrs['dynamic_smem']} B "
               f"shared, {attrs['threads']} threads ({shape.lanes} lanes of "

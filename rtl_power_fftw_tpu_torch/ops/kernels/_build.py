@@ -78,27 +78,16 @@ SIGNATURES = {
                                        _I, _I, _I, _P],
     },
     "fused_psd_mixed": {
-        # raw, twiddle, window, partial, out, plan (int[17]), device, F,
-        # group, n_valid, stream
-        "rpf_fused_psd_mixed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # raw, twiddle, window, n_valid, partial, out, plan, device, S, F,
-        # group, stream
-        "rpf_fused_psd_mixed_streams": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                        _I, _I, _P],
-        # plan, windowed, device, attrs (int[6])
-        "rpf_fused_psd_mixed_attributes": [_P, _I, _I, _P],
-    },
-    "fused_psd_bluestein": {
-        # raw, twiddle, chirp, spectrum, partial, out, plan (int[17]),
-        # device, F, group, n_valid, stream
-        "rpf_fused_psd_bluestein": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _P],
-        # raw, twiddle, chirp, spectrum, n_valid, partial, out, plan,
-        # device, S, F, group, stream
-        "rpf_fused_psd_bluestein_streams": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                            _I, _I, _I, _I, _P],
-        # plan, device, attrs (int[6])
-        "rpf_fused_psd_bluestein_attributes": [_P, _I, _P],
+        # raw, twiddle, window, chirp, spectrum, partial, out, plan
+        # (int[17]), device, F, group, n_valid, stream
+        "rpf_fused_psd_mixed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _P],
+        # raw, twiddle, window, chirp, spectrum, n_valid, partial, out,
+        # plan, device, S, F, group, stream
+        "rpf_fused_psd_mixed_streams": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _P],
+        # plan, chirp, windowed, device, attrs (int[6])
+        "rpf_fused_psd_mixed_attributes": [_P, _I, _I, _I, _P],
     },
     "fused_psd_probe": {
         # variant, raw, w1r, w1i, twiddle, w2, offsets, partial, out,

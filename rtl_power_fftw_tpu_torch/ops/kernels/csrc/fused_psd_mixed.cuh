@@ -1,19 +1,19 @@
-// The group kernel of the awkward-N fused PSD steps, as one template:
-// psd_mixed_kernel<false, WINDOWED> is the mixed-radix kernel
-// (fused_psd_mixed.cu: 7-smooth N, the DFT of each frame by the passes of
-// fft_mixed.cuh), psd_mixed_kernel<true, false> the chirp-Z kernel
-// (fused_psd_bluestein.cu: any even N, the DFT as one circular
-// convolution of power-of-two length M >= 2N - 1).
+// The group kernel of the awkward-N fused PSD steps (fused_psd_mixed.cu),
+// as one template: psd_mixed_kernel<false, WINDOWED> is the mixed-radix
+// kernel (7-smooth N, the DFT of each frame by the passes of
+// fft_mixed.cuh), psd_mixed_kernel<true, WINDOWED> the chirp-Z kernel (any
+// even N, the DFT as one circular convolution of power-of-two length
+// M >= 2N - 1).
 //
 // A block is LANES frame lanes of TF threads (the plan's, from the
 // wrapper). Lane p of block g sums the frames f0 + p + LANES * i of the
 // block's [f0, min(f0 + group, F, n_valid)). A thread reads its first
 // pass's samples straight from device memory as u16 pairs (a frame is 2N
 // bytes, so only 4-byte aligned at N = 2 * odd: no 16-byte copies),
-// dequantizes them exactly (u8 - 127 by float bits) and, for the
-// mixed-radix kernel, times the f32 window; the chirp-Z kernel multiplies
-// them by its complex table a (the chirp e^(-i pi n^2 / N), times the
-// window where there is one) and takes the elements n >= N as 0. The
+// dequantizes them exactly (u8 - 127 by float bits) and times the f32
+// window where there is one; the chirp-Z kernel then multiplies them by
+// its complex table a (the chirp e^(-i pi n^2 / N)) and takes the
+// elements n >= N as 0. The
 // first pass runs on those values in registers; the later passes go
 // through the lane's padded exchange buffer in shared memory, one block
 // barrier between passes. |X|^2 of each output is added to the lane's
@@ -106,12 +106,11 @@ __device__ __forceinline__ void first_pass(
       if (!CHIRP || s < bins) {
         const unsigned u = __ldg(iq + s);
         y = make_float2(dequant_byte(u & 0xFFu), dequant_byte(u >> 8));
-        if constexpr (CHIRP) {
-          y = cmulf(y, __ldg(chirp + s));
-        } else if constexpr (WINDOWED) {
+        if constexpr (WINDOWED) {
           const float w = __ldg(window + s);
           y = make_float2(__fmul_rn(y.x, w), __fmul_rn(y.y, w));
         }
+        if constexpr (CHIRP) y = cmulf(y, __ldg(chirp + s));
       }
       v[n1] = y;
     }

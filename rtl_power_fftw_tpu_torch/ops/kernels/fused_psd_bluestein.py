@@ -3,11 +3,13 @@ partial power sum, at any even N up to 8192.
 
 Replaces ``rtl_power_fftw_tpu/ops/dft.py:bluestein_psd_partial`` (the JAX
 package's chirp-Z rung, run through XLA's FFT, no Pallas kernel) with a
-CUDA C++ kernel written for Hopper (``csrc/fused_psd_bluestein.cu``). It
-computes the function of :func:`fused_psd <.fused_psd.fused_psd>`
-(dequantize, [window,] length-N DFT, |X|^2, mask, sum over frames, bins in
-natural order) with the N-point DFT as one circular convolution of length
-M = next_pow2(2N - 1) <= 16384:
+CUDA C++ kernel written for Hopper: the chirp-Z instantiation of the
+awkward-N template (``csrc/fused_psd_mixed.cuh``), in the library of
+``csrc/fused_psd_mixed.cu`` and launched by
+:func:`.fused_psd_mixed.launch`. It computes the function of
+:func:`fused_psd <.fused_psd.fused_psd>` (dequantize, [window,] length-N
+DFT, |X|^2, mask, sum over frames, bins in natural order) with the N-point
+DFT as one circular convolution of length M = next_pow2(2N - 1) <= 16384:
 
     X[k] = a[k] * IFFT_M(FFT_M(x * a) * B)[k],  a[n] = e^(-i pi n^2 / N),
     B = FFT_M(v),  v[m] = conj(a[|m|]) for |m| < N laid out circularly,
@@ -17,9 +19,10 @@ with the tables of :func:`bluestein_constants` (the JAX package's
 integer angle reduction and rounded once to complex64). The kernel's
 transforms are the register passes of ``csrc/fft_mixed.cuh`` over M's
 pow-2 plan (:func:`bluestein_plan`); its tables are B / M permuted into
-the forward transform's output order (:func:`spectrum_table`) and a (or
-the window times a, :func:`chirp_table`). :func:`fused_psd_bluestein_streams`
-does it for S streams at once, as K4 does.
+the forward transform's output order (:func:`spectrum_table`) and a
+(:func:`chirp_table`); a window multiplies the samples before the chirp,
+as in ``bluestein_psd_partial``. :func:`fused_psd_bluestein_streams` does
+it for S streams at once, as K4 does.
 
 :func:`fused_psd_bluestein` and :func:`fused_psd_bluestein_streams`
 dispatch on the tensor's device: a CPU tensor goes to the plain PyTorch
@@ -31,21 +34,15 @@ torch ops); a CUDA tensor goes to the kernel, or raises.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import weakref
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .fused_psd import (COUNTS, _on_cuda, check_alignment, check_args,
-                        check_streams_args)
-from .fused_psd_mixed import (MAX_PASSES, RAW_ALIGN, WINDOW_ALIGN,
-                              MixedLaunch, _device_twiddles, element_of_bin,
-                              launch_error, launch_shape, mixed_group,
-                              mixed_plan, partial_rows)
-from .fused_psd_large import _raw_stream
+from .fused_psd import COUNTS, _on_cuda, check_args, check_streams_args
+from .fused_psd_mixed import (MixedLaunch, element_of_bin, launch,
+                              launch_shape, mixed_plan)
 
 #: Largest N the kernel takes: M = next_pow2(2N - 1) <= 16384, whose
 #: padded complex frame (139 KB) and N-float accumulator fit the 227 KB
@@ -112,16 +109,13 @@ def spectrum_table(N: int) -> np.ndarray:
     return np.stack([S.real, S.imag], -1).astype(np.float32)
 
 
-def chirp_table(N: int, window: Optional[np.ndarray] = None) -> np.ndarray:
-    """The kernel's chirp, (N, 2) float32 (re, im): a, or with a window
-    the float64 product window[n] a[n] rounded once (a from float64)."""
-    a = _chirp64(N)
-    if window is not None:
-        a = a * np.asarray(window, np.float32).astype(np.float64)
-    a = a.astype(np.complex64)
+def chirp_table(N: int) -> np.ndarray:
+    """The kernel's chirp a, (N, 2) float32 (re, im)."""
+    a = bluestein_constants(N)[1]
     return np.stack([a.real, a.imag], -1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
 def bluestein_launch(N: int) -> MixedLaunch:
     """The kernel's block layout at N: M's plan, N bins summed."""
     return launch_shape(bluestein_plan(N), N)
@@ -177,94 +171,11 @@ def bluestein_psd_streams_reference(raw_u8: torch.Tensor,
     return pwr.reshape(S, F // chunk, chunk, N).sum(dim=2).sum(dim=1)
 
 
-def kernel_attributes(N: int, device: Optional[torch.device] = None) -> dict:
-    """What the kernel gets at N bins on the card: registers and spill
-    bytes a thread, static and dynamic shared bytes and threads a block,
-    and the blocks that reside on one SM. Launches nothing."""
-    if not fused_psd_bluestein_eligible(N):
-        raise ValueError(f"fused_psd_bluestein does not take N={N}")
-    device = device or torch.device("cuda", torch.cuda.current_device())
-    from . import _build
-    lib = _build.load("fused_psd_bluestein")
-    ints = (ctypes.c_int * (7 + MAX_PASSES))(*bluestein_launch(N).ints())
-    attrs = (ctypes.c_int * 6)()
-    err = lib.rpf_fused_psd_bluestein_attributes(
-        ctypes.addressof(ints), device.index or 0, attrs)
-    if err != 0:
-        raise launch_error("fused_psd_bluestein attributes", lib, err)
-    return dict(zip(("registers", "spill_bytes", "static_smem",
-                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
-
-
-@functools.lru_cache(maxsize=64)
-def resident_blocks(N: int, index: int) -> int:
-    """Blocks of the kernel at N bins that card ``index`` holds resident:
-    its SMs times the blocks one SM holds. Asked of the card once per
-    N."""
-    device = torch.device("cuda", index)
-    per_sm = kernel_attributes(N, device)["blocks_per_sm"]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, per_sm)
-
-
-class _Plan(NamedTuple):
-    lib: ctypes.CDLL
-    shape: MixedLaunch
-    ints: ctypes.Array      # the plan ints the launch passes
-    group: int              # frames a block
-    rows: int               # partial rows (blocks)
-    twiddle: int            # device pointers of the tables
-    chirp: int
-    spectrum: int
-    keep: tuple             # the tensors behind the pointers
-
-
 @functools.lru_cache(maxsize=16)
-def _device_tables(N: int, device: torch.device):
-    """The twiddles of M's plan, a and B / M in element order, on the
-    device."""
-    return (_device_twiddles(bluestein_plan(N), device),
-            torch.from_numpy(chirp_table(N)).to(device),
+def device_tables(N: int, device: torch.device):
+    """The chirp a and B / M in element order, on the device."""
+    return (torch.from_numpy(chirp_table(N)).to(device),
             torch.from_numpy(spectrum_table(N)).to(device))
-
-
-_plans: dict = {}
-#: The chirp times each window a step gave, by the window tensor's id,
-#: with a weak reference to it and its version, so that a freed or
-#: edited window is never taken for another.
-_window_chirps: dict = {}
-
-
-def _windowed_chirp(window: torch.Tensor) -> torch.Tensor:
-    hit = _window_chirps.get(id(window))
-    if hit is not None and hit[0]() is window and hit[1] == window._version:
-        return hit[2]
-    if len(_window_chirps) >= 8:
-        _window_chirps.clear()
-    N = window.shape[0]
-    table = torch.from_numpy(chirp_table(
-        N, window.detach().cpu().numpy())).to(window.device)
-    _window_chirps[id(window)] = (weakref.ref(window), window._version,
-                                  table)
-    return table
-
-
-def _plan(N: int, F: int, chunk: int, streams: int,
-          device: torch.device) -> _Plan:
-    key = (N, F, chunk, streams, device.index)
-    plan = _plans.get(key)
-    if plan is None:
-        from . import _build
-        shape = bluestein_launch(N)
-        group = mixed_group(streams * F, chunk,
-                            resident_blocks(N, device.index), shape.lanes)
-        tables = _device_tables(N, device)
-        ints = (ctypes.c_int * (7 + MAX_PASSES))(*shape.ints())
-        plan = _plans[key] = _Plan(
-            _build.load("fused_psd_bluestein"), shape, ints, group,
-            streams * -(-F // group), tables[0].data_ptr(),
-            tables[1].data_ptr(), tables[2].data_ptr(), tables)
-    return plan
 
 
 def fused_psd_bluestein(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -282,24 +193,11 @@ def fused_psd_bluestein(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     if not _on_cuda("fused_psd_bluestein", raw_u8):
         COUNTS.plain += 1
         return bluestein_psd_reference(raw_u8, n_valid, chunk, window)
-    check_alignment("fused_psd_bluestein", raw_u8, RAW_ALIGN, window,
-                    WINDOW_ALIGN)
-    F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
-    device = raw_u8.device
-    plan = _plan(N, F, chunk, 1, device)
-    chirp = (plan.chirp if window is None
-             else _windowed_chirp(window).data_ptr())
-    stream = _raw_stream(device.index)
-    partial = partial_rows(plan.shape.row, plan.rows, device, stream)
-    out = torch.empty((plan.shape.row,), dtype=torch.float32, device=device)
-    err = plan.lib.rpf_fused_psd_bluestein(
-        raw_u8.data_ptr(), plan.twiddle, chirp, plan.spectrum, partial,
-        out.data_ptr(), ctypes.addressof(plan.ints), device.index, F,
-        plan.group, n_valid, stream)
-    if err != 0:
-        raise launch_error("fused_psd_bluestein", plan.lib, err)
+    N = raw_u8.shape[1] // 2
+    out = launch("fused_psd_bluestein", bluestein_launch(N), raw_u8,
+                 n_valid, chunk, window, device_tables(N, raw_u8.device))
     COUNTS.kernel_bluestein += 1
-    return out[:N]
+    return out
 
 
 def fused_psd_bluestein_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
@@ -321,22 +219,8 @@ def fused_psd_bluestein_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
         COUNTS.plain += 1
         return bluestein_psd_streams_reference(raw_u8, n_valid, chunk,
                                                window)
-    check_alignment("fused_psd_bluestein_streams", raw_u8, RAW_ALIGN,
-                    window, WINDOW_ALIGN)
-    S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
-    device = raw_u8.device
-    plan = _plan(N, F, chunk, S, device)
-    chirp = (plan.chirp if window is None
-             else _windowed_chirp(window).data_ptr())
-    stream = _raw_stream(device.index)
-    partial = partial_rows(plan.shape.row, plan.rows, device, stream)
-    out = torch.empty((S, plan.shape.row), dtype=torch.float32,
-                      device=device)
-    err = plan.lib.rpf_fused_psd_bluestein_streams(
-        raw_u8.data_ptr(), plan.twiddle, chirp, plan.spectrum,
-        n_valid.data_ptr(), partial, out.data_ptr(),
-        ctypes.addressof(plan.ints), device.index, S, F, plan.group, stream)
-    if err != 0:
-        raise launch_error("fused_psd_bluestein_streams", plan.lib, err)
+    N = raw_u8.shape[2] // 2
+    out = launch("fused_psd_bluestein_streams", bluestein_launch(N), raw_u8,
+                 n_valid, chunk, window, device_tables(N, raw_u8.device))
     COUNTS.kernel_bluestein_streams += 1
-    return out[:, :N]
+    return out

@@ -31,10 +31,14 @@ and K4's own, :func:`.fused_psd.fused_psd_reference`, whose
 ``torch.fft.fft`` takes any N on the CPU); a CUDA tensor goes to the
 kernel, or raises. ``COUNTS.kernel_mixed`` and
 ``COUNTS.kernel_mixed_streams`` (in :mod:`.fused_psd`) count its
-launches. The host path does the least it can a call: the plan, tables
-and grid are cached per (N, F, chunk, windowed, device) and the partial
-rows per (row, rows, device, stream), so a call allocates only its
-output.
+launches.
+
+The library also holds the chirp-Z kernel, the same template over M's
+power-of-two plan (:mod:`.fused_psd_bluestein`); :func:`launch` runs
+either, single-stream or streams. The host path does the least it can a
+call: the plan, twiddles and grid are cached per (layout, F, chunk,
+chirp, windowed, streams, device) and the partial rows per (row, rows,
+device, stream), so a call allocates only its output.
 """
 
 from __future__ import annotations
@@ -203,6 +207,12 @@ def launch_shape(plan, bins: int) -> MixedLaunch:
     return shape
 
 
+@functools.lru_cache(maxsize=64)
+def mixed_launch(N: int) -> MixedLaunch:
+    """The mixed-radix kernel's block layout at N bins."""
+    return launch_shape(mixed_plan(N), N)
+
+
 def mixed_group(frames: int, chunk: int, resident: int, lanes: int) -> int:
     """Frames a block sums over ``frames`` frames: k1_group's (the least
     divisor of ``chunk`` that puts the grid within ``resident`` blocks),
@@ -214,7 +224,6 @@ def mixed_group(frames: int, chunk: int, resident: int, lanes: int) -> int:
 
 class _Plan(NamedTuple):
     lib: ctypes.CDLL
-    shape: MixedLaunch
     ints: ctypes.Array      # the plan ints the launch passes
     group: int              # frames a block
     rows: int               # partial rows (blocks)
@@ -227,37 +236,37 @@ def _device_twiddles(plan: tuple, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(plan_twiddles(plan)).to(device)
 
 
-def kernel_attributes(N: int, windowed: bool = False,
+def kernel_attributes(shape: MixedLaunch, chirp: bool = False,
+                      windowed: bool = False,
                       device: Optional[torch.device] = None) -> dict:
-    """What the kernel gets at N bins (windowed or not) on the card:
-    registers and spill bytes a thread, static and dynamic shared bytes
-    and threads a block, and the blocks that reside on one SM. Launches
-    nothing."""
-    if not fused_psd_mixed_eligible(N):
-        raise ValueError(f"fused_psd_mixed does not take N={N}")
+    """What the kernel (the chirp-Z kernel where ``chirp``, windowed or
+    not) gets with the layout ``shape`` on the card: registers and spill
+    bytes a thread, static and dynamic shared bytes and threads a block,
+    and the blocks that reside on one SM. Launches nothing."""
     device = device or torch.device("cuda", torch.cuda.current_device())
     from . import _build
     lib = _build.load("fused_psd_mixed")
-    ints = (ctypes.c_int * (7 + MAX_PASSES))(
-        *launch_shape(mixed_plan(N), N).ints())
+    ints = (ctypes.c_int * (7 + MAX_PASSES))(*shape.ints())
     attrs = (ctypes.c_int * 6)()
     err = lib.rpf_fused_psd_mixed_attributes(
-        ctypes.addressof(ints), int(windowed), device.index or 0, attrs)
+        ctypes.addressof(ints), int(chirp), int(windowed), device.index or 0,
+        attrs)
     if err != 0:
-        raise KernelLaunchError(
-            f"fused_psd_mixed attributes at N={N}: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+        raise launch_error(f"fused_psd_mixed attributes of {shape}", lib,
+                           err)
     return dict(zip(("registers", "spill_bytes", "static_smem",
                      "dynamic_smem", "threads", "blocks_per_sm"), attrs))
 
 
 @functools.lru_cache(maxsize=64)
-def resident_blocks(N: int, windowed: bool, index: int) -> int:
-    """Blocks of the kernel at N bins that card ``index`` holds resident:
-    its SMs times the blocks one SM holds. Asked of the card once per
-    key."""
+def resident_blocks(shape: MixedLaunch, chirp: bool, windowed: bool,
+                    index: int) -> int:
+    """Blocks of the kernel with the layout ``shape`` that card ``index``
+    holds resident: its SMs times the blocks one SM holds. Asked of the
+    card once per key."""
     device = torch.device("cuda", index)
-    per_sm = kernel_attributes(N, windowed, device)["blocks_per_sm"]
+    per_sm = kernel_attributes(shape, chirp, windowed,
+                               device)["blocks_per_sm"]
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return sms * max(1, per_sm)
 
@@ -265,22 +274,22 @@ def resident_blocks(N: int, windowed: bool, index: int) -> int:
 _plans: dict = {}
 
 
-def _plan(N: int, F: int, chunk: int, windowed: bool, streams: int,
-          device: torch.device) -> _Plan:
+def _plan(shape: MixedLaunch, F: int, chunk: int, chirp: bool,
+          windowed: bool, streams: int, device: torch.device) -> _Plan:
     """The launch of F frames a stream over ``streams`` streams (one for
     the single-stream entry), cached per key."""
-    key = (N, F, chunk, windowed, streams, device.index)
+    key = (shape, F, chunk, chirp, windowed, streams, device.index)
     plan = _plans.get(key)
     if plan is None:
         from . import _build
-        shape = launch_shape(mixed_plan(N), N)
-        group = mixed_group(streams * F, chunk,
-                            resident_blocks(N, windowed, device.index),
-                            shape.lanes)
+        group = mixed_group(
+            streams * F, chunk,
+            resident_blocks(shape, chirp, windowed, device.index),
+            shape.lanes)
         twiddle = _device_twiddles(shape.plan, device)
         ints = (ctypes.c_int * (7 + MAX_PASSES))(*shape.ints())
         plan = _plans[key] = _Plan(
-            _build.load("fused_psd_mixed"), shape, ints, group,
+            _build.load("fused_psd_mixed"), ints, group,
             streams * -(-F // group), twiddle.data_ptr(), (twiddle,))
     return plan
 
@@ -313,6 +322,45 @@ def launch_error(kernel: str, lib, err: int) -> KernelLaunchError:
         f"(cudaError {err})")
 
 
+def launch(kernel: str, shape: MixedLaunch, raw_u8: torch.Tensor, n_valid,
+           chunk: int, window: Optional[torch.Tensor],
+           chirp: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           ) -> torch.Tensor:
+    """Runs the kernel with the layout ``shape`` on CUDA frames, on the
+    current stream (asynchronously): (F, 2N) frames with an int
+    ``n_valid`` -> (N,), or (S, F, 2N) frames with (S,) int32 counts on
+    the device -> (S, N), a view of (S, N rounded up to 32) rows.
+    ``chirp``: the chirp-Z kernel's (a, B / M) tables on the device
+    (:func:`.fused_psd_bluestein.device_tables`), or None for the
+    mixed-radix kernel. ``kernel`` names the entry in errors."""
+    check_alignment(kernel, raw_u8, RAW_ALIGN, window, WINDOW_ALIGN)
+    streams = raw_u8.dim() == 3
+    S = raw_u8.shape[0] if streams else 1
+    F = raw_u8.shape[-2]
+    device = raw_u8.device
+    plan = _plan(shape, F, chunk, chirp is not None, window is not None, S,
+                 device)
+    stream = _raw_stream(device.index)
+    partial = partial_rows(shape.row, plan.rows, device, stream)
+    out = torch.empty((S, shape.row), dtype=torch.float32, device=device)
+    tables = (raw_u8.data_ptr(), plan.twiddle,
+              None if window is None else window.data_ptr(),
+              *((None, None) if chirp is None
+                else (chirp[0].data_ptr(), chirp[1].data_ptr())))
+    if streams:
+        err = plan.lib.rpf_fused_psd_mixed_streams(
+            *tables, n_valid.data_ptr(), partial, out.data_ptr(),
+            ctypes.addressof(plan.ints), device.index, S, F, plan.group,
+            stream)
+    else:
+        err = plan.lib.rpf_fused_psd_mixed(
+            *tables, partial, out.data_ptr(), ctypes.addressof(plan.ints),
+            device.index, F, plan.group, n_valid, stream)
+    if err != 0:
+        raise launch_error(kernel, plan.lib, err)
+    return out[:, :shape.bins] if streams else out[0, :shape.bins]
+
+
 def fused_psd_mixed(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                     window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(F, 2N) uint8 frames, N even and 7-smooth up to 16384, ``n_valid``
@@ -328,23 +376,10 @@ def fused_psd_mixed(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     if not _on_cuda("fused_psd_mixed", raw_u8):
         COUNTS.plain += 1
         return fused_psd_reference(raw_u8, n_valid, chunk, window)
-    check_alignment("fused_psd_mixed", raw_u8, RAW_ALIGN, window,
-                    WINDOW_ALIGN)
-    F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
-    device = raw_u8.device
-    plan = _plan(N, F, chunk, window is not None, 1, device)
-    stream = _raw_stream(device.index)
-    partial = partial_rows(plan.shape.row, plan.rows, device, stream)
-    out = torch.empty((plan.shape.row,), dtype=torch.float32, device=device)
-    err = plan.lib.rpf_fused_psd_mixed(
-        raw_u8.data_ptr(), plan.twiddle,
-        None if window is None else window.data_ptr(), partial,
-        out.data_ptr(), ctypes.addressof(plan.ints), device.index, F,
-        plan.group, n_valid, stream)
-    if err != 0:
-        raise launch_error("fused_psd_mixed", plan.lib, err)
+    out = launch("fused_psd_mixed", mixed_launch(raw_u8.shape[1] // 2),
+                 raw_u8, n_valid, chunk, window)
     COUNTS.kernel_mixed += 1
-    return out[:N]
+    return out
 
 
 def fused_psd_mixed_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
@@ -360,29 +395,16 @@ def fused_psd_mixed_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
     A CUDA tensor runs the kernel on the current stream (asynchronously:
     the kernel reads ``n_valid`` from device memory when it runs); a CPU
     tensor runs the plain version. On the card the result is a view of
-    (S, N rounded up to 32) rows."""
+    (S, N rounded up to 32) rows. Blocks are counted over all S*F frames;
+    a group divides chunk, which divides F, so no block crosses a
+    stream."""
     check_streams_args(raw_u8, n_valid, chunk, window,
                        "fused_psd_mixed_streams", fused_psd_mixed_eligible)
     if not _on_cuda("fused_psd_mixed_streams", raw_u8):
         COUNTS.plain += 1
         return fused_psd_streams_reference(raw_u8, n_valid, chunk, window)
-    check_alignment("fused_psd_mixed_streams", raw_u8, RAW_ALIGN, window,
-                    WINDOW_ALIGN)
-    S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
-    device = raw_u8.device
-    # Blocks are counted over all S*F frames; a group divides chunk, which
-    # divides F, so no block crosses a stream.
-    plan = _plan(N, F, chunk, window is not None, S, device)
-    stream = _raw_stream(device.index)
-    partial = partial_rows(plan.shape.row, plan.rows, device, stream)
-    out = torch.empty((S, plan.shape.row), dtype=torch.float32,
-                      device=device)
-    err = plan.lib.rpf_fused_psd_mixed_streams(
-        raw_u8.data_ptr(), plan.twiddle,
-        None if window is None else window.data_ptr(), n_valid.data_ptr(),
-        partial, out.data_ptr(), ctypes.addressof(plan.ints), device.index,
-        S, F, plan.group, stream)
-    if err != 0:
-        raise launch_error("fused_psd_mixed_streams", plan.lib, err)
+    out = launch("fused_psd_mixed_streams",
+                 mixed_launch(raw_u8.shape[2] // 2), raw_u8, n_valid, chunk,
+                 window)
     COUNTS.kernel_mixed_streams += 1
-    return out[:, :N]
+    return out

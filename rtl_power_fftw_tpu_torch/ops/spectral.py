@@ -127,10 +127,9 @@ class PsdStep:
     ``kernels/csrc/fused_psd_fast.cu`` (K3), windowed or not; from 32768
     to 2^22 bins the two-pass four-step ``kernels/csrc/fused_psd_large.cu``
     at full precision, windowed or not; at the other even 7-smooth N up
-    to 16384 the mixed-radix ``kernels/csrc/fused_psd_mixed.cu`` and at
-    every other even N up to 8192 the chirp-Z
-    ``kernels/csrc/fused_psd_bluestein.cu``, each at full precision,
-    windowed or not. On the CPU it is the kernel's plain PyTorch version.
+    to 16384 the mixed-radix kernel and at every other even N up to 8192
+    the chirp-Z kernel, both of ``kernels/csrc/fused_psd_mixed.cu``, each
+    at full precision, windowed or not. On the CPU it is the kernel's plain PyTorch version.
     The result is a tensor on ``device``; on CUDA it is computed
     asynchronously on the current stream. The window is copied to the
     device once, here.

@@ -13,6 +13,9 @@ tests/test_torch_session.py's do (text, .met with timestamps masked,
 stderr, and a .bin within 2e-5 in linear power).
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +30,7 @@ from rtl_power_fftw_tpu_torch.auxdata import make_window
 from rtl_power_fftw_tpu_torch.exceptions import ReturnValue, RPFexception
 from rtl_power_fftw_tpu_torch.ops import spectral
 from rtl_power_fftw_tpu_torch.parallel import ShardedPsdStep, make_mesh
+from rtl_power_fftw_tpu_torch.parallel import sharded
 
 from golden import golden_accumulate
 from test_torch_session import (TIMESTAMP, assert_text_outputs_match,
@@ -227,3 +231,42 @@ def test_man_page_session_exits_0_on_the_cli(capsys):
     captured = capsys.readouterr()
     assert captured.out.startswith("# rtl-power-fftw output\n")
     assert "Transform path: plain_mixed (backend=auto, N=500)" in captured.err
+
+
+def load_chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHIP_SMOKE = load_chip_smoke()
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("drive,route,N", [("MAN_PAGE_ARGV", "mixed", 500),
+                                           ("B998_ARGV", "bluestein", 998)])
+def test_chip_smoke_drive_steps_are_the_sessions(drive, route, N, streams,
+                                                 monkeypatch):
+    """chip_smoke.py holds each awkward-N kernel to its plain version at
+    the steps its drives run, sized by its drive_frames_per_step: the
+    session on the same argv hands its kernel those frames and chunk, and
+    nothing else."""
+    argv = list(getattr(CHIP_SMOKE, drive))
+    if streams > 1:
+        argv += ["--streams", str(streams)]
+    seen = []
+    for table in (spectral.ROUTES, sharded.STREAMS_ROUTES):
+        kernel, suffix = table[route]
+
+        def recorded(raw, n_valid, chunk, window=None, kernel=kernel):
+            seen.append((tuple(raw.shape), chunk))
+            return kernel(raw, n_valid, chunk, window)
+
+        monkeypatch.setitem(table, route, (recorded, suffix))
+    rv, _, _ = run(argv, port=True)
+    F, chunk = spectral.adapt_batch(
+        CHIP_SMOKE.drive_frames_per_step(argv, streams))
+    shape = (F, 2 * N) if streams == 1 else (streams, F, 2 * N)
+    assert rv == 0 and seen and set(seen) == {(shape, chunk)}

@@ -1,5 +1,6 @@
-"""The chirp-Z (Bluestein) fused PSD kernel (csrc/fused_psd_bluestein.cu
-with csrc/fused_psd_mixed.cuh and csrc/fft_mixed.cuh): its tables against
+"""The chirp-Z (Bluestein) fused PSD kernel (the chirp-Z instantiation of
+csrc/fused_psd_mixed.cuh in csrc/fused_psd_mixed.cu, with
+csrc/fft_mixed.cuh): its tables against
 the JAX package's bit for bit, its plain version against the JAX
 ``bluestein_psd_partial`` (rtol 2e-5: two float32 budgets), and the
 kernel transcribed in numpy (forward passes, the turn, the transposed
@@ -26,8 +27,9 @@ CROSS_RTOL = 2e-5
 
 
 def chirp_power(raw, window=None, dtype=np.complex64):
-    """|DFT|^2 of each frame as the chirp-Z kernel computes it: x a (the
-    kernel's chirp table), zero-padded to M, the forward passes, times
+    """|DFT|^2 of each frame as the chirp-Z kernel computes it: x times the
+    window (in float32), then times a (the kernel's chirp table),
+    zero-padded to M, the forward passes, times
     B / M in element order and conjugated, the transposed passes, |.|^2 of
     the first N. In float64 the tables are exact."""
     N = raw.shape[1] // 2
@@ -36,8 +38,6 @@ def chirp_power(raw, window=None, dtype=np.complex64):
     if dtype == np.complex128:
         n = np.arange(N)
         a = np.exp(-1j * np.pi * (n * n % (2 * N)) / N)
-        if window is not None:
-            a = a * np.asarray(window, np.float32).astype(np.float64)
         v = np.zeros(M, complex)
         v[:N] = np.conj(np.exp(-1j * np.pi * (n * n % (2 * N)) / N))
         v[M - N + 1:] = v[1:N][::-1]
@@ -46,12 +46,12 @@ def chirp_power(raw, window=None, dtype=np.complex64):
         order[fm.element_of_bin(plan, np.arange(M))] = np.arange(M)
         spectrum = B[order]
     else:
-        c = fb.chirp_table(N, window)
+        c = fb.chirp_table(N)
         a = (c[:, 0] + 1j * c[:, 1]).astype(dtype)
         s = fb.spectrum_table(N)
         spectrum = (s[:, 0] + 1j * s[:, 1]).astype(dtype)
     u = np.zeros((raw.shape[0], M), dtype)
-    u[:, :N] = dequantize(raw, None, dtype) * a
+    u[:, :N] = dequantize(raw, window, dtype) * a
     tw = twiddle_table(plan, dtype)
     y = dit(np.conj(dif(u, plan, tw) * spectrum), plan, tw)[:, :N]
     return y.real * y.real + y.imag * y.imag
@@ -96,17 +96,14 @@ def test_spectrum_table_is_b_over_m_in_element_order(N):
     np.testing.assert_array_equal(s[q, 1], (B / np.float32(M)).imag)
 
 
-def test_windowed_chirp_rounds_once():
-    N = 998
-    w = make_window("hann", N)
-    got = fb.chirp_table(N, w)
-    n = np.arange(N)
-    want = (np.exp(-1j * np.pi * (n * n % (2 * N)) / N)
-            * w.astype(np.float64)).astype(np.complex64)
-    np.testing.assert_allclose(got[:, 0], want.real, atol=6e-8)
-    np.testing.assert_allclose(got[:, 1], want.imag, atol=6e-8)
-    np.testing.assert_array_equal(fb.chirp_table(N)[:, 0],
-                                  fb.bluestein_constants(N)[1].real)
+@pytest.mark.parametrize("N", [2, 998, 8182])
+def test_chirp_table_is_the_chirp(N):
+    """The kernel's chirp is the JAX package's a, split into (re, im)."""
+    a = _bluestein_constants(N)[3]
+    c = fb.chirp_table(N)
+    assert c.shape == (N, 2) and c.dtype == np.float32
+    np.testing.assert_array_equal(c[:, 0], a.real)
+    np.testing.assert_array_equal(c[:, 1], a.imag)
 
 
 @pytest.mark.parametrize("N", [10, 500, 998])
