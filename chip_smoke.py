@@ -837,7 +837,9 @@ def phase_times(dev, rng, fp, ff, fl, fpp, adapt_batch, make_window, card):
 
 
 def reset_counts(fp, ff) -> None:
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    fm.CONTROL_COUNTS.reset()
     fp.COUNTS.reset()
     ff.COUNTS.reset()
     ff.CONTROL_COUNTS.reset()
@@ -848,7 +850,9 @@ def reset_counts(fp, ff) -> None:
 def launch_counts(fp, ff) -> dict:
     """Every launch counter by the kernel (or plain version) it counts;
     "L" is the large-N kernel, "M" the mixed-radix kernel, "B" the chirp-Z
-    kernel, "probes" every probe variant together."""
+    kernel, "M/B control" the kernel both replaced (and its plain
+    versions), "probes" every probe variant together."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     return {"K1": fp.COUNTS.kernel, "K2": fp.COUNTS.kernel_windowed,
             "K3": ff.COUNTS.kernel, "K4": fp.COUNTS.kernel_streams,
@@ -861,6 +865,8 @@ def launch_counts(fp, ff) -> dict:
             "B streams": fp.COUNTS.kernel_bluestein_streams,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
+            "M/B control": fm.CONTROL_COUNTS.kernel_mixed
+            + fm.CONTROL_COUNTS.kernel_bluestein + fm.CONTROL_COUNTS.plain,
             "plain": fp.COUNTS.plain, "plain_fast": ff.COUNTS.plain,
             "probes": sum(fpp.COUNTS.kernel.values())
             + sum(fpp.COUNTS.plain.values())}
@@ -1770,11 +1776,12 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
                   card):
     """13. The awkward-N kernels (``fused_psd_mixed``, ``fused_psd_bluestein``
     and their streams entries): against their plain versions and the
-    float64 golden, twice each; their 60-seed tone yards against the
-    scipy float32 class; their times beside ``torch.fft.fft`` and the
-    bound; the man-page drive, its two-stream form and -b 998 drives
-    through the CLI, each on its kernel alone. Returns the kernels-line
-    entries."""
+    float64 golden, twice each; every plan of each; their 60-seed tone
+    yards against the scipy float32 class; their times beside the control
+    they replaced (``fused_psd_mixed_control``,
+    ``fused_psd_bluestein_control``), ``torch.fft.fft`` and the bound; the
+    man-page drive, its two-stream form and -b 998 drives through the CLI,
+    each on its kernel alone. Returns the kernels-line entries."""
     t0 = time.perf_counter()
     man_page_fps = drive_frames_per_step(MAN_PAGE_ARGV)
     b998_F = adapt_batch(drive_frames_per_step(B998_ARGV))[0]
@@ -1826,7 +1833,8 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     counts = launch_counts(fp, ff)
     n_m = 2 * sum(case[0] == "M" for case in cases)
     check(counts["M"] == n_m and counts["B"] == 2 * len(cases) - n_m
-          and counts["plain"] == 0, f"awkward launch counts: {counts}")
+          and counts["plain"] == 0 and counts["M/B control"] == 0,
+          f"awkward launch counts: {counts}")
     # The streams entries: counts (F, 0, 5), per stream against plain and
     # the golden, the empty stream exactly 0; then the steps of the
     # two-stream drives, with their counts (the man-page drive's 100 of
@@ -1900,17 +1908,31 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
                   *kernels["B"])
     print(f"wall: awkward yards in {time.perf_counter() - t0:.1f} s")
 
-    # Times: a call, the device's part, the wrapper's host part, the plain
-    # version and torch.fft.fft on the same frames (complex64 on the
-    # card); each entry's max abs error against its plain version there.
-    # 500 at F = 32 is the shape PERF.md's prediction named for the
-    # man-page step; the drive's own step is man_page_fps.
+    # Times (PERF.md's prediction, PR 14): the kernel and the control it
+    # replaced one after the other at every phase-13 shape: a call (CUDA
+    # events around each), the device's part (calls queued behind a sleep
+    # kernel, twice each in turns), the wrapper's host part, the plain
+    # version and torch.fft.fft on the same frames (complex64 on the card);
+    # each entry's max abs error against its plain version there. The
+    # device time must be at most 0.6 of the control's for the mixed-radix
+    # kernel at 2400/4096, 0.7 for the chirp-Z kernel at 998/4096, 1.05
+    # everywhere else. At the plans fixed at compile time (500, 2400) the
+    # mixed-radix kernel's forms are timed beside each other: the run-time
+    # plan with twiddles through L1 or resident in shared memory, and the
+    # fixed plan (the one the wrappers run there).
+    controls = {"M": fm.fused_psd_mixed_control,
+                "Ms": fm.fused_psd_mixed_control,
+                "B": fb.fused_psd_bluestein_control,
+                "Bs": fb.fused_psd_bluestein_control}
+    limits = {("M", 2400, 4096): 0.6, ("B", 998, 4096): 0.7}
     times = {}
     for name, N, fps, S in (("M", 500, 32, 1), ("M", 500, man_page_fps, 1),
-                            ("M", 2400, 4096, 1), ("B", 998, 4096, 1),
+                            ("M", 2400, 4096, 1), ("M", 12000, 64, 1),
+                            ("B", 998, 4096, 1), ("B", 998, b998_F, 1),
                             ("B", 8182, 1024, 1), ("Ms", 2400, 2048, 2),
                             ("Bs", 998, 2048, 2)):
         kernel, plain = kernels[name]
+        control = controls[name]
         F, chunk = adapt_batch(fps)
         shape = (S, F, 2 * N) if S > 1 else (F, 2 * N)
         raw = torch.from_numpy(rng.integers(0, 256, shape,
@@ -1922,24 +1944,65 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
                           flat[:, 1::2].float() - 127.0)
         got = kernel(raw, nv, chunk).double()
         max_abs = float((got - plain(raw, nv, chunk).double()).abs().max())
-        k_us = event_times_us(lambda: kernel(raw, nv, chunk))
-        p_us = event_times_us(lambda: plain(raw, nv, chunk))
-        lib_us = event_times_us(lambda: torch.fft.fft(z, dim=-1))
-        k_us2 = event_times_us(lambda: kernel(raw, nv, chunk))
-        kd_us = device_times_us(lambda: kernel(raw, nv, chunk))
-        libd_us = device_times_us(lambda: torch.fft.fft(z, dim=-1))
-        host = host_us(lambda: kernel(raw, nv, chunk))
-        b_ms, b_by = awkward_bound_ms(S * F, N, False, S)
-        times[(name, N, F)] = (k_us, p_us, k_us2, lib_us, b_ms, b_by, kd_us,
-                               libd_us, host, max_abs)
+        control_rel = max_rel(control(raw, nv, chunk).cpu().numpy(),
+                              got.cpu().numpy())
+        t = {"max_abs": max_abs,
+             "call": event_times_us(lambda: kernel(raw, nv, chunk)),
+             "control": event_times_us(lambda: control(raw, nv, chunk)),
+             "plain": event_times_us(lambda: plain(raw, nv, chunk)),
+             "lib": event_times_us(lambda: torch.fft.fft(z, dim=-1))}
+        kd = [device_times_us(lambda: kernel(raw, nv, chunk))]
+        cd = [device_times_us(lambda: control(raw, nv, chunk))]
+        cd.append(device_times_us(lambda: control(raw, nv, chunk)))
+        kd.append(device_times_us(lambda: kernel(raw, nv, chunk)))
+        t.update(device=min(kd), control_device=min(cd),
+                 lib_device=device_times_us(lambda: torch.fft.fft(z, dim=-1)),
+                 host=host_us(lambda: kernel(raw, nv, chunk)),
+                 control_host=host_us(lambda: control(raw, nv, chunk)))
+        t["bound"] = awkward_bound_ms(S * F, N, False, S)
+        times[(name, N, F)] = t
+        limit = limits.get((name, N, F), 1.05)
+        ratio = t["device"] / t["control_device"]
+        b_us = 1e3 * t["bound"][0]
         print(f"time awkward {name} N={N} F={F}{f' S={S}' * (S > 1)} on "
-              f"{card}: kernel {k_us:.1f} us a call (repeat {k_us2:.1f}; "
-              f"{S * F * N / k_us / 1e3:.2f} GS/s), device {kd_us:.1f} us, "
-              f"host {host:.1f} us; plain {p_us:.1f} us a call; "
-              f"torch.fft.fft of the complex64 frames {lib_us:.1f} us a call "
-              f"(device {libd_us:.1f}); bound {1e3 * b_ms:.2f} us ({b_by}); "
-              f"device/bound {kd_us / (1e3 * b_ms):.1f}x; max abs vs plain "
-              f"{max_abs:.4g}")
+              f"{card}: kernel {t['call']:.1f} us a call, device "
+              f"{kd[0]:.1f}/{kd[1]:.1f} us, host {t['host']:.1f} us "
+              f"({S * F * N / t['device'] / 1e3:.2f} GS/s on the device); "
+              f"control {t['control']:.1f} us a call, device "
+              f"{cd[0]:.1f}/{cd[1]:.1f} us, host {t['control_host']:.1f} "
+              f"us; device/control {ratio:.3f} (<= {limit}); plain "
+              f"{t['plain']:.1f} us a call; torch.fft.fft of the complex64 "
+              f"frames {t['lib']:.1f} us a call (device "
+              f"{t['lib_device']:.1f}), kernel/fft on the device "
+              f"{t['device'] / t['lib_device']:.3f}; bound {b_us:.2f} us "
+              f"({t['bound'][1]}), device/bound {t['device'] / b_us:.1f}x; "
+              f"max abs vs plain {max_abs:.4g}; control vs kernel max rel "
+              f"{control_rel:.3e}")
+        check(control_rel <= UNIFORM_RTOL, f"{name} N={N} F={F}: the "
+              f"control and the kernel differ by {control_rel}")
+        check(ratio <= limit, f"{name} N={N} F={F}: {t['device']:.1f} us of "
+              f"device time is above {limit} of the control's "
+              f"{t['control_device']:.1f} us")
+        if name == "M" and N in fm.FIXED_PLANS:
+            ring = fm.ring_launch(N)
+            forms = {label: device_times_us(
+                lambda form=form: fm.launch_ring("form", ring, raw, nv,
+                                                 chunk, None, form))
+                     for label, form in (("run-time, twiddles via L1",
+                                          fm.FORM_L1),
+                                         ("run-time, twiddles in shared "
+                                          "memory", fm.FORM_TW_SMEM),
+                                         ("fixed plan", fm.FORM_FIXED))}
+            occupancy = {label: fm.ring_attributes(ring, False, form)
+                         for label, form in (("L1", fm.FORM_L1),
+                                             ("smem", fm.FORM_TW_SMEM),
+                                             ("fixed", fm.FORM_FIXED))}
+            print(f"forms awkward M N={N} F={F} on {card}: device "
+                  + ", ".join(f"{k} {v:.1f} us" for k, v in forms.items())
+                  + "; registers/spill/blocks an SM "
+                  + ", ".join(f"{k} {a['registers']}/{a['spill_bytes']}/"
+                              f"{a['blocks_per_sm']}"
+                              for k, a in occupancy.items()))
     print(f"wall: awkward times in {time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its kernel alone.
@@ -1966,15 +2029,17 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     print(f"wall: awkward phase in {time.perf_counter() - t0:.1f} s")
 
     def entry(name, source, replaces, key, times_key):
-        (k_us, p_us, k_us2, lib_us, b_ms, b_by, kd_us, libd_us, host,
-         max_abs) = times[times_key]
+        t = times[times_key]
         return {"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": replaces, "launches": launches[key],
-                "max_abs_err": max_abs,
-                "ms": min(k_us, k_us2) / 1000.0, "plain_ms": p_us / 1000.0,
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_us / 1000.0, "device_ms": kd_us / 1000.0,
-                "host_ms": host / 1000.0}
+                "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+                "device_ms": t["device"] / 1000.0,
+                "host_ms": t["host"] / 1000.0,
+                "control_ms": t["control"] / 1000.0,
+                "control_device_ms": t["control_device"] / 1000.0,
+                "control_host_ms": t["control_host"] / 1000.0}
 
     xla_ladder = "rtl_power_fftw_tpu/ops/spectral.py:388"
     chirp_z = "rtl_power_fftw_tpu/ops/dft.py:1069"
@@ -2095,7 +2160,9 @@ def main() -> int:
             ("fused_psd_probe", "psd_group_kernel", ""),
             ("fused_psd_probe", "psd_regs_kernel", ""),
             ("fused_psd_probe", "psd_fast_group_kernel", "11"),
-            ("fused_psd_mixed", "psd_mixed_kernel", "")):
+            ("fused_psd_mixed", "psd_mixed_kernel", ""),
+            ("fused_psd_mixed", "psd_ring_kernel", ""),
+            ("fused_psd_mixed", "psd_chirp_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -2138,19 +2205,39 @@ def main() -> int:
                   f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM; "
                   f"k1_group's grid aims at "
                   f"{fp.resident_blocks(N, windowed, dev.index)} blocks")
-    for label, N, w, shape in (
-            [("fused_psd_mixed", N, w, fm.mixed_launch(N))
-             for N in (500, 2400, 6000, 12000, 16200) for w in (False, True)]
-            + [("fused_psd_bluestein", N, w, fb.bluestein_launch(N))
-               for N in (500, 998, 8182) for w in (False, True)]):
-        attrs = fm.kernel_attributes(shape, label == "fused_psd_bluestein", w)
-        print(f"occupancy {label} N={N} "
-              f"{'windowed' if w else 'unwindowed'} plan {shape.plan} on "
-              f"{card}: "
-              f"{attrs['registers']} registers, {attrs['spill_bytes']} B "
-              f"spill, {attrs['static_smem']} + {attrs['dynamic_smem']} B "
-              f"shared, {attrs['threads']} threads ({shape.lanes} lanes of "
-              f"{shape.tf}), {attrs['blocks_per_sm']} blocks/SM")
+    for N in (500, 2400, 6000, 12000, 16200, 16384):
+        shape = fm.ring_launch(N)
+        for w in (False, True):
+            a = fm.ring_attributes(shape, w)
+            print(f"occupancy fused_psd_mixed N={N} "
+                  f"{'windowed' if w else 'unwindowed'} plan {shape.plan} "
+                  f"({'fixed' if fm.form_of(shape) == fm.FORM_FIXED else 'run-time'}"
+                  f") on {card}: {a['registers']} registers, "
+                  f"{a['spill_bytes']} B spill, {a['static_smem']} + "
+                  f"{a['dynamic_smem']} B shared, {a['threads']} threads "
+                  f"({shape.lanes} lanes of {shape.tf}), last-pass sums "
+                  f"{shape.acc} of {shape.acc_class}, {a['blocks_per_sm']} "
+                  f"blocks/SM")
+    for N in (10, 200, 500, 998, 3000, 8182):
+        shape = fb.chirp_launch(N)
+        for w in (False, True):
+            a = fb.chirp_attributes(N, w)
+            print(f"occupancy fused_psd_bluestein N={N} M={shape.M} "
+                  f"{'windowed' if w else 'unwindowed'} on {card}: "
+                  f"{a['registers']} registers, {a['spill_bytes']} B spill, "
+                  f"{a['static_smem']} + {a['dynamic_smem']} B shared, "
+                  f"{a['threads']} threads ({shape.lanes} lanes of "
+                  f"{shape.tf}), {a['blocks_per_sm']} blocks/SM")
+    for label, N, shape in (
+            [("fused_psd_mixed_control", N, fm.mixed_launch(N))
+             for N in (500, 2400, 12000)]
+            + [("fused_psd_bluestein_control", N, fb.bluestein_launch(N))
+               for N in (998, 8182)]):
+        a = fm.control_attributes(shape, "bluestein" in label)
+        print(f"occupancy {label} N={N} plan {shape.plan} on {card}: "
+              f"{a['registers']} registers, {a['spill_bytes']} B spill, "
+              f"{a['threads']} threads ({shape.lanes} lanes of {shape.tf}), "
+              f"{a['blocks_per_sm']} blocks/SM")
 
     # 11.-12. The stage-attribution probes, then their entry points.
     probe_times = phase_probes(dev, np.random.default_rng(0), fpp, ff, fp,

@@ -78,16 +78,37 @@ SIGNATURES = {
                                        _I, _I, _I, _P],
     },
     "fused_psd_mixed": {
-        # raw, twiddle, window, chirp, spectrum, partial, out, plan
-        # (int[17]), device, F, group, n_valid, stream
-        "rpf_fused_psd_mixed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _P],
+        # the mixed-radix kernel: raw, twiddle, order, window, partial, out,
+        # plan (int[57]), device, F, group, n_valid, width, form, stream
+        "rpf_fused_psd_mixed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _P],
+        # raw, twiddle, order, window, n_valid, partial, out, plan, device,
+        # S, F, group, width, form, stream
+        "rpf_fused_psd_mixed_streams": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _I, _P],
+        # plan, windowed, form, device, attrs (int[6])
+        "rpf_fused_psd_mixed_attributes": [_P, _I, _I, _I, _P],
+        # the chirp-Z kernel: raw, twiddle, window, chirp, spectrum,
+        # partial, out, device, log2m, bins, F, group, n_valid, width,
+        # stream
+        "rpf_fused_psd_chirp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _P],
+        # raw, twiddle, window, chirp, spectrum, n_valid, partial, out,
+        # device, log2m, bins, S, F, group, width, stream
+        "rpf_fused_psd_chirp_streams": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _I, _I, _P],
+        # log2m, bins, windowed, device, attrs (int[6])
+        "rpf_fused_psd_chirp_attributes": [_I, _I, _I, _I, _P],
+        # the control: raw, twiddle, window, chirp, spectrum, partial,
+        # out, plan (int[17]), device, F, group, n_valid, stream
+        "rpf_fused_psd_mixed_control": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _P],
         # raw, twiddle, window, chirp, spectrum, n_valid, partial, out,
         # plan, device, S, F, group, stream
-        "rpf_fused_psd_mixed_streams": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _P],
+        "rpf_fused_psd_mixed_control_streams": [_P, _P, _P, _P, _P, _P, _P,
+                                                _P, _P, _I, _I, _I, _I, _P],
         # plan, chirp, windowed, device, attrs (int[6])
-        "rpf_fused_psd_mixed_attributes": [_P, _I, _I, _I, _P],
+        "rpf_fused_psd_mixed_control_attributes": [_P, _I, _I, _I, _P],
     },
     "fused_psd_probe": {
         # variant, raw, w1r, w1i, twiddle, w2, offsets, partial, out,

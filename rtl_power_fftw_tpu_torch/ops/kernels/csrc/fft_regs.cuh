@@ -197,4 +197,67 @@ __device__ __forceinline__ void regs_pass(float2 (&v)[RegsPlan<LOG2N>::R],
   }
 }
 
+// The first radix-2 stage (half-span RADIX / 2) of dif_regs<RADIX> on v
+// whose upper half is zero: v[J + RADIX/2] = v[J] W_RADIX^J and v[J] stays.
+// dif_regs<RADIX, RADIX / 4> does the other stages.
+template <int RADIX, int J = 0, int COUNT>
+__device__ __forceinline__ void dif_stage_half_zero(float2 (&v)[COUNT]) {
+  if constexpr (J < RADIX / 2) {
+    constexpr int q = J * (16 / RADIX);
+    if constexpr (q == 0) {
+      v[J + RADIX / 2] = v[J];
+    } else if constexpr (q == 4) {
+      v[J + RADIX / 2] = make_float2(v[J].y, -v[J].x);
+    } else {
+      v[J + RADIX / 2] = cmul(v[J], w16(q, 0), w16(q, 1));
+    }
+    dif_stage_half_zero<RADIX, J + 1>(v);
+  }
+}
+
+// Transposed pass J of one frame on thread t, J below the last pass: the
+// butterflies of pass J run backwards. Each butterfly's R_J elements are
+// read from x times their twiddles W_{L_J}^(n2*k) (the forward pass's
+// table entries, on the input), transformed in registers, and written
+// back in natural order: output k1 to element base + k1*S_J, so no
+// reorder. On pass 0 (one butterfly a thread, b = t) nothing is written:
+// v[r] is left holding element t + rev_bits(r)*TF. Run from the last
+// pass down to pass 0 on a digit-reversed vector, these passes are the
+// transpose of the forward passes, which is the DFT again (the DFT matrix
+// is symmetric), with its output in natural order.
+template <int LOG2N, int J>
+__device__ __forceinline__ void regs_pass_t(
+    float2 (&v)[RegsPlan<LOG2N>::R], float2* x,
+    const float2* __restrict__ twiddle, int t) {
+  using P = RegsPlan<LOG2N>;
+  constexpr int RJ = pass_radix(LOG2N, J);
+  constexpr int L = P::span(J);
+  constexpr int S = L / RJ;
+  constexpr int BITS = log2_of(RJ);
+  static_assert(J < P::PASSES - 1, "the last pass has no twiddles");
+#pragma unroll
+  for (int i = 0; i < P::R / RJ; ++i) {
+    const int b = t + i * P::TF;
+    const int n2 = b % S;
+    const int base = (b / S) * L + n2;
+    const float2* tw = twiddle + P::twiddle_offset(J) + n2;
+#pragma unroll
+    for (int k = 0; k < RJ; ++k) {
+      float2 y = x[pad_index(base + k * S)];
+      if (k != 0) {
+        const float2 w = __ldg(tw + k * S);
+        y = cmul(y, w.x, w.y);
+      }
+      v[i * RJ + k] = y;
+    }
+    dif_regs<RJ>(v, i * RJ);
+    if constexpr (J != 0) {
+#pragma unroll
+      for (int r = 0; r < RJ; ++r) {
+        x[pad_index(base + rev_bits(r, BITS) * S)] = v[i * RJ + r];
+      }
+    }
+  }
+}
+
 }  // namespace

@@ -3,25 +3,28 @@ partial power sum, at any even N up to 8192.
 
 Replaces ``rtl_power_fftw_tpu/ops/dft.py:bluestein_psd_partial`` (the JAX
 package's chirp-Z rung, run through XLA's FFT, no Pallas kernel) with a
-CUDA C++ kernel written for Hopper: the chirp-Z instantiation of the
-awkward-N template (``csrc/fused_psd_mixed.cuh``), in the library of
-``csrc/fused_psd_mixed.cu`` and launched by
-:func:`.fused_psd_mixed.launch`. It computes the function of
-:func:`fused_psd <.fused_psd.fused_psd>` (dequantize, [window,] length-N
-DFT, |X|^2, mask, sum over frames, bins in natural order) with the N-point
-DFT as one circular convolution of length M = next_pow2(2N - 1) <= 16384:
+CUDA C++ kernel written for Hopper, ``psd_chirp_kernel`` of
+``csrc/fused_psd_chirp.cuh`` in the library of ``csrc/fused_psd_mixed.cu``.
+It computes the function of :func:`fused_psd <.fused_psd.fused_psd>`
+(dequantize, [window,] length-N DFT, |X|^2, mask, sum over frames, bins in
+natural order) with the N-point DFT as one circular convolution of length
+M >= 2N - 1:
 
     X[k] = a[k] * IFFT_M(FFT_M(x * a) * B)[k],  a[n] = e^(-i pi n^2 / N),
     B = FFT_M(v),  v[m] = conj(a[|m|]) for |m| < N laid out circularly,
 
 with the tables of :func:`bluestein_constants` (the JAX package's
 ``_bluestein_constants`` in natural order: built in float64 with exact
-integer angle reduction and rounded once to complex64). The kernel's
-transforms are the register passes of ``csrc/fft_mixed.cuh`` over M's
-pow-2 plan (:func:`bluestein_plan`); its tables are B / M permuted into
-the forward transform's output order (:func:`spectrum_table`) and a
+integer angle reduction and rounded once to complex64). The kernel's M is
+:func:`chirp_size` (the least power of two, at least 64), its transforms
+K1's register FFT (``csrc/fft_regs.cuh``) by M's pass plan
+(:func:`chirp_plan`, ``fused_psd.PASS_PLAN``), the inverse as its
+transposed passes; its tables are B / M permuted into the forward
+transform's output order of that plan (:func:`spectrum_table`) and a
 (:func:`chirp_table`); a window multiplies the samples before the chirp,
-as in ``bluestein_psd_partial``. :func:`fused_psd_bluestein_streams` does
+as in ``bluestein_psd_partial``. Its grid is K1's rule
+(``fused_psd.k1_group``) over its own residency
+(:func:`chirp_resident_blocks`). :func:`fused_psd_bluestein_streams` does
 it for S streams at once, as K4 does.
 
 :func:`fused_psd_bluestein` and :func:`fused_psd_bluestein_streams`
@@ -29,25 +32,40 @@ dispatch on the tensor's device: a CPU tensor goes to the plain PyTorch
 version (:func:`bluestein_psd_reference`, the same chirp-Z algorithm in
 torch ops); a CUDA tensor goes to the kernel, or raises.
 ``COUNTS.kernel_bluestein`` and ``COUNTS.kernel_bluestein_streams`` (in
-:mod:`.fused_psd`) count its launches.
+:mod:`.fused_psd`) count its launches. The kernel it replaced, the chirp-Z
+instantiation of the control template (``csrc/fused_psd_mixed.cuh`` over
+M's mixed-radix plan :func:`bluestein_plan`, with the table of that
+plan), runs only as :func:`fused_psd_bluestein_control`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .fused_psd import COUNTS, _on_cuda, check_args, check_streams_args
-from .fused_psd_mixed import (MixedLaunch, element_of_bin, launch,
-                              launch_shape, mixed_plan)
+from .fused_psd import (COUNTS, PASS_PLAN, _device_pass_twiddles, _on_cuda,
+                        check_alignment, check_args, check_streams_args,
+                        k1_group)
+from .fused_psd_large import _raw_stream
+from .fused_psd_mixed import (CONTROL_COUNTS, RING_RAW_ALIGN, SUM_BINS,
+                              WINDOW_ALIGN, MixedLaunch, _attributes,
+                              _resident, check_either, copy_width,
+                              element_of_bin, launch_control, launch_error,
+                              launch_shape, mixed_plan, partial_rows,
+                              ring_slot)
 
 #: Largest N the kernel takes: M = next_pow2(2N - 1) <= 16384, whose
-#: padded complex frame (139 KB) and N-float accumulator fit the 227 KB
-#: of shared memory a Hopper block may use.
+#: padded complex frame (139 KB) and two ring slots fit the 227 KB of
+#: shared memory a Hopper block may use.
 MAX_N = 8192
+#: The kernel's smallest M: the register FFT's smallest size.
+MIN_M = 64
+#: Threads a block of the kernel has at least (kRegsMinThreads).
+MIN_THREADS = 256
 
 
 def next_pow2(n: int) -> int:
@@ -68,16 +86,25 @@ def _chirp64(N: int) -> np.ndarray:
     return np.cos(ang) + 1j * np.sin(ang)
 
 
+def chirp_size(N: int) -> int:
+    """The kernel's transform length at N: the least power of two
+    >= 2N - 1, at least MIN_M."""
+    return max(MIN_M, next_pow2(2 * N - 1))
+
+
 @functools.lru_cache(maxsize=8)
-def bluestein_constants(N: int) -> Tuple[int, np.ndarray, np.ndarray]:
-    """(M, a, B): M = next_pow2(2N - 1), the chirp a[n] = e^(-i pi n^2 / N)
-    (N,) complex64, and B = FFT_M(v) (M,) complex64 in natural order, v
-    the conjugate chirp laid out circularly (v[m] = conj(a[m]) and
-    v[M - m] = conj(a[m]), 0 < m < N). Built in float64 with exact integer
-    angle reduction (n^2 mod 2N in int64) and rounded once, as
-    ``rtl_power_fftw_tpu/ops/dft.py:_bluestein_constants`` builds them
-    (which holds B in its four-step layout)."""
-    M = next_pow2(2 * N - 1)
+def bluestein_constants(N: int, M: Optional[int] = None
+                        ) -> Tuple[int, np.ndarray, np.ndarray]:
+    """(M, a, B): M (default next_pow2(2N - 1); any M >= 2N - 1), the chirp
+    a[n] = e^(-i pi n^2 / N) (N,) complex64, and B = FFT_M(v) (M,)
+    complex64 in natural order, v the conjugate chirp laid out circularly
+    (v[m] = conj(a[m]) and v[M - m] = conj(a[m]), 0 < m < N). Built in
+    float64 with exact integer angle reduction (n^2 mod 2N in int64) and
+    rounded once, as ``rtl_power_fftw_tpu/ops/dft.py:_bluestein_constants``
+    builds them (which holds B in its four-step layout)."""
+    M = next_pow2(2 * N - 1) if M is None else M
+    if M < 2 * N - 1:
+        raise ValueError(f"M={M} is below 2N - 1 at N={N}")
     a = _chirp64(N)
     v = np.zeros(M, np.complex128)
     v[:N] = np.conj(a)
@@ -87,9 +114,10 @@ def bluestein_constants(N: int) -> Tuple[int, np.ndarray, np.ndarray]:
 
 
 def bluestein_plan(N: int) -> Tuple[int, ...]:
-    """The pow-2 plan of M's transforms: :func:`.fused_psd_mixed.mixed_plan`
-    of M, its one pass split in two where it has one (M <= 16), since the
-    turn between the transforms is the last pass's butterfly."""
+    """The control's pow-2 plan of M's transforms:
+    :func:`.fused_psd_mixed.mixed_plan` of M = next_pow2(2N - 1), its one
+    pass split in two where it has one (M <= 16), since the turn between
+    the transforms is the last pass's butterfly."""
     M = next_pow2(2 * N - 1)
     plan = mixed_plan(M)
     if len(plan) == 1:
@@ -97,12 +125,22 @@ def bluestein_plan(N: int) -> Tuple[int, ...]:
     return plan
 
 
-def spectrum_table(N: int) -> np.ndarray:
-    """B / M as (M, 2) float32 (re, im) in the forward transform's output
-    order: row q holds the bin :func:`.fused_psd_mixed.element_of_bin`
-    puts at element q. (M is a power of two, so B / M rounds nothing.)"""
-    M, _, B = bluestein_constants(N)
-    plan = bluestein_plan(N)
+def chirp_plan(N: int) -> Tuple[int, ...]:
+    """The kernel's plan at N: the register FFT's pass plan of
+    :func:`chirp_size` (fused_psd.PASS_PLAN, pass_radix in
+    csrc/fft_regs.cuh)."""
+    return PASS_PLAN[chirp_size(N)]
+
+
+def spectrum_table(N: int, plan: Optional[Tuple[int, ...]] = None
+                   ) -> np.ndarray:
+    """B / M as (M, 2) float32 (re, im) in the output order of the forward
+    transform by ``plan`` (M its product; default the control's
+    :func:`bluestein_plan`, :func:`chirp_plan` for the kernel): row q holds
+    the bin :func:`.fused_psd_mixed.element_of_bin` puts at element q. (M
+    is a power of two, so B / M rounds nothing.)"""
+    plan = bluestein_plan(N) if plan is None else tuple(plan)
+    M, _, B = bluestein_constants(N, int(np.prod(plan)))
     order = np.empty(M, np.int64)
     order[element_of_bin(plan, np.arange(M))] = np.arange(M)
     S = (B[order] / np.float32(M)).astype(np.complex64)
@@ -117,8 +155,52 @@ def chirp_table(N: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def bluestein_launch(N: int) -> MixedLaunch:
-    """The kernel's block layout at N: M's plan, N bins summed."""
+    """The control's block layout at N: M's plan, N bins summed."""
     return launch_shape(bluestein_plan(N), N)
+
+
+class ChirpLaunch(NamedTuple):
+    """The kernel's layout at N (ChirpShape in csrc/fused_psd_chirp.cuh):
+    K1's register layout of M."""
+    bins: int       # N
+    M: int          # chirp_size(N)
+    R: int          # values a thread holds (the plan's first radix)
+
+    @property
+    def log2m(self) -> int:
+        return self.M.bit_length() - 1
+
+    @property
+    def tf(self) -> int:
+        """Threads a frame lane: M / R."""
+        return self.M // self.R
+
+    @property
+    def threads(self) -> int:
+        return max(MIN_THREADS, self.tf)
+
+    @property
+    def lanes(self) -> int:
+        return self.threads // self.tf
+
+    @property
+    def row(self) -> int:
+        return -(-self.bins // SUM_BINS) * SUM_BINS
+
+    @property
+    def smem(self) -> int:
+        """Shared bytes a block: the padded exchange buffers, then the
+        lanes' rings (two slots and 32 bytes each)."""
+        return self.lanes * ((self.M + self.M // 16) * 8
+                             + 2 * ring_slot(self.bins) + 32)
+
+
+@functools.lru_cache(maxsize=64)
+def chirp_launch(N: int) -> ChirpLaunch:
+    """The kernel's block layout at N bins."""
+    if not fused_psd_bluestein_eligible(N):
+        raise ValueError(f"fused_psd_bluestein does not take N={N}")
+    return ChirpLaunch(N, chirp_size(N), chirp_plan(N)[0])
 
 
 def _power(raw_u8: torch.Tensor,
@@ -172,10 +254,74 @@ def bluestein_psd_streams_reference(raw_u8: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=16)
-def device_tables(N: int, device: torch.device):
-    """The chirp a and B / M in element order, on the device."""
+def device_tables(N: int, device: torch.device, kernel: bool = True):
+    """The chirp a and B / M in element order, on the device: of the
+    kernel's plan (:func:`chirp_plan`), or of the control's
+    (:func:`bluestein_plan`) where ``kernel`` is False."""
+    plan = chirp_plan(N) if kernel else bluestein_plan(N)
     return (torch.from_numpy(chirp_table(N)).to(device),
-            torch.from_numpy(spectrum_table(N)).to(device))
+            torch.from_numpy(spectrum_table(N, plan)).to(device))
+
+
+def chirp_attributes(N: int, windowed: bool = False,
+                     device: Optional[torch.device] = None) -> dict:
+    """What the kernel at N bins (windowed or not) gets on the card:
+    registers and spill bytes a thread, static and dynamic shared bytes
+    and threads a block, and the blocks that reside on one SM. Launches
+    nothing."""
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    shape = chirp_launch(N)
+    return _attributes(f"the chirp-Z kernel at N={N}", lambda lib, attrs:
+                       lib.rpf_fused_psd_chirp_attributes(
+                           shape.log2m, N, int(windowed), device.index or 0,
+                           attrs))
+
+
+@functools.lru_cache(maxsize=64)
+def chirp_resident_blocks(N: int, windowed: bool, index: int) -> int:
+    """Blocks of the kernel at N bins that card ``index`` holds resident.
+    Asked of the card once per key."""
+    return _resident(chirp_attributes(N, windowed,
+                                      torch.device("cuda", index)), index)
+
+
+def launch_chirp(kernel: str, raw_u8: torch.Tensor, n_valid, chunk: int,
+                 window: Optional[torch.Tensor]) -> torch.Tensor:
+    """Runs the kernel on CUDA frames, on the current stream
+    (asynchronously): (F, 2N) frames with an int ``n_valid`` -> (N,), or
+    (S, F, 2N) frames with (S,) int32 counts on the device -> (S, N), a
+    view of (S, N rounded up to 32) rows. ``kernel`` names the entry in
+    errors."""
+    from . import _build
+    check_alignment(kernel, raw_u8, RING_RAW_ALIGN, window, WINDOW_ALIGN)
+    streams = raw_u8.dim() == 3
+    S = raw_u8.shape[0] if streams else 1
+    F, N = raw_u8.shape[-2], raw_u8.shape[-1] // 2
+    device = raw_u8.device
+    shape = chirp_launch(N)
+    width = copy_width(N, raw_u8.data_ptr())
+    group = k1_group(S * F, chunk, chirp_resident_blocks(
+        N, window is not None, device.index))
+    lib = _build.load("fused_psd_mixed")
+    stream = _raw_stream(device.index)
+    partial = partial_rows(shape.row, S * -(-F // group), device, stream)
+    out = torch.empty((S, shape.row), dtype=torch.float32, device=device)
+    chirp, spectrum = device_tables(N, device)
+    tables = (raw_u8.data_ptr(),
+              _device_pass_twiddles(shape.M, device).data_ptr(),
+              None if window is None else window.data_ptr(),
+              chirp.data_ptr(), spectrum.data_ptr())
+    if streams:
+        err = lib.rpf_fused_psd_chirp_streams(
+            *tables, n_valid.data_ptr(), partial, out.data_ptr(),
+            device.index, shape.log2m, N, S, F, group, width, stream)
+    else:
+        err = lib.rpf_fused_psd_chirp(
+            *tables, partial, out.data_ptr(), device.index, shape.log2m, N,
+            F, group, n_valid, width, stream)
+    if err != 0:
+        raise launch_error(kernel, lib, err)
+    return out[:, :N] if streams else out[0, :N]
 
 
 def fused_psd_bluestein(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -193,9 +339,7 @@ def fused_psd_bluestein(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     if not _on_cuda("fused_psd_bluestein", raw_u8):
         COUNTS.plain += 1
         return bluestein_psd_reference(raw_u8, n_valid, chunk, window)
-    N = raw_u8.shape[1] // 2
-    out = launch("fused_psd_bluestein", bluestein_launch(N), raw_u8,
-                 n_valid, chunk, window, device_tables(N, raw_u8.device))
+    out = launch_chirp("fused_psd_bluestein", raw_u8, n_valid, chunk, window)
     COUNTS.kernel_bluestein += 1
     return out
 
@@ -219,8 +363,32 @@ def fused_psd_bluestein_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
         COUNTS.plain += 1
         return bluestein_psd_streams_reference(raw_u8, n_valid, chunk,
                                                window)
-    N = raw_u8.shape[2] // 2
-    out = launch("fused_psd_bluestein_streams", bluestein_launch(N), raw_u8,
-                 n_valid, chunk, window, device_tables(N, raw_u8.device))
+    out = launch_chirp("fused_psd_bluestein_streams", raw_u8, n_valid, chunk,
+                       window)
     COUNTS.kernel_bluestein_streams += 1
+    return out
+
+
+def fused_psd_bluestein_control(raw_u8: torch.Tensor, n_valid, chunk: int,
+                                window: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """The control, the kernel :func:`fused_psd_bluestein` replaced: the
+    function of :func:`fused_psd_bluestein` on (F, 2N) frames with an int
+    ``n_valid``, or of :func:`fused_psd_bluestein_streams` on (S, F, 2N)
+    frames with (S,) int32 counts. A CUDA tensor runs the control; a CPU
+    tensor the plain version. Counted in
+    ``fused_psd_mixed.CONTROL_COUNTS``."""
+    n_valid = check_either("fused_psd_bluestein_control",
+                           fused_psd_bluestein_eligible, raw_u8, n_valid,
+                           chunk, window)
+    if not _on_cuda("fused_psd_bluestein_control", raw_u8):
+        CONTROL_COUNTS.plain += 1
+        plain = (bluestein_psd_streams_reference if raw_u8.dim() == 3
+                 else bluestein_psd_reference)
+        return plain(raw_u8, n_valid, chunk, window)
+    N = raw_u8.shape[-1] // 2
+    out = launch_control("fused_psd_bluestein_control", bluestein_launch(N),
+                         raw_u8, n_valid, chunk, window,
+                         device_tables(N, raw_u8.device, False))
+    CONTROL_COUNTS.kernel_bluestein += 1
     return out

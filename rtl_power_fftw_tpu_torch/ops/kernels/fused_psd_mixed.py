@@ -12,18 +12,23 @@ float32], length-N DFT in float32, |X|^2, frames f >= ``n_valid`` dropped,
 a sum over frames, bins in natural (unshifted) order.
 :func:`fused_psd_mixed_streams` does it for S streams at once, as K4 does.
 
-The transform (``csrc/fft_mixed.cuh``) is fft_regs.cuh's decimation in
-frequency with the radices 16, 8, 7, 5, 4, 3 and 2, by the pass plan
-:func:`mixed_plan` (run-time, one kernel for every N), twiddles from
-:func:`plan_twiddles`; after the last pass element q holds the bin whose
-digits are q's in reverse (:func:`element_of_bin`). A block is
-``lanes`` frame lanes of ``tf`` threads (:func:`launch_shape`); it sums
-as many frames as put the grid within the blocks the card holds
-resident, at least one a lane (:func:`mixed_group`,
-:func:`resident_blocks`). Each
-block writes a partial row of N rounded up to 32 floats and
-``psd_sum.cuh`` adds the rows in float64, so a run gives the same bits
-every time.
+The kernel (``csrc/fused_psd_mixed_ring.cuh``) runs the passes of
+``csrc/fft_mixed.cuh``, decimation in frequency with the radices 16, 8, 7,
+5, 4, 3 and 2, by the pass plan :func:`mixed_plan` (run-time, one kernel
+for every N), twiddles from :func:`plan_twiddles`; after the last pass
+element q holds the bin whose digits are q's in reverse
+(:func:`element_of_bin`). Its layout is :func:`ring_shape`: ``lanes``
+frame lanes of ``tf`` threads, tf a multiple of 32 with the fewest idle
+thread slots over the passes; the plan ints carry each pass's stride,
+division constant (:func:`magic`), twiddle offset and rounds, so no pass
+divides. The next frame is copied into a ring in shared memory while one
+is transformed, :func:`copy_width` bytes a copy; each thread keeps its
+last-pass sums in registers across its lane's frames (at most
+:data:`RING_ACC`). A block sums as many frames as put the grid within the
+blocks the card holds resident, at least one a lane (:func:`mixed_group`,
+:func:`ring_resident_blocks`). Each block writes a partial row of N
+rounded up to 32 floats and ``psd_sum.cuh`` adds the rows in float64, so
+a run gives the same bits every time.
 
 :func:`fused_psd_mixed` and :func:`fused_psd_mixed_streams` dispatch on
 the tensor's device: a CPU tensor goes to the plain PyTorch version (K1's
@@ -33,12 +38,15 @@ kernel, or raises. ``COUNTS.kernel_mixed`` and
 ``COUNTS.kernel_mixed_streams`` (in :mod:`.fused_psd`) count its
 launches.
 
-The library also holds the chirp-Z kernel, the same template over M's
-power-of-two plan (:mod:`.fused_psd_bluestein`); :func:`launch` runs
-either, single-stream or streams. The host path does the least it can a
-call: the plan, twiddles and grid are cached per (layout, F, chunk,
-chirp, windowed, streams, device) and the partial rows per (row, rows,
-device, stream), so a call allocates only its output.
+The library also holds the chirp-Z kernel (:mod:`.fused_psd_bluestein`)
+and the kernel both replaced, the control (``csrc/fused_psd_mixed.cuh``:
+the same passes with the plan by value, no frame in flight, the
+accumulator in shared memory; :func:`launch_shape`, :func:`mixed_launch`),
+which only :func:`fused_psd_mixed_control` and
+``fused_psd_bluestein.fused_psd_bluestein_control`` launch, counted in
+:data:`CONTROL_COUNTS`. The host path does the least it can a call: the
+plan, twiddles and grid are cached per key and the partial rows per (row,
+rows, device, stream), so a call allocates only its output.
 """
 
 from __future__ import annotations
@@ -51,20 +59,21 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .fused_psd import (COUNTS, KernelLaunchError, _on_cuda, check_alignment,
-                        check_args, check_streams_args, fused_psd_reference,
-                        fused_psd_streams_reference, k1_group)
+from .fused_psd import (COUNTS, KernelLaunchError, LaunchCounts, _on_cuda,
+                        check_alignment, check_args, check_streams_args,
+                        fused_psd_reference, fused_psd_streams_reference,
+                        k1_group)
 from .fused_psd_large import _raw_stream
 
 #: Radices a pass may have; kept in step with kMixedRadices in
 #: csrc/fft_mixed.cuh.
 RADICES = (16, 8, 7, 5, 4, 3, 2)
-#: Largest N the kernel takes: a lane's padded complex frame and its f32
-#: accumulator (12.5 N bytes) within the 227 KB a Hopper block may use.
+#: Largest N the kernel takes: a lane's padded complex frame and its two
+#: ring slots (12.5 N bytes) within the 227 KB a Hopper block may use.
 MAX_N = 16384
 #: Limits of the plan, kept in step with the source: passes
-#: (kMixedMaxPasses), threads a block (kMixedMaxThreads) and shared bytes
-#: a block (kMixedMaxSmem).
+#: (kMixedMaxPasses), threads a block of the control (kMixedMaxThreads)
+#: and shared bytes a block (kMixedMaxSmem).
 MAX_PASSES = 10
 MAX_THREADS = 512
 MAX_SMEM = 232448
@@ -73,9 +82,34 @@ TARGET_THREADS = 256
 #: Bins a block of psd_sum.cuh sums (kSumBins): a partial row's length is
 #: N rounded up to it.
 SUM_BINS = 32
-#: Alignment of the loads: frames read as u16 pairs, the window as floats.
+#: Alignment of the control's loads: frames read as u16 pairs, the window
+#: as floats.
 RAW_ALIGN = 2
 WINDOW_ALIGN = 4
+#: The kernel's limits, kept in step with csrc/fused_psd_mixed_ring.cuh:
+#: threads a block (kRingMaxThreads) and the two classes of last-pass sums
+#: a thread holds in registers (kRingAccSmall, kRingAccLarge).
+RING_MAX_THREADS = 512
+RING_ACC = (16, 36)
+#: Dynamic shared bytes a block of the kernel may have (kRingMaxSmem): the
+#: 227 KB less 256 for its static pass table.
+RING_MAX_SMEM = MAX_SMEM - 256
+#: Frames are copied into the ring 4, 8 or 16 bytes at a time
+#: (:func:`copy_width`), so they must be at least 4-byte aligned.
+RING_RAW_ALIGN = 4
+#: The kernel's forms (``form`` of rpf_fused_psd_mixed): the run-time plan
+#: with twiddles read through L1, the same with twiddles resident in shared
+#: memory, and the plans fixed at compile time (:data:`FIXED_PLANS`). The
+#: wrappers run :func:`form_of`'s.
+FORM_L1, FORM_TW_SMEM, FORM_FIXED = 0, 1, 2
+#: The plans instantiated at compile time (Fixed500, Fixed2400 in
+#: csrc/fused_psd_mixed_ring.cuh): N -> (tf, radices).
+FIXED_PLANS = {500: (128, (5, 5, 5, 4)), 2400: (160, (8, 5, 5, 4, 3))}
+
+#: Launches of the controls (:func:`fused_psd_mixed_control`,
+#: ``fused_psd_bluestein.fused_psd_bluestein_control``) and of their plain
+#: versions, apart from :data:`COUNTS`.
+CONTROL_COUNTS = LaunchCounts()
 
 
 def smooth7(N: int) -> bool:
@@ -229,6 +263,7 @@ class _Plan(NamedTuple):
     rows: int               # partial rows (blocks)
     twiddle: int            # its device pointer
     keep: tuple             # the tensors behind the pointers
+    order: int = 0          # the kernel's bin -> element table
 
 
 @functools.lru_cache(maxsize=32)
@@ -236,39 +271,56 @@ def _device_twiddles(plan: tuple, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(plan_twiddles(plan)).to(device)
 
 
-def kernel_attributes(shape: MixedLaunch, chirp: bool = False,
-                      windowed: bool = False,
-                      device: Optional[torch.device] = None) -> dict:
-    """What the kernel (the chirp-Z kernel where ``chirp``, windowed or
-    not) gets with the layout ``shape`` on the card: registers and spill
-    bytes a thread, static and dynamic shared bytes and threads a block,
-    and the blocks that reside on one SM. Launches nothing."""
-    device = device or torch.device("cuda", torch.cuda.current_device())
+@functools.lru_cache(maxsize=32)
+def _device_order(plan: tuple, device: torch.device) -> torch.Tensor:
+    """element_of_bin of every bin, (N,) int32 on the device."""
+    N = int(np.prod(plan))
+    return torch.from_numpy(element_of_bin(plan, np.arange(N)).astype(
+        np.int32)).to(device)
+
+
+def _attributes(label: str, call) -> dict:
+    """Runs ``call(lib, attrs)`` of the library's attributes entries and
+    names what it wrote."""
     from . import _build
     lib = _build.load("fused_psd_mixed")
-    ints = (ctypes.c_int * (7 + MAX_PASSES))(*shape.ints())
     attrs = (ctypes.c_int * 6)()
-    err = lib.rpf_fused_psd_mixed_attributes(
-        ctypes.addressof(ints), int(chirp), int(windowed), device.index or 0,
-        attrs)
+    err = call(lib, attrs)
     if err != 0:
-        raise launch_error(f"fused_psd_mixed attributes of {shape}", lib,
-                           err)
+        raise launch_error(f"fused_psd_mixed attributes of {label}", lib, err)
     return dict(zip(("registers", "spill_bytes", "static_smem",
                      "dynamic_smem", "threads", "blocks_per_sm"), attrs))
 
 
+def _resident(attrs: dict, index: int) -> int:
+    """The card's SMs times the blocks of ``attrs`` one SM holds."""
+    sms = torch.cuda.get_device_properties(
+        torch.device("cuda", index)).multi_processor_count
+    return sms * max(1, attrs["blocks_per_sm"])
+
+
+def control_attributes(shape: MixedLaunch, chirp: bool = False,
+                       windowed: bool = False,
+                       device: Optional[torch.device] = None) -> dict:
+    """What the control (its chirp-Z instantiation where ``chirp``,
+    windowed or not) gets with the layout ``shape`` on the card: registers
+    and spill bytes a thread, static and dynamic shared bytes and threads a
+    block, and the blocks that reside on one SM. Launches nothing."""
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    ints = (ctypes.c_int * (7 + MAX_PASSES))(*shape.ints())
+    return _attributes(str(shape), lambda lib, attrs:
+                       lib.rpf_fused_psd_mixed_control_attributes(
+                           ctypes.addressof(ints), int(chirp), int(windowed),
+                           device.index or 0, attrs))
+
+
 @functools.lru_cache(maxsize=64)
-def resident_blocks(shape: MixedLaunch, chirp: bool, windowed: bool,
-                    index: int) -> int:
-    """Blocks of the kernel with the layout ``shape`` that card ``index``
-    holds resident: its SMs times the blocks one SM holds. Asked of the
-    card once per key."""
-    device = torch.device("cuda", index)
-    per_sm = kernel_attributes(shape, chirp, windowed,
-                               device)["blocks_per_sm"]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, per_sm)
+def control_resident_blocks(shape: MixedLaunch, chirp: bool, windowed: bool,
+                            index: int) -> int:
+    """Blocks of the control with the layout ``shape`` that card ``index``
+    holds resident. Asked of the card once per key."""
+    return _resident(control_attributes(shape, chirp, windowed,
+                                        torch.device("cuda", index)), index)
 
 
 _plans: dict = {}
@@ -276,15 +328,15 @@ _plans: dict = {}
 
 def _plan(shape: MixedLaunch, F: int, chunk: int, chirp: bool,
           windowed: bool, streams: int, device: torch.device) -> _Plan:
-    """The launch of F frames a stream over ``streams`` streams (one for
-    the single-stream entry), cached per key."""
+    """The control's launch of F frames a stream over ``streams`` streams
+    (one for the single-stream entry), cached per key."""
     key = (shape, F, chunk, chirp, windowed, streams, device.index)
     plan = _plans.get(key)
     if plan is None:
         from . import _build
         group = mixed_group(
             streams * F, chunk,
-            resident_blocks(shape, chirp, windowed, device.index),
+            control_resident_blocks(shape, chirp, windowed, device.index),
             shape.lanes)
         twiddle = _device_twiddles(shape.plan, device)
         ints = (ctypes.c_int * (7 + MAX_PASSES))(*shape.ints())
@@ -322,17 +374,17 @@ def launch_error(kernel: str, lib, err: int) -> KernelLaunchError:
         f"(cudaError {err})")
 
 
-def launch(kernel: str, shape: MixedLaunch, raw_u8: torch.Tensor, n_valid,
-           chunk: int, window: Optional[torch.Tensor],
-           chirp: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-           ) -> torch.Tensor:
-    """Runs the kernel with the layout ``shape`` on CUDA frames, on the
+def launch_control(kernel: str, shape: MixedLaunch, raw_u8: torch.Tensor,
+                   n_valid, chunk: int, window: Optional[torch.Tensor],
+                   chirp: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> torch.Tensor:
+    """Runs the control with the layout ``shape`` on CUDA frames, on the
     current stream (asynchronously): (F, 2N) frames with an int
     ``n_valid`` -> (N,), or (S, F, 2N) frames with (S,) int32 counts on
     the device -> (S, N), a view of (S, N rounded up to 32) rows.
-    ``chirp``: the chirp-Z kernel's (a, B / M) tables on the device
-    (:func:`.fused_psd_bluestein.device_tables`), or None for the
-    mixed-radix kernel. ``kernel`` names the entry in errors."""
+    ``chirp``: the chirp-Z control's (a, B / M) tables on the device, or
+    None for the mixed-radix control. ``kernel`` names the entry in
+    errors."""
     check_alignment(kernel, raw_u8, RAW_ALIGN, window, WINDOW_ALIGN)
     streams = raw_u8.dim() == 3
     S = raw_u8.shape[0] if streams else 1
@@ -348,17 +400,253 @@ def launch(kernel: str, shape: MixedLaunch, raw_u8: torch.Tensor, n_valid,
               *((None, None) if chirp is None
                 else (chirp[0].data_ptr(), chirp[1].data_ptr())))
     if streams:
-        err = plan.lib.rpf_fused_psd_mixed_streams(
+        err = plan.lib.rpf_fused_psd_mixed_control_streams(
             *tables, n_valid.data_ptr(), partial, out.data_ptr(),
             ctypes.addressof(plan.ints), device.index, S, F, plan.group,
             stream)
     else:
-        err = plan.lib.rpf_fused_psd_mixed(
+        err = plan.lib.rpf_fused_psd_mixed_control(
             *tables, partial, out.data_ptr(), ctypes.addressof(plan.ints),
             device.index, F, plan.group, n_valid, stream)
     if err != 0:
         raise launch_error(kernel, plan.lib, err)
     return out[:, :shape.bins] if streams else out[0, :shape.bins]
+
+
+# ---- The kernel: the ring kernel of csrc/fused_psd_mixed_ring.cuh. ----
+
+
+def magic(S: int) -> int:
+    """ceil(2^32 / S), the kernel's constant for b / S = umulhi(b, it)
+    (exact for b < 2^15, S < 2^14); 0 for S = 1, which no middle pass
+    has."""
+    return 0 if S == 1 else -(-(1 << 32) // S)
+
+
+def ring_rounds(plan, tf: int) -> Tuple[int, ...]:
+    """Rounds of each pass on a lane of tf threads: ceil((N / R_j) / tf)."""
+    n = int(np.prod(plan))
+    return tuple(-(-(n // r) // tf) for r in plan)
+
+
+def ring_tf(plan) -> int:
+    """The lane width for ``plan``: the multiple of 32 up to
+    RING_MAX_THREADS with the fewest thread slots over the passes (the sum
+    of rounds_j * tf, idle threads included), among those whose last pass
+    leaves a thread at most RING_ACC[-1] sums; on a tie the larger, whose
+    frame takes fewer rounds (at 500: 128 threads, one round a pass)."""
+    best = None
+    for tf in range(32, RING_MAX_THREADS + 1, 32):
+        rounds = ring_rounds(plan, tf)
+        if rounds[-1] * plan[-1] > RING_ACC[-1]:
+            continue
+        if best is None or sum(rounds) * tf <= best[0]:
+            best = (sum(rounds) * tf, tf)
+    if best is None:
+        raise ValueError(f"no lane width for plan {tuple(plan)}")
+    return best[1]
+
+
+def ring_slot(N: int) -> int:
+    """A ring slot: the frame's 2N bytes rounded up to 16."""
+    return -(-2 * N // 16) * 16
+
+
+def round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+class RingLaunch(NamedTuple):
+    """The kernel's layout (``RingPlan`` in
+    csrc/fused_psd_mixed_ring.cuh)."""
+    n: int          # N
+    row: int        # a partial row: N rounded up to SUM_BINS
+    plan: tuple     # the radices
+    tf: int         # threads a frame lane, a multiple of 32
+    lanes: int      # frame lanes a block, a power of two
+    xstride: int    # float2 of a lane's exchange buffer
+
+    @property
+    def threads(self) -> int:
+        return self.tf * self.lanes
+
+    @property
+    def rounds(self) -> Tuple[int, ...]:
+        return ring_rounds(self.plan, self.tf)
+
+    @property
+    def acc(self) -> int:
+        """Last-pass sums a thread holds: rounds * R_last."""
+        return self.rounds[-1] * self.plan[-1]
+
+    @property
+    def acc_class(self) -> int:
+        """The kernel's register array for them: RING_ACC's first that
+        holds them."""
+        return next(a for a in RING_ACC if self.acc <= a)
+
+    @property
+    def tw_rows(self) -> int:
+        return len(plan_twiddles(self.plan))
+
+    def smem(self, tw_smem: bool = False) -> int:
+        """Shared bytes a block: [the twiddles,] the exchange buffers, then
+        the lanes' rings (two slots and 32 bytes each)."""
+        return ((round16(self.tw_rows * 8) if tw_smem else 0)
+                + round16(self.lanes * self.xstride * 8)
+                + self.lanes * (2 * ring_slot(self.n) + 32))
+
+    def ints(self) -> list:
+        """The plan as the kernel reads it (read_ring_plan): n, row,
+        passes, tf, lanes, xstride, twiddle rows, then per pass (MAX_PASSES
+        each, 0 past the last) the radix, stride, division constant (as
+        int32 bits), twiddle offset and rounds."""
+        spans = plan_spans(self.plan)
+        offsets = [0]
+        for L, _ in spans[:-1]:
+            offsets.append(offsets[-1] + L)
+        magics = [magic(S) for _, S in spans]
+
+        def pad(values):
+            values = list(values)
+            return values + [0] * (MAX_PASSES - len(values))
+
+        return ([self.n, self.row, len(self.plan), self.tf, self.lanes,
+                 self.xstride, self.tw_rows] + pad(self.plan)
+                + pad(S for _, S in spans)
+                + pad(m - (1 << 32) if m >= 1 << 31 else m for m in magics)
+                + pad(offsets) + pad(self.rounds))
+
+
+def ring_shape(plan) -> RingLaunch:
+    """The kernel's layout for ``plan``: tf = :func:`ring_tf`, as many
+    frame lanes, a power of two, as bring a block to at most
+    TARGET_THREADS threads, fewer where shared memory runs out."""
+    plan = tuple(plan)
+    n = int(np.prod(plan))
+    if len(plan) > MAX_PASSES or any(r not in RADICES for r in plan):
+        raise ValueError(f"plan {plan} outside the kernel's radices or "
+                         "passes")
+    tf = ring_tf(plan)
+    lanes = 1 << max(0, (TARGET_THREADS // tf).bit_length() - 1)
+    shape = RingLaunch(n, -(-n // SUM_BINS) * SUM_BINS, plan, tf, lanes,
+                       pad_index(n - 1) + 1)
+    while shape.lanes > 1 and shape.smem() > RING_MAX_SMEM:
+        shape = shape._replace(lanes=shape.lanes // 2)
+    if shape.smem() > RING_MAX_SMEM:
+        raise ValueError(f"a frame of {n} points takes {shape.smem()} "
+                         "bytes of shared memory")
+    return shape
+
+
+@functools.lru_cache(maxsize=64)
+def ring_launch(N: int) -> RingLaunch:
+    """The kernel's block layout at N bins."""
+    return ring_shape(mixed_plan(N))
+
+
+def copy_width(N: int, ptr: int) -> int:
+    """The ring's copy width for frames of N complex u8 samples at device
+    address ``ptr``: 16 bytes where 2N and the pointer allow it, else 8,
+    else 4 (a frame is only 4-byte aligned at N = 2 * odd)."""
+    for width in (16, 8, 4):
+        if (2 * N) % width == 0 and ptr % width == 0:
+            return width
+    raise ValueError(f"frames at {ptr:#x} are not 4-byte aligned")
+
+
+def form_of(shape: RingLaunch) -> int:
+    """The form the wrappers run: the plan fixed at compile time where
+    there is one for the layout, else the run-time plan."""
+    fixed = FIXED_PLANS.get(shape.n)
+    return (FORM_FIXED if fixed == (shape.tf, shape.plan) else FORM_L1)
+
+
+def ring_attributes(shape: RingLaunch, windowed: bool = False,
+                    form: Optional[int] = None,
+                    device: Optional[torch.device] = None) -> dict:
+    """What the kernel of ``form`` gets with the layout ``shape`` on the
+    card: registers and spill bytes a thread, static and dynamic shared
+    bytes and threads a block, and the blocks that reside on one SM.
+    Launches nothing."""
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    form = form_of(shape) if form is None else form
+    ints = (ctypes.c_int * len(shape.ints()))(*shape.ints())
+    return _attributes(str(shape), lambda lib, attrs:
+                       lib.rpf_fused_psd_mixed_attributes(
+                           ctypes.addressof(ints), int(windowed), form,
+                           device.index or 0, attrs))
+
+
+@functools.lru_cache(maxsize=64)
+def ring_resident_blocks(shape: RingLaunch, windowed: bool, form: int,
+                         index: int) -> int:
+    """Blocks of the kernel of ``form`` with the layout ``shape`` that card
+    ``index`` holds resident. Asked of the card once per key."""
+    return _resident(ring_attributes(shape, windowed, form,
+                                     torch.device("cuda", index)), index)
+
+
+_ring_plans: dict = {}
+
+
+def _ring_plan(shape: RingLaunch, F: int, chunk: int, windowed: bool,
+               streams: int, form: int, device: torch.device) -> _Plan:
+    """The kernel's launch of F frames a stream over ``streams`` streams,
+    cached per key."""
+    key = (shape, F, chunk, windowed, streams, form, device.index)
+    plan = _ring_plans.get(key)
+    if plan is None:
+        from . import _build
+        group = mixed_group(
+            streams * F, chunk,
+            ring_resident_blocks(shape, windowed, form, device.index),
+            shape.lanes)
+        twiddle = _device_twiddles(shape.plan, device)
+        order = _device_order(shape.plan, device)
+        ints = (ctypes.c_int * len(shape.ints()))(*shape.ints())
+        plan = _ring_plans[key] = _Plan(
+            _build.load("fused_psd_mixed"), ints, group,
+            streams * -(-F // group), twiddle.data_ptr(), (twiddle, order),
+            order.data_ptr())
+    return plan
+
+
+def launch_ring(kernel: str, shape: RingLaunch, raw_u8: torch.Tensor,
+                n_valid, chunk: int, window: Optional[torch.Tensor],
+                form: Optional[int] = None) -> torch.Tensor:
+    """Runs the kernel of ``form`` (default :func:`form_of`'s) with the
+    layout ``shape`` on CUDA frames, on the current stream
+    (asynchronously): (F, 2N) frames with an int ``n_valid`` -> (N,), or
+    (S, F, 2N) frames with (S,) int32 counts on the device -> (S, N), a
+    view of (S, N rounded up to 32) rows. ``kernel`` names the entry in
+    errors."""
+    check_alignment(kernel, raw_u8, RING_RAW_ALIGN, window, WINDOW_ALIGN)
+    form = form_of(shape) if form is None else form
+    streams = raw_u8.dim() == 3
+    S = raw_u8.shape[0] if streams else 1
+    F = raw_u8.shape[-2]
+    device = raw_u8.device
+    width = copy_width(shape.n, raw_u8.data_ptr())
+    plan = _ring_plan(shape, F, chunk, window is not None, S, form, device)
+    stream = _raw_stream(device.index)
+    partial = partial_rows(shape.row, plan.rows, device, stream)
+    out = torch.empty((S, shape.row), dtype=torch.float32, device=device)
+    win = None if window is None else window.data_ptr()
+    if streams:
+        err = plan.lib.rpf_fused_psd_mixed_streams(
+            raw_u8.data_ptr(), plan.twiddle, plan.order, win,
+            n_valid.data_ptr(), partial, out.data_ptr(),
+            ctypes.addressof(plan.ints), device.index, S, F, plan.group,
+            width, form, stream)
+    else:
+        err = plan.lib.rpf_fused_psd_mixed(
+            raw_u8.data_ptr(), plan.twiddle, plan.order, win, partial,
+            out.data_ptr(), ctypes.addressof(plan.ints), device.index, F,
+            plan.group, n_valid, width, form, stream)
+    if err != 0:
+        raise launch_error(kernel, plan.lib, err)
+    return out[:, :shape.n] if streams else out[0, :shape.n]
 
 
 def fused_psd_mixed(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -376,8 +664,8 @@ def fused_psd_mixed(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     if not _on_cuda("fused_psd_mixed", raw_u8):
         COUNTS.plain += 1
         return fused_psd_reference(raw_u8, n_valid, chunk, window)
-    out = launch("fused_psd_mixed", mixed_launch(raw_u8.shape[1] // 2),
-                 raw_u8, n_valid, chunk, window)
+    out = launch_ring("fused_psd_mixed", ring_launch(raw_u8.shape[1] // 2),
+                      raw_u8, n_valid, chunk, window)
     COUNTS.kernel_mixed += 1
     return out
 
@@ -403,8 +691,44 @@ def fused_psd_mixed_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
     if not _on_cuda("fused_psd_mixed_streams", raw_u8):
         COUNTS.plain += 1
         return fused_psd_streams_reference(raw_u8, n_valid, chunk, window)
-    out = launch("fused_psd_mixed_streams",
-                 mixed_launch(raw_u8.shape[2] // 2), raw_u8, n_valid, chunk,
-                 window)
+    out = launch_ring("fused_psd_mixed_streams",
+                      ring_launch(raw_u8.shape[2] // 2), raw_u8, n_valid,
+                      chunk, window)
     COUNTS.kernel_mixed_streams += 1
+    return out
+
+
+def check_either(kernel: str, eligible, raw_u8: torch.Tensor, n_valid,
+                 chunk: int, window: Optional[torch.Tensor]):
+    """The checks of the single-stream entry for (F, 2N) frames (then
+    ``n_valid`` as an int), or of the streams entry for (S, F, 2N) frames;
+    returns ``n_valid``."""
+    if isinstance(raw_u8, torch.Tensor) and raw_u8.dim() == 3:
+        check_streams_args(raw_u8, n_valid, chunk, window, kernel, eligible)
+        return n_valid
+    n_valid = int(n_valid)
+    check_args(kernel, eligible, raw_u8, n_valid, chunk, window)
+    return n_valid
+
+
+def fused_psd_mixed_control(raw_u8: torch.Tensor, n_valid, chunk: int,
+                            window: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The control, the kernel :func:`fused_psd_mixed` replaced: the
+    function of :func:`fused_psd_mixed` on (F, 2N) frames with an int
+    ``n_valid``, or of :func:`fused_psd_mixed_streams` on (S, F, 2N) frames
+    with (S,) int32 counts. A CUDA tensor runs the control; a CPU tensor
+    the plain version. Counted in :data:`CONTROL_COUNTS`."""
+    n_valid = check_either("fused_psd_mixed_control",
+                           fused_psd_mixed_eligible, raw_u8, n_valid, chunk,
+                           window)
+    if not _on_cuda("fused_psd_mixed_control", raw_u8):
+        CONTROL_COUNTS.plain += 1
+        plain = (fused_psd_streams_reference if raw_u8.dim() == 3
+                 else fused_psd_reference)
+        return plain(raw_u8, n_valid, chunk, window)
+    out = launch_control("fused_psd_mixed_control",
+                         mixed_launch(raw_u8.shape[-1] // 2), raw_u8,
+                         n_valid, chunk, window)
+    CONTROL_COUNTS.kernel_mixed += 1
     return out
