@@ -1917,9 +1917,8 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     # device time must be at most 0.6 of the control's for the mixed-radix
     # kernel at 2400/4096, 0.7 for the chirp-Z kernel at 998/4096, 1.05
     # everywhere else. At the plans fixed at compile time (500, 2400) the
-    # mixed-radix kernel's forms are timed beside each other: the run-time
-    # plan with twiddles through L1 or resident in shared memory, and the
-    # fixed plan (the one the wrappers run there).
+    # mixed-radix kernel's run-time plan is timed beside the fixed plan
+    # (the one the wrappers run there).
     controls = {"M": fm.fused_psd_mixed_control,
                 "Ms": fm.fused_psd_mixed_control,
                 "B": fb.fused_psd_bluestein_control,
@@ -1985,24 +1984,17 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
               f"{t['control_device']:.1f} us")
         if name == "M" and N in fm.FIXED_PLANS:
             ring = fm.ring_launch(N)
-            forms = {label: device_times_us(
+            forms = {label: (device_times_us(
                 lambda form=form: fm.launch_ring("form", ring, raw, nv,
-                                                 chunk, None, form))
-                     for label, form in (("run-time, twiddles via L1",
-                                          fm.FORM_L1),
-                                         ("run-time, twiddles in shared "
-                                          "memory", fm.FORM_TW_SMEM),
-                                         ("fixed plan", fm.FORM_FIXED))}
-            occupancy = {label: fm.ring_attributes(ring, False, form)
-                         for label, form in (("L1", fm.FORM_L1),
-                                             ("smem", fm.FORM_TW_SMEM),
-                                             ("fixed", fm.FORM_FIXED))}
+                                                 chunk, None, form)),
+                fm.ring_attributes(ring, False, form))
+                for label, form in (("run-time plan", fm.FORM_RUNTIME),
+                                    ("fixed plan", fm.FORM_FIXED))}
             print(f"forms awkward M N={N} F={F} on {card}: device "
-                  + ", ".join(f"{k} {v:.1f} us" for k, v in forms.items())
-                  + "; registers/spill/blocks an SM "
-                  + ", ".join(f"{k} {a['registers']}/{a['spill_bytes']}/"
-                              f"{a['blocks_per_sm']}"
-                              for k, a in occupancy.items()))
+                  + ", ".join(f"{k} {v[0]:.1f} us ({v[1]['registers']} "
+                              f"registers, {v[1]['spill_bytes']} B spill, "
+                              f"{v[1]['blocks_per_sm']} blocks/SM)"
+                              for k, v in forms.items()))
     print(f"wall: awkward times in {time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its kernel alone.

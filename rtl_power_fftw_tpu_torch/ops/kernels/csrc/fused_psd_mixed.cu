@@ -129,27 +129,23 @@ using RingKernel = void (*)(const uint8_t*, const float2*, const int*,
                             const float*, float*, const RingPlan, int, int,
                             int, int, int, const int*);
 
-// The ring kernels: [windowed][form * 2 + large] for the run-time forms
-// (form 0 twiddles through L1, form 1 twiddles in shared memory; large:
-// kRingAccLarge sums), then the fixed plans 500 and 2400 (form 2).
-enum : int { kRingL1 = 0, kRingTwSmem = 1, kRingFixed = 2 };
-constexpr int kRingKernels = 6;
+// The ring kernels, [windowed][index]: the run-time plan (form 0) with
+// kRingAccSmall or kRingAccLarge sums, then the plans fixed at compile
+// time (form 1), 500 and 2400.
+enum : int { kRingRunTime = 0, kRingFixed = 1 };
+constexpr int kRingKernels = 4;
 
 RingKernel ring_kernel(bool windowed, int index) {
   static const RingKernel plain[kRingKernels] = {
-      psd_ring_kernel<false, kRingAccSmall, false>,
-      psd_ring_kernel<false, kRingAccLarge, false>,
-      psd_ring_kernel<false, kRingAccSmall, true>,
-      psd_ring_kernel<false, kRingAccLarge, true>,
-      psd_ring_kernel<false, Fixed500::acc(), false, Fixed500>,
-      psd_ring_kernel<false, Fixed2400::acc(), false, Fixed2400>};
+      psd_ring_kernel<false, kRingAccSmall>,
+      psd_ring_kernel<false, kRingAccLarge>,
+      psd_ring_kernel<false, Fixed500::acc(), Fixed500>,
+      psd_ring_kernel<false, Fixed2400::acc(), Fixed2400>};
   static const RingKernel hann[kRingKernels] = {
-      psd_ring_kernel<true, kRingAccSmall, false>,
-      psd_ring_kernel<true, kRingAccLarge, false>,
-      psd_ring_kernel<true, kRingAccSmall, true>,
-      psd_ring_kernel<true, kRingAccLarge, true>,
-      psd_ring_kernel<true, Fixed500::acc(), false, Fixed500>,
-      psd_ring_kernel<true, Fixed2400::acc(), false, Fixed2400>};
+      psd_ring_kernel<true, kRingAccSmall>,
+      psd_ring_kernel<true, kRingAccLarge>,
+      psd_ring_kernel<true, Fixed500::acc(), Fixed500>,
+      psd_ring_kernel<true, Fixed2400::acc(), Fixed2400>};
   return windowed ? hann[index] : plain[index];
 }
 
@@ -178,13 +174,12 @@ cudaError_t read_ring_plan(const int* ints, RingPlan* p) {
   p->tf = ints[3];
   p->lanes = ints[4];
   p->xstride = ints[5];
-  p->tw_rows = ints[6];
   for (int j = 0; j < kMixedMaxPasses; ++j) {
-    p->radix[j] = ints[7 + j];
-    p->stride[j] = ints[7 + kMixedMaxPasses + j];
-    p->magic[j] = ints[7 + 2 * kMixedMaxPasses + j];
-    p->twoff[j] = ints[7 + 3 * kMixedMaxPasses + j];
-    p->rounds[j] = ints[7 + 4 * kMixedMaxPasses + j];
+    p->radix[j] = ints[6 + j];
+    p->stride[j] = ints[6 + kMixedMaxPasses + j];
+    p->magic[j] = ints[6 + 2 * kMixedMaxPasses + j];
+    p->twoff[j] = ints[6 + 3 * kMixedMaxPasses + j];
+    p->rounds[j] = ints[6 + 4 * kMixedMaxPasses + j];
   }
   const int P = p->passes;
   bool ok = P >= 1 && P <= kMixedMaxPasses && p->n >= 2 &&
@@ -206,8 +201,7 @@ cudaError_t read_ring_plan(const int* ints, RingPlan* p) {
     if (j < P - 1) offset += L;
     L /= r;
   }
-  ok = ok && L == 1 && p->tw_rows == (P == 1 ? 1 : offset) &&
-       p->rounds[P - 1] * p->radix[P - 1] <= kRingAccLarge;
+  ok = ok && L == 1 && p->rounds[P - 1] * p->radix[P - 1] <= kRingAccLarge;
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -216,13 +210,12 @@ cudaError_t read_ring_plan(const int* ints, RingPlan* p) {
 int ring_pick(const RingPlan& p, int form, int* smem) {
   const bool large =
       p.rounds[p.passes - 1] * p.radix[p.passes - 1] > kRingAccSmall;
-  *smem = ring_smem_bytes(p, form == kRingTwSmem);
+  *smem = ring_smem_bytes(p);
   if (*smem > kRingMaxSmem) return -1;
-  if (form == kRingL1) return large ? 1 : 0;
-  if (form == kRingTwSmem) return large ? 3 : 2;
+  if (form == kRingRunTime) return large ? 1 : 0;
   if (form == kRingFixed) {
-    if (is_fixed<Fixed500>(p)) return 4;
-    if (is_fixed<Fixed2400>(p)) return 5;
+    if (is_fixed<Fixed500>(p)) return 2;
+    if (is_fixed<Fixed2400>(p)) return 3;
   }
   return -1;
 }
@@ -380,8 +373,8 @@ extern "C" {
 // (N,) int32, the element that holds each bin (element_of_bin); window:
 // (N,) f32, or null; partial: (ceil(F / group), row) f32 scratch; out:
 // (row,) f32, of which the first N are the bins; plan: the wrapper's
-// ring plan ints; form: 0 (twiddles through L1), 1 (twiddles in shared
-// memory) or 2 (the plan fixed at compile time, 500 and 2400 only).
+// ring plan ints; form: 0 (the run-time plan) or 1 (the plan fixed at
+// compile time, 500 and 2400 only).
 // Returns a cudaError_t (0 on success); does not synchronise.
 int rpf_fused_psd_mixed(const void* raw, const void* twiddle,
                         const void* order, const void* window, void* partial,

@@ -1,5 +1,5 @@
 // The mixed-radix group kernel of fused_psd_mixed.cu:
-// psd_ring_kernel<WINDOWED, ACC, TW_SMEM, FIXED>, the passes of
+// psd_ring_kernel<WINDOWED, ACC, FIXED>, the passes of
 // fft_mixed.cuh (radix 2, 3, 4, 5, 7, 8, 16, decimation in frequency) by a
 // run-time plan (fused_psd_mixed.ring_shape on the host), or by a plan
 // fixed at compile time (FIXED, a FixedPlan).
@@ -33,9 +33,9 @@
 //
 // The pass table (radix, stride, division constant, twiddle offset and
 // rounds of each pass) is copied from the kernel parameter into shared
-// memory once a block, so no pass indexes the parameter at run time.
-// TW_SMEM copies the twiddle table into shared memory too (once a block),
-// where the wrapper finds room, instead of reading it through L1.
+// memory once a block, so no pass indexes the parameter at run time. The
+// twiddles are read through L1 (a form that held them in shared memory
+// measured slower: its table cost blocks an SM).
 
 #pragma once
 
@@ -67,21 +67,17 @@ struct RingPlan {
   int tf;       // threads a frame lane, a multiple of 32
   int lanes;    // frame lanes a block
   int xstride;  // float2 of a lane's exchange buffer: pad_index(n - 1) + 1
-  int tw_rows;  // rows of the twiddle table
   int radix[kMixedMaxPasses];
   int stride[kMixedMaxPasses];   // S_j = L_j / R_j
   int magic[kMixedMaxPasses];    // ceil(2^32 / S_j) (bits), 0 where S_j = 1
   int twoff[kMixedMaxPasses];    // row of pass j's first twiddle
   int rounds[kMixedMaxPasses];   // ceil((N / R_j) / tf)
 };
-constexpr int kRingPlanInts = 7 + 5 * kMixedMaxPasses;
+constexpr int kRingPlanInts = 6 + 5 * kMixedMaxPasses;
 
-// Shared bytes of a block: [the twiddles,] the lanes' exchange buffers,
-// then their rings.
-__host__ __device__ inline int ring_smem_bytes(const RingPlan& p,
-                                               bool tw_smem) {
-  return (tw_smem ? round16(p.tw_rows * 8) : 0) +
-         round16(p.lanes * p.xstride * 8) + p.lanes * ring_bytes(p.n);
+// Shared bytes of a block: the lanes' exchange buffers, then their rings.
+__host__ __device__ inline int ring_smem_bytes(const RingPlan& p) {
+  return round16(p.lanes * p.xstride * 8) + p.lanes * ring_bytes(p.n);
 }
 
 // A plan fixed at compile time: TF threads a lane, radices RS.
@@ -159,22 +155,14 @@ __device__ __forceinline__ void for_rounds(int rounds, Body&& body) {
   }
 }
 
-template <bool SMEM>
-__device__ __forceinline__ float2 load_twiddle(const float2* p) {
-  if constexpr (SMEM) {
-    return *p;
-  } else {
-    return __ldg(p);
-  }
-}
-
 // Pass 0 of one frame from the ring on lane thread t: butterflies
 // b = t + i*tf < n / R, each over the samples b + n1*S (S = n / R); output
 // k1 to element b + k1*S times W_n^(b*k1). A one-pass plan (`copy`: n = R)
 // writes the samples to their elements instead, for the last pass.
-template <int R, bool WINDOWED, bool TW_SMEM, int ROUNDS = 0>
+template <int R, bool WINDOWED, int ROUNDS = 0>
 __device__ __forceinline__ void ring_first(
-    const uint16_t* iq, const float* __restrict__ window, const float2* tw,
+    const uint16_t* iq, const float* __restrict__ window,
+    const float2* __restrict__ tw,
     float2* x, int n, bool copy, int rounds, int t, int tf) {
   if (copy) {
     for (int s = t; s < n; s += tf) {
@@ -199,7 +187,7 @@ __device__ __forceinline__ void ring_first(
       for (int k1 = 0; k1 < R; ++k1) {
         const float2 y =
             k1 == 0 ? v[0]
-                    : cmulf(v[k1], load_twiddle<TW_SMEM>(tw + k1 * S + b));
+                    : cmulf(v[k1], __ldg(tw + k1 * S + b));
         x[pad_index(b + k1 * S)] = y;
       }
     }
@@ -210,10 +198,11 @@ __device__ __forceinline__ void ring_first(
 // n / R at (block, n2) = divmod(b, S) by the division constant, its
 // elements block*R*S + n2 + n1*S; outputs times their twiddles (the pass's
 // part of the table, row k1*S + n2).
-template <int R, bool TW_SMEM, int ROUNDS = 0>
-__device__ __forceinline__ void ring_mid(float2* x, const float2* tw, int S,
-                                         unsigned magic, int n, int rounds,
-                                         int t, int tf) {
+template <int R, int ROUNDS = 0>
+__device__ __forceinline__ void ring_mid(float2* x,
+                                         const float2* __restrict__ tw,
+                                         int S, unsigned magic, int n,
+                                         int rounds, int t, int tf) {
   const int nb = n / R;
   for_rounds<ROUNDS>(rounds, [&](int i) {
     const int b = t + i * tf;
@@ -230,7 +219,7 @@ __device__ __forceinline__ void ring_mid(float2* x, const float2* tw, int S,
       for (int k1 = 0; k1 < R; ++k1) {
         const float2 y =
             k1 == 0 ? v[0]
-                    : cmulf(v[k1], load_twiddle<TW_SMEM>(tw + k1 * S + n2));
+                    : cmulf(v[k1], __ldg(tw + k1 * S + n2));
         x[pad_index(base + k1 * S)] = y;
       }
     }
@@ -275,17 +264,18 @@ __device__ __forceinline__ void ring_gather(float* by_elem,
 }
 
 // Passes J .. P-2 of a fixed plan, each after a block barrier.
-template <class FP, int J, bool TW_SMEM>
-__device__ __forceinline__ void fixed_mid(float2* x, const float2* tw,
+template <class FP, int J>
+__device__ __forceinline__ void fixed_mid(float2* x,
+                                          const float2* __restrict__ tw,
                                           bool active, int t) {
   if constexpr (J < FP::P - 1) {
     __syncthreads();
     if (active) {
-      ring_mid<FP::radix(J), TW_SMEM, FP::rounds(J)>(
+      ring_mid<FP::radix(J), FP::rounds(J)>(
           x, tw + FP::twoff(J), FP::stride(J), FP::magic(J), FP::N,
           FP::rounds(J), t, FP::TF);
     }
-    fixed_mid<FP, J + 1, TW_SMEM>(x, tw, active, t);
+    fixed_mid<FP, J + 1>(x, tw, active, t);
   }
 }
 
@@ -295,7 +285,7 @@ __device__ __forceinline__ void fixed_mid(float2* x, const float2* tw,
 // row g. n_valid_s is stream_n_valid[s] where that array is given, else
 // n_valid. FIXED = void runs the plan of p; a FixedPlan runs its own,
 // which p must equal.
-template <bool WINDOWED, int ACC, bool TW_SMEM, class FIXED = void>
+template <bool WINDOWED, int ACC, class FIXED = void>
 __global__ void __launch_bounds__(kRingMaxThreads,
                                   ACC <= kRingAccSmall ? 2 : 1)
 psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
@@ -328,13 +318,6 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
     }
   }
   uint8_t* smem = reinterpret_cast<uint8_t*>(ring_smem);
-  const float2* tw = twiddle;
-  if constexpr (TW_SMEM) {
-    float2* tws = reinterpret_cast<float2*>(smem);
-    for (int r = tid; r < p.tw_rows; r += threads) tws[r] = __ldg(twiddle + r);
-    tw = tws;
-    smem += round16(p.tw_rows * 8);
-  }
   float2* x = reinterpret_cast<float2*>(smem) + lane * p.xstride;
   uint8_t* ring =
       smem + round16(p.lanes * p.xstride * 8) + lane * ring_bytes(n);
@@ -373,17 +356,17 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
         reinterpret_cast<const uint16_t*>(ring + (i & 1) * slot);
     if constexpr (kFixed) {
       if (active) {
-        ring_first<FIXED::radix(0), WINDOWED, TW_SMEM, FIXED::rounds(0)>(
-            iq, window, tw, x, n, P == 1, FIXED::rounds(0), t, tf);
+        ring_first<FIXED::radix(0), WINDOWED, FIXED::rounds(0)>(
+            iq, window, twiddle, x, n, P == 1, FIXED::rounds(0), t, tf);
       }
-      fixed_mid<FIXED, 1, TW_SMEM>(x, tw, active, t);
+      fixed_mid<FIXED, 1>(x, twiddle, active, t);
       __syncthreads();
       if (active) ring_last<FIXED::radix(FIXED::P - 1), ACC>(x, acc, n, t, tf);
     } else {
       if (active) {
         with_radix(p.radix[0], [&](auto rc) {
-          ring_first<decltype(rc)::value, WINDOWED, TW_SMEM>(
-              iq, window, tw, x, n, P == 1, p.rounds[0], t, tf);
+          ring_first<decltype(rc)::value, WINDOWED>(
+              iq, window, twiddle, x, n, P == 1, p.rounds[0], t, tf);
         });
       }
       for (int j = 1; j < P - 1; ++j) {
@@ -392,9 +375,9 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
           const int4 e = tab[j];
           const int rounds = tab_rounds[j];
           with_radix(e.x, [&](auto rc) {
-            ring_mid<decltype(rc)::value, TW_SMEM>(
-                x, tw + e.w, e.y, static_cast<unsigned>(e.z), n, rounds, t,
-                tf);
+            ring_mid<decltype(rc)::value>(
+                x, twiddle + e.w, e.y, static_cast<unsigned>(e.z), n, rounds,
+                t, tf);
           });
         }
       }

@@ -40,7 +40,6 @@ plan), runs only as :func:`fused_psd_bluestein_control`.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
@@ -285,6 +284,35 @@ def chirp_resident_blocks(N: int, windowed: bool, index: int) -> int:
                                       torch.device("cuda", index)), index)
 
 
+class _ChirpPlan(NamedTuple):
+    lib: object         # the loaded library
+    group: int          # frames a block
+    rows: int           # partial rows (blocks)
+    tables: tuple       # twiddle, chirp and spectrum device pointers
+    keep: tuple         # the tensors behind them
+
+
+_plans: dict = {}
+
+
+def _plan(N: int, F: int, chunk: int, windowed: bool, streams: int,
+          device: torch.device) -> _ChirpPlan:
+    """The kernel's launch of F frames a stream over ``streams`` streams,
+    cached per key."""
+    key = (N, F, chunk, windowed, streams, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        from . import _build
+        group = k1_group(streams * F, chunk,
+                         chirp_resident_blocks(N, windowed, device.index))
+        keep = (_device_pass_twiddles(chirp_size(N), device),
+                *device_tables(N, device))
+        plan = _plans[key] = _ChirpPlan(
+            _build.load("fused_psd_mixed"), group, streams * -(-F // group),
+            tuple(t.data_ptr() for t in keep), keep)
+    return plan
+
+
 def launch_chirp(kernel: str, raw_u8: torch.Tensor, n_valid, chunk: int,
                  window: Optional[torch.Tensor]) -> torch.Tensor:
     """Runs the kernel on CUDA frames, on the current stream
@@ -292,7 +320,6 @@ def launch_chirp(kernel: str, raw_u8: torch.Tensor, n_valid, chunk: int,
     (S, F, 2N) frames with (S,) int32 counts on the device -> (S, N), a
     view of (S, N rounded up to 32) rows. ``kernel`` names the entry in
     errors."""
-    from . import _build
     check_alignment(kernel, raw_u8, RING_RAW_ALIGN, window, WINDOW_ALIGN)
     streams = raw_u8.dim() == 3
     S = raw_u8.shape[0] if streams else 1
@@ -300,27 +327,23 @@ def launch_chirp(kernel: str, raw_u8: torch.Tensor, n_valid, chunk: int,
     device = raw_u8.device
     shape = chirp_launch(N)
     width = copy_width(N, raw_u8.data_ptr())
-    group = k1_group(S * F, chunk, chirp_resident_blocks(
-        N, window is not None, device.index))
-    lib = _build.load("fused_psd_mixed")
+    plan = _plan(N, F, chunk, window is not None, S, device)
     stream = _raw_stream(device.index)
-    partial = partial_rows(shape.row, S * -(-F // group), device, stream)
+    partial = partial_rows(shape.row, plan.rows, device, stream)
     out = torch.empty((S, shape.row), dtype=torch.float32, device=device)
-    chirp, spectrum = device_tables(N, device)
-    tables = (raw_u8.data_ptr(),
-              _device_pass_twiddles(shape.M, device).data_ptr(),
-              None if window is None else window.data_ptr(),
-              chirp.data_ptr(), spectrum.data_ptr())
+    twiddle, chirp, spectrum = plan.tables
+    tables = (raw_u8.data_ptr(), twiddle,
+              None if window is None else window.data_ptr(), chirp, spectrum)
     if streams:
-        err = lib.rpf_fused_psd_chirp_streams(
+        err = plan.lib.rpf_fused_psd_chirp_streams(
             *tables, n_valid.data_ptr(), partial, out.data_ptr(),
-            device.index, shape.log2m, N, S, F, group, width, stream)
+            device.index, shape.log2m, N, S, F, plan.group, width, stream)
     else:
-        err = lib.rpf_fused_psd_chirp(
+        err = plan.lib.rpf_fused_psd_chirp(
             *tables, partial, out.data_ptr(), device.index, shape.log2m, N,
-            F, group, n_valid, width, stream)
+            F, plan.group, n_valid, width, stream)
     if err != 0:
-        raise launch_error(kernel, lib, err)
+        raise launch_error(kernel, plan.lib, err)
     return out[:, :N] if streams else out[0, :N]
 
 

@@ -97,11 +97,10 @@ RING_MAX_SMEM = MAX_SMEM - 256
 #: Frames are copied into the ring 4, 8 or 16 bytes at a time
 #: (:func:`copy_width`), so they must be at least 4-byte aligned.
 RING_RAW_ALIGN = 4
-#: The kernel's forms (``form`` of rpf_fused_psd_mixed): the run-time plan
-#: with twiddles read through L1, the same with twiddles resident in shared
-#: memory, and the plans fixed at compile time (:data:`FIXED_PLANS`). The
-#: wrappers run :func:`form_of`'s.
-FORM_L1, FORM_TW_SMEM, FORM_FIXED = 0, 1, 2
+#: The kernel's forms (``form`` of rpf_fused_psd_mixed): the run-time plan,
+#: and the plans fixed at compile time (:data:`FIXED_PLANS`), which measured
+#: faster at their N. The wrappers run :func:`form_of`'s.
+FORM_RUNTIME, FORM_FIXED = 0, 1
 #: The plans instantiated at compile time (Fixed500, Fixed2400 in
 #: csrc/fused_psd_mixed_ring.cuh): N -> (tf, radices).
 FIXED_PLANS = {500: (128, (5, 5, 5, 4)), 2400: (160, (8, 5, 5, 4, 3))}
@@ -485,22 +484,17 @@ class RingLaunch(NamedTuple):
         holds them."""
         return next(a for a in RING_ACC if self.acc <= a)
 
-    @property
-    def tw_rows(self) -> int:
-        return len(plan_twiddles(self.plan))
-
-    def smem(self, tw_smem: bool = False) -> int:
-        """Shared bytes a block: [the twiddles,] the exchange buffers, then
-        the lanes' rings (two slots and 32 bytes each)."""
-        return ((round16(self.tw_rows * 8) if tw_smem else 0)
-                + round16(self.lanes * self.xstride * 8)
+    def smem(self) -> int:
+        """Dynamic shared bytes a block: the exchange buffers, then the
+        lanes' rings (two slots and 32 bytes each)."""
+        return (round16(self.lanes * self.xstride * 8)
                 + self.lanes * (2 * ring_slot(self.n) + 32))
 
     def ints(self) -> list:
         """The plan as the kernel reads it (read_ring_plan): n, row,
-        passes, tf, lanes, xstride, twiddle rows, then per pass (MAX_PASSES
-        each, 0 past the last) the radix, stride, division constant (as
-        int32 bits), twiddle offset and rounds."""
+        passes, tf, lanes, xstride, then per pass (MAX_PASSES each, 0 past
+        the last) the radix, stride, division constant (as int32 bits),
+        twiddle offset and rounds."""
         spans = plan_spans(self.plan)
         offsets = [0]
         for L, _ in spans[:-1]:
@@ -512,7 +506,7 @@ class RingLaunch(NamedTuple):
             return values + [0] * (MAX_PASSES - len(values))
 
         return ([self.n, self.row, len(self.plan), self.tf, self.lanes,
-                 self.xstride, self.tw_rows] + pad(self.plan)
+                 self.xstride] + pad(self.plan)
                 + pad(S for _, S in spans)
                 + pad(m - (1 << 32) if m >= 1 << 31 else m for m in magics)
                 + pad(offsets) + pad(self.rounds))
@@ -559,7 +553,7 @@ def form_of(shape: RingLaunch) -> int:
     """The form the wrappers run: the plan fixed at compile time where
     there is one for the layout, else the run-time plan."""
     fixed = FIXED_PLANS.get(shape.n)
-    return (FORM_FIXED if fixed == (shape.tf, shape.plan) else FORM_L1)
+    return FORM_FIXED if fixed == (shape.tf, shape.plan) else FORM_RUNTIME
 
 
 def ring_attributes(shape: RingLaunch, windowed: bool = False,

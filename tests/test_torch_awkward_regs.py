@@ -488,7 +488,7 @@ def test_ring_shape_of_every_even_7_smooth_n():
         assert shape.acc <= shape.acc_class <= fm.RING_ACC[-1]
         assert shape.acc_class // shape.plan[-1] >= shape.rounds[-1]
         assert shape.row % 32 == 0 and N <= shape.row < N + 32
-        assert len(shape.ints()) == 7 + 5 * fm.MAX_PASSES
+        assert len(shape.ints()) == 6 + 5 * fm.MAX_PASSES
 
 
 @pytest.mark.parametrize("N", [500, 2400])
@@ -500,7 +500,7 @@ def test_the_fixed_plans_are_the_drives_layouts(N):
 
 @pytest.mark.parametrize("N", [2, 6, 1000, 4800, 12000, 16384])
 def test_other_plans_run_the_run_time_form(N):
-    assert fm.form_of(fm.ring_launch(N)) == fm.FORM_L1
+    assert fm.form_of(fm.ring_launch(N)) == fm.FORM_RUNTIME
 
 
 @pytest.mark.parametrize("N,tf,lanes", [(500, 128, 2), (2400, 160, 1),
@@ -528,10 +528,10 @@ def ring_ints(N):
     """The plan ints by name, as read_ring_plan reads them."""
     ints = fm.ring_launch(N).ints()
     P = fm.MAX_PASSES
-    head = dict(zip(("n", "row", "passes", "tf", "lanes", "xstride",
-                     "tw_rows"), ints[:7]))
+    head = dict(zip(("n", "row", "passes", "tf", "lanes", "xstride"),
+                    ints[:6]))
     names = ("radix", "stride", "magic", "twoff", "rounds")
-    return head, {name: ints[7 + i * P:7 + (i + 1) * P]
+    return head, {name: ints[6 + i * P:6 + (i + 1) * P]
                   for i, name in enumerate(names)}
 
 
@@ -540,8 +540,8 @@ def test_ring_ints_layout(N):
     head, per = ring_ints(N)
     shape = fm.ring_launch(N)
     P = len(shape.plan)
-    assert head["passes"] == P and head["tw_rows"] == \
-        len(fm.plan_twiddles(shape.plan))
+    assert head["passes"] == P and head["tf"] == shape.tf
+    assert head["xstride"] == fm.pad_index(N - 1) + 1
     spans_ = fm.plan_spans(shape.plan)
     assert per["radix"][:P] == list(shape.plan)
     assert per["stride"][:P] == [S for _, S in spans_]
