@@ -1786,6 +1786,10 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     man_page_fps = drive_frames_per_step(MAN_PAGE_ARGV)
     b998_F = adapt_batch(drive_frames_per_step(B998_ARGV))[0]
     b998_last = 2000 % b998_F
+    controls = {"M": fm.fused_psd_mixed_control,
+                "Ms": fm.fused_psd_mixed_control,
+                "B": fb.fused_psd_bluestein_control,
+                "Bs": fb.fused_psd_bluestein_control}
     kernels = {"M": (fm.fused_psd_mixed, fp.fused_psd_reference),
                "B": (fb.fused_psd_bluestein, fb.bluestein_psd_reference),
                "Ms": (fm.fused_psd_mixed_streams,
@@ -1860,16 +1864,21 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
         check(torch.equal(got, again), f"{name} N={N} F={F}: not "
               "deterministic")
         got = got.cpu().numpy()
+        ctrl = controls[name](raw, nv, chunk, w).cpu().numpy()
         live = [s for s in range(len(nv_np)) if nv_np[s] > 0]
-        errs = [max_rel(got[s], golden_partial(raw_np[s], int(nv_np[s]),
-                                               w_np))
-                for s in live]
+        golds = {s: golden_partial(raw_np[s], int(nv_np[s]), w_np)
+                 for s in live}
+        errs = [max_rel(got[s], golds[s]) for s in live]
         err_plain = max(max_rel(got[s], want[s]) for s in live)
         empty = [float(got[s].max()) for s in range(len(nv_np))
                  if nv_np[s] == 0]
         print(f"awkward {name} S={len(nv_np)} N={N} F={F} chunk={chunk} "
               f"window={wname} counts {nv_np.tolist()}: max rel vs plain "
-              f"{err_plain:.3e}, vs float64 golden {max(errs):.3e}"
+              f"{err_plain:.3e}, vs float64 golden {max(errs):.3e} (plain "
+              f"vs golden {max(max_rel(want[s], golds[s]) for s in live):.3e}"
+              f"; the control vs golden "
+              f"{max(max_rel(ctrl[s], golds[s]) for s in live):.3e}, vs "
+              f"plain {max(max_rel(ctrl[s], want[s]) for s in live):.3e})"
               f"{f'; empty stream max {empty[0]}' if empty else ''}")
         check(err_plain <= UNIFORM_RTOL and max(errs) <= GOLDEN_RTOL
               and not any(empty), f"{name} N={N} F={F}")
@@ -1919,10 +1928,6 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     # everywhere else. At the plans fixed at compile time (500, 2400) the
     # mixed-radix kernel's run-time plan is timed beside the fixed plan
     # (the one the wrappers run there).
-    controls = {"M": fm.fused_psd_mixed_control,
-                "Ms": fm.fused_psd_mixed_control,
-                "B": fb.fused_psd_bluestein_control,
-                "Bs": fb.fused_psd_bluestein_control}
     limits = {("M", 2400, 4096): 0.6, ("B", 998, 4096): 0.7}
     times = {}
     for name, N, fps, S in (("M", 500, 32, 1), ("M", 500, man_page_fps, 1),
@@ -2207,7 +2212,8 @@ def main() -> int:
                   f") on {card}: {a['registers']} registers, "
                   f"{a['spill_bytes']} B spill, {a['static_smem']} + "
                   f"{a['dynamic_smem']} B shared, {a['threads']} threads "
-                  f"({shape.lanes} lanes of {shape.tf}), last-pass sums "
+                  f"({shape.lanes} lanes of {shape.tf}), padding "
+                  f"{shape.pad}, last-pass sums "
                   f"{shape.acc} of {shape.acc_class}, {a['blocks_per_sm']} "
                   f"blocks/SM")
     for N in (10, 200, 500, 998, 3000, 8182):

@@ -151,7 +151,10 @@ RingKernel ring_kernel(bool windowed, int index) {
 
 template <class FP>
 bool is_fixed(const RingPlan& p) {
-  if (p.n != FP::N || p.tf != FP::TF || p.passes != FP::P) return false;
+  if (p.n != FP::N || p.tf != FP::TF || p.passes != FP::P ||
+      p.pad != FP::PAD) {
+    return false;
+  }
   for (int j = 0; j < FP::P; ++j) {
     if (p.radix[j] != FP::radix(j)) return false;
   }
@@ -174,19 +177,21 @@ cudaError_t read_ring_plan(const int* ints, RingPlan* p) {
   p->tf = ints[3];
   p->lanes = ints[4];
   p->xstride = ints[5];
+  p->pad = ints[6];
   for (int j = 0; j < kMixedMaxPasses; ++j) {
-    p->radix[j] = ints[6 + j];
-    p->stride[j] = ints[6 + kMixedMaxPasses + j];
-    p->magic[j] = ints[6 + 2 * kMixedMaxPasses + j];
-    p->twoff[j] = ints[6 + 3 * kMixedMaxPasses + j];
-    p->rounds[j] = ints[6 + 4 * kMixedMaxPasses + j];
+    p->radix[j] = ints[7 + j];
+    p->stride[j] = ints[7 + kMixedMaxPasses + j];
+    p->magic[j] = ints[7 + 2 * kMixedMaxPasses + j];
+    p->twoff[j] = ints[7 + 3 * kMixedMaxPasses + j];
+    p->rounds[j] = ints[7 + 4 * kMixedMaxPasses + j];
   }
   const int P = p->passes;
   bool ok = P >= 1 && P <= kMixedMaxPasses && p->n >= 2 &&
             p->n <= 16384 && p->row % kSumBins == 0 && p->row >= p->n &&
             p->tf >= 32 && p->tf % 32 == 0 && p->lanes >= 1 &&
             p->tf * p->lanes <= kRingMaxThreads &&
-            p->xstride == pad_index(p->n - 1) + 1;
+            (p->pad == 4 || p->pad == 31) &&
+            p->xstride == ring_pad(p->n - 1, p->pad) + 1;
   int L = p->n;
   int offset = 0;
   for (int j = 0; ok && j < P; ++j) {

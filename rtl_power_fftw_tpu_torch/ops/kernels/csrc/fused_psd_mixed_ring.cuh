@@ -35,7 +35,12 @@
 // rounds of each pass) is copied from the kernel parameter into shared
 // memory once a block, so no pass indexes the parameter at run time. The
 // twiddles are read through L1 (a form that held them in shared memory
-// measured slower: its table cost blocks an SM).
+// measured slower: its table cost blocks an SM). Element e of a lane's
+// exchange buffer sits at e + (e >> pad): pad = 4 adds fft_regs.cuh's
+// float2 every 16 elements, which breaks power-of-two strides apart; pad
+// = 31 adds none, which keeps the runs of the odd-radix passes whole. The
+// host picks the one a bank model gives fewer shared-memory wavefronts
+// (fused_psd_mixed.ring_pad).
 
 #pragma once
 
@@ -66,24 +71,32 @@ struct RingPlan {
   int passes;   // P
   int tf;       // threads a frame lane, a multiple of 32
   int lanes;    // frame lanes a block
-  int xstride;  // float2 of a lane's exchange buffer: pad_index(n - 1) + 1
+  int xstride;  // float2 of a lane's exchange buffer: ring_pad(n - 1) + 1
+  int pad;      // 4 or 31: element e at e + (e >> pad)
   int radix[kMixedMaxPasses];
   int stride[kMixedMaxPasses];   // S_j = L_j / R_j
   int magic[kMixedMaxPasses];    // ceil(2^32 / S_j) (bits), 0 where S_j = 1
   int twoff[kMixedMaxPasses];    // row of pass j's first twiddle
   int rounds[kMixedMaxPasses];   // ceil((N / R_j) / tf)
 };
-constexpr int kRingPlanInts = 6 + 5 * kMixedMaxPasses;
+constexpr int kRingPlanInts = 7 + 5 * kMixedMaxPasses;
+
+// Element e's float2 slot in a lane's exchange buffer.
+__host__ __device__ __forceinline__ int ring_pad(int e, int pad) {
+  return e + (e >> pad);
+}
 
 // Shared bytes of a block: the lanes' exchange buffers, then their rings.
 __host__ __device__ inline int ring_smem_bytes(const RingPlan& p) {
   return round16(p.lanes * p.xstride * 8) + p.lanes * ring_bytes(p.n);
 }
 
-// A plan fixed at compile time: TF threads a lane, radices RS.
-template <int TF_, int... RS>
+// A plan fixed at compile time: TF threads a lane, the exchange padding
+// PAD, radices RS.
+template <int TF_, int PAD_, int... RS>
 struct FixedPlan {
   static constexpr int TF = TF_;
+  static constexpr int PAD = PAD_;
   static constexpr int P = sizeof...(RS);
   static constexpr int N = (RS * ...);
   __host__ __device__ static constexpr int radix(int j) {
@@ -113,8 +126,8 @@ struct FixedPlan {
 };
 
 // The plans of the drives: the man-page drive's 500 and 2400.
-using Fixed500 = FixedPlan<128, 5, 5, 5, 4>;
-using Fixed2400 = FixedPlan<160, 8, 5, 5, 4, 3>;
+using Fixed500 = FixedPlan<128, 31, 5, 5, 5, 4>;
+using Fixed2400 = FixedPlan<160, 31, 8, 5, 5, 4, 3>;
 
 // The output permutation of dft_natural's radix-4/8/16 form, with every
 // register index a constant.
@@ -163,10 +176,10 @@ template <int R, bool WINDOWED, int ROUNDS = 0>
 __device__ __forceinline__ void ring_first(
     const uint16_t* iq, const float* __restrict__ window,
     const float2* __restrict__ tw,
-    float2* x, int n, bool copy, int rounds, int t, int tf) {
+    float2* x, int n, bool copy, int rounds, int pad, int t, int tf) {
   if (copy) {
     for (int s = t; s < n; s += tf) {
-      x[pad_index(s)] = ring_sample<WINDOWED>(
+      x[ring_pad(s, pad)] = ring_sample<WINDOWED>(
           iq, s, WINDOWED ? __ldg(window + s) : 0.0f);
     }
     return;
@@ -188,7 +201,7 @@ __device__ __forceinline__ void ring_first(
         const float2 y =
             k1 == 0 ? v[0]
                     : cmulf(v[k1], __ldg(tw + k1 * S + b));
-        x[pad_index(b + k1 * S)] = y;
+        x[ring_pad(b + k1 * S, pad)] = y;
       }
     }
   });
@@ -202,7 +215,8 @@ template <int R, int ROUNDS = 0>
 __device__ __forceinline__ void ring_mid(float2* x,
                                          const float2* __restrict__ tw,
                                          int S, unsigned magic, int n,
-                                         int rounds, int t, int tf) {
+                                         int rounds, int pad, int t,
+                                         int tf) {
   const int nb = n / R;
   for_rounds<ROUNDS>(rounds, [&](int i) {
     const int b = t + i * tf;
@@ -213,14 +227,16 @@ __device__ __forceinline__ void ring_mid(float2* x,
       const int base = block * R * S + n2;
       float2 v[R];
 #pragma unroll
-      for (int n1 = 0; n1 < R; ++n1) v[n1] = x[pad_index(base + n1 * S)];
+      for (int n1 = 0; n1 < R; ++n1) {
+        v[n1] = x[ring_pad(base + n1 * S, pad)];
+      }
       ring_dft<R>(v);
 #pragma unroll
       for (int k1 = 0; k1 < R; ++k1) {
         const float2 y =
             k1 == 0 ? v[0]
                     : cmulf(v[k1], __ldg(tw + k1 * S + n2));
-        x[pad_index(base + k1 * S)] = y;
+        x[ring_pad(base + k1 * S, pad)] = y;
       }
     }
   });
@@ -230,8 +246,8 @@ __device__ __forceinline__ void ring_mid(float2* x,
 // the elements b*R + k; |.|^2 of output k1 is added to acc[i*R + k1].
 template <int R, int ACC>
 __device__ __forceinline__ void ring_last(const float2* x,
-                                          float (&acc)[ACC], int n, int t,
-                                          int tf) {
+                                          float (&acc)[ACC], int n, int pad,
+                                          int t, int tf) {
   const int nb = n / R;
 #pragma unroll
   for (int i = 0; i < ACC / R; ++i) {
@@ -239,7 +255,7 @@ __device__ __forceinline__ void ring_last(const float2* x,
     if (b < nb) {
       float2 v[R];
 #pragma unroll
-      for (int k = 0; k < R; ++k) v[k] = x[pad_index(b * R + k)];
+      for (int k = 0; k < R; ++k) v[k] = x[ring_pad(b * R + k, pad)];
       ring_dft<R>(v);
 #pragma unroll
       for (int k1 = 0; k1 < R; ++k1) acc[i * R + k1] += norm2(v[k1]);
@@ -273,7 +289,7 @@ __device__ __forceinline__ void fixed_mid(float2* x,
     if (active) {
       ring_mid<FP::radix(J), FP::rounds(J)>(
           x, tw + FP::twoff(J), FP::stride(J), FP::magic(J), FP::N,
-          FP::rounds(J), t, FP::TF);
+          FP::rounds(J), FP::PAD, t, FP::TF);
     }
     fixed_mid<FP, J + 1>(x, tw, active, t);
   }
@@ -300,11 +316,12 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
   extern __shared__ float4 ring_smem[];
   __shared__ int4 tab[kMixedMaxPasses];   // radix, stride, magic, twoff
   __shared__ int tab_rounds[kMixedMaxPasses];
-  int n = p.n, tf = p.tf, P = p.passes;
+  int n = p.n, tf = p.tf, P = p.passes, pad = p.pad;
   if constexpr (kFixed) {
     n = FIXED::N;
     tf = FIXED::TF;
     P = FIXED::P;
+    pad = FIXED::PAD;
   }
   const int threads = tf * p.lanes;
   const int tid = threadIdx.x;
@@ -357,16 +374,18 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
     if constexpr (kFixed) {
       if (active) {
         ring_first<FIXED::radix(0), WINDOWED, FIXED::rounds(0)>(
-            iq, window, twiddle, x, n, P == 1, FIXED::rounds(0), t, tf);
+            iq, window, twiddle, x, n, P == 1, FIXED::rounds(0), pad, t, tf);
       }
       fixed_mid<FIXED, 1>(x, twiddle, active, t);
       __syncthreads();
-      if (active) ring_last<FIXED::radix(FIXED::P - 1), ACC>(x, acc, n, t, tf);
+      if (active) {
+        ring_last<FIXED::radix(FIXED::P - 1), ACC>(x, acc, n, pad, t, tf);
+      }
     } else {
       if (active) {
         with_radix(p.radix[0], [&](auto rc) {
           ring_first<decltype(rc)::value, WINDOWED>(
-              iq, window, twiddle, x, n, P == 1, p.rounds[0], t, tf);
+              iq, window, twiddle, x, n, P == 1, p.rounds[0], pad, t, tf);
         });
       }
       for (int j = 1; j < P - 1; ++j) {
@@ -377,14 +396,14 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
           with_radix(e.x, [&](auto rc) {
             ring_mid<decltype(rc)::value>(
                 x, twiddle + e.w, e.y, static_cast<unsigned>(e.z), n, rounds,
-                t, tf);
+                pad, t, tf);
           });
         }
       }
       __syncthreads();
       if (active) {
         with_radix(tab[P - 1].x, [&](auto rc) {
-          ring_last<decltype(rc)::value, ACC>(x, acc, n, t, tf);
+          ring_last<decltype(rc)::value, ACC>(x, acc, n, pad, t, tf);
         });
       }
     }

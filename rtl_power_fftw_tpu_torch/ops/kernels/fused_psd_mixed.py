@@ -102,8 +102,12 @@ RING_RAW_ALIGN = 4
 #: faster at their N. The wrappers run :func:`form_of`'s.
 FORM_RUNTIME, FORM_FIXED = 0, 1
 #: The plans instantiated at compile time (Fixed500, Fixed2400 in
-#: csrc/fused_psd_mixed_ring.cuh): N -> (tf, radices).
-FIXED_PLANS = {500: (128, (5, 5, 5, 4)), 2400: (160, (8, 5, 5, 4, 3))}
+#: csrc/fused_psd_mixed_ring.cuh): N -> (tf, exchange padding, radices).
+FIXED_PLANS = {500: (128, 31, (5, 5, 5, 4)),
+               2400: (160, 31, (8, 5, 5, 4, 3))}
+#: The exchange paddings the kernel takes: element e at e + (e >> pad), a
+#: float2 every 16 elements (fft_regs.cuh's), or none.
+PADS = (4, 31)
 
 #: Launches of the controls (:func:`fused_psd_mixed_control`,
 #: ``fused_psd_bluestein.fused_psd_bluestein_control``) and of their plain
@@ -446,6 +450,52 @@ def ring_tf(plan) -> int:
     return best[1]
 
 
+def ring_pad_index(e, pad: int):
+    """Element e's float2 slot in a lane's exchange buffer (ring_pad in
+    csrc/fused_psd_mixed_ring.cuh)."""
+    return e + (e >> pad)
+
+
+def exchange_wavefronts(plan, tf: int, pad: int) -> int:
+    """Shared-memory wavefronts a lane's passes take on one frame by a bank
+    model: each butterfly element's 8-byte access of the threads of a
+    warp, as two half-warps of 16 threads; a half-warp takes as many
+    wavefronts as the most 4-byte words any of the 32 banks holds among
+    its accesses. Pass 0 writes the buffer, the last pass reads it, the
+    middle passes do both."""
+    n = int(np.prod(plan))
+    lanes = np.arange(-(-tf // 32) * 32)
+    total = 0
+    for j, ((L, S), R, rounds) in enumerate(zip(plan_spans(plan), plan,
+                                               ring_rounds(plan, tf))):
+        b = (lanes[None, :] + tf * np.arange(rounds)[:, None]).reshape(-1, 32)
+        t = np.tile(lanes.reshape(-1, 32), (rounds, 1))
+        live = (b < n // R) & (t < tf)
+        base = b if j == 0 else (b // S) * L + b % S
+        elems = base[:, None, :] + S * np.arange(R)[None, :, None]
+        addr = ring_pad_index(elems.reshape(-1, 32), pad)
+        live = np.repeat(live, R, axis=0)
+        for half in (slice(0, 16), slice(16, 32)):
+            a, ok = addr[:, half], live[:, half]
+            banks = np.concatenate([2 * a % 32, (2 * a + 1) % 32], axis=1)
+            ok2 = np.concatenate([ok, ok], axis=1)
+            rows = np.repeat(np.arange(len(a)), 32).reshape(-1, 32)
+            count = np.bincount((rows * 32 + banks)[ok2],
+                                minlength=32 * len(a)).reshape(-1, 32)
+            total += count.max(axis=1).sum() * (2 if 0 < j < len(plan) - 1
+                                                else 1)
+    return int(total)
+
+
+def ring_pad(plan, tf: int) -> int:
+    """The exchange padding for ``plan`` on lanes of tf threads: the one of
+    PADS with the fewest modelled wavefronts (:func:`exchange_wavefronts`),
+    the float2 every 16 elements on a tie. Power-of-two strides want it;
+    the runs of the odd-radix passes (2400: 1502 wavefronts a frame
+    without it, 2352 with it) do not."""
+    return min(PADS, key=lambda pad: exchange_wavefronts(plan, tf, pad))
+
+
 def ring_slot(N: int) -> int:
     """A ring slot: the frame's 2N bytes rounded up to 16."""
     return -(-2 * N // 16) * 16
@@ -464,6 +514,7 @@ class RingLaunch(NamedTuple):
     tf: int         # threads a frame lane, a multiple of 32
     lanes: int      # frame lanes a block, a power of two
     xstride: int    # float2 of a lane's exchange buffer
+    pad: int        # the exchange padding (:func:`ring_pad`)
 
     @property
     def threads(self) -> int:
@@ -492,9 +543,9 @@ class RingLaunch(NamedTuple):
 
     def ints(self) -> list:
         """The plan as the kernel reads it (read_ring_plan): n, row,
-        passes, tf, lanes, xstride, then per pass (MAX_PASSES each, 0 past
-        the last) the radix, stride, division constant (as int32 bits),
-        twiddle offset and rounds."""
+        passes, tf, lanes, xstride, pad, then per pass (MAX_PASSES each, 0
+        past the last) the radix, stride, division constant (as int32
+        bits), twiddle offset and rounds."""
         spans = plan_spans(self.plan)
         offsets = [0]
         for L, _ in spans[:-1]:
@@ -506,25 +557,27 @@ class RingLaunch(NamedTuple):
             return values + [0] * (MAX_PASSES - len(values))
 
         return ([self.n, self.row, len(self.plan), self.tf, self.lanes,
-                 self.xstride] + pad(self.plan)
+                 self.xstride, self.pad] + pad(self.plan)
                 + pad(S for _, S in spans)
                 + pad(m - (1 << 32) if m >= 1 << 31 else m for m in magics)
                 + pad(offsets) + pad(self.rounds))
 
 
 def ring_shape(plan) -> RingLaunch:
-    """The kernel's layout for ``plan``: tf = :func:`ring_tf`, as many
-    frame lanes, a power of two, as bring a block to at most
-    TARGET_THREADS threads, fewer where shared memory runs out."""
+    """The kernel's layout for ``plan``: tf = :func:`ring_tf`, the padding
+    :func:`ring_pad`, as many frame lanes, a power of two, as bring a
+    block to at most TARGET_THREADS threads, fewer where shared memory
+    runs out."""
     plan = tuple(plan)
     n = int(np.prod(plan))
     if len(plan) > MAX_PASSES or any(r not in RADICES for r in plan):
         raise ValueError(f"plan {plan} outside the kernel's radices or "
                          "passes")
     tf = ring_tf(plan)
+    pad = ring_pad(plan, tf)
     lanes = 1 << max(0, (TARGET_THREADS // tf).bit_length() - 1)
     shape = RingLaunch(n, -(-n // SUM_BINS) * SUM_BINS, plan, tf, lanes,
-                       pad_index(n - 1) + 1)
+                       ring_pad_index(n - 1, pad) + 1, pad)
     while shape.lanes > 1 and shape.smem() > RING_MAX_SMEM:
         shape = shape._replace(lanes=shape.lanes // 2)
     if shape.smem() > RING_MAX_SMEM:
@@ -553,7 +606,8 @@ def form_of(shape: RingLaunch) -> int:
     """The form the wrappers run: the plan fixed at compile time where
     there is one for the layout, else the run-time plan."""
     fixed = FIXED_PLANS.get(shape.n)
-    return FORM_FIXED if fixed == (shape.tf, shape.plan) else FORM_RUNTIME
+    return (FORM_FIXED if fixed == (shape.tf, shape.pad, shape.plan)
+            else FORM_RUNTIME)
 
 
 def ring_attributes(shape: RingLaunch, windowed: bool = False,

@@ -464,8 +464,8 @@ def test_ring_constants_are_the_headers():
     text = (CSRC / f).read_text()
     fixed = dict(re.findall(r"using Fixed(\d+) = FixedPlan<([\d, ]+)>;",
                             text))
-    assert {int(n): (int(v.split(",")[0]),
-                     tuple(int(r) for r in v.split(",")[1:]))
+    assert {int(n): (int(v.split(",")[0]), int(v.split(",")[1]),
+                     tuple(int(r) for r in v.split(",")[2:]))
             for n, v in fixed.items()} == fm.FIXED_PLANS
     m = re.search(r"kRingPlanInts = (\d+) \+ (\d+) \* kMixedMaxPasses", text)
     assert int(m.group(1)) + int(m.group(2)) * fm.MAX_PASSES == \
@@ -488,13 +488,15 @@ def test_ring_shape_of_every_even_7_smooth_n():
         assert shape.acc <= shape.acc_class <= fm.RING_ACC[-1]
         assert shape.acc_class // shape.plan[-1] >= shape.rounds[-1]
         assert shape.row % 32 == 0 and N <= shape.row < N + 32
-        assert len(shape.ints()) == 6 + 5 * fm.MAX_PASSES
+        assert shape.pad in fm.PADS
+        assert shape.xstride == fm.ring_pad_index(N - 1, shape.pad) + 1
+        assert len(shape.ints()) == 7 + 5 * fm.MAX_PASSES
 
 
 @pytest.mark.parametrize("N", [500, 2400])
 def test_the_fixed_plans_are_the_drives_layouts(N):
     shape = fm.ring_launch(N)
-    assert (shape.tf, shape.plan) == fm.FIXED_PLANS[N]
+    assert (shape.tf, shape.pad, shape.plan) == fm.FIXED_PLANS[N]
     assert fm.form_of(shape) == fm.FORM_FIXED
 
 
@@ -528,10 +530,10 @@ def ring_ints(N):
     """The plan ints by name, as read_ring_plan reads them."""
     ints = fm.ring_launch(N).ints()
     P = fm.MAX_PASSES
-    head = dict(zip(("n", "row", "passes", "tf", "lanes", "xstride"),
-                    ints[:6]))
+    head = dict(zip(("n", "row", "passes", "tf", "lanes", "xstride",
+                     "pad"), ints[:7]))
     names = ("radix", "stride", "magic", "twoff", "rounds")
-    return head, {name: ints[6 + i * P:6 + (i + 1) * P]
+    return head, {name: ints[7 + i * P:7 + (i + 1) * P]
                   for i, name in enumerate(names)}
 
 
@@ -541,7 +543,8 @@ def test_ring_ints_layout(N):
     shape = fm.ring_launch(N)
     P = len(shape.plan)
     assert head["passes"] == P and head["tf"] == shape.tf
-    assert head["xstride"] == fm.pad_index(N - 1) + 1
+    assert head["pad"] == shape.pad
+    assert head["xstride"] == fm.ring_pad_index(N - 1, shape.pad) + 1
     spans_ = fm.plan_spans(shape.plan)
     assert per["radix"][:P] == list(shape.plan)
     assert per["stride"][:P] == [S for _, S in spans_]
@@ -607,6 +610,62 @@ def test_ring_accumulators_own_each_bin_once():
         assert np.array_equal(np.sort(q), np.arange(N))
 
 
+def slow_wavefronts(plan, tf, pad):
+    """exchange_wavefronts written out access by access: the 8-byte
+    accesses of each half-warp, the most 4-byte words a bank holds."""
+    n = int(np.prod(plan))
+    total = 0
+    spans_ = fm.plan_spans(plan)
+    for j, ((L, S), R, rounds) in enumerate(zip(spans_, plan,
+                                               fm.ring_rounds(plan, tf))):
+        for w in range(-(-tf // 32)):
+            for i in range(rounds):
+                for k in range(R):
+                    for h in (0, 16):
+                        words = []
+                        for lane in range(w * 32 + h, w * 32 + h + 16):
+                            b = lane + i * tf
+                            if lane >= tf or b >= n // R:
+                                continue
+                            e = (b if j == 0 else (b // S) * L + b % S) + k * S
+                            a = fm.ring_pad_index(e, pad)
+                            words += [2 * a, 2 * a + 1]
+                        if words:
+                            hits = np.bincount(np.array(words) % 32)
+                            total += hits.max() * (2 if 0 < j < len(plan) - 1
+                                                   else 1)
+    return total
+
+
+@pytest.mark.parametrize("N", [20, 30, 500, 768, 2400])
+@pytest.mark.parametrize("pad", fm.PADS)
+def test_bank_model_counts_each_access(N, pad):
+    plan = fm.mixed_plan(N)
+    tf = fm.ring_tf(plan)
+    assert fm.exchange_wavefronts(plan, tf, pad) == \
+        slow_wavefronts(plan, tf, pad)
+
+
+@pytest.mark.parametrize("N,pad,wavefronts", [
+    (2400, 31, 1502), (2400, 4, 2352), (500, 31, 303), (500, 4, 333),
+    (768, 4, 300), (768, 31, 672)])
+def test_bank_model_at_the_drives_and_a_power_of_two_stride(N, pad,
+                                                           wavefronts):
+    """Without padding the odd-radix runs at 2400 take 1502 wavefronts a
+    frame, near the 1366 of conflict-free accesses, with fft_regs.cuh's
+    padding 2352; 768 (16.16.3) wants the padding."""
+    plan = fm.mixed_plan(N)
+    assert fm.exchange_wavefronts(plan, fm.ring_tf(plan), pad) == wavefronts
+
+
+def test_exchange_padding_is_the_models_least():
+    for N in SMOOTH_EVEN:
+        shape = fm.ring_launch(N)
+        other = [p for p in fm.PADS if p != shape.pad][0]
+        assert fm.exchange_wavefronts(shape.plan, shape.tf, shape.pad) <= \
+            fm.exchange_wavefronts(shape.plan, shape.tf, other), N
+
+
 def ring_power(raw, window=None, dtype=np.complex64):
     """|DFT|^2 of each frame as psd_ring_kernel computes it, thread by
     thread: pass 0's butterflies b = t + i*tf over the samples, the middle
@@ -620,7 +679,11 @@ def ring_power(raw, window=None, dtype=np.complex64):
     tw = twiddle_table(shape.plan, dtype)
     x = dequantize(raw, window, dtype)
     t = np.arange(tf)
-    xbuf = np.full((F, pad(N - 1) + 1), np.nan, dtype)
+
+    def pad(e):
+        return fm.ring_pad_index(e, head["pad"])
+
+    xbuf = np.full((F, head["xstride"]), np.nan, dtype)
     if P == 1:
         xbuf[:, pad(np.arange(N))] = x
     else:
