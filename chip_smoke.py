@@ -1917,7 +1917,7 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
                   *kernels["B"])
     print(f"wall: awkward yards in {time.perf_counter() - t0:.1f} s")
 
-    # Times (PERF.md's prediction, PR 14): the kernel and the control it
+    # Times (PERF.md states their prediction): the kernel and the control it
     # replaced one after the other at every phase-13 shape: a call (CUDA
     # events around each), the device's part (calls queued behind a sleep
     # kernel, twice each in turns), the wrapper's host part, the plain
