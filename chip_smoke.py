@@ -1925,9 +1925,7 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
     # each entry's max abs error against its plain version there. The
     # device time must be at most 0.6 of the control's for the mixed-radix
     # kernel at 2400/4096, 0.7 for the chirp-Z kernel at 998/4096, 1.05
-    # everywhere else. At the plans fixed at compile time (500, 2400) the
-    # mixed-radix kernel's run-time plan is timed beside the fixed plan
-    # (the one the wrappers run there).
+    # everywhere else.
     limits = {("M", 2400, 4096): 0.6, ("B", 998, 4096): 0.7}
     times = {}
     for name, N, fps, S in (("M", 500, 32, 1), ("M", 500, man_page_fps, 1),
@@ -1987,19 +1985,6 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
         check(ratio <= limit, f"{name} N={N} F={F}: {t['device']:.1f} us of "
               f"device time is above {limit} of the control's "
               f"{t['control_device']:.1f} us")
-        if name == "M" and N in fm.FIXED_PLANS:
-            ring = fm.ring_launch(N)
-            forms = {label: (device_times_us(
-                lambda form=form: fm.launch_ring("form", ring, raw, nv,
-                                                 chunk, None, form)),
-                fm.ring_attributes(ring, False, form))
-                for label, form in (("run-time plan", fm.FORM_RUNTIME),
-                                    ("fixed plan", fm.FORM_FIXED))}
-            print(f"forms awkward M N={N} F={F} on {card}: device "
-                  + ", ".join(f"{k} {v[0]:.1f} us ({v[1]['registers']} "
-                              f"registers, {v[1]['spill_bytes']} B spill, "
-                              f"{v[1]['blocks_per_sm']} blocks/SM)"
-                              for k, v in forms.items()))
     print(f"wall: awkward times in {time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its kernel alone.
@@ -2208,12 +2193,10 @@ def main() -> int:
             a = fm.ring_attributes(shape, w)
             print(f"occupancy fused_psd_mixed N={N} "
                   f"{'windowed' if w else 'unwindowed'} plan {shape.plan} "
-                  f"({'fixed' if fm.form_of(shape) == fm.FORM_FIXED else 'run-time'}"
-                  f") on {card}: {a['registers']} registers, "
+                  f"on {card}: {a['registers']} registers, "
                   f"{a['spill_bytes']} B spill, {a['static_smem']} + "
                   f"{a['dynamic_smem']} B shared, {a['threads']} threads "
-                  f"({shape.lanes} lanes of {shape.tf}), padding "
-                  f"{shape.pad}, last-pass sums "
+                  f"({shape.lanes} lanes of {shape.tf}), last-pass sums "
                   f"{shape.acc} of {shape.acc_class}, {a['blocks_per_sm']} "
                   f"blocks/SM")
     for N in (10, 200, 500, 998, 3000, 8182):

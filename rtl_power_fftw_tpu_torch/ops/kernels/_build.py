@@ -79,15 +79,15 @@ SIGNATURES = {
     },
     "fused_psd_mixed": {
         # the mixed-radix kernel: raw, twiddle, order, window, partial, out,
-        # plan (int[57]), device, F, group, n_valid, width, form, stream
+        # plan (int[55]), device, F, group, n_valid, width, stream
         "rpf_fused_psd_mixed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _P],
+                                _I, _P],
         # raw, twiddle, order, window, n_valid, partial, out, plan, device,
-        # S, F, group, width, form, stream
+        # S, F, group, width, stream
         "rpf_fused_psd_mixed_streams": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                        _I, _I, _I, _I, _I, _P],
-        # plan, windowed, form, device, attrs (int[6])
-        "rpf_fused_psd_mixed_attributes": [_P, _I, _I, _I, _P],
+                                        _I, _I, _I, _I, _P],
+        # plan, windowed, device, attrs (int[6])
+        "rpf_fused_psd_mixed_attributes": [_P, _I, _I, _P],
         # the chirp-Z kernel: raw, twiddle, window, chirp, spectrum,
         # partial, out, device, log2m, bins, F, group, n_valid, width,
         # stream

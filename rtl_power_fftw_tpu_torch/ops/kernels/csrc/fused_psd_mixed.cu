@@ -129,36 +129,18 @@ using RingKernel = void (*)(const uint8_t*, const float2*, const int*,
                             const float*, float*, const RingPlan, int, int,
                             int, int, int, const int*);
 
-// The ring kernels, [windowed][index]: the run-time plan (form 0) with
-// kRingAccSmall or kRingAccLarge sums, then the plans fixed at compile
-// time (form 1), 500 and 2400.
-enum : int { kRingRunTime = 0, kRingFixed = 1 };
-constexpr int kRingKernels = 4;
+// The ring kernels, [windowed][index]: kRingAccSmall or kRingAccLarge
+// last-pass sums a thread.
+constexpr int kRingKernels = 2;
 
 RingKernel ring_kernel(bool windowed, int index) {
   static const RingKernel plain[kRingKernels] = {
       psd_ring_kernel<false, kRingAccSmall>,
-      psd_ring_kernel<false, kRingAccLarge>,
-      psd_ring_kernel<false, Fixed500::acc(), Fixed500>,
-      psd_ring_kernel<false, Fixed2400::acc(), Fixed2400>};
+      psd_ring_kernel<false, kRingAccLarge>};
   static const RingKernel hann[kRingKernels] = {
       psd_ring_kernel<true, kRingAccSmall>,
-      psd_ring_kernel<true, kRingAccLarge>,
-      psd_ring_kernel<true, Fixed500::acc(), Fixed500>,
-      psd_ring_kernel<true, Fixed2400::acc(), Fixed2400>};
+      psd_ring_kernel<true, kRingAccLarge>};
   return windowed ? hann[index] : plain[index];
-}
-
-template <class FP>
-bool is_fixed(const RingPlan& p) {
-  if (p.n != FP::N || p.tf != FP::TF || p.passes != FP::P ||
-      p.pad != FP::PAD) {
-    return false;
-  }
-  for (int j = 0; j < FP::P; ++j) {
-    if (p.radix[j] != FP::radix(j)) return false;
-  }
-  return true;
 }
 
 bool is_radix(int r) {
@@ -176,22 +158,18 @@ cudaError_t read_ring_plan(const int* ints, RingPlan* p) {
   p->passes = ints[2];
   p->tf = ints[3];
   p->lanes = ints[4];
-  p->xstride = ints[5];
-  p->pad = ints[6];
   for (int j = 0; j < kMixedMaxPasses; ++j) {
-    p->radix[j] = ints[7 + j];
-    p->stride[j] = ints[7 + kMixedMaxPasses + j];
-    p->magic[j] = ints[7 + 2 * kMixedMaxPasses + j];
-    p->twoff[j] = ints[7 + 3 * kMixedMaxPasses + j];
-    p->rounds[j] = ints[7 + 4 * kMixedMaxPasses + j];
+    p->radix[j] = ints[5 + j];
+    p->stride[j] = ints[5 + kMixedMaxPasses + j];
+    p->magic[j] = ints[5 + 2 * kMixedMaxPasses + j];
+    p->twoff[j] = ints[5 + 3 * kMixedMaxPasses + j];
+    p->rounds[j] = ints[5 + 4 * kMixedMaxPasses + j];
   }
   const int P = p->passes;
   bool ok = P >= 1 && P <= kMixedMaxPasses && p->n >= 2 &&
             p->n <= 16384 && p->row % kSumBins == 0 && p->row >= p->n &&
             p->tf >= 32 && p->tf % 32 == 0 && p->lanes >= 1 &&
-            p->tf * p->lanes <= kRingMaxThreads &&
-            (p->pad == 4 || p->pad == 31) &&
-            p->xstride == ring_pad(p->n - 1, p->pad) + 1;
+            p->tf * p->lanes <= kRingMaxThreads;
   int L = p->n;
   int offset = 0;
   for (int j = 0; ok && j < P; ++j) {
@@ -210,19 +188,13 @@ cudaError_t read_ring_plan(const int* ints, RingPlan* p) {
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The kernel of `form` for the plan (an index of ring_kernel), its shared
-// bytes, or -1 where the form does not take the plan.
-int ring_pick(const RingPlan& p, int form, int* smem) {
+// The kernel for the plan (an index of ring_kernel) and its shared bytes,
+// or -1 where the plan's block does not fit.
+int ring_pick(const RingPlan& p, int* smem) {
   const bool large =
       p.rounds[p.passes - 1] * p.radix[p.passes - 1] > kRingAccSmall;
   *smem = ring_smem_bytes(p);
-  if (*smem > kRingMaxSmem) return -1;
-  if (form == kRingRunTime) return large ? 1 : 0;
-  if (form == kRingFixed) {
-    if (is_fixed<Fixed500>(p)) return 2;
-    if (is_fixed<Fixed2400>(p)) return 3;
-  }
-  return -1;
+  return *smem > kRingMaxSmem ? -1 : large ? 1 : 0;
 }
 
 std::atomic<unsigned long long> ring_done[2][kRingKernels];
@@ -232,11 +204,11 @@ int launch_ring(const void* raw, const void* twiddle, const void* order,
                 const void* window, const void* stream_n_valid, void* partial,
                 void* out,
                 const int* plan, int device, int S, int F, int group,
-                int G_s, int n_valid, int width, int form, void* stream) {
+                int G_s, int n_valid, int width, void* stream) {
   RingPlan p;
   cudaError_t e = read_ring_plan(plan, &p);
   int smem = 0;
-  const int index = e == cudaSuccess ? ring_pick(p, form, &smem) : -1;
+  const int index = e == cudaSuccess ? ring_pick(p, &smem) : -1;
   if (index < 0 || !width_ok(raw, p.n, width) || order == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -378,20 +350,18 @@ extern "C" {
 // (N,) int32, the element that holds each bin (element_of_bin); window:
 // (N,) f32, or null; partial: (ceil(F / group), row) f32 scratch; out:
 // (row,) f32, of which the first N are the bins; plan: the wrapper's
-// ring plan ints; form: 0 (the run-time plan) or 1 (the plan fixed at
-// compile time, 500 and 2400 only).
+// ring plan ints.
 // Returns a cudaError_t (0 on success); does not synchronise.
 int rpf_fused_psd_mixed(const void* raw, const void* twiddle,
                         const void* order, const void* window, void* partial,
                         void* out, const int* plan, int device, int F,
-                        int group, int n_valid, int width, int form,
-                        void* stream) {
+                        int group, int n_valid, int width, void* stream) {
   if (!mixed_args_ok(1, F, group, n_valid, false)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_ring(raw, twiddle, order, window, nullptr, partial, out, plan,
                      device, 1, F, group, (F + group - 1) / group, n_valid,
-                     width, form, stream);
+                     width, stream);
 }
 
 // S streams of F frames. raw: (S*F, 2N) u8, stream s in rows
@@ -403,23 +373,22 @@ int rpf_fused_psd_mixed_streams(const void* raw, const void* twiddle,
                                 const void* order, const void* window,
                                 const void* n_valid, void* partial, void* out,
                                 const int* plan, int device, int S, int F,
-                                int group, int width, int form,
-                                void* stream) {
+                                int group, int width, void* stream) {
   if (!mixed_args_ok(S, F, group, 0, true) || n_valid == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_ring(raw, twiddle, order, window, n_valid, partial, out, plan,
-                     device, S, F, group, F / group, 0, width, form, stream);
+                     device, S, F, group, F / group, 0, width, stream);
 }
 
-// What the mixed-radix kernel of `form` gets with the plan on `device`,
-// into attrs[0..5] (as rpf_fused_psd_attributes). Launches nothing.
-int rpf_fused_psd_mixed_attributes(const int* plan, int windowed, int form,
-                                   int device, int* attrs) {
+// What the mixed-radix kernel gets with the plan on `device`, into
+// attrs[0..5] (as rpf_fused_psd_attributes). Launches nothing.
+int rpf_fused_psd_mixed_attributes(const int* plan, int windowed, int device,
+                                   int* attrs) {
   RingPlan p;
   cudaError_t e = read_ring_plan(plan, &p);
   int smem = 0;
-  const int index = e == cudaSuccess ? ring_pick(p, form, &smem) : -1;
+  const int index = e == cudaSuccess ? ring_pick(p, &smem) : -1;
   if (index < 0 || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -485,7 +454,9 @@ int rpf_fused_psd_chirp_attributes(int log2m, int bins, int windowed,
     e = opt_in(kernel, smem, kMixedMaxSmem, device,
                chirp_done[windowed != 0][log2m - kChirpMinLog2M]);
   }
-  if (e == cudaSuccess) e = kernel_attributes(kernel, info.threads, smem, attrs);
+  if (e == cudaSuccess) {
+    e = kernel_attributes(kernel, info.threads, smem, attrs);
+  }
   return static_cast<int>(e);
 }
 

@@ -1,8 +1,7 @@
 // The mixed-radix group kernel of fused_psd_mixed.cu:
-// psd_ring_kernel<WINDOWED, ACC, FIXED>, the passes of
-// fft_mixed.cuh (radix 2, 3, 4, 5, 7, 8, 16, decimation in frequency) by a
-// run-time plan (fused_psd_mixed.ring_shape on the host), or by a plan
-// fixed at compile time (FIXED, a FixedPlan).
+// psd_ring_kernel<WINDOWED, ACC>, the passes of fft_mixed.cuh (radix 2, 3,
+// 4, 5, 7, 8, 16, decimation in frequency) by a run-time plan
+// (fused_psd_mixed.ring_shape on the host).
 //
 // A block is `lanes` frame lanes of tf threads, tf a multiple of 32 (whole
 // warps), lanes a power of two. Lane p of block g sums the frames
@@ -14,7 +13,7 @@
 //  * pass 0 reads its butterflies' samples from the ring as u16 pairs,
 //    dequantizes them exactly, times the window (read through L1), runs
 //    the radix-R_0 butterfly in registers and writes the outputs, times
-//    their twiddles, to the lane's padded exchange buffer;
+//    their twiddles, to the lane's exchange buffer;
 //  * passes 1 .. P-2 in place through the buffer, one block barrier
 //    between passes. Butterfly b of a pass is t + i*tf, i < rounds_j (the
 //    plan's); its (block, n2) = divmod(b, S_j) takes no division: the
@@ -28,26 +27,23 @@
 // each bin k of the row is its element (order[k], the host's
 // element_of_bin: k's digits in reverse) summed lane by lane in order; the
 // block writes its partial row (N rounded up to 32 floats, the rest 0) for
-// psd_sum.cuh. The class of at most kRingAccSmall sums is held to 64
-// registers (two 512-thread blocks an SM), the larger one to 128.
+// psd_sum.cuh. Both classes of sums (at most kRingAccSmall, at most
+// kRingAccLarge) may take 128 registers, one 512-thread block an SM: the
+// small class held to 64 (two such blocks) spilled 248 B and measured
+// slower at every N tried (probes/ring_layouts.py).
 //
 // The pass table (radix, stride, division constant, twiddle offset and
 // rounds of each pass) is copied from the kernel parameter into shared
 // memory once a block, so no pass indexes the parameter at run time. The
 // twiddles are read through L1 (a form that held them in shared memory
 // measured slower: its table cost blocks an SM). Element e of a lane's
-// exchange buffer sits at e + (e >> pad): pad = 4 adds fft_regs.cuh's
-// float2 every 16 elements, which breaks power-of-two strides apart; pad
-// = 31 adds none, which keeps the runs of the odd-radix passes whole. The
-// host picks the one a bank model gives fewer shared-memory wavefronts
-// (fused_psd_mixed.ring_pad).
+// exchange buffer sits at e: no padding (fft_regs.cuh's float2 every 16
+// elements wins at some N and loses at others, probes/ring_layouts.py).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "fft_mixed.cuh"
 #include "frame_ring.cuh"
@@ -71,63 +67,18 @@ struct RingPlan {
   int passes;   // P
   int tf;       // threads a frame lane, a multiple of 32
   int lanes;    // frame lanes a block
-  int xstride;  // float2 of a lane's exchange buffer: ring_pad(n - 1) + 1
-  int pad;      // 4 or 31: element e at e + (e >> pad)
   int radix[kMixedMaxPasses];
   int stride[kMixedMaxPasses];   // S_j = L_j / R_j
   int magic[kMixedMaxPasses];    // ceil(2^32 / S_j) (bits), 0 where S_j = 1
   int twoff[kMixedMaxPasses];    // row of pass j's first twiddle
   int rounds[kMixedMaxPasses];   // ceil((N / R_j) / tf)
 };
-constexpr int kRingPlanInts = 7 + 5 * kMixedMaxPasses;
-
-// Element e's float2 slot in a lane's exchange buffer.
-__host__ __device__ __forceinline__ int ring_pad(int e, int pad) {
-  return e + (e >> pad);
-}
+constexpr int kRingPlanInts = 5 + 5 * kMixedMaxPasses;
 
 // Shared bytes of a block: the lanes' exchange buffers, then their rings.
 __host__ __device__ inline int ring_smem_bytes(const RingPlan& p) {
-  return round16(p.lanes * p.xstride * 8) + p.lanes * ring_bytes(p.n);
+  return round16(p.lanes * p.n * 8) + p.lanes * ring_bytes(p.n);
 }
-
-// A plan fixed at compile time: TF threads a lane, the exchange padding
-// PAD, radices RS.
-template <int TF_, int PAD_, int... RS>
-struct FixedPlan {
-  static constexpr int TF = TF_;
-  static constexpr int PAD = PAD_;
-  static constexpr int P = sizeof...(RS);
-  static constexpr int N = (RS * ...);
-  __host__ __device__ static constexpr int radix(int j) {
-    constexpr int r[] = {RS...};
-    return r[j];
-  }
-  __host__ __device__ static constexpr int span(int j) {
-    return j == 0 ? N : span(j - 1) / radix(j - 1);
-  }
-  __host__ __device__ static constexpr int stride(int j) {
-    return span(j) / radix(j);
-  }
-  __host__ __device__ static constexpr int twoff(int j) {
-    return j == 0 ? 0 : twoff(j - 1) + span(j - 1);
-  }
-  __host__ __device__ static constexpr int rounds(int j) {
-    return (N / radix(j) + TF - 1) / TF;
-  }
-  __host__ __device__ static constexpr unsigned magic(int j) {
-    return static_cast<unsigned>((0x100000000ull + stride(j) - 1) /
-                                 stride(j));
-  }
-  // The last-pass sums a thread holds.
-  __host__ __device__ static constexpr int acc() {
-    return rounds(P - 1) * radix(P - 1);
-  }
-};
-
-// The plans of the drives: the man-page drive's 500 and 2400.
-using Fixed500 = FixedPlan<128, 31, 5, 5, 5, 4>;
-using Fixed2400 = FixedPlan<160, 31, 8, 5, 5, 4, 3>;
 
 // The output permutation of dft_natural's radix-4/8/16 form, with every
 // register index a constant.
@@ -155,37 +106,25 @@ __device__ __forceinline__ void ring_dft(float2 (&v)[R]) {
   }
 }
 
-// body(i) for the rounds i of a pass: ROUNDS of them, unrolled, where the
-// plan is fixed at compile time; else `rounds`, one at a time.
-template <int ROUNDS, class Body>
-__device__ __forceinline__ void for_rounds(int rounds, Body&& body) {
-  if constexpr (ROUNDS > 0) {
-#pragma unroll
-    for (int i = 0; i < ROUNDS; ++i) body(i);
-  } else {
-#pragma unroll 1
-    for (int i = 0; i < rounds; ++i) body(i);
-  }
-}
-
 // Pass 0 of one frame from the ring on lane thread t: butterflies
 // b = t + i*tf < n / R, each over the samples b + n1*S (S = n / R); output
 // k1 to element b + k1*S times W_n^(b*k1). A one-pass plan (`copy`: n = R)
 // writes the samples to their elements instead, for the last pass.
-template <int R, bool WINDOWED, int ROUNDS = 0>
+template <int R, bool WINDOWED>
 __device__ __forceinline__ void ring_first(
     const uint16_t* iq, const float* __restrict__ window,
     const float2* __restrict__ tw,
-    float2* x, int n, bool copy, int rounds, int pad, int t, int tf) {
+    float2* x, int n, bool copy, int rounds, int t, int tf) {
   if (copy) {
     for (int s = t; s < n; s += tf) {
-      x[ring_pad(s, pad)] = ring_sample<WINDOWED>(
-          iq, s, WINDOWED ? __ldg(window + s) : 0.0f);
+      x[s] = ring_sample<WINDOWED>(iq, s,
+                                   WINDOWED ? __ldg(window + s) : 0.0f);
     }
     return;
   }
   const int S = n / R;
-  for_rounds<ROUNDS>(rounds, [&](int i) {
+#pragma unroll 1
+  for (int i = 0; i < rounds; ++i) {
     const int b = t + i * tf;
     if (b < S) {
       float2 v[R];
@@ -198,27 +137,24 @@ __device__ __forceinline__ void ring_first(
       ring_dft<R>(v);
 #pragma unroll
       for (int k1 = 0; k1 < R; ++k1) {
-        const float2 y =
-            k1 == 0 ? v[0]
-                    : cmulf(v[k1], __ldg(tw + k1 * S + b));
-        x[ring_pad(b + k1 * S, pad)] = y;
+        x[b + k1 * S] = k1 == 0 ? v[0] : cmulf(v[k1], __ldg(tw + k1 * S + b));
       }
     }
-  });
+  }
 }
 
 // A middle pass in place on lane thread t: butterfly b = t + i*tf <
 // n / R at (block, n2) = divmod(b, S) by the division constant, its
 // elements block*R*S + n2 + n1*S; outputs times their twiddles (the pass's
 // part of the table, row k1*S + n2).
-template <int R, int ROUNDS = 0>
+template <int R>
 __device__ __forceinline__ void ring_mid(float2* x,
                                          const float2* __restrict__ tw,
                                          int S, unsigned magic, int n,
-                                         int rounds, int pad, int t,
-                                         int tf) {
+                                         int rounds, int t, int tf) {
   const int nb = n / R;
-  for_rounds<ROUNDS>(rounds, [&](int i) {
+#pragma unroll 1
+  for (int i = 0; i < rounds; ++i) {
     const int b = t + i * tf;
     if (b < nb) {
       const int block = static_cast<int>(__umulhi(static_cast<unsigned>(b),
@@ -227,27 +163,23 @@ __device__ __forceinline__ void ring_mid(float2* x,
       const int base = block * R * S + n2;
       float2 v[R];
 #pragma unroll
-      for (int n1 = 0; n1 < R; ++n1) {
-        v[n1] = x[ring_pad(base + n1 * S, pad)];
-      }
+      for (int n1 = 0; n1 < R; ++n1) v[n1] = x[base + n1 * S];
       ring_dft<R>(v);
 #pragma unroll
       for (int k1 = 0; k1 < R; ++k1) {
-        const float2 y =
-            k1 == 0 ? v[0]
-                    : cmulf(v[k1], __ldg(tw + k1 * S + n2));
-        x[ring_pad(base + k1 * S, pad)] = y;
+        x[base + k1 * S] =
+            k1 == 0 ? v[0] : cmulf(v[k1], __ldg(tw + k1 * S + n2));
       }
     }
-  });
+  }
 }
 
 // The last pass on lane thread t: butterfly b = t + i*tf < n / R takes
 // the elements b*R + k; |.|^2 of output k1 is added to acc[i*R + k1].
 template <int R, int ACC>
 __device__ __forceinline__ void ring_last(const float2* x,
-                                          float (&acc)[ACC], int n, int pad,
-                                          int t, int tf) {
+                                          float (&acc)[ACC], int n, int t,
+                                          int tf) {
   const int nb = n / R;
 #pragma unroll
   for (int i = 0; i < ACC / R; ++i) {
@@ -255,7 +187,7 @@ __device__ __forceinline__ void ring_last(const float2* x,
     if (b < nb) {
       float2 v[R];
 #pragma unroll
-      for (int k = 0; k < R; ++k) v[k] = x[ring_pad(b * R + k, pad)];
+      for (int k = 0; k < R; ++k) v[k] = x[b * R + k];
       ring_dft<R>(v);
 #pragma unroll
       for (int k1 = 0; k1 < R; ++k1) acc[i * R + k1] += norm2(v[k1]);
@@ -279,31 +211,13 @@ __device__ __forceinline__ void ring_gather(float* by_elem,
   }
 }
 
-// Passes J .. P-2 of a fixed plan, each after a block barrier.
-template <class FP, int J>
-__device__ __forceinline__ void fixed_mid(float2* x,
-                                          const float2* __restrict__ tw,
-                                          bool active, int t) {
-  if constexpr (J < FP::P - 1) {
-    __syncthreads();
-    if (active) {
-      ring_mid<FP::radix(J), FP::rounds(J)>(
-          x, tw + FP::twoff(J), FP::stride(J), FP::magic(J), FP::N,
-          FP::rounds(J), FP::PAD, t, FP::TF);
-    }
-    fixed_mid<FP, J + 1>(x, tw, active, t);
-  }
-}
-
 // Pass 1 of the step: block g serves stream s = g / G_s (one stream for
 // the single-stream entry) and sums |X|^2 of that stream's frames
 // [j*group, min((j+1)*group, F, n_valid_s)), j = g mod G_s, into partial
 // row g. n_valid_s is stream_n_valid[s] where that array is given, else
-// n_valid. FIXED = void runs the plan of p; a FixedPlan runs its own,
-// which p must equal.
-template <bool WINDOWED, int ACC, class FIXED = void>
-__global__ void __launch_bounds__(kRingMaxThreads,
-                                  ACC <= kRingAccSmall ? 2 : 1)
+// n_valid.
+template <bool WINDOWED, int ACC>
+__global__ void __launch_bounds__(kRingMaxThreads, 1)
 psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
                 const float2* __restrict__ twiddle,  // plan_twiddles
                 const int* __restrict__ order,       // (N,) element of bin
@@ -312,17 +226,10 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
                 const RingPlan p, int width, int F, int group,
                 int blocks_per_stream, int n_valid,
                 const int* __restrict__ stream_n_valid) {
-  constexpr bool kFixed = !std::is_void_v<FIXED>;
   extern __shared__ float4 ring_smem[];
   __shared__ int4 tab[kMixedMaxPasses];   // radix, stride, magic, twoff
   __shared__ int tab_rounds[kMixedMaxPasses];
-  int n = p.n, tf = p.tf, P = p.passes, pad = p.pad;
-  if constexpr (kFixed) {
-    n = FIXED::N;
-    tf = FIXED::TF;
-    P = FIXED::P;
-    pad = FIXED::PAD;
-  }
+  const int n = p.n, tf = p.tf, P = p.passes;
   const int threads = tf * p.lanes;
   const int tid = threadIdx.x;
   const int lane = tid / tf;
@@ -335,9 +242,8 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
     }
   }
   uint8_t* smem = reinterpret_cast<uint8_t*>(ring_smem);
-  float2* x = reinterpret_cast<float2*>(smem) + lane * p.xstride;
-  uint8_t* ring =
-      smem + round16(p.lanes * p.xstride * 8) + lane * ring_bytes(n);
+  float2* x = reinterpret_cast<float2*>(smem) + lane * n;
+  uint8_t* ring = smem + round16(p.lanes * n * 8) + lane * ring_bytes(n);
   const int slot = ring_slot(n);
 
   float acc[ACC];
@@ -371,41 +277,29 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
     const bool active = f0 + lane + p.lanes * i < f1;
     const uint16_t* iq =
         reinterpret_cast<const uint16_t*>(ring + (i & 1) * slot);
-    if constexpr (kFixed) {
-      if (active) {
-        ring_first<FIXED::radix(0), WINDOWED, FIXED::rounds(0)>(
-            iq, window, twiddle, x, n, P == 1, FIXED::rounds(0), pad, t, tf);
-      }
-      fixed_mid<FIXED, 1>(x, twiddle, active, t);
+    if (active) {
+      with_radix(p.radix[0], [&](auto rc) {
+        ring_first<decltype(rc)::value, WINDOWED>(
+            iq, window, twiddle, x, n, P == 1, p.rounds[0], t, tf);
+      });
+    }
+    for (int j = 1; j < P - 1; ++j) {
       __syncthreads();
       if (active) {
-        ring_last<FIXED::radix(FIXED::P - 1), ACC>(x, acc, n, pad, t, tf);
-      }
-    } else {
-      if (active) {
-        with_radix(p.radix[0], [&](auto rc) {
-          ring_first<decltype(rc)::value, WINDOWED>(
-              iq, window, twiddle, x, n, P == 1, p.rounds[0], pad, t, tf);
+        const int4 e = tab[j];
+        const int rounds = tab_rounds[j];
+        with_radix(e.x, [&](auto rc) {
+          ring_mid<decltype(rc)::value>(x, twiddle + e.w, e.y,
+                                        static_cast<unsigned>(e.z), n,
+                                        rounds, t, tf);
         });
       }
-      for (int j = 1; j < P - 1; ++j) {
-        __syncthreads();
-        if (active) {
-          const int4 e = tab[j];
-          const int rounds = tab_rounds[j];
-          with_radix(e.x, [&](auto rc) {
-            ring_mid<decltype(rc)::value>(
-                x, twiddle + e.w, e.y, static_cast<unsigned>(e.z), n, rounds,
-                pad, t, tf);
-          });
-        }
-      }
-      __syncthreads();
-      if (active) {
-        with_radix(tab[P - 1].x, [&](auto rc) {
-          ring_last<decltype(rc)::value, ACC>(x, acc, n, pad, t, tf);
-        });
-      }
+    }
+    __syncthreads();
+    if (active) {
+      with_radix(tab[P - 1].x, [&](auto rc) {
+        ring_last<decltype(rc)::value, ACC>(x, acc, n, t, tf);
+      });
     }
   }
   cp_async_wait<0>();
@@ -414,15 +308,9 @@ psd_ring_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
   // The lanes' sums at their elements, then each bin's element added lane
   // by lane in order.
   float* by_elem = reinterpret_cast<float*>(smem);   // (lanes, n)
-  if constexpr (kFixed) {
-    ring_gather<FIXED::radix(FIXED::P - 1), ACC>(by_elem + lane * n, acc, n,
-                                                 t, tf);
-  } else {
-    with_radix(tab[P - 1].x, [&](auto rc) {
-      ring_gather<decltype(rc)::value, ACC>(by_elem + lane * n, acc, n, t,
-                                            tf);
-    });
-  }
+  with_radix(tab[P - 1].x, [&](auto rc) {
+    ring_gather<decltype(rc)::value, ACC>(by_elem + lane * n, acc, n, t, tf);
+  });
   __syncthreads();
   float* out = partial + static_cast<size_t>(blockIdx.x) * p.row;
   for (int k = tid; k < p.row; k += threads) {

@@ -97,17 +97,6 @@ RING_MAX_SMEM = MAX_SMEM - 256
 #: Frames are copied into the ring 4, 8 or 16 bytes at a time
 #: (:func:`copy_width`), so they must be at least 4-byte aligned.
 RING_RAW_ALIGN = 4
-#: The kernel's forms (``form`` of rpf_fused_psd_mixed): the run-time plan,
-#: and the plans fixed at compile time (:data:`FIXED_PLANS`), which measured
-#: faster at their N. The wrappers run :func:`form_of`'s.
-FORM_RUNTIME, FORM_FIXED = 0, 1
-#: The plans instantiated at compile time (Fixed500, Fixed2400 in
-#: csrc/fused_psd_mixed_ring.cuh): N -> (tf, exchange padding, radices).
-FIXED_PLANS = {500: (128, 31, (5, 5, 5, 4)),
-               2400: (160, 31, (8, 5, 5, 4, 3))}
-#: The exchange paddings the kernel takes: element e at e + (e >> pad), a
-#: float2 every 16 elements (fft_regs.cuh's), or none.
-PADS = (4, 31)
 
 #: Launches of the controls (:func:`fused_psd_mixed_control`,
 #: ``fused_psd_bluestein.fused_psd_bluestein_control``) and of their plain
@@ -450,52 +439,6 @@ def ring_tf(plan) -> int:
     return best[1]
 
 
-def ring_pad_index(e, pad: int):
-    """Element e's float2 slot in a lane's exchange buffer (ring_pad in
-    csrc/fused_psd_mixed_ring.cuh)."""
-    return e + (e >> pad)
-
-
-def exchange_wavefronts(plan, tf: int, pad: int) -> int:
-    """Shared-memory wavefronts a lane's passes take on one frame by a bank
-    model: each butterfly element's 8-byte access of the threads of a
-    warp, as two half-warps of 16 threads; a half-warp takes as many
-    wavefronts as the most 4-byte words any of the 32 banks holds among
-    its accesses. Pass 0 writes the buffer, the last pass reads it, the
-    middle passes do both."""
-    n = int(np.prod(plan))
-    lanes = np.arange(-(-tf // 32) * 32)
-    total = 0
-    for j, ((L, S), R, rounds) in enumerate(zip(plan_spans(plan), plan,
-                                               ring_rounds(plan, tf))):
-        b = (lanes[None, :] + tf * np.arange(rounds)[:, None]).reshape(-1, 32)
-        t = np.tile(lanes.reshape(-1, 32), (rounds, 1))
-        live = (b < n // R) & (t < tf)
-        base = b if j == 0 else (b // S) * L + b % S
-        elems = base[:, None, :] + S * np.arange(R)[None, :, None]
-        addr = ring_pad_index(elems.reshape(-1, 32), pad)
-        live = np.repeat(live, R, axis=0)
-        for half in (slice(0, 16), slice(16, 32)):
-            a, ok = addr[:, half], live[:, half]
-            banks = np.concatenate([2 * a % 32, (2 * a + 1) % 32], axis=1)
-            ok2 = np.concatenate([ok, ok], axis=1)
-            rows = np.repeat(np.arange(len(a)), 32).reshape(-1, 32)
-            count = np.bincount((rows * 32 + banks)[ok2],
-                                minlength=32 * len(a)).reshape(-1, 32)
-            total += count.max(axis=1).sum() * (2 if 0 < j < len(plan) - 1
-                                                else 1)
-    return int(total)
-
-
-def ring_pad(plan, tf: int) -> int:
-    """The exchange padding for ``plan`` on lanes of tf threads: the one of
-    PADS with the fewest modelled wavefronts (:func:`exchange_wavefronts`),
-    the float2 every 16 elements on a tie. Power-of-two strides want it;
-    the runs of the odd-radix passes (2400: 1502 wavefronts a frame
-    without it, 2352 with it) do not."""
-    return min(PADS, key=lambda pad: exchange_wavefronts(plan, tf, pad))
-
-
 def ring_slot(N: int) -> int:
     """A ring slot: the frame's 2N bytes rounded up to 16."""
     return -(-2 * N // 16) * 16
@@ -513,8 +456,6 @@ class RingLaunch(NamedTuple):
     plan: tuple     # the radices
     tf: int         # threads a frame lane, a multiple of 32
     lanes: int      # frame lanes a block, a power of two
-    xstride: int    # float2 of a lane's exchange buffer
-    pad: int        # the exchange padding (:func:`ring_pad`)
 
     @property
     def threads(self) -> int:
@@ -536,16 +477,17 @@ class RingLaunch(NamedTuple):
         return next(a for a in RING_ACC if self.acc <= a)
 
     def smem(self) -> int:
-        """Dynamic shared bytes a block: the exchange buffers, then the
-        lanes' rings (two slots and 32 bytes each)."""
-        return (round16(self.lanes * self.xstride * 8)
+        """Dynamic shared bytes a block: the exchange buffers (N float2
+        each, element e at slot e), then the lanes' rings (two slots and 32
+        bytes each)."""
+        return (round16(self.lanes * self.n * 8)
                 + self.lanes * (2 * ring_slot(self.n) + 32))
 
     def ints(self) -> list:
         """The plan as the kernel reads it (read_ring_plan): n, row,
-        passes, tf, lanes, xstride, pad, then per pass (MAX_PASSES each, 0
-        past the last) the radix, stride, division constant (as int32
-        bits), twiddle offset and rounds."""
+        passes, tf, lanes, then per pass (MAX_PASSES each, 0 past the last)
+        the radix, stride, division constant (as int32 bits), twiddle
+        offset and rounds."""
         spans = plan_spans(self.plan)
         offsets = [0]
         for L, _ in spans[:-1]:
@@ -556,28 +498,25 @@ class RingLaunch(NamedTuple):
             values = list(values)
             return values + [0] * (MAX_PASSES - len(values))
 
-        return ([self.n, self.row, len(self.plan), self.tf, self.lanes,
-                 self.xstride, self.pad] + pad(self.plan)
+        return ([self.n, self.row, len(self.plan), self.tf, self.lanes]
+                + pad(self.plan)
                 + pad(S for _, S in spans)
                 + pad(m - (1 << 32) if m >= 1 << 31 else m for m in magics)
                 + pad(offsets) + pad(self.rounds))
 
 
 def ring_shape(plan) -> RingLaunch:
-    """The kernel's layout for ``plan``: tf = :func:`ring_tf`, the padding
-    :func:`ring_pad`, as many frame lanes, a power of two, as bring a
-    block to at most TARGET_THREADS threads, fewer where shared memory
-    runs out."""
+    """The kernel's layout for ``plan``: tf = :func:`ring_tf`, as many
+    frame lanes, a power of two, as bring a block to at most
+    TARGET_THREADS threads, fewer where shared memory runs out."""
     plan = tuple(plan)
     n = int(np.prod(plan))
     if len(plan) > MAX_PASSES or any(r not in RADICES for r in plan):
         raise ValueError(f"plan {plan} outside the kernel's radices or "
                          "passes")
     tf = ring_tf(plan)
-    pad = ring_pad(plan, tf)
     lanes = 1 << max(0, (TARGET_THREADS // tf).bit_length() - 1)
-    shape = RingLaunch(n, -(-n // SUM_BINS) * SUM_BINS, plan, tf, lanes,
-                       ring_pad_index(n - 1, pad) + 1, pad)
+    shape = RingLaunch(n, -(-n // SUM_BINS) * SUM_BINS, plan, tf, lanes)
     while shape.lanes > 1 and shape.smem() > RING_MAX_SMEM:
         shape = shape._replace(lanes=shape.lanes // 2)
     if shape.smem() > RING_MAX_SMEM:
@@ -602,36 +541,26 @@ def copy_width(N: int, ptr: int) -> int:
     raise ValueError(f"frames at {ptr:#x} are not 4-byte aligned")
 
 
-def form_of(shape: RingLaunch) -> int:
-    """The form the wrappers run: the plan fixed at compile time where
-    there is one for the layout, else the run-time plan."""
-    fixed = FIXED_PLANS.get(shape.n)
-    return (FORM_FIXED if fixed == (shape.tf, shape.pad, shape.plan)
-            else FORM_RUNTIME)
-
-
 def ring_attributes(shape: RingLaunch, windowed: bool = False,
-                    form: Optional[int] = None,
                     device: Optional[torch.device] = None) -> dict:
-    """What the kernel of ``form`` gets with the layout ``shape`` on the
-    card: registers and spill bytes a thread, static and dynamic shared
-    bytes and threads a block, and the blocks that reside on one SM.
-    Launches nothing."""
+    """What the kernel gets with the layout ``shape`` on the card:
+    registers and spill bytes a thread, static and dynamic shared bytes and
+    threads a block, and the blocks that reside on one SM. Launches
+    nothing."""
     device = device or torch.device("cuda", torch.cuda.current_device())
-    form = form_of(shape) if form is None else form
     ints = (ctypes.c_int * len(shape.ints()))(*shape.ints())
     return _attributes(str(shape), lambda lib, attrs:
                        lib.rpf_fused_psd_mixed_attributes(
-                           ctypes.addressof(ints), int(windowed), form,
+                           ctypes.addressof(ints), int(windowed),
                            device.index or 0, attrs))
 
 
 @functools.lru_cache(maxsize=64)
-def ring_resident_blocks(shape: RingLaunch, windowed: bool, form: int,
+def ring_resident_blocks(shape: RingLaunch, windowed: bool,
                          index: int) -> int:
-    """Blocks of the kernel of ``form`` with the layout ``shape`` that card
-    ``index`` holds resident. Asked of the card once per key."""
-    return _resident(ring_attributes(shape, windowed, form,
+    """Blocks of the kernel with the layout ``shape`` that card ``index``
+    holds resident. Asked of the card once per key."""
+    return _resident(ring_attributes(shape, windowed,
                                      torch.device("cuda", index)), index)
 
 
@@ -639,16 +568,16 @@ _ring_plans: dict = {}
 
 
 def _ring_plan(shape: RingLaunch, F: int, chunk: int, windowed: bool,
-               streams: int, form: int, device: torch.device) -> _Plan:
+               streams: int, device: torch.device) -> _Plan:
     """The kernel's launch of F frames a stream over ``streams`` streams,
     cached per key."""
-    key = (shape, F, chunk, windowed, streams, form, device.index)
+    key = (shape, F, chunk, windowed, streams, device.index)
     plan = _ring_plans.get(key)
     if plan is None:
         from . import _build
         group = mixed_group(
             streams * F, chunk,
-            ring_resident_blocks(shape, windowed, form, device.index),
+            ring_resident_blocks(shape, windowed, device.index),
             shape.lanes)
         twiddle = _device_twiddles(shape.plan, device)
         order = _device_order(shape.plan, device)
@@ -661,22 +590,21 @@ def _ring_plan(shape: RingLaunch, F: int, chunk: int, windowed: bool,
 
 
 def launch_ring(kernel: str, shape: RingLaunch, raw_u8: torch.Tensor,
-                n_valid, chunk: int, window: Optional[torch.Tensor],
-                form: Optional[int] = None) -> torch.Tensor:
-    """Runs the kernel of ``form`` (default :func:`form_of`'s) with the
-    layout ``shape`` on CUDA frames, on the current stream
+                n_valid, chunk: int, window: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """Runs the kernel with the layout ``shape`` on CUDA frames, on the
+    current stream
     (asynchronously): (F, 2N) frames with an int ``n_valid`` -> (N,), or
     (S, F, 2N) frames with (S,) int32 counts on the device -> (S, N), a
     view of (S, N rounded up to 32) rows. ``kernel`` names the entry in
     errors."""
     check_alignment(kernel, raw_u8, RING_RAW_ALIGN, window, WINDOW_ALIGN)
-    form = form_of(shape) if form is None else form
     streams = raw_u8.dim() == 3
     S = raw_u8.shape[0] if streams else 1
     F = raw_u8.shape[-2]
     device = raw_u8.device
     width = copy_width(shape.n, raw_u8.data_ptr())
-    plan = _ring_plan(shape, F, chunk, window is not None, S, form, device)
+    plan = _ring_plan(shape, F, chunk, window is not None, S, device)
     stream = _raw_stream(device.index)
     partial = partial_rows(shape.row, plan.rows, device, stream)
     out = torch.empty((S, shape.row), dtype=torch.float32, device=device)
@@ -686,12 +614,12 @@ def launch_ring(kernel: str, shape: RingLaunch, raw_u8: torch.Tensor,
             raw_u8.data_ptr(), plan.twiddle, plan.order, win,
             n_valid.data_ptr(), partial, out.data_ptr(),
             ctypes.addressof(plan.ints), device.index, S, F, plan.group,
-            width, form, stream)
+            width, stream)
     else:
         err = plan.lib.rpf_fused_psd_mixed(
             raw_u8.data_ptr(), plan.twiddle, plan.order, win, partial,
             out.data_ptr(), ctypes.addressof(plan.ints), device.index, F,
-            plan.group, n_valid, width, form, stream)
+            plan.group, n_valid, width, stream)
     if err != 0:
         raise launch_error(kernel, plan.lib, err)
     return out[:, :shape.n] if streams else out[0, :shape.n]

@@ -20,7 +20,9 @@ The CUDA kernels run only on a card (chip_smoke.py); here:
   pass's butterflies covered once by (t, i), the division constants
   exact, the last-pass sums within their register class and owning each
   bin once; its transcription (the division constants, rounds and
-  register sums as the kernel has them) against the golden and plain.
+  register sums as the kernel has them) against the golden and plain;
+- the source edits of probes/ring_layouts.py apply to the shipped ring
+  header.
 """
 
 import re
@@ -37,6 +39,7 @@ from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_bluestein as fb
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
 from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch
+from rtl_power_fftw_tpu_torch.probes import ring_layouts
 
 from golden import golden_accumulate
 from test_torch_fused_psd_mixed import (RESIDENT, SMOOTH_EVEN, dequantize,
@@ -461,12 +464,6 @@ def test_ring_constants_are_the_headers():
         == str(fm.MAX_SMEM - fm.RING_MAX_SMEM)
     assert (header_int("kRingAccSmall", f),
             header_int("kRingAccLarge", f)) == fm.RING_ACC
-    text = (CSRC / f).read_text()
-    fixed = dict(re.findall(r"using Fixed(\d+) = FixedPlan<([\d, ]+)>;",
-                            text))
-    assert {int(n): (int(v.split(",")[0]), int(v.split(",")[1]),
-                     tuple(int(r) for r in v.split(",")[2:]))
-            for n, v in fixed.items()} == fm.FIXED_PLANS
     m = re.search(r"kRingPlanInts = (\d+) \+ (\d+) \* kMixedMaxPasses", text)
     assert int(m.group(1)) + int(m.group(2)) * fm.MAX_PASSES == \
         len(fm.ring_launch(500).ints())
@@ -488,21 +485,7 @@ def test_ring_shape_of_every_even_7_smooth_n():
         assert shape.acc <= shape.acc_class <= fm.RING_ACC[-1]
         assert shape.acc_class // shape.plan[-1] >= shape.rounds[-1]
         assert shape.row % 32 == 0 and N <= shape.row < N + 32
-        assert shape.pad in fm.PADS
-        assert shape.xstride == fm.ring_pad_index(N - 1, shape.pad) + 1
-        assert len(shape.ints()) == 7 + 5 * fm.MAX_PASSES
-
-
-@pytest.mark.parametrize("N", [500, 2400])
-def test_the_fixed_plans_are_the_drives_layouts(N):
-    shape = fm.ring_launch(N)
-    assert (shape.tf, shape.pad, shape.plan) == fm.FIXED_PLANS[N]
-    assert fm.form_of(shape) == fm.FORM_FIXED
-
-
-@pytest.mark.parametrize("N", [2, 6, 1000, 4800, 12000, 16384])
-def test_other_plans_run_the_run_time_form(N):
-    assert fm.form_of(fm.ring_launch(N)) == fm.FORM_RUNTIME
+        assert len(shape.ints()) == 5 + 5 * fm.MAX_PASSES
 
 
 @pytest.mark.parametrize("N,tf,lanes", [(500, 128, 2), (2400, 160, 1),
@@ -530,10 +513,9 @@ def ring_ints(N):
     """The plan ints by name, as read_ring_plan reads them."""
     ints = fm.ring_launch(N).ints()
     P = fm.MAX_PASSES
-    head = dict(zip(("n", "row", "passes", "tf", "lanes", "xstride",
-                     "pad"), ints[:7]))
+    head = dict(zip(("n", "row", "passes", "tf", "lanes"), ints[:5]))
     names = ("radix", "stride", "magic", "twoff", "rounds")
-    return head, {name: ints[7 + i * P:7 + (i + 1) * P]
+    return head, {name: ints[5 + i * P:5 + (i + 1) * P]
                   for i, name in enumerate(names)}
 
 
@@ -543,8 +525,8 @@ def test_ring_ints_layout(N):
     shape = fm.ring_launch(N)
     P = len(shape.plan)
     assert head["passes"] == P and head["tf"] == shape.tf
-    assert head["pad"] == shape.pad
-    assert head["xstride"] == fm.ring_pad_index(N - 1, shape.pad) + 1
+    assert (head["n"], head["row"], head["lanes"]) == (N, shape.row,
+                                                       shape.lanes)
     spans_ = fm.plan_spans(shape.plan)
     assert per["radix"][:P] == list(shape.plan)
     assert per["stride"][:P] == [S for _, S in spans_]
@@ -610,62 +592,6 @@ def test_ring_accumulators_own_each_bin_once():
         assert np.array_equal(np.sort(q), np.arange(N))
 
 
-def slow_wavefronts(plan, tf, pad):
-    """exchange_wavefronts written out access by access: the 8-byte
-    accesses of each half-warp, the most 4-byte words a bank holds."""
-    n = int(np.prod(plan))
-    total = 0
-    spans_ = fm.plan_spans(plan)
-    for j, ((L, S), R, rounds) in enumerate(zip(spans_, plan,
-                                               fm.ring_rounds(plan, tf))):
-        for w in range(-(-tf // 32)):
-            for i in range(rounds):
-                for k in range(R):
-                    for h in (0, 16):
-                        words = []
-                        for lane in range(w * 32 + h, w * 32 + h + 16):
-                            b = lane + i * tf
-                            if lane >= tf or b >= n // R:
-                                continue
-                            e = (b if j == 0 else (b // S) * L + b % S) + k * S
-                            a = fm.ring_pad_index(e, pad)
-                            words += [2 * a, 2 * a + 1]
-                        if words:
-                            hits = np.bincount(np.array(words) % 32)
-                            total += hits.max() * (2 if 0 < j < len(plan) - 1
-                                                   else 1)
-    return total
-
-
-@pytest.mark.parametrize("N", [20, 30, 500, 768, 2400])
-@pytest.mark.parametrize("pad", fm.PADS)
-def test_bank_model_counts_each_access(N, pad):
-    plan = fm.mixed_plan(N)
-    tf = fm.ring_tf(plan)
-    assert fm.exchange_wavefronts(plan, tf, pad) == \
-        slow_wavefronts(plan, tf, pad)
-
-
-@pytest.mark.parametrize("N,pad,wavefronts", [
-    (2400, 31, 1502), (2400, 4, 2352), (500, 31, 303), (500, 4, 333),
-    (768, 4, 300), (768, 31, 672)])
-def test_bank_model_at_the_drives_and_a_power_of_two_stride(N, pad,
-                                                           wavefronts):
-    """Without padding the odd-radix runs at 2400 take 1502 wavefronts a
-    frame, near the 1366 of conflict-free accesses, with fft_regs.cuh's
-    padding 2352; 768 (16.16.3) wants the padding."""
-    plan = fm.mixed_plan(N)
-    assert fm.exchange_wavefronts(plan, fm.ring_tf(plan), pad) == wavefronts
-
-
-def test_exchange_padding_is_the_models_least():
-    for N in SMOOTH_EVEN:
-        shape = fm.ring_launch(N)
-        other = [p for p in fm.PADS if p != shape.pad][0]
-        assert fm.exchange_wavefronts(shape.plan, shape.tf, shape.pad) <= \
-            fm.exchange_wavefronts(shape.plan, shape.tf, other), N
-
-
 def ring_power(raw, window=None, dtype=np.complex64):
     """|DFT|^2 of each frame as psd_ring_kernel computes it, thread by
     thread: pass 0's butterflies b = t + i*tf over the samples, the middle
@@ -679,13 +605,9 @@ def ring_power(raw, window=None, dtype=np.complex64):
     tw = twiddle_table(shape.plan, dtype)
     x = dequantize(raw, window, dtype)
     t = np.arange(tf)
-
-    def pad(e):
-        return fm.ring_pad_index(e, head["pad"])
-
-    xbuf = np.full((F, head["xstride"]), np.nan, dtype)
+    xbuf = np.full((F, N), np.nan, dtype)
     if P == 1:
-        xbuf[:, pad(np.arange(N))] = x
+        xbuf[:, np.arange(N)] = x
     else:
         R, S = per["radix"][0], per["stride"][0]
         for i in range(per["rounds"][0]):
@@ -694,7 +616,7 @@ def ring_power(raw, window=None, dtype=np.complex64):
             v = dft_natural(x[:, b[:, None] + np.arange(R)[None, :] * S])
             k1 = np.arange(R)[None, :]
             w = np.where(k1 == 0, 1, tw[k1 * S + b[:, None]])
-            xbuf[:, pad(b[:, None] + k1 * S)] = v * w.astype(dtype)
+            xbuf[:, b[:, None] + k1 * S] = v * w.astype(dtype)
     for j in range(1, P - 1):
         R, S, m, off = (per[k][j] for k in ("radix", "stride", "magic",
                                             "twoff"))
@@ -706,17 +628,17 @@ def ring_power(raw, window=None, dtype=np.complex64):
             n2 = b.astype(np.int64) - block * S
             base = block * R * S + n2
             idx = base[:, None] + np.arange(R)[None, :] * S
-            v = dft_natural(xbuf[:, pad(idx)])
+            v = dft_natural(xbuf[:, idx])
             k1 = np.arange(R)[None, :]
             w = np.where(k1 == 0, 1, tw[off + k1 * S + n2[:, None]])
-            xbuf[:, pad(idx)] = v * w.astype(dtype)
+            xbuf[:, idx] = v * w.astype(dtype)
     R = per["radix"][P - 1]
     acc = np.zeros((F, tf, shape.acc_class), x.real.dtype)
     for i in range(shape.acc_class // R):
         b = t + i * tf
         live = b < N // R
         idx = (b[live] * R)[:, None] + np.arange(R)[None, :]
-        v = dft_natural(xbuf[:, pad(idx)])
+        v = dft_natural(xbuf[:, idx])
         acc[:, live, i * R:(i + 1) * R] = v.real ** 2 + v.imag ** 2
     by_elem = np.zeros((F, N), x.real.dtype)
     for i in range(shape.acc_class // R):
@@ -727,7 +649,7 @@ def ring_power(raw, window=None, dtype=np.complex64):
     return by_elem[:, fm.element_of_bin(shape.plan, np.arange(N))]
 
 
-@pytest.mark.parametrize("N", [2, 6, 16, 30, 500, 2400, 12000])
+@pytest.mark.parametrize("N", [2, 6, 16, 30, 500, 768, 2400, 4800, 12000])
 def test_ring_transcription_float64_is_the_dft(N):
     raw = frames(2, N, 5 * N + 2)
     got = ring_power(raw, dtype=np.complex128)
@@ -805,3 +727,29 @@ def test_kernels_match_their_controls_on_card():
         np.testing.assert_allclose(kernel(raw, 200, 64).cpu().numpy(),
                                    control(raw, 200, 64).cpu().numpy(),
                                    rtol=2e-6)
+
+
+# --- the layout probe's source edits ---
+
+
+@pytest.mark.parametrize("layout", ring_layouts.LAYOUTS)
+def test_ring_layout_edits_apply_to_the_header(layout):
+    """Each layout of probes/ring_layouts.py edits the shipped header as it
+    says: the exchange accesses through xpad and the buffers sized for it
+    (pad16), the small class's launch bounds (small64); plain is the
+    header itself."""
+    text = (CSRC / ring_layouts.HEADER).read_text()
+    got = ring_layouts.layout_sources(text, layout)
+    assert (got == text) == (layout == "plain")
+    pad = "pad16" in layout
+    assert (len(re.findall(r"\bx\[xpad\(", got)) == 5) == pad
+    assert ("e + (e >> 4)" in got) == pad
+    assert ("lane * (n + n / 16 + 1);" in got) == pad
+    assert ("ACC <= kRingAccSmall ? 2 : 1" in got) == ("small64" in layout)
+    assert (ring_layouts.BOUNDS in got) != ("small64" in layout)
+
+
+def test_ring_layouts_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert ring_layouts.main([]) == 1
