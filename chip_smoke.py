@@ -169,6 +169,27 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (``-f 144.1M:146.1M -b 500 -n 100 -m``, its .bin against the golden of
    the recorded stream), its two-stream form, and -b 998 tone drives
    (one and two streams), each through its kernel alone.
+14. the estimator kernels (``fused_psd_sk``: spectral kurtosis, K1/K2's
+   group kernel with a second sum of |X|^4; ``fused_psd_tapers``: the
+   multitaper, K2's with a taper axis; ``fused_psd_pfb``: the polyphase
+   filterbank, K1's transform after a P-row load): their registers,
+   spill and blocks per SM; against their plain versions and the float64
+   golden, twice each (SK at 2048 F=4096, Hann masked, the drive's step
+   with the gate, 256, 16384; SK's s1 against K1's/K2's output bit for
+   bit and the gate's rows against ``sk_keep`` of its own moments;
+   multitaper K = 7 and 1 at 2048, the drive's step, 16384 K = 4; the PFB
+   at P = 2, 4, 16 over three steps of one stream, the second with fewer
+   valid frames than P - 1, the history on the card equal to plain's);
+   60-seed tone yards of SK's s2, the multitaper (K = 7) and the PFB (P =
+   4) against the scipy float32 class; the drives ``-b 2048 --sk-file``
+   (unwindowed and Hann; the SK file against the float64 SK of the
+   recorded stream), ``--sk-excise 3`` on a recorded stream with a tone
+   burst in one of four 256-frame blocks, ``--multitaper 7``,
+   ``--pfb-taps 4`` and a two-hop matrix-mode scan with it (each hop
+   against its own frames from a reset history), each through its kernel
+   alone; a call, the device's and the wrapper's host time at 2048
+   F=4096 and at the drives' step beside ``torch.fft.fft`` on the same
+   transforms and the bound.
 
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -850,7 +871,7 @@ def reset_counts(fp, ff) -> None:
 def launch_counts(fp, ff) -> dict:
     """Every launch counter by the kernel (or plain version) it counts;
     "L" is the large-N kernel, "M" the mixed-radix kernel, "B" the chirp-Z
-    kernel, "M/B control" the kernel both replaced (and its plain
+    kernel, "SK", "MT" and "PFB" the estimators' kernels, "M/B control" the kernel both replaced (and its plain
     versions), "probes" every probe variant together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
@@ -863,6 +884,8 @@ def launch_counts(fp, ff) -> dict:
             "M streams": fp.COUNTS.kernel_mixed_streams,
             "B": fp.COUNTS.kernel_bluestein,
             "B streams": fp.COUNTS.kernel_bluestein_streams,
+            "SK": fp.COUNTS.kernel_sk, "MT": fp.COUNTS.kernel_tapers,
+            "PFB": fp.COUNTS.kernel_pfb,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -878,12 +901,13 @@ def check_only(counts: dict, kernel: str, label: str) -> None:
           f"{label} did not run through {kernel} alone: {counts}")
 
 
-def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1):
+def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1,
+          peak_bins=1):
     """One drive through ``cli.main`` with every launch counter reset just
     before it: exit 0, the transform path of ``kernel`` (over ``streams``
-    streams), a finite N-bin linear spectrum peaking at 100.2 MHz within
-    ``rtol`` of ``golden_fn()``, and launches of ``kernel`` alone. Returns
-    its launches."""
+    streams), a finite N-bin linear spectrum peaking at 100.2 MHz (within
+    ``peak_bins`` bins) within ``rtol`` of ``golden_fn()``, and launches
+    of ``kernel`` alone. Returns its launches."""
     reset_counts(fp, ff)
     rc, out, err, wall = run_cli(argv, cli.main)
     counts = launch_counts(fp, ff)
@@ -892,7 +916,8 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1):
     path = {"K3": "cuda_fast", "L": "cuda_large",
             "L windowed": "cuda_large", "M": "cuda_mixed",
             "M streams": "cuda_mixed", "B": "cuda_bluestein",
-            "B streams": "cuda_bluestein"}.get(kernel, "cuda")
+            "B streams": "cuda_bluestein", "SK": "cuda_sk",
+            "MT": "cuda_multitaper", "PFB": "cuda_pfb"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -901,7 +926,8 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1):
     check(len(vals) == N and np.all(np.isfinite(vals)),
           f"{label} drive: malformed spectrum")
     peak = freqs[int(np.argmax(vals))]
-    check(abs(peak - 100.2e6) <= RATE / N, f"{label} drive: peak at {peak}")
+    check(abs(peak - 100.2e6) <= peak_bins * RATE / N,
+          f"{label} drive: peak at {peak}")
     err_gold = max_rel(vals, golden_fn())
     hist = [line for line in err.splitlines()
             if line.startswith("Buffer queue histogram:")]
@@ -2077,6 +2103,587 @@ def drive_man_page(cli, fp, ff, tmp, streams: int) -> int:
     return counts[key]
 
 
+# The estimator drives of phase 14 (2048 bins, the tone source, linear
+# output), less their "--record <path>" and output files.
+EST_ARGV = ["-f", "100M", "-n", "4000", "-b", "2048", "-l", "--source",
+            SOURCE]
+# The two-hop matrix-mode PFB scan (hops at 101 and 102 MHz), less its
+# "-m <path>" and "--record <path>".
+PFB_SCAN_ARGV = ["-f", "100M:103M", "-n", "100", "-b", "2048", "-q",
+                 "--pfb-taps", "4", "--source", SOURCE]
+
+
+def recorded_frames(record, N):
+    """The (n, 2N) u8 frames of a recorded stream."""
+    stream = np.fromfile(record, dtype=np.uint8)
+    return stream[:len(stream) // (2 * N) * 2 * N].reshape(-1, 2 * N)
+
+
+def dequant64(raw):
+    """(F, 2N) u8 -> (F, N) complex128, u8 - 127."""
+    return ((raw[:, 0::2].astype(np.float64) - 127.0)
+            + 1j * (raw[:, 1::2].astype(np.float64) - 127.0))
+
+
+def golden_moments(raw, n_valid, window=None):
+    """float64 s1 = sum of |X|^2 and s2 = sum of |X|^4 over the first
+    n_valid frames, unshifted bins."""
+    N = raw.shape[1] // 2
+    s1, s2 = np.zeros(N), np.zeros(N)
+    for lo in range(0, n_valid, 256):
+        z = dequant64(raw[lo:min(lo + 256, n_valid)])
+        if window is not None:
+            z = z * np.asarray(window, np.float64)
+        p = np.abs(np.fft.fft(z, axis=1)) ** 2
+        s1 += p.sum(0)
+        s2 += (p * p).sum(0)
+    return s1, s2
+
+
+def golden_tapers(raw, n_valid, tapers):
+    """float64 sum over the first n_valid frames of the mean over the K
+    tapers (float32 rows, as the kernel reads them) of |DFT|^2."""
+    N = raw.shape[1] // 2
+    t = np.asarray(tapers, np.float64)
+    pwr = np.zeros(N)
+    for lo in range(0, n_valid, 64):
+        z = dequant64(raw[lo:min(lo + 64, n_valid)])
+        pwr += (np.abs(np.fft.fft(z[:, None, :] * t[None], axis=-1)) ** 2
+                ).mean(axis=1).sum(axis=0)
+    return pwr
+
+
+def golden_pfb(virtual, n_valid, h):
+    """float64 sum over output frames j < n_valid of |DFT(sum over p of
+    h[p] x_{j+p})|^2 of a (F + P - 1, 2N) virtual row array."""
+    P = h.shape[0]
+    z = dequant64(virtual)
+    hh = np.asarray(h, np.float64)
+    s = sum(z[p:p + n_valid] * hh[p] for p in range(P))
+    return (np.abs(np.fft.fft(s, axis=1)) ** 2).sum(0)
+
+
+def estimator_bound_ms(kind: str, F: int, N: int, windowed: bool = False,
+                       K: int = 1, P: int = 1):
+    """rate_bound_ms of an estimator call from k1_work's count (bytes read
+    and written once; split-radix FP32 operations): SK F (k1_work + 2N)
+    with two output rows (four with the gate); MT F K (k1_work + 2N), the
+    (K, N) tapers read once; PFB F (k1_work + 4 P N), (F + P - 1) 2N + 4 P
+    N bytes read."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    if kind == "SK":
+        nbytes, _, fp32 = fpp.k1_work(F, N, windowed=windowed, out_rows=2)
+        return rate_bound_ms(nbytes, 0.0, fp32 + F * 2 * N)
+    if kind == "MT":
+        nbytes, _, fp32 = fpp.k1_work(F, N, windowed=True)
+        return rate_bound_ms(nbytes + 4 * N * (K - 1), 0.0,
+                             K * (fp32 + F * 2 * N))
+    _, _, fp32 = fpp.k1_work(F, N)
+    nbytes = (F + P - 1) * 2 * N + 4 * P * N + 4 * N
+    return rate_bound_ms(nbytes, 0.0, fp32 + F * 4 * P * N)
+
+
+def estimator_yard(label, kernel_fn, golden_fn, class_fn, N, F, seed0):
+    """An estimator's admission yard: 60 seeds of 35 dB tones (tone_frames)
+    through ``kernel_fn(raw_np) -> numpy``, against the float64
+    ``golden_fn(raw_np)``, and the scipy float32 class ``class_fn(raw_np)``:
+    median <= 1.5x and max <= 3x its error, per-seed p99 printed."""
+    ours, cls = [], []
+    for seed in range(60):
+        raw_np = tone_frames(N, F, seed0 + seed)
+        gold = golden_fn(raw_np)
+        ours.append(max_rel(kernel_fn(raw_np), gold))
+        cls.append(max_rel(class_fn(raw_np), gold))
+    e, c = np.asarray(ours), np.asarray(cls)
+    r = e / c
+    med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
+    print(f"{label} yard N={N} F={F}, 60 seeds of 35 dB tones: max rel "
+          f"median {np.median(e):.3e} / max {e.max():.3e}; scipy f32 "
+          f"{np.median(c):.3e} / {c.max():.3e}; ratio median {med_r:.2f}x "
+          f"(<= 1.5), max {max_r:.2f}x (<= 3), per-seed p99 "
+          f"{np.quantile(r, 0.99):.2f}x, per-seed max {r.max():.2f}x")
+    check(med_r <= 1.5 and max_r <= 3.0,
+          f"{label} yard N={N}: above the FFTW-class budget")
+
+
+def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
+    """14. The estimator kernels (``fused_psd_sk``, ``fused_psd_tapers``,
+    ``fused_psd_pfb``): against their plain versions and the float64
+    golden, twice each; SK's s1 against K1's/K2's output bit for bit; the
+    PFB's history across three steps; the 60-seed tone yards of SK's s2,
+    the multitaper and the PFB; the CLI drives, each on its kernel alone;
+    times beside the plain version, torch.fft.fft and the bound. Returns
+    the kernels-line entries."""
+    import scipy.fft
+    from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
+    from rtl_power_fftw_tpu_torch.models.multitaper import _session_tapers
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_sk as fsk
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_tapers as fmt
+    t0 = time.perf_counter()
+    drive_F = adapt_batch(drive_frames_per_step(EST_ARGV))[0]
+    for N in (256, 2048, 16384):
+        for name, attrs in (
+                ("fused_psd_sk", fsk.kernel_attributes(N)),
+                ("fused_psd_sk windowed", fsk.kernel_attributes(N, True)),
+                ("fused_psd_tapers", fmt.kernel_attributes(N)),
+                ("fused_psd_pfb", fpf.kernel_attributes(N))):
+            print(f"occupancy {name} N={N} on {card}: {attrs['registers']} "
+                  f"registers, {attrs['spill_bytes']} B spill, "
+                  f"{attrs['static_smem']} + {attrs['dynamic_smem']} B "
+                  f"shared, {attrs['threads']} threads, "
+                  f"{attrs['blocks_per_sm']} blocks/SM")
+    reset_counts(fp, ff)
+
+    # SK: s1 is K1's (K2's) output bit for bit; s1 and s2 within 1e-5 of
+    # plain and of the float64 golden; under a gate, the kept rows are
+    # the gate of the kernel's own s1 and s2 (sk_keep), bit for bit.
+    runs = 0
+    for label, N, fps, n_valid, wname, sigma in (
+            ("F=4096", 2048, 4096, None, None, 0.0),
+            ("F=4096 hann masked", 2048, 4096, 3000, "hann", 0.0),
+            ("drive step, gate 3", 2048, drive_F, None, None, 3.0),
+            ("F=1024", 256, 1024, None, None, 0.0),
+            ("F=64 gate 3", 16384, 64, None, None, 3.0)):
+        F, chunk = adapt_batch(fps)
+        nv = F if n_valid is None else n_valid
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        got = fsk.fused_psd_sk(raw, nv, chunk, w, sigma)
+        again = fsk.fused_psd_sk(raw, nv, chunk, w, sigma)
+        k1 = fp.fused_psd(raw, nv, chunk, w)
+        want = fsk.fused_psd_sk_reference(raw, nv, chunk, w, sigma)
+        torch.cuda.synchronize()
+        runs += 2
+        check(torch.equal(got, again), f"SK {label}: not deterministic")
+        check(torch.equal(got[0], k1), f"SK {label}: s1 is not K1's output")
+        got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+        g1, g2 = golden_moments(raw_np, nv, w_np)
+        errs = [max_rel(got_np[i], want_np[i]) for i in range(2)]
+        golds = [max_rel(got_np[0], g1), max_rel(got_np[1], g2)]
+        line = (f"estimators SK {label} (N={N} F={F} chunk={chunk} "
+                f"n_valid={nv} window={wname}): s1 bit for bit "
+                f"{'K2' if wname else 'K1'}'s; max rel vs plain s1 "
+                f"{errs[0]:.3e} s2 {errs[1]:.3e}, vs float64 golden s1 "
+                f"{golds[0]:.3e} s2 {golds[1]:.3e}")
+        if sigma > 0.0:
+            keep = fsk.sk_keep(got[0].cpu(), got[1].cpu(), float(nv),
+                               sigma).numpy()
+            check(np.array_equal(got_np[3], nv * keep)
+                  and np.array_equal(got_np[2], got_np[0] * keep),
+                  f"SK {label}: the gate epilogue is not sk_keep's")
+            line += (f"; gate {sigma:g}: {int(keep.sum())} of {N} bins kept "
+                     f"(plain {int((want_np[3] > 0).sum())}, decisions "
+                     f"differing {int(((want_np[3] > 0) != (keep > 0)).sum())})")
+        print(line)
+        check(max(errs) <= UNIFORM_RTOL and max(golds) <= GOLDEN_RTOL,
+              f"SK {label}: {errs} vs plain, {golds} vs golden")
+
+    # MT: within 1e-5 of plain and of the float64 golden.
+    for label, N, fps, n_valid, K in (
+            ("K=7 F=4096", 2048, 4096, None, 7),
+            ("K=1 F=4096 masked", 2048, 4096, 2500, 1),
+            ("K=7 drive step", 2048, drive_F, None, 7),
+            ("K=4 F=64", 16384, 64, None, 4)):
+        F, chunk = adapt_batch(fps)
+        nv = F if n_valid is None else n_valid
+        tp_np = _session_tapers(N, 4.0, K)
+        tp = torch.from_numpy(tp_np).to(dev)
+        raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        got = fmt.fused_psd_tapers(raw, nv, chunk, tp)
+        again = fmt.fused_psd_tapers(raw, nv, chunk, tp)
+        want = fmt.fused_psd_tapers_reference(raw, nv, chunk, tp)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"MT {label}: not deterministic")
+        got_np = got.cpu().numpy()
+        err_plain = max_rel(got_np, want.cpu().numpy())
+        err_gold = max_rel(got_np, golden_tapers(raw_np, nv, tp_np))
+        print(f"estimators MT {label} (N={N} F={F} chunk={chunk} n_valid="
+              f"{nv} K={K}): max rel vs plain {err_plain:.3e}, vs float64 "
+              f"golden {err_gold:.3e}")
+        check(err_plain <= UNIFORM_RTOL and err_gold <= GOLDEN_RTOL,
+              f"MT {label}: {err_plain} vs plain, {err_gold} vs golden")
+
+    # PFB: three consecutive steps of one stream (the second with fewer
+    # valid frames than P - 1), the history on the card carried across
+    # them and equal to plain's bit for bit; each step within 1e-5 of
+    # plain and of the float64 golden where it sums >= 64 frames, and the
+    # three steps' total (what a session accumulates) within 1e-5 of the
+    # golden. A step of a few frames is held to 1e-5 of its mean power
+    # (its smallest bins are single periodogram values near 0).
+    for P, N, F in ((2, 2048, 512), (4, 2048, 512), (16, 2048, 512)):
+        chunk = adapt_batch(F)[1]
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        hist = [torch.empty((P - 1, 2 * N), dtype=torch.uint8, device=dev)
+                for _ in range(2)]
+        hist_p = [torch.empty((P - 1, 2 * N), dtype=torch.uint8)
+                  for _ in range(2)]
+        virtual = np.full((P - 1, 2 * N), 127, np.uint8)
+        total, gold_total = np.zeros(N), np.zeros(N)
+        for step, nv in enumerate((F, max(P - 2, 0), F - 5)):
+            raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+            raw = torch.from_numpy(raw_np)
+            got = fpf.fused_psd_pfb(raw.to(dev), hist[0], nv, chunk, h,
+                                    hist[1], fresh=step == 0)
+            want = fpf.fused_psd_pfb_reference(raw, hist_p[0], nv, chunk,
+                                               h.cpu(), hist_p[1],
+                                               fresh=step == 0)
+            torch.cuda.synchronize()
+            virtual = np.concatenate([virtual, raw_np])
+            gold = golden_pfb(virtual, nv, h_np)
+            virtual = virtual[nv:nv + P - 1]
+            got_np = got.cpu().numpy()
+            total += got_np
+            gold_total += gold
+            same_hist = torch.equal(hist[1].cpu(), hist_p[1])
+            if nv >= 64:
+                err_plain = max_rel(got_np, want.numpy())
+                err_gold = max_rel(got_np, gold)
+            else:
+                scale = max(gold.mean(), 1e-30)
+                err_plain = float(np.abs(got_np - want.numpy()).max()) / scale
+                err_gold = float(np.abs(got_np - gold).max()) / scale
+            print(f"estimators PFB P={P} N={N} F={F} step {step} n_valid="
+                  f"{nv}: max {'rel' if nv >= 64 else 'err/mean'} vs plain "
+                  f"{err_plain:.3e}, vs float64 golden {err_gold:.3e}; "
+                  f"history bit for bit plain's {same_hist}")
+            check(err_plain <= UNIFORM_RTOL and err_gold <= GOLDEN_RTOL
+                  and same_hist, f"PFB P={P} step {step}")
+            check(np.array_equal(hist[1].cpu().numpy(), virtual),
+                  f"PFB P={P} step {step}: history is not rows n_valid .. "
+                  "n_valid + P - 2")
+            hist.reverse()
+            hist_p.reverse()
+        err_total = max_rel(total, gold_total)
+        print(f"estimators PFB P={P}: the three steps' total, max rel vs "
+              f"float64 golden {err_total:.3e}")
+        check(err_total <= GOLDEN_RTOL, f"PFB P={P}: total vs golden")
+        # The same bits again from the same history and slot.
+        raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        spare = torch.empty_like(hist[0])
+        a = fpf.fused_psd_pfb(raw, hist[0], F, chunk, h, hist[1])
+        b = fpf.fused_psd_pfb(raw, hist[0], F, chunk, h, spare)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b) and torch.equal(hist[1], spare),
+              f"PFB P={P}: not deterministic")
+    counts = launch_counts(fp, ff)
+    check(counts["SK"] == runs and counts["MT"] == 8 and counts["PFB"] == 15
+          and counts["plain"] == 0, f"estimator launch counts: {counts}")
+    print(f"wall: estimator checks in {time.perf_counter() - t0:.1f} s")
+
+    # The admission yards (2048 bins, 64 frames a seed).
+    N, F = 2048, 64
+
+    def sk_s2(raw_np):
+        raw = torch.from_numpy(raw_np).to(dev)
+        return fsk.fused_psd_sk(raw, F, F)[1].cpu().numpy()
+
+    def f32_class(z64):
+        Xc = scipy.fft.fft(z64.astype(np.complex64), axis=-1)
+        return Xc.real.astype(np.float64) ** 2 + Xc.imag.astype(np.float64) ** 2
+
+    estimator_yard("SK s2", sk_s2,
+                   lambda raw_np: golden_moments(raw_np, F)[1],
+                   lambda raw_np: (f32_class(dequant64(raw_np)) ** 2).sum(0),
+                   N, F, 14000)
+    tp_np = _session_tapers(N, 4.0, 7)
+    tp = torch.from_numpy(tp_np).to(dev)
+    estimator_yard(
+        "multitaper K=7",
+        lambda raw_np: fmt.fused_psd_tapers(
+            torch.from_numpy(raw_np).to(dev), F, F, tp).cpu().numpy(),
+        lambda raw_np: golden_tapers(raw_np, F, tp_np),
+        lambda raw_np: f32_class(
+            dequant64(raw_np)[:, None, :]
+            * tp_np.astype(np.float64)[None]).mean(1).sum(0),
+        N, F, 14100)
+    P = 4
+    h_np = pfb_prototype(N, P).reshape(P, N)
+    h = torch.from_numpy(h_np).to(dev)
+    hist = [torch.empty((P - 1, 2 * N), dtype=torch.uint8, device=dev)
+            for _ in range(2)]
+
+    def pfb_virtual(raw_np):
+        return np.concatenate([np.full((P - 1, 2 * N), 127, np.uint8),
+                               raw_np])
+
+    def pfb_class(raw_np):
+        sums = fpf.pfb_sums_reference(torch.from_numpy(pfb_virtual(raw_np)),
+                                      torch.from_numpy(h_np), F).numpy()
+        return f32_class(sums.astype(np.complex128)).sum(0)
+
+    estimator_yard(
+        "PFB P=4",
+        lambda raw_np: fpf.fused_psd_pfb(
+            torch.from_numpy(raw_np).to(dev), hist[0], F, F, h, hist[1],
+            fresh=True).cpu().numpy(),
+        lambda raw_np: golden_pfb(pfb_virtual(raw_np), F, h_np),
+        pfb_class, N, F, 14200)
+    print(f"wall: estimator yards in {time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its kernel alone.
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        N, repeats = 2048, 4000
+        for key, extra, wname in (
+                ("SK", ["--sk-file"], None),
+                ("SK hann", ["--sk-file", "--window-function", "hann"],
+                 "hann"),
+                ("MT", ["--multitaper", "7"], None),
+                ("PFB", ["--pfb-taps", "4"], None)):
+            record = os.path.join(tmp, f"est_{len(launches)}.iq")
+            sk_path = os.path.join(tmp, f"est_{len(launches)}.sk")
+            argv = EST_ARGV + [a if a != "--sk-file" else f"--sk-file={sk_path}"
+                               for a in extra] + ["--record", record]
+            w_np = None if wname is None else make_window(wname, N)
+
+            def golden(key=key, record=record, w_np=w_np):
+                raw_np = recorded_frames(record, N)[:repeats]
+                if key.startswith("SK"):
+                    pwr = golden_moments(raw_np, repeats, w_np)[0]
+                elif key == "MT":
+                    pwr = golden_tapers(raw_np, repeats,
+                                        _session_tapers(N, 4.0, 7))
+                else:
+                    pwr = golden_pfb(np.concatenate([np.full(
+                        (3, 2 * N), 127, np.uint8), raw_np]), repeats,
+                        pfb_prototype(N, 4).reshape(4, N))
+                return golden_finalize_linear(np.fft.fftshift(pwr), repeats,
+                                              RATE)
+
+            # The tapers' spectral window is 2 NW = 8 bins wide: its peak
+            # may fall NW bins from the tone.
+            launches[key] = drive(f"estimator {key}", argv, cli, fp, ff,
+                                  key.split()[0], N, golden, GOLDEN_RTOL,
+                                  peak_bins=4 if key == "MT" else 1)
+            if key.startswith("SK"):
+                with open(sk_path) as f:
+                    text = f.read()
+                rows = [line.split() for line in text.splitlines()
+                        if line and not line.startswith("#")]
+                sk_file = np.array([float(v) for _, v in rows])
+                g1, g2 = golden_moments(recorded_frames(record, N)[:repeats],
+                                        repeats, w_np)
+                sk_gold = np.fft.fftshift(compute_sk(g1, g2, repeats))
+                err = float(np.abs(sk_file - sk_gold).max())
+                print(f"e2e estimator {key} SK file: {len(rows)} bins, "
+                      f"'# Spectra accumulated: {repeats}', max |SK - float64 "
+                      f"golden| {err:.3e} (<= 1e-4), SK at the tone "
+                      f"{sk_file[int(np.argmax(np.abs(sk_file - 1.0)))]:.4g}")
+                check(len(rows) == N and f"# Spectra accumulated: {repeats}"
+                      in text and err <= 1e-4, f"{key} drive: SK file")
+        launches["SK excise"] = drive_sk_excise(cli, fp, ff, tmp)
+        launches["PFB scan"] = drive_pfb_scan(cli, fp, ff, tmp)
+    print(f"wall: estimator drives in {time.perf_counter() - t0:.1f} s")
+
+    # Times (PERF.md states their prediction): at 2048 F=4096 and at the
+    # drives' step, a call (CUDA events around each), the device's part
+    # (behind a sleep kernel), the wrapper's host part, the plain version
+    # and torch.fft.fft on the same transforms (F frames; F K tapered
+    # frames; F polyphase sums, complex64 on the card).
+    times = {}
+    for kind, F, arg in (("SK", 4096, 0.0), ("SK", drive_F, 0.0),
+                         ("MT", 4096, 7), ("MT", drive_F, 7),
+                         ("PFB", 4096, 4), ("PFB", drive_F, 4)):
+        N = 2048
+        chunk = adapt_batch(F)[1]
+        raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        z = torch.complex(raw[:, 0::2].float() - 127.0,
+                          raw[:, 1::2].float() - 127.0)
+        if kind == "SK":
+            def kernel():
+                return fsk.fused_psd_sk(raw, F, chunk)
+
+            def plain():
+                return fsk.fused_psd_sk_reference(raw, F, chunk)
+            zz = z
+            bound = estimator_bound_ms("SK", F, N)
+        elif kind == "MT":
+            tp = torch.from_numpy(_session_tapers(N, 4.0, arg)).to(dev)
+
+            def kernel():
+                return fmt.fused_psd_tapers(raw, F, chunk, tp)
+
+            def plain():
+                return fmt.fused_psd_tapers_reference(raw, F, chunk, tp)
+            zz = (z[:, None, :] * tp[None]).reshape(F * arg, N)
+            bound = estimator_bound_ms("MT", F, N, K=arg)
+        else:
+            h = torch.from_numpy(pfb_prototype(N, arg).reshape(arg, N)).to(
+                dev)
+            hist = [torch.full((arg - 1, 2 * N), 127, dtype=torch.uint8,
+                               device=dev) for _ in range(2)]
+
+            def kernel():
+                return fpf.fused_psd_pfb(raw, hist[0], F, chunk, h, hist[1])
+
+            def plain():
+                return fpf.fused_psd_pfb_reference(raw, hist[0], F, chunk, h,
+                                                   hist[1])
+            zz = fpf.pfb_sums_reference(torch.cat([hist[0], raw]), h, F)
+            bound = estimator_bound_ms("PFB", F, N, P=arg)
+        got = kernel().double()
+        want = plain().double()
+        max_abs = float((got - want).abs().max())
+        t = {"max_abs": max_abs, "bound": bound,
+             "call": event_times_us(kernel), "plain": event_times_us(plain),
+             "lib": event_times_us(lambda: torch.fft.fft(zz, dim=-1)),
+             "device": min(device_times_us(kernel), device_times_us(kernel)),
+             "lib_device": device_times_us(lambda: torch.fft.fft(zz, dim=-1)),
+             "host": host_us(kernel)}
+        times[(kind, F)] = t
+        b_us = 1e3 * bound[0]
+        print(f"time estimator {kind} N={N} F={F}"
+              f"{f' K={arg}' if kind == 'MT' else ''}"
+              f"{f' P={arg}' if kind == 'PFB' else ''} on {card}: kernel "
+              f"{t['call']:.1f} us a call, device {t['device']:.1f} us, host "
+              f"{t['host']:.1f} us ({F * N / t['device'] / 1e3:.2f} GS/s on "
+              f"the device); plain {t['plain']:.1f} us a call; torch.fft.fft "
+              f"of the {tuple(zz.shape)} complex64 transforms {t['lib']:.1f} "
+              f"us a call (device {t['lib_device']:.1f}), kernel/fft on the "
+              f"device {t['device'] / t['lib_device']:.3f}; bound "
+              f"{b_us:.2f} us ({bound[1]}), device/bound "
+              f"{t['device'] / b_us:.1f}x; max abs vs plain {max_abs:.4g}")
+    print(f"wall: estimator phase in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, source, replaces, key, times_key):
+        t = times[times_key]
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+                "device_ms": t["device"] / 1000.0,
+                "host_ms": t["host"] / 1000.0}
+
+    return [entry("fused_psd_sk", "fused_psd_sk.cu",
+                  "rtl_power_fftw_tpu/models/kurtosis.py:46", "SK",
+                  ("SK", 4096)),
+            entry("fused_psd_tapers", "fused_psd_tapers.cu",
+                  "rtl_power_fftw_tpu/models/multitaper.py:60", "MT",
+                  ("MT", 4096)),
+            entry("fused_psd_pfb", "fused_psd_pfb.cu",
+                  "rtl_power_fftw_tpu/models/pfb.py:48", "PFB",
+                  ("PFB", 4096))]
+
+
+def drive_sk_excise(cli, fp, ff, tmp) -> int:
+    """``--sk-excise 3`` through the CLI on a recorded 2048-bin stream with
+    a tone burst in one of four 256-frame blocks (as
+    tests/test_sk_session.py:222-246 builds its stream): exit 0, the SK
+    kernel alone, the spectrum within 1e-5 of the float64 golden of the
+    excised average (each block gated on its own float64 SK), the burst's
+    bin back at the noise floor, and the --stats-json record. Returns the
+    kernel's launches."""
+    from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
+    N, F, blocks = 2048, 256, 4
+    repeats = F * blocks
+    rng = np.random.default_rng(41)
+    iq = rng.normal(127.0, 6.0, size=2 * N * repeats)
+    t = np.arange(N * F)
+    burst = 40.0 * np.exp(2j * np.pi * 9 * t / N)
+    lo = 2 * N * F
+    iq[lo:lo + 2 * N * F:2] += burst.real
+    iq[lo + 1:lo + 2 * N * F:2] += burst.imag
+    raw_np = np.clip(np.round(iq), 0, 255).astype(np.uint8)
+    path = os.path.join(tmp, "rfi.iq")
+    raw_np.tofile(path)
+    stats = os.path.join(tmp, "rfi_stats.jsonl")
+    argv = ["-f", "100M", "-b", str(N), "-n", str(repeats), "-l",
+            "--frames-per-step", str(F), "--sk-excise", "3",
+            "--stats-json", stats, "--source", f"file:{path}"]
+    reset_counts(fp, ff)
+    rc, out, err, wall = run_cli(argv, cli.main)
+    counts = launch_counts(fp, ff)
+    log(err[-800:])
+    check(rc == 0, f"sk-excise drive exited {rc}")
+    check("Transform path: cuda_sk " in err, "sk-excise drive off SK")
+    frames_np = raw_np.reshape(-1, 2 * N)
+    s1 = np.zeros(N)
+    clean = np.zeros(N)
+    kept = np.zeros(N)
+    for b in range(blocks):
+        g1, g2 = golden_moments(frames_np[b * F:(b + 1) * F], F)
+        keep = np.abs(compute_sk(g1, g2, F) - 1.0) <= 3.0 * 2.0 / np.sqrt(F)
+        s1 += g1
+        clean += np.where(keep, g1, 0.0)
+        kept += np.where(keep, F, 0.0)
+    pwr = np.where(kept > 0, clean / np.maximum(kept, 1.0) * repeats, s1)
+    gold = golden_finalize_linear(np.fft.fftshift(pwr), repeats, RATE)
+    _, vals, _ = spectrum(out)
+    raw_gold = golden_finalize_linear(np.fft.fftshift(s1), repeats, RATE)
+    burst_bin = N // 2 + 9
+    floor = np.median(raw_gold)
+    err_gold = max_rel(vals, gold)
+    with open(stats) as f:
+        rec = json.loads(f.readline())
+    print(f"e2e sk-excise drive ({' '.join(argv[:-5])}): exit 0 in "
+          f"{wall:.2f} s wall; {[x for x in err.splitlines() if 'SK excision' in x]}"
+          f"; stats-json kept fraction {rec['sk_kept_fraction']:.6f}, bins "
+          f"fully flagged {rec['sk_bins_fully_flagged']} (float64 gate "
+          f"{kept.sum() / (repeats * N):.6f}); burst bin unexcised "
+          f"{raw_gold[burst_bin] / floor:.1f}x the floor, excised "
+          f"{vals[burst_bin] / floor:.3f}x; max rel vs float64 golden "
+          f"{err_gold:.3e} (<= {GOLDEN_RTOL:g}); launches {counts}")
+    check(raw_gold[burst_bin] > 10.0 * floor
+          and vals[burst_bin] < 1.26 * floor, "sk-excise drive: burst")
+    check(err_gold <= GOLDEN_RTOL, "sk-excise drive vs float64 golden")
+    check(abs(rec["sk_kept_fraction"] - kept.sum() / (repeats * N)) < 1e-9,
+          "sk-excise drive: kept fraction")
+    check_only(counts, "SK", "sk-excise drive")
+    return counts["SK"]
+
+
+def drive_pfb_scan(cli, fp, ff, tmp) -> int:
+    """The two-hop matrix-mode PFB scan through the CLI: exit 0, the PFB
+    kernel alone, a .met of two 2048-bin hops, and each hop's .bin row
+    within 1e-5 of the float64 golden of its own recorded frames with a
+    history reset to zero at its start (the history does not cross the
+    retune). Returns the kernel's launches."""
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    N, repeats, P = 2048, 100, 4
+    stem = os.path.join(tmp, "pfb_scan")
+    record = stem + ".iq"
+    argv = PFB_SCAN_ARGV + ["-m", stem, "--record", record]
+    reset_counts(fp, ff)
+    rc, _, err, wall = run_cli(argv, cli.main)
+    counts = launch_counts(fp, ff)
+    log(err[-800:])
+    check(rc == 0, f"PFB scan drive exited {rc}")
+    check("Transform path: cuda_pfb " in err, "PFB scan drive off PFB")
+    with open(stem + ".met") as f:
+        meta = [line.split("#")[0].strip() for line in f]
+    data = np.fromfile(stem + ".bin", dtype=np.float32)
+    check(int(meta[0]) == 2 * N and int(meta[1]) == 1
+          and data.size == 2 * N, f"PFB scan: .met {meta[:2]}, .bin "
+          f"{data.size} values")
+    rows = recorded_frames(record, N)
+    check(len(rows) == 2 * repeats, f"PFB scan recorded {len(rows)} frames")
+    h = pfb_prototype(N, P).reshape(P, N)
+    errs = []
+    for hop in range(2):
+        virtual = np.concatenate([np.full((P - 1, 2 * N), 127, np.uint8),
+                                  rows[hop * repeats:(hop + 1) * repeats]])
+        gold = golden_finalize_linear(
+            np.fft.fftshift(golden_pfb(virtual, repeats, h)), repeats, RATE)
+        got = 10.0 ** (data[hop * N:(hop + 1) * N].astype(np.float64) / 10.0)
+        errs.append(max_rel(got, gold))
+    print(f"e2e PFB scan drive ({' '.join(argv[:-4])}): exit 0 in {wall:.2f} "
+          f"s wall; .met {meta[0]}x{meta[1]}; max rel vs float64 golden by "
+          f"hop {errs[0]:.3e}, {errs[1]:.3e} (<= {GOLDEN_RTOL:g}, the .bin's "
+          f"float32 dB; each hop from a reset history); launches {counts}")
+    check(max(errs) <= GOLDEN_RTOL, "PFB scan vs float64 golden")
+    check_only(counts, "PFB", "PFB scan drive")
+    return counts["PFB"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -2144,7 +2751,10 @@ def main() -> int:
             ("fused_psd_probe", "psd_fast_group_kernel", "11"),
             ("fused_psd_mixed", "psd_mixed_kernel", ""),
             ("fused_psd_mixed", "psd_ring_kernel", ""),
-            ("fused_psd_mixed", "psd_chirp_kernel", "")):
+            ("fused_psd_mixed", "psd_chirp_kernel", ""),
+            ("fused_psd_sk", "psd_regs_kernel", ""),
+            ("fused_psd_tapers", "psd_regs_kernel", ""),
+            ("fused_psd_pfb", "psd_pfb_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -2391,6 +3001,11 @@ def main() -> int:
                             adapt_batch, make_window, cli, ff, card)
     lap("awkward N")
 
+    # 14. The estimator kernels (SK, multitaper, PFB).
+    estimators = phase_estimators(dev, np.random.default_rng(20261018), fp,
+                                  adapt_batch, make_window, cli, ff, card)
+    lap("estimators")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -2439,7 +3054,7 @@ def main() -> int:
         entry("fused_psd_large (windowed)", "fused_psd_large.cu", "261",
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
-    ] + awkward + [probe_entry(name, tpu, key)
+    ] + awkward + estimators + [probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),
                                 ("fused_psd_probe P18 (s1_lanes: full)",

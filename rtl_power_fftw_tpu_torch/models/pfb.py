@@ -1,0 +1,178 @@
+"""Polyphase filterbank (PFB) channelized PSD.
+
+Port of ``rtl_power_fftw_tpu/models/pfb.py`` for one stream (without
+``pfb_channelize``, which writes per-frame voltages). The
+critically-sampled PFB — a P-tap windowed-sinc prototype folded over M
+branches, then an M-point FFT per output frame — sharpens channel
+isolation over the plain periodogram (datastore.cxx:66-88) at the cost of
+P× the input history per frame. The device step is the PFB kernel
+(``ops/kernels/csrc/fused_psd_pfb.cu`` on a CUDA device, its plain
+PyTorch version on the CPU), which builds each frame's polyphase sum from
+its history and slot rows and runs K1's register transform on it.
+
+``pfb_psd(prototype=np.ones(M), taps=1)`` is exactly the Bartlett
+estimator (models/bartlett.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..auxdata import make_window
+from ..ops.kernels.fused_psd_pfb import fused_psd_pfb
+from ..ops.spectral import (adapt_batch, bin_frequencies, estimator_route,
+                            finalize_psd)
+
+
+def pfb_prototype(M: int, taps: int = 4,
+                  window: str = "hann") -> np.ndarray:
+    """Windowed-sinc prototype filter, shape (taps·M,) float32.
+
+    sinc cutoff at one channel width (1/M), windowed over the full
+    taps·M span. The absolute PSD level scales with the prototype's
+    coherent gain, exactly like a window does in the reference (no
+    gain compensation there either — acquisition.cxx applies the
+    window and normalizes by repeats·N only)."""
+    L = taps * M
+    n = np.arange(L, dtype=np.float64)
+    h = np.sinc((n - (L - 1) / 2.0) / M)
+    if window != "boxcar":
+        h *= make_window(window, L).astype(np.float64)
+    return h.astype(np.float32)
+
+
+class _PfbRunner:
+    """The PFB kernel over consecutive steps of one stream: the (P, N)
+    prototype and two (P - 1, 2N) history buffers on ``device``, swapped
+    after each step (the kernel reads one and writes the next history
+    into the other, on the step's stream)."""
+
+    def __init__(self, N: int, F: int, chunk: int, h: np.ndarray, device):
+        self.N, self.F, self._chunk = N, F, chunk
+        self.device = torch.device(device)
+        self.P = h.size // N
+        self.h = torch.from_numpy(
+            np.ascontiguousarray(h, np.float32).reshape(self.P, N)).to(
+                self.device)
+        self._history = [torch.empty((self.P - 1, 2 * N), dtype=torch.uint8,
+                                     device=self.device) for _ in range(2)]
+        self._fresh = True
+
+    def reset(self, rows: Optional[np.ndarray] = None) -> None:
+        """A new stream: history byte 127 (zero signal), set on the next
+        step's stream; or, given (P - 1, 2N) u8 ``rows``, those rows."""
+        self._fresh = rows is None
+        if rows is not None:
+            self._history[0].copy_(torch.from_numpy(
+                np.ascontiguousarray(rows)))
+
+    def __call__(self, raw, n_valid: int) -> torch.Tensor:
+        if isinstance(raw, np.ndarray):
+            raw = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
+        history, history_out = self._history
+        out = fused_psd_pfb(raw, history, n_valid, self._chunk, self.h,
+                            history_out, fresh=self._fresh)
+        self._fresh = False
+        self._history.reverse()
+        return out
+
+
+class PfbSessionStep:
+    """PsdStep-compatible session step running the PFB estimator
+    (``--pfb-taps P``): ``.F``, ``.path``, ``__call__(frames (F, 2N) u8,
+    n_valid) -> (N,) f32 partial`` on ``device``, plus ``reset()``, which
+    pipeline.Datastore calls per acquisition so filter history never leaks
+    across retunes. Stateful on purpose: the PFB needs the previous P-1
+    frames, which the step keeps on the device and updates from valid rows
+    only. After a reset the history is byte 127 (zero signal,
+    datastore.cxx:75), so the first P-1 outputs of each acquisition see
+    zero prehistory (standard PFB warm-up) and every output frame consumes
+    exactly N new samples, like the reference's spectra. ``window`` names
+    the prototype's window (``--window-function``). The path is
+    "cuda_pfb" on a CUDA device, "plain_pfb" on the CPU; N must be a power
+    of two from 64 to 16384 (``ops.spectral.estimator_route``)."""
+
+    def __init__(self, N: int, frames_per_step: int, taps: int = 4,
+                 window: str = "hann", *, device):
+        if taps < 2:
+            raise ValueError("pfb taps must be >= 2")
+        estimator_route(N, "--pfb-taps")
+        self.N = N
+        self.P = taps
+        self.F, chunk = adapt_batch(frames_per_step)
+        self.device = torch.device(device)
+        self.path = ("cuda" if self.device.type == "cuda" else "plain") + \
+            "_pfb"
+        self._run = _PfbRunner(N, self.F, chunk,
+                               pfb_prototype(N, taps, window), self.device)
+        self.takes_u16 = False
+
+    def reset(self) -> None:
+        """Clear filter history (new acquisition / retune)."""
+        self._run.reset()
+
+    def __call__(self, raw, n_valid: int) -> torch.Tensor:
+        """``raw``: (F, 2N) u8 (padded), a tensor on the step's device or a
+        numpy array, which is copied there first."""
+        return self._run(raw, n_valid)
+
+
+def pfb_psd(iq_u8: np.ndarray, M: int, sample_rate: int,
+            center_freq: int = 0,
+            taps: int = 4,
+            repeats: Optional[int] = None,
+            prototype: Optional[np.ndarray] = None,
+            window: str = "hann",
+            linear: bool = False,
+            baseline: Optional[np.ndarray] = None,
+            frames_per_step: int = 1024, *,
+            device) -> Tuple[np.ndarray, np.ndarray]:
+    """Channelized PSD of a raw interleaved-u8 IQ array via an M-channel,
+    ``taps``-tap polyphase filterbank, on ``device``.
+
+    prototype: optional (taps·M,) filter overriding the windowed-sinc
+    default. Returns (freqs[M] Hz, psd[M]) with the reference's output
+    semantics (finalize_psd: /frames/M/rate, dB unless ``linear``).
+    Output frame t spans blocks t .. t + taps − 1 of the array, so the
+    first batch's history is the array's own first taps − 1 blocks.
+    """
+    iq = np.asarray(iq_u8, dtype=np.uint8).ravel()
+    if M < 2:
+        raise ValueError("M must be >= 2")
+    if taps < 1:
+        raise ValueError("taps must be >= 1")
+    estimator_route(M, "--pfb-taps")
+    P = taps
+    if prototype is None:
+        h = pfb_prototype(M, taps, window)
+    else:
+        h = np.asarray(prototype, dtype=np.float32).ravel()
+        if h.size != P * M:
+            raise ValueError(f"prototype must have taps*M={P * M} "
+                             f"coefficients, got {h.size}")
+    blocks = iq.size // (2 * M)
+    T_total = blocks - P + 1
+    if repeats is not None:
+        T_total = min(T_total, repeats)
+    if T_total <= 0:
+        raise ValueError("not enough samples for one PFB output frame "
+                         f"(need {(P) * M} complex samples)")
+
+    rows = iq[:(T_total + P - 1) * 2 * M].reshape(-1, 2 * M)
+    F, chunk = adapt_batch(min(frames_per_step, T_total))
+    run = _PfbRunner(M, F, chunk, h, device)
+    run.reset(rows[:P - 1])
+    pwr = np.zeros(M, dtype=np.float64)
+    for start in range(0, T_total, F):
+        batch = rows[P - 1 + start:P - 1 + min(start + F, T_total)]
+        slot = np.zeros((F, 2 * M), np.uint8)
+        slot[:len(batch)] = batch
+        pwr += run(slot, len(batch)).cpu().numpy()
+
+    with np.errstate(divide="ignore"):
+        psd = finalize_psd(pwr, T_total, sample_rate, linear=linear,
+                           baseline=baseline)
+    return bin_frequencies(center_freq, M, sample_rate), psd

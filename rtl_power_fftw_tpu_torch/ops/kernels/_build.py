@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).with_name("build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: Exported C functions of each library: name -> argtypes (all return int).
 #: Every pointer and the stream are c_void_p, so ctypes does not cut them
 #: to 32 bits.
@@ -109,6 +109,29 @@ SIGNATURES = {
                                                 _P, _P, _I, _I, _I, _I, _P],
         # plan, chirp, windowed, device, attrs (int[6])
         "rpf_fused_psd_mixed_control_attributes": [_P, _I, _I, _I, _P],
+    },
+    "fused_psd_sk": {
+        # raw, twiddle, window, partial, out, device, log2n, F, group,
+        # n_valid, two_sigma, stream
+        "rpf_fused_psd_sk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        # log2n, windowed, device, attrs (int[6])
+        "rpf_fused_psd_sk_attributes": [_I, _I, _I, _P],
+    },
+    "fused_psd_tapers": {
+        # raw, twiddle, tapers, partial, out, device, log2n, F, group, K,
+        # n_valid, stream
+        "rpf_fused_psd_tapers": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P],
+        # log2n, device, attrs (int[6])
+        "rpf_fused_psd_tapers_attributes": [_I, _I, _P],
+    },
+    "fused_psd_pfb": {
+        # raw, history, twiddle, h, partial, out, history_out, device,
+        # log2n, F, group, n_valid, P, fresh, stream
+        "rpf_fused_psd_pfb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
+        # log2n, device, attrs (int[6])
+        "rpf_fused_psd_pfb_attributes": [_I, _I, _P],
     },
     "fused_psd_probe": {
         # variant, raw, w1r, w1i, twiddle, w2, offsets, partial, out,

@@ -2,15 +2,23 @@
 // transform in registers (fft_regs.cuh), the next frame's bytes in flight.
 //
 // psd_regs_kernel<LOG2N, WINDOWED, CUT> is their first pass; fused_psd.cu
-// instantiates the default CUT = kRegsFull. The other cuts are its
+// instantiates the default CUT = kRegsFull. Two cuts are its
 // stage-attribution probes (fused_psd_probe.cu), as fused_psd.cuh's are
-// for the radix-2 kernel it replaced:
+// for the radix-2 kernel it replaced, and two are the estimators' first
+// passes (fused_psd_sk.cu, fused_psd_tapers.cu):
 //
 //   kRegsFull     the whole step;
 //   kRegsDequant  load and dequantize; the output is the sum over frames
 //                 of re + im of each sample n (no transform, no exchange);
 //   kRegsNoFft    the step without the transform: the sum over frames of
-//                 |x[n]|^2, in natural order.
+//                 |x[n]|^2, in natural order;
+//   kRegsSk       the whole step, and beside each |X|^2 sum in registers a
+//                 sum of |X|^4: block g writes its |X|^2 row to partial row
+//                 g, bit for bit kRegsFull's, and its |X|^4 row to row
+//                 gridDim.x + g (two planes of gridDim.x rows);
+//   kRegsTapers   the whole step windowed (WINDOWED) by row blockIdx.y of
+//                 a (gridDim.y, N) table of tapers: block (g, k) writes
+//                 partial row k * gridDim.x + g.
 //
 // A block is LANES frame lanes of TF = N / R threads (at least
 // kRegsMinThreads threads a block, so LANES > 1 below N = 4096). Lane p of
@@ -36,7 +44,13 @@ namespace {
 
 constexpr int kRegsMinThreads = 256;
 
-enum : int { kRegsFull = 0, kRegsDequant = 1, kRegsNoFft = 2 };
+enum : int {
+  kRegsFull = 0,
+  kRegsDequant = 1,
+  kRegsNoFft = 2,
+  kRegsSk = 3,
+  kRegsTapers = 4
+};
 
 template <int LOG2N>
 struct RegsShape {
@@ -99,6 +113,10 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   static_assert(P::span(P::PASSES) == 1, "the radices must multiply to N");
   static_assert(P::PASSES >= 2, "a ring slot is rewritten only after the "
                 "barrier that ends the first pass");
+  static_assert(CUT != kRegsTapers || WINDOWED, "a taper is a window");
+  // The cuts that run the transform.
+  constexpr bool FFT = CUT == kRegsFull || CUT == kRegsSk ||
+                       CUT == kRegsTapers;
   extern __shared__ float4 regs_smem[];
   const int tid = threadIdx.x;
   const int lane = tid / TF;
@@ -110,6 +128,7 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   // K2: the window at the thread's R samples, for every frame of the
   // block.
   float win[WINDOWED ? R : 1];
+  if constexpr (CUT == kRegsTapers) window += blockIdx.y * N;
   if constexpr (WINDOWED) {
 #pragma unroll
     for (int k = 0; k < R; ++k) win[k] = __ldg(window + t + k * TF);
@@ -117,6 +136,11 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   float acc[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) acc[k] = 0.0f;
+  float acc2[CUT == kRegsSk ? R : 1];   // kRegsSk: the sums of |X|^4
+  if constexpr (CUT == kRegsSk) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) acc2[k] = 0.0f;
+  }
 
   const int stream = blockIdx.x / blocks_per_stream;
   const int nv = stream_n_valid == nullptr ? n_valid
@@ -163,7 +187,7 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
         v[k] = make_float2(re, im);
       }
     }
-    if constexpr (CUT == kRegsFull) {
+    if constexpr (FFT) {
       // Pass 0 from registers: butterfly t, outputs to t + k1 * TF.
       if (active) {
         dif_regs<R>(v, 0);
@@ -193,6 +217,13 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
         for (int k = 0; k < R; ++k) {
           acc[k] += v[k].x * v[k].x + v[k].y * v[k].y;
         }
+        if constexpr (CUT == kRegsSk) {
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            const float p = v[k].x * v[k].x + v[k].y * v[k].y;
+            acc2[k] += p * p;
+          }
+        }
       }
     } else {
       if (active) {
@@ -208,15 +239,17 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   cp_async_wait<0>();
   __syncthreads();   // every lane is done with its exchange buffer
 
-  // The lanes' sums by bin, then added lane by lane in order.
+  // The lanes' sums by bin, then added lane by lane in order (kRegsSk:
+  // the |X|^4 sums by bin after them, in the exchange buffers' room).
   float* by_bin = reinterpret_cast<float*>(regs_smem);   // (LANES, N)
+  static_assert(2 * S::LANES * N * 4 <= S::RING_OFFSET, "two planes fit");
   constexpr int LAST = P::PASSES - 1;
   constexpr int RL = pass_radix(LOG2N, LAST);
   constexpr int SL = P::span(LAST) / RL;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     int bin = t + k * TF;   // the cuts: sample t + k*TF
-    if constexpr (CUT == kRegsFull) {
+    if constexpr (FFT) {
       // Slot k is output rev_bits(k % RL) of last-pass butterfly
       // b = t + (k / RL) * TF.
       const int b = t + (k / RL) * TF;
@@ -225,14 +258,27 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
       bin = pass_bin<LOG2N>(q);
     }
     by_bin[lane * N + bin] = acc[k];
+    if constexpr (CUT == kRegsSk) by_bin[(S::LANES + lane) * N + bin] = acc2[k];
   }
   __syncthreads();
   float* row = partial + static_cast<size_t>(blockIdx.x) * N;
+  if constexpr (CUT == kRegsTapers) {
+    row += static_cast<size_t>(blockIdx.y) * gridDim.x * N;
+  }
   for (int q = tid; q < N; q += S::THREADS) {
     float sum = by_bin[q];
 #pragma unroll
     for (int l = 1; l < S::LANES; ++l) sum += by_bin[l * N + q];
     row[q] = sum;
+  }
+  if constexpr (CUT == kRegsSk) {
+    float* row2 = partial + (static_cast<size_t>(gridDim.x) + blockIdx.x) * N;
+    for (int q = tid; q < N; q += S::THREADS) {
+      float sum = by_bin[S::LANES * N + q];
+#pragma unroll
+      for (int l = 1; l < S::LANES; ++l) sum += by_bin[(S::LANES + l) * N + q];
+      row2[q] = sum;
+    }
   }
 }
 

@@ -79,14 +79,18 @@ class KernelLaunchError(RuntimeError):
 
 class LaunchCounts:
     """Calls served by the CUDA kernels of this module, of
-    :mod:`.fused_psd_large`, :mod:`.fused_psd_mixed` and
-    :mod:`.fused_psd_bluestein`, and by their plain versions;
+    :mod:`.fused_psd_large`, :mod:`.fused_psd_mixed`,
+    :mod:`.fused_psd_bluestein` and of the estimators'
+    (:mod:`.fused_psd_sk`, :mod:`.fused_psd_tapers`, :mod:`.fused_psd_pfb`),
+    and by their plain versions;
     ``kernel_windowed`` counts the kernel's windowed launches (K2) apart
     from its unwindowed ones (``kernel``, K1), ``kernel_streams`` /
     ``kernel_streams_windowed`` the streams launches (K4) likewise,
     ``kernel_large`` / ``kernel_large_windowed`` the large-N kernel's, and
     ``kernel_mixed`` / ``kernel_mixed_streams`` and ``kernel_bluestein`` /
-    ``kernel_bluestein_streams`` the awkward-N kernels' (windowed or not).
+    ``kernel_bluestein_streams`` the awkward-N kernels' (windowed or not),
+    and ``kernel_sk``, ``kernel_tapers`` and ``kernel_pfb`` the spectral
+    kurtosis, multitaper and polyphase-filterbank kernels'.
 
     Incremented by the wrappers only; a session's single consumer thread
     is their only caller while a session runs."""
@@ -105,6 +109,9 @@ class LaunchCounts:
         self.kernel_mixed_streams = 0
         self.kernel_bluestein = 0
         self.kernel_bluestein_streams = 0
+        self.kernel_sk = 0
+        self.kernel_tapers = 0
+        self.kernel_pfb = 0
         self.plain = 0
 
 
@@ -319,16 +326,18 @@ def _on_cuda(kernel: str, raw_u8: torch.Tensor) -> bool:
 
 def _launch(kernel: str, raw_u8: torch.Tensor,
             window: Optional[torch.Tensor], rows: int, out_shape,
-            call) -> torch.Tensor:
-    """The launch :func:`fused_psd` and :func:`fused_psd_streams` share:
-    check the loads' alignment (:data:`RAW_ALIGN`, :data:`WINDOW_ALIGN`),
-    make the (rows, N) partial and the output, and run ``call(lib, raw,
-    twiddle, window, partial, out, stream)`` with device pointers (the
-    twiddles :func:`pass_twiddles`) and the current stream's handle, on
-    which the kernel runs asynchronously. Returns the output."""
-    check_alignment(kernel, raw_u8, RAW_ALIGN, window, WINDOW_ALIGN)
+            call, library: str = "fused_psd",
+            raw_align: int = RAW_ALIGN) -> torch.Tensor:
+    """The launch of the register kernels (:func:`fused_psd`,
+    :func:`fused_psd_streams` and the estimators' of ``library``): check the
+    loads' alignment (``raw_align``, :data:`WINDOW_ALIGN`), make the (rows,
+    N) partial and the output, and run ``call(lib, raw, twiddle, window,
+    partial, out, stream)`` with device pointers (the twiddles
+    :func:`pass_twiddles`) and the current stream's handle, on which the
+    kernel runs asynchronously. Returns the output."""
+    check_alignment(kernel, raw_u8, raw_align, window, WINDOW_ALIGN)
     from . import _build
-    lib = _build.load("fused_psd")
+    lib = _build.load(library)
     N = raw_u8.shape[-1] // 2
     device = raw_u8.device
     partial = torch.empty((rows, N), dtype=torch.float32, device=device)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..exceptions import ReturnValue, RPFexception
+from .kernels.fused_psd import MAX_N as REGS_MAX_N
 from .kernels.fused_psd import MIN_N, fused_psd, fused_psd_eligible
 from .kernels.fused_psd_bluestein import MAX_N as BLUESTEIN_MAX_N
 from .kernels.fused_psd_bluestein import (fused_psd_bluestein,
@@ -114,6 +115,28 @@ def transform_route(N: int, backend: str = "auto", fast: bool = False
                     f"{MIN_N} to {MAX_N}, even 7-smooth N up to "
                     f"{MIXED_MAX_N} and other even N up to "
                     f"{BLUESTEIN_MAX_N})")
+
+
+#: ``--fft-backend`` names under which the spectral-kurtosis step runs its
+#: kernel: the JAX package's SK step runs its auto per-frame transform for
+#: each of them (its config warns of the fused ones).
+SK_BACKENDS = ("auto", "pallas", "hybrid", "fft4")
+
+
+def estimator_route(N: int, flag: str, backend: str = "auto") -> None:
+    """Raise RPFexception(InvalidArgument), "Not yet ported", unless the
+    estimator of ``flag`` (``--sk-file``, ``--sk-excise``,
+    ``--multitaper`` or ``--pfb-taps``) runs on its kernel at N bins: each
+    is a variant of K1's group kernel and takes its sizes, powers of two
+    from 64 to 16384. The spectral-kurtosis step also takes only the
+    ``--fft-backend`` names of :data:`SK_BACKENDS` (the other two
+    estimators ignore the option, as the JAX package's do). The same check
+    and message on the CPU and on the card."""
+    if not fused_psd_eligible(N):
+        raise _unported(f"{flag} at {N} bins (the estimator kernels take "
+                        f"powers of two from {MIN_N} to {REGS_MAX_N})")
+    if flag.startswith("--sk") and backend not in SK_BACKENDS:
+        raise _unported(f"{flag} with --fft-backend {backend}")
 
 
 class PsdStep:

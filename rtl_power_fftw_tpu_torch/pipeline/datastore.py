@@ -43,6 +43,12 @@ from ..ops.spectral import FrameSlicer, PsdStep
 class AcquisitionResult:
     pwr: np.ndarray            # (N,) float64, unshifted bins
     repeats_done: int
+    # The spectral-kurtosis step's other fields (None for other steps):
+    # Σ|X|⁴ (--sk-file), and under --sk-excise the clean accumulator and
+    # the per-bin count of spectra kept.
+    pwr2: Optional[np.ndarray] = None
+    pwr_clean: Optional[np.ndarray] = None
+    kept: Optional[np.ndarray] = None
 
 
 def welch_hop(N: int, overlap_percent: float) -> Optional[int]:
@@ -183,6 +189,35 @@ def print_queue_histogram(histogram, stderr=None) -> None:
           + " ".join(str(v) for v in histogram) + " ", file=err)
 
 
+def make_step(params: Params, frames_per_step: int, device,
+              window: Optional[np.ndarray] = None):
+    """The session's device step, as the JAX package's Datastore picks it:
+    the polyphase filterbank (``--pfb-taps``; the window option names its
+    prototype's window, and ``-w`` is refused with it at parse time), the
+    multitaper estimator (``--multitaper``; its tapers replace the
+    window), the spectral-kurtosis step (``--sk-file``, ``--sk-excise``),
+    else PsdStep."""
+    if params.pfb_taps > 1:
+        from ..models.pfb import PfbSessionStep
+        return PfbSessionStep(params.N, frames_per_step, taps=params.pfb_taps,
+                              window=params.window_function or "hann",
+                              device=device)
+    if params.multitaper >= 1:
+        from ..models.multitaper import MultitaperSessionStep
+        return MultitaperSessionStep(params.N, frames_per_step,
+                                     K=params.multitaper,
+                                     NW=params.time_bandwidth,
+                                     precision=params.precision,
+                                     device=device)
+    if params.sk_file or params.sk_excise > 0.0:
+        from ..models.kurtosis import SkSessionStep
+        return SkSessionStep(params.N, frames_per_step, device,
+                             window=window, backend=params.fft_backend,
+                             excise_sigma=params.sk_excise)
+    return PsdStep(params.N, frames_per_step, device, window=window,
+                   backend=params.fft_backend, precision=params.precision)
+
+
 class Datastore:
     """Buffer pool + device-step consumer.
 
@@ -203,14 +238,17 @@ class Datastore:
             # to keep step latency and padding waste balanced.
             frames_per_step = max(1, min(params.buf_length // (2 * params.N), 4096))
         self.device = torch.device(device)
-        self.step = PsdStep(params.N, frames_per_step, self.device,
-                            window=window, backend=params.fft_backend,
-                            precision=params.precision)
+        self.step = make_step(params, frames_per_step, self.device, window)
+        # A step returns one (N,) partial per name in ``fields`` (PsdStep
+        # and two of the estimators: "s1" alone); each has its own pinned
+        # output row and float64 accumulator.
+        self.fields = getattr(self.step, "fields", ("s1",))
         self.slicer = FrameSlicer(params.N, hop=hop)
         self._ring = SlotRing(self.device,
                               [((self.step.F, 2 * self.N), torch.uint8)],
                               max_in_flight,
-                              out_specs=[((self.N,), torch.float32)])
+                              out_specs=[((self.N,), torch.float32)]
+                              * len(self.fields))
 
         # Buffer pool bookkeeping (datastore.h:40-47). Buffers here are just
         # numpy arrays owned by the queue; the pool bound provides the
@@ -222,18 +260,22 @@ class Datastore:
         self._status_change = threading.Condition(self._lock)
         self._acquisition_finished = False
 
-        self._acc = np.zeros(self.N, dtype=np.float64)
+        self._acc = self._zeros()
         self.repeats_done = 0
         self._consumer: Optional[threading.Thread] = None
         self._consumer_error: Optional[BaseException] = None
 
     # --- producer interface (called by Acquisition) ---
 
+    def _zeros(self) -> dict:
+        return {f: np.zeros(self.N, dtype=np.float64) for f in self.fields}
+
     @property
     def transform_path(self) -> str:
         """Which step serves the session: "cuda", "cuda_fast",
-        "cuda_large", or on the CPU "plain", "plain_fast", "plain_large"
-        (PsdStep.path)."""
+        "cuda_large", ... (PsdStep.path), "cuda_sk", "cuda_multitaper" or
+        "cuda_pfb" (the estimators'), or "plain" + the same suffix on the
+        CPU."""
         return self.step.path
 
     def bytes_needed(self) -> int:
@@ -260,9 +302,12 @@ class Datastore:
                 self._status_change.notify_all()
             self._consumer.join()
         self._occupied.clear()
-        self._acc = np.zeros(self.N, dtype=np.float64)
+        self._acc = self._zeros()
         self.repeats_done = 0
         self.slicer.reset()
+        reset = getattr(self.step, "reset", None)
+        if reset is not None:
+            reset()  # stateful steps (PFB history) must not leak across retunes
         self._acquisition_finished = False
         self._consumer_error = None
         self._consumer = threading.Thread(target=self._consume, daemon=True)
@@ -298,7 +343,10 @@ class Datastore:
         self._consumer.join()
         if self._consumer_error is not None:
             raise self._consumer_error
-        return AcquisitionResult(pwr=self._acc, repeats_done=self.repeats_done)
+        return AcquisitionResult(
+            pwr=self._acc["s1"], repeats_done=self.repeats_done,
+            pwr2=self._acc.get("s2"), pwr_clean=self._acc.get("s1_clean"),
+            kept=self._acc.get("kept"))
 
     # --- consumer (device dispatch) ---
 
@@ -315,11 +363,12 @@ class Datastore:
                 self._status_change.notify_all()
 
     def _consume_batches(self) -> None:
-        acc = self._acc
+        accs = [self._acc[f] for f in self.fields]
         ring = self._ring
 
-        def accumulate(partial: np.ndarray) -> None:
-            np.add(acc, partial, out=acc)
+        def accumulate(*partials: np.ndarray) -> None:
+            for acc, partial in zip(accs, partials):
+                np.add(acc, partial, out=acc)
 
         F = self.step.F
         staging = ring.slot()[0].numpy()
@@ -332,7 +381,8 @@ class Datastore:
             if staged < F:
                 staging[staged:] = 0
             raw, = ring.upload()
-            ring.submit((self.step(raw, staged),), accumulate)
+            out = self.step(raw, staged)
+            ring.submit(out if isinstance(out, tuple) else (out,), accumulate)
             self.repeats_done += staged
             staged = 0
             staging = ring.slot()[0].numpy()

@@ -27,10 +27,11 @@ from .auxdata import AuxData
 from .config import BASE_BUF, Params
 from .exceptions import ReturnValue, RPFexception, StreamEOF, TuneError
 from .interrupts import InterruptState, check_interrupt, set_ctrl_c_handler
-from .ops.spectral import bin_frequencies, finalize_psd
+from .models.kurtosis import compute_sk
+from .ops.spectral import bin_frequencies, estimator_route, finalize_psd
 from .output.matrix import MatrixWriter
 from .output.stats import SessionStats
-from .output.text import TextWriter
+from .output.text import SkWriter, TextWriter
 from .parallel.mesh import make_mesh
 from .parallel.multistream import MultiStreamAcquisition
 from .pipeline.datastore import Datastore
@@ -52,18 +53,19 @@ def _chatty(params: Params) -> bool:
 
 def check_ported(params: Params) -> None:
     """Raise RPFexception(InvalidArgument) for options whose path this
-    package does not have yet."""
+    package does not have yet: the estimators (``--pfb-taps``,
+    ``--multitaper``, ``--sk-file``, ``--sk-excise``) over ``--streams``
+    or at N their kernels do not take (``ops.spectral.estimator_route``),
+    ``--shard-transform`` and ``--profile``."""
     unported = []
     if params.shard_transform:
         unported.append("--shard-transform")
-    if params.pfb_taps:
-        unported.append("--pfb-taps")
-    if params.multitaper:
-        unported.append("--multitaper")
-    if params.sk_file:
-        unported.append("--sk-file")
-    if params.sk_excise > 0.0:
-        unported.append("--sk-excise")
+    estimators = [flag for flag, on in (
+        ("--pfb-taps", params.pfb_taps), ("--multitaper", params.multitaper),
+        ("--sk-file", params.sk_file), ("--sk-excise", params.sk_excise > 0.0))
+        if on]
+    if estimators and params.streams > 1:
+        unported.append(", ".join(estimators) + " with --streams")
     if params.profile_dir:
         unported.append("--profile")
     if unported:
@@ -71,6 +73,8 @@ def check_ported(params: Params) -> None:
             "Not yet ported to the PyTorch/CUDA package: "
             + ", ".join(unported) + ". Exiting.",
             ReturnValue.InvalidArgument)
+    if estimators:
+        estimator_route(params.N, estimators[0], params.fft_backend)
 
 
 class Acquisition:
@@ -96,6 +100,10 @@ class Acquisition:
         self.successfulReadouts = 0
         self.repeats_done = 0
         self.pwr: Optional[np.ndarray] = None
+        # The spectral-kurtosis step's other accumulators (AcquisitionResult).
+        self.pwr2: Optional[np.ndarray] = None
+        self.pwr_clean: Optional[np.ndarray] = None
+        self.kept: Optional[np.ndarray] = None
         self.multistream = multistream
         self.multistream_repeats: Optional[np.ndarray] = None
         self.record = record      # open binary file: raw consumed IQ copy
@@ -222,7 +230,20 @@ class Acquisition:
 
         result = self.data.finish_acquisition()
         self.pwr = result.pwr
+        self.pwr2 = result.pwr2
+        self.pwr_clean = result.pwr_clean
+        self.kept = result.kept
         self.repeats_done = result.repeats_done
+
+    def sk_stats(self) -> Optional[tuple]:
+        """``(kept_fraction, bins_fully_flagged)`` under ``--sk-excise``
+        (None otherwise): the one definition behind both the stderr
+        summary and the --stats-json record."""
+        if self.kept is None or self.repeats_done <= 0:
+            return None
+        frac = float(self.kept.sum()) / (self.repeats_done
+                                         * len(self.kept))
+        return frac, int((self.kept == 0).sum())
 
     def unique_samples(self) -> int:
         """Unique (complex) samples consumed — N·repeats_done, except in
@@ -242,14 +263,34 @@ class Acquisition:
         print(f"Actual number of averaged spectra: {self.repeats_done}", file=err)
         eff = float(self.unique_samples()) / self.actual_samplerate
         print(f"Effective integration time: {eff:g} seconds", file=err)
+        sk = self.sk_stats()
+        if sk is not None:
+            frac, nfull = sk
+            print(f"SK excision ({self.params.sk_excise:g} sigma): kept "
+                  f"{100.0 * frac:.2f}% of bin-blocks; {nfull} of "
+                  f"{len(self.kept)} bins fully flagged "
+                  "(unexcised fallback)", file=err)
 
     def compute_output(self) -> np.ndarray:
         """Finalize the accumulated spectrum into output values
         (acquisition.cxx:376-399): fftshift + DC interp + normalize +
         dB/linear + baseline."""
         baseline = self.aux.baseline_values if self.params.baseline else None
+        pwr = self.pwr
+        if self.kept is not None and self.repeats_done > 0:
+            # SK excision (--sk-excise): the per-bin mean over surviving
+            # blocks, rescaled to the accumulator convention finalize_psd
+            # expects (÷ repeats_done happens there). A fully-flagged bin
+            # (kept == 0) cannot be excised and falls back to the unexcised
+            # average.
+            with np.errstate(divide="ignore", invalid="ignore"):
+                pwr = np.where(
+                    self.kept > 0,
+                    self.pwr_clean / np.maximum(self.kept, 1.0)
+                    * self.repeats_done,
+                    self.pwr)
         with np.errstate(divide="ignore", invalid="ignore"):
-            return finalize_psd(self.pwr, self.repeats_done,
+            return finalize_psd(pwr, self.repeats_done,
                                 self.actual_samplerate,
                                 linear=self.params.linear,
                                 baseline=baseline)
@@ -349,8 +390,12 @@ def run_session(params: Params, source: IQSource, aux: AuxData, *,
         transform_path = data.transform_path
 
     if _chatty(params):
+        # The PFB and multitaper steps do not consult --fft-backend; their
+        # line does not name it (as in the JAX package).
+        backend_note = ("" if transform_path.endswith(("_pfb", "_multitaper"))
+                        else f"backend={params.fft_backend}, ")
         print(f"Transform path: {transform_path} "
-              f"(backend={params.fft_backend}, N={params.N})", file=err)
+              f"({backend_note}N={params.N})", file=err)
 
     if install_sigint:
         set_ctrl_c_handler(True)
@@ -367,7 +412,15 @@ def run_session(params: Params, source: IQSource, aux: AuxData, *,
 
     record = None
     stats_stream = None
+    sk_stream = None
+    sk_writer = None
     try:
+        if params.sk_file:
+            # Spectral-kurtosis sidecar (--sk-file): truncated at session
+            # start like the matrix .bin (rtl_power_fftw.cxx:122-128).
+            sk_stream = open(params.sk_file, "w")
+            sk_writer = SkWriter(sk_stream)
+            print(f"Writing spectral kurtosis to {params.sk_file}", file=err)
         if params.record_file and multistream is None:
             # Raw-IQ capture (extension): one file for the whole session;
             # with hopping the per-hop streams are appended in scan order.
@@ -386,7 +439,7 @@ def run_session(params: Params, source: IQSource, aux: AuxData, *,
                 pass
     except BaseException as e:
         # A later open failing must not leak the files already opened.
-        for f in (record, stats_stream):
+        for f in (record, stats_stream, sk_stream):
             if f is not None:
                 f.close()
         if multistream is not None:
@@ -400,11 +453,11 @@ def run_session(params: Params, source: IQSource, aux: AuxData, *,
         return _session_loop(params, aux, source, data, multistream, record,
                              plan, stats, actual_samplerate, transform_path,
                              text_writer, matrix_writer, err, exit_time,
-                             stats_stream)
+                             stats_stream, sk_writer)
     finally:
         # Close capture files on EVERY exit path (errors included), so
         # buffered tails are flushed and library callers don't leak fds.
-        for f in (record, stats_stream):
+        for f in (record, stats_stream, sk_stream):
             if f is not None:
                 f.close()
         if multistream is not None:
@@ -427,7 +480,8 @@ def _write_stitch(stitch_file: str, pass_spectra, linear: bool) -> None:
 
 def _session_loop(params, aux, source, data, multistream, record, plan,
                   stats, actual_samplerate, transform_path, text_writer,
-                  matrix_writer, err, exit_time, stats_stream) -> ReturnValue:
+                  matrix_writer, err, exit_time, stats_stream,
+                  sk_writer=None) -> ReturnValue:
     """The measurement loop proper (rtl_power_fftw.cxx:132-225)."""
     params.finalfreq = plan.freqs_to_tune[-1]
     freqs_meta_needed = True
@@ -493,6 +547,20 @@ def _session_loop(params, aux, source, data, multistream, record, plan,
 
             values = acquisition.write_data(text_writer, matrix_writer)
             any_written = True
+            if (sk_writer is not None and acquisition.pwr2 is not None
+                    and acquisition.repeats_done >= 2):
+                # SK needs M >= 2 (the (M+1)/(M−1) estimator); a 1-spectrum
+                # partial hop writes no SK block.
+                sk_vals = np.fft.fftshift(compute_sk(
+                    acquisition.pwr, acquisition.pwr2,
+                    acquisition.repeats_done))
+                sk_writer.write_sk(
+                    bin_frequencies(acquisition.tuned_freq, params.N,
+                                    actual_samplerate),
+                    sk_vals, acquisition.startAcqTimestamp,
+                    acquisition.endAcqTimestamp, acquisition.tuned_freq,
+                    actual_samplerate, params.N,
+                    spectra=acquisition.repeats_done)
             if params.stitch_file:
                 pass_spectra.append(
                     (bin_frequencies(acquisition.tuned_freq, params.N,
@@ -513,6 +581,11 @@ def _session_loop(params, aux, source, data, multistream, record, plan,
                     "effective_integration_s":
                         float(acquisition.unique_samples())
                         / actual_samplerate,
+                    # SK excision stats (--sk-excise only).
+                    **({"sk_kept_fraction": sk_rec[0],
+                        "sk_bins_fully_flagged": sk_rec[1]}
+                       if (sk_rec := acquisition.sk_stats())
+                       is not None else {}),
                     # Per-scan delta (the histogram is cumulative
                     # across the session).
                     "queue_histogram": [a - b for a, b in
@@ -555,8 +628,12 @@ def _session_loop(params, aux, source, data, multistream, record, plan,
                 do_exit = True
                 print("Session duration elapsed.", file=err)
                 text_writer.end_measurement_set()
+                if sk_writer is not None:
+                    sk_writer.end_measurement_set()
         else:
             text_writer.end_measurement_set()
+            if sk_writer is not None:
+                sk_writer.end_measurement_set()
 
         if params.endless:
             do_exit = False

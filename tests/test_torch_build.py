@@ -31,7 +31,9 @@ def test_signatures_match_the_sources(name):
         assert len(params) == len(argtypes), fn
         for ctype, argtype in zip(params, argtypes):
             # Every pointer and the stream are c_void_p (64 bits).
-            want = ctypes.c_void_p if ctype.endswith("*") else ctypes.c_int
+            want = (ctypes.c_void_p if ctype.endswith("*")
+                    else ctypes.c_float if ctype == "float"
+                    else ctypes.c_int)
             assert argtype is want, (fn, ctype)
 
 

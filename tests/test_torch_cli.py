@@ -35,10 +35,10 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
 @pytest.mark.parametrize("extra", [
     ["--streams", "2", "--pfb-taps", "4"],
     ["--shard-transform"],
-    ["--pfb-taps", "4"],
-    ["--multitaper", "2"],
-    ["--sk-file", "sk.dat"],
-    ["--sk-excise", "3"],
+    ["-b", "500", "--multitaper", "2"],
+    ["-b", "32768", "--sk-file", "sk.dat"],
+    ["-b", "32", "--pfb-taps", "4"],
+    ["--sk-excise", "3", "--fft-backend", "xla"],
     ["--fft-backend", "fourstep"],
     ["--fft-backend", "xla", "--window-function", "hann"],
     ["--precision", "high", "-b", "128"],
@@ -67,6 +67,26 @@ def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
     captured = capsys.readouterr()
     assert captured.out.startswith("# rtl-power-fftw output\n")
     assert f"Transform path: {path} " in captured.err
+
+
+@pytest.mark.parametrize("extra,path", [
+    (["--pfb-taps", "4"], "plain_pfb (N=256)"),
+    (["--multitaper", "2"], "plain_multitaper (N=256)"),
+    (["--sk-file", "sk.dat"], "plain_sk (backend=auto, N=256)"),
+    (["--sk-excise", "3"], "plain_sk (backend=auto, N=256)"),
+])
+def test_single_stream_estimators_exit_0(extra, path, capsys, tmp_path,
+                                         monkeypatch):
+    """The four single-stream estimator options run their kernels' path
+    (on the CPU, the plain versions)."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(SMALL + extra, device=CPU) == 0
+    captured = capsys.readouterr()
+    assert captured.out.startswith("# rtl-power-fftw output\n")
+    assert f"Transform path: {path}\n" in captured.err
+    if "--sk-file" in extra:
+        assert (tmp_path / "sk.dat").read_text().startswith(
+            "# rtl-power-fftw spectral kurtosis\n")
 
 
 def test_ineligible_bins_exit_3(capsys):
@@ -140,6 +160,30 @@ def test_streams_session_never_imports_jax():
     proc = _imports_of_a_cpu_session(SMALL + ["--streams", "3"])
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "0 []"
+
+
+def test_estimator_sessions_never_import_jax(tmp_path):
+    """One interpreter runs a session of each estimator (the SK file in a
+    temporary directory), importing the estimator modules and kernels."""
+    sk = str(tmp_path / "sk.dat")
+    proc = _python(
+        "-c",
+        "import io, sys, contextlib, torch\n"
+        "from rtl_power_fftw_tpu_torch.cli import main\n"
+        "import rtl_power_fftw_tpu_torch.models\n"
+        "rcs = []\n"
+        f"for extra in ({['--pfb-taps', '4']!r}, {['--multitaper', '2']!r},\n"
+        f"              {['--sk-file', sk, '--sk-excise', '3']!r}):\n"
+        "    with contextlib.redirect_stdout(io.StringIO()), \\\n"
+        "            contextlib.redirect_stderr(io.StringIO()):\n"
+        f"        rcs.append(main({SMALL!r} + extra,\n"
+        "                        device=torch.device('cpu')))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes')\n"
+        "             or m.startswith('rtl_power_fftw_tpu.'))\n"
+        "print(rcs, bad)\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[0, 0, 0] []"
 
 
 def test_module_entry_point_without_cuda_exits_7():
