@@ -2275,9 +2275,10 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             check(np.array_equal(got_np[3], nv * keep)
                   and np.array_equal(got_np[2], got_np[0] * keep),
                   f"SK {label}: the gate epilogue is not sk_keep's")
+            apart = int(((want_np[3] > 0) != (keep > 0)).sum())
             line += (f"; gate {sigma:g}: {int(keep.sum())} of {N} bins kept "
                      f"(plain {int((want_np[3] > 0).sum())}, decisions "
-                     f"differing {int(((want_np[3] > 0) != (keep > 0)).sum())})")
+                     f"differing {apart})")
         print(line)
         check(max(errs) <= UNIFORM_RTOL and max(golds) <= GOLDEN_RTOL,
               f"SK {label}: {errs} vs plain, {golds} vs golden")
@@ -2386,7 +2387,8 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
 
     def f32_class(z64):
         Xc = scipy.fft.fft(z64.astype(np.complex64), axis=-1)
-        return Xc.real.astype(np.float64) ** 2 + Xc.imag.astype(np.float64) ** 2
+        return (Xc.real.astype(np.float64) ** 2
+                + Xc.imag.astype(np.float64) ** 2)
 
     estimator_yard("SK s2", sk_s2,
                    lambda raw_np: golden_moments(raw_np, F)[1],
@@ -2439,8 +2441,8 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
                 ("PFB", ["--pfb-taps", "4"], None)):
             record = os.path.join(tmp, f"est_{len(launches)}.iq")
             sk_path = os.path.join(tmp, f"est_{len(launches)}.sk")
-            argv = EST_ARGV + [a if a != "--sk-file" else f"--sk-file={sk_path}"
-                               for a in extra] + ["--record", record]
+            argv = EST_ARGV + [f"--sk-file={sk_path}" if a == "--sk-file"
+                               else a for a in extra] + ["--record", record]
             w_np = None if wname is None else make_window(wname, N)
 
             def golden(key=key, record=record, w_np=w_np):
@@ -2624,9 +2626,9 @@ def drive_sk_excise(cli, fp, ff, tmp) -> int:
     err_gold = max_rel(vals, gold)
     with open(stats) as f:
         rec = json.loads(f.readline())
+    summary = [x for x in err.splitlines() if x.startswith("SK excision")]
     print(f"e2e sk-excise drive ({' '.join(argv[:-5])}): exit 0 in "
-          f"{wall:.2f} s wall; {[x for x in err.splitlines() if 'SK excision' in x]}"
-          f"; stats-json kept fraction {rec['sk_kept_fraction']:.6f}, bins "
+          f"{wall:.2f} s wall; {summary}; stats-json kept fraction {rec['sk_kept_fraction']:.6f}, bins "
           f"fully flagged {rec['sk_bins_fully_flagged']} (float64 gate "
           f"{kept.sum() / (repeats * N):.6f}); burst bin unexcised "
           f"{raw_gold[burst_bin] / floor:.1f}x the floor, excised "

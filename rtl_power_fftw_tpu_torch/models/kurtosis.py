@@ -14,7 +14,6 @@ moments in one pass, its s1 the plain PSD step's bit for bit.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -86,14 +85,6 @@ class SkSessionStep:
                                   self._sigma))
 
 
-@functools.lru_cache(maxsize=8)
-def _cached_step(N: int, F: int, window_bytes: Optional[bytes],
-                 backend: str, device: torch.device) -> SkSessionStep:
-    window = (None if window_bytes is None
-              else np.frombuffer(window_bytes, dtype=np.float32))
-    return SkSessionStep(N, F, device, window=window, backend=backend)
-
-
 def spectral_kurtosis(iq_u8: np.ndarray, N: int, sample_rate: int,
                       center_freq: int = 0,
                       repeats: Optional[int] = None,
@@ -115,9 +106,8 @@ def spectral_kurtosis(iq_u8: np.ndarray, N: int, sample_rate: int,
     M = len(frames)
     if M < 2:
         raise ValueError("spectral kurtosis needs at least 2 spectra")
-    wb = None if window is None else np.asarray(window, np.float32).tobytes()
-    step = _cached_step(N, adapt_batch(min(frames_per_step, M))[0], wb,
-                        backend, torch.device(device))
+    step = SkSessionStep(N, min(frames_per_step, M), device, window=window,
+                         backend=backend)
     s1 = np.zeros(N, dtype=np.float64)
     s2 = np.zeros(N, dtype=np.float64)
     for start in range(0, M, step.F):

@@ -11,7 +11,6 @@ grid. DPSS tapers come from scipy.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -83,13 +82,6 @@ class MultitaperSessionStep:
         return fused_psd_tapers(raw, n_valid, self._chunk, self.tapers)
 
 
-@functools.lru_cache(maxsize=8)
-def _cached_tapers(N: int, NW: float, K: int,
-                   device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(dpss_tapers(N, NW, K)
-                            * np.sqrt(np.float32(N))).to(device)
-
-
 def multitaper_psd(iq_u8: np.ndarray, N: int, sample_rate: int,
                    center_freq: int = 0,
                    NW: float = 4.0, K: Optional[int] = None,
@@ -109,10 +101,9 @@ def multitaper_psd(iq_u8: np.ndarray, N: int, sample_rate: int,
     """
     K = int(2 * NW - 1) if K is None else int(K)
     estimator_route(N, "--multitaper")
-    # The reference convention: file windows are applied as-is; DPSS
-    # tapers from scipy are unit-energy (Σw² = 1). Rescale so a flat
-    # spectrum matches the boxcar normalization (Σw² = N).
-    tapers = _cached_tapers(N, float(NW), K, torch.device(device))
+    # DPSS tapers from scipy are unit-energy (Σw² = 1); the session's are
+    # rescaled so a flat spectrum matches the boxcar normalization (Σw² = N).
+    tapers = torch.from_numpy(_session_tapers(N, NW, K)).to(device)
 
     slicer = FrameSlicer(N)
     frames = slicer.push(iq_u8, max_frames=repeats)

@@ -258,7 +258,9 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
       bin = pass_bin<LOG2N>(q);
     }
     by_bin[lane * N + bin] = acc[k];
-    if constexpr (CUT == kRegsSk) by_bin[(S::LANES + lane) * N + bin] = acc2[k];
+    if constexpr (CUT == kRegsSk) {
+      by_bin[(S::LANES + lane) * N + bin] = acc2[k];
+    }
   }
   __syncthreads();
   float* row = partial + static_cast<size_t>(blockIdx.x) * N;

@@ -424,17 +424,25 @@ def kernel_attributes(N: int, windowed: bool = False,
     on the card: registers and spill bytes a thread, static and dynamic
     shared bytes and threads a block, and the blocks that reside on one
     SM. Launches nothing."""
+    return library_attributes("fused_psd", N, int(windowed), device=device)
+
+
+def library_attributes(library: str, N: int, *args,
+                       device: Optional[torch.device] = None) -> dict:
+    """``kernel_attributes`` of the register kernels of ``library``
+    (``fused_psd`` and the estimators'): its ``rpf_<library>_attributes``
+    entry at log2 N, ``args`` and the device. Launches nothing."""
     if not fused_psd_eligible(N):
-        raise ValueError(f"fused_psd does not take N={N}")
+        raise ValueError(f"{library} does not take N={N}")
     device = device or torch.device("cuda", torch.cuda.current_device())
     from . import _build
-    lib = _build.load("fused_psd")
+    lib = _build.load(library)
     attrs = (ctypes.c_int * 6)()
-    err = lib.rpf_fused_psd_attributes(N.bit_length() - 1, int(windowed),
-                                       device.index or 0, attrs)
+    err = getattr(lib, f"rpf_{library}_attributes")(
+        N.bit_length() - 1, *args, device.index or 0, attrs)
     if err != 0:
         raise KernelLaunchError(
-            f"fused_psd attributes at N={N}: "
+            f"{library} attributes at N={N}: "
             f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
     return dict(zip(("registers", "spill_bytes", "static_smem",
                      "dynamic_smem", "threads", "blocks_per_sm"), attrs))

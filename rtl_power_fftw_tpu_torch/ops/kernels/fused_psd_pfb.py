@@ -4,18 +4,18 @@ Replaces the device step of ``rtl_power_fftw_tpu/models/pfb.py``
 (``_pfb_core`` as ``_pfb_session_step`` runs it, XLA there) with a CUDA
 C++ kernel written for Hopper (``csrc/fused_psd_pfb.cu``). Its input is
 one virtual array of F + P - 1 raw rows: P - 1 history rows (the last rows
-the acquisition consumed) and then the (F, 2N) slot of new frames
-(:func:`virtual_row`). Output frame j is the polyphase sum S_j = sum over
-p = 0 .. P-1 of h[p] * x_{j+p}, in that order from zero and in float32
-without FMA, of the dequantized rows x (u8 - 127); then |DFT(S_j)|^2,
-frames j >= n_valid dropped, summed over frames; bins in natural order.
-After the step the next history (:func:`history_rows`: rows n_valid ..
-n_valid + P - 2 of the virtual array) is written to ``history_out`` on the
-same stream.
+the acquisition consumed) and then the (F, 2N) slot of new frames. Output
+frame j is the polyphase sum S_j = sum over p = 0 .. P-1 of h[p] *
+x_{j+p}, in that order from zero and in float32 without FMA, of the
+dequantized rows x (u8 - 127); then |DFT(S_j)|^2, frames j >= n_valid
+dropped, summed over frames; bins in natural order. After the step the
+next history (rows n_valid .. n_valid + P - 2 of the virtual array) is
+written to ``history_out`` on the same stream.
 
 The kernel is K1's register transform and sums (``csrc/fused_psd_regs.cuh``
 and ``fft_regs.cuh``) with a load stage that reads P rows a frame through
-L2, on K1's grid rule over its own occupancy (:func:`pfb_group`).
+L2, on K1's grid rule (:func:`.fused_psd.k1_group`) over its own
+occupancy (:func:`resident_blocks`).
 
 :func:`fused_psd_pfb` dispatches on the tensor's device: a CPU tensor runs
 the plain PyTorch version (:func:`fused_psd_pfb_reference`), a CUDA tensor
@@ -25,9 +25,8 @@ launches.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -38,25 +37,6 @@ from . import fused_psd as fp
 MAX_TAPS = 32
 #: The kernel reads the rows as u16 pairs and the prototype as floats.
 RAW_ALIGN = 4
-
-
-def virtual_row(r: int, P: int) -> Tuple[str, int]:
-    """Where row r of the virtual array lies: ("history", r) for r < P - 1,
-    else ("slot", r - (P - 1))."""
-    return ("history", r) if r < P - 1 else ("slot", r - (P - 1))
-
-
-def history_rows(P: int, n_valid: int) -> List[Tuple[str, int]]:
-    """The rows of the next history, in order: rows n_valid .. n_valid +
-    P - 2 of the virtual array, as :func:`virtual_row` places them (with
-    n_valid < P - 1 the old history's last P - 1 - n_valid rows lead)."""
-    return [virtual_row(r, P) for r in range(n_valid, n_valid + P - 1)]
-
-
-def pfb_group(F: int, chunk: int, resident: int) -> int:
-    """Frames a block sums: :func:`.fused_psd.k1_group` over the kernel's
-    own resident blocks (:func:`resident_blocks`)."""
-    return fp.k1_group(F, chunk, resident)
 
 
 def check_pfb_args(raw_u8: torch.Tensor, history: torch.Tensor,
@@ -145,7 +125,7 @@ def fused_psd_pfb(raw_u8: torch.Tensor, history: torch.Tensor, n_valid: int,
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
     P = h.shape[0]
     index = raw_u8.device.index
-    group = pfb_group(F, chunk, resident_blocks(N, index))
+    group = fp.k1_group(F, chunk, resident_blocks(N, index))
     fp.check_alignment("fused_psd_pfb", history, RAW_ALIGN, None, 1)
     out = fp._launch(
         "fused_psd_pfb", raw_u8, h, -(-F // group), (N,),
@@ -163,20 +143,7 @@ def kernel_attributes(N: int, device: Optional[torch.device] = None
                       ) -> dict:
     """What the kernel gets at N bins on the card, as
     :func:`.fused_psd.kernel_attributes` gives K1's. Launches nothing."""
-    if not fp.fused_psd_eligible(N):
-        raise ValueError(f"fused_psd_pfb does not take N={N}")
-    device = device or torch.device("cuda", torch.cuda.current_device())
-    from . import _build
-    lib = _build.load("fused_psd_pfb")
-    attrs = (ctypes.c_int * 6)()
-    err = lib.rpf_fused_psd_pfb_attributes(N.bit_length() - 1,
-                                           device.index or 0, attrs)
-    if err != 0:
-        raise fp.KernelLaunchError(
-            f"fused_psd_pfb attributes at N={N}: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
-    return dict(zip(("registers", "spill_bytes", "static_smem",
-                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+    return fp.library_attributes("fused_psd_pfb", N, device=device)
 
 
 @functools.lru_cache(maxsize=64)

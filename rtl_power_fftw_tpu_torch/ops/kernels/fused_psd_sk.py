@@ -23,7 +23,6 @@ kernel, or raises. ``COUNTS.kernel_sk`` counts the kernel's launches.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -110,17 +109,5 @@ def kernel_attributes(N: int, windowed: bool = False,
                       device: Optional[torch.device] = None) -> dict:
     """What the first pass gets at N bins on the card, as
     :func:`.fused_psd.kernel_attributes` gives K1's. Launches nothing."""
-    if not fp.fused_psd_eligible(N):
-        raise ValueError(f"fused_psd_sk does not take N={N}")
-    device = device or torch.device("cuda", torch.cuda.current_device())
-    from . import _build
-    lib = _build.load("fused_psd_sk")
-    attrs = (ctypes.c_int * 6)()
-    err = lib.rpf_fused_psd_sk_attributes(N.bit_length() - 1, int(windowed),
-                                          device.index or 0, attrs)
-    if err != 0:
-        raise fp.KernelLaunchError(
-            f"fused_psd_sk attributes at N={N}: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
-    return dict(zip(("registers", "spill_bytes", "static_smem",
-                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+    return fp.library_attributes("fused_psd_sk", N, int(windowed),
+                                 device=device)

@@ -10,8 +10,8 @@ float32. Bins in natural order.
 The kernel is K2's windowed group kernel (``csrc/fused_psd_regs.cuh``)
 with a taper axis on its grid: block (g, k) runs K2 on frames [g * group,
 (g + 1) * group) under taper row k and writes partial row k * G + g
-(:func:`partial_row`); one float64 row sum over all K * G rows gives the
-total. Each block gets frames for K2's grid over resident / K blocks
+(taper k's rows are one plane); one float64 row sum over all K * G rows
+gives the total. Each block gets frames for K2's grid over resident / K blocks
 (:func:`tapers_group`), so that the K * G blocks are about one wave.
 
 :func:`fused_psd_tapers` dispatches on the tensor's device: a CPU tensor
@@ -22,7 +22,6 @@ kernel's launches.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -37,12 +36,6 @@ def tapers_group(F: int, chunk: int, K: int, resident: int) -> int:
     """Frames a block sums: :func:`.fused_psd.k1_group` over the blocks
     the card holds at once for each of the K tapers."""
     return fp.k1_group(F, chunk, max(1, resident // K))
-
-
-def partial_row(g: int, k: int, G: int) -> int:
-    """The partial row block (g, k) writes: taper k's G rows are one
-    plane, k * G + g."""
-    return k * G + g
 
 
 def check_tapers(tapers: torch.Tensor, raw_u8: torch.Tensor) -> None:
@@ -115,17 +108,4 @@ def kernel_attributes(N: int, device: Optional[torch.device] = None
                       ) -> dict:
     """What the first pass gets at N bins on the card, as
     :func:`.fused_psd.kernel_attributes` gives K2's. Launches nothing."""
-    if not fp.fused_psd_eligible(N):
-        raise ValueError(f"fused_psd_tapers does not take N={N}")
-    device = device or torch.device("cuda", torch.cuda.current_device())
-    from . import _build
-    lib = _build.load("fused_psd_tapers")
-    attrs = (ctypes.c_int * 6)()
-    err = lib.rpf_fused_psd_tapers_attributes(N.bit_length() - 1,
-                                              device.index or 0, attrs)
-    if err != 0:
-        raise fp.KernelLaunchError(
-            f"fused_psd_tapers attributes at N={N}: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
-    return dict(zip(("registers", "spill_bytes", "static_smem",
-                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+    return fp.library_attributes("fused_psd_tapers", N, device=device)

@@ -1,7 +1,9 @@
 """Session driver: per-hop acquisition and the outer measurement loop.
 
 Port of ``rtl_power_fftw_tpu/session.py`` for the averaged PSD of one
-stream or of ``--streams`` parallel sources. It re-implements the
+stream or of ``--streams`` parallel sources, and for the estimators of one
+stream (``--sk-file``/``--sk-excise`` with its SK file and excised
+average, ``--multitaper``, ``--pfb-taps``). It re-implements the
 reference's ``Acquisition`` controller (acquisition.cxx:211-441) and
 ``main``'s session loop
 (rtl_power_fftw.cxx:50-233): tune-with-retries, the producer read loop with

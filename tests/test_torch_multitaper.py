@@ -187,8 +187,9 @@ def test_multitaper_psd_matches_jax_and_bartlett_level():
 def tapers_transcription(raw, n_valid, chunk, tapers):
     """The kernel's grid in float64: block (g, k) takes frames [g * group,
     min((g + 1) * group, F, n_valid)) under taper k (tapers_group over
-    K2's resident blocks on an H100) and writes partial row
-    partial_row(g, k, G); the sum over all K * G rows, lane l of 8 taking
+    K2's resident blocks on an H100) and writes partial row k * G + g
+    (csrc/fused_psd_regs.cuh, kRegsTapers); the sum over all K * G rows,
+    lane l of 8 taking
     rows l, l + 8, ..., is divided by K. Returns it and the rows each
     block wrote."""
     F, N = raw.shape[0], raw.shape[1] // 2
@@ -202,7 +203,7 @@ def tapers_transcription(raw, n_valid, chunk, tapers):
         for g in range(G):
             f = np.arange(g * group, min((g + 1) * group, F, n_valid))
             x = z[f] * tapers[k].astype(np.float64)
-            row = fmt.partial_row(g, k, G)
+            row = k * G + g
             assert np.isnan(partial[row]).all()
             partial[row] = (np.abs(np.fft.fft(x, axis=-1)) ** 2).sum(0)
     total = sum(partial[lane::8].sum(0) for lane in range(8))

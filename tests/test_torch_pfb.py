@@ -105,11 +105,12 @@ def test_pfb_step_history_with_few_valid_frames_matches_jax():
         pos += nv
         got = step(padded, nv).numpy()
         want = np.asarray(jstep(padded, nv), np.float64)
-        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-3)
+        # A step of a few frames: its smallest bins are single periodogram
+        # values near 0, so the error is also held to its mean power.
+        np.testing.assert_allclose(got, want, rtol=2e-5,
+                                   atol=1e-5 * want.mean())
         np.testing.assert_array_equal(step._run._history[0].numpy(),
                                       jstep._tail)
-    np.testing.assert_allclose(
-        sum(0 for _ in ()), 0.0)  # every step compared above
 
 
 def test_pfb_session_reset_clears_history():
@@ -280,17 +281,24 @@ def test_pfb_errors():
 
 # --- the kernel's index arithmetic, transcribed ---
 
+def virtual_row(r, P):
+    """Where row r of the kernel's virtual array lies (psd_pfb_kernel):
+    ("history", r) for r < P - 1, else ("slot", r - (P - 1))."""
+    return ("history", r) if r < P - 1 else ("slot", r - (P - 1))
+
+
 def pfb_transcription(slot, history, n_valid, h):
     """The kernel's load stage and history update in numpy: output frame
     f < n_valid reads virtual row f + p for p = 0 .. P-1 from the history
-    (rows < P - 1) or the slot (virtual_row), its polyphase sum built in
-    float32 in p order from zero; the next history is history_rows(P,
-    n_valid) gathered the same way, as the kernel's two copies do. Returns
-    (sums (n_valid, N) complex64, next history)."""
+    (rows < P - 1) or the slot, its polyphase sum built in float32 in p
+    order from zero; the next history is virtual rows n_valid .. n_valid
+    + P - 2 gathered the same way, and the kernel's two copies (the old
+    history's rows from n_valid, then the slot's up to n_valid - 1) give
+    the same rows. Returns (sums (n_valid, N) complex64, next history)."""
     P, N = h.shape
 
     def row(r):
-        where, i = fpf.virtual_row(r, P)
+        where, i = virtual_row(r, P)
         return (history if where == "history" else slot)[i]
 
     def dq(u8):
@@ -306,8 +314,7 @@ def pfb_transcription(slot, history, n_valid, h):
             sr = sr + xr * h[p]
             si = si + xi * h[p]
         sums[f] = sr + 1j * si
-    nxt = np.stack([(history if where == "history" else slot)[i]
-                    for where, i in fpf.history_rows(P, n_valid)]) \
+    nxt = np.stack([row(r) for r in range(n_valid, n_valid + P - 1)]) \
         if P > 1 else np.zeros((0, slot.shape[1]), np.uint8)
     # The kernel's two copies: "kept" rows of the old history from row
     # n_valid, then the rest from the slot, ending at row n_valid - 1.
