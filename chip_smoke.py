@@ -178,8 +178,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    with the gate, 256, 16384; SK's s1 against K1's/K2's output bit for
    bit and the gate's rows against ``sk_keep`` of its own moments;
    multitaper K = 7 and 1 at 2048, the drive's step, 16384 K = 4; the PFB
-   at P = 2, 4, 16 over three steps of one stream, the second with fewer
-   valid frames than P - 1, the history on the card equal to plain's);
+   at P = 2, 4, 16 (F = 512) and P = 4 at the drive's step, at F = 4096 and
+   at 16384 bins, each over three steps of one stream, the second with
+   fewer valid frames than P - 1, the history on the card equal to
+   plain's; the timed shapes within 1e-5 of plain too);
    60-seed tone yards of SK's s2, the multitaper (K = 7) and the PFB (P =
    4) against the scipy float32 class; the drives ``-b 2048 --sk-file``
    (unwindowed and Hann; the SK file against the float64 SK of the
@@ -2314,9 +2316,17 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
     # them and equal to plain's bit for bit; each step within 1e-5 of
     # plain and of the float64 golden where it sums >= 64 frames, and the
     # three steps' total (what a session accumulates) within 1e-5 of the
-    # golden. A step of a few frames is held to 1e-5 of its mean power
-    # (its smallest bins are single periodogram values near 0).
-    for P, N, F in ((2, 2048, 512), (4, 2048, 512), (16, 2048, 512)):
+    # golden. A step of a few frames is held to 1e-5 of its mean power:
+    # its smallest bins are single periodogram values near 0, whose
+    # relative error is that of a difference of nearly equal terms (the
+    # plain version's own is as large; both are printed, not held). The
+    # shapes: P = 2, 4, 16 at F = 512; the drives' step and the timed F =
+    # 4096 (each a grid of its own, from the kernel's residency); 16384
+    # bins, whose build spills, with a one-frame second step.
+    pfb_cases = ((2, 2048, 512, 0), (4, 2048, 512, 2), (16, 2048, 512, 14),
+                 (4, 2048, drive_F, 2), (4, 2048, 4096, 2),
+                 (4, 16384, 64, 1))
+    for P, N, F, few in pfb_cases:
         chunk = adapt_batch(F)[1]
         h_np = pfb_prototype(N, P).reshape(P, N)
         h = torch.from_numpy(h_np).to(dev)
@@ -2326,7 +2336,7 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
                   for _ in range(2)]
         virtual = np.full((P - 1, 2 * N), 127, np.uint8)
         total, gold_total = np.zeros(N), np.zeros(N)
-        for step, nv in enumerate((F, max(P - 2, 0), F - 5)):
+        for step, nv in enumerate((F, few, F - 5)):
             raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
             raw = torch.from_numpy(raw_np)
             got = fpf.fused_psd_pfb(raw.to(dev), hist[0], nv, chunk, h,
@@ -2342,16 +2352,21 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             total += got_np
             gold_total += gold
             same_hist = torch.equal(hist[1].cpu(), hist_p[1])
+            rel_plain = max_rel(got_np, want.numpy())
             if nv >= 64:
-                err_plain = max_rel(got_np, want.numpy())
+                err_plain = rel_plain
                 err_gold = max_rel(got_np, gold)
+                note = ""
             else:
                 scale = max(gold.mean(), 1e-30)
                 err_plain = float(np.abs(got_np - want.numpy()).max()) / scale
                 err_gold = float(np.abs(got_np - gold).max()) / scale
+                note = (f" (max rel vs plain {rel_plain:.3e}, plain's vs "
+                        f"the golden {max_rel(want.numpy(), gold):.3e}, not "
+                        "held)")
             print(f"estimators PFB P={P} N={N} F={F} step {step} n_valid="
                   f"{nv}: max {'rel' if nv >= 64 else 'err/mean'} vs plain "
-                  f"{err_plain:.3e}, vs float64 golden {err_gold:.3e}; "
+                  f"{err_plain:.3e}, vs float64 golden {err_gold:.3e}{note}; "
                   f"history bit for bit plain's {same_hist}")
             check(err_plain <= UNIFORM_RTOL and err_gold <= GOLDEN_RTOL
                   and same_hist, f"PFB P={P} step {step}")
@@ -2374,8 +2389,9 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
         check(torch.equal(a, b) and torch.equal(hist[1], spare),
               f"PFB P={P}: not deterministic")
     counts = launch_counts(fp, ff)
-    check(counts["SK"] == runs and counts["MT"] == 8 and counts["PFB"] == 15
-          and counts["plain"] == 0, f"estimator launch counts: {counts}")
+    check(counts["SK"] == runs and counts["MT"] == 8
+          and counts["PFB"] == 5 * len(pfb_cases) and counts["plain"] == 0,
+          f"estimator launch counts: {counts}")
     print(f"wall: estimator checks in {time.perf_counter() - t0:.1f} s")
 
     # The admission yards (2048 bins, 64 frames a seed).
@@ -2534,6 +2550,9 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
         got = kernel().double()
         want = plain().double()
         max_abs = float((got - want).abs().max())
+        rel = max_rel(got.cpu().numpy(), want.cpu().numpy())
+        check(rel <= UNIFORM_RTOL, f"estimator {kind} N={N} F={F}: "
+              f"{rel} vs plain")
         t = {"max_abs": max_abs, "bound": bound,
              "call": event_times_us(kernel), "plain": event_times_us(plain),
              "lib": event_times_us(lambda: torch.fft.fft(zz, dim=-1)),
@@ -2552,7 +2571,8 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
               f"us a call (device {t['lib_device']:.1f}), kernel/fft on the "
               f"device {t['device'] / t['lib_device']:.3f}; bound "
               f"{b_us:.2f} us ({bound[1]}), device/bound "
-              f"{t['device'] / b_us:.1f}x; max abs vs plain {max_abs:.4g}")
+              f"{t['device'] / b_us:.1f}x; max abs vs plain {max_abs:.4g}, "
+              f"max rel {rel:.3e} (<= {UNIFORM_RTOL:g})")
     print(f"wall: estimator phase in {time.perf_counter() - t0:.1f} s")
 
     def entry(name, source, replaces, key, times_key):

@@ -66,7 +66,6 @@ class SkSessionStep:
         self.N = N
         self.F, self._chunk = adapt_batch(frames_per_step)
         self.device = torch.device(device)
-        self.backend = backend
         self.path = ("cuda" if self.device.type == "cuda" else "plain") + "_sk"
         self.fields = (("s1", "s2", "s1_clean", "kept")
                        if self._sigma > 0.0 else ("s1", "s2"))

@@ -57,12 +57,12 @@ class MultitaperSessionStep:
     instead of one periodogram, datastore.cxx:66-88). The path is
     "cuda_multitaper" on a CUDA device, "plain_multitaper" on the CPU; N
     must be a power of two from 64 to 16384
-    (``ops.spectral.estimator_route``). ``precision`` is taken for the
-    JAX package's signature: off its TPU band that package runs the
-    strict transform at either precision, and so does this step."""
+    (``ops.spectral.estimator_route``). ``--precision`` does not apply:
+    off its TPU band the JAX package runs the strict transform at either
+    precision, and so does this step."""
 
     def __init__(self, N: int, frames_per_step: int, K: int,
-                 NW: float = 4.0, precision: str = "highest", *, device):
+                 NW: float = 4.0, *, device):
         estimator_route(N, "--multitaper")
         self.N = N
         self.K = K
@@ -87,7 +87,6 @@ def multitaper_psd(iq_u8: np.ndarray, N: int, sample_rate: int,
                    NW: float = 4.0, K: Optional[int] = None,
                    repeats: Optional[int] = None,
                    linear: bool = False,
-                   backend: str = "auto",
                    frames_per_step: int = 256, *,
                    device) -> Tuple[np.ndarray, np.ndarray]:
     """Thomson multitaper PSD over a raw u8 IQ array, on ``device``.
@@ -96,8 +95,7 @@ def multitaper_psd(iq_u8: np.ndarray, N: int, sample_rate: int,
     Normalization matches the framework's other estimators
     (power/N/rate, fftshifted, dB unless ``linear``); taper energy is
     unit so the eigenspectrum average is directly comparable to a
-    boxcar Bartlett PSD of the same data. ``backend`` is taken for the
-    JAX package's signature; the step runs its one kernel.
+    boxcar Bartlett PSD of the same data.
     """
     K = int(2 * NW - 1) if K is None else int(K)
     estimator_route(N, "--multitaper")

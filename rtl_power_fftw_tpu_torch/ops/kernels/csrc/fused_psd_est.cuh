@@ -3,10 +3,10 @@
 // attributes, and est_sum_kernel, the second pass of the spectral-kurtosis
 // and multitaper steps.
 //
-// est_sum_kernel is psd_sum.cuh's row sum over one or two planes of G
-// partial rows, in psd_sum_kernel's order (lane l of kSumLanes sums rows l,
-// l + kSumLanes, ... in float64; the lanes are added in order; the total is
-// rounded once to float32), so a plane sums to the bits psd_sum_kernel
+// est_sum_kernel is psd_sum.cuh's row sum (sum_rows, psd_sum_kernel's own)
+// over one or two planes of G partial rows (lane l of kSumLanes sums rows
+// l, l + kSumLanes, ... in float64; the lanes are added in order; the total
+// is rounded once to float32), so a plane sums to the bits psd_sum_kernel
 // gives it. Its epilogue is the estimator's:
 //
 //   kEstSk      planes s1 and s2 -> out rows 0 and 1;
@@ -78,21 +78,11 @@ est_sum_kernel(const float* __restrict__ partial, int G, int N, int m,
   const int b = threadIdx.x % kSumBins;
   const int lane = threadIdx.x / kSumBins;
   const int bin = blockIdx.x * kSumBins + b;
-  float total[PLANES];
+  float total[PLANES];   // lane 0's
 #pragma unroll
   for (int s = 0; s < PLANES; ++s) {
-    const float* rows = partial + static_cast<size_t>(s) * G * N;
-    double acc = 0.0;
-#pragma unroll 4
-    for (int g = lane; g < G; g += kSumLanes) {
-      acc += static_cast<double>(rows[static_cast<size_t>(g) * N + bin]);
-    }
-    lane_sum[lane][b] = acc;
-    __syncthreads();
-    double t = 0.0;
-    for (int l = 0; l < kSumLanes; ++l) t += lane_sum[l][b];
-    total[s] = static_cast<float>(t);
-    __syncthreads();   // lane_sum is rewritten for the next plane
+    sum_rows(partial + static_cast<size_t>(s) * G * N, G, N, bin, b, lane,
+             lane_sum, [&](double t) { total[s] = static_cast<float>(t); });
   }
   if (lane != 0) return;
   if constexpr (MODE == kEstTapers) {

@@ -16,10 +16,11 @@
 // slot row j, so the zero rows that pad a slot past n_valid feed only the
 // frames that are dropped.
 //
-// The design is K1's (fused_psd.cu, fused_psd_regs.cuh) with another load:
-// the register transform of fft_regs.cuh, lanes of TF threads, |X|^2
-// summed in registers, the lanes added in order into one partial row a
-// block, psd_sum.cuh's float64 row sum. A thread builds its R samples of
+// The design is K1's (fused_psd.cu, fused_psd_regs.cuh) with another load,
+// and after it K1's own device functions: regs_transform (the register
+// transform of fft_regs.cuh, lanes of TF threads), |X|^2 summed in
+// registers, regs_lane_sum (the lanes added in order into one partial row
+// a block), then psd_sum.cuh's float64 row sum. A thread builds its R samples of
 // S_j straight from device memory: for each p, R u16 reads of row j + p of
 // the virtual array (the history for rows < P - 1) and R reads of the
 // (P, N) f32 prototype table h, both through L2 (each raw row serves P
@@ -106,30 +107,7 @@ psd_pfb_kernel(const uint8_t* __restrict__ raw,      // (F, 2N), the slot
       }
     }
     __syncthreads();   // x is free: every lane is past the last pass
-    // Pass 0 from registers: butterfly t, outputs to t + k1 * TF.
-    if (active) {
-      dif_regs<R>(v, 0);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int k1 = rev_bits(r, log2_of(R));
-        float2 y = v[r];
-        if (k1 != 0) {
-          const float2 w = __ldg(twiddle + k1 * TF + t);
-          y = cmul(y, w.x, w.y);
-        }
-        x[pad_index(t + k1 * TF)] = y;
-      }
-    }
-    __syncthreads();
-    if (active) regs_pass<LOG2N, 1>(v, x, twiddle, t);
-    if constexpr (Pl::PASSES > 2) {
-      __syncthreads();
-      if (active) regs_pass<LOG2N, 2>(v, x, twiddle, t);
-    }
-    if constexpr (Pl::PASSES > 3) {
-      __syncthreads();
-      if (active) regs_pass<LOG2N, 3>(v, x, twiddle, t);
-    }
+    regs_transform<LOG2N>(v, x, twiddle, t, active);
     if (active) {
 #pragma unroll
       for (int k = 0; k < R; ++k) {
@@ -141,26 +119,13 @@ psd_pfb_kernel(const uint8_t* __restrict__ raw,      // (F, 2N), the slot
 
   // The lanes' sums by bin, then added lane by lane in order.
   float* by_bin = reinterpret_cast<float*>(pfb_smem);   // (LANES, N)
-  constexpr int LAST = Pl::PASSES - 1;
-  constexpr int RL = pass_radix(LOG2N, LAST);
-  constexpr int SL = Pl::span(LAST) / RL;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    // Slot k is output rev_bits(k % RL) of last-pass butterfly
-    // b = t + (k / RL) * TF.
-    const int b = t + (k / RL) * TF;
-    const int q = (b / SL) * Pl::span(LAST) + (b % SL) +
-                  rev_bits(k % RL, log2_of(RL)) * SL;
-    by_bin[lane * N + pass_bin<LOG2N>(q)] = acc[k];
+    by_bin[lane * N + regs_slot_bin<LOG2N>(t, k)] = acc[k];
   }
   __syncthreads();
-  float* out_row = partial + static_cast<size_t>(blockIdx.x) * N;
-  for (int q = tid; q < N; q += S::THREADS) {
-    float sum = by_bin[q];
-#pragma unroll
-    for (int l = 1; l < S::LANES; ++l) sum += by_bin[l * N + q];
-    out_row[q] = sum;
-  }
+  regs_lane_sum<LOG2N>(by_bin, partial + static_cast<size_t>(blockIdx.x) * N,
+                       tid);
 }
 
 template <int LOG2N>

@@ -32,6 +32,12 @@
 // output slots is summed in f32 registers across the lane's frames; at the
 // end the lanes' sums go to shared memory by bin and are added lane by
 // lane in order, and the block writes its partial row coalesced.
+//
+// The transform after the load (regs_transform), the bin of each output
+// slot (regs_slot_bin) and the lanes' row sum (regs_lane_sum) are device
+// functions of their own: the polyphase filterbank's kernel
+// (fused_psd_pfb.cu), whose load builds each frame from P rows, runs them
+// too.
 
 #pragma once
 
@@ -92,6 +98,72 @@ __device__ __forceinline__ void cp_async_wait() {
 // float bits, less 2^23 + 127.
 __device__ __forceinline__ float dequant_byte(unsigned byte) {
   return __uint_as_float(0x4B000000u | byte) - 8388735.0f;
+}
+
+// The transform of a lane's frame in place, after its load into v (the
+// thread's R samples t + k*TF): pass 0 from registers (butterfly t,
+// outputs to t + k1 * TF of the lane's exchange buffer x), then passes 1
+// .. PASSES - 1 through x, a barrier before each. Every thread of the block
+// calls it; the threads of an inactive lane only meet the barriers. v ends
+// as the thread's R output slots, slot k of bin regs_slot_bin(t, k).
+template <int LOG2N>
+__device__ __forceinline__ void regs_transform(
+    float2 (&v)[RegsPlan<LOG2N>::R], float2* x, const float2* twiddle, int t,
+    bool active) {
+  using P = RegsPlan<LOG2N>;
+  constexpr int R = P::R, TF = P::TF;
+  if (active) {
+    dif_regs<R>(v, 0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k1 = rev_bits(r, log2_of(R));
+      float2 y = v[r];
+      if (k1 != 0) {
+        const float2 w = __ldg(twiddle + k1 * TF + t);
+        y = cmul(y, w.x, w.y);
+      }
+      x[pad_index(t + k1 * TF)] = y;
+    }
+  }
+  __syncthreads();
+  if (active) regs_pass<LOG2N, 1>(v, x, twiddle, t);
+  if constexpr (P::PASSES > 2) {
+    __syncthreads();
+    if (active) regs_pass<LOG2N, 2>(v, x, twiddle, t);
+  }
+  if constexpr (P::PASSES > 3) {
+    __syncthreads();
+    if (active) regs_pass<LOG2N, 3>(v, x, twiddle, t);
+  }
+}
+
+// The bin of thread t's output slot k after regs_transform: output
+// rev_bits(k % RL) of last-pass butterfly b = t + (k / RL) * TF.
+template <int LOG2N>
+__device__ __forceinline__ int regs_slot_bin(int t, int k) {
+  using P = RegsPlan<LOG2N>;
+  constexpr int LAST = P::PASSES - 1;
+  constexpr int RL = pass_radix(LOG2N, LAST);
+  constexpr int SL = P::span(LAST) / RL;
+  const int b = t + (k / RL) * P::TF;
+  const int q = (b / SL) * P::span(LAST) + (b % SL) +
+                rev_bits(k % RL, log2_of(RL)) * SL;
+  return pass_bin<LOG2N>(q);
+}
+
+// row[q] = the sum of the lanes' by-bin sums by_bin[l * N + q], added lane
+// by lane in order; the block's threads take q = tid, tid + THREADS, ....
+template <int LOG2N>
+__device__ __forceinline__ void regs_lane_sum(const float* by_bin,
+                                              float* row, int tid) {
+  using S = RegsShape<LOG2N>;
+  constexpr int N = S::N;
+  for (int q = tid; q < N; q += S::THREADS) {
+    float sum = by_bin[q];
+#pragma unroll
+    for (int l = 1; l < S::LANES; ++l) sum += by_bin[l * N + q];
+    row[q] = sum;
+  }
 }
 
 // Pass 1: block g serves stream s = g / G_s (G_s blocks per stream; one
@@ -188,30 +260,7 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
       }
     }
     if constexpr (FFT) {
-      // Pass 0 from registers: butterfly t, outputs to t + k1 * TF.
-      if (active) {
-        dif_regs<R>(v, 0);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int k1 = rev_bits(r, log2_of(R));
-          float2 y = v[r];
-          if (k1 != 0) {
-            const float2 w = __ldg(twiddle + k1 * TF + t);
-            y = cmul(y, w.x, w.y);
-          }
-          x[pad_index(t + k1 * TF)] = y;
-        }
-      }
-      __syncthreads();
-      if (active) regs_pass<LOG2N, 1>(v, x, twiddle, t);
-      if constexpr (P::PASSES > 2) {
-        __syncthreads();
-        if (active) regs_pass<LOG2N, 2>(v, x, twiddle, t);
-      }
-      if constexpr (P::PASSES > 3) {
-        __syncthreads();
-        if (active) regs_pass<LOG2N, 3>(v, x, twiddle, t);
-      }
+      regs_transform<LOG2N>(v, x, twiddle, t, active);
       if (active) {
 #pragma unroll
         for (int k = 0; k < R; ++k) {
@@ -243,20 +292,10 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   // the |X|^4 sums by bin after them, in the exchange buffers' room).
   float* by_bin = reinterpret_cast<float*>(regs_smem);   // (LANES, N)
   static_assert(2 * S::LANES * N * 4 <= S::RING_OFFSET, "two planes fit");
-  constexpr int LAST = P::PASSES - 1;
-  constexpr int RL = pass_radix(LOG2N, LAST);
-  constexpr int SL = P::span(LAST) / RL;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    int bin = t + k * TF;   // the cuts: sample t + k*TF
-    if constexpr (FFT) {
-      // Slot k is output rev_bits(k % RL) of last-pass butterfly
-      // b = t + (k / RL) * TF.
-      const int b = t + (k / RL) * TF;
-      const int q = (b / SL) * P::span(LAST) + (b % SL) +
-                    rev_bits(k % RL, log2_of(RL)) * SL;
-      bin = pass_bin<LOG2N>(q);
-    }
+    // The transform's slot k, or (the cuts without one) sample t + k*TF.
+    const int bin = FFT ? regs_slot_bin<LOG2N>(t, k) : t + k * TF;
     by_bin[lane * N + bin] = acc[k];
     if constexpr (CUT == kRegsSk) {
       by_bin[(S::LANES + lane) * N + bin] = acc2[k];
@@ -267,20 +306,11 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   if constexpr (CUT == kRegsTapers) {
     row += static_cast<size_t>(blockIdx.y) * gridDim.x * N;
   }
-  for (int q = tid; q < N; q += S::THREADS) {
-    float sum = by_bin[q];
-#pragma unroll
-    for (int l = 1; l < S::LANES; ++l) sum += by_bin[l * N + q];
-    row[q] = sum;
-  }
+  regs_lane_sum<LOG2N>(by_bin, row, tid);
   if constexpr (CUT == kRegsSk) {
-    float* row2 = partial + (static_cast<size_t>(gridDim.x) + blockIdx.x) * N;
-    for (int q = tid; q < N; q += S::THREADS) {
-      float sum = by_bin[S::LANES * N + q];
-#pragma unroll
-      for (int l = 1; l < S::LANES; ++l) sum += by_bin[(S::LANES + l) * N + q];
-      row2[q] = sum;
-    }
+    regs_lane_sum<LOG2N>(
+        by_bin + S::LANES * N,
+        partial + (static_cast<size_t>(gridDim.x) + blockIdx.x) * N, tid);
   }
 }
 

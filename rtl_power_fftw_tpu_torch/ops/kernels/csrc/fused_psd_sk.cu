@@ -20,11 +20,15 @@
 // output bit for bit on the same frames, n_valid and chunk: the same
 // frames a block, the same f32 sums in the same order, the same row sum.
 //
-// What it costs over K1: 16 more registers a thread (the |X|^4 sums), one
-// FMA a bin and frame, and a second plane of partial rows to write and
-// read. At N = 16384 K1's 1024-thread block is held to 64 registers by its
-// launch bound, so the second sums may spill there (ptxas's report is
-// printed by chip_smoke.py).
+// What it costs over K1: R more f32 registers a thread held across the
+// frames (the |X|^4 sums), one FMA a bin and frame, and a second plane of
+// partial rows to write and read. The build's attributes, as chip_smoke.py
+// prints them (nvcc 12.9, NVIDIA H100 80GB HBM3, 700.00 W): at N = 2048,
+// 172 registers unwindowed and 170 windowed, 1 block/SM, where K1 has 80
+// registers and 3 blocks/SM and K2 128 and 2; at N = 256, 80 and 102
+// registers; at N = 16384, where the 1024-thread block holds a thread to
+// 64 registers, a 264 and a 336 B stack frame of spills (K1's 200, K2's
+// 264). Occupancy does not change the grid: the wrapper takes K1's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -15,6 +15,30 @@ constexpr int kSumBins = 32;   // bins per block, one warp wide
 constexpr int kSumLanes = 8;   // rows summed in parallel per bin
 constexpr int kMaxGridY = 65535;
 
+// The row sum of one plane `rows` ((G, N) f32) at bin blockIdx.x *
+// kSumBins + b, in float64 in the fixed order, through the block's shared
+// `lane_sum`: lane 0 passes the total to epilogue(total). Every thread of
+// the block calls it (it meets two barriers). est_sum_kernel
+// (fused_psd_est.cuh) runs it too.
+template <typename Epilogue>
+__device__ __forceinline__ void sum_rows(
+    const float* rows, int G, int N, int bin, int b, int lane,
+    double (&lane_sum)[kSumLanes][kSumBins], Epilogue epilogue) {
+  double acc = 0.0;
+#pragma unroll 4
+  for (int g = lane; g < G; g += kSumLanes) {
+    acc += static_cast<double>(rows[static_cast<size_t>(g) * N + bin]);
+  }
+  lane_sum[lane][b] = acc;
+  __syncthreads();
+  if (lane == 0) {
+    double t = 0.0;
+    for (int l = 0; l < kSumLanes; ++l) t += lane_sum[l][b];
+    epilogue(t);
+  }
+  __syncthreads();   // lane_sum is rewritten by the next call
+}
+
 __global__ void __launch_bounds__(kSumBins * kSumLanes)
 psd_sum_kernel(const float* __restrict__ partial, int S, int G, int N,
                float* __restrict__ out) {
@@ -23,20 +47,10 @@ psd_sum_kernel(const float* __restrict__ partial, int S, int G, int N,
   const int lane = threadIdx.x / kSumBins;
   const int bin = blockIdx.x * kSumBins + b;
   for (int s = blockIdx.y; s < S; s += gridDim.y) {
-    const float* rows = partial + static_cast<size_t>(s) * G * N;
-    double acc = 0.0;
-#pragma unroll 4
-    for (int g = lane; g < G; g += kSumLanes) {
-      acc += static_cast<double>(rows[static_cast<size_t>(g) * N + bin]);
-    }
-    lane_sum[lane][b] = acc;
-    __syncthreads();
-    if (lane == 0) {
-      double t = 0.0;
-      for (int l = 0; l < kSumLanes; ++l) t += lane_sum[l][b];
-      out[static_cast<size_t>(s) * N + bin] = static_cast<float>(t);
-    }
-    __syncthreads();   // lane_sum is rewritten for the next stream
+    sum_rows(partial + static_cast<size_t>(s) * G * N, G, N, bin, b, lane,
+             lane_sum, [&](double t) {
+               out[static_cast<size_t>(s) * N + bin] = static_cast<float>(t);
+             });
   }
 }
 

@@ -207,7 +207,6 @@ def make_step(params: Params, frames_per_step: int, device,
         return MultitaperSessionStep(params.N, frames_per_step,
                                      K=params.multitaper,
                                      NW=params.time_bandwidth,
-                                     precision=params.precision,
                                      device=device)
     if params.sk_file or params.sk_excise > 0.0:
         from ..models.kurtosis import SkSessionStep
