@@ -112,10 +112,11 @@ SIGNATURES = {
     },
     "fused_psd_sk": {
         # raw, twiddle, window, partial, out, device, log2n, F, group,
-        # n_valid, two_sigma, stream
-        "rpf_fused_psd_sk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        # log2n, windowed, device, attrs (int[6])
-        "rpf_fused_psd_sk_attributes": [_I, _I, _I, _P],
+        # n_valid, two_sigma, plane, stream
+        "rpf_fused_psd_sk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                             _P],
+        # log2n, windowed, plane, device, attrs (int[6])
+        "rpf_fused_psd_sk_attributes": [_I, _I, _I, _I, _P],
     },
     "fused_psd_tapers": {
         # raw, twiddle, tapers, partial, out, device, log2n, F, group, K,
@@ -127,11 +128,11 @@ SIGNATURES = {
     },
     "fused_psd_pfb": {
         # raw, history, twiddle, h, partial, out, history_out, device,
-        # log2n, F, group, n_valid, P, fresh, stream
+        # log2n, F, group, n_valid, P, fresh, ring, stage_h, stream
         "rpf_fused_psd_pfb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _P],
-        # log2n, device, attrs (int[6])
-        "rpf_fused_psd_pfb_attributes": [_I, _I, _P],
+                              _I, _I, _I, _I, _P],
+        # log2n, P, ring, stage_h, device, attrs (int[6])
+        "rpf_fused_psd_pfb_attributes": [_I, _I, _I, _I, _I, _P],
     },
     "fused_psd_probe": {
         # variant, raw, w1r, w1i, twiddle, w2, offsets, partial, out,

@@ -20,12 +20,30 @@
 // and after it K1's own device functions: regs_transform (the register
 // transform of fft_regs.cuh, lanes of TF threads), |X|^2 summed in
 // registers, regs_lane_sum (the lanes added in order into one partial row
-// a block), then psd_sum.cuh's float64 row sum. A thread builds its R samples of
-// S_j straight from device memory: for each p, R u16 reads of row j + p of
-// the virtual array (the history for rows < P - 1) and R reads of the
-// (P, N) f32 prototype table h, both through L2 (each raw row serves P
-// output frames; h serves every block). There is no cp.async ring: a frame
-// needs P rows, not one.
+// a block), then psd_sum.cuh's float64 row sum. Two kernels share it and
+// differ in the load only; on the same grid their outputs are the same
+// bits.
+//
+// psd_pfb_ring_kernel (the route wherever its ring fits a block, rule
+// fused_psd_pfb.ring_shape): block g reads virtual rows f0 .. f1 + P - 2
+// (its frames' rows) once each, by cp.async, 16 B a thread, into a ring of
+// 2 LANES + P - 1 row slots in shared memory: the LANES + P - 1 rows the
+// lanes' current frames read and the next LANES rows in flight, each slot
+// 2N + 32 bytes so that the rows of one warp's lanes (N <= 256) fall on
+// other banks. With STAGE_H the (P, N) prototype h is copied beside the
+// ring once a block too (where it fits and still leaves 2 blocks an SM),
+// else read through L2. What bounds the PFB on the card is then the
+// transform, as for K1: the rows through L2 fall from P a frame to one
+// (and P - 1 a block), h from once a frame to once a block. cp.async over
+// a bulk (TMA) copy: a row is only 1..2 16-byte copies a thread an
+// iteration, the barrier that frees the exchange buffer also publishes
+// the copied rows, and no mbarrier phase per slot is needed.
+//
+// psd_pfb_kernel (PR 15's kernel, the control, and the route where the
+// ring does not fit: 16384 bins at P >= 2): a thread builds its R samples
+// of S_j straight from device memory, for each p R u16 reads of row j + p
+// of the virtual array (the history for rows < P - 1) and R reads of h,
+// both through L2 (each raw row is fetched P times; h once a frame).
 //
 // After the sum, two stream-ordered copies write the history the next
 // step reads into `history_out`: rows n_valid .. n_valid + P - 2 of the
@@ -48,6 +66,7 @@ namespace {
 constexpr int kMinLog2N = 6;
 constexpr int kMaxLog2N = 14;
 constexpr int kMaxTaps = 32;
+constexpr int kMaxSmem = 232448;   // the 227 KB a Hopper block may use
 
 // A lane's exchange buffer, and the lanes' sums by bin at the end.
 template <int LOG2N>
@@ -128,6 +147,133 @@ psd_pfb_kernel(const uint8_t* __restrict__ raw,      // (F, 2N), the slot
                        tid);
 }
 
+// A ring slot: a raw row of 2N bytes and 32 more (the banks of the next
+// lane's row, N <= 256).
+template <int LOG2N>
+constexpr int ring_row_bytes() {
+  return 2 * (1 << LOG2N) + 32;
+}
+
+// The ring kernel's shared memory at P taps: the exchange buffers, 2 LANES
+// + P - 1 row slots, and with STAGE_H the (P, N) prototype.
+template <int LOG2N>
+int ring_smem_bytes(int P, bool stage_h) {
+  return pfb_smem_bytes<LOG2N>() +
+         (2 * RegsShape<LOG2N>::LANES + P - 1) * ring_row_bytes<LOG2N>() +
+         (stage_h ? 4 * P * (1 << LOG2N) : 0);
+}
+
+// The same sums as psd_pfb_kernel, group g and lane p alike, from block
+// g's virtual rows staged once each in a shared-memory ring. Local row q
+// (virtual row f0 + q) lies in slot q mod (2 LANES + P - 1); iteration i's
+// frames read rows LANES i .. LANES i + LANES + P - 2, and it copies rows
+// LANES (i + 1) + P - 1 .. LANES (i + 2) + P - 2 (the next iteration's
+// new ones) into the slots of rows LANES (i - 1) .. LANES i - 1, which
+// iteration i - 1 read before the first barrier of its transform.
+template <int LOG2N, bool STAGE_H>
+__global__ void __launch_bounds__(RegsShape<LOG2N>::THREADS)
+psd_pfb_ring_kernel(const uint8_t* __restrict__ raw,      // (F, 2N), the slot
+                    const uint8_t* __restrict__ history,  // (P - 1, 2N)
+                    const float2* __restrict__ twiddle,   // pass_twiddles(N)
+                    const float* __restrict__ h,          // (P, N)
+                    float* __restrict__ partial,          // (G, N)
+                    int F, int group, int n_valid, int P) {
+  using Pl = RegsPlan<LOG2N>;
+  using S = RegsShape<LOG2N>;
+  constexpr int N = Pl::N, R = Pl::R, TF = Pl::TF;
+  constexpr int ROW = ring_row_bytes<LOG2N>();
+  constexpr int PIECES = N / 8;   // 16-byte copies of a row
+  static_assert(Pl::PASSES >= 2, "a ring slot is rewritten only after the "
+                "barrier that ends the first pass");
+  extern __shared__ float4 pfb_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid / TF;
+  const int t = tid % TF;
+  float2* x = reinterpret_cast<float2*>(pfb_smem) + lane * S::XSTRIDE;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(pfb_smem) +
+                  pfb_smem_bytes<LOG2N>();
+  const int slots = 2 * S::LANES + P - 1;
+  float* h_smem = reinterpret_cast<float*>(ring + slots * ROW);
+
+  float acc[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) acc[k] = 0.0f;
+
+  const int f0 = blockIdx.x * group;
+  const int f1 = min(f0 + group, min(F, n_valid));
+  const int frames = max(f1 - f0, 0);
+  const int iters = (frames + S::LANES - 1) / S::LANES;
+  const int rows = frames > 0 ? frames + P - 1 : 0;   // local rows read
+
+  // Local rows [lo, min(hi, rows)) into their slots, 16 B a thread.
+  auto stage = [&](int lo, int hi) {
+    const int pieces = (min(hi, rows) - lo) * PIECES;
+    for (int c = tid; c < pieces; c += S::THREADS) {
+      const int q = lo + c / PIECES;
+      const int r = f0 + q;   // its virtual row: history rows, then slot's
+      const int off = 16 * (c % PIECES);
+      const uint8_t* src =
+          r < P - 1 ? history + static_cast<size_t>(r) * 2 * N
+                    : raw + static_cast<size_t>(r - (P - 1)) * 2 * N;
+      cp_async16(ring + (q % slots) * ROW + off, src + off);
+    }
+  };
+
+  if constexpr (STAGE_H) {
+    for (int c = tid; c < P * N / 4; c += S::THREADS) {
+      cp_async16(h_smem + 4 * c, h + 4 * c);
+    }
+  }
+  stage(0, S::LANES + P - 1);
+  cp_async_commit();
+  const float* hp0 = STAGE_H ? h_smem : h;
+  for (int i = 0; i < iters; ++i) {
+    stage(S::LANES * (i + 1) + P - 1, S::LANES * (i + 2) + P - 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // this thread's copies of rows up to iteration i's
+    __syncthreads();      // everyone's; x is free (last pass of frame i-1)
+    const bool active = f0 + lane + S::LANES * i < f1;
+    float2 v[R];
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = make_float2(0.0f, 0.0f);
+      int slot = (S::LANES * i + lane) % slots;   // tap 0's row
+      for (int p = 0; p < P; ++p) {
+        const uint16_t* row =
+            reinterpret_cast<const uint16_t*>(ring + slot * ROW);
+        const float* hp = hp0 + p * N;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const unsigned u = row[t + k * TF];
+          const float hv = STAGE_H ? hp[t + k * TF] : __ldg(hp + t + k * TF);
+          v[k].x = __fadd_rn(v[k].x, __fmul_rn(dequant_byte(u & 0xFFu), hv));
+          v[k].y = __fadd_rn(v[k].y, __fmul_rn(dequant_byte(u >> 8), hv));
+        }
+        if (++slot == slots) slot = 0;
+      }
+    }
+    regs_transform<LOG2N>(v, x, twiddle, t, active);
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        acc[k] += v[k].x * v[k].x + v[k].y * v[k].y;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every lane is done with its exchange buffer
+
+  // The lanes' sums by bin, then added lane by lane in order.
+  float* by_bin = reinterpret_cast<float*>(pfb_smem);   // (LANES, N)
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    by_bin[lane * N + regs_slot_bin<LOG2N>(t, k)] = acc[k];
+  }
+  __syncthreads();
+  regs_lane_sum<LOG2N>(by_bin, partial + static_cast<size_t>(blockIdx.x) * N,
+                       tid);
+}
+
 template <int LOG2N>
 cudaError_t prepare(int device) {
   static std::atomic<unsigned long long> done{0};
@@ -135,27 +281,69 @@ cudaError_t prepare(int device) {
                      done);
 }
 
+// The ring kernel opts in to the most a block may use once; a launch asks
+// for its own (P, STAGE_H) share of it.
+template <int LOG2N, bool STAGE_H>
+cudaError_t prepare_ring(int device) {
+  static std::atomic<unsigned long long> done{0};
+  return opt_in_smem(psd_pfb_ring_kernel<LOG2N, STAGE_H>, kMaxSmem, device,
+                     done);
+}
+
 template <int LOG2N>
 cudaError_t launch_groups(const void* raw, const void* history,
                           const void* twiddle, const void* h, void* partial,
                           int F, int group, int blocks, int n_valid, int P,
-                          int device, cudaStream_t stream) {
-  const cudaError_t e = prepare<LOG2N>(device);
+                          int ring, int stage_h, int device,
+                          cudaStream_t stream) {
+  constexpr int threads = RegsShape<LOG2N>::THREADS;
+  const auto* r = static_cast<const uint8_t*>(raw);
+  const auto* hist = static_cast<const uint8_t*>(history);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  const auto* hp = static_cast<const float*>(h);
+  auto* part = static_cast<float*>(partial);
+  if (!ring) {
+    const cudaError_t e = prepare<LOG2N>(device);
+    if (e != cudaSuccess) return e;
+    psd_pfb_kernel<LOG2N><<<blocks, threads, pfb_smem_bytes<LOG2N>(),
+                            stream>>>(r, hist, tw, hp, part, F, group,
+                                      n_valid, P);
+    return cudaGetLastError();
+  }
+  const int smem = ring_smem_bytes<LOG2N>(P, stage_h != 0);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t e = stage_h ? prepare_ring<LOG2N, true>(device)
+                                : prepare_ring<LOG2N, false>(device);
   if (e != cudaSuccess) return e;
-  psd_pfb_kernel<LOG2N><<<blocks, RegsShape<LOG2N>::THREADS,
-                          pfb_smem_bytes<LOG2N>(), stream>>>(
-      static_cast<const uint8_t*>(raw), static_cast<const uint8_t*>(history),
-      static_cast<const float2*>(twiddle), static_cast<const float*>(h),
-      static_cast<float*>(partial), F, group, n_valid, P);
+  if (stage_h) {
+    psd_pfb_ring_kernel<LOG2N, true><<<blocks, threads, smem, stream>>>(
+        r, hist, tw, hp, part, F, group, n_valid, P);
+  } else {
+    psd_pfb_ring_kernel<LOG2N, false><<<blocks, threads, smem, stream>>>(
+        r, hist, tw, hp, part, F, group, n_valid, P);
+  }
   return cudaGetLastError();
 }
 
 template <int LOG2N>
-cudaError_t attributes(int device, int* attrs) {
-  const cudaError_t e = prepare<LOG2N>(device);
+cudaError_t attributes(int P, int ring, int stage_h, int device,
+                       int* attrs) {
+  constexpr int threads = RegsShape<LOG2N>::THREADS;
+  if (!ring) {
+    const cudaError_t e = prepare<LOG2N>(device);
+    if (e != cudaSuccess) return e;
+    return kernel_attributes(psd_pfb_kernel<LOG2N>, threads,
+                             pfb_smem_bytes<LOG2N>(), attrs);
+  }
+  const int smem = ring_smem_bytes<LOG2N>(P, stage_h != 0);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t e = stage_h ? prepare_ring<LOG2N, true>(device)
+                                : prepare_ring<LOG2N, false>(device);
   if (e != cudaSuccess) return e;
-  return kernel_attributes(psd_pfb_kernel<LOG2N>, RegsShape<LOG2N>::THREADS,
-                           pfb_smem_bytes<LOG2N>(), attrs);
+  return stage_h ? kernel_attributes(psd_pfb_ring_kernel<LOG2N, true>,
+                                     threads, smem, attrs)
+                 : kernel_attributes(psd_pfb_ring_kernel<LOG2N, false>,
+                                     threads, smem, attrs);
 }
 
 }  // namespace
@@ -165,14 +353,16 @@ extern "C" {
 // Launches the step on `stream`. raw: (F, 2N) u8; history, history_out:
 // (P - 1, 2N) u8, distinct (null when P = 1); twiddle: pass_twiddles(N),
 // (rows, 2) f32; h: (P, N) f32, 1 <= P <= 32; partial: (ceil(F / group), N)
-// f32 scratch; out: (N,) f32; fresh: set the history to byte 127 first.
-// Every pointer 4-byte aligned. Returns a cudaError_t (0 on success); does
-// not synchronise.
+// f32 scratch; out: (N,) f32; fresh: set the history to byte 127 first;
+// ring: psd_pfb_ring_kernel (raw, history and, with stage_h, h 16-byte
+// aligned; cudaErrorInvalidValue where its shared memory exceeds a
+// block's), else psd_pfb_kernel (every pointer 4-byte aligned). Returns a
+// cudaError_t (0 on success); does not synchronise.
 int rpf_fused_psd_pfb(const void* raw, const void* history,
                       const void* twiddle, const void* h, void* partial,
                       void* out, void* history_out, int device, int log2n,
                       int F, int group, int n_valid, int P, int fresh,
-                      void* stream) {
+                      int ring, int stage_h, void* stream) {
   if (log2n < kMinLog2N || log2n > kMaxLog2N || F <= 0 || group <= 0 ||
       n_valid < 0 || n_valid > F || P < 1 || P > kMaxTaps ||
       (P > 1 && (history == nullptr || history_out == nullptr ||
@@ -193,7 +383,7 @@ int rpf_fused_psd_pfb(const void* raw, const void* history,
 #define RPF_CASE(L)                                                         \
   case L:                                                                   \
     e = launch_groups<L>(raw, history, twiddle, h, partial, F, group,       \
-                         blocks, n_valid, P, device, st);                   \
+                         blocks, n_valid, P, ring, stage_h, device, st);    \
     break;
   switch (log2n) {
     RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
@@ -225,17 +415,20 @@ int rpf_fused_psd_pfb(const void* raw, const void* history,
   return static_cast<int>(e);
 }
 
-// What the kernel gets at N = 2^log2n on `device`: attrs[0..5] as
-// fused_psd.cu's rpf_fused_psd_attributes. Launches nothing.
-int rpf_fused_psd_pfb_attributes(int log2n, int device, int* attrs) {
-  if (log2n < kMinLog2N || log2n > kMaxLog2N || attrs == nullptr) {
+// What the kernel (ring: the ring kernel at P taps, with stage_h h
+// staged; else the control) gets at N = 2^log2n on `device`: attrs[0..5]
+// as fused_psd.cu's rpf_fused_psd_attributes. Launches nothing.
+int rpf_fused_psd_pfb_attributes(int log2n, int P, int ring, int stage_h,
+                                 int device, int* attrs) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || P < 1 || P > kMaxTaps ||
+      attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
 #define RPF_CASE(L)                                                          \
   case L:                                                                    \
-    e = attributes<L>(device, attrs);                                        \
+    e = attributes<L>(P, ring, stage_h, device, attrs);                      \
     break;
   switch (log2n) {
     RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)

@@ -4,7 +4,7 @@
 // psd_regs_kernel<LOG2N, WINDOWED, CUT> is their first pass; fused_psd.cu
 // instantiates the default CUT = kRegsFull. Two cuts are its
 // stage-attribution probes (fused_psd_probe.cu), as fused_psd.cuh's are
-// for the radix-2 kernel it replaced, and two are the estimators' first
+// for the radix-2 kernel it replaced, and three are the estimators' first
 // passes (fused_psd_sk.cu, fused_psd_tapers.cu):
 //
 //   kRegsFull     the whole step;
@@ -16,6 +16,12 @@
 //                 sum of |X|^4: block g writes its |X|^2 row to partial row
 //                 g, bit for bit kRegsFull's, and its |X|^4 row to row
 //                 gridDim.x + g (two planes of gridDim.x rows);
+//   kRegsSkPlane  kRegsSk with the |X|^4 sums out of registers: a thread's
+//                 R sums live in its own slots of a shared-memory plane of
+//                 LANES x N f32 after the ring (lane * N + k * TF + t,
+//                 conflict-free), each updated in place per frame with
+//                 kRegsSk's expression, so both planes of partial rows are
+//                 kRegsSk's bit for bit (PLANE_BYTES more shared memory);
 //   kRegsTapers   the whole step windowed (WINDOWED) by row blockIdx.y of
 //                 a (gridDim.y, N) table of tapers: block (g, k) writes
 //                 partial row k * gridDim.x + g.
@@ -55,7 +61,8 @@ enum : int {
   kRegsDequant = 1,
   kRegsNoFft = 2,
   kRegsSk = 3,
-  kRegsTapers = 4
+  kRegsTapers = 4,
+  kRegsSkPlane = 5
 };
 
 template <int LOG2N>
@@ -74,6 +81,8 @@ struct RegsShape {
   static constexpr int SMEM_BYTES = RING_OFFSET + LANES * RING_BYTES;
   // 16-byte copies a thread makes of each frame: 2N / 16 / TF.
   static constexpr int COPIES = Plan::R / 8;
+  // kRegsSkPlane's |X|^4 sums, after the ring.
+  static constexpr int PLANE_BYTES = LANES * N * 4;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem_dst,
@@ -188,7 +197,9 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   static_assert(CUT != kRegsTapers || WINDOWED, "a taper is a window");
   // The cuts that run the transform.
   constexpr bool FFT = CUT == kRegsFull || CUT == kRegsSk ||
-                       CUT == kRegsTapers;
+                       CUT == kRegsTapers || CUT == kRegsSkPlane;
+  // The cuts that also sum |X|^4.
+  constexpr bool SK = CUT == kRegsSk || CUT == kRegsSkPlane;
   extern __shared__ float4 regs_smem[];
   const int tid = threadIdx.x;
   const int lane = tid / TF;
@@ -212,6 +223,13 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   if constexpr (CUT == kRegsSk) {
 #pragma unroll
     for (int k = 0; k < R; ++k) acc2[k] = 0.0f;
+  }
+  // kRegsSkPlane: the thread's sums of |X|^4, slot k at plane[k * TF].
+  float* plane = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(regs_smem) + S::SMEM_BYTES) + lane * N + t;
+  if constexpr (CUT == kRegsSkPlane) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) plane[k * TF] = 0.0f;
   }
 
   const int stream = blockIdx.x / blocks_per_stream;
@@ -273,6 +291,13 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
             acc2[k] += p * p;
           }
         }
+        if constexpr (CUT == kRegsSkPlane) {
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            const float p = v[k].x * v[k].x + v[k].y * v[k].y;
+            plane[k * TF] += p * p;
+          }
+        }
       }
     } else {
       if (active) {
@@ -288,8 +313,9 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   cp_async_wait<0>();
   __syncthreads();   // every lane is done with its exchange buffer
 
-  // The lanes' sums by bin, then added lane by lane in order (kRegsSk:
-  // the |X|^4 sums by bin after them, in the exchange buffers' room).
+  // The lanes' sums by bin, then added lane by lane in order (kRegsSk,
+  // kRegsSkPlane: the |X|^4 sums by bin after them, in the exchange
+  // buffers' room).
   float* by_bin = reinterpret_cast<float*>(regs_smem);   // (LANES, N)
   static_assert(2 * S::LANES * N * 4 <= S::RING_OFFSET, "two planes fit");
 #pragma unroll
@@ -300,6 +326,9 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
     if constexpr (CUT == kRegsSk) {
       by_bin[(S::LANES + lane) * N + bin] = acc2[k];
     }
+    if constexpr (CUT == kRegsSkPlane) {
+      by_bin[(S::LANES + lane) * N + bin] = plane[k * TF];
+    }
   }
   __syncthreads();
   float* row = partial + static_cast<size_t>(blockIdx.x) * N;
@@ -307,7 +336,7 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
     row += static_cast<size_t>(blockIdx.y) * gridDim.x * N;
   }
   regs_lane_sum<LOG2N>(by_bin, row, tid);
-  if constexpr (CUT == kRegsSk) {
+  if constexpr (SK) {
     regs_lane_sum<LOG2N>(
         by_bin + S::LANES * N,
         partial + (static_cast<size_t>(gridDim.x) + blockIdx.x) * N, tid);

@@ -11,24 +11,27 @@
 // s1 * keep and n_valid * keep.
 //
 // The design is K1/K2's (fused_psd.cu): the first pass is their group
-// kernel, psd_regs_kernel<LOG2N, WINDOWED, kRegsSk> of
-// fused_psd_regs.cuh, which keeps a second f32 register sum, of p * p,
-// beside each sum of p = |X|^2 and writes it to a second plane of partial
-// rows; the second pass is est_sum_kernel, psd_sum.cuh's float64 row sum
-// over both planes. The wrapper (fused_psd_sk.py) gives it K1's grid
-// (fused_psd.k1_group from K1's own occupancy), so its s1 is K1's (K2's)
-// output bit for bit on the same frames, n_valid and chunk: the same
-// frames a block, the same f32 sums in the same order, the same row sum.
+// kernel, psd_regs_kernel<LOG2N, WINDOWED, CUT> of fused_psd_regs.cuh,
+// which sums p = |X|^2 exactly as K1 does and beside it p * p, and writes
+// the second sums to a second plane of partial rows; the second pass is
+// est_sum_kernel, psd_sum.cuh's float64 row sum over both planes. The
+// wrapper (fused_psd_sk.py) gives it K1's grid (fused_psd.k1_group from
+// K1's own occupancy), so its s1 is K1's (K2's) output bit for bit on the
+// same frames, n_valid and chunk: the same frames a block, the same f32
+// sums in the same order, the same row sum.
 //
-// What it costs over K1: R more f32 registers a thread held across the
-// frames (the |X|^4 sums), one FMA a bin and frame, and a second plane of
-// partial rows to write and read. The build's attributes, as chip_smoke.py
-// prints them (nvcc 12.9, NVIDIA H100 80GB HBM3, 700.00 W): at N = 2048,
-// 172 registers unwindowed and 170 windowed, 1 block/SM, where K1 has 80
-// registers and 3 blocks/SM and K2 128 and 2; at N = 256, 80 and 102
-// registers; at N = 16384, where the 1024-thread block holds a thread to
-// 64 registers, a 264 and a 336 B stack frame of spills (K1's 200, K2's
-// 264). Occupancy does not change the grid: the wrapper takes K1's.
+// Two cuts of the template. kRegsSkPlane (the route up to 8192 bins) keeps
+// the |X|^4 sums in a shared-memory plane of LANES x N f32, each thread's
+// own slots updated in place, so a thread holds K1's registers and the
+// block runs at K1's (K2's) occupancy, which K1's grid was sized for; the
+// plane costs one shared load and store a bin and frame, conflict-free.
+// kRegsSk (PR 15's kernel, the control, and the route at 16384 bins,
+// where the 64 KB plane does not fit beside the exchange buffer and the
+// ring) keeps them in R more f32 registers: 168-172 registers at 512-4096
+// bins and 1 block an SM (nvcc 12.9, NVIDIA H100 80GB HBM3, 700.00 W),
+// where K1 has 80 and 3 and K2 128 and 2, so K1's grid runs in several
+// waves; at 16384, where the 1024-thread block holds a thread to 64
+// registers, 488-556 B of spill. Both give the same s2 bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,39 +45,54 @@ namespace {
 
 constexpr int kMinLog2N = 6;
 constexpr int kMaxLog2N = 14;
+constexpr int kMaxSmem = 232448;   // the 227 KB a Hopper block may use
 
-template <int LOG2N, bool WINDOWED>
-cudaError_t prepare(int device, int* smem) {
-  static std::atomic<unsigned long long> done{0};
-  *smem = RegsShape<LOG2N>::SMEM_BYTES;
-  return opt_in_smem(psd_regs_kernel<LOG2N, WINDOWED, kRegsSk>, *smem,
-                     device, done);
+// The first pass's shared memory: K1's, and kRegsSkPlane's plane.
+template <int LOG2N, int CUT>
+constexpr int sk_smem_bytes() {
+  return RegsShape<LOG2N>::SMEM_BYTES +
+         (CUT == kRegsSkPlane ? RegsShape<LOG2N>::PLANE_BYTES : 0);
 }
 
-template <int LOG2N, bool WINDOWED>
+template <int LOG2N, bool WINDOWED, int CUT>
+cudaError_t prepare(int device) {
+  static std::atomic<unsigned long long> done{0};
+  return opt_in_smem(psd_regs_kernel<LOG2N, WINDOWED, CUT>,
+                     sk_smem_bytes<LOG2N, CUT>(), device, done);
+}
+
+template <int LOG2N, bool WINDOWED, int CUT>
 cudaError_t launch_groups(const void* raw, const void* twiddle,
                           const void* window, void* partial, int F,
                           int group, int blocks, int n_valid, int device,
                           cudaStream_t stream) {
-  int smem = 0;
-  const cudaError_t e = prepare<LOG2N, WINDOWED>(device, &smem);
-  if (e != cudaSuccess) return e;
-  psd_regs_kernel<LOG2N, WINDOWED, kRegsSk>
-      <<<blocks, RegsShape<LOG2N>::THREADS, smem, stream>>>(
-          static_cast<const uint8_t*>(raw),
-          static_cast<const float2*>(twiddle),
-          static_cast<const float*>(window), static_cast<float*>(partial), F,
-          group, blocks, n_valid, nullptr);
-  return cudaGetLastError();
+  if constexpr (sk_smem_bytes<LOG2N, CUT>() > kMaxSmem) {
+    return cudaErrorInvalidValue;   // the plane does not fit at this N
+  } else {
+    const cudaError_t e = prepare<LOG2N, WINDOWED, CUT>(device);
+    if (e != cudaSuccess) return e;
+    psd_regs_kernel<LOG2N, WINDOWED, CUT>
+        <<<blocks, RegsShape<LOG2N>::THREADS, sk_smem_bytes<LOG2N, CUT>(),
+           stream>>>(static_cast<const uint8_t*>(raw),
+                     static_cast<const float2*>(twiddle),
+                     static_cast<const float*>(window),
+                     static_cast<float*>(partial), F, group, blocks, n_valid,
+                     nullptr);
+    return cudaGetLastError();
+  }
 }
 
-template <int LOG2N, bool WINDOWED>
+template <int LOG2N, bool WINDOWED, int CUT>
 cudaError_t attributes(int device, int* attrs) {
-  int smem = 0;
-  const cudaError_t e = prepare<LOG2N, WINDOWED>(device, &smem);
-  if (e != cudaSuccess) return e;
-  return kernel_attributes(psd_regs_kernel<LOG2N, WINDOWED, kRegsSk>,
-                           RegsShape<LOG2N>::THREADS, smem, attrs);
+  if constexpr (sk_smem_bytes<LOG2N, CUT>() > kMaxSmem) {
+    return cudaErrorInvalidValue;
+  } else {
+    const cudaError_t e = prepare<LOG2N, WINDOWED, CUT>(device);
+    if (e != cudaSuccess) return e;
+    return kernel_attributes(psd_regs_kernel<LOG2N, WINDOWED, CUT>,
+                             RegsShape<LOG2N>::THREADS,
+                             sk_smem_bytes<LOG2N, CUT>(), attrs);
+  }
 }
 
 }  // namespace
@@ -84,11 +102,13 @@ extern "C" {
 // Launches both passes on `stream`. raw: (F, 2N) u8, 16-byte aligned;
 // twiddle: pass_twiddles(N), (rows, 2) f32; window: (N,) f32, or null;
 // partial: (2 * ceil(F / group), N) f32 scratch; out: (2, N) f32 (s1, s2),
-// or with two_sigma > 0 (4, N) (s1, s2, s1 * keep, n_valid * keep).
-// Returns a cudaError_t (0 on success); does not synchronise.
+// or with two_sigma > 0 (4, N) (s1, s2, s1 * keep, n_valid * keep); plane:
+// the first pass is kRegsSkPlane (N <= 8192), else kRegsSk. Returns a
+// cudaError_t (0 on success); does not synchronise.
 int rpf_fused_psd_sk(const void* raw, const void* twiddle, const void* window,
                      void* partial, void* out, int device, int log2n, int F,
-                     int group, int n_valid, float two_sigma, void* stream) {
+                     int group, int n_valid, float two_sigma, int plane,
+                     void* stream) {
   if (log2n < kMinLog2N || log2n > kMaxLog2N || F <= 0 || group <= 0 ||
       n_valid < 0 || n_valid > F || !(two_sigma >= 0.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -97,13 +117,18 @@ int rpf_fused_psd_sk(const void* raw, const void* twiddle, const void* window,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (F + group - 1) / group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RPF_LAUNCH(L, W, CUT)                                               \
+  launch_groups<L, W, CUT>(raw, twiddle, window, partial, F, group, blocks, \
+                           n_valid, device, st)
 #define RPF_CASE(L)                                                         \
   case L:                                                                   \
-    e = window == nullptr                                                   \
-            ? launch_groups<L, false>(raw, twiddle, window, partial, F,     \
-                                      group, blocks, n_valid, device, st)   \
-            : launch_groups<L, true>(raw, twiddle, window, partial, F,      \
-                                     group, blocks, n_valid, device, st);   \
+    if (plane) {                                                            \
+      e = window == nullptr ? RPF_LAUNCH(L, false, kRegsSkPlane)            \
+                            : RPF_LAUNCH(L, true, kRegsSkPlane);            \
+    } else {                                                                \
+      e = window == nullptr ? RPF_LAUNCH(L, false, kRegsSk)                 \
+                            : RPF_LAUNCH(L, true, kRegsSk);                 \
+    }                                                                       \
     break;
   switch (log2n) {
     RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
@@ -111,6 +136,7 @@ int rpf_fused_psd_sk(const void* raw, const void* twiddle, const void* window,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef RPF_CASE
+#undef RPF_LAUNCH
   if (e != cudaSuccess) return static_cast<int>(e);
   const int N = 1 << log2n;
   const dim3 grid(N / kSumBins);
@@ -126,11 +152,11 @@ int rpf_fused_psd_sk(const void* raw, const void* twiddle, const void* window,
   return static_cast<int>(cudaGetLastError());
 }
 
-// What the first pass gets at N = 2^log2n, windowed or not, on `device`:
-// attrs[0..5] as fused_psd.cu's rpf_fused_psd_attributes. Launches
-// nothing.
-int rpf_fused_psd_sk_attributes(int log2n, int windowed, int device,
-                                int* attrs) {
+// What the first pass (plane: kRegsSkPlane, else kRegsSk) gets at N =
+// 2^log2n, windowed or not, on `device`: attrs[0..5] as fused_psd.cu's
+// rpf_fused_psd_attributes. Launches nothing.
+int rpf_fused_psd_sk_attributes(int log2n, int windowed, int plane,
+                                int device, int* attrs) {
   if (log2n < kMinLog2N || log2n > kMaxLog2N || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -138,8 +164,13 @@ int rpf_fused_psd_sk_attributes(int log2n, int windowed, int device,
   if (e != cudaSuccess) return static_cast<int>(e);
 #define RPF_CASE(L)                                                          \
   case L:                                                                    \
-    e = windowed ? attributes<L, true>(device, attrs)                        \
-                 : attributes<L, false>(device, attrs);                      \
+    if (plane) {                                                             \
+      e = windowed ? attributes<L, true, kRegsSkPlane>(device, attrs)        \
+                   : attributes<L, false, kRegsSkPlane>(device, attrs);      \
+    } else {                                                                 \
+      e = windowed ? attributes<L, true, kRegsSk>(device, attrs)             \
+                   : attributes<L, false, kRegsSk>(device, attrs);           \
+    }                                                                        \
     break;
   switch (log2n) {
     RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)

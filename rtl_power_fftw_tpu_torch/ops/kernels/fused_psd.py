@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -72,6 +72,46 @@ PASS_PLAN = {64: (8, 8), 128: (16, 8), 256: (16, 16), 512: (16, 16, 2),
 RAW_ALIGN = 16
 WINDOW_ALIGN = 4
 
+#: Shared memory on a Hopper SM: the most one block may use (227 KB), the
+#: SM's whole (228 KB), and the driver's share of each resident block.
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+#: Threads a block of the group kernel has at least (kRegsMinThreads).
+MIN_THREADS = 256
+
+
+class RegsShape(NamedTuple):
+    """The group kernel's block at N bins (``RegsShape`` of
+    ``csrc/fused_psd_regs.cuh``): R values a thread, TF threads a frame,
+    ``threads`` a block in ``lanes`` frame lanes, the lanes' padded
+    exchange buffers (``exchange`` bytes), and with the two ring slots of
+    each lane K1's whole shared memory (``smem`` bytes)."""
+    R: int
+    TF: int
+    threads: int
+    lanes: int
+    exchange: int
+    smem: int
+
+
+def regs_shape(N: int) -> RegsShape:
+    """:class:`RegsShape` at N bins (a key of :data:`PASS_PLAN`)."""
+    R = PASS_PLAN[N][0]
+    TF = N // R
+    threads = max(MIN_THREADS, TF)
+    lanes = threads // TF
+    exchange = lanes * (N + N // 16) * 8
+    return RegsShape(R, TF, threads, lanes, exchange,
+                     exchange + lanes * (4 * N + 32))
+
+
+def smem_blocks_per_sm(smem: int, threads: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of shared memory
+    that one Hopper SM holds by threads and shared memory alone (registers
+    may hold fewer)."""
+    return min(2048 // threads, SMEM_PER_SM // (smem + SMEM_RESERVED))
+
 
 class KernelLaunchError(RuntimeError):
     """The CUDA launcher returned an error code."""
@@ -89,8 +129,11 @@ class LaunchCounts:
     ``kernel_large`` / ``kernel_large_windowed`` the large-N kernel's, and
     ``kernel_mixed`` / ``kernel_mixed_streams`` and ``kernel_bluestein`` /
     ``kernel_bluestein_streams`` the awkward-N kernels' (windowed or not),
-    and ``kernel_sk``, ``kernel_tapers`` and ``kernel_pfb`` the spectral
-    kurtosis, multitaper and polyphase-filterbank kernels'.
+    and ``kernel_sk_plane``, ``kernel_tapers`` and ``kernel_pfb_ring`` the
+    spectral kurtosis, multitaper and polyphase-filterbank kernels', with
+    ``kernel_sk`` and ``kernel_pfb`` the SK and PFB kernels they were
+    redesigned from (the controls, and the route where the new ones do not
+    fit a block).
 
     Incremented by the wrappers only; a session's single consumer thread
     is their only caller while a session runs."""
@@ -110,8 +153,10 @@ class LaunchCounts:
         self.kernel_bluestein = 0
         self.kernel_bluestein_streams = 0
         self.kernel_sk = 0
+        self.kernel_sk_plane = 0
         self.kernel_tapers = 0
         self.kernel_pfb = 0
+        self.kernel_pfb_ring = 0
         self.plain = 0
 
 

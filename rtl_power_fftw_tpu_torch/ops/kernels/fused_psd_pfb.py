@@ -12,21 +12,28 @@ dropped, summed over frames; bins in natural order. After the step the
 next history (rows n_valid .. n_valid + P - 2 of the virtual array) is
 written to ``history_out`` on the same stream.
 
-The kernel is K1's register transform and sums (``csrc/fused_psd_regs.cuh``
-and ``fft_regs.cuh``) with a load stage that reads P rows a frame through
-L2, on K1's grid rule (:func:`.fused_psd.k1_group`) over its own
-occupancy (:func:`resident_blocks`).
+The kernels are K1's register transform and sums
+(``csrc/fused_psd_regs.cuh`` and ``fft_regs.cuh``) after a load stage of
+their own, on K1's grid rule (:func:`.fused_psd.k1_group`) over their own
+occupancy. The ring kernel stages each raw row of a block once in a
+shared-memory ring of 2 LANES + P - 1 rows by ``cp.async``, the next
+LANES rows in flight, and the (P, N) prototype beside it where that still
+leaves two blocks an SM (:func:`ring_shape`, a rule on (N, P) alone); it
+is the route wherever its ring fits a block. Elsewhere (16384 bins at P
+>= 2) the route is the kernel it was redesigned from, which reads P rows
+a frame and the prototype through L2 (:func:`fused_psd_pfb_control` runs
+it at every size). On the same grid both give the same bits.
 
 :func:`fused_psd_pfb` dispatches on the tensor's device: a CPU tensor runs
 the plain PyTorch version (:func:`fused_psd_pfb_reference`), a CUDA tensor
-the kernel, or raises. ``COUNTS.kernel_pfb`` counts the kernel's
-launches.
+the kernel, or raises. ``COUNTS.kernel_pfb_ring`` counts the ring
+kernel's launches, ``COUNTS.kernel_pfb`` the control's.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,8 +42,41 @@ from . import fused_psd as fp
 #: Taps a call takes (the session's ``--pfb-taps`` accepts 2..32; the
 #: library's ``pfb_psd`` 1 too).
 MAX_TAPS = 32
-#: The kernel reads the rows as u16 pairs and the prototype as floats.
+#: The control reads the rows as u16 pairs and the prototype as floats;
+#: the ring kernel copies rows (and a staged prototype) 16 bytes a thread.
 RAW_ALIGN = 4
+RING_ALIGN = 16
+#: A ring slot's bytes past its row: the next lane's row on other banks.
+ROW_PAD = 32
+
+
+class RingShape(NamedTuple):
+    """The ring kernel's block at (N, P): ``slots`` row slots of 2N +
+    :data:`ROW_PAD` bytes, whether the prototype is staged beside them
+    (``stage_h``), its shared memory (``smem`` bytes) and the blocks one SM
+    holds by threads and shared memory (``blocks_per_sm``)."""
+    slots: int
+    stage_h: bool
+    smem: int
+    blocks_per_sm: int
+
+
+def ring_shape(N: int, P: int) -> Optional[RingShape]:
+    """The route's rule at N bins and P taps: None (the control) where the
+    ring of 2 LANES + P - 1 rows and the exchange buffers exceed a block's
+    shared memory, else the ring kernel's :class:`RingShape`, with the
+    (P, N) float32 prototype staged where it fits beside them and still
+    leaves two blocks an SM."""
+    shape = fp.regs_shape(N)
+    slots = 2 * shape.lanes + P - 1
+    ring = shape.exchange + slots * (2 * N + ROW_PAD)
+    if ring > fp.SMEM_PER_BLOCK:
+        return None
+    with_h = ring + 4 * P * N
+    stage_h = fp.smem_blocks_per_sm(with_h, shape.threads) >= 2
+    smem = with_h if stage_h else ring
+    return RingShape(slots, stage_h, smem,
+                     fp.smem_blocks_per_sm(smem, shape.threads))
 
 
 def check_pfb_args(raw_u8: torch.Tensor, history: torch.Tensor,
@@ -111,46 +151,110 @@ def fused_psd_pfb(raw_u8: torch.Tensor, history: torch.Tensor, n_valid: int,
     ``fresh`` the history is taken as byte 127 (a reset) and set so. All on
     the frames' device.
 
-    A CUDA tensor runs the kernel on the current stream (asynchronously:
-    ``history_out`` is written after the kernel on that stream); a CPU
-    tensor runs the plain version."""
+    A CUDA tensor runs the kernel :func:`ring_shape` picks on the current
+    stream (asynchronously: ``history_out`` is written after the kernel on
+    that stream); a CPU tensor runs the plain version."""
+    return _pfb("fused_psd_pfb", raw_u8, history, n_valid, chunk, h,
+                history_out, fresh, None, None)
+
+
+def fused_psd_pfb_control(raw_u8: torch.Tensor, history: torch.Tensor,
+                          n_valid: int, chunk: int, h: torch.Tensor,
+                          history_out: torch.Tensor, fresh: bool = False,
+                          group: Optional[int] = None) -> torch.Tensor:
+    """:func:`fused_psd_pfb` on the kernel it was redesigned from (P rows
+    a frame through L2) at every N, on ``group`` frames a block where
+    given (the ring kernel's, :func:`pfb_group`, for a comparison on the
+    same grid), else on its own grid; a CPU tensor runs the plain
+    version."""
+    return _pfb("fused_psd_pfb_control", raw_u8, history, n_valid, chunk, h,
+                history_out, fresh, False, group)
+
+
+def pfb_group(F: int, chunk: int, N: int, P: int, index: int,
+              ring: bool) -> int:
+    """Frames a block of the ring kernel (``ring``) or of the control sums
+    at (F, chunk, N, P) on card ``index``: K1's rule over the kernel's own
+    residency."""
+    resident = (ring_resident_blocks(N, P, index) if ring
+                else resident_blocks(N, index))
+    return fp.k1_group(F, chunk, resident)
+
+
+def _pfb(kernel: str, raw_u8: torch.Tensor, history: torch.Tensor,
+         n_valid: int, chunk: int, h: torch.Tensor,
+         history_out: torch.Tensor, fresh: bool, ring: Optional[bool],
+         group: Optional[int]) -> torch.Tensor:
+    """Check, then run the plain version (CPU) or the ring kernel
+    (``ring``; None: where :func:`ring_shape` fits) or the control on the
+    card."""
     n_valid = int(n_valid)
-    fp.check_args("fused_psd_pfb", fp.fused_psd_eligible, raw_u8, n_valid,
-                  chunk, None)
+    fp.check_args(kernel, fp.fused_psd_eligible, raw_u8, n_valid, chunk,
+                  None)
     check_pfb_args(raw_u8, history, h, history_out)
-    if not fp._on_cuda("fused_psd_pfb", raw_u8):
+    if not fp._on_cuda(kernel, raw_u8):
         fp.COUNTS.plain += 1
         return fused_psd_pfb_reference(raw_u8, history, n_valid, chunk, h,
                                        history_out, fresh)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
     P = h.shape[0]
+    shape = ring_shape(N, P) if ring is not False else None
     index = raw_u8.device.index
-    group = fp.k1_group(F, chunk, resident_blocks(N, index))
-    fp.check_alignment("fused_psd_pfb", history, RAW_ALIGN, None, 1)
+    if group is None:
+        group = pfb_group(F, chunk, N, P, index, shape is not None)
+    align = RAW_ALIGN if shape is None else RING_ALIGN
+    h_align = RING_ALIGN if shape is not None and shape.stage_h else RAW_ALIGN
+    for name, t, a in (("history", history, align), ("h", h, h_align)):
+        if t.data_ptr() % a:
+            raise ValueError(f"{kernel}: {name} must be {a}-byte aligned on "
+                             "the device")
     out = fp._launch(
-        "fused_psd_pfb", raw_u8, h, -(-F // group), (N,),
+        kernel, raw_u8, h, -(-F // group), (N,),
         lambda lib, raw, twiddle, hp, partial, out, stream:
         lib.rpf_fused_psd_pfb(raw, history.data_ptr(), twiddle, hp, partial,
                               out, history_out.data_ptr(), index,
                               N.bit_length() - 1, F, group, n_valid, P,
-                              int(fresh), stream),
-        library="fused_psd_pfb", raw_align=RAW_ALIGN)
-    fp.COUNTS.kernel_pfb += 1
+                              int(fresh), int(shape is not None),
+                              int(shape is not None and shape.stage_h),
+                              stream),
+        library="fused_psd_pfb", raw_align=align)
+    if shape is None:
+        fp.COUNTS.kernel_pfb += 1
+    else:
+        fp.COUNTS.kernel_pfb_ring += 1
     return out
 
 
-def kernel_attributes(N: int, device: Optional[torch.device] = None
-                      ) -> dict:
-    """What the kernel gets at N bins on the card, as
-    :func:`.fused_psd.kernel_attributes` gives K1's. Launches nothing."""
-    return fp.library_attributes("fused_psd_pfb", N, device=device)
+def kernel_attributes(N: int, P: int, ring: Optional[bool] = None,
+                      device: Optional[torch.device] = None) -> dict:
+    """What a kernel gets at N bins and P taps on the card, as
+    :func:`.fused_psd.kernel_attributes` gives K1's: the ring kernel's
+    (``ring``; None: the route's) at its :func:`ring_shape`, or the
+    control's. Launches nothing."""
+    shape = ring_shape(N, P) if ring is not False else None
+    if ring and shape is None:
+        raise ValueError(f"the ring kernel does not fit N={N}, P={P}")
+    return fp.library_attributes(
+        "fused_psd_pfb", N, P, int(shape is not None),
+        int(shape is not None and shape.stage_h), device=device)
 
 
 @functools.lru_cache(maxsize=64)
 def resident_blocks(N: int, index: int) -> int:
-    """Blocks of the kernel at N bins that card ``index`` holds resident:
+    """Blocks of the control at N bins that card ``index`` holds resident:
     its SMs times :func:`kernel_attributes`' blocks per SM."""
     device = torch.device("cuda", index)
-    per_sm = kernel_attributes(N, device)["blocks_per_sm"]
+    return _resident(kernel_attributes(N, 1, False, device), device)
+
+
+@functools.lru_cache(maxsize=64)
+def ring_resident_blocks(N: int, P: int, index: int) -> int:
+    """Blocks of the ring kernel at N bins and P taps that card ``index``
+    holds resident."""
+    device = torch.device("cuda", index)
+    return _resident(kernel_attributes(N, P, True, device), device)
+
+
+def _resident(attrs: dict, device: torch.device) -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, per_sm)
+    return sms * max(1, attrs["blocks_per_sm"])

@@ -9,16 +9,23 @@ excision gate on its own spectral kurtosis (:func:`sk_keep`), s1 * keep and
 n_valid * keep.
 
 The kernel is K1/K2's group kernel (``csrc/fused_psd_regs.cuh``) with a
-second register sum of |X|^4 beside each sum of |X|^2, on K1's own grid
+sum of |X|^4 beside each sum of |X|^2, on K1's own grid
 (:func:`.fused_psd.k1_group` from K1's occupancy, not its own), so that s1
 is :func:`.fused_psd.fused_psd`'s output bit for bit on the same frames,
 ``n_valid`` and ``chunk``; its second pass is psd_sum's float64 row sum
-over both planes, with the gate as its epilogue.
+over both planes, with the gate as its epilogue. Where the plane fits a
+block (:func:`plane_fits`: up to 8192 bins) the |X|^4 sums live in a
+shared-memory plane (the ``kRegsSkPlane`` cut), so the kernel keeps K1's
+registers and occupancy and K1's grid runs in one wave; at 16384 bins the
+route is the kernel it was redesigned from (``kRegsSk``: the sums in
+registers), which :func:`fused_psd_sk_control` runs at every size. Both
+give the same s2 bits.
 
 :func:`fused_psd_sk` dispatches on the tensor's device: a CPU tensor runs
 the plain PyTorch version (:func:`fused_psd_sk_reference`, whose s1 is
 :func:`.fused_psd.fused_psd_reference`'s bit for bit), a CUDA tensor the
-kernel, or raises. ``COUNTS.kernel_sk`` counts the kernel's launches.
+kernel, or raises. ``COUNTS.kernel_sk_plane`` counts the plane kernel's
+launches, ``COUNTS.kernel_sk`` the control's.
 """
 
 from __future__ import annotations
@@ -68,6 +75,19 @@ def fused_psd_sk_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     return torch.stack([s1, s2, s1 * keep, M * keep])
 
 
+def plane_smem(N: int) -> int:
+    """Bytes of shared memory a block of the plane kernel takes at N bins:
+    K1's, and the LANES x N float32 plane of |X|^4 sums."""
+    shape = fp.regs_shape(N)
+    return shape.smem + shape.lanes * N * 4
+
+
+def plane_fits(N: int) -> bool:
+    """The route at N bins: the plane kernel where its shared memory fits a
+    block (N <= 8192), else the control."""
+    return plane_smem(N) <= fp.SMEM_PER_BLOCK
+
+
 def fused_psd_sk(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                  window: Optional[torch.Tensor] = None,
                  sigma: float = 0.0) -> torch.Tensor:
@@ -77,37 +97,63 @@ def fused_psd_sk(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     n_valid * keep (:func:`sk_keep` of this call's s1, s2 and n_valid).
     ``window``: an (N,) float32 tensor on the same device, or None.
 
-    A CUDA tensor runs the kernel on the current stream (asynchronously);
-    a CPU tensor runs the plain version."""
+    A CUDA tensor runs the kernel :func:`plane_fits` picks on the current
+    stream (asynchronously); a CPU tensor runs the plain version."""
+    return _sk("fused_psd_sk", raw_u8, n_valid, chunk, window, sigma, None)
+
+
+def fused_psd_sk_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+                         window: Optional[torch.Tensor] = None,
+                         sigma: float = 0.0) -> torch.Tensor:
+    """:func:`fused_psd_sk` on the kernel it was redesigned from (the
+    |X|^4 sums in registers) at every N; a CPU tensor runs the plain
+    version."""
+    return _sk("fused_psd_sk_control", raw_u8, n_valid, chunk, window,
+               sigma, False)
+
+
+def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
+        window: Optional[torch.Tensor], sigma: float,
+        plane: Optional[bool]) -> torch.Tensor:
+    """Check, then run the plain version (CPU) or the plane kernel
+    (``plane``; None: where it fits) or the control on the card."""
     n_valid = int(n_valid)
     sigma = float(sigma)
-    fp.check_args("fused_psd_sk", fp.fused_psd_eligible, raw_u8, n_valid,
-                  chunk, window)
+    fp.check_args(kernel, fp.fused_psd_eligible, raw_u8, n_valid, chunk,
+                  window)
     if not sigma >= 0.0:
         raise ValueError(f"sigma={sigma} must be >= 0")
-    if not fp._on_cuda("fused_psd_sk", raw_u8):
+    if not fp._on_cuda(kernel, raw_u8):
         fp.COUNTS.plain += 1
         return fused_psd_sk_reference(raw_u8, n_valid, chunk, window, sigma)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
+    plane = plane_fits(N) if plane is None else plane
     index = raw_u8.device.index
     # K1's (K2's) grid, from K1's occupancy: the s1 plane is K1's output.
     group = fp.k1_group(F, chunk, fp.resident_blocks(N, window is not None,
                                                      index))
     out = fp._launch(
-        "fused_psd_sk", raw_u8, window, 2 * -(-F // group),
+        kernel, raw_u8, window, 2 * -(-F // group),
         (4 if sigma > 0.0 else 2, N),
         lambda lib, raw, twiddle, win, partial, out, stream:
         lib.rpf_fused_psd_sk(raw, twiddle, win, partial, out, index,
                              N.bit_length() - 1, F, group, n_valid,
-                             2.0 * sigma, stream),
+                             2.0 * sigma, int(plane), stream),
         library="fused_psd_sk")
-    fp.COUNTS.kernel_sk += 1
+    if plane:
+        fp.COUNTS.kernel_sk_plane += 1
+    else:
+        fp.COUNTS.kernel_sk += 1
     return out
 
 
 def kernel_attributes(N: int, windowed: bool = False,
+                      plane: Optional[bool] = None,
                       device: Optional[torch.device] = None) -> dict:
     """What the first pass gets at N bins on the card, as
-    :func:`.fused_psd.kernel_attributes` gives K1's. Launches nothing."""
+    :func:`.fused_psd.kernel_attributes` gives K1's: the plane kernel's
+    (``plane``; None: the route's, :func:`plane_fits`) or the control's.
+    Launches nothing."""
+    plane = plane_fits(N) if plane is None else plane
     return fp.library_attributes("fused_psd_sk", N, int(windowed),
-                                 device=device)
+                                 int(plane), device=device)
