@@ -70,7 +70,7 @@ constexpr int kMaxSmem = 232448;   // the 227 KB a Hopper block may use
 
 // A lane's exchange buffer, and the lanes' sums by bin at the end.
 template <int LOG2N>
-constexpr int pfb_smem_bytes() {
+__host__ __device__ constexpr int pfb_smem_bytes() {
   return RegsShape<LOG2N>::LANES * RegsShape<LOG2N>::XSTRIDE * 8;
 }
 
@@ -150,7 +150,7 @@ psd_pfb_kernel(const uint8_t* __restrict__ raw,      // (F, 2N), the slot
 // A ring slot: a raw row of 2N bytes and 32 more (the banks of the next
 // lane's row, N <= 256).
 template <int LOG2N>
-constexpr int ring_row_bytes() {
+__host__ __device__ constexpr int ring_row_bytes() {
   return 2 * (1 << LOG2N) + 32;
 }
 
