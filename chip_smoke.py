@@ -11,10 +11,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    one process per source, started together; ptxas's registers and spill
    of every instantiation (24 of the large kernel's radix-2 control, 24
    of its register passes), each large-N pass's registers, spill, shared
-   memory and blocks per SM at every N, and every earlier kernel of
-   ``fused_psd_fast``, ``fused_psd_large`` and ``fused_psd_probe`` held
-   to the parent tree's SASS (``ops/kernels/sass_digest.json``, written by
-   ``sass_diff --write-digest`` from that tree's ``csrc/``);
+   memory and blocks per SM at every N, and every earlier kernel of the
+   eight libraries of ``sass_diff.SOURCES`` (the estimators' three among
+   them) held to the parent tree's SASS (``ops/kernels/sass_digest.json``,
+   written by ``sass_diff --write-digest`` from that tree's ``csrc/``);
 3. K1 (``fused_psd``, the register transform of ``fused_psd_regs.cuh``)
    against its plain PyTorch version on the card, at the shapes the main
    path gives it and at N = 256, 2048, 16384, with a masked ``n_valid``
@@ -170,18 +170,26 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the recorded stream), its two-stream form, and -b 998 tone drives
    (one and two streams), each through its kernel alone.
 14. the estimator kernels (``fused_psd_sk``: spectral kurtosis, K1/K2's
-   group kernel with a second sum of |X|^4; ``fused_psd_tapers``: the
-   multitaper, K2's with a taper axis; ``fused_psd_pfb``: the polyphase
-   filterbank, K1's transform after a P-row load): their registers,
-   spill and blocks per SM; against their plain versions and the float64
-   golden, twice each (SK at 2048 F=4096, Hann masked, the drive's step
-   with the gate, 256, 16384; SK's s1 against K1's/K2's output bit for
-   bit and the gate's rows against ``sk_keep`` of its own moments;
-   multitaper K = 7 and 1 at 2048, the drive's step, 16384 K = 4; the PFB
-   at P = 2, 4, 16 (F = 512) and P = 4 at the drive's step, at F = 4096 and
-   at 16384 bins, each over three steps of one stream, the second with
-   fewer valid frames than P - 1, the history on the card equal to
-   plain's; the timed shapes within 1e-5 of plain too);
+   group kernel with a second sum of |X|^4, in a shared-memory plane up
+   to 8192 bins, in registers (the control, PR 15's kernel) at 16384;
+   ``fused_psd_tapers``: the multitaper, K2's with a taper axis;
+   ``fused_psd_pfb``: the polyphase filterbank, K1's transform after a
+   P-row load, from a shared-memory ring of raw rows where it fits, else
+   the control, PR 15's P rows through L2): their registers, spill,
+   shared memory and blocks per SM at 256, 2048 and 16384 bins, each new
+   kernel beside its control; against their plain versions and the
+   float64 golden, twice each (SK at 2048 F=4096, Hann masked, the
+   drive's step with the gate, 256, 16384; SK's s1 against K1's/K2's
+   output bit for bit, every row against the control's bit for bit, and
+   the gate's rows against ``sk_keep`` of its own moments; multitaper K =
+   7 and 1 at 2048, the drive's step, 16384 K = 4; the PFB at P = 2, 4, 16
+   (F = 512) and P = 4 at the drive's step, at F = 4096 and at 16384
+   bins, each over three steps of one stream, the second with fewer
+   valid frames than P - 1, the history on the card equal to plain's,
+   output and history the control's bit for bit on the same grid; a step
+   of fewer than 64 frames held by its error over the mean power against
+   the float64 golden, plain's beside it; the timed shapes within 1e-5 of
+   plain too);
    60-seed tone yards of SK's s2, the multitaper (K = 7) and the PFB (P =
    4) against the scipy float32 class; the drives ``-b 2048 --sk-file``
    (unwindowed and Hann; the SK file against the float64 SK of the
@@ -189,9 +197,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    burst in one of four 256-frame blocks, ``--multitaper 7``,
    ``--pfb-taps 4`` and a two-hop matrix-mode scan with it (each hop
    against its own frames from a reset history), each through its kernel
-   alone; a call, the device's and the wrapper's host time at 2048
-   F=4096 and at the drives' step beside ``torch.fft.fft`` on the same
-   transforms and the bound.
+   alone (the new kernels: no control and no plain launch); a call, the
+   device's and the wrapper's host time at 2048 F=4096 and at the drives'
+   step beside the control's (device time at most 1.05 of it),
+   ``torch.fft.fft`` on the same transforms and the bound.
 
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -231,6 +240,9 @@ CSRC = "rtl_power_fftw_tpu_torch/ops/kernels/csrc/"
 TPU_KERNEL = "rtl_power_fftw_tpu/ops/kernels/fused_psd.py:"
 UNIFORM_RTOL = 1e-5
 GOLDEN_RTOL = 1e-5
+# The chirp-Z streams entry at N = 510 with Hann: its distance from the
+# float64 golden (5.1e-7 on an H100; plain's, cuFFT's, 1.1e-6).
+CHIRP510_GOLDEN_RTOL = 1.1e-6
 # K3 against its plain version: the same split, terms and bf16 products;
 # only the order of f32 sums differs (tensor-core accumulation against
 # cuBLAS f32), so a per-bin relative bound far inside the relaxed tier.
@@ -873,8 +885,11 @@ def reset_counts(fp, ff) -> None:
 def launch_counts(fp, ff) -> dict:
     """Every launch counter by the kernel (or plain version) it counts;
     "L" is the large-N kernel, "M" the mixed-radix kernel, "B" the chirp-Z
-    kernel, "SK", "MT" and "PFB" the estimators' kernels, "M/B control" the kernel both replaced (and its plain
-    versions), "probes" every probe variant together."""
+    kernel, "SK", "MT" and "PFB" the estimators' kernels (SK's plane
+    kernel, the PFB's ring kernel), "SK control" and "PFB control" the
+    kernels those two were redesigned from, "M/B control" the kernel M and
+    B replaced (and its plain versions), "probes" every probe variant
+    together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     return {"K1": fp.COUNTS.kernel, "K2": fp.COUNTS.kernel_windowed,
@@ -886,8 +901,9 @@ def launch_counts(fp, ff) -> dict:
             "M streams": fp.COUNTS.kernel_mixed_streams,
             "B": fp.COUNTS.kernel_bluestein,
             "B streams": fp.COUNTS.kernel_bluestein_streams,
-            "SK": fp.COUNTS.kernel_sk, "MT": fp.COUNTS.kernel_tapers,
-            "PFB": fp.COUNTS.kernel_pfb,
+            "SK": fp.COUNTS.kernel_sk_plane, "SK control": fp.COUNTS.kernel_sk,
+            "MT": fp.COUNTS.kernel_tapers, "PFB": fp.COUNTS.kernel_pfb_ring,
+            "PFB control": fp.COUNTS.kernel_pfb,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -1910,6 +1926,15 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
               f"{f'; empty stream max {empty[0]}' if empty else ''}")
         check(err_plain <= UNIFORM_RTOL and max(errs) <= GOLDEN_RTOL
               and not any(empty), f"{name} N={N} F={F}")
+        if (name, N, wname) == ("Bs", 510, "hann"):
+            # Here plain (cuFFT) is further from the float64 golden than
+            # the kernel, so the kernel is held to the golden itself.
+            plain_gold = max(max_rel(want[s], golds[s]) for s in live)
+            print(f"awkward Bs N=510 hann criterion: the kernel's max rel "
+                  f"vs the float64 golden {max(errs):.3e} (<= "
+                  f"{CHIRP510_GOLDEN_RTOL:g}); plain's {plain_gold:.3e}")
+            check(max(errs) <= CHIRP510_GOLDEN_RTOL, "Bs N=510 hann: "
+                  f"{max(errs)} from the float64 golden")
     # Every plan the mixed-radix kernel takes (each even 7-smooth N up
     # to 16384) and a spread of the chirp-Z kernel's (every even N to 256,
     # every 62nd to 8192, the top two), 8 random frames each, every third
@@ -2211,11 +2236,12 @@ def estimator_yard(label, kernel_fn, golden_fn, class_fn, N, F, seed0):
 def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
     """14. The estimator kernels (``fused_psd_sk``, ``fused_psd_tapers``,
     ``fused_psd_pfb``): against their plain versions and the float64
-    golden, twice each; SK's s1 against K1's/K2's output bit for bit; the
-    PFB's history across three steps; the 60-seed tone yards of SK's s2,
-    the multitaper and the PFB; the CLI drives, each on its kernel alone;
-    times beside the plain version, torch.fft.fft and the bound. Returns
-    the kernels-line entries."""
+    golden, twice each; SK's s1 against K1's/K2's output bit for bit and
+    SK's and the PFB's outputs against their controls' (PR 15's kernels)
+    bit for bit; the PFB's history across three steps; the 60-seed tone
+    yards of SK's s2, the multitaper and the PFB; the CLI drives, each on
+    its kernel alone; times beside the control, the plain version,
+    torch.fft.fft and the bound. Returns the kernels-line entries."""
     import scipy.fft
     from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
     from rtl_power_fftw_tpu_torch.models.multitaper import _session_tapers
@@ -2226,22 +2252,37 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
     t0 = time.perf_counter()
     drive_F = adapt_batch(drive_frames_per_step(EST_ARGV))[0]
     for N in (256, 2048, 16384):
-        for name, attrs in (
-                ("fused_psd_sk", fsk.kernel_attributes(N)),
-                ("fused_psd_sk windowed", fsk.kernel_attributes(N, True)),
-                ("fused_psd_tapers", fmt.kernel_attributes(N)),
-                ("fused_psd_pfb", fpf.kernel_attributes(N))):
+        rows = []
+        for w in (False, True):
+            wn = " windowed" if w else ""
+            if fsk.plane_fits(N):
+                rows.append((f"fused_psd_sk plane{wn} (the route)",
+                             fsk.kernel_attributes(N, w, True)))
+            rows.append((f"fused_psd_sk control{wn}"
+                         f"{'' if fsk.plane_fits(N) else ' (the route)'}",
+                         fsk.kernel_attributes(N, w, False)))
+        rows.append(("fused_psd_tapers", fmt.kernel_attributes(N)))
+        shape = fpf.ring_shape(N, 4)
+        if shape is not None:
+            rows.append((f"fused_psd_pfb ring P=4 (the route; {shape.slots} "
+                         f"row slots, h {'staged' if shape.stage_h else 'through L2'})",
+                         fpf.kernel_attributes(N, 4, True)))
+        rows.append((f"fused_psd_pfb control P=4"
+                     f"{' (the route)' if shape is None else ''}",
+                     fpf.kernel_attributes(N, 4, False)))
+        for name, attrs in rows:
             print(f"occupancy {name} N={N} on {card}: {attrs['registers']} "
                   f"registers, {attrs['spill_bytes']} B spill, "
                   f"{attrs['static_smem']} + {attrs['dynamic_smem']} B "
                   f"shared, {attrs['threads']} threads, "
                   f"{attrs['blocks_per_sm']} blocks/SM")
     reset_counts(fp, ff)
+    want_counts = {"SK": 0, "SK control": 0, "PFB": 0, "PFB control": 0}
 
-    # SK: s1 is K1's (K2's) output bit for bit; s1 and s2 within 1e-5 of
-    # plain and of the float64 golden; under a gate, the kept rows are
-    # the gate of the kernel's own s1 and s2 (sk_keep), bit for bit.
-    runs = 0
+    # SK: s1 is K1's (K2's) output bit for bit, every row the control's
+    # (PR 15's kernel, on the same grid) bit for bit; s1 and s2 within
+    # 1e-5 of plain and of the float64 golden; under a gate, the kept rows
+    # are the gate of the kernel's own s1 and s2 (sk_keep), bit for bit.
     for label, N, fps, n_valid, wname, sigma in (
             ("F=4096", 2048, 4096, None, None, 0.0),
             ("F=4096 hann masked", 2048, 4096, 3000, "hann", 0.0),
@@ -2256,19 +2297,25 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
         raw = torch.from_numpy(raw_np).to(dev)
         got = fsk.fused_psd_sk(raw, nv, chunk, w, sigma)
         again = fsk.fused_psd_sk(raw, nv, chunk, w, sigma)
+        ctl = fsk.fused_psd_sk_control(raw, nv, chunk, w, sigma)
         k1 = fp.fused_psd(raw, nv, chunk, w)
         want = fsk.fused_psd_sk_reference(raw, nv, chunk, w, sigma)
         torch.cuda.synchronize()
-        runs += 2
+        route = "SK" if fsk.plane_fits(N) else "SK control"
+        want_counts[route] += 2
+        want_counts["SK control"] += 1
         check(torch.equal(got, again), f"SK {label}: not deterministic")
         check(torch.equal(got[0], k1), f"SK {label}: s1 is not K1's output")
+        check(torch.equal(got, ctl), f"SK {label}: not the control's bits")
         got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
         g1, g2 = golden_moments(raw_np, nv, w_np)
         errs = [max_rel(got_np[i], want_np[i]) for i in range(2)]
         golds = [max_rel(got_np[0], g1), max_rel(got_np[1], g2)]
         line = (f"estimators SK {label} (N={N} F={F} chunk={chunk} "
-                f"n_valid={nv} window={wname}): s1 bit for bit "
-                f"{'K2' if wname else 'K1'}'s; max rel vs plain s1 "
+                f"n_valid={nv} window={wname}; the route: "
+                f"{'plane' if route == 'SK' else 'control'}): s1 bit for bit "
+                f"{'K2' if wname else 'K1'}'s, s1, s2 and gate rows the "
+                f"control's; max rel vs plain s1 "
                 f"{errs[0]:.3e} s2 {errs[1]:.3e}, vs float64 golden s1 "
                 f"{golds[0]:.3e} s2 {golds[1]:.3e}")
         if sigma > 0.0:
@@ -2313,16 +2360,19 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
 
     # PFB: three consecutive steps of one stream (the second with fewer
     # valid frames than P - 1), the history on the card carried across
-    # them and equal to plain's bit for bit; each step within 1e-5 of
-    # plain and of the float64 golden where it sums >= 64 frames, and the
-    # three steps' total (what a session accumulates) within 1e-5 of the
-    # golden. A step of a few frames is held to 1e-5 of its mean power:
-    # its smallest bins are single periodogram values near 0, whose
-    # relative error is that of a difference of nearly equal terms (the
-    # plain version's own is as large; both are printed, not held). The
-    # shapes: P = 2, 4, 16 at F = 512; the drives' step and the timed F =
-    # 4096 (each a grid of its own, from the kernel's residency); 16384
-    # bins, whose build spills, with a one-frame second step.
+    # them and equal to plain's bit for bit, output and history the
+    # control's (PR 15's kernel, run on the route's grid with histories of
+    # its own) bit for bit; each step within 1e-5 of plain and of the
+    # float64 golden where it sums >= 64 frames, and the three steps'
+    # total (what a session accumulates) within 1e-5 of the golden. A
+    # step of a few frames is held by its distance from the float64
+    # golden over the mean power, <= 1e-5, with plain's distance printed
+    # beside: its smallest bins are single periodogram values near 0,
+    # whose max relative error measures the difference of nearly equal
+    # terms, plain's own as much as the kernel's (both printed, not held).
+    # The shapes: P = 2, 4, 16 at F = 512; the drives' step and the timed
+    # F = 4096 (each a grid of its own, from the kernel's residency);
+    # 16384 bins (the route: the control), with a one-frame second step.
     pfb_cases = ((2, 2048, 512, 0), (4, 2048, 512, 2), (16, 2048, 512, 14),
                  (4, 2048, drive_F, 2), (4, 2048, 4096, 2),
                  (4, 16384, 64, 1))
@@ -2334,6 +2384,11 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
                 for _ in range(2)]
         hist_p = [torch.empty((P - 1, 2 * N), dtype=torch.uint8)
                   for _ in range(2)]
+        hist_c = [torch.empty_like(t) for t in hist]
+        ring_route = fpf.ring_shape(N, P) is not None
+        group = fpf.pfb_group(F, chunk, N, P, dev.index, ring_route)
+        want_counts["PFB" if ring_route else "PFB control"] += 5
+        want_counts["PFB control"] += 3
         virtual = np.full((P - 1, 2 * N), 127, np.uint8)
         total, gold_total = np.zeros(N), np.zeros(N)
         for step, nv in enumerate((F, few, F - 5)):
@@ -2341,10 +2396,15 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             raw = torch.from_numpy(raw_np)
             got = fpf.fused_psd_pfb(raw.to(dev), hist[0], nv, chunk, h,
                                     hist[1], fresh=step == 0)
+            ctl = fpf.fused_psd_pfb_control(raw.to(dev), hist_c[0], nv, chunk,
+                                            h, hist_c[1], fresh=step == 0,
+                                            group=group)
             want = fpf.fused_psd_pfb_reference(raw, hist_p[0], nv, chunk,
                                                h.cpu(), hist_p[1],
                                                fresh=step == 0)
             torch.cuda.synchronize()
+            same_ctl = (torch.equal(got, ctl)
+                        and torch.equal(hist[1], hist_c[1]))
             virtual = np.concatenate([virtual, raw_np])
             gold = golden_pfb(virtual, nv, h_np)
             virtual = virtual[nv:nv + P - 1]
@@ -2352,29 +2412,37 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             total += got_np
             gold_total += gold
             same_hist = torch.equal(hist[1].cpu(), hist_p[1])
-            rel_plain = max_rel(got_np, want.numpy())
+            want_np = want.numpy()
+            rel_plain = max_rel(got_np, want_np)
             if nv >= 64:
                 err_plain = rel_plain
                 err_gold = max_rel(got_np, gold)
                 note = ""
             else:
                 scale = max(gold.mean(), 1e-30)
-                err_plain = float(np.abs(got_np - want.numpy()).max()) / scale
+                err_plain = float(np.abs(got_np - want_np).max()) / scale
                 err_gold = float(np.abs(got_np - gold).max()) / scale
-                note = (f" (max rel vs plain {rel_plain:.3e}, plain's vs "
-                        f"the golden {max_rel(want.numpy(), gold):.3e}, not "
-                        "held)")
+                note = (f" (the criterion, err/mean vs the float64 golden "
+                        f"<= {GOLDEN_RTOL:g}: plain's "
+                        f"{float(np.abs(want_np - gold).max()) / scale:.3e}; "
+                        f"max rel vs the golden {max_rel(got_np, gold):.3e}, "
+                        f"plain's {max_rel(want_np, gold):.3e}, and vs plain "
+                        f"{rel_plain:.3e}, not held)")
             print(f"estimators PFB P={P} N={N} F={F} step {step} n_valid="
-                  f"{nv}: max {'rel' if nv >= 64 else 'err/mean'} vs plain "
+                  f"{nv} ({'ring' if ring_route else 'control'}, {group} "
+                  f"frames a block): max "
+                  f"{'rel' if nv >= 64 else 'err/mean'} vs plain "
                   f"{err_plain:.3e}, vs float64 golden {err_gold:.3e}{note}; "
-                  f"history bit for bit plain's {same_hist}")
+                  f"history bit for bit plain's {same_hist}; output and "
+                  f"history bit for bit the control's {same_ctl}")
             check(err_plain <= UNIFORM_RTOL and err_gold <= GOLDEN_RTOL
-                  and same_hist, f"PFB P={P} step {step}")
+                  and same_hist and same_ctl, f"PFB P={P} step {step}")
             check(np.array_equal(hist[1].cpu().numpy(), virtual),
                   f"PFB P={P} step {step}: history is not rows n_valid .. "
                   "n_valid + P - 2")
             hist.reverse()
             hist_p.reverse()
+            hist_c.reverse()
         err_total = max_rel(total, gold_total)
         print(f"estimators PFB P={P}: the three steps' total, max rel vs "
               f"float64 golden {err_total:.3e}")
@@ -2389,9 +2457,9 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
         check(torch.equal(a, b) and torch.equal(hist[1], spare),
               f"PFB P={P}: not deterministic")
     counts = launch_counts(fp, ff)
-    check(counts["SK"] == runs and counts["MT"] == 8
-          and counts["PFB"] == 5 * len(pfb_cases) and counts["plain"] == 0,
-          f"estimator launch counts: {counts}")
+    check(all(counts[k] == v for k, v in want_counts.items())
+          and counts["MT"] == 8 and counts["plain"] == 0,
+          f"estimator launch counts: {counts}, expected {want_counts}")
     print(f"wall: estimator checks in {time.perf_counter() - t0:.1f} s")
 
     # The admission yards (2048 bins, 64 frames a seed).
@@ -2406,7 +2474,8 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
         return (Xc.real.astype(np.float64) ** 2
                 + Xc.imag.astype(np.float64) ** 2)
 
-    estimator_yard("SK s2", sk_s2,
+    reset_counts(fp, ff)
+    estimator_yard("SK s2 (plane kernel)", sk_s2,
                    lambda raw_np: golden_moments(raw_np, F)[1],
                    lambda raw_np: (f32_class(dequant64(raw_np)) ** 2).sum(0),
                    N, F, 14000)
@@ -2437,12 +2506,16 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
         return f32_class(sums.astype(np.complex128)).sum(0)
 
     estimator_yard(
-        "PFB P=4",
+        "PFB P=4 (ring kernel)",
         lambda raw_np: fpf.fused_psd_pfb(
             torch.from_numpy(raw_np).to(dev), hist[0], F, F, h, hist[1],
             fresh=True).cpu().numpy(),
         lambda raw_np: golden_pfb(pfb_virtual(raw_np), F, h_np),
         pfb_class, N, F, 14200)
+    counts = launch_counts(fp, ff)
+    check(counts["SK"] == 60 and counts["PFB"] == 60
+          and counts["SK control"] == counts["PFB control"] == 0
+          and counts["plain"] == 0, f"estimator yards' launches: {counts}")
     print(f"wall: estimator yards in {time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its kernel alone.
@@ -2502,9 +2575,11 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
 
     # Times (PERF.md states their prediction): at 2048 F=4096 and at the
     # drives' step, a call (CUDA events around each), the device's part
-    # (behind a sleep kernel), the wrapper's host part, the plain version
-    # and torch.fft.fft on the same transforms (F frames; F K tapered
-    # frames; F polyphase sums, complex64 on the card).
+    # (behind a sleep kernel; for SK and the PFB twice, in turns with the
+    # control's, which must be at least the kernel's / 1.05), the wrapper's
+    # host part, the plain version and torch.fft.fft on the same
+    # transforms (F frames; F K tapered frames; F polyphase sums, complex64
+    # on the card).
     times = {}
     for kind, F, arg in (("SK", 4096, 0.0), ("SK", drive_F, 0.0),
                          ("MT", 4096, 7), ("MT", drive_F, 7),
@@ -2521,6 +2596,9 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
 
             def plain():
                 return fsk.fused_psd_sk_reference(raw, F, chunk)
+
+            def control():
+                return fsk.fused_psd_sk_control(raw, F, chunk)
             zz = z
             bound = estimator_bound_ms("SK", F, N)
         elif kind == "MT":
@@ -2531,6 +2609,7 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
 
             def plain():
                 return fmt.fused_psd_tapers_reference(raw, F, chunk, tp)
+            control = None
             zz = (z[:, None, :] * tp[None]).reshape(F * arg, N)
             bound = estimator_bound_ms("MT", F, N, K=arg)
         else:
@@ -2545,6 +2624,10 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             def plain():
                 return fpf.fused_psd_pfb_reference(raw, hist[0], F, chunk, h,
                                                    hist[1])
+
+            def control():
+                return fpf.fused_psd_pfb_control(raw, hist[0], F, chunk, h,
+                                                 hist[1])
             zz = fpf.pfb_sums_reference(torch.cat([hist[0], raw]), h, F)
             bound = estimator_bound_ms("PFB", F, N, P=arg)
         got = kernel().double()
@@ -2561,6 +2644,22 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
              "host": host_us(kernel)}
         times[(kind, F)] = t
         b_us = 1e3 * bound[0]
+        ctl_line = ""
+        if control is not None:
+            kd = [t["device"], device_times_us(kernel)]
+            cd = [device_times_us(control), device_times_us(control)]
+            t.update(device=min(kd), control_device=min(cd),
+                     control=event_times_us(control),
+                     control_host=host_us(control))
+            ratio = t["device"] / t["control_device"]
+            ctl_line = (f"; the control (PR 15's kernel) {t['control']:.1f} "
+                        f"us a call, device {cd[0]:.1f}/{cd[1]:.1f} us "
+                        f"(the kernel's {kd[0]:.1f}/{kd[1]:.1f}), host "
+                        f"{t['control_host']:.1f} us; device/control "
+                        f"{ratio:.3f} (<= 1.05)")
+            check(ratio <= 1.05, f"estimator {kind} N={N} F={F}: "
+                  f"{t['device']:.1f} us of device time is above 1.05 of "
+                  f"the control's {t['control_device']:.1f} us")
         print(f"time estimator {kind} N={N} F={F}"
               f"{f' K={arg}' if kind == 'MT' else ''}"
               f"{f' P={arg}' if kind == 'PFB' else ''} on {card}: kernel "
@@ -2572,28 +2671,34 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
               f"device {t['device'] / t['lib_device']:.3f}; bound "
               f"{b_us:.2f} us ({bound[1]}), device/bound "
               f"{t['device'] / b_us:.1f}x; max abs vs plain {max_abs:.4g}, "
-              f"max rel {rel:.3e} (<= {UNIFORM_RTOL:g})")
+              f"max rel {rel:.3e} (<= {UNIFORM_RTOL:g}){ctl_line}")
     print(f"wall: estimator phase in {time.perf_counter() - t0:.1f} s")
 
-    def entry(name, source, replaces, key, times_key):
+    def entry(name, source, replaces, key, times_key, control=None):
         t = times[times_key]
-        return {"name": name, "route": "cuda", "source": CSRC + source,
-                "replaces": replaces, "launches": launches[key],
-                "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
-                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
-                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
-                "device_ms": t["device"] / 1000.0,
-                "host_ms": t["host"] / 1000.0}
+        out = {"name": name, "route": "cuda", "source": CSRC + source,
+               "replaces": replaces, "launches": launches[key],
+               "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+               "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+               "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+               "device_ms": t["device"] / 1000.0,
+               "host_ms": t["host"] / 1000.0}
+        if control is not None:   # the kernel it was redesigned from
+            out.update(control=control,
+                       control_ms=t["control"] / 1000.0,
+                       control_device_ms=t["control_device"] / 1000.0,
+                       control_host_ms=t["control_host"] / 1000.0)
+        return out
 
-    return [entry("fused_psd_sk", "fused_psd_sk.cu",
+    return [entry("fused_psd_sk (plane)", "fused_psd_sk.cu",
                   "rtl_power_fftw_tpu/models/kurtosis.py:46", "SK",
-                  ("SK", 4096)),
+                  ("SK", 4096), "psd_regs_kernel<.., kRegsSk> (PR 15)"),
             entry("fused_psd_tapers", "fused_psd_tapers.cu",
                   "rtl_power_fftw_tpu/models/multitaper.py:60", "MT",
                   ("MT", 4096)),
-            entry("fused_psd_pfb", "fused_psd_pfb.cu",
+            entry("fused_psd_pfb (ring)", "fused_psd_pfb.cu",
                   "rtl_power_fftw_tpu/models/pfb.py:48", "PFB",
-                  ("PFB", 4096))]
+                  ("PFB", 4096), "psd_pfb_kernel (PR 15)")]
 
 
 def drive_sk_excise(cli, fp, ff, tmp) -> int:
@@ -2776,13 +2881,14 @@ def main() -> int:
             ("fused_psd_mixed", "psd_chirp_kernel", ""),
             ("fused_psd_sk", "psd_regs_kernel", ""),
             ("fused_psd_tapers", "psd_regs_kernel", ""),
-            ("fused_psd_pfb", "psd_pfb_kernel", "")):
+            ("fused_psd_pfb", "psd_pfb_kernel", ""),
+            ("fused_psd_pfb", "psd_pfb_ring_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
     print(f"build: all sources in {time.perf_counter() - t0:.1f} s wall")
-    # Every kernel of the parent tree's three earlier libraries, as its
-    # digest (sass_diff --write-digest) holds them, unchanged here.
+    # Every kernel of the parent tree's eight libraries, as its digest
+    # (sass_diff --write-digest) holds them, unchanged here.
     from rtl_power_fftw_tpu_torch.ops.kernels import sass_diff
     want_nvcc, have_nvcc, diffs = sass_diff.check_digest(
         {name: infos[name].path for name in sass_diff.SOURCES})
