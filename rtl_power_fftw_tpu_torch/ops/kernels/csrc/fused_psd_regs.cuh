@@ -18,10 +18,11 @@
 //                 gridDim.x + g (two planes of gridDim.x rows);
 //   kRegsSkPlane  kRegsSk with the |X|^4 sums out of registers: a thread's
 //                 R sums live in its own slots of a shared-memory plane of
-//                 LANES x N f32 after the ring (lane * N + k * TF + t,
-//                 conflict-free), each updated in place per frame with
-//                 kRegsSk's expression, so both planes of partial rows are
-//                 kRegsSk's bit for bit (PLANE_BYTES more shared memory);
+//                 LANES rows of N f32 after the ring (lane * PLANE_STRIDE
+//                 + k * TF + t, conflict-free), each updated in place per
+//                 frame with kRegsSk's expression, so both planes of
+//                 partial rows are kRegsSk's bit for bit (PLANE_BYTES more
+//                 shared memory);
 //   kRegsTapers   the whole step windowed (WINDOWED) by row blockIdx.y of
 //                 a (gridDim.y, N) table of tapers: block (g, k) writes
 //                 partial row k * gridDim.x + g.
@@ -81,8 +82,11 @@ struct RegsShape {
   static constexpr int SMEM_BYTES = RING_OFFSET + LANES * RING_BYTES;
   // 16-byte copies a thread makes of each frame: 2N / 16 / TF.
   static constexpr int COPIES = Plan::R / 8;
-  // kRegsSkPlane's |X|^4 sums, after the ring.
-  static constexpr int PLANE_BYTES = LANES * N * 4;
+  // kRegsSkPlane's |X|^4 sums, after the ring: a lane's N floats, and TF
+  // more where a warp holds several lanes (TF < 32), which puts them on
+  // other banks.
+  static constexpr int PLANE_STRIDE = Plan::TF < 32 ? N + Plan::TF : N;
+  static constexpr int PLANE_BYTES = LANES * PLANE_STRIDE * 4;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem_dst,
@@ -226,7 +230,8 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
   }
   // kRegsSkPlane: the thread's sums of |X|^4, slot k at plane[k * TF].
   float* plane = reinterpret_cast<float*>(
-      reinterpret_cast<uint8_t*>(regs_smem) + S::SMEM_BYTES) + lane * N + t;
+      reinterpret_cast<uint8_t*>(regs_smem) + S::SMEM_BYTES) +
+      lane * S::PLANE_STRIDE + t;
   if constexpr (CUT == kRegsSkPlane) {
 #pragma unroll
     for (int k = 0; k < R; ++k) plane[k * TF] = 0.0f;

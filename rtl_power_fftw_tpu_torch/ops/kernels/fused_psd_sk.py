@@ -75,11 +75,20 @@ def fused_psd_sk_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     return torch.stack([s1, s2, s1 * keep, M * keep])
 
 
+def plane_stride(N: int) -> int:
+    """Floats a lane's row of the plane takes at N bins (PLANE_STRIDE): N,
+    and TF more where a warp holds several lanes (TF < 32), so that their
+    rows fall on other banks."""
+    TF = fp.regs_shape(N).TF
+    return N + TF if TF < 32 else N
+
+
 def plane_smem(N: int) -> int:
     """Bytes of shared memory a block of the plane kernel takes at N bins:
-    K1's, and the LANES x N float32 plane of |X|^4 sums."""
+    K1's, and the plane of |X|^4 sums, LANES rows of
+    :func:`plane_stride` float32."""
     shape = fp.regs_shape(N)
-    return shape.smem + shape.lanes * N * 4
+    return shape.smem + shape.lanes * plane_stride(N) * 4
 
 
 def plane_fits(N: int) -> bool:

@@ -5,6 +5,10 @@ Each build is a copy of ``ops/kernels/csrc`` edited before nvcc
 (:func:`edit`), one library each:
 
 * ``pfb_unroll4``: the ring kernel's tap loop unrolled by 4;
+* ``pfb_p4``: its tap loop over P = 4 taps fixed at compile time, whole
+  (timing at P = 4 only);
+* ``pfb_prmt``: its dequantization by one byte permute a value
+  (``__byte_perm``) in place of two logic operations;
 * ``pfb_noh``, ``pfb_norow``, ``pfb_nofft``: cuts of the ring kernel
   (timing only, their sums are not the PFB's): the prototype taken as 1.0
   (no h loads), the ring rows not read (a value of the slot and sample),
@@ -58,6 +62,13 @@ TAP_LOOP = ("      for (int p = 0; p < P; ++p) {\n"
 H_LOAD = ("const float hv = STAGE_H ? hp[t + k * TF] : "
           "__ldg(hp + t + k * TF);")
 ROW_LOAD = "const unsigned u = row[t + k * TF];"
+DEQUANT = ("\n          v[k].x = __fadd_rn(v[k].x, __fmul_rn(dequant_byte(u & "
+           "0xFFu), hv));\n          v[k].y = __fadd_rn(v[k].y, "
+           "__fmul_rn(dequant_byte(u >> 8), hv));")
+PRMT = ("\n          v[k].x = __fadd_rn(v[k].x, __fmul_rn(__uint_as_float("
+        "__byte_perm(u, 0x4B000000u, 0x7440)) - 8388735.0f, hv));\n"
+        "          v[k].y = __fadd_rn(v[k].y, __fmul_rn(__uint_as_float("
+        "__byte_perm(u, 0x4B000000u, 0x7441)) - 8388735.0f, hv));")
 RING_FFT = ("        if (++slot == slots) slot = 0;\n      }\n    }\n"
             "    regs_transform<LOG2N>(v, x, twiddle, t, active);\n")
 BOUNDS = ("template <int LOG2N, bool WINDOWED, int CUT = kRegsFull>\n"
@@ -66,6 +77,10 @@ BOUNDS = ("template <int LOG2N, bool WINDOWED, int CUT = kRegsFull>\n"
 BUILDS: Dict[str, Tuple[str, Tuple[Tuple[str, str], ...], Tuple[str, ...]]] = {
     "pfb_unroll4": (PFB_SOURCE, ((TAP_LOOP, "#pragma unroll 4\n" + TAP_LOOP),),
                     ("fused_psd_pfb",)),
+    "pfb_p4": (PFB_SOURCE, ((TAP_LOOP, "#pragma unroll\n" + TAP_LOOP.replace(
+        "p < P", "p < 4")),), ("fused_psd_pfb",)),
+    "pfb_prmt": (PFB_SOURCE, ((H_LOAD + DEQUANT, H_LOAD + PRMT),),
+                 ("fused_psd_pfb",)),
     "pfb_noh": (PFB_SOURCE, ((H_LOAD, "const float hv = 1.0f;"),),
                 ("fused_psd_pfb",)),
     "pfb_norow": (PFB_SOURCE, ((ROW_LOAD, "const unsigned u = "
@@ -184,8 +199,8 @@ def main(argv=None) -> int:
                           raw[:, 1::2].float() - 127.0)
         use(libs, "shipped")
         want = fpf.fused_psd_pfb_control(raw, hist[0], F, chunk, h, hist[1])
-        for build in ("shipped", "pfb_unroll4", "pfb_noh", "pfb_norow",
-                      "pfb_nofft"):
+        for build in ("shipped", "pfb_unroll4", "pfb_p4", "pfb_prmt",
+                      "pfb_noh", "pfb_norow", "pfb_nofft"):
             use(libs, build)
             for stage_h in (True, False):
                 got, attrs, group = ring(raw, hist, F, chunk, h, stage_h)

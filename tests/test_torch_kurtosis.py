@@ -503,3 +503,113 @@ def test_sk_kernel_on_card():
     assert torch.equal(got[0], k1)
     np.testing.assert_allclose(got[:2].cpu().numpy(), want[:2].cpu().numpy(),
                                rtol=1e-5)
+
+
+# --- the plane kernel (kRegsSkPlane), transcribed ---
+
+def sk_plane_s2(raw, n_valid, chunk, window=None):
+    """numpy transcription of kRegsSkPlane's |X|^4 sums: thread (lane, t)
+    of a block keeps slot k's sum at plane[lane * stride + k * TF + t]
+    (LANES rows of plane_stride(N) float32 in shared memory), p * p added
+    in place a frame; at the end each goes to the lanes' by-bin buffer at
+    bin regs_slot_bin(t, k), the lanes are added in order, and the partial
+    rows are summed in float64 (est_sum_kernel's order). Returns s2."""
+    F, N = raw.shape[0], raw.shape[1] // 2
+    shape = fp.regs_shape(N)
+    TF, R, lanes = shape.TF, shape.R, shape.lanes
+    tw = fp.pass_twiddles(N)
+    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    w16 = header_w16().astype(np.complex64)
+    group = fp.k1_group(F, chunk, h100_resident(N, window is not None))
+    stride = fsk.plane_stride(N)
+    # Thread (lane, t)'s slot k: its address in the plane, each once.
+    lane_, k_, t_ = np.meshgrid(np.arange(lanes), np.arange(R),
+                                np.arange(TF), indexing="ij")
+    where = (lane_ * stride + k_ * TF + t_).reshape(lanes, R * TF)
+    assert len(np.unique(where)) == where.size
+    assert where.max() < lanes * stride
+    rows = []
+    for f0 in range(0, F, group):
+        plane = np.zeros(lanes * stride, np.float32)
+        for f in range(f0, min(f0 + group, F, n_valid)):
+            re = raw[f, 0::2].astype(np.float32) - np.float32(127)
+            im = raw[f, 1::2].astype(np.float32) - np.float32(127)
+            if window is not None:
+                w = np.asarray(window, np.float32)
+                re, im = re * w, im * w
+            vals, _ = transform((re + 1j * im).astype(np.complex64), tw, w16)
+            p = vals.real * vals.real + vals.imag * vals.imag   # (TF, R)
+            plane[where[(f - f0) % lanes]] += (p * p).T.reshape(-1)
+        _, bins = transform(np.zeros(N, np.complex64), tw, w16)
+        by_bin = np.full((lanes, N), np.nan, np.float32)
+        for lane in range(lanes):
+            by_bin[lane, bins.T.reshape(-1)] = plane[where[lane]]
+        assert not np.isnan(by_bin).any()   # every bin written once
+        row = by_bin[0].copy()
+        for lane in range(1, lanes):
+            row += by_bin[lane]
+        rows.append(row)
+    rows = np.asarray(rows, np.float64)
+    return sum(rows[lane::8].sum(0) for lane in range(8)).astype(np.float32)
+
+
+@pytest.mark.parametrize("N,F,n_valid,window", [
+    (64, 64, 64, None), (256, 128, 100, "hann"), (256, 64, 64, None),
+    (64, 64, 1, None), (512, 32, 30, "hann")])
+def test_sk_plane_transcription(N, F, n_valid, window):
+    """The plane's layout (slot k of thread t at k * TF + t, copied out by
+    bin at the end) gives sk_transcription's s2 (the control's: the sums
+    in registers, by bin) bit for bit."""
+    w = None if window is None else make_window(window, N)
+    chunk = adapt_batch(F)[1]
+    raw = frames(F, N, 23)
+    want, _ = sk_transcription(raw, n_valid, chunk, w)
+    np.testing.assert_array_equal(sk_plane_s2(raw, n_valid, chunk, w),
+                                  want[1])
+
+
+@pytest.mark.parametrize("N", sorted(fp.PASS_PLAN))
+def test_sk_plane_route_rule_and_banks(N):
+    """plane_fits, a rule on N alone: K1's shared memory and the plane
+    (LANES rows of N float32, padded by TF where a warp holds several
+    lanes) within the 227 KB of a block (every N up to 8192; at 16384 the
+    139,264 B exchange buffer, the 65,568 B ring and the 65,536 B plane do
+    not fit), and the blocks that shared memory leaves an SM; a warp's
+    plane accesses (lane * stride + k * TF + t) on 32 banks."""
+    shape = fp.regs_shape(N)
+    smem = fsk.plane_smem(N)
+    stride = fsk.plane_stride(N)
+    assert stride == N + (shape.TF if shape.TF < 32 else 0)
+    assert smem == shape.smem + shape.lanes * stride * 4
+    assert fsk.plane_fits(N) == (smem <= fp.SMEM_PER_BLOCK) == (N <= 8192)
+    if fsk.plane_fits(N):
+        # Up to 4096 bins the plane leaves K1's 3 blocks an SM by shared
+        # memory (its registers decide on the card).
+        want = {8192: 1}.get(N, 3 if N >= 128 else 6)
+        assert fp.smem_blocks_per_sm(smem, shape.threads) == want
+    for warp in range(shape.threads // 32):
+        tid = np.arange(32) + 32 * warp
+        lane, t = tid // shape.TF, tid % shape.TF
+        for k in range(shape.R):
+            banks = (lane * stride + k * shape.TF + t) % 32
+            assert len(set(banks.tolist())) == 32
+
+
+def test_sk_plane_smem_as_the_card_reports_it():
+    """The plane kernel's shared memory at the sizes chip_smoke.py prints
+    (dynamic bytes a block on the card): 67,648 at 2048, 67,616 at 4096,
+    135,200 at 8192; K1's (the control's) 51,264 at 2048."""
+    assert [fsk.plane_smem(N) for N in (2048, 4096, 8192)] == [
+        67648, 67616, 135200]
+    assert fp.regs_shape(2048).smem == 51264
+
+
+def test_sk_control_wrapper_counts_plain_calls_on_the_cpu():
+    fp.COUNTS.reset()
+    raw = torch.from_numpy(frames(16, 64, 3))
+    a = fsk.fused_psd_sk(raw, 12, 16, None, 2.0)
+    b = fsk.fused_psd_sk_control(raw, 12, 16, None, 2.0)
+    assert torch.equal(a, b)
+    assert (fp.COUNTS.kernel_sk, fp.COUNTS.kernel_sk_plane,
+            fp.COUNTS.plain) == (0, 0, 2)
+    fp.COUNTS.reset()

@@ -12,6 +12,7 @@ card; its virtual-row map over history and slot and its history update
 """
 
 import io
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,11 +25,14 @@ from rtl_power_fftw_tpu_torch.models import bartlett_psd, pfb
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
 from rtl_power_fftw_tpu_torch.pipeline.datastore import Datastore
+from rtl_power_fftw_tpu_torch.probes import estimator_builds
 
 from test_torch_session import assert_text_outputs_match, mask_stderr, run
 
 CPU = torch.device("cpu")
 RATE = 2_048_000
+CSRC = (Path(__file__).resolve().parents[1]
+        / "rtl_power_fftw_tpu_torch/ops/kernels/csrc")
 
 
 def direct_pfb(raw, N, P, window="hann"):
@@ -402,3 +406,188 @@ def test_pfb_kernel_on_card():
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5)
     assert torch.equal(dev_hist[1].cpu(), hist[1])
+
+
+# --- the ring kernel (psd_pfb_ring_kernel), transcribed ---
+
+def ring_transcription(slot, history, n_valid, h, group, lanes):
+    """numpy transcription of psd_pfb_ring_kernel's load stage. Block g
+    (frames f0 = g * group .. f1 - 1, f1 = min(f0 + group, F, n_valid))
+    stages local row q (virtual row f0 + q) into ring slot q mod (2 lanes
+    + P - 1): rows [0, lanes + P - 1) before its first iteration, rows
+    [lanes (i + 1) + P - 1, lanes (i + 2) + P - 1) at iteration i, each
+    only below its frames + P - 1. Lane l's frame f0 + l + lanes i reads
+    tap p from slot (lanes i + l + p) mod slots, its sum built in float32
+    in p order from zero. Asserts that each slot read holds the row the
+    tap needs, staged before the iteration, and that a slot is rewritten
+    only when no later iteration reads its row. Returns (sums (n_valid, N)
+    complex64, the local rows each block staged, in order)."""
+    P, N = h.shape
+    F = slot.shape[0]
+    slots = 2 * lanes + P - 1
+
+    def virtual(r):
+        where, i = virtual_row(r, P)
+        return (history if where == "history" else slot)[i]
+
+    sums = np.zeros((n_valid, N), np.complex64)
+    staged_by_block = []
+    for f0 in range(0, F, group):
+        f1 = min(f0 + group, F, n_valid)
+        frames = max(f1 - f0, 0)
+        rows = frames + P - 1 if frames else 0
+        ring = [None] * slots      # (local row, iteration that staged it)
+        staged = []
+
+        def stage(lo, hi, it):
+            for q in range(lo, min(hi, rows)):
+                old = ring[q % slots]
+                assert old is None or old[0] < lanes * max(it, 0)
+                ring[q % slots] = (q, it)
+                staged.append(q)
+
+        stage(0, lanes + P - 1, -1)
+        for i in range(-(-frames // lanes)):
+            stage(lanes * (i + 1) + P - 1, lanes * (i + 2) + P - 1, i)
+            for lane in range(lanes):
+                f = f0 + lane + lanes * i
+                if f >= f1:
+                    continue
+                sr = np.zeros(N, np.float32)
+                si = np.zeros(N, np.float32)
+                s = (lanes * i + lane) % slots
+                for p in range(P):
+                    q, it = ring[s]
+                    assert q == lanes * i + lane + p and it < i
+                    u8 = virtual(f0 + q)
+                    sr = sr + (u8[0::2].astype(np.float32)
+                               - np.float32(127)) * h[p]
+                    si = si + (u8[1::2].astype(np.float32)
+                               - np.float32(127)) * h[p]
+                    s = (s + 1) % slots
+                sums[f] = sr + 1j * si
+        staged_by_block.append(staged)
+    return sums, staged_by_block
+
+
+@pytest.mark.parametrize("P,N,F,group,n_valid", [
+    (1, 64, 64, 8, 64), (2, 64, 40, 8, 37), (4, 2048, 16, 4, 16),
+    (4, 2048, 16, 4, 2), (4, 4096, 8, 2, 7), (32, 256, 64, 16, 64),
+    (32, 256, 64, 16, 5), (2, 2048, 8, 8, 0), (32, 64, 96, 32, 90)])
+def test_pfb_ring_transcription(P, N, F, group, n_valid):
+    """The ring's rows (each staged once a block, read from the slot the
+    kernel computes, never overwritten while needed) give
+    pfb_transcription's polyphase sums bit for bit, history rows for
+    virtual rows < P - 1 (n_valid < P - 1 included)."""
+    h = pfb.pfb_prototype(N, P, "hann").reshape(P, N)
+    rng = np.random.default_rng(P * 1000 + n_valid)
+    slot = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+    history = rng.integers(0, 256, (P - 1, 2 * N), dtype=np.uint8)
+    lanes = fp.regs_shape(N).lanes
+    sums, staged = ring_transcription(slot, history, n_valid, h, group,
+                                      lanes)
+    want, _ = pfb_transcription(slot, history, n_valid, h)
+    np.testing.assert_array_equal(sums, want)
+    for g, rows in enumerate(staged):
+        frames = max(min(g * group + group, F, n_valid) - g * group, 0)
+        assert rows == list(range(frames + P - 1 if frames else 0))
+
+
+@pytest.mark.parametrize("N", sorted(fp.PASS_PLAN))
+def test_pfb_ring_route_rule(N):
+    """ring_shape, a rule on (N, P) alone, at every P: the ring (2 LANES +
+    P - 1 slots of 2N + 32 bytes beside the exchange buffers) within the
+    227 KB of a block, else the control; the prototype staged exactly
+    where it fits and still leaves 2 blocks an SM by shared memory; the
+    blocks it claims those of the shared memory it takes."""
+    shape = fp.regs_shape(N)
+    for P in range(1, fpf.MAX_TAPS + 1):
+        ring = shape.exchange + (2 * shape.lanes + P - 1) * (2 * N + 32)
+        got = fpf.ring_shape(N, P)
+        if ring > fp.SMEM_PER_BLOCK:
+            assert got is None
+            continue
+        assert got.slots == 2 * shape.lanes + P - 1
+        with_h = ring + 4 * P * N
+        two = 2 * (with_h + fp.SMEM_RESERVED) <= fp.SMEM_PER_SM
+        assert got.stage_h == (two and 2 * shape.threads <= 2048)
+        assert got.smem == (with_h if got.stage_h else ring)
+        assert got.smem <= fp.SMEM_PER_BLOCK
+        assert got.blocks_per_sm == min(
+            2048 // shape.threads,
+            fp.SMEM_PER_SM // (got.smem + fp.SMEM_RESERVED))
+        assert got.blocks_per_sm >= (2 if got.stage_h else 1)
+
+
+def test_pfb_ring_route_at_the_drives_shapes():
+    """The route at the shapes the card runs: 2048 bins, 4 taps (the
+    drives'): the ring with h staged in 96,480 B, 2 blocks an SM; 4096:
+    the ring, h through L2, 3 blocks; 16384 at P >= 2: the control (the
+    exchange buffer alone is 139,264 B); 16384 at P = 1: the ring."""
+    assert fpf.ring_shape(2048, 4) == fpf.RingShape(7, True, 96480, 2)
+    assert fpf.ring_shape(4096, 4) == fpf.RingShape(5, False, 75936, 3)
+    assert fp.regs_shape(16384).exchange == 139264
+    assert all(fpf.ring_shape(16384, P) is None for P in range(2, 33))
+    assert fpf.ring_shape(16384, 1) == fpf.RingShape(2, False, 204864, 1)
+    # K1's own shared memory, as the card reports it (51,264 B at 2048).
+    assert fp.regs_shape(2048).smem == 51264
+
+
+@pytest.mark.parametrize("N", [64, 128, 256, 512, 2048])
+def test_pfb_ring_row_reads_bank_model(N):
+    """The u16 reads of a warp's lanes from their ring slots (2N + 32
+    bytes apart, N <= 256 several lanes a warp): threads on one 4-byte
+    word share it, and no two words of one read share a bank while the
+    lanes' slots run in order; at the ring's wrap at most 2 do."""
+    shape = fp.regs_shape(N)
+    TF, R = shape.TF, shape.R
+    for P in (1, 2, 4, 32):
+        slots = 2 * shape.lanes + P - 1
+        for i in range(3):
+            for p in range(P):
+                for warp in range(shape.threads // 32):
+                    tid = np.arange(32) + 32 * warp
+                    lane, t = tid // TF, tid % TF
+                    slot = (shape.lanes * i + lane + p) % slots
+                    wrap = np.any(np.diff(slot) < 0)
+                    for k in range(R):
+                        word = (slot * (2 * N + 32) + 2 * (t + k * TF)) // 4
+                        words = np.unique(word)
+                        ways = np.bincount(words % 32).max()
+                        assert ways <= (2 if wrap else 1)
+
+
+def test_pfb_control_wrapper_checks_and_counts_on_the_cpu():
+    """fused_psd_pfb_control takes the plain version on the CPU, as the
+    routed wrapper does, and counts no kernel."""
+    fp.COUNTS.reset()
+    N, P = 64, 4
+    raw = torch.from_numpy(frames(8, N, 1))
+    h = torch.from_numpy(pfb.pfb_prototype(N, P).reshape(P, N))
+    hist = [torch.zeros((P - 1, 2 * N), dtype=torch.uint8) for _ in range(4)]
+    a = fpf.fused_psd_pfb(raw, hist[0], 8, 8, h, hist[1], fresh=True)
+    b = fpf.fused_psd_pfb_control(raw, hist[2], 8, 8, h, hist[3], fresh=True,
+                                  group=2)
+    assert torch.equal(a, b) and torch.equal(hist[1], hist[3])
+    assert (fp.COUNTS.kernel_pfb, fp.COUNTS.kernel_pfb_ring,
+            fp.COUNTS.plain) == (0, 0, 2)
+    fp.COUNTS.reset()
+
+
+@pytest.mark.parametrize("build", sorted(estimator_builds.BUILDS))
+def test_estimator_builds_edit_the_shipped_sources(build):
+    """Each build of probes/estimator_builds.py edits the shipped source it
+    names exactly where it says (each replaced text found once), and
+    changes it."""
+    name, edits, _ = estimator_builds.BUILDS[build]
+    text = (CSRC / name).read_text()
+    got = estimator_builds.edit(text, build)
+    assert got != text
+    for old, new in edits:
+        assert text.count(old) == 1 and new in got
+
+
+def test_estimator_builds_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert estimator_builds.main([]) == 1
