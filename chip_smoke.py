@@ -157,8 +157,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    step, its last masked) and 8182, and the streams entries at counts
    (F, 0, 5) and at the two-stream drives' steps (500 x 120 frames, 998 x
    824), each run twice for determinism,
-   and a sweep of every even 7-smooth N to 16384 and a spread of even N
-   to 8192 through the chirp-Z kernel (8 frames each);
+   (the streams entry at 510 with Hann also held to 1.1e-6 of the golden,
+   plain's distance beside), and a sweep of every even 7-smooth N to
+   16384 and a spread of even N to 8192 through the chirp-Z kernel (8
+   frames each);
    their 60-seed tone yards (500, 2400 unwindowed, 6000 Hann; 998
    unwindowed and Hann) against the scipy float32 class with the
    per-seed p99; a call, the device's and the wrapper's host time at

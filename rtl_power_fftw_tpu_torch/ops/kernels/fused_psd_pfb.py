@@ -155,7 +155,7 @@ def fused_psd_pfb(raw_u8: torch.Tensor, history: torch.Tensor, n_valid: int,
     stream (asynchronously: ``history_out`` is written after the kernel on
     that stream); a CPU tensor runs the plain version."""
     return _pfb("fused_psd_pfb", raw_u8, history, n_valid, chunk, h,
-                history_out, fresh, None, None)
+                history_out, fresh, False, None)
 
 
 def fused_psd_pfb_control(raw_u8: torch.Tensor, history: torch.Tensor,
@@ -168,7 +168,7 @@ def fused_psd_pfb_control(raw_u8: torch.Tensor, history: torch.Tensor,
     same grid), else on its own grid; a CPU tensor runs the plain
     version."""
     return _pfb("fused_psd_pfb_control", raw_u8, history, n_valid, chunk, h,
-                history_out, fresh, False, group)
+                history_out, fresh, True, group)
 
 
 def pfb_group(F: int, chunk: int, N: int, P: int, index: int,
@@ -183,11 +183,10 @@ def pfb_group(F: int, chunk: int, N: int, P: int, index: int,
 
 def _pfb(kernel: str, raw_u8: torch.Tensor, history: torch.Tensor,
          n_valid: int, chunk: int, h: torch.Tensor,
-         history_out: torch.Tensor, fresh: bool, ring: Optional[bool],
+         history_out: torch.Tensor, fresh: bool, control: bool,
          group: Optional[int]) -> torch.Tensor:
-    """Check, then run the plain version (CPU) or the ring kernel
-    (``ring``; None: where :func:`ring_shape` fits) or the control on the
-    card."""
+    """Check, then run the plain version (CPU), or on the card the control
+    (``control``) or else the kernel :func:`ring_shape` picks."""
     n_valid = int(n_valid)
     fp.check_args(kernel, fp.fused_psd_eligible, raw_u8, n_valid, chunk,
                   None)
@@ -198,7 +197,7 @@ def _pfb(kernel: str, raw_u8: torch.Tensor, history: torch.Tensor,
                                        history_out, fresh)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
     P = h.shape[0]
-    shape = ring_shape(N, P) if ring is not False else None
+    shape = None if control else ring_shape(N, P)
     index = raw_u8.device.index
     if group is None:
         group = pfb_group(F, chunk, N, P, index, shape is not None)
@@ -225,13 +224,13 @@ def _pfb(kernel: str, raw_u8: torch.Tensor, history: torch.Tensor,
     return out
 
 
-def kernel_attributes(N: int, P: int, ring: Optional[bool] = None,
+def kernel_attributes(N: int, P: int, ring: bool,
                       device: Optional[torch.device] = None) -> dict:
     """What a kernel gets at N bins and P taps on the card, as
     :func:`.fused_psd.kernel_attributes` gives K1's: the ring kernel's
-    (``ring``; None: the route's) at its :func:`ring_shape`, or the
-    control's. Launches nothing."""
-    shape = ring_shape(N, P) if ring is not False else None
+    (``ring``) at its :func:`ring_shape`, or the control's. Launches
+    nothing."""
+    shape = ring_shape(N, P) if ring else None
     if ring and shape is None:
         raise ValueError(f"the ring kernel does not fit N={N}, P={P}")
     return fp.library_attributes(

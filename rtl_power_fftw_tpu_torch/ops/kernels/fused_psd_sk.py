@@ -108,7 +108,7 @@ def fused_psd_sk(raw_u8: torch.Tensor, n_valid: int, chunk: int,
 
     A CUDA tensor runs the kernel :func:`plane_fits` picks on the current
     stream (asynchronously); a CPU tensor runs the plain version."""
-    return _sk("fused_psd_sk", raw_u8, n_valid, chunk, window, sigma, None)
+    return _sk("fused_psd_sk", raw_u8, n_valid, chunk, window, sigma, False)
 
 
 def fused_psd_sk_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -118,14 +118,14 @@ def fused_psd_sk_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     |X|^4 sums in registers) at every N; a CPU tensor runs the plain
     version."""
     return _sk("fused_psd_sk_control", raw_u8, n_valid, chunk, window,
-               sigma, False)
+               sigma, True)
 
 
 def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
         window: Optional[torch.Tensor], sigma: float,
-        plane: Optional[bool]) -> torch.Tensor:
-    """Check, then run the plain version (CPU) or the plane kernel
-    (``plane``; None: where it fits) or the control on the card."""
+        control: bool) -> torch.Tensor:
+    """Check, then run the plain version (CPU), or on the card the control
+    (``control``) or else the kernel :func:`plane_fits` picks."""
     n_valid = int(n_valid)
     sigma = float(sigma)
     fp.check_args(kernel, fp.fused_psd_eligible, raw_u8, n_valid, chunk,
@@ -136,7 +136,7 @@ def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
         fp.COUNTS.plain += 1
         return fused_psd_sk_reference(raw_u8, n_valid, chunk, window, sigma)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
-    plane = plane_fits(N) if plane is None else plane
+    plane = not control and plane_fits(N)
     index = raw_u8.device.index
     # K1's (K2's) grid, from K1's occupancy: the s1 plane is K1's output.
     group = fp.k1_group(F, chunk, fp.resident_blocks(N, window is not None,
@@ -156,13 +156,10 @@ def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
     return out
 
 
-def kernel_attributes(N: int, windowed: bool = False,
-                      plane: Optional[bool] = None,
+def kernel_attributes(N: int, windowed: bool, plane: bool,
                       device: Optional[torch.device] = None) -> dict:
     """What the first pass gets at N bins on the card, as
     :func:`.fused_psd.kernel_attributes` gives K1's: the plane kernel's
-    (``plane``; None: the route's, :func:`plane_fits`) or the control's.
-    Launches nothing."""
-    plane = plane_fits(N) if plane is None else plane
+    (``plane``) or the control's. Launches nothing."""
     return fp.library_attributes("fused_psd_sk", N, int(windowed),
                                  int(plane), device=device)
