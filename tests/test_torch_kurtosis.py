@@ -597,10 +597,11 @@ def test_sk_plane_route_rule_and_banks(N):
 
 def test_sk_plane_smem_as_the_card_reports_it():
     """The plane kernel's shared memory at the sizes chip_smoke.py prints
-    (dynamic bytes a block on the card): 67,648 at 2048, 67,616 at 4096,
-    135,200 at 8192; K1's (the control's) 51,264 at 2048."""
-    assert [fsk.plane_smem(N) for N in (2048, 4096, 8192)] == [
-        67648, 67616, 135200]
+    (dynamic bytes a block on the card): 69,120 at 256 (rows padded),
+    67,648 at 2048, 67,616 at 4096, 135,200 at 8192; K1's (the
+    control's) 51,264 at 2048."""
+    assert [fsk.plane_smem(N) for N in (256, 2048, 4096, 8192)] == [
+        69120, 67648, 67616, 135200]
     assert fp.regs_shape(2048).smem == 51264
 
 
