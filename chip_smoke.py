@@ -173,11 +173,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (one and two streams), each through its kernel alone.
 14. the estimator kernels (``fused_psd_sk``: spectral kurtosis, K1/K2's
    group kernel with a second sum of |X|^4, in a shared-memory plane up
-   to 8192 bins, in registers (the control, PR 15's kernel) at 16384;
+   to 8192 bins, in registers (the control, the kernel it was
+   redesigned from) at 16384;
    ``fused_psd_tapers``: the multitaper, K2's with a taper axis;
    ``fused_psd_pfb``: the polyphase filterbank, K1's transform after a
    P-row load, from a shared-memory ring of raw rows where it fits, else
-   the control, PR 15's P rows through L2): their registers, spill,
+   the control, P rows a frame through L2): their registers, spill,
    shared memory and blocks per SM at 256, 2048 and 16384 bins, each new
    kernel beside its control; against their plain versions and the
    float64 golden, twice each (SK at 2048 F=4096, Hann masked, the
@@ -2239,7 +2240,8 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
     """14. The estimator kernels (``fused_psd_sk``, ``fused_psd_tapers``,
     ``fused_psd_pfb``): against their plain versions and the float64
     golden, twice each; SK's s1 against K1's/K2's output bit for bit and
-    SK's and the PFB's outputs against their controls' (PR 15's kernels)
+    SK's and the PFB's outputs against their controls' (the kernels they
+    were redesigned from)
     bit for bit; the PFB's history across three steps; the 60-seed tone
     yards of SK's s2, the multitaper and the PFB; the CLI drives, each on
     its kernel alone; times beside the control, the plain version,
@@ -2282,7 +2284,8 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
     want_counts = {"SK": 0, "SK control": 0, "PFB": 0, "PFB control": 0}
 
     # SK: s1 is K1's (K2's) output bit for bit, every row the control's
-    # (PR 15's kernel, on the same grid) bit for bit; s1 and s2 within
+    # (the kernel it was redesigned from, on the same grid) bit for bit;
+    # s1 and s2 within
     # 1e-5 of plain and of the float64 golden; under a gate, the kept rows
     # are the gate of the kernel's own s1 and s2 (sk_keep), bit for bit.
     for label, N, fps, n_valid, wname, sigma in (
@@ -2363,7 +2366,8 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
     # PFB: three consecutive steps of one stream (the second with fewer
     # valid frames than P - 1), the history on the card carried across
     # them and equal to plain's bit for bit, output and history the
-    # control's (PR 15's kernel, run on the route's grid with histories of
+    # control's (the kernel it was redesigned from, run on the route's
+    # grid with histories of
     # its own) bit for bit; each step within 1e-5 of plain and of the
     # float64 golden where it sums >= 64 frames, and the three steps'
     # total (what a session accumulates) within 1e-5 of the golden. A
@@ -2654,7 +2658,7 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
                      control=event_times_us(control),
                      control_host=host_us(control))
             ratio = t["device"] / t["control_device"]
-            ctl_line = (f"; the control (PR 15's kernel) {t['control']:.1f} "
+            ctl_line = (f"; the control {t['control']:.1f} "
                         f"us a call, device {cd[0]:.1f}/{cd[1]:.1f} us "
                         f"(the kernel's {kd[0]:.1f}/{kd[1]:.1f}), host "
                         f"{t['control_host']:.1f} us; device/control "
@@ -2694,13 +2698,13 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
 
     return [entry("fused_psd_sk (plane)", "fused_psd_sk.cu",
                   "rtl_power_fftw_tpu/models/kurtosis.py:46", "SK",
-                  ("SK", 4096), "psd_regs_kernel<.., kRegsSk> (PR 15)"),
+                  ("SK", 4096), "psd_regs_kernel<.., kRegsSk>"),
             entry("fused_psd_tapers", "fused_psd_tapers.cu",
                   "rtl_power_fftw_tpu/models/multitaper.py:60", "MT",
                   ("MT", 4096)),
             entry("fused_psd_pfb (ring)", "fused_psd_pfb.cu",
                   "rtl_power_fftw_tpu/models/pfb.py:48", "PFB",
-                  ("PFB", 4096), "psd_pfb_kernel (PR 15)")]
+                  ("PFB", 4096), "psd_pfb_kernel")]
 
 
 def drive_sk_excise(cli, fp, ff, tmp) -> int:

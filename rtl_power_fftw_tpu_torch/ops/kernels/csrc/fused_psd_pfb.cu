@@ -39,11 +39,12 @@
 // iteration, the barrier that frees the exchange buffer also publishes
 // the copied rows, and no mbarrier phase per slot is needed.
 //
-// psd_pfb_kernel (PR 15's kernel, the control, and the route where the
-// ring does not fit: 16384 bins at P >= 2): a thread builds its R samples
-// of S_j straight from device memory, for each p R u16 reads of row j + p
-// of the virtual array (the history for rows < P - 1) and R reads of h,
-// both through L2 (each raw row is fetched P times; h once a frame).
+// psd_pfb_kernel (the kernel the ring kernel was redesigned from, the
+// control, and the route where the ring does not fit: 16384 bins at P >=
+// 2): a thread builds its R samples of S_j straight from device memory,
+// for each p R u16 reads of row j + p of the virtual array (the history
+// for rows < P - 1) and R reads of h, both through L2 (each raw row is
+// fetched P times; h once a frame).
 //
 // After the sum, two stream-ordered copies write the history the next
 // step reads into `history_out`: rows n_valid .. n_valid + P - 2 of the

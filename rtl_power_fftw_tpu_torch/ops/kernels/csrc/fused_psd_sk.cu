@@ -25,13 +25,14 @@
 // own slots updated in place, so a thread holds K1's registers and the
 // block runs at K1's (K2's) occupancy, which K1's grid was sized for; the
 // plane costs one shared load and store a bin and frame, conflict-free.
-// kRegsSk (PR 15's kernel, the control, and the route at 16384 bins,
-// where the 64 KB plane does not fit beside the exchange buffer and the
-// ring) keeps them in R more f32 registers: 168-172 registers at 512-4096
-// bins and 1 block an SM (nvcc 12.9, NVIDIA H100 80GB HBM3, 700.00 W),
-// where K1 has 80 and 3 and K2 128 and 2, so K1's grid runs in several
-// waves; at 16384, where the 1024-thread block holds a thread to 64
-// registers, 488-556 B of spill. Both give the same s2 bits.
+// kRegsSk (the cut kRegsSkPlane was redesigned from, the control, and the
+// route at 16384 bins, where the 64 KB plane does not fit beside the
+// exchange buffer and the ring) keeps them in R more f32 registers:
+// 168-172 registers at 512-4096 bins and 1 block an SM (nvcc 12.9, NVIDIA
+// H100 80GB HBM3, 700.00 W), where K1 has 80 and 3 and K2 128 and 2, so
+// K1's grid runs in several waves; at 16384, where the 1024-thread block
+// holds a thread to 64 registers, 488-556 B of spill. Both give the same
+// s2 bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

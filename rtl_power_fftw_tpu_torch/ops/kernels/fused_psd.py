@@ -73,7 +73,8 @@ RAW_ALIGN = 16
 WINDOW_ALIGN = 4
 
 #: Shared memory on a Hopper SM: the most one block may use (227 KB), the
-#: SM's whole (228 KB), and the driver's share of each resident block.
+#: SM's whole (228 KB), and the 1 KB the system reserves for each
+#: resident block.
 SMEM_PER_BLOCK = 232448
 SMEM_PER_SM = 233472
 SMEM_RESERVED = 1024
