@@ -156,6 +156,7 @@ class LaunchCounts:
         self.kernel_sk = 0
         self.kernel_sk_plane = 0
         self.kernel_tapers = 0
+        self.kernel_tapers_control = 0
         self.kernel_pfb = 0
         self.kernel_pfb_ring = 0
         self.plain = 0

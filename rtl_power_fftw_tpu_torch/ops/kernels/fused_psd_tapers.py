@@ -82,11 +82,26 @@ def fused_psd_tapers(raw_u8: torch.Tensor, n_valid: int, chunk: int,
 
     A CUDA tensor runs the kernel on the current stream (asynchronously);
     a CPU tensor runs the plain version."""
+    return _tapers("fused_psd_tapers", raw_u8, n_valid, chunk, tapers, True)
+
+
+def fused_psd_tapers_control(raw_u8: torch.Tensor, n_valid: int,
+                             chunk: int, tapers: torch.Tensor
+                             ) -> torch.Tensor:
+    """:func:`fused_psd_tapers` on the kernel with the taper axis on its
+    grid at every N; a CPU tensor runs the plain version."""
+    return _tapers("fused_psd_tapers_control", raw_u8, n_valid, chunk,
+                   tapers, True)
+
+
+def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
+            tapers: torch.Tensor, control: bool) -> torch.Tensor:
+    """Check, then run the plain version (CPU) or the kernel (card)."""
     n_valid = int(n_valid)
-    fp.check_args("fused_psd_tapers", fp.fused_psd_eligible, raw_u8, n_valid,
-                  chunk, None)
+    fp.check_args(kernel, fp.fused_psd_eligible, raw_u8, n_valid, chunk,
+                  None)
     check_tapers(tapers, raw_u8)
-    if not fp._on_cuda("fused_psd_tapers", raw_u8):
+    if not fp._on_cuda(kernel, raw_u8):
         fp.COUNTS.plain += 1
         return fused_psd_tapers_reference(raw_u8, n_valid, chunk, tapers)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
@@ -94,13 +109,16 @@ def fused_psd_tapers(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     index = raw_u8.device.index
     group = tapers_group(F, chunk, K, fp.resident_blocks(N, True, index))
     out = fp._launch(
-        "fused_psd_tapers", raw_u8, tapers, K * -(-F // group), (N,),
+        kernel, raw_u8, tapers, K * -(-F // group), (N,),
         lambda lib, raw, twiddle, tp, partial, out, stream:
         lib.rpf_fused_psd_tapers(raw, twiddle, tp, partial, out, index,
                                  N.bit_length() - 1, F, group, K, n_valid,
                                  stream),
         library="fused_psd_tapers")
-    fp.COUNTS.kernel_tapers += 1
+    if control:
+        fp.COUNTS.kernel_tapers_control += 1
+    else:
+        fp.COUNTS.kernel_tapers += 1
     return out
 
 

@@ -1,4 +1,4 @@
-"""The redesigned SK and PFB kernels against other builds of them, measured
+"""The redesigned estimator kernels against other builds of them, measured
 on the card (2048 bins, F = 4096 and the drives' step F = 400).
 
 Each build is a copy of ``ops/kernels/csrc`` edited before nvcc
@@ -18,17 +18,23 @@ Each build is a copy of ``ops/kernels/csrc`` edited before nvcc
   windowed) and 1 for every other cut: ``fused_psd_sk`` (the plane cut
   held to K1's 80 registers, on the shipped K1's grid) and ``fused_psd``
   (K1 and K2 with B = 1, which is not the shipped build's bare
-  ``__launch_bounds__(THREADS)``, on their own grid).
+  ``__launch_bounds__(THREADS)``, on their own grid);
+* ``mt_nofft``: the multitaper control (``kRegsTapers``, grid (G, K))
+  with the transform left out (timing only): each frame loaded,
+  dequantized and tapered once a taper, as the control does.
 
 It prints one line a build and kernel: the device µs a call (calls queued
 behind a sleep kernel, the least of three runs), the registers, spill
 bytes and blocks an SM, and the grid; for the PFB the ring kernel with
 the prototype staged in shared memory and read through L2, and the
 shipped ring kernel over a sweep of frames a block; then the control and
-``torch.fft.fft`` of the complex64 frames (F polyphase sums for the PFB).
+``torch.fft.fft`` of the complex64 frames (F polyphase sums for the PFB,
+F K tapered frames for the multitaper, K = 7).
 
-Run: ``python -m rtl_power_fftw_tpu_torch.probes.estimator_builds``.
-Needs a CUDA card and nvcc; without a card it exits 1. The copies and
+Run: ``python -m rtl_power_fftw_tpu_torch.probes.estimator_builds [part
+...]``, the parts ``pfb``, ``sk`` (with K1) and ``mt`` (default: all).
+Needs a CUDA card and nvcc; without a card it exits 1, on an unknown part
+2. The copies and
 their libraries go to ``ops/kernels/build/estimator_builds/``.
 """
 
@@ -43,16 +49,18 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..models.multitaper import _session_tapers
 from ..models.pfb import pfb_prototype
 from ..ops.kernels import _build
 from ..ops.kernels import fused_psd as fp
 from ..ops.kernels import fused_psd_pfb as fpf
 from ..ops.kernels import fused_psd_sk as fsk
+from ..ops.kernels import fused_psd_tapers as fmt
 from ..ops.spectral import adapt_batch
 from ._timing import card
 from .ring_layouts import device_us
 
-N, P = 2048, 4
+N, P, K = 2048, 4, 7
 FRAMES = (4096, 400)
 PFB_SOURCE = "fused_psd_pfb.cu"
 REGS_HEADER = "fused_psd_regs.cuh"
@@ -71,6 +79,8 @@ PRMT = ("\n          v[k].x = __fadd_rn(v[k].x, __fmul_rn(__uint_as_float("
         "__byte_perm(u, 0x4B000000u, 0x7441)) - 8388735.0f, hv));")
 RING_FFT = ("        if (++slot == slots) slot = 0;\n      }\n    }\n"
             "    regs_transform<LOG2N>(v, x, twiddle, t, active);\n")
+FFT_CUTS = ("  constexpr bool FFT = CUT == kRegsFull || CUT == kRegsSk ||\n"
+            "                       CUT == kRegsTapers || CUT == kRegsSkPlane;")
 BOUNDS = ("template <int LOG2N, bool WINDOWED, int CUT = kRegsFull>\n"
           "__global__ void __launch_bounds__(RegsShape<LOG2N>::THREADS)\n")
 #: build -> (edited file, (old, new) edits, libraries it builds)
@@ -96,6 +106,16 @@ LB = ((BOUNDS, BOUNDS.replace(
     "                  CUT == kRegsSkPlane ? (WINDOWED ? 2 : 3) : 1)")),)
 BUILDS["sk_lb3"] = (REGS_HEADER, LB, ("fused_psd_sk",))
 BUILDS["k1_lb1"] = (REGS_HEADER, LB, ("fused_psd",))
+BUILDS["mt_nofft"] = (REGS_HEADER, ((FFT_CUTS, FFT_CUTS.replace(
+    "CUT == kRegsTapers || ", "")),), ("fused_psd_tapers",))
+#: The libraries each part times.
+PARTS = {"pfb": ("fused_psd_pfb",), "sk": ("fused_psd", "fused_psd_sk"),
+         "mt": ("fused_psd_tapers",)}
+
+
+def part(build: str) -> str:
+    """The part of :data:`PARTS` that times ``build``."""
+    return "sk" if build.startswith(("sk", "k1")) else build.split("_")[0]
 
 
 def edit(text: str, build: str) -> str:
@@ -109,12 +129,15 @@ def edit(text: str, build: str) -> str:
     return text
 
 
-def build_all() -> Dict[Tuple[str, str], ctypes.CDLL]:
-    """{(build, library): loaded library}, one nvcc a library, all at
-    once; ("shipped", library) is the library as shipped."""
+def build_all(parts=tuple(PARTS)) -> Dict[Tuple[str, str], ctypes.CDLL]:
+    """{(build, library): loaded library} of the builds of ``parts``, one
+    nvcc a library, all at once; ("shipped", library) is the library as
+    shipped."""
     root = _build.BUILD_DIR / "estimator_builds"
     procs = {}
     for build, (name, _, libraries) in BUILDS.items():
+        if part(build) not in parts:
+            continue
         src = root / build
         if src.exists():
             shutil.rmtree(src)
@@ -127,7 +150,7 @@ def build_all() -> Dict[Tuple[str, str], ctypes.CDLL]:
                  str(src / f"{lib}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     libs = {("shipped", lib): _build.load(lib)
-            for lib in ("fused_psd", "fused_psd_sk", "fused_psd_pfb")}
+            for p in parts for lib in PARTS[p]}
     for key, (out, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
@@ -145,7 +168,7 @@ def build_all() -> Dict[Tuple[str, str], ctypes.CDLL]:
 def use(libs, build: str) -> None:
     """Points the wrappers at ``build``'s libraries (the shipped ones where
     it has none), their residency asked anew."""
-    for lib in ("fused_psd", "fused_psd_sk", "fused_psd_pfb"):
+    for lib in {lib for _, lib in libs}:
         _build._libs[lib] = libs.get((build, lib), libs[("shipped", lib)])
     fp.resident_blocks.cache_clear()
     fpf.resident_blocks.cache_clear()
@@ -178,76 +201,115 @@ def line(label, t, attrs, extra=""):
           f"blocks/SM{extra}")
 
 
+def pfb_part(libs, dev, raw, F, chunk) -> None:
+    """The ring kernel's builds, its frames-a-block sweep, the control and
+    torch.fft.fft of the polyphase sums."""
+    h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+    hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8, device=dev)
+            for _ in range(2)]
+    use(libs, "shipped")
+    want = fpf.fused_psd_pfb_control(raw, hist[0], F, chunk, h, hist[1])
+    for build in ("shipped", "pfb_unroll4", "pfb_p4", "pfb_prmt",
+                  "pfb_noh", "pfb_norow", "pfb_nofft"):
+        use(libs, build)
+        for stage_h in (True, False):
+            got, attrs, group = ring(raw, hist, F, chunk, h, stage_h)
+            rel = float(((got - want).abs() / want.abs().max()).max())
+            t = device_us(lambda: ring(raw, hist, F, chunk, h, stage_h))
+            line(f"N={N} F={F} P={P} {build} ring, h "
+                 f"{'staged' if stage_h else 'through L2'}", t, attrs,
+                 f", {group} frames a block; max rel vs the control "
+                 f"{rel:.2e}")
+    use(libs, "shipped")
+    for group in (g for g in (1, 2, 4, 8, 16, 32) if chunk % g == 0):
+        for stage_h in (True, False):
+            _, attrs, _ = ring(raw, hist, F, chunk, h, stage_h, group)
+            t = device_us(lambda: ring(raw, hist, F, chunk, h, stage_h,
+                                       group))
+            line(f"N={N} F={F} P={P} shipped ring at {group} frames a "
+                 f"block, h {'staged' if stage_h else 'through L2'}", t,
+                 attrs)
+    t = device_us(lambda: fpf.fused_psd_pfb_control(raw, hist[0], F,
+                                                    chunk, h, hist[1]))
+    line(f"N={N} F={F} P={P} control", t,
+         fpf.kernel_attributes(N, P, False))
+    sums = fpf.pfb_sums_reference(torch.cat([hist[0], raw]), h, F)
+    print(f"N={N} F={F} torch.fft.fft of the polyphase sums: device "
+          f"{device_us(lambda: torch.fft.fft(sums, dim=-1)):.1f} us")
+
+
+def sk_part(libs, dev, raw, F, chunk) -> None:
+    """K1, K2 and the SK plane kernel and control, unwindowed and Hann,
+    each as shipped and under launch bounds."""
+    hann = torch.hann_window(N, periodic=False, dtype=torch.float32,
+                             device=dev)
+    for w, wname in ((None, "unwindowed"), (hann, "hann")):
+        k = "K1" if w is None else "K2"
+        for build, label, fn, attrs in (
+                ("shipped", k, lambda: fp.fused_psd(raw, F, chunk, w),
+                 lambda: fp.kernel_attributes(N, w is not None)),
+                ("k1_lb1", k, lambda: fp.fused_psd(raw, F, chunk, w),
+                 lambda: fp.kernel_attributes(N, w is not None)),
+                ("shipped", "SK control",
+                 lambda: fsk.fused_psd_sk_control(raw, F, chunk, w),
+                 lambda: fsk.kernel_attributes(N, w is not None, False)),
+                ("shipped", "SK plane",
+                 lambda: fsk.fused_psd_sk(raw, F, chunk, w),
+                 lambda: fsk.kernel_attributes(N, w is not None, True)),
+                ("sk_lb3", "SK plane",
+                 lambda: fsk.fused_psd_sk(raw, F, chunk, w),
+                 lambda: fsk.kernel_attributes(N, w is not None, True))):
+            use(libs, build)
+            group = fp.k1_group(F, chunk, fp.resident_blocks(
+                N, w is not None, dev.index))
+            line(f"N={N} F={F} {wname} {build} {label}", device_us(fn),
+                 attrs(), f", K1's grid {group} frames a block")
+    use(libs, "shipped")
+
+
+def mt_part(libs, dev, raw, F, chunk) -> None:
+    """The multitaper control at K = 7 as shipped and without its
+    transform (mt_nofft), and torch.fft.fft of the F K tapered frames."""
+    tp = torch.from_numpy(_session_tapers(N, 4.0, K)).to(dev)
+    group = fmt.tapers_group(F, chunk, K, fp.resident_blocks(N, True,
+                                                             dev.index))
+    for build in ("shipped", "mt_nofft"):
+        use(libs, build)
+        t = device_us(lambda: fmt.fused_psd_tapers_control(raw, F, chunk,
+                                                           tp))
+        line(f"N={N} F={F} K={K} {build} control", t,
+             fmt.kernel_attributes(N),
+             f", {group} frames a block, grid ({-(-F // group)}, {K})")
+    use(libs, "shipped")
+    z = torch.complex(raw[:, 0::2].float() - 127.0,
+                      raw[:, 1::2].float() - 127.0)
+    zz = (z[:, None, :] * tp[None]).reshape(F * K, N)
+    print(f"N={N} F={F} K={K} torch.fft.fft of the tapered frames: device "
+          f"{device_us(lambda: torch.fft.fft(zz, dim=-1)):.1f} us")
+
+
 def main(argv=None) -> int:
+    parts = (sys.argv[1:] if argv is None else list(argv)) or list(PARTS)
+    if any(p not in PARTS for p in parts):
+        print(f"parts: {' '.join(PARTS)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", torch.cuda.current_device())
-    libs = build_all()
+    libs = build_all(parts)
     print(f"# estimator builds on {card(dev)}")
     rng = np.random.default_rng(0)
-    h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
-    hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8, device=dev)
-            for _ in range(2)]
-    hann = torch.hann_window(N, periodic=False, dtype=torch.float32,
-                             device=dev)
     for frames in FRAMES:
         F, chunk = adapt_batch(frames)
         raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                             dtype=np.uint8)).to(dev)
+        for name, run in (("pfb", pfb_part), ("sk", sk_part),
+                          ("mt", mt_part)):
+            if name in parts:
+                run(libs, dev, raw, F, chunk)
         z = torch.complex(raw[:, 0::2].float() - 127.0,
                           raw[:, 1::2].float() - 127.0)
-        use(libs, "shipped")
-        want = fpf.fused_psd_pfb_control(raw, hist[0], F, chunk, h, hist[1])
-        for build in ("shipped", "pfb_unroll4", "pfb_p4", "pfb_prmt",
-                      "pfb_noh", "pfb_norow", "pfb_nofft"):
-            use(libs, build)
-            for stage_h in (True, False):
-                got, attrs, group = ring(raw, hist, F, chunk, h, stage_h)
-                rel = float(((got - want).abs() / want.abs().max()).max())
-                t = device_us(lambda: ring(raw, hist, F, chunk, h, stage_h))
-                line(f"N={N} F={F} P={P} {build} ring, h "
-                     f"{'staged' if stage_h else 'through L2'}", t, attrs,
-                     f", {group} frames a block; max rel vs the control "
-                     f"{rel:.2e}")
-        use(libs, "shipped")
-        for group in (g for g in (1, 2, 4, 8, 16, 32) if chunk % g == 0):
-            for stage_h in (True, False):
-                _, attrs, _ = ring(raw, hist, F, chunk, h, stage_h, group)
-                t = device_us(lambda: ring(raw, hist, F, chunk, h, stage_h,
-                                           group))
-                line(f"N={N} F={F} P={P} shipped ring at {group} frames a "
-                     f"block, h {'staged' if stage_h else 'through L2'}", t,
-                     attrs)
-        t = device_us(lambda: fpf.fused_psd_pfb_control(raw, hist[0], F,
-                                                        chunk, h, hist[1]))
-        line(f"N={N} F={F} P={P} control", t,
-             fpf.kernel_attributes(N, P, False))
-        sums = fpf.pfb_sums_reference(torch.cat([hist[0], raw]), h, F)
-        print(f"N={N} F={F} torch.fft.fft of the polyphase sums: device "
-              f"{device_us(lambda: torch.fft.fft(sums, dim=-1)):.1f} us")
-        for w, wname in ((None, "unwindowed"), (hann, "hann")):
-            k = "K1" if w is None else "K2"
-            for build, label, fn, attrs in (
-                    ("shipped", k, lambda: fp.fused_psd(raw, F, chunk, w),
-                     lambda: fp.kernel_attributes(N, w is not None)),
-                    ("k1_lb1", k, lambda: fp.fused_psd(raw, F, chunk, w),
-                     lambda: fp.kernel_attributes(N, w is not None)),
-                    ("shipped", "SK control",
-                     lambda: fsk.fused_psd_sk_control(raw, F, chunk, w),
-                     lambda: fsk.kernel_attributes(N, w is not None, False)),
-                    ("shipped", "SK plane",
-                     lambda: fsk.fused_psd_sk(raw, F, chunk, w),
-                     lambda: fsk.kernel_attributes(N, w is not None, True)),
-                    ("sk_lb3", "SK plane",
-                     lambda: fsk.fused_psd_sk(raw, F, chunk, w),
-                     lambda: fsk.kernel_attributes(N, w is not None, True))):
-                use(libs, build)
-                group = fp.k1_group(F, chunk, fp.resident_blocks(
-                    N, w is not None, dev.index))
-                line(f"N={N} F={F} {wname} {build} {label}", device_us(fn),
-                     attrs(), f", K1's grid {group} frames a block")
-        use(libs, "shipped")
         print(f"N={N} F={F} torch.fft.fft of the frames: device "
               f"{device_us(lambda: torch.fft.fft(z, dim=-1)):.1f} us")
     return 0
