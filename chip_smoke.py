@@ -175,7 +175,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    group kernel with a second sum of |X|^4, in a shared-memory plane up
    to 8192 bins, in registers (the control, the kernel it was
    redesigned from) at 16384;
-   ``fused_psd_tapers``: the multitaper, K2's with a taper axis;
+   ``fused_psd_tapers``: the multitaper, one block running every taper
+   of its frames from a shared-memory ring of raw frames where it fits,
+   else the control, K2's kernel with a taper axis on its grid;
    ``fused_psd_pfb``: the polyphase filterbank, K1's transform after a
    P-row load, from a shared-memory ring of raw rows where it fits, else
    the control, P rows a frame through L2): their registers, spill,
@@ -185,7 +187,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    drive's step with the gate, 256, 16384; SK's s1 against K1's/K2's
    output bit for bit, every row against the control's bit for bit, and
    the gate's rows against ``sk_keep`` of its own moments; multitaper K =
-   7 and 1 at 2048, the drive's step, 16384 K = 4; the PFB at P = 2, 4, 16
+   7 and 1 at 2048, the drive's step, 16384 K = 4, 256 F = 1024 K = 7
+   and 8192 F = 256 K = 7, each on the route and on the control, with
+   their device times in turns (the route at most 1.05 of the control's
+   where it is the batch kernel); the PFB at P = 2, 4, 16
    (F = 512) and P = 4 at the drive's step, at F = 4096 and at 16384
    bins, each over three steps of one stream, the second with fewer
    valid frames than P - 1, the history on the card equal to plain's,
@@ -889,8 +894,9 @@ def launch_counts(fp, ff) -> dict:
     """Every launch counter by the kernel (or plain version) it counts;
     "L" is the large-N kernel, "M" the mixed-radix kernel, "B" the chirp-Z
     kernel, "SK", "MT" and "PFB" the estimators' kernels (SK's plane
-    kernel, the PFB's ring kernel), "SK control" and "PFB control" the
-    kernels those two were redesigned from, "M/B control" the kernel M and
+    kernel, the multitaper's batch kernel, the PFB's ring kernel), "SK
+    control", "MT control" and "PFB control" the kernels those three were
+    redesigned from, "M/B control" the kernel M and
     B replaced (and its plain versions), "probes" every probe variant
     together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
@@ -905,7 +911,9 @@ def launch_counts(fp, ff) -> dict:
             "B": fp.COUNTS.kernel_bluestein,
             "B streams": fp.COUNTS.kernel_bluestein_streams,
             "SK": fp.COUNTS.kernel_sk_plane, "SK control": fp.COUNTS.kernel_sk,
-            "MT": fp.COUNTS.kernel_tapers, "PFB": fp.COUNTS.kernel_pfb_ring,
+            "MT": fp.COUNTS.kernel_tapers,
+            "MT control": fp.COUNTS.kernel_tapers_control,
+            "PFB": fp.COUNTS.kernel_pfb_ring,
             "PFB control": fp.COUNTS.kernel_pfb,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
@@ -2265,7 +2273,15 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             rows.append((f"fused_psd_sk control{wn}"
                          f"{'' if fsk.plane_fits(N) else ' (the route)'}",
                          fsk.kernel_attributes(N, w, False)))
-        rows.append(("fused_psd_tapers", fmt.kernel_attributes(N)))
+        mt = fmt.batch_shape(N, 7)
+        if mt is not None:
+            rows.append((f"fused_psd_tapers batch K=7 (the route; "
+                         f"{mt.frames} frames a lane a batch, the table "
+                         f"{'staged' if mt.stage else 'through L2'})",
+                         fmt.kernel_attributes(N, 7, True)))
+        rows.append((f"fused_psd_tapers control"
+                     f"{' (the route)' if mt is None else ''}",
+                     fmt.kernel_attributes(N, 7, False)))
         shape = fpf.ring_shape(N, 4)
         if shape is not None:
             rows.append((f"fused_psd_pfb ring P=4 (the route; {shape.slots} "
@@ -2281,7 +2297,8 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
                   f"shared, {attrs['threads']} threads, "
                   f"{attrs['blocks_per_sm']} blocks/SM")
     reset_counts(fp, ff)
-    want_counts = {"SK": 0, "SK control": 0, "PFB": 0, "PFB control": 0}
+    want_counts = {"SK": 0, "SK control": 0, "MT": 0, "MT control": 0,
+                   "PFB": 0, "PFB control": 0}
 
     # SK: s1 is K1's (K2's) output bit for bit, every row the control's
     # (the kernel it was redesigned from, on the same grid) bit for bit;
@@ -2337,31 +2354,69 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
         check(max(errs) <= UNIFORM_RTOL and max(golds) <= GOLDEN_RTOL,
               f"SK {label}: {errs} vs plain, {golds} vs golden")
 
-    # MT: within 1e-5 of plain and of the float64 golden.
+    # MT: the route (the batch kernel where batch_shape admits it, else
+    # the control) and the control, each twice (the same bits again),
+    # within 1e-5 of plain and of the float64 golden; their device times
+    # in turns, the batch kernel's at most 1.05 of the control's.
     for label, N, fps, n_valid, K in (
             ("K=7 F=4096", 2048, 4096, None, 7),
             ("K=1 F=4096 masked", 2048, 4096, 2500, 1),
             ("K=7 drive step", 2048, drive_F, None, 7),
-            ("K=4 F=64", 16384, 64, None, 4)):
+            ("K=4 F=64", 16384, 64, None, 4),
+            ("K=7 F=1024", 256, 1024, None, 7),
+            ("K=7 F=256", 8192, 256, None, 7)):
         F, chunk = adapt_batch(fps)
         nv = F if n_valid is None else n_valid
         tp_np = _session_tapers(N, 4.0, K)
         tp = torch.from_numpy(tp_np).to(dev)
         raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
         raw = torch.from_numpy(raw_np).to(dev)
+        shape = fmt.batch_shape(N, K)
         got = fmt.fused_psd_tapers(raw, nv, chunk, tp)
         again = fmt.fused_psd_tapers(raw, nv, chunk, tp)
+        ctl = fmt.fused_psd_tapers_control(raw, nv, chunk, tp)
+        ctl_again = fmt.fused_psd_tapers_control(raw, nv, chunk, tp)
         want = fmt.fused_psd_tapers_reference(raw, nv, chunk, tp)
         torch.cuda.synchronize()
-        check(torch.equal(got, again), f"MT {label}: not deterministic")
-        got_np = got.cpu().numpy()
-        err_plain = max_rel(got_np, want.cpu().numpy())
-        err_gold = max_rel(got_np, golden_tapers(raw_np, nv, tp_np))
+        want_counts["MT" if shape is not None else "MT control"] += 2
+        want_counts["MT control"] += 2
+        check(torch.equal(got, again) and torch.equal(ctl, ctl_again),
+              f"MT {label}: not deterministic")
+        gold = golden_tapers(raw_np, nv, tp_np)
+        want_np = want.cpu().numpy()
+        errs = {name: (max_rel(out.cpu().numpy(), want_np),
+                       max_rel(out.cpu().numpy(), gold))
+                for name, out in (("route", got), ("control", ctl))}
+        if shape is None:
+            route = "the control"
+            timing = ""
+        else:
+            route = (f"the batch kernel, {shape.frames} frames a lane a "
+                     f"batch, the table "
+                     f"{'staged' if shape.stage else 'through L2'}")
+            kd, cd = [], []
+            for _ in range(2):
+                kd.append(device_times_us(
+                    lambda: fmt.fused_psd_tapers(raw, nv, chunk, tp)))
+                cd.append(device_times_us(
+                    lambda: fmt.fused_psd_tapers_control(raw, nv, chunk,
+                                                         tp)))
+            # device_times_us's launches: 1 + calls + reps * calls, twice.
+            want_counts["MT"] += 2 * (1 + 20 + 3 * 20)
+            want_counts["MT control"] += 2 * (1 + 20 + 3 * 20)
+            ratio = min(kd) / min(cd)
+            timing = (f"; device {kd[0]:.1f}/{kd[1]:.1f} us, the control "
+                      f"{cd[0]:.1f}/{cd[1]:.1f}, ratio {ratio:.3f} (<= 1.05)")
+            check(ratio <= 1.05, f"MT {label}: {min(kd):.1f} us of device "
+                  f"time is above 1.05 of the control's {min(cd):.1f} us")
         print(f"estimators MT {label} (N={N} F={F} chunk={chunk} n_valid="
-              f"{nv} K={K}): max rel vs plain {err_plain:.3e}, vs float64 "
-              f"golden {err_gold:.3e}")
-        check(err_plain <= UNIFORM_RTOL and err_gold <= GOLDEN_RTOL,
-              f"MT {label}: {err_plain} vs plain, {err_gold} vs golden")
+              f"{nv} K={K}; the route: {route}): max rel vs plain "
+              f"{errs['route'][0]:.3e}, vs float64 golden "
+              f"{errs['route'][1]:.3e}; the control {errs['control'][0]:.3e}"
+              f", {errs['control'][1]:.3e}{timing}")
+        check(all(e[0] <= UNIFORM_RTOL and e[1] <= GOLDEN_RTOL
+                  for e in errs.values()),
+              f"MT {label}: {errs} (vs plain, vs golden)")
 
     # PFB: three consecutive steps of one stream (the second with fewer
     # valid frames than P - 1), the history on the card carried across
@@ -2464,7 +2519,7 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
               f"PFB P={P}: not deterministic")
     counts = launch_counts(fp, ff)
     check(all(counts[k] == v for k, v in want_counts.items())
-          and counts["MT"] == 8 and counts["plain"] == 0,
+          and counts["plain"] == 0,
           f"estimator launch counts: {counts}, expected {want_counts}")
     print(f"wall: estimator checks in {time.perf_counter() - t0:.1f} s")
 
@@ -2488,7 +2543,7 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
     tp_np = _session_tapers(N, 4.0, 7)
     tp = torch.from_numpy(tp_np).to(dev)
     estimator_yard(
-        "multitaper K=7",
+        "multitaper K=7 (batch kernel)",
         lambda raw_np: fmt.fused_psd_tapers(
             torch.from_numpy(raw_np).to(dev), F, F, tp).cpu().numpy(),
         lambda raw_np: golden_tapers(raw_np, F, tp_np),
@@ -2519,9 +2574,10 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
         lambda raw_np: golden_pfb(pfb_virtual(raw_np), F, h_np),
         pfb_class, N, F, 14200)
     counts = launch_counts(fp, ff)
-    check(counts["SK"] == 60 and counts["PFB"] == 60
-          and counts["SK control"] == counts["PFB control"] == 0
-          and counts["plain"] == 0, f"estimator yards' launches: {counts}")
+    check(counts["SK"] == counts["MT"] == counts["PFB"] == 60
+          and counts["SK control"] == counts["MT control"] == 0
+          and counts["PFB control"] == 0 and counts["plain"] == 0,
+          f"estimator yards' launches: {counts}")
     print(f"wall: estimator yards in {time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its kernel alone.
@@ -2581,8 +2637,8 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
 
     # Times (PERF.md states their prediction): at 2048 F=4096 and at the
     # drives' step, a call (CUDA events around each), the device's part
-    # (behind a sleep kernel; for SK and the PFB twice, in turns with the
-    # control's, which must be at least the kernel's / 1.05), the wrapper's
+    # (behind a sleep kernel, twice, in turns with the control's, which
+    # must be at least the kernel's / 1.05), the wrapper's
     # host part, the plain version and torch.fft.fft on the same
     # transforms (F frames; F K tapered frames; F polyphase sums, complex64
     # on the card).
@@ -2615,7 +2671,9 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
 
             def plain():
                 return fmt.fused_psd_tapers_reference(raw, F, chunk, tp)
-            control = None
+
+            def control():
+                return fmt.fused_psd_tapers_control(raw, F, chunk, tp)
             zz = (z[:, None, :] * tp[None]).reshape(F * arg, N)
             bound = estimator_bound_ms("MT", F, N, K=arg)
         else:
@@ -2650,22 +2708,20 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
              "host": host_us(kernel)}
         times[(kind, F)] = t
         b_us = 1e3 * bound[0]
-        ctl_line = ""
-        if control is not None:
-            kd = [t["device"], device_times_us(kernel)]
-            cd = [device_times_us(control), device_times_us(control)]
-            t.update(device=min(kd), control_device=min(cd),
-                     control=event_times_us(control),
-                     control_host=host_us(control))
-            ratio = t["device"] / t["control_device"]
-            ctl_line = (f"; the control {t['control']:.1f} "
-                        f"us a call, device {cd[0]:.1f}/{cd[1]:.1f} us "
-                        f"(the kernel's {kd[0]:.1f}/{kd[1]:.1f}), host "
-                        f"{t['control_host']:.1f} us; device/control "
-                        f"{ratio:.3f} (<= 1.05)")
-            check(ratio <= 1.05, f"estimator {kind} N={N} F={F}: "
-                  f"{t['device']:.1f} us of device time is above 1.05 of "
-                  f"the control's {t['control_device']:.1f} us")
+        kd = [t["device"], device_times_us(kernel)]
+        cd = [device_times_us(control), device_times_us(control)]
+        t.update(device=min(kd), control_device=min(cd),
+                 control=event_times_us(control),
+                 control_host=host_us(control))
+        ratio = t["device"] / t["control_device"]
+        ctl_line = (f"; the control {t['control']:.1f} "
+                    f"us a call, device {cd[0]:.1f}/{cd[1]:.1f} us "
+                    f"(the kernel's {kd[0]:.1f}/{kd[1]:.1f}), host "
+                    f"{t['control_host']:.1f} us; device/control "
+                    f"{ratio:.3f} (<= 1.05)")
+        check(ratio <= 1.05, f"estimator {kind} N={N} F={F}: "
+              f"{t['device']:.1f} us of device time is above 1.05 of "
+              f"the control's {t['control_device']:.1f} us")
         print(f"time estimator {kind} N={N} F={F}"
               f"{f' K={arg}' if kind == 'MT' else ''}"
               f"{f' P={arg}' if kind == 'PFB' else ''} on {card}: kernel "
@@ -2680,7 +2736,7 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
               f"max rel {rel:.3e} (<= {UNIFORM_RTOL:g}){ctl_line}")
     print(f"wall: estimator phase in {time.perf_counter() - t0:.1f} s")
 
-    def entry(name, source, replaces, key, times_key, control=None):
+    def entry(name, source, replaces, key, times_key, control):
         t = times[times_key]
         out = {"name": name, "route": "cuda", "source": CSRC + source,
                "replaces": replaces, "launches": launches[key],
@@ -2688,20 +2744,19 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
                "device_ms": t["device"] / 1000.0,
-               "host_ms": t["host"] / 1000.0}
-        if control is not None:   # the kernel it was redesigned from
-            out.update(control=control,
-                       control_ms=t["control"] / 1000.0,
-                       control_device_ms=t["control_device"] / 1000.0,
-                       control_host_ms=t["control_host"] / 1000.0)
+               "host_ms": t["host"] / 1000.0,
+               # the kernel it was redesigned from
+               "control": control, "control_ms": t["control"] / 1000.0,
+               "control_device_ms": t["control_device"] / 1000.0,
+               "control_host_ms": t["control_host"] / 1000.0}
         return out
 
     return [entry("fused_psd_sk (plane)", "fused_psd_sk.cu",
                   "rtl_power_fftw_tpu/models/kurtosis.py:46", "SK",
                   ("SK", 4096), "psd_regs_kernel<.., kRegsSk>"),
-            entry("fused_psd_tapers", "fused_psd_tapers.cu",
+            entry("fused_psd_tapers (batch)", "fused_psd_tapers.cu",
                   "rtl_power_fftw_tpu/models/multitaper.py:60", "MT",
-                  ("MT", 4096)),
+                  ("MT", 4096), "psd_regs_kernel<.., kRegsTapers>"),
             entry("fused_psd_pfb (ring)", "fused_psd_pfb.cu",
                   "rtl_power_fftw_tpu/models/pfb.py:48", "PFB",
                   ("PFB", 4096), "psd_pfb_kernel")]
@@ -2887,6 +2942,7 @@ def main() -> int:
             ("fused_psd_mixed", "psd_chirp_kernel", ""),
             ("fused_psd_sk", "psd_regs_kernel", ""),
             ("fused_psd_tapers", "psd_regs_kernel", ""),
+            ("fused_psd_tapers", "psd_tapers_batch_kernel", ""),
             ("fused_psd_pfb", "psd_pfb_kernel", ""),
             ("fused_psd_pfb", "psd_pfb_ring_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,

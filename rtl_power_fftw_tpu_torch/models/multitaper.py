@@ -5,8 +5,9 @@ frame is windowed by K orthogonal DPSS (Slepian) tapers and the K
 eigenspectra are averaged: the lowest-variance estimator family for a
 fixed data length. The device step is the multitaper kernel
 (``ops/kernels/csrc/fused_psd_tapers.cu`` on a CUDA device, its plain
-PyTorch version on the CPU): K2's group kernel with a taper axis on its
-grid. DPSS tapers come from scipy.
+PyTorch version on the CPU): one block runs every taper of its frames,
+each raw frame staged once in a shared-memory ring. DPSS tapers come from
+scipy.
 """
 
 from __future__ import annotations

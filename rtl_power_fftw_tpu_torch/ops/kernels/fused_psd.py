@@ -132,9 +132,9 @@ class LaunchCounts:
     ``kernel_bluestein_streams`` the awkward-N kernels' (windowed or not),
     and ``kernel_sk_plane``, ``kernel_tapers`` and ``kernel_pfb_ring`` the
     spectral kurtosis, multitaper and polyphase-filterbank kernels', with
-    ``kernel_sk`` and ``kernel_pfb`` the SK and PFB kernels they were
-    redesigned from (the controls, and the route where the new ones do not
-    fit a block).
+    ``kernel_sk``, ``kernel_tapers_control`` and ``kernel_pfb`` the
+    kernels they were redesigned from (the controls, and the route where
+    the new ones do not fit a block).
 
     Incremented by the wrappers only; a session's single consumer thread
     is their only caller while a session runs."""

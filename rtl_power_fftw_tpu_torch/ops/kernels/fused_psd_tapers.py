@@ -1,28 +1,37 @@
 """Multitaper step: raw u8 IQ frames -> the summed mean eigenspectrum.
 
 Replaces the device step of ``rtl_power_fftw_tpu/models/multitaper.py``
-(``_mt_core``, XLA there) with a CUDA C++ kernel written for Hopper
+(``_mt_core``, XLA there) with CUDA C++ kernels written for Hopper
 (``csrc/fused_psd_tapers.cu``): each valid frame of an (F, 2N) batch is
 tapered by each of the K rows of a (K, N) float32 table, transformed, and
 |X|^2 summed over frames and tapers; the total is divided by K in
 float32. Bins in natural order.
 
-The kernel is K2's windowed group kernel (``csrc/fused_psd_regs.cuh``)
-with a taper axis on its grid: block (g, k) runs K2 on frames [g * group,
-(g + 1) * group) under taper row k and writes partial row k * G + g
-(taper k's rows are one plane); one float64 row sum over all K * G rows
-gives the total. Each block gets frames for K2's grid over resident / K blocks
-(:func:`tapers_group`), so that the K * G blocks are about one wave.
+Both kernels run K1's register transform (``csrc/fused_psd_regs.cuh``,
+``fft_regs.cuh``) on K2's block shape. The batch kernel runs every taper
+of a block's frames: each lane stages its frames C at a time in a
+shared-memory ring of 2 C raw slots by ``cp.async``, the next batch in
+flight, holds taper row k in registers over a batch, and the block writes
+one partial row, so each frame is read from device memory once. Its grid
+is K1's rule (:func:`.fused_psd.k1_group`) over its own residency. It is
+the route wherever its ring fits a block (:func:`batch_shape`, a rule on
+(N, K)); elsewhere (16384 bins) the route is the kernel it was redesigned
+from, K2's kernel with a taper axis on its grid: block (g, k) under taper
+k writes partial row k * G + g, so each frame is read K times, on a grid
+of K2's resident blocks over K (:func:`tapers_group`).
+:func:`fused_psd_tapers_control` runs it at every size. Their f32 sums
+run in another order, so they agree to rounding, not bit for bit.
 
 :func:`fused_psd_tapers` dispatches on the tensor's device: a CPU tensor
 runs the plain PyTorch version (:func:`fused_psd_tapers_reference`), a
 CUDA tensor the kernel, or raises. ``COUNTS.kernel_tapers`` counts the
-kernel's launches.
+batch kernel's launches, ``COUNTS.kernel_tapers_control`` the control's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,11 +39,60 @@ from . import fused_psd as fp
 
 #: Tapers a call takes (``--multitaper`` accepts 1..32).
 MAX_TAPERS = 32
+#: Frames a lane of the batch kernel stages a batch, the most first.
+BATCH_FRAMES = (4, 2)
+#: A lane's ring: 2 C slots of 2N bytes and these 32 more, which put the
+#: lanes of one warp (N <= 256) on other banks.
+RING_PAD = 32
+#: The batch kernel copies a staged table 16 bytes a thread.
+TABLE_ALIGN = 16
+
+
+class BatchShape(NamedTuple):
+    """The batch kernel's block at (N, K): ``frames`` (C) a lane stages a
+    batch, whether the (K, N) table is staged beside the ring
+    (``stage``), its shared memory (``smem`` bytes) and the blocks one SM
+    holds by threads and shared memory (``blocks_per_sm``)."""
+    frames: int
+    stage: bool
+    smem: int
+    blocks_per_sm: int
+
+
+def batch_smem(N: int, K: int, C: int, stage: bool) -> int:
+    """Bytes of shared memory a block of the batch kernel takes: the
+    lanes' exchange buffers, their rings of 2 C slots, and with ``stage``
+    the (K, N) float32 table."""
+    shape = fp.regs_shape(N)
+    return (shape.exchange + shape.lanes * (4 * C * N + RING_PAD)
+            + (4 * K * N if stage else 0))
+
+
+def batch_shape(N: int, K: int) -> Optional[BatchShape]:
+    """The route's rule at N bins and K tapers: None (the control) where
+    no ring of C >= 2 frames a lane fits a block beside the exchange
+    buffers; else the batch kernel's :class:`BatchShape`. C is the most of
+    :data:`BATCH_FRAMES` whose block still leaves 2 blocks an SM by shared
+    memory, or as many as the least C would; the table is staged where it
+    fits beside the ring and leaves the block that many blocks an SM."""
+    threads = fp.regs_shape(N).threads
+    blocks = {C: fp.smem_blocks_per_sm(batch_smem(N, K, C, False), threads)
+              for C in BATCH_FRAMES
+              if batch_smem(N, K, C, False) <= fp.SMEM_PER_BLOCK}
+    if not blocks:
+        return None
+    want = min(2, max(blocks.values()))
+    C = next(C for C in BATCH_FRAMES if blocks.get(C, 0) >= want)
+    staged = batch_smem(N, K, C, True)
+    stage = (staged <= fp.SMEM_PER_BLOCK
+             and fp.smem_blocks_per_sm(staged, threads) >= blocks[C])
+    smem = batch_smem(N, K, C, stage)
+    return BatchShape(C, stage, smem, fp.smem_blocks_per_sm(smem, threads))
 
 
 def tapers_group(F: int, chunk: int, K: int, resident: int) -> int:
-    """Frames a block sums: :func:`.fused_psd.k1_group` over the blocks
-    the card holds at once for each of the K tapers."""
+    """Frames a block of the control sums: :func:`.fused_psd.k1_group`
+    over the blocks the card holds at once for each of the K tapers."""
     return fp.k1_group(F, chunk, max(1, resident // K))
 
 
@@ -80,23 +138,26 @@ def fused_psd_tapers(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     ``tapers`` on the same device -> (N,) float32: the sum over those
     frames of the mean over the K tapers of |DFT(x * taper_k)|^2.
 
-    A CUDA tensor runs the kernel on the current stream (asynchronously);
-    a CPU tensor runs the plain version."""
-    return _tapers("fused_psd_tapers", raw_u8, n_valid, chunk, tapers, True)
+    A CUDA tensor runs the kernel :func:`batch_shape` picks on the current
+    stream (asynchronously); a CPU tensor runs the plain version."""
+    return _tapers("fused_psd_tapers", raw_u8, n_valid, chunk, tapers,
+                   False)
 
 
 def fused_psd_tapers_control(raw_u8: torch.Tensor, n_valid: int,
                              chunk: int, tapers: torch.Tensor
                              ) -> torch.Tensor:
-    """:func:`fused_psd_tapers` on the kernel with the taper axis on its
-    grid at every N; a CPU tensor runs the plain version."""
+    """:func:`fused_psd_tapers` on the kernel the batch kernel was
+    redesigned from (the taper axis on its grid) at every N; a CPU tensor
+    runs the plain version."""
     return _tapers("fused_psd_tapers_control", raw_u8, n_valid, chunk,
                    tapers, True)
 
 
 def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
             tapers: torch.Tensor, control: bool) -> torch.Tensor:
-    """Check, then run the plain version (CPU) or the kernel (card)."""
+    """Check, then run the plain version (CPU), or on the card the control
+    (``control``) or else the kernel :func:`batch_shape` picks."""
     n_valid = int(n_valid)
     fp.check_args(kernel, fp.fused_psd_eligible, raw_u8, n_valid, chunk,
                   None)
@@ -107,23 +168,52 @@ def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
     K = tapers.shape[0]
     index = raw_u8.device.index
-    group = tapers_group(F, chunk, K, fp.resident_blocks(N, True, index))
+    shape = None if control else batch_shape(N, K)
+    if shape is None:
+        group = tapers_group(F, chunk, K, fp.resident_blocks(N, True, index))
+        rows = K * -(-F // group)
+    else:
+        group = fp.k1_group(F, chunk, batch_resident_blocks(N, K, index))
+        rows = -(-F // group)
+        if shape.stage and tapers.data_ptr() % TABLE_ALIGN:
+            raise ValueError(f"{kernel}: tapers must be {TABLE_ALIGN}-byte "
+                             "aligned on the device")
     out = fp._launch(
-        kernel, raw_u8, tapers, K * -(-F // group), (N,),
+        kernel, raw_u8, tapers, rows, (N,),
         lambda lib, raw, twiddle, tp, partial, out, stream:
         lib.rpf_fused_psd_tapers(raw, twiddle, tp, partial, out, index,
                                  N.bit_length() - 1, F, group, K, n_valid,
+                                 0 if shape is None else shape.frames,
+                                 int(shape is not None and shape.stage),
                                  stream),
         library="fused_psd_tapers")
-    if control:
+    if shape is None:
         fp.COUNTS.kernel_tapers_control += 1
     else:
         fp.COUNTS.kernel_tapers += 1
     return out
 
 
-def kernel_attributes(N: int, device: Optional[torch.device] = None
-                      ) -> dict:
-    """What the first pass gets at N bins on the card, as
-    :func:`.fused_psd.kernel_attributes` gives K2's. Launches nothing."""
-    return fp.library_attributes("fused_psd_tapers", N, device=device)
+def kernel_attributes(N: int, K: int, batch: bool,
+                      device: Optional[torch.device] = None) -> dict:
+    """What a first pass gets at N bins and K tapers on the card, as
+    :func:`.fused_psd.kernel_attributes` gives K2's: the batch kernel's
+    (``batch``) at its :func:`batch_shape`, or the control's. Launches
+    nothing."""
+    shape = batch_shape(N, K) if batch else None
+    if batch and shape is None:
+        raise ValueError(f"the batch kernel does not fit N={N}, K={K}")
+    return fp.library_attributes(
+        "fused_psd_tapers", N, K, 0 if shape is None else shape.frames,
+        int(shape is not None and shape.stage), device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def batch_resident_blocks(N: int, K: int, index: int) -> int:
+    """Blocks of the batch kernel at N bins and K tapers that card
+    ``index`` holds resident: its SMs times :func:`kernel_attributes`'
+    blocks per SM, asked of the card once per key."""
+    device = torch.device("cuda", index)
+    per_sm = kernel_attributes(N, K, True, device)["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * max(1, per_sm)

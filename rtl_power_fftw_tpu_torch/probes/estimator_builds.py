@@ -19,20 +19,29 @@ Each build is a copy of ``ops/kernels/csrc`` edited before nvcc
   held to K1's 80 registers, on the shipped K1's grid) and ``fused_psd``
   (K1 and K2 with B = 1, which is not the shipped build's bare
   ``__launch_bounds__(THREADS)``, on their own grid);
-* ``mt_nofft``: the multitaper control (``kRegsTapers``, grid (G, K))
-  with the transform left out (timing only): each frame loaded,
-  dequantized and tapered once a taper, as the control does.
+* ``batch_w0``: the multitaper batch kernel with pass 0's twiddles (the
+  thread's R - 1 constants) loaded into registers once a block, not
+  through ``__ldg`` in every transform;
+* ``mt_nofft``, ``batch_nofft``: the multitaper control
+  (``kRegsTapers``, grid (G, K)) and the batch kernel
+  (``psd_tapers_batch_kernel``) with the transform left out (timing
+  only): the control loads, dequantizes and tapers each frame once a
+  taper, the batch kernel loads it once and tapers it K times.
 
 It prints one line a build and kernel: the device µs a call (calls queued
 behind a sleep kernel, the least of three runs), the registers, spill
 bytes and blocks an SM, and the grid; for the PFB the ring kernel with
 the prototype staged in shared memory and read through L2, and the
-shipped ring kernel over a sweep of frames a block; then the control and
+shipped ring kernel over a sweep of frames a block; for the multitaper
+the batch kernel at 1, 2, 4 and 8 frames a lane a batch, with the table
+staged and through L2, and over a sweep of frames a block; then the
+control and
 ``torch.fft.fft`` of the complex64 frames (F polyphase sums for the PFB,
 F K tapered frames for the multitaper, K = 7).
 
 Run: ``python -m rtl_power_fftw_tpu_torch.probes.estimator_builds [part
-...]``, the parts ``pfb``, ``sk`` (with K1) and ``mt`` (default: all).
+...]``, the parts ``pfb``, ``sk`` (with K1), ``mt`` (the multitaper
+control) and ``batch`` (the multitaper batch kernel); default: all.
 Needs a CUDA card and nvcc; without a card it exits 1, on an unknown part
 2. The copies and
 their libraries go to ``ops/kernels/build/estimator_builds/``.
@@ -108,9 +117,59 @@ BUILDS["sk_lb3"] = (REGS_HEADER, LB, ("fused_psd_sk",))
 BUILDS["k1_lb1"] = (REGS_HEADER, LB, ("fused_psd",))
 BUILDS["mt_nofft"] = (REGS_HEADER, ((FFT_CUTS, FFT_CUTS.replace(
     "CUT == kRegsTapers || ", "")),), ("fused_psd_tapers",))
+#: batch_w0: regs_transform with pass 0's twiddles from registers, and
+#: their load after the sums' zeroing.
+W0_TRANSFORM = """// regs_transform with pass 0's twiddles w0[r] held by the thread.
+template <int LOG2N>
+__device__ __forceinline__ void regs_transform_w0(
+    float2 (&v)[RegsPlan<LOG2N>::R], float2* x,
+    const float2 (&w0)[RegsPlan<LOG2N>::R], const float2* twiddle, int t,
+    bool active) {
+  using P = RegsPlan<LOG2N>;
+  constexpr int R = P::R, TF = P::TF;
+  if (active) {
+    dif_regs<R>(v, 0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k1 = rev_bits(r, log2_of(R));
+      float2 y = v[r];
+      if (k1 != 0) y = cmul(y, w0[r].x, w0[r].y);
+      x[pad_index(t + k1 * TF)] = y;
+    }
+  }
+  __syncthreads();
+  if (active) regs_pass<LOG2N, 1>(v, x, twiddle, t);
+  if constexpr (P::PASSES > 2) {
+    __syncthreads();
+    if (active) regs_pass<LOG2N, 2>(v, x, twiddle, t);
+  }
+  if constexpr (P::PASSES > 3) {
+    __syncthreads();
+    if (active) regs_pass<LOG2N, 3>(v, x, twiddle, t);
+  }
+}
+
+"""
+W0_LOAD = """  float2 w0[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k1 = rev_bits(r, log2_of(R));
+    w0[r] = k1 != 0 ? __ldg(twiddle + k1 * TF + t) : make_float2(1.0f, 0.0f);
+  }
+"""
+BATCH_KERNEL = "// Block g sums |DFT(x_f * taper_k)|^2 over k < K"
+ACC_ZERO = "  for (int r = 0; r < R; ++r) acc[r] = 0.0f;\n"
+BATCH_FFT = "        regs_transform<LOG2N>(v, x, twiddle, t, active);\n"
+BUILDS["batch_w0"] = ("fused_psd_tapers.cu", (
+    (BATCH_KERNEL, W0_TRANSFORM + BATCH_KERNEL),
+    (ACC_ZERO, ACC_ZERO + W0_LOAD),
+    (BATCH_FFT, "        regs_transform_w0<LOG2N>(v, x, w0, twiddle, t, "
+                "active);\n")), ("fused_psd_tapers",))
+BUILDS["batch_nofft"] = ("fused_psd_tapers.cu", (
+    (BATCH_FFT, "        __syncthreads();\n"),), ("fused_psd_tapers",))
 #: The libraries each part times.
 PARTS = {"pfb": ("fused_psd_pfb",), "sk": ("fused_psd", "fused_psd_sk"),
-         "mt": ("fused_psd_tapers",)}
+         "mt": ("fused_psd_tapers",), "batch": ("fused_psd_tapers",)}
 
 
 def part(build: str) -> str:
@@ -267,6 +326,57 @@ def sk_part(libs, dev, raw, F, chunk) -> None:
     use(libs, "shipped")
 
 
+def batch(raw, F, chunk, tp, C, stage, group=None):
+    """The multitaper batch kernel at C frames a lane a batch, the table staged or
+    not, on ``group`` frames a block (default: K1's rule over its
+    residency); returns the output, the attributes and the group."""
+    attrs = fp.library_attributes("fused_psd_tapers", N, K, C, int(stage))
+    if group is None:
+        sms = torch.cuda.get_device_properties(raw.device)
+        group = fp.k1_group(F, chunk, sms.multi_processor_count
+                            * attrs["blocks_per_sm"])
+    out = fp._launch(
+        "fused_psd_tapers", raw, tp, -(-F // group), (N,),
+        lambda lib, r, tw, t, partial, out, stream:
+        lib.rpf_fused_psd_tapers(r, tw, t, partial, out, raw.device.index,
+                                 N.bit_length() - 1, F, group, K, F, C,
+                                 int(stage), stream),
+        library="fused_psd_tapers")
+    return out, attrs, group
+
+
+def batch_part(libs, dev, raw, F, chunk) -> None:
+    """The multitaper's batch kernel at K = 7: the route, its cut without
+    the transform (batch_nofft), its frames a batch and table staging,
+    and the route's over a sweep of frames a block."""
+    tp = torch.from_numpy(_session_tapers(N, 4.0, K)).to(dev)
+    use(libs, "shipped")
+    want = fmt.fused_psd_tapers_reference(raw, F, chunk, tp)
+    shape = fmt.batch_shape(N, K)
+    for build in ("shipped", "batch_w0", "batch_nofft"):
+        use(libs, build)
+        for C in (1, 2, 4, 8):
+            for stage in (False, True):
+                if fmt.batch_smem(N, K, C, stage) > fp.SMEM_PER_BLOCK:
+                    continue
+                got, attrs, group = batch(raw, F, chunk, tp, C, stage)
+                rel = float(((got - want).abs() / want.abs()).max())
+                t = device_us(lambda: batch(raw, F, chunk, tp, C, stage))
+                line(f"N={N} F={F} K={K} {build} batch C={C}, the table "
+                     f"{'staged' if stage else 'through L2'}"
+                     f"{' (the route)' if (C, stage) == shape[:2] else ''}",
+                     t, attrs, f", {group} frames a block; max rel vs "
+                     f"plain {rel:.2e}")
+    use(libs, "shipped")
+    for group in (g for g in (1, 2, 4, 8, 16, 32, 64) if chunk % g == 0):
+        _, attrs, _ = batch(raw, F, chunk, tp, shape.frames, shape.stage,
+                            group)
+        t = device_us(lambda: batch(raw, F, chunk, tp, shape.frames,
+                                    shape.stage, group))
+        line(f"N={N} F={F} K={K} shipped batch (the route's C and table) "
+             f"at {group} frames a block", t, attrs)
+
+
 def mt_part(libs, dev, raw, F, chunk) -> None:
     """The multitaper control at K = 7 as shipped and without its
     transform (mt_nofft), and torch.fft.fft of the F K tapered frames."""
@@ -278,7 +388,7 @@ def mt_part(libs, dev, raw, F, chunk) -> None:
         t = device_us(lambda: fmt.fused_psd_tapers_control(raw, F, chunk,
                                                            tp))
         line(f"N={N} F={F} K={K} {build} control", t,
-             fmt.kernel_attributes(N),
+             fmt.kernel_attributes(N, K, False),
              f", {group} frames a block, grid ({-(-F // group)}, {K})")
     use(libs, "shipped")
     z = torch.complex(raw[:, 0::2].float() - 127.0,
@@ -305,7 +415,7 @@ def main(argv=None) -> int:
         raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                             dtype=np.uint8)).to(dev)
         for name, run in (("pfb", pfb_part), ("sk", sk_part),
-                          ("mt", mt_part)):
+                          ("mt", mt_part), ("batch", batch_part)):
             if name in parts:
                 run(libs, dev, raw, F, chunk)
         z = torch.complex(raw[:, 0::2].float() - 127.0,

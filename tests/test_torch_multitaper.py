@@ -5,12 +5,14 @@ the CPU, where the port's step is the kernel's plain PyTorch version.
 Twins of tests/test_multitaper_session.py:29, 62, 92 and 153 and of
 tests/test_models.py's multitaper case, at N = 64 and 256: the step
 against float64 and the JAX step, the CLI's checks, whole sessions
-against the JAX session, the library function. The kernel
-(csrc/fused_psd_tapers.cu) runs only on a card; its grid's (g, k) ->
-partial-row map is transcribed in numpy here.
+against the JAX session, the library function. The kernels
+(csrc/fused_psd_tapers.cu) run only on a card; the control's grid (g, k)
+-> partial-row map and the batch kernel's frames, ring slots, taper loop
+and rows are transcribed in numpy here, with the route's rule.
 """
 
 import io
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from test_torch_fused_psd_regs import h100_resident
 from test_torch_session import assert_text_outputs_match, mask_stderr, run
 
 CPU = torch.device("cpu")
+REPO = Path(__file__).resolve().parents[1]
 
 
 def direct_mt(raw, N, K, NW=4.0):
@@ -258,3 +261,237 @@ def test_tapers_kernel_on_card():
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5)
+
+
+# --- the batch kernel (psd_tapers_batch_kernel), transcribed ---
+
+CSRC = REPO / "rtl_power_fftw_tpu_torch/ops/kernels/csrc"
+H100_SMS = 132
+
+
+def batch_transcription(raw, n_valid, chunk, tapers, group):
+    """psd_tapers_batch_kernel's index arithmetic in float64. Block g
+    takes frames [f0, f1), f0 = g * group, f1 = min(f0 + group, F,
+    n_valid); lane p frame i = b * C + c (frame f0 + p + LANES * i) goes
+    into ring slot (b & 1) * C + c of its lane, staged for batch 0 before
+    the loop and for batch b + 1 at the top of batch b. Each batch runs k
+    = 0 .. K-1 over its frames c (lane 0's count), a barrier before each
+    transform but the batch's first (the top barrier serves it) and one a
+    pass after the first in the transform. Asserts that each slot read
+    holds the frame the lane needs, issued before its batch's top
+    barrier, and that a slot is rewritten only after a barrier that
+    follows every read of its frame; that every (frame, taper) with frame
+    < n_valid is taken once and no later frame. The block's one partial
+    row is its lanes' float64 sums added in order; est_sum's lane l of 8
+    takes rows l, l + 8, ...; the total is divided by K. Returns the total
+    and the partial rows."""
+    F, N = raw.shape[0], raw.shape[1] // 2
+    K = tapers.shape[0]
+    shape = fmt.batch_shape(N, K)
+    lanes, C = fp.regs_shape(N).lanes, shape.frames
+    passes = len(fp.PASS_PLAN[N])
+    G = -(-F // group)
+    z = ((raw[:, 0::2].astype(np.float64) - 127.0)
+         + 1j * (raw[:, 1::2].astype(np.float64) - 127.0))
+    t64 = tapers.astype(np.float64)
+    taken = np.zeros((F, K), int)
+    partial = np.full((G, N), np.nan)
+    for g in range(G):
+        f0 = g * group
+        f1 = min(f0 + group, F, n_valid)
+        iters = -(-max(f1 - f0, 0) // lanes)
+        batches = -(-iters // C)
+        ring = [[None] * (2 * C) for _ in range(lanes)]
+        barriers = 0
+
+        def stage(b):
+            if b >= batches:
+                return
+            for lane in range(lanes):
+                for c in range(C):
+                    f = f0 + lane + lanes * (b * C + c)
+                    if f < f1:
+                        old = ring[lane][(b & 1) * C + c]
+                        assert old is None or old["read"] < barriers
+                        ring[lane][(b & 1) * C + c] = {
+                            "frame": f, "batch": b, "issued": barriers,
+                            "read": -1}
+
+        acc = np.zeros((lanes, N))
+        stage(0)
+        for b in range(batches):
+            stage(b + 1)
+            barriers += 1
+            top = barriers
+            for k in range(K):
+                for c in range(min(C, iters - b * C)):
+                    for lane in range(lanes):
+                        f = f0 + lane + lanes * (b * C + c)
+                        if f >= f1:
+                            continue
+                        slot = ring[lane][(b & 1) * C + c]
+                        assert (slot["frame"], slot["batch"]) == (f, b)
+                        assert slot["issued"] < top
+                        slot["read"] = barriers
+                        acc[lane] += np.abs(np.fft.fft(z[f] * t64[k])) ** 2
+                        taken[f, k] += 1
+                    barriers += (1 if k or c else 0) + passes - 1
+        row = acc[0].copy()
+        for lane in range(1, lanes):
+            row += acc[lane]
+        partial[g] = row
+    assert (taken[:n_valid] == 1).all() and (taken[n_valid:] == 0).all()
+    total = sum(partial[lane::8].sum(0) for lane in range(8))
+    return total / K, partial
+
+
+def mt_core_xla(raw, n_valid, chunk, tapers):
+    """The JAX package's _mt_core in its "xla" mode (the platform FFT over
+    the (F K, N) tapered batch) on the same bytes."""
+    import jax.numpy as jnp
+    F, N = raw.shape[0], raw.shape[1] // 2
+    re = raw[:, 0::2].astype(np.float32) - np.float32(127)
+    im = raw[:, 1::2].astype(np.float32) - np.float32(127)
+    fmask = (np.arange(F) < n_valid).astype(np.float32)
+    return np.asarray(jax_mt._mt_core(
+        jnp.asarray(re), jnp.asarray(im), jnp.asarray(fmask),
+        jnp.asarray(tapers), N=N, F=F, K=tapers.shape[0], chunk=chunk,
+        mode="xla"), np.float64)
+
+
+def seeded_tapers(N, K):
+    """(K, N) float32 session tapers: K DPSS rows where NW allows them,
+    repeated up to K rows."""
+    NW = 2.0 if N <= 64 else 4.0
+    t = multitaper._session_tapers(N, NW, min(K, int(2 * NW) - 1))
+    return np.resize(t, (K, N)).astype(np.float32)
+
+
+@pytest.mark.parametrize("N,F,n_valid,K,group", [
+    (64, 512, 300, 7, 64), (64, 8, 5, 32, 8), (512, 512, 300, 1, 64),
+    (256, 256, 200, 32, 64), (2048, 64, 50, 4, 32), (2048, 400, 400, 7, 2),
+    (8192, 32, 29, 7, 16), (2048, 64, 0, 7, 16)])
+def test_batch_transcription(N, F, n_valid, K, group):
+    """The batch kernel's frames, ring slots, taper loop and one partial
+    row a block, in float64: every (frame, taper) pair of the valid frames
+    once, the ring's slots read and rewritten in order, within 1e-5 of the
+    plain version and of the JAX package's _mt_core on the same seeded
+    bytes."""
+    chunk = adapt_batch(F)[1]
+    assert chunk % group == 0
+    tp = seeded_tapers(N, K)
+    raw = frames(F, N, 100 + K)
+    got, partial = batch_transcription(raw, n_valid, chunk, tp, group)
+    assert not np.isnan(partial).any()
+    if n_valid == 0:
+        assert not got.any()
+        return
+    plain = fmt.fused_psd_tapers_reference(
+        torch.from_numpy(raw), n_valid, chunk, torch.from_numpy(tp)).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-5)
+    np.testing.assert_allclose(got, mt_core_xla(raw, n_valid, chunk, tp),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("N", sorted(fp.PASS_PLAN))
+def test_batch_shape_rule(N):
+    """batch_shape, a rule on (N, K) alone, at every K: None only where no
+    ring of C >= 2 frames a lane fits beside the exchange buffers (16384
+    bins); else C the most of BATCH_FRAMES that leaves min(2, the best
+    C's) blocks an SM, the table staged exactly where it fits and keeps
+    the block's count; shared memory within the 227 KB of a block, and the
+    blocks an SM it claims those of the threads and shared memory it
+    takes."""
+    shape = fp.regs_shape(N)
+    for K in range(1, fmt.MAX_TAPERS + 1):
+        got = fmt.batch_shape(N, K)
+        ring = {C: shape.exchange + shape.lanes * (4 * C * N + 32)
+                for C in fmt.BATCH_FRAMES}
+        fits = {C: s for C, s in ring.items() if s <= fp.SMEM_PER_BLOCK}
+        if not fits:
+            assert got is None and N == 16384
+            continue
+        blocks = {C: fp.smem_blocks_per_sm(s, shape.threads)
+                  for C, s in fits.items()}
+        want = min(2, max(blocks.values()))
+        assert got.frames == max(C for C in fits if blocks[C] >= want)
+        with_table = ring[got.frames] + 4 * K * N
+        assert got.stage == (with_table <= fp.SMEM_PER_BLOCK and
+                             fp.smem_blocks_per_sm(with_table, shape.threads)
+                             >= blocks[got.frames])
+        assert got.smem == (with_table if got.stage else ring[got.frames])
+        assert got.smem == fmt.batch_smem(N, K, got.frames, got.stage)
+        assert got.smem <= fp.SMEM_PER_BLOCK
+        assert got.blocks_per_sm == min(
+            2048 // shape.threads,
+            fp.SMEM_PER_SM // (got.smem + fp.SMEM_RESERVED))
+        assert got.blocks_per_sm >= want
+
+
+def test_batch_route_and_grid_at_the_drives_shapes():
+    """The route at the shapes the card runs: 2048 bins K=7 (the drive's),
+    4 frames a lane a batch in 100,416 B (34,816 of exchange, 2 lanes of
+    8 slots of 4,096 B and 32), the table through L2, 2 blocks an SM; 256
+    bins K=7 the table staged; 8192 one block an SM; 16384 the control.
+    The grid on an H100 (132 SMs at 2 blocks) is one wave at F=4096 (16
+    frames a block, 256 blocks) and at the drive's F=400 (2, 200)."""
+    assert fmt.batch_shape(2048, 7) == fmt.BatchShape(4, False, 100416, 2)
+    assert fmt.batch_shape(256, 7) == fmt.BatchShape(4, True, 108032, 2)
+    assert fmt.batch_shape(2048, 1) == fmt.BatchShape(4, True, 108608, 2)
+    assert fmt.batch_shape(8192, 7) == fmt.BatchShape(4, False, 200736, 1)
+    assert all(fmt.batch_shape(16384, K) is None for K in range(1, 33))
+    resident = H100_SMS * fmt.batch_shape(2048, 7).blocks_per_sm
+    for F, group in ((4096, 16), (400, 2)):
+        chunk = adapt_batch(F)[1]
+        got = fp.k1_group(F, chunk, resident)
+        assert got == group and -(-F // got) <= resident
+    # The control's grid at F=4096: 1.7 waves of K2's 264 resident blocks.
+    assert fmt.tapers_group(4096, 64, 7, h100_resident(2048, True)) == 64
+
+
+def test_batch_kernel_constants_match_the_source():
+    """The wrapper's ring pad and block limit are the kernel's."""
+    text = (CSRC / "fused_psd_tapers.cu").read_text()
+    assert f"constexpr int kRingPad = {fmt.RING_PAD};" in text
+    assert f"constexpr int kMaxSmem = {fp.SMEM_PER_BLOCK};" in text
+    assert "cudaSetDevice(device);" in text.split("use_device(int device)")[1]
+    assert text.count("cudaSetDevice") == 1
+
+
+@pytest.mark.parametrize("N", [64, 128, 256, 512, 2048])
+def test_batch_ring_reads_bank_model(N):
+    """The u16 reads of a warp's lanes from their rings (4 C N + 32 bytes
+    apart; several lanes a warp at N <= 256), each lane reading slot
+    (b & 1) * C + c of its own: threads on one 4-byte word share it, and
+    no two words of one read share a bank."""
+    shape = fp.regs_shape(N)
+    TF, R = shape.TF, shape.R
+    C = fmt.batch_shape(N, 7).frames
+    for slot in range(2 * C):
+        for warp in range(shape.threads // 32):
+            tid = np.arange(32) + 32 * warp
+            lane, t = tid // TF, tid % TF
+            for r in range(R):
+                byte = (lane * (4 * C * N + fmt.RING_PAD) + slot * 2 * N
+                        + 2 * (t + r * TF))
+                words = np.unique(byte // 4)
+                assert np.bincount(words % 32).max() == 1
+
+
+def test_tapers_wrappers_run_plain_on_the_cpu():
+    """fused_psd_tapers and fused_psd_tapers_control take the plain
+    version on CPU tensors and count no kernel launch."""
+    fp.COUNTS.reset()
+    N, K = 256, 7
+    raw = torch.from_numpy(frames(16, N, 2))
+    tp = torch.from_numpy(seeded_tapers(N, K))
+    a = fmt.fused_psd_tapers(raw, 13, 16, tp)
+    b = fmt.fused_psd_tapers_control(raw, 13, 16, tp)
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.numpy(), fmt.fused_psd_tapers_reference(
+        raw, 13, 16, tp).numpy(), rtol=0)
+    assert (fp.COUNTS.kernel_tapers, fp.COUNTS.kernel_tapers_control,
+            fp.COUNTS.plain) == (0, 0, 2)
+    with pytest.raises(ValueError, match="tapers"):
+        fmt.fused_psd_tapers_control(raw, 13, 16, torch.ones((2, 64)))
+    fp.COUNTS.reset()
