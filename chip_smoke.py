@@ -2276,12 +2276,11 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
         mt = fmt.batch_shape(N, 7)
         if mt is not None:
             rows.append((f"fused_psd_tapers batch K=7 (the route; "
-                         f"{mt.frames} frames a lane a batch, the table "
-                         f"{'staged' if mt.stage else 'through L2'})",
-                         fmt.kernel_attributes(N, 7, True)))
+                         f"{mt.frames} frames a lane a batch)",
+                         fmt.kernel_attributes(N, True)))
         rows.append((f"fused_psd_tapers control"
                      f"{' (the route)' if mt is None else ''}",
-                     fmt.kernel_attributes(N, 7, False)))
+                     fmt.kernel_attributes(N, False)))
         shape = fpf.ring_shape(N, 4)
         if shape is not None:
             rows.append((f"fused_psd_pfb ring P=4 (the route; {shape.slots} "
@@ -2361,6 +2360,7 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
     for label, N, fps, n_valid, K in (
             ("K=7 F=4096", 2048, 4096, None, 7),
             ("K=1 F=4096 masked", 2048, 4096, 2500, 1),
+            ("K=7 F=4096 masked", 2048, 4096, 3000, 7),
             ("K=7 drive step", 2048, drive_F, None, 7),
             ("K=4 F=64", 16384, 64, None, 4),
             ("K=7 F=1024", 256, 1024, None, 7),
@@ -2391,9 +2391,11 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             route = "the control"
             timing = ""
         else:
+            group, per_block = fmt.batch_grid(
+                F, chunk, K, N, fmt.batch_resident_blocks(N, dev.index))
             route = (f"the batch kernel, {shape.frames} frames a lane a "
-                     f"batch, the table "
-                     f"{'staged' if shape.stage else 'through L2'}")
+                     f"batch, {group} frames a block, "
+                     f"{-(-K // per_block)} taper ranges")
             kd, cd = [], []
             for _ in range(2):
                 kd.append(device_times_us(

@@ -120,11 +120,11 @@ SIGNATURES = {
     },
     "fused_psd_tapers": {
         # raw, twiddle, tapers, partial, out, device, log2n, F, group, K,
-        # n_valid, batch, stage, stream
+        # n_valid, batch, per_block, stream
         "rpf_fused_psd_tapers": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _P],
-        # log2n, K, batch, stage, device, attrs (int[6])
-        "rpf_fused_psd_tapers_attributes": [_I, _I, _I, _I, _I, _P],
+        # log2n, batch, device, attrs (int[6])
+        "rpf_fused_psd_tapers_attributes": [_I, _I, _I, _P],
     },
     "fused_psd_pfb": {
         # raw, history, twiddle, h, partial, out, history_out, device,

@@ -13,26 +13,29 @@
 // passes through a lane's exchange buffer in shared memory (K1's register
 // transform, fft_regs.cuh). Two kernels compute it.
 //
-// psd_tapers_batch_kernel (the route wherever its ring fits a block, rule
-// fused_psd_tapers.batch_shape): one block runs every taper of its
-// frames [g * group, (g + 1) * group), on K2's block shape (LANES lanes
-// of TF = N / R threads; lane p takes frames f0 + p + LANES * i). Each
-// lane stages its frames C at a time by cp.async, 16 B a thread, in a
-// shared-memory ring of 2 C raw slots (2N bytes each, 32 more a lane so
+// psd_tapers_batch_kernel (the route wherever its ring fits a block and
+// K >= 2, rule fused_psd_tapers.batch_shape): block (g, s) runs tapers
+// [s * KB, min((s + 1) * KB, K)) of its frames [g * group, (g + 1) *
+// group), on K2's block shape (LANES lanes of TF = N / R threads; lane p
+// takes frames f0 + p + LANES * i); the wrapper's grid rule
+// (fused_psd_tapers.batch_grid) fills the lanes and keeps the grid to one
+// wave, with one taper range (KB = K) wherever the frames alone fill it.
+// Each lane stages its frames C at a time by cp.async, 16 B a thread, in
+// a shared-memory ring of 2 C raw slots (2N bytes each, 32 more a lane so
 // that the lanes of one warp, N <= 256, read other banks): batch b + 1 is
-// in flight while batch b is transformed K times. For each taper k the
-// thread loads its R values of row k once into registers, then for each
-// of the batch's frames reads the frame from the ring, dequantizes it
+// in flight while batch b is transformed KB times. For each taper k the
+// thread loads its R values of row k once into registers (through L1 and
+// L2: a table staged beside the ring measured slower), then for each of
+// the batch's frames reads the frame from the ring, dequantizes it
 // exactly, multiplies it by the taper (__fmul_rn, as K2 does), runs K1's
 // regs_transform and adds |X|^2 to its R f32 sums, which run over tapers
 // and frames. A slot is rewritten only after the barrier that ends the
-// first pass of the last transform that reads it. With STAGE the (K, N)
-// table is copied beside the ring once a block (where it fits and keeps
-// the block's SM share), else the rows come through L2. The block writes
-// one partial row (regs_lane_sum); each frame is read from device memory
-// once. cp.async over a bulk (TMA) copy: a lane's batch is a few 16-byte
-// copies a thread, the barrier that frees the exchange buffer publishes
-// them, and no mbarrier phase per slot is needed.
+// first pass of the last transform that reads it. The block writes one
+// partial row (regs_lane_sum), s * G + g; each frame is read from device
+// memory once a taper range. cp.async over a bulk (TMA) copy: a lane's
+// batch is a few 16-byte copies a thread, the barrier that frees the
+// exchange buffer publishes them, and no mbarrier phase per slot is
+// needed.
 //
 // The control, the kernel it was redesigned from (and the route at 16384
 // bins, where the ring does not fit): K2's group kernel with a taper axis
@@ -104,27 +107,28 @@ __host__ __device__ constexpr int batch_lane_bytes(int C) {
 }
 
 // The batch kernel's shared memory: the lanes' exchange buffers (the
-// lanes' sums by bin at the end), their rings, and with STAGE the table.
+// lanes' sums by bin at the end) and their rings.
 template <int LOG2N>
-int batch_smem_bytes(int K, int C, bool stage) {
+int batch_smem_bytes(int C) {
   using S = RegsShape<LOG2N>;
-  return S::RING_OFFSET + S::LANES * batch_lane_bytes<LOG2N>(C) +
-         (stage ? 4 * K * S::N : 0);
+  return S::RING_OFFSET + S::LANES * batch_lane_bytes<LOG2N>(C);
 }
 
-// Block g sums |DFT(x_f * taper_k)|^2 over k < K and its frames f in
-// [g * group, min((g + 1) * group, F, n_valid)) into partial row g. Lane
-// frame i = b * C + c (frame f0 + lane + LANES * i) lies in ring slot
-// (b & 1) * C + c of the lane's ring during batch b. A 256-thread block
-// is held to 128 registers, so that two fit an SM.
-template <int LOG2N, bool STAGE>
+// Block (g, s) sums |DFT(x_f * taper_k)|^2 over k in [s * KB, min((s +
+// 1) * KB, K)) and its frames f in [g * group, min((g + 1) * group, F,
+// n_valid)) into partial row s * G + g. Lane frame i = b * C + c (frame
+// f0 + lane + LANES * i) lies in ring slot (b & 1) * C + c of the lane's
+// ring during batch b. A 256-thread block is held to 128 registers, so
+// that two fit an SM.
+template <int LOG2N>
 __global__ void __launch_bounds__(RegsShape<LOG2N>::THREADS,
                                   RegsShape<LOG2N>::THREADS <= 256 ? 2 : 1)
 psd_tapers_batch_kernel(const uint8_t* __restrict__ raw,     // (F, 2N)
                         const float2* __restrict__ twiddle,  // pass_twiddles
                         const float* __restrict__ tapers,    // (K, N)
-                        float* __restrict__ partial,         // (G, N)
-                        int F, int group, int n_valid, int K, int C) {
+                        float* __restrict__ partial,         // (S * G, N)
+                        int F, int group, int n_valid, int K, int KB,
+                        int C) {
   using P = RegsPlan<LOG2N>;
   using S = RegsShape<LOG2N>;
   constexpr int N = P::N, R = P::R, TF = P::TF;
@@ -138,8 +142,8 @@ psd_tapers_batch_kernel(const uint8_t* __restrict__ raw,     // (F, 2N)
   float2* x = reinterpret_cast<float2*>(mt_smem) + lane * S::XSTRIDE;
   const int lane_bytes = batch_lane_bytes<LOG2N>(C);
   uint8_t* ring = smem + S::RING_OFFSET + lane * lane_bytes;
-  float* table = reinterpret_cast<float*>(smem + S::RING_OFFSET +
-                                          S::LANES * lane_bytes);
+  const int k0 = blockIdx.y * KB;
+  const int k1 = min(k0 + KB, K);
 
   float acc[R];
 #pragma unroll
@@ -169,11 +173,6 @@ psd_tapers_batch_kernel(const uint8_t* __restrict__ raw,     // (F, 2N)
     cp_async_commit();
   };
 
-  if constexpr (STAGE) {
-    for (int q = tid; q < K * N / 4; q += S::THREADS) {
-      cp_async16(table + 4 * q, tapers + 4 * q);
-    }
-  }
   stage(0);
   for (int b = 0; b < batches; ++b) {
     stage(b + 1);
@@ -181,18 +180,12 @@ psd_tapers_batch_kernel(const uint8_t* __restrict__ raw,     // (F, 2N)
     __syncthreads();      // everyone's; x is free (batch b - 1's last pass)
     const int frames = min(C, iters - b * C);
     const uint8_t* slots = ring + (b & 1) * C * 2 * N;
-    for (int k = 0; k < K; ++k) {
+    for (int k = k0; k < k1; ++k) {
       // The thread's R values of taper row k, for the batch's frames.
       float win[R];
-      if constexpr (STAGE) {
-        const float* row = table + k * N + t;
+      const float* row = tapers + static_cast<size_t>(k) * N + t;
 #pragma unroll
-        for (int r = 0; r < R; ++r) win[r] = row[r * TF];
-      } else {
-        const float* row = tapers + static_cast<size_t>(k) * N + t;
-#pragma unroll
-        for (int r = 0; r < R; ++r) win[r] = __ldg(row + r * TF);
-      }
+      for (int r = 0; r < R; ++r) win[r] = __ldg(row + r * TF);
       for (int c = 0; c < frames; ++c) {
         const bool active = f0 + lane + S::LANES * (b * C + c) < f1;
         float2 v[R];
@@ -208,7 +201,7 @@ psd_tapers_batch_kernel(const uint8_t* __restrict__ raw,     // (F, 2N)
         }
         // x is free: every lane is past the last pass of the transform
         // before (the batch's first transform: the barrier above).
-        if (k > 0 || c > 0) __syncthreads();
+        if (k > k0 || c > 0) __syncthreads();
         regs_transform<LOG2N>(v, x, twiddle, t, active);
         if (active) {
 #pragma unroll
@@ -229,57 +222,46 @@ psd_tapers_batch_kernel(const uint8_t* __restrict__ raw,     // (F, 2N)
     by_bin[lane * N + regs_slot_bin<LOG2N>(t, r)] = acc[r];
   }
   __syncthreads();
-  regs_lane_sum<LOG2N>(by_bin, partial + static_cast<size_t>(blockIdx.x) * N,
-                       tid);
+  regs_lane_sum<LOG2N>(
+      by_bin,
+      partial + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * N,
+      tid);
 }
 
 // The batch kernel opts in to the most a block may use once; a launch
-// asks for its own (K, C, STAGE) share of it.
-template <int LOG2N, bool STAGE>
+// asks for its own C's share of it.
+template <int LOG2N>
 cudaError_t prepare_batch(int device) {
   static std::atomic<unsigned long long> done{0};
-  return opt_in_smem(psd_tapers_batch_kernel<LOG2N, STAGE>, kMaxSmem, device,
-                     done);
+  return opt_in_smem(psd_tapers_batch_kernel<LOG2N>, kMaxSmem, device, done);
 }
 
 template <int LOG2N>
 cudaError_t launch_batch(const void* raw, const void* twiddle,
                          const void* tapers, void* partial, int F, int group,
-                         int blocks, int K, int n_valid, int C, int stage,
+                         int blocks, int K, int KB, int n_valid, int C,
                          int device, cudaStream_t stream) {
-  constexpr int threads = RegsShape<LOG2N>::THREADS;
-  const int smem = batch_smem_bytes<LOG2N>(K, C, stage != 0);
+  const int smem = batch_smem_bytes<LOG2N>(C);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e = stage ? prepare_batch<LOG2N, true>(device)
-                              : prepare_batch<LOG2N, false>(device);
+  const cudaError_t e = prepare_batch<LOG2N>(device);
   if (e != cudaSuccess) return e;
-  const auto* r = static_cast<const uint8_t*>(raw);
-  const auto* tw = static_cast<const float2*>(twiddle);
-  const auto* tp = static_cast<const float*>(tapers);
-  auto* part = static_cast<float*>(partial);
-  if (stage) {
-    psd_tapers_batch_kernel<LOG2N, true><<<blocks, threads, smem, stream>>>(
-        r, tw, tp, part, F, group, n_valid, K, C);
-  } else {
-    psd_tapers_batch_kernel<LOG2N, false><<<blocks, threads, smem, stream>>>(
-        r, tw, tp, part, F, group, n_valid, K, C);
-  }
+  psd_tapers_batch_kernel<LOG2N>
+      <<<dim3(blocks, (K + KB - 1) / KB), RegsShape<LOG2N>::THREADS, smem,
+         stream>>>(static_cast<const uint8_t*>(raw),
+                   static_cast<const float2*>(twiddle),
+                   static_cast<const float*>(tapers),
+                   static_cast<float*>(partial), F, group, n_valid, K, KB, C);
   return cudaGetLastError();
 }
 
 template <int LOG2N>
-cudaError_t batch_attributes(int K, int C, int stage, int device,
-                             int* attrs) {
-  constexpr int threads = RegsShape<LOG2N>::THREADS;
-  const int smem = batch_smem_bytes<LOG2N>(K, C, stage != 0);
+cudaError_t batch_attributes(int C, int device, int* attrs) {
+  const int smem = batch_smem_bytes<LOG2N>(C);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e = stage ? prepare_batch<LOG2N, true>(device)
-                              : prepare_batch<LOG2N, false>(device);
+  const cudaError_t e = prepare_batch<LOG2N>(device);
   if (e != cudaSuccess) return e;
-  return stage ? kernel_attributes(psd_tapers_batch_kernel<LOG2N, true>,
-                                   threads, smem, attrs)
-               : kernel_attributes(psd_tapers_batch_kernel<LOG2N, false>,
-                                   threads, smem, attrs);
+  return kernel_attributes(psd_tapers_batch_kernel<LOG2N>,
+                           RegsShape<LOG2N>::THREADS, smem, attrs);
 }
 
 // Sets the calling thread's device only where it is on another one.
@@ -296,19 +278,22 @@ extern "C" {
 
 // Launches both passes on `stream`. raw: (F, 2N) u8, 16-byte aligned;
 // twiddle: pass_twiddles(N), (rows, 2) f32; tapers: (K, N) f32, 1 <= K <=
-// 32 (16-byte aligned with stage); batch: frames a lane stages a batch,
-// C >= 1, for psd_tapers_batch_kernel (with stage the table staged too;
-// cudaErrorInvalidValue where its shared memory exceeds a block's), or 0
-// for the control; partial: (G, N) f32 scratch for the batch kernel, (K *
-// G, N) for the control, G = ceil(F / group); out: (N,) f32. Returns a
-// cudaError_t (0 on success); does not synchronise.
+// 32; batch: frames a lane stages a batch, C >= 1, for
+// psd_tapers_batch_kernel on K / per_block taper ranges of per_block
+// tapers (rounded up; cudaErrorInvalidValue where its shared memory
+// exceeds a block's), or 0 for the control; partial: (ceil(K / per_block)
+// * G, N) f32 scratch for the batch kernel, (K * G, N) for the control, G
+// = ceil(F / group); out: (N,) f32. Returns a cudaError_t (0 on success);
+// does not synchronise.
 int rpf_fused_psd_tapers(const void* raw, const void* twiddle,
                          const void* tapers, void* partial, void* out,
                          int device, int log2n, int F, int group, int K,
-                         int n_valid, int batch, int stage, void* stream) {
+                         int n_valid, int batch, int per_block,
+                         void* stream) {
   if (log2n < kMinLog2N || log2n > kMaxLog2N || F <= 0 || group <= 0 ||
       K < 1 || K > kMaxTapers || n_valid < 0 || n_valid > F ||
-      tapers == nullptr || batch < 0) {
+      tapers == nullptr || batch < 0 ||
+      (batch > 0 && (per_block < 1 || per_block > K))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = use_device(device);
@@ -318,8 +303,8 @@ int rpf_fused_psd_tapers(const void* raw, const void* twiddle,
 #define RPF_CASE(L)                                                         \
   case L:                                                                   \
     e = batch ? launch_batch<L>(raw, twiddle, tapers, partial, F, group,    \
-                                blocks, K, n_valid, batch, stage, device,   \
-                                st)                                         \
+                                blocks, K, per_block, n_valid, batch,       \
+                                device, st)                                 \
               : launch_groups<L>(raw, twiddle, tapers, partial, F, group,   \
                                  blocks, K, n_valid, device, st);           \
     break;
@@ -332,26 +317,26 @@ int rpf_fused_psd_tapers(const void* raw, const void* twiddle,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int N = 1 << log2n;
   est_sum_kernel<kEstTapers><<<N / kSumBins, kSumBins * kSumLanes, 0, st>>>(
-      static_cast<const float*>(partial), batch ? blocks : K * blocks, N, K,
-      0.0f, static_cast<float*>(out));
+      static_cast<const float*>(partial),
+      (batch ? (K + per_block - 1) / per_block : K) * blocks, N, K, 0.0f,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 // What the first pass gets at N = 2^log2n on `device` (batch: the batch
-// kernel at K tapers and C = batch frames a batch, with stage the table
-// staged; 0: the control): attrs[0..5] as fused_psd.cu's
-// rpf_fused_psd_attributes. Launches nothing.
-int rpf_fused_psd_tapers_attributes(int log2n, int K, int batch, int stage,
-                                    int device, int* attrs) {
-  if (log2n < kMinLog2N || log2n > kMaxLog2N || K < 1 || K > kMaxTapers ||
-      batch < 0 || attrs == nullptr) {
+// kernel at C = batch frames a batch; 0: the control): attrs[0..5] as
+// fused_psd.cu's rpf_fused_psd_attributes. Launches nothing.
+int rpf_fused_psd_tapers_attributes(int log2n, int batch, int device,
+                                    int* attrs) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || batch < 0 ||
+      attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
 #define RPF_CASE(L)                                                          \
   case L:                                                                    \
-    e = batch ? batch_attributes<L>(K, batch, stage, device, attrs)          \
+    e = batch ? batch_attributes<L>(batch, device, attrs)                    \
               : attributes<L>(device, attrs);                                \
     break;
   switch (log2n) {

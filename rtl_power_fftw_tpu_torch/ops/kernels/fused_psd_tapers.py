@@ -9,14 +9,15 @@ float32. Bins in natural order.
 
 Both kernels run K1's register transform (``csrc/fused_psd_regs.cuh``,
 ``fft_regs.cuh``) on K2's block shape. The batch kernel runs every taper
-of a block's frames: each lane stages its frames C at a time in a
-shared-memory ring of 2 C raw slots by ``cp.async``, the next batch in
-flight, holds taper row k in registers over a batch, and the block writes
-one partial row, so each frame is read from device memory once. Its grid
-is K1's rule (:func:`.fused_psd.k1_group`) over its own residency. It is
-the route wherever its ring fits a block (:func:`batch_shape`, a rule on
-(N, K)); elsewhere (16384 bins) the route is the kernel it was redesigned
-from, K2's kernel with a taper axis on its grid: block (g, k) under taper
+of a block's frames (or of a range of the tapers, where the frames alone
+do not fill one wave of blocks, :func:`batch_grid`): each lane stages its
+frames C at a time in a shared-memory ring of 2 C raw slots by
+``cp.async``, the next batch in flight, holds taper row k in registers
+over a batch, and the block writes one partial row, so each frame is read
+from device memory once a taper range. It is the route wherever its ring
+fits a block and K >= 2 (:func:`batch_shape`, a rule on (N, K));
+elsewhere (16384 bins, one taper) the route is the kernel it was
+redesigned from, K2's kernel with a taper axis on its grid: block (g, k) under taper
 k writes partial row k * G + g, so each frame is read K times, on a grid
 of K2's resident blocks over K (:func:`tapers_group`).
 :func:`fused_psd_tapers_control` runs it at every size. Their f32 sums
@@ -31,7 +32,7 @@ batch kernel's launches, ``COUNTS.kernel_tapers_control`` the control's.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,55 +40,57 @@ from . import fused_psd as fp
 
 #: Tapers a call takes (``--multitaper`` accepts 1..32).
 MAX_TAPERS = 32
-#: Frames a lane of the batch kernel stages a batch, the most first.
-BATCH_FRAMES = (4, 2)
+#: Frames a lane of the batch kernel stages a batch (C). Of 1, 2, 4 and 8
+#: at 2048 bins, K = 7, 2 measured the fastest (probes/estimator_builds.py).
+BATCH_FRAMES = 2
 #: A lane's ring: 2 C slots of 2N bytes and these 32 more, which put the
 #: lanes of one warp (N <= 256) on other banks.
 RING_PAD = 32
-#: The batch kernel copies a staged table 16 bytes a thread.
-TABLE_ALIGN = 16
 
 
 class BatchShape(NamedTuple):
-    """The batch kernel's block at (N, K): ``frames`` (C) a lane stages a
-    batch, whether the (K, N) table is staged beside the ring
-    (``stage``), its shared memory (``smem`` bytes) and the blocks one SM
-    holds by threads and shared memory (``blocks_per_sm``)."""
+    """The batch kernel's block at N bins: ``frames`` (C) a lane stages a
+    batch, its shared memory (``smem`` bytes) and the blocks one SM holds
+    by threads and shared memory (``blocks_per_sm``)."""
     frames: int
-    stage: bool
     smem: int
     blocks_per_sm: int
 
 
-def batch_smem(N: int, K: int, C: int, stage: bool) -> int:
-    """Bytes of shared memory a block of the batch kernel takes: the
-    lanes' exchange buffers, their rings of 2 C slots, and with ``stage``
-    the (K, N) float32 table."""
+def batch_smem(N: int, C: int) -> int:
+    """Bytes of shared memory a block of the batch kernel takes at C
+    frames a lane a batch: the lanes' exchange buffers and their rings of
+    2 C slots."""
     shape = fp.regs_shape(N)
-    return (shape.exchange + shape.lanes * (4 * C * N + RING_PAD)
-            + (4 * K * N if stage else 0))
+    return shape.exchange + shape.lanes * (4 * C * N + RING_PAD)
 
 
 def batch_shape(N: int, K: int) -> Optional[BatchShape]:
-    """The route's rule at N bins and K tapers: None (the control) where
-    no ring of C >= 2 frames a lane fits a block beside the exchange
-    buffers; else the batch kernel's :class:`BatchShape`. C is the most of
-    :data:`BATCH_FRAMES` whose block still leaves 2 blocks an SM by shared
-    memory, or as many as the least C would; the table is staged where it
-    fits beside the ring and leaves the block that many blocks an SM."""
-    threads = fp.regs_shape(N).threads
-    blocks = {C: fp.smem_blocks_per_sm(batch_smem(N, K, C, False), threads)
-              for C in BATCH_FRAMES
-              if batch_smem(N, K, C, False) <= fp.SMEM_PER_BLOCK}
-    if not blocks:
+    """The route's rule at N bins and K tapers: the batch kernel's
+    :class:`BatchShape` at :data:`BATCH_FRAMES` frames a batch, or None
+    (the control) where that ring does not fit a block beside the
+    exchange buffers (16384 bins) or K = 1 (one taper shares nothing, and
+    the control, K2's kernel, measured faster there)."""
+    smem = batch_smem(N, BATCH_FRAMES)
+    if K < 2 or smem > fp.SMEM_PER_BLOCK:
         return None
-    want = min(2, max(blocks.values()))
-    C = next(C for C in BATCH_FRAMES if blocks.get(C, 0) >= want)
-    staged = batch_smem(N, K, C, True)
-    stage = (staged <= fp.SMEM_PER_BLOCK
-             and fp.smem_blocks_per_sm(staged, threads) >= blocks[C])
-    smem = batch_smem(N, K, C, stage)
-    return BatchShape(C, stage, smem, fp.smem_blocks_per_sm(smem, threads))
+    return BatchShape(BATCH_FRAMES, smem,
+                      fp.smem_blocks_per_sm(smem, fp.regs_shape(N).threads))
+
+
+def batch_grid(F: int, chunk: int, K: int, N: int, resident: int
+               ) -> Tuple[int, int]:
+    """(group, per_block) of the batch kernel over F frames: ``group``
+    frames a block, the least divisor of ``chunk`` (the two-stage sum's
+    first stage) that gives one wave of the ``resident`` blocks the card
+    holds and at least a frame to each lane where chunk allows; then the
+    K tapers in ceil(K / per_block) ranges of ``per_block``, as many
+    ranges as that wave still has room for (one, K = per_block, wherever
+    the frames fill it)."""
+    need = max(-(-F // resident), min(fp.regs_shape(N).lanes, chunk))
+    group = next((g for g in range(need, chunk) if chunk % g == 0), chunk)
+    ranges = min(K, max(1, resident // -(-F // group)))
+    return group, -(-K // ranges)
 
 
 def tapers_group(F: int, chunk: int, K: int, resident: int) -> int:
@@ -171,21 +174,18 @@ def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
     shape = None if control else batch_shape(N, K)
     if shape is None:
         group = tapers_group(F, chunk, K, fp.resident_blocks(N, True, index))
-        rows = K * -(-F // group)
+        per_block, rows = 1, K * -(-F // group)
     else:
-        group = fp.k1_group(F, chunk, batch_resident_blocks(N, K, index))
-        rows = -(-F // group)
-        if shape.stage and tapers.data_ptr() % TABLE_ALIGN:
-            raise ValueError(f"{kernel}: tapers must be {TABLE_ALIGN}-byte "
-                             "aligned on the device")
+        group, per_block = batch_grid(F, chunk, K, N,
+                                      batch_resident_blocks(N, index))
+        rows = -(-K // per_block) * -(-F // group)
     out = fp._launch(
         kernel, raw_u8, tapers, rows, (N,),
         lambda lib, raw, twiddle, tp, partial, out, stream:
         lib.rpf_fused_psd_tapers(raw, twiddle, tp, partial, out, index,
                                  N.bit_length() - 1, F, group, K, n_valid,
                                  0 if shape is None else shape.frames,
-                                 int(shape is not None and shape.stage),
-                                 stream),
+                                 per_block, stream),
         library="fused_psd_tapers")
     if shape is None:
         fp.COUNTS.kernel_tapers_control += 1
@@ -194,26 +194,22 @@ def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
     return out
 
 
-def kernel_attributes(N: int, K: int, batch: bool,
+def kernel_attributes(N: int, batch: bool,
                       device: Optional[torch.device] = None) -> dict:
-    """What a first pass gets at N bins and K tapers on the card, as
+    """What a first pass gets at N bins on the card, as
     :func:`.fused_psd.kernel_attributes` gives K2's: the batch kernel's
-    (``batch``) at its :func:`batch_shape`, or the control's. Launches
-    nothing."""
-    shape = batch_shape(N, K) if batch else None
-    if batch and shape is None:
-        raise ValueError(f"the batch kernel does not fit N={N}, K={K}")
-    return fp.library_attributes(
-        "fused_psd_tapers", N, K, 0 if shape is None else shape.frames,
-        int(shape is not None and shape.stage), device=device)
+    (``batch``) at :data:`BATCH_FRAMES` frames a batch, or the control's.
+    Launches nothing."""
+    return fp.library_attributes("fused_psd_tapers", N,
+                                 BATCH_FRAMES if batch else 0, device=device)
 
 
 @functools.lru_cache(maxsize=64)
-def batch_resident_blocks(N: int, K: int, index: int) -> int:
-    """Blocks of the batch kernel at N bins and K tapers that card
-    ``index`` holds resident: its SMs times :func:`kernel_attributes`'
-    blocks per SM, asked of the card once per key."""
+def batch_resident_blocks(N: int, index: int) -> int:
+    """Blocks of the batch kernel at N bins that card ``index`` holds
+    resident: its SMs times :func:`kernel_attributes`' blocks per SM,
+    asked of the card once per key."""
     device = torch.device("cuda", index)
-    per_sm = kernel_attributes(N, K, True, device)["blocks_per_sm"]
+    per_sm = kernel_attributes(N, True, device)["blocks_per_sm"]
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return sms * max(1, per_sm)

@@ -22,6 +22,9 @@ Each build is a copy of ``ops/kernels/csrc`` edited before nvcc
 * ``batch_w0``: the multitaper batch kernel with pass 0's twiddles (the
   thread's R - 1 constants) loaded into registers once a block, not
   through ``__ldg`` in every transform;
+* ``batch_pf``: the multitaper batch kernel with the thread's R values of
+  the next taper row prefetched into L1 (``prefetch.global.L1``) when it
+  loads the current one;
 * ``mt_nofft``, ``batch_nofft``: the multitaper control
   (``kRegsTapers``, grid (G, K)) and the batch kernel
   (``psd_tapers_batch_kernel``) with the transform left out (timing
@@ -33,9 +36,10 @@ behind a sleep kernel, the least of three runs), the registers, spill
 bytes and blocks an SM, and the grid; for the PFB the ring kernel with
 the prototype staged in shared memory and read through L2, and the
 shipped ring kernel over a sweep of frames a block; for the multitaper
-the batch kernel at 1, 2, 4 and 8 frames a lane a batch, with the table
-staged and through L2, and over a sweep of frames a block; then the
-control and
+the batch kernel at 1, 2, 4 and 8 frames a lane a batch and over a sweep
+of frames a block, and the route against the control at every N the
+batch kernel takes (K = 2, 7, 32; F = 400 and 4096); then the control
+and
 ``torch.fft.fft`` of the complex64 frames (F polyphase sums for the PFB,
 F K tapered frames for the multitaper, K = 7).
 
@@ -153,11 +157,11 @@ __device__ __forceinline__ void regs_transform_w0(
 W0_LOAD = """  float2 w0[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int k1 = rev_bits(r, log2_of(R));
-    w0[r] = k1 != 0 ? __ldg(twiddle + k1 * TF + t) : make_float2(1.0f, 0.0f);
+    const int q = rev_bits(r, log2_of(R));
+    w0[r] = q != 0 ? __ldg(twiddle + q * TF + t) : make_float2(1.0f, 0.0f);
   }
 """
-BATCH_KERNEL = "// Block g sums |DFT(x_f * taper_k)|^2 over k < K"
+BATCH_KERNEL = "// Block (g, s) sums |DFT(x_f * taper_k)|^2"
 ACC_ZERO = "  for (int r = 0; r < R; ++r) acc[r] = 0.0f;\n"
 BATCH_FFT = "        regs_transform<LOG2N>(v, x, twiddle, t, active);\n"
 BUILDS["batch_w0"] = ("fused_psd_tapers.cu", (
@@ -167,6 +171,16 @@ BUILDS["batch_w0"] = ("fused_psd_tapers.cu", (
                 "active);\n")), ("fused_psd_tapers",))
 BUILDS["batch_nofft"] = ("fused_psd_tapers.cu", (
     (BATCH_FFT, "        __syncthreads();\n"),), ("fused_psd_tapers",))
+WIN_LOAD = ("      for (int r = 0; r < R; ++r) win[r] = __ldg(row + r * TF);"
+            "\n")
+BUILDS["batch_pf"] = ("fused_psd_tapers.cu", ((WIN_LOAD, WIN_LOAD + """\
+      if (k + 1 < k1) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          asm volatile("prefetch.global.L1 [%0];" ::"l"(row + N + r * TF));
+        }
+      }
+"""),), ("fused_psd_tapers",))
 #: The libraries each part times.
 PARTS = {"pfb": ("fused_psd_pfb",), "sk": ("fused_psd", "fused_psd_sk"),
          "mt": ("fused_psd_tapers",), "batch": ("fused_psd_tapers",)}
@@ -326,55 +340,84 @@ def sk_part(libs, dev, raw, F, chunk) -> None:
     use(libs, "shipped")
 
 
-def batch(raw, F, chunk, tp, C, stage, group=None):
-    """The multitaper batch kernel at C frames a lane a batch, the table staged or
-    not, on ``group`` frames a block (default: K1's rule over its
-    residency); returns the output, the attributes and the group."""
-    attrs = fp.library_attributes("fused_psd_tapers", N, K, C, int(stage))
+def batch(raw, F, chunk, tp, C, group=None):
+    """The multitaper batch kernel at C frames a lane a batch, on
+    ``group`` frames a block and one taper range (default: the route's
+    grid rule over its residency at C); returns the output, the
+    attributes and the group."""
+    attrs = fp.library_attributes("fused_psd_tapers", N, C)
+    per_block = K
     if group is None:
         sms = torch.cuda.get_device_properties(raw.device)
-        group = fp.k1_group(F, chunk, sms.multi_processor_count
-                            * attrs["blocks_per_sm"])
+        group, per_block = fmt.batch_grid(
+            F, chunk, K, N, sms.multi_processor_count
+            * attrs["blocks_per_sm"])
     out = fp._launch(
-        "fused_psd_tapers", raw, tp, -(-F // group), (N,),
+        "fused_psd_tapers", raw, tp, -(-K // per_block) * -(-F // group),
+        (N,),
         lambda lib, r, tw, t, partial, out, stream:
         lib.rpf_fused_psd_tapers(r, tw, t, partial, out, raw.device.index,
                                  N.bit_length() - 1, F, group, K, F, C,
-                                 int(stage), stream),
+                                 per_block, stream),
         library="fused_psd_tapers")
     return out, attrs, group
 
 
 def batch_part(libs, dev, raw, F, chunk) -> None:
-    """The multitaper's batch kernel at K = 7: the route, its cut without
-    the transform (batch_nofft), its frames a batch and table staging,
-    and the route's over a sweep of frames a block."""
+    """The multitaper's batch kernel at K = 7: the route, the next taper
+    row prefetched (batch_pf), pass 0's twiddles in registers (batch_w0)
+    and its cut without the transform (batch_nofft), each at C = 1, 2, 4
+    and 8 frames a batch; the route's C over a sweep of frames a block."""
     tp = torch.from_numpy(_session_tapers(N, 4.0, K)).to(dev)
     use(libs, "shipped")
     want = fmt.fused_psd_tapers_reference(raw, F, chunk, tp)
-    shape = fmt.batch_shape(N, K)
-    for build in ("shipped", "batch_w0", "batch_nofft"):
+    for build in ("shipped", "batch_pf", "batch_w0", "batch_nofft"):
         use(libs, build)
         for C in (1, 2, 4, 8):
-            for stage in (False, True):
-                if fmt.batch_smem(N, K, C, stage) > fp.SMEM_PER_BLOCK:
-                    continue
-                got, attrs, group = batch(raw, F, chunk, tp, C, stage)
-                rel = float(((got - want).abs() / want.abs()).max())
-                t = device_us(lambda: batch(raw, F, chunk, tp, C, stage))
-                line(f"N={N} F={F} K={K} {build} batch C={C}, the table "
-                     f"{'staged' if stage else 'through L2'}"
-                     f"{' (the route)' if (C, stage) == shape[:2] else ''}",
-                     t, attrs, f", {group} frames a block; max rel vs "
-                     f"plain {rel:.2e}")
+            got, attrs, group = batch(raw, F, chunk, tp, C)
+            rel = float(((got - want).abs() / want.abs()).max())
+            t = device_us(lambda: batch(raw, F, chunk, tp, C))
+            line(f"N={N} F={F} K={K} {build} batch C={C}"
+                 f"{' (the route)' if C == fmt.BATCH_FRAMES else ''}",
+                 t, attrs, f", {group} frames a block; max rel vs plain "
+                 f"{rel:.2e}")
     use(libs, "shipped")
     for group in (g for g in (1, 2, 4, 8, 16, 32, 64) if chunk % g == 0):
-        _, attrs, _ = batch(raw, F, chunk, tp, shape.frames, shape.stage,
-                            group)
-        t = device_us(lambda: batch(raw, F, chunk, tp, shape.frames,
-                                    shape.stage, group))
-        line(f"N={N} F={F} K={K} shipped batch (the route's C and table) "
-             f"at {group} frames a block", t, attrs)
+        _, attrs, _ = batch(raw, F, chunk, tp, fmt.BATCH_FRAMES, group)
+        t = device_us(lambda: batch(raw, F, chunk, tp, fmt.BATCH_FRAMES,
+                                    group))
+        line(f"N={N} F={F} K={K} shipped batch (the route's C) at {group} "
+             f"frames a block", t, attrs)
+
+
+def route_sweep(dev) -> None:
+    """The multitaper route (fused_psd_tapers) against the control at
+    every N the batch kernel takes, K = 2, 7, 32, F = 400 and 4096: device
+    µs of each, in turns."""
+    rng = np.random.default_rng(1)
+    for n in sorted(fp.PASS_PLAN):
+        for frames in FRAMES:
+            F, chunk = adapt_batch(frames)
+            raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * n),
+                                                dtype=np.uint8)).to(dev)
+            for k in (2, 7, 32):
+                if fmt.batch_shape(n, k) is None:
+                    continue
+                tp = torch.from_numpy(np.resize(_session_tapers(
+                    n, 4.0 if n > 64 else 2.0, min(k, 7 if n > 64 else 3)),
+                    (k, n)).astype(np.float32)).to(dev)
+                times = [device_us(lambda: fn(raw, F, chunk, tp))
+                         for fn in (fmt.fused_psd_tapers,
+                                    fmt.fused_psd_tapers_control,
+                                    fmt.fused_psd_tapers,
+                                    fmt.fused_psd_tapers_control)]
+                group, per_block = fmt.batch_grid(
+                    F, chunk, k, n, fmt.batch_resident_blocks(n, dev.index))
+                print(f"route sweep N={n} F={F} K={k}: batch "
+                      f"{times[0]:.1f}/{times[2]:.1f} us ({group} frames a "
+                      f"block, {-(-k // per_block)} taper ranges), control "
+                      f"{times[1]:.1f}/{times[3]:.1f} us, ratio "
+                      f"{min(times[0], times[2]) / min(times[1], times[3]):.3f}")
 
 
 def mt_part(libs, dev, raw, F, chunk) -> None:
@@ -388,7 +431,7 @@ def mt_part(libs, dev, raw, F, chunk) -> None:
         t = device_us(lambda: fmt.fused_psd_tapers_control(raw, F, chunk,
                                                            tp))
         line(f"N={N} F={F} K={K} {build} control", t,
-             fmt.kernel_attributes(N, K, False),
+             fmt.kernel_attributes(N, False),
              f", {group} frames a block, grid ({-(-F // group)}, {K})")
     use(libs, "shipped")
     z = torch.complex(raw[:, 0::2].float() - 127.0,
@@ -422,6 +465,9 @@ def main(argv=None) -> int:
                           raw[:, 1::2].float() - 127.0)
         print(f"N={N} F={F} torch.fft.fft of the frames: device "
               f"{device_us(lambda: torch.fft.fft(z, dim=-1)):.1f} us")
+    if "batch" in parts:
+        use(libs, "shipped")
+        route_sweep(dev)
     return 0
 
 

@@ -269,36 +269,37 @@ CSRC = REPO / "rtl_power_fftw_tpu_torch/ops/kernels/csrc"
 H100_SMS = 132
 
 
-def batch_transcription(raw, n_valid, chunk, tapers, group):
-    """psd_tapers_batch_kernel's index arithmetic in float64. Block g
+def batch_transcription(raw, n_valid, tapers, group, per_block, C):
+    """psd_tapers_batch_kernel's index arithmetic in float64. Block (g, s)
     takes frames [f0, f1), f0 = g * group, f1 = min(f0 + group, F,
-    n_valid); lane p frame i = b * C + c (frame f0 + p + LANES * i) goes
-    into ring slot (b & 1) * C + c of its lane, staged for batch 0 before
-    the loop and for batch b + 1 at the top of batch b. Each batch runs k
-    = 0 .. K-1 over its frames c (lane 0's count), a barrier before each
+    n_valid), and tapers [s * per_block, min((s + 1) * per_block, K));
+    lane p frame i = b * C + c (frame f0 + p + LANES * i) goes into ring
+    slot (b & 1) * C + c of its lane, staged for batch 0 before the loop
+    and for batch b + 1 at the top of batch b. Each batch runs the block's
+    tapers k over its frames c (lane 0's count), a barrier before each
     transform but the batch's first (the top barrier serves it) and one a
     pass after the first in the transform. Asserts that each slot read
     holds the frame the lane needs, issued before its batch's top
     barrier, and that a slot is rewritten only after a barrier that
     follows every read of its frame; that every (frame, taper) with frame
     < n_valid is taken once and no later frame. The block's one partial
-    row is its lanes' float64 sums added in order; est_sum's lane l of 8
-    takes rows l, l + 8, ...; the total is divided by K. Returns the total
-    and the partial rows."""
+    row, s * G + g, is its lanes' float64 sums added in order; est_sum's
+    lane l of 8 takes rows l, l + 8, ...; the total is divided by K.
+    Returns the total and the partial rows."""
     F, N = raw.shape[0], raw.shape[1] // 2
     K = tapers.shape[0]
-    shape = fmt.batch_shape(N, K)
-    lanes, C = fp.regs_shape(N).lanes, shape.frames
+    lanes = fp.regs_shape(N).lanes
     passes = len(fp.PASS_PLAN[N])
-    G = -(-F // group)
+    G, S = -(-F // group), -(-K // per_block)
     z = ((raw[:, 0::2].astype(np.float64) - 127.0)
          + 1j * (raw[:, 1::2].astype(np.float64) - 127.0))
     t64 = tapers.astype(np.float64)
     taken = np.zeros((F, K), int)
-    partial = np.full((G, N), np.nan)
-    for g in range(G):
+    partial = np.full((S * G, N), np.nan)
+    for s, g in np.ndindex(S, G):
         f0 = g * group
         f1 = min(f0 + group, F, n_valid)
+        ks = range(s * per_block, min((s + 1) * per_block, K))
         iters = -(-max(f1 - f0, 0) // lanes)
         batches = -(-iters // C)
         ring = [[None] * (2 * C) for _ in range(lanes)]
@@ -323,7 +324,7 @@ def batch_transcription(raw, n_valid, chunk, tapers, group):
             stage(b + 1)
             barriers += 1
             top = barriers
-            for k in range(K):
+            for k in ks:
                 for c in range(min(C, iters - b * C)):
                     for lane in range(lanes):
                         f = f0 + lane + lanes * (b * C + c)
@@ -335,11 +336,11 @@ def batch_transcription(raw, n_valid, chunk, tapers, group):
                         slot["read"] = barriers
                         acc[lane] += np.abs(np.fft.fft(z[f] * t64[k])) ** 2
                         taken[f, k] += 1
-                    barriers += (1 if k or c else 0) + passes - 1
+                    barriers += (1 if k > ks[0] or c else 0) + passes - 1
         row = acc[0].copy()
         for lane in range(1, lanes):
             row += acc[lane]
-        partial[g] = row
+        partial[s * G + g] = row
     assert (taken[:n_valid] == 1).all() and (taken[n_valid:] == 0).all()
     total = sum(partial[lane::8].sum(0) for lane in range(8))
     return total / K, partial
@@ -367,21 +368,23 @@ def seeded_tapers(N, K):
     return np.resize(t, (K, N)).astype(np.float32)
 
 
-@pytest.mark.parametrize("N,F,n_valid,K,group", [
-    (64, 512, 300, 7, 64), (64, 8, 5, 32, 8), (512, 512, 300, 1, 64),
-    (256, 256, 200, 32, 64), (2048, 64, 50, 4, 32), (2048, 400, 400, 7, 2),
-    (8192, 32, 29, 7, 16), (2048, 64, 0, 7, 16)])
-def test_batch_transcription(N, F, n_valid, K, group):
-    """The batch kernel's frames, ring slots, taper loop and one partial
-    row a block, in float64: every (frame, taper) pair of the valid frames
-    once, the ring's slots read and rewritten in order, within 1e-5 of the
-    plain version and of the JAX package's _mt_core on the same seeded
-    bytes."""
+@pytest.mark.parametrize("N,F,n_valid,K,group,per_block,C", [
+    (64, 512, 300, 7, 64, 7, 2), (64, 8, 5, 32, 8, 5, 2),
+    (512, 512, 300, 1, 64, 1, 2), (256, 256, 200, 32, 64, 32, 1),
+    (2048, 64, 50, 4, 32, 3, 4), (2048, 400, 400, 7, 2, 7, 2),
+    (8192, 32, 29, 7, 16, 2, 2), (2048, 64, 0, 7, 16, 7, 2)])
+def test_batch_transcription(N, F, n_valid, K, group, per_block, C):
+    """The batch kernel's frames, ring slots, taper ranges and loop and
+    one partial row a block, in float64: every (frame, taper) pair of the
+    valid frames once, the ring's slots read and rewritten in order,
+    within 1e-5 of the plain version and of the JAX package's _mt_core on
+    the same seeded bytes."""
     chunk = adapt_batch(F)[1]
     assert chunk % group == 0
     tp = seeded_tapers(N, K)
     raw = frames(F, N, 100 + K)
-    got, partial = batch_transcription(raw, n_valid, chunk, tp, group)
+    got, partial = batch_transcription(raw, n_valid, tp, group, per_block,
+                                       C)
     assert not np.isnan(partial).any()
     if n_valid == 0:
         assert not got.any()
@@ -395,67 +398,80 @@ def test_batch_transcription(N, F, n_valid, K, group):
 
 @pytest.mark.parametrize("N", sorted(fp.PASS_PLAN))
 def test_batch_shape_rule(N):
-    """batch_shape, a rule on (N, K) alone, at every K: None only where no
-    ring of C >= 2 frames a lane fits beside the exchange buffers (16384
-    bins); else C the most of BATCH_FRAMES that leaves min(2, the best
-    C's) blocks an SM, the table staged exactly where it fits and keeps
-    the block's count; shared memory within the 227 KB of a block, and the
-    blocks an SM it claims those of the threads and shared memory it
-    takes."""
+    """batch_shape, a rule on (N, K) alone, at every K: the control (None)
+    at K = 1 and where the ring of 2 BATCH_FRAMES slots a lane does not fit
+    beside the exchange buffers (16384 bins only); else that ring, within
+    the 227 KB of a block, and the blocks an SM it claims those of the
+    threads and shared memory it takes."""
     shape = fp.regs_shape(N)
+    C = fmt.BATCH_FRAMES
+    smem = shape.exchange + shape.lanes * (4 * C * N + 32)
     for K in range(1, fmt.MAX_TAPERS + 1):
         got = fmt.batch_shape(N, K)
-        ring = {C: shape.exchange + shape.lanes * (4 * C * N + 32)
-                for C in fmt.BATCH_FRAMES}
-        fits = {C: s for C, s in ring.items() if s <= fp.SMEM_PER_BLOCK}
-        if not fits:
-            assert got is None and N == 16384
+        if K == 1 or smem > fp.SMEM_PER_BLOCK:
+            assert got is None
+            assert K == 1 or N == 16384
             continue
-        blocks = {C: fp.smem_blocks_per_sm(s, shape.threads)
-                  for C, s in fits.items()}
-        want = min(2, max(blocks.values()))
-        assert got.frames == max(C for C in fits if blocks[C] >= want)
-        with_table = ring[got.frames] + 4 * K * N
-        assert got.stage == (with_table <= fp.SMEM_PER_BLOCK and
-                             fp.smem_blocks_per_sm(with_table, shape.threads)
-                             >= blocks[got.frames])
-        assert got.smem == (with_table if got.stage else ring[got.frames])
-        assert got.smem == fmt.batch_smem(N, K, got.frames, got.stage)
-        assert got.smem <= fp.SMEM_PER_BLOCK
-        assert got.blocks_per_sm == min(
+        assert got == fmt.BatchShape(C, smem, min(
             2048 // shape.threads,
-            fp.SMEM_PER_SM // (got.smem + fp.SMEM_RESERVED))
-        assert got.blocks_per_sm >= want
+            fp.SMEM_PER_SM // (smem + fp.SMEM_RESERVED)))
+        assert got.smem == fmt.batch_smem(N, C) <= fp.SMEM_PER_BLOCK
+        assert got.blocks_per_sm >= 1
+
+
+@pytest.mark.parametrize("N", sorted(fp.PASS_PLAN)[:-1])
+@pytest.mark.parametrize("F", [64, 104, 400, 1024, 4096])
+def test_batch_grid_rule(N, F):
+    """batch_grid at each K: group divides chunk (no block crosses the
+    two-stage sum's chunks), is the least such that fills each lane (where
+    chunk allows) and gives one wave of the resident blocks; the taper
+    ranges cover the K tapers, are as many as that wave has room for, and
+    keep it one wave."""
+    chunk = adapt_batch(F)[1]
+    lanes = fp.regs_shape(N).lanes
+    resident = H100_SMS * 2
+    for K in (2, 3, 7, 32):
+        group, per_block = fmt.batch_grid(F, chunk, K, N, resident)
+        G, S = -(-F // group), -(-K // per_block)
+        assert chunk % group == 0 and 1 <= per_block <= K
+        assert group == chunk or (G <= resident and group >= min(lanes,
+                                                                 chunk))
+        smaller = [g for g in range(1, group) if chunk % g == 0
+                   and -(-F // g) <= resident and g >= min(lanes, chunk)]
+        assert not smaller
+        assert G * S <= max(resident, G)
+        assert S == -(-K // -(-K // min(K, max(1, resident // G))))
 
 
 def test_batch_route_and_grid_at_the_drives_shapes():
     """The route at the shapes the card runs: 2048 bins K=7 (the drive's),
-    4 frames a lane a batch in 100,416 B (34,816 of exchange, 2 lanes of
-    8 slots of 4,096 B and 32), the table through L2, 2 blocks an SM; 256
-    bins K=7 the table staged; 8192 one block an SM; 16384 the control.
-    The grid on an H100 (132 SMs at 2 blocks) is one wave at F=4096 (16
-    frames a block, 256 blocks) and at the drive's F=400 (2, 200)."""
-    assert fmt.batch_shape(2048, 7) == fmt.BatchShape(4, False, 100416, 2)
-    assert fmt.batch_shape(256, 7) == fmt.BatchShape(4, True, 108032, 2)
-    assert fmt.batch_shape(2048, 1) == fmt.BatchShape(4, True, 108608, 2)
-    assert fmt.batch_shape(8192, 7) == fmt.BatchShape(4, False, 200736, 1)
+    2 frames a lane a batch in 67,648 B (34,816 of exchange, 2 lanes of 4
+    slots of 4,096 B and 32); 16384 and K=1 the control. The grid on an
+    H100 (132 SMs at 2 blocks, 128 registers a thread) is one wave and
+    one taper range at F=4096 (16 frames a block, 256 blocks) and at the
+    drive's F=400 (2, 200); at 256 bins F=1024 a lane's frame each (16
+    frames a block, 64 blocks) and 4 taper ranges of 2."""
+    assert fmt.batch_shape(2048, 7) == fmt.BatchShape(2, 67648, 3)
+    assert fmt.batch_shape(2048, 1) is None
     assert all(fmt.batch_shape(16384, K) is None for K in range(1, 33))
-    resident = H100_SMS * fmt.batch_shape(2048, 7).blocks_per_sm
-    for F, group in ((4096, 16), (400, 2)):
-        chunk = adapt_batch(F)[1]
-        got = fp.k1_group(F, chunk, resident)
-        assert got == group and -(-F // got) <= resident
+    resident = H100_SMS * 2
+    for F, grid in ((4096, (16, 7)), (400, (2, 7))):
+        assert fmt.batch_grid(F, adapt_batch(F)[1], 7, 2048,
+                              resident) == grid
+    assert fmt.batch_grid(1024, 64, 7, 256, resident) == (16, 2)
     # The control's grid at F=4096: 1.7 waves of K2's 264 resident blocks.
     assert fmt.tapers_group(4096, 64, 7, h100_resident(2048, True)) == 64
 
 
 def test_batch_kernel_constants_match_the_source():
-    """The wrapper's ring pad and block limit are the kernel's."""
+    """The wrapper's ring pad and block limit are the kernel's, and the
+    library's two C entries go through use_device."""
     text = (CSRC / "fused_psd_tapers.cu").read_text()
     assert f"constexpr int kRingPad = {fmt.RING_PAD};" in text
     assert f"constexpr int kMaxSmem = {fp.SMEM_PER_BLOCK};" in text
     assert "cudaSetDevice(device);" in text.split("use_device(int device)")[1]
     assert text.count("cudaSetDevice") == 1
+    assert text.count("cudaError_t e = use_device(device);") == 2
 
 
 @pytest.mark.parametrize("N", [64, 128, 256, 512, 2048])
@@ -466,7 +482,7 @@ def test_batch_ring_reads_bank_model(N):
     no two words of one read share a bank."""
     shape = fp.regs_shape(N)
     TF, R = shape.TF, shape.R
-    C = fmt.batch_shape(N, 7).frames
+    C = fmt.BATCH_FRAMES
     for slot in range(2 * C):
         for warp in range(shape.threads // 32):
             tid = np.arange(32) + 32 * warp
