@@ -187,8 +187,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    drive's step with the gate, 256, 16384; SK's s1 against K1's/K2's
    output bit for bit, every row against the control's bit for bit, and
    the gate's rows against ``sk_keep`` of its own moments; multitaper K =
-   7 and 1 at 2048, the drive's step, 16384 K = 4, 256 F = 1024 K = 7
-   and 8192 F = 256 K = 7, each on the route and on the control, with
+   7 (also masked) and 1 at 2048, the drive's step, 16384 K = 4, 256 F
+   = 1024 K = 7 and 8192 F = 256 K = 7, each on the route and on the
+   control, with
    their device times in turns (the route at most 1.05 of the control's
    where it is the batch kernel); the PFB at P = 2, 4, 16
    (F = 512) and P = 4 at the drive's step, at F = 4096 and at 16384
@@ -2392,7 +2393,7 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             timing = ""
         else:
             group, per_block = fmt.batch_grid(
-                F, chunk, K, N, fmt.batch_resident_blocks(N, dev.index))
+                nv, K, N, fmt.batch_resident_blocks(N, dev.index))
             route = (f"the batch kernel, {shape.frames} frames a lane a "
                      f"batch, {group} frames a block, "
                      f"{-(-K // per_block)} taper ranges")

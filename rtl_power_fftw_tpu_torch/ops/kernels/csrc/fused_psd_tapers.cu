@@ -13,13 +13,14 @@
 // passes through a lane's exchange buffer in shared memory (K1's register
 // transform, fft_regs.cuh). Two kernels compute it.
 //
-// psd_tapers_batch_kernel (the route wherever its ring fits a block and
-// K >= 2, rule fused_psd_tapers.batch_shape): block (g, s) runs tapers
-// [s * KB, min((s + 1) * KB, K)) of its frames [g * group, (g + 1) *
-// group), on K2's block shape (LANES lanes of TF = N / R threads; lane p
-// takes frames f0 + p + LANES * i); the wrapper's grid rule
-// (fused_psd_tapers.batch_grid) fills the lanes and keeps the grid to one
-// wave, with one taper range (KB = K) wherever the frames alone fill it.
+// psd_tapers_batch_kernel (the route where the card measured it ahead of
+// the control, rule fused_psd_tapers.batch_shape: K >= 3, N <= 4096, K N
+// <= 32768): block (g, s) runs tapers [s * KB, min((s + 1) * KB, K)) of
+// its frames [g * group, (g + 1) * group), on K2's block shape (LANES
+// lanes of TF = N / R threads; lane p takes frames f0 + p + LANES * i);
+// the wrapper's grid rule (fused_psd_tapers.batch_grid) gives each lane
+// as many frames, covers the valid frames in one wave, and splits the
+// tapers into ranges (KB < K) only where the frames alone leave it short.
 // Each lane stages its frames C at a time by cp.async, 16 B a thread, in
 // a shared-memory ring of 2 C raw slots (2N bytes each, 32 more a lane so
 // that the lanes of one warp, N <= 256, read other banks): batch b + 1 is
@@ -37,8 +38,8 @@
 // exchange buffer publishes them, and no mbarrier phase per slot is
 // needed.
 //
-// The control, the kernel it was redesigned from (and the route at 16384
-// bins, where the ring does not fit): K2's group kernel with a taper axis
+// The control, the kernel it was redesigned from (and the route
+// elsewhere): K2's group kernel with a taper axis
 // on the grid, block (g, k) psd_regs_kernel<LOG2N, true, kRegsTapers> of
 // fused_psd_regs.cuh under taper row k over frames [g * group, (g + 1) *
 // group), writing partial row k * G + g; each frame is read K times, once
@@ -282,9 +283,9 @@ extern "C" {
 // psd_tapers_batch_kernel on K / per_block taper ranges of per_block
 // tapers (rounded up; cudaErrorInvalidValue where its shared memory
 // exceeds a block's), or 0 for the control; partial: (ceil(K / per_block)
-// * G, N) f32 scratch for the batch kernel, (K * G, N) for the control, G
-// = ceil(F / group); out: (N,) f32. Returns a cudaError_t (0 on success);
-// does not synchronise.
+// * max(1, ceil(n_valid / group)), N) f32 scratch for the batch kernel,
+// (K * ceil(F / group), N) for the control; out: (N,) f32. Returns a
+// cudaError_t (0 on success); does not synchronise.
 int rpf_fused_psd_tapers(const void* raw, const void* twiddle,
                          const void* tapers, void* partial, void* out,
                          int device, int log2n, int F, int group, int K,
@@ -298,7 +299,9 @@ int rpf_fused_psd_tapers(const void* raw, const void* twiddle,
   }
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (F + group - 1) / group;
+  // The batch kernel's blocks cover the valid frames, the control's all F.
+  const int blocks = batch ? (n_valid > 0 ? (n_valid + group - 1) / group : 1)
+                           : (F + group - 1) / group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RPF_CASE(L)                                                         \
   case L:                                                                   \

@@ -43,6 +43,10 @@ MAX_TAPERS = 32
 #: Frames a lane of the batch kernel stages a batch (C). Of 1, 2, 4 and 8
 #: at 2048 bins, K = 7, 2 measured the fastest (probes/estimator_builds.py).
 BATCH_FRAMES = 2
+#: The route's bounds (batch_shape): tapers, bins and (K, N) table values.
+BATCH_MIN_TAPERS = 3
+BATCH_MAX_N = 4096
+BATCH_MAX_TABLE = 32768
 #: A lane's ring: 2 C slots of 2N bytes and these 32 more, which put the
 #: lanes of one warp (N <= 256) on other banks.
 RING_PAD = 32
@@ -67,29 +71,32 @@ def batch_smem(N: int, C: int) -> int:
 
 def batch_shape(N: int, K: int) -> Optional[BatchShape]:
     """The route's rule at N bins and K tapers: the batch kernel's
-    :class:`BatchShape` at :data:`BATCH_FRAMES` frames a batch, or None
-    (the control) where that ring does not fit a block beside the
-    exchange buffers (16384 bins) or K = 1 (one taper shares nothing, and
-    the control, K2's kernel, measured faster there)."""
-    smem = batch_smem(N, BATCH_FRAMES)
-    if K < 2 or smem > fp.SMEM_PER_BLOCK:
+    :class:`BatchShape` at :data:`BATCH_FRAMES` frames a batch where K >=
+    :data:`BATCH_MIN_TAPERS`, N <= :data:`BATCH_MAX_N` and the (K, N)
+    table holds at most :data:`BATCH_MAX_TABLE` values; else None (the
+    control). The bounds are where the card measured the batch kernel
+    ahead of the control (``probes/estimator_builds.py batch``, its route
+    sweep): with two tapers it shares too little, and with large tables or
+    8192 bins and more it fell behind. Its ring fits every block the rule
+    admits."""
+    if K < BATCH_MIN_TAPERS or N > BATCH_MAX_N or K * N > BATCH_MAX_TABLE:
         return None
+    smem = batch_smem(N, BATCH_FRAMES)
     return BatchShape(BATCH_FRAMES, smem,
                       fp.smem_blocks_per_sm(smem, fp.regs_shape(N).threads))
 
 
-def batch_grid(F: int, chunk: int, K: int, N: int, resident: int
+def batch_grid(n_valid: int, K: int, N: int, resident: int
                ) -> Tuple[int, int]:
-    """(group, per_block) of the batch kernel over F frames: ``group``
-    frames a block, the least divisor of ``chunk`` (the two-stage sum's
-    first stage) that gives one wave of the ``resident`` blocks the card
-    holds and at least a frame to each lane where chunk allows; then the
-    K tapers in ceil(K / per_block) ranges of ``per_block``, as many
-    ranges as that wave still has room for (one, K = per_block, wherever
-    the frames fill it)."""
-    need = max(-(-F // resident), min(fp.regs_shape(N).lanes, chunk))
-    group = next((g for g in range(need, chunk) if chunk % g == 0), chunk)
-    ranges = min(K, max(1, resident // -(-F // group)))
+    """(group, per_block) of the batch kernel over ``n_valid`` frames:
+    ``group`` frames a block, the same number for each of its lanes and
+    the fewest that put the frames in one wave of the ``resident`` blocks
+    the card holds; then the K tapers in ceil(K / per_block) ranges of
+    ``per_block``, as many ranges as that wave still has room for (one,
+    per_block = K, wherever the frames fill it)."""
+    lanes = fp.regs_shape(N).lanes
+    group = lanes * max(1, -(-n_valid // (resident * lanes)))
+    ranges = min(K, max(1, resident // max(1, -(-n_valid // group))))
     return group, -(-K // ranges)
 
 
@@ -176,9 +183,9 @@ def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
         group = tapers_group(F, chunk, K, fp.resident_blocks(N, True, index))
         per_block, rows = 1, K * -(-F // group)
     else:
-        group, per_block = batch_grid(F, chunk, K, N,
+        group, per_block = batch_grid(n_valid, K, N,
                                       batch_resident_blocks(N, index))
-        rows = -(-K // per_block) * -(-F // group)
+        rows = -(-K // per_block) * max(1, -(-n_valid // group))
     out = fp._launch(
         kernel, raw_u8, tapers, rows, (N,),
         lambda lib, raw, twiddle, tp, partial, out, stream:

@@ -62,6 +62,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..config import BASE_BUF, DEFAULT_BUF_MULTIPLIER
 from ..models.multitaper import _session_tapers
 from ..models.pfb import pfb_prototype
 from ..ops.kernels import _build
@@ -340,24 +341,25 @@ def sk_part(libs, dev, raw, F, chunk) -> None:
     use(libs, "shipped")
 
 
-def batch(raw, F, chunk, tp, C, group=None):
-    """The multitaper batch kernel at C frames a lane a batch, on
-    ``group`` frames a block and one taper range (default: the route's
-    grid rule over its residency at C); returns the output, the
-    attributes and the group."""
-    attrs = fp.library_attributes("fused_psd_tapers", N, C)
-    per_block = K
+def batch(raw, tp, C, group=None):
+    """The multitaper batch kernel on (F, 2N) frames and (K, N) tapers at
+    C frames a lane a batch, on ``group`` frames a block and one taper
+    range (default: the route's grid rule over its residency at C);
+    returns the output, the attributes and the group."""
+    F, n = raw.shape[0], raw.shape[1] // 2
+    k = tp.shape[0]
+    attrs = fp.library_attributes("fused_psd_tapers", n, C)
+    per_block = k
     if group is None:
         sms = torch.cuda.get_device_properties(raw.device)
         group, per_block = fmt.batch_grid(
-            F, chunk, K, N, sms.multi_processor_count
-            * attrs["blocks_per_sm"])
+            F, k, n, sms.multi_processor_count * attrs["blocks_per_sm"])
     out = fp._launch(
-        "fused_psd_tapers", raw, tp, -(-K // per_block) * -(-F // group),
-        (N,),
+        "fused_psd_tapers", raw, tp, -(-k // per_block) * -(-F // group),
+        (n,),
         lambda lib, r, tw, t, partial, out, stream:
         lib.rpf_fused_psd_tapers(r, tw, t, partial, out, raw.device.index,
-                                 N.bit_length() - 1, F, group, K, F, C,
+                                 n.bit_length() - 1, F, group, k, F, C,
                                  per_block, stream),
         library="fused_psd_tapers")
     return out, attrs, group
@@ -374,50 +376,52 @@ def batch_part(libs, dev, raw, F, chunk) -> None:
     for build in ("shipped", "batch_pf", "batch_w0", "batch_nofft"):
         use(libs, build)
         for C in (1, 2, 4, 8):
-            got, attrs, group = batch(raw, F, chunk, tp, C)
+            got, attrs, group = batch(raw, tp, C)
             rel = float(((got - want).abs() / want.abs()).max())
-            t = device_us(lambda: batch(raw, F, chunk, tp, C))
+            t = device_us(lambda: batch(raw, tp, C))
             line(f"N={N} F={F} K={K} {build} batch C={C}"
                  f"{' (the route)' if C == fmt.BATCH_FRAMES else ''}",
                  t, attrs, f", {group} frames a block; max rel vs plain "
                  f"{rel:.2e}")
     use(libs, "shipped")
     for group in (g for g in (1, 2, 4, 8, 16, 32, 64) if chunk % g == 0):
-        _, attrs, _ = batch(raw, F, chunk, tp, fmt.BATCH_FRAMES, group)
-        t = device_us(lambda: batch(raw, F, chunk, tp, fmt.BATCH_FRAMES,
-                                    group))
+        _, attrs, _ = batch(raw, tp, fmt.BATCH_FRAMES, group)
+        t = device_us(lambda: batch(raw, tp, fmt.BATCH_FRAMES, group))
         line(f"N={N} F={F} K={K} shipped batch (the route's C) at {group} "
              f"frames a block", t, attrs)
 
 
 def route_sweep(dev) -> None:
-    """The multitaper route (fused_psd_tapers) against the control at
-    every N the batch kernel takes, K = 2, 7, 32, F = 400 and 4096: device
-    µs of each, in turns."""
+    """The multitaper batch kernel (at the route's C and grid rule)
+    against the control at every N the batch kernel fits, K = 2, 3, 7,
+    16, 32, F = 400, 4096 and the CLI's step at N (its default buffer
+    over 2N bytes, at most 4096): device µs of each, in turns, and the
+    route batch_shape takes."""
     rng = np.random.default_rng(1)
-    for n in sorted(fp.PASS_PLAN):
-        for frames in FRAMES:
+    for n in sorted(fp.PASS_PLAN)[:-1]:
+        step = min(4096, BASE_BUF * DEFAULT_BUF_MULTIPLIER // (2 * n))
+        for frames in sorted({400, step, 4096}):
             F, chunk = adapt_batch(frames)
             raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * n),
                                                 dtype=np.uint8)).to(dev)
-            for k in (2, 7, 32):
-                if fmt.batch_shape(n, k) is None:
-                    continue
+            for k in (2, 3, 7, 16, 32):
                 tp = torch.from_numpy(np.resize(_session_tapers(
                     n, 4.0 if n > 64 else 2.0, min(k, 7 if n > 64 else 3)),
                     (k, n)).astype(np.float32)).to(dev)
-                times = [device_us(lambda: fn(raw, F, chunk, tp))
-                         for fn in (fmt.fused_psd_tapers,
-                                    fmt.fused_psd_tapers_control,
-                                    fmt.fused_psd_tapers,
-                                    fmt.fused_psd_tapers_control)]
+                times = [device_us(fn) for fn in (
+                    lambda: batch(raw, tp, fmt.BATCH_FRAMES),
+                    lambda: fmt.fused_psd_tapers_control(raw, F, chunk, tp))
+                    * 2]
                 group, per_block = fmt.batch_grid(
-                    F, chunk, k, n, fmt.batch_resident_blocks(n, dev.index))
+                    F, k, n, fmt.batch_resident_blocks(n, dev.index))
+                route = ("batch" if fmt.batch_shape(n, k) is not None
+                         else "control")
                 print(f"route sweep N={n} F={F} K={k}: batch "
                       f"{times[0]:.1f}/{times[2]:.1f} us ({group} frames a "
                       f"block, {-(-k // per_block)} taper ranges), control "
                       f"{times[1]:.1f}/{times[3]:.1f} us, ratio "
-                      f"{min(times[0], times[2]) / min(times[1], times[3]):.3f}")
+                      f"{min(times[0], times[2]) / min(times[1], times[3]):.3f}"
+                      f"; the route: {route}")
 
 
 def mt_part(libs, dev, raw, F, chunk) -> None:

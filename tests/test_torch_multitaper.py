@@ -270,9 +270,10 @@ H100_SMS = 132
 
 
 def batch_transcription(raw, n_valid, tapers, group, per_block, C):
-    """psd_tapers_batch_kernel's index arithmetic in float64. Block (g, s)
-    takes frames [f0, f1), f0 = g * group, f1 = min(f0 + group, F,
-    n_valid), and tapers [s * per_block, min((s + 1) * per_block, K));
+    """psd_tapers_batch_kernel's index arithmetic in float64. Block (g, s),
+    g < G = max(1, ceil(n_valid / group)), takes frames [f0, f1), f0 = g *
+    group, f1 = min(f0 + group, F, n_valid), and tapers [s * per_block,
+    min((s + 1) * per_block, K));
     lane p frame i = b * C + c (frame f0 + p + LANES * i) goes into ring
     slot (b & 1) * C + c of its lane, staged for batch 0 before the loop
     and for batch b + 1 at the top of batch b. Each batch runs the block's
@@ -290,7 +291,7 @@ def batch_transcription(raw, n_valid, tapers, group, per_block, C):
     K = tapers.shape[0]
     lanes = fp.regs_shape(N).lanes
     passes = len(fp.PASS_PLAN[N])
-    G, S = -(-F // group), -(-K // per_block)
+    G, S = max(1, -(-n_valid // group)), -(-K // per_block)
     z = ((raw[:, 0::2].astype(np.float64) - 127.0)
          + 1j * (raw[:, 1::2].astype(np.float64) - 127.0))
     t64 = tapers.astype(np.float64)
@@ -369,10 +370,10 @@ def seeded_tapers(N, K):
 
 
 @pytest.mark.parametrize("N,F,n_valid,K,group,per_block,C", [
-    (64, 512, 300, 7, 64, 7, 2), (64, 8, 5, 32, 8, 5, 2),
-    (512, 512, 300, 1, 64, 1, 2), (256, 256, 200, 32, 64, 32, 1),
-    (2048, 64, 50, 4, 32, 3, 4), (2048, 400, 400, 7, 2, 7, 2),
-    (8192, 32, 29, 7, 16, 2, 2), (2048, 64, 0, 7, 16, 7, 2)])
+    (64, 512, 300, 7, 64, 7, 2), (64, 8, 5, 32, 32, 5, 2),
+    (512, 512, 300, 1, 64, 1, 2), (256, 256, 200, 32, 48, 32, 1),
+    (2048, 64, 50, 4, 12, 3, 4), (2048, 400, 400, 7, 2, 7, 2),
+    (4096, 32, 29, 7, 6, 2, 2), (2048, 64, 0, 7, 16, 7, 2)])
 def test_batch_transcription(N, F, n_valid, K, group, per_block, C):
     """The batch kernel's frames, ring slots, taper ranges and loop and
     one partial row a block, in float64: every (frame, taper) pair of the
@@ -380,7 +381,6 @@ def test_batch_transcription(N, F, n_valid, K, group, per_block, C):
     within 1e-5 of the plain version and of the JAX package's _mt_core on
     the same seeded bytes."""
     chunk = adapt_batch(F)[1]
-    assert chunk % group == 0
     tp = seeded_tapers(N, K)
     raw = frames(F, N, 100 + K)
     got, partial = batch_transcription(raw, n_valid, tp, group, per_block,
@@ -398,67 +398,64 @@ def test_batch_transcription(N, F, n_valid, K, group, per_block, C):
 
 @pytest.mark.parametrize("N", sorted(fp.PASS_PLAN))
 def test_batch_shape_rule(N):
-    """batch_shape, a rule on (N, K) alone, at every K: the control (None)
-    at K = 1 and where the ring of 2 BATCH_FRAMES slots a lane does not fit
-    beside the exchange buffers (16384 bins only); else that ring, within
-    the 227 KB of a block, and the blocks an SM it claims those of the
-    threads and shared memory it takes."""
+    """batch_shape, a rule on (N, K) alone, at every K: the batch kernel
+    where K >= 3, N <= 4096 and K N <= 32768, its ring of 2 BATCH_FRAMES
+    slots a lane beside the exchange buffers within the 227 KB of a
+    block, the blocks an SM it claims those of the threads and shared
+    memory it takes; else the control (None)."""
     shape = fp.regs_shape(N)
     C = fmt.BATCH_FRAMES
     smem = shape.exchange + shape.lanes * (4 * C * N + 32)
     for K in range(1, fmt.MAX_TAPERS + 1):
         got = fmt.batch_shape(N, K)
-        if K == 1 or smem > fp.SMEM_PER_BLOCK:
+        if K < 3 or N > 4096 or K * N > 32768:
             assert got is None
-            assert K == 1 or N == 16384
             continue
         assert got == fmt.BatchShape(C, smem, min(
             2048 // shape.threads,
             fp.SMEM_PER_SM // (smem + fp.SMEM_RESERVED)))
         assert got.smem == fmt.batch_smem(N, C) <= fp.SMEM_PER_BLOCK
-        assert got.blocks_per_sm >= 1
+        assert got.blocks_per_sm >= 2
 
 
-@pytest.mark.parametrize("N", sorted(fp.PASS_PLAN)[:-1])
-@pytest.mark.parametrize("F", [64, 104, 400, 1024, 4096])
-def test_batch_grid_rule(N, F):
-    """batch_grid at each K: group divides chunk (no block crosses the
-    two-stage sum's chunks), is the least such that fills each lane (where
-    chunk allows) and gives one wave of the resident blocks; the taper
-    ranges cover the K tapers, are as many as that wave has room for, and
-    keep it one wave."""
-    chunk = adapt_batch(F)[1]
+@pytest.mark.parametrize("N", [n for n in sorted(fp.PASS_PLAN) if n <= 4096])
+@pytest.mark.parametrize("n_valid", [0, 1, 64, 104, 400, 1000, 4096])
+def test_batch_grid_rule(N, n_valid):
+    """batch_grid at each K: group the same number of frames for each
+    lane, the fewest that cover the valid frames in one wave of the
+    resident blocks (a block at least); the taper ranges cover the K
+    tapers, are as many as that wave has room for, and keep it one
+    wave."""
     lanes = fp.regs_shape(N).lanes
     resident = H100_SMS * 2
-    for K in (2, 3, 7, 32):
-        group, per_block = fmt.batch_grid(F, chunk, K, N, resident)
-        G, S = -(-F // group), -(-K // per_block)
-        assert chunk % group == 0 and 1 <= per_block <= K
-        assert group == chunk or (G <= resident and group >= min(lanes,
-                                                                 chunk))
-        smaller = [g for g in range(1, group) if chunk % g == 0
-                   and -(-F // g) <= resident and g >= min(lanes, chunk)]
-        assert not smaller
-        assert G * S <= max(resident, G)
-        assert S == -(-K // -(-K // min(K, max(1, resident // G))))
+    for K in (3, 7, 32):
+        group, per_block = fmt.batch_grid(n_valid, K, N, resident)
+        G, S = max(1, -(-n_valid // group)), -(-K // per_block)
+        assert group % lanes == 0 and 1 <= per_block <= K
+        assert G <= resident and (group == lanes
+                                  or -(-n_valid // (group - lanes))
+                                  > resident)
+        assert G * S <= resident
+        assert S == -(-K // -(-K // min(K, resident // G)))
 
 
 def test_batch_route_and_grid_at_the_drives_shapes():
     """The route at the shapes the card runs: 2048 bins K=7 (the drive's),
     2 frames a lane a batch in 67,648 B (34,816 of exchange, 2 lanes of 4
-    slots of 4,096 B and 32); 16384 and K=1 the control. The grid on an
-    H100 (132 SMs at 2 blocks, 128 registers a thread) is one wave and
-    one taper range at F=4096 (16 frames a block, 256 blocks) and at the
-    drive's F=400 (2, 200); at 256 bins F=1024 a lane's frame each (16
-    frames a block, 64 blocks) and 4 taper ranges of 2."""
+    slots of 4,096 B and 32); 16384 and 8192, K <= 2 and K N > 32768 the
+    control. The grid on an H100 (132 SMs at 2 blocks, 128 registers a
+    thread) is one wave and one taper range at F=4096 (16 frames a block,
+    256 blocks) and at the drive's F=400 (2, 200), 12 frames a block with
+    3000 valid frames; at 256 bins F=1024 a lane's frame each (16 frames a
+    block, 64 blocks) and 4 taper ranges of 2."""
     assert fmt.batch_shape(2048, 7) == fmt.BatchShape(2, 67648, 3)
-    assert fmt.batch_shape(2048, 1) is None
-    assert all(fmt.batch_shape(16384, K) is None for K in range(1, 33))
+    assert fmt.batch_shape(2048, 16) is not None
+    assert all(fmt.batch_shape(2048, K) is None for K in (1, 2, 17, 32))
+    assert all(fmt.batch_shape(N, 7) is None for N in (8192, 16384))
     resident = H100_SMS * 2
-    for F, grid in ((4096, (16, 7)), (400, (2, 7))):
-        assert fmt.batch_grid(F, adapt_batch(F)[1], 7, 2048,
-                              resident) == grid
-    assert fmt.batch_grid(1024, 64, 7, 256, resident) == (16, 2)
+    for n_valid, grid in ((4096, (16, 7)), (400, (2, 7)), (3000, (12, 7))):
+        assert fmt.batch_grid(n_valid, 7, 2048, resident) == grid
+    assert fmt.batch_grid(1024, 7, 256, resident) == (16, 2)
     # The control's grid at F=4096: 1.7 waves of K2's 264 resident blocks.
     assert fmt.tapers_group(4096, 64, 7, h100_resident(2048, True)) == 64
 
