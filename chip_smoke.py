@@ -188,10 +188,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    output bit for bit, every row against the control's bit for bit, and
    the gate's rows against ``sk_keep`` of its own moments; multitaper K =
    7 (also masked) and 1 at 2048, the drive's step, 16384 K = 4, 256 F
-   = 1024 K = 7 and 8192 F = 256 K = 7, each on the route and on the
-   control, with
-   their device times in turns (the route at most 1.05 of the control's
-   where it is the batch kernel); the PFB at P = 2, 4, 16
+   = 1024 K = 7, 8192 F = 256 K = 7, 1024 F = 800 K = 16 and 4096 F = 200
+   K = 7, each on the route and on the control, with their device times
+   in turns (the route at most 1.05 of the control's where it is the
+   batch kernel); the PFB at P = 2, 4, 16
    (F = 512) and P = 4 at the drive's step, at F = 4096 and at 16384
    bins, each over three steps of one stream, the second with fewer
    valid frames than P - 1, the history on the card equal to plain's,
@@ -2274,13 +2274,14 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             rows.append((f"fused_psd_sk control{wn}"
                          f"{'' if fsk.plane_fits(N) else ' (the route)'}",
                          fsk.kernel_attributes(N, w, False)))
-        mt = fmt.batch_shape(N, 7)
-        if mt is not None:
-            rows.append((f"fused_psd_tapers batch K=7 (the route; "
-                         f"{mt.frames} frames a lane a batch)",
+        mt = fmt.batch_shape(N, 7) is not None
+        if fmt.batch_smem(N, fmt.BATCH_FRAMES) <= fp.SMEM_PER_BLOCK:
+            rows.append((f"fused_psd_tapers batch ({fmt.BATCH_FRAMES} "
+                         f"frames a lane a batch"
+                         f"{'; the route at K=7' if mt else ''})",
                          fmt.kernel_attributes(N, True)))
         rows.append((f"fused_psd_tapers control"
-                     f"{' (the route)' if mt is None else ''}",
+                     f"{'' if mt else ' (the route at K=7)'}",
                      fmt.kernel_attributes(N, False)))
         shape = fpf.ring_shape(N, 4)
         if shape is not None:
@@ -2365,7 +2366,9 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
             ("K=7 drive step", 2048, drive_F, None, 7),
             ("K=4 F=64", 16384, 64, None, 4),
             ("K=7 F=1024", 256, 1024, None, 7),
-            ("K=7 F=256", 8192, 256, None, 7)):
+            ("K=7 F=256", 8192, 256, None, 7),
+            ("K=16 F=800", 1024, 800, None, 16),
+            ("K=7 F=200", 4096, 200, None, 7)):
         F, chunk = adapt_batch(fps)
         nv = F if n_valid is None else n_valid
         tp_np = _session_tapers(N, 4.0, K)

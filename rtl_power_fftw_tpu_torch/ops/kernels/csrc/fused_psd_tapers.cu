@@ -10,40 +10,42 @@
 //
 // What bounds it on the card is the K transforms a frame: a frame is
 // 2N bytes and K * (4N log2 N - 6N) FP32 operations, each transform's
-// passes through a lane's exchange buffer in shared memory (K1's register
-// transform, fft_regs.cuh). Two kernels compute it.
+// passes through a lane's exchange buffer in shared memory with a barrier
+// between passes (K1's register transform, fft_regs.cuh), so its time
+// follows the rounds of transforms a lane runs. Two kernels compute it.
 //
 // psd_tapers_batch_kernel (the route where the card measured it ahead of
-// the control, rule fused_psd_tapers.batch_shape: K >= 3, N <= 4096, K N
-// <= 32768): block (g, s) runs tapers [s * KB, min((s + 1) * KB, K)) of
-// its frames [g * group, (g + 1) * group), on K2's block shape (LANES
-// lanes of TF = N / R threads; lane p takes frames f0 + p + LANES * i);
-// the wrapper's grid rule (fused_psd_tapers.batch_grid) gives each lane
-// as many frames, covers the valid frames in one wave, and splits the
-// tapers into ranges (KB < K) only where the frames alone leave it short.
-// Each lane stages its frames C at a time by cp.async, 16 B a thread, in
-// a shared-memory ring of 2 C raw slots (2N bytes each, 32 more a lane so
-// that the lanes of one warp, N <= 256, read other banks): batch b + 1 is
-// in flight while batch b is transformed KB times. For each taper k the
-// thread loads its R values of row k once into registers (through L1 and
-// L2: a table staged beside the ring measured slower), then for each of
-// the batch's frames reads the frame from the ring, dequantizes it
-// exactly, multiplies it by the taper (__fmul_rn, as K2 does), runs K1's
-// regs_transform and adds |X|^2 to its R f32 sums, which run over tapers
-// and frames. A slot is rewritten only after the barrier that ends the
-// first pass of the last transform that reads it. The block writes one
-// partial row (regs_lane_sum), s * G + g; each frame is read from device
-// memory once a taper range. cp.async over a bulk (TMA) copy: a lane's
-// batch is a few 16-byte copies a thread, the barrier that frees the
-// exchange buffer publishes them, and no mbarrier phase per slot is
-// needed.
+// the control, rule fused_psd_tapers.batch_shape: 3 <= K <= 16, 1024 <=
+// N <= 4096, K N <= 32768): block (g, s) runs tapers [s * KB, min((s + 1)
+// * KB, K)) of its frames [g * group, (g + 1) * group), on K2's block
+// shape (LANES lanes of TF = N / R threads; lane p takes frames f0 + p +
+// LANES * i); the wrapper's grid rule (fused_psd_tapers.batch_grid) gives
+// each lane as many frames, covers the valid frames in one wave, and
+// splits the tapers into ranges (KB < K) only where the frames alone
+// leave it short. Each lane stages its frames C at a time by cp.async, 16
+// B a thread, in a shared-memory ring of 2 C raw slots (2N bytes each, 32
+// more a lane so that the lanes of one warp, N <= 256, read other banks):
+// batch b + 1 is in flight while batch b is transformed KB times. For
+// each taper k the thread loads its R values of row k once into registers
+// (through L1 and L2: a table staged beside the ring measured slower),
+// then for each of the batch's frames reads the frame from the ring,
+// dequantizes it exactly, multiplies it by the taper (__fmul_rn, as K2
+// does), runs K1's regs_transform and adds |X|^2 to its R f32 sums, which
+// run over tapers and frames. A slot is rewritten only after the barrier
+// that ends the first pass of the last transform that reads it. The block
+// writes one partial row (regs_lane_sum), s * G + g; each frame is read
+// from device memory once a taper range. cp.async over a bulk (TMA) copy:
+// a lane's batch is a few 16-byte copies a thread, the barrier that frees
+// the exchange buffer publishes them, and no mbarrier phase per slot is
+// needed. One wave of blocks that each run all K tapers is where it gains
+// on the control, whose K G blocks leave a partial last wave.
 //
 // The control, the kernel it was redesigned from (and the route
-// elsewhere): K2's group kernel with a taper axis
-// on the grid, block (g, k) psd_regs_kernel<LOG2N, true, kRegsTapers> of
-// fused_psd_regs.cuh under taper row k over frames [g * group, (g + 1) *
-// group), writing partial row k * G + g; each frame is read K times, once
-// by each taper's block (from L2 after the first).
+// elsewhere): K2's group kernel with a taper axis on the grid, block (g,
+// k) psd_regs_kernel<LOG2N, true, kRegsTapers> of fused_psd_regs.cuh under
+// taper row k over frames [g * group, (g + 1) * group), writing partial
+// row k * G + g; each frame is read K times, once by each taper's block
+// (from L2 after the first).
 //
 // Either way est_sum_kernel (fused_psd_est.cuh, kEstTapers) then sums the
 // partial rows in float64 and divides by K. The redesign's f32 sums run

@@ -14,14 +14,15 @@ do not fill one wave of blocks, :func:`batch_grid`): each lane stages its
 frames C at a time in a shared-memory ring of 2 C raw slots by
 ``cp.async``, the next batch in flight, holds taper row k in registers
 over a batch, and the block writes one partial row, so each frame is read
-from device memory once a taper range. It is the route wherever its ring
-fits a block and K >= 2 (:func:`batch_shape`, a rule on (N, K));
-elsewhere (16384 bins, one taper) the route is the kernel it was
-redesigned from, K2's kernel with a taper axis on its grid: block (g, k) under taper
-k writes partial row k * G + g, so each frame is read K times, on a grid
-of K2's resident blocks over K (:func:`tapers_group`).
-:func:`fused_psd_tapers_control` runs it at every size. Their f32 sums
-run in another order, so they agree to rounding, not bit for bit.
+from device memory once a taper range. It is the route where the card
+measured it ahead (:func:`batch_shape`, a rule on (N, K): 3 to 16 tapers,
+1024 to 4096 bins, a table of at most 32768 values); elsewhere the route
+is the kernel it was redesigned from, K2's kernel with a taper axis on
+its grid: block (g, k) under taper k writes partial row k * G + g, so
+each frame is read K times, on a grid of K2's resident blocks over K
+(:func:`tapers_group`); :func:`fused_psd_tapers_control` runs it at
+every size. Their f32 sums run in another order, so they agree to
+rounding, not bit for bit.
 
 :func:`fused_psd_tapers` dispatches on the tensor's device: a CPU tensor
 runs the plain PyTorch version (:func:`fused_psd_tapers_reference`), a
@@ -44,8 +45,8 @@ MAX_TAPERS = 32
 #: at 2048 bins, K = 7, 2 measured the fastest (probes/estimator_builds.py).
 BATCH_FRAMES = 2
 #: The route's bounds (batch_shape): tapers, bins and (K, N) table values.
-BATCH_MIN_TAPERS = 3
-BATCH_MAX_N = 4096
+BATCH_TAPERS = range(3, 17)
+BATCH_BINS = range(1024, 4097)
 BATCH_MAX_TABLE = 32768
 #: A lane's ring: 2 C slots of 2N bytes and these 32 more, which put the
 #: lanes of one warp (N <= 256) on other banks.
@@ -71,15 +72,18 @@ def batch_smem(N: int, C: int) -> int:
 
 def batch_shape(N: int, K: int) -> Optional[BatchShape]:
     """The route's rule at N bins and K tapers: the batch kernel's
-    :class:`BatchShape` at :data:`BATCH_FRAMES` frames a batch where K >=
-    :data:`BATCH_MIN_TAPERS`, N <= :data:`BATCH_MAX_N` and the (K, N)
-    table holds at most :data:`BATCH_MAX_TABLE` values; else None (the
-    control). The bounds are where the card measured the batch kernel
-    ahead of the control (``probes/estimator_builds.py batch``, its route
-    sweep): with two tapers it shares too little, and with large tables or
-    8192 bins and more it fell behind. Its ring fits every block the rule
+    :class:`BatchShape` at :data:`BATCH_FRAMES` frames a batch where K is
+    in :data:`BATCH_TAPERS`, N in :data:`BATCH_BINS` and the (K, N) table
+    holds at most :data:`BATCH_MAX_TABLE` values; else None (the control).
+    These are the (N, K) where the card measured the batch kernel ahead
+    of the control at every step it timed (``probes/estimator_builds.py
+    batch``, its route sweep: F = 400, 4096 and the CLI's step). With two
+    tapers it shares too little; with 32 tapers, large tables or 8192
+    bins it fell behind; below 1024 bins, where a block holds 8 to 32
+    lanes, it gained or lost with F. Its ring fits every block the rule
     admits."""
-    if K < BATCH_MIN_TAPERS or N > BATCH_MAX_N or K * N > BATCH_MAX_TABLE:
+    if (K not in BATCH_TAPERS or N not in BATCH_BINS
+            or K * N > BATCH_MAX_TABLE):
         return None
     smem = batch_smem(N, BATCH_FRAMES)
     return BatchShape(BATCH_FRAMES, smem,

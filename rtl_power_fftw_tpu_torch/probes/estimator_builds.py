@@ -37,18 +37,17 @@ bytes and blocks an SM, and the grid; for the PFB the ring kernel with
 the prototype staged in shared memory and read through L2, and the
 shipped ring kernel over a sweep of frames a block; for the multitaper
 the batch kernel at 1, 2, 4 and 8 frames a lane a batch and over a sweep
-of frames a block, and the route against the control at every N the
-batch kernel takes (K = 2, 7, 32; F = 400 and 4096); then the control
-and
-``torch.fft.fft`` of the complex64 frames (F polyphase sums for the PFB,
-F K tapered frames for the multitaper, K = 7).
+of frames a block, and its route sweep against the control at every N
+it fits (K = 2, 3, 7, 16, 32; F = 400, 4096 and the CLI's step); then
+the control and ``torch.fft.fft`` of the complex64 frames (F polyphase
+sums for the PFB, F K tapered frames for the multitaper, K = 7).
 
 Run: ``python -m rtl_power_fftw_tpu_torch.probes.estimator_builds [part
 ...]``, the parts ``pfb``, ``sk`` (with K1), ``mt`` (the multitaper
 control) and ``batch`` (the multitaper batch kernel); default: all.
 Needs a CUDA card and nvcc; without a card it exits 1, on an unknown part
-2. The copies and
-their libraries go to ``ops/kernels/build/estimator_builds/``.
+2. The copies and their libraries go to
+``ops/kernels/build/estimator_builds/``.
 """
 
 from __future__ import annotations

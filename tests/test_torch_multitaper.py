@@ -399,16 +399,16 @@ def test_batch_transcription(N, F, n_valid, K, group, per_block, C):
 @pytest.mark.parametrize("N", sorted(fp.PASS_PLAN))
 def test_batch_shape_rule(N):
     """batch_shape, a rule on (N, K) alone, at every K: the batch kernel
-    where K >= 3, N <= 4096 and K N <= 32768, its ring of 2 BATCH_FRAMES
-    slots a lane beside the exchange buffers within the 227 KB of a
-    block, the blocks an SM it claims those of the threads and shared
-    memory it takes; else the control (None)."""
+    where 3 <= K <= 16, 1024 <= N <= 4096 and K N <= 32768, its ring of 2
+    BATCH_FRAMES slots a lane beside the exchange buffers within the 227
+    KB of a block, the blocks an SM it claims those of the threads and
+    shared memory it takes; else the control (None)."""
     shape = fp.regs_shape(N)
     C = fmt.BATCH_FRAMES
     smem = shape.exchange + shape.lanes * (4 * C * N + 32)
     for K in range(1, fmt.MAX_TAPERS + 1):
         got = fmt.batch_shape(N, K)
-        if K < 3 or N > 4096 or K * N > 32768:
+        if not (3 <= K <= 16 and 1024 <= N <= 4096 and K * N <= 32768):
             assert got is None
             continue
         assert got == fmt.BatchShape(C, smem, min(
@@ -442,16 +442,20 @@ def test_batch_grid_rule(N, n_valid):
 def test_batch_route_and_grid_at_the_drives_shapes():
     """The route at the shapes the card runs: 2048 bins K=7 (the drive's),
     2 frames a lane a batch in 67,648 B (34,816 of exchange, 2 lanes of 4
-    slots of 4,096 B and 32); 16384 and 8192, K <= 2 and K N > 32768 the
-    control. The grid on an H100 (132 SMs at 2 blocks, 128 registers a
-    thread) is one wave and one taper range at F=4096 (16 frames a block,
-    256 blocks) and at the drive's F=400 (2, 200), 12 frames a block with
-    3000 valid frames; at 256 bins F=1024 a lane's frame each (16 frames a
-    block, 64 blocks) and 4 taper ranges of 2."""
+    slots of 4,096 B and 32), and 1024 K=16, 4096 K=7; below 1024 and
+    above 4096 bins, K <= 2, K > 16 and K N > 32768 the control. The grid
+    on an H100 (132 SMs at 2 blocks, 128 registers a thread) is one wave
+    and one taper range at F=4096 (16 frames a block, 256 blocks) and at
+    the drive's F=400 (2, 200), 12 frames a block with 3000 valid frames;
+    at 256 bins F=1024 a lane's frame each (16 frames a block, 64 blocks)
+    and 4 taper ranges of 2."""
     assert fmt.batch_shape(2048, 7) == fmt.BatchShape(2, 67648, 3)
-    assert fmt.batch_shape(2048, 16) is not None
+    assert all(fmt.batch_shape(N, K) is not None
+               for N, K in ((2048, 16), (1024, 16), (4096, 7), (1024, 3)))
     assert all(fmt.batch_shape(2048, K) is None for K in (1, 2, 17, 32))
-    assert all(fmt.batch_shape(N, 7) is None for N in (8192, 16384))
+    assert all(fmt.batch_shape(N, 7) is None for N in (256, 512, 8192,
+                                                       16384))
+    assert fmt.batch_shape(4096, 16) is None
     resident = H100_SMS * 2
     for n_valid, grid in ((4096, (16, 7)), (400, (2, 7)), (3000, (12, 7))):
         assert fmt.batch_grid(n_valid, 7, 2048, resident) == grid
