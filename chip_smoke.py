@@ -894,7 +894,9 @@ def reset_counts(fp, ff) -> None:
 def launch_counts(fp, ff) -> dict:
     """Every launch counter by the kernel (or plain version) it counts;
     "L" is the large-N kernel, "M" the mixed-radix kernel, "B" the chirp-Z
-    kernel, "SK", "MT" and "PFB" the estimators' kernels (SK's plane
+    kernel, "ML" and "BL" their large forms (the four-step mixed-radix and
+    the three-pass chirp-Z kernels), "SK", "MT" and "PFB" the estimators'
+    kernels (SK's plane
     kernel, the multitaper's batch kernel, the PFB's ring kernel), "SK
     control", "MT control" and "PFB control" the kernels those three were
     redesigned from, "M/B control" the kernel M and
@@ -911,6 +913,10 @@ def launch_counts(fp, ff) -> dict:
             "M streams": fp.COUNTS.kernel_mixed_streams,
             "B": fp.COUNTS.kernel_bluestein,
             "B streams": fp.COUNTS.kernel_bluestein_streams,
+            "ML": fp.COUNTS.kernel_mixed_large,
+            "ML windowed": fp.COUNTS.kernel_mixed_large_windowed,
+            "BL": fp.COUNTS.kernel_chirp_large,
+            "BL windowed": fp.COUNTS.kernel_chirp_large_windowed,
             "SK": fp.COUNTS.kernel_sk_plane, "SK control": fp.COUNTS.kernel_sk,
             "MT": fp.COUNTS.kernel_tapers,
             "MT control": fp.COUNTS.kernel_tapers_control,
@@ -946,7 +952,9 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1,
     path = {"K3": "cuda_fast", "L": "cuda_large",
             "L windowed": "cuda_large", "M": "cuda_mixed",
             "M streams": "cuda_mixed", "B": "cuda_bluestein",
-            "B streams": "cuda_bluestein", "SK": "cuda_sk",
+            "B streams": "cuda_bluestein", "ML": "cuda_mixed_large",
+            "ML windowed": "cuda_mixed_large", "BL": "cuda_chirp_large",
+            "BL windowed": "cuda_chirp_large", "SK": "cuda_sk",
             "MT": "cuda_multitaper", "PFB": "cuda_pfb"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
@@ -2878,6 +2886,279 @@ def drive_pfb_scan(cli, fp, ff, tmp) -> int:
     return counts["PFB"]
 
 
+# The drives of phase 15 (the line source: a tone of amplitude 2, under
+# which the float32 class stays within 1e-5 of the golden at these N).
+LARGE_AWKWARD_DRIVES = [
+    # (label, kernel, N, repeats, hop, window, matrix, extra argv)
+    ("-b 100000", "ML", 100000, 64, 100000, None, False, []),
+    ("-b 20000 hann welch", "ML windowed", 20000, 200, 10000, "hann", False,
+     ["--window-function", "hann", "--welch-overlap", "50"]),
+    ("-b 1000000 -m", "ML", 10 ** 6, 8, 10 ** 6, None, True, []),
+    ("-b 16382 --fft-backend bluestein", "BL", 16382, 200, 16382, None,
+     False, ["--fft-backend", "bluestein"]),
+    ("-b 99998 -m", "BL", 99998, 16, 99998, None, True, []),
+    ("-b 20002 hann", "BL windowed", 20002, 64, 20002, "hann", False,
+     ["--window-function", "hann"]),
+]
+
+
+def device_yard(label, dev, kernel, plain_fn, make_window, wname, N, F,
+                seed0) -> None:
+    """A kernel's admission yard at sizes where the numpy golden would
+    take minutes: 60 seeds of 35 dB tones made on the card
+    (tone_frames_dev), the float64 golden on the card (cuFFT in float64),
+    against the scipy float32 class of the same frames: median <= 1.5x
+    and max <= 3x its error, the per-seed p99 of the ratio printed."""
+    w_np = None if wname is None else make_window(wname, N)
+    w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+    ours, cls, plain = [], [], []
+    for seed in range(60):
+        raw = tone_frames_dev(N, F, seed0 + seed, dev)
+        gold = golden_partial_dev(raw, w)
+        ours.append(max_rel(kernel(raw, F, F, w).cpu().numpy(), gold))
+        plain.append(max_rel(plain_fn(raw, F, F, w).cpu().numpy(), gold))
+        cls.append(max_rel(scipy_f32_class(raw.cpu().numpy(), w_np), gold))
+    e, c = np.asarray(ours), np.asarray(cls)
+    r = e / c
+    med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
+    print(f"{label} yard N={N} F={F} window={wname}, 60 seeds of 35 dB "
+          f"tones: max rel median {np.median(e):.3e} / max {e.max():.3e}; "
+          f"scipy f32 {np.median(c):.3e} / {c.max():.3e}; plain "
+          f"{np.median(plain):.3e} / {max(plain):.3e}; ratio median "
+          f"{med_r:.2f}x (<= 1.5), max {max_r:.2f}x (<= 3), per-seed p99 "
+          f"{np.quantile(r, 0.99):.2f}x, per-seed max {r.max():.2f}x")
+    check(med_r <= 1.5 and max_r <= 3.0,
+          f"{label} yard N={N} window={wname}: above the FFTW-class budget")
+
+
+def matrix_drive(label, argv, cli, fp, ff, kernel, N, repeats, record,
+                 matrix, window=None):
+    """One matrix-mode drive (``argv`` ends in -m ``matrix`` --record
+    ``record``) through ``kernel`` alone: exit 0, a finite N-bin ``.bin``
+    row peaking at 100.2 MHz, within 1e-5 of the float64 golden of the
+    recorded stream or 3x the scipy float32 FFT's error on the same
+    frames, whichever is larger (no printed digits to round). Returns the
+    kernel's launches."""
+    reset_counts(fp, ff)
+    rc, _, err, wall = run_cli(argv, cli.main)
+    counts = launch_counts(fp, ff)
+    check(rc == 0, f"{label} drive exited {rc}")
+    check_only(counts, kernel, f"{label} drive")
+    vals = np.fromfile(matrix + ".bin", dtype=np.float32)
+    check(vals.size == N and np.all(np.isfinite(vals)),
+          f"{label} drive: .bin holds {vals.size} values")
+    peak = 100e6 + (int(np.argmax(vals)) - N // 2) * RATE / N
+    check(abs(peak - 100.2e6) <= RATE / N, f"{label} drive: peak at {peak}")
+    frames = np.fromfile(record, dtype=np.uint8)[:2 * N * repeats] \
+        .reshape(repeats, 2 * N)
+    gold = golden_finalize_linear(
+        np.fft.fftshift(golden_partial(frames, repeats, window)), repeats,
+        RATE)
+    cls = golden_finalize_linear(
+        np.fft.fftshift(scipy_f32_class(frames, window)), repeats, RATE)
+    err_gold, err_cls = max_rel(vals, gold), max_rel(cls, gold)
+    # 1e-5, or 3x the float32 class where the class itself is near it: at
+    # 2^22 the deepest of 4M bins of 8 spectra take scipy's float32 FFT to
+    # ~1.1e-5 of the golden on this stream.
+    budget = max(GOLDEN_RTOL, 3.0 * err_cls)
+    print(f"e2e {label} ({' '.join(argv)}): exit 0 in {wall:.2f} s wall; "
+          f"peak {peak / 1e6:.4f} MHz; .bin max rel vs float64 golden "
+          f"{err_gold:.3e} (<= {budget:.3g}); scipy float32 on the same "
+          f"frames {err_cls:.3e}; launches {counts}")
+    check(err_gold <= budget, f"{label} drive vs float64 golden")
+    return counts[kernel]
+
+
+def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
+                        cli, ff, card):
+    """15. The large awkward-N kernels (``fused_psd_mixed_large``, ML;
+    ``fused_psd_chirp_large``, BL): against their plain versions and the
+    float64 golden, twice each, at the phase's shapes and over a spread of
+    N; their 60-seed tone yards against the scipy float32 class; their
+    times beside ``torch.fft.fft`` and the bound; the six drives, each on
+    its kernel alone. Returns the kernels-line entries."""
+    t0 = time.perf_counter()
+    kernels = {"ML": (fml.fused_psd_mixed_large,
+                      fml.fused_psd_mixed_large_reference),
+               "BL": (fbl.fused_psd_chirp_large, fbl.chirp_large_reference)}
+    big = fbl.MAX_N
+    cases = [  # (kernel, N, frames_per_step, n_valid or None, window)
+        ("ML", 20000, 256, None, "hann"), ("ML", 49152, 128, None, None),
+        ("ML", 100000, 64, None, None), ("ML", 10 ** 6, 8, None, None),
+        ("ML", 100000, 64, 37, "blackman"),
+        ("BL", 16382, 256, None, None), ("BL", 20002, 256, None, "hann"),
+        ("BL", 99998, 64, None, None), ("BL", big, 4, None, None),
+        ("BL", 99998, 64, 21, None),
+    ]
+    for name in ("ML", "BL"):
+        mod = fml if name == "ML" else fbl
+        for N in {"ML": (20000, 10 ** 6, 4167450),
+                  "BL": (16382, 99998, big)}[name]:
+            for which in range(4 if name == "BL" else 3):
+                a = mod.kernel_attributes(N, which)
+                print(f"occupancy {name} N={N} pass {which} on {card}: "
+                      f"{a['registers']} registers, {a['spill_bytes']} B "
+                      f"spill, {a['dynamic_smem']} B shared, "
+                      f"{a['threads']} threads, {a['blocks_per_sm']} "
+                      "blocks/SM")
+    reset_counts(fp, ff)
+    max_abs = {}
+    for name, N, fps, n_valid, wname in cases:
+        kernel, plain = kernels[name]
+        F, chunk = adapt_batch(fps)
+        nv = F if n_valid is None else n_valid
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        got = kernel(raw, nv, chunk, w)
+        again = kernel(raw, nv, chunk, w)
+        want = plain(raw, nv, chunk, w)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name} N={N}: not deterministic")
+        got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
+        gold = golden_partial(raw_np, nv, w_np)
+        err_plain, err_gold = max_rel(got_np, want_np), max_rel(got_np, gold)
+        print(f"large awkward {name} N={N} F={F} chunk={chunk} n_valid={nv} "
+              f"window={wname}: max rel vs plain {err_plain:.3e}, vs "
+              f"float64 golden {err_gold:.3e} (plain vs golden "
+              f"{max_rel(want_np, gold):.3e})")
+        check(np.all(np.isfinite(got_np)) and got_np.shape == (N,),
+              f"{name} N={N}: malformed output")
+        check(err_plain <= UNIFORM_RTOL, f"{name} N={N}: {err_plain} vs "
+              "plain")
+        check(err_gold <= GOLDEN_RTOL, f"{name} N={N}: {err_gold} vs golden")
+        max_abs[(name, N, F, wname)] = float(
+            np.abs(got_np.astype(np.float64) - want_np).max())
+    counts = launch_counts(fp, ff)
+    n_ml = sum(c[0] == "ML" for c in cases)
+    check(counts["ML"] + counts["ML windowed"] == 2 * n_ml
+          and counts["BL"] + counts["BL windowed"] == 2 * (len(cases) - n_ml)
+          and counts["plain"] == 0,
+          f"large awkward launch counts: {counts}")
+    # A spread of N through each kernel (every 40th N ML takes and its
+    # largest; even N through BL from 8194 to its largest), 2 frames each,
+    # every third with Hann, against the float64 golden on the card.
+    ml_all = fml.eligible_sizes()
+    sweep = ([("ML", N) for N in ml_all[::40] + ml_all[-1:]]
+             + [("BL", N) for N in (8194, 8196, 9998, 12286, 16386, 24574,
+                                    32770, 49150, 65538, 131070, 262142,
+                                    524286, 999998, big - 2, big)])
+    worst = (0.0, None)
+    for i, (name, N) in enumerate(sweep):
+        w_np = make_window("hann", N) if i % 3 == 2 else None
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw = torch.from_numpy(rng.integers(0, 256, (2, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        got = kernels[name][0](raw, 2, 2, w)
+        err = max_rel(got.cpu().numpy(), golden_partial_dev(raw, w))
+        if err >= worst[0]:
+            worst = (err, (name, N, "hann" if w_np is not None else None))
+    print(f"large awkward sweep of {len(sweep)} N ("
+          f"{sum(n == 'ML' for n, _ in sweep)} ML, "
+          f"{sum(n == 'BL' for n, _ in sweep)} BL), 2 frames each: worst max "
+          f"rel vs float64 golden {worst[0]:.3e} at {worst[1]}")
+    check(worst[0] <= GOLDEN_RTOL, f"large awkward sweep: {worst}")
+    print(f"wall: large awkward checks in {time.perf_counter() - t0:.1f} s")
+
+    # The admission yards: median <= 1.5x, max <= 3x the scipy float32
+    # class; a band whose yard fails is not routed.
+    for name, wname, N, F, seed0 in (
+            ("ML", None, 20000, 16, 9400), ("ML", "hann", 20000, 16, 9500),
+            ("ML", None, 100000, 8, 9600), ("ML", None, 10 ** 6, 4, 9700),
+            ("BL", None, 16382, 16, 9800), ("BL", None, 99998, 8, 9900),
+            ("BL", None, big, 4, 10000)):
+        device_yard(name, dev, *kernels[name], make_window, wname, N, F,
+                    seed0)
+    print(f"wall: large awkward yards in {time.perf_counter() - t0:.1f} s")
+
+    # Times (PERF.md states their prediction): a call (CUDA events around
+    # each), the device's part (calls queued behind a sleep kernel, twice),
+    # the wrapper's host part, the plain version and torch.fft.fft on the
+    # same frames (complex64 on the card), the bound.
+    times = {}
+    for name, N, fps, n_valid, wname in cases:
+        if n_valid is not None:
+            continue
+        kernel, plain = kernels[name]
+        F, chunk = adapt_batch(fps)
+        w = (None if wname is None
+             else torch.from_numpy(make_window(wname, N)).to(dev))
+        raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        z = torch.complex(raw[:, 0::2].float() - 127.0,
+                          raw[:, 1::2].float() - 127.0)
+        t = {"call": event_times_us(lambda: kernel(raw, F, chunk, w)),
+             "plain": event_times_us(lambda: plain(raw, F, chunk, w)),
+             "lib": event_times_us(lambda: torch.fft.fft(z, dim=-1)),
+             "devices": [device_times_us(lambda: kernel(raw, F, chunk, w))
+                         for _ in range(2)],
+             "lib_device": device_times_us(lambda: torch.fft.fft(z, dim=-1)),
+             "host": host_us(lambda: kernel(raw, F, chunk, w)),
+             "bound": awkward_bound_ms(F, N, w is not None),
+             "max_abs": max_abs[(name, N, F, wname)]}
+        t["device"] = min(t["devices"])
+        times[(name, N, wname)] = t
+        b_us = 1e3 * t["bound"][0]
+        print(f"time large awkward {name} N={N} F={F} window={wname} on "
+              f"{card}: kernel {t['call']:.1f} us a call, device "
+              f"{t['devices'][0]:.1f}/{t['devices'][1]:.1f} us, host "
+              f"{t['host']:.1f} us ({F * N / t['device'] / 1e3:.2f} GS/s on "
+              f"the device); plain {t['plain']:.1f} us a call; torch.fft.fft "
+              f"of the complex64 frames {t['lib']:.1f} us a call (device "
+              f"{t['lib_device']:.1f}), kernel/fft on the device "
+              f"{t['device'] / t['lib_device']:.3f}; bound {b_us:.2f} us "
+              f"({t['bound'][1]}), device/bound {t['device'] / b_us:.1f}x; "
+              f"max abs vs plain {t['max_abs']:.4g}")
+    print(f"wall: large awkward times in {time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its kernel alone.
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, key, N, repeats, hop, wname, matrix, extra in \
+                LARGE_AWKWARD_DRIVES:
+            record = os.path.join(tmp, f"drive_{N}.iq")
+            stem = os.path.join(tmp, f"drive_{N}")
+            argv = (["-f", "100M", "-n", str(repeats), "-b", str(N), "-l"]
+                    + extra + (["-q", "-m", stem] if matrix else [])
+                    + ["--record", record, "--source", LINE_SOURCE])
+            w = None if wname is None else make_window(wname, N)
+            if matrix:
+                n = matrix_drive(label, argv, cli, fp, ff, key, N, repeats,
+                                 record, stem, w)
+            else:
+                n = drive(label, argv, cli, fp, ff, key, N,
+                          lambda record=record, N=N, repeats=repeats,
+                          hop=hop, w=w: recorded_golden(record, N, repeats,
+                                                        hop, w),
+                          GOLDEN_RTOL)
+            launches[key] = launches.get(key, 0) + n
+    print(f"wall: large awkward phase in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, source, replaces, key, times_key):
+        t = times[times_key]
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+                "device_ms": t["device"] / 1000.0,
+                "host_ms": t["host"] / 1000.0}
+
+    xla_ladder = "rtl_power_fftw_tpu/ops/spectral.py:388"
+    chirp_z = "rtl_power_fftw_tpu/ops/dft.py:1069"
+    return [entry("fused_psd_mixed_large", "fused_psd_mixed_large.cu",
+                  xla_ladder, "ML", ("ML", 10 ** 6, None)),
+            entry("fused_psd_mixed_large (windowed)",
+                  "fused_psd_mixed_large.cu", xla_ladder, "ML windowed",
+                  ("ML", 20000, "hann")),
+            entry("fused_psd_chirp_large", "fused_psd_chirp_large.cu",
+                  chirp_z, "BL", ("BL", 99998, None)),
+            entry("fused_psd_chirp_large (windowed)",
+                  "fused_psd_chirp_large.cu", chirp_z, "BL windowed",
+                  ("BL", 20002, "hann"))]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -2889,8 +3170,12 @@ def main() -> int:
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd as fp
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_fast as ff
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_bluestein as fb
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_large as fbl
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large as fl
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_mixed_large as fml
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch
     from rtl_power_fftw_tpu_torch.parallel import ShardedPsdStep
@@ -2950,7 +3235,12 @@ def main() -> int:
             ("fused_psd_tapers", "psd_regs_kernel", ""),
             ("fused_psd_tapers", "psd_tapers_batch_kernel", ""),
             ("fused_psd_pfb", "psd_pfb_kernel", ""),
-            ("fused_psd_pfb", "psd_pfb_ring_kernel", "")):
+            ("fused_psd_pfb", "psd_pfb_ring_kernel", ""),
+            ("fused_psd_mixed_large", "tile_cols_kernel", ""),
+            ("fused_psd_mixed_large", "tile_power_kernel", ""),
+            ("fused_psd_chirp_large", "tile_cols_kernel", ""),
+            ("fused_psd_chirp_large", "chirp_turn_kernel", ""),
+            ("fused_psd_chirp_large", "tile_power_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -3202,6 +3492,12 @@ def main() -> int:
                                   adapt_batch, make_window, cli, ff, card)
     lap("estimators")
 
+    # 15. The large awkward-N kernels (ML, BL).
+    large_awkward = phase_large_awkward(
+        dev, np.random.default_rng(20261019), fp, fml, fbl, adapt_batch,
+        make_window, cli, ff, card)
+    lap("large awkward N")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -3250,7 +3546,7 @@ def main() -> int:
         entry("fused_psd_large (windowed)", "fused_psd_large.cu", "261",
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
-    ] + awkward + estimators + [probe_entry(name, tpu, key)
+    ] + awkward + estimators + large_awkward + [probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),
                                 ("fused_psd_probe P18 (s1_lanes: full)",

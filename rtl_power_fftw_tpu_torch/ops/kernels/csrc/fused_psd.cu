@@ -71,6 +71,7 @@
 
 #include <atomic>
 
+#include "device.cuh"
 #include "fused_psd_regs.cuh"
 #include "psd_sum.cuh"
 
@@ -159,7 +160,7 @@ int launch_both(const void* raw, const void* twiddle, const void* window,
                 const void* stream_n_valid, void* partial, void* out,
                 int device, int log2n, int S, int F, int group, int G_s,
                 int n_valid, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = S * G_s;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -225,7 +226,7 @@ int rpf_fused_psd_attributes(int log2n, int windowed, int device,
   if (log2n < kMinLog2N || log2n > kMaxLog2N || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
 #define RPF_CASE(L)                                                          \
   case L:                                                                    \

@@ -62,6 +62,7 @@
 
 #include <atomic>
 
+#include "device.cuh"
 #include "fused_psd_fast.cuh"
 #include "fused_psd_fast_smem.cuh"
 #include "psd_sum.cuh"
@@ -169,14 +170,6 @@ cudaError_t smem_attributes(int device, int* attrs) {
   attrs[4] = K::THREADS;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &attrs[5], psd_smem_kernel<LOG2N, WINDOWED>, K::THREADS, K::BYTES);
-}
-
-// The device of the calling thread, set only where it is another.
-cudaError_t use_device(int device) {
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current == device) return cudaSuccess;
-  return cudaSetDevice(device);
 }
 
 }  // namespace
@@ -310,7 +303,7 @@ int rpf_fused_psd_fast_control(const void* raw, const void* window,
       n_valid < 0 || n_valid > F) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int G = (F + group - 1) / group;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -116,6 +116,7 @@
 
 #include <atomic>
 
+#include "device.cuh"
 #include "fft_radix2.cuh"
 #include "fft_regs.cuh"
 #include "fused_psd_regs.cuh"
@@ -955,14 +956,6 @@ cudaError_t regs_attributes(int device, int* attrs) {
       regs_smem<LOG2N, WHICH>());
 }
 
-// The device of the calling thread, set only where it is another.
-cudaError_t use_device(int device) {
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current == device) return cudaSuccess;
-  return cudaSetDevice(device);
-}
-
 }  // namespace
 
 extern "C" {
@@ -1046,7 +1039,7 @@ int rpf_fused_psd_large_radix2(const void* raw, const void* twiddle,
       n_valid < 0 || n_valid > F) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RPF_CASE(L)                                                        \

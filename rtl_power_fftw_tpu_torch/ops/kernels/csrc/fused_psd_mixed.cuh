@@ -41,6 +41,7 @@
 
 #include <atomic>
 
+#include "device.cuh"
 #include "fft_mixed.cuh"
 #include "fused_psd_regs.cuh"  // dequant_byte
 #include "psd_sum.cuh"
@@ -230,14 +231,6 @@ psd_mixed_kernel(const uint8_t* __restrict__ raw,        // (S*F, 2N)
     }
     row[k] = sum;
   }
-}
-
-// The device of the calling thread, set only where it is another.
-inline cudaError_t use_device(int device) {
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current == device) return cudaSuccess;
-  return cudaSetDevice(device);
 }
 
 inline cudaError_t read_plan(const int* ints, MixedPlan* p) {

@@ -58,6 +58,7 @@
 
 #include <atomic>
 
+#include "device.cuh"
 #include "fused_psd_est.cuh"
 #include "fused_psd_regs.cuh"
 #include "psd_sum.cuh"
@@ -370,7 +371,7 @@ int rpf_fused_psd_pfb(const void* raw, const void* history,
                  history == history_out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int N = 1 << log2n;
   const size_t row_bytes = static_cast<size_t>(2) * N;
@@ -425,7 +426,7 @@ int rpf_fused_psd_pfb_attributes(int log2n, int P, int ring, int stage_h,
       attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
 #define RPF_CASE(L)                                                          \
   case L:                                                                    \

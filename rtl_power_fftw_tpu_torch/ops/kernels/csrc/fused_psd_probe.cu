@@ -72,6 +72,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
 #include "fused_psd.cuh"
 #include "fused_psd_fast.cuh"
 #include "fused_psd_regs.cuh"
@@ -478,7 +479,7 @@ int rpf_fused_psd_probe(int variant, const void* raw, const void* w1r,
       blocks_per_sm < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int G = (F + group - 1) / group;
   return static_cast<int>(launch_variant(
@@ -496,7 +497,7 @@ int rpf_probe_attributes(int variant, int blocks_per_sm, int device,
   if (blocks_per_sm < 0 || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_variant(variant, nullptr, nullptr, nullptr,
                                          nullptr, nullptr, nullptr, nullptr,
@@ -516,7 +517,7 @@ int rpf_radix2_psd(const void* raw, const void* twiddle, const void* window,
   if (F <= 0 || group <= 0 || n_valid < 0 || n_valid > F) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int G = (F + group - 1) / group;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -543,7 +544,7 @@ int rpf_relayout_probe(int which, const void* in, void* out, int device,
   if (which < 0 || which >= kRelayoutCases || iters <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (which) {

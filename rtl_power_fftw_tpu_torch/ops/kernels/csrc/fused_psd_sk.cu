@@ -39,6 +39,7 @@
 
 #include <atomic>
 
+#include "device.cuh"
 #include "fused_psd_est.cuh"
 #include "fused_psd_regs.cuh"
 
@@ -114,7 +115,7 @@ int rpf_fused_psd_sk(const void* raw, const void* twiddle, const void* window,
       n_valid < 0 || n_valid > F || !(two_sigma >= 0.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (F + group - 1) / group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -161,7 +162,7 @@ int rpf_fused_psd_sk_attributes(int log2n, int windowed, int plane,
   if (log2n < kMinLog2N || log2n > kMaxLog2N || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
 #define RPF_CASE(L)                                                          \
   case L:                                                                    \

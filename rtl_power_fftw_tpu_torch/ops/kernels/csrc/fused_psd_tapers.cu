@@ -57,6 +57,7 @@
 
 #include <atomic>
 
+#include "device.cuh"
 #include "fused_psd_est.cuh"
 #include "fused_psd_regs.cuh"
 
@@ -265,14 +266,6 @@ cudaError_t batch_attributes(int C, int device, int* attrs) {
   if (e != cudaSuccess) return e;
   return kernel_attributes(psd_tapers_batch_kernel<LOG2N>,
                            RegsShape<LOG2N>::THREADS, smem, attrs);
-}
-
-// Sets the calling thread's device only where it is on another one.
-cudaError_t use_device(int device) {
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current == device) return cudaSuccess;
-  return cudaSetDevice(device);
 }
 
 }  // namespace

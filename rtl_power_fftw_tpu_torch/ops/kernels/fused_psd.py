@@ -130,6 +130,10 @@ class LaunchCounts:
     ``kernel_large`` / ``kernel_large_windowed`` the large-N kernel's, and
     ``kernel_mixed`` / ``kernel_mixed_streams`` and ``kernel_bluestein`` /
     ``kernel_bluestein_streams`` the awkward-N kernels' (windowed or not),
+    ``kernel_mixed_large`` / ``kernel_mixed_large_windowed`` and
+    ``kernel_chirp_large`` / ``kernel_chirp_large_windowed`` the large
+    awkward-N kernels' (:mod:`.fused_psd_mixed_large`,
+    :mod:`.fused_psd_chirp_large`),
     and ``kernel_sk_plane``, ``kernel_tapers`` and ``kernel_pfb_ring`` the
     spectral kurtosis, multitaper and polyphase-filterbank kernels', with
     ``kernel_sk``, ``kernel_tapers_control`` and ``kernel_pfb`` the
@@ -153,6 +157,10 @@ class LaunchCounts:
         self.kernel_mixed_streams = 0
         self.kernel_bluestein = 0
         self.kernel_bluestein_streams = 0
+        self.kernel_mixed_large = 0
+        self.kernel_mixed_large_windowed = 0
+        self.kernel_chirp_large = 0
+        self.kernel_chirp_large_windowed = 0
         self.kernel_sk = 0
         self.kernel_sk_plane = 0
         self.kernel_tapers = 0

@@ -19,14 +19,17 @@ import torch
 from ..exceptions import ReturnValue, RPFexception
 from .kernels.fused_psd import MAX_N as REGS_MAX_N
 from .kernels.fused_psd import MIN_N, fused_psd, fused_psd_eligible
-from .kernels.fused_psd_bluestein import MAX_N as BLUESTEIN_MAX_N
 from .kernels.fused_psd_bluestein import (fused_psd_bluestein,
                                           fused_psd_bluestein_eligible)
+from .kernels.fused_psd_chirp_large import MAX_N as CHIRP_LARGE_MAX_N
+from .kernels.fused_psd_chirp_large import (fused_psd_chirp_large,
+                                            fused_psd_chirp_large_eligible)
 from .kernels.fused_psd_fast import fused_psd_fast, fused_psd_fast_eligible
 from .kernels.fused_psd_large import (MAX_N, fused_psd_large,
                                       fused_psd_large_eligible)
-from .kernels.fused_psd_mixed import MAX_N as MIXED_MAX_N
 from .kernels.fused_psd_mixed import fused_psd_mixed, fused_psd_mixed_eligible
+from .kernels.fused_psd_mixed_large import (fused_psd_mixed_large,
+                                            fused_psd_mixed_large_eligible)
 
 # Frames are reduced in chunks of this size before the cross-chunk sum;
 # two-stage summation keeps f32 rounding error at ~(CHUNK + F/CHUNK)·ε.
@@ -59,13 +62,15 @@ def pad_frames(batch: np.ndarray, F: int) -> np.ndarray:
 
 #: The kernels a step may run, by :func:`transform_route`: K1/K2
 #: (``fused_psd``), K3 (``fused_psd_fast``), the large-N kernel, the
-#: mixed-radix kernel and the chirp-Z kernel; each route's path names the
-#: kernel on the card ("cuda" + suffix) or its plain version on the CPU
-#: ("plain" + suffix).
+#: mixed-radix kernel, the chirp-Z kernel and their large forms (ML, BL);
+#: each route's path names the kernel on the card ("cuda" + suffix) or its
+#: plain version on the CPU ("plain" + suffix).
 ROUTES = {"regs": (fused_psd, ""), "fast": (fused_psd_fast, "_fast"),
           "large": (fused_psd_large, "_large"),
           "mixed": (fused_psd_mixed, "_mixed"),
-          "bluestein": (fused_psd_bluestein, "_bluestein")}
+          "bluestein": (fused_psd_bluestein, "_bluestein"),
+          "mixed_large": (fused_psd_mixed_large, "_mixed_large"),
+          "chirp_large": (fused_psd_chirp_large, "_chirp_large")}
 
 
 def _unported(what: str) -> RPFexception:
@@ -80,8 +85,11 @@ def transform_route(N: int, backend: str = "auto", fast: bool = False
     powers of two 64..16384), "fast" (K3, powers of two 256..16384 at
     relaxed precision), "large" (powers of two 32768..2^22), "mixed" (the
     mixed-radix kernel: every other even 7-smooth N up to 16384, 2..32
-    among them) or "bluestein" (the chirp-Z kernel: every other even N up
+    among them), "bluestein" (the chirp-Z kernel: every other even N up
     to 8192, and any even N up to 8192 under ``--fft-backend
+    bluestein``), "mixed_large" (ML: every even 7-smooth N from 16386 to
+    2^22 that is not a power of two) or "chirp_large" (BL: every other
+    even N from 8194 to 2^21, and any even N there under ``--fft-backend
     bluestein``). ``auto`` and ``pallas`` route alike, but for
     ``--precision high``: above the tensor-core step's sizes it runs the
     large-N kernel at full precision under ``auto`` (as the JAX package's
@@ -92,8 +100,10 @@ def transform_route(N: int, backend: str = "auto", fast: bool = False
     if backend == "bluestein":
         if fused_psd_bluestein_eligible(N):
             return "bluestein"
+        if fused_psd_chirp_large_eligible(N):
+            return "chirp_large"
         raise _unported(f"--fft-backend bluestein at {N} bins (the chirp-Z "
-                        f"step takes even N up to {BLUESTEIN_MAX_N})")
+                        f"steps take even N up to {CHIRP_LARGE_MAX_N})")
     if backend not in ("auto", "pallas"):
         raise _unported(f"--fft-backend {backend}")
     if fused_psd_eligible(N) or fused_psd_large_eligible(N):
@@ -107,14 +117,15 @@ def transform_route(N: int, backend: str = "auto", fast: bool = False
         raise _unported(f"--precision high at {N} bins with --fft-backend "
                         f"{backend} (the tensor-core step takes powers of "
                         "two from 256 to 16384)")
-    if fused_psd_mixed_eligible(N):
-        return "mixed"
-    if fused_psd_bluestein_eligible(N):
-        return "bluestein"
+    for route, eligible in (("mixed", fused_psd_mixed_eligible),
+                            ("bluestein", fused_psd_bluestein_eligible),
+                            ("mixed_large", fused_psd_mixed_large_eligible),
+                            ("chirp_large", fused_psd_chirp_large_eligible)):
+        if eligible(N):
+            return route
     raise _unported(f"{N} bins (the CUDA steps take powers of two from "
-                    f"{MIN_N} to {MAX_N}, even 7-smooth N up to "
-                    f"{MIXED_MAX_N} and other even N up to "
-                    f"{BLUESTEIN_MAX_N})")
+                    f"{MIN_N} to {MAX_N}, even 7-smooth N up to {MAX_N} "
+                    f"and other even N up to {CHIRP_LARGE_MAX_N})")
 
 
 #: ``--fft-backend`` names under which the spectral-kurtosis step runs its
@@ -151,8 +162,13 @@ class PsdStep:
     to 2^22 bins the two-pass four-step ``kernels/csrc/fused_psd_large.cu``
     at full precision, windowed or not; at the other even 7-smooth N up
     to 16384 the mixed-radix kernel and at every other even N up to 8192
-    the chirp-Z kernel, both of ``kernels/csrc/fused_psd_mixed.cu``, each
-    at full precision, windowed or not. On the CPU it is the kernel's plain PyTorch version.
+    the chirp-Z kernel, both of ``kernels/csrc/fused_psd_mixed.cu``; at
+    the other even 7-smooth N up to 2^22 the four-step mixed-radix kernel
+    ML (``kernels/csrc/fused_psd_mixed_large.cu``) and at every other even
+    N up to 2^21 the three-pass chirp-Z kernel BL
+    (``kernels/csrc/fused_psd_chirp_large.cu``); each at full precision,
+    windowed or not. On a CUDA device it runs the kernel; only for CPU
+    tensors does it run the kernel's plain PyTorch version.
     The result is a tensor on ``device``; on CUDA it is computed
     asynchronously on the current stream. The window is copied to the
     device once, here.
@@ -183,13 +199,16 @@ class PsdStep:
             # The JAX package's CPU ladder says the same of its FFT
             # four-step rung above 16384 (ops/spectral.py there).
             kind = {"large": "FFT four-step", "mixed": "mixed-radix FFT",
-                    "bluestein": "chirp-Z FFT"}[route]
+                    "bluestein": "chirp-Z FFT",
+                    "mixed_large": "FFT four-step",
+                    "chirp_large": "chirp-Z FFT"}[route]
             print(f"Note: --precision high is a no-op on the {kind} path "
                   f"selected here (backend={backend}, N={N}): its FFT "
                   "stages have no matmul precision knob.", file=sys.stderr)
-        #: "cuda", "cuda_fast", "cuda_large", "cuda_mixed" or
-        #: "cuda_bluestein" (the hand-written kernel of the route), or
-        #: "plain" + the same suffix (its PyTorch version, on the CPU).
+        #: "cuda", "cuda_fast", "cuda_large", "cuda_mixed",
+        #: "cuda_bluestein", "cuda_mixed_large" or "cuda_chirp_large" (the
+        #: hand-written kernel of the route), or "plain" + the same suffix
+        #: (its PyTorch version, on the CPU).
         self._kernel, suffix = ROUTES[route]
         self.path = ("cuda" if self.device.type == "cuda" else "plain") + \
             suffix

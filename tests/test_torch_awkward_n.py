@@ -68,13 +68,28 @@ ROUTE_TABLE = [
     (998, "auto", False, "bluestein"), (22, "pallas", False, "bluestein"),
     (8182, "auto", True, "bluestein"), (8192 - 2, "auto", False,
                                         "bluestein"),
-    (8194, "auto", False, None), (16382, "auto", False, None),
-    (49152, "auto", False, None), (1 << 23, "auto", False, None),
+    (8194, "auto", False, "chirp_large"),
+    (16382, "auto", False, "chirp_large"),
+    (49152, "auto", False, "mixed_large"), (1 << 23, "auto", False, None),
+    (20000, "auto", False, "mixed_large"),
+    (20000, "auto", True, "mixed_large"),
+    (10 ** 6, "pallas", False, "mixed_large"),
+    (4167450, "auto", False, "mixed_large"),
+    (16464, "auto", False, "mixed_large"),
+    (20002, "pallas", True, "chirp_large"),
+    (99998, "auto", False, "chirp_large"),
+    ((1 << 21) - 2, "auto", False, "chirp_large"),
+    (4194302, "auto", False, None), ((1 << 21) + 2, "auto", False, None),
+    ((1 << 22) + 6 * 7, "auto", False, None),
     (500, "bluestein", False, "bluestein"),
     (2048, "bluestein", True, "bluestein"),
     (8192, "bluestein", False, "bluestein"),
-    (16384, "bluestein", False, None), (500, "xla", False, None),
-    (998, "fourstep", False, None),
+    (16384, "bluestein", False, "chirp_large"),
+    (20000, "bluestein", True, "chirp_large"),
+    (1 << 21, "bluestein", False, "chirp_large"),
+    (1 << 22, "bluestein", False, None), (500, "xla", False, None),
+    (998, "fourstep", False, None), (20000, "fft4", False, None),
+    (99998, "xla", False, None),
 ]
 
 
@@ -89,19 +104,39 @@ def test_transform_route(N, backend, fast, route):
         assert spectral.transform_route(N, backend, fast) == route
 
 
-@pytest.mark.parametrize("N", [8194, 16382, 49152])
-def test_awkward_bins_above_the_kernels_exit_3(N, capsys):
-    argv = ["-f", "100M", "-n", "4", "-b", str(N), "--source", "synthetic:"]
-    assert cli.main(argv, device=CPU) == 3
+@pytest.mark.parametrize("extra,rc,what", [
+    # The large awkward-N kernels' bins run (BL at 8194 and 16382, ML at
+    # 49152) ...
+    (["-b", "8194"], 0, "Transform path: plain_chirp_large (backend=auto, "
+     "N=8194)"),
+    (["-b", "16382"], 0, "Transform path: plain_chirp_large (backend=auto, "
+     "N=16382)"),
+    (["-b", "49152"], 0, "Transform path: plain_mixed_large (backend=auto, "
+     "N=49152)"),
+    # ... and what is left still exits 3.
+    (["-b", str(1 << 23)], 3, f"{1 << 23} bins"),
+    (["-b", "4194302"], 3, "4194302 bins"),
+    (["-b", "20000", "--streams", "2"], 3, "--streams at 20000 bins"),
+    (["-b", "20000", "--multitaper", "7"], 3, "--multitaper at 20000 bins"),
+])
+def test_awkward_bins_above_the_kernels_exit_3(extra, rc, what, capsys):
+    argv = ["-f", "100M", "-n", "4", "--source", "synthetic:"] + extra
+    assert cli.main(argv, device=CPU) == rc
     err = capsys.readouterr().err
-    assert "Not yet ported" in err and f"{N} bins" in err
+    assert what in err
+    assert ("Not yet ported" in err) == (rc == 3)
 
 
-def test_bluestein_backend_above_8192_exits_3(capsys):
-    argv = ["-f", "100M", "-n", "4", "-b", "8194", "--fft-backend",
+@pytest.mark.parametrize("N,rc,what", [
+    (8194, 0, "Transform path: plain_chirp_large (backend=bluestein, "
+     "N=8194)"),
+    (1 << 22, 3, f"--fft-backend bluestein at {1 << 22} bins"),
+])
+def test_bluestein_backend_above_8192_exits_3(N, rc, what, capsys):
+    argv = ["-f", "100M", "-n", "4", "-b", str(N), "--fft-backend",
             "bluestein", "--source", "synthetic:"]
-    assert cli.main(argv, device=CPU) == 3
-    assert "--fft-backend bluestein at 8194 bins" in capsys.readouterr().err
+    assert cli.main(argv, device=CPU) == rc
+    assert what in capsys.readouterr().err
 
 
 def frames(F, N, seed):

@@ -89,10 +89,16 @@ def test_single_stream_estimators_exit_0(extra, path, capsys, tmp_path,
             "# rtl-power-fftw spectral kurtosis\n")
 
 
-def test_ineligible_bins_exit_3(capsys):
-    assert cli.main(["-f", "100M", "-n", "4", "-b", "8194", "--source",
-                     "synthetic:"], device=CPU) == 3
-    assert "8194 bins" in capsys.readouterr().err
+@pytest.mark.parametrize("bins,rc", [("8194", 0), ("8388608", 3),
+                                     ("4194302", 3)])
+def test_ineligible_bins_exit_3(bins, rc, capsys):
+    """8194 bins run on the large chirp-Z kernel's path; bins above 2^22,
+    and non-7-smooth bins above 2^21, still exit 3."""
+    assert cli.main(["-f", "100M", "-n", "4", "-b", bins, "--source",
+                     "synthetic:"], device=CPU) == rc
+    err = capsys.readouterr().err
+    assert f"{bins} bins" in err if rc else \
+        f"Transform path: plain_chirp_large (backend=auto, N={bins})" in err
 
 
 def test_parse_error_exits_4(capsys):

@@ -287,7 +287,10 @@ def test_cpu_calls_count_as_plain():
     (65536, "hann", "highest", "plain_large"),
     (1 << 22, None, "highest", "plain_large"),
     (16384, None, "highest", "plain"),
-    (32768, None, "high", "plain_large")])
+    (32768, None, "high", "plain_large"),
+    (49152, None, "highest", "plain_mixed_large"),
+    (49152, "hann", "high", "plain_mixed_large"),
+    (16382, None, "highest", "plain_chirp_large")])
 def test_psd_step_routes_large_n(N, window, precision, path, capsys):
     w = None if window is None else make_window(window, N)
     step = spectral.PsdStep(N, 8, CPU, window=w, precision=precision)
@@ -304,7 +307,7 @@ def test_psd_step_routes_large_n(N, window, precision, path, capsys):
 
 @pytest.mark.parametrize("kwargs,what", [
     (dict(N=1 << 23), "8388608 bins"),
-    (dict(N=49152), "49152 bins"),
+    (dict(N=4194302), "4194302 bins"),
     (dict(N=32768, backend="pallas", precision="high"),
      "--precision high at 32768 bins"),
     (dict(N=65536, backend="fft4"), "--fft-backend fft4"),
@@ -398,9 +401,11 @@ def test_session_matrix_and_record_match_jax_session(name, tmp_path):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-b", "49152"], "49152 bins"),
+    (["-b", "4194302", "-n", "1"], "4194302 bins"),
     (["-b", "8388608", "-n", "1"], "8388608 bins"),
     (["-b", "32768", "--streams", "2"], "--streams at 32768 bins"),
+    (["-b", "20000", "--streams", "2"], "--streams at 20000 bins"),
+    (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
     (["-b", "65536", "--fft-backend", "pallas", "--precision", "high"],
      "--precision high at 65536 bins"),
 ])

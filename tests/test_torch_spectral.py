@@ -110,7 +110,7 @@ def test_psd_step_matches_jax_step_and_golden(N, F, n_valid):
      "--fft-backend fourstep"),
     (dict(N=128, precision="high"), "--precision high at 128 bins"),
     (dict(backend="matmul"), "--fft-backend matmul"),
-    (dict(N=8194), "8194 bins"),
+    (dict(N=4194302), "4194302 bins"),
     (dict(N=1 << 23), "8388608 bins"),
 ])
 def test_psd_step_rejects_unported(kwargs, what):
