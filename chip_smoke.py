@@ -211,6 +211,26 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    step beside the control's (device time at most 1.05 of it),
    ``torch.fft.fft`` on the same transforms and the bound.
 
+15. the large awkward-N kernels (``fused_psd_mixed_large``, ML: the
+   four-step mixed-radix kernel, even 7-smooth N from 16386 to 2^22 that
+   are not powers of two; ``fused_psd_chirp_large``, BL: the three-pass
+   chirp-Z kernel, the other even N from 8194 to 2^21): each pass's
+   registers, spill, shared memory and blocks per SM; against their
+   plain versions and the float64 golden, twice each (the same bits), at
+   ML 20000 F=256 Hann, 49152 F=128, 100000 F=64 (and masked, Blackman),
+   10^6 F=8, and BL 16382 F=256, 20002 F=256 Hann, 99998 F=64 (and
+   masked), 499998 F=8 (M = 2^20) and 2^21 F=8; a spread of 31 ML and 15
+   BL sizes (4 frames, within 1e-5 of the golden or 3x the scipy float32
+   class on the same frames); their 60-seed tone yards (ML 20000 and
+   Hann, 100000, 10^6; BL 16382, 99998, 2^21) against the scipy float32
+   class with the per-seed p99; a call, the device's and the wrapper's
+   host time at each unmasked shape beside the plain version,
+   ``torch.fft.fft`` and the bound (``awkward_bound_ms``); and six drives
+   on the line source, each through its kernel alone: ``-b 100000``,
+   ``-b 20000`` Hann with 50% Welch overlap, ``-b 1000000 -m`` (8
+   spectra, the ``.bin`` row against the golden), ``-b 16382
+   --fft-backend bluestein``, ``-b 99998 -m`` and ``-b 20002`` Hann.
+
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
@@ -1192,6 +1212,73 @@ def k3_split(dev, rng, ff, make_window, card) -> None:
               f"{us[2]:.1f} (+{us[2] - us[1]:.1f}); the row sum in each")
 
 
+def device_yard(label, dev, kernel, plain_fn, make_window, wname, N, F,
+                seed0) -> None:
+    """A kernel's admission yard at sizes where the numpy golden would
+    take minutes: 60 seeds of 35 dB tones made on the card
+    (tone_frames_dev), the float64 golden on the card (cuFFT in float64),
+    against the scipy float32 class of the same frames: median <= 1.5x
+    and max <= 3x its error, the per-seed p99 of the ratio printed."""
+    w_np = None if wname is None else make_window(wname, N)
+    w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+    ours, cls, plain = [], [], []
+    for seed in range(60):
+        raw = tone_frames_dev(N, F, seed0 + seed, dev)
+        gold = golden_partial_dev(raw, w)
+        ours.append(max_rel(kernel(raw, F, F, w).cpu().numpy(), gold))
+        plain.append(max_rel(plain_fn(raw, F, F, w).cpu().numpy(), gold))
+        cls.append(max_rel(scipy_f32_class(raw.cpu().numpy(), w_np), gold))
+    e, c = np.asarray(ours), np.asarray(cls)
+    r = e / c
+    med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
+    print(f"{label} yard N={N} F={F} window={wname}, 60 seeds of 35 dB "
+          f"tones: max rel median {np.median(e):.3e} / max {e.max():.3e}; "
+          f"scipy f32 {np.median(c):.3e} / {c.max():.3e}; plain "
+          f"{np.median(plain):.3e} / {max(plain):.3e}; ratio median "
+          f"{med_r:.2f}x (<= 1.5), max {max_r:.2f}x (<= 3), per-seed p99 "
+          f"{np.quantile(r, 0.99):.2f}x, per-seed max {r.max():.2f}x")
+    check(med_r <= 1.5 and max_r <= 3.0,
+          f"{label} yard N={N} window={wname}: above the FFTW-class budget")
+
+
+def matrix_drive(label, argv, cli, fp, ff, kernel, N, repeats, record,
+                 matrix, window=None):
+    """One matrix-mode drive (``argv`` writes the matrix ``matrix`` and
+    records its stream to ``record``) through ``kernel`` alone: exit 0, a finite N-bin ``.bin``
+    row peaking at 100.2 MHz, within 1e-5 of the float64 golden of the
+    recorded stream or 3x the scipy float32 FFT's error on the same
+    frames, whichever is larger (no printed digits to round). Returns the
+    kernel's launches."""
+    reset_counts(fp, ff)
+    rc, _, err, wall = run_cli(argv, cli.main)
+    counts = launch_counts(fp, ff)
+    check(rc == 0, f"{label} drive exited {rc}")
+    check_only(counts, kernel, f"{label} drive")
+    vals = np.fromfile(matrix + ".bin", dtype=np.float32)
+    check(vals.size == N and np.all(np.isfinite(vals)),
+          f"{label} drive: .bin holds {vals.size} values")
+    peak = 100e6 + (int(np.argmax(vals)) - N // 2) * RATE / N
+    check(abs(peak - 100.2e6) <= RATE / N, f"{label} drive: peak at {peak}")
+    frames = np.fromfile(record, dtype=np.uint8)[:2 * N * repeats] \
+        .reshape(repeats, 2 * N)
+    gold = golden_finalize_linear(
+        np.fft.fftshift(golden_partial(frames, repeats, window)), repeats,
+        RATE)
+    cls = golden_finalize_linear(
+        np.fft.fftshift(scipy_f32_class(frames, window)), repeats, RATE)
+    err_gold, err_cls = max_rel(vals, gold), max_rel(cls, gold)
+    # 1e-5, or 3x the float32 class where the class itself is near it: at
+    # 2^22 the deepest of 4M bins of 8 spectra take scipy's float32 FFT to
+    # ~1.1e-5 of the golden on this stream.
+    budget = max(GOLDEN_RTOL, 3.0 * err_cls)
+    print(f"e2e {label} ({' '.join(argv)}): exit 0 in {wall:.2f} s wall; "
+          f"peak {peak / 1e6:.4f} MHz; .bin max rel vs float64 golden "
+          f"{err_gold:.3e} (<= {budget:.3g}); scipy float32 on the same "
+          f"frames {err_cls:.3e}; launches {counts}")
+    check(err_gold <= budget, f"{label} drive vs float64 golden")
+    return counts[kernel]
+
+
 def phase_large(dev, rng, fp, fl, adapt_batch, make_window):
     """The large-N kernel against its plain version and the float64
     golden, twice each, then its 60-seed tone yard. Returns its max abs
@@ -1254,34 +1341,11 @@ def phase_large(dev, rng, fp, fl, adapt_batch, make_window):
 
     # Admission yard: 60 seeds of 35 dB tones per size, unwindowed and
     # Hann, median <= 1.5x and max <= 3x the scipy float32 class.
-    for N, fps in ((32768, 32), (65536, 16), (C3_N, 8)):
-        F, chunk = adapt_batch(fps)
+    for N, F in ((32768, 32), (65536, 16), (C3_N, 8)):
         for wname in (None, "hann"):
-            w_np = None if wname is None else make_window(wname, N)
-            w = None if w_np is None else torch.from_numpy(w_np).to(dev)
-            ours, cls, plain = [], [], []
-            for seed in range(60):
-                raw = tone_frames_dev(N, F, 9000 + seed, dev)
-                gold = golden_partial_dev(raw, w)
-                ours.append(max_rel(fl.fused_psd_large(raw, F, chunk, w)
-                                    .cpu().numpy(), gold))
-                plain.append(max_rel(fl.fused_psd_large_reference(
-                    raw, F, chunk, w).cpu().numpy(), gold))
-                cls.append(max_rel(scipy_f32_class(raw.cpu().numpy(), w_np),
-                                   gold))
-            e, c = np.asarray(ours), np.asarray(cls)
-            r = e / c
-            med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
-            print(f"large yard N={N} F={F} window={wname}, 60 seeds of 35 dB "
-                  f"tones: max rel median {np.median(e):.3e} / max "
-                  f"{e.max():.3e}; scipy f32 {np.median(c):.3e} / "
-                  f"{c.max():.3e}; plain {np.median(plain):.3e} / "
-                  f"{max(plain):.3e}; ratio median {med_r:.2f}x (<= 1.5), "
-                  f"max {max_r:.2f}x (<= 3), per-seed p99 "
-                  f"{np.quantile(r, 0.99):.2f}x, per-seed max {r.max():.2f}x")
-            check(med_r <= 1.5 and max_r <= 3.0,
-                  f"large yard N={N} window={wname}: above the FFTW-class "
-                  "budget")
+            device_yard("large", dev, fl.fused_psd_large,
+                        fl.fused_psd_large_reference, make_window, wname, N,
+                        F, 9000)
     return max_abs
 
 
@@ -1334,35 +1398,9 @@ def drive_large_sweep(cli, fp, ff, make_window, tmp) -> None:
                      "-q", "-m", matrix, "--record", record, "--source",
                      LINE_SOURCE]
                     + ([] if wname is None else ["--window-function", wname]))
-            reset_counts(fp, ff)
-            rc, _, err, wall = run_cli(argv, cli.main)
-            counts = launch_counts(fp, ff)
-            check(rc == 0, f"{label} drive exited {rc}")
-            check_only(counts, kernel, f"{label} drive")
-            vals = np.fromfile(matrix + ".bin", dtype=np.float32)
-            check(vals.size == N and np.all(np.isfinite(vals)),
-                  f"{label} drive: .bin holds {vals.size} values")
-            peak = 100e6 + (int(np.argmax(vals)) - N // 2) * RATE / N
-            check(abs(peak - 100.2e6) <= RATE / N,
-                  f"{label} drive: peak at {peak}")
-            w = None if wname is None else make_window(wname, N)
-            frames = np.fromfile(record, dtype=np.uint8)[:2 * N * repeats] \
-                .reshape(repeats, 2 * N)
-            gold = golden_finalize_linear(
-                np.fft.fftshift(golden_partial(frames, repeats, w)), repeats,
-                RATE)
-            cls = golden_finalize_linear(
-                np.fft.fftshift(scipy_f32_class(frames, w)), repeats, RATE)
-            err_gold, err_cls = max_rel(vals, gold), max_rel(cls, gold)
-            # 1e-5, or 3x the float32 class where the class itself is near
-            # it: at 2^22 the deepest of 4M bins of 8 spectra take scipy's
-            # float32 FFT to ~1.1e-5 of the golden on this stream.
-            budget = max(GOLDEN_RTOL, 3.0 * err_cls)
-            print(f"e2e {label} ({' '.join(argv)}): exit 0 in {wall:.2f} s "
-                  f"wall; peak {peak / 1e6:.4f} MHz; .bin max rel vs float64 "
-                  f"golden {err_gold:.3e} (<= {budget:.3g}); scipy float32 on "
-                  f"the same frames {err_cls:.3e}; launches {counts}")
-            check(err_gold <= budget, f"{label} drive vs float64 golden")
+            matrix_drive(label, argv, cli, fp, ff, kernel, N, repeats,
+                         record, matrix,
+                         None if wname is None else make_window(wname, N))
 
 
 def device_rows(prof):
@@ -2902,73 +2940,6 @@ LARGE_AWKWARD_DRIVES = [
 ]
 
 
-def device_yard(label, dev, kernel, plain_fn, make_window, wname, N, F,
-                seed0) -> None:
-    """A kernel's admission yard at sizes where the numpy golden would
-    take minutes: 60 seeds of 35 dB tones made on the card
-    (tone_frames_dev), the float64 golden on the card (cuFFT in float64),
-    against the scipy float32 class of the same frames: median <= 1.5x
-    and max <= 3x its error, the per-seed p99 of the ratio printed."""
-    w_np = None if wname is None else make_window(wname, N)
-    w = None if w_np is None else torch.from_numpy(w_np).to(dev)
-    ours, cls, plain = [], [], []
-    for seed in range(60):
-        raw = tone_frames_dev(N, F, seed0 + seed, dev)
-        gold = golden_partial_dev(raw, w)
-        ours.append(max_rel(kernel(raw, F, F, w).cpu().numpy(), gold))
-        plain.append(max_rel(plain_fn(raw, F, F, w).cpu().numpy(), gold))
-        cls.append(max_rel(scipy_f32_class(raw.cpu().numpy(), w_np), gold))
-    e, c = np.asarray(ours), np.asarray(cls)
-    r = e / c
-    med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
-    print(f"{label} yard N={N} F={F} window={wname}, 60 seeds of 35 dB "
-          f"tones: max rel median {np.median(e):.3e} / max {e.max():.3e}; "
-          f"scipy f32 {np.median(c):.3e} / {c.max():.3e}; plain "
-          f"{np.median(plain):.3e} / {max(plain):.3e}; ratio median "
-          f"{med_r:.2f}x (<= 1.5), max {max_r:.2f}x (<= 3), per-seed p99 "
-          f"{np.quantile(r, 0.99):.2f}x, per-seed max {r.max():.2f}x")
-    check(med_r <= 1.5 and max_r <= 3.0,
-          f"{label} yard N={N} window={wname}: above the FFTW-class budget")
-
-
-def matrix_drive(label, argv, cli, fp, ff, kernel, N, repeats, record,
-                 matrix, window=None):
-    """One matrix-mode drive (``argv`` ends in -m ``matrix`` --record
-    ``record``) through ``kernel`` alone: exit 0, a finite N-bin ``.bin``
-    row peaking at 100.2 MHz, within 1e-5 of the float64 golden of the
-    recorded stream or 3x the scipy float32 FFT's error on the same
-    frames, whichever is larger (no printed digits to round). Returns the
-    kernel's launches."""
-    reset_counts(fp, ff)
-    rc, _, err, wall = run_cli(argv, cli.main)
-    counts = launch_counts(fp, ff)
-    check(rc == 0, f"{label} drive exited {rc}")
-    check_only(counts, kernel, f"{label} drive")
-    vals = np.fromfile(matrix + ".bin", dtype=np.float32)
-    check(vals.size == N and np.all(np.isfinite(vals)),
-          f"{label} drive: .bin holds {vals.size} values")
-    peak = 100e6 + (int(np.argmax(vals)) - N // 2) * RATE / N
-    check(abs(peak - 100.2e6) <= RATE / N, f"{label} drive: peak at {peak}")
-    frames = np.fromfile(record, dtype=np.uint8)[:2 * N * repeats] \
-        .reshape(repeats, 2 * N)
-    gold = golden_finalize_linear(
-        np.fft.fftshift(golden_partial(frames, repeats, window)), repeats,
-        RATE)
-    cls = golden_finalize_linear(
-        np.fft.fftshift(scipy_f32_class(frames, window)), repeats, RATE)
-    err_gold, err_cls = max_rel(vals, gold), max_rel(cls, gold)
-    # 1e-5, or 3x the float32 class where the class itself is near it: at
-    # 2^22 the deepest of 4M bins of 8 spectra take scipy's float32 FFT to
-    # ~1.1e-5 of the golden on this stream.
-    budget = max(GOLDEN_RTOL, 3.0 * err_cls)
-    print(f"e2e {label} ({' '.join(argv)}): exit 0 in {wall:.2f} s wall; "
-          f"peak {peak / 1e6:.4f} MHz; .bin max rel vs float64 golden "
-          f"{err_gold:.3e} (<= {budget:.3g}); scipy float32 on the same "
-          f"frames {err_cls:.3e}; launches {counts}")
-    check(err_gold <= budget, f"{label} drive vs float64 golden")
-    return counts[kernel]
-
-
 def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
                         cli, ff, card):
     """15. The large awkward-N kernels (``fused_psd_mixed_large``, ML;
@@ -2987,8 +2958,8 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
         ("ML", 100000, 64, None, None), ("ML", 10 ** 6, 8, None, None),
         ("ML", 100000, 64, 37, "blackman"),
         ("BL", 16382, 256, None, None), ("BL", 20002, 256, None, "hann"),
-        ("BL", 99998, 64, None, None), ("BL", big, 4, None, None),
-        ("BL", 99998, 64, 21, None),
+        ("BL", 99998, 64, None, None), ("BL", 499998, 8, None, None),
+        ("BL", big, 4, None, None), ("BL", 99998, 64, 21, None),
     ]
     for name in ("ML", "BL"):
         mod = fml if name == "ML" else fbl
@@ -3037,8 +3008,12 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
           and counts["plain"] == 0,
           f"large awkward launch counts: {counts}")
     # A spread of N through each kernel (every 40th N ML takes and its
-    # largest; even N through BL from 8194 to its largest), 2 frames each,
-    # every third with Hann, against the float64 golden on the card.
+    # largest; even N through BL from 8194 to its largest), 4 frames each,
+    # every third with Hann, against the float64 golden on the card: within
+    # 1e-5, or 3x the scipy float32 FFT's error on the same frames where
+    # that is larger (a few random frames leave the deepest of millions of
+    # bins far below the mean, where the float32 class itself is above
+    # 1e-5 of the golden).
     ml_all = fml.eligible_sizes()
     sweep = ([("ML", N) for N in ml_all[::40] + ml_all[-1:]]
              + [("BL", N) for N in (8194, 8196, 9998, 12286, 16386, 24574,
@@ -3048,17 +3023,22 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
     for i, (name, N) in enumerate(sweep):
         w_np = make_window("hann", N) if i % 3 == 2 else None
         w = None if w_np is None else torch.from_numpy(w_np).to(dev)
-        raw = torch.from_numpy(rng.integers(0, 256, (2, 2 * N),
-                                            dtype=np.uint8)).to(dev)
-        got = kernels[name][0](raw, 2, 2, w)
-        err = max_rel(got.cpu().numpy(), golden_partial_dev(raw, w))
-        if err >= worst[0]:
-            worst = (err, (name, N, "hann" if w_np is not None else None))
+        raw_np = rng.integers(0, 256, (4, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        got = kernels[name][0](raw, 4, 4, w)
+        gold = golden_partial_dev(raw, w)
+        err = max_rel(got.cpu().numpy(), gold)
+        budget = max(GOLDEN_RTOL,
+                     3.0 * max_rel(scipy_f32_class(raw_np, w_np), gold))
+        if err / budget >= worst[0]:
+            worst = (err / budget, (name, N, "hann" if w_np is not None
+                                    else None, err, budget))
     print(f"large awkward sweep of {len(sweep)} N ("
           f"{sum(n == 'ML' for n, _ in sweep)} ML, "
-          f"{sum(n == 'BL' for n, _ in sweep)} BL), 2 frames each: worst max "
-          f"rel vs float64 golden {worst[0]:.3e} at {worst[1]}")
-    check(worst[0] <= GOLDEN_RTOL, f"large awkward sweep: {worst}")
+          f"{sum(n == 'BL' for n, _ in sweep)} BL), 4 frames each: worst "
+          f"max rel vs float64 golden over its budget {worst[0]:.3f} at "
+          f"(kernel, N, window, max rel, budget) = {worst[1]}")
+    check(worst[0] <= 1.0, f"large awkward sweep: {worst}")
     print(f"wall: large awkward checks in {time.perf_counter() - t0:.1f} s")
 
     # The admission yards: median <= 1.5x, max <= 3x the scipy float32

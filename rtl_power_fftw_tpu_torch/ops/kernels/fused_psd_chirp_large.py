@@ -56,11 +56,11 @@ from .fused_psd import COUNTS, _on_cuda, check_alignment, check_args
 from .fused_psd_bluestein import (MAX_N as SMALL_MAX_N, bluestein_constants,
                                   chirp_size)
 from .fused_psd_large import _raw_stream, large_group, large_split
-from .fused_psd_mixed import SUM_BINS, mixed_plan
+from .fused_psd_mixed import SUM_BINS, _resident, launch_error, mixed_plan
 from .fused_psd_mixed_large import (RAW_ALIGN, WINDOW_ALIGN,
                                     device_plan_tables, inter_twiddle,
                                     plan_ints, tile_attributes, tile_count,
-                                    tile_error, tile_stride, workspace)
+                                    tile_stride, workspace)
 
 #: Eligible sizes: even N above the small chirp-Z kernel's 8192, up to the
 #: largest N the 60-seed tone yard admitted (chip_smoke.py phase 15), 2^21
@@ -80,13 +80,6 @@ def chirp_large_split(N: int) -> Tuple[int, int]:
     """(M1, M2) of M = chirp_size(N): the large kernel's split,
     M1 = 2^floor(log2 M / 2)."""
     return large_split(chirp_size(N))
-
-
-def first_zero_row(N: int, n2):
-    """Pass A's rule for column n2: rows n1 >= this hold samples n = n1·M2
-    + n2 >= N, which are 0 and are not read (ceil((N - n2) / M2))."""
-    M2 = chirp_large_split(N)[1]
-    return -(-(N - np.asarray(n2)) // M2)
 
 
 def spectrum_table(N: int) -> np.ndarray:
@@ -203,10 +196,8 @@ def kernel_attributes(N: int, which: int,
 def resident_blocks(N: int, which: int, index: int) -> int:
     """Blocks of a pass at N bins that card ``index`` holds at once. Asked
     of the card once per key."""
-    device = torch.device("cuda", index)
-    per_sm = kernel_attributes(N, which, device)["blocks_per_sm"]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, per_sm)
+    return _resident(kernel_attributes(N, which, torch.device("cuda", index)),
+                     index)
 
 
 class _Plan(NamedTuple):
@@ -282,7 +273,7 @@ def fused_psd_chirp_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
         device.index, N, F, t.cols_a, t.xs1, plan.groups[0], t.rows_b,
         t.xs2, plan.groups[1], t.cols_c, plan.groups[2], n_valid, stream)
     if err != 0:
-        raise tile_error("fused_psd_chirp_large", plan.lib, err)
+        raise launch_error("fused_psd_chirp_large", plan.lib, err)
     if window is None:
         COUNTS.kernel_chirp_large += 1
     else:

@@ -18,7 +18,7 @@ bin k = k1 + N1·k2:
    ``csrc/fft_mixed.cuh`` by :func:`.fused_psd_mixed.mixed_plan`);
 3. × the inter-stage twiddle W_N^(n2·k1), the float32 rounding of a
    product of two float64 table entries (:func:`inter_twiddle`), to a
-   complex float32 scratch, (F, N1, N2) row-major (:func:`scratch_index`);
+   complex float32 scratch, (F, N1, N2) row-major;
 4. length-N2 DFTs over n2 of each row k1 (pass B, a tile of rows a
    block), |X|^2, frames f >= ``n_valid`` dropped, a sum over each
    block's frames, written to bin k1 + N1·k2 of one partial row a block
@@ -52,12 +52,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .fused_psd import (COUNTS, KernelLaunchError, _on_cuda,
-                        check_alignment, check_args)
+from .fused_psd import COUNTS, _on_cuda, check_alignment, check_args
 from .fused_psd_large import _raw_stream, large_group
 from .fused_psd_mixed import (MAX_N as MIXED_MAX_N, MAX_PASSES, SUM_BINS,
-                              element_of_bin, mixed_plan, pad_index,
-                              plan_twiddles, smooth7)
+                              _resident, element_of_bin, launch_error,
+                              mixed_plan, pad_index, plan_twiddles, smooth7)
 
 #: Eligible sizes: above the mixed-radix kernel's 16384, up to 2^22.
 MIN_N = MIXED_MAX_N + 2
@@ -171,11 +170,6 @@ def inter_twiddle(N: int, n1: int, n2: int) -> np.ndarray:
     return (tab[m % n2] * tab[n2 + m // n2]).astype(np.complex64)
 
 
-def scratch_index(N: int, k1, n2):
-    """Where pass A keeps value (k1, n2) of a frame: k1 * N2 + n2."""
-    return k1 * mixed_large_split(N)[1] + n2
-
-
 class MixedLargeLayout(NamedTuple):
     """The kernel's layout at N."""
     N1: int
@@ -221,17 +215,6 @@ def mixed_large_layout(N: int) -> MixedLargeLayout:
         tile_count(n2, extra=4 * n2, total=n1), tile_stride(n2))
 
 
-def partial_bins(T: int, n: int, plan, bins: int) -> np.ndarray:
-    """tile_power_kernel's map: for transform t < T and bin k < n of its
-    transform, the bin t + T·k of the partial row (T·n entries, (t, k)
-    row-major), and the element of the tile it reads, element_of_bin(k);
-    bins at or above ``bins`` are not written (-1)."""
-    t = np.arange(T)[:, None]
-    k = np.arange(n)[None, :]
-    out = t + T * k
-    return np.where(out < bins, out, -1), element_of_bin(plan, k)[0]
-
-
 def fused_psd_mixed_large_reference(raw_u8: torch.Tensor, n_valid: int,
                                     chunk: int,
                                     window: Optional[torch.Tensor] = None
@@ -264,12 +247,6 @@ def _plain_twiddle(N: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(inter_twiddle(N, n1, n2)).to(device)
 
 
-def tile_error(kernel: str, lib, err: int) -> KernelLaunchError:
-    return KernelLaunchError(
-        f"{kernel} launch failed: {lib.rpf_cuda_error_string(err).decode()} "
-        f"(cudaError {err})")
-
-
 def tile_attributes(library: str, entry: str, which: int, smem: int,
                     device: Optional[torch.device] = None) -> dict:
     """What pass ``which`` of ``library`` gets with ``smem`` dynamic bytes
@@ -282,7 +259,8 @@ def tile_attributes(library: str, entry: str, which: int, smem: int,
     attrs = (ctypes.c_int * 6)()
     err = getattr(lib, entry)(which, smem, device.index or 0, attrs)
     if err != 0:
-        raise tile_error(f"{library} attributes of pass {which}", lib, err)
+        raise launch_error(f"{library} attributes of pass {which}", lib,
+                           err)
     return dict(zip(("registers", "spill_bytes", "static_smem",
                      "dynamic_smem", "threads", "blocks_per_sm"), attrs))
 
@@ -301,10 +279,8 @@ def kernel_attributes(N: int, which: int,
 def resident_blocks(N: int, which: int, index: int) -> int:
     """Blocks of a pass at N bins that card ``index`` holds at once: its
     SMs times the blocks one SM holds. Asked of the card once per key."""
-    device = torch.device("cuda", index)
-    per_sm = kernel_attributes(N, which, device)["blocks_per_sm"]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, per_sm)
+    return _resident(kernel_attributes(N, which, torch.device("cuda", index)),
+                     index)
 
 
 class _Plan(NamedTuple):
@@ -418,7 +394,7 @@ def fused_psd_mixed_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
         ctypes.addressof(plan.ints[1]), device.index, F, t.cols, t.xs1,
         plan.group_a, t.rows, t.xs2, plan.group_b, n_valid, stream)
     if err != 0:
-        raise tile_error("fused_psd_mixed_large", plan.lib, err)
+        raise launch_error("fused_psd_mixed_large", plan.lib, err)
     if window is None:
         COUNTS.kernel_mixed_large += 1
     else:

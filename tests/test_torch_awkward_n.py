@@ -305,3 +305,21 @@ def test_chip_smoke_drive_steps_are_the_sessions(drive, route, N, streams,
         CHIP_SMOKE.drive_frames_per_step(argv, streams))
     shape = (F, 2 * N) if streams == 1 else (streams, F, 2 * N)
     assert rv == 0 and seen and set(seen) == {(shape, chunk)}
+
+
+@pytest.mark.parametrize("drive", CHIP_SMOKE.LARGE_AWKWARD_DRIVES,
+                         ids=lambda d: d[0])
+def test_chip_smoke_large_drives_take_their_kernels(drive):
+    """Each drive of chip_smoke.py's phase 15 routes to the kernel it is
+    held to (ML for 7-smooth N, BL for the others and for --fft-backend
+    bluestein; the windowed counter where it has a window), with the hop
+    its golden assumes."""
+    label, key, N, repeats, hop, window, matrix, extra = drive
+    backend = (extra[extra.index("--fft-backend") + 1]
+               if "--fft-backend" in extra else "auto")
+    route = spectral.transform_route(N, backend)
+    assert route == {"ML": "mixed_large", "BL": "chirp_large"}[key[:2]]
+    assert (window is not None) == key.endswith("windowed") \
+        == ("--window-function" in extra)
+    assert hop == (N // 2 if "--welch-overlap" in extra else N)
+    assert repeats >= 8 and f"-b {N}" in label

@@ -33,6 +33,7 @@ from rtl_power_fftw_tpu_torch.ops.kernels.fused_psd_large import large_group
 from test_torch_fused_psd_mixed import dequantize, dif, psd_sum, twiddle_table
 from test_torch_fused_psd_mixed_large import (CROSS_RTOL, GOLDEN_RTOL,
                                               RESIDENT, frames, golden,
+                                              partial_bins,
                                               session_matches_jax_session)
 
 CPU = torch.device("cpu")
@@ -63,6 +64,13 @@ def tables(N, dtype):
     return a, B.reshape(m2, m1).T, inter
 
 
+def first_zero_row(N, n2):
+    """Pass A's rule for column n2 (tile_cols_kernel's ``s < bins``): rows
+    n1 from ceil((N - n2) / M2) on hold samples n = n1 M2 + n2 >= N, which
+    are 0 and are not read."""
+    return -(-(N - np.asarray(n2)) // bl.chirp_large_split(N)[1])
+
+
 def kernel_transcription(raw, n_valid, chunk, window=None,
                          dtype=np.complex64):
     """The kernel as one step runs it: pass A (columns n2 of u = x a, rows
@@ -81,7 +89,7 @@ def kernel_transcription(raw, n_valid, chunk, window=None,
     order1 = fm.element_of_bin(t.plan1, np.arange(m1))
     order2 = fm.element_of_bin(t.plan2, np.arange(m2))
     x = dequantize(raw, window, dtype) * a.astype(dtype)
-    zero = bl.first_zero_row(N, np.arange(m2))
+    zero = first_zero_row(N, np.arange(m2))
     scratch = np.zeros((F, m1, m2), dtype)
     for f in range(min(F, n_valid)):
         u = np.zeros((m2, m1), dtype)          # column n2, row n1
@@ -94,7 +102,7 @@ def kernel_transcription(raw, n_valid, chunk, window=None,
         Z = np.conj(Y[:, order2] * spectrum)    # [k1, k2]
         z = dif(Z, t.plan2, tw2)
         scratch[f] = z[:, order2] * inter       # [k1, m2]
-    bins, elem = ml.partial_bins(m2, m1, t.plan1, N)
+    bins, elem = partial_bins(m2, m1, t.plan1, N)
     keep = bins >= 0
     real = np.float32 if dtype == np.complex64 else np.float64
     group = large_group(F, t.tiles[2], RESIDENT)
@@ -145,7 +153,7 @@ def test_zero_rows_are_the_samples_past_n(N):
     is exactly where n < N."""
     m1, m2 = bl.chirp_large_split(N)
     n2 = np.arange(m2)
-    zero = bl.first_zero_row(N, n2)
+    zero = first_zero_row(N, n2)
     n = np.arange(m1)[:, None] * m2 + n2[None, :]
     assert np.array_equal(np.arange(m1)[:, None] < zero[None, :], n < N)
     assert zero.min() >= 1 and zero.max() <= m1 // 2 + 1
@@ -165,7 +173,7 @@ def test_spectrum_table_is_b_over_m_at_k1_k2(N):
 @pytest.mark.parametrize("N", [8194, 16382])
 def test_pass_c_keeps_each_bin_below_n_once(N):
     t = bl.chirp_large_layout(N)
-    bins, elem = ml.partial_bins(t.M2, t.M1, t.plan1, N)
+    bins, elem = partial_bins(t.M2, t.M1, t.plan1, N)
     kept = bins[bins >= 0]
     assert sorted(kept) == list(range(N))
     assert (bins < 0).sum() == t.M1 * t.M2 - N

@@ -74,6 +74,16 @@ def plain(raw, n_valid, chunk, window=None):
                                     w).numpy()
 
 
+def partial_bins(T, n, plan, bins):
+    """tile_power_kernel's map (csrc/fft_mixed_tile.cuh): for transform t
+    < T and bin k < n of its transform, the bin t + T·k of the partial row
+    (-1 where it is not below ``bins``: not written), and the element of
+    the tile it reads, element_of_bin(k)."""
+    out = np.arange(T)[:, None] + T * np.arange(n)[None, :]
+    return (np.where(out < bins, out, -1),
+            fm.element_of_bin(plan, np.arange(n)))
+
+
 def kernel_transcription(raw, n_valid, chunk, window=None,
                          dtype=np.complex64):
     """The kernel as one step runs it: pass A's column transforms (the
@@ -96,10 +106,11 @@ def kernel_transcription(raw, n_valid, chunk, window=None,
     scratch = np.zeros((F, n1, n2), dtype)
     for f in range(min(F, n_valid)):
         y = dif(x[f].reshape(n1, n2).T.copy(), t.plan1, tw1)   # [n2, elem]
-        scratch[f].reshape(-1)[ml.scratch_index(
-            N, np.arange(n1)[:, None], np.arange(n2)[None, :])] = \
+        # Pass A's store: (k1, n2) at k1 * N2 + n2 of the frame.
+        scratch[f].reshape(-1)[np.arange(n1)[:, None] * n2
+                               + np.arange(n2)[None, :]] = \
             y[:, order1].T * inter
-    bins, elem = ml.partial_bins(n1, n2, t.plan2, N)
+    bins, elem = partial_bins(n1, n2, t.plan2, N)
     real = np.float32 if dtype == np.complex64 else np.float64
     group = large_group(F, t.tiles_b, RESIDENT)
     rows = []
@@ -176,7 +187,7 @@ def test_inter_twiddle_is_the_rounded_float64_value(N):
 @pytest.mark.parametrize("N", [16464, 20000])
 def test_partial_bins_cover_each_bin_once(N):
     t = ml.mixed_large_layout(N)
-    bins, elem = ml.partial_bins(t.N1, t.N2, t.plan2, N)
+    bins, elem = partial_bins(t.N1, t.N2, t.plan2, N)
     assert sorted(bins.ravel()) == list(range(N))
     assert sorted(elem) == list(range(t.N2))
 
