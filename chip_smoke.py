@@ -229,7 +229,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    on the line source, each through its kernel alone: ``-b 100000``,
    ``-b 20000`` Hann with 50% Welch overlap, ``-b 1000000 -m`` (8
    spectra, the ``.bin`` row against the golden), ``-b 16382
-   --fft-backend bluestein``, ``-b 99998 -m`` and ``-b 20002`` Hann.
+   --fft-backend bluestein``, ``-b 99998 -m`` and ``-b 20002`` Hann; the
+   two matrix drives once more under ``torch.profiler``, device time by
+   pass.
 
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -3092,8 +3094,9 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
               f"max abs vs plain {t['max_abs']:.4g}")
     print(f"wall: large awkward times in {time.perf_counter() - t0:.1f} s")
 
-    # The drives, each on its kernel alone.
-    launches = {}
+    # The drives, each on its kernel alone; then where the two matrix
+    # drives' device time goes, by pass (torch.profiler).
+    launches, profiled = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, key, N, repeats, hop, wname, matrix, extra in \
                 LARGE_AWKWARD_DRIVES:
@@ -3106,6 +3109,7 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
             if matrix:
                 n = matrix_drive(label, argv, cli, fp, ff, key, N, repeats,
                                  record, stem, w)
+                profiled[key] = (label, argv)
             else:
                 n = drive(label, argv, cli, fp, ff, key, N,
                           lambda record=record, N=N, repeats=repeats,
@@ -3113,6 +3117,12 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
                                                         hop, w),
                           GOLDEN_RTOL)
             launches[key] = launches.get(key, 0) + n
+        for key, passes in (("ML", ["tile_cols_kernel"]),
+                            ("BL", ["tile_cols_kernel", "chirp_turn_kernel"])):
+            label, argv = profiled[key]
+            profile_drive(label, argv, cli,
+                          passes + ["tile_power_kernel", "psd_sum_kernel",
+                                    "Memcpy HtoD", "Memcpy DtoH"])
     print(f"wall: large awkward phase in {time.perf_counter() - t0:.1f} s")
 
     def entry(name, source, replaces, key, times_key):
@@ -3217,10 +3227,7 @@ def main() -> int:
             ("fused_psd_pfb", "psd_pfb_kernel", ""),
             ("fused_psd_pfb", "psd_pfb_ring_kernel", ""),
             ("fused_psd_mixed_large", "tile_cols_kernel", ""),
-            ("fused_psd_mixed_large", "tile_power_kernel", ""),
-            ("fused_psd_chirp_large", "tile_cols_kernel", ""),
-            ("fused_psd_chirp_large", "chirp_turn_kernel", ""),
-            ("fused_psd_chirp_large", "tile_power_kernel", "")):
+            ("fused_psd_chirp_large", "tile_cols_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")

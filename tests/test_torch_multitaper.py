@@ -466,12 +466,15 @@ def test_batch_route_and_grid_at_the_drives_shapes():
 
 def test_batch_kernel_constants_match_the_source():
     """The wrapper's ring pad and block limit are the kernel's, and the
-    library's two C entries go through use_device."""
+    library's two C entries go through the shared use_device
+    (csrc/device.cuh)."""
     text = (CSRC / "fused_psd_tapers.cu").read_text()
     assert f"constexpr int kRingPad = {fmt.RING_PAD};" in text
     assert f"constexpr int kMaxSmem = {fp.SMEM_PER_BLOCK};" in text
-    assert "cudaSetDevice(device);" in text.split("use_device(int device)")[1]
-    assert text.count("cudaSetDevice") == 1
+    device = (CSRC / "device.cuh").read_text()
+    assert '#include "device.cuh"' in text and "cudaSetDevice" not in text
+    assert "cudaSetDevice(device);" in device.split(
+        "use_device(int device)")[1]
     assert text.count("cudaError_t e = use_device(device);") == 2
 
 
