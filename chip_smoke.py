@@ -2944,12 +2944,14 @@ LARGE_AWKWARD_DRIVES = [
 
 def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
                         cli, ff, card):
-    """15. The large awkward-N kernels (``fused_psd_mixed_large``, ML;
-    ``fused_psd_chirp_large``, BL): against their plain versions and the
-    float64 golden, twice each, at the phase's shapes and over a spread of
-    N; their 60-seed tone yards against the scipy float32 class; their
-    times beside ``torch.fft.fft`` and the bound; the six drives, each on
-    its kernel alone. Returns the kernels-line entries."""
+    """15. The large awkward-N kernels (``fused_psd_mixed_large``, ML:
+    the division-free passes; ``fused_psd_chirp_large``, BL: the register
+    passes): against their plain versions and the float64 golden, twice
+    each, at the phase's shapes and over a spread of N; their 60-seed tone
+    yards against the scipy float32 class; their times beside PR 18's
+    forms (the controls), ``torch.fft.fft`` and the bound; each form's
+    device time by pass at 10^6 F=8 (ML) and 99998 F=64 (BL); the six
+    drives, each on its kernel alone. Returns the kernels-line entries."""
     t0 = time.perf_counter()
     kernels = {"ML": (fml.fused_psd_mixed_large,
                       fml.fused_psd_mixed_large_reference),
@@ -2963,17 +2965,24 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
         ("BL", 99998, 64, None, None), ("BL", 499998, 8, None, None),
         ("BL", big, 4, None, None), ("BL", 99998, 64, 21, None),
     ]
+    controls = {"ML": fml.fused_psd_mixed_large_control,
+                "BL": fbl.fused_psd_chirp_large_control}
+    passes = ("A", "A windowed", "B", "C")
     for name in ("ML", "BL"):
         mod = fml if name == "ML" else fbl
-        for N in {"ML": (20000, 10 ** 6, 4167450),
-                  "BL": (16382, 99998, big)}[name]:
+        for N in {"ML": (20000, 100000, 10 ** 6, 4167450),
+                  "BL": (16382, 20002, 99998, 499998, big)}[name]:
+            form = (fml.ml_layout(N) if name == "ML"
+                    else fbl.chirp_regs_layout(N).regs)
             for which in range(4 if name == "BL" else 3):
                 a = mod.kernel_attributes(N, which)
-                print(f"occupancy {name} N={N} pass {which} on {card}: "
-                      f"{a['registers']} registers, {a['spill_bytes']} B "
-                      f"spill, {a['dynamic_smem']} B shared, "
-                      f"{a['threads']} threads, {a['blocks_per_sm']} "
-                      "blocks/SM")
+                print(f"occupancy {name} N={N} pass {passes[which]} on "
+                      f"{card}: {a['registers']} registers, "
+                      f"{a['spill_bytes']} B spill, {a['static_smem']} + "
+                      f"{a['dynamic_smem']} B shared, {a['threads']} "
+                      f"threads, {a['blocks_per_sm']} blocks/SM, the grid "
+                      f"aims at {mod.resident_blocks(N, which, dev.index)} "
+                      f"blocks; layout {form}")
     reset_counts(fp, ff)
     max_abs = {}
     for name, N, fps, n_valid, wname in cases:
@@ -3055,14 +3064,16 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
     print(f"wall: large awkward yards in {time.perf_counter() - t0:.1f} s")
 
     # Times (PERF.md states their prediction): a call (CUDA events around
-    # each), the device's part (calls queued behind a sleep kernel, twice),
-    # the wrapper's host part, the plain version and torch.fft.fft on the
-    # same frames (complex64 on the card), the bound.
+    # each), the device's part (calls queued behind a sleep kernel; the new
+    # form and PR 18's control in turns, twice each), the wrapper's host
+    # part, the plain version and torch.fft.fft on the same frames
+    # (complex64 on the card), the bound.
     times = {}
     for name, N, fps, n_valid, wname in cases:
         if n_valid is not None:
             continue
         kernel, plain = kernels[name]
+        control = controls[name]
         F, chunk = adapt_batch(fps)
         w = (None if wname is None
              else torch.from_numpy(make_window(wname, N)).to(dev))
@@ -3073,26 +3084,55 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
         t = {"call": event_times_us(lambda: kernel(raw, F, chunk, w)),
              "plain": event_times_us(lambda: plain(raw, F, chunk, w)),
              "lib": event_times_us(lambda: torch.fft.fft(z, dim=-1)),
-             "devices": [device_times_us(lambda: kernel(raw, F, chunk, w))
-                         for _ in range(2)],
+             "devices": [], "control_devices": [],
              "lib_device": device_times_us(lambda: torch.fft.fft(z, dim=-1)),
              "host": host_us(lambda: kernel(raw, F, chunk, w)),
              "bound": awkward_bound_ms(F, N, w is not None),
              "max_abs": max_abs[(name, N, F, wname)]}
+        for _ in range(2):
+            t["devices"].append(device_times_us(
+                lambda: kernel(raw, F, chunk, w)))
+            t["control_devices"].append(device_times_us(
+                lambda: control(raw, F, chunk, w)))
         t["device"] = min(t["devices"])
+        t["control_device"] = min(t["control_devices"])
         times[(name, N, wname)] = t
         b_us = 1e3 * t["bound"][0]
         print(f"time large awkward {name} N={N} F={F} window={wname} on "
               f"{card}: kernel {t['call']:.1f} us a call, device "
               f"{t['devices'][0]:.1f}/{t['devices'][1]:.1f} us, host "
               f"{t['host']:.1f} us ({F * N / t['device'] / 1e3:.2f} GS/s on "
-              f"the device); plain {t['plain']:.1f} us a call; torch.fft.fft "
-              f"of the complex64 frames {t['lib']:.1f} us a call (device "
+              f"the device); the control (PR 18's form) device "
+              f"{t['control_devices'][0]:.1f}/{t['control_devices'][1]:.1f} "
+              f"us, kernel/control {t['device'] / t['control_device']:.3f}; "
+              f"plain {t['plain']:.1f} us a call; torch.fft.fft of the "
+              f"complex64 frames {t['lib']:.1f} us a call (device "
               f"{t['lib_device']:.1f}), kernel/fft on the device "
               f"{t['device'] / t['lib_device']:.3f}; bound {b_us:.2f} us "
               f"({t['bound'][1]}), device/bound {t['device'] / b_us:.1f}x; "
               f"max abs vs plain {t['max_abs']:.4g}")
     print(f"wall: large awkward times in {time.perf_counter() - t0:.1f} s")
+
+    # Where each form's device time goes, by pass: the kernel calls alone
+    # at 10^6 F=8 (ML) and 99998 F=64 (BL), under torch.profiler.
+    split = {"ML": (10 ** 6, 8, ["ml_cols_kernel", "ml_rows_kernel"],
+                    ["tile_cols_kernel", "tile_power_kernel"]),
+             "BL": (99998, 64, ["chirp_regs_a", "chirp_regs_b",
+                                "chirp_regs_c"],
+                    ["tile_cols_kernel", "chirp_turn_kernel",
+                     "tile_power_kernel"])}
+    for name, (N, fps, new_passes, control_passes) in split.items():
+        F, chunk = adapt_batch(fps)
+        raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        sums = ["psd_rows_sum", "psd_sum_kernel"]
+        profile_calls(f"{name} N={N} F={F} by pass on {card}",
+                      lambda: kernels[name][0](raw, F, chunk), new_passes
+                      + sums)
+        profile_calls(f"{name} control N={N} F={F} by pass on {card}",
+                      lambda: controls[name](raw, F, chunk), control_passes
+                      + sums)
+    print(f"wall: large awkward splits in {time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its kernel alone; then where the two matrix
     # drives' device time goes, by pass (torch.profiler).
@@ -3117,11 +3157,12 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
                                                         hop, w),
                           GOLDEN_RTOL)
             launches[key] = launches.get(key, 0) + n
-        for key, passes in (("ML", ["tile_cols_kernel"]),
-                            ("BL", ["tile_cols_kernel", "chirp_turn_kernel"])):
+        for key, passes in (("ML", ["ml_cols_kernel", "ml_rows_kernel"]),
+                            ("BL", ["chirp_regs_a", "chirp_regs_b",
+                                    "chirp_regs_c"])):
             label, argv = profiled[key]
             profile_drive(label, argv, cli,
-                          passes + ["tile_power_kernel", "psd_sum_kernel",
+                          passes + ["psd_rows_sum", "psd_sum_kernel",
                                     "Memcpy HtoD", "Memcpy DtoH"])
     print(f"wall: large awkward phase in {time.perf_counter() - t0:.1f} s")
 
@@ -3133,6 +3174,7 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
                 "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
                 "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
                 "device_ms": t["device"] / 1000.0,
+                "control_device_ms": t["control_device"] / 1000.0,
                 "host_ms": t["host"] / 1000.0}
 
     xla_ladder = "rtl_power_fftw_tpu/ops/spectral.py:388"

@@ -111,27 +111,44 @@ SIGNATURES = {
         "rpf_fused_psd_mixed_control_attributes": [_P, _I, _I, _I, _P],
     },
     "fused_psd_mixed_large": {
-        # raw, tw1, order1, inter, window, tw2, order2, scratch, partial,
-        # out, plan1 (int[12]), plan2, device, F, cols, xs1, group_a, rows,
-        # xs2, group_b, n_valid, stream
+        # raw, tw1, bin1, inter, window, tw2, order2, scratch, partial,
+        # out, plan1 (int[55]), plan2, device, log2c, n2p, width, F,
+        # group_a, group_b, n_valid, stream
         "rpf_fused_psd_mixed_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                      _I, _P],
+                                      _P],
+        # which (0 pass A, 1 pass A windowed, 2 pass B small, 3 pass B
+        # large), smem, threads, device, attrs (int[6])
+        "rpf_fused_psd_mixed_large_attributes": [_I, _I, _I, _I, _P],
+        # the control: raw, tw1, order1, inter, window, tw2, order2,
+        # scratch, partial, out, plan1 (int[12]), plan2, device, F, cols,
+        # xs1, group_a, rows, xs2, group_b, n_valid, stream
+        "rpf_fused_psd_mixed_large_control": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+            _I, _I, _I, _I, _I, _P],
         # which (0 pass A, 1 pass A windowed, 2 pass B), smem, device,
         # attrs (int[6])
-        "rpf_fused_psd_mixed_large_attributes": [_I, _I, _I, _P],
+        "rpf_fused_psd_mixed_large_control_attributes": [_I, _I, _I, _P],
     },
     "fused_psd_chirp_large": {
-        # raw, tw1, order1, inter, chirp, window, tw2, order2, spectrum,
-        # scratch, partial, out, plan1 (int[12]), plan2, device, bins, F,
-        # cols_a, xs1, group_a, rows_b, xs2, group_b, cols_c, group_c,
+        # raw, twiddle, inter, window, chirp, spectrum, scratch, partial,
+        # out, device, log2m, bins, width, F, group_a, group_b, group_c,
         # n_valid, stream
-        "rpf_fused_psd_chirp_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _I, _I, _I, _P],
-        # which (0 pass A, 1 pass A windowed, 2 pass B, 3 pass C), smem,
+        "rpf_fused_psd_chirp_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # log2m, which (0 pass A, 1 pass A windowed, 2 pass B, 3 pass C),
         # device, attrs (int[6])
         "rpf_fused_psd_chirp_large_attributes": [_I, _I, _I, _P],
+        # the control: raw, tw1, order1, inter, chirp, window, tw2,
+        # order2, spectrum, scratch, partial, out, plan1 (int[12]), plan2,
+        # device, bins, F, cols_a, xs1, group_a, rows_b, xs2, group_b,
+        # cols_c, group_c, n_valid, stream
+        "rpf_fused_psd_chirp_large_control": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # which (0 pass A, 1 pass A windowed, 2 pass B, 3 pass C), smem,
+        # device, attrs (int[6])
+        "rpf_fused_psd_chirp_large_control_attributes": [_I, _I, _I, _P],
     },
     "fused_psd_sk": {
         # raw, twiddle, window, partial, out, device, log2n, F, group,

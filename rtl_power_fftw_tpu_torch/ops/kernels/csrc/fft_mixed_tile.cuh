@@ -222,17 +222,19 @@ tile_power_kernel(const float2* __restrict__ src,
 }
 
 // Where a tile kernel's launch has more than the 48 KB default of dynamic
-// shared memory, opts it into kTileMaxSmem, once per device for each slot of
-// `done` (bit d for device d < 64; a device beyond that sets it every call).
+// shared memory, opts it into `max_smem` (kTileMaxSmem, less a kernel's
+// static shared bytes), once per device for each slot of `done` (bit d for
+// device d < 64; a device beyond that sets it every call).
 inline cudaError_t tile_opt_in(const void* kernel, int smem, int device,
-                               std::atomic<unsigned long long>& done) {
+                               std::atomic<unsigned long long>& done,
+                               int max_smem = kTileMaxSmem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
   if (bit != 0 && (done.load(std::memory_order_relaxed) & bit) != 0) {
     return cudaSuccess;
   }
   const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileMaxSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return e;

@@ -12,31 +12,56 @@
 // order.
 //
 // Form: a four-step FFT over device memory, N = N1 * N2 with both factors
-// 7-smooth (fused_psd_mixed_large.mixed_large_split: the divisor of N
-// nearest sqrt(N) with N1 <= 2048 and N2 <= 16384); sample n = n1 N2 + n2,
-// bin k = k1 + N1 k2.
-//  * Pass A (tile_cols_kernel of fft_mixed_tile.cuh): a block takes a tile
-//    of C columns n2 (fused_psd_mixed_large.tile_count) of its frames, each
-//    a length-N1 mixed-radix DFT by the run-time passes of fft_mixed.cuh in
-//    shared memory, the window applied at the dequantization, and writes
-//    Y[k1][n2] times the inter-stage twiddle W_N^(n2 k1) (the f32 rounding
-//    of a float64 product, fused_psd_mixed_large.inter_twiddle) to a
-//    complex f32 scratch, (F, N1, N2) row-major;
-//  * Pass B (tile_power_kernel): a block takes R rows k1 of its frames,
-//    each a length-N2 DFT by the same passes, |X|^2 summed over the frames
-//    in shared memory, then its bins k1 + N1 k2 of one partial row a block
-//    (k2's element by the plan's digit reversal, the host's
-//    element_of_bin);
-//  * psd_sum.cuh adds the partial rows in float64 in a fixed order.
+// 7-smooth and N2 even (fused_psd_mixed_large.ml_split: the divisor of
+// N / 2 nearest sqrt(N), so that a raw row of N2 samples is 4-byte
+// aligned); sample n = n1 N2 + n2, bin k = k1 + N1 k2. The plans are
+// run-time (N1 from 49 to 2025, N2 to 6250 over the 1192 N), each pass a
+// radix of fft_mixed.cuh (2, 3, 4, 5, 7, 8, 16; decimation in frequency)
+// by the pass table of fused_psd_mixed_ring.cuh (radix, stride, division
+// constant, twiddle offset, rounds), copied into shared memory once a
+// block: butterfly b's (block, n2) = divmod(b, S_j) by umulhi with the
+// division constant, every other index a shift or a product. Butterflies
+// run in registers (ring_dft), one block barrier a pass.
+//  * Pass A (ml_cols_kernel): a block takes a tile of C columns n2
+//    (fused_psd_mixed_large.cols_count: 16, 8 or 4, what two blocks an SM
+//    leave room for) of its frames. Thread tid is column tid mod C and
+//    thread tid / C of that column's butterflies, and the exchange holds
+//    element e of column c at x[e C + c], so a half-warp's reads and
+//    writes are C adjacent columns of 16 / C butterflies: on distinct
+//    banks at C = 16; at C = 8 and 4 up to 4-way where those
+//    butterflies' elements are not adjacent (a block boundary, the last
+//    pass's stride R). The next frame's tile (N1
+//    rows of 2C bytes) is copied into the other slot of a two-slot ring
+//    by cp.async at the frames' copy width (frame_ring.cuh: 4, 8 or 16
+//    bytes) while one is transformed; pass 0 reads its samples from the
+//    ring (u8 - 127 exactly, times the window). The last pass writes its
+//    outputs, bin k1 by the plan's element table, times W_N^(n2 k1) to
+//    scratch in tile-major order (value (k1, n2) at ((n2 / C) N1 + k1) C +
+//    n2 mod C, the twiddle table in the same order), C adjacent values a
+//    store.
+//  * Pass B (ml_rows_kernel<ACC>): a block is `lanes` rows k1 of tf
+//    threads (whole warps), each row's N2 values at a row of a ring slot;
+//    the next frame's rows (N2 / C runs of lanes * C values, whole lines)
+//    copied 16 bytes a thread by cp.async into the other slot while one is
+//    transformed in place; the last pass adds |X|^2 of its outputs to f32
+//    registers, the same elements of the same row in every frame (at most
+//    ACC a thread); at the end they go to shared memory and each bin k1 +
+//    N1 k2 of the block's rows to one partial row a block (or `out` where
+//    there is one row; 2..8 rows added by psd_rows_sum, more by
+//    psd_sum.cuh, in float64 in a fixed order).
 // Frames >= n_valid are neither transformed nor written, and their scratch
 // is never read. No float atomics: the result is the same on every run.
 //
 // What bounds it on an H100: the function reads 2N bytes a frame for about
 // 5 N log2 N FP32 flops; this two-pass form also writes and reads back 8N
 // bytes of scratch a frame (at 10^6, F = 8: 64 MB each way, ~38 us at
-// 3.35 TB/s), the floor of the form. This first form is plain: one frame
-// at a time, integer division in its loop indices, strided shared-memory
-// reads; its times are written down (PERF.md), not tuned.
+// 3.35 TB/s), the floor of the form.
+//
+// The control. PR 18's first form (tile_cols_kernel and tile_power_kernel
+// of fft_mixed_tile.cuh on mixed_large_split's N1 x N2: one frame at a
+// time, integer division in its loop indices) stays, launched by
+// rpf_fused_psd_mixed_large_control for chip_smoke.py to time the form
+// above against; it is never on a session's path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,9 +70,15 @@
 
 #include "device.cuh"
 #include "fft_mixed_tile.cuh"
+#include "frame_ring.cuh"
+#include "fused_psd_mixed.cuh"   // kMixedMaxSmem, read by the ring's header
+#include "fused_psd_mixed_ring.cuh"
+#include "psd_rows_sum.cuh"
 #include "psd_sum.cuh"
 
 namespace {
+
+// --- The control: PR 18's run-time tile passes ---
 
 using ColsKernel = void (*)(const uint8_t*, const float2*, const int*,
                             const float2*, const float*, const float2*,
@@ -68,12 +99,523 @@ const void* ml_kernel(int which) {
                       : reinterpret_cast<const void*>(tile_power_kernel);
 }
 
+
+// --- The division-free passes ---
+
+// Threads a block of pass A; the most of pass B.
+constexpr int kColsThreads = 256;
+constexpr int kRowsThreads = 256;
+// Dynamic shared bytes a block may have: the 227 KB less the static pass
+// table (at most 256 bytes).
+constexpr int kMlMaxSmem = kTileMaxSmem - 256;
+
+// A pass of radix R in place, butterflies b = t + i tf < nb (i < rounds)
+// of one transform whose element e is x[e * es]: (block, n2) = divmod(b, S)
+// by the division constant, the elements block R S + n2 + n1 S, outputs
+// times their twiddles (the pass's part of the table, row k1 S + n2).
+template <int R>
+__device__ __forceinline__ void ml_mid(float2* x, int es,
+                                       const float2* __restrict__ tw, int S,
+                                       unsigned magic, int nb, int rounds,
+                                       int t, int tf) {
+#pragma unroll 1
+  for (int i = 0; i < rounds; ++i) {
+    const int b = t + i * tf;
+    if (b < nb) {
+      const int block = static_cast<int>(__umulhi(static_cast<unsigned>(b),
+                                                  magic));
+      const int n2 = b - block * S;
+      const int base = block * R * S + n2;
+      float2 v[R];
+#pragma unroll
+      for (int n1 = 0; n1 < R; ++n1) v[n1] = x[(base + n1 * S) * es];
+      ring_dft<R>(v);
+#pragma unroll
+      for (int k1 = 0; k1 < R; ++k1) {
+        x[(base + k1 * S) * es] =
+            k1 == 0 ? v[0] : cmulf(v[k1], __ldg(tw + k1 * S + n2));
+      }
+    }
+  }
+}
+
+// Pass A's pass 0 on column c of the tile: butterflies b = t + i tf < S =
+// n1 / R over the samples b + m S of the ring slot (rows of 2C bytes),
+// dequantized [and windowed: window[(b + m S) N2 + n2], n2 the column's],
+// outputs k1 to element b + k1 S times W_n1^(b k1).
+template <int R, bool WINDOWED>
+__device__ __forceinline__ void ml_first(const uint8_t* slot, int row_bytes,
+                                         const float* __restrict__ window,
+                                         int n2_len, int n2,
+                                         const float2* __restrict__ tw,
+                                         float2* x, int es, int n1,
+                                         int rounds, int t, int tf, int c) {
+  const int S = n1 / R;
+  const uint8_t* col = slot + 2 * c;
+#pragma unroll 1
+  for (int i = 0; i < rounds; ++i) {
+    const int b = t + i * tf;
+    if (b < S) {
+      float2 v[R];
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int row = b + m * S;
+        v[m] = ring_sample<WINDOWED>(
+            reinterpret_cast<const uint16_t*>(col + row * row_bytes), 0,
+            WINDOWED ? __ldg(window + row * n2_len + n2) : 0.0f);
+      }
+      ring_dft<R>(v);
+#pragma unroll
+      for (int k1 = 0; k1 < R; ++k1) {
+        x[(b + k1 * S) * es] =
+            k1 == 0 ? v[0] : cmulf(v[k1], __ldg(tw + k1 * S + b));
+      }
+    }
+  }
+}
+
+// Pass A's last pass on column c: butterfly b = t + i tf < n1 / R takes the
+// elements b R + k; output k1 (element q = b R + k1, bin bin_of[q]) times
+// its twiddle to the tile's run of scratch at bin * C + c.
+template <int R>
+__device__ __forceinline__ void ml_last_store(
+    const float2* x, int es, const int* __restrict__ bin_of,
+    const float2* __restrict__ inter, float2* __restrict__ out, int n1,
+    int rounds, int t, int tf, int c) {
+  const int nb = n1 / R;
+#pragma unroll 1
+  for (int i = 0; i < rounds; ++i) {
+    const int b = t + i * tf;
+    if (b < nb) {
+      float2 v[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = x[(b * R + k) * es];
+      ring_dft<R>(v);
+#pragma unroll
+      for (int k1 = 0; k1 < R; ++k1) {
+        const int e = __ldg(bin_of + b * R + k1) * es + c;
+        out[e] = cmulf(v[k1], __ldg(inter + e));
+      }
+    }
+  }
+}
+
+// The plan ints (fused_psd_mixed.RingLaunch.ints) into p, checked: n up
+// to max_n, tf a multiple of 32 or (pass A) tf * lanes = kColsThreads, the
+// passes' strides, division constants, twiddle offsets and rounds what
+// they must be, at least two passes.
+inline bool read_ml_plan(const int* ints, int max_n, RingPlan* p) {
+  if (ints == nullptr) return false;
+  p->n = ints[0];
+  p->row = ints[1];
+  p->passes = ints[2];
+  p->tf = ints[3];
+  p->lanes = ints[4];
+  for (int j = 0; j < kMixedMaxPasses; ++j) {
+    p->radix[j] = ints[5 + j];
+    p->stride[j] = ints[5 + kMixedMaxPasses + j];
+    p->magic[j] = ints[5 + 2 * kMixedMaxPasses + j];
+    p->twoff[j] = ints[5 + 3 * kMixedMaxPasses + j];
+    p->rounds[j] = ints[5 + 4 * kMixedMaxPasses + j];
+  }
+  const int P = p->passes;
+  bool ok = P >= 2 && P <= kMixedMaxPasses && p->n >= 2 && p->n <= max_n &&
+            p->tf >= 1 && p->lanes >= 1 && p->tf * p->lanes <= kRowsThreads &&
+            (p->lanes & (p->lanes - 1)) == 0;
+  int L = p->n;
+  int offset = 0;
+  for (int j = 0; ok && j < P; ++j) {
+    const int r = p->radix[j];
+    bool known = false;
+    for (int m : kMixedRadices) known = known || r == m;
+    ok = known && L % r == 0 && p->stride[j] == L / r &&
+         p->twoff[j] == offset &&
+         p->rounds[j] == (p->n / r + p->tf - 1) / p->tf &&
+         static_cast<unsigned>(p->magic[j]) ==
+             (L / r == 1 ? 0u
+                         : static_cast<unsigned>(
+                               (0x100000000ull + L / r - 1) / (L / r)));
+    if (j < P - 1) offset += L;
+    L /= r;
+  }
+  return ok && L == 1;
+}
+
+// Pass A. Block b serves column tile j = b mod tiles (columns [c0, c0 +
+// C), c0 = j C, those below n2_len) of frames [g * group, min((g + 1) *
+// group, F, n_valid)), g = b / tiles. p: N1's plan with tf = kColsThreads
+// / C, lanes = C.
+template <bool WINDOWED>
+__global__ void __launch_bounds__(kColsThreads, 2)
+ml_cols_kernel(const uint8_t* __restrict__ raw,      // (F, 2N)
+               const float2* __restrict__ twiddle,   // plan_twiddles(N1)
+               const int* __restrict__ bin_of,       // (N1,) element -> bin
+               const float2* __restrict__ inter,     // (N1, N2p) tile-major
+               const float* __restrict__ window,     // (N,) or null
+               float2* __restrict__ scratch,         // (F, N1, N2p)
+               const RingPlan p, int log2c, int n2_len, int n2p, int width,
+               int F, int group, int n_valid) {
+  extern __shared__ float4 ml_smem[];
+  __shared__ int4 tab[kMixedMaxPasses];   // radix, stride, magic, twoff
+  __shared__ int tab_rounds[kMixedMaxPasses];
+  const int tid = threadIdx.x;
+  const int C = 1 << log2c;
+  const int c = tid & (C - 1);
+  const int t = tid >> log2c;
+  const int n1 = p.n, tf = p.tf, P = p.passes;
+#pragma unroll
+  for (int j = 0; j < kMixedMaxPasses; ++j) {
+    if (tid == j) {
+      tab[j] = make_int4(p.radix[j], p.stride[j], p.magic[j], p.twoff[j]);
+      tab_rounds[j] = p.rounds[j];
+    }
+  }
+  const int row_bytes = 2 * C;
+  const int slot_bytes = n1 * row_bytes;
+  float2* x = reinterpret_cast<float2*>(ml_smem);            // (N1, C)
+  uint8_t* ring = reinterpret_cast<uint8_t*>(ml_smem) + n1 * C * 8;
+  const int tiles = n2p >> log2c;
+  const int tile = blockIdx.x % tiles;
+  const int c0 = tile << log2c;
+  const int f0 = (blockIdx.x / tiles) * group;
+  const int frames = max(min(f0 + group, min(F, n_valid)) - f0, 0);
+  const bool active = c0 + c < n2_len;
+  const size_t frame_bytes = static_cast<size_t>(2) * n1 * n2_len;
+
+  // Frame i's tile into ring slot i & 1: each row's 2C bytes (those of
+  // columns below n2_len) in pieces of `width` = 1 << lw bytes.
+  const int lw = width == 16 ? 4 : width == 8 ? 3 : 2;
+  const int lp = log2c + 1 - lw;   // pieces a row: 1 << lp (2C >= width)
+  auto prefetch = [&](int i) {
+    if (i < frames) {
+      const uint8_t* src = raw + (f0 + i) * frame_bytes + 2 * c0;
+      uint8_t* dst = ring + (i & 1) * slot_bytes;
+      for (int q = tid; q < (n1 << lp); q += kColsThreads) {
+        const int row = q >> lp;
+        const int byte = (q - (row << lp)) << lw;
+        if (c0 + (byte >> 1) < n2_len) {
+          const uint8_t* from =
+              src + static_cast<size_t>(row) * 2 * n2_len + byte;
+          uint8_t* to = dst + row * row_bytes + byte;
+          if (width == 16) {
+            cp_async16(to, from);
+          } else if (width == 8) {
+            cp_async_ca<8>(to, from);
+          } else {
+            cp_async_ca<4>(to, from);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  prefetch(0);
+  for (int i = 0; i < frames; ++i) {
+    cp_async_wait<0>();   // this thread's copies of frame i have landed
+    __syncthreads();      // everyone's; frame i - 1 is done with x and
+                          // its slot (and the pass table is in place)
+    prefetch(i + 1);
+    const uint8_t* slot = ring + (i & 1) * slot_bytes;
+    if (active) {
+      with_radix(tab[0].x, [&](auto rc) {
+        ml_first<decltype(rc)::value, WINDOWED>(
+            slot, row_bytes, window, n2_len, c0 + c, twiddle, x + c, C, n1,
+            tab_rounds[0], t, tf, c);
+      });
+    }
+    for (int j = 1; j < P - 1; ++j) {
+      __syncthreads();
+      if (active) {
+        const int4 e = tab[j];
+        const int rounds = tab_rounds[j];
+        with_radix(e.x, [&](auto rc) {
+          constexpr int R = decltype(rc)::value;
+          ml_mid<R>(x + c, C, twiddle + e.w, e.y,
+                    static_cast<unsigned>(e.z), n1 / R, rounds, t, tf);
+        });
+      }
+    }
+    __syncthreads();
+    if (active) {
+      float2* out = scratch + static_cast<size_t>(f0 + i) * n1 * n2p +
+                    static_cast<size_t>(tile) * n1 * C;
+      with_radix(tab[P - 1].x, [&](auto rc) {
+        ml_last_store<decltype(rc)::value>(
+            x + c, C, bin_of, inter + static_cast<size_t>(tile) * n1 * C,
+            out, n1, tab_rounds[P - 1], t, tf, c);
+      });
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Pass B. Block b serves rows [k0, k0 + lanes) (those below n1_len), k0 =
+// (b mod tiles) * lanes, of frames [g * group, min((g + 1) * group, F,
+// n_valid)), g = b / tiles; lane r = tid / tf is row k0 + r. p: N2's plan.
+// Writes bins k1 + N1 k2 of the rows to row g of `rows`.
+template <int ACC>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+ml_rows_kernel(const float2* __restrict__ scratch,   // (F, N1, N2p)
+               const float2* __restrict__ twiddle,   // plan_twiddles(N2)
+               const int* __restrict__ order,        // (N2,) element of bin
+               float* __restrict__ rows,             // (ceil(F / group), row)
+               const RingPlan p, int n1_len, int log2c, int n2p, int F,
+               int group, int n_valid) {
+  extern __shared__ float4 ml_smem[];
+  __shared__ int4 tab[kMixedMaxPasses];   // radix, stride, magic, twoff
+  __shared__ int tab_rounds[kMixedMaxPasses];
+  const int n = p.n, tf = p.tf, P = p.passes, lanes = p.lanes;
+  const int tid = threadIdx.x;
+  const int r = tid / tf;
+  const int t = tid - r * tf;
+#pragma unroll
+  for (int j = 0; j < kMixedMaxPasses; ++j) {
+    if (tid == j) {
+      tab[j] = make_int4(p.radix[j], p.stride[j], p.magic[j], p.twoff[j]);
+      tab_rounds[j] = p.rounds[j];
+    }
+  }
+  const int C = 1 << log2c;
+  const int slot = lanes * n2p;                      // float2 a slot
+  float2* ring = reinterpret_cast<float2*>(ml_smem);
+  const int tiles = (n1_len + lanes - 1) / lanes;
+  const int k0 = (blockIdx.x % tiles) * lanes;
+  const int valid = min(lanes, n1_len - k0);
+  const int g = blockIdx.x / tiles;
+  const int f0 = g * group;
+  const int frames = max(min(f0 + group, min(F, n_valid)) - f0, 0);
+  const bool active = r < valid;
+
+  // Frame i's rows into slot i & 1: run h (columns [h C, h C + C)) of the
+  // frame's scratch holds rows k0 .. k0 + lanes - 1 as lanes * C adjacent
+  // values (row-major), copied 2 values (16 bytes) a piece to row r's
+  // columns; pieces of rows past n1_len are not copied.
+  const int ll = __ffs(lanes) - 1;             // lanes = 1 << ll
+  const int lr = ll + log2c - 1;               // pieces a run: 1 << lr
+  auto prefetch = [&](int i) {
+    if (i < frames) {
+      const float2* src = scratch +
+                          static_cast<size_t>(f0 + i) * n1_len * n2p +
+                          static_cast<size_t>(k0) * C;
+      float2* dst = ring + (i & 1) * slot;
+      const int pieces = (n2p >> log2c) << lr;
+      for (int q = tid; q < pieces; q += tf * lanes) {
+        const int h = q >> lr;
+        const int e = (q - (h << lr)) * 2;          // value in the run
+        const int rr = e >> log2c;
+        if (rr < valid) {
+          cp_async16(dst + rr * n2p + (h << log2c) + (e & (C - 1)),
+                     src + static_cast<size_t>(h) * n1_len * C + e);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[ACC];
+#pragma unroll
+  for (int k = 0; k < ACC; ++k) acc[k] = 0.0f;
+  prefetch(0);
+  for (int i = 0; i < frames; ++i) {
+    cp_async_wait<0>();   // this thread's copies of frame i have landed
+    __syncthreads();      // everyone's; frame i - 1 is done with its slot
+    prefetch(i + 1);
+    float2* x = ring + (i & 1) * slot + r * n2p;
+    for (int j = 0; j < P - 1; ++j) {
+      if (active) {
+        const int4 e = tab[j];
+        const int rounds = tab_rounds[j];
+        with_radix(e.x, [&](auto rc) {
+          constexpr int R = decltype(rc)::value;
+          ml_mid<R>(x, 1, twiddle + e.w, e.y, static_cast<unsigned>(e.z),
+                    n / R, rounds, t, tf);
+        });
+      }
+      __syncthreads();
+    }
+    if (active) {
+      with_radix(tab[P - 1].x, [&](auto rc) {
+        ring_last<decltype(rc)::value, ACC>(x, acc, n, t, tf);
+      });
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every lane is done with the ring
+
+  // The rows' sums at their elements, then bin k1 + N1 k2 of each row:
+  // lanes adjacent bins a step of k2.
+  float* by_elem = reinterpret_cast<float*>(ml_smem);   // (lanes, n)
+  if (active) {
+    with_radix(tab[P - 1].x, [&](auto rc) {
+      ring_gather<decltype(rc)::value, ACC>(by_elem + r * n, acc, n, t, tf);
+    });
+  }
+  __syncthreads();
+  float* out = rows + static_cast<size_t>(g) * p.row;
+  for (int j = tid; j < (n << ll); j += tf * lanes) {
+    const int k2 = j >> ll;
+    const int rr = j - (k2 << ll);
+    if (rr < valid) {
+      out[k0 + rr + k2 * n1_len] = by_elem[rr * n + __ldg(order + k2)];
+    }
+  }
+}
+
+// Shared bytes of pass A (exchange, then the ring's two slots) and pass B
+// (the ring's two slots).
+inline int ml_cols_smem(int n1, int log2c) {
+  return n1 * (8 << log2c) + 2 * n1 * (2 << log2c);
+}
+
+inline int ml_rows_smem(int lanes, int n2p) { return 2 * lanes * n2p * 8; }
+
+using MlCols = void (*)(const uint8_t*, const float2*, const int*,
+                        const float2*, const float*, float2*, const RingPlan,
+                        int, int, int, int, int, int, int);
+using MlRows = void (*)(const float2*, const float2*, const int*, float*,
+                        const RingPlan, int, int, int, int, int, int);
+
+// Pass A unwindowed (0), windowed (1), pass B with the small (2) and the
+// large (3) class of sums.
+const void* ml_new_kernel(int which) {
+  static const MlCols cols[2] = {ml_cols_kernel<false>,
+                                 ml_cols_kernel<true>};
+  static const MlRows rows[2] = {ml_rows_kernel<kRingAccSmall>,
+                                 ml_rows_kernel<kRingAccLarge>};
+  return which < 2 ? reinterpret_cast<const void*>(cols[which])
+                   : reinterpret_cast<const void*>(rows[which - 2]);
+}
+
+std::atomic<unsigned long long> ml_new_done[4];
+
+// The class of sums pass B takes for its plan: 2 (small) or 3 (large), or
+// -1 where a thread would hold more than the large class.
+int ml_rows_which(const RingPlan& p) {
+  const int acc = p.rounds[p.passes - 1] * p.radix[p.passes - 1];
+  return acc <= kRingAccSmall ? 2 : acc <= kRingAccLarge ? 3 : -1;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches pass A, pass B and the row sum on `stream`. raw: (F, 2N) u8,
-// 4-byte aligned; tw1, tw2: plan_twiddles of N1's and N2's plans, (rows,
+// Launches pass A, pass B and, for 2 or more partial rows, their sum on
+// `stream`. raw: (F, 2N) u8, `width`-byte aligned (4, 8 or 16, dividing
+// 2 N2: fused_psd_mixed_large.ml_copy_width); tw1, tw2: plan_twiddles of
+// N1's and N2's plans; bin1: (N1,) int32, the bin of each element of N1's
+// plan; inter: (N1, N2p) complex64, W_N^(k1 n2) in scratch's tile-major
+// order (0 at n2 >= N2); order2: (N2,) int32, element_of_bin of N2's plan;
+// window: (N,) f32, or null; scratch: (F, N1, N2p) complex64; partial:
+// (ceil(F / group_b), row) f32 (unused for one row); out: (row,) f32, of
+// which the first N are the bins; plan1, plan2: RingLaunch ints of N1's
+// plan (tf = 256 / C, lanes = C) and of N2's (tf, lanes = rows a block);
+// log2c: log2 C, pass A's columns a tile; n2p: N2 rounded up to C.
+// Returns a cudaError_t (0 on success); does not synchronise.
+int rpf_fused_psd_mixed_large(const void* raw, const void* tw1,
+                              const void* bin1, const void* inter,
+                              const void* window, const void* tw2,
+                              const void* order2, void* scratch,
+                              void* partial, void* out, const int* plan1,
+                              const int* plan2, int device, int log2c,
+                              int n2p, int width, int F, int group_a,
+                              int group_b, int n_valid, void* stream) {
+  RingPlan p1, p2;
+  if (!read_ml_plan(plan1, 2048, &p1) || !read_ml_plan(plan2, 16384, &p2) ||
+      log2c < 2 || log2c > 4 || p1.lanes != (1 << log2c) ||
+      p1.tf * p1.lanes != kColsThreads || p2.n % 2 != 0 ||
+      n2p % (1 << log2c) != 0 || n2p < p2.n || n2p - p2.n >= (1 << log2c) ||
+      F <= 0 || n_valid < 0 || n_valid > F || group_a <= 0 ||
+      group_b <= 0 || raw == nullptr || bin1 == nullptr ||
+      order2 == nullptr || inter == nullptr ||
+      (width != 4 && width != 8 && width != 16) || width > (2 << log2c) ||
+      (2 * p2.n) % width != 0 ||
+      reinterpret_cast<uintptr_t>(raw) % width != 0 ||
+      p2.row % kSumBins != 0 || p2.row < p1.n * p2.n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int which_b = ml_rows_which(p2);
+  const int smem_a = ml_cols_smem(p1.n, log2c);
+  const int smem_b = ml_rows_smem(p2.lanes, n2p);
+  if (which_b < 0 || smem_a > kMlMaxSmem || smem_b > kMlMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool windowed = window != nullptr;
+  cudaError_t e = use_device(device);
+  if (e == cudaSuccess) {
+    e = tile_opt_in(ml_new_kernel(windowed ? 1 : 0), smem_a, device,
+                    ml_new_done[windowed ? 1 : 0], kMlMaxSmem);
+  }
+  if (e == cudaSuccess) {
+    e = tile_opt_in(ml_new_kernel(which_b), smem_b, device,
+                    ml_new_done[which_b], kMlMaxSmem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles_a = n2p >> log2c;
+  const int tiles_b = (p1.n + p2.lanes - 1) / p2.lanes;
+  const int groups_b = (F + group_b - 1) / group_b;
+  const MlCols cols = windowed ? ml_cols_kernel<true> : ml_cols_kernel<false>;
+  cols<<<(F + group_a - 1) / group_a * tiles_a, kColsThreads, smem_a, st>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const float2*>(tw1),
+      static_cast<const int*>(bin1), static_cast<const float2*>(inter),
+      static_cast<const float*>(window), static_cast<float2*>(scratch), p1,
+      log2c, p2.n, n2p, width, F, group_a, n_valid);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  float* rows = static_cast<float*>(groups_b == 1 ? out : partial);
+  const MlRows pass_b = which_b == 2 ? ml_rows_kernel<kRingAccSmall>
+                                     : ml_rows_kernel<kRingAccLarge>;
+  pass_b<<<groups_b * tiles_b, p2.tf * p2.lanes, smem_b, st>>>(
+      static_cast<const float2*>(scratch), static_cast<const float2*>(tw2),
+      static_cast<const int*>(order2), rows, p2, p1.n, log2c, n2p, F,
+      group_b, n_valid);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || groups_b == 1) return static_cast<int>(e);
+  if (groups_b <= kSumLanes) {
+    const int n4 = p2.row / 4;
+    psd_rows_sum<<<(n4 + 255) / 256, 256, 0, st>>>(
+        static_cast<const float4*>(partial), groups_b, n4,
+        static_cast<float4*>(out));
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(launch_psd_sum(partial, groups_b, p2.row, out, st));
+}
+
+// What a pass gets with `smem` dynamic bytes and `threads` a block on
+// `device` (which: 0 pass A, 1 pass A windowed, 2 pass B with the small
+// class of sums, 3 with the large), into attrs[0..5]: registers and spill
+// bytes a thread, static and dynamic shared bytes a block, threads a
+// block, and the blocks that reside on one SM. Launches nothing.
+int rpf_fused_psd_mixed_large_attributes(int which, int smem, int threads,
+                                         int device, int* attrs) {
+  if (which < 0 || which > 3 || smem < 0 || smem > kMlMaxSmem ||
+      threads < 32 || threads > kRowsThreads || attrs == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* kernel = ml_new_kernel(which);
+  cudaError_t e = use_device(device);
+  if (e == cudaSuccess) {
+    e = tile_opt_in(kernel, smem, device, ml_new_done[which], kMlMaxSmem);
+  }
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess) {
+    attrs[0] = fa.numRegs;
+    attrs[1] = static_cast<int>(fa.localSizeBytes);
+    attrs[2] = static_cast<int>(fa.sharedSizeBytes);
+    attrs[3] = smem;
+    attrs[4] = threads;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&attrs[5], kernel,
+                                                      threads, smem);
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+
+// The control: PR 18's pass A, pass B and the row sum on `stream`, on
+// mixed_large_split's N1 x N2. raw: (F, 2N) u8, 4-byte aligned; tw1, tw2: plan_twiddles of N1's and N2's plans, (rows,
 // 2) f32; order1, order2: (N1,), (N2,) int32, element_of_bin of each plan;
 // inter: (N1, N2) complex64, W_N^(k1 n2); window: (N,) f32, or null;
 // scratch: (F, N) complex64; partial: (ceil(F / group_b), row) f32; out:
@@ -81,7 +623,7 @@ extern "C" {
 // plan1, plan2: the plans' ints (n, passes, radices). cols: columns a
 // pass-A tile; rows: rows a pass-B tile; xs1, xs2: the tiles' strides.
 // Returns a cudaError_t (0 on success); does not synchronise.
-int rpf_fused_psd_mixed_large(const void* raw, const void* tw1,
+int rpf_fused_psd_mixed_large_control(const void* raw, const void* tw1,
                               const void* order1, const void* inter,
                               const void* window, const void* tw2,
                               const void* order2, void* scratch,
@@ -134,12 +676,11 @@ int rpf_fused_psd_mixed_large(const void* raw, const void* tw1,
   return static_cast<int>(launch_psd_sum(partial, groups_b, row, out, st));
 }
 
-// What a pass gets with `smem` dynamic bytes on `device` (which: 0 pass A,
-// 1 pass A windowed, 2 pass B), into attrs[0..5]: registers and spill
-// bytes a thread, static and dynamic shared bytes a block, threads a
-// block, and the blocks that reside on one SM. Launches nothing.
-int rpf_fused_psd_mixed_large_attributes(int which, int smem, int device,
-                                         int* attrs) {
+// What a pass of the control gets with `smem` dynamic bytes on `device`
+// (which: 0 pass A, 1 pass A windowed, 2 pass B), into attrs[0..5], as
+// rpf_fused_psd_mixed_large_attributes. Launches nothing.
+int rpf_fused_psd_mixed_large_control_attributes(int which, int smem,
+                                                 int device, int* attrs) {
   if (which < 0 || which > 2 || smem < 0 || smem > kTileMaxSmem ||
       attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);

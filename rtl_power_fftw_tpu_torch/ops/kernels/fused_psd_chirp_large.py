@@ -31,16 +31,25 @@ n2, frequency k = k1 + M1·k2, output m = m2 + M2·m1:
   M2·m1 < N summed over frames into one partial row a block (the chirp
   a[m] has modulus 1 and is not applied); ``psd_sum.cuh`` adds the rows.
 
-Each transform is ``csrc/fft_mixed.cuh``'s run-time passes, the plans of
-:func:`.fused_psd_mixed.mixed_plan` (powers of two here), shared with the
-large mixed-radix kernel (``csrc/fft_mixed_tile.cuh``).
+Each transform is the large kernel's radix-16 register passes
+(``csrc/fused_psd_large_regs.cuh``), instantiated at compile time on
+log2 M: pass A its column passes with a chirp (only the rows below M1 / 2
+hold samples: :func:`chirp_regs_table`), pass B its row passes with both
+transforms and the turn between them in one block (:func:`spectrum_regs_
+table`), pass C its column passes with the |.|^2 sums in registers
+(:func:`chirp_regs_layout`); the scratch between them is the large
+kernel's batch-major order (:func:`.fused_psd_large.scratch_index` of M).
+PR 18's first form, the run-time tile passes of ``csrc/fft_mixed_tile.cuh``
+(:func:`chirp_large_layout`), stays as the control
+(:func:`fused_psd_chirp_large_control`), which only ``chip_smoke.py``
+launches.
 
 :func:`fused_psd_chirp_large` dispatches on the tensor's device: a CPU
 tensor goes to the plain PyTorch version (:func:`chirp_large_reference`,
 the same three passes in torch ops with the same tables); a CUDA tensor
 goes to the kernel, or raises. ``COUNTS.kernel_chirp_large`` and
 ``COUNTS.kernel_chirp_large_windowed`` (in :mod:`.fused_psd`) count its
-launches.
+launches; the control's count in ``fused_psd_mixed.CONTROL_COUNTS``.
 """
 
 from __future__ import annotations
@@ -55,8 +64,12 @@ import torch
 from .fused_psd import COUNTS, _on_cuda, check_alignment, check_args
 from .fused_psd_bluestein import (MAX_N as SMALL_MAX_N, bluestein_constants,
                                   chirp_size)
-from .fused_psd_large import _raw_stream, large_group, large_split
-from .fused_psd_mixed import SUM_BINS, _resident, launch_error, mixed_plan
+from .fused_psd import PASS_PLAN, pass_twiddles
+from .fused_psd_large import (_raw_stream, large_group, large_split,
+                              regs_inter_twiddle, regs_layout, thread_map)
+from .fused_psd_mixed import (CONTROL_COUNTS, SUM_BINS, _resident,
+                              copy_width, element_of_bin, launch_error,
+                              mixed_plan)
 from .fused_psd_mixed_large import (RAW_ALIGN, WINDOW_ALIGN,
                                     device_plan_tables, inter_twiddle,
                                     plan_ints, tile_attributes, tile_count,
@@ -178,9 +191,9 @@ def chirp_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
 
 
-def kernel_attributes(N: int, which: int,
-                      device: Optional[torch.device] = None) -> dict:
-    """What a pass of the kernel at N bins gets on the card (``which``:
+def control_attributes(N: int, which: int,
+                       device: Optional[torch.device] = None) -> dict:
+    """What a pass of the control at N bins gets on the card (``which``:
     :data:`PASS_A`, :data:`PASS_A_WINDOWED`, :data:`PASS_B` or
     :data:`PASS_C`): registers and spill bytes a thread, static and
     dynamic shared bytes and threads a block, and the blocks that reside
@@ -188,19 +201,19 @@ def kernel_attributes(N: int, which: int,
     t = chirp_large_layout(N)
     smem = t.smem[0 if which <= PASS_A_WINDOWED else which - 1]
     return tile_attributes("fused_psd_chirp_large",
-                           "rpf_fused_psd_chirp_large_attributes", which,
-                           smem, device)
+                           "rpf_fused_psd_chirp_large_control_attributes",
+                           which, smem, device)
 
 
 @functools.lru_cache(maxsize=64)
-def resident_blocks(N: int, which: int, index: int) -> int:
-    """Blocks of a pass at N bins that card ``index`` holds at once. Asked
-    of the card once per key."""
-    return _resident(kernel_attributes(N, which, torch.device("cuda", index)),
-                     index)
+def control_resident_blocks(N: int, which: int, index: int) -> int:
+    """Blocks of a pass of the control at N bins that card ``index``
+    holds at once. Asked of the card once per key."""
+    return _resident(control_attributes(N, which,
+                                        torch.device("cuda", index)), index)
 
 
-class _Plan(NamedTuple):
+class _ControlPlan(NamedTuple):
     lib: ctypes.CDLL
     layout: ChirpLargeLayout
     groups: Tuple[int, int, int]   # frames a block of passes A, B, C
@@ -210,13 +223,13 @@ class _Plan(NamedTuple):
     keep: tuple                    # order2, spectrum; their tensors
 
 
-_plans: dict = {}
+_control_plans: dict = {}
 
 
-def _plan(N: int, F: int, chunk: int, windowed: bool,
+def _control_plan(N: int, F: int, chunk: int, windowed: bool,
           device: torch.device) -> _Plan:
     key = (N, F, chunk, windowed, device.index)
-    plan = _plans.get(key)
+    plan = _control_plans.get(key)
     if plan is None:
         from . import _build
         t = chirp_large_layout(N)
@@ -227,13 +240,213 @@ def _plan(N: int, F: int, chunk: int, windowed: bool,
                 *device_plan_tables(t.plan2, device),
                 torch.from_numpy(spectrum_table(N)).to(device))
         groups = tuple(
-            large_group(F, tiles, resident_blocks(N, which, device.index))
+            large_group(F, tiles,
+                        control_resident_blocks(N, which, device.index))
             for tiles, which in zip(t.tiles, (
                 PASS_A_WINDOWED if windowed else PASS_A, PASS_B, PASS_C)))
-        plan = _plans[key] = _Plan(
+        plan = _control_plans[key] = _ControlPlan(
             _build.load("fused_psd_chirp_large"), t, groups,
             -(-F // groups[2]), (plan_ints(t.plan1), plan_ints(t.plan2)),
             tuple(k.data_ptr() for k in keep), keep)
+    return plan
+
+
+def fused_psd_chirp_large_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+                          window: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """PR 18's first form (the control), as :func:`fused_psd_chirp_large`;
+    its launches and plain calls count in ``CONTROL_COUNTS``."""
+    n_valid = int(n_valid)
+    check_args("fused_psd_chirp_large_control",
+               fused_psd_chirp_large_eligible, raw_u8, n_valid, chunk, window)
+    if not _on_cuda("fused_psd_chirp_large_control", raw_u8):
+        CONTROL_COUNTS.plain += 1
+        return chirp_large_reference(raw_u8, n_valid, chunk, window)
+    check_alignment("fused_psd_chirp_large_control", raw_u8, RAW_ALIGN,
+                    window, WINDOW_ALIGN)
+    F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
+    device = raw_u8.device
+    plan = _control_plan(N, F, chunk, window is not None, device)
+    t = plan.layout
+    stream = _raw_stream(device.index)
+    scratch, partial = workspace(("BL control", N, F, plan.rows, device.index,
+                                  stream), 2 * F * t.M1 * t.M2,
+                                 plan.rows * t.row, device)
+    out = torch.empty((t.row,), dtype=torch.float32, device=device)
+    tw1, order1, inter, chirp, tw2, order2, spectrum = plan.tables
+    err = plan.lib.rpf_fused_psd_chirp_large_control(
+        raw_u8.data_ptr(), tw1, order1, inter, chirp,
+        None if window is None else window.data_ptr(), tw2, order2,
+        spectrum, scratch, partial, out.data_ptr(),
+        ctypes.addressof(plan.ints[0]), ctypes.addressof(plan.ints[1]),
+        device.index, N, F, t.cols_a, t.xs1, plan.groups[0], t.rows_b,
+        t.xs2, plan.groups[1], t.cols_c, plan.groups[2], n_valid, stream)
+    if err != 0:
+        raise launch_error("fused_psd_chirp_large_control", plan.lib, err)
+    if window is None:
+        CONTROL_COUNTS.kernel_chirp_large += 1
+    else:
+        CONTROL_COUNTS.kernel_chirp_large_windowed += 1
+    return out[:N]
+
+
+# ---- The kernel: the register passes of fused_psd_large_regs.cuh. ----
+
+
+class ChirpRegsLayout(NamedTuple):
+    """The register passes' layout at N (``ChirpRegs<LOG2M>`` in the
+    source, over the large kernel's :func:`.fused_psd_large.regs_layout`
+    of M, ``regs``)."""
+    N: int
+    M: int
+    regs: dict
+
+    @property
+    def log2m(self) -> int:
+        return self.M.bit_length() - 1
+
+    @property
+    def rows_a(self) -> int:
+        """Rows of pass A's ring slot: n1 < M1 / 2 (N <= M / 2)."""
+        return self.regs["N1"] // 2
+
+    @property
+    def row(self) -> int:
+        """A partial row: N rounded up to SUM_BINS."""
+        return -(-self.N // SUM_BINS) * SUM_BINS
+
+    @property
+    def threads(self) -> Tuple[int, int, int]:
+        """Threads a block of passes A, B and C."""
+        r = self.regs
+        return r["threads_a"], r["threads_b"], r["threads_a"]
+
+    @property
+    def tiles(self) -> Tuple[int, int, int]:
+        """Tiles a frame of passes A, B and C (C: one batch a block)."""
+        r = self.regs
+        return r["tiles_a"], r["tiles_b"], r["N2"] // r["B"]
+
+    @property
+    def smem(self) -> Tuple[int, int, int]:
+        """Dynamic shared bytes a block of passes A, B and C: A's exchange
+        and a ring of two half slots; B's exchange rows (or, in the same
+        bytes, a frame's runs, whichever is larger), its ring and an
+        mbarrier; C's two exchanges."""
+        r = self.regs
+        xa = 8 * r["B"] * r["XS"]
+        xb = 8 * r["B2"] * r["XS2"]
+        slot_b = 8 * (r["N2"] // r["B"]) * r["GS"]
+        return (xa + 2 * self.rows_a * 2 * r["C"],
+                max(xb, slot_b) + slot_b + 8, 2 * xa)
+
+
+@functools.lru_cache(maxsize=64)
+def chirp_regs_layout(N: int) -> ChirpRegsLayout:
+    """The register passes' layout at N bins."""
+    if not fused_psd_chirp_large_eligible(N):
+        raise ValueError(f"fused_psd_chirp_large does not take N={N}")
+    M = chirp_size(N)
+    return ChirpRegsLayout(N, M, regs_layout(M))
+
+
+def chirp_regs_table(N: int) -> np.ndarray:
+    """(M / 2,) complex64: the chirp a[n] as pass A reads it, value k < 8
+    of thread tid of batch s of tile j at ((j SUBS + s) 8 + k) THREADS_A +
+    tid, n = (row_of(tid) + k TF1) M2 + j C + s B + col_of(tid); 0 where
+    n >= N."""
+    t = chirp_regs_layout(N)
+    r = t.regs
+    _, a, _ = bluestein_constants(N, t.M)
+    col, row = thread_map(t.M)
+    j = np.arange(r["tiles_a"])[:, None, None, None]
+    s = np.arange(r["subs"])[None, :, None, None]
+    k = np.arange(8)[None, None, :, None]
+    n = ((row[None, None, None, :] + k * r["TF1"]) * r["N2"] + j * r["C"]
+         + s * r["B"] + col[None, None, None, :])
+    padded = np.zeros(t.M, np.complex64)
+    padded[:N] = a
+    return padded[n].reshape(-1)
+
+
+def spectrum_regs_table(N: int) -> np.ndarray:
+    """(M1, M2) complex64: B[k1 + M1 k2] / M of row k1 at the element of
+    k2 after the forward row passes (``element_of_bin`` of M2's pass plan),
+    the order pass B's turn reads it in."""
+    t = chirp_regs_layout(N)
+    m2 = t.regs["N2"]
+    natural = spectrum_table(N)
+    out = np.empty_like(natural)
+    out[:, element_of_bin(PASS_PLAN[m2], np.arange(m2))] = natural
+    return out
+
+
+def kernel_attributes(N: int, which: int,
+                      device: Optional[torch.device] = None) -> dict:
+    """What a register pass at N bins gets on the card (``which``:
+    :data:`PASS_A`, :data:`PASS_A_WINDOWED`, :data:`PASS_B` or
+    :data:`PASS_C`): registers and spill bytes a thread, static and
+    dynamic shared bytes and threads a block, and the blocks that reside
+    on one SM. Launches nothing."""
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    from . import _build
+    lib = _build.load("fused_psd_chirp_large")
+    attrs = (ctypes.c_int * 6)()
+    err = lib.rpf_fused_psd_chirp_large_attributes(
+        chirp_regs_layout(N).log2m, which, device.index or 0, attrs)
+    if err != 0:
+        raise launch_error(f"fused_psd_chirp_large attributes of pass "
+                           f"{which}", lib, err)
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+
+
+@functools.lru_cache(maxsize=64)
+def resident_blocks(N: int, which: int, index: int) -> int:
+    """Blocks of a register pass at N bins that card ``index`` holds at
+    once. Asked of the card once per key."""
+    return _resident(kernel_attributes(N, which, torch.device("cuda", index)),
+                     index)
+
+
+def regs_grid(F: int, N: int, resident: Tuple[int, int, int]
+              ) -> Tuple[int, int, int]:
+    """Frames a block of passes A, B and C over F frames at N, from the
+    blocks of each pass the card holds at once (:func:`.fused_psd_large.
+    large_group`); pass C's sets the partial rows, ceil(F / group)."""
+    return tuple(large_group(F, tiles, res) for tiles, res in
+                 zip(chirp_regs_layout(N).tiles, resident))
+
+
+class _Plan(NamedTuple):
+    lib: ctypes.CDLL
+    layout: ChirpRegsLayout
+    groups: Tuple[int, int, int]   # frames a block of passes A, B, C
+    rows: int                      # partial rows
+    tables: Tuple[int, ...]        # twiddle, inter, chirp, spectrum
+    keep: tuple                    # their tensors
+
+
+_plans: dict = {}
+
+
+def _plan(N: int, F: int, windowed: bool, device: torch.device) -> _Plan:
+    key = (N, F, windowed, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        from . import _build
+        t = chirp_regs_layout(N)
+        m1, m2 = t.regs["N1"], t.regs["N2"]
+        keep = tuple(torch.from_numpy(x).to(device) for x in (
+            np.concatenate([pass_twiddles(m1), pass_twiddles(m2)]),
+            regs_inter_twiddle(t.M), chirp_regs_table(N),
+            spectrum_regs_table(N)))
+        groups = regs_grid(F, N, tuple(
+            resident_blocks(N, which, device.index) for which in (
+                PASS_A_WINDOWED if windowed else PASS_A, PASS_B, PASS_C)))
+        plan = _plans[key] = _Plan(
+            _build.load("fused_psd_chirp_large"), t, groups,
+            -(-F // groups[2]), tuple(k.data_ptr() for k in keep), keep)
     return plan
 
 
@@ -257,21 +470,20 @@ def fused_psd_chirp_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                     WINDOW_ALIGN)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
     device = raw_u8.device
-    plan = _plan(N, F, chunk, window is not None, device)
+    plan = _plan(N, F, window is not None, device)
     t = plan.layout
     stream = _raw_stream(device.index)
     scratch, partial = workspace(("BL", N, F, plan.rows, device.index,
-                                  stream), 2 * F * t.M1 * t.M2,
-                                 plan.rows * t.row, device)
+                                  stream), 2 * F * t.M,
+                                 plan.rows * t.row if plan.rows > 1 else 0,
+                                 device)
     out = torch.empty((t.row,), dtype=torch.float32, device=device)
-    tw1, order1, inter, chirp, tw2, order2, spectrum = plan.tables
+    twiddle, inter, chirp, spectrum = plan.tables
     err = plan.lib.rpf_fused_psd_chirp_large(
-        raw_u8.data_ptr(), tw1, order1, inter, chirp,
-        None if window is None else window.data_ptr(), tw2, order2,
-        spectrum, scratch, partial, out.data_ptr(),
-        ctypes.addressof(plan.ints[0]), ctypes.addressof(plan.ints[1]),
-        device.index, N, F, t.cols_a, t.xs1, plan.groups[0], t.rows_b,
-        t.xs2, plan.groups[1], t.cols_c, plan.groups[2], n_valid, stream)
+        raw_u8.data_ptr(), twiddle, inter,
+        None if window is None else window.data_ptr(), chirp, spectrum,
+        scratch, partial, out.data_ptr(), device.index, t.log2m, N,
+        copy_width(N, raw_u8.data_ptr()), F, *plan.groups, n_valid, stream)
     if err != 0:
         raise launch_error("fused_psd_chirp_large", plan.lib, err)
     if window is None:

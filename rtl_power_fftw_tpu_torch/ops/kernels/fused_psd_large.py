@@ -155,6 +155,18 @@ def scratch_index(N: int, k1, n2):
     return ((n2 // b) * t["N1"] + k1) * b + n2 % b
 
 
+def thread_map(N: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pass A's thread map at N (``col_of``/``row_of`` in the source):
+    the batch column and the column-thread of each of its threads. A
+    half-warp is V adjacent columns of 16 / V adjacent threads."""
+    t = regs_layout(N)
+    v, b = t["V"], t["B"]
+    tid = np.arange(t["threads_a"])
+    col = tid % v + v * ((tid >> 4) % (b // v))
+    row = (tid // v) % (16 // v) + (16 // v) * ((tid >> 4) // (b // v))
+    return col, row
+
+
 def large_group(F: int, tiles: int, resident: int) -> int:
     """Frames a block of a register pass takes over F frames when the pass
     has ``tiles`` tiles a frame and the card holds ``resident`` of its

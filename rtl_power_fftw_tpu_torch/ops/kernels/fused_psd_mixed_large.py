@@ -26,20 +26,31 @@ bin k = k1 + N1·k2:
    :func:`.fused_psd_mixed.element_of_bin`), the rows added in float64 by
    ``psd_sum.cuh``.
 
-The helpers of the tile layout (:func:`tile_stride`, :func:`tile_count`,
-:func:`tile_ints`, :func:`inter_twiddle`) serve the chirp-Z kernel of
-:mod:`.fused_psd_chirp_large` too, whose library shares the passes
-(``csrc/fft_mixed_tile.cuh``).
+The kernel (``ml_cols_kernel``, ``ml_rows_kernel``) runs on its own split
+(:func:`ml_split`: N2 even, so that a raw row is 4-byte aligned) by
+run-time plans without division in its loops (the pass table and division
+constants of :class:`.fused_psd_mixed.RingLaunch`), butterflies in
+registers, the next frame in flight in both passes and pass B's sums in
+registers (:func:`ml_layout`); its scratch is tile-major
+(:func:`ml_scratch_index`). PR 18's first form, the run-time tile passes of
+``csrc/fft_mixed_tile.cuh`` on :func:`mixed_large_split`
+(:func:`mixed_large_layout`), stays as the control
+(:func:`fused_psd_mixed_large_control`), which only ``chip_smoke.py``
+launches. The helpers of the tile layout (:func:`tile_stride`,
+:func:`tile_count`, :func:`tile_ints`, :func:`inter_twiddle`) serve the
+control of :mod:`.fused_psd_chirp_large` too, whose library shares the
+tile passes.
 
 :func:`fused_psd_mixed_large` dispatches on the tensor's device: a CPU
 tensor goes to the plain PyTorch version
 (:func:`fused_psd_mixed_large_reference`, the same four steps in torch ops
 with the same twiddle table); a CUDA tensor goes to the kernel, or raises.
 ``COUNTS.kernel_mixed_large`` and ``COUNTS.kernel_mixed_large_windowed``
-(in :mod:`.fused_psd`) count its launches. The grid, the tables and their
-pointers are cached per (N, F, chunk, windowed, device), the scratch and
-partial rows per (N, F, rows, device, stream), so a call allocates only
-its output.
+(in :mod:`.fused_psd`) count its launches, the control's
+``fused_psd_mixed.CONTROL_COUNTS``. The grid, the tables and their
+pointers are cached per (N, F, windowed, device), the scratch and partial
+rows per (N, F, rows, device, stream), so a call allocates only its
+output.
 """
 
 from __future__ import annotations
@@ -54,7 +65,8 @@ import torch
 
 from .fused_psd import COUNTS, _on_cuda, check_alignment, check_args
 from .fused_psd_large import _raw_stream, large_group
-from .fused_psd_mixed import (MAX_N as MIXED_MAX_N, MAX_PASSES, SUM_BINS,
+from .fused_psd_mixed import (CONTROL_COUNTS, MAX_N as MIXED_MAX_N,
+                              MAX_PASSES, RING_ACC, SUM_BINS, RingLaunch,
                               _resident, element_of_bin, launch_error,
                               mixed_plan, pad_index, plan_twiddles, smooth7)
 
@@ -265,28 +277,30 @@ def tile_attributes(library: str, entry: str, which: int, smem: int,
                      "dynamic_smem", "threads", "blocks_per_sm"), attrs))
 
 
-def kernel_attributes(N: int, which: int,
-                      device: Optional[torch.device] = None) -> dict:
-    """What a pass of the kernel at N bins gets on the card (``which``:
+def control_attributes(N: int, which: int,
+                       device: Optional[torch.device] = None) -> dict:
+    """What a pass of the control at N bins gets on the card (``which``:
     :data:`PASS_A`, :data:`PASS_A_WINDOWED` or :data:`PASS_B`)."""
     t = mixed_large_layout(N)
     return tile_attributes("fused_psd_mixed_large",
-                           "rpf_fused_psd_mixed_large_attributes", which,
-                           t.smem_b if which == PASS_B else t.smem_a, device)
+                           "rpf_fused_psd_mixed_large_control_attributes",
+                           which, t.smem_b if which == PASS_B else t.smem_a,
+                           device)
 
 
 @functools.lru_cache(maxsize=64)
-def resident_blocks(N: int, which: int, index: int) -> int:
-    """Blocks of a pass at N bins that card ``index`` holds at once: its
-    SMs times the blocks one SM holds. Asked of the card once per key."""
-    return _resident(kernel_attributes(N, which, torch.device("cuda", index)),
-                     index)
+def control_resident_blocks(N: int, which: int, index: int) -> int:
+    """Blocks of a pass of the control at N bins that card ``index`` holds
+    at once: its SMs times the blocks one SM holds. Asked of the card once
+    per key."""
+    return _resident(control_attributes(N, which,
+                                        torch.device("cuda", index)), index)
 
 
-class _Plan(NamedTuple):
-    """A call's launch beyond its arguments, cached per (N, F, chunk,
-    windowed, device): the library, the grid, the plans' ints and the
-    tables (kept alive here) with their pointers."""
+class _ControlPlan(NamedTuple):
+    """A control call's launch beyond its arguments, cached per (N, F,
+    chunk, windowed, device): the library, the grid, the plans' ints and
+    the tables (kept alive here) with their pointers."""
     lib: ctypes.CDLL
     layout: MixedLargeLayout
     group_a: int
@@ -297,7 +311,7 @@ class _Plan(NamedTuple):
     keep: tuple
 
 
-_plans: dict = {}
+_control_plans: dict = {}
 #: Scratch and partial rows by (N, F, rows, device, stream), the newest
 #: few: the kernel is stream-ordered, so a later call on the same stream
 #: may reuse them.
@@ -319,21 +333,21 @@ def plan_ints(plan) -> ctypes.Array:
     return (ctypes.c_int * len(ints))(*ints)
 
 
-def _plan(N: int, F: int, chunk: int, windowed: bool,
+def _control_plan(N: int, F: int, chunk: int, windowed: bool,
           device: torch.device) -> _Plan:
     key = (N, F, chunk, windowed, device.index)
-    plan = _plans.get(key)
+    plan = _control_plans.get(key)
     if plan is None:
         from . import _build
         t = mixed_large_layout(N)
         keep = (*device_plan_tables(t.plan1, device),
                 torch.from_numpy(inter_twiddle(N, t.N1, t.N2)).to(device),
                 *device_plan_tables(t.plan2, device))
-        group_a = large_group(F, t.tiles_a, resident_blocks(
+        group_a = large_group(F, t.tiles_a, control_resident_blocks(
             N, PASS_A_WINDOWED if windowed else PASS_A, device.index))
-        group_b = large_group(F, t.tiles_b,
-                              resident_blocks(N, PASS_B, device.index))
-        plan = _plans[key] = _Plan(
+        group_b = large_group(F, t.tiles_b, control_resident_blocks(
+            N, PASS_B, device.index))
+        plan = _control_plans[key] = _ControlPlan(
             _build.load("fused_psd_mixed_large"), t, group_a, group_b,
             -(-F // group_b), (plan_ints(t.plan1), plan_ints(t.plan2)),
             tuple(k.data_ptr() for k in keep), keep)
@@ -358,6 +372,293 @@ def workspace(key: tuple, scratch_floats: int, partial_floats: int,
     return ptr, ptr + 4 * scratch_floats
 
 
+def fused_psd_mixed_large_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+                          window: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """PR 18's first form (the control), as :func:`fused_psd_mixed_large`;
+    its launches and plain calls count in ``CONTROL_COUNTS``."""
+    n_valid = int(n_valid)
+    check_args("fused_psd_mixed_large_control",
+               fused_psd_mixed_large_eligible, raw_u8, n_valid, chunk, window)
+    if not _on_cuda("fused_psd_mixed_large_control", raw_u8):
+        CONTROL_COUNTS.plain += 1
+        return fused_psd_mixed_large_reference(raw_u8, n_valid, chunk,
+                                               window)
+    check_alignment("fused_psd_mixed_large_control", raw_u8, RAW_ALIGN,
+                    window, WINDOW_ALIGN)
+    F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
+    device = raw_u8.device
+    plan = _control_plan(N, F, chunk, window is not None, device)
+    t = plan.layout
+    stream = _raw_stream(device.index)
+    scratch, partial = workspace(("ML control", N, F, plan.rows, device.index,
+                                  stream), 2 * F * N, plan.rows * t.row,
+                                 device)
+    out = torch.empty((t.row,), dtype=torch.float32, device=device)
+    tw1, order1, inter, tw2, order2 = plan.tables
+    err = plan.lib.rpf_fused_psd_mixed_large_control(
+        raw_u8.data_ptr(), tw1, order1, inter,
+        None if window is None else window.data_ptr(), tw2, order2, scratch,
+        partial, out.data_ptr(), ctypes.addressof(plan.ints[0]),
+        ctypes.addressof(plan.ints[1]), device.index, F, t.cols, t.xs1,
+        plan.group_a, t.rows, t.xs2, plan.group_b, n_valid, stream)
+    if err != 0:
+        raise launch_error("fused_psd_mixed_large_control", plan.lib, err)
+    if window is None:
+        CONTROL_COUNTS.kernel_mixed_large += 1
+    else:
+        CONTROL_COUNTS.kernel_mixed_large_windowed += 1
+    return out[:N]
+
+
+# ---- The kernel: the division-free passes of fused_psd_mixed_large.cu. ----
+
+#: Threads a block of pass A; the most of pass B (kColsThreads,
+#: kRowsThreads).
+COLS_THREADS = 256
+ROWS_THREADS = 256
+#: Pass A's columns a tile, largest first: the first whose exchange
+#: (8 C N1 bytes) and two ring slots (4 C N1) fit TILE_SMEM.
+COLS = (16, 8, 4)
+#: The passes ml_attributes asks of: pass B with the small and the large
+#: class of sums (PASS_A and PASS_A_WINDOWED as the control's).
+PASS_B_SMALL, PASS_B_LARGE = 2, 3
+
+
+@functools.lru_cache(maxsize=256)
+def ml_split(N: int) -> Tuple[int, int]:
+    """(N1, N2) of the kernel: N1 the divisor of N / 2 nearest sqrt(N) (the
+    smaller on a tie) with N1 <= MAX_N1 and N2 = N / N1 <= MAX_N2, so that
+    N2 is even and a raw row of N2 samples 4-byte aligned: 125 x 160 at
+    20000, 192 x 256 at 49152, 250 x 400 at 100000, 1000 x 1000 at 10^6;
+    where N's nearest divisor gives an odd N2 the two swap (147 x 112 at
+    16464). Over every eligible N, 49 <= N1 <= 2025 and N2 <= 6250."""
+    root = N ** 0.5
+    best = None
+    for d in range(max(2, -(-N // MAX_N2)), min(MAX_N1, N // 2) + 1):
+        if (N // 2) % d == 0 and (best is None
+                                  or abs(d - root) < abs(best - root)):
+            best = d
+    if best is None:
+        raise ValueError(f"no split of N={N} with N2 even")
+    return best, N // best
+
+
+def cols_count(n1: int) -> int:
+    """Pass A's columns a tile at N1: :data:`COLS`' first whose exchange
+    and ring fit TILE_SMEM (two blocks an SM)."""
+    for c in COLS:
+        if 12 * c * n1 <= TILE_SMEM:
+            return c
+    raise ValueError(f"no column tile of length {n1}")
+
+
+def rows_shape(n2: int, plan) -> Tuple[int, int]:
+    """Pass B's (tf, lanes) at N2 = n2: lanes, the rows a block, the
+    largest power of two up to 8 whose two slots of N2p float2 rows fit
+    TILE_SMEM (N2p: N2 rounded up to pass A's C, at most 16 more); tf, the
+    threads a row, ROWS_THREADS / lanes, so that a block is 256 threads,
+    doubled (and lanes halved) while a thread would hold more than
+    RING_ACC[-1] last-pass sums."""
+    lanes = 8
+    while lanes > 1 and 16 * lanes * (n2 + 16) > TILE_SMEM:
+        lanes //= 2
+    tf = ROWS_THREADS // lanes
+    while -(-(n2 // plan[-1]) // tf) * plan[-1] > RING_ACC[-1]:
+        if lanes == 1:
+            raise ValueError(f"no row shape for plan {tuple(plan)}")
+        tf, lanes = 2 * tf, lanes // 2
+    return tf, lanes
+
+
+class MlLayout(NamedTuple):
+    """The kernel's layout at N."""
+    N: int
+    N1: int
+    N2: int
+    plan1: tuple    # N1's mixed-radix plan
+    plan2: tuple    # N2's
+    cols: int       # pass A's columns a tile, C
+    tf: int         # pass B's threads a row
+    lanes: int      # pass B's rows a block, a power of two
+
+    @property
+    def log2c(self) -> int:
+        return self.cols.bit_length() - 1
+
+    @property
+    def n2p(self) -> int:
+        """N2 rounded up to C: a scratch row, and a row of pass B's slot."""
+        return -(-self.N2 // self.cols) * self.cols
+
+    @property
+    def row(self) -> int:
+        """A partial row: N rounded up to SUM_BINS."""
+        return -(-self.N // SUM_BINS) * SUM_BINS
+
+    @property
+    def tiles(self) -> Tuple[int, int]:
+        """Tiles a frame of pass A (C columns) and pass B (lanes rows)."""
+        return self.n2p // self.cols, -(-self.N1 // self.lanes)
+
+    @property
+    def threads(self) -> Tuple[int, int]:
+        return COLS_THREADS, self.tf * self.lanes
+
+    @property
+    def smem(self) -> Tuple[int, int]:
+        """Dynamic shared bytes of a block of pass A (the exchange, N1 C
+        float2, then two ring slots of N1 rows of 2C bytes) and of pass B
+        (two slots of lanes rows of N2p float2)."""
+        return (12 * self.cols * self.N1, 16 * self.lanes * self.n2p)
+
+    def launches(self) -> Tuple[RingLaunch, RingLaunch]:
+        """The plans as the kernel reads them: N1's with tf = 256 / C and
+        lanes = C (column c is thread tid mod C), N2's with tf and lanes."""
+        return (RingLaunch(self.N1, self.row, self.plan1,
+                           COLS_THREADS // self.cols, self.cols),
+                RingLaunch(self.N2, self.row, self.plan2, self.tf,
+                           self.lanes))
+
+    @property
+    def acc(self) -> int:
+        """Pass B's last-pass sums a thread holds."""
+        return self.launches()[1].acc
+
+    @property
+    def which_b(self) -> int:
+        """Pass B's kernel: :data:`PASS_B_SMALL` or :data:`PASS_B_LARGE`."""
+        return PASS_B_SMALL if self.acc <= RING_ACC[0] else PASS_B_LARGE
+
+
+@functools.lru_cache(maxsize=64)
+def ml_layout(N: int) -> MlLayout:
+    """The kernel's layout at N bins (:func:`ml_split`, :func:`cols_count`,
+    :func:`rows_shape`)."""
+    if not fused_psd_mixed_large_eligible(N):
+        raise ValueError(f"fused_psd_mixed_large does not take N={N}")
+    n1, n2 = ml_split(N)
+    plan2 = mixed_plan(n2)
+    t = MlLayout(N, n1, n2, mixed_plan(n1), plan2, cols_count(n1),
+                 *rows_shape(n2, plan2))
+    if max(t.smem) > MAX_SMEM:
+        raise ValueError(f"N={N} takes {t.smem} bytes of shared memory")
+    return t
+
+
+def ml_scratch_index(N: int, k1, n2):
+    """Where the kernel keeps value (k1, n2) of a frame in scratch:
+    tile-major, ((n2 / C) N1 + k1) C + n2 mod C, so that pass A's tile is
+    one run and pass B's rows of a tile are runs of lanes * C values."""
+    t = ml_layout(N)
+    c = t.cols
+    return ((np.asarray(n2) // c) * t.N1 + np.asarray(k1)) * c + \
+        np.asarray(n2) % c
+
+
+def ml_inter_twiddle(N: int) -> np.ndarray:
+    """(N1 N2p,) complex64: W_N^(k1 n2) (:func:`inter_twiddle` of the
+    kernel's split) in scratch's tile-major order, 0 at n2 >= N2."""
+    t = ml_layout(N)
+    out = np.zeros(t.N1 * t.n2p, np.complex64)
+    out[ml_scratch_index(N, np.arange(t.N1)[:, None],
+                         np.arange(t.N2)[None, :])] = inter_twiddle(
+        N, t.N1, t.N2)
+    return out
+
+
+def bin_of_element(plan) -> np.ndarray:
+    """(n,) int32: the bin each element of the forward transform holds
+    (the inverse of :func:`.fused_psd_mixed.element_of_bin`)."""
+    n = int(np.prod(plan))
+    out = np.empty(n, np.int32)
+    out[element_of_bin(plan, np.arange(n))] = np.arange(n)
+    return out
+
+
+def ml_copy_width(N: int, ptr: int) -> int:
+    """Pass A's copy width for frames at device address ``ptr``: 16, 8 or
+    4 bytes, the largest that divides 2 N2 (so a raw row's tile, and 2N)
+    and the pointer and is at most a tile row's 2C bytes."""
+    t = ml_layout(N)
+    for width in (16, 8, 4):
+        if ((2 * t.N2) % width == 0 and ptr % width == 0
+                and width <= 2 * t.cols):
+            return width
+    raise ValueError(f"frames at {ptr:#x} are not 4-byte aligned")
+
+
+def kernel_attributes(N: int, which: int,
+                      device: Optional[torch.device] = None) -> dict:
+    """What a pass of the kernel at N bins gets on the card (``which``:
+    :data:`PASS_A`, :data:`PASS_A_WINDOWED` or :data:`PASS_B`, which asks
+    of the class of sums N's plan takes): registers and spill bytes a
+    thread, static and dynamic shared bytes and threads a block, and the
+    blocks that reside on one SM. Launches nothing."""
+    t = ml_layout(N)
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    from . import _build
+    lib = _build.load("fused_psd_mixed_large")
+    attrs = (ctypes.c_int * 6)()
+    b = which == PASS_B
+    err = lib.rpf_fused_psd_mixed_large_attributes(
+        t.which_b if b else which, t.smem[1] if b else t.smem[0],
+        t.threads[1] if b else t.threads[0], device.index or 0, attrs)
+    if err != 0:
+        raise launch_error(f"fused_psd_mixed_large attributes of pass "
+                           f"{which}", lib, err)
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+
+
+@functools.lru_cache(maxsize=64)
+def resident_blocks(N: int, which: int, index: int) -> int:
+    """Blocks of a pass at N bins that card ``index`` holds at once: its
+    SMs times the blocks one SM holds. Asked of the card once per key."""
+    return _resident(kernel_attributes(N, which, torch.device("cuda", index)),
+                     index)
+
+
+class _Plan(NamedTuple):
+    """A call's launch beyond its arguments, cached per (N, F, windowed,
+    device): the library, the grid, the plans' ints and the tables (kept
+    alive here) with their pointers."""
+    lib: ctypes.CDLL
+    layout: MlLayout
+    group_a: int
+    group_b: int
+    rows: int                   # partial rows
+    ints: Tuple[ctypes.Array, ctypes.Array]
+    tables: Tuple[int, ...]     # tw1, bin1, inter, tw2, order2
+    keep: tuple
+
+
+_plans: dict = {}
+
+
+def _plan(N: int, F: int, windowed: bool, device: torch.device) -> _Plan:
+    key = (N, F, windowed, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        from . import _build
+        t = ml_layout(N)
+        keep = tuple(torch.from_numpy(x).to(device) for x in (
+            plan_twiddles(t.plan1), bin_of_element(t.plan1),
+            ml_inter_twiddle(N), plan_twiddles(t.plan2),
+            element_of_bin(t.plan2, np.arange(t.N2)).astype(np.int32)))
+        tiles_a, tiles_b = t.tiles
+        group_a = large_group(F, tiles_a, resident_blocks(
+            N, PASS_A_WINDOWED if windowed else PASS_A, device.index))
+        group_b = large_group(F, tiles_b,
+                              resident_blocks(N, PASS_B, device.index))
+        ints = tuple((ctypes.c_int * len(x))(*x)
+                     for x in (la.ints() for la in t.launches()))
+        plan = _plans[key] = _Plan(
+            _build.load("fused_psd_mixed_large"), t, group_a, group_b,
+            -(-F // group_b), ints, tuple(k.data_ptr() for k in keep), keep)
+    return plan
+
+
 def fused_psd_mixed_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                           window: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
@@ -379,20 +680,22 @@ def fused_psd_mixed_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                     WINDOW_ALIGN)
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
     device = raw_u8.device
-    plan = _plan(N, F, chunk, window is not None, device)
+    plan = _plan(N, F, window is not None, device)
     t = plan.layout
     stream = _raw_stream(device.index)
     scratch, partial = workspace(("ML", N, F, plan.rows, device.index,
-                                  stream), 2 * F * N, plan.rows * t.row,
+                                  stream), 2 * F * t.N1 * t.n2p,
+                                 plan.rows * t.row if plan.rows > 1 else 0,
                                  device)
     out = torch.empty((t.row,), dtype=torch.float32, device=device)
-    tw1, order1, inter, tw2, order2 = plan.tables
+    tw1, bin1, inter, tw2, order2 = plan.tables
     err = plan.lib.rpf_fused_psd_mixed_large(
-        raw_u8.data_ptr(), tw1, order1, inter,
+        raw_u8.data_ptr(), tw1, bin1, inter,
         None if window is None else window.data_ptr(), tw2, order2, scratch,
         partial, out.data_ptr(), ctypes.addressof(plan.ints[0]),
-        ctypes.addressof(plan.ints[1]), device.index, F, t.cols, t.xs1,
-        plan.group_a, t.rows, t.xs2, plan.group_b, n_valid, stream)
+        ctypes.addressof(plan.ints[1]), device.index, t.log2c, t.n2p,
+        ml_copy_width(N, raw_u8.data_ptr()), F, plan.group_a, plan.group_b,
+        n_valid, stream)
     if err != 0:
         raise launch_error("fused_psd_mixed_large", plan.lib, err)
     if window is None:

@@ -2,9 +2,12 @@
 
 K1, K2 and K4's ``fused_psd``, K3's ``fused_psd_fast``, the large-N
 ``fused_psd_large``, the probes' ``fused_psd_probe``, the awkward-N
-``fused_psd_mixed`` (whose earlier kernels are the control) and the
+``fused_psd_mixed`` (whose earlier kernels are the control), the
 estimators' ``fused_psd_sk``, ``fused_psd_tapers`` and ``fused_psd_pfb``
-(which share ``fused_psd_regs.cuh`` with K1) are each compiled twice with the build's own nvcc flags, from ``csrc/`` and from
+(which share ``fused_psd_regs.cuh`` with K1) and the large awkward-N
+``fused_psd_mixed_large`` and ``fused_psd_chirp_large`` (whose earlier
+kernels are the controls; the latter shares the large kernel's register
+passes) are each compiled twice with the build's own nvcc flags, from ``csrc/`` and from
 the earlier tree's ``csrc/``, and ``cuobjdump -sass`` of the two libraries
 is compared kernel by kernel: every kernel of the earlier build must be in this one with the same
 instructions. Names are compared demangled, with the template argument
@@ -44,7 +47,7 @@ from . import _build
 
 SOURCES = ("fused_psd", "fused_psd_fast", "fused_psd_large", "fused_psd_probe",
            "fused_psd_mixed", "fused_psd_sk", "fused_psd_tapers",
-           "fused_psd_pfb")
+           "fused_psd_pfb", "fused_psd_mixed_large", "fused_psd_chirp_large")
 #: The parent tree's kernels, written by ``--write-digest``.
 DIGEST = Path(__file__).with_name("sass_digest.json")
 

@@ -32,6 +32,8 @@ from test_torch_fused_psd_regs import (dif_regs, header_w16, pad, pass_bin,
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCE = REPO / "rtl_power_fftw_tpu_torch/ops/kernels/csrc/fused_psd_large.cu"
+#: The register passes' layouts, shared with the large chirp-Z kernel.
+HEADER = SOURCE.with_name("fused_psd_large_regs.cuh")
 SIZES = [1 << k for k in range(15, 23)]
 #: Partial rows the few-rows sum takes (psd_sum.cuh's kSumLanes).
 SUM_LANES = 8
@@ -65,7 +67,7 @@ def golden(raw, n_valid, window=None):
 
 def source_col_shape():
     """{N1: row} of col_shape's table in the source."""
-    text = SOURCE.read_text()
+    text = HEADER.read_text()
     body = text[text.index("constexpr int col_shape"):]
     body = body[:body.index("};")]
     rows = re.findall(r"\{([\d, ]+)\},\s*// (\d+)", body)
@@ -74,7 +76,7 @@ def source_col_shape():
 
 
 def source_row_sum_stride():
-    text = SOURCE.read_text()
+    text = HEADER.read_text()
     body = text[text.index("constexpr int row_sum_stride"):]
     body = body[:body.index("};")]
     values = [int(v) for v in re.search(r"\{([\d, ]+)$", body)
