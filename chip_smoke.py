@@ -2948,8 +2948,8 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
     the division-free passes; ``fused_psd_chirp_large``, BL: the register
     passes): against their plain versions and the float64 golden, twice
     each, at the phase's shapes and over a spread of N; their 60-seed tone
-    yards against the scipy float32 class; their times beside PR 18's
-    forms (the controls), ``torch.fft.fft`` and the bound; each form's
+    yards against the scipy float32 class; their times beside their
+    first forms (the controls), ``torch.fft.fft`` and the bound; each form's
     device time by pass at 10^6 F=8 (ML) and 99998 F=64 (BL); the six
     drives, each on its kernel alone. Returns the kernels-line entries."""
     t0 = time.perf_counter()
@@ -3065,7 +3065,7 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
 
     # Times (PERF.md states their prediction): a call (CUDA events around
     # each), the device's part (calls queued behind a sleep kernel; the new
-    # form and PR 18's control in turns, twice each), the wrapper's host
+    # form and the control (the first form) in turns, twice each), the wrapper's host
     # part, the plain version and torch.fft.fft on the same frames
     # (complex64 on the card), the bound.
     times = {}
@@ -3102,7 +3102,7 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
               f"{card}: kernel {t['call']:.1f} us a call, device "
               f"{t['devices'][0]:.1f}/{t['devices'][1]:.1f} us, host "
               f"{t['host']:.1f} us ({F * N / t['device'] / 1e3:.2f} GS/s on "
-              f"the device); the control (PR 18's form) device "
+              f"the device); the control (the first form) device "
               f"{t['control_devices'][0]:.1f}/{t['control_devices'][1]:.1f} "
               f"us, kernel/control {t['device'] / t['control_device']:.3f}; "
               f"plain {t['plain']:.1f} us a call; torch.fft.fft of the "

@@ -70,7 +70,7 @@
 // bytes, from L2 where they stay there), and does two M-point transforms
 // a frame where the large kernel does one of N.
 //
-// The control. PR 18's first form of the three passes (tile_cols_kernel
+// The control. The first form of the three passes (tile_cols_kernel
 // with the chirp, chirp_turn_kernel below, tile_power_kernel: run-time
 // mixed-radix plans of fft_mixed_tile.cuh, one frame at a time) stays,
 // launched by rpf_fused_psd_chirp_large_control for chip_smoke.py to time
@@ -91,7 +91,7 @@
 
 namespace {
 
-// --- The control: PR 18's run-time tile passes ---
+// --- The control: the first form's run-time tile passes ---
 
 // Pass B (see the top of the file): block b takes rows [k0, k0 + count)
 // of frames [j * group, min((j + 1) * group, F, n_valid)); two tiles in
@@ -176,7 +176,12 @@ template <int LOG2M>
 struct ChirpRegs {
   using L = LargeRegs<LOG2M>;
   // Pass A: a ring slot holds the tile's rows n1 < M1 / 2 (N <= M / 2);
-  // a batch's chirp values, 8 a thread.
+  // a batch's chirp values, 8 a thread. Blocks an SM is to hold: one at M
+  // = 2^17..2^19 (213 registers, where the large kernel's two spilled up
+  // to 136 B here and ran 8-11% slower on an H100), else the large
+  // kernel's.
+  static constexpr int MIN_BLOCKS_A =
+      LOG2M >= 17 && LOG2M <= 19 ? 1 : L::MIN_BLOCKS_A;
   static constexpr int ROWS_A = L::N1 / 2;
   static constexpr int SLOT_A = ROWS_A * L::ROW_BYTES;
   static constexpr int SMEM_A = L::XBYTES_A + 2 * SLOT_A;
@@ -186,7 +191,14 @@ struct ChirpRegs {
   static constexpr int STAGE_B =
       L::XBYTES_B > L::SLOT_B ? L::XBYTES_B : L::SLOT_B;
   static constexpr int SMEM_B = STAGE_B + L::SLOT_B + 8;
-  // Pass C: one batch of B columns a block, two exchange buffers.
+  // Blocks an SM is to hold: one at M2 = 512 and 1024, where two (128
+  // registers) spilled 44-428 B a thread and the pass ran 1.05-1.54x
+  // slower on an H100; two elsewhere, where one ran 0-9% slower.
+  static constexpr int MIN_BLOCKS_B = L::N2 == 512 || L::N2 == 1024 ? 1 : 2;
+  // Pass C: one batch of B columns a block, two exchange buffers. Blocks
+  // an SM is to hold: one up to M = 2^20 (two spilled up to 72 B and ran
+  // 1-4% slower on an H100), two above (where one ran 1% slower).
+  static constexpr int MIN_BLOCKS_C = LOG2M <= 20 ? 1 : 2;
   static constexpr int THREADS_C = L::THREADS_A;
   static constexpr int TILES_C = L::N2 / L::B;
   static constexpr int XFLOATS_C = L::B * L::XS;
@@ -261,7 +273,7 @@ __device__ __forceinline__ void chirp_a_batch(
 // i - 1 is transformed.
 template <int LOG2M, bool WINDOWED>
 __global__ void __launch_bounds__(LargeRegs<LOG2M>::THREADS_A,
-                                  LargeRegs<LOG2M>::MIN_BLOCKS_A)
+                                  ChirpRegs<LOG2M>::MIN_BLOCKS_A)
 chirp_regs_a(const uint8_t* __restrict__ raw,      // (F, 2 bins)
              const float2* __restrict__ twiddle,   // pass_twiddles(M1)
              const float2* __restrict__ inter,     // W_M^(k1 n2), as scratch
@@ -330,7 +342,8 @@ chirp_regs_a(const uint8_t* __restrict__ raw,      // (F, 2 bins)
 // B / M, conjugated, the last butterfly again), the transposed passes
 // (z[m2] in natural order), times W_M^(k1 m2), back to the frame's runs.
 template <int LOG2M>
-__global__ void __launch_bounds__(LargeRegs<LOG2M>::THREADS_B, 2)
+__global__ void __launch_bounds__(LargeRegs<LOG2M>::THREADS_B,
+                                  ChirpRegs<LOG2M>::MIN_BLOCKS_B)
 chirp_regs_b(float2* __restrict__ scratch,           // (F, M), batch-major
              const float2* __restrict__ twiddle,     // pass_twiddles(M2)
              const float2* __restrict__ spectrum,    // (M1, M2) by element
@@ -438,7 +451,8 @@ chirp_regs_b(float2* __restrict__ scratch,           // (F, M), batch-major
 // column over k1, |z|^2 summed in registers; then bin m = m2 + M2 m1 of
 // row g of `rows` where m < bins.
 template <int LOG2M>
-__global__ void __launch_bounds__(ChirpRegs<LOG2M>::THREADS_C, 2)
+__global__ void __launch_bounds__(ChirpRegs<LOG2M>::THREADS_C,
+                                  ChirpRegs<LOG2M>::MIN_BLOCKS_C)
 chirp_regs_c(const float2* __restrict__ scratch,   // (F, M), batch-major
              const float2* __restrict__ twiddle,   // pass_twiddles(M1)
              float* __restrict__ rows,             // (ceil(F / group), row)
@@ -706,7 +720,7 @@ int rpf_fused_psd_chirp_large_attributes(int log2m, int which, int device,
 }
 
 
-// The control: PR 18's passes A, B, C and the row sum on `stream`. raw:
+// The control: the first form's passes A, B, C and the row sum on `stream`. raw:
 // (F, 2N) u8,
 // 4-byte aligned, N = bins; tw1, tw2: plan_twiddles of M1's and M2's
 // plans; order1, order2: (M1,), (M2,) int32, element_of_bin of each;

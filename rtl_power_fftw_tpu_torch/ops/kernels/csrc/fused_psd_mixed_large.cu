@@ -57,7 +57,7 @@
 // bytes of scratch a frame (at 10^6, F = 8: 64 MB each way, ~38 us at
 // 3.35 TB/s), the floor of the form.
 //
-// The control. PR 18's first form (tile_cols_kernel and tile_power_kernel
+// The control. The first form (tile_cols_kernel and tile_power_kernel
 // of fft_mixed_tile.cuh on mixed_large_split's N1 x N2: one frame at a
 // time, integer division in its loop indices) stays, launched by
 // rpf_fused_psd_mixed_large_control for chip_smoke.py to time the form
@@ -78,7 +78,7 @@
 
 namespace {
 
-// --- The control: PR 18's run-time tile passes ---
+// --- The control: the first form's run-time tile passes ---
 
 using ColsKernel = void (*)(const uint8_t*, const float2*, const int*,
                             const float2*, const float*, const float2*,
@@ -246,7 +246,7 @@ inline bool read_ml_plan(const int* ints, int max_n, RingPlan* p) {
 // group, F, n_valid)), g = b / tiles. p: N1's plan with tf = kColsThreads
 // / C, lanes = C.
 template <bool WINDOWED>
-__global__ void __launch_bounds__(kColsThreads, 2)
+__global__ void __launch_bounds__(kColsThreads, 3)
 ml_cols_kernel(const uint8_t* __restrict__ raw,      // (F, 2N)
                const float2* __restrict__ twiddle,   // plan_twiddles(N1)
                const int* __restrict__ bin_of,       // (N1,) element -> bin
@@ -614,7 +614,7 @@ int rpf_fused_psd_mixed_large_attributes(int which, int smem, int threads,
 }
 
 
-// The control: PR 18's pass A, pass B and the row sum on `stream`, on
+// The control: the first form's pass A, pass B and the row sum on `stream`, on
 // mixed_large_split's N1 x N2. raw: (F, 2N) u8, 4-byte aligned; tw1, tw2: plan_twiddles of N1's and N2's plans, (rows,
 // 2) f32; order1, order2: (N1,), (N2,) int32, element_of_bin of each plan;
 // inter: (N1, N2) complex64, W_N^(k1 n2); window: (N,) f32, or null;

@@ -39,7 +39,7 @@ transforms and the turn between them in one block (:func:`spectrum_regs_
 table`), pass C its column passes with the |.|^2 sums in registers
 (:func:`chirp_regs_layout`); the scratch between them is the large
 kernel's batch-major order (:func:`.fused_psd_large.scratch_index` of M).
-PR 18's first form, the run-time tile passes of ``csrc/fft_mixed_tile.cuh``
+The first form, the run-time tile passes of ``csrc/fft_mixed_tile.cuh``
 (:func:`chirp_large_layout`), stays as the control
 (:func:`fused_psd_chirp_large_control`), which only ``chip_smoke.py``
 launches.
@@ -254,7 +254,7 @@ def _control_plan(N: int, F: int, chunk: int, windowed: bool,
 def fused_psd_chirp_large_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                           window: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """PR 18's first form (the control), as :func:`fused_psd_chirp_large`;
+    """The first form (the control), as :func:`fused_psd_chirp_large`;
     its launches and plain calls count in ``CONTROL_COUNTS``."""
     n_valid = int(n_valid)
     check_args("fused_psd_chirp_large_control",

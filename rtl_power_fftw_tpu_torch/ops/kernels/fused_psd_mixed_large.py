@@ -32,7 +32,7 @@ run-time plans without division in its loops (the pass table and division
 constants of :class:`.fused_psd_mixed.RingLaunch`), butterflies in
 registers, the next frame in flight in both passes and pass B's sums in
 registers (:func:`ml_layout`); its scratch is tile-major
-(:func:`ml_scratch_index`). PR 18's first form, the run-time tile passes of
+(:func:`ml_scratch_index`). The first form, the run-time tile passes of
 ``csrc/fft_mixed_tile.cuh`` on :func:`mixed_large_split`
 (:func:`mixed_large_layout`), stays as the control
 (:func:`fused_psd_mixed_large_control`), which only ``chip_smoke.py``
@@ -375,7 +375,7 @@ def workspace(key: tuple, scratch_floats: int, partial_floats: int,
 def fused_psd_mixed_large_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                           window: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """PR 18's first form (the control), as :func:`fused_psd_mixed_large`;
+    """The first form (the control), as :func:`fused_psd_mixed_large`;
     its launches and plain calls count in ``CONTROL_COUNTS``."""
     n_valid = int(n_valid)
     check_args("fused_psd_mixed_large_control",
@@ -454,13 +454,15 @@ def cols_count(n1: int) -> int:
 
 
 def rows_shape(n2: int, plan) -> Tuple[int, int]:
-    """Pass B's (tf, lanes) at N2 = n2: lanes, the rows a block, the
-    largest power of two up to 8 whose two slots of N2p float2 rows fit
-    TILE_SMEM (N2p: N2 rounded up to pass A's C, at most 16 more); tf, the
-    threads a row, ROWS_THREADS / lanes, so that a block is 256 threads,
-    doubled (and lanes halved) while a thread would hold more than
-    RING_ACC[-1] last-pass sums."""
-    lanes = 8
+    """Pass B's (tf, lanes) at N2 = n2: lanes, the rows a block, 16 for
+    rows of at most 256 points (whose passes have 7-40 butterflies, so that
+    16 threads a row idle least) and 8 above, halved until the two slots
+    of N2p float2 rows fit TILE_SMEM (N2p: N2 rounded up to pass A's C, at
+    most 16 more); tf, the threads a row, ROWS_THREADS / lanes, so that a
+    block is 256 threads, doubled (and lanes halved) while a thread would
+    hold more than RING_ACC[-1] last-pass sums. On an H100 16 rows ran
+    4-19% faster than 8 at N2 = 112 and 160, 9% slower at 400."""
+    lanes = 16 if n2 <= 256 else 8
     while lanes > 1 and 16 * lanes * (n2 + 16) > TILE_SMEM:
         lanes //= 2
     tf = ROWS_THREADS // lanes
