@@ -1739,6 +1739,39 @@ def profile_calls(label, fn, markers, calls: int = 10) -> None:
     print(f"profile {label}, {calls} calls: " + "; ".join(parts))
 
 
+def profile_passes(label, fn, passes, others, calls: int = 10,
+                   tries: int = 4) -> None:
+    """profile_calls for the passes of one form, where torch.profiler on
+    the card has been seen to drop a run's device records (all of them,
+    or all but one or two launches of ten): up to ``tries`` runs, the
+    first in which each of ``passes`` shows ``calls`` launches, printed as
+    device us a launch with ``others`` (the row sums, which a call may
+    not launch) beside them; "not measured" where no run was whole."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        hits = {m: [(n, us) for k, n, us in rows if m in k]
+                for m in passes + others}
+        if all(sum(n for n, _ in hits[m]) == calls for m in passes):
+            parts = []
+            for m in passes + others:
+                n = sum(c for c, _ in hits[m])
+                us = sum(t for _, t in hits[m]) / max(n, 1)
+                parts.append(f"{m} {us:.1f} us a launch ({n} launches)")
+            print(f"profile {label}, {calls} calls (run {attempt} of "
+                  f"{tries}): " + "; ".join(parts))
+            return
+    print(f"profile {label}: no run of {tries} recorded every launch "
+          "(device times by pass not measured)")
+
+
 #: profile_kernel's frames-per-block sweep (the default is 4 at F = 4096),
 #: and the schedules' at 16 frames a block beside the 6-product scheme's.
 TILE_SWEEP = ["full:1", "full:2", "full:8", "full:16", "dg3d:1", "dg3d:16",
@@ -3065,9 +3098,9 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
 
     # Times (PERF.md states their prediction): a call (CUDA events around
     # each), the device's part (calls queued behind a sleep kernel; the new
-    # form and the control (the first form) in turns, twice each), the wrapper's host
-    # part, the plain version and torch.fft.fft on the same frames
-    # (complex64 on the card), the bound.
+    # form and the control, the first form, in turns, twice each), the
+    # wrapper's host part, the plain version and torch.fft.fft on the same
+    # frames (complex64 on the card), the bound.
     times = {}
     for name, N, fps, n_valid, wname in cases:
         if n_valid is not None:
@@ -3126,12 +3159,12 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
         raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                             dtype=np.uint8)).to(dev)
         sums = ["psd_rows_sum", "psd_sum_kernel"]
-        profile_calls(f"{name} N={N} F={F} by pass on {card}",
-                      lambda: kernels[name][0](raw, F, chunk), new_passes
-                      + sums)
-        profile_calls(f"{name} control N={N} F={F} by pass on {card}",
-                      lambda: controls[name](raw, F, chunk), control_passes
-                      + sums)
+        profile_passes(f"{name} N={N} F={F} by pass on {card}",
+                       lambda: kernels[name][0](raw, F, chunk), new_passes,
+                       sums)
+        profile_passes(f"{name} control N={N} F={F} by pass on {card}",
+                       lambda: controls[name](raw, F, chunk),
+                       control_passes, sums)
     print(f"wall: large awkward splits in {time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its kernel alone; then where the two matrix

@@ -418,7 +418,9 @@ chirp_regs_b(float2* __restrict__ scratch,           // (F, M), batch-major
       turn_inputs<RL>(u, v, i2 * RL, spec + base);
       dif_regs<RL>(u, 0);
 #pragma unroll
-      for (int q = 0; q < RL; ++q) x[pad_index(base + rev_bits(q, BITS))] = u[q];
+      for (int q = 0; q < RL; ++q) {
+        x[pad_index(base + rev_bits(q, BITS))] = u[q];
+      }
     }
     __syncthreads();
     if constexpr (P::PASSES > 2) {
@@ -720,8 +722,8 @@ int rpf_fused_psd_chirp_large_attributes(int log2m, int which, int device,
 }
 
 
-// The control: the first form's passes A, B, C and the row sum on `stream`. raw:
-// (F, 2N) u8,
+// The control: the first form's passes A, B, C and the row sum on
+// `stream`. raw: (F, 2N) u8,
 // 4-byte aligned, N = bins; tw1, tw2: plan_twiddles of M1's and M2's
 // plans; order1, order2: (M1,), (M2,) int32, element_of_bin of each;
 // inter: (M1, M2) complex64, W_M^(k1 n2); chirp: (N,) complex64 a;

@@ -614,9 +614,10 @@ int rpf_fused_psd_mixed_large_attributes(int which, int smem, int threads,
 }
 
 
-// The control: the first form's pass A, pass B and the row sum on `stream`, on
-// mixed_large_split's N1 x N2. raw: (F, 2N) u8, 4-byte aligned; tw1, tw2: plan_twiddles of N1's and N2's plans, (rows,
-// 2) f32; order1, order2: (N1,), (N2,) int32, element_of_bin of each plan;
+// The control: the first form's pass A, pass B and the row sum on
+// `stream`, on mixed_large_split's N1 x N2. raw: (F, 2N) u8, 4-byte
+// aligned; tw1, tw2: plan_twiddles of N1's and N2's plans, (rows, 2) f32;
+// order1, order2: (N1,), (N2,) int32, element_of_bin of each plan;
 // inter: (N1, N2) complex64, W_N^(k1 n2); window: (N,) f32, or null;
 // scratch: (F, N) complex64; partial: (ceil(F / group_b), row) f32; out:
 // (row,) f32, of which the first N are the bins (row: N rounded up to 32);

@@ -251,9 +251,10 @@ def _control_plan(N: int, F: int, chunk: int, windowed: bool,
     return plan
 
 
-def fused_psd_chirp_large_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
-                          window: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+def fused_psd_chirp_large_control(raw_u8: torch.Tensor, n_valid: int,
+                                  chunk: int,
+                                  window: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """The first form (the control), as :func:`fused_psd_chirp_large`;
     its launches and plain calls count in ``CONTROL_COUNTS``."""
     n_valid = int(n_valid)

@@ -372,9 +372,10 @@ def workspace(key: tuple, scratch_floats: int, partial_floats: int,
     return ptr, ptr + 4 * scratch_floats
 
 
-def fused_psd_mixed_large_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
-                          window: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+def fused_psd_mixed_large_control(raw_u8: torch.Tensor, n_valid: int,
+                                  chunk: int,
+                                  window: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """The first form (the control), as :func:`fused_psd_mixed_large`;
     its launches and plain calls count in ``CONTROL_COUNTS``."""
     n_valid = int(n_valid)

@@ -7,12 +7,13 @@ estimators' ``fused_psd_sk``, ``fused_psd_tapers`` and ``fused_psd_pfb``
 (which share ``fused_psd_regs.cuh`` with K1) and the large awkward-N
 ``fused_psd_mixed_large`` and ``fused_psd_chirp_large`` (whose earlier
 kernels are the controls; the latter shares the large kernel's register
-passes) are each compiled twice with the build's own nvcc flags, from ``csrc/`` and from
-the earlier tree's ``csrc/``, and ``cuobjdump -sass`` of the two libraries
-is compared kernel by kernel: every kernel of the earlier build must be in this one with the same
-instructions. Names are compared demangled, with the template argument
-``S1_FORM = 0`` (``FastVariant``'s last parameter, whose default is the
-earlier template) dropped; listings are compared with the whitespace
+passes) are each compiled twice with the build's own nvcc flags, from
+``csrc/`` and from the earlier tree's ``csrc/``, and ``cuobjdump -sass``
+of the two libraries is compared kernel by kernel: every kernel of the
+earlier build must be in this one with the same instructions. Names are
+compared demangled, with the template argument ``S1_FORM = 0``
+(``FastVariant``'s last parameter, whose default is the earlier template)
+dropped; listings are compared with the whitespace
 collapsed (cuobjdump pads its columns to the widest line of the file) and
 the branch labels renumbered in each kernel (their numbers run across the
 file). Needs nvcc and cuobjdump; no card.

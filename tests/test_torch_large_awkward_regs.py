@@ -21,7 +21,10 @@ The CUDA kernels run only on a card (chip_smoke.py phase 15); here:
   order and its inverse, pass B's copies (each value of the tile's rows
   once), the copy width; a bank model of pass A's exchange;
 - ML's two passes thread by thread in float64 against numpy.fft and in
-  float32 against tests/golden.py.
+  float32 against tests/golden.py;
+- the route (every N of each band on the new form) and ML's row shapes;
+  the source edits of probes/large_awkward_builds.py apply to the shipped
+  sources.
 """
 
 import re
@@ -38,6 +41,7 @@ from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_chirp_large as bl
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large as fl
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed_large as ml
+from rtl_power_fftw_tpu_torch.probes import large_awkward_builds
 
 from golden import golden_accumulate
 from test_torch_awkward_regs import (forward_passes, last_pass_turn,
@@ -877,3 +881,62 @@ def test_bl_register_passes_share_the_large_kernels_header():
         assert '#include "fused_psd_large_regs.cuh"' in src
     for name in ("struct LargeRegs", "col_pass(", "regs_a_rest("):
         assert name not in bl_src and name not in large
+
+
+# --- the route ---
+
+
+@pytest.mark.parametrize("log2m", LOG2M)
+def test_every_bl_n_takes_the_register_passes(log2m):
+    """The route: every even N of BL's band has the register passes'
+    layout (the form was ahead of its control at every shape the card
+    timed, so no range goes to the control), and a CUDA call launches
+    the register passes' entry alone."""
+    for N in bl_sizes(log2m):
+        assert bl.fused_psd_chirp_large_eligible(N)
+        assert bl.chirp_regs_layout(N).log2m == log2m
+    import inspect
+    src = inspect.getsource(bl.fused_psd_chirp_large)
+    assert "rpf_fused_psd_chirp_large(" in src and "control" not in src
+
+
+def test_every_ml_n_takes_the_division_free_passes():
+    import inspect
+    assert all(ml.ml_layout(N).N == N for N in ML_SIZES)
+    src = inspect.getsource(ml.fused_psd_mixed_large)
+    assert "rpf_fused_psd_mixed_large(" in src and "control" not in src
+
+
+@pytest.mark.parametrize("n2,shape", [
+    (112, (16, 16)), (160, (16, 16)), (256, (16, 16)), (400, (32, 8)),
+    (1000, (64, 4)), (6250, (256, 1))])
+def test_ml_row_shape_rule(n2, shape):
+    assert ml.rows_shape(n2, fm.mixed_plan(n2)) == shape
+
+
+
+# --- the builds probe ---
+
+
+@pytest.mark.parametrize("name", sorted(large_awkward_builds.BUILDS))
+def test_build_edits_apply_to_the_sources(name):
+    """Each build of probes/large_awkward_builds.py edits the shipped
+    source as it says: one launch bound each."""
+    library, edits = large_awkward_builds.BUILDS[name]
+    text = (CSRC / f"{library}.cu").read_text()
+    got = large_awkward_builds.build_sources(text, edits)
+    assert got != text and got.count("__launch_bounds__") == text.count(
+        "__launch_bounds__")
+
+
+def test_rows8_keeps_at_most_8_rows_and_256_threads():
+    for N in ML_SIZES[::11]:
+        n2 = ml.ml_layout(N).N2
+        tf, lanes = large_awkward_builds.rows8(n2, fm.mixed_plan(n2))
+        assert lanes <= 8 and tf * lanes == 256
+
+
+def test_builds_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert large_awkward_builds.main([]) == 1
