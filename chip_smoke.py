@@ -3051,15 +3051,25 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
           and counts["BL"] + counts["BL windowed"] == 2 * (len(cases) - n_ml)
           and counts["plain"] == 0,
           f"large awkward launch counts: {counts}")
-    # A spread of N through each kernel (every 40th N ML takes and its
-    # largest; even N through BL from 8194 to its largest), 4 frames each,
+    # A spread of N through each kernel (every 40th N ML takes, its
+    # largest, and one N of each of ML's layouts, tile width x threads a
+    # row x rows a block x class of sums, that those miss; even N through
+    # BL from 8194 to its largest), 4 frames each,
     # every third with Hann, against the float64 golden on the card: within
     # 1e-5, or 3x the scipy float32 FFT's error on the same frames where
     # that is larger (a few random frames leave the deepest of millions of
     # bins far below the mean, where the float32 class itself is above
     # 1e-5 of the golden).
     ml_all = fml.eligible_sizes()
-    sweep = ([("ML", N) for N in ml_all[::40] + ml_all[-1:]]
+    layouts = {}
+    for N in ml_all:
+        t = fml.ml_layout(N)
+        layouts.setdefault((t.cols, t.tf, t.lanes, t.which_b), N)
+    spread = ml_all[::40] + ml_all[-1:]
+    seen = {(t.cols, t.tf, t.lanes, t.which_b)
+            for t in map(fml.ml_layout, spread)}
+    spread += [N for key, N in layouts.items() if key not in seen]
+    sweep = ([("ML", N) for N in spread]
              + [("BL", N) for N in (8194, 8196, 9998, 12286, 16386, 24574,
                                     32770, 49150, 65538, 131070, 262142,
                                     524286, 999998, big - 2, big)])

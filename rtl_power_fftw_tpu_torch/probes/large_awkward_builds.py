@@ -57,7 +57,8 @@ BUILDS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "a1": ("fused_psd_chirp_large",
            [(BL_BOUNDS["a"], "1)\nchirp_regs_a")]),
     "a2": ("fused_psd_chirp_large",
-           [(BL_BOUNDS["a"], "LargeRegs<LOG2M>::MIN_BLOCKS_A)\nchirp_regs_a")]),
+           [(BL_BOUNDS["a"],
+             "LargeRegs<LOG2M>::MIN_BLOCKS_A)\nchirp_regs_a")]),
     "b1": ("fused_psd_chirp_large", [(BL_BOUNDS["b"], "1)\nchirp_regs_b")]),
     "b2": ("fused_psd_chirp_large", [(BL_BOUNDS["b"], "2)\nchirp_regs_b")]),
     "c1": ("fused_psd_chirp_large", [(BL_BOUNDS["c"], "1)\nchirp_regs_c")]),
@@ -123,15 +124,15 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     return libs
 
 
+_ROWS_SHAPE = ml.rows_shape
+
+
 def rows8(n2: int, plan) -> Tuple[int, int]:
     """``rows_shape`` with at most 8 rows a block at every N2."""
-    tf, lanes = ml.rows_shape(n2, plan)
+    tf, lanes = _ROWS_SHAPE(n2, plan)
     while lanes > 8:
         tf, lanes = 2 * tf, lanes // 2
     return tf, lanes
-
-
-_ROWS_SHAPE = ml.rows_shape
 
 
 def use(library: str, lib: ctypes.CDLL, rows=_ROWS_SHAPE) -> None:
