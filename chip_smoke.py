@@ -1714,39 +1714,14 @@ def probe_occupancy(fpp, raw, F, chunk, card, slope_us) -> None:
               f"blocks/SM: {k_us:.1f} us/step; " + "; ".join(parts))
 
 
-def profile_calls(label, fn, markers, calls: int = 10) -> None:
+def profile_calls(label, fn, markers, calls: int = 10, whole=(),
+                  tries: int = 1) -> None:
     """Device time by kernel name of ``calls`` calls of ``fn`` under
     torch.profiler, per call ("not measured" where the profiler sees no
-    device time)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
-    if not rows or sum(us for _, _, us in rows) <= 0:
-        print(f"profile {label}: the profiler recorded no device time "
-              "(device times not measured)")
-        return
-    parts = []
-    for marker in markers:
-        hit = [(n, us) for k, n, us in rows if marker in k]
-        parts.append(f"{marker} {sum(us for _, us in hit) / calls:.1f} us/call"
-                     f" ({sum(n for n, _ in hit)} launches)")
-    print(f"profile {label}, {calls} calls: " + "; ".join(parts))
-
-
-def profile_passes(label, fn, passes, others, calls: int = 10,
-                   tries: int = 4) -> None:
-    """profile_calls for the passes of one form, where torch.profiler on
-    the card has been seen to drop a run's device records (all of them,
-    or all but one or two launches of ten): up to ``tries`` runs, the
-    first in which each of ``passes`` shows ``calls`` launches, printed as
-    device us a launch with ``others`` (the row sums, which a call may
-    not launch) beside them; "not measured" where no run was whole."""
+    device time). The profiler on the card has been seen to drop a run's
+    records (all, or all but a few launches): with ``whole``, the run is
+    repeated, up to ``tries`` times, until each of those markers shows
+    ``calls`` launches."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1757,19 +1732,20 @@ def profile_passes(label, fn, passes, others, calls: int = 10,
                 fn()
             torch.cuda.synchronize()
         rows = device_rows(prof)
-        hits = {m: [(n, us) for k, n, us in rows if m in k]
-                for m in passes + others}
-        if all(sum(n for n, _ in hits[m]) == calls for m in passes):
-            parts = []
-            for m in passes + others:
-                n = sum(c for c, _ in hits[m])
-                us = sum(t for _, t in hits[m]) / max(n, 1)
-                parts.append(f"{m} {us:.1f} us a launch ({n} launches)")
-            print(f"profile {label}, {calls} calls (run {attempt} of "
-                  f"{tries}): " + "; ".join(parts))
-            return
-    print(f"profile {label}: no run of {tries} recorded every launch "
-          "(device times by pass not measured)")
+        hits = {m: [(n, us) for k, n, us in rows if m in k] for m in markers}
+        if (rows and sum(us for _, _, us in rows) > 0
+                and all(sum(n for n, _ in hits[m]) == calls for m in whole)):
+            break
+    else:
+        what = ("recorded no device time" if tries == 1 else
+                f"recorded every launch in no run of {tries}")
+        print(f"profile {label}: the profiler {what} (device times not "
+              "measured)")
+        return
+    parts = [f"{m} {sum(us for _, us in hits[m]) / calls:.1f} us/call "
+             f"({sum(n for n, _ in hits[m])} launches)" for m in markers]
+    run = f" (run {attempt} of {tries})" if tries > 1 else ""
+    print(f"profile {label}, {calls} calls{run}: " + "; ".join(parts))
 
 
 #: profile_kernel's frames-per-block sweep (the default is 4 at F = 4096),
@@ -3005,10 +2981,14 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
         mod = fml if name == "ML" else fbl
         for N in {"ML": (20000, 100000, 10 ** 6, 4167450),
                   "BL": (16382, 20002, 99998, 499998, big)}[name]:
-            form = (fml.ml_layout(N) if name == "ML"
-                    else fbl.chirp_regs_layout(N).regs)
+            layout = (fml.ml_layout(N) if name == "ML"
+                      else fbl.chirp_regs_layout(N))
+            form = layout if name == "ML" else layout.regs
             for which in range(4 if name == "BL" else 3):
                 a = mod.kernel_attributes(N, which)
+                check(a["dynamic_smem"] == layout.smem[max(which - 1, 0)],
+                      f"{name} N={N} pass {which}: {a['dynamic_smem']} B "
+                      f"of shared memory, the layout says {layout.smem}")
                 print(f"occupancy {name} N={N} pass {passes[which]} on "
                       f"{card}: {a['registers']} registers, "
                       f"{a['spill_bytes']} B spill, {a['static_smem']} + "
@@ -3169,12 +3149,12 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
         raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                             dtype=np.uint8)).to(dev)
         sums = ["psd_rows_sum", "psd_sum_kernel"]
-        profile_passes(f"{name} N={N} F={F} by pass on {card}",
-                       lambda: kernels[name][0](raw, F, chunk), new_passes,
-                       sums)
-        profile_passes(f"{name} control N={N} F={F} by pass on {card}",
-                       lambda: controls[name](raw, F, chunk),
-                       control_passes, sums)
+        profile_calls(f"{name} N={N} F={F} by pass on {card}",
+                      lambda: kernels[name][0](raw, F, chunk),
+                      new_passes + sums, whole=new_passes, tries=4)
+        profile_calls(f"{name} control N={N} F={F} by pass on {card}",
+                      lambda: controls[name](raw, F, chunk),
+                      control_passes + sums, whole=control_passes, tries=4)
     print(f"wall: large awkward splits in {time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its kernel alone; then where the two matrix

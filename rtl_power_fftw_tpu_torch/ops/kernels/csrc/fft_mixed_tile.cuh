@@ -243,15 +243,17 @@ inline cudaError_t tile_opt_in(const void* kernel, int smem, int device,
   return cudaSuccess;
 }
 
-// What a tile kernel gets with `smem` dynamic bytes on `device`, into
-// attrs[0..5]: registers and spill bytes a thread, static and dynamic
-// shared bytes a block, threads a block, and the blocks that reside on one
-// SM. Launches nothing.
+// What a kernel of `threads` a block (a tile kernel's kTileThreads by
+// default) gets with `smem` dynamic bytes on `device`, into attrs[0..5]:
+// registers and spill bytes a thread, static and dynamic shared bytes a
+// block, threads a block, and the blocks that reside on one SM. Launches
+// nothing.
 inline cudaError_t tile_attributes(const void* kernel, int smem, int device,
                                    std::atomic<unsigned long long>& done,
-                                   int* attrs) {
+                                   int* attrs, int threads = kTileThreads,
+                                   int max_smem = kTileMaxSmem) {
   cudaError_t e = use_device(device);
-  if (e == cudaSuccess) e = tile_opt_in(kernel, smem, device, done);
+  if (e == cudaSuccess) e = tile_opt_in(kernel, smem, device, done, max_smem);
   cudaFuncAttributes fa;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
   if (e == cudaSuccess) {
@@ -259,9 +261,9 @@ inline cudaError_t tile_attributes(const void* kernel, int smem, int device,
     attrs[1] = static_cast<int>(fa.localSizeBytes);
     attrs[2] = static_cast<int>(fa.sharedSizeBytes);
     attrs[3] = smem;
-    attrs[4] = kTileThreads;
+    attrs[4] = threads;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&attrs[5], kernel,
-                                                      kTileThreads, smem);
+                                                      threads, smem);
   }
   if (e != cudaSuccess) cudaGetLastError();
   return e;

@@ -176,10 +176,11 @@ template <int LOG2M>
 struct ChirpRegs {
   using L = LargeRegs<LOG2M>;
   // Pass A: a ring slot holds the tile's rows n1 < M1 / 2 (N <= M / 2);
-  // a batch's chirp values, 8 a thread. Blocks an SM is to hold: one at M
-  // = 2^17..2^19 (213 registers, where the large kernel's two spilled up
-  // to 136 B here and ran 8-11% slower on an H100), else the large
-  // kernel's.
+  // a batch's chirp values, 8 a thread. Blocks an SM: one at M =
+  // 2^17..2^19 (213 registers), where the large kernel's two spill up to
+  // 136 B and ran 9-12% slower; else the large kernel's, where one ran up
+  // to 8% slower at 2^16 and 2^20 (probes/large_awkward_builds.py on an
+  // H100).
   static constexpr int MIN_BLOCKS_A =
       LOG2M >= 17 && LOG2M <= 19 ? 1 : L::MIN_BLOCKS_A;
   static constexpr int ROWS_A = L::N1 / 2;
@@ -191,13 +192,15 @@ struct ChirpRegs {
   static constexpr int STAGE_B =
       L::XBYTES_B > L::SLOT_B ? L::XBYTES_B : L::SLOT_B;
   static constexpr int SMEM_B = STAGE_B + L::SLOT_B + 8;
-  // Blocks an SM is to hold: one at M2 = 512 and 1024, where two (128
-  // registers) spilled 44-428 B a thread and the pass ran 1.05-1.54x
-  // slower on an H100; two elsewhere, where one ran 0-9% slower.
+  // Blocks an SM: one at M2 = 512 and 1024, where two (128 registers)
+  // spill 44-428 B a thread and ran 1.05-1.57x slower at M = 2^17, 2^18
+  // and 2^20 (1% faster at 2^19); two elsewhere, where one ran 2-9%
+  // slower at 2^16, 2^21 and 2^22 (probes/large_awkward_builds.py).
   static constexpr int MIN_BLOCKS_B = L::N2 == 512 || L::N2 == 1024 ? 1 : 2;
   // Pass C: one batch of B columns a block, two exchange buffers. Blocks
-  // an SM is to hold: one up to M = 2^20 (two spilled up to 72 B and ran
-  // 1-4% slower on an H100), two above (where one ran 1% slower).
+  // an SM: one up to M = 2^20 (two spill up to 72 B and ran 1-4% slower
+  // from 2^16), two above (one ran 1% slower at 2^22;
+  // probes/large_awkward_builds.py).
   static constexpr int MIN_BLOCKS_C = LOG2M <= 20 ? 1 : 2;
   static constexpr int THREADS_C = L::THREADS_A;
   static constexpr int TILES_C = L::N2 / L::B;
@@ -550,12 +553,19 @@ constexpr int chirp_regs_threads() {
   return WHICH == 2 ? L::THREADS_B : L::THREADS_A;
 }
 
-// Opts the pass into its shared memory once per device (tile_opt_in).
+// The devices (a bit each) on which the pass is opted into its shared
+// memory (tile_opt_in).
+template <int LOG2M, int WHICH>
+std::atomic<unsigned long long>& chirp_regs_done() {
+  static std::atomic<unsigned long long> done{0};
+  return done;
+}
+
 template <int LOG2M, int WHICH>
 cudaError_t prepare_chirp_regs(int device) {
-  static std::atomic<unsigned long long> done{0};
   return tile_opt_in(chirp_regs_kernel<LOG2M, WHICH>(),
-                     chirp_regs_smem<LOG2M, WHICH>(), device, done);
+                     chirp_regs_smem<LOG2M, WHICH>(), device,
+                     chirp_regs_done<LOG2M, WHICH>());
 }
 
 // Passes A, B, C and, for 2 or more partial rows, their sum, on `st`.
@@ -620,24 +630,13 @@ cudaError_t launch_chirp_regs(const void* raw, const void* twiddle,
   return launch_psd_sum(partial, groups_c, row, out, st);
 }
 
-// What a pass gets on `device`: registers and spill bytes a thread, static
-// and dynamic shared bytes a block, threads a block, and the blocks that
-// reside on one SM.
+// What a pass gets on `device` (tile_attributes).
 template <int LOG2M, int WHICH>
 cudaError_t chirp_regs_attributes(int device, int* attrs) {
-  cudaError_t e = prepare_chirp_regs<LOG2M, WHICH>(device);
-  cudaFuncAttributes fa;
-  if (e == cudaSuccess) {
-    e = cudaFuncGetAttributes(&fa, chirp_regs_kernel<LOG2M, WHICH>());
-  }
-  if (e != cudaSuccess) return e;
-  attrs[0] = fa.numRegs;
-  attrs[1] = static_cast<int>(fa.localSizeBytes);
-  attrs[2] = static_cast<int>(fa.sharedSizeBytes);
-  attrs[3] = chirp_regs_smem<LOG2M, WHICH>();
-  attrs[4] = chirp_regs_threads<LOG2M, WHICH>();
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &attrs[5], chirp_regs_kernel<LOG2M, WHICH>(), attrs[4], attrs[3]);
+  return tile_attributes(chirp_regs_kernel<LOG2M, WHICH>(),
+                         chirp_regs_smem<LOG2M, WHICH>(), device,
+                         chirp_regs_done<LOG2M, WHICH>(), attrs,
+                         chirp_regs_threads<LOG2M, WHICH>());
 }
 
 }  // namespace
@@ -702,8 +701,7 @@ int rpf_fused_psd_chirp_large_attributes(int log2m, int which, int device,
       which > 3 || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t e;
 #define RPF_CASE(L)                                                   \
   case L:                                                             \
     e = which == 0   ? chirp_regs_attributes<L, 0>(device, attrs)     \
@@ -717,23 +715,20 @@ int rpf_fused_psd_chirp_large_attributes(int log2m, int which, int device,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef RPF_CASE
-  if (e != cudaSuccess) cudaGetLastError();
   return static_cast<int>(e);
 }
 
-
-// The control: the first form's passes A, B, C and the row sum on
-// `stream`. raw: (F, 2N) u8,
-// 4-byte aligned, N = bins; tw1, tw2: plan_twiddles of M1's and M2's
-// plans; order1, order2: (M1,), (M2,) int32, element_of_bin of each;
-// inter: (M1, M2) complex64, W_M^(k1 n2); chirp: (N,) complex64 a;
-// window: (N,) f32, or null; spectrum: (M1, M2) complex64, B[k1 + M1 k2] /
-// M at (k1, k2); scratch: (F, M) complex64; partial: (ceil(F / group_c),
-// row) f32; out: (row,) f32, of which the first N are the bins (row: N
-// rounded up to 32); plan1, plan2: the plans' ints. cols_a, rows_b,
-// cols_c: the transforms of a tile of each pass; xs1, xs2: the tiles'
-// strides (M1's for A and C, M2's for B); group_*: frames a block of each
-// pass. Returns a cudaError_t (0 on success); does not synchronise.
+// The control: the first form's passes A, B, C and the row sum on `stream`.
+// raw: (F, 2N) u8, 4-byte aligned, N = bins; tw1, tw2: plan_twiddles of M1's
+// and M2's plans; order1, order2: (M1,), (M2,) int32, element_of_bin of each;
+// inter: (M1, M2) complex64, W_M^(k1 n2); chirp: (N,) complex64 a; window:
+// (N,) f32, or null; spectrum: (M1, M2) complex64, B[k1 + M1 k2] / M at (k1,
+// k2); scratch: (F, M) complex64; partial: (ceil(F / group_c), row) f32; out:
+// (row,) f32, of which the first N are the bins (row: N rounded up to 32);
+// plan1, plan2: the plans' ints. cols_a, rows_b, cols_c: the transforms of a
+// tile of each pass; xs1, xs2: the tiles' strides (M1's for A and C, M2's for
+// B); group_*: frames a block of each pass. Returns a cudaError_t (0 on
+// success); does not synchronise.
 int rpf_fused_psd_chirp_large_control(
     const void* raw, const void* tw1, const void* order1, const void* inter,
     const void* chirp, const void* window, const void* tw2,

@@ -245,6 +245,9 @@ inline bool read_ml_plan(const int* ints, int max_n, RingPlan* p) {
 // C), c0 = j C, those below n2_len) of frames [g * group, min((g + 1) *
 // group, F, n_valid)), g = b / tiles. p: N1's plan with tf = kColsThreads
 // / C, lanes = C.
+// Three blocks an SM (80 registers, no spill): two (128) ran 1-4% slower
+// at 16464, 20000, 100000 and 10^6 and 3% faster at 49152
+// (probes/large_awkward_builds.py on an H100).
 template <bool WINDOWED>
 __global__ void __launch_bounds__(kColsThreads, 3)
 ml_cols_kernel(const uint8_t* __restrict__ raw,      // (F, 2N)
@@ -593,26 +596,10 @@ int rpf_fused_psd_mixed_large_attributes(int which, int smem, int threads,
       threads < 32 || threads > kRowsThreads || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const void* kernel = ml_new_kernel(which);
-  cudaError_t e = use_device(device);
-  if (e == cudaSuccess) {
-    e = tile_opt_in(kernel, smem, device, ml_new_done[which], kMlMaxSmem);
-  }
-  cudaFuncAttributes fa;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
-  if (e == cudaSuccess) {
-    attrs[0] = fa.numRegs;
-    attrs[1] = static_cast<int>(fa.localSizeBytes);
-    attrs[2] = static_cast<int>(fa.sharedSizeBytes);
-    attrs[3] = smem;
-    attrs[4] = threads;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&attrs[5], kernel,
-                                                      threads, smem);
-  }
-  if (e != cudaSuccess) cudaGetLastError();
-  return static_cast<int>(e);
+  return static_cast<int>(tile_attributes(ml_new_kernel(which), smem,
+                                          device, ml_new_done[which], attrs,
+                                          threads, kMlMaxSmem));
 }
-
 
 // The control: the first form's pass A, pass B and the row sum on
 // `stream`, on mixed_large_split's N1 x N2. raw: (F, 2N) u8, 4-byte

@@ -72,8 +72,9 @@ from .fused_psd_mixed import (CONTROL_COUNTS, SUM_BINS, _resident,
                               mixed_plan)
 from .fused_psd_mixed_large import (RAW_ALIGN, WINDOW_ALIGN,
                                     device_plan_tables, inter_twiddle,
-                                    plan_ints, tile_attributes, tile_count,
-                                    tile_stride, workspace)
+                                    library_attributes, plan_ints,
+                                    tile_attributes, tile_count, tile_stride,
+                                    workspace)
 
 #: Eligible sizes: even N above the small chirp-Z kernel's 8192, up to the
 #: largest N the 60-seed tone yard admitted (chip_smoke.py phase 15), 2^21
@@ -386,20 +387,14 @@ def kernel_attributes(N: int, which: int,
                       device: Optional[torch.device] = None) -> dict:
     """What a register pass at N bins gets on the card (``which``:
     :data:`PASS_A`, :data:`PASS_A_WINDOWED`, :data:`PASS_B` or
-    :data:`PASS_C`): registers and spill bytes a thread, static and
-    dynamic shared bytes and threads a block, and the blocks that reside
-    on one SM. Launches nothing."""
-    device = device or torch.device("cuda", torch.cuda.current_device())
-    from . import _build
-    lib = _build.load("fused_psd_chirp_large")
-    attrs = (ctypes.c_int * 6)()
-    err = lib.rpf_fused_psd_chirp_large_attributes(
-        chirp_regs_layout(N).log2m, which, device.index or 0, attrs)
-    if err != 0:
-        raise launch_error(f"fused_psd_chirp_large attributes of pass "
-                           f"{which}", lib, err)
-    return dict(zip(("registers", "spill_bytes", "static_smem",
-                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+    :data:`PASS_C`): :func:`.fused_psd_mixed_large.library_attributes`."""
+    index = (device or torch.device(
+        "cuda", torch.cuda.current_device())).index or 0
+    log2m = chirp_regs_layout(N).log2m
+    return library_attributes(
+        "fused_psd_chirp_large", f"pass {which}",
+        lambda lib, attrs: lib.rpf_fused_psd_chirp_large_attributes(
+            log2m, which, index, attrs))
 
 
 @functools.lru_cache(maxsize=64)

@@ -119,10 +119,17 @@ def mixed_large_split(N: int) -> Tuple[int, int]:
     N is: 125 x 160 at 20000, 192 x 256 at 49152, 250 x 400 at 100000,
     1000 x 1000 at 10^6 (the JAX package's fft4 splits there). Over every
     eligible N, N1 >= 98 and N2 <= 3125."""
+    return _nearest_split(N, N)
+
+
+def _nearest_split(N: int, of: int) -> Tuple[int, int]:
+    """(N1, N / N1): N1 the divisor of ``of`` (N or a divisor of it)
+    nearest sqrt(N), the smaller on a tie, with N1 <= MAX_N1 and N / N1 <=
+    MAX_N2."""
     root = N ** 0.5
     best = None
     for d in range(max(2, -(-N // MAX_N2)), min(MAX_N1, N // 2) + 1):
-        if N % d == 0 and (best is None or abs(d - root) < abs(best - root)):
+        if of % d == 0 and (best is None or abs(d - root) < abs(best - root)):
             best = d
     if best is None:
         raise ValueError(f"no split of N={N} within {MAX_N1} x {MAX_N2}")
@@ -259,22 +266,30 @@ def _plain_twiddle(N: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(inter_twiddle(N, n1, n2)).to(device)
 
 
-def tile_attributes(library: str, entry: str, which: int, smem: int,
-                    device: Optional[torch.device] = None) -> dict:
-    """What pass ``which`` of ``library`` gets with ``smem`` dynamic bytes
-    on the card: registers and spill bytes a thread, static and dynamic
-    shared bytes and threads a block, and the blocks that reside on one
-    SM. Launches nothing."""
-    device = device or torch.device("cuda", torch.cuda.current_device())
+def library_attributes(library: str, label: str, call) -> dict:
+    """Runs ``call(lib, attrs)`` of one of ``library``'s attributes
+    entries (attrs: int[6]) and names what it wrote: registers and spill
+    bytes a thread, static and dynamic shared bytes and threads a block,
+    and the blocks that reside on one SM. Launches nothing."""
     from . import _build
     lib = _build.load(library)
     attrs = (ctypes.c_int * 6)()
-    err = getattr(lib, entry)(which, smem, device.index or 0, attrs)
+    err = call(lib, attrs)
     if err != 0:
-        raise launch_error(f"{library} attributes of pass {which}", lib,
-                           err)
+        raise launch_error(f"{library} attributes of {label}", lib, err)
     return dict(zip(("registers", "spill_bytes", "static_smem",
                      "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+
+
+def tile_attributes(library: str, entry: str, which: int, smem: int,
+                    device: Optional[torch.device] = None) -> dict:
+    """What pass ``which`` of a control's tile passes gets with ``smem``
+    dynamic bytes on the card (:func:`library_attributes`)."""
+    index = (device or torch.device(
+        "cuda", torch.cuda.current_device())).index or 0
+    return library_attributes(
+        library, f"pass {which}",
+        lambda lib, attrs: getattr(lib, entry)(which, smem, index, attrs))
 
 
 def control_attributes(N: int, which: int,
@@ -434,15 +449,7 @@ def ml_split(N: int) -> Tuple[int, int]:
     20000, 192 x 256 at 49152, 250 x 400 at 100000, 1000 x 1000 at 10^6;
     where N's nearest divisor gives an odd N2 the two swap (147 x 112 at
     16464). Over every eligible N, 49 <= N1 <= 2025 and N2 <= 6250."""
-    root = N ** 0.5
-    best = None
-    for d in range(max(2, -(-N // MAX_N2)), min(MAX_N1, N // 2) + 1):
-        if (N // 2) % d == 0 and (best is None
-                                  or abs(d - root) < abs(best - root)):
-            best = d
-    if best is None:
-        raise ValueError(f"no split of N={N} with N2 even")
-    return best, N // best
+    return _nearest_split(N, N // 2)
 
 
 def cols_count(n1: int) -> int:
@@ -461,8 +468,9 @@ def rows_shape(n2: int, plan) -> Tuple[int, int]:
     of N2p float2 rows fit TILE_SMEM (N2p: N2 rounded up to pass A's C, at
     most 16 more); tf, the threads a row, ROWS_THREADS / lanes, so that a
     block is 256 threads, doubled (and lanes halved) while a thread would
-    hold more than RING_ACC[-1] last-pass sums. On an H100 16 rows ran
-    4-19% faster than 8 at N2 = 112 and 160, 9% slower at 400."""
+    hold more than RING_ACC[-1] last-pass sums. On an H100
+    (probes/large_awkward_builds.py) 16 rows ran 4-18% faster than 8 at
+    N2 = 112 and 160 and slower at 400 (``rows16``)."""
     lanes = 16 if n2 <= 256 else 8
     while lanes > 1 and 16 * lanes * (n2 + 16) > TILE_SMEM:
         lanes //= 2
@@ -595,23 +603,16 @@ def kernel_attributes(N: int, which: int,
                       device: Optional[torch.device] = None) -> dict:
     """What a pass of the kernel at N bins gets on the card (``which``:
     :data:`PASS_A`, :data:`PASS_A_WINDOWED` or :data:`PASS_B`, which asks
-    of the class of sums N's plan takes): registers and spill bytes a
-    thread, static and dynamic shared bytes and threads a block, and the
-    blocks that reside on one SM. Launches nothing."""
+    of the class of sums N's plan takes): :func:`library_attributes`."""
     t = ml_layout(N)
-    device = device or torch.device("cuda", torch.cuda.current_device())
-    from . import _build
-    lib = _build.load("fused_psd_mixed_large")
-    attrs = (ctypes.c_int * 6)()
+    index = (device or torch.device(
+        "cuda", torch.cuda.current_device())).index or 0
     b = which == PASS_B
-    err = lib.rpf_fused_psd_mixed_large_attributes(
-        t.which_b if b else which, t.smem[1] if b else t.smem[0],
-        t.threads[1] if b else t.threads[0], device.index or 0, attrs)
-    if err != 0:
-        raise launch_error(f"fused_psd_mixed_large attributes of pass "
-                           f"{which}", lib, err)
-    return dict(zip(("registers", "spill_bytes", "static_smem",
-                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+    return library_attributes(
+        "fused_psd_mixed_large", f"pass {which}",
+        lambda lib, attrs: lib.rpf_fused_psd_mixed_large_attributes(
+            t.which_b if b else which, t.smem[b], t.threads[b], index,
+            attrs))
 
 
 @functools.lru_cache(maxsize=64)

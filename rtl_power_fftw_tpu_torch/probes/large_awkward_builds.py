@@ -14,8 +14,9 @@ ML's pass B in the wrapper:
   to M = 2^20;
 * ML ``cols2``: pass A held to two blocks an SM (128 registers); shipped,
   three (80);
-* ML ``rows8``: pass B at most 8 rows a block at every N2; shipped, 16
-  up to N2 = 256 (``fused_psd_mixed_large.rows_shape``).
+* ML ``rows8``, ``rows16``: pass B at most 8 rows a block at every N2,
+  or 16 wherever they fit; shipped, 16 up to N2 = 256
+  (``fused_psd_mixed_large.rows_shape``).
 
 At each N:F it prints one line a kernel: the device µs a call of each
 build (calls queued behind a sleep kernel, the least of three runs),
@@ -35,7 +36,6 @@ import ctypes
 import shutil
 import subprocess
 import sys
-import time
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -45,6 +45,7 @@ from ..ops.kernels import _build
 from ..ops.kernels import fused_psd_chirp_large as bl
 from ..ops.kernels import fused_psd_mixed_large as ml
 from ._timing import card
+from .ring_layouts import device_us
 
 BL_BOUNDS = {
     "a": "ChirpRegs<LOG2M>::MIN_BLOCKS_A)\nchirp_regs_a",
@@ -135,6 +136,17 @@ def rows8(n2: int, plan) -> Tuple[int, int]:
     return tf, lanes
 
 
+def rows16(n2: int, plan) -> Tuple[int, int]:
+    """``rows_shape`` with 16 rows a block wherever their two slots fit
+    and a thread's last-pass sums stay within RING_ACC[-1]."""
+    tf, lanes = _ROWS_SHAPE(n2, plan)
+    while (lanes < 16 and tf > 16 and 32 * lanes * (n2 + 16) <= ml.TILE_SMEM
+           and -(-(n2 // plan[-1]) // (tf // 2)) * plan[-1]
+           <= ml.RING_ACC[-1]):
+        tf, lanes = tf // 2, 2 * lanes
+    return tf, lanes
+
+
 def use(library: str, lib: ctypes.CDLL, rows=_ROWS_SHAPE) -> None:
     """Points a wrapper at ``lib`` and ML's layout at ``rows`` (plans,
     layouts and residency asked anew)."""
@@ -144,32 +156,6 @@ def use(library: str, lib: ctypes.CDLL, rows=_ROWS_SHAPE) -> None:
         mod._plans.clear()
         mod.resident_blocks.cache_clear()
     ml.ml_layout.cache_clear()
-
-
-def device_us(fn: Callable[[], object], calls: int = 20,
-              reps: int = 3) -> float:
-    """Device µs of one call of ``fn``: ``calls`` calls queued behind a
-    sleep kernel that outlasts their enqueue, timed by CUDA events; the
-    least of ``reps``."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    cycles = int(2 * (time.perf_counter() - t0) * 2e9)
-    best = float("inf")
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        best = min(best, 1000.0 * start.elapsed_time(end) / calls)
-    return best
 
 
 def by_pass(fn: Callable[[], object], passes, calls: int = 10,
@@ -214,7 +200,7 @@ def main(argv=None) -> int:
             ("fused_psd_chirp_large", bl.fused_psd_chirp_large, BL_SHAPES,
              ["a1", "a2", "b1", "b2", "c1", "c2"]),
             ("fused_psd_mixed_large", ml.fused_psd_mixed_large, ML_SHAPES,
-             ["cols2", "rows8"])):
+             ["cols2", "rows8", "rows16"])):
         for N, F, hann in shapes:
             raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                                 dtype=np.uint8)).to(dev)
@@ -225,7 +211,8 @@ def main(argv=None) -> int:
             for _ in range(2):
                 for name in ["shipped"] + builds:
                     use(library, libs.get(name, shipped[library]),
-                        rows8 if name == "rows8" else _ROWS_SHAPE)
+                        {"rows8": rows8, "rows16": rows16}.get(
+                            name, _ROWS_SHAPE))
                     times.setdefault(name, []).append(
                         device_us(lambda: kernel(raw, F, F, w)))
             use(library, shipped[library])

@@ -402,9 +402,8 @@ def bl_pass_b(scratch_f, N, tabs):
     last_pass_turn(xbuf, M2, tw2, w16, t_, RowTable(spectrum))
     z = transposed_passes(xbuf, M2, tw2, w16, t_)     # (M1, TF, 16)
     out = np.full(t.M, np.nan, np.complex64)
-    stage = np.full((M1 // B2, r["RUN"] if False else (M2 // B) * r["GS"]),
-                    np.nan, np.complex64)
     k1 = np.arange(M1)
+    stage = np.full((M1 // B2, (M2 // B) * r["GS"]), np.nan, np.complex64)
     for q in range(16):
         m2 = t_ + rev_bits(q, 4) * TF
         stage[(k1 // B2)[:, None], run_slot(r, (k1 % B2)[:, None],
@@ -929,11 +928,17 @@ def test_build_edits_apply_to_the_sources(name):
         "__launch_bounds__")
 
 
-def test_rows8_keeps_at_most_8_rows_and_256_threads():
+def test_probe_row_shapes_keep_256_threads():
+    """rows8 and rows16 keep a block at 256 threads: at most 8 rows, or
+    16 wherever they fit beside the shipped shape."""
     for N in ML_SIZES[::11]:
         n2 = ml.ml_layout(N).N2
-        tf, lanes = large_awkward_builds.rows8(n2, fm.mixed_plan(n2))
+        plan = fm.mixed_plan(n2)
+        tf, lanes = large_awkward_builds.rows8(n2, plan)
         assert lanes <= 8 and tf * lanes == 256
+        tf16, lanes16 = large_awkward_builds.rows16(n2, plan)
+        assert tf16 * lanes16 == 256 and lanes16 >= ml.rows_shape(n2,
+                                                                 plan)[1]
 
 
 def test_builds_probe_needs_a_card():
