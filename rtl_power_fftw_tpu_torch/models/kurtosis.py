@@ -1,6 +1,7 @@
 """Spectral kurtosis: per-bin RFI detection alongside the averaged PSD.
 
-Port of ``rtl_power_fftw_tpu/models/kurtosis.py`` for one stream. The
+Port of ``rtl_power_fftw_tpu/models/kurtosis.py``, on one stream and over
+``--streams``. The
 generalized spectral-kurtosis estimator of Nita & Gary (2010),
 
     SK = (M+1)/(M−1) · (M·S2/S1² − 1),   S1 = Σ|X|², S2 = Σ|X|⁴
@@ -9,7 +10,9 @@ over M accumulated spectra: E[SK] = 1 for Gaussian noise; tones and
 time-variable interference push SK away from 1. The device step is the
 spectral-kurtosis kernel (``ops/kernels/csrc/fused_psd_sk.cu`` on a CUDA
 device, its plain PyTorch version on the CPU), which accumulates both
-moments in one pass, its s1 the plain PSD step's bit for bit.
+moments in one pass, its s1 the plain PSD step's bit for bit; over S
+streams its streams entry, which gates each stream on its own block before
+the sum over streams.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.kernels.fused_psd_sk import fused_psd_sk, sk_keep
+from ..ops.kernels.fused_psd_sk import (fused_psd_sk, fused_psd_sk_streams,
+                                        sk_keep)
 from ..ops.spectral import (FrameSlicer, adapt_batch, bin_frequencies,
                             estimator_route, pad_frames)
+from ..parallel.sharded import one_device, stream_batch
 
 #: The excision gate, the JAX package's ``_sk_keep`` in float32.
 _sk_keep = sk_keep
@@ -82,6 +87,56 @@ class SkSessionStep:
             raw = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
         return tuple(fused_psd_sk(raw, n_valid, self._chunk, self.window,
                                   self._sigma))
+
+
+class ShardedSkStep:
+    """The spectral-kurtosis step over S streams on one device
+    (``--streams`` with ``--sk-file``/``--sk-excise``), port of the JAX
+    package's ``ShardedSkStep``: the call contract of
+    :class:`..parallel.sharded.ShardedPsdStep`, (S, F, 2N) u8 frames and
+    (S,) counts -> (per_stream (S, N) f32 s1, combined (len(fields), N)
+    f32), on ``devices[0]``. ``fields`` is ("s1", "s2") and the combined
+    rows the float32 sums over streams of each stream's s1 and s2 (so the
+    SK sidecar's M is S·repeats, the streams' spectra together); with
+    ``excise_sigma > 0`` the four fields of :class:`SkSessionStep`, each
+    stream gated on its own block's SK with its own M = n_valid[s] before
+    the sum over streams, so one stream's burst never touches the others.
+    Stateless. Each stream's rows are those of the streams kernel
+    (``fused_psd_sk_streams``; "cuda_sk" on a card, "plain_sk" on the
+    CPU); only the N and ``backend`` that :class:`SkSessionStep` takes are
+    taken."""
+
+    def __init__(self, devices, N: int, frames_per_step: int, streams: int,
+                 window: Optional[np.ndarray] = None,
+                 excise_sigma: float = 0.0, backend: str = "auto"):
+        one_device(devices)
+        self._sigma = float(excise_sigma)
+        estimator_route(N, "--sk-excise" if self._sigma > 0.0
+                        else "--sk-file", backend)
+        self.devices = list(devices)
+        self.device = torch.device(devices[0])
+        self.N = N
+        self.S = streams
+        self.F, self._chunk = adapt_batch(frames_per_step)
+        self.path = ("cuda" if self.device.type == "cuda" else "plain") + "_sk"
+        self.fields = (("s1", "s2", "s1_clean", "kept")
+                       if self._sigma > 0.0 else ("s1", "s2"))
+        self.window = None
+        if window is not None:
+            w = np.asarray(window, dtype=np.float32)
+            if w.shape != (N,):
+                raise ValueError("window must have shape (N,)")
+            self.window = torch.from_numpy(w.copy()).to(self.device)
+
+    def __call__(self, raw, n_valid) -> Tuple[torch.Tensor, torch.Tensor]:
+        """raw: (S, F, 2N) u8 and n_valid: (S,) counts, as
+        ShardedPsdStep takes them. Returns (s1 per stream (S, N), combined
+        (len(fields), N)), on the device; on CUDA computed asynchronously
+        on the current stream."""
+        raw, n_valid = stream_batch(self, raw, n_valid)
+        rows = fused_psd_sk_streams(raw, n_valid, self._chunk, self.window,
+                                    self._sigma)
+        return rows[:, 0], rows.sum(dim=0)
 
 
 def spectral_kurtosis(iq_u8: np.ndarray, N: int, sample_rate: int,

@@ -1,13 +1,14 @@
 """Multitaper (Thomson) PSD estimate.
 
-Port of ``rtl_power_fftw_tpu/models/multitaper.py`` for one stream. Each
+Port of ``rtl_power_fftw_tpu/models/multitaper.py``, on one stream and
+over ``--streams``. Each
 frame is windowed by K orthogonal DPSS (Slepian) tapers and the K
 eigenspectra are averaged: the lowest-variance estimator family for a
 fixed data length. The device step is the multitaper kernel
 (``ops/kernels/csrc/fused_psd_tapers.cu`` on a CUDA device, its plain
 PyTorch version on the CPU): one block runs every taper of its frames,
-each raw frame staged once in a shared-memory ring. DPSS tapers come from
-scipy.
+each raw frame staged once in a shared-memory ring; over S streams its
+streams entry, one row a stream. DPSS tapers come from scipy.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ import numpy as np
 import torch
 
 from ..exceptions import ReturnValue, RPFexception
-from ..ops.kernels.fused_psd_tapers import fused_psd_tapers
+from ..ops.kernels.fused_psd_tapers import (fused_psd_tapers,
+                                            fused_psd_tapers_streams)
 from ..ops.spectral import (FrameSlicer, adapt_batch, bin_frequencies,
                             estimator_route, pad_frames)
+from ..parallel.sharded import one_device, stream_batch
 
 
 def dpss_tapers(N: int, NW: float, K: int) -> np.ndarray:
@@ -81,6 +84,45 @@ class MultitaperSessionStep:
         if isinstance(raw, np.ndarray):
             raw = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
         return fused_psd_tapers(raw, n_valid, self._chunk, self.tapers)
+
+
+class ShardedMultitaperStep:
+    """The multitaper step over S streams on one device (``--streams`` with
+    ``--multitaper K``), port of the JAX package's
+    ``ShardedMultitaperStep``: the call contract of
+    :class:`..parallel.sharded.ShardedPsdStep`, (S, F, 2N) u8 frames and
+    (S,) counts -> (per_stream (S, N) f32, combined (N,) f32, their sum over
+    streams), on ``devices[0]``. Stateless: the eigenspectrum sums commute
+    with any partition of the frames, so the combined row is
+    :class:`MultitaperSessionStep` run on each stream and summed. The rows
+    are the streams kernel's (``fused_psd_tapers_streams``, the K tapers
+    shared; "cuda_multitaper" on a card, "plain_multitaper" on the CPU).
+    ``--precision`` does not apply, as on one stream."""
+
+    def __init__(self, devices, N: int, frames_per_step: int, streams: int,
+                 K: int, NW: float = 4.0):
+        one_device(devices)
+        estimator_route(N, "--multitaper")
+        self.devices = list(devices)
+        self.device = torch.device(devices[0])
+        self.N = N
+        self.S = streams
+        self.K = K
+        self.F, self._chunk = adapt_batch(frames_per_step)
+        self.path = (("cuda" if self.device.type == "cuda" else "plain")
+                     + "_multitaper")
+        self.tapers = torch.from_numpy(
+            _session_tapers(N, NW, K)).to(self.device)
+
+    def __call__(self, raw, n_valid) -> Tuple[torch.Tensor, torch.Tensor]:
+        """raw: (S, F, 2N) u8 and n_valid: (S,) counts, as
+        ShardedPsdStep takes them. Returns (per_stream (S, N), combined
+        (N,)), on the device; on CUDA computed asynchronously on the
+        current stream."""
+        raw, n_valid = stream_batch(self, raw, n_valid)
+        per_stream = fused_psd_tapers_streams(raw, n_valid, self._chunk,
+                                              self.tapers)
+        return per_stream, per_stream.sum(dim=0)
 
 
 def multitaper_psd(iq_u8: np.ndarray, N: int, sample_rate: int,

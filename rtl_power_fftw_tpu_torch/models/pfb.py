@@ -1,14 +1,16 @@
 """Polyphase filterbank (PFB) channelized PSD.
 
-Port of ``rtl_power_fftw_tpu/models/pfb.py`` for one stream (without
-``pfb_channelize``, which writes per-frame voltages). The
+Port of ``rtl_power_fftw_tpu/models/pfb.py``, on one stream and over
+``--streams`` (without ``pfb_channelize``, which writes per-frame
+voltages). The
 critically-sampled PFB — a P-tap windowed-sinc prototype folded over M
 branches, then an M-point FFT per output frame — sharpens channel
 isolation over the plain periodogram (datastore.cxx:66-88) at the cost of
 P× the input history per frame. The device step is the PFB kernel
 (``ops/kernels/csrc/fused_psd_pfb.cu`` on a CUDA device, its plain
 PyTorch version on the CPU), which builds each frame's polyphase sum from
-its history and slot rows and runs K1's register transform on it.
+its history and slot rows and runs K1's register transform on it; over S
+streams its streams entry, each stream's history on the device.
 
 ``pfb_psd(prototype=np.ones(M), taps=1)`` is exactly the Bartlett
 estimator (models/bartlett.py).
@@ -22,9 +24,10 @@ import numpy as np
 import torch
 
 from ..auxdata import make_window
-from ..ops.kernels.fused_psd_pfb import fused_psd_pfb
+from ..ops.kernels.fused_psd_pfb import fused_psd_pfb, fused_psd_pfb_streams
 from ..ops.spectral import (adapt_batch, bin_frequencies, estimator_route,
                             finalize_psd)
+from ..parallel.sharded import one_device, stream_batch
 
 
 def pfb_prototype(M: int, taps: int = 4,
@@ -118,6 +121,63 @@ class PfbSessionStep:
         """``raw``: (F, 2N) u8 (padded), a tensor on the step's device or a
         numpy array, which is copied there first."""
         return self._run(raw, n_valid)
+
+
+class ShardedPfbStep:
+    """The PFB step over S streams on one device (``--streams`` with
+    ``--pfb-taps P``), port of the JAX package's ``ShardedPfbStep``: the
+    call contract of :class:`..parallel.sharded.ShardedPsdStep`, (S, F, 2N)
+    u8 frames and (S,) counts -> (per_stream (S, N) f32, combined (N,) f32,
+    their sum over streams), on ``devices[0]``, plus ``reset()``. Each
+    stream's filter history, (S, P - 1, 2N) u8 in two device buffers
+    swapped after each step, is updated by the kernel from that stream's
+    valid rows only, as :class:`PfbSessionStep`'s is (a stream with no
+    valid frame keeps its history); ``reset()``, which the multi-stream
+    engine calls per acquisition, sets every stream's history to byte 127
+    on the next step, so history never leaks across retunes or crosses
+    streams. The combined row is :class:`PfbSessionStep` run on each
+    stream and summed. The rows are the streams kernel's
+    (``fused_psd_pfb_streams``; "cuda_pfb" on a card, "plain_pfb" on the
+    CPU); ``window`` names the prototype's window."""
+
+    def __init__(self, devices, N: int, frames_per_step: int, streams: int,
+                 taps: int = 4, window: str = "hann"):
+        one_device(devices)
+        if taps < 2:
+            raise ValueError("pfb taps must be >= 2")
+        estimator_route(N, "--pfb-taps")
+        self.devices = list(devices)
+        self.device = torch.device(devices[0])
+        self.N = N
+        self.S = streams
+        self.P = taps
+        self.F, self._chunk = adapt_batch(frames_per_step)
+        self.path = ("cuda" if self.device.type == "cuda" else "plain") + \
+            "_pfb"
+        self.h = torch.from_numpy(np.ascontiguousarray(
+            pfb_prototype(N, taps, window).reshape(taps, N))).to(self.device)
+        self._history = [torch.empty((streams, taps - 1, 2 * N),
+                                     dtype=torch.uint8, device=self.device)
+                         for _ in range(2)]
+        self._fresh = True
+
+    def reset(self) -> None:
+        """Clear every stream's filter history (new acquisition, retune)."""
+        self._fresh = True
+
+    def __call__(self, raw, n_valid) -> Tuple[torch.Tensor, torch.Tensor]:
+        """raw: (S, F, 2N) u8 and n_valid: (S,) counts, as
+        ShardedPsdStep takes them. Returns (per_stream (S, N), combined
+        (N,)), on the device; on CUDA computed asynchronously on the
+        current stream, the next histories written behind it."""
+        raw, n_valid = stream_batch(self, raw, n_valid)
+        history, history_out = self._history
+        per_stream = fused_psd_pfb_streams(raw, history, n_valid,
+                                           self._chunk, self.h, history_out,
+                                           fresh=self._fresh)
+        self._fresh = False
+        self._history.reverse()
+        return per_stream, per_stream.sum(dim=0)
 
 
 def pfb_psd(iq_u8: np.ndarray, M: int, sample_rate: int,

@@ -155,6 +155,10 @@ SIGNATURES = {
         # n_valid, two_sigma, plane, stream
         "rpf_fused_psd_sk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                              _P],
+        # raw, twiddle, window, n_valid, partial, out, device, log2n, S, F,
+        # group, two_sigma, plane, stream
+        "rpf_fused_psd_sk_streams": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _F, _I, _P],
         # log2n, windowed, plane, device, attrs (int[6])
         "rpf_fused_psd_sk_attributes": [_I, _I, _I, _I, _P],
     },
@@ -163,6 +167,10 @@ SIGNATURES = {
         # n_valid, batch, per_block, stream
         "rpf_fused_psd_tapers": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _P],
+        # raw, twiddle, tapers, n_valid, partial, out, device, log2n, S, F,
+        # group, K, batch, per_block, stream
+        "rpf_fused_psd_tapers_streams": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                         _I, _I, _I, _I, _I, _P],
         # log2n, batch, device, attrs (int[6])
         "rpf_fused_psd_tapers_attributes": [_I, _I, _I, _P],
     },
@@ -171,6 +179,10 @@ SIGNATURES = {
         # log2n, F, group, n_valid, P, fresh, ring, stage_h, stream
         "rpf_fused_psd_pfb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P],
+        # raw, history, twiddle, h, n_valid, partial, out, history_out,
+        # device, log2n, S, F, group, P, fresh, ring, stage_h, stream
+        "rpf_fused_psd_pfb_streams": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _P],
         # log2n, P, ring, stage_h, device, attrs (int[6])
         "rpf_fused_psd_pfb_attributes": [_I, _I, _I, _I, _I, _P],
     },

@@ -52,6 +52,24 @@
 // frames do not push out are kept (the JAX package's
 // PfbSessionStep.__call__, pfb.py:251-259). With `fresh` the history is
 // first set to byte 127 on the stream (a reset).
+//
+// rpf_fused_psd_pfb_streams runs either kernel over S streams of F frames,
+// (S*F, 2N) with an (S,) count array on the device and (S, P - 1, 2N)
+// histories, two buffers swapped by the caller each step, and gives each
+// stream its own row, (S, N). Block g serves stream s = g / G_s (G_s =
+// ceil(F / group) blocks a stream) from that stream's slot rows, history
+// and count, and writes partial row g; psd_sum.cuh's row sum then gives
+// each stream its own row. The streams forms (psd_pfb_streams_kernel,
+// psd_pfb_ring_streams_kernel) are the single-stream kernels with the
+// stream's rows and count resolved from the block, their bodies line for
+// line (the single-stream kernels stay as they were: their SASS is held to
+// the earlier build's). Each stream's next history comes from its own
+// valid rows, by pfb_history_kernel: rows n_valid[s] .. n_valid[s] + P - 2
+// of its virtual array, read from the count on the device (the JAX
+// package's ShardedPfbStep, pfb.py:372-380, keeps them on the host: a
+// stream with no valid frame keeps its history, one with fewer than P - 1
+// shifts it). With `fresh` every stream's history is set to byte 127
+// first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -276,6 +294,212 @@ psd_pfb_ring_kernel(const uint8_t* __restrict__ raw,      // (F, 2N), the slot
                        tid);
 }
 
+// psd_pfb_kernel over S streams: block g serves stream s = g / G_s, frames
+// [j * group, min((j + 1) * group, F, n_valid[s])), j = g - s * G_s, of
+// its slot rows after its history; partial row g.
+template <int LOG2N>
+__global__ void __launch_bounds__(RegsShape<LOG2N>::THREADS)
+psd_pfb_streams_kernel(const uint8_t* __restrict__ raw,      // (S*F, 2N)
+                       const uint8_t* __restrict__ history,  // (S, P-1, 2N)
+                       const float2* __restrict__ twiddle,
+                       const float* __restrict__ h,          // (P, N)
+                       float* __restrict__ partial,          // (S*G_s, N)
+                       int F, int group, int G_s,
+                       const int* __restrict__ counts, int P) {
+  using Pl = RegsPlan<LOG2N>;
+  using S = RegsShape<LOG2N>;
+  constexpr int N = Pl::N, R = Pl::R, TF = Pl::TF;
+  static_assert(Pl::PASSES >= 2, "the transform has an exchange");
+  extern __shared__ float4 pfb_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid / TF;
+  const int t = tid % TF;
+  float2* x = reinterpret_cast<float2*>(pfb_smem) + lane * S::XSTRIDE;
+
+  float acc[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) acc[k] = 0.0f;
+
+  const int stream = blockIdx.x / G_s;
+  raw += static_cast<size_t>(stream) * F * 2 * N;
+  history += static_cast<size_t>(stream) * (P - 1) * 2 * N;
+  const int f0 = (blockIdx.x - stream * G_s) * group;
+  const int f1 = min(f0 + group, min(F, __ldg(counts + stream)));
+  const int iters = (max(f1 - f0, 0) + S::LANES - 1) / S::LANES;
+  for (int i = 0; i < iters; ++i) {
+    const int f = f0 + lane + S::LANES * i;
+    const bool active = f < f1;
+    float2 v[R];
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = make_float2(0.0f, 0.0f);
+      for (int p = 0; p < P; ++p) {
+        const int r = f + p;
+        const uint16_t* row = reinterpret_cast<const uint16_t*>(
+            r < P - 1 ? history + static_cast<size_t>(r) * 2 * N
+                      : raw + static_cast<size_t>(r - (P - 1)) * 2 * N);
+        const float* hp = h + static_cast<size_t>(p) * N;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const unsigned u = __ldg(row + t + k * TF);
+          const float hv = __ldg(hp + t + k * TF);
+          v[k].x = __fadd_rn(v[k].x, __fmul_rn(dequant_byte(u & 0xFFu), hv));
+          v[k].y = __fadd_rn(v[k].y, __fmul_rn(dequant_byte(u >> 8), hv));
+        }
+      }
+    }
+    __syncthreads();
+    regs_transform<LOG2N>(v, x, twiddle, t, active);
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        acc[k] += v[k].x * v[k].x + v[k].y * v[k].y;
+      }
+    }
+  }
+  __syncthreads();
+
+  float* by_bin = reinterpret_cast<float*>(pfb_smem);   // (LANES, N)
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    by_bin[lane * N + regs_slot_bin<LOG2N>(t, k)] = acc[k];
+  }
+  __syncthreads();
+  regs_lane_sum<LOG2N>(by_bin, partial + static_cast<size_t>(blockIdx.x) * N,
+                       tid);
+}
+
+// psd_pfb_ring_kernel over S streams, block g as psd_pfb_streams_kernel's.
+template <int LOG2N, bool STAGE_H>
+__global__ void __launch_bounds__(RegsShape<LOG2N>::THREADS)
+psd_pfb_ring_streams_kernel(const uint8_t* __restrict__ raw,      // (S*F, 2N)
+                            const uint8_t* __restrict__ history,  // (S, P-1, 2N)
+                            const float2* __restrict__ twiddle,
+                            const float* __restrict__ h,          // (P, N)
+                            float* __restrict__ partial,          // (S*G_s, N)
+                            int F, int group, int G_s,
+                            const int* __restrict__ counts, int P) {
+  using Pl = RegsPlan<LOG2N>;
+  using S = RegsShape<LOG2N>;
+  constexpr int N = Pl::N, R = Pl::R, TF = Pl::TF;
+  constexpr int ROW = ring_row_bytes<LOG2N>();
+  constexpr int PIECES = N / 8;   // 16-byte copies of a row
+  static_assert(Pl::PASSES >= 2, "a ring slot is rewritten only after the "
+                "barrier that ends the first pass");
+  extern __shared__ float4 pfb_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid / TF;
+  const int t = tid % TF;
+  float2* x = reinterpret_cast<float2*>(pfb_smem) + lane * S::XSTRIDE;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(pfb_smem) +
+                  pfb_smem_bytes<LOG2N>();
+  const int slots = 2 * S::LANES + P - 1;
+  float* h_smem = reinterpret_cast<float*>(ring + slots * ROW);
+
+  float acc[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) acc[k] = 0.0f;
+
+  const int stream = blockIdx.x / G_s;
+  raw += static_cast<size_t>(stream) * F * 2 * N;
+  history += static_cast<size_t>(stream) * (P - 1) * 2 * N;
+  const int f0 = (blockIdx.x - stream * G_s) * group;
+  const int f1 = min(f0 + group, min(F, __ldg(counts + stream)));
+  const int frames = max(f1 - f0, 0);
+  const int iters = (frames + S::LANES - 1) / S::LANES;
+  const int rows = frames > 0 ? frames + P - 1 : 0;   // local rows read
+
+  auto stage = [&](int lo, int hi) {
+    const int pieces = (min(hi, rows) - lo) * PIECES;
+    for (int c = tid; c < pieces; c += S::THREADS) {
+      const int q = lo + c / PIECES;
+      const int r = f0 + q;
+      const int off = 16 * (c % PIECES);
+      const uint8_t* src =
+          r < P - 1 ? history + static_cast<size_t>(r) * 2 * N
+                    : raw + static_cast<size_t>(r - (P - 1)) * 2 * N;
+      cp_async16(ring + (q % slots) * ROW + off, src + off);
+    }
+  };
+
+  if constexpr (STAGE_H) {
+    for (int c = tid; c < P * N / 4; c += S::THREADS) {
+      cp_async16(h_smem + 4 * c, h + 4 * c);
+    }
+  }
+  stage(0, S::LANES + P - 1);
+  cp_async_commit();
+  const float* hp0 = STAGE_H ? h_smem : h;
+  for (int i = 0; i < iters; ++i) {
+    stage(S::LANES * (i + 1) + P - 1, S::LANES * (i + 2) + P - 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bool active = f0 + lane + S::LANES * i < f1;
+    float2 v[R];
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = make_float2(0.0f, 0.0f);
+      int slot = (S::LANES * i + lane) % slots;   // tap 0's row
+      for (int p = 0; p < P; ++p) {
+        const uint16_t* row =
+            reinterpret_cast<const uint16_t*>(ring + slot * ROW);
+        const float* hp = hp0 + p * N;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const unsigned u = row[t + k * TF];
+          const float hv = STAGE_H ? hp[t + k * TF] : __ldg(hp + t + k * TF);
+          v[k].x = __fadd_rn(v[k].x, __fmul_rn(dequant_byte(u & 0xFFu), hv));
+          v[k].y = __fadd_rn(v[k].y, __fmul_rn(dequant_byte(u >> 8), hv));
+        }
+        if (++slot == slots) slot = 0;
+      }
+    }
+    regs_transform<LOG2N>(v, x, twiddle, t, active);
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        acc[k] += v[k].x * v[k].x + v[k].y * v[k].y;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float* by_bin = reinterpret_cast<float*>(pfb_smem);   // (LANES, N)
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    by_bin[lane * N + regs_slot_bin<LOG2N>(t, k)] = acc[k];
+  }
+  __syncthreads();
+  regs_lane_sum<LOG2N>(by_bin, partial + static_cast<size_t>(blockIdx.x) * N,
+                       tid);
+}
+
+// Each stream's next history: block (r, s) writes row r < P - 1 of stream
+// s's history_out, row n_valid[s] + r of its virtual array (history rows,
+// then slot rows; the count clamped to [0, F]), 4 bytes a thread.
+__global__ void __launch_bounds__(256)
+pfb_history_kernel(const uint8_t* __restrict__ raw,      // (S*F, 2N)
+                   const uint8_t* __restrict__ history,  // (S, P-1, 2N)
+                   uint8_t* __restrict__ history_out,    // (S, P-1, 2N)
+                   const int* __restrict__ counts, int F, int P,
+                   int row_bytes) {
+  const int r = blockIdx.x;
+  const int s = blockIdx.y;
+  const int nv = min(max(__ldg(counts + s), 0), F);
+  const int v = nv + r;   // its row of the virtual array
+  const size_t rows = static_cast<size_t>(P - 1);
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(
+      v < P - 1 ? history + (s * rows + v) * row_bytes
+                : raw + (static_cast<size_t>(s) * F + v - (P - 1)) * row_bytes);
+  uint32_t* dst =
+      reinterpret_cast<uint32_t*>(history_out + (s * rows + r) * row_bytes);
+  for (int i = threadIdx.x; i < row_bytes / 4; i += blockDim.x) {
+    dst[i] = __ldg(src + i);
+  }
+}
+
 template <int LOG2N>
 cudaError_t prepare(int device) {
   static std::atomic<unsigned long long> done{0};
@@ -323,6 +547,60 @@ cudaError_t launch_groups(const void* raw, const void* history,
   } else {
     psd_pfb_ring_kernel<LOG2N, false><<<blocks, threads, smem, stream>>>(
         r, hist, tw, hp, part, F, group, n_valid, P);
+  }
+  return cudaGetLastError();
+}
+
+template <int LOG2N, bool STAGE_H>
+cudaError_t prepare_ring_streams(int device) {
+  static std::atomic<unsigned long long> done{0};
+  return opt_in_smem(psd_pfb_ring_streams_kernel<LOG2N, STAGE_H>, kMaxSmem,
+                     device, done);
+}
+
+template <int LOG2N>
+cudaError_t prepare_streams(int device) {
+  static std::atomic<unsigned long long> done{0};
+  return opt_in_smem(psd_pfb_streams_kernel<LOG2N>, pfb_smem_bytes<LOG2N>(),
+                     device, done);
+}
+
+// The streams forms' first pass on S * G_s blocks.
+template <int LOG2N>
+cudaError_t launch_streams(const void* raw, const void* history,
+                           const void* twiddle, const void* h, void* partial,
+                           int F, int group, int S, int G_s,
+                           const void* counts, int P, int ring, int stage_h,
+                           int device, cudaStream_t stream) {
+  constexpr int threads = RegsShape<LOG2N>::THREADS;
+  const auto* r = static_cast<const uint8_t*>(raw);
+  const auto* hist = static_cast<const uint8_t*>(history);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  const auto* hp = static_cast<const float*>(h);
+  auto* part = static_cast<float*>(partial);
+  const auto* nv = static_cast<const int*>(counts);
+  const int blocks = S * G_s;
+  if (!ring) {
+    const cudaError_t e = prepare_streams<LOG2N>(device);
+    if (e != cudaSuccess) return e;
+    psd_pfb_streams_kernel<LOG2N><<<blocks, threads, pfb_smem_bytes<LOG2N>(),
+                                    stream>>>(r, hist, tw, hp, part, F, group,
+                                              G_s, nv, P);
+    return cudaGetLastError();
+  }
+  const int smem = ring_smem_bytes<LOG2N>(P, stage_h != 0);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t e = stage_h ? prepare_ring_streams<LOG2N, true>(device)
+                                : prepare_ring_streams<LOG2N, false>(device);
+  if (e != cudaSuccess) return e;
+  if (stage_h) {
+    psd_pfb_ring_streams_kernel<LOG2N, true><<<blocks, threads, smem,
+                                               stream>>>(
+        r, hist, tw, hp, part, F, group, G_s, nv, P);
+  } else {
+    psd_pfb_ring_streams_kernel<LOG2N, false><<<blocks, threads, smem,
+                                                stream>>>(
+        r, hist, tw, hp, part, F, group, G_s, nv, P);
   }
   return cudaGetLastError();
 }
@@ -415,6 +693,59 @@ int rpf_fused_psd_pfb(const void* raw, const void* history,
                         taken * row_bytes, cudaMemcpyDeviceToDevice, st);
   }
   return static_cast<int>(e);
+}
+
+// S streams of F frames. raw: (S*F, 2N) u8, stream s in rows [s*F,
+// (s+1)*F); history, history_out: (S, P - 1, 2N) u8, distinct, stream s's
+// rows together; n_valid: (S,) int32 on the device, read when the kernels
+// run (a count outside [0, F] acts as its nearest bound); G_s = ceil(F /
+// group) blocks a stream; partial: (S * G_s, N) f32 scratch; out: (S, N)
+// f32; fresh: set every stream's history to byte 127 first. Other
+// arguments as rpf_fused_psd_pfb.
+int rpf_fused_psd_pfb_streams(const void* raw, const void* history,
+                              const void* twiddle, const void* h,
+                              const void* n_valid, void* partial, void* out,
+                              void* history_out, int device, int log2n,
+                              int S, int F, int group, int P, int fresh,
+                              int ring, int stage_h, void* stream) {
+  const long long G_s = group > 0 ? (F + group - 1) / group : 0;
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || S <= 0 || F <= 0 ||
+      group <= 0 || n_valid == nullptr || P < 1 || P > kMaxTaps ||
+      S * G_s > 0x7fffffffLL || S > kMaxGridY ||
+      (P > 1 && (history == nullptr || history_out == nullptr ||
+                 history == history_out))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int N = 1 << log2n;
+  const int g = static_cast<int>(G_s);
+  const size_t row_bytes = static_cast<size_t>(2) * N;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fresh && P > 1) {
+    e = cudaMemsetAsync(const_cast<void*>(history), 127,
+                        static_cast<size_t>(S) * (P - 1) * row_bytes, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+#define RPF_CASE(L)                                                         \
+  case L:                                                                   \
+    e = launch_streams<L>(raw, history, twiddle, h, partial, F, group, S,   \
+                          g, n_valid, P, ring, stage_h, device, st);        \
+    break;
+  switch (log2n) {
+    RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
+    RPF_CASE(11) RPF_CASE(12) RPF_CASE(13) RPF_CASE(14)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_CASE
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = launch_psd_sum(partial, g, N, out, st, S);
+  if (e != cudaSuccess || P == 1) return static_cast<int>(e);
+  pfb_history_kernel<<<dim3(P - 1, S), 256, 0, st>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const uint8_t*>(history),
+      static_cast<uint8_t*>(history_out), static_cast<const int*>(n_valid), F,
+      P, static_cast<int>(row_bytes));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // What the kernel (ring: the ring kernel at P taps, with stage_h h

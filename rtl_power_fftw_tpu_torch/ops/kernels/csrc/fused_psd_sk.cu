@@ -10,6 +10,18 @@
 // gates the block on its own SK (fused_psd_est.cuh, kEstSkGate) and gives
 // s1 * keep and n_valid * keep.
 //
+// rpf_fused_psd_sk_streams does this for S streams of F frames, (S*F, 2N)
+// with an (S,) count array on the device, and gives each stream its own
+// rows, (S, 2, N) or with the gate (S, 4, N): the first pass is the same
+// kernel with S folded into its grid as K4 folds it into K1's (block g
+// serves stream g / G_s; fused_psd_regs.cuh reads the stream's count when
+// it runs), so each stream's s1 is K4's row for it; the second pass is
+// est_streams_kernel (fused_psd_est.cuh), which gates each stream on its
+// own block and its own M = n_valid[s] before any sum over streams (the
+// JAX package's ShardedSkStep, kurtosis.py:293-302). On the grid one
+// stream's call gets (the same group), a stream's rows are that call's
+// bits.
+//
 // The design is K1/K2's (fused_psd.cu): the first pass is their group
 // kernel, psd_regs_kernel<LOG2N, WINDOWED, CUT> of fused_psd_regs.cuh,
 // which sums p = |X|^2 exactly as K1 does and beside it p * p, and writes
@@ -63,10 +75,13 @@ cudaError_t prepare(int device) {
                      sk_smem_bytes<LOG2N, CUT>(), device, done);
 }
 
+// Blocks serve streams of G_s blocks each (counts: (S,) on the device, or
+// null for one stream of n_valid frames).
 template <int LOG2N, bool WINDOWED, int CUT>
 cudaError_t launch_groups(const void* raw, const void* twiddle,
                           const void* window, void* partial, int F,
-                          int group, int blocks, int n_valid, int device,
+                          int group, int blocks, int G_s, int n_valid,
+                          const void* counts, int device,
                           cudaStream_t stream) {
   if constexpr (sk_smem_bytes<LOG2N, CUT>() > kMaxSmem) {
     return cudaErrorInvalidValue;   // the plane does not fit at this N
@@ -78,8 +93,8 @@ cudaError_t launch_groups(const void* raw, const void* twiddle,
            stream>>>(static_cast<const uint8_t*>(raw),
                      static_cast<const float2*>(twiddle),
                      static_cast<const float*>(window),
-                     static_cast<float*>(partial), F, group, blocks, n_valid,
-                     nullptr);
+                     static_cast<float*>(partial), F, group, G_s, n_valid,
+                     static_cast<const int*>(counts));
     return cudaGetLastError();
   }
 }
@@ -95,6 +110,37 @@ cudaError_t attributes(int device, int* attrs) {
                              RegsShape<LOG2N>::THREADS,
                              sk_smem_bytes<LOG2N, CUT>(), attrs);
   }
+}
+
+// The first pass of either entry: the plane cut or kRegsSk, windowed or
+// not, on `blocks` blocks of G_s a stream.
+cudaError_t launch_first(const void* raw, const void* twiddle,
+                         const void* window, void* partial, int log2n, int F,
+                         int group, int blocks, int G_s, int n_valid,
+                         const void* counts, int plane, int device,
+                         cudaStream_t st) {
+  cudaError_t e = cudaErrorInvalidValue;
+#define RPF_LAUNCH(L, W, CUT)                                               \
+  launch_groups<L, W, CUT>(raw, twiddle, window, partial, F, group, blocks, \
+                           G_s, n_valid, counts, device, st)
+#define RPF_CASE(L)                                                         \
+  case L:                                                                   \
+    if (plane) {                                                            \
+      e = window == nullptr ? RPF_LAUNCH(L, false, kRegsSkPlane)            \
+                            : RPF_LAUNCH(L, true, kRegsSkPlane);            \
+    } else {                                                                \
+      e = window == nullptr ? RPF_LAUNCH(L, false, kRegsSk)                 \
+                            : RPF_LAUNCH(L, true, kRegsSk);                 \
+    }                                                                       \
+    break;
+  switch (log2n) {
+    RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
+    RPF_CASE(11) RPF_CASE(12) RPF_CASE(13) RPF_CASE(14)
+    default: break;
+  }
+#undef RPF_CASE
+#undef RPF_LAUNCH
+  return e;
 }
 
 }  // namespace
@@ -119,26 +165,8 @@ int rpf_fused_psd_sk(const void* raw, const void* twiddle, const void* window,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (F + group - 1) / group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RPF_LAUNCH(L, W, CUT)                                               \
-  launch_groups<L, W, CUT>(raw, twiddle, window, partial, F, group, blocks, \
-                           n_valid, device, st)
-#define RPF_CASE(L)                                                         \
-  case L:                                                                   \
-    if (plane) {                                                            \
-      e = window == nullptr ? RPF_LAUNCH(L, false, kRegsSkPlane)            \
-                            : RPF_LAUNCH(L, true, kRegsSkPlane);            \
-    } else {                                                                \
-      e = window == nullptr ? RPF_LAUNCH(L, false, kRegsSk)                 \
-                            : RPF_LAUNCH(L, true, kRegsSk);                 \
-    }                                                                       \
-    break;
-  switch (log2n) {
-    RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
-    RPF_CASE(11) RPF_CASE(12) RPF_CASE(13) RPF_CASE(14)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef RPF_CASE
-#undef RPF_LAUNCH
+  e = launch_first(raw, twiddle, window, partial, log2n, F, group, blocks,
+                   blocks, n_valid, nullptr, plane, device, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int N = 1 << log2n;
   const dim3 grid(N / kSumBins);
@@ -152,6 +180,38 @@ int rpf_fused_psd_sk(const void* raw, const void* twiddle, const void* window,
         p, blocks, N, n_valid, two_sigma, o);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// S streams of F frames. raw: (S*F, 2N) u8, 16-byte aligned, stream s in
+// rows [s*F, (s+1)*F); n_valid: (S,) int32 on the device, read when the
+// kernels run (a count outside [0, F] acts as its nearest bound); G_s =
+// ceil(F / group) blocks a stream; partial: (2 * S * G_s, N) f32 scratch;
+// out: (S, 2, N) f32, or with two_sigma > 0 (S, 4, N), each stream gated
+// on its own moments and count. Other arguments as rpf_fused_psd_sk.
+int rpf_fused_psd_sk_streams(const void* raw, const void* twiddle,
+                             const void* window, const void* n_valid,
+                             void* partial, void* out, int device, int log2n,
+                             int S, int F, int group, float two_sigma,
+                             int plane, void* stream) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || S <= 0 || F <= 0 ||
+      group <= 0 || n_valid == nullptr || !(two_sigma >= 0.0f) ||
+      2LL * S * ((F + group - 1) / group) > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int G_s = (F + group - 1) / group;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = launch_first(raw, twiddle, window, partial, log2n, F, group, S * G_s,
+                   G_s, 0, n_valid, plane, device, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int N = 1 << log2n;
+  e = two_sigma > 0.0f
+          ? launch_est_streams<kEstSkGate>(partial, S, G_s, 1, N, n_valid, F,
+                                           0, two_sigma, out, st)
+          : launch_est_streams<kEstSk>(partial, S, G_s, 1, N, n_valid, F, 0,
+                                       two_sigma, out, st);
+  return static_cast<int>(e);
 }
 
 // What the first pass (plane: kRegsSkPlane, else kRegsSk) gets at N =

@@ -51,6 +51,21 @@
 // partial rows in float64 and divides by K. The redesign's f32 sums run
 // over tapers and frames, the control's over frames, so the two differ
 // in the last bits.
+//
+// rpf_fused_psd_tapers_streams runs either kernel over S streams of F
+// frames, (S*F, 2N) with an (S,) count array on the device, and gives each
+// stream its own row, (S, N); the (K, N) taper table is shared. Block
+// (s * G_s + j, y) serves stream s (G_s = ceil(F / group) blocks a stream)
+// and writes partial row y * S * G_s + s * G_s + j; est_streams_kernel sums
+// each stream's rows in the order one stream's pass sums them. The
+// control is psd_regs_kernel with S folded into its grid, as K4 folds it
+// into K1's. The batch kernel's streams form,
+// psd_tapers_batch_streams_kernel, is psd_tapers_batch_kernel with the
+// stream's frames and count resolved from its block (the single-stream
+// kernel stays as it was: its SASS is held to the earlier build's); its
+// grid is sized on F (fused_psd_tapers.streams_batch_grid), not on the
+// counts, which are on the device, and a block past its stream's count
+// runs no batch and writes a zero row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,10 +93,13 @@ cudaError_t prepare(int device, int* smem) {
                      device, done);
 }
 
+// blocks = S * G_s (counts: (S,) on the device, or null for one stream of
+// n_valid frames).
 template <int LOG2N>
 cudaError_t launch_groups(const void* raw, const void* twiddle,
                           const void* tapers, void* partial, int F, int group,
-                          int blocks, int K, int n_valid, int device,
+                          int blocks, int G_s, int K, int n_valid,
+                          const void* counts, int device,
                           cudaStream_t stream) {
   int smem = 0;
   const cudaError_t e = prepare<LOG2N>(device, &smem);
@@ -91,7 +109,7 @@ cudaError_t launch_groups(const void* raw, const void* twiddle,
           static_cast<const uint8_t*>(raw),
           static_cast<const float2*>(twiddle),
           static_cast<const float*>(tapers), static_cast<float*>(partial), F,
-          group, blocks, n_valid, nullptr);
+          group, G_s, n_valid, static_cast<const int*>(counts));
   return cudaGetLastError();
 }
 
@@ -232,12 +250,150 @@ psd_tapers_batch_kernel(const uint8_t* __restrict__ raw,     // (F, 2N)
       tid);
 }
 
+// psd_tapers_batch_kernel over S streams: block (g, y) serves stream s =
+// g / G_s, its frames [j * group, min((j + 1) * group, F, n_valid[s])), j
+// = g - s * G_s (the count read from device memory, a count outside [0,
+// F] acting as its nearest bound), and writes partial row y * gridDim.x +
+// g. The body is psd_tapers_batch_kernel's, line for line.
+template <int LOG2N>
+__global__ void __launch_bounds__(RegsShape<LOG2N>::THREADS,
+                                  RegsShape<LOG2N>::THREADS <= 256 ? 2 : 1)
+psd_tapers_batch_streams_kernel(
+    const uint8_t* __restrict__ raw,     // (S*F, 2N)
+    const float2* __restrict__ twiddle,  // pass_twiddles
+    const float* __restrict__ tapers,    // (K, N)
+    float* __restrict__ partial,         // (Q * S * G_s, N)
+    int F, int group, int G_s, const int* __restrict__ counts, int K,
+    int KB, int C) {
+  using P = RegsPlan<LOG2N>;
+  using S = RegsShape<LOG2N>;
+  constexpr int N = P::N, R = P::R, TF = P::TF;
+  static_assert(P::PASSES >= 2, "a ring slot is rewritten only after the "
+                "barrier that ends the first pass");
+  extern __shared__ float4 mt_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid / TF;
+  const int t = tid % TF;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(mt_smem);
+  float2* x = reinterpret_cast<float2*>(mt_smem) + lane * S::XSTRIDE;
+  const int lane_bytes = batch_lane_bytes<LOG2N>(C);
+  uint8_t* ring = smem + S::RING_OFFSET + lane * lane_bytes;
+  const int k0 = blockIdx.y * KB;
+  const int k1 = min(k0 + KB, K);
+
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+
+  const int stream = blockIdx.x / G_s;
+  const uint8_t* frames = raw + static_cast<size_t>(stream) * F * 2 * N;
+  const int f0 = (blockIdx.x - stream * G_s) * group;
+  const int f1 = min(f0 + group, min(F, __ldg(counts + stream)));
+  const int iters = (max(f1 - f0, 0) + S::LANES - 1) / S::LANES;
+  const int batches = (iters + C - 1) / C;
+
+  auto stage = [&](int b) {
+    if (b < batches) {
+      for (int c = 0; c < C; ++c) {
+        const int f = f0 + lane + S::LANES * (b * C + c);
+        if (f < f1) {
+          const uint8_t* src = frames + static_cast<size_t>(f) * 2 * N;
+          uint8_t* dst = ring + ((b & 1) * C + c) * 2 * N;
+#pragma unroll
+          for (int q = 0; q < S::COPIES; ++q) {
+            cp_async16(dst + 16 * (t + q * TF), src + 16 * (t + q * TF));
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  stage(0);
+  for (int b = 0; b < batches; ++b) {
+    stage(b + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    const int nb = min(C, iters - b * C);
+    const uint8_t* slots = ring + (b & 1) * C * 2 * N;
+    for (int k = k0; k < k1; ++k) {
+      float win[R];
+      const float* row = tapers + static_cast<size_t>(k) * N + t;
+#pragma unroll
+      for (int r = 0; r < R; ++r) win[r] = __ldg(row + r * TF);
+      for (int c = 0; c < nb; ++c) {
+        const bool active = f0 + lane + S::LANES * (b * C + c) < f1;
+        float2 v[R];
+        if (active) {
+          const uint16_t* iq =
+              reinterpret_cast<const uint16_t*>(slots + c * 2 * N);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const unsigned u = iq[t + r * TF];
+            v[r] = make_float2(__fmul_rn(dequant_byte(u & 0xFFu), win[r]),
+                               __fmul_rn(dequant_byte(u >> 8), win[r]));
+          }
+        }
+        if (k > k0 || c > 0) __syncthreads();
+        regs_transform<LOG2N>(v, x, twiddle, t, active);
+        if (active) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[r] += v[r].x * v[r].x + v[r].y * v[r].y;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float* by_bin = reinterpret_cast<float*>(mt_smem);   // (LANES, N)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    by_bin[lane * N + regs_slot_bin<LOG2N>(t, r)] = acc[r];
+  }
+  __syncthreads();
+  regs_lane_sum<LOG2N>(
+      by_bin,
+      partial + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * N,
+      tid);
+}
+
 // The batch kernel opts in to the most a block may use once; a launch
 // asks for its own C's share of it.
 template <int LOG2N>
 cudaError_t prepare_batch(int device) {
   static std::atomic<unsigned long long> done{0};
   return opt_in_smem(psd_tapers_batch_kernel<LOG2N>, kMaxSmem, device, done);
+}
+
+template <int LOG2N>
+cudaError_t prepare_batch_streams(int device) {
+  static std::atomic<unsigned long long> done{0};
+  return opt_in_smem(psd_tapers_batch_streams_kernel<LOG2N>, kMaxSmem, device,
+                     done);
+}
+
+// The batch kernel's streams form on S * G_s x ceil(K / KB) blocks.
+template <int LOG2N>
+cudaError_t launch_batch_streams(const void* raw, const void* twiddle,
+                                 const void* tapers, void* partial, int F,
+                                 int group, int S, int G_s, const void* counts,
+                                 int K, int KB, int C, int device,
+                                 cudaStream_t stream) {
+  const int smem = batch_smem_bytes<LOG2N>(C);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t e = prepare_batch_streams<LOG2N>(device);
+  if (e != cudaSuccess) return e;
+  psd_tapers_batch_streams_kernel<LOG2N>
+      <<<dim3(S * G_s, (K + KB - 1) / KB), RegsShape<LOG2N>::THREADS, smem,
+         stream>>>(static_cast<const uint8_t*>(raw),
+                   static_cast<const float2*>(twiddle),
+                   static_cast<const float*>(tapers),
+                   static_cast<float*>(partial), F, group, G_s,
+                   static_cast<const int*>(counts), K, KB, C);
+  return cudaGetLastError();
 }
 
 template <int LOG2N>
@@ -304,7 +460,8 @@ int rpf_fused_psd_tapers(const void* raw, const void* twiddle,
                                 blocks, K, per_block, n_valid, batch,       \
                                 device, st)                                 \
               : launch_groups<L>(raw, twiddle, tapers, partial, F, group,   \
-                                 blocks, K, n_valid, device, st);           \
+                                 blocks, blocks, K, n_valid, nullptr,       \
+                                 device, st);                               \
     break;
   switch (log2n) {
     RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
@@ -319,6 +476,49 @@ int rpf_fused_psd_tapers(const void* raw, const void* twiddle,
       (batch ? (K + per_block - 1) / per_block : K) * blocks, N, K, 0.0f,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// S streams of F frames. raw: (S*F, 2N) u8, 16-byte aligned, stream s in
+// rows [s*F, (s+1)*F); n_valid: (S,) int32 on the device, read when the
+// kernels run (a count outside [0, F] acts as its nearest bound); G_s =
+// ceil(F / group) blocks a stream; partial: (Q * S * G_s, N) f32 scratch,
+// Q = ceil(K / per_block) for the batch kernel (batch > 0), K for the
+// control; out: (S, N) f32. Other arguments as rpf_fused_psd_tapers.
+int rpf_fused_psd_tapers_streams(const void* raw, const void* twiddle,
+                                 const void* tapers, const void* n_valid,
+                                 void* partial, void* out, int device,
+                                 int log2n, int S, int F, int group, int K,
+                                 int batch, int per_block, void* stream) {
+  const long long G_s = group > 0 ? (F + group - 1) / group : 0;
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || S <= 0 || F <= 0 ||
+      group <= 0 || K < 1 || K > kMaxTapers || tapers == nullptr ||
+      n_valid == nullptr || batch < 0 ||
+      (batch > 0 && (per_block < 1 || per_block > K)) ||
+      S * G_s * K > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int g = static_cast<int>(G_s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RPF_CASE(L)                                                         \
+  case L:                                                                   \
+    e = batch ? launch_batch_streams<L>(raw, twiddle, tapers, partial, F,   \
+                                        group, S, g, n_valid, K, per_block, \
+                                        batch, device, st)                  \
+              : launch_groups<L>(raw, twiddle, tapers, partial, F, group,   \
+                                 S * g, g, K, 0, n_valid, device, st);      \
+    break;
+  switch (log2n) {
+    RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
+    RPF_CASE(11) RPF_CASE(12) RPF_CASE(13) RPF_CASE(14)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_CASE
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int Q = batch ? (K + per_block - 1) / per_block : K;
+  return static_cast<int>(launch_est_streams<kEstTapers>(
+      partial, S, g, Q, 1 << log2n, n_valid, F, K, 0.0f, out, st));
 }
 
 // What the first pass gets at N = 2^log2n on `device` (batch: the batch

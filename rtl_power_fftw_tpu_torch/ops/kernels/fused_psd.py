@@ -138,7 +138,9 @@ class LaunchCounts:
     spectral kurtosis, multitaper and polyphase-filterbank kernels', with
     ``kernel_sk``, ``kernel_tapers_control`` and ``kernel_pfb`` the
     kernels they were redesigned from (the controls, and the route where
-    the new ones do not fit a block).
+    the new ones do not fit a block), and ``kernel_sk_streams``,
+    ``kernel_tapers_streams`` and ``kernel_pfb_streams`` (with
+    ``_control`` after each, the controls') their streams entries'.
 
     Incremented by the wrappers only; a session's single consumer thread
     is their only caller while a session runs."""
@@ -167,6 +169,12 @@ class LaunchCounts:
         self.kernel_tapers_control = 0
         self.kernel_pfb = 0
         self.kernel_pfb_ring = 0
+        self.kernel_sk_streams = 0
+        self.kernel_sk_streams_control = 0
+        self.kernel_tapers_streams = 0
+        self.kernel_tapers_streams_control = 0
+        self.kernel_pfb_streams = 0
+        self.kernel_pfb_streams_control = 0
         self.plain = 0
 
 

@@ -24,10 +24,20 @@ is the route wherever its ring fits a block. Elsewhere (16384 bins at P
 a frame and the prototype through L2 (:func:`fused_psd_pfb_control` runs
 it at every size). On the same grid both give the same bits.
 
-:func:`fused_psd_pfb` dispatches on the tensor's device: a CPU tensor runs
-the plain PyTorch version (:func:`fused_psd_pfb_reference`), a CUDA tensor
-the kernel, or raises. ``COUNTS.kernel_pfb_ring`` counts the ring
-kernel's launches, ``COUNTS.kernel_pfb`` the control's.
+:func:`fused_psd_pfb_streams` runs S streams of F frames at once (the
+``--streams`` step) on the kernel :func:`ring_shape` picks, S folded into
+its grid as K4 folds it into K1's: (S, P - 1, 2N) histories in two device
+buffers the caller swaps, each stream's count read from an (S,) array on
+the device, one output row a stream, and each stream's next history taken
+from its own valid rows on the device (``pfb_history_kernel``).
+
+:func:`fused_psd_pfb` and :func:`fused_psd_pfb_streams` dispatch on the
+tensor's device: a CPU tensor runs the plain PyTorch version
+(:func:`fused_psd_pfb_reference`, :func:`fused_psd_pfb_streams_reference`),
+a CUDA tensor the kernel, or raises. ``COUNTS.kernel_pfb_ring`` counts the
+ring kernel's launches, ``COUNTS.kernel_pfb`` the control's, and
+``COUNTS.kernel_pfb_streams`` and ``COUNTS.kernel_pfb_streams_control``
+their streams launches.
 """
 
 from __future__ import annotations
@@ -105,6 +115,23 @@ def check_pfb_args(raw_u8: torch.Tensor, history: torch.Tensor,
                              f"{raw_u8.device}")
 
 
+def check_pfb_streams_args(raw_u8: torch.Tensor, history: torch.Tensor,
+                           h: torch.Tensor, history_out: torch.Tensor
+                           ) -> None:
+    """:func:`check_pfb_args` for S streams: ``history`` and
+    ``history_out`` distinct contiguous (S, P - 1, 2N) uint8 tensors."""
+    S = raw_u8.shape[0]
+    for name, t in (("history", history), ("history_out", history_out)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 3 or t.shape[0] != S:
+            raise ValueError(f"{name} must be an ({S}, P - 1, 2N) tensor")
+    check_pfb_args(raw_u8[0], history[0], h, history_out[0])
+    for name, t in (("history", history), ("history_out", history_out)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if h.shape[0] > 1 and history.data_ptr() == history_out.data_ptr():
+        raise ValueError("history and history_out must be distinct")
+
+
 def pfb_sums_reference(virtual: torch.Tensor, h: torch.Tensor, F: int
                        ) -> torch.Tensor:
     """The polyphase sums of the plain version: (F + P - 1, 2N) uint8 rows
@@ -141,9 +168,29 @@ def fused_psd_pfb_reference(raw_u8: torch.Tensor, history: torch.Tensor,
     return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
 
 
+def fused_psd_pfb_streams_reference(raw_u8: torch.Tensor,
+                                    history: torch.Tensor,
+                                    n_valid: torch.Tensor, chunk: int,
+                                    h: torch.Tensor,
+                                    history_out: torch.Tensor,
+                                    fresh: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_psd_pfb_streams`: each
+    stream as :func:`fused_psd_pfb_reference` takes it, with its count
+    clamped to [0, F], -> (S, N), and each stream's next history written
+    into its rows of ``history_out``."""
+    S, F = raw_u8.shape[:2]
+    counts = n_valid.clamp(0, F).tolist()
+    if fresh:
+        history.fill_(127)
+    return torch.stack([
+        fused_psd_pfb_reference(raw_u8[s], history[s], counts[s], chunk, h,
+                                history_out[s]) for s in range(S)])
+
+
 def fused_psd_pfb(raw_u8: torch.Tensor, history: torch.Tensor, n_valid: int,
                   chunk: int, h: torch.Tensor, history_out: torch.Tensor,
-                  fresh: bool = False) -> torch.Tensor:
+                  fresh: bool = False, group: Optional[int] = None
+                  ) -> torch.Tensor:
     """(F, 2N) uint8 frames after (P - 1, 2N) uint8 ``history`` rows,
     ``n_valid`` real frames, a (P, N) float32 prototype ``h`` -> (N,)
     float32 sum over those frames of |DFT(polyphase sum)|^2; the next
@@ -153,9 +200,11 @@ def fused_psd_pfb(raw_u8: torch.Tensor, history: torch.Tensor, n_valid: int,
 
     A CUDA tensor runs the kernel :func:`ring_shape` picks on the current
     stream (asynchronously: ``history_out`` is written after the kernel on
-    that stream); a CPU tensor runs the plain version."""
+    that stream), on ``group`` frames a block where given (a streams
+    call's, for a comparison on its grid), else on :func:`pfb_group`'s; a
+    CPU tensor runs the plain version."""
     return _pfb("fused_psd_pfb", raw_u8, history, n_valid, chunk, h,
-                history_out, fresh, False, None)
+                history_out, fresh, False, group)
 
 
 def fused_psd_pfb_control(raw_u8: torch.Tensor, history: torch.Tensor,
@@ -221,6 +270,81 @@ def _pfb(kernel: str, raw_u8: torch.Tensor, history: torch.Tensor,
         fp.COUNTS.kernel_pfb += 1
     else:
         fp.COUNTS.kernel_pfb_ring += 1
+    return out
+
+
+def fused_psd_pfb_streams(raw_u8: torch.Tensor, history: torch.Tensor,
+                          n_valid: torch.Tensor, chunk: int, h: torch.Tensor,
+                          history_out: torch.Tensor, fresh: bool = False,
+                          group: Optional[int] = None) -> torch.Tensor:
+    """(S, F, 2N) uint8 frames of S streams, each after its (P - 1, 2N)
+    rows of the (S, P - 1, 2N) uint8 ``history``, ``n_valid`` (S,) int32
+    real frames per stream, a (P, N) float32 prototype ``h`` -> (S, N)
+    float32, row s :func:`fused_psd_pfb` of stream s (a count outside [0,
+    F] acts as its nearest bound); each stream's next history goes to its
+    rows of ``history_out`` (distinct from ``history``); with ``fresh``
+    every stream's history is taken as byte 127 (a reset) and set so. All
+    on the frames' device.
+
+    A CUDA tensor runs the kernel :func:`ring_shape` picks on the current
+    stream (asynchronously: the kernels read ``n_valid`` from device memory
+    when they run, and write ``history_out`` after the sum), on ``group``
+    frames a block where given, else on K1's rule over all S * F frames
+    and the kernel's residency; a CPU tensor runs the plain version."""
+    return _pfb_streams("fused_psd_pfb_streams", raw_u8, history, n_valid,
+                        chunk, h, history_out, fresh, False, group)
+
+
+def fused_psd_pfb_streams_control(raw_u8: torch.Tensor,
+                                  history: torch.Tensor,
+                                  n_valid: torch.Tensor, chunk: int,
+                                  h: torch.Tensor, history_out: torch.Tensor,
+                                  fresh: bool = False,
+                                  group: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """:func:`fused_psd_pfb_streams` on the control (P rows a frame
+    through L2) at every N."""
+    return _pfb_streams("fused_psd_pfb_streams_control", raw_u8, history,
+                        n_valid, chunk, h, history_out, fresh, True, group)
+
+
+def _pfb_streams(kernel: str, raw_u8: torch.Tensor, history: torch.Tensor,
+                 n_valid: torch.Tensor, chunk: int, h: torch.Tensor,
+                 history_out: torch.Tensor, fresh: bool, control: bool,
+                 group: Optional[int]) -> torch.Tensor:
+    fp.check_streams_args(raw_u8, n_valid, chunk, None, kernel)
+    check_pfb_streams_args(raw_u8, history, h, history_out)
+    if group is not None and not 1 <= group <= raw_u8.shape[1]:
+        raise ValueError(f"group={group} outside [1, {raw_u8.shape[1]}]")
+    if not fp._on_cuda(kernel, raw_u8):
+        fp.COUNTS.plain += 1
+        return fused_psd_pfb_streams_reference(raw_u8, history, n_valid,
+                                               chunk, h, history_out, fresh)
+    S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
+    P = h.shape[0]
+    shape = None if control else ring_shape(N, P)
+    index = raw_u8.device.index
+    if group is None:
+        group = pfb_group(S * F, chunk, N, P, index, shape is not None)
+    align = RAW_ALIGN if shape is None else RING_ALIGN
+    h_align = RING_ALIGN if shape is not None and shape.stage_h else RAW_ALIGN
+    for name, t, a in (("history", history, align), ("h", h, h_align)):
+        if t.data_ptr() % a:
+            raise ValueError(f"{kernel}: {name} must be {a}-byte aligned on "
+                             "the device")
+    out = fp._launch(
+        kernel, raw_u8, h, S * -(-F // group), (S, N),
+        lambda lib, raw, twiddle, hp, partial, out, stream:
+        lib.rpf_fused_psd_pfb_streams(
+            raw, history.data_ptr(), twiddle, hp, n_valid.data_ptr(), partial,
+            out, history_out.data_ptr(), index, N.bit_length() - 1, S, F,
+            group, P, int(fresh), int(shape is not None),
+            int(shape is not None and shape.stage_h), stream),
+        library="fused_psd_pfb", raw_align=align)
+    if shape is None:
+        fp.COUNTS.kernel_pfb_streams_control += 1
+    else:
+        fp.COUNTS.kernel_pfb_streams += 1
     return out
 
 

@@ -21,11 +21,21 @@ route is the kernel it was redesigned from (``kRegsSk``: the sums in
 registers), which :func:`fused_psd_sk_control` runs at every size. Both
 give the same s2 bits.
 
-:func:`fused_psd_sk` dispatches on the tensor's device: a CPU tensor runs
-the plain PyTorch version (:func:`fused_psd_sk_reference`, whose s1 is
-:func:`.fused_psd.fused_psd_reference`'s bit for bit), a CUDA tensor the
-kernel, or raises. ``COUNTS.kernel_sk_plane`` counts the plane kernel's
-launches, ``COUNTS.kernel_sk`` the control's.
+:func:`fused_psd_sk_streams` runs S streams of F frames at once (the
+``--streams`` step): the same first pass with S folded into its grid as K4
+folds it into K1's, each stream's count read from an (S,) array on the
+device, and a second pass (``est_streams_kernel``) that gives each stream
+its own rows and gates each on its own moments and count, before any sum
+over streams; on K4's grid, so each stream's s1 is K4's row bit for bit.
+
+:func:`fused_psd_sk` and :func:`fused_psd_sk_streams` dispatch on the
+tensor's device: a CPU tensor runs the plain PyTorch version
+(:func:`fused_psd_sk_reference`, whose s1 is
+:func:`.fused_psd.fused_psd_reference`'s bit for bit, and
+:func:`fused_psd_sk_streams_reference`), a CUDA tensor the kernel, or
+raises. ``COUNTS.kernel_sk_plane`` counts the plane kernel's launches,
+``COUNTS.kernel_sk`` the control's, ``COUNTS.kernel_sk_streams`` and
+``COUNTS.kernel_sk_streams_control`` their streams launches.
 """
 
 from __future__ import annotations
@@ -75,6 +85,30 @@ def fused_psd_sk_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     return torch.stack([s1, s2, s1 * keep, M * keep])
 
 
+def fused_psd_sk_streams_reference(raw_u8: torch.Tensor,
+                                   n_valid: torch.Tensor, chunk: int,
+                                   window: Optional[torch.Tensor] = None,
+                                   sigma: float = 0.0) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_psd_sk_streams`: (S, F,
+    2N) uint8, (S,) counts -> (S, 2, N) float32 (s1, s2) of each stream's
+    first n_valid[s] frames (a count outside [0, F] acts as its nearest
+    bound), with ``sigma > 0`` (S, 4, N), each stream gated on its own
+    moments with M = its count."""
+    S, F, two_n = raw_u8.shape
+    N = two_n // 2
+    counts = n_valid.to(raw_u8.device).clamp(0, F)
+    p = fp._frame_power(raw_u8, window)
+    keep = torch.arange(F, device=raw_u8.device)[None, :] < counts[:, None]
+    p = torch.where(keep[..., None], p, 0.0)
+    s1 = p.reshape(S, F // chunk, chunk, N).sum(dim=2).sum(dim=1)
+    s2 = (p * p).reshape(S, F // chunk, chunk, N).sum(dim=2).sum(dim=1)
+    if sigma <= 0.0:
+        return torch.stack([s1, s2], dim=1)
+    M = counts.to(torch.float32)[:, None]
+    gate = sk_keep(s1, s2, M, sigma)
+    return torch.stack([s1, s2, s1 * gate, M * gate], dim=1)
+
+
 def plane_stride(N: int) -> int:
     """Floats a lane's row of the plane takes at N bins (PLANE_STRIDE): N,
     and TF more where a warp holds several lanes (TF < 32), so that their
@@ -99,7 +133,8 @@ def plane_fits(N: int) -> bool:
 
 def fused_psd_sk(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                  window: Optional[torch.Tensor] = None,
-                 sigma: float = 0.0) -> torch.Tensor:
+                 sigma: float = 0.0, group: Optional[int] = None
+                 ) -> torch.Tensor:
     """(F, 2N) uint8 frames, ``n_valid`` real frames -> (2, N) float32 rows
     s1 = sum of |DFT|^2 and s2 = sum of |DFT|^4 over those frames, on the
     tensor's device; with ``sigma > 0`` (4, N), adding s1 * keep and
@@ -107,8 +142,11 @@ def fused_psd_sk(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     ``window``: an (N,) float32 tensor on the same device, or None.
 
     A CUDA tensor runs the kernel :func:`plane_fits` picks on the current
-    stream (asynchronously); a CPU tensor runs the plain version."""
-    return _sk("fused_psd_sk", raw_u8, n_valid, chunk, window, sigma, False)
+    stream (asynchronously), on ``group`` frames a block where given (a
+    streams call's, for a comparison on its grid), else on K1's grid; a CPU
+    tensor runs the plain version."""
+    return _sk("fused_psd_sk", raw_u8, n_valid, chunk, window, sigma, False,
+               group)
 
 
 def fused_psd_sk_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -118,12 +156,12 @@ def fused_psd_sk_control(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     |X|^4 sums in registers) at every N; a CPU tensor runs the plain
     version."""
     return _sk("fused_psd_sk_control", raw_u8, n_valid, chunk, window,
-               sigma, True)
+               sigma, True, None)
 
 
 def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
         window: Optional[torch.Tensor], sigma: float,
-        control: bool) -> torch.Tensor:
+        control: bool, group: Optional[int]) -> torch.Tensor:
     """Check, then run the plain version (CPU), or on the card the control
     (``control``) or else the kernel :func:`plane_fits` picks."""
     n_valid = int(n_valid)
@@ -132,6 +170,8 @@ def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
                   window)
     if not sigma >= 0.0:
         raise ValueError(f"sigma={sigma} must be >= 0")
+    if group is not None:
+        check_group(group, raw_u8.shape[0])
     if not fp._on_cuda(kernel, raw_u8):
         fp.COUNTS.plain += 1
         return fused_psd_sk_reference(raw_u8, n_valid, chunk, window, sigma)
@@ -139,8 +179,9 @@ def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
     plane = not control and plane_fits(N)
     index = raw_u8.device.index
     # K1's (K2's) grid, from K1's occupancy: the s1 plane is K1's output.
-    group = fp.k1_group(F, chunk, fp.resident_blocks(N, window is not None,
-                                                     index))
+    if group is None:
+        group = fp.k1_group(F, chunk, fp.resident_blocks(
+            N, window is not None, index))
     out = fp._launch(
         kernel, raw_u8, window, 2 * -(-F // group),
         (4 if sigma > 0.0 else 2, N),
@@ -153,6 +194,77 @@ def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
         fp.COUNTS.kernel_sk_plane += 1
     else:
         fp.COUNTS.kernel_sk += 1
+    return out
+
+
+def check_group(group: int, F: int) -> None:
+    """Raise unless ``group`` (frames a block) is in [1, F]."""
+    if not 1 <= group <= F:
+        raise ValueError(f"group={group} outside [1, {F}]")
+
+
+def fused_psd_sk_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
+                         chunk: int, window: Optional[torch.Tensor] = None,
+                         sigma: float = 0.0, group: Optional[int] = None
+                         ) -> torch.Tensor:
+    """(S, F, 2N) uint8 frames of S streams, ``n_valid`` (S,) int32 real
+    frames per stream on the frames' device -> (S, 2, N) float32, rows s1
+    and s2 of each stream's first n_valid[s] frames (a count outside [0, F]
+    acts as its nearest bound); with ``sigma > 0`` (S, 4, N), adding s1 *
+    keep and n_valid[s] * keep, each stream gated on its own moments and
+    count (:func:`sk_keep`). ``window``: an (N,) float32 tensor on the same
+    device, or None.
+
+    A CUDA tensor runs the first pass :func:`plane_fits` picks on the
+    current stream (asynchronously: the kernels read ``n_valid`` from
+    device memory when they run), on ``group`` frames a block where given,
+    else on K4's grid; a CPU tensor runs the plain version."""
+    return _sk_streams("fused_psd_sk_streams", raw_u8, n_valid, chunk,
+                       window, sigma, False, group)
+
+
+def fused_psd_sk_streams_control(raw_u8: torch.Tensor,
+                                 n_valid: torch.Tensor, chunk: int,
+                                 window: Optional[torch.Tensor] = None,
+                                 sigma: float = 0.0) -> torch.Tensor:
+    """:func:`fused_psd_sk_streams` with the |X|^4 sums in registers (the
+    control's cut, the route at 16384 bins) at every N."""
+    return _sk_streams("fused_psd_sk_streams_control", raw_u8, n_valid,
+                       chunk, window, sigma, True, None)
+
+
+def _sk_streams(kernel: str, raw_u8: torch.Tensor, n_valid: torch.Tensor,
+                chunk: int, window: Optional[torch.Tensor], sigma: float,
+                control: bool, group: Optional[int]) -> torch.Tensor:
+    sigma = float(sigma)
+    fp.check_streams_args(raw_u8, n_valid, chunk, window, kernel)
+    if not sigma >= 0.0:
+        raise ValueError(f"sigma={sigma} must be >= 0")
+    if group is not None:
+        check_group(group, raw_u8.shape[1])
+    if not fp._on_cuda(kernel, raw_u8):
+        fp.COUNTS.plain += 1
+        return fused_psd_sk_streams_reference(raw_u8, n_valid, chunk, window,
+                                              sigma)
+    S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
+    plane = not control and plane_fits(N)
+    index = raw_u8.device.index
+    if group is None:
+        group = fp.k1_group(S * F, chunk, fp.resident_blocks(
+            N, window is not None, index))
+    out = fp._launch(
+        kernel, raw_u8, window, 2 * S * -(-F // group),
+        (S, 4 if sigma > 0.0 else 2, N),
+        lambda lib, raw, twiddle, win, partial, out, stream:
+        lib.rpf_fused_psd_sk_streams(raw, twiddle, win, n_valid.data_ptr(),
+                                     partial, out, index, N.bit_length() - 1,
+                                     S, F, group, 2.0 * sigma, int(plane),
+                                     stream),
+        library="fused_psd_sk")
+    if plane:
+        fp.COUNTS.kernel_sk_streams += 1
+    else:
+        fp.COUNTS.kernel_sk_streams_control += 1
     return out
 
 

@@ -24,10 +24,21 @@ each frame is read K times, on a grid of K2's resident blocks over K
 every size. Their f32 sums run in another order, so they agree to
 rounding, not bit for bit.
 
-:func:`fused_psd_tapers` dispatches on the tensor's device: a CPU tensor
-runs the plain PyTorch version (:func:`fused_psd_tapers_reference`), a
-CUDA tensor the kernel, or raises. ``COUNTS.kernel_tapers`` counts the
-batch kernel's launches, ``COUNTS.kernel_tapers_control`` the control's.
+:func:`fused_psd_tapers_streams` runs S streams of F frames at once (the
+``--streams`` step), one output row a stream, each stream's count read
+from an (S,) array on the device, the taper table shared: the route's
+kernel (by the same :func:`batch_shape`) with S folded into its grid, each
+stream's rows summed by ``est_streams_kernel``. The batch kernel's streams
+grid is sized on F, not on the counts (:func:`streams_batch_grid`).
+
+:func:`fused_psd_tapers` and :func:`fused_psd_tapers_streams` dispatch on
+the tensor's device: a CPU tensor runs the plain PyTorch version
+(:func:`fused_psd_tapers_reference`,
+:func:`fused_psd_tapers_streams_reference`), a CUDA tensor the kernel, or
+raises. ``COUNTS.kernel_tapers`` counts the batch kernel's launches,
+``COUNTS.kernel_tapers_control`` the control's, and
+``COUNTS.kernel_tapers_streams`` and
+``COUNTS.kernel_tapers_streams_control`` their streams launches.
 """
 
 from __future__ import annotations
@@ -104,6 +115,19 @@ def batch_grid(n_valid: int, K: int, N: int, resident: int
     return group, -(-K // ranges)
 
 
+def streams_batch_grid(S: int, F: int, K: int, N: int, resident: int
+                       ) -> Tuple[int, int]:
+    """(group, per_block) of the batch kernel's streams form over S
+    streams of F frames: :func:`batch_grid`'s rule sized on all S * F frames
+    (the counts are on the device, and the grid takes no read of them), with
+    G_s = ceil(F / group) blocks a stream, and the taper ranges from the S
+    G_s blocks that leaves."""
+    lanes = fp.regs_shape(N).lanes
+    group = lanes * max(1, -(-S * F // (resident * lanes)))
+    ranges = min(K, max(1, resident // (S * -(-F // group))))
+    return group, -(-K // ranges)
+
+
 def tapers_group(F: int, chunk: int, K: int, resident: int) -> int:
     """Frames a block of the control sums: :func:`.fused_psd.k1_group`
     over the blocks the card holds at once for each of the K tapers."""
@@ -146,16 +170,44 @@ def fused_psd_tapers_reference(raw_u8: torch.Tensor, n_valid: int,
     return total / torch.tensor(K, dtype=torch.float32)
 
 
+def fused_psd_tapers_streams_reference(raw_u8: torch.Tensor,
+                                       n_valid: torch.Tensor, chunk: int,
+                                       tapers: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_psd_tapers_streams`: each
+    stream as :func:`fused_psd_tapers_reference` takes it, with its count
+    clamped to [0, F], -> (S, N)."""
+    S, F, two_n = raw_u8.shape
+    N = two_n // 2
+    K = tapers.shape[0]
+    counts = n_valid.to(raw_u8.device).clamp(0, F)
+    v = raw_u8.reshape(S, F, N, 2).to(torch.int32)
+    re = (v[..., 0] - 127).to(torch.float32)
+    im = (v[..., 1] - 127).to(torch.float32)
+    re_t = (re[:, :, None, :] * tapers[None, None]).reshape(S, F * K, N)
+    im_t = (im[:, :, None, :] * tapers[None, None]).reshape(S, F * K, N)
+    X = torch.fft.fft(torch.complex(re_t, im_t), dim=-1)
+    p = X.real * X.real + X.imag * X.imag
+    keep = (torch.arange(F * K, device=raw_u8.device)[None, :]
+            < counts[:, None] * K)
+    p = torch.where(keep[..., None], p, 0.0)
+    total = p.reshape(S, F * K // chunk, chunk, N).sum(dim=2).sum(dim=1)
+    return total / torch.tensor(K, dtype=torch.float32)
+
+
 def fused_psd_tapers(raw_u8: torch.Tensor, n_valid: int, chunk: int,
-                     tapers: torch.Tensor) -> torch.Tensor:
+                     tapers: torch.Tensor,
+                     grid: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(F, 2N) uint8 frames, ``n_valid`` real frames, (K, N) float32
     ``tapers`` on the same device -> (N,) float32: the sum over those
     frames of the mean over the K tapers of |DFT(x * taper_k)|^2.
 
     A CUDA tensor runs the kernel :func:`batch_shape` picks on the current
-    stream (asynchronously); a CPU tensor runs the plain version."""
+    stream (asynchronously), the batch kernel on ``grid`` (group,
+    per_block) where given (a streams call's, for a comparison on its
+    grid), else on :func:`batch_grid`'s; a CPU tensor runs the plain
+    version."""
     return _tapers("fused_psd_tapers", raw_u8, n_valid, chunk, tapers,
-                   False)
+                   False, grid)
 
 
 def fused_psd_tapers_control(raw_u8: torch.Tensor, n_valid: int,
@@ -165,17 +217,20 @@ def fused_psd_tapers_control(raw_u8: torch.Tensor, n_valid: int,
     redesigned from (the taper axis on its grid) at every N; a CPU tensor
     runs the plain version."""
     return _tapers("fused_psd_tapers_control", raw_u8, n_valid, chunk,
-                   tapers, True)
+                   tapers, True, None)
 
 
 def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
-            tapers: torch.Tensor, control: bool) -> torch.Tensor:
+            tapers: torch.Tensor, control: bool,
+            grid: Optional[Tuple[int, int]]) -> torch.Tensor:
     """Check, then run the plain version (CPU), or on the card the control
     (``control``) or else the kernel :func:`batch_shape` picks."""
     n_valid = int(n_valid)
     fp.check_args(kernel, fp.fused_psd_eligible, raw_u8, n_valid, chunk,
                   None)
     check_tapers(tapers, raw_u8)
+    if grid is not None:
+        check_grid(*grid, tapers.shape[0], raw_u8.shape[0])
     if not fp._on_cuda(kernel, raw_u8):
         fp.COUNTS.plain += 1
         return fused_psd_tapers_reference(raw_u8, n_valid, chunk, tapers)
@@ -187,8 +242,8 @@ def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
         group = tapers_group(F, chunk, K, fp.resident_blocks(N, True, index))
         per_block, rows = 1, K * -(-F // group)
     else:
-        group, per_block = batch_grid(n_valid, K, N,
-                                      batch_resident_blocks(N, index))
+        group, per_block = grid or batch_grid(
+            n_valid, K, N, batch_resident_blocks(N, index))
         rows = -(-K // per_block) * max(1, -(-n_valid // group))
     out = fp._launch(
         kernel, raw_u8, tapers, rows, (N,),
@@ -202,6 +257,81 @@ def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
         fp.COUNTS.kernel_tapers_control += 1
     else:
         fp.COUNTS.kernel_tapers += 1
+    return out
+
+
+def check_grid(group: int, per_block: int, K: int, F: int) -> None:
+    """Raise unless ``group`` (frames a block) is in [1, F] and
+    ``per_block`` (tapers a block) in [1, K]."""
+    if not (1 <= group <= F and 1 <= per_block <= K):
+        raise ValueError(f"grid ({group}, {per_block}) outside [1, {F}] x "
+                         f"[1, {K}]")
+
+
+def fused_psd_tapers_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
+                             chunk: int, tapers: torch.Tensor,
+                             grid: Optional[Tuple[int, int]] = None
+                             ) -> torch.Tensor:
+    """(S, F, 2N) uint8 frames of S streams, ``n_valid`` (S,) int32 real
+    frames per stream, (K, N) float32 ``tapers``, all on one device -> (S,
+    N) float32: row s the sum over stream s's first n_valid[s] frames of
+    the mean over the K tapers of |DFT(x * taper_k)|^2 (a count outside
+    [0, F] acts as its nearest bound).
+
+    A CUDA tensor runs the kernel :func:`batch_shape` picks on the current
+    stream (asynchronously: the kernels read ``n_valid`` from device memory
+    when they run), the batch kernel on ``grid`` (group, per_block) where
+    given, else on :func:`streams_batch_grid`'s; a CPU tensor runs the
+    plain version."""
+    return _tapers_streams("fused_psd_tapers_streams", raw_u8, n_valid,
+                           chunk, tapers, False, grid)
+
+
+def fused_psd_tapers_streams_control(raw_u8: torch.Tensor,
+                                     n_valid: torch.Tensor, chunk: int,
+                                     tapers: torch.Tensor) -> torch.Tensor:
+    """:func:`fused_psd_tapers_streams` on the control (the taper axis on
+    the grid) at every N."""
+    return _tapers_streams("fused_psd_tapers_streams_control", raw_u8,
+                           n_valid, chunk, tapers, True, None)
+
+
+def _tapers_streams(kernel: str, raw_u8: torch.Tensor,
+                    n_valid: torch.Tensor, chunk: int, tapers: torch.Tensor,
+                    control: bool, grid: Optional[Tuple[int, int]]
+                    ) -> torch.Tensor:
+    fp.check_streams_args(raw_u8, n_valid, chunk, None, kernel)
+    check_tapers(tapers, raw_u8)
+    if grid is not None:
+        check_grid(*grid, tapers.shape[0], raw_u8.shape[1])
+    if not fp._on_cuda(kernel, raw_u8):
+        fp.COUNTS.plain += 1
+        return fused_psd_tapers_streams_reference(raw_u8, n_valid, chunk,
+                                                  tapers)
+    S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
+    K = tapers.shape[0]
+    index = raw_u8.device.index
+    shape = None if control else batch_shape(N, K)
+    if shape is None:
+        group = tapers_group(S * F, chunk, K,
+                             fp.resident_blocks(N, True, index))
+        per_block, planes = 1, K
+    else:
+        group, per_block = grid or streams_batch_grid(
+            S, F, K, N, batch_resident_blocks(N, index))
+        planes = -(-K // per_block)
+    out = fp._launch(
+        kernel, raw_u8, tapers, planes * S * -(-F // group), (S, N),
+        lambda lib, raw, twiddle, tp, partial, out, stream:
+        lib.rpf_fused_psd_tapers_streams(
+            raw, twiddle, tp, n_valid.data_ptr(), partial, out, index,
+            N.bit_length() - 1, S, F, group, K,
+            0 if shape is None else shape.frames, per_block, stream),
+        library="fused_psd_tapers")
+    if shape is None:
+        fp.COUNTS.kernel_tapers_streams_control += 1
+    else:
+        fp.COUNTS.kernel_tapers_streams += 1
     return out
 
 

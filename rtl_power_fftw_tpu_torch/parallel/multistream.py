@@ -8,9 +8,16 @@ backpressure (acquisition.cxx:276-332). A producer blocks when its queue
 is full, and the free-slot count is histogrammed at every hand-off (the
 "first number nonzero => compute too slow" diagnostic,
 doc/rtl_power_fftw.1.md:136-148). The consumer assembles one (S, F, 2N)
-round, runs it as one multi-stream device step (``ShardedPsdStep``, the
-CUDA kernel K4) and keeps a small in-flight window so acquisition,
-host-to-device copies and compute overlap.
+round, runs it as one multi-stream device step and keeps a small in-flight
+window so acquisition, host-to-device copies and compute overlap. The step
+is picked as the JAX engine picks it (:func:`make_streams_step`): the PFB
+(``--pfb-taps``), the multitaper (``--multitaper``), spectral kurtosis
+(``--sk-file``, ``--sk-excise``), else ``ShardedPsdStep`` (K4 and the
+awkward-N kernels' streams entries). A step returns its per-stream (S, N)
+rows and a combined output, one (N,) row per name of its ``fields``
+(stacked (len(fields), N) where it has more than one), each accumulated in
+float64 on the host; a stateful step (the PFB's history) is reset at the
+start of every acquisition.
 
 On a CUDA device a round is packed into a pinned host slot, with its (S,)
 valid counts in a pinned slot beside it, and both are copied to the device
@@ -18,8 +25,8 @@ asynchronously on the consumer's own CUDA stream. ``MAX_IN_FLIGHT + 1``
 slot pairs form a ring (the single-stream ``Datastore``'s ``SlotRing``); a
 pair is refilled only after the event recorded behind its copies has
 fired, so a step never reads a later round's frames or counts; the
-step's (S, N) and (N,) sums come back into pinned slots of the same ring
-by non-blocking copies, each read after its own event. The kernel
+step's (S, N) rows and combined output come back into pinned slots of
+the same ring by non-blocking copies, each read after its own event. The kernel
 never reads frames at or above a stream's count, so a slot is not zeroed
 between rounds.
 
@@ -62,6 +69,39 @@ class MultiStreamResult:
     device_readouts: int = 0    # summed over streams
     successful_readouts: int = 0
     stream_eof: bool = False    # any stream's recording ran dry
+    #: Σ|X|⁴ combined over streams (only with a two-moment step, --sk-file).
+    pwr2: Optional[np.ndarray] = None
+    #: SK-excised accumulator and per-bin kept counts (--sk-excise).
+    pwr_clean: Optional[np.ndarray] = None
+    kept: Optional[np.ndarray] = None
+
+
+def make_streams_step(params: Params, devices: Sequence[torch.device],
+                      frames_per_step: int, streams: int,
+                      window: Optional[np.ndarray] = None):
+    """The multi-stream device step, as the JAX engine picks it
+    (``rtl_power_fftw_tpu/parallel/multistream.py:103-135``): the PFB
+    (``--pfb-taps``; the window option names its prototype's window), the
+    multitaper (``--multitaper``; its tapers replace the window), spectral
+    kurtosis (``--sk-file``, ``--sk-excise``), else ``ShardedPsdStep``."""
+    if params.pfb_taps > 1:
+        from ..models.pfb import ShardedPfbStep
+        return ShardedPfbStep(devices, params.N, frames_per_step, streams,
+                              taps=params.pfb_taps,
+                              window=params.window_function or "hann")
+    if params.multitaper >= 1:
+        from ..models.multitaper import ShardedMultitaperStep
+        return ShardedMultitaperStep(devices, params.N, frames_per_step,
+                                     streams, K=params.multitaper,
+                                     NW=params.time_bandwidth)
+    if params.sk_file or params.sk_excise > 0.0:
+        from ..models.kurtosis import ShardedSkStep
+        return ShardedSkStep(devices, params.N, frames_per_step, streams,
+                             window=window, excise_sigma=params.sk_excise,
+                             backend=params.fft_backend)
+    return ShardedPsdStep(devices, params.N, frames_per_step,
+                          streams=streams, window=window,
+                          backend=params.fft_backend)
 
 
 class MultiStreamAcquisition:
@@ -107,16 +147,20 @@ class MultiStreamAcquisition:
             frames_per_step = max(
                 _SUM_CHUNK,
                 min(params.buf_length // (2 * params.N), 2048))
-        self.step = ShardedPsdStep(devices, params.N, frames_per_step,
-                                   streams=S, window=window,
-                                   backend=params.fft_backend)
+        self.step = make_streams_step(params, devices, frames_per_step, S,
+                                      window)
         self.S = S
         self.device = self.step.device
+        # The step's combined output: one (N,) row per field, stacked where
+        # it has more than one (the spectral-kurtosis moments).
+        self.fields = getattr(self.step, "fields", ("s1",))
+        combined = ((params.N,) if len(self.fields) == 1
+                    else (len(self.fields), params.N))
         self._ring = SlotRing(
             self.device, [((S, self.step.F, 2 * params.N), torch.uint8),
                           ((S,), torch.int32)], self.MAX_IN_FLIGHT,
             out_specs=[((S, params.N), torch.float32),
-                       ((params.N,), torch.float32)])
+                       (combined, torch.float32)])
         # Welch overlap applies per stream, same as the single-stream
         # Datastore (shared formula).
         self._hop = welch_hop(params.N, params.welch_overlap)
@@ -187,6 +231,9 @@ class MultiStreamAcquisition:
         fb = 2 * N
 
         self.tune_all(freq)  # idempotent if the session pre-tuned
+        reset = getattr(self.step, "reset", None)
+        if reset is not None:
+            reset()  # stateful steps (PFB history) must not leak across retunes
 
         queues = [_queue.Queue(maxsize=self.QUEUE_DEPTH) for _ in range(S)]
         items_sem = threading.Semaphore(0)  # one permit per queued item
@@ -313,26 +360,29 @@ class MultiStreamAcquisition:
                     raise e  # drop the frequency, don't kill the session
             raise errors[0]
 
-        pwr, per_stream, done = result
+        acc, per_stream, done = result
         return MultiStreamResult(
-            pwr=pwr, per_stream_pwr=per_stream, repeats_done=done,
+            pwr=acc["s1"], per_stream_pwr=per_stream, repeats_done=done,
             device_readouts=int(counters[:, 0].sum()),
             successful_readouts=int(counters[:, 1].sum()),
-            stream_eof=any(eof_flags))
+            stream_eof=any(eof_flags), pwr2=acc.get("s2"),
+            pwr_clean=acc.get("s1_clean"), kept=acc.get("kept"))
 
     def _consume(self, queues, items_sem):
         """Consumer: one (S, F, 2N) round per step; streams that finished
-        early contribute zero-valid rows. Returns (pwr, per_stream,
-        repeats_done), accumulated in float64 on the host."""
+        early contribute zero-valid rows. Returns ({field: combined},
+        per_stream, repeats_done), accumulated in float64 on the host."""
         N, F, S = self.params.N, self.step.F, self.S
         per_stream = np.zeros((S, N), dtype=np.float64)
-        pwr = np.zeros(N, dtype=np.float64)
+        acc = {f: np.zeros(N, dtype=np.float64) for f in self.fields}
+        rows = [acc[f] for f in self.fields]
         done = np.zeros(S, dtype=np.int64)
         ring = self._ring
 
         def accumulate(ps, combined) -> None:
             per_stream[:] += ps
-            pwr[:] += combined
+            for row, part in zip(rows, combined.reshape(len(rows), N)):
+                row += part
 
         active = set(range(S))
         behind = np.zeros(S, dtype=np.int64)  # consecutive missed rounds
@@ -410,7 +460,7 @@ class MultiStreamAcquisition:
             done[:] += self._fill(ring.slot(), got)
             ring.submit(self.step(*ring.upload()), accumulate)
         ring.drain()
-        return pwr, per_stream, done
+        return acc, per_stream, done
 
     @staticmethod
     def _fill(slot, got) -> np.ndarray:

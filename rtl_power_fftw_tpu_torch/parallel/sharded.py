@@ -53,11 +53,7 @@ class ShardedPsdStep:
             raise ValueError("N must be even")
         if window is not None and len(np.asarray(window)) != N:
             raise ValueError("window must have shape (N,)")
-        if len(devices) != 1:
-            raise RPFexception(
-                "Not yet ported to the PyTorch/CUDA package: streams split "
-                f"over {len(devices)} devices. Exiting.",
-                ReturnValue.InvalidArgument)
+        one_device(devices)
         route = transform_route(N, backend)
         if route not in STREAMS_ROUTES:
             raise RPFexception(
@@ -86,20 +82,38 @@ class ShardedPsdStep:
         step's device (int32 for the counts). Returns (per_stream (S, N)
         f32, combined (N,) f32), on the device; on CUDA computed
         asynchronously on the current stream."""
-        shape = (self.S, self.F, 2 * self.N)
-        if isinstance(raw, np.ndarray):
-            raw = torch.from_numpy(np.ascontiguousarray(raw))
-        if tuple(raw.shape) != shape or raw.dtype != torch.uint8:
-            raise ValueError(f"raw frames must be {shape} uint8, got "
-                             f"{tuple(raw.shape)} {raw.dtype}")
-        if not isinstance(n_valid, torch.Tensor):
-            counts = np.asarray(n_valid)
-            if counts.shape != (self.S,) or not (
-                    (counts >= 0) & (counts <= self.F)).all():
-                raise ValueError(f"n_valid must be ({self.S},) counts in "
-                                 f"[0, {self.F}], got {counts}")
-            n_valid = torch.from_numpy(counts.astype(np.int32))
-        per_stream = self._kernel(raw.to(self.device),
-                                  n_valid.to(self.device), self._chunk,
-                                  self.window)
+        raw, n_valid = stream_batch(self, raw, n_valid)
+        per_stream = self._kernel(raw, n_valid, self._chunk, self.window)
         return per_stream, per_stream.sum(dim=0)
+
+
+def one_device(devices: Sequence[torch.device]) -> None:
+    """Raise RPFexception(InvalidArgument) unless the streams run on one
+    device (splitting them over cards is not ported)."""
+    if len(devices) != 1:
+        raise RPFexception(
+            "Not yet ported to the PyTorch/CUDA package: streams split "
+            f"over {len(devices)} devices. Exiting.",
+            ReturnValue.InvalidArgument)
+
+
+def stream_batch(step, raw, n_valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A multi-stream step's inputs on ``step.device``: ``raw`` (S, F, 2N)
+    uint8 and ``n_valid`` (S,) counts in [0, F] (int32 where it is already
+    a tensor), each a numpy array (checked and copied to the device) or a
+    tensor already on the step's device, as ``step``'s S, F and N take
+    them."""
+    shape = (step.S, step.F, 2 * step.N)
+    if isinstance(raw, np.ndarray):
+        raw = torch.from_numpy(np.ascontiguousarray(raw))
+    if tuple(raw.shape) != shape or raw.dtype != torch.uint8:
+        raise ValueError(f"raw frames must be {shape} uint8, got "
+                         f"{tuple(raw.shape)} {raw.dtype}")
+    if not isinstance(n_valid, torch.Tensor):
+        counts = np.asarray(n_valid)
+        if counts.shape != (step.S,) or not (
+                (counts >= 0) & (counts <= step.F)).all():
+            raise ValueError(f"n_valid must be ({step.S},) counts in "
+                             f"[0, {step.F}], got {counts}")
+        n_valid = torch.from_numpy(counts.astype(np.int32))
+    return raw.to(step.device), n_valid.to(step.device)

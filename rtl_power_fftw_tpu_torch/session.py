@@ -1,9 +1,9 @@
 """Session driver: per-hop acquisition and the outer measurement loop.
 
-Port of ``rtl_power_fftw_tpu/session.py`` for the averaged PSD of one
-stream or of ``--streams`` parallel sources, and for the estimators of one
-stream (``--sk-file``/``--sk-excise`` with its SK file and excised
-average, ``--multitaper``, ``--pfb-taps``). It re-implements the
+Port of ``rtl_power_fftw_tpu/session.py`` for the averaged PSD and the
+estimators (``--sk-file``/``--sk-excise`` with its SK file and excised
+average, ``--multitaper``, ``--pfb-taps``), of one stream or of
+``--streams`` parallel sources. It re-implements the
 reference's ``Acquisition`` controller (acquisition.cxx:211-441) and
 ``main``'s session loop
 (rtl_power_fftw.cxx:50-233): tune-with-retries, the producer read loop with
@@ -56,9 +56,9 @@ def _chatty(params: Params) -> bool:
 def check_ported(params: Params) -> None:
     """Raise RPFexception(InvalidArgument) for options whose path this
     package does not have yet: the estimators (``--pfb-taps``,
-    ``--multitaper``, ``--sk-file``, ``--sk-excise``) over ``--streams``
-    or at N their kernels do not take (``ops.spectral.estimator_route``),
-    ``--shard-transform`` and ``--profile``."""
+    ``--multitaper``, ``--sk-file``, ``--sk-excise``) at N their kernels
+    do not take (``ops.spectral.estimator_route``; on one stream and over
+    ``--streams`` alike), ``--shard-transform`` and ``--profile``."""
     unported = []
     if params.shard_transform:
         unported.append("--shard-transform")
@@ -66,8 +66,6 @@ def check_ported(params: Params) -> None:
         ("--pfb-taps", params.pfb_taps), ("--multitaper", params.multitaper),
         ("--sk-file", params.sk_file), ("--sk-excise", params.sk_excise > 0.0))
         if on]
-    if estimators and params.streams > 1:
-        unported.append(", ".join(estimators) + " with --streams")
     if params.profile_dir:
         unported.append("--profile")
     if unported:
@@ -155,6 +153,11 @@ class Acquisition:
                 print(f"Acquisition done at {self.endAcqTimestamp}",
                       file=self.err)
             self.pwr = result.pwr
+            # The spectral-kurtosis fields over all streams: the SK file's
+            # M is the streams' spectra together, S·repeats.
+            self.pwr2 = result.pwr2
+            self.pwr_clean = result.pwr_clean
+            self.kept = result.kept
             self.repeats_done = int(result.repeats_done.sum())
             self.multistream_repeats = result.repeats_done
             self.deviceReadouts = result.device_readouts

@@ -33,7 +33,6 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--streams", "2", "--pfb-taps", "4"],
     ["--shard-transform"],
     ["-b", "500", "--multitaper", "2"],
     ["-b", "32768", "--sk-file", "sk.dat"],
@@ -45,10 +44,9 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
     ["--profile", "trace"],
     ["--fft-backend", "matmul"],
     ["--streams", "2", "--shard-transform"],
-    ["--streams", "2", "--multitaper", "2"],
-    ["--streams", "2", "--sk-file", "sk.dat"],
-    ["--streams", "2", "--sk-excise", "3"],
     ["--streams", "2", "--fft-backend", "xla"],
+    ["--streams", "2", "--multitaper", "7", "-b", "20000"],
+    ["--streams", "2", "--pfb-taps", "4", "-b", "500"],
 ])
 def test_unported_options_exit_3(extra, capsys):
     assert cli.main(SMALL + extra, device=CPU) == 3
@@ -74,11 +72,17 @@ def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
     (["--multitaper", "2"], "plain_multitaper (N=256)"),
     (["--sk-file", "sk.dat"], "plain_sk (backend=auto, N=256)"),
     (["--sk-excise", "3"], "plain_sk (backend=auto, N=256)"),
+    (["--streams", "2", "--pfb-taps", "4"], "plain_pfb (N=256)"),
+    (["--streams", "2", "--multitaper", "2"], "plain_multitaper (N=256)"),
+    (["--streams", "2", "--sk-file", "sk.dat"],
+     "plain_sk (backend=auto, N=256)"),
+    (["--streams", "2", "--sk-excise", "3"],
+     "plain_sk (backend=auto, N=256)"),
 ])
 def test_single_stream_estimators_exit_0(extra, path, capsys, tmp_path,
                                          monkeypatch):
-    """The four single-stream estimator options run their kernels' path
-    (on the CPU, the plain versions)."""
+    """The four estimator options run their kernels' path, on one stream
+    and over ``--streams`` (on the CPU, the plain versions)."""
     monkeypatch.chdir(tmp_path)
     assert cli.main(SMALL + extra, device=CPU) == 0
     captured = capsys.readouterr()

@@ -605,7 +605,41 @@ STREAM_SCENARIOS = {
         "-f", "100M", "-n", "16", "-b", "512", "--streams", "2",
         "--precision", "high",
         "--source", "synthetic:tone=100.3M/35,noise=5,seed=14"],
+    # The estimators over --streams (twins of tests/test_sk_session.py's,
+    # test_multitaper_session.py's and test_pfb_sharded.py's multistream
+    # sessions); the SK file and the excision line are held below too.
+    "sk file": lambda tmp: [
+        "-f", "100M", "-n", "32", "-b", "256", "--streams", "2",
+        "--sk-file", str(tmp / "streams.sk"),
+        "--source", "synthetic:tone=100.1M/30,noise=5,seed=21"],
+    "sk excise": lambda tmp: [
+        "-f", "100M", "-n", "64", "-b", "64", "--streams", "2",
+        "--sk-excise", "3", "--source", _burst_source(tmp)],
+    "multitaper": lambda tmp: [
+        "-f", "100M", "-n", "16", "-b", "64", "--streams", "2",
+        "--multitaper", "2",
+        "--source", "synthetic:tone=100.1M/30,noise=5,seed=0"],
+    "pfb two hops": lambda tmp: [
+        "-f", "100M:103M", "-n", "24", "-b", "256", "--streams", "2",
+        "--pfb-taps", "4", "-q",
+        "--source", "synthetic:tone=101.5M/30,noise=5,seed=6"],
 }
+
+
+def _burst_source(tmp):
+    """A recorded stream with a tone burst in the second of four 16-frame
+    blocks of 64 bins (tests/test_sk_session.py's recording, smaller)."""
+    N, F, blocks = 64, 16, 4
+    rng = np.random.default_rng(61)
+    iq = rng.normal(127.0, 6.0, size=2 * N * F * blocks)
+    t = np.arange(N * F)
+    burst = 40.0 * np.exp(2j * np.pi * 13 * t / N)
+    lo = 2 * N * F
+    iq[lo:lo + 2 * N * F:2] += burst.real
+    iq[lo + 1:lo + 2 * N * F:2] += burst.imag
+    path = tmp / "burst.iq"
+    np.clip(np.round(iq), 0, 255).astype(np.uint8).tofile(path)
+    return f"file:{path}"
 
 
 @pytest.mark.parametrize("name", sorted(STREAM_SCENARIOS))
@@ -620,6 +654,44 @@ def test_streams_scenario_matches_jax_session(name, tmp_path):
     if not isinstance(res_j, tuple):
         streams = argv[argv.index("--streams") + 1]
         assert f"Parallel streams: {streams} (mesh size M)" in err_p
+
+
+def test_streams_sk_file_matches_jax_session(tmp_path):
+    """--streams 2 --sk-file: the SK sidecar's bytes (M = S·repeats) equal
+    the JAX session's but for the timestamps and the last digits of the
+    values (the two float32 moment sums differ in their roundings)."""
+    files = {}
+    for port in (False, True):
+        stem = tmp_path / ("port" if port else "jax")
+        stem.mkdir()
+        argv = STREAM_SCENARIOS["sk file"](stem) + ["--frames-per-step", "16"]
+        rv, _, err = run(argv, port=port)
+        assert rv == 0
+        files[port] = (stem / "streams.sk").read_text().splitlines()
+    jax_lines, port_lines = files[False], files[True]
+    assert len(port_lines) == len(jax_lines) > 256
+    assert "# Spectra accumulated: 64" in port_lines
+    for a, b in zip(jax_lines, port_lines):
+        if a.startswith("#") or not a:
+            assert TIMESTAMP.sub("<t>", a) == TIMESTAMP.sub("<t>", b)
+            continue
+        fa, va = a.split()
+        fb, vb = b.split()
+        assert fa == fb
+        assert abs(float(va) - float(vb)) <= 1e-4 * max(1.0, abs(float(va)))
+
+
+def test_streams_sk_excise_line_matches_jax_session(tmp_path):
+    argv = STREAM_SCENARIOS["sk excise"](tmp_path) + [
+        "--frames-per-step", "16"]
+    lines = {}
+    for port in (False, True):
+        rv, _, err = run(argv, port=port)
+        assert rv == 0
+        lines[port] = [x for x in err.splitlines()
+                       if x.startswith("SK excision")]
+    assert lines[True] == lines[False] and len(lines[True]) == 1
+    assert "SK excision (3 sigma): kept" in lines[True][0]
 
 
 def test_streams_session_prints_mesh_size_one():
