@@ -233,6 +233,28 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    two matrix drives once more under ``torch.profiler``, device time by
    pass.
 
+16. the estimators' streams entries (``fused_psd_sk_streams``,
+   ``fused_psd_tapers_streams``, ``fused_psd_pfb_streams``: each
+   single-stream kernel with S folded into its grid, the counts on the
+   device) at BASELINE config 5's step (16 streams, 2048 bins, 256 frames)
+   with uneven counts (0 and F among them): against their plain versions
+   and the per-stream float64 golden (SK windowed and not, with and
+   without the gate; MT at K = 7, the batch kernel, and K = 2, the
+   control; the PFB over three steps and a ``reset()``), twice each; each
+   stream's rows the single-stream kernel's on the same grid bit for bit
+   (SK's s1 K4's rows, its gate each stream's own ``sk_keep``), the PFB's
+   histories plain's and the virtual rows'; 60-seed yards of the three
+   (16 streams of 16 frames) against the scipy float32 class; four
+   drives through ``cli.main``, each on its streams kernel alone:
+   ``--streams 16 --sk-file`` (its SK file, M = 16 x 1024, against the
+   float64 SK), ``--streams 16 --sk-excise 3`` on 16 recordings with a
+   burst in one stream's block, ``--streams 16 --multitaper 7`` and a
+   two-hop ``--streams 4 --pfb-taps 4`` matrix scan; a call, the
+   device's and the wrapper's host time of each entry at the step with
+   every frame valid, beside 16 single-stream calls, the plain version,
+   ``torch.fft.fft`` on the same transforms and the bound (the
+   multitaper's streams control in turns beside it).
+
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
@@ -921,7 +943,8 @@ def launch_counts(fp, ff) -> dict:
     kernels (SK's plane
     kernel, the multitaper's batch kernel, the PFB's ring kernel), "SK
     control", "MT control" and "PFB control" the kernels those three were
-    redesigned from, "M/B control" the kernel M and
+    redesigned from, "SK-S", "MT-S" and "PFB-S" (and their controls) the
+    estimators' streams entries, "M/B control" the kernel M and
     B replaced (and its plain versions), "probes" every probe variant
     together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
@@ -944,6 +967,12 @@ def launch_counts(fp, ff) -> dict:
             "MT control": fp.COUNTS.kernel_tapers_control,
             "PFB": fp.COUNTS.kernel_pfb_ring,
             "PFB control": fp.COUNTS.kernel_pfb,
+            "SK-S": fp.COUNTS.kernel_sk_streams,
+            "SK-S control": fp.COUNTS.kernel_sk_streams_control,
+            "MT-S": fp.COUNTS.kernel_tapers_streams,
+            "MT-S control": fp.COUNTS.kernel_tapers_streams_control,
+            "PFB-S": fp.COUNTS.kernel_pfb_streams,
+            "PFB-S control": fp.COUNTS.kernel_pfb_streams_control,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -977,7 +1006,9 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1,
             "B streams": "cuda_bluestein", "ML": "cuda_mixed_large",
             "ML windowed": "cuda_mixed_large", "BL": "cuda_chirp_large",
             "BL windowed": "cuda_chirp_large", "SK": "cuda_sk",
-            "MT": "cuda_multitaper", "PFB": "cuda_pfb"}.get(kernel, "cuda")
+            "MT": "cuda_multitaper", "PFB": "cuda_pfb", "SK-S": "cuda_sk",
+            "MT-S": "cuda_multitaper",
+            "PFB-S": "cuda_pfb"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -2935,6 +2966,630 @@ def drive_pfb_scan(cli, fp, ff, tmp) -> int:
     return counts["PFB"]
 
 
+# Phase 16's shape: BASELINE config 5's step (16 streams of 256 frames of
+# 2048 bins) with uneven counts, 0 and F among them.
+ES_N, ES_F = 2048, 256
+ES_COUNTS = [256, 0, 7, 256, 1, 253, 256, 100, 256, 0, 37, 256, 2, 256, 64,
+             256]
+# The drives of phase 16: config 5's (16 streams, 256 frames a step, the
+# tone source, linear output) with each estimator, 1024 spectra a stream,
+# less their "--record <path>" and output files; and the two-hop PFB scan
+# over 4 streams, less its "-m <path>" and "--record <path>".
+C5_EST_ARGV = ["-f", "100M", "-n", "1024", "-b", "2048", "--streams",
+               str(C5_STREAMS), "--frames-per-step", "256", "-l", "--source",
+               SOURCE]
+PFB_STREAMS_SCAN_ARGV = ["-f", "100M:103M", "-n", "100", "-b", "2048", "-q",
+                         "--streams", "4", "--pfb-taps", "4", "--source",
+                         SOURCE]
+
+
+def hold_streams(label, got, want, gold, counts) -> str:
+    """A streams entry's (S, N) rows against their plain version and the
+    float64 golden: a stream of at least 64 frames by max rel (<= 1e-5 of
+    both), one of fewer by its largest error over its mean power against
+    the golden (<= 1e-5, plain's printed beside: its smallest bins are
+    single periodogram values near 0), one of none by exact zeros."""
+    rel_plain = rel_gold = few = few_plain = 0.0
+    for s, c in enumerate(counts):
+        if c == 0:
+            check(not got[s].any() and not want[s].any(),
+                  f"{label}: stream {s} of no frame is not zero")
+        elif c >= 64:
+            rel_plain = max(rel_plain, max_rel(got[s], want[s]))
+            rel_gold = max(rel_gold, max_rel(got[s], gold[s]))
+        else:
+            scale = max(float(gold[s].mean()), 1e-30)
+            few = max(few, float(np.abs(got[s] - gold[s]).max()) / scale)
+            few_plain = max(few_plain,
+                            float(np.abs(want[s] - gold[s]).max()) / scale)
+    check(rel_plain <= UNIFORM_RTOL and rel_gold <= GOLDEN_RTOL
+          and few <= GOLDEN_RTOL, f"{label}: {rel_plain} vs plain, "
+          f"{rel_gold} vs golden, {few} err/mean at few-frame streams")
+    return (f"max rel vs plain {rel_plain:.3e}, vs float64 golden "
+            f"{rel_gold:.3e} (streams of >= 64 frames); err/mean vs the "
+            f"golden {few:.3e} (plain's {few_plain:.3e}) at 1..63 frames; "
+            f"zero rows exact")
+
+
+def f32_class_rows(z64):
+    """|scipy float32 FFT|^2 of complex128 rows, in float64."""
+    import scipy.fft
+    Xc = scipy.fft.fft(z64.astype(np.complex64), axis=-1, workers=-1)
+    return Xc.real.astype(np.float64) ** 2 + Xc.imag.astype(np.float64) ** 2
+
+
+def phase_estimator_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
+                            card):
+    """16. The estimators' streams entries (``fused_psd_sk_streams``,
+    ``fused_psd_tapers_streams``, ``fused_psd_pfb_streams``) at config 5's
+    step: against their plain versions and the float64 golden, twice each;
+    each stream's rows against the single-stream kernel's on the same grid
+    bit for bit; the PFB's histories over three steps and a reset; their
+    60-seed yards; four CLI drives, each on its streams kernel alone; times
+    beside S single-stream calls, torch.fft.fft and the bound. Returns the
+    kernels-line entries."""
+    from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
+    from rtl_power_fftw_tpu_torch.models.multitaper import _session_tapers
+    from rtl_power_fftw_tpu_torch.models.pfb import (ShardedPfbStep,
+                                                     pfb_prototype)
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_sk as fsk
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_tapers as fmt
+    t0 = time.perf_counter()
+    S, N, F = C5_STREAMS, ES_N, ES_F
+    chunk = adapt_batch(F)[1]
+    counts = np.array(ES_COUNTS, np.int32)
+    nv = torch.from_numpy(counts).to(dev)
+    raw_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+    raw = torch.from_numpy(raw_np).to(dev)
+    reset_counts(fp, ff)
+    want_counts = {"SK": 0, "SK-S": 0, "SK-S control": 0, "K4": 0,
+                   "K4 windowed": 0, "MT": 0, "MT control": 0, "MT-S": 0,
+                   "MT-S control": 0, "PFB": 0, "PFB-S": 0}
+
+    # SK-S: twice (the same bits), the control's cut (kRegsSk) the same
+    # bits, s1 K4's rows, each stream the single-stream kernel's rows on
+    # K4's grid, the gate the stream's own sk_keep; s1 and s2 against
+    # plain and the float64 golden.
+    for wname in (None, "hann"):
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        gold = [golden_moments(raw_np[s], int(c), w_np)
+                for s, c in enumerate(counts)]
+        for sigma in (0.0, 3.0):
+            label = f"SK-S window={wname} gate={sigma:g}"
+            got = fsk.fused_psd_sk_streams(raw, nv, chunk, w, sigma)
+            again = fsk.fused_psd_sk_streams(raw, nv, chunk, w, sigma)
+            ctl = fsk.fused_psd_sk_streams_control(raw, nv, chunk, w, sigma)
+            k4 = fp.fused_psd_streams(raw, nv, chunk, w)
+            want = fsk.fused_psd_sk_streams_reference(raw, nv, chunk, w,
+                                                      sigma)
+            group = fp.k1_group(S * F, chunk, fp.resident_blocks(
+                N, w is not None, dev.index))
+            singles = [fsk.fused_psd_sk(raw[s], int(c), chunk, w, sigma,
+                                        group=group)
+                       for s, c in enumerate(counts)]
+            torch.cuda.synchronize()
+            want_counts["SK-S"] += 2
+            want_counts["SK-S control"] += 1
+            want_counts["K4" if w is None else "K4 windowed"] += 1
+            want_counts["SK"] += S
+            check(torch.equal(got, again), f"{label}: not deterministic")
+            check(torch.equal(got, ctl), f"{label}: not the control's bits")
+            check(torch.equal(got[:, 0], k4), f"{label}: s1 is not K4's")
+            check(all(torch.equal(got[s], singles[s]) for s in range(S)),
+                  f"{label}: a stream is not the single-stream kernel's")
+            g_np, w_rows = got.cpu().numpy(), want.cpu().numpy()
+            line = [f"moment {i + 1}: " + hold_streams(
+                f"{label} s{i + 1}", g_np[:, i], w_rows[:, i],
+                np.stack([g[i] for g in gold]), counts) for i in range(2)]
+            if sigma > 0.0:
+                M = torch.from_numpy(counts.astype(np.float32))[:, None]
+                keep = fsk.sk_keep(got[:, 0].cpu(), got[:, 1].cpu(), M,
+                                   sigma).numpy()
+                check(np.array_equal(g_np[:, 3], M.numpy() * keep)
+                      and np.array_equal(g_np[:, 2], g_np[:, 0] * keep),
+                      f"{label}: the gate is not each stream's sk_keep")
+                line.append(f"gate: {int(keep.sum())} of {S * N} stream-bins "
+                            f"kept, each stream's sk_keep bit for bit")
+            print(f"estimator streams {label} (S={S} N={N} F={F} chunk="
+                  f"{chunk} counts {ES_COUNTS}; {group} frames a block): "
+                  f"the same bits twice, the control's cut's, s1 K4's, each "
+                  f"stream the single-stream kernel's; " + "; ".join(line))
+
+    # MT-S: K = 7 (the batch kernel) and K = 2 (the control's route), the
+    # route and the streams control twice, each stream the single-stream
+    # kernel's rows on the same grid where its taper ranges are one (or
+    # its count 0 or F: the same rows), against plain and the golden.
+    for K in (7, 2):
+        tp_np = _session_tapers(N, 4.0, K)
+        tp = torch.from_numpy(tp_np).to(dev)
+        shape = fmt.batch_shape(N, K)
+        got = fmt.fused_psd_tapers_streams(raw, nv, chunk, tp)
+        again = fmt.fused_psd_tapers_streams(raw, nv, chunk, tp)
+        ctl = fmt.fused_psd_tapers_streams_control(raw, nv, chunk, tp)
+        ctl_again = fmt.fused_psd_tapers_streams_control(raw, nv, chunk, tp)
+        want = fmt.fused_psd_tapers_streams_reference(raw, nv, chunk, tp)
+        if shape is not None:
+            grid = fmt.streams_batch_grid(
+                S, F, K, N, fmt.batch_resident_blocks(N, dev.index))
+            singles = [fmt.fused_psd_tapers(raw[s], int(c), chunk, tp,
+                                            grid=grid)
+                       for s, c in enumerate(counts)]
+            want_counts["MT"] += S
+            same = [-(-K // grid[1]) == 1 or c in (0, F) for c in counts]
+        else:
+            grid = (fmt.tapers_group(S * F, chunk, K, fp.resident_blocks(
+                N, True, dev.index)), 1)
+            singles = [fmt.fused_psd_tapers_control(raw[s], int(c), chunk,
+                                                    tp, group=grid[0])
+                       for s, c in enumerate(counts)]
+            want_counts["MT control"] += S
+            same = [True] * S
+        ctl_grid = fmt.tapers_group(S * F, chunk, K, fp.resident_blocks(
+            N, True, dev.index))
+        ctl_singles = [fmt.fused_psd_tapers_control(raw[s], int(c), chunk,
+                                                    tp, group=ctl_grid)
+                       for s, c in enumerate(counts)]
+        torch.cuda.synchronize()
+        want_counts["MT-S" if shape is not None else "MT-S control"] += 2
+        want_counts["MT-S control"] += 2
+        want_counts["MT control"] += S
+        label = f"MT-S K={K}"
+        check(torch.equal(got, again) and torch.equal(ctl, ctl_again),
+              f"{label}: not deterministic")
+        check(all(torch.equal(got[s], singles[s])
+                  for s in range(S) if same[s])
+              and all(torch.equal(ctl[s], ctl_singles[s]) for s in range(S)),
+              f"{label}: a stream is not the single-stream kernel's")
+        gold = np.stack([golden_tapers(raw_np[s], int(c), tp_np)
+                         for s, c in enumerate(counts)])
+        want_np = want.cpu().numpy()
+        route = hold_streams(label, got.cpu().numpy(), want_np, gold, counts)
+        control = hold_streams(f"{label} control", ctl.cpu().numpy(),
+                               want_np, gold, counts)
+        print(f"estimator streams {label} (S={S} N={N} F={F}; the route: "
+              f"{'the batch kernel' if shape else 'the control'}, grid "
+              f"{grid}; the control's {ctl_grid} frames a block): the same "
+              f"bits twice; {sum(same)} of {S} streams the single-stream "
+              f"kernel's bits on the same grid (the rest: several taper "
+              f"ranges over another block count), the control's all "
+              f"{S}; the route: {route}; the control: {control}")
+
+    # PFB-S: ShardedPfbStep (P = 4) over three steps, counts 0, fewer than
+    # P - 1 and F among them, then reset() and a fourth, against the same
+    # step on the CPU (plain) and each stream's single-stream kernel on the
+    # same grid; the history on the card plain's and the virtual rows'.
+    P = 4
+    h_np = pfb_prototype(N, P).reshape(P, N)
+    h = torch.from_numpy(h_np).to(dev)
+    step = ShardedPfbStep([dev], N, F, S, taps=P)
+    plain = ShardedPfbStep([torch.device("cpu")], N, F, S, taps=P)
+    group = fpf.pfb_group(S * F, chunk, N, P, dev.index,
+                          fpf.ring_shape(N, P) is not None)
+    hs = [[torch.empty((P - 1, 2 * N), dtype=torch.uint8, device=dev)
+           for _ in range(2)] for _ in range(S)]
+    virtual = [None] * S
+    schedule = [counts, np.roll(counts, 3), np.roll(counts, 7), counts]
+    for k, cnt in enumerate(schedule):
+        fresh = k in (0, 3)
+        if k == 3:
+            step.reset()
+            plain.reset()
+        step_raw = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+        got, comb = step(torch.from_numpy(step_raw).to(dev),
+                         torch.from_numpy(cnt).to(dev))
+        want, want_comb = plain(step_raw, cnt)
+        singles = [fpf.fused_psd_pfb(torch.from_numpy(step_raw[s]).to(dev),
+                                     hs[s][0], int(c), chunk, h, hs[s][1],
+                                     fresh=fresh, group=group)
+                   for s, c in enumerate(cnt)]
+        torch.cuda.synchronize()
+        want_counts["PFB-S"] += 1
+        want_counts["PFB"] += S
+        gold = []
+        for s, c in enumerate(cnt):
+            if fresh:
+                virtual[s] = np.full((P - 1, 2 * N), 127, np.uint8)
+            v = np.concatenate([virtual[s], step_raw[s]])
+            gold.append(golden_pfb(v, int(c), h_np))
+            virtual[s] = v[int(c):int(c) + P - 1]
+        hist = step._history[0].cpu().numpy()
+        same_hist = (np.array_equal(hist, plain._history[0].numpy())
+                     and np.array_equal(hist, np.stack(virtual)))
+        same_single = all(torch.equal(got[s], singles[s])
+                          and torch.equal(step._history[0][s], hs[s][1])
+                          for s in range(S))
+        label = f"PFB-S P={P} step {k}{' (after reset())' if k == 3 else ''}"
+        check(same_hist and same_single, f"{label}: history {same_hist}, "
+              f"single-stream bits {same_single}")
+        check(torch.allclose(comb, got.sum(dim=0)), f"{label}: combined")
+        line = hold_streams(label, got.cpu().numpy(), want.numpy(),
+                            np.stack(gold), cnt)
+        print(f"estimator streams {label} (S={S} N={N} F={F}, {group} frames "
+              f"a block, counts {cnt.tolist()}): histories on the card "
+              f"plain's and the virtual rows' bit for bit, each stream's "
+              f"rows and history the single-stream kernel's; {line}")
+        for s in range(S):
+            hs[s].reverse()
+    # The plain step above ran on the CPU (one plain call a step).
+    want_counts["plain"] = len(schedule)
+    counts_now = launch_counts(fp, ff)
+    check(all(counts_now[k] == v for k, v in want_counts.items()),
+          f"estimator streams launch counts: {counts_now}, expected "
+          f"{want_counts}")
+    print(f"wall: estimator streams checks in {time.perf_counter() - t0:.1f} s")
+
+    # The yards: 16 streams of 2048 bins (config 5's), 16 frames a stream
+    # a seed (the drive's 256 cut for the float64 goldens' time), each
+    # stream's rows against the float64 golden and the scipy float32 class.
+    Fy = 16
+    yard_nv = torch.full((S,), Fy, dtype=torch.int32, device=dev)
+    z64 = lambda r: dequant64(r.reshape(S * Fy, 2 * N)).reshape(S, Fy, N)
+    reset_counts(fp, ff)
+    estimator_yard(
+        "SK-S s2 (16 streams of 16 frames)",
+        lambda r: fsk.fused_psd_sk_streams(
+            torch.from_numpy(r.reshape(S, Fy, 2 * N)).to(dev), yard_nv,
+            Fy)[:, 1].cpu().numpy(),
+        lambda r: np.stack([golden_moments(x, Fy)[1]
+                            for x in r.reshape(S, Fy, 2 * N)]),
+        lambda r: (f32_class_rows(z64(r)) ** 2).sum(1), N, S * Fy, 16000)
+    tp_np = _session_tapers(N, 4.0, 7)
+    tp = torch.from_numpy(tp_np).to(dev)
+    estimator_yard(
+        "MT-S K=7 (16 streams of 16 frames)",
+        lambda r: fmt.fused_psd_tapers_streams(
+            torch.from_numpy(r.reshape(S, Fy, 2 * N)).to(dev), yard_nv, Fy,
+            tp).cpu().numpy(),
+        lambda r: np.stack([golden_tapers(x, Fy, tp_np)
+                            for x in r.reshape(S, Fy, 2 * N)]),
+        lambda r: f32_class_rows(z64(r)[:, :, None, :] * tp_np.astype(
+            np.float64)[None, None]).mean(2).sum(1), N, S * Fy, 16100)
+    hist = [torch.empty((S, P - 1, 2 * N), dtype=torch.uint8, device=dev)
+            for _ in range(2)]
+    warm = np.full((P - 1, 2 * N), 127, np.uint8)
+
+    def pfb_class(r):
+        rows = []
+        for x in r.reshape(S, Fy, 2 * N):
+            sums = fpf.pfb_sums_reference(
+                torch.from_numpy(np.concatenate([warm, x])),
+                torch.from_numpy(h_np), Fy).numpy()
+            rows.append(f32_class_rows(sums.astype(np.complex128)).sum(0))
+        return np.stack(rows)
+
+    estimator_yard(
+        "PFB-S P=4 (16 streams of 16 frames)",
+        lambda r: fpf.fused_psd_pfb_streams(
+            torch.from_numpy(r.reshape(S, Fy, 2 * N)).to(dev), hist[0],
+            yard_nv, Fy, h, hist[1], fresh=True).cpu().numpy(),
+        lambda r: np.stack([golden_pfb(np.concatenate([warm, x]), Fy, h_np)
+                            for x in r.reshape(S, Fy, 2 * N)]),
+        pfb_class, N, S * Fy, 16200)
+    counts_now = launch_counts(fp, ff)
+    check(counts_now["SK-S"] == counts_now["MT-S"] == counts_now["PFB-S"]
+          == 60 and sum(counts_now.values()) == 180,
+          f"estimator streams yards' launches: {counts_now}")
+    print(f"wall: estimator streams yards in {time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its streams kernel alone.
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        repeats = 1024
+        for key, extra in (("SK-S", ["--sk-file"]),
+                           ("MT-S", ["--multitaper", "7"])):
+            record = os.path.join(tmp, f"{key}.iq")
+            sk_path = os.path.join(tmp, f"{key}.sk")
+            argv = C5_EST_ARGV + [f"--sk-file={sk_path}" if a == "--sk-file"
+                                  else a for a in extra] + [
+                "--record", record]
+
+            def streams_frames(record=record):
+                return [recorded_frames(f"{record}.s{s}", N)[:repeats]
+                        for s in range(S)]
+
+            def golden(key=key, frames=streams_frames):
+                if key == "SK-S":
+                    pwr = sum(golden_moments(x, repeats)[0]
+                              for x in frames())
+                else:
+                    pwr = sum(golden_tapers(x, repeats,
+                                            _session_tapers(N, 4.0, 7))
+                              for x in frames())
+                return golden_finalize_linear(np.fft.fftshift(pwr),
+                                              S * repeats, RATE)
+
+            launches[key] = drive(f"streams estimator {key}", argv, cli, fp,
+                                  ff, key, N, golden, GOLDEN_RTOL, streams=S,
+                                  peak_bins=4 if key == "MT-S" else 1)
+            if key == "SK-S":
+                with open(sk_path) as f:
+                    text = f.read()
+                rows = [line.split() for line in text.splitlines()
+                        if line and not line.startswith("#")]
+                sk_file = np.array([float(v) for _, v in rows])
+                moments = [golden_moments(x, repeats)
+                           for x in streams_frames()]
+                M = S * repeats
+                sk_gold = np.fft.fftshift(compute_sk(
+                    sum(m[0] for m in moments), sum(m[1] for m in moments),
+                    M))
+                err = float(np.abs(sk_file - sk_gold).max())
+                print(f"e2e streams estimator SK-S SK file: {len(rows)} "
+                      f"bins, '# Spectra accumulated: {M}' (S x repeats), "
+                      f"max |SK - float64 golden| {err:.3e} (<= 1e-4)")
+                check(len(rows) == N and f"# Spectra accumulated: {M}"
+                      in text and err <= 1e-4, "SK-S drive: SK file")
+        launches["SK-S excise"] = drive_streams_sk_excise(cli, fp, ff, tmp)
+        launches["PFB-S"] = drive_streams_pfb_scan(cli, fp, ff, tmp)
+    print(f"wall: estimator streams drives in {time.perf_counter() - t0:.1f} s")
+
+    # Times at config 5's step, every frame valid (PERF.md states the
+    # prediction): a call (CUDA events, median of 60), the device time
+    # and the wrapper's host part; the same work as S single-stream calls
+    # of F frames; the plain version; torch.fft.fft on the same S F (F K,
+    # S F polyphase sums) frames, complex64 on the card; the bound at S F
+    # frames. The multitaper's control (the taper axis) in turns beside
+    # its batch kernel.
+    full = torch.full((S,), F, dtype=torch.int32, device=dev)
+    z = torch.complex(raw[..., 0::2].float() - 127.0,
+                      raw[..., 1::2].float() - 127.0).reshape(S * F, N)
+    tp = torch.from_numpy(_session_tapers(N, 4.0, 7)).to(dev)
+    hist = [torch.full((S, P - 1, 2 * N), 127, dtype=torch.uint8,
+                       device=dev) for _ in range(2)]
+    one_hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
+    entries = {
+        "SK-S": (lambda: fsk.fused_psd_sk_streams(raw, full, chunk),
+                 lambda: fsk.fused_psd_sk_streams_reference(raw, full,
+                                                            chunk),
+                 lambda: [fsk.fused_psd_sk(raw[s], F, chunk)
+                          for s in range(S)],
+                 z, estimator_bound_ms("SK", S * F, N)),
+        "MT-S": (lambda: fmt.fused_psd_tapers_streams(raw, full, chunk, tp),
+                 lambda: fmt.fused_psd_tapers_streams_reference(
+                     raw, full, chunk, tp),
+                 lambda: [fmt.fused_psd_tapers(raw[s], F, chunk, tp)
+                          for s in range(S)],
+                 (z[:, None, :] * tp[None]).reshape(S * F * 7, N),
+                 estimator_bound_ms("MT", S * F, N, K=7)),
+        "PFB-S": (lambda: fpf.fused_psd_pfb_streams(raw, hist[0], full,
+                                                    chunk, h, hist[1]),
+                  lambda: fpf.fused_psd_pfb_streams_reference(
+                      raw, hist[0], full, chunk, h, hist[1]),
+                  lambda: [fpf.fused_psd_pfb(raw[s], one_hist[0], F, chunk,
+                                             h, one_hist[1])
+                           for s in range(S)],
+                  torch.cat([fpf.pfb_sums_reference(
+                      torch.cat([hist[0][s], raw[s]]), h, F)
+                      for s in range(S)]),
+                  estimator_bound_ms("PFB", S * F, N, P=P)),
+    }
+    times = {}
+    for key, (kernel, plain_fn, singles, zz, bound) in entries.items():
+        got = kernel().double()
+        want = plain_fn().double()
+        max_abs = float((got - want).abs().max())
+        rel = max_rel(got.cpu().numpy(), want.cpu().numpy())
+        check(rel <= UNIFORM_RTOL, f"{key} timed shape: {rel} vs plain")
+        t = {"max_abs": max_abs, "bound": bound,
+             "call": event_times_us(kernel), "plain": event_times_us(plain_fn),
+             "host": host_us(kernel),
+             "singles": event_times_us(singles, iters=20, warmup=3),
+             "singles_device": device_times_us(singles, calls=4),
+             "lib": event_times_us(lambda: torch.fft.fft(zz, dim=-1)),
+             "lib_device": device_times_us(lambda: torch.fft.fft(zz, dim=-1))}
+        kd = [device_times_us(kernel)]
+        line = ""
+        if key == "MT-S":
+            def control():
+                return fmt.fused_psd_tapers_streams_control(raw, full, chunk,
+                                                            tp)
+            cd = [device_times_us(control)]
+            kd.append(device_times_us(kernel))
+            cd.append(device_times_us(control))
+            t.update(control=event_times_us(control), control_device=min(cd),
+                     control_host=host_us(control))
+            line = (f"; the streams control (the taper axis) "
+                    f"{t['control']:.1f} us a call, device {cd[0]:.1f}/"
+                    f"{cd[1]:.1f} us (the batch kernel's {kd[0]:.1f}/"
+                    f"{kd[1]:.1f}, in turns), host {t['control_host']:.1f} "
+                    f"us; batch/control on the device "
+                    f"{min(kd) / min(cd):.3f}")
+        t["device"] = min(kd)
+        times[key] = t
+        b_us = 1e3 * bound[0]
+        print(f"time estimator streams {key} S={S} N={N} F={F}"
+              f"{' K=7' if key == 'MT-S' else ''}"
+              f"{' P=4' if key == 'PFB-S' else ''} on {card}: a call "
+              f"{t['call']:.1f} us, device {t['device']:.1f} us, host "
+              f"{t['host']:.1f} us ({S * F * N / t['device'] / 1e3:.2f} GS/s "
+              f"on the device); {S} single-stream calls of {F} frames "
+              f"{t['singles']:.1f} us (device {t['singles_device']:.1f}), "
+              f"{t['singles'] / t['call']:.2f}x a streams call; plain "
+              f"{t['plain']:.1f} us; torch.fft.fft of the "
+              f"{tuple(zz.shape)} complex64 transforms {t['lib']:.1f} us a "
+              f"call (device {t['lib_device']:.1f}), kernel/fft on the "
+              f"device {t['device'] / t['lib_device']:.3f}; bound "
+              f"{b_us:.2f} us ({bound[1]}), device/bound "
+              f"{t['device'] / b_us:.1f}x; max abs vs plain {max_abs:.4g}, "
+              f"max rel {rel:.3e}{line}")
+    print(f"wall: estimator streams phase in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, source, replaces, key, launch_key):
+        t = times[key]
+        out = {"name": name, "route": "cuda", "source": CSRC + source,
+               "replaces": replaces, "launches": launches[launch_key],
+               "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+               "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+               "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+               "device_ms": t["device"] / 1000.0,
+               "host_ms": t["host"] / 1000.0,
+               "singles_ms": t["singles"] / 1000.0}
+        if "control" in t:
+            out.update(control="psd_regs_kernel<.., kRegsTapers> (streams)",
+                       control_ms=t["control"] / 1000.0,
+                       control_device_ms=t["control_device"] / 1000.0,
+                       control_host_ms=t["control_host"] / 1000.0)
+        return out
+
+    return [entry("fused_psd_sk_streams", "fused_psd_sk.cu",
+                  "rtl_power_fftw_tpu/models/kurtosis.py:205", "SK-S",
+                  "SK-S"),
+            entry("fused_psd_tapers_streams", "fused_psd_tapers.cu",
+                  "rtl_power_fftw_tpu/models/multitaper.py:227", "MT-S",
+                  "MT-S"),
+            entry("fused_psd_pfb_streams", "fused_psd_pfb.cu",
+                  "rtl_power_fftw_tpu/models/pfb.py:262", "PFB-S", "PFB-S")]
+
+
+def drive_streams_sk_excise(cli, fp, ff, tmp) -> int:
+    """``--streams 16 --sk-excise 3`` through the CLI on 16 recorded
+    streams of 512 2048-bin frames (two 256-frame blocks each), a tone
+    burst in block 1 of stream 5 only: each stream's file comes from its
+    own recording (the session's ``make_sources`` is given one per stream
+    for this drive), exit 0, the SK streams kernel alone, the spectrum
+    within 1e-5 of the float64 golden of the excised average (each
+    stream's blocks gated on their own float64 SK) at every bin whose
+    float64 SK stays 1e-3 of the limit away from it in every block, the
+    burst's bin back at the noise floor, the kept fraction of
+    --stats-json. Returns the kernel's launches."""
+    from rtl_power_fftw_tpu_torch import session as session_mod
+    from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
+    from rtl_power_fftw_tpu_torch.sources import FileSource
+    S, N, F, blocks, burst_stream = C5_STREAMS, 2048, 256, 2, 5
+    repeats = F * blocks
+    rng = np.random.default_rng(43)
+    base = os.path.join(tmp, "streams_rfi.iq")
+    frames = []
+    for s in range(S):
+        iq = rng.normal(127.0, 6.0, size=2 * N * repeats)
+        if s == burst_stream:
+            t = np.arange(N * F)
+            burst = 40.0 * np.exp(2j * np.pi * 9 * t / N)
+            iq[2 * N * F::2] += burst.real
+            iq[2 * N * F + 1::2] += burst.imag
+        raw_np = np.clip(np.round(iq), 0, 255).astype(np.uint8)
+        raw_np.tofile(f"{base}.s{s}")
+        frames.append(raw_np.reshape(-1, 2 * N))
+    stats = os.path.join(tmp, "streams_rfi_stats.jsonl")
+    argv = ["-f", "100M", "-b", str(N), "-n", str(repeats), "-l",
+            "--streams", str(S), "--frames-per-step", str(F), "--sk-excise",
+            "3", "--stats-json", stats, "--source", f"file:{base}.s0"]
+    make_sources = session_mod.make_sources
+    session_mod.make_sources = lambda spec, n, rate: [
+        FileSource(f"{base}.s{i + 1}", sample_rate=rate) for i in range(n)]
+    try:
+        reset_counts(fp, ff)
+        rc, out, err, wall = run_cli(argv, cli.main)
+    finally:
+        session_mod.make_sources = make_sources
+    counts = launch_counts(fp, ff)
+    log(err[-800:])
+    check(rc == 0, f"streams sk-excise drive exited {rc}")
+    check("Transform path: cuda_sk " in err
+          and f"Parallel streams: {S} (mesh size 1)" in err,
+          "streams sk-excise drive off SK-S")
+    s1 = np.zeros(N)
+    clean = np.zeros(N)
+    kept = np.zeros(N)
+    near = np.zeros(N, bool)
+    limit = 3.0 * 2.0 / np.sqrt(F)
+    for s in range(S):
+        for b in range(blocks):
+            g1, g2 = golden_moments(frames[s][b * F:(b + 1) * F], F)
+            dist = np.abs(compute_sk(g1, g2, F) - 1.0)
+            keep = dist <= limit
+            near |= np.abs(dist - limit) <= 1e-3 * limit
+            s1 += g1
+            clean += np.where(keep, g1, 0.0)
+            kept += np.where(keep, F, 0.0)
+    total = S * repeats
+    pwr = np.where(kept > 0, clean / np.maximum(kept, 1.0) * total, s1)
+    gold = golden_finalize_linear(np.fft.fftshift(pwr), total, RATE)
+    raw_gold = golden_finalize_linear(np.fft.fftshift(s1), total, RATE)
+    _, vals, _ = spectrum(out)
+    held = ~np.fft.fftshift(near)
+    err_gold = max_rel(vals[held], gold[held])
+    burst_bin = N // 2 + 9
+    floor = np.median(raw_gold)
+    with open(stats) as f:
+        rec = json.loads(f.readline())
+    frac = kept.sum() / (total * N)
+    summary = [x for x in err.splitlines() if x.startswith("SK excision")]
+    hist = [x for x in err.splitlines()
+            if x.startswith("Buffer queue histogram:")]
+    print(f"e2e streams sk-excise drive ({' '.join(argv[:-5])}, a burst in "
+          f"stream {burst_stream}'s block 1): exit 0 in {wall:.2f} s wall; "
+          f"{summary}; stats-json kept fraction "
+          f"{rec['sk_kept_fraction']:.6f} (float64 gate {frac:.6f}); burst "
+          f"bin unexcised {raw_gold[burst_bin] / floor:.1f}x the floor, "
+          f"excised {vals[burst_bin] / floor:.3f}x; max rel vs float64 "
+          f"golden {err_gold:.3e} (<= {GOLDEN_RTOL:g}) at {int(held.sum())} "
+          f"of {N} bins ({N - int(held.sum())} with a block's float64 SK "
+          f"within 1e-3 of the limit); {hist[-1] if hist else ''}; launches "
+          f"{counts}")
+    check(raw_gold[burst_bin] > 10.0 * floor
+          and vals[burst_bin] < 1.26 * floor, "streams sk-excise: burst")
+    check(err_gold <= GOLDEN_RTOL, "streams sk-excise drive vs golden")
+    check(abs(rec["sk_kept_fraction"] - frac)
+          <= np.fft.fftshift(near).sum() * F / (total * N) + 1e-9,
+          "streams sk-excise drive: kept fraction")
+    check_only(counts, "SK-S", "streams sk-excise drive")
+    return counts["SK-S"]
+
+
+def drive_streams_pfb_scan(cli, fp, ff, tmp) -> int:
+    """The two-hop matrix-mode PFB scan over 4 streams through the CLI:
+    exit 0, the PFB streams kernel alone, a .met of two 2048-bin hops, and
+    each hop's .bin row within 1e-5 of the float64 golden of its streams'
+    recorded frames, each stream's history reset to zero at the hop's
+    start. Returns the kernel's launches."""
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    S, N, repeats, P = 4, 2048, 100, 4
+    stem = os.path.join(tmp, "pfb_streams_scan")
+    record = stem + ".iq"
+    argv = PFB_STREAMS_SCAN_ARGV + ["-m", stem, "--record", record]
+    reset_counts(fp, ff)
+    rc, _, err, wall = run_cli(argv, cli.main)
+    counts = launch_counts(fp, ff)
+    log(err[-800:])
+    check(rc == 0, f"PFB streams scan drive exited {rc}")
+    check("Transform path: cuda_pfb " in err
+          and f"Parallel streams: {S} (mesh size 1)" in err,
+          "PFB streams scan drive off PFB-S")
+    with open(stem + ".met") as f:
+        meta = [line.split("#")[0].strip() for line in f]
+    data = np.fromfile(stem + ".bin", dtype=np.float32)
+    check(int(meta[0]) == 2 * N and int(meta[1]) == 1
+          and data.size == 2 * N, f"PFB streams scan: .met {meta[:2]}, .bin "
+          f"{data.size} values")
+    rows = [recorded_frames(f"{record}.s{s}", N) for s in range(S)]
+    check(all(len(r) == 2 * repeats for r in rows),
+          f"PFB streams scan recorded {[len(r) for r in rows]} frames")
+    h = pfb_prototype(N, P).reshape(P, N)
+    warm = np.full((P - 1, 2 * N), 127, np.uint8)
+    errs = []
+    for hop in range(2):
+        pwr = sum(golden_pfb(np.concatenate(
+            [warm, r[hop * repeats:(hop + 1) * repeats]]), repeats, h)
+            for r in rows)
+        gold = golden_finalize_linear(np.fft.fftshift(pwr), S * repeats, RATE)
+        got = 10.0 ** (data[hop * N:(hop + 1) * N].astype(np.float64) / 10.0)
+        errs.append(max_rel(got, gold))
+    hist = [x for x in err.splitlines()
+            if x.startswith("Buffer queue histogram:")]
+    print(f"e2e PFB streams scan drive ({' '.join(argv[:-4])}): exit 0 in "
+          f"{wall:.2f} s wall; .met {meta[0]}x{meta[1]}; max rel vs float64 "
+          f"golden by hop {errs[0]:.3e}, {errs[1]:.3e} (<= {GOLDEN_RTOL:g}, "
+          f"the .bin's float32 dB; every stream's history reset at each hop); "
+          f"{hist[-1] if hist else ''}; launches {counts}")
+    check(max(errs) <= GOLDEN_RTOL, "PFB streams scan vs float64 golden")
+    check_only(counts, "PFB-S", "PFB streams scan drive")
+    return counts["PFB-S"]
+
+
 # The drives of phase 15 (the line source: a tone of amplitude 2, under
 # which the float32 class stays within 1e-5 of the golden at these N).
 LARGE_AWKWARD_DRIVES = [
@@ -3550,6 +4205,12 @@ def main() -> int:
         make_window, cli, ff, card)
     lap("large awkward N")
 
+    # 16. The estimators' streams entries (SK-S, MT-S, PFB-S).
+    estimator_streams = phase_estimator_streams(
+        dev, np.random.default_rng(20261020), fp, adapt_batch, make_window,
+        cli, ff, card)
+    lap("estimators over streams")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -3598,7 +4259,8 @@ def main() -> int:
         entry("fused_psd_large (windowed)", "fused_psd_large.cu", "261",
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
-    ] + awkward + estimators + large_awkward + [probe_entry(name, tpu, key)
+    ] + awkward + estimators + large_awkward + estimator_streams + [
+        probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),
                                 ("fused_psd_probe P18 (s1_lanes: full)",

@@ -211,13 +211,15 @@ def fused_psd_tapers(raw_u8: torch.Tensor, n_valid: int, chunk: int,
 
 
 def fused_psd_tapers_control(raw_u8: torch.Tensor, n_valid: int,
-                             chunk: int, tapers: torch.Tensor
-                             ) -> torch.Tensor:
+                             chunk: int, tapers: torch.Tensor,
+                             group: Optional[int] = None) -> torch.Tensor:
     """:func:`fused_psd_tapers` on the kernel the batch kernel was
-    redesigned from (the taper axis on its grid) at every N; a CPU tensor
-    runs the plain version."""
+    redesigned from (the taper axis on its grid) at every N, on ``group``
+    frames a block where given (a streams call's, for a comparison on its
+    grid), else on :func:`tapers_group`'s; a CPU tensor runs the plain
+    version."""
     return _tapers("fused_psd_tapers_control", raw_u8, n_valid, chunk,
-                   tapers, True, None)
+                   tapers, True, None if group is None else (group, 1))
 
 
 def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -239,7 +241,8 @@ def _tapers(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
     index = raw_u8.device.index
     shape = None if control else batch_shape(N, K)
     if shape is None:
-        group = tapers_group(F, chunk, K, fp.resident_blocks(N, True, index))
+        group = grid[0] if grid else tapers_group(
+            F, chunk, K, fp.resident_blocks(N, True, index))
         per_block, rows = 1, K * -(-F // group)
     else:
         group, per_block = grid or batch_grid(
