@@ -2983,12 +2983,14 @@ PFB_STREAMS_SCAN_ARGV = ["-f", "100M:103M", "-n", "100", "-b", "2048", "-q",
                          SOURCE]
 
 
-def hold_streams(label, got, want, gold, counts) -> str:
+def hold_streams(label, got, want, gold, counts,
+                 few_limit: float = GOLDEN_RTOL) -> str:
     """A streams entry's (S, N) rows against their plain version and the
     float64 golden: a stream of at least 64 frames by max rel (<= 1e-5 of
-    both), one of fewer by its largest error over its mean power against
-    the golden (<= 1e-5, plain's printed beside: its smallest bins are
-    single periodogram values near 0), one of none by exact zeros."""
+    both), one of fewer by its largest error over its mean row value
+    against the golden (<= ``few_limit``, plain's printed beside: its
+    smallest bins are single periodogram values near 0), one of none by
+    exact zeros."""
     rel_plain = rel_gold = few = few_plain = 0.0
     for s, c in enumerate(counts):
         if c == 0:
@@ -3003,12 +3005,12 @@ def hold_streams(label, got, want, gold, counts) -> str:
             few_plain = max(few_plain,
                             float(np.abs(want[s] - gold[s]).max()) / scale)
     check(rel_plain <= UNIFORM_RTOL and rel_gold <= GOLDEN_RTOL
-          and few <= GOLDEN_RTOL, f"{label}: {rel_plain} vs plain, "
+          and few <= few_limit, f"{label}: {rel_plain} vs plain, "
           f"{rel_gold} vs golden, {few} err/mean at few-frame streams")
     return (f"max rel vs plain {rel_plain:.3e}, vs float64 golden "
             f"{rel_gold:.3e} (streams of >= 64 frames); err/mean vs the "
-            f"golden {few:.3e} (plain's {few_plain:.3e}) at 1..63 frames; "
-            f"zero rows exact")
+            f"golden {few:.3e} (<= {few_limit:g}; plain's {few_plain:.3e}) "
+            f"at 1..63 frames; zero rows exact")
 
 
 def f32_class_rows(z64):
@@ -3080,9 +3082,14 @@ def phase_estimator_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
             check(all(torch.equal(got[s], singles[s]) for s in range(S)),
                   f"{label}: a stream is not the single-stream kernel's")
             g_np, w_rows = got.cpu().numpy(), want.cpu().numpy()
+            # A few frames' sum of |X|^4 doubles |X|^2's relative error,
+            # and a few large bins set its mean (a single frame's largest
+            # p^2 is ~30x its mean at 2048 bins): its err/mean limit is
+            # twice s1's.
             line = [f"moment {i + 1}: " + hold_streams(
                 f"{label} s{i + 1}", g_np[:, i], w_rows[:, i],
-                np.stack([g[i] for g in gold]), counts) for i in range(2)]
+                np.stack([g[i] for g in gold]), counts,
+                (i + 1) * GOLDEN_RTOL) for i in range(2)]
             if sigma > 0.0:
                 M = torch.from_numpy(counts.astype(np.float32))[:, None]
                 keep = fsk.sk_keep(got[:, 0].cpu(), got[:, 1].cpu(), M,
@@ -3218,7 +3225,8 @@ def phase_estimator_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
     check(all(counts_now[k] == v for k, v in want_counts.items()),
           f"estimator streams launch counts: {counts_now}, expected "
           f"{want_counts}")
-    print(f"wall: estimator streams checks in {time.perf_counter() - t0:.1f} s")
+    print(f"wall: estimator streams checks in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # The yards: 16 streams of 2048 bins (config 5's), 16 frames a stream
     # a seed (the drive's 256 cut for the float64 goldens' time), each
@@ -3271,7 +3279,8 @@ def phase_estimator_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
     check(counts_now["SK-S"] == counts_now["MT-S"] == counts_now["PFB-S"]
           == 60 and sum(counts_now.values()) == 180,
           f"estimator streams yards' launches: {counts_now}")
-    print(f"wall: estimator streams yards in {time.perf_counter() - t0:.1f} s")
+    print(f"wall: estimator streams yards in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # The drives, each on its streams kernel alone.
     launches = {}
@@ -3323,7 +3332,8 @@ def phase_estimator_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
                       in text and err <= 1e-4, "SK-S drive: SK file")
         launches["SK-S excise"] = drive_streams_sk_excise(cli, fp, ff, tmp)
         launches["PFB-S"] = drive_streams_pfb_scan(cli, fp, ff, tmp)
-    print(f"wall: estimator streams drives in {time.perf_counter() - t0:.1f} s")
+    print(f"wall: estimator streams drives in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # Times at config 5's step, every frame valid (PERF.md states the
     # prediction): a call (CUDA events, median of 60), the device time
@@ -3946,6 +3956,9 @@ def main() -> int:
             ("fused_psd_tapers", "psd_tapers_batch_kernel", ""),
             ("fused_psd_pfb", "psd_pfb_kernel", ""),
             ("fused_psd_pfb", "psd_pfb_ring_kernel", ""),
+            ("fused_psd_tapers", "psd_tapers_batch_streams_kernel", ""),
+            ("fused_psd_pfb", "psd_pfb_streams_kernel", ""),
+            ("fused_psd_pfb", "psd_pfb_ring_streams_kernel", ""),
             ("fused_psd_mixed_large", "tile_cols_kernel", ""),
             ("fused_psd_chirp_large", "tile_cols_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,

@@ -294,6 +294,9 @@ psd_pfb_ring_kernel(const uint8_t* __restrict__ raw,      // (F, 2N), the slot
                        tid);
 }
 
+// The streams forms: begin (probes/estimator_builds.py edits only the
+// single-stream kernels, outside these fences).
+
 // psd_pfb_kernel over S streams: block g serves stream s = g / G_s, frames
 // [j * group, min((j + 1) * group, F, n_valid[s])), j = g - s * G_s, of
 // its slot rows after its history; partial row g.
@@ -372,11 +375,11 @@ psd_pfb_streams_kernel(const uint8_t* __restrict__ raw,      // (S*F, 2N)
 // psd_pfb_ring_kernel over S streams, block g as psd_pfb_streams_kernel's.
 template <int LOG2N, bool STAGE_H>
 __global__ void __launch_bounds__(RegsShape<LOG2N>::THREADS)
-psd_pfb_ring_streams_kernel(const uint8_t* __restrict__ raw,      // (S*F, 2N)
-                            const uint8_t* __restrict__ history,  // (S, P-1, 2N)
+psd_pfb_ring_streams_kernel(const uint8_t* __restrict__ raw,  // (S*F, 2N)
+                            const uint8_t* __restrict__ history,
                             const float2* __restrict__ twiddle,
-                            const float* __restrict__ h,          // (P, N)
-                            float* __restrict__ partial,          // (S*G_s, N)
+                            const float* __restrict__ h,      // (P, N)
+                            float* __restrict__ partial,      // (S*G_s, N)
                             int F, int group, int G_s,
                             const int* __restrict__ counts, int P) {
   using Pl = RegsPlan<LOG2N>;
@@ -490,15 +493,18 @@ pfb_history_kernel(const uint8_t* __restrict__ raw,      // (S*F, 2N)
   const int nv = min(max(__ldg(counts + s), 0), F);
   const int v = nv + r;   // its row of the virtual array
   const size_t rows = static_cast<size_t>(P - 1);
+  const size_t slot_row = static_cast<size_t>(s) * F + v - (P - 1);
   const uint32_t* src = reinterpret_cast<const uint32_t*>(
       v < P - 1 ? history + (s * rows + v) * row_bytes
-                : raw + (static_cast<size_t>(s) * F + v - (P - 1)) * row_bytes);
+                : raw + slot_row * row_bytes);
   uint32_t* dst =
       reinterpret_cast<uint32_t*>(history_out + (s * rows + r) * row_bytes);
   for (int i = threadIdx.x; i < row_bytes / 4; i += blockDim.x) {
     dst[i] = __ldg(src + i);
   }
 }
+
+// The streams forms: end.
 
 template <int LOG2N>
 cudaError_t prepare(int device) {

@@ -250,6 +250,9 @@ psd_tapers_batch_kernel(const uint8_t* __restrict__ raw,     // (F, 2N)
       tid);
 }
 
+// The streams forms: begin (probes/estimator_builds.py edits only the
+// single-stream kernels, outside these fences).
+
 // psd_tapers_batch_kernel over S streams: block (g, y) serves stream s =
 // g / G_s, its frames [j * group, min((j + 1) * group, F, n_valid[s])), j
 // = g - s * G_s (the count read from device memory, a count outside [0,
@@ -359,6 +362,8 @@ psd_tapers_batch_streams_kernel(
       partial + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * N,
       tid);
 }
+
+// The streams forms: end.
 
 // The batch kernel opts in to the most a block may use once; a launch
 // asks for its own C's share of it.

@@ -275,8 +275,8 @@ def _pfb(kernel: str, raw_u8: torch.Tensor, history: torch.Tensor,
 
 def fused_psd_pfb_streams(raw_u8: torch.Tensor, history: torch.Tensor,
                           n_valid: torch.Tensor, chunk: int, h: torch.Tensor,
-                          history_out: torch.Tensor, fresh: bool = False,
-                          group: Optional[int] = None) -> torch.Tensor:
+                          history_out: torch.Tensor, fresh: bool = False
+                          ) -> torch.Tensor:
     """(S, F, 2N) uint8 frames of S streams, each after its (P - 1, 2N)
     rows of the (S, P - 1, 2N) uint8 ``history``, ``n_valid`` (S,) int32
     real frames per stream, a (P, N) float32 prototype ``h`` -> (S, N)
@@ -288,44 +288,21 @@ def fused_psd_pfb_streams(raw_u8: torch.Tensor, history: torch.Tensor,
 
     A CUDA tensor runs the kernel :func:`ring_shape` picks on the current
     stream (asynchronously: the kernels read ``n_valid`` from device memory
-    when they run, and write ``history_out`` after the sum), on ``group``
-    frames a block where given, else on K1's rule over all S * F frames
-    and the kernel's residency; a CPU tensor runs the plain version."""
-    return _pfb_streams("fused_psd_pfb_streams", raw_u8, history, n_valid,
-                        chunk, h, history_out, fresh, False, group)
-
-
-def fused_psd_pfb_streams_control(raw_u8: torch.Tensor,
-                                  history: torch.Tensor,
-                                  n_valid: torch.Tensor, chunk: int,
-                                  h: torch.Tensor, history_out: torch.Tensor,
-                                  fresh: bool = False,
-                                  group: Optional[int] = None
-                                  ) -> torch.Tensor:
-    """:func:`fused_psd_pfb_streams` on the control (P rows a frame
-    through L2) at every N."""
-    return _pfb_streams("fused_psd_pfb_streams_control", raw_u8, history,
-                        n_valid, chunk, h, history_out, fresh, True, group)
-
-
-def _pfb_streams(kernel: str, raw_u8: torch.Tensor, history: torch.Tensor,
-                 n_valid: torch.Tensor, chunk: int, h: torch.Tensor,
-                 history_out: torch.Tensor, fresh: bool, control: bool,
-                 group: Optional[int]) -> torch.Tensor:
+    when they run, and write ``history_out`` after the sum), on K1's rule
+    over all S * F frames and the kernel's residency; a CPU tensor runs
+    the plain version."""
+    kernel = "fused_psd_pfb_streams"
     fp.check_streams_args(raw_u8, n_valid, chunk, None, kernel)
     check_pfb_streams_args(raw_u8, history, h, history_out)
-    if group is not None and not 1 <= group <= raw_u8.shape[1]:
-        raise ValueError(f"group={group} outside [1, {raw_u8.shape[1]}]")
     if not fp._on_cuda(kernel, raw_u8):
         fp.COUNTS.plain += 1
         return fused_psd_pfb_streams_reference(raw_u8, history, n_valid,
                                                chunk, h, history_out, fresh)
     S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
     P = h.shape[0]
-    shape = None if control else ring_shape(N, P)
+    shape = ring_shape(N, P)
     index = raw_u8.device.index
-    if group is None:
-        group = pfb_group(S * F, chunk, N, P, index, shape is not None)
+    group = pfb_group(S * F, chunk, N, P, index, shape is not None)
     align = RAW_ALIGN if shape is None else RING_ALIGN
     h_align = RING_ALIGN if shape is not None and shape.stage_h else RAW_ALIGN
     for name, t, a in (("history", history, align), ("h", h, h_align)):

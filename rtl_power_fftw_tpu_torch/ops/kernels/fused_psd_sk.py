@@ -205,8 +205,7 @@ def check_group(group: int, F: int) -> None:
 
 def fused_psd_sk_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
                          chunk: int, window: Optional[torch.Tensor] = None,
-                         sigma: float = 0.0, group: Optional[int] = None
-                         ) -> torch.Tensor:
+                         sigma: float = 0.0) -> torch.Tensor:
     """(S, F, 2N) uint8 frames of S streams, ``n_valid`` (S,) int32 real
     frames per stream on the frames' device -> (S, 2, N) float32, rows s1
     and s2 of each stream's first n_valid[s] frames (a count outside [0, F]
@@ -217,10 +216,10 @@ def fused_psd_sk_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
 
     A CUDA tensor runs the first pass :func:`plane_fits` picks on the
     current stream (asynchronously: the kernels read ``n_valid`` from
-    device memory when they run), on ``group`` frames a block where given,
-    else on K4's grid; a CPU tensor runs the plain version."""
+    device memory when they run), on K4's grid; a CPU tensor runs the
+    plain version."""
     return _sk_streams("fused_psd_sk_streams", raw_u8, n_valid, chunk,
-                       window, sigma, False, group)
+                       window, sigma, False)
 
 
 def fused_psd_sk_streams_control(raw_u8: torch.Tensor,
@@ -230,18 +229,16 @@ def fused_psd_sk_streams_control(raw_u8: torch.Tensor,
     """:func:`fused_psd_sk_streams` with the |X|^4 sums in registers (the
     control's cut, the route at 16384 bins) at every N."""
     return _sk_streams("fused_psd_sk_streams_control", raw_u8, n_valid,
-                       chunk, window, sigma, True, None)
+                       chunk, window, sigma, True)
 
 
 def _sk_streams(kernel: str, raw_u8: torch.Tensor, n_valid: torch.Tensor,
                 chunk: int, window: Optional[torch.Tensor], sigma: float,
-                control: bool, group: Optional[int]) -> torch.Tensor:
+                control: bool) -> torch.Tensor:
     sigma = float(sigma)
     fp.check_streams_args(raw_u8, n_valid, chunk, window, kernel)
     if not sigma >= 0.0:
         raise ValueError(f"sigma={sigma} must be >= 0")
-    if group is not None:
-        check_group(group, raw_u8.shape[1])
     if not fp._on_cuda(kernel, raw_u8):
         fp.COUNTS.plain += 1
         return fused_psd_sk_streams_reference(raw_u8, n_valid, chunk, window,
@@ -249,9 +246,8 @@ def _sk_streams(kernel: str, raw_u8: torch.Tensor, n_valid: torch.Tensor,
     S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
     plane = not control and plane_fits(N)
     index = raw_u8.device.index
-    if group is None:
-        group = fp.k1_group(S * F, chunk, fp.resident_blocks(
-            N, window is not None, index))
+    group = fp.k1_group(S * F, chunk, fp.resident_blocks(
+        N, window is not None, index))
     out = fp._launch(
         kernel, raw_u8, window, 2 * S * -(-F // group),
         (S, 4 if sigma > 0.0 else 2, N),

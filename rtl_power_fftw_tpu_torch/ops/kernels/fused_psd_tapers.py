@@ -272,8 +272,7 @@ def check_grid(group: int, per_block: int, K: int, F: int) -> None:
 
 
 def fused_psd_tapers_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
-                             chunk: int, tapers: torch.Tensor,
-                             grid: Optional[Tuple[int, int]] = None
+                             chunk: int, tapers: torch.Tensor
                              ) -> torch.Tensor:
     """(S, F, 2N) uint8 frames of S streams, ``n_valid`` (S,) int32 real
     frames per stream, (K, N) float32 ``tapers``, all on one device -> (S,
@@ -283,11 +282,10 @@ def fused_psd_tapers_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
 
     A CUDA tensor runs the kernel :func:`batch_shape` picks on the current
     stream (asynchronously: the kernels read ``n_valid`` from device memory
-    when they run), the batch kernel on ``grid`` (group, per_block) where
-    given, else on :func:`streams_batch_grid`'s; a CPU tensor runs the
-    plain version."""
+    when they run), the batch kernel on :func:`streams_batch_grid`'s grid;
+    a CPU tensor runs the plain version."""
     return _tapers_streams("fused_psd_tapers_streams", raw_u8, n_valid,
-                           chunk, tapers, False, grid)
+                           chunk, tapers, False)
 
 
 def fused_psd_tapers_streams_control(raw_u8: torch.Tensor,
@@ -296,17 +294,14 @@ def fused_psd_tapers_streams_control(raw_u8: torch.Tensor,
     """:func:`fused_psd_tapers_streams` on the control (the taper axis on
     the grid) at every N."""
     return _tapers_streams("fused_psd_tapers_streams_control", raw_u8,
-                           n_valid, chunk, tapers, True, None)
+                           n_valid, chunk, tapers, True)
 
 
 def _tapers_streams(kernel: str, raw_u8: torch.Tensor,
                     n_valid: torch.Tensor, chunk: int, tapers: torch.Tensor,
-                    control: bool, grid: Optional[Tuple[int, int]]
-                    ) -> torch.Tensor:
+                    control: bool) -> torch.Tensor:
     fp.check_streams_args(raw_u8, n_valid, chunk, None, kernel)
     check_tapers(tapers, raw_u8)
-    if grid is not None:
-        check_grid(*grid, tapers.shape[0], raw_u8.shape[1])
     if not fp._on_cuda(kernel, raw_u8):
         fp.COUNTS.plain += 1
         return fused_psd_tapers_streams_reference(raw_u8, n_valid, chunk,
@@ -320,7 +315,7 @@ def _tapers_streams(kernel: str, raw_u8: torch.Tensor,
                              fp.resident_blocks(N, True, index))
         per_block, planes = 1, K
     else:
-        group, per_block = grid or streams_batch_grid(
+        group, per_block = streams_batch_grid(
             S, F, K, N, batch_resident_blocks(N, index))
         planes = -(-K // per_block)
     out = fp._launch(

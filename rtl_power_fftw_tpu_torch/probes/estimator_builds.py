@@ -191,15 +191,32 @@ def part(build: str) -> str:
     return "sk" if build.startswith(("sk", "k1")) else build.split("_")[0]
 
 
+#: The fences around a source's streams forms (fused_psd_tapers.cu,
+#: fused_psd_pfb.cu), which repeat the single-stream kernels' bodies line
+#: for line: a build edits the single-stream kernels, outside them.
+STREAMS_BEGIN = "// The streams forms: begin"
+STREAMS_END = "// The streams forms: end."
+
+
+def unfenced(text: str) -> Tuple[str, str, str]:
+    """(before, fenced, after): a source's text around its streams forms
+    (the fences in ``fenced``; "" and "" where it has none)."""
+    head, begin, rest = text.partition(STREAMS_BEGIN)
+    forms, end, tail = rest.partition(STREAMS_END)
+    return head, begin + forms + end, tail
+
+
 def edit(text: str, build: str) -> str:
-    """The edited file's text for ``build``; raises if the shipped source
-    no longer has what an edit replaces."""
+    """The edited file's text for ``build``, its streams forms left as they
+    are; raises if the shipped source no longer has what an edit replaces
+    (once, outside the streams forms)."""
     name, edits, _ = BUILDS[build]
+    head, forms, tail = unfenced(text)
     for old, new in edits:
-        if text.count(old) != 1:
+        if head.count(old) + tail.count(old) != 1:
             raise ValueError(f"{build}: no single {old!r} in {name}")
-        text = text.replace(old, new)
-    return text
+        head, tail = head.replace(old, new), tail.replace(old, new)
+    return head + forms + tail
 
 
 def build_all(parts=tuple(PARTS)) -> Dict[Tuple[str, str], ctypes.CDLL]:

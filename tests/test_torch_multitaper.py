@@ -466,8 +466,8 @@ def test_batch_route_and_grid_at_the_drives_shapes():
 
 def test_batch_kernel_constants_match_the_source():
     """The wrapper's ring pad and block limit are the kernel's, and the
-    library's two C entries go through the shared use_device
-    (csrc/device.cuh)."""
+    library's three C entries (one stream, S streams, the attributes) go
+    through the shared use_device (csrc/device.cuh)."""
     text = (CSRC / "fused_psd_tapers.cu").read_text()
     assert f"constexpr int kRingPad = {fmt.RING_PAD};" in text
     assert f"constexpr int kMaxSmem = {fp.SMEM_PER_BLOCK};" in text
@@ -475,7 +475,7 @@ def test_batch_kernel_constants_match_the_source():
     assert '#include "device.cuh"' in text and "cudaSetDevice" not in text
     assert "cudaSetDevice(device);" in device.split(
         "use_device(int device)")[1]
-    assert text.count("cudaError_t e = use_device(device);") == 2
+    assert text.count("cudaError_t e = use_device(device);") == 3
 
 
 @pytest.mark.parametrize("N", [64, 128, 256, 512, 2048])
