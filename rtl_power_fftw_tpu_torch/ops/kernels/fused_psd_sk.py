@@ -170,8 +170,8 @@ def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
                   window)
     if not sigma >= 0.0:
         raise ValueError(f"sigma={sigma} must be >= 0")
-    if group is not None:
-        check_group(group, raw_u8.shape[0])
+    if group is not None and not 1 <= group <= raw_u8.shape[0]:
+        raise ValueError(f"group={group} outside [1, {raw_u8.shape[0]}]")
     if not fp._on_cuda(kernel, raw_u8):
         fp.COUNTS.plain += 1
         return fused_psd_sk_reference(raw_u8, n_valid, chunk, window, sigma)
@@ -195,12 +195,6 @@ def _sk(kernel: str, raw_u8: torch.Tensor, n_valid: int, chunk: int,
     else:
         fp.COUNTS.kernel_sk += 1
     return out
-
-
-def check_group(group: int, F: int) -> None:
-    """Raise unless ``group`` (frames a block) is in [1, F]."""
-    if not 1 <= group <= F:
-        raise ValueError(f"group={group} outside [1, {F}]")
 
 
 def fused_psd_sk_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
