@@ -944,7 +944,9 @@ def launch_counts(fp, ff) -> dict:
     kernel, the multitaper's batch kernel, the PFB's ring kernel), "SK
     control", "MT control" and "PFB control" the kernels those three were
     redesigned from, "SK-S", "MT-S" and "PFB-S" (and their controls) the
-    estimators' streams entries, "M/B control" the kernel M and
+    estimators' streams entries, "L-S", "ML-S" and "BL-S" (and their
+    windowed forms) the streams entries of the large kernel, ML and BL,
+    "M/B control" the kernel M and
     B replaced (and its plain versions), "probes" every probe variant
     together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
@@ -973,6 +975,12 @@ def launch_counts(fp, ff) -> dict:
             "MT-S control": fp.COUNTS.kernel_tapers_streams_control,
             "PFB-S": fp.COUNTS.kernel_pfb_streams,
             "PFB-S control": fp.COUNTS.kernel_pfb_streams_control,
+            "L-S": fp.COUNTS.kernel_large_streams,
+            "L-S windowed": fp.COUNTS.kernel_large_streams_windowed,
+            "ML-S": fp.COUNTS.kernel_mixed_large_streams,
+            "ML-S windowed": fp.COUNTS.kernel_mixed_large_streams_windowed,
+            "BL-S": fp.COUNTS.kernel_chirp_large_streams,
+            "BL-S windowed": fp.COUNTS.kernel_chirp_large_streams_windowed,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -1008,7 +1016,10 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1,
             "BL windowed": "cuda_chirp_large", "SK": "cuda_sk",
             "MT": "cuda_multitaper", "PFB": "cuda_pfb", "SK-S": "cuda_sk",
             "MT-S": "cuda_multitaper",
-            "PFB-S": "cuda_pfb"}.get(kernel, "cuda")
+            "PFB-S": "cuda_pfb", "L-S": "cuda_large",
+            "L-S windowed": "cuda_large", "ML-S": "cuda_mixed_large",
+            "ML-S windowed": "cuda_mixed_large", "BL-S": "cuda_chirp_large",
+            "BL-S windowed": "cuda_chirp_large"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -3879,6 +3890,310 @@ def phase_large_awkward(dev, rng, fp, fml, fbl, adapt_batch, make_window,
                   ("BL", 20002, "hann"))]
 
 
+# Phase 17's drives over --streams (the line source), less their
+# "--record <path>": BASELINE config 3's bins over four receivers (L-S, the
+# full-width drive), and -b 100000 (ML-S), -b 99998 with Hann (BL-S) and
+# -b 32768 with Hann (L-S windowed) over two.
+LARGE_STREAMS_DRIVES = [
+    # (label, kernel, N, streams, repeats, window, argv less --record)
+    ("config 3 over 4 streams", "L-S", C3_N, 4,
+     math.ceil(RATE * C3_SECONDS / C3_N), None,
+     ["-f", "100M", "-b", str(C3_N), "-t", str(C3_SECONDS), "-l",
+      "--streams", "4", "--source", LINE_SOURCE]),
+    ("-b 100000 over 2 streams", "ML-S", 100000, 2, 64, None,
+     ["-f", "100M", "-n", "64", "-b", "100000", "-l", "--streams", "2",
+      "--source", LINE_SOURCE]),
+    ("-b 99998 hann over 2 streams", "BL-S windowed", 99998, 2, 32, "hann",
+     ["-f", "100M", "-n", "32", "-b", "99998", "--window-function", "hann",
+      "-l", "--streams", "2", "--source", LINE_SOURCE]),
+    ("-b 32768 hann over 2 streams", "L-S windowed", 32768, 2, 128, "hann",
+     ["-f", "100M", "-n", "128", "-b", "32768", "--window-function", "hann",
+      "-l", "--streams", "2", "--source", LINE_SOURCE]),
+]
+
+
+def hold_rows_by_mean(label, got, want, gold, counts) -> str:
+    """A streams entry's (S, N) rows against their plain version and the
+    float64 golden by their largest error over the stream's mean golden
+    value (<= 1e-5 each: a stream of few frames has single periodogram
+    values near 0, where a relative error means nothing), plain's distance
+    from the golden printed beside; a stream of no frame by exact
+    zeros."""
+    e_plain = e_gold = e_ref = 0.0
+    for s, c in enumerate(counts):
+        if c == 0:
+            check(not got[s].any() and not want[s].any(),
+                  f"{label}: stream {s} of no frame is not zero")
+            continue
+        scale = max(float(gold[s].mean()), 1e-30)
+        e_plain = max(e_plain, float(np.abs(got[s] - want[s]).max()) / scale)
+        e_gold = max(e_gold, float(np.abs(got[s] - gold[s]).max()) / scale)
+        e_ref = max(e_ref, float(np.abs(want[s] - gold[s]).max()) / scale)
+    check(e_plain <= UNIFORM_RTOL and e_gold <= GOLDEN_RTOL,
+          f"{label}: err/mean {e_plain} vs plain, {e_gold} vs golden")
+    return (f"err/mean vs plain {e_plain:.3e}, vs float64 golden "
+            f"{e_gold:.3e} (plain vs golden {e_ref:.3e}); zero rows exact")
+
+
+def streams_yard(label, dev, kernel, make_window, wname, N, S, F,
+                 seed0) -> None:
+    """A streams entry's admission yard: 60 seeds of 35 dB tones made on
+    the card, each split into S streams of F frames, every row against its
+    stream's float64 golden (cuFFT in float64) beside the scipy float32
+    class of the same frames: median <= 1.5x and max <= 3x its error, the
+    per-seed p99 of the ratio printed."""
+    w_np = None if wname is None else make_window(wname, N)
+    w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+    full = torch.full((S,), F, dtype=torch.int32, device=dev)
+    ours, cls = [], []
+    for seed in range(60):
+        raw = tone_frames_dev(N, S * F, seed0 + seed, dev).reshape(
+            S, F, 2 * N)
+        got = kernel(raw, full, F, w).cpu().numpy()
+        e = c = 0.0
+        for s in range(S):
+            gold = golden_partial_dev(raw[s], w)
+            e = max(e, max_rel(got[s], gold))
+            c = max(c, max_rel(scipy_f32_class(raw[s].cpu().numpy(), w_np),
+                               gold))
+        ours.append(e)
+        cls.append(c)
+    e, c = np.asarray(ours), np.asarray(cls)
+    r = e / c
+    med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
+    print(f"{label} yard N={N} S={S} F={F} window={wname}, 60 seeds of 35 "
+          f"dB tones: max rel median {np.median(e):.3e} / max "
+          f"{e.max():.3e}; scipy f32 {np.median(c):.3e} / {c.max():.3e}; "
+          f"ratio median {med_r:.2f}x (<= 1.5), max {max_r:.2f}x (<= 3), "
+          f"per-seed p99 {np.quantile(r, 0.99):.2f}x, per-seed max "
+          f"{r.max():.2f}x")
+    check(med_r <= 1.5 and max_r <= 3.0,
+          f"{label} yard N={N} window={wname}: above the FFTW-class budget")
+
+
+def phase_large_streams(dev, rng, fp, fl, fml, fbl, adapt_batch,
+                        make_window, cli, ff, card):
+    """17. The streams entries of the large kernel (L-S), ML (ML-S) and BL
+    (BL-S): each pass's registers, spill and blocks per SM; at S = 4 with
+    counts (0, 1, F - 1, F), windowed and not, against their plain
+    versions and the float64 golden, twice each, and each stream's row
+    against the one-stream kernel on the same frames, count and groups,
+    bit for bit; the frame-sharded long integration at 2^20 (S = 1)
+    against the one-stream kernel, bit for bit; their 60-seed yards; times
+    beside S one-stream calls, the plain version, torch.fft.fft on the S F
+    frames and the bound; four CLI drives, each on its streams kernel
+    alone. Returns the kernels-line entries."""
+    from rtl_power_fftw_tpu_torch.parallel import sharded_accumulate
+    t0 = time.perf_counter()
+    S = 4
+    entries = {  # name: (streams entry, plain, one stream on given groups)
+        "L-S": (fl.fused_psd_large_streams,
+                fl.fused_psd_large_streams_reference,
+                lambda raw, c, chunk, w, g: fl.fused_psd_large(
+                    raw, c, chunk, w, group_b=g[1]), fl._streams_grids),
+        "ML-S": (fml.fused_psd_mixed_large_streams,
+                 fml.fused_psd_mixed_large_streams_reference,
+                 lambda raw, c, chunk, w, g: fml.fused_psd_mixed_large(
+                     raw, c, chunk, w, group_b=g[1]), fml._streams_grids),
+        "BL-S": (fbl.fused_psd_chirp_large_streams,
+                 fbl.chirp_large_streams_reference,
+                 lambda raw, c, chunk, w, g: fbl.fused_psd_chirp_large(
+                     raw, c, chunk, w, group_c=g[2]), fbl._streams_grids),
+    }
+    cases = [("L-S", 32768, 16), ("L-S", 32768, 64), ("L-S", C3_N, 8),
+             ("ML-S", 20000, 16), ("ML-S", 100000, 64),
+             ("BL-S", 16382, 16), ("BL-S", 99998, 64)]
+    reset_counts(fp, ff)
+    max_abs, singles_n = {}, {"L": 0, "ML": 0, "BL": 0}
+    for name, N, F in cases:
+        kernel, plain, single, grids = entries[name]
+        chunk = adapt_batch(F)[1]
+        counts = [0, 1, F - 1, F]
+        nv = torch.tensor(counts, dtype=torch.int32, device=dev)
+        raw = torch.from_numpy(rng.integers(0, 256, (S, F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        for wname in (None, "hann"):
+            w_np = None if wname is None else make_window(wname, N)
+            w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+            label = f"{name} N={N} F={F} window={wname}"
+            got = kernel(raw, nv, chunk, w)
+            again = kernel(raw, nv, chunk, w)
+            want = plain(raw, nv, chunk, w)
+            grid = grids[(N, S, F, w is not None, dev.index)]
+            ones = torch.stack([single(raw[s], c, chunk, w, grid)
+                                for s, c in enumerate(counts)])
+            singles_n[name[:-2]] += S
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{label}: not deterministic")
+            check(torch.equal(got, ones), f"{label}: a stream's row is not "
+                  "the one-stream kernel's on the same groups")
+            g_np = got.cpu().numpy()
+            check(g_np.shape == (S, N) and np.all(np.isfinite(g_np)),
+                  f"{label}: malformed output")
+            gold = np.stack([golden_partial_dev(raw[s, :c], w) if c else
+                             np.zeros(N) for s, c in enumerate(counts)])
+            line = hold_rows_by_mean(label, g_np, want.cpu().numpy(), gold,
+                                     counts)
+            max_abs[(name, N, F, wname)] = float(
+                (got.double() - want.double()).abs().max())
+            print(f"large streams {label} S={S} chunk={chunk} counts "
+                  f"{counts}, groups {grid} (frames a block of each pass, "
+                  f"partial rows a stream): the same bits twice, each "
+                  f"stream the one-stream kernel's on those groups; {line}")
+    counts_now = launch_counts(fp, ff)
+    n = {k: 2 * 2 * sum(c[0] == k for c in cases)
+         for k in ("L-S", "ML-S", "BL-S")}
+    check(all(counts_now[k] + counts_now[k + " windowed"] == n[k]
+              for k in n)
+          and counts_now["L"] + counts_now["L windowed"] == singles_n["L"]
+          and counts_now["ML"] + counts_now["ML windowed"] == singles_n["ML"]
+          and counts_now["BL"] + counts_now["BL windowed"] == singles_n["BL"]
+          and counts_now["plain"] == 0,
+          f"large streams launch counts: {counts_now}")
+
+    # The frame-sharded long integration on the one card (S = 1): the
+    # large kernel's streams entry, the one-stream kernel's bits.
+    M = 8
+    frames = rng.integers(0, 256, (M, 2 * C3_N), dtype=np.uint8)
+    reset_counts(fp, ff)
+    pwr, m = sharded_accumulate(frames, C3_N, devices=[dev])
+    counts_now = launch_counts(fp, ff)
+    one = fl.fused_psd_large(torch.from_numpy(frames).to(dev), M,
+                             adapt_batch(M)[1]).cpu().numpy()
+    check(m == M and counts_now["L-S"] == 1 and sum(counts_now.values()) == 1
+          and np.array_equal(pwr, one.astype(np.float64)),
+          f"sharded_accumulate at 2^20: launches {counts_now}, not the "
+          "one-stream kernel's bits")
+    print(f"large streams longint sharded_accumulate N={C3_N} M={M} on one "
+          f"device: L-S at S = 1 ({counts_now['L-S']} launch), "
+          f"fused_psd_large's bits")
+    print(f"wall: large streams checks in {time.perf_counter() - t0:.1f} s")
+
+    # The admission yards.
+    for name, wname, N, seed0 in (("L-S", "hann", 65536, 17000),
+                                  ("ML-S", None, 20000, 17100),
+                                  ("BL-S", None, 16382, 17200)):
+        streams_yard(name, dev, entries[name][0], make_window, wname, N, S,
+                     16, seed0)
+    print(f"wall: large streams yards in {time.perf_counter() - t0:.1f} s")
+
+    # Times at S = 4, every frame valid (PERF.md states the prediction):
+    # a call (CUDA events, median of 60), the device time and the
+    # wrapper's host part; the same work as S one-stream calls; the plain
+    # version; torch.fft.fft on the S F frames, complex64 on the card; the
+    # bound at S F frames and S output rows.
+    singles = {"L-S": fl.fused_psd_large, "ML-S": fml.fused_psd_mixed_large,
+               "BL-S": fbl.fused_psd_chirp_large}
+    times = {}
+    for name, N, F, wname in (("L-S", C3_N, 8, None),
+                              ("L-S", 65536, 16, "hann"),
+                              ("ML-S", 10 ** 6, 8, None),
+                              ("ML-S", 100000, 64, None),
+                              ("BL-S", 99998, 64, None),
+                              ("BL-S", 99998, 64, "hann")):
+        kernel, plain = entries[name][:2]
+        w = (None if wname is None
+             else torch.from_numpy(make_window(wname, N)).to(dev))
+        raw = torch.from_numpy(rng.integers(0, 256, (S, F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        full = torch.full((S,), F, dtype=torch.int32, device=dev)
+        chunk = adapt_batch(F)[1]
+        z = torch.complex(raw[..., 0::2].float() - 127.0,
+                          raw[..., 1::2].float() - 127.0).reshape(S * F, N)
+        got = kernel(raw, full, chunk, w).double()
+        want = plain(raw, full, chunk, w).double()
+        rel = max_rel(got.cpu().numpy(), want.cpu().numpy())
+        check(rel <= UNIFORM_RTOL, f"{name} N={N} timed shape: {rel} vs "
+              "plain")
+        bound = (bound_ms("L", S * F, N, w is not None, out_rows=S)
+                 if name == "L-S"
+                 else awkward_bound_ms(S * F, N, w is not None, out_rows=S))
+
+        def call():
+            return kernel(raw, full, chunk, w)
+
+        def ones():
+            return [singles[name](raw[s], F, chunk, w) for s in range(S)]
+
+        t = {"max_abs": float((got - want).abs().max()), "bound": bound,
+             "call": event_times_us(call),
+             "plain": event_times_us(lambda: plain(raw, full, chunk, w),
+                                     iters=10, warmup=2),
+             "host": host_us(call),
+             "singles": event_times_us(ones, iters=20, warmup=3),
+             "lib": event_times_us(lambda: torch.fft.fft(z, dim=-1)),
+             "lib_device": device_times_us(lambda: torch.fft.fft(z, dim=-1))}
+        kd, sd = [], []
+        for _ in range(2):   # in turns
+            kd.append(device_times_us(call))
+            sd.append(device_times_us(ones, calls=5))
+        t.update(device=min(kd), singles_device=min(sd))
+        times[(name, N, wname)] = t
+        b_us = 1e3 * bound[0]
+        print(f"time large streams {name} S={S} N={N} F={F} window={wname} "
+              f"on {card}: a call {t['call']:.1f} us, device "
+              f"{kd[0]:.1f}/{kd[1]:.1f} us, host {t['host']:.1f} us "
+              f"({S * F * N / t['device'] / 1e3:.2f} GS/s on the device); "
+              f"{S} one-stream calls of {F} frames {t['singles']:.1f} us "
+              f"(device {sd[0]:.1f}/{sd[1]:.1f}), streams/one-stream on the "
+              f"device {t['device'] / t['singles_device']:.3f}; plain "
+              f"{t['plain']:.1f} us; torch.fft.fft of the {S * F} complex64 "
+              f"frames {t['lib']:.1f} us a call (device "
+              f"{t['lib_device']:.1f}), kernel/fft on the device "
+              f"{t['device'] / t['lib_device']:.3f}; bound {b_us:.2f} us "
+              f"({bound[1]}), device/bound {t['device'] / b_us:.1f}x; max "
+              f"abs vs plain {t['max_abs']:.4g}, max rel {rel:.3e}")
+    print(f"wall: large streams times in {time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its streams kernel alone: the combined spectrum
+    # is the mean of the per-stream linear goldens of the recorded
+    # streams.
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, key, N, streams, repeats, wname, argv in \
+                LARGE_STREAMS_DRIVES:
+            record = os.path.join(tmp, f"streams_{N}.iq")
+            w = None if wname is None else make_window(wname, N)
+
+            def golden(record=record, N=N, streams=streams, repeats=repeats,
+                       w=w):
+                return sum(recorded_golden(f"{record}.s{s}", N, repeats, N,
+                                           w)
+                           for s in range(streams)) / streams
+
+            launches[key] = drive(f"large streams {label}",
+                                  argv + ["--record", record], cli, fp, ff,
+                                  key, N, golden, GOLDEN_RTOL,
+                                  streams=streams)
+    print(f"wall: large streams phase in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, source, replaces, key, times_key):
+        t = times[times_key]
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+                "device_ms": t["device"] / 1000.0,
+                "host_ms": t["host"] / 1000.0,
+                "singles_ms": t["singles"] / 1000.0,
+                "singles_device_ms": t["singles_device"] / 1000.0}
+
+    xla_ladder = "rtl_power_fftw_tpu/ops/spectral.py:388"
+    chirp_z = "rtl_power_fftw_tpu/ops/dft.py:1069"
+    return [entry("fused_psd_large_streams", "fused_psd_large.cu",
+                  TPU_KERNEL + "435", "L-S", ("L-S", C3_N, None)),
+            entry("fused_psd_large_streams (windowed)", "fused_psd_large.cu",
+                  TPU_KERNEL + "435", "L-S windowed",
+                  ("L-S", 65536, "hann")),
+            entry("fused_psd_mixed_large_streams",
+                  "fused_psd_mixed_large.cu", xla_ladder, "ML-S",
+                  ("ML-S", 10 ** 6, None)),
+            entry("fused_psd_chirp_large_streams (windowed)",
+                  "fused_psd_chirp_large.cu", chirp_z, "BL-S windowed",
+                  ("BL-S", 99998, "hann"))]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -3960,7 +4275,14 @@ def main() -> int:
             ("fused_psd_pfb", "psd_pfb_streams_kernel", ""),
             ("fused_psd_pfb", "psd_pfb_ring_streams_kernel", ""),
             ("fused_psd_mixed_large", "tile_cols_kernel", ""),
-            ("fused_psd_chirp_large", "tile_cols_kernel", "")):
+            ("fused_psd_chirp_large", "tile_cols_kernel", ""),
+            ("fused_psd_large", "large_streams_a", ""),
+            ("fused_psd_large", "large_streams_b", ""),
+            ("fused_psd_mixed_large", "ml_streams_cols", ""),
+            ("fused_psd_mixed_large", "ml_streams_rows", ""),
+            ("fused_psd_chirp_large", "chirp_streams_a", ""),
+            ("fused_psd_chirp_large", "chirp_streams_b", ""),
+            ("fused_psd_chirp_large", "chirp_streams_c", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -4224,6 +4546,12 @@ def main() -> int:
         cli, ff, card)
     lap("estimators over streams")
 
+    # 17. The streams entries of the large kernel, ML and BL.
+    large_streams = phase_large_streams(
+        dev, np.random.default_rng(20261021), fp, fl, fml, fbl, adapt_batch,
+        make_window, cli, ff, card)
+    lap("large N over streams")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -4272,7 +4600,8 @@ def main() -> int:
         entry("fused_psd_large (windowed)", "fused_psd_large.cu", "261",
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
-    ] + awkward + estimators + large_awkward + estimator_streams + [
+    ] + awkward + estimators + large_awkward + estimator_streams
+      + large_streams + [
         probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),

@@ -69,6 +69,10 @@ SIGNATURES = {
         # F, group_a, group_b, n_valid, stream
         "rpf_fused_psd_large": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _P],
+        # raw, twiddle, inter, window, counts, scratch, partial, out,
+        # device, log2n, S, F, group_a, group_b, stream
+        "rpf_fused_psd_large_streams": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _I, _P],
         # log2n, which (0 pass A, 1 pass A windowed, 2 pass B), device,
         # attrs (int[6])
         "rpf_fused_psd_large_attributes": [_I, _I, _I, _P],
@@ -117,6 +121,12 @@ SIGNATURES = {
         "rpf_fused_psd_mixed_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                       _P],
+        # raw, tw1, bin1, inter, window, tw2, order2, counts, scratch,
+        # partial, out, plan1, plan2, device, log2c, n2p, width, S, F,
+        # group_a, group_b, stream
+        "rpf_fused_psd_mixed_large_streams": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+            _I, _I, _I, _I, _I, _P],
         # which (0 pass A, 1 pass A windowed, 2 pass B small, 3 pass B
         # large), smem, threads, device, attrs (int[6])
         "rpf_fused_psd_mixed_large_attributes": [_I, _I, _I, _I, _P],
@@ -136,6 +146,12 @@ SIGNATURES = {
         # n_valid, stream
         "rpf_fused_psd_chirp_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # raw, twiddle, inter, window, chirp, spectrum, counts, scratch,
+        # partial, out, device, log2m, bins, width, S, F, group_a,
+        # group_b, group_c, stream
+        "rpf_fused_psd_chirp_large_streams": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _I, _I, _I, _P],
         # log2m, which (0 pass A, 1 pass A windowed, 2 pass B, 3 pass C),
         # device, attrs (int[6])
         "rpf_fused_psd_chirp_large_attributes": [_I, _I, _I, _P],

@@ -87,6 +87,7 @@
 #include "frame_ring.cuh"
 #include "fused_psd_chirp.cuh"   // turn_inputs
 #include "fused_psd_large_regs.cuh"
+#include "large_streams.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -527,6 +528,266 @@ chirp_regs_c(const float2* __restrict__ scratch,   // (F, M), batch-major
   }
 }
 
+// The streams forms: begin (the single-stream passes above are not
+// edited for them).
+
+// chirp_regs_a over S streams: block b as streams_block
+// (large_streams.cuh); frame i of the block is frame first + i of the
+// batch.
+template <int LOG2M, bool WINDOWED>
+__global__ void __launch_bounds__(LargeRegs<LOG2M>::THREADS_A,
+                                  ChirpRegs<LOG2M>::MIN_BLOCKS_A)
+chirp_streams_a(const uint8_t* __restrict__ raw,     // (S*F, 2 bins)
+                const float2* __restrict__ twiddle,  // pass_twiddles(M1)
+                const float2* __restrict__ inter,    // W_M^(k1 n2)
+                const float* __restrict__ window,    // (bins,) or null
+                const float2* __restrict__ chirp,    // a, the threads' order
+                float2* __restrict__ scratch,        // (S*F, M)
+                int bins, int width, int F, int group, int G_s,
+                const int* __restrict__ counts) {
+  using L = LargeRegs<LOG2M>;
+  using CR = ChirpRegs<LOG2M>;
+  extern __shared__ float4 large_smem[];
+  float2* x = reinterpret_cast<float2*>(large_smem);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(large_smem) + L::XBYTES_A;
+  const int tid = threadIdx.x;
+  const int c = col_of<LOG2M>(tid);
+  const int t = row_of<LOG2M>(tid);
+  const int tile = blockIdx.x % L::TILES_A;
+  const int c0 = tile * L::C;
+  const StreamsBlock blk = streams_block(L::TILES_A, F, group, G_s, counts);
+  const int first = blk.first;
+  const int frames = blk.frames;
+  // The tile's rows with a sample (n1 M2 + c0 < bins), each 1 << lp
+  // pieces of `width` = 1 << lw bytes; a piece is copied where its first
+  // sample is below bins (bins and the piece's samples are multiples of
+  // width / 2, so a piece is all in or all out).
+  const int rows = min(CR::ROWS_A, (bins - c0 + L::N2 - 1) >> L::LOG2N2);
+  const int lw = width == 16 ? 4 : width == 8 ? 3 : 2;
+  const int lp = log2_of(L::ROW_BYTES) - lw;
+  auto prefetch = [&](int i) {
+    if (i < frames) {
+      const uint8_t* src =
+          raw + static_cast<size_t>(first + i) * 2 * bins + 2 * c0;
+      uint8_t* dst = ring + (i & 1) * CR::SLOT_A;
+      for (int q = tid; q < (rows << lp); q += L::THREADS_A) {
+        const int row = q >> lp;
+        const int byte = (q - (row << lp)) << lw;
+        if ((row << L::LOG2N2) + c0 + (byte >> 1) < bins) {
+          copy_piece(dst + ring_offset<LOG2M>(row, byte >> 4) + (byte & 15),
+                     src + (static_cast<size_t>(row) << (L::LOG2N2 + 1)) +
+                         byte,
+                     width);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  prefetch(0);
+  for (int i = 0; i < frames; ++i) {
+    prefetch(i + 1);
+    cp_async_wait<1>();   // this thread's copies of frame i have landed
+    __syncthreads();      // everyone's; x is free (last pass of frame i-1)
+    const uint8_t* slot = ring + (i & 1) * CR::SLOT_A;
+    float2* out = scratch + static_cast<size_t>(first + i) * L::N;
+#pragma unroll 1
+    for (int s = 0; s < L::SUBS; ++s) {
+      chirp_a_batch<LOG2M, WINDOWED>(
+          s, slot, window, chirp + (tile * L::SUBS + s) * CR::CHIRP_A, x,
+          twiddle, inter, out, c, t, c0, bins);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// chirp_regs_b over S streams: block b as streams_block.
+template <int LOG2M>
+__global__ void __launch_bounds__(LargeRegs<LOG2M>::THREADS_B,
+                                  ChirpRegs<LOG2M>::MIN_BLOCKS_B)
+chirp_streams_b(float2* __restrict__ scratch,          // (S*F, M)
+                const float2* __restrict__ twiddle,   // pass_twiddles(M2)
+                const float2* __restrict__ spectrum,  // (M1, M2) by element
+                const float2* __restrict__ inter,     // W_M^(k1 m2)
+                int F, int group, int G_s, const int* __restrict__ counts) {
+  using L = LargeRegs<LOG2M>;
+  using CR = ChirpRegs<LOG2M>;
+  using P = RegsPlan<L::LOG2N2>;
+  constexpr int TF = L::TF2;
+  constexpr int LAST = P::PASSES - 1;
+  constexpr int RL = pass_radix(L::LOG2N2, LAST);
+  constexpr int BITS = log2_of(RL);
+  extern __shared__ float4 large_smem[];
+  float2* stage = reinterpret_cast<float2*>(large_smem);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(large_smem) + CR::STAGE_B;
+  const int tid = threadIdx.x;
+  const int r = tid / TF;
+  const int t = tid % TF;
+  float2* x = stage + r * L::XS2;
+  const int k0 = (blockIdx.x % L::TILES_B) * L::B2;
+  const StreamsBlock blk = streams_block(L::TILES_B, F, group, G_s, counts);
+  const int first = blk.first;
+  const int frames = blk.frames;
+  const float2* spec = spectrum + static_cast<size_t>(k0 + r) * L::N2;
+  const float2* tw = inter + k0 * L::B;
+
+  // Frame i's B2 rows into the ring (copy_runs), counted on the ring's
+  // mbarrier (phase i mod 2; thread 0 arms it for a frame's bytes before a
+  // barrier that comes before any of that frame's copies).
+  constexpr int kFrameBytes = L::RUNS * L::RUN * 8;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + L::SLOT_B);
+  const float2* ring2 = reinterpret_cast<const float2*>(ring);
+  auto prefetch = [&](int i) {
+    if (i < frames) {
+      copy_runs<LOG2M>(ring,
+                       scratch + static_cast<size_t>(first + i) * L::N +
+                           k0 * L::B,
+                       bar, tid);
+    }
+  };
+
+  if (tid == 0) {
+    mbarrier_init(bar, 1);
+    if (frames > 0) mbarrier_expect(bar, kFrameBytes);
+  }
+  __syncthreads();
+  prefetch(0);
+  for (int i = 0; i < frames; ++i) {
+    mbarrier_wait(bar, i & 1);   // frame i's runs have landed
+    __syncthreads();             // the stage is free (frame i - 1's stores)
+    float2 v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = ring2[run_slot<LOG2M>(r, t + k * TF)];
+    if (tid == 0 && i + 1 < frames) mbarrier_expect(bar, kFrameBytes);
+    // The ring's reads (generic proxy) before the copy engine's writes.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();             // every row is in registers
+    prefetch(i + 1);             // frame i + 1 lands while i is transformed
+    first_pass<L::LOG2N2>(v, x, twiddle, t,
+                          [](int e) { return pad_index(e); });
+    __syncthreads();
+    if constexpr (P::PASSES > 2) {
+      regs_pass<L::LOG2N2, 1>(v, x, twiddle, t);
+      __syncthreads();
+    }
+    // The last forward pass leaves output rev_bits(q) of butterfly
+    // b = t + i2 TF in v[i2 RL + q]: element b RL + rev_bits(q).
+    regs_pass<L::LOG2N2, LAST>(v, x, twiddle, t);
+#pragma unroll
+    for (int i2 = 0; i2 < 16 / RL; ++i2) {
+      const int base = (t + i2 * TF) * RL;
+      float2 u[RL];
+      turn_inputs<RL>(u, v, i2 * RL, spec + base);
+      dif_regs<RL>(u, 0);
+#pragma unroll
+      for (int q = 0; q < RL; ++q) {
+        x[pad_index(base + rev_bits(q, BITS))] = u[q];
+      }
+    }
+    __syncthreads();
+    if constexpr (P::PASSES > 2) {
+      regs_pass_t<L::LOG2N2, 1>(v, x, twiddle, t);
+      __syncthreads();
+    }
+    regs_pass_t<L::LOG2N2, 0>(v, x, twiddle, t);   // v[q]: z[t + rev(q) TF]
+    __syncthreads();             // every row's pass 0 has read x
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      stage[run_slot<LOG2M>(r, t + rev_bits(q, 4) * TF)] = v[q];
+    }
+    __syncthreads();
+    float2* out =
+        scratch + static_cast<size_t>(first + i) * L::N + k0 * L::B;
+#pragma unroll 4
+    for (int j = 0; j < 16; ++j) {
+      const int e = tid + j * L::THREADS_B;   // run e / RUN, at e % RUN
+      const int g = e / L::RUN;
+      const int pos = g * L::N1 * L::B + (e - g * L::RUN);
+      const float2 y = stage[g * L::GS + (e - g * L::RUN)];
+      const float2 w = __ldg(tw + pos);
+      out[pos] = cmul(y, w.x, w.y);
+    }
+  }
+}
+
+// chirp_regs_c over S streams: block b as streams_block, its sums to
+// partial row b / TILES_C of `rows`.
+template <int LOG2M>
+__global__ void __launch_bounds__(ChirpRegs<LOG2M>::THREADS_C,
+                                  ChirpRegs<LOG2M>::MIN_BLOCKS_C)
+chirp_streams_c(const float2* __restrict__ scratch,   // (S*F, M)
+                const float2* __restrict__ twiddle,   // pass_twiddles(M1)
+                float* __restrict__ rows,             // (S*G_s, row)
+                int bins, int row, int F, int group, int G_s,
+                const int* __restrict__ counts) {
+  using L = LargeRegs<LOG2M>;
+  using CR = ChirpRegs<LOG2M>;
+  using P = RegsPlan<L::LOG2N1>;
+  constexpr int TF = L::TF1;
+  extern __shared__ float4 large_smem[];
+  float2* xb = reinterpret_cast<float2*>(large_smem);
+  const int tid = threadIdx.x;
+  const int c = col_of<LOG2M>(tid);
+  const int t = row_of<LOG2M>(tid);
+  const int batch = blockIdx.x % CR::TILES_C;
+  const StreamsBlock blk = streams_block(CR::TILES_C, F, group, G_s, counts);
+  const int first = blk.first;
+  const int frames = blk.frames;
+  const auto index = [c](int e) { return col_index<LOG2M>(c, e); };
+
+  // Frame i's batch (a run of M1 B values, value e at (k1, column) =
+  // (e / B, e mod B)) into buffer i & 1, in the exchange's layout.
+  auto prefetch = [&](int i) {
+    if (i < frames) {
+      const float2* src = scratch +
+                          static_cast<size_t>(first + i) * L::N +
+                          static_cast<size_t>(batch) * L::N1 * L::B;
+      float2* dst = xb + (i & 1) * CR::XFLOATS_C;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int e = tid + j * CR::THREADS_C;
+        cp_async_ca<8>(dst + col_index<LOG2M>(e % L::B, e / L::B), src + e);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) acc[k] = 0.0f;
+  prefetch(0);
+  for (int i = 0; i < frames; ++i) {
+    cp_async_wait<0>();   // this thread's copies of frame i have landed
+    __syncthreads();      // everyone's; frame i - 1's buffer is free
+    prefetch(i + 1);
+    float2* x = xb + (i & 1) * CR::XFLOATS_C;
+    float2 v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = x[index(t + k * TF)];
+    // Pass 0 writes the thread's own elements: no barrier before it.
+    first_pass<L::LOG2N1>(v, x, twiddle, t, index);
+    __syncthreads();
+    col_pass<LOG2M, 1>(v, x, twiddle, t, c);
+    if constexpr (P::PASSES > 2) {
+      __syncthreads();
+      col_pass<LOG2M, 2>(v, x, twiddle, t, c);
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) acc[k] += v[k].x * v[k].x + v[k].y * v[k].y;
+  }
+  cp_async_wait<0>();
+  float* out = rows + static_cast<size_t>(blk.rest) * row;
+  const int m2 = batch * L::B + c;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int m1 = pass_bin<L::LOG2N1>(last_element<L::LOG2N1>(t, k));
+    const int m = m2 + (m1 << L::LOG2N2);
+    if (m < bins) out[m] = acc[k];
+  }
+}
+
+// The streams forms: end.
+
 // Pass A unwindowed (0), windowed (1), pass B (2), pass C (3).
 template <int LOG2M, int WHICH>
 const void* chirp_regs_kernel() {
@@ -630,6 +891,89 @@ cudaError_t launch_chirp_regs(const void* raw, const void* twiddle,
   return launch_psd_sum(partial, groups_c, row, out, st);
 }
 
+// The streams passes: A unwindowed (0), windowed (1), B (2), C (3).
+template <int LOG2M, int WHICH>
+const void* chirp_streams_kernel() {
+  if constexpr (WHICH == 0) {
+    return reinterpret_cast<const void*>(chirp_streams_a<LOG2M, false>);
+  } else if constexpr (WHICH == 1) {
+    return reinterpret_cast<const void*>(chirp_streams_a<LOG2M, true>);
+  } else if constexpr (WHICH == 2) {
+    return reinterpret_cast<const void*>(chirp_streams_b<LOG2M>);
+  } else {
+    return reinterpret_cast<const void*>(chirp_streams_c<LOG2M>);
+  }
+}
+
+template <int LOG2M, int WHICH>
+cudaError_t prepare_chirp_streams(int device) {
+  return tile_opt_in(chirp_streams_kernel<LOG2M, WHICH>(),
+                     chirp_regs_smem<LOG2M, WHICH>(), device,
+                     chirp_regs_done<LOG2M, WHICH + 4>());
+}
+
+// The streams passes A, B, C over S streams and, for 2 or more partial
+// rows a stream, each stream's sum, on `st`.
+template <int LOG2M>
+cudaError_t launch_chirp_streams(const void* raw, const void* twiddle,
+                                 const void* inter, const void* window,
+                                 const void* chirp, const void* spectrum,
+                                 const int* counts, void* scratch,
+                                 void* partial, void* out, int bins,
+                                 int width, int S, int F, int group_a,
+                                 int group_b, int group_c, int device,
+                                 cudaStream_t st) {
+  using L = LargeRegs<LOG2M>;
+  using CR = ChirpRegs<LOG2M>;
+  using P1 = RegsPlan<L::LOG2N1>;
+  const float2* tw_a = static_cast<const float2*>(twiddle);
+  const float2* tw_b = tw_a + P1::twiddle_offset(P1::PASSES - 1);
+  const int row = (bins + kSumBins - 1) / kSumBins * kSumBins;
+  const int g_a = (F + group_a - 1) / group_a;
+  const int g_b = (F + group_b - 1) / group_b;
+  const int g_c = (F + group_c - 1) / group_c;
+  const bool windowed = window != nullptr;
+  cudaError_t e = windowed ? prepare_chirp_streams<LOG2M, 1>(device)
+                           : prepare_chirp_streams<LOG2M, 0>(device);
+  if (e == cudaSuccess) e = prepare_chirp_streams<LOG2M, 2>(device);
+  if (e == cudaSuccess) e = prepare_chirp_streams<LOG2M, 3>(device);
+  if (e != cudaSuccess) return e;
+  const int blocks_a = S * g_a * L::TILES_A;
+  if (windowed) {
+    chirp_streams_a<LOG2M, true>
+        <<<blocks_a, L::THREADS_A, CR::SMEM_A, st>>>(
+            static_cast<const uint8_t*>(raw), tw_a,
+            static_cast<const float2*>(inter),
+            static_cast<const float*>(window),
+            static_cast<const float2*>(chirp), static_cast<float2*>(scratch),
+            bins, width, F, group_a, g_a, counts);
+  } else {
+    chirp_streams_a<LOG2M, false>
+        <<<blocks_a, L::THREADS_A, CR::SMEM_A, st>>>(
+            static_cast<const uint8_t*>(raw), tw_a,
+            static_cast<const float2*>(inter), nullptr,
+            static_cast<const float2*>(chirp), static_cast<float2*>(scratch),
+            bins, width, F, group_a, g_a, counts);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  chirp_streams_b<LOG2M>
+      <<<S * g_b * L::TILES_B, L::THREADS_B, CR::SMEM_B, st>>>(
+          static_cast<float2*>(scratch), tw_b,
+          static_cast<const float2*>(spectrum),
+          static_cast<const float2*>(inter), F, group_b, g_b, counts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  float* rows = static_cast<float*>(g_c == 1 ? out : partial);
+  chirp_streams_c<LOG2M>
+      <<<S * g_c * CR::TILES_C, CR::THREADS_C, CR::SMEM_C, st>>>(
+          static_cast<const float2*>(scratch), tw_a, rows, bins, row, F,
+          group_c, g_c, counts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || g_c == 1) return e;
+  return launch_rows_sum(partial, S, g_c, row, out, st);
+}
+
 // What a pass gets on `device` (tile_attributes).
 template <int LOG2M, int WHICH>
 cudaError_t chirp_regs_attributes(int device, int* attrs) {
@@ -680,6 +1024,50 @@ int rpf_fused_psd_chirp_large(const void* raw, const void* twiddle,
     e = launch_chirp_regs<L>(raw, twiddle, inter, window, chirp, spectrum,  \
                              scratch, partial, out, bins, width, F, group_a, \
                              group_b, group_c, n_valid, device, st);        \
+    break;
+  switch (log2m) {
+    RPF_CASE(15) RPF_CASE(16) RPF_CASE(17) RPF_CASE(18) RPF_CASE(19)
+    RPF_CASE(20) RPF_CASE(21) RPF_CASE(22)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_CASE
+  return static_cast<int>(e);
+}
+
+// The streams entry: S streams of F frames. raw: (S*F, 2N) u8, stream s
+// in frames [s F, s F + F); counts: (S,) int32 on the device, each
+// stream's valid frames (read when the passes run); scratch: (S*F, M)
+// complex64; partial: (S * ceil(F / group_c), row) f32 (unused for one
+// row a stream); out: (S, row) f32. The other arguments as
+// rpf_fused_psd_chirp_large's. Returns a cudaError_t (0 on success); does
+// not synchronise.
+int rpf_fused_psd_chirp_large_streams(
+    const void* raw, const void* twiddle, const void* inter,
+    const void* window, const void* chirp, const void* spectrum,
+    const void* counts, void* scratch, void* partial, void* out, int device,
+    int log2m, int bins, int width, int S, int F, int group_a, int group_b,
+    int group_c, void* stream) {
+  if (log2m < kChirpMinLog2M || log2m > kChirpMaxLog2M || S <= 0 ||
+      F <= 0 || group_a <= 0 || group_b <= 0 || group_c <= 0 ||
+      bins < 2 || bins % 2 != 0 || 2 * bins > (1 << log2m) ||
+      4 * bins <= (1 << log2m) ||
+      (width != 4 && width != 8 && width != 16) ||
+      (2 * bins) % width != 0 ||
+      reinterpret_cast<uintptr_t>(raw) % width != 0 || raw == nullptr ||
+      chirp == nullptr || spectrum == nullptr || inter == nullptr ||
+      counts == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* n_valid = static_cast<const int*>(counts);
+#define RPF_CASE(L)                                                          \
+  case L:                                                                    \
+    e = launch_chirp_streams<L>(raw, twiddle, inter, window, chirp,          \
+                                spectrum, n_valid, scratch, partial, out,    \
+                                bins, width, S, F, group_a, group_b,         \
+                                group_c, device, st);                        \
     break;
   switch (log2m) {
     RPF_CASE(15) RPF_CASE(16) RPF_CASE(17) RPF_CASE(18) RPF_CASE(19)

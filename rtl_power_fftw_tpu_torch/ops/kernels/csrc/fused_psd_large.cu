@@ -107,6 +107,19 @@
 // chip_smoke.py to time the redesign against (fused_psd_probe.
 // large_radix2_psd); they are never on a session's path.
 //
+// The streams entry (rpf_fused_psd_large_streams, "L-S"): S streams of F
+// frames, (S*F, 2N), with an (S,) count array on the device, one output
+// row per stream. large_streams_a and large_streams_b are the register
+// passes with S folded into their grids: block b serves tile b mod TILES
+// of stream s = (b / TILES) / G_s and frames [j group, min((j + 1) group,
+// n_valid[s])), j = (b / TILES) mod G_s, G_s = ceil(F / group), so no
+// block crosses a stream; a count is read from device memory when the
+// block runs (one outside [0, F] acts as its nearest bound). Pass B writes
+// partial row s G_s + j; stream s's G_s rows are added as a one-stream
+// call adds its rows (streams_rows_sum, the order of psd_rows_sum, or
+// psd_sum.cuh), so row s is the one-stream call's output on the same
+// frames, count and groups, bit for bit.
+//
 // Later work: a single-pass form at 32768-65536 (a frame spread over a
 // thread-block cluster's distributed shared memory), tensor-map TMA and
 // wgmma forms.
@@ -121,6 +134,7 @@
 #include "fft_regs.cuh"
 #include "fused_psd_large_regs.cuh"
 #include "fused_psd_regs.cuh"
+#include "large_streams.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -467,6 +481,237 @@ cudaError_t regs_attributes(int device, int* attrs) {
       regs_smem<LOG2N, WHICH>());
 }
 
+// The streams forms: begin (the single-stream passes above are not
+// edited for them).
+
+// large_regs_a over S streams: block b as streams_block; frame i of the
+// block is frame first + i of the batch.
+template <int LOG2N, bool WINDOWED>
+__global__ void __launch_bounds__(LargeRegs<LOG2N>::THREADS_A,
+                                  LargeRegs<LOG2N>::MIN_BLOCKS_A)
+large_streams_a(const uint8_t* __restrict__ raw,      // (S*F, 2N)
+                const float2* __restrict__ twiddle,   // pass_twiddles(N1)
+                const float2* __restrict__ inter,     // W_N^(k1 n2)
+                const float* __restrict__ window,     // (N,) or null
+                float2* __restrict__ scratch,         // (S*F, N)
+                int F, int group, int G_s, const int* __restrict__ counts) {
+  using L = LargeRegs<LOG2N>;
+  extern __shared__ float4 large_smem[];
+  float2* x = reinterpret_cast<float2*>(large_smem);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(large_smem) + L::XBYTES_A;
+  const int tid = threadIdx.x;
+  const int c = col_of<LOG2N>(tid);
+  const int t = row_of<LOG2N>(tid);
+  const int c0 = (blockIdx.x % L::TILES_A) * L::C;
+  const StreamsBlock blk = streams_block(L::TILES_A, F, group, G_s, counts);
+  const int first = blk.first;
+  const int frames = blk.frames;
+
+  auto prefetch = [&](int i) {
+    if (i < frames) {
+      const uint8_t* src =
+          raw + static_cast<size_t>(first + i) * 2 * L::N + 2 * c0;
+      uint8_t* dst = ring + (i & 1) * L::SLOT_A;
+#pragma unroll
+      for (int j = 0; j < L::COPIES_A; ++j) {
+        const int q = tid + j * L::THREADS_A;
+        const int row = q / L::PARTS;
+        const int part = q % L::PARTS;
+        cp_async16(dst + ring_offset<LOG2N>(row, part),
+                   src + static_cast<size_t>(row) * 2 * L::N2 + 16 * part);
+      }
+    }
+    cp_async_commit();
+  };
+
+  prefetch(0);
+  for (int i = 0; i < frames; ++i) {
+    prefetch(i + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint8_t* tile = ring + (i & 1) * L::SLOT_A;
+    float2* out = scratch + static_cast<size_t>(first + i) * L::N;
+#pragma unroll 1
+    for (int s = 0; s < L::SUBS; ++s) {
+      regs_a_batch<LOG2N, WINDOWED>(s, tile, window, x, twiddle, inter, out,
+                                    c, t, c0);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// large_regs_b over S streams: block b as streams_block, its sums to
+// partial row b / TILES_B of `rows`.
+template <int LOG2N>
+__global__ void __launch_bounds__(LargeRegs<LOG2N>::THREADS_B, 2)
+large_streams_b(const float2* __restrict__ scratch,   // (S*F, N)
+                const float2* __restrict__ twiddle,   // pass_twiddles(N2)
+                float* __restrict__ rows,             // (S*G_s, N)
+                int F, int group, int G_s, const int* __restrict__ counts) {
+  using L = LargeRegs<LOG2N>;
+  using P = RegsPlan<L::LOG2N2>;
+  constexpr int TF = L::TF2;
+  extern __shared__ float4 large_smem[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(large_smem) + L::XBYTES_B;
+  const int tid = threadIdx.x;
+  const int r = tid / TF;
+  const int t = tid % TF;
+  float2* x = reinterpret_cast<float2*>(large_smem) + r * L::XS2;
+  const int k0 = (blockIdx.x % L::TILES_B) * L::B2;
+  const StreamsBlock blk = streams_block(L::TILES_B, F, group, G_s, counts);
+  const int first = blk.first;
+  const int frames = blk.frames;
+
+  float acc[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) acc[k] = 0.0f;
+
+  constexpr int kFrameBytes = L::RUNS * L::RUN * 8;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + L::SLOT_B);
+  const float2* ring2 = reinterpret_cast<const float2*>(ring);
+  auto prefetch = [&](int i) {
+    if (i < frames) {
+      copy_runs<LOG2N>(ring,
+                       scratch + static_cast<size_t>(first + i) * L::N +
+                           k0 * L::B,
+                       bar, tid);
+    }
+  };
+
+  if (tid == 0) {
+    mbarrier_init(bar, 1);
+    if (frames > 0) mbarrier_expect(bar, kFrameBytes);
+  }
+  __syncthreads();
+  prefetch(0);
+  for (int i = 0; i < frames; ++i) {
+    mbarrier_wait(bar, i & 1);
+    __syncthreads();
+    float2 v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int n2 = t + k * TF;
+      v[k] = ring2[run_slot<LOG2N>(r, n2)];
+    }
+    if (tid == 0 && i + 1 < frames) mbarrier_expect(bar, kFrameBytes);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    prefetch(i + 1);
+    first_pass<L::LOG2N2>(v, x, twiddle, t,
+                          [](int e) { return pad_index(e); });
+    __syncthreads();
+    regs_pass<L::LOG2N2, 1>(v, x, twiddle, t);
+    if constexpr (P::PASSES > 2) {
+      __syncthreads();
+      regs_pass<L::LOG2N2, 2>(v, x, twiddle, t);
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) acc[k] += v[k].x * v[k].x + v[k].y * v[k].y;
+  }
+  __syncthreads();
+
+  float* by_bin = reinterpret_cast<float*>(large_smem);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int k2 = pass_bin<L::LOG2N2>(last_element<L::LOG2N2>(t, k));
+    by_bin[r * L::XSR + pad_index(k2)] = acc[k];
+  }
+  __syncthreads();
+  float* out = rows + static_cast<size_t>(blk.rest) * L::N;
+#pragma unroll 4
+  for (int j = tid; j < L::B2 * L::N2; j += L::THREADS_B) {
+    const int rr = j % L::B2;
+    const int k2 = j / L::B2;
+    out[k0 + rr + (k2 << L::LOG2N1)] = by_bin[rr * L::XSR + pad_index(k2)];
+  }
+}
+
+// The streams forms: end.
+
+// Pass A unwindowed (0), windowed (1), pass B (2) of the streams entry.
+template <int LOG2N, int WHICH>
+const void* streams_kernel() {
+  if constexpr (WHICH == 0) {
+    return reinterpret_cast<const void*>(large_streams_a<LOG2N, false>);
+  } else if constexpr (WHICH == 1) {
+    return reinterpret_cast<const void*>(large_streams_a<LOG2N, true>);
+  } else {
+    return reinterpret_cast<const void*>(large_streams_b<LOG2N>);
+  }
+}
+
+// prepare_regs for the streams passes.
+template <int LOG2N, int WHICH>
+cudaError_t prepare_streams(int device) {
+  constexpr int smem = regs_smem<LOG2N, WHICH>();
+  if constexpr (smem <= 48 * 1024) {
+    return cudaSuccess;
+  } else {
+    static std::atomic<unsigned long long> done{0};
+    const unsigned long long bit = device < 64 ? 1ull << device : 0;
+    if (bit != 0 && (done.load(std::memory_order_relaxed) & bit) != 0) {
+      return cudaSuccess;
+    }
+    cudaError_t e = cudaFuncSetAttribute(
+        streams_kernel<LOG2N, WHICH>(),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(streams_kernel<LOG2N, WHICH>(),
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+    }
+    if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+    return e;
+  }
+}
+
+// Both streams passes and, for 2 or more partial rows a stream, each
+// stream's sum, on `st`.
+template <int LOG2N>
+cudaError_t launch_streams(const void* raw, const void* twiddle,
+                           const void* inter, const void* window,
+                           const int* counts, void* scratch, void* partial,
+                           void* out, int S, int F, int group_a, int group_b,
+                           int device, cudaStream_t st) {
+  using L = LargeRegs<LOG2N>;
+  using P1 = RegsPlan<L::LOG2N1>;
+  const float2* tw_a = static_cast<const float2*>(twiddle);
+  const float2* tw_b = tw_a + P1::twiddle_offset(P1::PASSES - 1);
+  const int g_a = (F + group_a - 1) / group_a;
+  const int g_b = (F + group_b - 1) / group_b;
+  cudaError_t e;
+  if (window == nullptr) {
+    e = prepare_streams<LOG2N, 0>(device);
+    if (e != cudaSuccess) return e;
+    large_streams_a<LOG2N, false>
+        <<<S * g_a * L::TILES_A, L::THREADS_A, L::SMEM_A, st>>>(
+            static_cast<const uint8_t*>(raw), tw_a,
+            static_cast<const float2*>(inter), nullptr,
+            static_cast<float2*>(scratch), F, group_a, g_a, counts);
+  } else {
+    e = prepare_streams<LOG2N, 1>(device);
+    if (e != cudaSuccess) return e;
+    large_streams_a<LOG2N, true>
+        <<<S * g_a * L::TILES_A, L::THREADS_A, L::SMEM_A, st>>>(
+            static_cast<const uint8_t*>(raw), tw_a,
+            static_cast<const float2*>(inter),
+            static_cast<const float*>(window), static_cast<float2*>(scratch),
+            F, group_a, g_a, counts);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = prepare_streams<LOG2N, 2>(device);
+  if (e != cudaSuccess) return e;
+  float* rows = static_cast<float*>(g_b == 1 ? out : partial);
+  large_streams_b<LOG2N>
+      <<<S * g_b * L::TILES_B, L::THREADS_B, L::SMEM_B, st>>>(
+          static_cast<const float2*>(scratch), tw_b, rows, F, group_b, g_b,
+          counts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || g_b == 1) return e;
+  return launch_rows_sum(partial, S, g_b, L::N, out, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -497,6 +742,41 @@ int rpf_fused_psd_large(const void* raw, const void* twiddle,
   case L:                                                                   \
     e = launch_regs<L>(raw, twiddle, inter, window, scratch, partial, out,   \
                        F, group_a, group_b, n_valid, device, st);           \
+    break;
+  switch (log2n) {
+    RPF_CASE(15) RPF_CASE(16) RPF_CASE(17) RPF_CASE(18) RPF_CASE(19)
+    RPF_CASE(20) RPF_CASE(21) RPF_CASE(22)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_CASE
+  return static_cast<int>(e);
+}
+
+// The streams entry: S streams of F frames. raw: (S*F, 2N) u8, 16-byte
+// aligned, stream s in frames [s F, s F + F); counts: (S,) int32 on the
+// device, each stream's valid frames (read when the passes run); scratch:
+// (S*F, N, 2) f32; partial: (S * ceil(F / group_b), N) f32 (unused for one
+// row a stream); out: (S, N) f32. The other arguments as
+// rpf_fused_psd_large's. Returns a cudaError_t (0 on success); does not
+// synchronise.
+int rpf_fused_psd_large_streams(const void* raw, const void* twiddle,
+                                const void* inter, const void* window,
+                                const void* counts, void* scratch,
+                                void* partial, void* out, int device,
+                                int log2n, int S, int F, int group_a,
+                                int group_b, void* stream) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || S <= 0 || F <= 0 ||
+      group_a <= 0 || group_b <= 0 || counts == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* n_valid = static_cast<const int*>(counts);
+#define RPF_CASE(L)                                                          \
+  case L:                                                                    \
+    e = launch_streams<L>(raw, twiddle, inter, window, n_valid, scratch,     \
+                          partial, out, S, F, group_a, group_b, device, st); \
     break;
   switch (log2n) {
     RPF_CASE(15) RPF_CASE(16) RPF_CASE(17) RPF_CASE(18) RPF_CASE(19)

@@ -73,6 +73,7 @@
 #include "frame_ring.cuh"
 #include "fused_psd_mixed.cuh"   // kMixedMaxSmem, read by the ring's header
 #include "fused_psd_mixed_ring.cuh"
+#include "large_streams.cuh"
 #include "psd_rows_sum.cuh"
 #include "psd_sum.cuh"
 
@@ -465,6 +466,230 @@ ml_rows_kernel(const float2* __restrict__ scratch,   // (F, N1, N2p)
   }
 }
 
+// The streams forms: begin (the single-stream passes above are not
+// edited for them).
+
+// ml_cols_kernel over S streams: block b as streams_block
+// (large_streams.cuh); frame i of the block is frame first + i of the
+// batch.
+template <bool WINDOWED>
+__global__ void __launch_bounds__(kColsThreads, 3)
+ml_streams_cols(const uint8_t* __restrict__ raw,     // (S*F, 2N)
+                const float2* __restrict__ twiddle,   // plan_twiddles(N1)
+                const int* __restrict__ bin_of,       // (N1,) element -> bin
+                const float2* __restrict__ inter,     // (N1, N2p) tile-major
+                const float* __restrict__ window,     // (N,) or null
+                float2* __restrict__ scratch,         // (S*F, N1, N2p)
+                const RingPlan p, int log2c, int n2_len, int n2p, int width,
+                int F, int group, int G_s, const int* __restrict__ counts) {
+  extern __shared__ float4 ml_smem[];
+  __shared__ int4 tab[kMixedMaxPasses];   // radix, stride, magic, twoff
+  __shared__ int tab_rounds[kMixedMaxPasses];
+  const int tid = threadIdx.x;
+  const int C = 1 << log2c;
+  const int c = tid & (C - 1);
+  const int t = tid >> log2c;
+  const int n1 = p.n, tf = p.tf, P = p.passes;
+#pragma unroll
+  for (int j = 0; j < kMixedMaxPasses; ++j) {
+    if (tid == j) {
+      tab[j] = make_int4(p.radix[j], p.stride[j], p.magic[j], p.twoff[j]);
+      tab_rounds[j] = p.rounds[j];
+    }
+  }
+  const int row_bytes = 2 * C;
+  const int slot_bytes = n1 * row_bytes;
+  float2* x = reinterpret_cast<float2*>(ml_smem);            // (N1, C)
+  uint8_t* ring = reinterpret_cast<uint8_t*>(ml_smem) + n1 * C * 8;
+  const int tiles = n2p >> log2c;
+  const int tile = blockIdx.x % tiles;
+  const int c0 = tile << log2c;
+  const StreamsBlock blk = streams_block(tiles, F, group, G_s, counts);
+  const int first = blk.first;
+  const int frames = blk.frames;
+  const bool active = c0 + c < n2_len;
+  const size_t frame_bytes = static_cast<size_t>(2) * n1 * n2_len;
+
+  // Frame i's tile into ring slot i & 1: each row's 2C bytes (those of
+  // columns below n2_len) in pieces of `width` = 1 << lw bytes.
+  const int lw = width == 16 ? 4 : width == 8 ? 3 : 2;
+  const int lp = log2c + 1 - lw;   // pieces a row: 1 << lp (2C >= width)
+  auto prefetch = [&](int i) {
+    if (i < frames) {
+      const uint8_t* src = raw + (first + i) * frame_bytes + 2 * c0;
+      uint8_t* dst = ring + (i & 1) * slot_bytes;
+      for (int q = tid; q < (n1 << lp); q += kColsThreads) {
+        const int row = q >> lp;
+        const int byte = (q - (row << lp)) << lw;
+        if (c0 + (byte >> 1) < n2_len) {
+          const uint8_t* from =
+              src + static_cast<size_t>(row) * 2 * n2_len + byte;
+          uint8_t* to = dst + row * row_bytes + byte;
+          if (width == 16) {
+            cp_async16(to, from);
+          } else if (width == 8) {
+            cp_async_ca<8>(to, from);
+          } else {
+            cp_async_ca<4>(to, from);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  prefetch(0);
+  for (int i = 0; i < frames; ++i) {
+    cp_async_wait<0>();   // this thread's copies of frame i have landed
+    __syncthreads();      // everyone's; frame i - 1 is done with x and
+                          // its slot (and the pass table is in place)
+    prefetch(i + 1);
+    const uint8_t* slot = ring + (i & 1) * slot_bytes;
+    if (active) {
+      with_radix(tab[0].x, [&](auto rc) {
+        ml_first<decltype(rc)::value, WINDOWED>(
+            slot, row_bytes, window, n2_len, c0 + c, twiddle, x + c, C, n1,
+            tab_rounds[0], t, tf, c);
+      });
+    }
+    for (int j = 1; j < P - 1; ++j) {
+      __syncthreads();
+      if (active) {
+        const int4 e = tab[j];
+        const int rounds = tab_rounds[j];
+        with_radix(e.x, [&](auto rc) {
+          constexpr int R = decltype(rc)::value;
+          ml_mid<R>(x + c, C, twiddle + e.w, e.y,
+                    static_cast<unsigned>(e.z), n1 / R, rounds, t, tf);
+        });
+      }
+    }
+    __syncthreads();
+    if (active) {
+      float2* out = scratch + static_cast<size_t>(first + i) * n1 * n2p +
+                    static_cast<size_t>(tile) * n1 * C;
+      with_radix(tab[P - 1].x, [&](auto rc) {
+        ml_last_store<decltype(rc)::value>(
+            x + c, C, bin_of, inter + static_cast<size_t>(tile) * n1 * C,
+            out, n1, tab_rounds[P - 1], t, tf, c);
+      });
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ml_rows_kernel over S streams: block b as streams_block, its sums to
+// partial row b / tiles of `rows`.
+template <int ACC>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+ml_streams_rows(const float2* __restrict__ scratch,   // (S*F, N1, N2p)
+                const float2* __restrict__ twiddle,   // plan_twiddles(N2)
+                const int* __restrict__ order,        // (N2,) element of bin
+                float* __restrict__ rows,             // (S*G_s, row)
+                const RingPlan p, int n1_len, int log2c, int n2p, int F,
+                int group, int G_s, const int* __restrict__ counts) {
+  extern __shared__ float4 ml_smem[];
+  __shared__ int4 tab[kMixedMaxPasses];   // radix, stride, magic, twoff
+  __shared__ int tab_rounds[kMixedMaxPasses];
+  const int n = p.n, tf = p.tf, P = p.passes, lanes = p.lanes;
+  const int tid = threadIdx.x;
+  const int r = tid / tf;
+  const int t = tid - r * tf;
+#pragma unroll
+  for (int j = 0; j < kMixedMaxPasses; ++j) {
+    if (tid == j) {
+      tab[j] = make_int4(p.radix[j], p.stride[j], p.magic[j], p.twoff[j]);
+      tab_rounds[j] = p.rounds[j];
+    }
+  }
+  const int C = 1 << log2c;
+  const int slot = lanes * n2p;                      // float2 a slot
+  float2* ring = reinterpret_cast<float2*>(ml_smem);
+  const int tiles = (n1_len + lanes - 1) / lanes;
+  const int k0 = (blockIdx.x % tiles) * lanes;
+  const int valid = min(lanes, n1_len - k0);
+  const StreamsBlock blk = streams_block(tiles, F, group, G_s, counts);
+  const int first = blk.first;
+  const int frames = blk.frames;
+  const bool active = r < valid;
+
+  // Frame i's rows into slot i & 1: run h (columns [h C, h C + C)) of the
+  // frame's scratch holds rows k0 .. k0 + lanes - 1 as lanes * C adjacent
+  // values (row-major), copied 2 values (16 bytes) a piece to row r's
+  // columns; pieces of rows past n1_len are not copied.
+  const int ll = __ffs(lanes) - 1;             // lanes = 1 << ll
+  const int lr = ll + log2c - 1;               // pieces a run: 1 << lr
+  auto prefetch = [&](int i) {
+    if (i < frames) {
+      const float2* src = scratch +
+                          static_cast<size_t>(first + i) * n1_len * n2p +
+                          static_cast<size_t>(k0) * C;
+      float2* dst = ring + (i & 1) * slot;
+      const int pieces = (n2p >> log2c) << lr;
+      for (int q = tid; q < pieces; q += tf * lanes) {
+        const int h = q >> lr;
+        const int e = (q - (h << lr)) * 2;          // value in the run
+        const int rr = e >> log2c;
+        if (rr < valid) {
+          cp_async16(dst + rr * n2p + (h << log2c) + (e & (C - 1)),
+                     src + static_cast<size_t>(h) * n1_len * C + e);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[ACC];
+#pragma unroll
+  for (int k = 0; k < ACC; ++k) acc[k] = 0.0f;
+  prefetch(0);
+  for (int i = 0; i < frames; ++i) {
+    cp_async_wait<0>();   // this thread's copies of frame i have landed
+    __syncthreads();      // everyone's; frame i - 1 is done with its slot
+    prefetch(i + 1);
+    float2* x = ring + (i & 1) * slot + r * n2p;
+    for (int j = 0; j < P - 1; ++j) {
+      if (active) {
+        const int4 e = tab[j];
+        const int rounds = tab_rounds[j];
+        with_radix(e.x, [&](auto rc) {
+          constexpr int R = decltype(rc)::value;
+          ml_mid<R>(x, 1, twiddle + e.w, e.y, static_cast<unsigned>(e.z),
+                    n / R, rounds, t, tf);
+        });
+      }
+      __syncthreads();
+    }
+    if (active) {
+      with_radix(tab[P - 1].x, [&](auto rc) {
+        ring_last<decltype(rc)::value, ACC>(x, acc, n, t, tf);
+      });
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every lane is done with the ring
+
+  // The rows' sums at their elements, then bin k1 + N1 k2 of each row:
+  // lanes adjacent bins a step of k2.
+  float* by_elem = reinterpret_cast<float*>(ml_smem);   // (lanes, n)
+  if (active) {
+    with_radix(tab[P - 1].x, [&](auto rc) {
+      ring_gather<decltype(rc)::value, ACC>(by_elem + r * n, acc, n, t, tf);
+    });
+  }
+  __syncthreads();
+  float* out = rows + static_cast<size_t>(blk.rest) * p.row;
+  for (int j = tid; j < (n << ll); j += tf * lanes) {
+    const int k2 = j >> ll;
+    const int rr = j - (k2 << ll);
+    if (rr < valid) {
+      out[k0 + rr + k2 * n1_len] = by_elem[rr * n + __ldg(order + k2)];
+    }
+  }
+}
+
+// The streams forms: end.
+
 // Shared bytes of pass A (exchange, then the ring's two slots) and pass B
 // (the ring's two slots).
 inline int ml_cols_smem(int n1, int log2c) {
@@ -478,6 +703,13 @@ using MlCols = void (*)(const uint8_t*, const float2*, const int*,
                         int, int, int, int, int, int, int);
 using MlRows = void (*)(const float2*, const float2*, const int*, float*,
                         const RingPlan, int, int, int, int, int, int);
+using MlStreamsCols = void (*)(const uint8_t*, const float2*, const int*,
+                               const float2*, const float*, float2*,
+                               const RingPlan, int, int, int, int, int, int,
+                               int, const int*);
+using MlStreamsRows = void (*)(const float2*, const float2*, const int*,
+                               float*, const RingPlan, int, int, int, int,
+                               int, int, const int*);
 
 // Pass A unwindowed (0), windowed (1), pass B with the small (2) and the
 // large (3) class of sums.
@@ -492,11 +724,50 @@ const void* ml_new_kernel(int which) {
 
 std::atomic<unsigned long long> ml_new_done[4];
 
+// The streams passes, numbered as ml_new_kernel's.
+const void* ml_streams_kernel(int which) {
+  static const MlStreamsCols cols[2] = {ml_streams_cols<false>,
+                                        ml_streams_cols<true>};
+  static const MlStreamsRows rows[2] = {ml_streams_rows<kRingAccSmall>,
+                                        ml_streams_rows<kRingAccLarge>};
+  return which < 2 ? reinterpret_cast<const void*>(cols[which])
+                   : reinterpret_cast<const void*>(rows[which - 2]);
+}
+
+std::atomic<unsigned long long> ml_streams_done[4];
+
 // The class of sums pass B takes for its plan: 2 (small) or 3 (large), or
 // -1 where a thread would hold more than the large class.
 int ml_rows_which(const RingPlan& p) {
   const int acc = p.rounds[p.passes - 1] * p.radix[p.passes - 1];
   return acc <= kRingAccSmall ? 2 : acc <= kRingAccLarge ? 3 : -1;
+}
+
+// The plans and the launch arguments both entries take, checked as
+// rpf_fused_psd_mixed_large states them; into p1, p2 and which_b, smem_a,
+// smem_b (pass B's class of sums and both passes' shared bytes).
+bool ml_launch_ok(const void* raw, const void* bin1, const void* inter,
+                  const void* order2, const int* plan1, const int* plan2,
+                  int log2c, int n2p, int width, int F, int group_a,
+                  int group_b, RingPlan* p1, RingPlan* p2, int* which_b,
+                  int* smem_a, int* smem_b) {
+  if (!read_ml_plan(plan1, 2048, p1) || !read_ml_plan(plan2, 16384, p2) ||
+      log2c < 2 || log2c > 4 || p1->lanes != (1 << log2c) ||
+      p1->tf * p1->lanes != kColsThreads || p2->n % 2 != 0 ||
+      n2p % (1 << log2c) != 0 || n2p < p2->n ||
+      n2p - p2->n >= (1 << log2c) || F <= 0 || group_a <= 0 ||
+      group_b <= 0 || raw == nullptr || bin1 == nullptr ||
+      order2 == nullptr || inter == nullptr ||
+      (width != 4 && width != 8 && width != 16) || width > (2 << log2c) ||
+      (2 * p2->n) % width != 0 ||
+      reinterpret_cast<uintptr_t>(raw) % width != 0 ||
+      p2->row % kSumBins != 0 || p2->row < p1->n * p2->n) {
+    return false;
+  }
+  *which_b = ml_rows_which(*p2);
+  *smem_a = ml_cols_smem(p1->n, log2c);
+  *smem_b = ml_rows_smem(p2->lanes, n2p);
+  return *which_b >= 0 && *smem_a <= kMlMaxSmem && *smem_b <= kMlMaxSmem;
 }
 
 }  // namespace
@@ -524,23 +795,11 @@ int rpf_fused_psd_mixed_large(const void* raw, const void* tw1,
                               int n2p, int width, int F, int group_a,
                               int group_b, int n_valid, void* stream) {
   RingPlan p1, p2;
-  if (!read_ml_plan(plan1, 2048, &p1) || !read_ml_plan(plan2, 16384, &p2) ||
-      log2c < 2 || log2c > 4 || p1.lanes != (1 << log2c) ||
-      p1.tf * p1.lanes != kColsThreads || p2.n % 2 != 0 ||
-      n2p % (1 << log2c) != 0 || n2p < p2.n || n2p - p2.n >= (1 << log2c) ||
-      F <= 0 || n_valid < 0 || n_valid > F || group_a <= 0 ||
-      group_b <= 0 || raw == nullptr || bin1 == nullptr ||
-      order2 == nullptr || inter == nullptr ||
-      (width != 4 && width != 8 && width != 16) || width > (2 << log2c) ||
-      (2 * p2.n) % width != 0 ||
-      reinterpret_cast<uintptr_t>(raw) % width != 0 ||
-      p2.row % kSumBins != 0 || p2.row < p1.n * p2.n) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int which_b = ml_rows_which(p2);
-  const int smem_a = ml_cols_smem(p1.n, log2c);
-  const int smem_b = ml_rows_smem(p2.lanes, n2p);
-  if (which_b < 0 || smem_a > kMlMaxSmem || smem_b > kMlMaxSmem) {
+  int which_b, smem_a, smem_b;
+  if (!ml_launch_ok(raw, bin1, inter, order2, plan1, plan2, log2c, n2p,
+                    width, F, group_a, group_b, &p1, &p2, &which_b, &smem_a,
+                    &smem_b) ||
+      n_valid < 0 || n_valid > F) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool windowed = window != nullptr;
@@ -583,6 +842,66 @@ int rpf_fused_psd_mixed_large(const void* raw, const void* tw1,
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(launch_psd_sum(partial, groups_b, p2.row, out, st));
+}
+
+// The streams entry: S streams of F frames. raw: (S*F, 2N) u8, stream s
+// in frames [s F, s F + F); counts: (S,) int32 on the device, each
+// stream's valid frames (read when the passes run); scratch: (S*F, N1,
+// N2p) complex64; partial: (S * ceil(F / group_b), row) f32 (unused for
+// one row a stream); out: (S, row) f32. The other arguments as
+// rpf_fused_psd_mixed_large's. Returns a cudaError_t (0 on success); does
+// not synchronise.
+int rpf_fused_psd_mixed_large_streams(
+    const void* raw, const void* tw1, const void* bin1, const void* inter,
+    const void* window, const void* tw2, const void* order2,
+    const void* counts, void* scratch, void* partial, void* out,
+    const int* plan1, const int* plan2, int device, int log2c, int n2p,
+    int width, int S, int F, int group_a, int group_b, void* stream) {
+  RingPlan p1, p2;
+  int which_b, smem_a, smem_b;
+  if (!ml_launch_ok(raw, bin1, inter, order2, plan1, plan2, log2c, n2p,
+                    width, F, group_a, group_b, &p1, &p2, &which_b, &smem_a,
+                    &smem_b) ||
+      S <= 0 || counts == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool windowed = window != nullptr;
+  cudaError_t e = use_device(device);
+  if (e == cudaSuccess) {
+    e = tile_opt_in(ml_streams_kernel(windowed ? 1 : 0), smem_a, device,
+                    ml_streams_done[windowed ? 1 : 0], kMlMaxSmem);
+  }
+  if (e == cudaSuccess) {
+    e = tile_opt_in(ml_streams_kernel(which_b), smem_b, device,
+                    ml_streams_done[which_b], kMlMaxSmem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* n_valid = static_cast<const int*>(counts);
+  const int tiles_a = n2p >> log2c;
+  const int tiles_b = (p1.n + p2.lanes - 1) / p2.lanes;
+  const int g_a = (F + group_a - 1) / group_a;
+  const int g_b = (F + group_b - 1) / group_b;
+  const MlStreamsCols cols =
+      windowed ? ml_streams_cols<true> : ml_streams_cols<false>;
+  cols<<<S * g_a * tiles_a, kColsThreads, smem_a, st>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const float2*>(tw1),
+      static_cast<const int*>(bin1), static_cast<const float2*>(inter),
+      static_cast<const float*>(window), static_cast<float2*>(scratch), p1,
+      log2c, p2.n, n2p, width, F, group_a, g_a, n_valid);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  float* rows = static_cast<float*>(g_b == 1 ? out : partial);
+  const MlStreamsRows pass_b = which_b == 2
+                                   ? ml_streams_rows<kRingAccSmall>
+                                   : ml_streams_rows<kRingAccLarge>;
+  pass_b<<<S * g_b * tiles_b, p2.tf * p2.lanes, smem_b, st>>>(
+      static_cast<const float2*>(scratch), static_cast<const float2*>(tw2),
+      static_cast<const int*>(order2), rows, p2, p1.n, log2c, n2p, F,
+      group_b, g_b, n_valid);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || g_b == 1) return static_cast<int>(e);
+  return static_cast<int>(launch_rows_sum(partial, S, g_b, p2.row, out, st));
 }
 
 // What a pass gets with `smem` dynamic bytes and `threads` a block on

@@ -140,7 +140,11 @@ class LaunchCounts:
     kernels they were redesigned from (the controls, and the route where
     the new ones do not fit a block), and ``kernel_sk_streams``,
     ``kernel_tapers_streams`` and ``kernel_pfb_streams`` (with
-    ``_control`` after each, the controls') their streams entries'.
+    ``_control`` after each, the controls') their streams entries', and
+    ``kernel_large_streams``, ``kernel_mixed_large_streams`` and
+    ``kernel_chirp_large_streams`` (with ``_windowed`` after each, their
+    windowed launches) the streams entries of the large kernel, ML and
+    BL.
 
     Incremented by the wrappers only; a session's single consumer thread
     is their only caller while a session runs."""
@@ -175,6 +179,12 @@ class LaunchCounts:
         self.kernel_tapers_streams_control = 0
         self.kernel_pfb_streams = 0
         self.kernel_pfb_streams_control = 0
+        self.kernel_large_streams = 0
+        self.kernel_large_streams_windowed = 0
+        self.kernel_mixed_large_streams = 0
+        self.kernel_mixed_large_streams_windowed = 0
+        self.kernel_chirp_large_streams = 0
+        self.kernel_chirp_large_streams_windowed = 0
         self.plain = 0
 
 

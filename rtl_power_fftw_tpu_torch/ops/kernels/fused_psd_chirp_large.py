@@ -50,6 +50,17 @@ the same three passes in torch ops with the same tables); a CUDA tensor
 goes to the kernel, or raises. ``COUNTS.kernel_chirp_large`` and
 ``COUNTS.kernel_chirp_large_windowed`` (in :mod:`.fused_psd`) count its
 launches; the control's count in ``fused_psd_mixed.CONTROL_COUNTS``.
+
+:func:`fused_psd_chirp_large_streams` ("BL-S") does the same for S
+streams of F frames, (S, F, 2N), with an (S,) int32 count array on the
+device, one output row per stream: the three passes with S folded into
+their grids (``chirp_streams_a``, ``chirp_streams_b`` and
+``chirp_streams_c``, which sums |z|^2 per stream into per-stream partial
+rows), each stream's rows added as a one-stream call adds its own, so
+that row s is :func:`fused_psd_chirp_large`'s output on stream s's frames
+and count with the same groups, bit for bit. Its plain version is
+:func:`chirp_large_streams_reference`; ``COUNTS.kernel_chirp_large_streams``
+and ``COUNTS.kernel_chirp_large_streams_windowed`` count its launches.
 """
 
 from __future__ import annotations
@@ -61,7 +72,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .fused_psd import COUNTS, _on_cuda, check_alignment, check_args
+from .fused_psd import (COUNTS, _on_cuda, check_alignment, check_args,
+                        check_streams_args)
 from .fused_psd_bluestein import (MAX_N as SMALL_MAX_N, bluestein_constants,
                                   chirp_size)
 from .fused_psd import PASS_PLAN, pass_twiddles
@@ -447,12 +459,14 @@ def _plan(N: int, F: int, windowed: bool, device: torch.device) -> _Plan:
 
 
 def fused_psd_chirp_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
-                          window: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          window: Optional[torch.Tensor] = None,
+                          group_c: Optional[int] = None) -> torch.Tensor:
     """(F, 2N) uint8 frames, N even in (8192, 2^21], ``n_valid`` real
     frames -> (N,) float32 sum of |DFT|^2 over those frames, on the
     tensor's device. ``window``: an (N,) float32 tensor on the same
-    device, or None.
+    device, or None. ``group_c``: frames a pass-C block, where not the
+    grid's own (the streams entry's, to compare a stream's row with this
+    call's bits).
 
     A CUDA tensor runs the kernel on the current stream (asynchronously);
     a CPU tensor runs the plain version."""
@@ -468,10 +482,12 @@ def fused_psd_chirp_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     device = raw_u8.device
     plan = _plan(N, F, window is not None, device)
     t = plan.layout
+    groups = plan.groups if group_c is None else (*plan.groups[:2],
+                                                  int(group_c))
+    rows = -(-F // groups[2])
     stream = _raw_stream(device.index)
-    scratch, partial = workspace(("BL", N, F, plan.rows, device.index,
-                                  stream), 2 * F * t.M,
-                                 plan.rows * t.row if plan.rows > 1 else 0,
+    scratch, partial = workspace(("BL", N, F, rows, device.index, stream),
+                                 2 * F * t.M, rows * t.row if rows > 1 else 0,
                                  device)
     out = torch.empty((t.row,), dtype=torch.float32, device=device)
     twiddle, inter, chirp, spectrum = plan.tables
@@ -479,7 +495,7 @@ def fused_psd_chirp_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
         raw_u8.data_ptr(), twiddle, inter,
         None if window is None else window.data_ptr(), chirp, spectrum,
         scratch, partial, out.data_ptr(), device.index, t.log2m, N,
-        copy_width(N, raw_u8.data_ptr()), F, *plan.groups, n_valid, stream)
+        copy_width(N, raw_u8.data_ptr()), F, *groups, n_valid, stream)
     if err != 0:
         raise launch_error("fused_psd_chirp_large", plan.lib, err)
     if window is None:
@@ -487,3 +503,83 @@ def fused_psd_chirp_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     else:
         COUNTS.kernel_chirp_large_windowed += 1
     return out[:N]
+
+
+def chirp_large_streams_reference(raw_u8: torch.Tensor,
+                                  n_valid: torch.Tensor, chunk: int,
+                                  window: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """The plain PyTorch version of BL-S: (S, F, 2N) uint8 frames, (S,)
+    valid counts -> (S, N) float32, row s :func:`chirp_large_reference` of
+    stream s's frames and count (a count outside [0, F] acts as its
+    nearest bound, as in the kernel)."""
+    F = raw_u8.shape[1]
+    counts = n_valid.cpu().clamp(0, F).tolist()
+    return torch.stack([chirp_large_reference(raw_u8[s], c, chunk, window)
+                        for s, c in enumerate(counts)])
+
+
+def streams_grid(S: int, F: int, N: int, resident: Tuple[int, int, int]
+                 ) -> Tuple[int, int, int]:
+    """Frames a block of passes A, B and C over S streams of F frames at
+    N: :func:`.fused_psd_large.large_group` with the S streams' tiles;
+    pass C's sets each stream's partial rows, ceil(F / group)."""
+    return tuple(large_group(F, S * tiles, res) for tiles, res in
+                 zip(chirp_regs_layout(N).tiles, resident))
+
+
+#: The streams entry's grid by (N, S, F, windowed, device).
+_streams_grids: dict = {}
+
+
+def fused_psd_chirp_large_streams(raw_u8: torch.Tensor,
+                                  n_valid: torch.Tensor, chunk: int,
+                                  window: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """BL-S: (S, F, 2N) uint8 frames of S streams, N even in (8192, 2^21],
+    ``n_valid`` (S,) int32 real frames per stream on the frames' device
+    -> (S, N) float32, row s the sum of |DFT|^2 over stream s's first
+    n_valid[s] frames (a count outside [0, F] acts as its nearest bound).
+    ``window``: an (N,) float32 tensor on the same device, or None.
+
+    A CUDA tensor runs the kernel on the current stream (asynchronously:
+    the kernel reads ``n_valid`` from device memory when it runs); a CPU
+    tensor runs the plain version."""
+    check_streams_args(raw_u8, n_valid, chunk, window,
+                       "fused_psd_chirp_large_streams",
+                       fused_psd_chirp_large_eligible)
+    if not _on_cuda("fused_psd_chirp_large_streams", raw_u8):
+        COUNTS.plain += 1
+        return chirp_large_streams_reference(raw_u8, n_valid, chunk, window)
+    check_alignment("fused_psd_chirp_large_streams", raw_u8, RAW_ALIGN,
+                    window, WINDOW_ALIGN)
+    S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
+    device = raw_u8.device
+    windowed = window is not None
+    plan = _plan(N, F, windowed, device)
+    t = plan.layout
+    key = (N, S, F, windowed, device.index)
+    groups = _streams_grids.get(key)
+    if groups is None:
+        groups = _streams_grids[key] = streams_grid(S, F, N, tuple(
+            resident_blocks(N, which, device.index) for which in (
+                PASS_A_WINDOWED if windowed else PASS_A, PASS_B, PASS_C)))
+    rows = -(-F // groups[2])
+    stream = _raw_stream(device.index)
+    scratch, partial = workspace(
+        ("BL", N, S * F, S * rows, device.index, stream), 2 * S * F * t.M,
+        S * rows * t.row if rows > 1 else 0, device)
+    out = torch.empty((S, t.row), dtype=torch.float32, device=device)
+    twiddle, inter, chirp, spectrum = plan.tables
+    err = plan.lib.rpf_fused_psd_chirp_large_streams(
+        raw_u8.data_ptr(), twiddle, inter,
+        None if window is None else window.data_ptr(), chirp, spectrum,
+        n_valid.data_ptr(), scratch, partial, out.data_ptr(), device.index,
+        t.log2m, N, copy_width(N, raw_u8.data_ptr()), S, F, *groups, stream)
+    if err != 0:
+        raise launch_error("fused_psd_chirp_large_streams", plan.lib, err)
+    if window is None:
+        COUNTS.kernel_chirp_large_streams += 1
+    else:
+        COUNTS.kernel_chirp_large_streams_windowed += 1
+    return out[:, :N]

@@ -35,6 +35,16 @@ goes to the plain PyTorch version (:func:`fused_psd_large_reference`, the
 same four steps in torch ops, so their index arithmetic runs on the CPU);
 a CUDA tensor goes to the kernel, or raises. ``COUNTS.kernel_large`` and
 ``COUNTS.kernel_large_windowed`` (in :mod:`.fused_psd`) count its launches.
+
+:func:`fused_psd_large_streams` ("L-S") does the same for S streams of F
+frames, (S, F, 2N), with an (S,) int32 count array on the device, one
+output row per stream: the register passes with S folded into their grids
+(``large_streams_a``, ``large_streams_b``; :func:`streams_grid`), each
+stream's partial rows added as a one-stream call adds its own, so that
+row s is :func:`fused_psd_large`'s output on stream s's frames and count
+with the same groups, bit for bit. Its plain version is
+:func:`fused_psd_large_streams_reference`; ``COUNTS.kernel_large_streams``
+and ``COUNTS.kernel_large_streams_windowed`` count its launches.
 Its host path does the least it can a call: the grid, the tables and their
 pointers are cached per (N, F, chunk, windowed, device), the scratch and
 partial rows per (N, F, rows, device, stream), so a call allocates only
@@ -52,7 +62,8 @@ import numpy as np
 import torch
 
 from .fused_psd import (COUNTS, KernelLaunchError, _on_cuda, check_alignment,
-                        check_args, pass_twiddles, stage_twiddles)
+                        check_args, check_streams_args, pass_twiddles,
+                        stage_twiddles)
 
 #: Eligible sizes: powers of two above fused_psd's 16384, up to the size
 #: whose N1 and N2 (2048 each) keep pass A's and pass B's tiles within the
@@ -187,6 +198,19 @@ def regs_grid(F: int, N: int, resident_a: int, resident_b: int
     return group_a, group_b, -(-F // group_b)
 
 
+def streams_grid(S: int, F: int, N: int, resident_a: int, resident_b: int
+                 ) -> Tuple[int, int, int]:
+    """(frames a pass-A block, frames a pass-B block, partial rows a
+    stream) over S streams of F frames at N: :func:`large_group` with the
+    S streams' tiles, so that the grid of either pass stays within the
+    blocks the card holds at once; a block takes frames of one stream
+    only, the last of a stream's groups the shorter."""
+    t = regs_layout(N)
+    group_a = large_group(F, S * t["tiles_a"], resident_a)
+    group_b = large_group(F, S * t["tiles_b"], resident_b)
+    return group_a, group_b, -(-F // group_b)
+
+
 def kernel_attributes(N: int, which: int,
                       device: Optional[torch.device] = None) -> dict:
     """What a register pass gets at N bins on the card (``which``:
@@ -294,6 +318,21 @@ def fused_psd_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
 
 
+def fused_psd_large_streams_reference(raw_u8: torch.Tensor,
+                                      n_valid: torch.Tensor, chunk: int,
+                                      window: Optional[torch.Tensor] = None
+                                      ) -> torch.Tensor:
+    """The plain PyTorch version of L-S: (S, F, 2N) uint8 frames, (S,)
+    valid counts -> (S, N) float32, row s :func:`fused_psd_large_reference`
+    of stream s's frames and count (a count outside [0, F] acts as its
+    nearest bound, as in the kernel)."""
+    F = raw_u8.shape[1]
+    counts = n_valid.cpu().clamp(0, F).tolist()
+    return torch.stack([fused_psd_large_reference(raw_u8[s], c, chunk,
+                                                  window)
+                        for s, c in enumerate(counts)])
+
+
 class _Plan(NamedTuple):
     """What a call of :func:`fused_psd_large` needs beyond its arguments,
     cached per (N, F, chunk, windowed, device): the library, the grid
@@ -316,6 +355,21 @@ _plans: dict = {}
 #: stream it was made on.
 _workspaces: collections.OrderedDict = collections.OrderedDict()
 _WORKSPACES = 4
+#: The bytes the cached buffers may hold together beyond the newest one
+#: (a streams call's scratch is S times a frame batch's: 4 GiB at 16
+#: streams of 8 frames of 2^22 bins).
+WORKSPACE_BYTES = 1 << 30
+
+
+def keep_newest(cache: collections.OrderedDict) -> None:
+    """Drop a workspace cache's oldest buffers until it holds at most
+    :data:`_WORKSPACES` of them and, beyond the newest, at most
+    :data:`WORKSPACE_BYTES` in all."""
+    def nbytes():
+        return sum(b.numel() * b.element_size() for b in cache.values())
+    while len(cache) > _WORKSPACES or (len(cache) > 1
+                                       and nbytes() > WORKSPACE_BYTES):
+        cache.popitem(last=False)
 
 
 def _plan(N: int, F: int, chunk: int, windowed: bool,
@@ -357,8 +411,7 @@ def _workspace(N: int, F: int, rows: int, device: torch.device,
         buf = torch.empty(F * N * 2 + (rows * N if rows > 1 else 0),
                           dtype=torch.float32, device=device)
         _workspaces[key] = buf
-        while len(_workspaces) > _WORKSPACES:
-            _workspaces.popitem(last=False)
+        keep_newest(_workspaces)
     else:
         _workspaces.move_to_end(key)
     ptr = buf.data_ptr()
@@ -366,10 +419,13 @@ def _workspace(N: int, F: int, rows: int, device: torch.device,
 
 
 def fused_psd_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
-                    window: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    window: Optional[torch.Tensor] = None,
+                    group_b: Optional[int] = None) -> torch.Tensor:
     """(F, 2N) uint8 frames, 32768 <= N <= 2^22, ``n_valid`` real frames ->
     (N,) float32 sum of |DFT|^2 over those frames, on the tensor's device.
     ``window``: an (N,) float32 tensor on the same device (K2), or None.
+    ``group_b``: frames a pass-B block, where not the grid's own (the
+    streams entry's, to compare a stream's row with this call's bits).
 
     A CUDA tensor runs the kernel on the current stream (asynchronously);
     a CPU tensor runs the plain version."""
@@ -384,14 +440,15 @@ def fused_psd_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
     device = raw_u8.device
     plan = _plan(N, F, chunk, window is not None, device)
+    group_b = plan.group_b if group_b is None else int(group_b)
     stream = _raw_stream(device.index)
-    scratch, partial = _workspace(N, F, plan.rows, device, stream)
+    scratch, partial = _workspace(N, F, -(-F // group_b), device, stream)
     out = torch.empty((N,), dtype=torch.float32, device=device)
     err = plan.lib.rpf_fused_psd_large(
         raw_u8.data_ptr(), plan.twiddle, plan.inter,
         None if window is None else window.data_ptr(), scratch, partial,
         out.data_ptr(), device.index, plan.log2n, F, plan.group_a,
-        plan.group_b, n_valid, stream)
+        group_b, n_valid, stream)
     if err != 0:
         raise KernelLaunchError(
             f"fused_psd_large launch failed: "
@@ -401,4 +458,62 @@ def fused_psd_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
         COUNTS.kernel_large += 1
     else:
         COUNTS.kernel_large_windowed += 1
+    return out
+
+
+#: The streams entry's grid by (N, S, F, windowed, device): (group_a,
+#: group_b, partial rows a stream).
+_streams_grids: dict = {}
+
+
+def fused_psd_large_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
+                            chunk: int, window: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """L-S: (S, F, 2N) uint8 frames of S streams, 32768 <= N <= 2^22,
+    ``n_valid`` (S,) int32 real frames per stream on the frames' device ->
+    (S, N) float32, row s the sum of |DFT|^2 over stream s's first
+    n_valid[s] frames (a count outside [0, F] acts as its nearest bound).
+    ``window``: an (N,) float32 tensor on the same device, or None.
+
+    A CUDA tensor runs the kernel on the current stream (asynchronously:
+    the kernel reads ``n_valid`` from device memory when it runs); a CPU
+    tensor runs the plain version."""
+    check_streams_args(raw_u8, n_valid, chunk, window,
+                       "fused_psd_large_streams", fused_psd_large_eligible)
+    if not _on_cuda("fused_psd_large_streams", raw_u8):
+        COUNTS.plain += 1
+        return fused_psd_large_streams_reference(raw_u8, n_valid, chunk,
+                                                 window)
+    check_alignment("fused_psd_large_streams", raw_u8, RAW_ALIGN, window,
+                    WINDOW_ALIGN)
+    S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
+    device = raw_u8.device
+    windowed = window is not None
+    plan = _plan(N, F, chunk, windowed, device)
+    key = (N, S, F, windowed, device.index)
+    grid = _streams_grids.get(key)
+    if grid is None:
+        grid = _streams_grids[key] = streams_grid(
+            S, F, N, resident_blocks(N, PASS_A_WINDOWED if windowed
+                                     else PASS_A, device.index),
+            resident_blocks(N, PASS_B, device.index))
+    group_a, group_b, rows = grid
+    stream = _raw_stream(device.index)
+    scratch, partial = _workspace(N, S * F, S * rows if rows > 1 else 1,
+                                  device, stream)
+    out = torch.empty((S, N), dtype=torch.float32, device=device)
+    err = plan.lib.rpf_fused_psd_large_streams(
+        raw_u8.data_ptr(), plan.twiddle, plan.inter,
+        None if window is None else window.data_ptr(), n_valid.data_ptr(),
+        scratch, partial, out.data_ptr(), device.index, plan.log2n, S, F,
+        group_a, group_b, stream)
+    if err != 0:
+        raise KernelLaunchError(
+            f"fused_psd_large_streams launch failed: "
+            f"{plan.lib.rpf_cuda_error_string(err).decode()} (cudaError "
+            f"{err})")
+    if window is None:
+        COUNTS.kernel_large_streams += 1
+    else:
+        COUNTS.kernel_large_streams_windowed += 1
     return out

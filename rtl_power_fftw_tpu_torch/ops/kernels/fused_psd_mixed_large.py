@@ -51,6 +51,17 @@ with the same twiddle table); a CUDA tensor goes to the kernel, or raises.
 pointers are cached per (N, F, windowed, device), the scratch and partial
 rows per (N, F, rows, device, stream), so a call allocates only its
 output.
+
+:func:`fused_psd_mixed_large_streams` ("ML-S") does the same for S
+streams of F frames, (S, F, 2N), with an (S,) int32 count array on the
+device, one output row per stream: the two passes with S folded into
+their grids (``ml_streams_cols``, ``ml_streams_rows``; a block's frames
+never cross a stream), each stream's partial rows added as a one-stream
+call adds its own, so that row s is :func:`fused_psd_mixed_large`'s
+output on stream s's frames and count with the same groups, bit for bit.
+Its plain version is :func:`fused_psd_mixed_large_streams_reference`;
+``COUNTS.kernel_mixed_large_streams`` and
+``COUNTS.kernel_mixed_large_streams_windowed`` count its launches.
 """
 
 from __future__ import annotations
@@ -63,8 +74,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .fused_psd import COUNTS, _on_cuda, check_alignment, check_args
-from .fused_psd_large import _raw_stream, large_group
+from .fused_psd import (COUNTS, _on_cuda, check_alignment, check_args,
+                        check_streams_args)
+from .fused_psd_large import _raw_stream, keep_newest, large_group
 from .fused_psd_mixed import (CONTROL_COUNTS, MAX_N as MIXED_MAX_N,
                               MAX_PASSES, RING_ACC, SUM_BINS, RingLaunch,
                               _resident, element_of_bin, launch_error,
@@ -331,7 +343,6 @@ _control_plans: dict = {}
 #: few: the kernel is stream-ordered, so a later call on the same stream
 #: may reuse them.
 _workspaces: collections.OrderedDict = collections.OrderedDict()
-_WORKSPACES = 4
 
 
 def device_plan_tables(plan, device: torch.device):
@@ -379,8 +390,7 @@ def workspace(key: tuple, scratch_floats: int, partial_floats: int,
         buf = torch.empty(scratch_floats + partial_floats,
                           dtype=torch.float32, device=device)
         _workspaces[key] = buf
-        while len(_workspaces) > _WORKSPACES:
-            _workspaces.popitem(last=False)
+        keep_newest(_workspaces)
     else:
         _workspaces.move_to_end(key)
     ptr = buf.data_ptr()
@@ -664,12 +674,14 @@ def _plan(N: int, F: int, windowed: bool, device: torch.device) -> _Plan:
 
 
 def fused_psd_mixed_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
-                          window: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          window: Optional[torch.Tensor] = None,
+                          group_b: Optional[int] = None) -> torch.Tensor:
     """(F, 2N) uint8 frames, N even, 7-smooth and not a power of two in
     (16384, 2^22], ``n_valid`` real frames -> (N,) float32 sum of |DFT|^2
     over those frames, on the tensor's device. ``window``: an (N,)
-    float32 tensor on the same device, or None.
+    float32 tensor on the same device, or None. ``group_b``: frames a
+    pass-B block, where not the grid's own (the streams entry's, to
+    compare a stream's row with this call's bits).
 
     A CUDA tensor runs the kernel on the current stream (asynchronously);
     a CPU tensor runs the plain version."""
@@ -686,11 +698,12 @@ def fused_psd_mixed_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     device = raw_u8.device
     plan = _plan(N, F, window is not None, device)
     t = plan.layout
+    group_b = plan.group_b if group_b is None else int(group_b)
+    rows = -(-F // group_b)
     stream = _raw_stream(device.index)
-    scratch, partial = workspace(("ML", N, F, plan.rows, device.index,
-                                  stream), 2 * F * t.N1 * t.n2p,
-                                 plan.rows * t.row if plan.rows > 1 else 0,
-                                 device)
+    scratch, partial = workspace(("ML", N, F, rows, device.index, stream),
+                                 2 * F * t.N1 * t.n2p,
+                                 rows * t.row if rows > 1 else 0, device)
     out = torch.empty((t.row,), dtype=torch.float32, device=device)
     tw1, bin1, inter, tw2, order2 = plan.tables
     err = plan.lib.rpf_fused_psd_mixed_large(
@@ -698,7 +711,7 @@ def fused_psd_mixed_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
         None if window is None else window.data_ptr(), tw2, order2, scratch,
         partial, out.data_ptr(), ctypes.addressof(plan.ints[0]),
         ctypes.addressof(plan.ints[1]), device.index, t.log2c, t.n2p,
-        ml_copy_width(N, raw_u8.data_ptr()), F, plan.group_a, plan.group_b,
+        ml_copy_width(N, raw_u8.data_ptr()), F, plan.group_a, group_b,
         n_valid, stream)
     if err != 0:
         raise launch_error("fused_psd_mixed_large", plan.lib, err)
@@ -707,3 +720,91 @@ def fused_psd_mixed_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
     else:
         COUNTS.kernel_mixed_large_windowed += 1
     return out[:N]
+
+
+def fused_psd_mixed_large_streams_reference(
+        raw_u8: torch.Tensor, n_valid: torch.Tensor, chunk: int,
+        window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of ML-S: (S, F, 2N) uint8 frames, (S,)
+    valid counts -> (S, N) float32, row s
+    :func:`fused_psd_mixed_large_reference` of stream s's frames and count
+    (a count outside [0, F] acts as its nearest bound, as in the
+    kernel)."""
+    F = raw_u8.shape[1]
+    counts = n_valid.cpu().clamp(0, F).tolist()
+    return torch.stack([fused_psd_mixed_large_reference(raw_u8[s], c, chunk,
+                                                        window)
+                        for s, c in enumerate(counts)])
+
+
+def streams_grid(S: int, F: int, N: int, windowed: bool, index: int
+                 ) -> Tuple[int, int, int]:
+    """(frames a pass-A block, frames a pass-B block, partial rows a
+    stream) over S streams of F frames at N on card ``index``:
+    :func:`.fused_psd_large.large_group` with the S streams' tiles."""
+    tiles_a, tiles_b = ml_layout(N).tiles
+    group_a = large_group(F, S * tiles_a, resident_blocks(
+        N, PASS_A_WINDOWED if windowed else PASS_A, index))
+    group_b = large_group(F, S * tiles_b, resident_blocks(N, PASS_B, index))
+    return group_a, group_b, -(-F // group_b)
+
+
+#: The streams entry's grid by (N, S, F, windowed, device).
+_streams_grids: dict = {}
+
+
+def fused_psd_mixed_large_streams(raw_u8: torch.Tensor,
+                                  n_valid: torch.Tensor, chunk: int,
+                                  window: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """ML-S: (S, F, 2N) uint8 frames of S streams at an N
+    :func:`fused_psd_mixed_large` takes, ``n_valid`` (S,) int32 real
+    frames per stream on the frames' device -> (S, N) float32, row s the
+    sum of |DFT|^2 over stream s's first n_valid[s] frames (a count
+    outside [0, F] acts as its nearest bound). ``window``: an (N,) float32
+    tensor on the same device, or None.
+
+    A CUDA tensor runs the kernel on the current stream (asynchronously:
+    the kernel reads ``n_valid`` from device memory when it runs); a CPU
+    tensor runs the plain version."""
+    check_streams_args(raw_u8, n_valid, chunk, window,
+                       "fused_psd_mixed_large_streams",
+                       fused_psd_mixed_large_eligible)
+    if not _on_cuda("fused_psd_mixed_large_streams", raw_u8):
+        COUNTS.plain += 1
+        return fused_psd_mixed_large_streams_reference(raw_u8, n_valid,
+                                                       chunk, window)
+    check_alignment("fused_psd_mixed_large_streams", raw_u8, RAW_ALIGN,
+                    window, WINDOW_ALIGN)
+    S, F, N = raw_u8.shape[0], raw_u8.shape[1], raw_u8.shape[2] // 2
+    device = raw_u8.device
+    windowed = window is not None
+    plan = _plan(N, F, windowed, device)
+    t = plan.layout
+    key = (N, S, F, windowed, device.index)
+    grid = _streams_grids.get(key)
+    if grid is None:
+        grid = _streams_grids[key] = streams_grid(S, F, N, windowed,
+                                                  device.index)
+    group_a, group_b, rows = grid
+    stream = _raw_stream(device.index)
+    scratch, partial = workspace(
+        ("ML", N, S * F, S * rows, device.index, stream),
+        2 * S * F * t.N1 * t.n2p, S * rows * t.row if rows > 1 else 0,
+        device)
+    out = torch.empty((S, t.row), dtype=torch.float32, device=device)
+    tw1, bin1, inter, tw2, order2 = plan.tables
+    err = plan.lib.rpf_fused_psd_mixed_large_streams(
+        raw_u8.data_ptr(), tw1, bin1, inter,
+        None if window is None else window.data_ptr(), tw2, order2,
+        n_valid.data_ptr(), scratch, partial, out.data_ptr(),
+        ctypes.addressof(plan.ints[0]), ctypes.addressof(plan.ints[1]),
+        device.index, t.log2c, t.n2p, ml_copy_width(N, raw_u8.data_ptr()), S,
+        F, group_a, group_b, stream)
+    if err != 0:
+        raise launch_error("fused_psd_mixed_large_streams", plan.lib, err)
+    if window is None:
+        COUNTS.kernel_mixed_large_streams += 1
+    else:
+        COUNTS.kernel_mixed_large_streams_windowed += 1
+    return out[:, :N]

@@ -6,15 +6,21 @@ Port of ``rtl_power_fftw_tpu/parallel/sharded.py:ShardedPsdStep``
 The JAX step ran the fused Pallas kernel's streams variant on each mesh
 shard and summed the shards' per-stream partials with one ``psum``. Here
 the device list is one device (``mesh.make_mesh``), the per-stream step is
-a CUDA kernel's streams entry by ``ops.spectral.transform_route``: K4
-(``fused_psd_streams``) for powers of two up to 16384, the mixed-radix
-kernel's (``fused_psd_mixed_streams``) at the other even 7-smooth N up to
-16384 and the chirp-Z kernel's (``fused_psd_bluestein_streams``) at every
-other even N up to 8192 (their plain PyTorch versions on the CPU), and
-the cross-stream sum is a float32 sum of the (S, N) rows on
-that device, as the JAX step's psum of float32 shard sums. The TPU's
-transform-rung ladder, its compile fallback and its u16 host view have no
-counterpart: the kernel takes the u8 frames as they are.
+a CUDA kernel's streams entry by ``ops.spectral.transform_route``, at
+every N the one-stream ``PsdStep`` takes at default precision: K4
+(``fused_psd_streams``) for powers of two up to 16384 and the large
+kernel's (``fused_psd_large_streams``, L-S) from 32768 to 2^22, the
+mixed-radix kernel's (``fused_psd_mixed_streams``) at the other even
+7-smooth N up to 16384 and ML's (``fused_psd_mixed_large_streams``,
+ML-S) above, to 2^22, the chirp-Z kernel's
+(``fused_psd_bluestein_streams``) at every other even N up to 8192 and
+BL's (``fused_psd_chirp_large_streams``, BL-S) above, to 2^21 (their
+plain PyTorch versions on the CPU); ``transform_route`` refuses the rest
+(N above 2^22, or above 2^21 with a prime factor above 7) with exit 3.
+The cross-stream sum is a float32 sum of the (S, N) rows on that device,
+as the JAX step's psum of float32 shard sums. The TPU's transform-rung
+ladder, its compile fallback and its u16 host view have no counterpart:
+the kernel takes the u8 frames as they are.
 """
 
 from __future__ import annotations
@@ -26,15 +32,23 @@ import torch
 
 from ..exceptions import ReturnValue, RPFexception
 
-from ..ops.kernels.fused_psd import MAX_N, fused_psd_streams
+from ..ops.kernels.fused_psd import fused_psd_streams
 from ..ops.kernels.fused_psd_bluestein import fused_psd_bluestein_streams
+from ..ops.kernels.fused_psd_chirp_large import fused_psd_chirp_large_streams
+from ..ops.kernels.fused_psd_large import fused_psd_large_streams
 from ..ops.kernels.fused_psd_mixed import fused_psd_mixed_streams
+from ..ops.kernels.fused_psd_mixed_large import fused_psd_mixed_large_streams
 from ..ops.spectral import adapt_batch, transform_route
 
-#: The streams entry of each route that has one, and its path's suffix.
-STREAMS_ROUTES = {"regs": (fused_psd_streams, ""),
-                  "mixed": (fused_psd_mixed_streams, "_mixed"),
-                  "bluestein": (fused_psd_bluestein_streams, "_bluestein")}
+#: The streams entry of every route ``transform_route`` gives at default
+#: precision, and its path's suffix.
+STREAMS_ROUTES = {
+    "regs": (fused_psd_streams, ""),
+    "large": (fused_psd_large_streams, "_large"),
+    "mixed": (fused_psd_mixed_streams, "_mixed"),
+    "bluestein": (fused_psd_bluestein_streams, "_bluestein"),
+    "mixed_large": (fused_psd_mixed_large_streams, "_mixed_large"),
+    "chirp_large": (fused_psd_chirp_large_streams, "_chirp_large")}
 
 
 class ShardedPsdStep:
@@ -54,13 +68,7 @@ class ShardedPsdStep:
         if window is not None and len(np.asarray(window)) != N:
             raise ValueError("window must have shape (N,)")
         one_device(devices)
-        route = transform_route(N, backend)
-        if route not in STREAMS_ROUTES:
-            raise RPFexception(
-                "Not yet ported to the PyTorch/CUDA package: --streams at "
-                f"{N} bins (the streams kernels take N up to {MAX_N}). "
-                "Exiting.", ReturnValue.InvalidArgument)
-        self._kernel, suffix = STREAMS_ROUTES[route]
+        self._kernel, suffix = STREAMS_ROUTES[transform_route(N, backend)]
         self.devices = list(devices)
         self.device = torch.device(devices[0])
         self.N = N
@@ -70,9 +78,9 @@ class ShardedPsdStep:
         if window is not None:
             self.window = torch.from_numpy(
                 np.asarray(window, dtype=np.float32).copy()).to(self.device)
-        #: "cuda", "cuda_mixed" or "cuda_bluestein" (K4 or the awkward-N
-        #: kernels' streams entries) on a card, "plain" + the same suffix
-        #: (their PyTorch versions) on the CPU.
+        #: "cuda" + the route's suffix (K4's none, "_large", "_mixed",
+        #: "_bluestein", "_mixed_large", "_chirp_large") on a card, "plain"
+        #: + the same suffix (their PyTorch versions) on the CPU.
         self.path = ("cuda" if self.device.type == "cuda" else "plain") + \
             suffix
 

@@ -116,7 +116,7 @@ def test_transform_route(N, backend, fast, route):
     # ... and what is left still exits 3.
     (["-b", str(1 << 23)], 3, f"{1 << 23} bins"),
     (["-b", "4194302"], 3, "4194302 bins"),
-    (["-b", "20000", "--streams", "2"], 3, "--streams at 20000 bins"),
+    (["-b", "4194302", "--streams", "2"], 3, "4194302 bins"),
     (["-b", "20000", "--multitaper", "7"], 3, "--multitaper at 20000 bins"),
 ])
 def test_awkward_bins_above_the_kernels_exit_3(extra, rc, what, capsys):

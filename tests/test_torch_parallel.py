@@ -255,7 +255,7 @@ def test_sharded_step_validation():
         cpu_step(63, 8, 2)
     with pytest.raises(ValueError, match="window must have shape"):
         cpu_step(1024, 8, 8, make_window("hann", 512))
-    for kwargs in ({"backend": "xla"}, {"N": 8194}):
+    for kwargs in ({"backend": "xla"}, {"N": 4194302}):
         args = {"N": 1024, "backend": "auto", **kwargs}
         with pytest.raises(RPFexception, match="Not yet ported") as e:
             ShardedPsdStep(make_mesh(CPU), args["N"], 8, streams=2,
