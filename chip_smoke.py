@@ -255,6 +255,30 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``torch.fft.fft`` on the same transforms and the bound (the
    multitaper's streams control in turns beside it).
 
+17. the streams entries of the large kernel (``fused_psd_large_streams``,
+   L-S), ML (``fused_psd_mixed_large_streams``, ML-S) and BL
+   (``fused_psd_chirp_large_streams``, BL-S): each pass with S folded
+   into its grid, the counts on the card. At S = 4 with counts (0, 1,
+   F - 1, F), unwindowed and with Hann (L-S 32768 F=16 and F=64, 2^20
+   F=8; ML-S 20000 F=16, 100000 F=64; BL-S 16382 F=16, 99998 F=64):
+   twice each (the same bits), each stream's row the one-stream kernel's
+   on the same frames, count and groups bit for bit, against the plain
+   version and the per-stream float64 golden by the error over the mean
+   (plain's distance beside), zero rows exact; ``parallel/longint.py``'s
+   ``sharded_accumulate`` at 2^20 on the card (L-S at S = 1), the
+   one-stream kernel's bits; 60-seed yards (L-S 65536 Hann, ML-S 20000,
+   BL-S 16382; 4 streams of 16 frames) against the scipy float32 class;
+   a call, the device's and the wrapper's host time at S = 4 (L-S 2^20
+   F=8 and 65536 F=16 Hann, ML-S 10^6 F=8 and 100000 F=64, BL-S 99998
+   F=64 unwindowed and Hann) beside S one-stream calls (device time in
+   turns), the plain version, ``torch.fft.fft`` on the S F frames and the
+   bound; four drives through ``cli.main``, each on its streams kernel
+   alone, against the mean of the per-stream float64 goldens of the
+   recorded streams: ``--streams 4 -b 1048576 -t 10`` (config 3's bins
+   over four receivers), ``--streams 2 -b 100000``, ``--streams 2 -b
+   99998 --window-function hann`` and ``--streams 2 -b 32768
+   --window-function hann``.
+
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
@@ -3903,8 +3927,8 @@ LARGE_STREAMS_DRIVES = [
     ("-b 100000 over 2 streams", "ML-S", 100000, 2, 64, None,
      ["-f", "100M", "-n", "64", "-b", "100000", "-l", "--streams", "2",
       "--source", LINE_SOURCE]),
-    ("-b 99998 hann over 2 streams", "BL-S windowed", 99998, 2, 32, "hann",
-     ["-f", "100M", "-n", "32", "-b", "99998", "--window-function", "hann",
+    ("-b 99998 hann over 2 streams", "BL-S windowed", 99998, 2, 64, "hann",
+     ["-f", "100M", "-n", "64", "-b", "99998", "--window-function", "hann",
       "-l", "--streams", "2", "--source", LINE_SOURCE]),
     ("-b 32768 hann over 2 streams", "L-S windowed", 32768, 2, 128, "hann",
      ["-f", "100M", "-n", "128", "-b", "32768", "--window-function", "hann",
@@ -3912,14 +3936,15 @@ LARGE_STREAMS_DRIVES = [
 ]
 
 
-def hold_rows_by_mean(label, got, want, gold, counts) -> str:
+def hold_rows_by_mean(label, got, want, gold, cls, counts) -> str:
     """A streams entry's (S, N) rows against their plain version and the
     float64 golden by their largest error over the stream's mean golden
-    value (<= 1e-5 each: a stream of few frames has single periodogram
-    values near 0, where a relative error means nothing), plain's distance
-    from the golden printed beside; a stream of no frame by exact
-    zeros."""
-    e_plain = e_gold = e_ref = 0.0
+    value (a stream of few frames has single periodogram values near 0,
+    where a relative error means nothing): each within 1e-5, or 3x the
+    scipy float32 FFT's distance from the golden on the same frames
+    (``cls``) where that is larger; plain's distance printed beside; a
+    stream of no frame by exact zeros."""
+    e_plain = e_gold = e_ref = e_cls = 0.0
     for s, c in enumerate(counts):
         if c == 0:
             check(not got[s].any() and not want[s].any(),
@@ -3929,10 +3954,14 @@ def hold_rows_by_mean(label, got, want, gold, counts) -> str:
         e_plain = max(e_plain, float(np.abs(got[s] - want[s]).max()) / scale)
         e_gold = max(e_gold, float(np.abs(got[s] - gold[s]).max()) / scale)
         e_ref = max(e_ref, float(np.abs(want[s] - gold[s]).max()) / scale)
-    check(e_plain <= UNIFORM_RTOL and e_gold <= GOLDEN_RTOL,
-          f"{label}: err/mean {e_plain} vs plain, {e_gold} vs golden")
+        e_cls = max(e_cls, float(np.abs(cls[s] - gold[s]).max()) / scale)
+    budget = max(GOLDEN_RTOL, 3.0 * e_cls)
+    check(e_plain <= budget and e_gold <= budget,
+          f"{label}: err/mean {e_plain} vs plain, {e_gold} vs golden "
+          f"(budget {budget})")
     return (f"err/mean vs plain {e_plain:.3e}, vs float64 golden "
-            f"{e_gold:.3e} (plain vs golden {e_ref:.3e}); zero rows exact")
+            f"{e_gold:.3e} (<= {budget:.3g}; plain vs golden {e_ref:.3e}, "
+            f"scipy float32 {e_cls:.3e}); zero rows exact")
 
 
 def streams_yard(label, dev, kernel, make_window, wname, N, S, F,
@@ -4004,7 +4033,7 @@ def phase_large_streams(dev, rng, fp, fl, fml, fbl, adapt_batch,
              ("ML-S", 20000, 16), ("ML-S", 100000, 64),
              ("BL-S", 16382, 16), ("BL-S", 99998, 64)]
     reset_counts(fp, ff)
-    max_abs, singles_n = {}, {"L": 0, "ML": 0, "BL": 0}
+    singles_n = {"L": 0, "ML": 0, "BL": 0}
     for name, N, F in cases:
         kernel, plain, single, grids = entries[name]
         chunk = adapt_batch(F)[1]
@@ -4032,10 +4061,11 @@ def phase_large_streams(dev, rng, fp, fl, fml, fbl, adapt_batch,
                   f"{label}: malformed output")
             gold = np.stack([golden_partial_dev(raw[s, :c], w) if c else
                              np.zeros(N) for s, c in enumerate(counts)])
+            cls = np.stack([scipy_f32_class(raw[s, :c].cpu().numpy(), w_np)
+                            if c else np.zeros(N)
+                            for s, c in enumerate(counts)])
             line = hold_rows_by_mean(label, g_np, want.cpu().numpy(), gold,
-                                     counts)
-            max_abs[(name, N, F, wname)] = float(
-                (got.double() - want.double()).abs().max())
+                                     cls, counts)
             print(f"large streams {label} S={S} chunk={chunk} counts "
                   f"{counts}, groups {grid} (frames a block of each pass, "
                   f"partial rows a stream): the same bits twice, each "

@@ -531,7 +531,7 @@ chirp_regs_c(const float2* __restrict__ scratch,   // (F, M), batch-major
 // The streams forms: begin (the single-stream passes above are not
 // edited for them).
 
-// chirp_regs_a over S streams: block b as streams_block
+// chirp_regs_a over S streams: block (x, s) as streams_block
 // (large_streams.cuh); frame i of the block is frame first + i of the
 // batch.
 template <int LOG2M, bool WINDOWED>
@@ -601,7 +601,7 @@ chirp_streams_a(const uint8_t* __restrict__ raw,     // (S*F, 2 bins)
   cp_async_wait<0>();
 }
 
-// chirp_regs_b over S streams: block b as streams_block.
+// chirp_regs_b over S streams: block (x, s) as streams_block.
 template <int LOG2M>
 __global__ void __launch_bounds__(LargeRegs<LOG2M>::THREADS_B,
                                   ChirpRegs<LOG2M>::MIN_BLOCKS_B)
@@ -710,8 +710,8 @@ chirp_streams_b(float2* __restrict__ scratch,          // (S*F, M)
   }
 }
 
-// chirp_regs_c over S streams: block b as streams_block, its sums to
-// partial row b / TILES_C of `rows`.
+// chirp_regs_c over S streams: block (x, s) as streams_block, its sums
+// to partial row s G_s + x / TILES_C of `rows`.
 template <int LOG2M>
 __global__ void __launch_bounds__(ChirpRegs<LOG2M>::THREADS_C,
                                   ChirpRegs<LOG2M>::MIN_BLOCKS_C)
@@ -938,7 +938,7 @@ cudaError_t launch_chirp_streams(const void* raw, const void* twiddle,
   if (e == cudaSuccess) e = prepare_chirp_streams<LOG2M, 2>(device);
   if (e == cudaSuccess) e = prepare_chirp_streams<LOG2M, 3>(device);
   if (e != cudaSuccess) return e;
-  const int blocks_a = S * g_a * L::TILES_A;
+  const dim3 blocks_a(g_a * L::TILES_A, S);
   if (windowed) {
     chirp_streams_a<LOG2M, true>
         <<<blocks_a, L::THREADS_A, CR::SMEM_A, st>>>(
@@ -958,7 +958,7 @@ cudaError_t launch_chirp_streams(const void* raw, const void* twiddle,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   chirp_streams_b<LOG2M>
-      <<<S * g_b * L::TILES_B, L::THREADS_B, CR::SMEM_B, st>>>(
+      <<<dim3(g_b * L::TILES_B, S), L::THREADS_B, CR::SMEM_B, st>>>(
           static_cast<float2*>(scratch), tw_b,
           static_cast<const float2*>(spectrum),
           static_cast<const float2*>(inter), F, group_b, g_b, counts);
@@ -966,7 +966,7 @@ cudaError_t launch_chirp_streams(const void* raw, const void* twiddle,
   if (e != cudaSuccess) return e;
   float* rows = static_cast<float*>(g_c == 1 ? out : partial);
   chirp_streams_c<LOG2M>
-      <<<S * g_c * CR::TILES_C, CR::THREADS_C, CR::SMEM_C, st>>>(
+      <<<dim3(g_c * CR::TILES_C, S), CR::THREADS_C, CR::SMEM_C, st>>>(
           static_cast<const float2*>(scratch), tw_a, rows, bins, row, F,
           group_c, g_c, counts);
   e = cudaGetLastError();
@@ -1048,6 +1048,7 @@ int rpf_fused_psd_chirp_large_streams(
     int log2m, int bins, int width, int S, int F, int group_a, int group_b,
     int group_c, void* stream) {
   if (log2m < kChirpMinLog2M || log2m > kChirpMaxLog2M || S <= 0 ||
+      S > kMaxGridY ||
       F <= 0 || group_a <= 0 || group_b <= 0 || group_c <= 0 ||
       bins < 2 || bins % 2 != 0 || 2 * bins > (1 << log2m) ||
       4 * bins <= (1 << log2m) ||

@@ -110,12 +110,12 @@
 // The streams entry (rpf_fused_psd_large_streams, "L-S"): S streams of F
 // frames, (S*F, 2N), with an (S,) count array on the device, one output
 // row per stream. large_streams_a and large_streams_b are the register
-// passes with S folded into their grids: block b serves tile b mod TILES
-// of stream s = (b / TILES) / G_s and frames [j group, min((j + 1) group,
-// n_valid[s])), j = (b / TILES) mod G_s, G_s = ceil(F / group), so no
-// block crosses a stream; a count is read from device memory when the
-// block runs (one outside [0, F] acts as its nearest bound). Pass B writes
-// partial row s G_s + j; stream s's G_s rows are added as a one-stream
+// passes with S on their grids' y axis: block (x, s) serves tile x mod
+// TILES of stream s's frames [j group, min((j + 1) group, n_valid[s])),
+// j = x / TILES, G_s = ceil(F / group) groups a stream, so no block
+// crosses a stream (large_streams.cuh: streams_block); a count is read
+// from device memory when the block runs (one outside [0, F] acts as its
+// nearest bound). Pass B writes partial row s G_s + j; stream s's G_s rows are added as a one-stream
 // call adds its rows (streams_rows_sum, the order of psd_rows_sum, or
 // psd_sum.cuh), so row s is the one-stream call's output on the same
 // frames, count and groups, bit for bit.
@@ -484,8 +484,8 @@ cudaError_t regs_attributes(int device, int* attrs) {
 // The streams forms: begin (the single-stream passes above are not
 // edited for them).
 
-// large_regs_a over S streams: block b as streams_block; frame i of the
-// block is frame first + i of the batch.
+// large_regs_a over S streams: block (x, s) as streams_block; frame i of
+// the block is frame first + i of the batch.
 template <int LOG2N, bool WINDOWED>
 __global__ void __launch_bounds__(LargeRegs<LOG2N>::THREADS_A,
                                   LargeRegs<LOG2N>::MIN_BLOCKS_A)
@@ -540,8 +540,8 @@ large_streams_a(const uint8_t* __restrict__ raw,      // (S*F, 2N)
   cp_async_wait<0>();
 }
 
-// large_regs_b over S streams: block b as streams_block, its sums to
-// partial row b / TILES_B of `rows`.
+// large_regs_b over S streams: block (x, s) as streams_block, its sums to
+// partial row s G_s + x / TILES_B of `rows`.
 template <int LOG2N>
 __global__ void __launch_bounds__(LargeRegs<LOG2N>::THREADS_B, 2)
 large_streams_b(const float2* __restrict__ scratch,   // (S*F, N)
@@ -684,7 +684,7 @@ cudaError_t launch_streams(const void* raw, const void* twiddle,
     e = prepare_streams<LOG2N, 0>(device);
     if (e != cudaSuccess) return e;
     large_streams_a<LOG2N, false>
-        <<<S * g_a * L::TILES_A, L::THREADS_A, L::SMEM_A, st>>>(
+        <<<dim3(g_a * L::TILES_A, S), L::THREADS_A, L::SMEM_A, st>>>(
             static_cast<const uint8_t*>(raw), tw_a,
             static_cast<const float2*>(inter), nullptr,
             static_cast<float2*>(scratch), F, group_a, g_a, counts);
@@ -692,7 +692,7 @@ cudaError_t launch_streams(const void* raw, const void* twiddle,
     e = prepare_streams<LOG2N, 1>(device);
     if (e != cudaSuccess) return e;
     large_streams_a<LOG2N, true>
-        <<<S * g_a * L::TILES_A, L::THREADS_A, L::SMEM_A, st>>>(
+        <<<dim3(g_a * L::TILES_A, S), L::THREADS_A, L::SMEM_A, st>>>(
             static_cast<const uint8_t*>(raw), tw_a,
             static_cast<const float2*>(inter),
             static_cast<const float*>(window), static_cast<float2*>(scratch),
@@ -704,7 +704,7 @@ cudaError_t launch_streams(const void* raw, const void* twiddle,
   if (e != cudaSuccess) return e;
   float* rows = static_cast<float*>(g_b == 1 ? out : partial);
   large_streams_b<LOG2N>
-      <<<S * g_b * L::TILES_B, L::THREADS_B, L::SMEM_B, st>>>(
+      <<<dim3(g_b * L::TILES_B, S), L::THREADS_B, L::SMEM_B, st>>>(
           static_cast<const float2*>(scratch), tw_b, rows, F, group_b, g_b,
           counts);
   e = cudaGetLastError();
@@ -765,7 +765,8 @@ int rpf_fused_psd_large_streams(const void* raw, const void* twiddle,
                                 void* partial, void* out, int device,
                                 int log2n, int S, int F, int group_a,
                                 int group_b, void* stream) {
-  if (log2n < kMinLog2N || log2n > kMaxLog2N || S <= 0 || F <= 0 ||
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || S <= 0 || S > kMaxGridY ||
+      F <= 0 ||
       group_a <= 0 || group_b <= 0 || counts == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -469,7 +469,7 @@ ml_rows_kernel(const float2* __restrict__ scratch,   // (F, N1, N2p)
 // The streams forms: begin (the single-stream passes above are not
 // edited for them).
 
-// ml_cols_kernel over S streams: block b as streams_block
+// ml_cols_kernel over S streams: block (x, s) as streams_block
 // (large_streams.cuh); frame i of the block is frame first + i of the
 // batch.
 template <bool WINDOWED>
@@ -504,9 +504,15 @@ ml_streams_cols(const uint8_t* __restrict__ raw,     // (S*F, 2N)
   const int tiles = n2p >> log2c;
   const int tile = blockIdx.x % tiles;
   const int c0 = tile << log2c;
+  // The block's frames through shared memory, read again after each
+  // barrier: a count loaded from device memory and held in a register
+  // across the loop spilled at this pass's 80 registers (one stream's
+  // count is a kernel argument, which the compiler forms again).
+  __shared__ int frames_s;
   const StreamsBlock blk = streams_block(tiles, F, group, G_s, counts);
   const int first = blk.first;
-  const int frames = blk.frames;
+  if (tid == 0) frames_s = blk.frames;
+  __syncthreads();
   const bool active = c0 + c < n2_len;
   const size_t frame_bytes = static_cast<size_t>(2) * n1 * n2_len;
 
@@ -515,7 +521,7 @@ ml_streams_cols(const uint8_t* __restrict__ raw,     // (S*F, 2N)
   const int lw = width == 16 ? 4 : width == 8 ? 3 : 2;
   const int lp = log2c + 1 - lw;   // pieces a row: 1 << lp (2C >= width)
   auto prefetch = [&](int i) {
-    if (i < frames) {
+    if (i < frames_s) {
       const uint8_t* src = raw + (first + i) * frame_bytes + 2 * c0;
       uint8_t* dst = ring + (i & 1) * slot_bytes;
       for (int q = tid; q < (n1 << lp); q += kColsThreads) {
@@ -539,7 +545,7 @@ ml_streams_cols(const uint8_t* __restrict__ raw,     // (S*F, 2N)
   };
 
   prefetch(0);
-  for (int i = 0; i < frames; ++i) {
+  for (int i = 0; i < frames_s; ++i) {
     cp_async_wait<0>();   // this thread's copies of frame i have landed
     __syncthreads();      // everyone's; frame i - 1 is done with x and
                           // its slot (and the pass table is in place)
@@ -578,8 +584,8 @@ ml_streams_cols(const uint8_t* __restrict__ raw,     // (S*F, 2N)
   cp_async_wait<0>();
 }
 
-// ml_rows_kernel over S streams: block b as streams_block, its sums to
-// partial row b / tiles of `rows`.
+// ml_rows_kernel over S streams: block (x, s) as streams_block, its sums
+// to partial row s G_s + x / tiles of `rows`.
 template <int ACC>
 __global__ void __launch_bounds__(kRowsThreads, 2)
 ml_streams_rows(const float2* __restrict__ scratch,   // (S*F, N1, N2p)
@@ -862,7 +868,7 @@ int rpf_fused_psd_mixed_large_streams(
   if (!ml_launch_ok(raw, bin1, inter, order2, plan1, plan2, log2c, n2p,
                     width, F, group_a, group_b, &p1, &p2, &which_b, &smem_a,
                     &smem_b) ||
-      S <= 0 || counts == nullptr) {
+      S <= 0 || S > kMaxGridY || counts == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool windowed = window != nullptr;
@@ -884,7 +890,7 @@ int rpf_fused_psd_mixed_large_streams(
   const int g_b = (F + group_b - 1) / group_b;
   const MlStreamsCols cols =
       windowed ? ml_streams_cols<true> : ml_streams_cols<false>;
-  cols<<<S * g_a * tiles_a, kColsThreads, smem_a, st>>>(
+  cols<<<dim3(g_a * tiles_a, S), kColsThreads, smem_a, st>>>(
       static_cast<const uint8_t*>(raw), static_cast<const float2*>(tw1),
       static_cast<const int*>(bin1), static_cast<const float2*>(inter),
       static_cast<const float*>(window), static_cast<float2*>(scratch), p1,
@@ -895,7 +901,7 @@ int rpf_fused_psd_mixed_large_streams(
   const MlStreamsRows pass_b = which_b == 2
                                    ? ml_streams_rows<kRingAccSmall>
                                    : ml_streams_rows<kRingAccLarge>;
-  pass_b<<<S * g_b * tiles_b, p2.tf * p2.lanes, smem_b, st>>>(
+  pass_b<<<dim3(g_b * tiles_b, S), p2.tf * p2.lanes, smem_b, st>>>(
       static_cast<const float2*>(scratch), static_cast<const float2*>(tw2),
       static_cast<const int*>(order2), rows, p2, p1.n, log2c, n2p, F,
       group_b, g_b, n_valid);

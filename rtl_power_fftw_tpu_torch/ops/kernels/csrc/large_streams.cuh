@@ -11,25 +11,27 @@
 namespace {
 
 // A streams block's frames: S streams of F frames, (S*F, 2N), a pass's
-// blocks ordered (stream, group, tile). Block b serves tile b mod tiles
-// of stream s = (b / tiles) / G_s and frames [f0, min(f0 + group,
-// n_valid[s])) of it, f0 = ((b / tiles) mod G_s) group, G_s = ceil(F /
-// group): no block crosses a stream, and a stream's last group is the
-// shorter. The count is read from device memory when the block runs (one
-// outside [0, F] acts as its nearest bound).
+// grid (G_s tiles, S): blockIdx.y is the stream s, and block x serves
+// tile x mod tiles of that stream's frames [f0, min(f0 + group,
+// n_valid[s])), f0 = (x / tiles) group, G_s = ceil(F / group): no block
+// crosses a stream, and a stream's last group is the shorter. The count
+// is read from device memory when the block runs (one outside [0, F] acts
+// as its nearest bound). The stream on the grid's y axis keeps the
+// block's frames as cheap to form again as a one-stream block's, so that
+// the passes hold no more registers than the one-stream passes.
 struct StreamsBlock {
-  int rest;     // b / tiles: the block's partial row, s G_s + j
+  int rest;     // the block's partial row, s G_s + x / tiles
   int first;    // its first frame in the batch, s F + f0
   int frames;   // its frames
 };
 
 __device__ __forceinline__ StreamsBlock streams_block(
     int tiles, int F, int group, int G_s, const int* __restrict__ counts) {
-  const int rest = blockIdx.x / tiles;
-  const int s = rest / G_s;
-  const int f0 = (rest - s * G_s) * group;
+  const int s = blockIdx.y;
+  const int j = blockIdx.x / tiles;
+  const int f0 = j * group;
   const int nv = min(max(__ldg(counts + s), 0), F);
-  return {rest, s * F + f0, max(min(f0 + group, nv) - f0, 0)};
+  return {s * G_s + j, s * F + f0, max(min(f0 + group, nv) - f0, 0)};
 }
 
 // psd_rows_sum (psd_rows_sum.cuh) over S streams: stream s's G rows at

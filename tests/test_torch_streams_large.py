@@ -35,9 +35,10 @@ from rtl_power_fftw_tpu_torch.parallel import (ShardedPsdStep, make_mesh,
                                                sharded, sharded_accumulate)
 
 from golden import golden_accumulate
+from test_torch_awkward_n import CHIP_SMOKE
 from test_torch_parallel import golden_streams, make_streams
 from test_torch_session import (LINEAR_RTOL, assert_text_outputs_match,
-                                outcome)
+                                outcome, run)
 
 CPU = torch.device("cpu")
 RTOL = 1e-5
@@ -152,14 +153,13 @@ def test_streams_reference_is_the_one_stream_reference_per_stream(name, N):
 # --- the kernels' grids, transcribed -------------------------------------
 
 
-def streams_block(b, tiles, F, group, G_s, counts):
+def streams_block(x, s, tiles, F, group, G_s, counts):
     """large_streams.cuh's streams_block: (partial row, first frame of the
-    batch, frames) of block b."""
-    rest = b // tiles
-    s = rest // G_s
-    f0 = (rest - s * G_s) * group
+    batch, frames) of block (x, s) of a (G_s tiles, S) grid."""
+    j = x // tiles
+    f0 = j * group
     nv = min(max(int(counts[s]), 0), F)
-    return rest, s * F + f0, max(min(f0 + group, nv) - f0, 0)
+    return s * G_s + j, s * F + f0, max(min(f0 + group, nv) - f0, 0)
 
 
 def one_stream_block(b, tiles, F, group, n_valid):
@@ -196,12 +196,14 @@ def transcribe(pwr, S, F, counts, group, tiles):
     G_s = -(-F // group)
     partial = np.zeros((S * G_s, pwr.shape[1]), np.float32)
     taken = []
-    for b in range(S * G_s * tiles):
-        rest, first, frames = streams_block(b, tiles, F, group, G_s, counts)
-        taken.append((b % tiles, first, frames))
-        if b % tiles == 0:
-            for f in range(first, first + frames):
-                partial[rest] += pwr[f]
+    for s in range(S):
+        for x in range(G_s * tiles):
+            rest, first, frames = streams_block(x, s, tiles, F, group, G_s,
+                                                counts)
+            taken.append((x % tiles, first, frames))
+            if x % tiles == 0:
+                for f in range(first, first + frames):
+                    partial[rest] += pwr[f]
     out = np.stack([rows_sum(partial[s * G_s:(s + 1) * G_s])
                     for s in range(S)])
     return out, taken
@@ -215,11 +217,6 @@ def powers(raw, window=None):
         z = z * np.asarray(window, np.float32).astype(np.float64)
     X = np.fft.fft(z, axis=1)
     return (X.real ** 2 + X.imag ** 2).astype(np.float32)
-
-
-#: Blocks an H100's SMs hold of a pass (132 SMs times 1..3), and the
-#: tiles of a pass at the sizes below.
-RESIDENT = (132, 264, 396)
 
 
 @pytest.mark.parametrize("S,F,counts,tiles,resident", [
@@ -402,6 +399,39 @@ def test_large_streams_session_matches_jax_session(extra):
     assert assert_text_outputs_match(out_j, out_p, rtol=LINEAR_RTOL) == N
     assert err_p == err_j
     assert "Parallel streams: 2 (mesh size M)" in err_p
+
+
+#: The paths chip_smoke.py's drive() expects of each streams kernel key.
+DRIVE_PATHS = {"L-S": "plain_large", "L-S windowed": "plain_large",
+               "ML-S": "plain_mixed_large", "BL-S windowed": "plain_chirp_large"}
+
+
+@pytest.mark.parametrize("drive", [d for d in CHIP_SMOKE.LARGE_STREAMS_DRIVES
+                                   if d[2] < 1 << 20],
+                         ids=lambda d: d[0])
+def test_chip_smoke_streams_drives_run_their_streams_entries(drive):
+    """chip_smoke.py phase 17's smaller drives run on the CPU through their
+    streams entries' plain versions over the streams they name (the
+    config 3 drive over four streams is held to its argv's bins and
+    streams below, not run: its plain version at 2^20 takes gigabytes)."""
+    label, key, N, streams, repeats, wname, argv = drive
+    rv, out, err = run(argv, port=True)
+    assert rv == 0
+    assert f"Transform path: {DRIVE_PATHS[key]} (backend=auto, N={N})" in err
+    assert f"Parallel streams: {streams} (mesh size 1)" in err
+    assert f"Actual number of averaged spectra: {streams * repeats}" in err
+    assert ("--window-function" in argv) == (wname is not None)
+
+
+def test_chip_smoke_full_width_drive_is_config3_over_four_streams():
+    label, key, N, streams, repeats, wname, argv = \
+        CHIP_SMOKE.LARGE_STREAMS_DRIVES[0]
+    assert (key, N, streams, wname) == ("L-S", 1 << 20, 4, None)
+    assert argv[argv.index("-b") + 1] == str(N)
+    assert argv[argv.index("--streams") + 1] == "4"
+    assert argv[argv.index("-t") + 1] == str(CHIP_SMOKE.C3_SECONDS)
+    assert repeats == -(-CHIP_SMOKE.RATE * CHIP_SMOKE.C3_SECONDS // N) == 20
+    assert spectral.transform_route(N) == "large"
 
 
 # --- the frame-sharded long integration -----------------------------------
