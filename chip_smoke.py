@@ -3964,42 +3964,6 @@ def hold_rows_by_mean(label, got, want, gold, cls, counts) -> str:
             f"scipy float32 {e_cls:.3e}); zero rows exact")
 
 
-def streams_yard(label, dev, kernel, make_window, wname, N, S, F,
-                 seed0) -> None:
-    """A streams entry's admission yard: 60 seeds of 35 dB tones made on
-    the card, each split into S streams of F frames, every row against its
-    stream's float64 golden (cuFFT in float64) beside the scipy float32
-    class of the same frames: median <= 1.5x and max <= 3x its error, the
-    per-seed p99 of the ratio printed."""
-    w_np = None if wname is None else make_window(wname, N)
-    w = None if w_np is None else torch.from_numpy(w_np).to(dev)
-    full = torch.full((S,), F, dtype=torch.int32, device=dev)
-    ours, cls = [], []
-    for seed in range(60):
-        raw = tone_frames_dev(N, S * F, seed0 + seed, dev).reshape(
-            S, F, 2 * N)
-        got = kernel(raw, full, F, w).cpu().numpy()
-        e = c = 0.0
-        for s in range(S):
-            gold = golden_partial_dev(raw[s], w)
-            e = max(e, max_rel(got[s], gold))
-            c = max(c, max_rel(scipy_f32_class(raw[s].cpu().numpy(), w_np),
-                               gold))
-        ours.append(e)
-        cls.append(c)
-    e, c = np.asarray(ours), np.asarray(cls)
-    r = e / c
-    med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
-    print(f"{label} yard N={N} S={S} F={F} window={wname}, 60 seeds of 35 "
-          f"dB tones: max rel median {np.median(e):.3e} / max "
-          f"{e.max():.3e}; scipy f32 {np.median(c):.3e} / {c.max():.3e}; "
-          f"ratio median {med_r:.2f}x (<= 1.5), max {max_r:.2f}x (<= 3), "
-          f"per-seed p99 {np.quantile(r, 0.99):.2f}x, per-seed max "
-          f"{r.max():.2f}x")
-    check(med_r <= 1.5 and max_r <= 3.0,
-          f"{label} yard N={N} window={wname}: above the FFTW-class budget")
-
-
 def phase_large_streams(dev, rng, fp, fl, fml, fbl, adapt_batch,
                         make_window, cli, ff, card):
     """17. The streams entries of the large kernel (L-S), ML (ML-S) and BL
@@ -4099,12 +4063,21 @@ def phase_large_streams(dev, rng, fp, fl, fml, fbl, adapt_batch,
           f"fused_psd_large's bits")
     print(f"wall: large streams checks in {time.perf_counter() - t0:.1f} s")
 
-    # The admission yards.
+    # The admission yards: S streams of 16 frames of each seed's tone, the
+    # rows' sum (the step's combined output) against the golden of the
+    # S 16 frames.
     for name, wname, N, seed0 in (("L-S", "hann", 65536, 17000),
                                   ("ML-S", None, 20000, 17100),
                                   ("BL-S", None, 16382, 17200)):
-        streams_yard(name, dev, entries[name][0], make_window, wname, N, S,
-                     16, seed0)
+        kernel = entries[name][0]
+        single_plain = {"L-S": fl.fused_psd_large_reference,
+                        "ML-S": fml.fused_psd_mixed_large_reference,
+                        "BL-S": fbl.chirp_large_reference}[name]
+        full = torch.full((S,), 16, dtype=torch.int32, device=dev)
+        device_yard(f"{name} (S={S} streams of 16 frames)", dev,
+                    lambda raw, n_valid, chunk, w, kernel=kernel, full=full:
+                    kernel(raw.reshape(S, 16, -1), full, 16, w).sum(0),
+                    single_plain, make_window, wname, N, S * 16, seed0)
     print(f"wall: large streams yards in {time.perf_counter() - t0:.1f} s")
 
     # Times at S = 4, every frame valid (PERF.md states the prediction):

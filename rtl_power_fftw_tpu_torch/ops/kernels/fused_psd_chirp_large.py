@@ -430,7 +430,6 @@ class _Plan(NamedTuple):
     lib: ctypes.CDLL
     layout: ChirpRegsLayout
     groups: Tuple[int, int, int]   # frames a block of passes A, B, C
-    rows: int                      # partial rows
     tables: Tuple[int, ...]        # twiddle, inter, chirp, spectrum
     keep: tuple                    # their tensors
 
@@ -454,7 +453,7 @@ def _plan(N: int, F: int, windowed: bool, device: torch.device) -> _Plan:
                 PASS_A_WINDOWED if windowed else PASS_A, PASS_B, PASS_C)))
         plan = _plans[key] = _Plan(
             _build.load("fused_psd_chirp_large"), t, groups,
-            -(-F // groups[2]), tuple(k.data_ptr() for k in keep), keep)
+            tuple(k.data_ptr() for k in keep), keep)
     return plan
 
 

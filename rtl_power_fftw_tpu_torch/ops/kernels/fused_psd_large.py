@@ -35,6 +35,10 @@ goes to the plain PyTorch version (:func:`fused_psd_large_reference`, the
 same four steps in torch ops, so their index arithmetic runs on the CPU);
 a CUDA tensor goes to the kernel, or raises. ``COUNTS.kernel_large`` and
 ``COUNTS.kernel_large_windowed`` (in :mod:`.fused_psd`) count its launches.
+Its host path does the least it can a call: the grid, the tables and their
+pointers are cached per (N, F, chunk, windowed, device), the scratch and
+partial rows per (N, F, rows, device, stream), so a call allocates only
+its output.
 
 :func:`fused_psd_large_streams` ("L-S") does the same for S streams of F
 frames, (S, F, 2N), with an (S,) int32 count array on the device, one
@@ -45,10 +49,6 @@ row s is :func:`fused_psd_large`'s output on stream s's frames and count
 with the same groups, bit for bit. Its plain version is
 :func:`fused_psd_large_streams_reference`; ``COUNTS.kernel_large_streams``
 and ``COUNTS.kernel_large_streams_windowed`` count its launches.
-Its host path does the least it can a call: the grid, the tables and their
-pointers are cached per (N, F, chunk, windowed, device), the scratch and
-partial rows per (N, F, rows, device, stream), so a call allocates only
-its output.
 """
 
 from __future__ import annotations
@@ -342,7 +342,6 @@ class _Plan(NamedTuple):
     log2n: int
     group_a: int
     group_b: int
-    rows: int
     twiddle: int
     inter: int
     tables: Tuple[torch.Tensor, torch.Tensor]
@@ -387,7 +386,7 @@ def _plan(N: int, F: int, chunk: int, windowed: bool,
             *regs_grid(F, N,
                        resident_blocks(N, PASS_A_WINDOWED if windowed
                                        else PASS_A, device.index),
-                       resident_blocks(N, PASS_B, device.index)),
+                       resident_blocks(N, PASS_B, device.index))[:2],
             tables[0].data_ptr(), tables[1].data_ptr(), tables)
     return plan
 

@@ -641,7 +641,6 @@ class _Plan(NamedTuple):
     layout: MlLayout
     group_a: int
     group_b: int
-    rows: int                   # partial rows
     ints: Tuple[ctypes.Array, ctypes.Array]
     tables: Tuple[int, ...]     # tw1, bin1, inter, tw2, order2
     keep: tuple
@@ -668,8 +667,8 @@ def _plan(N: int, F: int, windowed: bool, device: torch.device) -> _Plan:
         ints = tuple((ctypes.c_int * len(x))(*x)
                      for x in (la.ints() for la in t.launches()))
         plan = _plans[key] = _Plan(
-            _build.load("fused_psd_mixed_large"), t, group_a, group_b,
-            -(-F // group_b), ints, tuple(k.data_ptr() for k in keep), keep)
+            _build.load("fused_psd_mixed_large"), t, group_a, group_b, ints,
+            tuple(k.data_ptr() for k in keep), keep)
     return plan
 
 
