@@ -317,6 +317,18 @@ def fused_psd_streams_reference(raw_u8: torch.Tensor, n_valid: torch.Tensor,
     return pwr.reshape(S, F // chunk, chunk, N).sum(dim=2).sum(dim=1)
 
 
+def per_stream_reference(single, raw_u8: torch.Tensor, n_valid: torch.Tensor,
+                         chunk: int, window: Optional[torch.Tensor]
+                         ) -> torch.Tensor:
+    """A streams entry's plain version from its one-stream plain version
+    ``single``: (S, F, 2N) uint8 frames, (S,) valid counts -> (S, N)
+    float32, row s ``single`` on stream s's frames and count (a count
+    outside [0, F] acts as its nearest bound, as in the kernels)."""
+    counts = n_valid.cpu().clamp(0, raw_u8.shape[1]).tolist()
+    return torch.stack([single(raw_u8[s], c, chunk, window)
+                        for s, c in enumerate(counts)])
+
+
 def check_args(kernel: str, eligible, raw_u8: torch.Tensor, n_valid: int,
                chunk: int, window: Optional[torch.Tensor]) -> None:
     """Raise on arguments ``kernel``'s wrapper does not take: frames that

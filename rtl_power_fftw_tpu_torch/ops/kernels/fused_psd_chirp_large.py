@@ -73,7 +73,7 @@ import numpy as np
 import torch
 
 from .fused_psd import (COUNTS, _on_cuda, check_alignment, check_args,
-                        check_streams_args)
+                        check_streams_args, per_stream_reference)
 from .fused_psd_bluestein import (MAX_N as SMALL_MAX_N, bluestein_constants,
                                   chirp_size)
 from .fused_psd import PASS_PLAN, pass_twiddles
@@ -510,12 +510,9 @@ def chirp_large_streams_reference(raw_u8: torch.Tensor,
                                   ) -> torch.Tensor:
     """The plain PyTorch version of BL-S: (S, F, 2N) uint8 frames, (S,)
     valid counts -> (S, N) float32, row s :func:`chirp_large_reference` of
-    stream s's frames and count (a count outside [0, F] acts as its
-    nearest bound, as in the kernel)."""
-    F = raw_u8.shape[1]
-    counts = n_valid.cpu().clamp(0, F).tolist()
-    return torch.stack([chirp_large_reference(raw_u8[s], c, chunk, window)
-                        for s, c in enumerate(counts)])
+    stream s's frames and count."""
+    return per_stream_reference(chirp_large_reference, raw_u8, n_valid,
+                                chunk, window)
 
 
 def streams_grid(S: int, F: int, N: int, resident: Tuple[int, int, int]

@@ -63,7 +63,7 @@ import torch
 
 from .fused_psd import (COUNTS, KernelLaunchError, _on_cuda, check_alignment,
                         check_args, check_streams_args, pass_twiddles,
-                        stage_twiddles)
+                        per_stream_reference, stage_twiddles)
 
 #: Eligible sizes: powers of two above fused_psd's 16384, up to the size
 #: whose N1 and N2 (2048 each) keep pass A's and pass B's tiles within the
@@ -324,13 +324,9 @@ def fused_psd_large_streams_reference(raw_u8: torch.Tensor,
                                       ) -> torch.Tensor:
     """The plain PyTorch version of L-S: (S, F, 2N) uint8 frames, (S,)
     valid counts -> (S, N) float32, row s :func:`fused_psd_large_reference`
-    of stream s's frames and count (a count outside [0, F] acts as its
-    nearest bound, as in the kernel)."""
-    F = raw_u8.shape[1]
-    counts = n_valid.cpu().clamp(0, F).tolist()
-    return torch.stack([fused_psd_large_reference(raw_u8[s], c, chunk,
-                                                  window)
-                        for s, c in enumerate(counts)])
+    of stream s's frames and count."""
+    return per_stream_reference(fused_psd_large_reference, raw_u8, n_valid,
+                                chunk, window)
 
 
 class _Plan(NamedTuple):

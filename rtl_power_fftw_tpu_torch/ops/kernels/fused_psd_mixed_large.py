@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from .fused_psd import (COUNTS, _on_cuda, check_alignment, check_args,
-                        check_streams_args)
+                        check_streams_args, per_stream_reference)
 from .fused_psd_large import _raw_stream, keep_newest, large_group
 from .fused_psd_mixed import (CONTROL_COUNTS, MAX_N as MIXED_MAX_N,
                               MAX_PASSES, RING_ACC, SUM_BINS, RingLaunch,
@@ -726,14 +726,10 @@ def fused_psd_mixed_large_streams_reference(
         window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch version of ML-S: (S, F, 2N) uint8 frames, (S,)
     valid counts -> (S, N) float32, row s
-    :func:`fused_psd_mixed_large_reference` of stream s's frames and count
-    (a count outside [0, F] acts as its nearest bound, as in the
-    kernel)."""
-    F = raw_u8.shape[1]
-    counts = n_valid.cpu().clamp(0, F).tolist()
-    return torch.stack([fused_psd_mixed_large_reference(raw_u8[s], c, chunk,
-                                                        window)
-                        for s, c in enumerate(counts)])
+    :func:`fused_psd_mixed_large_reference` of stream s's frames and
+    count."""
+    return per_stream_reference(fused_psd_mixed_large_reference, raw_u8,
+                                n_valid, chunk, window)
 
 
 def streams_grid(S: int, F: int, N: int, windowed: bool, index: int
