@@ -11,10 +11,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    one process per source, started together; ptxas's registers and spill
    of every instantiation (24 of the large kernel's radix-2 control, 24
    of its register passes), each large-N pass's registers, spill, shared
-   memory and blocks per SM at every N, and every earlier kernel of the
-   eight libraries of ``sass_diff.SOURCES`` (the estimators' three among
-   them) held to the parent tree's SASS (``ops/kernels/sass_digest.json``,
-   written by ``sass_diff --write-digest`` from that tree's ``csrc/``);
+   memory and blocks per SM at every N, and every kernel of the libraries
+   of ``sass_diff.SOURCES`` (the estimators' three and the library
+   estimators' three among them) held to the SASS of
+   ``ops/kernels/sass_digest.json``, written by ``sass_diff
+   --write-digest`` from a tree's ``csrc/`` (the parent tree's kernels
+   and the instantiations its change added, once ``sass_diff`` held the
+   parent's kernels unchanged);
 3. K1 (``fused_psd``, the register transform of ``fused_psd_regs.cuh``)
    against its plain PyTorch version on the card, at the shapes the main
    path gives it and at N = 256, 2048, 16384, with a masked ``n_valid``
@@ -278,6 +281,33 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    over four receivers), ``--streams 2 -b 100000``, ``--streams 2 -b
    99998 --window-function hann`` and ``--streams 2 -b 32768
    --window-function hann``.
+
+18. the library estimators' kernels: FR (``fused_psd_frames``, K1's
+   group kernel storing each valid frame's fftshifted |X|^2 or its X),
+   PFB-C (``fused_psd_pfb.pfb_channelize``, the PFB's load and transform
+   storing each output frame's X), CSD (``fused_psd_csd``, the four sums
+   of two streams' spectra) and SCF (``fused_psd_scf``, the sums of
+   shifted products of X over lags): registers, spill, shared memory and
+   blocks per SM at 64, 2048 and 16384 bins; each against its plain
+   version and the float64 golden, twice (the same bits), at N = 64,
+   2048 and 16384, unwindowed and Hann, n_valid 0, 1, F - 1 and F (by the
+   error over the golden's mean, 1e-5 or 3x plain's distance where that
+   is larger; CSD over the two streams' mean power, SCF over the alpha =
+   0 row's mean); FR's |X|^2 rows summed in the two-stage order against
+   K1's (K2's) output; PFB-C at P = 1 and 4 (the control's load at 16384
+   bins, P = 4), its |X|^2 summed against ``fused_psd_pfb`` on the same
+   rows; 60-seed tone yards at N = 2048, F = 64 (FR's rows, PFB-C's X,
+   CSD's four sums with Hann, SCF's rows k >= 1 of K = 16) against the
+   scipy float32 class on the same realizations; ``models.spectrogram``
+   (2 s at 2.048 MS/s, hop 1024, average 4, Hann: 4 launches),
+   ``models.pfb_channelize`` (M = 2048, P = 4, 4 s), ``models.coherence``
+   (two 1 s streams sharing the tone, Hann: gamma2 ~1 at the tone, low
+   elsewhere and at DC) and ``models.spectral_correlation`` (K = 16 on an
+   AM signal: the peak off alpha = 0 at the modulation lag), each against
+   a float64 golden of the same bytes and through its kernels alone; a
+   call, the device's and the wrapper's host time of each kernel at its
+   drive's step beside plain, ``torch.fft.fft`` and the bound, and FR at
+   2048 F=4096 beside K1's device time.
 
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -970,7 +1000,8 @@ def launch_counts(fp, ff) -> dict:
     redesigned from, "SK-S", "MT-S" and "PFB-S" (and their controls) the
     estimators' streams entries, "L-S", "ML-S" and "BL-S" (and their
     windowed forms) the streams entries of the large kernel, ML and BL,
-    "M/B control" the kernel M and
+    "FR", "PFB-C", "CSD" and "SCF" (FR and CSD with their windowed forms)
+    the library estimators' kernels, "M/B control" the kernel M and
     B replaced (and its plain versions), "probes" every probe variant
     together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
@@ -1005,6 +1036,12 @@ def launch_counts(fp, ff) -> dict:
             "ML-S windowed": fp.COUNTS.kernel_mixed_large_streams_windowed,
             "BL-S": fp.COUNTS.kernel_chirp_large_streams,
             "BL-S windowed": fp.COUNTS.kernel_chirp_large_streams_windowed,
+            "FR": fp.COUNTS.kernel_frames,
+            "FR windowed": fp.COUNTS.kernel_frames_windowed,
+            "PFB-C": fp.COUNTS.kernel_pfb_channelize,
+            "CSD": fp.COUNTS.kernel_csd,
+            "CSD windowed": fp.COUNTS.kernel_csd_windowed,
+            "SCF": fp.COUNTS.kernel_scf,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -4197,6 +4234,665 @@ def phase_large_streams(dev, rng, fp, fl, fml, fbl, adapt_batch,
                   ("BL-S", 99998, "hann"))]
 
 
+# Phase 18's library drives: an RTL-SDR's line rate (2.048 MS/s) from the
+# synthetic tone source, N = 2048 bins (channels).
+LIB_RATE = 2_048_000
+LIB_N = 2048
+LIB_TONE = "tone=100.2M/35,noise=6"
+
+
+def synthetic_bytes(spec: str, seconds: float) -> np.ndarray:
+    """``seconds`` of the synthetic source ``spec`` (no "synthetic:"),
+    tuned to 100 MHz at LIB_RATE: interleaved u8 IQ."""
+    from rtl_power_fftw_tpu_torch.sources.synthetic import \
+        parse_synthetic_spec
+    src = parse_synthetic_spec(spec)
+    src.set_sample_rate(LIB_RATE)
+    src.set_frequency(100_000_000)
+    buf, _ = src.read(2 * int(LIB_RATE * seconds))
+    return buf
+
+
+def spectra64(raw, window=None):
+    """float64 DFT of every (u8 - 127)[x window] frame of (F, 2N) bytes."""
+    z = dequant64(raw)
+    if window is not None:
+        z = z * np.asarray(window, np.float64)
+    return np.fft.fft(z, axis=1)
+
+
+def fft_class(z):
+    """The scipy float32 FFT of the rows of ``z``, in float64."""
+    import scipy.fft
+    return scipy.fft.fft(z.astype(np.complex64), axis=1).astype(
+        np.complex128)
+
+
+def spectra_class(raw, window=None):
+    """The scipy float32 FFT of the same (windowed) frames, in float64."""
+    z = dequant64(raw)
+    if window is not None:
+        z = z * np.asarray(window, np.float64)
+    return fft_class(z)
+
+
+def csd64(X, Y):
+    """The four sums of the cross-spectral step, float64: sum |X|^2, sum
+    |Y|^2, sum Re(X conj Y), sum Im(X conj Y)."""
+    c = (X * np.conj(Y)).sum(0)
+    return np.stack([(np.abs(X) ** 2).sum(0), (np.abs(Y) ** 2).sum(0),
+                     c.real, c.imag])
+
+
+def scf64(X, k0, K):
+    """(2, K, N) float64 sums of roll(X, -k) conj(X) over frames."""
+    s = np.stack([(np.roll(X, -k, axis=1) * np.conj(X)).sum(0)
+                  for k in range(k0, k0 + K)])
+    return np.stack([s.real, s.imag])
+
+
+def csd_scale(sums):
+    """The cross-spectral planes' scale: the geometric mean of the two
+    streams' mean power."""
+    return max(float(np.sqrt(sums[0].mean() * sums[1].mean())), 1e-30)
+
+
+def yard_by_scale(label, kernel_fn, golden_fn, class_fn, metric, N, F,
+                  seed0) -> None:
+    """A tone yard with its own error measure: 60 seeds of 35 dB tones
+    (tone_frames, F + extra rows as each function takes them), the
+    kernel's and the scipy float32 class's ``metric(got, golden)``:
+    median <= 1.5x and max <= 3x the class's, per-seed p99 printed."""
+    ours, cls = [], []
+    for seed in range(60):
+        gold = golden_fn(seed0 + seed)
+        ours.append(metric(kernel_fn(seed0 + seed), gold))
+        cls.append(metric(class_fn(seed0 + seed), gold))
+    e, c = np.asarray(ours), np.asarray(cls)
+    r = e / c
+    med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
+    print(f"{label} yard N={N} F={F}, 60 seeds of 35 dB tones: error "
+          f"median {np.median(e):.3e} / max {e.max():.3e}; scipy f32 "
+          f"{np.median(c):.3e} / {c.max():.3e}; ratio median {med_r:.2f}x "
+          f"(<= 1.5), max {max_r:.2f}x (<= 3), per-seed p99 "
+          f"{np.quantile(r, 0.99):.2f}x, per-seed max {r.max():.2f}x")
+    check(med_r <= 1.5 and max_r <= 3.0,
+          f"{label} yard N={N}: above the FFTW-class budget")
+
+
+def library_bound_ms(kind: str, F: int, N: int, windowed: bool = False,
+                     K: int = 1, P: int = 1, complex_out: bool = False):
+    """rate_bound_ms of a library kernel's call from k1_work's count (the
+    split-radix transform; bytes read and written once): FR F frames in,
+    F rows of |X|^2 (4N B) or X (8N B) out; PFB-C (F + P - 1) rows and the
+    (P, N) prototype in, F rows of X out, 4 P N more FP32 a frame; CSD two
+    streams' frames in, four rows out, two transforms and 8N a frame for
+    the cross products; SCF the (F, N) complex64 X in, (2, K, N) out, 8 K
+    N FP32 a frame."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    _, _, fp32 = fpp.k1_work(F, N, windowed=windowed)
+    win = 4 * N if windowed else 0
+    if kind == "FR":
+        return rate_bound_ms(F * 2 * N + F * N * (8 if complex_out else 4)
+                             + win, 0.0, fp32)
+    if kind == "PFB-C":
+        return rate_bound_ms((F + P - 1) * 2 * N + 4 * P * N + 8 * F * N,
+                             0.0, fp32 + F * 4 * P * N)
+    if kind == "CSD":
+        return rate_bound_ms(2 * F * 2 * N + 16 * N + win, 0.0,
+                             2 * fp32 + F * 8 * N)
+    return rate_bound_ms(F * N * 8 + 2 * K * N * 4, 0.0, 8.0 * K * N * F)
+
+
+def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
+                             card):
+    """18. The library estimators' kernels: FR (``fused_psd_frames``, both
+    stores), PFB-C (``fused_psd_pfb.pfb_channelize``), CSD
+    (``fused_psd_csd``) and SCF (``fused_psd_scf``): registers, spill and
+    blocks per SM; each against its plain version and the float64 golden,
+    twice (the same bits), at N = 64, 2048 and 16384, unwindowed and Hann,
+    n_valid 0, 1, F - 1 and F; FR's |X|^2 rows summed in the tree order
+    against K1's output, PFB-C's |X|^2 summed against the PFB kernel's on
+    the same rows; 60-seed tone yards at N = 2048, F = 64; the four
+    library functions at full width through their kernels alone; times.
+    Returns the kernels line's entries."""
+    from rtl_power_fftw_tpu_torch import models
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_csd as fcsd
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_frames as ffr
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_scf as fscf
+    t0 = time.perf_counter()
+    for N in (64, 2048, 16384):
+        for label, a in (
+                [(f"FR {o} {'windowed' if w else 'unwindowed'}",
+                  ffr.kernel_attributes(N, w, o == "complex"))
+                 for o in ffr.MODES for w in (False, True)]
+                + [(f"CSD {'windowed' if w else 'unwindowed'}",
+                    fcsd.kernel_attributes(N, w)) for w in (False, True)]
+                + [("PFB-C P=4 ("
+                    + ("ring" if fpf.ring_shape(N, 4) else "control's load")
+                    + ")", fpf.channelize_attributes(N, 4))]):
+            print(f"occupancy library {label} N={N} on {card}: "
+                  f"{a['registers']} registers, {a['spill_bytes']} B spill, "
+                  f"{a['static_smem']} + {a['dynamic_smem']} B shared, "
+                  f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM")
+    a = fscf.kernel_attributes()
+    print(f"occupancy library SCF on {card}: {a['registers']} registers, "
+          f"{a['spill_bytes']} B spill, {a['static_smem']} B shared, "
+          f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM")
+
+    # Each kernel against its plain version and the float64 golden.
+    max_abs = {}
+    for N in (64, 2048, 16384):
+        F = 64 if N == 16384 else 256
+        chunk = adapt_batch(F)[1]
+        for wname in (None, "hann"):
+            w_np = None if wname is None else make_window(wname, N)
+            w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+            raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+            rawy_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+            raw = torch.from_numpy(raw_np).to(dev)
+            rawy = torch.from_numpy(rawy_np).to(dev)
+            X64 = spectra64(raw_np, w_np)
+            Y64 = spectra64(rawy_np, w_np)
+            for nv in (0, 1, F - 1, F):
+                tag = f"N={N} F={F} window={wname} n_valid={nv}"
+                # FR, both stores.
+                for out in ffr.MODES:
+                    got = ffr.fused_psd_frames(raw, nv, w, out)[:nv]
+                    again = ffr.fused_psd_frames(raw, nv, w, out)[:nv]
+                    want = ffr.fused_psd_frames_reference(raw, nv, w,
+                                                          out)[:nv]
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, again),
+                          f"FR {out} {tag}: not deterministic")
+                    if nv == 0:
+                        continue
+                    if out == "complex":
+                        g_np = got.cpu().numpy().astype(np.complex128)
+                        p_np = want.cpu().numpy().astype(np.complex128)
+                        gold = X64[:nv]
+                    else:
+                        g_np = got.cpu().numpy().astype(np.float64)
+                        p_np = want.cpu().numpy().astype(np.float64)
+                        gold = np.fft.fftshift(np.abs(X64[:nv]) ** 2, axes=1)
+                    scale = float(np.abs(gold).mean())
+                    e_plain = float(np.abs(g_np - p_np).max()) / scale
+                    e_gold = float(np.abs(g_np - gold).max()) / scale
+                    e_ref = float(np.abs(p_np - gold).max()) / scale
+                    budget = max(GOLDEN_RTOL, 3.0 * e_ref)
+                    print(f"library FR {out} {tag}: err/mean vs plain "
+                          f"{e_plain:.3e}, vs float64 golden {e_gold:.3e} "
+                          f"(<= {budget:.3g}; plain vs golden {e_ref:.3e})")
+                    check(e_plain <= UNIFORM_RTOL and e_gold <= budget,
+                          f"FR {out} {tag}: {e_plain} vs plain, {e_gold} "
+                          "vs golden")
+                    if (N, wname, nv, out) == (2048, None, F, "complex"):
+                        max_abs["FR"] = float(np.abs(g_np - p_np).max())
+                    if out == "power_shifted":
+                        # FR's rows summed in the tree order: K1's (K2's)
+                        # output.
+                        rows = torch.zeros((F, N), device=dev)
+                        rows[:nv] = torch.fft.ifftshift(got, dim=-1)
+                        tree = rows.reshape(F // chunk, chunk, N).sum(1).sum(0)
+                        k1 = fp.fused_psd(raw, nv, chunk, w)
+                        e_k1 = float((tree - k1).abs().max()
+                                     / k1.abs().mean())
+                        print(f"library FR rows summed vs K1 {tag}: err/mean "
+                              f"{e_k1:.3e} (<= {UNIFORM_RTOL:g})")
+                        check(e_k1 <= UNIFORM_RTOL, f"FR {tag} vs K1: {e_k1}")
+                # CSD.
+                got = fcsd.fused_psd_csd(raw, rawy, nv, chunk, w)
+                again = fcsd.fused_psd_csd(raw, rawy, nv, chunk, w)
+                want = fcsd.fused_psd_csd_reference(raw, rawy, nv, chunk, w)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"CSD {tag}: not "
+                      "deterministic")
+                if nv == 0:
+                    check(not got.any(), f"CSD {tag}: no frame, not zero")
+                else:
+                    gold = csd64(X64[:nv], Y64[:nv])
+                    scale = csd_scale(gold)
+                    g_np = got.cpu().numpy().astype(np.float64)
+                    p_np = want.cpu().numpy().astype(np.float64)
+                    e_plain = float(np.abs(g_np - p_np).max()) / scale
+                    e_gold = float(np.abs(g_np - gold).max()) / scale
+                    e_ref = float(np.abs(p_np - gold).max()) / scale
+                    budget = max(GOLDEN_RTOL, 3.0 * e_ref)
+                    print(f"library CSD {tag}: err over the streams' power "
+                          f"vs plain {e_plain:.3e}, vs float64 golden "
+                          f"{e_gold:.3e} (<= {budget:.3g}; plain vs golden "
+                          f"{e_ref:.3e})")
+                    check(e_plain <= UNIFORM_RTOL and e_gold <= budget,
+                          f"CSD {tag}: {e_plain} vs plain, {e_gold} vs "
+                          "golden")
+                    if (N, wname, nv) == (2048, "hann", F):
+                        max_abs["CSD"] = float(np.abs(g_np - p_np).max())
+                # SCF on FR's X of the same frames.
+                if wname is not None:
+                    continue
+                X = ffr.fused_psd_frames(raw, nv, None, "complex")
+                for k0, K in ((0, 5), (3, 40)):
+                    if K == 40 and nv != F:
+                        continue
+                    got = fscf.fused_psd_scf(X, nv, chunk, k0, K)
+                    again = fscf.fused_psd_scf(X, nv, chunk, k0, K)
+                    want = fscf.fused_psd_scf_reference(X, nv, chunk, k0, K)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, again), f"SCF {tag}: not "
+                          "deterministic")
+                    if nv == 0:
+                        check(not got.any(), f"SCF {tag}: not zero")
+                        continue
+                    gold = scf64(X64[:nv], k0, K)
+                    scale = float((np.abs(X64[:nv]) ** 2).sum(0).mean())
+                    g_np = got.cpu().numpy().astype(np.float64)
+                    p_np = want.cpu().numpy().astype(np.float64)
+                    e_plain = float(np.abs(g_np - p_np).max()) / scale
+                    e_gold = float(np.abs(g_np - gold).max()) / scale
+                    e_ref = float(np.abs(p_np - gold).max()) / scale
+                    budget = max(GOLDEN_RTOL, 3.0 * e_ref)
+                    print(f"library SCF {tag} lags {k0}..{k0 + K - 1}: err "
+                          f"over the alpha = 0 row's mean vs plain "
+                          f"{e_plain:.3e}, vs float64 golden {e_gold:.3e} "
+                          f"(<= {budget:.3g}; plain vs golden {e_ref:.3e})")
+                    check(e_plain <= UNIFORM_RTOL and e_gold <= budget,
+                          f"SCF {tag}: {e_plain} vs plain, {e_gold} vs "
+                          "golden")
+                    if (N, nv, K) == (2048, F, 5):
+                        max_abs["SCF"] = float(np.abs(g_np - p_np).max())
+        # PFB-C at P = 4 (and 1), F output frames, against plain, the golden
+        # and the PFB kernel's sum of |X|^2 on the same rows.
+        for P in (1, 4):
+            F = 64 if N == 16384 else 256
+            chunk = adapt_batch(F)[1]
+            rows_np = rng.integers(0, 256, (F + P - 1, 2 * N), dtype=np.uint8)
+            rows = torch.from_numpy(rows_np).to(dev)
+            h_np = pfb_prototype(N, P)
+            h = torch.from_numpy(h_np.reshape(P, N).copy()).to(dev)
+            got = fpf.pfb_channelize(rows, h)
+            again = fpf.pfb_channelize(rows, h)
+            want = fpf.pfb_channelize_reference(rows, h)
+            torch.cuda.synchronize()
+            tag = (f"N={N} T={F} P={P} "
+                   f"({'ring' if fpf.ring_shape(N, P) else 'control load'})")
+            check(torch.equal(got, again), f"PFB-C {tag}: not deterministic")
+            z = dequant64(rows_np)
+            hh = h_np.reshape(P, N).astype(np.float64)
+            gold = np.fft.fft(sum(z[p:p + F] * hh[p] for p in range(P)),
+                              axis=1)
+            g_np = got.cpu().numpy().astype(np.complex128)
+            p_np = want.cpu().numpy().astype(np.complex128)
+            scale = float(np.abs(gold).mean())
+            e_plain = float(np.abs(g_np - p_np).max()) / scale
+            e_gold = float(np.abs(g_np - gold).max()) / scale
+            e_ref = float(np.abs(p_np - gold).max()) / scale
+            budget = max(GOLDEN_RTOL, 3.0 * e_ref)
+            hist = rows[:P - 1].clone()
+            hist_out = torch.empty_like(hist)
+            psd = fpf.fused_psd_pfb(rows[P - 1:].contiguous(), hist, F, chunk,
+                                    h, hist_out)
+            pw = (got.real ** 2 + got.imag ** 2).reshape(
+                F // chunk, chunk, N).sum(1).sum(0)
+            e_psd = float((pw - psd).abs().max() / psd.abs().mean())
+            print(f"library PFB-C {tag}: err/mean vs plain {e_plain:.3e}, vs "
+                  f"float64 golden {e_gold:.3e} (<= {budget:.3g}; plain vs "
+                  f"golden {e_ref:.3e}); |X|^2 summed vs fused_psd_pfb "
+                  f"{e_psd:.3e} (<= {UNIFORM_RTOL:g})")
+            check(e_plain <= UNIFORM_RTOL and e_gold <= budget
+                  and e_psd <= UNIFORM_RTOL, f"PFB-C {tag}")
+            if (N, P) == (2048, 4):
+                max_abs["PFB-C"] = float(np.abs(g_np - p_np).max())
+    print(f"wall: library kernels against plain in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 60-seed tone yards at N = 2048, F = 64.
+    N, F, P, K = 2048, 64, 4, 16
+    hann = make_window("hann", N)
+    h_np = pfb_prototype(N, P).reshape(P, N)
+    h_dev = torch.from_numpy(h_np.copy()).to(dev)
+
+    def to_dev(a):
+        return torch.from_numpy(a).to(dev)
+
+    def by_mean(got, gold):
+        return float(np.abs(got - gold).max() / np.abs(gold).mean())
+
+    yard_by_scale(
+        "library FR (|X|^2 rows, err/mean)",
+        lambda s: ffr.fused_psd_frames(to_dev(tone_frames(N, F, s)), F, None,
+                                       "power_shifted").cpu().numpy()
+        .astype(np.float64),
+        lambda s: np.fft.fftshift(np.abs(spectra64(tone_frames(N, F, s)))
+                                  ** 2, axes=1),
+        lambda s: np.fft.fftshift(np.abs(spectra_class(tone_frames(N, F, s)))
+                                  ** 2, axes=1),
+        by_mean, N, F, 18000)
+
+    def pfb_sums(s):
+        z = dequant64(tone_frames(N, F + P - 1, s))
+        return sum(z[p:p + F] * h_np[p].astype(np.float64)
+                   for p in range(P))
+
+    yard_by_scale(
+        "library PFB-C (X, err over mean |X|)",
+        lambda s: fpf.pfb_channelize(to_dev(tone_frames(N, F + P - 1, s)),
+                                     h_dev).cpu().numpy()
+        .astype(np.complex128),
+        lambda s: np.fft.fft(pfb_sums(s), axis=1),
+        lambda s: fft_class(pfb_sums(s)),
+        by_mean, N, F, 18100)
+
+    def csd_metric(got, gold):
+        return float(np.abs(got - gold).max()) / csd_scale(gold)
+
+    yard_by_scale(
+        "library CSD (four sums, Hann, err over the streams' power)",
+        lambda s: fcsd.fused_psd_csd(
+            to_dev(tone_frames(N, F, s)), to_dev(tone_frames(N, F, s + 7000)),
+            F, F, to_dev(hann)).cpu().numpy().astype(np.float64),
+        lambda s: csd64(spectra64(tone_frames(N, F, s), hann),
+                        spectra64(tone_frames(N, F, s + 7000), hann)),
+        lambda s: csd64(spectra_class(tone_frames(N, F, s), hann),
+                        spectra_class(tone_frames(N, F, s + 7000), hann)),
+        csd_metric, N, F, 18200)
+
+    def scf_metric(got, gold):
+        scale = float(np.abs(gold[0, 0]).mean())
+        return float(np.abs(got[:, 1:] - gold[:, 1:]).max()) / scale
+
+    yard_by_scale(
+        f"library SCF (rows k >= 1 of K = {K}, err over the alpha = 0 "
+        "row's mean)",
+        lambda s: fscf.fused_psd_scf(
+            ffr.fused_psd_frames(to_dev(tone_frames(N, F, s)), F, None,
+                                 "complex"), F, F, 0, K).cpu().numpy()
+        .astype(np.float64),
+        lambda s: scf64(spectra64(tone_frames(N, F, s)), 0, K),
+        lambda s: scf64(spectra_class(tone_frames(N, F, s)), 0, K),
+        scf_metric, N, F, 18300)
+    print(f"wall: library yards done at {time.perf_counter() - t0:.1f} s")
+
+    # The library functions at full width, each through its kernels alone.
+    launches = {}
+    walls = {}
+
+    def counted(label, fn, kernels):
+        reset_counts(fp, ff)
+        t1 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t1
+        counts = launch_counts(fp, ff)
+        others = {k: v for k, v in counts.items()
+                  if v and k not in kernels}
+        check(all(counts[k] > 0 for k in kernels) and not others,
+              f"library drive {label} did not run through {kernels} alone: "
+              f"{counts}")
+        for k in kernels:
+            launches[k] = launches.get(k, 0) + counts[k]
+        return result, {k: counts[k] for k in kernels}
+
+    # spectrogram: 2 s, hop 1024, average 4, Hann, 1024 frames a step.
+    iq = synthetic_bytes(LIB_TONE + ",seed=1", 2.0)
+    (times_s, freqs, S), c = counted(
+        "spectrogram", lambda: models.spectrogram(
+            iq, LIB_N, LIB_RATE, center_freq=100_000_000, hop=1024,
+            average=4, window=hann, linear=True, frames_per_step=1024,
+            device=dev), ["FR windowed"])
+    frames = (len(iq) // 2 - LIB_N) // 1024 + 1
+    rows = frames // 4
+    check(S.shape == (rows, LIB_N) and c["FR windowed"] == 4
+          and np.all(np.isfinite(S)),
+          f"spectrogram: {S.shape}, launches {c} (want ({rows}, {LIB_N}), 4)")
+    idx = np.arange(rows * 4)[:, None] * 2048 + np.arange(2 * LIB_N)[None]
+
+    def waterfall(spectra_fn):
+        pwr = np.zeros((rows, LIB_N))
+        for lo in range(0, rows * 4, 400):
+            at = idx[lo:lo + 400]
+            pwr[lo // 4:(lo + len(at)) // 4] = (np.abs(spectra_fn(
+                iq[at], hann)) ** 2).reshape(-1, 4, LIB_N).sum(1)
+        out = np.fft.fftshift(pwr, axes=1)
+        out[:, LIB_N // 2] = (out[:, LIB_N // 2 - 1]
+                              + out[:, LIB_N // 2 + 1]) / 2.0
+        return out / 4 / LIB_N / LIB_RATE
+
+    gold = waterfall(spectra64)
+    rms = np.sqrt((gold ** 2).mean(axis=1, keepdims=True))
+    e_rms = float((np.abs(S - gold) / rms).max())
+    e_cls = float((np.abs(waterfall(spectra_class) - gold) / rms).max())
+    budget = max(GOLDEN_RTOL, 3.0 * e_cls)
+    peak = freqs[int(np.argmax(S.mean(0)))]
+    print(f"library drive spectrogram ({len(iq) // 2} samples at "
+          f"{LIB_RATE} S/s, N={LIB_N}, hop 1024, average 4, Hann, 1024 "
+          f"frames a step): {frames} frames, {rows} rows in "
+          f"{walls['spectrogram']:.3f} s wall; peak {peak / 1e6:.4f} MHz; vs "
+          f"the float64 golden err over the row's RMS {e_rms:.3e} (<= "
+          f"{budget:.3g}; scipy float32 {e_cls:.3e}), max rel "
+          f"{max_rel(S, gold):.3e}; launches {c}")
+    check(e_rms <= budget and abs(peak - 100.2e6) <= LIB_RATE / LIB_N,
+          "spectrogram drive vs golden")
+
+    # pfb_channelize: M = 2048, P = 4, 4 s of stream.
+    iq = synthetic_bytes(LIB_TONE + ",seed=2", 4.0)
+    y, c = counted("pfb_channelize", lambda: models.pfb_channelize(
+        iq, LIB_N, taps=4, device=dev), ["PFB-C"])
+    T = len(iq) // (2 * LIB_N) - 3
+    hh = pfb_prototype(LIB_N, 4).reshape(4, LIB_N).astype(np.float64)
+    z = dequant64(iq[:(T + 3) * 2 * LIB_N].reshape(-1, 2 * LIB_N))
+    sums = sum(z[p:p + T] * hh[p] for p in range(4))
+    gold = np.fft.fft(sums, axis=1)
+    scale = float(np.abs(gold).mean())
+    e_ch = float(np.abs(y - gold).max()) / scale
+    e_cls = float(np.abs(fft_class(sums) - gold).max()) / scale
+    budget = max(GOLDEN_RTOL, 3.0 * e_cls)
+    check(y.shape == (T, LIB_N) and y.dtype == np.complex64
+          and c["PFB-C"] == -(-T // 1024), f"pfb_channelize: {y.shape}, {c}")
+    print(f"library drive pfb_channelize (M={LIB_N}, P=4, "
+          f"{len(iq) // 2} samples): T={T} in "
+          f"{walls['pfb_channelize']:.3f} s wall; vs the float64 golden "
+          f"err over mean |X| {e_ch:.3e} (<= {budget:.3g}; scipy float32 "
+          f"{e_cls:.3e}); launches {c}")
+    check(e_ch <= budget, "pfb_channelize drive vs golden")
+    del z, sums, gold, y
+
+    # coherence: two 1 s streams sharing the tone, independent noise, Hann.
+    iq_x = synthetic_bytes(LIB_TONE + ",seed=3", 1.0)
+    iq_y = synthetic_bytes(LIB_TONE + ",seed=4", 1.0)
+    (freqs, g2, csd), c = counted("coherence", lambda: models.coherence(
+        iq_x, iq_y, LIB_N, LIB_RATE, center_freq=100_000_000, window=hann,
+        device=dev), ["CSD windowed"])
+    M = len(iq_x) // (2 * LIB_N)
+    ctr = LIB_N // 2
+
+    def coherence_of(spectra_fn):
+        sums = csd64(spectra_fn(iq_x[:M * 2 * LIB_N].reshape(M, -1), hann),
+                     spectra_fn(iq_y[:M * 2 * LIB_N].reshape(M, -1), hann))
+        sh = [np.fft.fftshift(s) for s in sums]
+        sxx, syy, sxy = sh[0], sh[1], sh[2] + 1j * sh[3]
+        for arr in (sxx, syy, sxy):
+            arr[ctr] = (arr[ctr - 1] + arr[ctr + 1]) / 2.0
+        scale = (np.sqrt(np.sqrt((sxx ** 2).mean() * (syy ** 2).mean()))
+                 / M / LIB_N / LIB_RATE)
+        return (np.abs(sxy) ** 2 / np.maximum(sxx * syy, 1e-300),
+                sxy / M / LIB_N / LIB_RATE, scale)
+
+    g_gold, csd_gold, scale = coherence_of(spectra64)
+    g_cls, csd_cls, _ = coherence_of(spectra_class)
+    e_g = float(np.abs(g2 - g_gold).max())
+    e_c = float(np.abs(csd - csd_gold).max()) / scale
+    e_gc = float(np.abs(g_cls - g_gold).max())
+    e_cc = float(np.abs(csd_cls - csd_gold).max()) / scale
+    b_g, b_c = max(1e-5, 3.0 * e_gc), max(GOLDEN_RTOL, 3.0 * e_cc)
+    tone = int(np.argmin(np.abs(freqs - 100.2e6)))
+    others = np.delete(g2, np.arange(tone - 3, tone + 4))
+    print(f"library drive coherence (two 1 s streams, shared tone, "
+          f"independent noise, Hann, M={M}): {walls['coherence']:.3f} s wall; "
+          f"gamma2 {g2[tone]:.4f} at the tone bin, median elsewhere "
+          f"{np.median(others):.4f}, DC bin {g2[ctr]:.4f}; vs the float64 "
+          f"golden gamma2 abs {e_g:.3e} (<= {b_g:.3g}; scipy float32 "
+          f"{e_gc:.3e}), CSD err over the streams' RMS power {e_c:.3e} (<= "
+          f"{b_c:.3g}; scipy float32 {e_cc:.3e}); launches {c}")
+    check(g2[tone] > 0.95 and np.median(others) < 0.05 and g2[ctr] < 0.05
+          and e_g <= b_g and e_c <= b_c, "coherence drive")
+
+    # spectral_correlation, K = 16, an AM signal (4 bins of modulation).
+    fm_bins, K = 4, 16
+    n = LIB_RATE // 2
+    t = np.arange(n)
+    am = (1.0 + 0.9 * np.cos(2 * np.pi * fm_bins / LIB_N * t)) * 40.0 \
+        * np.exp(2j * np.pi * (300 / LIB_N) * t)
+    g = np.random.default_rng(6)
+    x = am + 3.0 * (g.standard_normal(n) + 1j * g.standard_normal(n))
+    iq = np.stack([np.clip(np.round(x.real + 127), 0, 255),
+                   np.clip(np.round(x.imag + 127), 0, 255)],
+                  axis=-1).astype(np.uint8).reshape(-1)
+    (alphas, scf, coh), c = counted(
+        "spectral_correlation", lambda: models.spectral_correlation(
+            iq, LIB_N, LIB_RATE, max_alpha_bins=K, device=dev),
+        ["FR", "SCF"])
+    M = len(iq) // (2 * LIB_N)
+
+    def scf_of(spectra_fn):
+        s = scf64(spectra_fn(iq[:M * 2 * LIB_N].reshape(M, -1)), 0, K)
+        return (s[0] + 1j * s[1]) / M
+
+    gold = scf_of(spectra64)
+    scale = float(np.abs(gold[0]).mean())
+    e_s = float(np.abs(scf - gold).max()) / scale
+    e_cls = float(np.abs(scf_of(spectra_class) - gold).max()) / scale
+    budget = max(GOLDEN_RTOL, 3.0 * e_cls)
+    scores = coh[1:].max(axis=1)
+    print(f"library drive spectral_correlation (AM at {fm_bins} bins, K={K}, "
+          f"M={M}): {walls['spectral_correlation']:.3f} s wall; peak "
+          f"coherence off alpha = 0 at lag {int(np.argmax(scores)) + 1} "
+          f"({scores.max():.3f}; median of the others "
+          f"{np.median(np.delete(scores, fm_bins - 1)):.3f}); vs the float64 "
+          f"golden err over the alpha = 0 row's mean {e_s:.3e} (<= "
+          f"{budget:.3g}; scipy float32 {e_cls:.3e}); launches {c}")
+    check(int(np.argmax(scores)) + 1 == fm_bins and e_s <= budget,
+          "spectral_correlation drive")
+    print(f"wall: library drives done at {time.perf_counter() - t0:.1f} s")
+
+    # Times at each drive's step.
+    times = {}
+
+    def timed(key, kernel, plain, lib_frames, bound, max_abs_key):
+        call = event_times_us(kernel)
+        kd = [device_times_us(kernel), device_times_us(kernel)]
+        out = kernel()
+        torch.cuda.synchronize()
+        back = []
+        for _ in range(20):   # the library function's read-back of a step
+            t1 = time.perf_counter()
+            out.cpu()
+            back.append(1e6 * (time.perf_counter() - t1))
+        t = {"call": call, "device": min(kd), "host": host_us(kernel),
+             "readback": statistics.median(back),
+             "plain": event_times_us(plain, iters=10, warmup=2),
+             "lib": event_times_us(lambda: torch.fft.fft(lib_frames, dim=-1)),
+             "lib_device": device_times_us(
+                 lambda: torch.fft.fft(lib_frames, dim=-1)),
+             "bound": bound, "max_abs": max_abs[max_abs_key]}
+        times[key] = t
+        b_us = 1e3 * bound[0]
+        print(f"time library {key} on {card}: {call:.1f} us a call, device "
+              f"{kd[0]:.1f}/{kd[1]:.1f} us, host {t['host']:.1f} us; the "
+              f"output's read-back ({out.nbytes / 2 ** 20:.2f} MiB, .cpu(), "
+              f"host clock) {t['readback']:.1f} us; plain "
+              f"{t['plain']:.1f} us; torch.fft.fft of the "
+              f"{tuple(lib_frames.shape)} complex64 frames {t['lib']:.1f} us "
+              f"(device {t['lib_device']:.1f}), kernel/fft on the device "
+              f"{t['device'] / t['lib_device']:.3f}; bound {b_us:.2f} us "
+              f"({bound[1]}), device/bound {t['device'] / b_us:.1f}x")
+        return t
+
+    def frames_dev(F):
+        raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * LIB_N),
+                                            dtype=np.uint8)).to(dev)
+        z = torch.complex(raw[:, 0::2].float() - 127.0,
+                          raw[:, 1::2].float() - 127.0)
+        return raw, z
+
+    w = torch.from_numpy(hann).to(dev)
+    raw, z = frames_dev(1024)
+    timed("FR windowed power N=2048 F=1024 (spectrogram's step)",
+          lambda: ffr.fused_psd_frames(raw, 1024, w),
+          lambda: ffr.fused_psd_frames_reference(raw, 1024, w), z,
+          library_bound_ms("FR", 1024, LIB_N, True), "FR")
+    raw, z = frames_dev(4096)
+    fr4096 = timed("FR power N=2048 F=4096",
+                   lambda: ffr.fused_psd_frames(raw, 4096),
+                   lambda: ffr.fused_psd_frames_reference(raw, 4096), z,
+                   library_bound_ms("FR", 4096, LIB_N), "FR")
+    k1_dev = min(device_times_us(lambda: fp.fused_psd(raw, 4096, 64))
+                 for _ in range(2))
+    print(f"time library FR power N=2048 F=4096 on {card}: device "
+          f"{fr4096['device']:.1f} us beside K1's {k1_dev:.1f} us on the same "
+          f"frames (FR/K1 {fr4096['device'] / k1_dev:.3f}; FR writes "
+          f"{4096 * LIB_N * 4 / 2 ** 20:.0f} MiB of rows, K1 one row)")
+    raw, z = frames_dev(512)
+    X = ffr.fused_psd_frames(raw, 512, None, "complex")
+    timed("FR complex N=2048 F=512 (spectral_correlation's step)",
+          lambda: ffr.fused_psd_frames(raw, 512, None, "complex"),
+          lambda: ffr.fused_psd_frames_reference(raw, 512, None, "complex"),
+          z, library_bound_ms("FR", 512, LIB_N, complex_out=True), "FR")
+    timed(f"SCF N=2048 F=512 K={K} (spectral_correlation's step)",
+          lambda: fscf.fused_psd_scf(X, 512, 64, 0, K),
+          lambda: fscf.fused_psd_scf_reference(X, 512, 64, 0, K), z,
+          library_bound_ms("SCF", 512, LIB_N, K=K), "SCF")
+    rawy, zy = frames_dev(512)
+    timed("CSD N=2048 F=512 Hann (coherence's step)",
+          lambda: fcsd.fused_psd_csd(raw, rawy, 512, 64, w),
+          lambda: fcsd.fused_psd_csd_reference(raw, rawy, 512, 64, w),
+          torch.cat([z, zy]),
+          library_bound_ms("CSD", 512, LIB_N, True), "CSD")
+    rows_t, _ = frames_dev(1027)
+    timed("PFB-C M=2048 T=1024 P=4 (pfb_channelize's step)",
+          lambda: fpf.pfb_channelize(rows_t, h_dev),
+          lambda: fpf.pfb_channelize_reference(rows_t, h_dev),
+          frames_dev(1024)[1],
+          library_bound_ms("PFB-C", 1024, LIB_N, P=4), "PFB-C")
+    print(f"wall: library phase in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, source, replaces, key, times_key):
+        t = times[times_key]
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+                "device_ms": t["device"] / 1000.0,
+                "host_ms": t["host"] / 1000.0,
+                "readback_ms": t["readback"] / 1000.0,
+                "library_device_ms": t["lib_device"] / 1000.0,
+                "drive_wall_s": walls[{"FR": "spectral_correlation",
+                                       "FR windowed": "spectrogram",
+                                       "PFB-C": "pfb_channelize",
+                                       "CSD windowed": "coherence",
+                                       "SCF": "spectral_correlation"}[key]]}
+
+    return [entry("fused_psd_frames (FR, complex)", "fused_psd_frames.cu",
+                  "rtl_power_fftw_tpu/models/cyclo.py:42", "FR",
+                  "FR complex N=2048 F=512 (spectral_correlation's step)"),
+            entry("fused_psd_frames (FR, windowed power)",
+                  "fused_psd_frames.cu",
+                  "rtl_power_fftw_tpu/models/spectrogram.py:23",
+                  "FR windowed",
+                  "FR windowed power N=2048 F=1024 (spectrogram's step)"),
+            entry("pfb_channelize (PFB-C)", "fused_psd_pfb.cu",
+                  "rtl_power_fftw_tpu/models/pfb.py:401", "PFB-C",
+                  "PFB-C M=2048 T=1024 P=4 (pfb_channelize's step)"),
+            entry("fused_psd_csd (CSD, windowed)", "fused_psd_csd.cu",
+                  "rtl_power_fftw_tpu/models/coherence.py:29",
+                  "CSD windowed", "CSD N=2048 F=512 Hann (coherence's step)"),
+            entry("fused_psd_scf (SCF)", "fused_psd_scf.cu",
+                  "rtl_power_fftw_tpu/models/cyclo.py:42", "SCF",
+                  f"SCF N=2048 F=512 K={K} (spectral_correlation's step)")]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -4285,18 +4981,21 @@ def main() -> int:
             ("fused_psd_mixed_large", "ml_streams_rows", ""),
             ("fused_psd_chirp_large", "chirp_streams_a", ""),
             ("fused_psd_chirp_large", "chirp_streams_b", ""),
-            ("fused_psd_chirp_large", "chirp_streams_c", "")):
+            ("fused_psd_chirp_large", "chirp_streams_c", ""),
+            ("fused_psd_frames", "psd_regs_kernel", ""),
+            ("fused_psd_pfb", "pfb_channelize_kernel", ""),
+            ("fused_psd_csd", "psd_csd_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
     print(f"build: all sources in {time.perf_counter() - t0:.1f} s wall")
-    # Every kernel of the parent tree's eight libraries, as its digest
-    # (sass_diff --write-digest) holds them, unchanged here.
+    # Every kernel of the digest (sass_diff --write-digest: the parent
+    # tree's kernels and the instantiations its PR added) unchanged here.
     from rtl_power_fftw_tpu_torch.ops.kernels import sass_diff
     want_nvcc, have_nvcc, diffs = sass_diff.check_digest(
         {name: infos[name].path for name in sass_diff.SOURCES})
     for name, (n_old, other, n_new) in diffs.items():
-        print(f"sass_diff {name} against the parent tree's digest (built "
+        print(f"sass_diff {name} against the digest (built "
               f"by nvcc {want_nvcc}; here {have_nvcc}): {n_old} earlier "
               f"kernels, {n_old - len(other)} identical here, {len(other)} "
               f"missing or different; {n_new} new")
@@ -4555,6 +5254,12 @@ def main() -> int:
         make_window, cli, ff, card)
     lap("large N over streams")
 
+    # 18. The library estimators' kernels (FR, PFB-C, CSD, SCF).
+    library = phase_library_estimators(
+        dev, np.random.default_rng(20261022), fp, adapt_batch, make_window,
+        ff, card)
+    lap("library estimators")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -4604,7 +5309,7 @@ def main() -> int:
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
     ] + awkward + estimators + large_awkward + estimator_streams
-      + large_streams + [
+      + large_streams + library + [
         probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),

@@ -1,8 +1,8 @@
 """Polyphase filterbank (PFB) channelized PSD.
 
 Port of ``rtl_power_fftw_tpu/models/pfb.py``, on one stream and over
-``--streams`` (without ``pfb_channelize``, which writes per-frame
-voltages). The
+``--streams``, and its ``pfb_channelize``, which returns the per-frame
+channel voltages (the channelizer "PFB-C" of the same kernel library). The
 critically-sampled PFB — a P-tap windowed-sinc prototype folded over M
 branches, then an M-point FFT per output frame — sharpens channel
 isolation over the plain periodogram (datastore.cxx:66-88) at the cost of
@@ -24,10 +24,13 @@ import numpy as np
 import torch
 
 from ..auxdata import make_window
-from ..ops.kernels.fused_psd_pfb import fused_psd_pfb, fused_psd_pfb_streams
-from ..ops.spectral import (adapt_batch, bin_frequencies, estimator_route,
-                            finalize_psd)
+from ..ops.kernels.fused_psd_pfb import (MAX_TAPS, fused_psd_pfb,
+                                         fused_psd_pfb_streams)
+from ..ops.kernels.fused_psd_pfb import pfb_channelize as _channelize
+from ..ops.spectral import (_unported, adapt_batch, bin_frequencies,
+                            estimator_route, finalize_psd)
 from ..parallel.sharded import one_device, stream_batch
+from .bartlett import _IN_FLIGHT
 
 
 def pfb_prototype(M: int, taps: int = 4,
@@ -236,3 +239,53 @@ def pfb_psd(iq_u8: np.ndarray, M: int, sample_rate: int,
         psd = finalize_psd(pwr, T_total, sample_rate, linear=linear,
                            baseline=baseline)
     return bin_frequencies(center_freq, M, sample_rate), psd
+
+
+#: Output frames a step of :func:`pfb_channelize` takes at most.
+CHANNELIZE_STEP = 1024
+
+
+def pfb_channelize(iq_u8: np.ndarray, M: int,
+                   taps: int = 4,
+                   prototype: Optional[np.ndarray] = None,
+                   window: str = "hann", *,
+                   device) -> np.ndarray:
+    """The complex channelized series itself, computed on ``device``: (T,
+    M) complex64 — frame t, channel k (unshifted FFT bin order). For
+    downstream detection / dedispersion-style pipelines that need the
+    voltages, not the PSD.
+
+    Steps of at most :data:`CHANNELIZE_STEP` output frames, each step's
+    raw rows overlapping the last's by taps − 1 blocks (the history of its
+    first frame)."""
+    iq = np.asarray(iq_u8, dtype=np.uint8).ravel()
+    estimator_route(M, "pfb_channelize")
+    P = taps
+    if not 1 <= P <= MAX_TAPS:
+        raise _unported(f"pfb_channelize at {P} taps (the channelizer takes "
+                        f"1 to {MAX_TAPS})")
+    h = (pfb_prototype(M, taps, window) if prototype is None
+         else np.asarray(prototype, dtype=np.float32).ravel())
+    if h.size != P * M:
+        raise ValueError(f"prototype must have taps*M={P * M} coefficients")
+    blocks = iq.size // (2 * M)
+    T = blocks - P + 1
+    if T <= 0:
+        raise ValueError("not enough samples for one PFB output frame")
+    used = (T + P - 1) * 2 * M
+    rows = iq[:used].reshape(-1, 2 * M)
+    device = torch.device(device)
+    hd = torch.from_numpy(np.array(h.reshape(P, M), np.float32)).to(device)
+    out = np.empty((T, M), np.complex64)
+    pending = []
+    for t0 in range(0, T, CHANNELIZE_STEP):
+        n = min(CHANNELIZE_STEP, T - t0)
+        raw = torch.from_numpy(np.ascontiguousarray(
+            rows[t0:t0 + n + P - 1])).to(device)
+        pending.append((t0, _channelize(raw, hd)))
+        if len(pending) > _IN_FLIGHT:
+            t, y = pending.pop(0)
+            out[t:t + len(y)] = y.cpu().numpy()
+    for t, y in pending:
+        out[t:t + len(y)] = y.cpu().numpy()
+    return out

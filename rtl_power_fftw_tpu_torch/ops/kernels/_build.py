@@ -201,6 +201,33 @@ SIGNATURES = {
                                       _I, _I, _I, _I, _I, _I, _I, _P],
         # log2n, P, ring, stage_h, device, attrs (int[6])
         "rpf_fused_psd_pfb_attributes": [_I, _I, _I, _I, _I, _P],
+        # the channelizer: rows, twiddle, h, out, device, log2n, T, group,
+        # P, ring, stage_h, stream
+        "rpf_pfb_channelize": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P],
+        # log2n, P, ring, stage_h, device, attrs (int[6])
+        "rpf_pfb_channelize_attributes": [_I, _I, _I, _I, _I, _P],
+    },
+    "fused_psd_frames": {
+        # raw, twiddle, window, out, device, log2n, F, group, n_valid,
+        # complex_out, stream
+        "rpf_fused_psd_frames": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # log2n, windowed, complex_out, device, attrs (int[6])
+        "rpf_fused_psd_frames_attributes": [_I, _I, _I, _I, _P],
+    },
+    "fused_psd_csd": {
+        # raw_x, raw_y, twiddle, window, partial, out, device, log2n, F,
+        # group, n_valid, stream
+        "rpf_fused_psd_csd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P],
+        # log2n, windowed, device, attrs (int[6])
+        "rpf_fused_psd_csd_attributes": [_I, _I, _I, _P],
+    },
+    "fused_psd_scf": {
+        # X, partial, out, device, N, F, K, k0, chunk, n_valid, stream
+        "rpf_fused_psd_scf": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # device, attrs (int[6])
+        "rpf_fused_psd_scf_attributes": [_I, _P],
     },
     "fused_psd_probe": {
         # variant, raw, w1r, w1i, twiddle, w2, offsets, partial, out,

@@ -70,6 +70,16 @@
 // stream with no valid frame keeps its history, one with fewer than P - 1
 // shifts it). With `fresh` every stream's history is set to byte 127
 // first.
+//
+// rpf_pfb_channelize (PFB-C) is the channelizer of the JAX package's
+// pfb_channelize (models/pfb.py:401-428): the same polyphase sums over one
+// (T + P - 1, 2N) array of raw rows (its first P - 1 rows the history of
+// output frame 0), K1's register transform, and X itself stored, unshifted,
+// as row j of a (T, N) complex64 output, through the lane's exchange buffer
+// (regs_frame_store of fused_psd_regs.cuh) in place of the sum of |X|^2.
+// pfb_channelize_kernel takes the ring kernel's load where its ring fits a
+// block (RING; STAGE_H as the ring kernel's), else the control's, so its X
+// are the ones whose |X|^2 the PFB kernels sum. It is in the fences too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -504,6 +514,96 @@ pfb_history_kernel(const uint8_t* __restrict__ raw,      // (S*F, 2N)
   }
 }
 
+// The channelizer: output frame j of the (T + P - 1, 2N) raw rows `rows`
+// (block g takes frames [g * group, min((g + 1) * group, T)), lane l frames
+// g * group + l + LANES * i) is X_j = DFT(sum over p of h[p] x_{j+p}),
+// stored as row j of `out`. RING: block g's rows staged once each in the
+// ring kernel's ring (local row q in slot q mod (2 LANES + P - 1)); else
+// each thread reads its R samples of rows j .. j + P - 1 through L2.
+template <int LOG2N, bool RING, bool STAGE_H>
+__global__ void __launch_bounds__(RegsShape<LOG2N>::THREADS)
+pfb_channelize_kernel(const uint8_t* __restrict__ rows,     // (T + P - 1, 2N)
+                      const float2* __restrict__ twiddle,  // pass_twiddles(N)
+                      const float* __restrict__ h,         // (P, N)
+                      float2* __restrict__ out,            // (T, N)
+                      int T, int group, int P) {
+  using Pl = RegsPlan<LOG2N>;
+  using S = RegsShape<LOG2N>;
+  constexpr int N = Pl::N, R = Pl::R, TF = Pl::TF;
+  constexpr int ROW = ring_row_bytes<LOG2N>();
+  constexpr int PIECES = N / 8;   // 16-byte copies of a row
+  static_assert(Pl::PASSES >= 2, "a ring slot is rewritten only after the "
+                "barrier that ends the first pass");
+  extern __shared__ float4 pfb_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid / TF;
+  const int t = tid % TF;
+  float2* x = reinterpret_cast<float2*>(pfb_smem) + lane * S::XSTRIDE;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(pfb_smem) +
+                  pfb_smem_bytes<LOG2N>();
+  const int slots = 2 * S::LANES + P - 1;
+  float* h_smem = reinterpret_cast<float*>(ring + slots * ROW);
+
+  const int f0 = blockIdx.x * group;
+  const int f1 = min(f0 + group, T);
+  const int frames = max(f1 - f0, 0);
+  const int iters = (frames + S::LANES - 1) / S::LANES;
+  const int local_rows = frames > 0 ? frames + P - 1 : 0;
+
+  // RING: local rows [lo, min(hi, local_rows)) into their slots.
+  auto stage = [&](int lo, int hi) {
+    if constexpr (RING) {
+      const int pieces = (min(hi, local_rows) - lo) * PIECES;
+      for (int c = tid; c < pieces; c += S::THREADS) {
+        const int q = lo + c / PIECES;
+        const int off = 16 * (c % PIECES);
+        cp_async16(ring + (q % slots) * ROW + off,
+                   rows + static_cast<size_t>(f0 + q) * 2 * N + off);
+      }
+    }
+  };
+
+  if constexpr (STAGE_H) {
+    for (int c = tid; c < P * N / 4; c += S::THREADS) {
+      cp_async16(h_smem + 4 * c, h + 4 * c);
+    }
+  }
+  stage(0, S::LANES + P - 1);
+  cp_async_commit();
+  const float* hp0 = STAGE_H ? h_smem : h;
+  for (int i = 0; i < iters; ++i) {
+    stage(S::LANES * (i + 1) + P - 1, S::LANES * (i + 2) + P - 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // this thread's copies of rows up to iteration i's
+    __syncthreads();      // everyone's; x is free (last store of frame i-1)
+    const int f = f0 + lane + S::LANES * i;
+    const bool active = f < f1;
+    float2 v[R];
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = make_float2(0.0f, 0.0f);
+      int slot = (S::LANES * i + lane) % slots;   // tap 0's row
+      for (int p = 0; p < P; ++p) {
+        const uint16_t* row = reinterpret_cast<const uint16_t*>(
+            RING ? ring + slot * ROW
+                 : rows + static_cast<size_t>(f + p) * 2 * N);
+        const float* hp = hp0 + p * N;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const unsigned u = RING ? row[t + k * TF] : __ldg(row + t + k * TF);
+          const float hv = STAGE_H ? hp[t + k * TF] : __ldg(hp + t + k * TF);
+          v[k].x = __fadd_rn(v[k].x, __fmul_rn(dequant_byte(u & 0xFFu), hv));
+          v[k].y = __fadd_rn(v[k].y, __fmul_rn(dequant_byte(u >> 8), hv));
+        }
+        if (++slot == slots) slot = 0;
+      }
+    }
+    regs_transform<LOG2N>(v, x, twiddle, t, active);
+    regs_frame_store<LOG2N, kRegsFramesComplex>(v, x, out, f, t, active);
+  }
+  cp_async_wait<0>();
+}
+
 // The streams forms: end.
 
 template <int LOG2N>
@@ -630,6 +730,53 @@ cudaError_t attributes(int P, int ring, int stage_h, int device,
                                      threads, smem, attrs)
                  : kernel_attributes(psd_pfb_ring_kernel<LOG2N, false>,
                                      threads, smem, attrs);
+}
+
+// The channelizer's launch (attrs null) or its attributes (attrs given):
+// the ring form where `ring` (its shared memory the ring kernel's at P
+// taps), else the control's load.
+template <int LOG2N, bool RING, bool STAGE_H>
+cudaError_t launch_channelize(const uint8_t* rows, const float2* twiddle,
+                              const float* h, float2* out, int T, int group,
+                              int P, int smem, int device,
+                              cudaStream_t stream, int* attrs) {
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t e =
+      opt_in_smem(pfb_channelize_kernel<LOG2N, RING, STAGE_H>,
+                  RING ? kMaxSmem : pfb_smem_bytes<LOG2N>(), device, done);
+  if (e != cudaSuccess) return e;
+  constexpr int threads = RegsShape<LOG2N>::THREADS;
+  if (attrs != nullptr) {
+    return kernel_attributes(pfb_channelize_kernel<LOG2N, RING, STAGE_H>,
+                             threads, smem, attrs);
+  }
+  pfb_channelize_kernel<LOG2N, RING, STAGE_H>
+      <<<(T + group - 1) / group, threads, smem, stream>>>(rows, twiddle, h,
+                                                           out, T, group, P);
+  return cudaGetLastError();
+}
+
+template <int LOG2N>
+cudaError_t channelize(const void* rows, const void* twiddle, const void* h,
+                       void* out, int T, int group, int P, int ring,
+                       int stage_h, int device, cudaStream_t stream,
+                       int* attrs) {
+  const auto* r = static_cast<const uint8_t*>(rows);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  const auto* hp = static_cast<const float*>(h);
+  auto* o = static_cast<float2*>(out);
+  if (!ring) {
+    return launch_channelize<LOG2N, false, false>(
+        r, tw, hp, o, T, group, P, pfb_smem_bytes<LOG2N>(), device, stream,
+        attrs);
+  }
+  const int smem = ring_smem_bytes<LOG2N>(P, stage_h != 0);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  return stage_h ? launch_channelize<LOG2N, true, true>(
+                       r, tw, hp, o, T, group, P, smem, device, stream, attrs)
+                 : launch_channelize<LOG2N, true, false>(
+                       r, tw, hp, o, T, group, P, smem, device, stream,
+                       attrs);
 }
 
 }  // namespace
@@ -768,6 +915,61 @@ int rpf_fused_psd_pfb_attributes(int log2n, int P, int ring, int stage_h,
 #define RPF_CASE(L)                                                          \
   case L:                                                                    \
     e = attributes<L>(P, ring, stage_h, device, attrs);                      \
+    break;
+  switch (log2n) {
+    RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
+    RPF_CASE(11) RPF_CASE(12) RPF_CASE(13) RPF_CASE(14)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_CASE
+  return static_cast<int>(e);
+}
+
+// The channelizer on `stream`. rows: (T + P - 1, 2N) u8, the first P - 1
+// rows output frame 0's history; twiddle: pass_twiddles(N); h: (P, N) f32,
+// 1 <= P <= 32; out: (T, N) complex64 as (T, N, 2) f32, X of every output
+// frame, natural bin order; group: frames a block; ring, stage_h: the form
+// (as rpf_fused_psd_pfb's, the same alignment). Returns a cudaError_t (0
+// on success); does not synchronise.
+int rpf_pfb_channelize(const void* rows, const void* twiddle, const void* h,
+                       void* out, int device, int log2n, int T, int group,
+                       int P, int ring, int stage_h, void* stream) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || T <= 0 || group <= 0 ||
+      P < 1 || P > kMaxTaps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RPF_CASE(L)                                                         \
+  case L:                                                                   \
+    e = channelize<L>(rows, twiddle, h, out, T, group, P, ring, stage_h,    \
+                      device, st, nullptr);                                 \
+    break;
+  switch (log2n) {
+    RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)
+    RPF_CASE(11) RPF_CASE(12) RPF_CASE(13) RPF_CASE(14)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RPF_CASE
+  return static_cast<int>(e);
+}
+
+// What the channelizer's form (ring, stage_h) gets at N = 2^log2n and P
+// taps on `device`: attrs[0..5] as rpf_fused_psd_pfb_attributes. Launches
+// nothing.
+int rpf_pfb_channelize_attributes(int log2n, int P, int ring, int stage_h,
+                                  int device, int* attrs) {
+  if (log2n < kMinLog2N || log2n > kMaxLog2N || P < 1 || P > kMaxTaps ||
+      attrs == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+#define RPF_CASE(L)                                                          \
+  case L:                                                                    \
+    e = channelize<L>(nullptr, nullptr, nullptr, nullptr, 1, 1, P, ring,     \
+                      stage_h, device, nullptr, attrs);                      \
     break;
   switch (log2n) {
     RPF_CASE(6) RPF_CASE(7) RPF_CASE(8) RPF_CASE(9) RPF_CASE(10)

@@ -4,8 +4,9 @@
 // psd_regs_kernel<LOG2N, WINDOWED, CUT> is their first pass; fused_psd.cu
 // instantiates the default CUT = kRegsFull. Two cuts are its
 // stage-attribution probes (fused_psd_probe.cu), as fused_psd.cuh's are
-// for the radix-2 kernel it replaced, and three are the estimators' first
-// passes (fused_psd_sk.cu, fused_psd_tapers.cu):
+// for the radix-2 kernel it replaced, three are the estimators' first
+// passes (fused_psd_sk.cu, fused_psd_tapers.cu), and two store each
+// frame's spectrum instead of summing it (fused_psd_frames.cu):
 //
 //   kRegsFull     the whole step;
 //   kRegsDequant  load and dequantize; the output is the sum over frames
@@ -25,7 +26,17 @@
 //                 shared memory);
 //   kRegsTapers   the whole step windowed (WINDOWED) by row blockIdx.y of
 //                 a (gridDim.y, N) table of tapers: block (g, k) writes
-//                 partial row k * gridDim.x + g.
+//                 partial row k * gridDim.x + g;
+//   kRegsFrames   the transform of every valid frame f, its |X|^2 written
+//                 as row f of an (F, N) f32 output (`partial`) in
+//                 fftshifted bin order, (bin + N/2) & (N - 1); no sums;
+//   kRegsFramesComplex  the same with X itself, unshifted, as row f of an
+//                 (F, N) float2 output.
+//
+// The frame cuts stage each row through the lane's exchange buffer once
+// the last pass is done with it (regs_frame_store): each thread writes its
+// R slots there by bin, and the lane's threads then store the row
+// coalesced, q = t, t + TF, .... Rows at or past n_valid are not written.
 //
 // A block is LANES frame lanes of TF = N / R threads (at least
 // kRegsMinThreads threads a block, so LANES > 1 below N = 4096). Lane p of
@@ -63,7 +74,9 @@ enum : int {
   kRegsNoFft = 2,
   kRegsSk = 3,
   kRegsTapers = 4,
-  kRegsSkPlane = 5
+  kRegsSkPlane = 5,
+  kRegsFrames = 6,
+  kRegsFramesComplex = 7
 };
 
 template <int LOG2N>
@@ -179,6 +192,42 @@ __device__ __forceinline__ void regs_lane_sum(const float* by_bin,
   }
 }
 
+// The frame cuts' store of frame f's row (kRegsFrames: |X|^2 shifted, f32;
+// kRegsFramesComplex: X, float2) from the thread's R output slots v,
+// through the lane's exchange buffer x. Every thread of the block calls it
+// (it meets two barriers); the threads of an inactive lane only meet them.
+template <int LOG2N, int CUT>
+__device__ __forceinline__ void regs_frame_store(
+    const float2 (&v)[RegsPlan<LOG2N>::R], float2* x, void* out, int f,
+    int t, bool active) {
+  using P = RegsPlan<LOG2N>;
+  constexpr int N = P::N, R = P::R, TF = P::TF;
+  __syncthreads();   // every lane's last pass is done with its x
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int bin = regs_slot_bin<LOG2N>(t, k);
+      if constexpr (CUT == kRegsFrames) {
+        reinterpret_cast<float*>(x)[(bin + N / 2) & (N - 1)] =
+            v[k].x * v[k].x + v[k].y * v[k].y;
+      } else {
+        x[bin] = v[k];
+      }
+    }
+  }
+  __syncthreads();
+  if (active) {
+    if constexpr (CUT == kRegsFrames) {
+      const float* src = reinterpret_cast<const float*>(x);
+      float* row = static_cast<float*>(out) + static_cast<size_t>(f) * N;
+      for (int q = t; q < N; q += TF) row[q] = src[q];
+    } else {
+      float2* row = static_cast<float2*>(out) + static_cast<size_t>(f) * N;
+      for (int q = t; q < N; q += TF) row[q] = x[q];
+    }
+  }
+}
+
 // Pass 1: block g serves stream s = g / G_s (G_s blocks per stream; one
 // stream for K1/K2) and sums |X|^2 of that stream's frames [j*group,
 // min((j+1)*group, F, n_valid_s)), j = g mod G_s, into partial row g.
@@ -204,6 +253,8 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
                        CUT == kRegsTapers || CUT == kRegsSkPlane;
   // The cuts that also sum |X|^4.
   constexpr bool SK = CUT == kRegsSk || CUT == kRegsSkPlane;
+  // The cuts that store each frame's spectrum.
+  constexpr bool FRAMES = CUT == kRegsFrames || CUT == kRegsFramesComplex;
   extern __shared__ float4 regs_smem[];
   const int tid = threadIdx.x;
   const int lane = tid / TF;
@@ -282,6 +333,12 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
         v[k] = make_float2(re, im);
       }
     }
+    if constexpr (FRAMES) {
+      regs_transform<LOG2N>(v, x, twiddle, t, active);
+      regs_frame_store<LOG2N, CUT>(v, x, partial, f0 + lane + S::LANES * i,
+                                   t, active);
+      continue;
+    }
     if constexpr (FFT) {
       regs_transform<LOG2N>(v, x, twiddle, t, active);
       if (active) {
@@ -316,6 +373,7 @@ psd_regs_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N), 16 B aligned
     }
   }
   cp_async_wait<0>();
+  if constexpr (FRAMES) return;
   __syncthreads();   // every lane is done with its exchange buffer
 
   // The lanes' sums by bin, then added lane by lane in order (kRegsSk,

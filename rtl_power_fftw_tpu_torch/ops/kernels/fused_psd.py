@@ -144,7 +144,14 @@ class LaunchCounts:
     ``kernel_large_streams``, ``kernel_mixed_large_streams`` and
     ``kernel_chirp_large_streams`` (with ``_windowed`` after each, their
     windowed launches) the streams entries of the large kernel, ML and
-    BL.
+    BL, and ``kernel_frames`` / ``kernel_frames_windowed``,
+    ``kernel_pfb_channelize``, ``kernel_csd`` / ``kernel_csd_windowed``
+    and ``kernel_scf`` the library estimators' kernels
+    (:mod:`.fused_psd_frames`, the channelizer of :mod:`.fused_psd_pfb`,
+    :mod:`.fused_psd_csd`, :mod:`.fused_psd_scf`), with ``plain_frames``,
+    ``plain_pfb_channelize``, ``plain_csd`` and ``plain_scf`` their plain
+    versions' calls (each also counted in ``plain``, every plain
+    version's).
 
     Incremented by the wrappers only; a session's single consumer thread
     is their only caller while a session runs."""
@@ -185,7 +192,17 @@ class LaunchCounts:
         self.kernel_mixed_large_streams_windowed = 0
         self.kernel_chirp_large_streams = 0
         self.kernel_chirp_large_streams_windowed = 0
+        self.kernel_frames = 0
+        self.kernel_frames_windowed = 0
+        self.kernel_pfb_channelize = 0
+        self.kernel_csd = 0
+        self.kernel_csd_windowed = 0
+        self.kernel_scf = 0
         self.plain = 0
+        self.plain_frames = 0
+        self.plain_pfb_channelize = 0
+        self.plain_csd = 0
+        self.plain_scf = 0
 
 
 COUNTS = LaunchCounts()
@@ -275,9 +292,10 @@ def resident_blocks(N: int, windowed: bool, index: int) -> int:
     return sms * max(1, per_sm)
 
 
-def _frame_power(raw_u8: torch.Tensor,
-                 window: Optional[torch.Tensor]) -> torch.Tensor:
-    """|DFT|^2 of every frame: (..., 2N) uint8 -> (..., N) float32."""
+def frame_spectra(raw_u8: torch.Tensor,
+                  window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DFT of every frame: (..., 2N) uint8 -> (..., N) complex64, the u8 -
+    127 convention with the optional float32 window."""
     N = raw_u8.shape[-1] // 2
     v = raw_u8.reshape(*raw_u8.shape[:-1], N, 2).to(torch.int32)
     re = (v[..., 0] - 127).to(torch.float32)
@@ -285,7 +303,13 @@ def _frame_power(raw_u8: torch.Tensor,
     if window is not None:
         re = re * window
         im = im * window
-    X = torch.fft.fft(torch.complex(re, im), dim=-1)
+    return torch.fft.fft(torch.complex(re, im), dim=-1)
+
+
+def _frame_power(raw_u8: torch.Tensor,
+                 window: Optional[torch.Tensor]) -> torch.Tensor:
+    """|DFT|^2 of every frame: (..., 2N) uint8 -> (..., N) float32."""
+    X = frame_spectra(raw_u8, window)
     return X.real * X.real + X.imag * X.imag
 
 

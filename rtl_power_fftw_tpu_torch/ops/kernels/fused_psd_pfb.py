@@ -38,16 +38,29 @@ a CUDA tensor the kernel, or raises. ``COUNTS.kernel_pfb_ring`` counts the
 ring kernel's launches, ``COUNTS.kernel_pfb`` the control's, and
 ``COUNTS.kernel_pfb_streams`` and ``COUNTS.kernel_pfb_streams_control``
 their streams launches.
+
+:func:`pfb_channelize` ("PFB-C") is the channelizer of the JAX package's
+``models/pfb.py:pfb_channelize``: the same polyphase sums over one (T + P -
+1, 2N) array of raw rows (its first P - 1 rows the history of output
+frame 0) and K1's register transform, with X itself stored as row j of a
+(T, N) complex64 output (``pfb_channelize_kernel``, through the lane's
+exchange buffer) in place of the sum of |X|^2; the ring kernel's load
+where :func:`ring_shape` fits a block, else the control's.
+``COUNTS.kernel_pfb_channelize`` counts its launches,
+``COUNTS.plain_pfb_channelize`` its plain version's (also in
+``COUNTS.plain``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import fused_psd as fp
+from .fused_psd_large import _raw_stream
 
 #: Taps a call takes (the session's ``--pfb-taps`` accepts 2..32; the
 #: library's ``pfb_psd`` 1 too).
@@ -358,3 +371,115 @@ def ring_resident_blocks(N: int, P: int, index: int) -> int:
 def _resident(attrs: dict, device: torch.device) -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return sms * max(1, attrs["blocks_per_sm"])
+
+
+def pfb_channelize_reference(rows: torch.Tensor, h: torch.Tensor
+                             ) -> torch.Tensor:
+    """The plain PyTorch version of :func:`pfb_channelize`: (T + P - 1, 2N)
+    uint8 rows, (P, N) float32 prototype -> (T, N) complex64, the DFT of
+    :func:`pfb_sums_reference`'s sums."""
+    T = rows.shape[0] - h.shape[0] + 1
+    return torch.fft.fft(pfb_sums_reference(rows, h, T), dim=-1)
+
+
+def check_channelize_args(rows: torch.Tensor, h: torch.Tensor) -> int:
+    """Raise unless ``rows`` is a contiguous (T + P - 1, 2N) uint8 tensor
+    with N a power of two from 64 to 16384 and T >= 1, and ``h`` a
+    contiguous (P, N) float32 tensor on its device, 1 <= P <=
+    :data:`MAX_TAPS`; returns T."""
+    if (not isinstance(rows, torch.Tensor) or rows.dtype != torch.uint8
+            or rows.dim() != 2 or rows.shape[1] % 2
+            or not rows.is_contiguous()):
+        raise ValueError("rows must be a contiguous (T + P - 1, 2N) uint8 "
+                         "tensor")
+    N = rows.shape[1] // 2
+    if not fp.fused_psd_eligible(N):
+        raise ValueError(f"pfb_channelize does not take N={N}")
+    if (not isinstance(h, torch.Tensor) or h.dtype != torch.float32
+            or h.dim() != 2 or h.shape[1] != N
+            or not 1 <= h.shape[0] <= MAX_TAPS or not h.is_contiguous()):
+        raise ValueError(f"h must be a contiguous (P, {N}) float32 tensor "
+                         f"with 1 <= P <= {MAX_TAPS}")
+    if h.device != rows.device:
+        raise ValueError(f"h on {h.device}, rows on {rows.device}")
+    T = rows.shape[0] - h.shape[0] + 1
+    if T < 1:
+        raise ValueError(f"{rows.shape[0]} rows make no output frame at "
+                         f"P={h.shape[0]}")
+    return T
+
+
+def pfb_channelize(rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """PFB-C: (T + P - 1, 2N) uint8 raw rows, a (P, N) float32 prototype
+    ``h`` -> (T, N) complex64, row j the DFT (natural bin order) of the
+    polyphase sum S_j = sum over p of h[p] x_{j+p} (float32, p in order
+    from zero, no FMA), on the rows' device.
+
+    A CUDA tensor runs the kernel on the current stream (asynchronously),
+    in the form :func:`ring_shape` picks; a CPU tensor runs the plain
+    version."""
+    T = check_channelize_args(rows, h)
+    if not fp._on_cuda("pfb_channelize", rows):
+        fp.COUNTS.plain += 1
+        fp.COUNTS.plain_pfb_channelize += 1
+        return pfb_channelize_reference(rows, h)
+    N, P = rows.shape[1] // 2, h.shape[0]
+    shape = ring_shape(N, P)
+    ring = shape is not None
+    stage_h = ring and shape.stage_h
+    align = RING_ALIGN if ring else RAW_ALIGN
+    for name, t, a in (("rows", rows, align),
+                       ("h", h, RING_ALIGN if stage_h else RAW_ALIGN)):
+        if t.data_ptr() % a:
+            raise ValueError(f"pfb_channelize: {name} must be {a}-byte "
+                             "aligned on the device")
+    device = rows.device
+    from . import _build
+    lib = _build.load("fused_psd_pfb")
+    group = fp.k1_group(T, CHANNELIZE_CHUNK, channelize_resident_blocks(
+        N, P, device.index))
+    out = torch.empty((T, N), dtype=torch.complex64, device=device)
+    err = lib.rpf_pfb_channelize(
+        rows.data_ptr(), fp._device_pass_twiddles(N, device).data_ptr(),
+        h.data_ptr(), out.data_ptr(), device.index, N.bit_length() - 1, T,
+        group, P, int(ring), int(stage_h), _raw_stream(device.index))
+    if err != 0:
+        raise fp.KernelLaunchError(
+            f"pfb_channelize launch failed: "
+            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+    fp.COUNTS.kernel_pfb_channelize += 1
+    return out
+
+
+#: Frames a block of the channelizer takes at most: K1's grid rule with
+#: this chunk.
+CHANNELIZE_CHUNK = 64
+
+
+def channelize_attributes(N: int, P: int,
+                          device: Optional[torch.device] = None) -> dict:
+    """What the channelizer's form (:func:`ring_shape`'s) gets at N bins
+    and P taps on the card, as :func:`kernel_attributes` gives the PFB
+    kernels'. Launches nothing."""
+    from . import _build
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    shape = ring_shape(N, P)
+    lib = _build.load("fused_psd_pfb")
+    attrs = (ctypes.c_int * 6)()
+    err = lib.rpf_pfb_channelize_attributes(
+        N.bit_length() - 1, P, int(shape is not None),
+        int(shape is not None and shape.stage_h), device.index or 0, attrs)
+    if err != 0:
+        raise fp.KernelLaunchError(
+            f"pfb_channelize attributes at N={N}, P={P}: "
+            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
+
+
+@functools.lru_cache(maxsize=64)
+def channelize_resident_blocks(N: int, P: int, index: int) -> int:
+    """Blocks of the channelizer at N bins and P taps that card ``index``
+    holds resident."""
+    device = torch.device("cuda", index)
+    return _resident(channelize_attributes(N, P, device), device)

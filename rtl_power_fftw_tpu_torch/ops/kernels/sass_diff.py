@@ -7,9 +7,12 @@ estimators' ``fused_psd_sk``, ``fused_psd_tapers`` and ``fused_psd_pfb``
 (which share ``fused_psd_regs.cuh`` with K1) and the large awkward-N
 ``fused_psd_mixed_large`` and ``fused_psd_chirp_large`` (whose earlier
 kernels are the controls; the latter shares the large kernel's register
-passes) are each compiled twice with the build's own nvcc flags, from
-``csrc/`` and from the earlier tree's ``csrc/``, and ``cuobjdump -sass``
-of the two libraries is compared kernel by kernel: every kernel of the
+passes) and the library estimators' ``fused_psd_frames``,
+``fused_psd_csd`` and ``fused_psd_scf`` (a source the earlier tree lacks
+has no earlier kernels) are each compiled twice with the build's own nvcc
+flags, from ``csrc/`` and from the earlier tree's ``csrc/``, and
+``cuobjdump -sass`` of the two libraries is compared kernel by kernel:
+every kernel of the
 earlier build must be in this one with the same instructions. Names are
 compared demangled, with the template argument ``S1_FORM = 0``
 (``FastVariant``'s last parameter, whose default is the earlier template)
@@ -48,7 +51,8 @@ from . import _build
 
 SOURCES = ("fused_psd", "fused_psd_fast", "fused_psd_large", "fused_psd_probe",
            "fused_psd_mixed", "fused_psd_sk", "fused_psd_tapers",
-           "fused_psd_pfb", "fused_psd_mixed_large", "fused_psd_chirp_large")
+           "fused_psd_pfb", "fused_psd_mixed_large", "fused_psd_chirp_large",
+           "fused_psd_frames", "fused_psd_csd", "fused_psd_scf")
 #: The parent tree's kernels, written by ``--write-digest``.
 DIGEST = Path(__file__).with_name("sass_digest.json")
 
@@ -76,7 +80,7 @@ def check_digest(libs: Dict[str, Path], path: Path = DIGEST):
     want = json.loads(Path(path).read_text())
     out = {}
     for name in SOURCES:
-        old = want["kernels"][name]
+        old = want["kernels"].get(name, {})
         new = digest(libs[name], bin_dir)
         out[name] = (len(old), sorted(k for k in old if new.get(k) != old[k]),
                      len(set(new) - set(old)))
@@ -125,6 +129,8 @@ def main(argv=None) -> int:
         libs, procs = {}, []
         for side, csrc in (("earlier", earlier), ("here", _build.CSRC)):
             for name in sources:
+                if not (csrc / f"{name}.cu").is_file():
+                    continue   # new here: no earlier kernels
                 out = Path(tmp) / f"{side}_{name}.so"
                 libs[(side, name)] = out
                 procs.append(subprocess.Popen(
@@ -137,7 +143,8 @@ def main(argv=None) -> int:
                 print(err, file=sys.stderr)
                 return 2
         for name in sources:
-            old = listing(libs[("earlier", name)], bin_dir)
+            old = (listing(libs[("earlier", name)], bin_dir)
+                   if ("earlier", name) in libs else {})
             new = listing(libs[("here", name)], bin_dir)
             other = [k for k in old if new.get(k) != old[k]]
             print(f"sass_diff {name}: {len(old)} earlier kernels, "
@@ -150,7 +157,9 @@ def main(argv=None) -> int:
             write.write_text(json.dumps({
                 "nvcc": nvcc_release(nvcc), "flags": list(_build.NVCC_FLAGS),
                 "kernels": {name: digest(libs[("earlier", name)], bin_dir)
-                            for name in sources}}, indent=1, sort_keys=True)
+                            for name in sources
+                            if ("earlier", name) in libs}},
+                indent=1, sort_keys=True)
                 + "\n")
             print(f"sass_diff: wrote the earlier tree's digest to {write}")
     return 0 if ok else 1
