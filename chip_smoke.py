@@ -4383,7 +4383,6 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
           f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM")
 
     # Each kernel against its plain version and the float64 golden.
-    max_abs = {}
     for N in (64, 2048, 16384):
         F = 64 if N == 16384 else 256
         chunk = adapt_batch(F)[1]
@@ -4428,8 +4427,6 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
                     check(e_plain <= UNIFORM_RTOL and e_gold <= budget,
                           f"FR {out} {tag}: {e_plain} vs plain, {e_gold} "
                           "vs golden")
-                    if (N, wname, nv, out) == (2048, None, F, "complex"):
-                        max_abs["FR"] = float(np.abs(g_np - p_np).max())
                     if out == "power_shifted":
                         # FR's rows summed in the tree order: K1's (K2's)
                         # output.
@@ -4467,8 +4464,6 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
                     check(e_plain <= UNIFORM_RTOL and e_gold <= budget,
                           f"CSD {tag}: {e_plain} vs plain, {e_gold} vs "
                           "golden")
-                    if (N, wname, nv) == (2048, "hann", F):
-                        max_abs["CSD"] = float(np.abs(g_np - p_np).max())
                 # SCF on FR's X of the same frames.
                 if wname is not None:
                     continue
@@ -4500,8 +4495,6 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
                     check(e_plain <= UNIFORM_RTOL and e_gold <= budget,
                           f"SCF {tag}: {e_plain} vs plain, {e_gold} vs "
                           "golden")
-                    if (N, nv, K) == (2048, F, 5):
-                        max_abs["SCF"] = float(np.abs(g_np - p_np).max())
         # PFB-C at P = 4 (and 1), F output frames, against plain, the golden
         # and the PFB kernel's sum of |X|^2 on the same rows.
         for P in (1, 4):
@@ -4542,8 +4535,6 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
                   f"{e_psd:.3e} (<= {UNIFORM_RTOL:g})")
             check(e_plain <= UNIFORM_RTOL and e_gold <= budget
                   and e_psd <= UNIFORM_RTOL, f"PFB-C {tag}")
-            if (N, P) == (2048, 4):
-                max_abs["PFB-C"] = float(np.abs(g_np - p_np).max())
     print(f"wall: library kernels against plain in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -4679,7 +4670,7 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
     iq = synthetic_bytes(LIB_TONE + ",seed=2", 4.0)
     y, c = counted("pfb_channelize", lambda: models.pfb_channelize(
         iq, LIB_N, taps=4, device=dev), ["PFB-C"])
-    T = len(iq) // (2 * LIB_N) - 3
+    T = T_ch = len(iq) // (2 * LIB_N) - 3
     hh = pfb_prototype(LIB_N, 4).reshape(4, LIB_N).astype(np.float64)
     z = dequant64(iq[:(T + 3) * 2 * LIB_N].reshape(-1, 2 * LIB_N))
     sums = sum(z[p:p + T] * hh[p] for p in range(4))
@@ -4704,7 +4695,7 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
     (freqs, g2, csd), c = counted("coherence", lambda: models.coherence(
         iq_x, iq_y, LIB_N, LIB_RATE, center_freq=100_000_000, window=hann,
         device=dev), ["CSD windowed"])
-    M = len(iq_x) // (2 * LIB_N)
+    M = M_coh = len(iq_x) // (2 * LIB_N)
     ctr = LIB_N // 2
 
     def coherence_of(spectra_fn):
@@ -4776,10 +4767,82 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
           "spectral_correlation drive")
     print(f"wall: library drives done at {time.perf_counter() - t0:.1f} s")
 
-    # Times at each drive's step.
+    # Each wrapper against its plain version at the grids the drives run,
+    # where a block takes several frames (k1_group's group over the lanes):
+    # each drive's full step (in timed below) and its last, partial step.
+    def hold(label, kernel, plain, scale, group=None):
+        """``kernel`` twice (the same bits) and ``plain`` once on the same
+        inputs, held by the largest error over ``scale(plain's output)``;
+        returns the largest absolute error."""
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"library {label}: not deterministic")
+        kind = np.complex128 if got.is_complex() else np.float64
+        g_np = got.cpu().numpy().astype(kind)
+        p_np = want.cpu().numpy().astype(kind)
+        err = float(np.abs(g_np - p_np).max())
+        rel = err / scale(p_np)
+        grid = "" if group is None else f", {group} frames a block"
+        print(f"library {label}{grid}: err vs plain {rel:.3e} (<= "
+              f"{UNIFORM_RTOL:g}), two calls the same bits")
+        check(rel <= UNIFORM_RTOL, f"library {label}: {rel} vs plain")
+        return err
+
+    def mean_abs(a):
+        return float(np.abs(a).mean())
+
+    def lag0_mean(a):
+        return float(np.abs(a[0, 0]).mean())
+
+    def frames_group(F, windowed, complex_out):
+        return fp.library_plan("fused_psd_frames", LIB_N, F, ffr.GROUP_CHUNK,
+                               dev.index, int(windowed),
+                               int(complex_out)).group
+
+    def step_frames(F, seed):
+        return torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 256, (F, 2 * LIB_N), dtype=np.uint8)).to(dev)
+
+    w = torch.from_numpy(hann).to(dev)
+    F, nv = 1024, frames % 1024
+    raw = step_frames(F, 1)
+    hold(f"FR windowed power N={LIB_N} F={F} n_valid={nv} (spectrogram's "
+         "last step)", lambda: ffr.fused_psd_frames(raw, nv, w)[:nv],
+         lambda: ffr.fused_psd_frames_reference(raw, nv, w)[:nv], mean_abs,
+         frames_group(F, True, False))
+    F, nv = 512, M_coh % 512
+    raw, rawy = step_frames(F, 2), step_frames(F, 3)
+    hold(f"CSD N={LIB_N} F={F} Hann n_valid={nv} (coherence's last step)",
+         lambda: fcsd.fused_psd_csd(raw, rawy, nv, 64, w),
+         lambda: fcsd.fused_psd_csd_reference(raw, rawy, nv, 64, w),
+         csd_scale, fp.library_plan("fused_psd_csd", LIB_N, F, 64, dev.index,
+                                    1).group)
+    F, chunk = adapt_batch(min(M, 512))
+    raw = step_frames(F, 4)
+    hold(f"FR complex N={LIB_N} F={F} n_valid={M} (spectral_correlation's "
+         "step)", lambda: ffr.fused_psd_frames(raw, M, None, "complex")[:M],
+         lambda: ffr.fused_psd_frames_reference(raw, M, None, "complex")[:M],
+         mean_abs, frames_group(F, False, True))
+    X = ffr.fused_psd_frames(raw, M, None, "complex")
+    hold(f"SCF N={LIB_N} F={F} chunk={chunk} K={K} n_valid={M} "
+         "(spectral_correlation's step)",
+         lambda: fscf.fused_psd_scf(X, M, chunk, 0, K),
+         lambda: fscf.fused_psd_scf_reference(X, M, chunk, 0, K), lag0_mean)
+    T = T_ch % 1024
+    rows_t = step_frames(T + 3, 5)
+    hold(f"PFB-C M={LIB_N} T={T} P=4 (pfb_channelize's last step)",
+         lambda: fpf.pfb_channelize(rows_t, h_dev),
+         lambda: fpf.pfb_channelize_reference(rows_t, h_dev), mean_abs,
+         fp.library_plan("fused_psd_pfb", LIB_N, T, fpf.CHANNELIZE_CHUNK,
+                         dev.index, 4, 1, int(fpf.ring_shape(LIB_N, 4)
+                                              .stage_h),
+                         entry="rpf_pfb_channelize_attributes").group)
+
+    # Times at each drive's step, each kernel held against plain there.
     times = {}
 
-    def timed(key, kernel, plain, lib_frames, bound, max_abs_key):
+    def timed(key, kernel, plain, lib_frames, bound, scale):
+        max_abs = hold(key, kernel, plain, scale)
         call = event_times_us(kernel)
         kd = [device_times_us(kernel), device_times_us(kernel)]
         out = kernel()
@@ -4795,7 +4858,7 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
              "lib": event_times_us(lambda: torch.fft.fft(lib_frames, dim=-1)),
              "lib_device": device_times_us(
                  lambda: torch.fft.fft(lib_frames, dim=-1)),
-             "bound": bound, "max_abs": max_abs[max_abs_key]}
+             "bound": bound, "max_abs": max_abs}
         times[key] = t
         b_us = 1e3 * bound[0]
         print(f"time library {key} on {card}: {call:.1f} us a call, device "
@@ -4816,17 +4879,16 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
                           raw[:, 1::2].float() - 127.0)
         return raw, z
 
-    w = torch.from_numpy(hann).to(dev)
     raw, z = frames_dev(1024)
     timed("FR windowed power N=2048 F=1024 (spectrogram's step)",
           lambda: ffr.fused_psd_frames(raw, 1024, w),
           lambda: ffr.fused_psd_frames_reference(raw, 1024, w), z,
-          library_bound_ms("FR", 1024, LIB_N, True), "FR")
+          library_bound_ms("FR", 1024, LIB_N, True), mean_abs)
     raw, z = frames_dev(4096)
     fr4096 = timed("FR power N=2048 F=4096",
                    lambda: ffr.fused_psd_frames(raw, 4096),
                    lambda: ffr.fused_psd_frames_reference(raw, 4096), z,
-                   library_bound_ms("FR", 4096, LIB_N), "FR")
+                   library_bound_ms("FR", 4096, LIB_N), mean_abs)
     k1_dev = min(device_times_us(lambda: fp.fused_psd(raw, 4096, 64))
                  for _ in range(2))
     print(f"time library FR power N=2048 F=4096 on {card}: device "
@@ -4838,28 +4900,46 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
     timed("FR complex N=2048 F=512 (spectral_correlation's step)",
           lambda: ffr.fused_psd_frames(raw, 512, None, "complex"),
           lambda: ffr.fused_psd_frames_reference(raw, 512, None, "complex"),
-          z, library_bound_ms("FR", 512, LIB_N, complex_out=True), "FR")
+          z, library_bound_ms("FR", 512, LIB_N, complex_out=True), mean_abs)
     timed(f"SCF N=2048 F=512 K={K} (spectral_correlation's step)",
           lambda: fscf.fused_psd_scf(X, 512, 64, 0, K),
           lambda: fscf.fused_psd_scf_reference(X, 512, 64, 0, K), z,
-          library_bound_ms("SCF", 512, LIB_N, K=K), "SCF")
+          library_bound_ms("SCF", 512, LIB_N, K=K), lag0_mean)
     rawy, zy = frames_dev(512)
     timed("CSD N=2048 F=512 Hann (coherence's step)",
           lambda: fcsd.fused_psd_csd(raw, rawy, 512, 64, w),
           lambda: fcsd.fused_psd_csd_reference(raw, rawy, 512, 64, w),
           torch.cat([z, zy]),
-          library_bound_ms("CSD", 512, LIB_N, True), "CSD")
+          library_bound_ms("CSD", 512, LIB_N, True), csd_scale)
     rows_t, _ = frames_dev(1027)
     timed("PFB-C M=2048 T=1024 P=4 (pfb_channelize's step)",
           lambda: fpf.pfb_channelize(rows_t, h_dev),
           lambda: fpf.pfb_channelize_reference(rows_t, h_dev),
           frames_dev(1024)[1],
-          library_bound_ms("PFB-C", 1024, LIB_N, P=4), "PFB-C")
+          library_bound_ms("PFB-C", 1024, LIB_N, P=4), mean_abs)
+    # PFB-C's ring form (ring_shape's at 2048, P = 4) against the control's
+    # load at the same step, in turns; the control held against plain too.
+    hold("PFB-C M=2048 T=1024 P=4, the control's load",
+         lambda: fpf.pfb_channelize(rows_t, h_dev, ring=False),
+         lambda: fpf.pfb_channelize_reference(rows_t, h_dev), mean_abs)
+    ring_us, control_us = [], []
+    for _ in range(3):
+        ring_us.append(device_times_us(
+            lambda: fpf.pfb_channelize(rows_t, h_dev)))
+        control_us.append(device_times_us(
+            lambda: fpf.pfb_channelize(rows_t, h_dev, ring=False)))
+    times["PFB-C control"] = min(control_us)
+    print(f"time library PFB-C M=2048 T=1024 P=4 on {card}: device, in "
+          f"turns, ring form {', '.join(f'{t:.2f}' for t in ring_us)} us, "
+          f"control's load {', '.join(f'{t:.2f}' for t in control_us)} us; "
+          f"ring/control {min(ring_us) / min(control_us):.3f} (spreads "
+          f"{max(ring_us) - min(ring_us):.2f} and "
+          f"{max(control_us) - min(control_us):.2f} us)")
     print(f"wall: library phase in {time.perf_counter() - t0:.1f} s")
 
-    def entry(name, source, replaces, key, times_key):
+    def entry(name, source, replaces, key, times_key, **extra):
         t = times[times_key]
-        return {"name": name, "route": "cuda", "source": CSRC + source,
+        return extra | {"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": replaces, "launches": launches[key],
                 "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
                 "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
@@ -4884,7 +4964,8 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
                   "FR windowed power N=2048 F=1024 (spectrogram's step)"),
             entry("pfb_channelize (PFB-C)", "fused_psd_pfb.cu",
                   "rtl_power_fftw_tpu/models/pfb.py:401", "PFB-C",
-                  "PFB-C M=2048 T=1024 P=4 (pfb_channelize's step)"),
+                  "PFB-C M=2048 T=1024 P=4 (pfb_channelize's step)",
+                  control_device_ms=times["PFB-C control"] / 1000.0),
             entry("fused_psd_csd (CSD, windowed)", "fused_psd_csd.cu",
                   "rtl_power_fftw_tpu/models/coherence.py:29",
                   "CSD windowed", "CSD N=2048 F=512 Hann (coherence's step)"),

@@ -17,9 +17,7 @@ import torch
 
 from ..ops.spectral import (FrameSlicer, PsdStep, bin_frequencies,
                             finalize_psd, pad_frames)
-
-#: Device steps kept in flight before the oldest result is read back.
-_IN_FLIGHT = 4
+from ._steps import read_back_in_order
 
 
 @functools.lru_cache(maxsize=8)
@@ -40,14 +38,11 @@ def _accumulate(stream: np.ndarray, N: int, repeats: Optional[int],
     step = _cached_step(N, min(frames_per_step, max(len(frames), 1)),
                         wb, backend, torch.device(device))
     pwr = np.zeros(N, dtype=np.float64)
-    pending = []
-    for start in range(0, len(frames), step.F):
-        batch = frames[start:start + step.F]
-        pending.append(step(pad_frames(batch, step.F), len(batch)))
-        if len(pending) > _IN_FLIGHT:
-            pwr += pending.pop(0).cpu().numpy()
-    for p in pending:
-        pwr += p.cpu().numpy()
+    batches = (frames[start:start + step.F]
+               for start in range(0, len(frames), step.F))
+    read_back_in_order(
+        (step(pad_frames(batch, step.F), len(batch)) for batch in batches),
+        lambda p: np.add(pwr, p.cpu().numpy(), out=pwr))
     return pwr, len(frames)
 
 

@@ -23,8 +23,7 @@ import torch
 from ..ops.kernels.fused_psd_csd import fused_psd_csd
 from ..ops.spectral import (FrameSlicer, adapt_batch, bin_frequencies,
                             estimator_route, pad_frames)
-from .bartlett import _IN_FLIGHT
-from .spectrogram import device_window, upload
+from ._steps import device_window, read_back_in_order, upload
 
 
 def coherence(iq_x: np.ndarray, iq_y: np.ndarray, N: int, sample_rate: int,
@@ -57,25 +56,18 @@ def coherence(iq_x: np.ndarray, iq_y: np.ndarray, N: int, sample_rate: int,
     sxx = np.zeros(N, np.float64)
     syy = np.zeros(N, np.float64)
     sxy = np.zeros(N, np.complex128)
-    pending = []
 
     def read_back(out: torch.Tensor) -> None:
-        nonlocal sxx, syy, sxy
         a, b, cr, ci = out.cpu().numpy().astype(np.float64)
-        sxx += a
-        syy += b
-        sxy += cr + 1j * ci
+        sxx[:] += a
+        syy[:] += b
+        sxy[:] += cr + 1j * ci
 
-    for start in range(0, M, F):
-        bx = pad_frames(fx[start:start + F], F)
-        by = pad_frames(fy[start:start + F], F)
-        nv = min(len(fx[start:start + F]), F)
-        pending.append(fused_psd_csd(upload(bx, device), upload(by, device),
-                                     nv, chunk, w))
-        if len(pending) > _IN_FLIGHT:
-            read_back(pending.pop(0))
-    for out in pending:
-        read_back(out)
+    read_back_in_order(
+        (fused_psd_csd(upload(pad_frames(fx[start:start + F], F), device),
+                       upload(pad_frames(fy[start:start + F], F), device),
+                       len(fx[start:start + F]), chunk, w)
+         for start in range(0, M, F)), read_back)
 
     shift = np.fft.fftshift
     sxx_s, syy_s, sxy_s = shift(sxx), shift(syy), shift(sxy)

@@ -28,8 +28,7 @@ from ..ops.kernels.fused_psd_frames import fused_psd_frames
 from ..ops.kernels.fused_psd_scf import fused_psd_scf, lag_slabs
 from ..ops.spectral import FrameSlicer, adapt_batch, estimator_route, \
     pad_frames
-from .bartlett import _IN_FLIGHT
-from .spectrogram import device_window, upload
+from ._steps import device_window, read_back_in_order, upload
 
 
 def spectral_correlation(iq: np.ndarray, N: int, sample_rate: int,
@@ -67,24 +66,23 @@ def spectral_correlation(iq: np.ndarray, N: int, sample_rate: int,
 
     acc_r = np.zeros((K, N), dtype=np.float64)
     acc_i = np.zeros((K, N), dtype=np.float64)
-    pending = []
 
-    def read_back(k0: int, out: torch.Tensor) -> None:
+    def read_back(item) -> None:
+        k0, out = item
         r, i = out.cpu().numpy().astype(np.float64)
         acc_r[k0:k0 + len(r)] += r
         acc_i[k0:k0 + len(i)] += i
 
-    for start in range(0, M, F):
-        batch = frames[start:start + F]
-        nv = len(batch)
-        X = fused_psd_frames(upload(pad_frames(batch, F), device), nv, win,
-                             "complex")
-        for k0, count in slabs:
-            pending.append((k0, fused_psd_scf(X, nv, chunk, k0, count)))
-            if len(pending) > _IN_FLIGHT:
-                read_back(*pending.pop(0))
-    for k0, out in pending:
-        read_back(k0, out)
+    def launches():
+        for start in range(0, M, F):
+            batch = frames[start:start + F]
+            nv = len(batch)
+            X = fused_psd_frames(upload(pad_frames(batch, F), device), nv,
+                                 win, "complex")
+            for k0, count in slabs:
+                yield k0, fused_psd_scf(X, nv, chunk, k0, count)
+
+    read_back_in_order(launches(), read_back)
 
     scf = (acc_r + 1j * acc_i) / M
     psd = scf[0].real                        # S⁰(f) ≥ 0

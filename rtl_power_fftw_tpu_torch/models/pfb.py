@@ -30,7 +30,7 @@ from ..ops.kernels.fused_psd_pfb import pfb_channelize as _channelize
 from ..ops.spectral import (_unported, adapt_batch, bin_frequencies,
                             estimator_route, finalize_psd)
 from ..parallel.sharded import one_device, stream_batch
-from .bartlett import _IN_FLIGHT
+from ._steps import read_back_in_order, upload
 
 
 def pfb_prototype(M: int, taps: int = 4,
@@ -275,17 +275,15 @@ def pfb_channelize(iq_u8: np.ndarray, M: int,
     used = (T + P - 1) * 2 * M
     rows = iq[:used].reshape(-1, 2 * M)
     device = torch.device(device)
-    hd = torch.from_numpy(np.array(h.reshape(P, M), np.float32)).to(device)
+    hd = upload(h.reshape(P, M), device)
     out = np.empty((T, M), np.complex64)
-    pending = []
-    for t0 in range(0, T, CHANNELIZE_STEP):
-        n = min(CHANNELIZE_STEP, T - t0)
-        raw = torch.from_numpy(np.ascontiguousarray(
-            rows[t0:t0 + n + P - 1])).to(device)
-        pending.append((t0, _channelize(raw, hd)))
-        if len(pending) > _IN_FLIGHT:
-            t, y = pending.pop(0)
-            out[t:t + len(y)] = y.cpu().numpy()
-    for t, y in pending:
+
+    def store(item) -> None:
+        t, y = item
         out[t:t + len(y)] = y.cpu().numpy()
+
+    read_back_in_order(
+        ((t0, _channelize(upload(rows[t0:t0 + CHANNELIZE_STEP + P - 1],
+                                 device), hd))
+         for t0 in range(0, T, CHANNELIZE_STEP)), store)
     return out

@@ -21,24 +21,11 @@ import torch
 from ..ops.kernels.fused_psd_frames import fused_psd_frames
 from ..ops.spectral import (FrameSlicer, _unported, bin_frequencies,
                             estimator_route, finalize_psd, pad_frames)
-from .bartlett import _IN_FLIGHT
+from ._steps import device_window, read_back_in_order, upload
 
 #: ``backend`` names the frames kernel serves (the JAX package's
 #: spectrogram runs its platform FFT under both).
 BACKENDS = ("auto", "pallas")
-
-
-def device_window(window: Optional[np.ndarray],
-                  device: torch.device) -> Optional[torch.Tensor]:
-    """A window as a float32 tensor on ``device``, or None."""
-    if window is None:
-        return None
-    return torch.from_numpy(np.array(window, dtype=np.float32)).to(device)
-
-
-def upload(batch: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A (n, 2N) u8 frame batch as a contiguous tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
 
 
 def spectrogram(iq_u8: np.ndarray, N: int, sample_rate: int,
@@ -78,7 +65,6 @@ def spectrogram(iq_u8: np.ndarray, N: int, sample_rate: int,
     F = max(F, average)
 
     rows = []
-    pending = []
 
     def read_back(out: torch.Tensor) -> None:
         # Each step holds whole groups of ``average`` rows (F is their
@@ -86,16 +72,13 @@ def spectrogram(iq_u8: np.ndarray, N: int, sample_rate: int,
         pwr = out.cpu().numpy().astype(np.float64)
         rows.append(pwr.reshape(-1, average, N).sum(axis=1))
 
-    for start in range(0, n_frames, F):
-        batch = frames[start:start + F]
-        nb = len(batch)
-        out = fused_psd_frames(upload(pad_frames(batch, F), device), nb, w,
-                               "power_shifted")
-        pending.append(out[:nb])
-        if len(pending) > _IN_FLIGHT:
-            read_back(pending.pop(0))
-    for out in pending:
-        read_back(out)
+    def launches():
+        for start in range(0, n_frames, F):
+            batch = frames[start:start + F]
+            yield fused_psd_frames(upload(pad_frames(batch, F), device),
+                                   len(batch), w, "power_shifted")[:len(batch)]
+
+    read_back_in_order(launches(), read_back)
     pwr = np.concatenate(rows)
     if dc_interp:
         # Same row finalization as the matrix writer (finalize_psd).

@@ -118,6 +118,14 @@ class KernelLaunchError(RuntimeError):
     """The CUDA launcher returned an error code."""
 
 
+def launch_error(what: str, lib, err: int) -> KernelLaunchError:
+    """The error of a library's launch or attributes call ``what`` that
+    returned the cudaError ``err``, with the runtime's text for it."""
+    return KernelLaunchError(
+        f"{what} launch failed: {lib.rpf_cuda_error_string(err).decode()} "
+        f"(cudaError {err})")
+
+
 class LaunchCounts:
     """Calls served by the CUDA kernels of this module, of
     :mod:`.fused_psd_large`, :mod:`.fused_psd_mixed`,
@@ -286,10 +294,53 @@ def resident_blocks(N: int, windowed: bool, index: int) -> int:
     that card ``index`` holds resident: its SMs times the blocks one SM
     holds, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them
     (:func:`kernel_attributes`). Asked of the card once per key."""
-    device = torch.device("cuda", index)
-    per_sm = kernel_attributes(N, windowed, device)["blocks_per_sm"]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, per_sm)
+    return library_resident_blocks("fused_psd", N, int(windowed),
+                                   index=index)
+
+
+def resident_of(attrs: dict, index) -> int:
+    """Blocks of a kernel with ``attrs`` (a ``kernel_attributes`` dict)
+    that card ``index`` holds resident: its SMs times the blocks one SM
+    holds."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * max(1, attrs["blocks_per_sm"])
+
+
+@functools.lru_cache(maxsize=256)
+def library_resident_blocks(library: str, N: int, *args, index: int,
+                            entry: Optional[str] = None) -> int:
+    """:func:`resident_of` the register kernel of ``library`` that
+    :func:`library_attributes` describes at N bins and ``args``. Asked of
+    the card once per key."""
+    return resident_of(library_attributes(
+        library, N, *args, device=torch.device("cuda", index), entry=entry),
+        index)
+
+
+class LibraryPlan(NamedTuple):
+    """What a call of a register kernel of the library estimators needs
+    beyond its arguments: the library, log2 N, the grid's frames a block
+    (:func:`k1_group`) and blocks, and the twiddles' device pointer."""
+    lib: ctypes.CDLL
+    log2n: int
+    group: int
+    blocks: int
+    twiddle: int
+
+
+@functools.lru_cache(maxsize=256)
+def library_plan(library: str, N: int, F: int, chunk: int, index: int,
+                 *args, entry: Optional[str] = None) -> LibraryPlan:
+    """The :class:`LibraryPlan` of ``library``'s register kernel over F
+    frames of N bins, ``chunk`` the two-stage sum's first stage, on card
+    ``index``; ``args`` and ``entry`` pick the instantiation as
+    :func:`library_attributes` does. Made once per key."""
+    from . import _build
+    group = k1_group(F, chunk, library_resident_blocks(
+        library, N, *args, index=index, entry=entry))
+    return LibraryPlan(
+        _build.load(library), N.bit_length() - 1, group, -(-F // group),
+        _device_pass_twiddles(N, torch.device("cuda", index)).data_ptr())
 
 
 def frame_spectra(raw_u8: torch.Tensor,
@@ -457,9 +508,7 @@ def _launch(kernel: str, raw_u8: torch.Tensor,
                partial.data_ptr(), out.data_ptr(),
                torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise KernelLaunchError(
-            f"{kernel} launch failed: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+        raise launch_error(kernel, lib, err)
     return out
 
 
@@ -537,21 +586,21 @@ def kernel_attributes(N: int, windowed: bool = False,
 
 
 def library_attributes(library: str, N: int, *args,
-                       device: Optional[torch.device] = None) -> dict:
+                       device: Optional[torch.device] = None,
+                       entry: Optional[str] = None) -> dict:
     """``kernel_attributes`` of the register kernels of ``library``
-    (``fused_psd`` and the estimators'): its ``rpf_<library>_attributes``
-    entry at log2 N, ``args`` and the device. Launches nothing."""
+    (``fused_psd`` and the estimators'): its ``entry`` (by default
+    ``rpf_<library>_attributes``) at log2 N, ``args`` and the device.
+    Launches nothing."""
     if not fused_psd_eligible(N):
         raise ValueError(f"{library} does not take N={N}")
     device = device or torch.device("cuda", torch.cuda.current_device())
     from . import _build
     lib = _build.load(library)
     attrs = (ctypes.c_int * 6)()
-    err = getattr(lib, f"rpf_{library}_attributes")(
+    err = getattr(lib, entry or f"rpf_{library}_attributes")(
         N.bit_length() - 1, *args, device.index or 0, attrs)
     if err != 0:
-        raise KernelLaunchError(
-            f"{library} attributes at N={N}: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+        raise launch_error(f"{library} attributes at N={N}", lib, err)
     return dict(zip(("registers", "spill_bytes", "static_smem",
                      "dynamic_smem", "threads", "blocks_per_sm"), attrs))

@@ -48,14 +48,13 @@ import torch
 
 from .fused_psd import (COUNTS, PASS_PLAN, _device_pass_twiddles, _on_cuda,
                         check_alignment, check_args, check_streams_args,
-                        k1_group)
+                        k1_group, resident_of)
 from .fused_psd_large import _raw_stream
 from .fused_psd_mixed import (CONTROL_COUNTS, RING_RAW_ALIGN, SUM_BINS,
                               WINDOW_ALIGN, MixedLaunch, _attributes,
-                              _resident, check_either, copy_width,
-                              element_of_bin, launch_control, launch_error,
-                              launch_shape, mixed_plan, partial_rows,
-                              ring_slot)
+                              check_either, copy_width, element_of_bin,
+                              launch_control, launch_error, launch_shape,
+                              mixed_plan, partial_rows, ring_slot)
 
 #: Largest N the kernel takes: M = next_pow2(2N - 1) <= 16384, whose
 #: padded complex frame (139 KB) and two ring slots fit the 227 KB of
@@ -280,7 +279,7 @@ def chirp_attributes(N: int, windowed: bool = False,
 def chirp_resident_blocks(N: int, windowed: bool, index: int) -> int:
     """Blocks of the kernel at N bins that card ``index`` holds resident.
     Asked of the card once per key."""
-    return _resident(chirp_attributes(N, windowed,
+    return resident_of(chirp_attributes(N, windowed,
                                       torch.device("cuda", index)), index)
 
 

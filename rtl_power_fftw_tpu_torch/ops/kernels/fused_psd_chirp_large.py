@@ -76,12 +76,11 @@ from .fused_psd import (COUNTS, _on_cuda, check_alignment, check_args,
                         check_streams_args, per_stream_reference)
 from .fused_psd_bluestein import (MAX_N as SMALL_MAX_N, bluestein_constants,
                                   chirp_size)
-from .fused_psd import PASS_PLAN, pass_twiddles
+from .fused_psd import PASS_PLAN, pass_twiddles, resident_of
 from .fused_psd_large import (_raw_stream, large_group, large_split,
                               regs_inter_twiddle, regs_layout, thread_map)
-from .fused_psd_mixed import (CONTROL_COUNTS, SUM_BINS, _resident,
-                              copy_width, element_of_bin, launch_error,
-                              mixed_plan)
+from .fused_psd_mixed import (CONTROL_COUNTS, SUM_BINS, copy_width,
+                              element_of_bin, launch_error, mixed_plan)
 from .fused_psd_mixed_large import (RAW_ALIGN, WINDOW_ALIGN,
                                     device_plan_tables, inter_twiddle,
                                     library_attributes, plan_ints,
@@ -222,7 +221,7 @@ def control_attributes(N: int, which: int,
 def control_resident_blocks(N: int, which: int, index: int) -> int:
     """Blocks of a pass of the control at N bins that card ``index``
     holds at once. Asked of the card once per key."""
-    return _resident(control_attributes(N, which,
+    return resident_of(control_attributes(N, which,
                                         torch.device("cuda", index)), index)
 
 
@@ -413,7 +412,7 @@ def kernel_attributes(N: int, which: int,
 def resident_blocks(N: int, which: int, index: int) -> int:
     """Blocks of a register pass at N bins that card ``index`` holds at
     once. Asked of the card once per key."""
-    return _resident(kernel_attributes(N, which, torch.device("cuda", index)),
+    return resident_of(kernel_attributes(N, which, torch.device("cuda", index)),
                      index)
 
 

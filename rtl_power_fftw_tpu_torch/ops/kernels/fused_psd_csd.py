@@ -27,9 +27,7 @@ the plain version's (each also in ``COUNTS.plain``).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -56,34 +54,6 @@ def fused_psd_csd_reference(raw_x: torch.Tensor, raw_y: torch.Tensor,
                         .sum(0) for p in planes])
 
 
-class _Plan(NamedTuple):
-    """What a call needs beyond its arguments, cached per (N, F, chunk,
-    windowed, device): the library, log2 N, the grid's frames a block, its
-    blocks and the twiddles' pointer."""
-    lib: ctypes.CDLL
-    log2n: int
-    group: int
-    blocks: int
-    twiddle: int
-
-
-_plans: dict = {}
-
-
-def _plan(N: int, F: int, chunk: int, windowed: bool,
-          device: torch.device) -> _Plan:
-    key = (N, F, chunk, windowed, device.index)
-    plan = _plans.get(key)
-    if plan is None:
-        from . import _build
-        group = fp.k1_group(F, chunk,
-                            resident_blocks(N, windowed, device.index))
-        plan = _plans[key] = _Plan(
-            _build.load("fused_psd_csd"), N.bit_length() - 1, group,
-            -(-F // group), fp._device_pass_twiddles(N, device).data_ptr())
-    return plan
-
-
 def fused_psd_csd(raw_x: torch.Tensor, raw_y: torch.Tensor, n_valid: int,
                   chunk: int, window: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
@@ -95,23 +65,29 @@ def fused_psd_csd(raw_x: torch.Tensor, raw_y: torch.Tensor, n_valid: int,
     A CUDA tensor runs the kernel on the current stream (asynchronously);
     a CPU tensor runs the plain version."""
     n_valid = int(n_valid)
-    for raw in (raw_x, raw_y):
-        fp.check_args("fused_psd_csd", fp.fused_psd_eligible, raw, n_valid,
-                      chunk, window)
-    if raw_x.shape != raw_y.shape or raw_x.device != raw_y.device:
+    fp.check_args("fused_psd_csd", fp.fused_psd_eligible, raw_x, n_valid,
+                  chunk, window)
+    if (not isinstance(raw_y, torch.Tensor) or raw_y.dtype != torch.uint8
+            or raw_y.shape != raw_x.shape or raw_y.device != raw_x.device
+            or not raw_y.is_contiguous()):
         raise ValueError(f"streams x {tuple(raw_x.shape)} on {raw_x.device} "
-                         f"and y {tuple(raw_y.shape)} on {raw_y.device} "
-                         "differ")
+                         f"and y {tuple(getattr(raw_y, 'shape', ()))} on "
+                         f"{getattr(raw_y, 'device', None)} differ: y must be "
+                         "a contiguous uint8 tensor of x's shape on its "
+                         "device")
     if not fp._on_cuda("fused_psd_csd", raw_x):
         fp.COUNTS.plain += 1
         fp.COUNTS.plain_csd += 1
         return fused_psd_csd_reference(raw_x, raw_y, n_valid, chunk, window)
-    for raw in (raw_x, raw_y):
-        fp.check_alignment("fused_psd_csd", raw, fp.RAW_ALIGN, window,
-                           fp.WINDOW_ALIGN)
+    fp.check_alignment("fused_psd_csd", raw_x, fp.RAW_ALIGN, window,
+                       fp.WINDOW_ALIGN)
+    if raw_y.data_ptr() % fp.RAW_ALIGN:
+        raise ValueError(f"fused_psd_csd: raw frames must be "
+                         f"{fp.RAW_ALIGN}-byte aligned on the device")
     F, N = raw_x.shape[0], raw_x.shape[1] // 2
     device = raw_x.device
-    plan = _plan(N, F, chunk, window is not None, device)
+    plan = fp.library_plan("fused_psd_csd", N, F, chunk, device.index,
+                           int(window is not None))
     # One allocation: the (4, G, N) partial rows, then the (4, N) output.
     buf = torch.empty(4 * (plan.blocks + 1) * N, dtype=torch.float32,
                       device=device)
@@ -122,10 +98,7 @@ def fused_psd_csd(raw_x: torch.Tensor, raw_y: torch.Tensor, n_valid: int,
         out.data_ptr(), device.index, plan.log2n, F, plan.group, n_valid,
         _raw_stream(device.index))
     if err != 0:
-        raise fp.KernelLaunchError(
-            f"fused_psd_csd launch failed: "
-            f"{plan.lib.rpf_cuda_error_string(err).decode()} (cudaError "
-            f"{err})")
+        raise fp.launch_error("fused_psd_csd", plan.lib, err)
     if window is None:
         fp.COUNTS.kernel_csd += 1
     else:
@@ -140,12 +113,3 @@ def kernel_attributes(N: int, windowed: bool = False,
     return fp.library_attributes("fused_psd_csd", N, int(windowed),
                                  device=device)
 
-
-@functools.lru_cache(maxsize=64)
-def resident_blocks(N: int, windowed: bool, index: int) -> int:
-    """Blocks of the kernel that card ``index`` holds resident: its SMs
-    times :func:`kernel_attributes`' blocks per SM."""
-    device = torch.device("cuda", index)
-    attrs = kernel_attributes(N, windowed, device)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, attrs["blocks_per_sm"])

@@ -29,9 +29,7 @@ stores), ``COUNTS.plain_frames`` the plain version's (each also in
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -57,33 +55,6 @@ def fused_psd_frames_reference(raw_u8: torch.Tensor, n_valid: int,
         res = torch.fft.fftshift(X.real * X.real + X.imag * X.imag, dim=-1)
     res[n_valid:] = 0
     return res
-
-
-class _Plan(NamedTuple):
-    """What a call needs beyond its arguments, cached per (N, F, store,
-    windowed, device): the library, log2 N, the grid's frames a block and
-    the twiddles' pointer."""
-    lib: ctypes.CDLL
-    log2n: int
-    group: int
-    twiddle: int
-
-
-_plans: dict = {}
-
-
-def _plan(N: int, F: int, complex_out: bool, windowed: bool,
-          device: torch.device) -> _Plan:
-    key = (N, F, complex_out, windowed, device.index)
-    plan = _plans.get(key)
-    if plan is None:
-        from . import _build
-        group = fp.k1_group(F, GROUP_CHUNK, resident_blocks(
-            N, windowed, complex_out, device.index))
-        plan = _plans[key] = _Plan(
-            _build.load("fused_psd_frames"), N.bit_length() - 1, group,
-            fp._device_pass_twiddles(N, device).data_ptr())
-    return plan
 
 
 def fused_psd_frames(raw_u8: torch.Tensor, n_valid: int,
@@ -112,7 +83,9 @@ def fused_psd_frames(raw_u8: torch.Tensor, n_valid: int,
     F, N = raw_u8.shape[0], raw_u8.shape[1] // 2
     device = raw_u8.device
     complex_out = out == "complex"
-    plan = _plan(N, F, complex_out, window is not None, device)
+    plan = fp.library_plan("fused_psd_frames", N, F, GROUP_CHUNK,
+                           device.index, int(window is not None),
+                           int(complex_out))
     res = torch.empty((F, N), dtype=(torch.complex64 if complex_out
                                      else torch.float32), device=device)
     err = plan.lib.rpf_fused_psd_frames(
@@ -121,10 +94,7 @@ def fused_psd_frames(raw_u8: torch.Tensor, n_valid: int,
         device.index, plan.log2n, F, plan.group, n_valid, int(complex_out),
         _raw_stream(device.index))
     if err != 0:
-        raise fp.KernelLaunchError(
-            f"fused_psd_frames launch failed: "
-            f"{plan.lib.rpf_cuda_error_string(err).decode()} (cudaError "
-            f"{err})")
+        raise fp.launch_error("fused_psd_frames", plan.lib, err)
     if window is None:
         fp.COUNTS.kernel_frames += 1
     else:
@@ -140,13 +110,3 @@ def kernel_attributes(N: int, windowed: bool = False, complex_out: bool =
     return fp.library_attributes("fused_psd_frames", N, int(windowed),
                                  int(complex_out), device=device)
 
-
-@functools.lru_cache(maxsize=64)
-def resident_blocks(N: int, windowed: bool, complex_out: bool,
-                    index: int) -> int:
-    """Blocks of the kernel that card ``index`` holds resident: its SMs
-    times :func:`kernel_attributes`' blocks per SM."""
-    device = torch.device("cuda", index)
-    attrs = kernel_attributes(N, windowed, complex_out, device)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, attrs["blocks_per_sm"])

@@ -59,10 +59,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .fused_psd import (COUNTS, KernelLaunchError, LaunchCounts, _on_cuda,
-                        check_alignment, check_args, check_streams_args,
-                        fused_psd_reference, fused_psd_streams_reference,
-                        k1_group)
+from .fused_psd import (COUNTS, LaunchCounts, _on_cuda, check_alignment,
+                        check_args, check_streams_args, fused_psd_reference,
+                        fused_psd_streams_reference, k1_group, launch_error,
+                        resident_of)
 from .fused_psd_large import _raw_stream
 
 #: Radices a pass may have; kept in step with kMixedRadices in
@@ -284,13 +284,6 @@ def _attributes(label: str, call) -> dict:
                      "dynamic_smem", "threads", "blocks_per_sm"), attrs))
 
 
-def _resident(attrs: dict, index: int) -> int:
-    """The card's SMs times the blocks of ``attrs`` one SM holds."""
-    sms = torch.cuda.get_device_properties(
-        torch.device("cuda", index)).multi_processor_count
-    return sms * max(1, attrs["blocks_per_sm"])
-
-
 def control_attributes(shape: MixedLaunch, chirp: bool = False,
                        windowed: bool = False,
                        device: Optional[torch.device] = None) -> dict:
@@ -311,7 +304,7 @@ def control_resident_blocks(shape: MixedLaunch, chirp: bool, windowed: bool,
                             index: int) -> int:
     """Blocks of the control with the layout ``shape`` that card ``index``
     holds resident. Asked of the card once per key."""
-    return _resident(control_attributes(shape, chirp, windowed,
+    return resident_of(control_attributes(shape, chirp, windowed,
                                         torch.device("cuda", index)), index)
 
 
@@ -358,12 +351,6 @@ def partial_rows(row: int, rows: int, device: torch.device,
     else:
         _workspaces.move_to_end(key)
     return buf.data_ptr()
-
-
-def launch_error(kernel: str, lib, err: int) -> KernelLaunchError:
-    return KernelLaunchError(
-        f"{kernel} launch failed: {lib.rpf_cuda_error_string(err).decode()} "
-        f"(cudaError {err})")
 
 
 def launch_control(kernel: str, shape: MixedLaunch, raw_u8: torch.Tensor,
@@ -560,7 +547,7 @@ def ring_resident_blocks(shape: RingLaunch, windowed: bool,
                          index: int) -> int:
     """Blocks of the kernel with the layout ``shape`` that card ``index``
     holds resident. Asked of the card once per key."""
-    return _resident(ring_attributes(shape, windowed,
+    return resident_of(ring_attributes(shape, windowed,
                                      torch.device("cuda", index)), index)
 
 

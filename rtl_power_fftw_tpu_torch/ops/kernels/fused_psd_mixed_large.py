@@ -75,12 +75,12 @@ import numpy as np
 import torch
 
 from .fused_psd import (COUNTS, _on_cuda, check_alignment, check_args,
-                        check_streams_args, per_stream_reference)
+                        check_streams_args, per_stream_reference, resident_of)
 from .fused_psd_large import _raw_stream, keep_newest, large_group
 from .fused_psd_mixed import (CONTROL_COUNTS, MAX_N as MIXED_MAX_N,
                               MAX_PASSES, RING_ACC, SUM_BINS, RingLaunch,
-                              _resident, element_of_bin, launch_error,
-                              mixed_plan, pad_index, plan_twiddles, smooth7)
+                              element_of_bin, launch_error, mixed_plan,
+                              pad_index, plan_twiddles, smooth7)
 
 #: Eligible sizes: above the mixed-radix kernel's 16384, up to 2^22.
 MIN_N = MIXED_MAX_N + 2
@@ -320,7 +320,7 @@ def control_resident_blocks(N: int, which: int, index: int) -> int:
     """Blocks of a pass of the control at N bins that card ``index`` holds
     at once: its SMs times the blocks one SM holds. Asked of the card once
     per key."""
-    return _resident(control_attributes(N, which,
+    return resident_of(control_attributes(N, which,
                                         torch.device("cuda", index)), index)
 
 
@@ -629,7 +629,7 @@ def kernel_attributes(N: int, which: int,
 def resident_blocks(N: int, which: int, index: int) -> int:
     """Blocks of a pass at N bins that card ``index`` holds at once: its
     SMs times the blocks one SM holds. Asked of the card once per key."""
-    return _resident(kernel_attributes(N, which, torch.device("cuda", index)),
+    return resident_of(kernel_attributes(N, which, torch.device("cuda", index)),
                      index)
 
 

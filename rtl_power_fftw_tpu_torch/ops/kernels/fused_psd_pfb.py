@@ -53,7 +53,6 @@ where :func:`ring_shape` fits a block, else the control's.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional
 
@@ -84,12 +83,13 @@ class RingShape(NamedTuple):
     blocks_per_sm: int
 
 
+@functools.lru_cache(maxsize=256)
 def ring_shape(N: int, P: int) -> Optional[RingShape]:
     """The route's rule at N bins and P taps: None (the control) where the
     ring of 2 LANES + P - 1 rows and the exchange buffers exceed a block's
     shared memory, else the ring kernel's :class:`RingShape`, with the
     (P, N) float32 prototype staged where it fits beside them and still
-    leaves two blocks an SM."""
+    leaves two blocks an SM. Worked out once per (N, P)."""
     shape = fp.regs_shape(N)
     slots = 2 * shape.lanes + P - 1
     ring = shape.exchange + slots * (2 * N + ROW_PAD)
@@ -357,7 +357,7 @@ def resident_blocks(N: int, index: int) -> int:
     """Blocks of the control at N bins that card ``index`` holds resident:
     its SMs times :func:`kernel_attributes`' blocks per SM."""
     device = torch.device("cuda", index)
-    return _resident(kernel_attributes(N, 1, False, device), device)
+    return fp.resident_of(kernel_attributes(N, 1, False, device), index)
 
 
 @functools.lru_cache(maxsize=64)
@@ -365,12 +365,7 @@ def ring_resident_blocks(N: int, P: int, index: int) -> int:
     """Blocks of the ring kernel at N bins and P taps that card ``index``
     holds resident."""
     device = torch.device("cuda", index)
-    return _resident(kernel_attributes(N, P, True, device), device)
-
-
-def _resident(attrs: dict, device: torch.device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, attrs["blocks_per_sm"])
+    return fp.resident_of(kernel_attributes(N, P, True, device), index)
 
 
 def pfb_channelize_reference(rows: torch.Tensor, h: torch.Tensor
@@ -409,44 +404,40 @@ def check_channelize_args(rows: torch.Tensor, h: torch.Tensor) -> int:
     return T
 
 
-def pfb_channelize(rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def pfb_channelize(rows: torch.Tensor, h: torch.Tensor,
+                   ring: Optional[bool] = None) -> torch.Tensor:
     """PFB-C: (T + P - 1, 2N) uint8 raw rows, a (P, N) float32 prototype
     ``h`` -> (T, N) complex64, row j the DFT (natural bin order) of the
     polyphase sum S_j = sum over p of h[p] x_{j+p} (float32, p in order
     from zero, no FMA), on the rows' device.
 
     A CUDA tensor runs the kernel on the current stream (asynchronously),
-    in the form :func:`ring_shape` picks; a CPU tensor runs the plain
-    version."""
+    in the form :func:`ring_shape` picks (``ring=False``: the control's
+    load at any N); a CPU tensor runs the plain version."""
     T = check_channelize_args(rows, h)
     if not fp._on_cuda("pfb_channelize", rows):
         fp.COUNTS.plain += 1
         fp.COUNTS.plain_pfb_channelize += 1
         return pfb_channelize_reference(rows, h)
     N, P = rows.shape[1] // 2, h.shape[0]
-    shape = ring_shape(N, P)
-    ring = shape is not None
-    stage_h = ring and shape.stage_h
-    align = RING_ALIGN if ring else RAW_ALIGN
-    for name, t, a in (("rows", rows, align),
+    shape = ring_shape(N, P) if ring is not False else None
+    ring, stage_h = shape is not None, shape is not None and shape.stage_h
+    for name, t, a in (("rows", rows, RING_ALIGN if ring else RAW_ALIGN),
                        ("h", h, RING_ALIGN if stage_h else RAW_ALIGN)):
         if t.data_ptr() % a:
             raise ValueError(f"pfb_channelize: {name} must be {a}-byte "
                              "aligned on the device")
     device = rows.device
-    from . import _build
-    lib = _build.load("fused_psd_pfb")
-    group = fp.k1_group(T, CHANNELIZE_CHUNK, channelize_resident_blocks(
-        N, P, device.index))
+    plan = fp.library_plan("fused_psd_pfb", N, T, CHANNELIZE_CHUNK,
+                           device.index, P, int(ring), int(stage_h),
+                           entry="rpf_pfb_channelize_attributes")
     out = torch.empty((T, N), dtype=torch.complex64, device=device)
-    err = lib.rpf_pfb_channelize(
-        rows.data_ptr(), fp._device_pass_twiddles(N, device).data_ptr(),
-        h.data_ptr(), out.data_ptr(), device.index, N.bit_length() - 1, T,
-        group, P, int(ring), int(stage_h), _raw_stream(device.index))
+    err = plan.lib.rpf_pfb_channelize(
+        rows.data_ptr(), plan.twiddle, h.data_ptr(), out.data_ptr(),
+        device.index, plan.log2n, T, plan.group, P, int(ring), int(stage_h),
+        _raw_stream(device.index))
     if err != 0:
-        raise fp.KernelLaunchError(
-            f"pfb_channelize launch failed: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+        raise fp.launch_error("pfb_channelize", plan.lib, err)
     fp.COUNTS.kernel_pfb_channelize += 1
     return out
 
@@ -456,30 +447,13 @@ def pfb_channelize(rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 CHANNELIZE_CHUNK = 64
 
 
-def channelize_attributes(N: int, P: int,
+def channelize_attributes(N: int, P: int, ring: Optional[bool] = None,
                           device: Optional[torch.device] = None) -> dict:
-    """What the channelizer's form (:func:`ring_shape`'s) gets at N bins
-    and P taps on the card, as :func:`kernel_attributes` gives the PFB
-    kernels'. Launches nothing."""
-    from . import _build
-    device = device or torch.device("cuda", torch.cuda.current_device())
-    shape = ring_shape(N, P)
-    lib = _build.load("fused_psd_pfb")
-    attrs = (ctypes.c_int * 6)()
-    err = lib.rpf_pfb_channelize_attributes(
-        N.bit_length() - 1, P, int(shape is not None),
-        int(shape is not None and shape.stage_h), device.index or 0, attrs)
-    if err != 0:
-        raise fp.KernelLaunchError(
-            f"pfb_channelize attributes at N={N}, P={P}: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
-    return dict(zip(("registers", "spill_bytes", "static_smem",
-                     "dynamic_smem", "threads", "blocks_per_sm"), attrs))
-
-
-@functools.lru_cache(maxsize=64)
-def channelize_resident_blocks(N: int, P: int, index: int) -> int:
-    """Blocks of the channelizer at N bins and P taps that card ``index``
-    holds resident."""
-    device = torch.device("cuda", index)
-    return _resident(channelize_attributes(N, P, device), device)
+    """What the channelizer's form (:func:`ring_shape`'s; ``ring=False``
+    the control's load) gets at N bins and P taps on the card, as
+    :func:`kernel_attributes` gives the PFB kernels'. Launches nothing."""
+    shape = ring_shape(N, P) if ring is not False else None
+    return fp.library_attributes(
+        "fused_psd_pfb", N, P, int(shape is not None),
+        int(shape is not None and shape.stage_h), device=device,
+        entry="rpf_pfb_channelize_attributes")

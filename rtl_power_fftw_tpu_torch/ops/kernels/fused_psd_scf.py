@@ -126,9 +126,7 @@ def fused_psd_scf(X: torch.Tensor, n_valid: int, chunk: int, k0: int = 0,
                                 device.index, N, F, K, k0, chunk, n_valid,
                                 _raw_stream(device.index))
     if err != 0:
-        raise fp.KernelLaunchError(
-            f"fused_psd_scf launch failed: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+        raise fp.launch_error("fused_psd_scf", lib, err)
     fp.COUNTS.kernel_scf += 1
     return out
 
@@ -144,8 +142,6 @@ def kernel_attributes(device: Optional[torch.device] = None) -> dict:
     attrs = (ctypes.c_int * 6)()
     err = lib.rpf_fused_psd_scf_attributes(device.index or 0, attrs)
     if err != 0:
-        raise fp.KernelLaunchError(
-            f"fused_psd_scf attributes: "
-            f"{lib.rpf_cuda_error_string(err).decode()} (cudaError {err})")
+        raise fp.launch_error("fused_psd_scf attributes", lib, err)
     return dict(zip(("registers", "spill_bytes", "static_smem",
                      "dynamic_smem", "threads", "blocks_per_sm"), attrs))

@@ -8,11 +8,15 @@ cross-spectral kernel CSD and the spectral-correlation kernel SCF); the
 JAX estimators run their own CPU step. Tolerances:
 
 * spectrogram rows (linear power): within 1e-5 of the row's RMS power,
-  bin by bin (RTOL_RMS). A row of one periodogram has bins near zero,
-  where a relative error means nothing (f32 FFTs differ there by ~1e-4
-  relative on either side), and a 30 dB tone's bin, whose f32 error is
-  ~1e-5 of the row's mean; averaged rows are held per bin to 1e-5
-  relative besides;
+  bin by bin (RTOL_RMS), or within 3x the scipy float32 FFT's own largest
+  distance from the float64 golden on the same frames where that is
+  larger (the class-relative budget of CLAUDE.md: at N = 2048, one
+  Blackman periodogram a row, the class is 8.5e-6 of the row's RMS and
+  two runs of the JAX function on the CPU differ by 1.2e-5). A row of
+  one periodogram has bins near zero, where a relative error means
+  nothing (f32 FFTs differ there by ~1e-4 relative on either side), and
+  a 30 dB tone's bin, whose f32 error is ~1e-5 of the row's mean;
+  averaged rows are held per bin to 1e-5 relative besides;
 * the channelizer's X: the largest error over the mean magnitude, within
   1e-5; the SCF rows over the α = 0 row's RMS, and the CSD over the
   geometric mean of the two streams' RMS power (its own values are near
@@ -35,6 +39,7 @@ from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_csd as fcsd
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_frames as ffr
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_scf as fscf
+from rtl_power_fftw_tpu_torch.ops.spectral import FrameSlicer
 
 from golden import golden_accumulate
 
@@ -65,6 +70,28 @@ def linear(psd, is_linear):
     return psd if is_linear else 10.0 ** (psd / 10.0)
 
 
+def f32_class_rms(iq, N, hop, window, average):
+    """The scipy float32 FFT's largest distance from the float64 golden
+    over the spectrogram's rows of ``iq``, bin by bin, over the row's RMS
+    power."""
+    import scipy.fft
+    frames = FrameSlicer(N, hop=hop).push(iq)
+    frames = frames[:len(frames) // average * average]
+    z = (frames[:, 0::2].astype(np.float64) - 127.0) + 1j * (
+        frames[:, 1::2].astype(np.float64) - 127.0)
+    if window is not None:
+        z = z * np.asarray(window, np.float64)
+
+    def rows(X):
+        return (np.abs(X) ** 2).reshape(-1, average, N).sum(axis=1)
+
+    gold = rows(np.fft.fft(z, axis=1))
+    cls = rows(scipy.fft.fft(z.astype(np.complex64), axis=1)
+               .astype(np.complex128))
+    rms = np.sqrt((gold ** 2).mean(axis=1, keepdims=True))
+    return float((np.abs(cls - gold) / rms).max())
+
+
 # --- spectrogram ----------------------------------------------------------
 
 @pytest.mark.parametrize("N,window,average,hop,dc_interp,is_linear,fps", [
@@ -89,7 +116,8 @@ def test_spectrogram_matches_jax(N, window, average, hop, dc_interp,
     assert s_o.shape == s_t.shape
     p_o, p_t = linear(s_o, is_linear), linear(s_t, is_linear)
     scale = np.sqrt((p_t ** 2).mean(axis=1, keepdims=True))
-    assert np.all(np.abs(p_o - p_t) <= RTOL_RMS * scale)
+    budget = max(RTOL_RMS, 3.0 * f32_class_rms(iq, N, hop, w, average))
+    assert np.all(np.abs(p_o - p_t) <= budget * scale)
     if average > 1:
         np.testing.assert_allclose(p_o, p_t, rtol=RTOL)
 
@@ -615,6 +643,29 @@ def test_scf_lag_slabs_tile_every_lag(N, K):
     slabs = fscf.lag_slabs(N, K)
     assert [k for k0, n in slabs for k in range(k0, k0 + n)] == list(range(K))
     assert all(n * N <= max(fscf.SLAB, N) for _, n in slabs)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 4, 5, 13])
+def test_read_back_in_order_keeps_steps_in_flight(steps):
+    """The models' queue: every step is read back once, in launch order,
+    and step i only after step i + IN_FLIGHT is launched (or after the
+    last launch)."""
+    from rtl_power_fftw_tpu_torch.models import _steps
+    events = []
+
+    def launches():
+        for i in range(steps):
+            events.append(("launch", i))
+            yield i
+
+    _steps.read_back_in_order(launches(), lambda i: events.append(
+        ("read", i)))
+    reads = [i for kind, i in events if kind == "read"]
+    assert reads == list(range(steps))
+    for i in range(steps):
+        launched = events.index(("launch", min(i + _steps.IN_FLIGHT,
+                                               steps - 1)))
+        assert events.index(("read", i)) > launched
 
 
 # --- on the card ----------------------------------------------------------
