@@ -309,6 +309,26 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    drive's step beside plain, ``torch.fft.fft`` and the bound, and FR at
    2048 F=4096 beside K1's device time.
 
+19. the CLI estimators at the awkward bin counts (``fused_psd_mixed_est``:
+   SK-M, MT-M and PFB-M, forms of the mixed-radix kernel): their
+   registers, spill and blocks per SM beside M's at 30..16000 bins; each
+   against its plain version and the float64 golden, twice (the same
+   bits), at N = 500 (the man-page step), 2400 (F = 4096), 6000 Hann,
+   12000, 16000 and 30, n_valid F, F - 1, 1 and 0 (SK with the gate at
+   500 and 12000; the PFB as four steps of one stream at P = 4, also 16
+   at 500 and 1 at 30, its history plain's and the virtual rows'); SK-M's
+   s1 ``fused_psd_mixed``'s output bit for bit there and at each of the
+   317 plans phase 13 walks (8 frames, s2 within 2e-5 of the golden);
+   60-seed tone yards at 500 and 2400 (SK's s2, also with Hann at 2400,
+   MT K = 7, PFB P = 4) against the scipy float32 class; a call, the
+   device's time beside M's on the same frames, the wrapper's host time,
+   plain, ``torch.fft.fft`` and the bound at 2400 F=4096 and at each
+   drive's step; five drives through ``cli.main``, each on its kernel
+   alone: the man-page scan with ``--sk-file`` (its .bin and SK file
+   against the float64 golden), ``--sk-excise 3`` on the burst stream at
+   500 bins, ``-b 2400 -n 4000 --multitaper 7``, ``-b 12000 -n 400
+   --pfb-taps 4`` and ``-b 10000 --sk-file --window-function hann``.
+
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
@@ -1001,7 +1021,8 @@ def launch_counts(fp, ff) -> dict:
     estimators' streams entries, "L-S", "ML-S" and "BL-S" (and their
     windowed forms) the streams entries of the large kernel, ML and BL,
     "FR", "PFB-C", "CSD" and "SCF" (FR and CSD with their windowed forms)
-    the library estimators' kernels, "M/B control" the kernel M and
+    the library estimators' kernels, "SK-M", "MT-M" and "PFB-M" the CLI
+    estimators' forms of the mixed-radix kernel, "M/B control" the kernel M and
     B replaced (and its plain versions), "probes" every probe variant
     together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
@@ -1042,6 +1063,9 @@ def launch_counts(fp, ff) -> dict:
             "CSD": fp.COUNTS.kernel_csd,
             "CSD windowed": fp.COUNTS.kernel_csd_windowed,
             "SCF": fp.COUNTS.kernel_scf,
+            "SK-M": fp.COUNTS.kernel_sk_mixed,
+            "MT-M": fp.COUNTS.kernel_tapers_mixed,
+            "PFB-M": fp.COUNTS.kernel_pfb_mixed,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -1080,7 +1104,9 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1,
             "PFB-S": "cuda_pfb", "L-S": "cuda_large",
             "L-S windowed": "cuda_large", "ML-S": "cuda_mixed_large",
             "ML-S windowed": "cuda_mixed_large", "BL-S": "cuda_chirp_large",
-            "BL-S windowed": "cuda_chirp_large"}.get(kernel, "cuda")
+            "BL-S windowed": "cuda_chirp_large", "SK-M": "cuda_sk",
+            "MT-M": "cuda_multitaper", "PFB-M": "cuda_pfb"}.get(kernel,
+                                                                "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -2260,26 +2286,32 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
                   chirp_z, "B streams", ("Bs", 998, 2048))]
 
 
-def drive_man_page(cli, fp, ff, tmp, streams: int) -> int:
+def drive_man_page(cli, fp, ff, tmp, streams: int, sk: bool = False) -> int:
     """The man-page session (matrix mode) through the CLI on the
-    mixed-radix kernel (its streams entry over ``streams`` > 1): exit 0,
-    the kernel's path, a .met of one 500-bin scan, a .bin (dB) within 1e-5
-    of the float64 golden of the recorded stream(s) in linear power, its
-    peak at the tone, and launches of the kernel alone. Returns them."""
+    mixed-radix kernel (its streams entry over ``streams`` > 1; with
+    ``sk``, one stream with ``--sk-file`` on SK-M): exit 0, the kernel's
+    path, a .met of one 500-bin scan, a .bin (dB) within 1e-5 of the
+    float64 golden of the recorded stream(s) in linear power, its peak at
+    the tone, the SK file (``sk``) within 1e-4 of the float64 SK of the
+    same frames, and launches of the kernel alone. Returns them."""
     N, repeats = 500, 100
-    stem = os.path.join(tmp, f"man_page_{streams}")
+    stem = os.path.join(tmp, f"man_page_{streams}{'_sk' * sk}")
     record = stem + ".iq"
     argv = MAN_PAGE_ARGV + ["-m", stem, "--record", record]
-    key = "M" if streams == 1 else "M streams"
+    shown = MAN_PAGE_ARGV + (["--sk-file"] if sk else [])
+    key = "SK-M" if sk else "M" if streams == 1 else "M streams"
     if streams > 1:
         argv += ["--streams", str(streams)]
+        shown += ["--streams", str(streams)]
+    if sk:
+        argv += [f"--sk-file={stem}.sk"]
     reset_counts(fp, ff)
     rc, _, err, wall = run_cli(argv, cli.main)
     counts = launch_counts(fp, ff)
     log(err[-800:])
-    check(rc == 0, f"man-page drive ({streams} streams) exited {rc}")
-    check("Transform path: cuda_mixed " in err,
-          "man-page drive off the mixed-radix kernel")
+    check(rc == 0, f"man-page drive ({' '.join(shown)}) exited {rc}")
+    path = "cuda_sk" if sk else "cuda_mixed"
+    check(f"Transform path: {path} " in err, f"man-page drive off {key}")
     with open(stem + ".met") as f:
         meta = [line.split("#")[0].strip() for line in f]
     data = np.fromfile(stem + ".bin", dtype=np.float32)
@@ -2291,11 +2323,18 @@ def drive_man_page(cli, fp, ff, tmp, streams: int) -> int:
     gold = sum(recorded_golden(r, N, repeats, N) for r in records) / streams
     err_gold = max_rel(10.0 ** (data.astype(np.float64) / 10.0), gold)
     peak = 145.1e6 + (int(np.argmax(data)) - N // 2) * RATE / N
-    print(f"e2e man-page drive ({' '.join(argv[:-4])}"
-          f"{f' --streams {streams}' * (streams > 1)}): exit 0 in {wall:.2f} "
-          f"s wall; .met {meta[0]}x{meta[1]}; peak {peak / 1e6:.4f} MHz; max "
+    sk_line = ""
+    if sk:
+        sk_file, sk_err = sk_file_error(
+            stem + ".sk", recorded_frames(record, N)[:repeats], repeats)
+        sk_line = (f"; SK file {len(sk_file)} bins, max |SK - float64 "
+                   f"golden| {sk_err:.3e} (<= 1e-4)")
+        check(len(sk_file) == N and sk_err <= 1e-4,
+              "man-page drive: SK file")
+    print(f"e2e man-page drive ({' '.join(shown)}): exit 0 in {wall:.2f} s "
+          f"wall; .met {meta[0]}x{meta[1]}; peak {peak / 1e6:.4f} MHz; max "
           f"rel vs float64 golden {err_gold:.3e} (<= {GOLDEN_RTOL:g}, the "
-          f".bin's float32 dB); launches {counts}")
+          f".bin's float32 dB){sk_line}; launches {counts}")
     check(abs(peak - 145.3e6) <= RATE / N, f"man-page drive: peak at {peak}")
     check(err_gold <= GOLDEN_RTOL, "man-page drive vs float64 golden")
     check_only(counts, key, "man-page drive")
@@ -2362,22 +2401,33 @@ def golden_pfb(virtual, n_valid, h):
     return (np.abs(np.fft.fft(s, axis=1)) ** 2).sum(0)
 
 
+def k1_work_any(F: int, N: int, windowed: bool = False, out_rows: int = 1):
+    """fused_psd_probe.k1_work at any even N: its count with a real-valued
+    log2 N where N is not a power of two, as awkward_bound_ms counts."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
+    if N & (N - 1) == 0:
+        return fpp.k1_work(F, N, windowed=windowed, out_rows=out_rows)
+    nbytes = F * 2 * N + 4 * N * out_rows + (4 * N if windowed else 0)
+    fp32 = 4 * N * math.log2(N) - 2 * N + 8 + (2 * N if windowed else 0)
+    return float(nbytes), 0.0, float(F * fp32)
+
+
 def estimator_bound_ms(kind: str, F: int, N: int, windowed: bool = False,
                        K: int = 1, P: int = 1):
-    """rate_bound_ms of an estimator call from k1_work's count (bytes read
-    and written once; split-radix FP32 operations): SK F (k1_work + 2N)
+    """rate_bound_ms of an estimator call from k1_work's count at any N
+    (k1_work_any; bytes read and written once; split-radix FP32
+    operations): SK F (k1_work + 2N)
     with two output rows (four with the gate); MT F K (k1_work + 2N), the
     (K, N) tapers read once; PFB F (k1_work + 4 P N), (F + P - 1) 2N + 4 P
     N bytes read."""
-    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_probe as fpp
     if kind == "SK":
-        nbytes, _, fp32 = fpp.k1_work(F, N, windowed=windowed, out_rows=2)
+        nbytes, _, fp32 = k1_work_any(F, N, windowed=windowed, out_rows=2)
         return rate_bound_ms(nbytes, 0.0, fp32 + F * 2 * N)
     if kind == "MT":
-        nbytes, _, fp32 = fpp.k1_work(F, N, windowed=True)
+        nbytes, _, fp32 = k1_work_any(F, N, windowed=True)
         return rate_bound_ms(nbytes + 4 * N * (K - 1), 0.0,
                              K * (fp32 + F * 2 * N))
-    _, _, fp32 = fpp.k1_work(F, N)
+    _, _, fp32 = k1_work_any(F, N)
     nbytes = (F + P - 1) * 2 * N + 4 * P * N + 4 * N
     return rate_bound_ms(nbytes, 0.0, fp32 + F * 4 * P * N)
 
@@ -2416,7 +2466,6 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
     its kernel alone; times beside the control, the plain version,
     torch.fft.fft and the bound. Returns the kernels-line entries."""
     import scipy.fft
-    from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
     from rtl_power_fftw_tpu_torch.models.multitaper import _session_tapers
     from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
@@ -2782,21 +2831,15 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
                                   key.split()[0], N, golden, GOLDEN_RTOL,
                                   peak_bins=4 if key == "MT" else 1)
             if key.startswith("SK"):
-                with open(sk_path) as f:
-                    text = f.read()
-                rows = [line.split() for line in text.splitlines()
-                        if line and not line.startswith("#")]
-                sk_file = np.array([float(v) for _, v in rows])
-                g1, g2 = golden_moments(recorded_frames(record, N)[:repeats],
-                                        repeats, w_np)
-                sk_gold = np.fft.fftshift(compute_sk(g1, g2, repeats))
-                err = float(np.abs(sk_file - sk_gold).max())
-                print(f"e2e estimator {key} SK file: {len(rows)} bins, "
+                sk_file, err = sk_file_error(
+                    sk_path, recorded_frames(record, N)[:repeats], repeats,
+                    w_np)
+                print(f"e2e estimator {key} SK file: {len(sk_file)} bins, "
                       f"'# Spectra accumulated: {repeats}', max |SK - float64 "
                       f"golden| {err:.3e} (<= 1e-4), SK at the tone "
                       f"{sk_file[int(np.argmax(np.abs(sk_file - 1.0)))]:.4g}")
-                check(len(rows) == N and f"# Spectra accumulated: {repeats}"
-                      in text and err <= 1e-4, f"{key} drive: SK file")
+                check(len(sk_file) == N and err <= 1e-4,
+                      f"{key} drive: SK file")
         launches["SK excise"] = drive_sk_excise(cli, fp, ff, tmp)
         launches["PFB scan"] = drive_pfb_scan(cli, fp, ff, tmp)
     print(f"wall: estimator drives in {time.perf_counter() - t0:.1f} s")
@@ -2928,16 +2971,16 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
                   ("PFB", 4096), "psd_pfb_kernel")]
 
 
-def drive_sk_excise(cli, fp, ff, tmp) -> int:
-    """``--sk-excise 3`` through the CLI on a recorded 2048-bin stream with
-    a tone burst in one of four 256-frame blocks (as
-    tests/test_sk_session.py:222-246 builds its stream): exit 0, the SK
-    kernel alone, the spectrum within 1e-5 of the float64 golden of the
-    excised average (each block gated on its own float64 SK), the burst's
-    bin back at the noise floor, and the --stats-json record. Returns the
-    kernel's launches."""
+def drive_sk_excise(cli, fp, ff, tmp, N: int = 2048, key: str = "SK") -> int:
+    """``--sk-excise 3`` through the CLI on a recorded N-bin stream (2048,
+    the SK kernel's; 500, SK-M's: ``key``) with a tone burst in one of
+    four 256-frame blocks (as tests/test_sk_session.py:222-246 builds its
+    stream): exit 0, the kernel ``key`` alone, the spectrum within 1e-5 of
+    the float64 golden of the excised average (each block gated on its own
+    float64 SK), the burst's bin back at the noise floor, and the
+    --stats-json record. Returns the kernel's launches."""
     from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
-    N, F, blocks = 2048, 256, 4
+    F, blocks = 256, 4
     repeats = F * blocks
     rng = np.random.default_rng(41)
     iq = rng.normal(127.0, 6.0, size=2 * N * repeats)
@@ -2947,9 +2990,9 @@ def drive_sk_excise(cli, fp, ff, tmp) -> int:
     iq[lo:lo + 2 * N * F:2] += burst.real
     iq[lo + 1:lo + 2 * N * F:2] += burst.imag
     raw_np = np.clip(np.round(iq), 0, 255).astype(np.uint8)
-    path = os.path.join(tmp, "rfi.iq")
+    path = os.path.join(tmp, f"rfi_{N}.iq")
     raw_np.tofile(path)
-    stats = os.path.join(tmp, "rfi_stats.jsonl")
+    stats = os.path.join(tmp, f"rfi_stats_{N}.jsonl")
     argv = ["-f", "100M", "-b", str(N), "-n", str(repeats), "-l",
             "--frames-per-step", str(F), "--sk-excise", "3",
             "--stats-json", stats, "--source", f"file:{path}"]
@@ -2991,8 +3034,8 @@ def drive_sk_excise(cli, fp, ff, tmp) -> int:
     check(err_gold <= GOLDEN_RTOL, "sk-excise drive vs float64 golden")
     check(abs(rec["sk_kept_fraction"] - kept.sum() / (repeats * N)) < 1e-9,
           "sk-excise drive: kept fraction")
-    check_only(counts, "SK", "sk-excise drive")
-    return counts["SK"]
+    check_only(counts, key, f"sk-excise drive at {N} bins")
+    return counts[key]
 
 
 def drive_pfb_scan(cli, fp, ff, tmp) -> int:
@@ -4974,6 +5017,470 @@ def phase_library_estimators(dev, rng, fp, adapt_batch, make_window, ff,
                   f"SCF N=2048 F=512 K={K} (spectral_correlation's step)")]
 
 
+# Phase 19's CLI drives at the awkward bin counts, at the tone source with
+# linear output (less their "--record <path>" and SK file): the multitaper
+# at 2400 bins, the PFB at 12000, SK with Hann at 10000. The man-page scan
+# (MAN_PAGE_ARGV, with its SK file) and --sk-excise 3 at 500 bins
+# (drive_sk_excise's burst stream) are the other two.
+MIXED_MT_ARGV = ["-f", "100M", "-n", "4000", "-b", "2400", "-l",
+                 "--multitaper", "7", "--source", SOURCE]
+MIXED_PFB_ARGV = ["-f", "100M", "-n", "400", "-b", "12000", "-l",
+                  "--pfb-taps", "4", "--source", SOURCE]
+MIXED_SK_HANN_ARGV = ["-f", "100M", "-n", "400", "-b", "10000", "-l",
+                      "--window-function", "hann", "--source", SOURCE]
+
+
+def est_errors(got, want, gold, n_valid):
+    """(vs plain, vs the float64 golden, the limit of both, the measure)
+    of an estimator row over ``n_valid`` frames: over 64 frames and more
+    the max relative error, limit 1e-5; over fewer the error over the
+    golden's mean power (phase 14's rule: a few frames' smallest bins are
+    single periodogram values near 0), limit 1e-5 or 3x plain's own
+    distance from the golden where that is larger (phase 18's rule: a
+    single frame's |X|^4 peaks far above its mean, plain's error there as
+    large)."""
+    got, want, gold = (np.asarray(a, np.float64) for a in (got, want, gold))
+    if n_valid >= 64:
+        return max_rel(got, want), max_rel(got, gold), GOLDEN_RTOL, "max rel"
+    scale = max(float(gold.mean()), 1e-30)
+    plain = float(np.abs(want - gold).max()) / scale
+    return (float(np.abs(got - want).max()) / scale,
+            float(np.abs(got - gold).max()) / scale,
+            max(GOLDEN_RTOL, 3.0 * plain), "err/mean")
+
+
+def sk_file_error(sk_path, frames_np, repeats, window=None):
+    """(the SK values, max |SK - float64 SK|) of an SK file that says it
+    accumulated ``repeats`` spectra, against the float64 SK of the frames
+    it was accumulated over."""
+    from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
+    with open(sk_path) as f:
+        text = f.read()
+    check(f"# Spectra accumulated: {repeats}" in text,
+          f"{sk_path}: not {repeats} spectra")
+    values = np.array([float(line.split()[1]) for line in text.splitlines()
+                       if line and not line.startswith("#")])
+    g1, g2 = golden_moments(frames_np, repeats, window)
+    gold = np.fft.fftshift(compute_sk(g1, g2, repeats))
+    if values.shape != gold.shape:
+        return values, float("inf")
+    return values, float(np.abs(values - gold).max())
+
+
+def phase_mixed_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff,
+                           card):
+    """19. The CLI estimators at the awkward bin counts (SK-M, MT-M, PFB-M
+    of ``fused_psd_mixed_est``): their registers, spill and blocks per SM
+    beside M's; each against its plain version and the float64 golden,
+    twice (the same bits), at N = 500 (the man-page step), 2400, 6000
+    with Hann, 12000, 16000 and 30, n_valid F, F - 1, 1 and 0 (the PFB as
+    four steps of one stream, its history the plain version's and the
+    virtual rows'); SK-M's s1 M's output bit for bit there and at every
+    plan phase 13 walks; the 60-seed yards at 500 and 2400 (SK's s2 also
+    with Hann); times at 2400 F=4096 and at the drives' steps beside M,
+    torch.fft.fft and the bound; five CLI drives, each on its kernel
+    alone. Returns the kernels-line entries."""
+    import scipy.fft
+    from rtl_power_fftw_tpu_torch.models.multitaper import _session_tapers
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_mixed_est as fe
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_sk as fsk
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_tapers as fmt
+    t0 = time.perf_counter()
+    man_F = adapt_batch(drive_frames_per_step(MAN_PAGE_ARGV))[0]
+    mt_F = adapt_batch(drive_frames_per_step(MIXED_MT_ARGV))[0]
+    pfb_F = adapt_batch(drive_frames_per_step(MIXED_PFB_ARGV))[0]
+    sk_hann_F = adapt_batch(drive_frames_per_step(MIXED_SK_HANN_ARGV))[0]
+    attrs = {}
+    for N in (30, 500, 2400, 6000, 10000, 12000, 16000):
+        shape = fm.ring_launch(N)
+        rows = [("M", fm.ring_attributes(shape, False))]
+        for name, cut, w in (("SK-M", fe.SK, False),
+                             ("SK-M windowed", fe.SK, True),
+                             ("MT-M", fe.TAPERS, True),
+                             ("PFB-M", fe.PFB, False)):
+            rows.append((name, fe.kernel_attributes(N, cut, w)))
+        for name, a in rows:
+            attrs[(name, N)] = a
+            print(f"occupancy {name} N={N} plan {shape.plan} on {card}: "
+                  f"{a['registers']} registers, {a['spill_bytes']} B spill, "
+                  f"{a['static_smem']} + {a['dynamic_smem']} B shared, "
+                  f"{a['threads']} threads ({shape.lanes} lanes of "
+                  f"{shape.tf}), last-pass sums {shape.acc} of "
+                  f"{shape.acc_class}, {a['blocks_per_sm']} blocks/SM")
+    reset_counts(fp, ff)
+    want = {"SK-M": 0, "MT-M": 0, "PFB-M": 0, "M": 0}
+
+    # Each kernel against plain and the float64 golden, twice.
+    for N, fps, wname in ((500, man_F, None), (2400, 4096, None),
+                          (6000, 256, "hann"), (12000, 64, None),
+                          (16000, 64, None), (30, 256, None)):
+        F, chunk = adapt_batch(fps)
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        tp_np = _session_tapers(N, 4.0, 7)
+        tp = torch.from_numpy(tp_np).to(dev)
+        sigma = 3.0 if N in (500, 12000) else 0.0
+        for nv in (F, F - 1, 1, 0):
+            got = fe.fused_psd_sk_mixed(raw, nv, chunk, w, sigma)
+            again = fe.fused_psd_sk_mixed(raw, nv, chunk, w, sigma)
+            m = fm.fused_psd_mixed(raw, nv, chunk, w)
+            ref = fsk.fused_psd_sk_reference(raw, nv, chunk, w, sigma)
+            mt = fe.fused_psd_tapers_mixed(raw, nv, chunk, tp)
+            mt_again = fe.fused_psd_tapers_mixed(raw, nv, chunk, tp)
+            mt_ref = fmt.fused_psd_tapers_reference(raw, nv, chunk, tp)
+            torch.cuda.synchronize()
+            want["SK-M"] += 2
+            want["MT-M"] += 2
+            want["M"] += 1
+            label = f"N={N} F={F} chunk={chunk} n_valid={nv} window={wname}"
+            check(torch.equal(got, again) and torch.equal(mt, mt_again),
+                  f"SK-M/MT-M {label}: not deterministic")
+            check(torch.equal(got[0], m), f"SK-M {label}: s1 is not M's")
+            got_np, ref_np = got.cpu().numpy(), ref.cpu().numpy()
+            mt_np, mt_ref_np = mt.cpu().numpy(), mt_ref.cpu().numpy()
+            gate = ""
+            if sigma > 0.0:
+                keep = fsk.sk_keep(got[0].cpu(), got[1].cpu(), float(nv),
+                                   sigma).numpy()
+                check(np.array_equal(got_np[3], nv * keep)
+                      and np.array_equal(got_np[2], got_np[0] * keep),
+                      f"SK-M {label}: the gate epilogue is not sk_keep's")
+                gate = (f"; gate {sigma:g}: {int(keep.sum())} of {N} kept "
+                        f"(plain {int((ref_np[3] > 0).sum())})")
+            if nv == 0:
+                check(not got_np[:2].any() and not mt_np.any(),
+                      f"SK-M/MT-M {label}: rows of no frame are not 0")
+                print(f"mixed estimators SK-M, MT-M {label}: the same bits "
+                      f"twice, s1 M's, every row 0{gate}")
+                continue
+            g1, g2 = golden_moments(raw_np, nv, w_np)
+            errs = {"SK-M s1": est_errors(got_np[0], ref_np[0], g1, nv),
+                    "SK-M s2": est_errors(got_np[1], ref_np[1], g2, nv),
+                    "MT-M K=7": est_errors(
+                        mt_np, mt_ref_np, golden_tapers(raw_np, nv, tp_np),
+                        nv)}
+            print(f"mixed estimators {label}: the same bits twice, SK-M's "
+                  f"s1 M's; " + "; ".join(
+                      f"{k} {e[3]} vs plain {e[0]:.3e}, vs float64 golden "
+                      f"{e[1]:.3e} (<= {e[2]:.3g})" for k, e in errs.items())
+                  + gate)
+            check(all(e[0] <= e[2] and e[1] <= e[2] for e in errs.values()),
+                  f"SK-M/MT-M {label}: {errs}")
+        # PFB-M: four steps of one stream (n_valid F, 1, F - 1, 0), the
+        # history carried on the card; P = 16 at 500 bins too, P = 1 at 30.
+        for P in (4,) + ((16,) if N == 500 else (1,) if N == 30 else ()):
+            h_np = pfb_prototype(N, P).reshape(P, N)
+            h = torch.from_numpy(h_np).to(dev)
+            hist = [torch.empty((P - 1, 2 * N), dtype=torch.uint8,
+                                device=dev) for _ in range(2)]
+            hist_p = [torch.empty((P - 1, 2 * N), dtype=torch.uint8)
+                      for _ in range(2)]
+            virtual = np.full((P - 1, 2 * N), 127, np.uint8)
+            for step, nv in enumerate((F, 1, F - 1, 0)):
+                slot_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+                slot = torch.from_numpy(slot_np)
+                got = fe.fused_psd_pfb_mixed(slot.to(dev), hist[0], nv, chunk,
+                                             h, hist[1], fresh=step == 0)
+                ref = fpf.fused_psd_pfb_reference(slot, hist_p[0], nv, chunk,
+                                                  h.cpu(), hist_p[1],
+                                                  fresh=step == 0)
+                torch.cuda.synchronize()
+                want["PFB-M"] += 1
+                virtual = np.concatenate([virtual, slot_np])
+                gold = golden_pfb(virtual, nv, h_np)
+                virtual = virtual[nv:nv + P - 1]
+                same_hist = (torch.equal(hist[1].cpu(), hist_p[1])
+                             and np.array_equal(hist[1].cpu().numpy(),
+                                                virtual))
+                got_np = got.cpu().numpy()
+                if nv == 0:
+                    e = (0.0, 0.0, 0.0, "zero")
+                    check(not got_np.any(), f"PFB-M N={N} P={P}: no frame")
+                else:
+                    e = est_errors(got_np, ref.numpy(), gold, nv)
+                print(f"mixed estimators PFB-M N={N} F={F} P={P} step {step} "
+                      f"n_valid={nv}: {e[3]} vs plain {e[0]:.3e}, vs float64 "
+                      f"golden {e[1]:.3e} (<= {e[2]:.3g}); history plain's "
+                      f"and rows n_valid .. n_valid + P - 2: {same_hist}")
+                check(e[0] <= e[2] and e[1] <= e[2] and same_hist,
+                      f"PFB-M N={N} P={P} step {step}")
+                hist.reverse()
+                hist_p.reverse()
+            spare = torch.empty_like(hist[0])
+            a = fe.fused_psd_pfb_mixed(raw, hist[0], F, chunk, h, hist[1])
+            b = fe.fused_psd_pfb_mixed(raw, hist[0], F, chunk, h, spare)
+            torch.cuda.synchronize()
+            want["PFB-M"] += 2
+            check(torch.equal(a, b) and torch.equal(hist[1], spare),
+                  f"PFB-M N={N} P={P}: not deterministic")
+    # SK-M at every plan phase 13 walks (each even 7-smooth N to 16384),
+    # 8 frames each, every third with Hann: s1 M's bits, s1 within 1e-5
+    # and s2 within 2e-5 of the float64 golden (the square doubles the
+    # relative error of |X|^2).
+    plans = [N for N in range(2, fm.MAX_N + 1, 2)
+             if fm.fused_psd_mixed_eligible(N)]
+    worst = [(0.0, None), (0.0, None)]
+    for i, N in enumerate(plans):
+        w_np = make_window("hann", N) if i % 3 == 2 else None
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (8, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        got = fe.fused_psd_sk_mixed(raw, 8, 8, w)
+        m = fm.fused_psd_mixed(raw, 8, 8, w)
+        want["SK-M"] += 1
+        want["M"] += 1
+        check(torch.equal(got[0], m), f"SK-M sweep N={N}: s1 is not M's")
+        got_np = got.cpu().numpy()
+        for k, g in enumerate(golden_moments(raw_np, 8, w_np)):
+            err = max_rel(got_np[k], g)
+            if err >= worst[k][0]:
+                worst[k] = (err, (N, "hann" if w_np is not None else None))
+    print(f"mixed estimators SK-M sweep of {len(plans)} plans, 8 frames "
+          f"each: s1 M's bits at every plan; worst max rel vs float64 "
+          f"golden s1 {worst[0][0]:.3e} at {worst[0][1]}, s2 "
+          f"{worst[1][0]:.3e} at {worst[1][1]}")
+    check(worst[0][0] <= GOLDEN_RTOL and worst[1][0] <= 2 * GOLDEN_RTOL,
+          f"SK-M sweep: {worst}")
+    counts = launch_counts(fp, ff)
+    check(all(counts[k] == v for k, v in want.items())
+          and counts["plain"] == 0 and not any(
+              v for k, v in counts.items() if k not in want),
+          f"mixed estimator launch counts: {counts}, expected {want}")
+    print(f"wall: mixed estimator checks in {time.perf_counter() - t0:.1f} s")
+
+    # The yards: 60 seeds of 35 dB tones at 500 and 2400 bins, 64 frames.
+    F = 64
+
+    def f32_class(z):
+        Xc = scipy.fft.fft(z.astype(np.complex64), axis=-1)
+        return (Xc.real.astype(np.float64) ** 2
+                + Xc.imag.astype(np.float64) ** 2)
+
+    reset_counts(fp, ff)
+    for N in (500, 2400):
+        for wname in (None, "hann") if N == 2400 else (None,):
+            w_np = None if wname is None else make_window(wname, N)
+            w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+            wz = 1.0 if w_np is None else w_np.astype(np.float64)
+            estimator_yard(
+                f"SK-M s2{' hann' if wname else ''}",
+                lambda raw_np, w=w: fe.fused_psd_sk_mixed(
+                    torch.from_numpy(raw_np).to(dev), F, F, w)[1].cpu()
+                .numpy(),
+                lambda raw_np, w_np=w_np: golden_moments(raw_np, F, w_np)[1],
+                lambda raw_np, wz=wz: (f32_class(dequant64(raw_np) * wz)
+                                       ** 2).sum(0),
+                N, F, 19000 + N + (wname is not None))
+        tp_np = _session_tapers(N, 4.0, 7)
+        tp = torch.from_numpy(tp_np).to(dev)
+        estimator_yard(
+            "MT-M K=7",
+            lambda raw_np, tp=tp: fe.fused_psd_tapers_mixed(
+                torch.from_numpy(raw_np).to(dev), F, F, tp).cpu().numpy(),
+            lambda raw_np, tp_np=tp_np: golden_tapers(raw_np, F, tp_np),
+            lambda raw_np, tp_np=tp_np: f32_class(
+                dequant64(raw_np)[:, None, :]
+                * tp_np.astype(np.float64)[None]).mean(1).sum(0),
+            N, F, 19100 + N)
+        P = 4
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        hist = [torch.empty((P - 1, 2 * N), dtype=torch.uint8, device=dev)
+                for _ in range(2)]
+
+        def pfb_virtual(raw_np, N=N, P=P):
+            return np.concatenate([np.full((P - 1, 2 * N), 127, np.uint8),
+                                   raw_np])
+
+        def pfb_class(raw_np, h_np=h_np, pfb_virtual=pfb_virtual):
+            sums = fpf.pfb_sums_reference(
+                torch.from_numpy(pfb_virtual(raw_np)),
+                torch.from_numpy(h_np), F).numpy()
+            return f32_class(sums.astype(np.complex128)).sum(0)
+
+        estimator_yard(
+            "PFB-M P=4",
+            lambda raw_np, h=h, hist=hist: fe.fused_psd_pfb_mixed(
+                torch.from_numpy(raw_np).to(dev), hist[0], F, F, h, hist[1],
+                fresh=True).cpu().numpy(),
+            lambda raw_np, h_np=h_np, pfb_virtual=pfb_virtual: golden_pfb(
+                pfb_virtual(raw_np), F, h_np),
+            pfb_class, N, F, 19200 + N)
+    counts = launch_counts(fp, ff)
+    check(counts["SK-M"] == 180 and counts["MT-M"] == counts["PFB-M"] == 120
+          and counts["plain"] == 0, f"mixed estimator yards' launches: "
+          f"{counts}")
+    print(f"wall: mixed estimator yards in {time.perf_counter() - t0:.1f} s")
+
+    # Times (PERF.md states their prediction): at 2400 F=4096 and at each
+    # drive's own step, a call (CUDA events), the device's part (twice, in
+    # turns with M's on the same frames), the wrapper's host part, the
+    # plain version and torch.fft.fft on the same transforms (F frames; F
+    # K tapered frames; F polyphase sums), and the bound.
+    times = {}
+    for kind, N, F, wname, arg in (
+            ("SK-M", 2400, 4096, None, 0.0), ("SK-M", 500, man_F, None, 0.0),
+            ("SK-M", 500, 256, None, 3.0),
+            ("SK-M", 10000, sk_hann_F, "hann", 0.0),
+            ("MT-M", 2400, 4096, None, 7), ("MT-M", 2400, mt_F, None, 7),
+            ("PFB-M", 2400, 4096, None, 4), ("PFB-M", 12000, pfb_F, None, 4)):
+        chunk = adapt_batch(F)[1]
+        w = (None if wname is None
+             else torch.from_numpy(make_window(wname, N)).to(dev))
+        raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        z = torch.complex(raw[:, 0::2].float() - 127.0,
+                          raw[:, 1::2].float() - 127.0)
+        if kind == "SK-M":
+            def kernel():
+                return fe.fused_psd_sk_mixed(raw, F, chunk, w, arg)
+
+            def plain():
+                return fsk.fused_psd_sk_reference(raw, F, chunk, w, arg)
+            zz = z if w is None else z * w
+            bound = estimator_bound_ms("SK", F, N, windowed=w is not None)
+            cut = fe.SK
+        elif kind == "MT-M":
+            tp = torch.from_numpy(_session_tapers(N, 4.0, arg)).to(dev)
+
+            def kernel():
+                return fe.fused_psd_tapers_mixed(raw, F, chunk, tp)
+
+            def plain():
+                return fmt.fused_psd_tapers_reference(raw, F, chunk, tp)
+            zz = (z[:, None, :] * tp[None]).reshape(F * arg, N)
+            bound = estimator_bound_ms("MT", F, N, K=arg)
+            cut = fe.TAPERS
+        else:
+            h = torch.from_numpy(pfb_prototype(N, arg).reshape(arg, N)).to(
+                dev)
+            hist = [torch.full((arg - 1, 2 * N), 127, dtype=torch.uint8,
+                               device=dev) for _ in range(2)]
+
+            def kernel():
+                return fe.fused_psd_pfb_mixed(raw, hist[0], F, chunk, h,
+                                              hist[1])
+
+            def plain():
+                return fpf.fused_psd_pfb_reference(raw, hist[0], F, chunk, h,
+                                                   hist[1])
+            zz = fpf.pfb_sums_reference(torch.cat([hist[0], raw]), h, F)
+            bound = estimator_bound_ms("PFB", F, N, P=arg)
+            cut = fe.PFB
+
+        def mixed():
+            return fm.fused_psd_mixed(raw, F, chunk, w)
+        got, ref = kernel().double(), plain().double()
+        rel = max_rel(got.cpu().numpy(), ref.cpu().numpy())
+        check(rel <= UNIFORM_RTOL, f"{kind} N={N} F={F}: {rel} vs plain")
+        kd, md = [], []
+        for _ in range(2):
+            kd.append(device_times_us(kernel))
+            md.append(device_times_us(mixed))
+        t = {"max_abs": float((got - ref).abs().max()), "bound": bound,
+             "call": event_times_us(kernel), "plain": event_times_us(plain),
+             "lib": event_times_us(lambda: torch.fft.fft(zz, dim=-1)),
+             "lib_device": device_times_us(lambda: torch.fft.fft(zz,
+                                                                 dim=-1)),
+             "device": min(kd), "m_device": min(md), "host": host_us(kernel)}
+        times[(kind, N, F)] = t
+        a = fe.kernel_attributes(N, cut, w is not None or cut == fe.TAPERS)
+        b_us = 1e3 * bound[0]
+        print(f"time mixed estimator {kind} N={N} F={F}"
+              f"{f' window={wname}' if wname else ''}"
+              f"{f' gate {arg:g}' if kind == 'SK-M' and arg else ''}"
+              f"{f' K={arg}' if kind == 'MT-M' else ''}"
+              f"{f' P={arg}' if kind == 'PFB-M' else ''} on {card}: kernel "
+              f"{t['call']:.1f} us a call, device {kd[0]:.1f}/{kd[1]:.1f} "
+              f"us, host {t['host']:.1f} us ({F * N / t['device'] / 1e3:.2f} "
+              f"GS/s on the device; {a['registers']} registers, "
+              f"{a['spill_bytes']} B spill, {a['blocks_per_sm']} blocks/SM); "
+              f"M on the same frames device {md[0]:.1f}/{md[1]:.1f} us, "
+              f"kernel/M {t['device'] / t['m_device']:.3f}; plain "
+              f"{t['plain']:.1f} us a call; torch.fft.fft of the "
+              f"{tuple(zz.shape)} complex64 transforms {t['lib']:.1f} us a "
+              f"call (device {t['lib_device']:.1f}); bound {b_us:.2f} us "
+              f"({bound[1]}), device/bound {t['device'] / b_us:.1f}x; max "
+              f"abs vs plain {t['max_abs']:.4g}, max rel {rel:.3e}")
+    print(f"wall: mixed estimator times in {time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its kernel alone.
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["SK-M man-page"] = drive_man_page(cli, fp, ff, tmp, 1,
+                                                   sk=True)
+        launches["SK-M excise"] = drive_sk_excise(cli, fp, ff, tmp, N=500,
+                                                  key="SK-M")
+        for key, argv, N, repeats in (
+                ("MT-M", MIXED_MT_ARGV, 2400, 4000),
+                ("PFB-M", MIXED_PFB_ARGV, 12000, 400),
+                ("SK-M hann", MIXED_SK_HANN_ARGV, 10000, 400)):
+            record = os.path.join(tmp, f"{key.split()[0]}_{N}.iq")
+            sk_path = os.path.join(tmp, f"hann_{N}.sk")
+            extra = [f"--sk-file={sk_path}"] if key == "SK-M hann" else []
+            w_np = make_window("hann", N) if key == "SK-M hann" else None
+
+            def golden(key=key, record=record, N=N, repeats=repeats,
+                       w_np=w_np):
+                raw_np = recorded_frames(record, N)[:repeats]
+                if key == "MT-M":
+                    pwr = golden_tapers(raw_np, repeats,
+                                        _session_tapers(N, 4.0, 7))
+                elif key == "PFB-M":
+                    pwr = golden_pfb(np.concatenate([np.full(
+                        (3, 2 * N), 127, np.uint8), raw_np]), repeats,
+                        pfb_prototype(N, 4).reshape(4, N))
+                else:
+                    pwr = golden_moments(raw_np, repeats, w_np)[0]
+                return golden_finalize_linear(np.fft.fftshift(pwr), repeats,
+                                              RATE)
+
+            # The tapers' spectral window is 2 NW = 8 bins wide: its peak
+            # may fall NW bins from the tone.
+            launches[key] = drive(f"mixed estimator {key} -b {N}",
+                                  argv + extra + ["--record", record], cli,
+                                  fp, ff, key.split()[0], N, golden,
+                                  GOLDEN_RTOL,
+                                  peak_bins=4 if key == "MT-M" else 1)
+            if extra:
+                sk_file, sk_err = sk_file_error(
+                    sk_path, recorded_frames(record, N)[:repeats], repeats,
+                    w_np)
+                print(f"e2e mixed estimator {key} SK file: {len(sk_file)} "
+                      f"bins, max |SK - float64 golden| {sk_err:.3e} (<= "
+                      "1e-4)")
+                check(len(sk_file) == N and sk_err <= 1e-4, f"{key} drive: "
+                      "SK file")
+    print(f"wall: mixed estimator phase in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, kind, launches_n, replaces):
+        t = times[(kind, 2400, 4096)]
+        return {"name": name, "route": "cuda",
+                "source": CSRC + "fused_psd_mixed_est.cu",
+                "replaces": replaces, "launches": launches_n,
+                "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+                "device_ms": t["device"] / 1000.0,
+                "host_ms": t["host"] / 1000.0,
+                "mixed_device_ms": t["m_device"] / 1000.0}
+
+    return [entry("fused_psd_sk_mixed (SK-M)", "SK-M",
+                  launches["SK-M man-page"] + launches["SK-M excise"]
+                  + launches["SK-M hann"],
+                  "rtl_power_fftw_tpu/models/kurtosis.py:46"),
+            entry("fused_psd_tapers_mixed (MT-M)", "MT-M", launches["MT-M"],
+                  "rtl_power_fftw_tpu/models/multitaper.py:60"),
+            entry("fused_psd_pfb_mixed (PFB-M)", "PFB-M", launches["PFB-M"],
+                  "rtl_power_fftw_tpu/models/pfb.py:48")]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -5065,7 +5572,8 @@ def main() -> int:
             ("fused_psd_chirp_large", "chirp_streams_c", ""),
             ("fused_psd_frames", "psd_regs_kernel", ""),
             ("fused_psd_pfb", "pfb_channelize_kernel", ""),
-            ("fused_psd_csd", "psd_csd_kernel", "")):
+            ("fused_psd_csd", "psd_csd_kernel", ""),
+            ("fused_psd_mixed_est", "psd_ring_est_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -5341,6 +5849,12 @@ def main() -> int:
         ff, card)
     lap("library estimators")
 
+    # 19. The CLI estimators at the awkward bin counts (SK-M, MT-M, PFB-M).
+    mixed_estimators = phase_mixed_estimators(
+        dev, np.random.default_rng(20261023), fp, adapt_batch, make_window,
+        cli, ff, card)
+    lap("mixed estimators")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -5390,7 +5904,7 @@ def main() -> int:
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
     ] + awkward + estimators + large_awkward + estimator_streams
-      + large_streams + library + [
+      + large_streams + library + mixed_estimators + [
         probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),

@@ -8,11 +8,13 @@ generalized spectral-kurtosis estimator of Nita & Gary (2010),
 
 over M accumulated spectra: E[SK] = 1 for Gaussian noise; tones and
 time-variable interference push SK away from 1. The device step is the
-spectral-kurtosis kernel (``ops/kernels/csrc/fused_psd_sk.cu`` on a CUDA
-device, its plain PyTorch version on the CPU), which accumulates both
-moments in one pass, its s1 the plain PSD step's bit for bit; over S
-streams its streams entry, which gates each stream on its own block before
-the sum over streams.
+spectral-kurtosis kernel (``ops/kernels/csrc/fused_psd_sk.cu`` at the
+powers of two, its mixed-radix form SK-M of
+``ops/kernels/csrc/fused_psd_mixed_est.cu`` at the other even 7-smooth N up
+to 16384, on one stream; their plain PyTorch version on the CPU), which
+accumulates both moments in one pass, its s1 the plain PSD step's bit for
+bit; over S streams its streams entry, which gates each stream on its own
+block before the sum over streams.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.kernels.fused_psd_mixed_est import fused_psd_sk_mixed
 from ..ops.kernels.fused_psd_sk import (fused_psd_sk, fused_psd_sk_streams,
                                         sk_keep)
 from ..ops.spectral import (FrameSlicer, adapt_batch, bin_frequencies,
@@ -58,7 +61,9 @@ class SkSessionStep:
     frames, as in the JAX package; excision decisions depend on it.
 
     The path is "cuda_sk" on a CUDA device, "plain_sk" on the CPU. Only N
-    of 64..16384 powers of two, and the ``--fft-backend`` names the JAX
+    of 64..16384 powers of two (the SK kernel) and the other even 7-smooth
+    N up to 16384 (SK-M, on the mixed-radix kernel's grid: its s1 is the
+    mixed-radix PSD step's), and the ``--fft-backend`` names the JAX
     package's SK step runs its auto transform for, are taken
     (``ops.spectral.estimator_route``)."""
 
@@ -66,8 +71,9 @@ class SkSessionStep:
                  window: Optional[np.ndarray] = None,
                  backend: str = "auto", excise_sigma: float = 0.0):
         self._sigma = float(excise_sigma)
-        estimator_route(N, "--sk-excise" if self._sigma > 0.0
-                        else "--sk-file", backend)
+        route = estimator_route(N, "--sk-excise" if self._sigma > 0.0
+                                else "--sk-file", backend)
+        self._kernel = fused_psd_sk if route == "regs" else fused_psd_sk_mixed
         self.N = N
         self.F, self._chunk = adapt_batch(frames_per_step)
         self.device = torch.device(device)
@@ -85,7 +91,7 @@ class SkSessionStep:
         numpy array, which is copied there first."""
         if isinstance(raw, np.ndarray):
             raw = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
-        return tuple(fused_psd_sk(raw, n_valid, self._chunk, self.window,
+        return tuple(self._kernel(raw, n_valid, self._chunk, self.window,
                                   self._sigma))
 
 
@@ -112,7 +118,7 @@ class ShardedSkStep:
         one_device(devices)
         self._sigma = float(excise_sigma)
         estimator_route(N, "--sk-excise" if self._sigma > 0.0
-                        else "--sk-file", backend)
+                        else "--sk-file", backend, sharded=True)
         self.devices = list(devices)
         self.device = torch.device(devices[0])
         self.N = N

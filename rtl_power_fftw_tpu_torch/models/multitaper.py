@@ -5,10 +5,12 @@ over ``--streams``. Each
 frame is windowed by K orthogonal DPSS (Slepian) tapers and the K
 eigenspectra are averaged: the lowest-variance estimator family for a
 fixed data length. The device step is the multitaper kernel
-(``ops/kernels/csrc/fused_psd_tapers.cu`` on a CUDA device, its plain
-PyTorch version on the CPU): one block runs every taper of its frames,
-each raw frame staged once in a shared-memory ring; over S streams its
-streams entry, one row a stream. DPSS tapers come from scipy.
+(``ops/kernels/csrc/fused_psd_tapers.cu`` at the powers of two, its
+mixed-radix form MT-M of ``ops/kernels/csrc/fused_psd_mixed_est.cu`` at
+the other even 7-smooth N up to 16384, on one stream; their plain PyTorch
+version on the CPU): one block runs every taper of its frames, each raw
+frame staged once in a shared-memory ring (MT-M: the tapers on the grid's
+y axis); over S streams its streams entry, one row a stream. DPSS tapers come from scipy.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..exceptions import ReturnValue, RPFexception
+from ..ops.kernels.fused_psd_mixed_est import fused_psd_tapers_mixed
 from ..ops.kernels.fused_psd_tapers import (fused_psd_tapers,
                                             fused_psd_tapers_streams)
 from ..ops.spectral import (FrameSlicer, adapt_batch, bin_frequencies,
@@ -51,6 +54,14 @@ def _session_tapers(N: int, NW: float, K: int) -> np.ndarray:
     return t * np.sqrt(np.float32(N))
 
 
+def tapers_kernel(N: int):
+    """The multitaper step's kernel at N bins (``estimator_route``):
+    ``fused_psd_tapers`` at the powers of two, ``fused_psd_tapers_mixed``
+    at the other even 7-smooth N up to 16384."""
+    route = estimator_route(N, "--multitaper")
+    return fused_psd_tapers if route == "regs" else fused_psd_tapers_mixed
+
+
 class MultitaperSessionStep:
     """PsdStep-compatible session step for the Thomson multitaper
     estimator (``--multitaper K``): ``.F``, ``.path``, ``__call__(frames
@@ -60,14 +71,15 @@ class MultitaperSessionStep:
     only the per-frame estimator changes (the mean of K eigenspectra
     instead of one periodogram, datastore.cxx:66-88). The path is
     "cuda_multitaper" on a CUDA device, "plain_multitaper" on the CPU; N
-    must be a power of two from 64 to 16384
-    (``ops.spectral.estimator_route``). ``--precision`` does not apply:
+    must be a power of two from 64 to 16384 or another even 7-smooth N up
+    to 16384 (MT-M; ``ops.spectral.estimator_route``). ``--precision`` does
+    not apply:
     off its TPU band the JAX package runs the strict transform at either
     precision, and so does this step."""
 
     def __init__(self, N: int, frames_per_step: int, K: int,
                  NW: float = 4.0, *, device):
-        estimator_route(N, "--multitaper")
+        self._kernel = tapers_kernel(N)
         self.N = N
         self.K = K
         self.F, self._chunk = adapt_batch(frames_per_step)
@@ -83,7 +95,7 @@ class MultitaperSessionStep:
         numpy array, which is copied there first."""
         if isinstance(raw, np.ndarray):
             raw = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
-        return fused_psd_tapers(raw, n_valid, self._chunk, self.tapers)
+        return self._kernel(raw, n_valid, self._chunk, self.tapers)
 
 
 class ShardedMultitaperStep:
@@ -102,7 +114,7 @@ class ShardedMultitaperStep:
     def __init__(self, devices, N: int, frames_per_step: int, streams: int,
                  K: int, NW: float = 4.0):
         one_device(devices)
-        estimator_route(N, "--multitaper")
+        estimator_route(N, "--multitaper", sharded=True)
         self.devices = list(devices)
         self.device = torch.device(devices[0])
         self.N = N
@@ -141,7 +153,7 @@ def multitaper_psd(iq_u8: np.ndarray, N: int, sample_rate: int,
     boxcar Bartlett PSD of the same data.
     """
     K = int(2 * NW - 1) if K is None else int(K)
-    estimator_route(N, "--multitaper")
+    kernel = tapers_kernel(N)
     # DPSS tapers from scipy are unit-energy (Σw² = 1); the session's are
     # rescaled so a flat spectrum matches the boxcar normalization (Σw² = N).
     tapers = torch.from_numpy(_session_tapers(N, NW, K)).to(device)
@@ -157,8 +169,8 @@ def multitaper_psd(iq_u8: np.ndarray, N: int, sample_rate: int,
     for start in range(0, M, F):
         batch = frames[start:start + F]
         raw = torch.from_numpy(np.ascontiguousarray(pad_frames(batch, F)))
-        acc += fused_psd_tapers(raw.to(tapers.device), len(batch), chunk,
-                                tapers).cpu().numpy()
+        acc += kernel(raw.to(tapers.device), len(batch), chunk,
+                      tapers).cpu().numpy()
 
     psd = np.fft.fftshift(acc) / M / N / sample_rate
     if not linear:

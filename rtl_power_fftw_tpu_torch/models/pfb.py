@@ -7,10 +7,12 @@ critically-sampled PFB — a P-tap windowed-sinc prototype folded over M
 branches, then an M-point FFT per output frame — sharpens channel
 isolation over the plain periodogram (datastore.cxx:66-88) at the cost of
 P× the input history per frame. The device step is the PFB kernel
-(``ops/kernels/csrc/fused_psd_pfb.cu`` on a CUDA device, its plain
-PyTorch version on the CPU), which builds each frame's polyphase sum from
-its history and slot rows and runs K1's register transform on it; over S
-streams its streams entry, each stream's history on the device.
+(``ops/kernels/csrc/fused_psd_pfb.cu`` at the powers of two, its
+mixed-radix form PFB-M of ``ops/kernels/csrc/fused_psd_mixed_est.cu`` at
+the other even 7-smooth N up to 16384, on one stream; their plain PyTorch
+version on the CPU), which builds each frame's polyphase sum from its
+history and slot rows and transforms it; over S streams its streams entry,
+each stream's history on the device.
 
 ``pfb_psd(prototype=np.ones(M), taps=1)`` is exactly the Bartlett
 estimator (models/bartlett.py).
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..auxdata import make_window
+from ..ops.kernels.fused_psd_mixed_est import fused_psd_pfb_mixed
 from ..ops.kernels.fused_psd_pfb import (MAX_TAPS, fused_psd_pfb,
                                          fused_psd_pfb_streams)
 from ..ops.kernels.fused_psd_pfb import pfb_channelize as _channelize
@@ -54,9 +57,14 @@ class _PfbRunner:
     """The PFB kernel over consecutive steps of one stream: the (P, N)
     prototype and two (P - 1, 2N) history buffers on ``device``, swapped
     after each step (the kernel reads one and writes the next history
-    into the other, on the step's stream)."""
+    into the other, on the step's stream). The kernel is the route's
+    (``estimator_route``): ``fused_psd_pfb`` at the powers of two,
+    ``fused_psd_pfb_mixed`` at the other even 7-smooth N."""
 
     def __init__(self, N: int, F: int, chunk: int, h: np.ndarray, device):
+        route = estimator_route(N, "--pfb-taps")
+        self._kernel = fused_psd_pfb if route == "regs" else \
+            fused_psd_pfb_mixed
         self.N, self.F, self._chunk = N, F, chunk
         self.device = torch.device(device)
         self.P = h.size // N
@@ -79,8 +87,8 @@ class _PfbRunner:
         if isinstance(raw, np.ndarray):
             raw = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
         history, history_out = self._history
-        out = fused_psd_pfb(raw, history, n_valid, self._chunk, self.h,
-                            history_out, fresh=self._fresh)
+        out = self._kernel(raw, history, n_valid, self._chunk, self.h,
+                           history_out, fresh=self._fresh)
         self._fresh = False
         self._history.reverse()
         return out
@@ -99,13 +107,13 @@ class PfbSessionStep:
     exactly N new samples, like the reference's spectra. ``window`` names
     the prototype's window (``--window-function``). The path is
     "cuda_pfb" on a CUDA device, "plain_pfb" on the CPU; N must be a power
-    of two from 64 to 16384 (``ops.spectral.estimator_route``)."""
+    of two from 64 to 16384 or another even 7-smooth N up to 16384 (PFB-M;
+    ``ops.spectral.estimator_route``)."""
 
     def __init__(self, N: int, frames_per_step: int, taps: int = 4,
                  window: str = "hann", *, device):
         if taps < 2:
             raise ValueError("pfb taps must be >= 2")
-        estimator_route(N, "--pfb-taps")
         self.N = N
         self.P = taps
         self.F, chunk = adapt_batch(frames_per_step)
@@ -148,7 +156,7 @@ class ShardedPfbStep:
         one_device(devices)
         if taps < 2:
             raise ValueError("pfb taps must be >= 2")
-        estimator_route(N, "--pfb-taps")
+        estimator_route(N, "--pfb-taps", sharded=True)
         self.devices = list(devices)
         self.device = torch.device(devices[0])
         self.N = N

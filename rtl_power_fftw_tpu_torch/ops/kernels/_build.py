@@ -114,6 +114,22 @@ SIGNATURES = {
         # plan, chirp, windowed, device, attrs (int[6])
         "rpf_fused_psd_mixed_control_attributes": [_P, _I, _I, _I, _P],
     },
+    "fused_psd_mixed_est": {
+        # SK-M: raw, twiddle, order, window, partial, out, plan (int[55]),
+        # device, F, group, n_valid, two_sigma, width, stream
+        "rpf_fused_psd_sk_mixed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _F, _I, _P],
+        # MT-M: raw, twiddle, order, tapers, partial, out, plan, device, F,
+        # group, K, n_valid, width, stream
+        "rpf_fused_psd_tapers_mixed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _I, _P],
+        # PFB-M: raw, history, twiddle, order, h, partial, out, history_out,
+        # plan, device, F, group, n_valid, P, fresh, width, stream
+        "rpf_fused_psd_pfb_mixed": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _P],
+        # plan, cut (1 SK, 2 tapers, 3 PFB), windowed, device, attrs (int[6])
+        "rpf_fused_psd_mixed_est_attributes": [_P, _I, _I, _I, _P],
+    },
     "fused_psd_mixed_large": {
         # raw, tw1, bin1, inter, window, tw2, order2, scratch, partial,
         # out, plan1 (int[55]), plan2, device, log2c, n2p, width, F,

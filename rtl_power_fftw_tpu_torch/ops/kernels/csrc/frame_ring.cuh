@@ -34,6 +34,13 @@ __host__ __device__ constexpr int round16(int bytes) {
   return (bytes + 15) / 16 * 16;
 }
 
+// The copy widths the ring takes, and the frames' alignment to them.
+inline bool width_ok(const void* raw, int bins, int width) {
+  return (width == 4 || width == 8 || width == 16) &&
+         (2 * bins) % width == 0 &&
+         reinterpret_cast<uintptr_t>(raw) % width == 0;
+}
+
 template <int BYTES>
 __device__ __forceinline__ void cp_async_ca(void* smem_dst,
                                             const void* gmem_src) {

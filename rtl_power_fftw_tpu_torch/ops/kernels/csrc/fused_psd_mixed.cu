@@ -76,13 +76,6 @@
 
 namespace {
 
-// The copy widths the ring takes, and the frames' alignment to them.
-bool width_ok(const void* raw, int bins, int width) {
-  return (width == 4 || width == 8 || width == 16) &&
-         (2 * bins) % width == 0 &&
-         reinterpret_cast<uintptr_t>(raw) % width == 0;
-}
-
 // A failed runtime call's error, taken off the thread's last error so that
 // a later launch's check does not report it again.
 cudaError_t failed(cudaError_t e) {
@@ -141,60 +134,6 @@ RingKernel ring_kernel(bool windowed, int index) {
       psd_ring_kernel<true, kRingAccSmall>,
       psd_ring_kernel<true, kRingAccLarge>};
   return windowed ? hann[index] : plain[index];
-}
-
-bool is_radix(int r) {
-  for (int m : kMixedRadices) {
-    if (r == m) return true;
-  }
-  return false;
-}
-
-// The plan ints into p, checked against what they must be.
-cudaError_t read_ring_plan(const int* ints, RingPlan* p) {
-  if (ints == nullptr) return cudaErrorInvalidValue;
-  p->n = ints[0];
-  p->row = ints[1];
-  p->passes = ints[2];
-  p->tf = ints[3];
-  p->lanes = ints[4];
-  for (int j = 0; j < kMixedMaxPasses; ++j) {
-    p->radix[j] = ints[5 + j];
-    p->stride[j] = ints[5 + kMixedMaxPasses + j];
-    p->magic[j] = ints[5 + 2 * kMixedMaxPasses + j];
-    p->twoff[j] = ints[5 + 3 * kMixedMaxPasses + j];
-    p->rounds[j] = ints[5 + 4 * kMixedMaxPasses + j];
-  }
-  const int P = p->passes;
-  bool ok = P >= 1 && P <= kMixedMaxPasses && p->n >= 2 &&
-            p->n <= 16384 && p->row % kSumBins == 0 && p->row >= p->n &&
-            p->tf >= 32 && p->tf % 32 == 0 && p->lanes >= 1 &&
-            p->tf * p->lanes <= kRingMaxThreads;
-  int L = p->n;
-  int offset = 0;
-  for (int j = 0; ok && j < P; ++j) {
-    const int r = p->radix[j];
-    ok = is_radix(r) && L % r == 0 && p->stride[j] == L / r &&
-         p->twoff[j] == offset &&
-         p->rounds[j] == (p->n / r + p->tf - 1) / p->tf &&
-         static_cast<unsigned>(p->magic[j]) ==
-             (L / r == 1 ? 0u
-                         : static_cast<unsigned>(
-                               (0x100000000ull + L / r - 1) / (L / r)));
-    if (j < P - 1) offset += L;
-    L /= r;
-  }
-  ok = ok && L == 1 && p->rounds[P - 1] * p->radix[P - 1] <= kRingAccLarge;
-  return ok ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// The kernel for the plan (an index of ring_kernel) and its shared bytes,
-// or -1 where the plan's block does not fit.
-int ring_pick(const RingPlan& p, int* smem) {
-  const bool large =
-      p.rounds[p.passes - 1] * p.radix[p.passes - 1] > kRingAccSmall;
-  *smem = ring_smem_bytes(p);
-  return *smem > kRingMaxSmem ? -1 : large ? 1 : 0;
 }
 
 std::atomic<unsigned long long> ring_done[2][kRingKernels];

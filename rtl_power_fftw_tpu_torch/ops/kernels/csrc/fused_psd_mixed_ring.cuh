@@ -47,6 +47,7 @@
 
 #include "fft_mixed.cuh"
 #include "frame_ring.cuh"
+#include "psd_sum.cuh"  // kSumBins
 
 namespace {
 
@@ -78,6 +79,61 @@ constexpr int kRingPlanInts = 5 + 5 * kMixedMaxPasses;
 // Shared bytes of a block: the lanes' exchange buffers, then their rings.
 __host__ __device__ inline int ring_smem_bytes(const RingPlan& p) {
   return round16(p.lanes * p.n * 8) + p.lanes * ring_bytes(p.n);
+}
+
+inline bool is_radix(int r) {
+  for (int m : kMixedRadices) {
+    if (r == m) return true;
+  }
+  return false;
+}
+
+// The plan ints into p, checked against what they must be.
+inline cudaError_t read_ring_plan(const int* ints, RingPlan* p) {
+  if (ints == nullptr) return cudaErrorInvalidValue;
+  p->n = ints[0];
+  p->row = ints[1];
+  p->passes = ints[2];
+  p->tf = ints[3];
+  p->lanes = ints[4];
+  for (int j = 0; j < kMixedMaxPasses; ++j) {
+    p->radix[j] = ints[5 + j];
+    p->stride[j] = ints[5 + kMixedMaxPasses + j];
+    p->magic[j] = ints[5 + 2 * kMixedMaxPasses + j];
+    p->twoff[j] = ints[5 + 3 * kMixedMaxPasses + j];
+    p->rounds[j] = ints[5 + 4 * kMixedMaxPasses + j];
+  }
+  const int P = p->passes;
+  bool ok = P >= 1 && P <= kMixedMaxPasses && p->n >= 2 &&
+            p->n <= 16384 && p->row % kSumBins == 0 && p->row >= p->n &&
+            p->tf >= 32 && p->tf % 32 == 0 && p->lanes >= 1 &&
+            p->tf * p->lanes <= kRingMaxThreads;
+  int L = p->n;
+  int offset = 0;
+  for (int j = 0; ok && j < P; ++j) {
+    const int r = p->radix[j];
+    ok = is_radix(r) && L % r == 0 && p->stride[j] == L / r &&
+         p->twoff[j] == offset &&
+         p->rounds[j] == (p->n / r + p->tf - 1) / p->tf &&
+         static_cast<unsigned>(p->magic[j]) ==
+             (L / r == 1 ? 0u
+                         : static_cast<unsigned>(
+                               (0x100000000ull + L / r - 1) / (L / r)));
+    if (j < P - 1) offset += L;
+    L /= r;
+  }
+  ok = ok && L == 1 && p->rounds[P - 1] * p->radix[P - 1] <= kRingAccLarge;
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The kernel class for the plan (0: at most kRingAccSmall last-pass sums
+// a thread, 1: at most kRingAccLarge) and its shared bytes, or -1 where the
+// plan's block does not fit.
+inline int ring_pick(const RingPlan& p, int* smem) {
+  const bool large =
+      p.rounds[p.passes - 1] * p.radix[p.passes - 1] > kRingAccSmall;
+  *smem = ring_smem_bytes(p);
+  return *smem > kRingMaxSmem ? -1 : large ? 1 : 0;
 }
 
 // The output permutation of dft_natural's radix-4/8/16 form, with every

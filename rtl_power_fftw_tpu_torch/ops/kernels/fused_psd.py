@@ -156,7 +156,10 @@ class LaunchCounts:
     ``kernel_pfb_channelize``, ``kernel_csd`` / ``kernel_csd_windowed``
     and ``kernel_scf`` the library estimators' kernels
     (:mod:`.fused_psd_frames`, the channelizer of :mod:`.fused_psd_pfb`,
-    :mod:`.fused_psd_csd`, :mod:`.fused_psd_scf`), with ``plain_frames``,
+    :mod:`.fused_psd_csd`, :mod:`.fused_psd_scf`), and
+    ``kernel_sk_mixed``, ``kernel_tapers_mixed`` and ``kernel_pfb_mixed``
+    the estimators' forms of the mixed-radix kernel
+    (:mod:`.fused_psd_mixed_est`: SK-M, MT-M, PFB-M), with ``plain_frames``,
     ``plain_pfb_channelize``, ``plain_csd`` and ``plain_scf`` their plain
     versions' calls (each also counted in ``plain``, every plain
     version's).
@@ -206,6 +209,9 @@ class LaunchCounts:
         self.kernel_csd = 0
         self.kernel_csd_windowed = 0
         self.kernel_scf = 0
+        self.kernel_sk_mixed = 0
+        self.kernel_tapers_mixed = 0
+        self.kernel_pfb_mixed = 0
         self.plain = 0
         self.plain_frames = 0
         self.plain_pfb_channelize = 0

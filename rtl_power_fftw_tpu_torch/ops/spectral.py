@@ -134,20 +134,45 @@ def transform_route(N: int, backend: str = "auto", fast: bool = False
 SK_BACKENDS = ("auto", "pallas", "hybrid", "fft4")
 
 
-def estimator_route(N: int, flag: str, backend: str = "auto") -> None:
-    """Raise RPFexception(InvalidArgument), "Not yet ported", unless the
-    estimator of ``flag`` (``--sk-file``, ``--sk-excise``,
-    ``--multitaper`` or ``--pfb-taps``) runs on its kernel at N bins: each
-    is a variant of K1's group kernel and takes its sizes, powers of two
-    from 64 to 16384. The spectral-kurtosis step also takes only the
-    ``--fft-backend`` names of :data:`SK_BACKENDS` (the other two
-    estimators ignore the option, as the JAX package's do). The same check
-    and message on the CPU and on the card."""
-    if not fused_psd_eligible(N):
+#: The session's estimator options: on one stream they also take the even
+#: 7-smooth N of the mixed-radix kernel (their forms of it,
+#: ``kernels/csrc/fused_psd_mixed_est.cu``).
+CLI_ESTIMATORS = ("--sk-file", "--sk-excise", "--multitaper", "--pfb-taps")
+
+
+def estimator_route(N: int, flag: str, backend: str = "auto",
+                    sharded: bool = False) -> str:
+    """The kernel family of the estimator of ``flag`` at N bins: "regs"
+    (variants of K1's group kernel, the powers of two from 64 to 16384)
+    or "mixed" (the session's estimators, :data:`CLI_ESTIMATORS`, on one
+    stream at the other even 7-smooth N up to 16384: forms of the
+    mixed-radix kernel). Raise RPFexception(InvalidArgument), "Not yet
+    ported", anywhere else: the library-only estimators (``flag`` their
+    names) at other N, an estimator over streams (``sharded``: the
+    ``--streams`` steps, whose kernels are K1's) at other N, every
+    estimator at the chirp-Z N and above 16384. The spectral-kurtosis step
+    also takes only the ``--fft-backend`` names of :data:`SK_BACKENDS`
+    (the other two estimators ignore the option, as the JAX package's do).
+    The same check and message on the CPU and on the card."""
+    if fused_psd_eligible(N):
+        route = "regs"
+    elif flag in CLI_ESTIMATORS and fused_psd_mixed_eligible(N):
+        if sharded:
+            raise _unported(f"{flag} over --streams at {N} bins (the "
+                            "estimators' streams kernels take powers of two "
+                            f"from {MIN_N} to {REGS_MAX_N})")
+        route = "mixed"
+    elif flag in CLI_ESTIMATORS:
+        raise _unported(f"{flag} at {N} bins (the estimator kernels take "
+                        f"powers of two from {MIN_N} to {REGS_MAX_N} and, "
+                        "on one stream, even 7-smooth N up to "
+                        f"{REGS_MAX_N})")
+    else:
         raise _unported(f"{flag} at {N} bins (the estimator kernels take "
                         f"powers of two from {MIN_N} to {REGS_MAX_N})")
     if flag.startswith("--sk") and backend not in SK_BACKENDS:
         raise _unported(f"{flag} with --fft-backend {backend}")
+    return route
 
 
 class PsdStep:

@@ -57,8 +57,9 @@ def check_ported(params: Params) -> None:
     """Raise RPFexception(InvalidArgument) for options whose path this
     package does not have yet: the estimators (``--pfb-taps``,
     ``--multitaper``, ``--sk-file``, ``--sk-excise``) at N their kernels
-    do not take (``ops.spectral.estimator_route``; on one stream and over
-    ``--streams`` alike), ``--shard-transform`` and ``--profile``."""
+    do not take (``ops.spectral.estimator_route``: over ``--streams`` the
+    powers of two from 64 to 16384, on one stream the even 7-smooth N up to
+    16384 too), ``--shard-transform`` and ``--profile``."""
     unported = []
     if params.shard_transform:
         unported.append("--shard-transform")
@@ -74,7 +75,8 @@ def check_ported(params: Params) -> None:
             + ", ".join(unported) + ". Exiting.",
             ReturnValue.InvalidArgument)
     if estimators:
-        estimator_route(params.N, estimators[0], params.fft_backend)
+        estimator_route(params.N, estimators[0], params.fft_backend,
+                        sharded=params.streams > 1)
 
 
 class Acquisition:

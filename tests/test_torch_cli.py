@@ -34,9 +34,9 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--shard-transform"],
-    ["-b", "500", "--multitaper", "2"],
+    ["-b", "998", "--sk-file", "sk.dat"],
     ["-b", "32768", "--sk-file", "sk.dat"],
-    ["-b", "32", "--pfb-taps", "4"],
+    ["--streams", "2", "--sk-file", "sk.dat", "-b", "500"],
     ["--sk-excise", "3", "--fft-backend", "xla"],
     ["--fft-backend", "fourstep"],
     ["--fft-backend", "xla", "--window-function", "hann"],
@@ -47,6 +47,7 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
     ["--streams", "2", "--fft-backend", "xla"],
     ["--streams", "2", "--multitaper", "7", "-b", "20000"],
     ["--streams", "2", "--pfb-taps", "4", "-b", "500"],
+    ["-b", "20000", "--multitaper", "7"],
 ])
 def test_unported_options_exit_3(extra, capsys):
     assert cli.main(SMALL + extra, device=CPU) == 3
@@ -78,6 +79,8 @@ def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
      "plain_sk (backend=auto, N=256)"),
     (["--streams", "2", "--sk-excise", "3"],
      "plain_sk (backend=auto, N=256)"),
+    (["-b", "500", "--multitaper", "2"], "plain_multitaper (N=500)"),
+    (["-b", "32", "--pfb-taps", "4"], "plain_pfb (N=32)"),
 ])
 def test_single_stream_estimators_exit_0(extra, path, capsys, tmp_path,
                                          monkeypatch):

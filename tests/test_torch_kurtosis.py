@@ -152,8 +152,8 @@ def test_compute_sk_is_the_jax_formula():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-b", "32", "--sk-file", "x"], "--sk-file at 32 bins"),
-    (["-b", "500", "--sk-excise", "3"], "--sk-excise at 500 bins"),
+    (["-b", "998", "--sk-file", "x"], "--sk-file at 998 bins"),
+    (["-b", "8182", "--sk-excise", "3"], "--sk-excise at 8182 bins"),
     (["-b", "32768", "--sk-file", "x"], "--sk-file at 32768 bins"),
     (["-b", "256", "--sk-file", "x", "--fft-backend", "xla"],
      "--sk-file with --fft-backend xla"),
