@@ -329,6 +329,27 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    500 bins, ``-b 2400 -n 4000 --multitaper 7``, ``-b 12000 -n 400
    --pfb-taps 4`` and ``-b 10000 --sk-file --window-function hann``.
 
+20. the CLI estimators at the chirp-Z bin counts (``fused_psd_chirp_est``:
+   SK-B, MT-B and PFB-B, forms of the chirp-Z kernel): their registers,
+   spill and blocks per SM beside B's at each M from 64 to 16384; each
+   against its plain version and the float64 golden, twice (the same
+   bits), at N = 22, 998 (the SK drive's step), 4094 with Hann, 8188 and
+   2048 (the ``--fft-backend bluestein`` drive's step), n_valid F, F - 1,
+   1 and 0 (SK with the gate at 998 and 8188; the PFB as four steps of
+   one stream at P = 4, also 16 at 998 and 1 at 22, its history plain's
+   and the virtual rows'), and at each drive's own step, full and its
+   last, partial one; SK-B's s1 ``fused_psd_bluestein``'s output bit for
+   bit in every case; 60-seed tone yards at 998 (64 frames) and 8188 (16)
+   (SK's s2 with and without Hann, MT K = 7, PFB P = 4) against the scipy
+   float32 class; a call, the device's time beside B's on the same frames
+   in turns, the wrapper's host time, plain, ``torch.fft.fft`` and the
+   bound at 998 F=4096 and at each drive's step; six drives through
+   ``cli.main``, each on its kernel alone: ``-b 998 -n 100 --sk-file``,
+   ``--sk-excise 3`` on the burst stream at 998 bins, ``-b 998 -n 4000
+   --multitaper 7``, ``-b 4094 -n 400 --pfb-taps 4``, ``-b 8188 --sk-file
+   --window-function hann`` and ``-b 2048 --sk-file --fft-backend
+   bluestein`` (each SK file against the float64 SK of its frames).
+
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
@@ -1022,7 +1043,8 @@ def launch_counts(fp, ff) -> dict:
     windowed forms) the streams entries of the large kernel, ML and BL,
     "FR", "PFB-C", "CSD" and "SCF" (FR and CSD with their windowed forms)
     the library estimators' kernels, "SK-M", "MT-M" and "PFB-M" the CLI
-    estimators' forms of the mixed-radix kernel, "M/B control" the kernel M and
+    estimators' forms of the mixed-radix kernel, "SK-B", "MT-B" and
+    "PFB-B" their forms of the chirp-Z kernel, "M/B control" the kernel M and
     B replaced (and its plain versions), "probes" every probe variant
     together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
@@ -1066,6 +1088,9 @@ def launch_counts(fp, ff) -> dict:
             "SK-M": fp.COUNTS.kernel_sk_mixed,
             "MT-M": fp.COUNTS.kernel_tapers_mixed,
             "PFB-M": fp.COUNTS.kernel_pfb_mixed,
+            "SK-B": fp.COUNTS.kernel_sk_chirp,
+            "MT-B": fp.COUNTS.kernel_tapers_chirp,
+            "PFB-B": fp.COUNTS.kernel_pfb_chirp,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -1105,8 +1130,9 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1,
             "L-S windowed": "cuda_large", "ML-S": "cuda_mixed_large",
             "ML-S windowed": "cuda_mixed_large", "BL-S": "cuda_chirp_large",
             "BL-S windowed": "cuda_chirp_large", "SK-M": "cuda_sk",
-            "MT-M": "cuda_multitaper", "PFB-M": "cuda_pfb"}.get(kernel,
-                                                                "cuda")
+            "MT-M": "cuda_multitaper", "PFB-M": "cuda_pfb",
+            "SK-B": "cuda_sk", "MT-B": "cuda_multitaper",
+            "PFB-B": "cuda_pfb"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -2416,7 +2442,9 @@ def estimator_bound_ms(kind: str, F: int, N: int, windowed: bool = False,
                        K: int = 1, P: int = 1):
     """rate_bound_ms of an estimator call from k1_work's count at any N
     (k1_work_any; bytes read and written once; split-radix FP32
-    operations): SK F (k1_work + 2N)
+    operations of the N-point function, at the chirp-Z N too, as
+    awkward_bound_ms counts B's, not the chirp-Z algorithm's two M-point
+    transforms): SK F (k1_work + 2N)
     with two output rows (four with the gate); MT F K (k1_work + 2N), the
     (K, N) tapers read once; PFB F (k1_work + 4 P N), (F + P - 1) 2N + 4 P
     N bytes read."""
@@ -5481,6 +5509,489 @@ def phase_mixed_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff,
                   "rtl_power_fftw_tpu/models/pfb.py:48")]
 
 
+# Phase 20's CLI drives at the chirp-Z bin counts, at the tone source with
+# linear output (less their "--record <path>" and SK file): SK at 998
+# bins, the multitaper at 998, the PFB at 4094, SK with Hann at 8188 and
+# SK under --fft-backend bluestein at 2048. --sk-excise 3 at 998 bins
+# (drive_sk_excise's burst stream) is the sixth.
+CHIRP_SK_ARGV = ["-f", "100M", "-n", "100", "-b", "998", "-l", "--source",
+                 SOURCE]
+CHIRP_MT_ARGV = ["-f", "100M", "-n", "4000", "-b", "998", "-l",
+                 "--multitaper", "7", "--source", SOURCE]
+CHIRP_PFB_ARGV = ["-f", "100M", "-n", "400", "-b", "4094", "-l",
+                  "--pfb-taps", "4", "--source", SOURCE]
+CHIRP_SK_HANN_ARGV = ["-f", "100M", "-n", "400", "-b", "8188", "-l",
+                      "--window-function", "hann", "--source", SOURCE]
+CHIRP_SK_BLUESTEIN_ARGV = ["-f", "100M", "-n", "400", "-b", "2048", "-l",
+                           "--fft-backend", "bluestein", "--source", SOURCE]
+
+
+def phase_chirp_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff,
+                           card):
+    """20. The CLI estimators at the chirp-Z bin counts (SK-B, MT-B, PFB-B
+    of ``fused_psd_chirp_est``): their registers, spill and blocks per SM
+    beside B's at each M from 64 to 16384; each against its plain version
+    and the float64 golden, twice (the same bits), at N = 22, 998 (the SK
+    drive's step), 4094 with Hann, 8188 and 2048 (the ``bluestein``
+    drive's step), n_valid F, F - 1, 1 and 0 (the PFB as four steps of one
+    stream, its history plain's and the virtual rows'), and at each
+    drive's own step, full and its last, partial one; SK-B's s1
+    ``fused_psd_bluestein``'s output bit for bit in every case (at 2048
+    the PSD step under ``--fft-backend bluestein``); the 60-seed yards at
+    998 and 8188 (SK's s2 also with Hann); times at 998 F=4096 and at the
+    drives' steps beside B in turns on the same frames, ``torch.fft.fft``
+    and the bound; six CLI drives, each on its kernel alone. Returns the
+    kernels-line entries."""
+    import scipy.fft
+    from rtl_power_fftw_tpu_torch.models.multitaper import _session_tapers
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_bluestein as fb
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_est as fc
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_sk as fsk
+    t0 = time.perf_counter()
+    excise_F = 256   # drive_sk_excise's --frames-per-step
+    steps = {}       # each drive: (its kernel, N, F, its last step's n_valid)
+    for key, argv, N, repeats in (
+            ("SK-B", CHIRP_SK_ARGV, 998, 100),
+            ("SK-B excise", None, 998, 4 * excise_F),
+            ("MT-B", CHIRP_MT_ARGV, 998, 4000),
+            ("PFB-B", CHIRP_PFB_ARGV, 4094, 400),
+            ("SK-B hann", CHIRP_SK_HANN_ARGV, 8188, 400),
+            ("SK-B bluestein", CHIRP_SK_BLUESTEIN_ARGV, 2048, 400)):
+        F = adapt_batch(excise_F if argv is None
+                        else drive_frames_per_step(argv))[0]
+        steps[key] = (N, F, repeats - (-(-repeats // F) - 1) * F)
+    attrs = {}
+    for N in (22, 62, 126, 254, 510, 998, 2046, 4094, 8188):
+        shape = fb.chirp_launch(N)
+        rows = [("B", fb.chirp_attributes(N, False)),
+                ("B windowed", fb.chirp_attributes(N, True))]
+        for name, cut, w in (("SK-B", fc.SK, False),
+                             ("SK-B windowed", fc.SK, True),
+                             ("MT-B", fc.TAPERS, True),
+                             ("PFB-B", fc.PFB, False)):
+            rows.append((name, fc.kernel_attributes(N, cut, w)))
+        for name, a in rows:
+            attrs[(name, N)] = a
+            print(f"occupancy {name} N={N} M={shape.M} on {card}: "
+                  f"{a['registers']} registers, {a['spill_bytes']} B spill, "
+                  f"{a['static_smem']} + {a['dynamic_smem']} B shared, "
+                  f"{a['threads']} threads ({shape.lanes} lanes of "
+                  f"{shape.tf}), {a['blocks_per_sm']} blocks/SM")
+    reset_counts(fp, ff)
+    want = {"SK-B": 0, "MT-B": 0, "PFB-B": 0, "B": 0}
+
+    def sk_case(raw, raw_np, nv, chunk, w, w_np, sigma, label):
+        """SK-B twice, B and plain on one step: the same bits twice, s1 B's,
+        the gate sk_keep's, within the limit of plain and the golden."""
+        got = fc.fused_psd_sk_chirp(raw, nv, chunk, w, sigma)
+        again = fc.fused_psd_sk_chirp(raw, nv, chunk, w, sigma)
+        b = fb.fused_psd_bluestein(raw, nv, chunk, w)
+        ref = fc.sk_chirp_reference(raw, nv, chunk, w, sigma)
+        torch.cuda.synchronize()
+        want["SK-B"] += 2
+        want["B"] += 1
+        check(torch.equal(got, again), f"SK-B {label}: not deterministic")
+        check(torch.equal(got[0], b), f"SK-B {label}: s1 is not B's")
+        got_np, ref_np = got.cpu().numpy(), ref.cpu().numpy()
+        gate = ""
+        if sigma > 0.0:
+            keep = fsk.sk_keep(got[0].cpu(), got[1].cpu(), float(nv),
+                               sigma).numpy()
+            check(np.array_equal(got_np[3], nv * keep)
+                  and np.array_equal(got_np[2], got_np[0] * keep),
+                  f"SK-B {label}: the gate epilogue is not sk_keep's")
+            gate = (f"; gate {sigma:g}: {int(keep.sum())} of "
+                    f"{got_np.shape[1]} kept (plain "
+                    f"{int((ref_np[3] > 0).sum())})")
+        if nv == 0:
+            check(not got_np[:2].any(), f"SK-B {label}: rows of no frame "
+                  "are not 0")
+            return {}, gate
+        g1, g2 = golden_moments(raw_np, nv, w_np)
+        return {"SK-B s1": est_errors(got_np[0], ref_np[0], g1, nv),
+                "SK-B s2": est_errors(got_np[1], ref_np[1], g2, nv)}, gate
+
+    def mt_case(raw, raw_np, nv, chunk, tp, tp_np, label):
+        mt = fc.fused_psd_tapers_chirp(raw, nv, chunk, tp)
+        again = fc.fused_psd_tapers_chirp(raw, nv, chunk, tp)
+        ref = fc.tapers_chirp_reference(raw, nv, chunk, tp)
+        torch.cuda.synchronize()
+        want["MT-B"] += 2
+        check(torch.equal(mt, again), f"MT-B {label}: not deterministic")
+        mt_np = mt.cpu().numpy()
+        if nv == 0:
+            check(not mt_np.any(), f"MT-B {label}: rows of no frame are "
+                  "not 0")
+            return {}
+        return {f"MT-B K={tp.shape[0]}": est_errors(
+            mt_np, ref.cpu().numpy(), golden_tapers(raw_np, nv, tp_np), nv)}
+
+    def report(label, errs, gate=""):
+        print(f"chirp estimators {label}: the same bits twice"
+              + (", SK-B's s1 B's" if any("SK" in k for k in errs) else "")
+              + "".join(f"; {k} {e[3]} vs plain {e[0]:.3e}, vs float64 "
+                        f"golden {e[1]:.3e} (<= {e[2]:.3g})"
+                        for k, e in errs.items()) + gate)
+        check(all(e[0] <= e[2] and e[1] <= e[2] for e in errs.values()),
+              f"chirp estimators {label}: {errs}")
+
+    # Each kernel against plain and the float64 golden, twice.
+    for N, F, wname, sigma in ((998, steps["SK-B"][1], None, 3.0),
+                               (22, 256, None, 0.0),
+                               (4094, steps["PFB-B"][1], "hann", 0.0),
+                               (8188, steps["SK-B hann"][1], None, 3.0),
+                               (2048, steps["SK-B bluestein"][1], None,
+                                0.0)):
+        chunk = adapt_batch(F)[1]
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        tp_np = _session_tapers(N, 4.0, 7)
+        tp = torch.from_numpy(tp_np).to(dev)
+        for nv in (F, F - 1, 1, 0):
+            label = f"N={N} F={F} chunk={chunk} n_valid={nv} window={wname}"
+            errs, gate = sk_case(raw, raw_np, nv, chunk, w, w_np, sigma,
+                                 label)
+            errs.update(mt_case(raw, raw_np, nv, chunk, tp, tp_np, label))
+            report(label, errs, gate)
+        # PFB-B: four steps of one stream (n_valid F, 1, F - 1, 0), the
+        # history carried on the card; P = 16 at 998 bins too, 1 at 22.
+        for P in (4,) + ((16,) if N == 998 else (1,) if N == 22 else ()):
+            h_np = pfb_prototype(N, P).reshape(P, N)
+            h = torch.from_numpy(h_np).to(dev)
+            hist = [torch.empty((P - 1, 2 * N), dtype=torch.uint8,
+                                device=dev) for _ in range(2)]
+            hist_p = [torch.empty((P - 1, 2 * N), dtype=torch.uint8)
+                      for _ in range(2)]
+            virtual = np.full((P - 1, 2 * N), 127, np.uint8)
+            for step, nv in enumerate((F, 1, F - 1, 0)):
+                slot_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+                slot = torch.from_numpy(slot_np)
+                got = fc.fused_psd_pfb_chirp(slot.to(dev), hist[0], nv,
+                                             chunk, h, hist[1],
+                                             fresh=step == 0)
+                ref = fc.pfb_chirp_reference(slot, hist_p[0], nv, chunk,
+                                             h.cpu(), hist_p[1],
+                                             fresh=step == 0)
+                torch.cuda.synchronize()
+                want["PFB-B"] += 1
+                virtual = np.concatenate([virtual, slot_np])
+                gold = golden_pfb(virtual, nv, h_np)
+                virtual = virtual[nv:nv + P - 1]
+                same_hist = (torch.equal(hist[1].cpu(), hist_p[1])
+                             and np.array_equal(hist[1].cpu().numpy(),
+                                                virtual))
+                got_np = got.cpu().numpy()
+                if nv == 0:
+                    e = (0.0, 0.0, 0.0, "zero")
+                    check(not got_np.any(), f"PFB-B N={N} P={P}: no frame")
+                else:
+                    e = est_errors(got_np, ref.numpy(), gold, nv)
+                print(f"chirp estimators PFB-B N={N} F={F} P={P} step "
+                      f"{step} n_valid={nv}: {e[3]} vs plain {e[0]:.3e}, vs "
+                      f"float64 golden {e[1]:.3e} (<= {e[2]:.3g}); history "
+                      f"plain's and rows n_valid .. n_valid + P - 2: "
+                      f"{same_hist}")
+                check(e[0] <= e[2] and e[1] <= e[2] and same_hist,
+                      f"PFB-B N={N} P={P} step {step}")
+                hist.reverse()
+                hist_p.reverse()
+            spare = torch.empty_like(hist[0])
+            a = fc.fused_psd_pfb_chirp(raw, hist[0], F, chunk, h, hist[1])
+            b = fc.fused_psd_pfb_chirp(raw, hist[0], F, chunk, h, spare)
+            torch.cuda.synchronize()
+            want["PFB-B"] += 2
+            check(torch.equal(a, b) and torch.equal(hist[1], spare),
+                  f"PFB-B N={N} P={P}: not deterministic")
+    # Each drive's own step, full and its last, partial one, on its own
+    # kernel (the PFB from a reset history, as a hop starts).
+    for key, (N, F, last) in steps.items():
+        chunk = adapt_batch(F)[1]
+        w_np = make_window("hann", N) if key == "SK-B hann" else None
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        for nv in sorted({F, last}, reverse=True):
+            label = f"{key} drive step N={N} F={F} n_valid={nv}"
+            if key.startswith("SK-B"):
+                errs, gate = sk_case(raw, raw_np, nv, chunk, w, w_np,
+                                     3.0 if key == "SK-B excise" else 0.0,
+                                     label)
+            elif key == "MT-B":
+                tp_np = _session_tapers(N, 4.0, 7)
+                errs, gate = mt_case(raw, raw_np, nv, chunk,
+                                     torch.from_numpy(tp_np).to(dev), tp_np,
+                                     label), ""
+            else:
+                h_np = pfb_prototype(N, 4).reshape(4, N)
+                h = torch.from_numpy(h_np).to(dev)
+                hist = [torch.empty((3, 2 * N), dtype=torch.uint8,
+                                    device=dev) for _ in range(3)]
+                hist_p = [torch.empty((3, 2 * N), dtype=torch.uint8)
+                          for _ in range(2)]
+                got = fc.fused_psd_pfb_chirp(raw, hist[0], nv, chunk, h,
+                                             hist[1], fresh=True)
+                again = fc.fused_psd_pfb_chirp(raw, hist[0], nv, chunk, h,
+                                               hist[2])
+                ref = fc.pfb_chirp_reference(raw.cpu(), hist_p[0], nv,
+                                             chunk, h.cpu(), hist_p[1],
+                                             fresh=True)
+                torch.cuda.synchronize()
+                want["PFB-B"] += 2
+                check(torch.equal(got, again)
+                      and torch.equal(hist[1], hist[2])
+                      and torch.equal(hist[1].cpu(), hist_p[1]),
+                      f"PFB-B {label}: not deterministic or not plain's "
+                      "history")
+                virtual = np.concatenate([np.full((3, 2 * N), 127,
+                                                  np.uint8), raw_np])
+                errs, gate = {"PFB-B P=4": est_errors(
+                    got.cpu().numpy(), ref.numpy(),
+                    golden_pfb(virtual, nv, h_np), nv)}, ""
+            report(label, errs, gate)
+    counts = launch_counts(fp, ff)
+    check(all(counts[k] == v for k, v in want.items())
+          and counts["plain"] == 0 and not any(
+              v for k, v in counts.items() if k not in want),
+          f"chirp estimator launch counts: {counts}, expected {want}")
+    print(f"wall: chirp estimator checks in {time.perf_counter() - t0:.1f} s")
+
+    # The yards: 60 seeds of 35 dB tones at 998 (64 frames) and 8188 bins
+    # (16 frames: the float64 golden of 7 tapers there takes ~0.1 s a seed).
+    def f32_class(z):
+        Xc = scipy.fft.fft(z.astype(np.complex64), axis=-1)
+        return (Xc.real.astype(np.float64) ** 2
+                + Xc.imag.astype(np.float64) ** 2)
+
+    reset_counts(fp, ff)
+    for N, F in ((998, 64), (8188, 16)):
+        for wname in (None, "hann"):
+            w_np = None if wname is None else make_window(wname, N)
+            w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+            wz = 1.0 if w_np is None else w_np.astype(np.float64)
+            estimator_yard(
+                f"SK-B s2{' hann' if wname else ''}",
+                lambda raw_np, w=w, F=F: fc.fused_psd_sk_chirp(
+                    torch.from_numpy(raw_np).to(dev), F, F, w)[1].cpu()
+                .numpy(),
+                lambda raw_np, w_np=w_np, F=F: golden_moments(
+                    raw_np, F, w_np)[1],
+                lambda raw_np, wz=wz: (f32_class(dequant64(raw_np) * wz)
+                                       ** 2).sum(0),
+                N, F, 20000 + N + (wname is not None))
+        tp_np = _session_tapers(N, 4.0, 7)
+        tp = torch.from_numpy(tp_np).to(dev)
+        estimator_yard(
+            "MT-B K=7",
+            lambda raw_np, tp=tp, F=F: fc.fused_psd_tapers_chirp(
+                torch.from_numpy(raw_np).to(dev), F, F, tp).cpu().numpy(),
+            lambda raw_np, tp_np=tp_np, F=F: golden_tapers(raw_np, F, tp_np),
+            lambda raw_np, tp_np=tp_np: f32_class(
+                dequant64(raw_np)[:, None, :]
+                * tp_np.astype(np.float64)[None]).mean(1).sum(0),
+            N, F, 20100 + N)
+        P = 4
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        hist = [torch.empty((P - 1, 2 * N), dtype=torch.uint8, device=dev)
+                for _ in range(2)]
+
+        def pfb_virtual(raw_np, N=N, P=P):
+            return np.concatenate([np.full((P - 1, 2 * N), 127, np.uint8),
+                                   raw_np])
+
+        def pfb_class(raw_np, h_np=h_np, pfb_virtual=pfb_virtual, F=F):
+            sums = fpf.pfb_sums_reference(
+                torch.from_numpy(pfb_virtual(raw_np)),
+                torch.from_numpy(h_np), F).numpy()
+            return f32_class(sums.astype(np.complex128)).sum(0)
+
+        estimator_yard(
+            "PFB-B P=4",
+            lambda raw_np, h=h, hist=hist, F=F: fc.fused_psd_pfb_chirp(
+                torch.from_numpy(raw_np).to(dev), hist[0], F, F, h, hist[1],
+                fresh=True).cpu().numpy(),
+            lambda raw_np, h_np=h_np, pfb_virtual=pfb_virtual, F=F:
+            golden_pfb(pfb_virtual(raw_np), F, h_np),
+            pfb_class, N, F, 20200 + N)
+    counts = launch_counts(fp, ff)
+    check(counts["SK-B"] == 240 and counts["MT-B"] == counts["PFB-B"] == 120
+          and counts["plain"] == 0, f"chirp estimator yards' launches: "
+          f"{counts}")
+    print(f"wall: chirp estimator yards in {time.perf_counter() - t0:.1f} s")
+
+    # Times (PERF.md states their prediction): at 998 F=4096 (B's timed
+    # shape) and at each drive's own step, a call (CUDA events), the
+    # device's part (twice, in turns with B's on the same frames), the
+    # wrapper's host part, the plain version and torch.fft.fft on the same
+    # transforms (F frames; F K tapered frames; F polyphase sums), and the
+    # bound.
+    times = {}
+    for kind, N, F, wname, arg in (
+            ("SK-B", 998, 4096, None, 0.0),
+            ("SK-B", 998, steps["SK-B"][1], None, 0.0),
+            ("SK-B", 998, excise_F, None, 3.0),
+            ("SK-B", 8188, steps["SK-B hann"][1], "hann", 0.0),
+            ("SK-B", 2048, steps["SK-B bluestein"][1], None, 0.0),
+            ("MT-B", 998, 4096, None, 7),
+            ("MT-B", 998, steps["MT-B"][1], None, 7),
+            ("PFB-B", 998, 4096, None, 4),
+            ("PFB-B", 4094, steps["PFB-B"][1], None, 4)):
+        chunk = adapt_batch(F)[1]
+        w = (None if wname is None
+             else torch.from_numpy(make_window(wname, N)).to(dev))
+        raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        z = torch.complex(raw[:, 0::2].float() - 127.0,
+                          raw[:, 1::2].float() - 127.0)
+        if kind == "SK-B":
+            def kernel():
+                return fc.fused_psd_sk_chirp(raw, F, chunk, w, arg)
+
+            def plain():
+                return fc.sk_chirp_reference(raw, F, chunk, w, arg)
+            zz = z if w is None else z * w
+            bound = estimator_bound_ms("SK", F, N, windowed=w is not None)
+            cut = fc.SK
+        elif kind == "MT-B":
+            tp = torch.from_numpy(_session_tapers(N, 4.0, arg)).to(dev)
+
+            def kernel():
+                return fc.fused_psd_tapers_chirp(raw, F, chunk, tp)
+
+            def plain():
+                return fc.tapers_chirp_reference(raw, F, chunk, tp)
+            zz = (z[:, None, :] * tp[None]).reshape(F * arg, N)
+            bound = estimator_bound_ms("MT", F, N, K=arg)
+            cut = fc.TAPERS
+        else:
+            h = torch.from_numpy(pfb_prototype(N, arg).reshape(arg, N)).to(
+                dev)
+            hist = [torch.full((arg - 1, 2 * N), 127, dtype=torch.uint8,
+                               device=dev) for _ in range(2)]
+
+            def kernel():
+                return fc.fused_psd_pfb_chirp(raw, hist[0], F, chunk, h,
+                                              hist[1])
+
+            def plain():
+                return fc.pfb_chirp_reference(raw, hist[0], F, chunk, h,
+                                              hist[1])
+            zz = fpf.pfb_sums_reference(torch.cat([hist[0], raw]), h, F)
+            bound = estimator_bound_ms("PFB", F, N, P=arg)
+            cut = fc.PFB
+
+        def chirp():
+            return fb.fused_psd_bluestein(raw, F, chunk, w)
+        got, ref = kernel().double(), plain().double()
+        rel = max_rel(got.cpu().numpy(), ref.cpu().numpy())
+        check(rel <= UNIFORM_RTOL, f"{kind} N={N} F={F}: {rel} vs plain")
+        kd, bd = [], []
+        for _ in range(2):
+            kd.append(device_times_us(kernel))
+            bd.append(device_times_us(chirp))
+        t = {"max_abs": float((got - ref).abs().max()), "bound": bound,
+             "call": event_times_us(kernel), "plain": event_times_us(plain),
+             "lib": event_times_us(lambda: torch.fft.fft(zz, dim=-1)),
+             "lib_device": device_times_us(lambda: torch.fft.fft(zz,
+                                                                 dim=-1)),
+             "device": min(kd), "b_device": min(bd), "host": host_us(kernel)}
+        times[(kind, N, F)] = t
+        a = fc.kernel_attributes(N, cut, w is not None or cut == fc.TAPERS)
+        b_us = 1e3 * bound[0]
+        print(f"time chirp estimator {kind} N={N} F={F}"
+              f"{f' window={wname}' if wname else ''}"
+              f"{f' gate {arg:g}' if kind == 'SK-B' and arg else ''}"
+              f"{f' K={arg}' if kind == 'MT-B' else ''}"
+              f"{f' P={arg}' if kind == 'PFB-B' else ''} on {card}: kernel "
+              f"{t['call']:.1f} us a call, device {kd[0]:.1f}/{kd[1]:.1f} "
+              f"us, host {t['host']:.1f} us ({F * N / t['device'] / 1e3:.2f} "
+              f"GS/s on the device; {a['registers']} registers, "
+              f"{a['spill_bytes']} B spill, {a['blocks_per_sm']} blocks/SM); "
+              f"B on the same frames device {bd[0]:.1f}/{bd[1]:.1f} us, "
+              f"kernel/B {t['device'] / t['b_device']:.3f}; plain "
+              f"{t['plain']:.1f} us a call; torch.fft.fft of the "
+              f"{tuple(zz.shape)} complex64 transforms {t['lib']:.1f} us a "
+              f"call (device {t['lib_device']:.1f}); bound {b_us:.2f} us "
+              f"({bound[1]}), device/bound {t['device'] / b_us:.1f}x; max "
+              f"abs vs plain {t['max_abs']:.4g}, max rel {rel:.3e}")
+    print(f"wall: chirp estimator times in {time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its kernel alone.
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["SK-B excise"] = drive_sk_excise(cli, fp, ff, tmp, N=998,
+                                                  key="SK-B")
+        for key, argv in (("SK-B", CHIRP_SK_ARGV), ("MT-B", CHIRP_MT_ARGV),
+                          ("PFB-B", CHIRP_PFB_ARGV),
+                          ("SK-B hann", CHIRP_SK_HANN_ARGV),
+                          ("SK-B bluestein", CHIRP_SK_BLUESTEIN_ARGV)):
+            N = steps[key][0]
+            repeats = int(argv[argv.index("-n") + 1])
+            record = os.path.join(tmp, f"{key.replace(' ', '_')}_{N}.iq")
+            sk_path = os.path.join(tmp, f"{key.replace(' ', '_')}_{N}.sk")
+            sk = key.startswith("SK")
+            extra = [f"--sk-file={sk_path}"] if sk else []
+            w_np = make_window("hann", N) if key == "SK-B hann" else None
+
+            def golden(key=key, record=record, N=N, repeats=repeats,
+                       w_np=w_np):
+                raw_np = recorded_frames(record, N)[:repeats]
+                if key == "MT-B":
+                    pwr = golden_tapers(raw_np, repeats,
+                                        _session_tapers(N, 4.0, 7))
+                elif key == "PFB-B":
+                    pwr = golden_pfb(np.concatenate([np.full(
+                        (3, 2 * N), 127, np.uint8), raw_np]), repeats,
+                        pfb_prototype(N, 4).reshape(4, N))
+                else:
+                    pwr = golden_moments(raw_np, repeats, w_np)[0]
+                return golden_finalize_linear(np.fft.fftshift(pwr), repeats,
+                                              RATE)
+
+            # The tapers' spectral window is 2 NW = 8 bins wide: its peak
+            # may fall NW bins from the tone.
+            launches[key] = drive(f"chirp estimator {key} -b {N}",
+                                  argv + extra + ["--record", record], cli,
+                                  fp, ff, key.split()[0], N, golden,
+                                  GOLDEN_RTOL,
+                                  peak_bins=4 if key == "MT-B" else 1)
+            if sk:
+                sk_file, sk_err = sk_file_error(
+                    sk_path, recorded_frames(record, N)[:repeats], repeats,
+                    w_np)
+                print(f"e2e chirp estimator {key} SK file: {len(sk_file)} "
+                      f"bins, max |SK - float64 golden| {sk_err:.3e} (<= "
+                      "1e-4)")
+                check(len(sk_file) == N and sk_err <= 1e-4, f"{key} drive: "
+                      "SK file")
+    print(f"wall: chirp estimator phase in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, kind, launches_n, replaces):
+        t = times[(kind, 998, 4096)]
+        return {"name": name, "route": "cuda",
+                "source": CSRC + "fused_psd_chirp_est.cu",
+                "replaces": replaces, "launches": launches_n,
+                "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+                "device_ms": t["device"] / 1000.0,
+                "host_ms": t["host"] / 1000.0,
+                "chirp_device_ms": t["b_device"] / 1000.0}
+
+    return [entry("fused_psd_sk_chirp (SK-B)", "SK-B",
+                  sum(launches[k] for k in launches if k.startswith("SK")),
+                  "rtl_power_fftw_tpu/models/kurtosis.py:46"),
+            entry("fused_psd_tapers_chirp (MT-B)", "MT-B", launches["MT-B"],
+                  "rtl_power_fftw_tpu/models/multitaper.py:60"),
+            entry("fused_psd_pfb_chirp (PFB-B)", "PFB-B", launches["PFB-B"],
+                  "rtl_power_fftw_tpu/models/pfb.py:48")]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -5573,7 +6084,8 @@ def main() -> int:
             ("fused_psd_frames", "psd_regs_kernel", ""),
             ("fused_psd_pfb", "pfb_channelize_kernel", ""),
             ("fused_psd_csd", "psd_csd_kernel", ""),
-            ("fused_psd_mixed_est", "psd_ring_est_kernel", "")):
+            ("fused_psd_mixed_est", "psd_ring_est_kernel", ""),
+            ("fused_psd_chirp_est", "psd_chirp_est_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -5855,6 +6367,12 @@ def main() -> int:
         cli, ff, card)
     lap("mixed estimators")
 
+    # 20. The CLI estimators at the chirp-Z bin counts (SK-B, MT-B, PFB-B).
+    chirp_estimators = phase_chirp_estimators(
+        dev, np.random.default_rng(20261024), fp, adapt_batch, make_window,
+        cli, ff, card)
+    lap("chirp estimators")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -5904,7 +6422,7 @@ def main() -> int:
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
     ] + awkward + estimators + large_awkward + estimator_streams
-      + large_streams + library + mixed_estimators + [
+      + large_streams + library + mixed_estimators + chirp_estimators + [
         probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),

@@ -11,10 +11,12 @@ time-variable interference push SK away from 1. The device step is the
 spectral-kurtosis kernel (``ops/kernels/csrc/fused_psd_sk.cu`` at the
 powers of two, its mixed-radix form SK-M of
 ``ops/kernels/csrc/fused_psd_mixed_est.cu`` at the other even 7-smooth N up
-to 16384, on one stream; their plain PyTorch version on the CPU), which
-accumulates both moments in one pass, its s1 the plain PSD step's bit for
-bit; over S streams its streams entry, which gates each stream on its own
-block before the sum over streams.
+to 16384 and its chirp-Z form SK-B of
+``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192
+and under ``--fft-backend bluestein``, on one stream; their plain PyTorch
+version on the CPU), which accumulates both moments in one pass, its s1
+the plain PSD step's bit for bit; over S streams its streams entry, which
+gates each stream on its own block before the sum over streams.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.kernels.fused_psd_chirp_est import fused_psd_sk_chirp
 from ..ops.kernels.fused_psd_mixed_est import fused_psd_sk_mixed
 from ..ops.kernels.fused_psd_sk import (fused_psd_sk, fused_psd_sk_streams,
                                         sk_keep)
@@ -33,6 +36,10 @@ from ..parallel.sharded import one_device, stream_batch
 
 #: The excision gate, the JAX package's ``_sk_keep`` in float32.
 _sk_keep = sk_keep
+
+#: The SK step's kernel by ``estimator_route``'s route.
+SK_KERNELS = {"regs": fused_psd_sk, "mixed": fused_psd_sk_mixed,
+              "bluestein": fused_psd_sk_chirp}
 
 
 def compute_sk(s1: np.ndarray, s2: np.ndarray, M: int) -> np.ndarray:
@@ -61,19 +68,21 @@ class SkSessionStep:
     frames, as in the JAX package; excision decisions depend on it.
 
     The path is "cuda_sk" on a CUDA device, "plain_sk" on the CPU. Only N
-    of 64..16384 powers of two (the SK kernel) and the other even 7-smooth
-    N up to 16384 (SK-M, on the mixed-radix kernel's grid: its s1 is the
-    mixed-radix PSD step's), and the ``--fft-backend`` names the JAX
-    package's SK step runs its auto transform for, are taken
+    of 64..16384 powers of two (the SK kernel), the other even 7-smooth N
+    up to 16384 (SK-M, on the mixed-radix kernel's grid: its s1 is the
+    mixed-radix PSD step's) and the other even N up to 8192 (SK-B, on the
+    chirp-Z kernel's grid: its s1 is the chirp-Z PSD step's), and the
+    ``--fft-backend`` names the JAX package's SK step runs its auto
+    transform for, are taken; under ``bluestein`` SK-B at any even N up
+    to 8192, as the PSD step runs B there
     (``ops.spectral.estimator_route``)."""
 
     def __init__(self, N: int, frames_per_step: int, device,
                  window: Optional[np.ndarray] = None,
                  backend: str = "auto", excise_sigma: float = 0.0):
         self._sigma = float(excise_sigma)
-        route = estimator_route(N, "--sk-excise" if self._sigma > 0.0
-                                else "--sk-file", backend)
-        self._kernel = fused_psd_sk if route == "regs" else fused_psd_sk_mixed
+        self._kernel = SK_KERNELS[estimator_route(
+            N, "--sk-excise" if self._sigma > 0.0 else "--sk-file", backend)]
         self.N = N
         self.F, self._chunk = adapt_batch(frames_per_step)
         self.device = torch.device(device)

@@ -7,10 +7,13 @@ eigenspectra are averaged: the lowest-variance estimator family for a
 fixed data length. The device step is the multitaper kernel
 (``ops/kernels/csrc/fused_psd_tapers.cu`` at the powers of two, its
 mixed-radix form MT-M of ``ops/kernels/csrc/fused_psd_mixed_est.cu`` at
-the other even 7-smooth N up to 16384, on one stream; their plain PyTorch
-version on the CPU): one block runs every taper of its frames, each raw
-frame staged once in a shared-memory ring (MT-M: the tapers on the grid's
-y axis); over S streams its streams entry, one row a stream. DPSS tapers come from scipy.
+the other even 7-smooth N up to 16384 and its chirp-Z form MT-B of
+``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to
+8192, on one stream; their plain PyTorch version on the CPU): one block
+runs every taper of its frames, each raw frame staged once in a
+shared-memory ring (MT-M and MT-B: the tapers on the grid's y axis); over
+S streams its streams entry, one row a stream. DPSS tapers come from
+scipy.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from ..exceptions import ReturnValue, RPFexception
+from ..ops.kernels.fused_psd_chirp_est import fused_psd_tapers_chirp
 from ..ops.kernels.fused_psd_mixed_est import fused_psd_tapers_mixed
 from ..ops.kernels.fused_psd_tapers import (fused_psd_tapers,
                                             fused_psd_tapers_streams)
@@ -54,12 +58,17 @@ def _session_tapers(N: int, NW: float, K: int) -> np.ndarray:
     return t * np.sqrt(np.float32(N))
 
 
+#: The multitaper step's kernel by ``estimator_route``'s route.
+TAPERS_KERNELS = {"regs": fused_psd_tapers, "mixed": fused_psd_tapers_mixed,
+                  "bluestein": fused_psd_tapers_chirp}
+
+
 def tapers_kernel(N: int):
     """The multitaper step's kernel at N bins (``estimator_route``):
     ``fused_psd_tapers`` at the powers of two, ``fused_psd_tapers_mixed``
-    at the other even 7-smooth N up to 16384."""
-    route = estimator_route(N, "--multitaper")
-    return fused_psd_tapers if route == "regs" else fused_psd_tapers_mixed
+    at the other even 7-smooth N up to 16384, ``fused_psd_tapers_chirp``
+    at the other even N up to 8192."""
+    return TAPERS_KERNELS[estimator_route(N, "--multitaper")]
 
 
 class MultitaperSessionStep:
@@ -71,9 +80,9 @@ class MultitaperSessionStep:
     only the per-frame estimator changes (the mean of K eigenspectra
     instead of one periodogram, datastore.cxx:66-88). The path is
     "cuda_multitaper" on a CUDA device, "plain_multitaper" on the CPU; N
-    must be a power of two from 64 to 16384 or another even 7-smooth N up
-    to 16384 (MT-M; ``ops.spectral.estimator_route``). ``--precision`` does
-    not apply:
+    must be a power of two from 64 to 16384, another even 7-smooth N up
+    to 16384 (MT-M) or another even N up to 8192 (MT-B;
+    ``ops.spectral.estimator_route``). ``--precision`` does not apply:
     off its TPU band the JAX package runs the strict transform at either
     precision, and so does this step."""
 

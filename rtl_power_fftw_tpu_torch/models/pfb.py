@@ -9,10 +9,12 @@ isolation over the plain periodogram (datastore.cxx:66-88) at the cost of
 P× the input history per frame. The device step is the PFB kernel
 (``ops/kernels/csrc/fused_psd_pfb.cu`` at the powers of two, its
 mixed-radix form PFB-M of ``ops/kernels/csrc/fused_psd_mixed_est.cu`` at
-the other even 7-smooth N up to 16384, on one stream; their plain PyTorch
-version on the CPU), which builds each frame's polyphase sum from its
-history and slot rows and transforms it; over S streams its streams entry,
-each stream's history on the device.
+the other even 7-smooth N up to 16384 and its chirp-Z form PFB-B of
+``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to
+8192, on one stream; their plain PyTorch version on the CPU), which
+builds each frame's polyphase sum from its history and slot rows and
+transforms it; over S streams its streams entry, each stream's history on
+the device.
 
 ``pfb_psd(prototype=np.ones(M), taps=1)`` is exactly the Bartlett
 estimator (models/bartlett.py).
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..auxdata import make_window
+from ..ops.kernels.fused_psd_chirp_est import fused_psd_pfb_chirp
 from ..ops.kernels.fused_psd_mixed_est import fused_psd_pfb_mixed
 from ..ops.kernels.fused_psd_pfb import (MAX_TAPS, fused_psd_pfb,
                                          fused_psd_pfb_streams)
@@ -53,18 +56,22 @@ def pfb_prototype(M: int, taps: int = 4,
     return h.astype(np.float32)
 
 
+#: The PFB step's kernel by ``estimator_route``'s route.
+PFB_KERNELS = {"regs": fused_psd_pfb, "mixed": fused_psd_pfb_mixed,
+               "bluestein": fused_psd_pfb_chirp}
+
+
 class _PfbRunner:
     """The PFB kernel over consecutive steps of one stream: the (P, N)
     prototype and two (P - 1, 2N) history buffers on ``device``, swapped
     after each step (the kernel reads one and writes the next history
     into the other, on the step's stream). The kernel is the route's
     (``estimator_route``): ``fused_psd_pfb`` at the powers of two,
-    ``fused_psd_pfb_mixed`` at the other even 7-smooth N."""
+    ``fused_psd_pfb_mixed`` at the other even 7-smooth N up to 16384,
+    ``fused_psd_pfb_chirp`` at the other even N up to 8192."""
 
     def __init__(self, N: int, F: int, chunk: int, h: np.ndarray, device):
-        route = estimator_route(N, "--pfb-taps")
-        self._kernel = fused_psd_pfb if route == "regs" else \
-            fused_psd_pfb_mixed
+        self._kernel = PFB_KERNELS[estimator_route(N, "--pfb-taps")]
         self.N, self.F, self._chunk = N, F, chunk
         self.device = torch.device(device)
         self.P = h.size // N
@@ -107,8 +114,8 @@ class PfbSessionStep:
     exactly N new samples, like the reference's spectra. ``window`` names
     the prototype's window (``--window-function``). The path is
     "cuda_pfb" on a CUDA device, "plain_pfb" on the CPU; N must be a power
-    of two from 64 to 16384 or another even 7-smooth N up to 16384 (PFB-M;
-    ``ops.spectral.estimator_route``)."""
+    of two from 64 to 16384, another even 7-smooth N up to 16384 (PFB-M)
+    or another even N up to 8192 (PFB-B; ``ops.spectral.estimator_route``)."""
 
     def __init__(self, N: int, frames_per_step: int, taps: int = 4,
                  window: str = "hann", *, device):

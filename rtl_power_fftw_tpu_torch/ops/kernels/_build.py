@@ -130,6 +130,24 @@ SIGNATURES = {
         # plan, cut (1 SK, 2 tapers, 3 PFB), windowed, device, attrs (int[6])
         "rpf_fused_psd_mixed_est_attributes": [_P, _I, _I, _I, _P],
     },
+    "fused_psd_chirp_est": {
+        # SK-B: raw, twiddle, window, chirp, spectrum, partial, out, device,
+        # log2m, bins, F, group, n_valid, two_sigma, width, stream
+        "rpf_fused_psd_sk_chirp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _P],
+        # MT-B: raw, twiddle, tapers, chirp, spectrum, partial, out, device,
+        # log2m, bins, F, group, K, n_valid, width, stream
+        "rpf_fused_psd_tapers_chirp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _I, _I, _I, _P],
+        # PFB-B: raw, history, twiddle, h, chirp, spectrum, partial, out,
+        # history_out, device, log2m, bins, F, group, n_valid, P, fresh,
+        # width, stream
+        "rpf_fused_psd_pfb_chirp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _P],
+        # log2m, bins, cut (1 SK, 2 tapers, 3 PFB), windowed, device, attrs
+        # (int[6])
+        "rpf_fused_psd_chirp_est_attributes": [_I, _I, _I, _I, _I, _P],
+    },
     "fused_psd_mixed_large": {
         # raw, tw1, bin1, inter, window, tw2, order2, scratch, partial,
         # out, plan1 (int[55]), plan2, device, log2c, n2p, width, F,

@@ -85,4 +85,32 @@ __device__ __forceinline__ float2 ring_sample(const uint16_t* iq, int s,
   return make_float2(re, im);
 }
 
+// Sample s of output frame j's polyphase sum: taps P - 1 .. 0 of virtual
+// rows j .. j + P - 1, row j + P - 1 (frame j's own) from the ring slot
+// `iq`, the others from `history` (virtual rows < P - 1) or `frames`.
+__device__ __forceinline__ float2 pfb_sample(const uint16_t* iq,
+                                             const uint8_t* frames,
+                                             const uint8_t* history,
+                                             const float* h, int j, int P,
+                                             int n, int s) {
+  float re = 0.0f;
+  float im = 0.0f;
+  for (int p = 0; p < P; ++p) {
+    const int r = j + p;
+    unsigned u;
+    if (p == P - 1) {
+      u = iq[s];
+    } else {
+      const uint8_t* row =
+          r < P - 1 ? history + static_cast<size_t>(r) * 2 * n
+                    : frames + static_cast<size_t>(r - (P - 1)) * 2 * n;
+      u = __ldg(reinterpret_cast<const uint16_t*>(row) + s);
+    }
+    const float hv = __ldg(h + static_cast<size_t>(p) * n + s);
+    re = __fadd_rn(re, __fmul_rn(dequant_byte(u & 0xFFu), hv));
+    im = __fadd_rn(im, __fmul_rn(dequant_byte(u >> 8), hv));
+  }
+  return make_float2(re, im);
+}
+
 }  // namespace

@@ -96,6 +96,18 @@ __host__ __device__ constexpr int chirp_smem_bytes(int bins) {
   return C::LANES * (C::XSTRIDE * 8 + ring_bytes(bins));
 }
 
+// The chirp-Z kernel's M = 2^log2m (a register FFT's size) takes N = bins:
+// even, 2N - 1 <= M, and M at most 64 where 2N - 1 <= 64 (the smallest
+// register FFT), else the least power of two.
+inline bool chirp_size_ok(int log2m, int bins) {
+  if (log2m < kRegsMinLog2N || log2m > kRegsMaxLog2N || bins < 2 ||
+      bins % 2 != 0) {
+    return false;
+  }
+  const int M = 1 << log2m;
+  return 2 * bins - 1 <= M && (M == 64 || 2 * bins - 1 > M / 2);
+}
+
 // Pass 1 of the step: block g serves stream s = g / G_s (one stream for
 // the single-stream entry) and sums |X|^2 of that stream's frames
 // [j*group, min((j+1)*group, F, n_valid_s)), j = g mod G_s, into partial

@@ -209,18 +209,6 @@ ChirpInfo chirp_of(int log2m) {
 
 std::atomic<unsigned long long> chirp_done[2][kChirpSizes];
 
-// The chirp-Z kernel's M = 2^log2m takes N = bins: even, 2N - 1 <= M, and
-// M at most 64 where 2N - 1 <= 64 (the smallest register FFT), else the
-// least power of two.
-bool chirp_size_ok(int log2m, int bins) {
-  if (log2m < kChirpMinLog2M || log2m > kChirpMaxLog2M || bins < 2 ||
-      bins % 2 != 0) {
-    return false;
-  }
-  const int M = 1 << log2m;
-  return 2 * bins - 1 <= M && (M == 64 || 2 * bins - 1 > M / 2);
-}
-
 int launch_chirp(const void* raw, const void* twiddle, const void* window,
                  const void* chirp, const void* spectrum,
                  const void* stream_n_valid, void* partial, void* out,

@@ -159,7 +159,10 @@ class LaunchCounts:
     :mod:`.fused_psd_csd`, :mod:`.fused_psd_scf`), and
     ``kernel_sk_mixed``, ``kernel_tapers_mixed`` and ``kernel_pfb_mixed``
     the estimators' forms of the mixed-radix kernel
-    (:mod:`.fused_psd_mixed_est`: SK-M, MT-M, PFB-M), with ``plain_frames``,
+    (:mod:`.fused_psd_mixed_est`: SK-M, MT-M, PFB-M), and
+    ``kernel_sk_chirp``, ``kernel_tapers_chirp`` and ``kernel_pfb_chirp``
+    their forms of the chirp-Z kernel (:mod:`.fused_psd_chirp_est`: SK-B,
+    MT-B, PFB-B), with ``plain_frames``,
     ``plain_pfb_channelize``, ``plain_csd`` and ``plain_scf`` their plain
     versions' calls (each also counted in ``plain``, every plain
     version's).
@@ -212,6 +215,9 @@ class LaunchCounts:
         self.kernel_sk_mixed = 0
         self.kernel_tapers_mixed = 0
         self.kernel_pfb_mixed = 0
+        self.kernel_sk_chirp = 0
+        self.kernel_tapers_chirp = 0
+        self.kernel_pfb_chirp = 0
         self.plain = 0
         self.plain_frames = 0
         self.plain_pfb_channelize = 0
@@ -361,6 +367,13 @@ def frame_spectra(raw_u8: torch.Tensor,
         re = re * window
         im = im * window
     return torch.fft.fft(torch.complex(re, im), dim=-1)
+
+
+def dft_power(z: torch.Tensor) -> torch.Tensor:
+    """|DFT|^2 along the last axis: (..., N) complex64 -> (..., N)
+    float32."""
+    X = torch.fft.fft(z, dim=-1)
+    return X.real * X.real + X.imag * X.imag
 
 
 def _frame_power(raw_u8: torch.Tensor,

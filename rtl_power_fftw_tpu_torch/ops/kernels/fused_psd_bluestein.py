@@ -201,24 +201,31 @@ def chirp_launch(N: int) -> ChirpLaunch:
     return ChirpLaunch(N, chirp_size(N), chirp_plan(N)[0])
 
 
+def chirp_power(z: torch.Tensor) -> torch.Tensor:
+    """|DFT|^2 along the last axis by the chirp-Z algorithm in torch ops
+    (times a, FFT_M, times B, IFFT_M, times a): (..., N) complex64 ->
+    (..., N) float32."""
+    N = z.shape[-1]
+    M, a_np, B_np = bluestein_constants(N)
+    a = torch.from_numpy(a_np).to(z.device)
+    B = torch.from_numpy(B_np).to(z.device)
+    y = torch.fft.ifft(torch.fft.fft(z * a, n=M, dim=-1) * B, dim=-1)
+    X = y[..., :N] * a
+    return X.real * X.real + X.imag * X.imag
+
+
 def _power(raw_u8: torch.Tensor,
            window: Optional[torch.Tensor]) -> torch.Tensor:
     """|DFT|^2 of every frame by the chirp-Z algorithm in torch ops:
     (..., 2N) uint8 -> (..., N) float32."""
     N = raw_u8.shape[-1] // 2
-    M, a_np, B_np = bluestein_constants(N)
-    a = torch.from_numpy(a_np).to(raw_u8.device)
-    B = torch.from_numpy(B_np).to(raw_u8.device)
     v = raw_u8.reshape(*raw_u8.shape[:-1], N, 2).to(torch.int32)
     re = (v[..., 0] - 127).to(torch.float32)
     im = (v[..., 1] - 127).to(torch.float32)
     if window is not None:
         re = re * window
         im = im * window
-    u = torch.complex(re, im) * a
-    y = torch.fft.ifft(torch.fft.fft(u, n=M, dim=-1) * B, dim=-1)
-    X = y[..., :N] * a
-    return X.real * X.real + X.imag * X.imag
+    return chirp_power(torch.complex(re, im))
 
 
 def bluestein_psd_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,

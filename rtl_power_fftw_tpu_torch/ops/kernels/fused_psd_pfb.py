@@ -165,17 +165,18 @@ def pfb_sums_reference(virtual: torch.Tensor, h: torch.Tensor, F: int
 def fused_psd_pfb_reference(raw_u8: torch.Tensor, history: torch.Tensor,
                             n_valid: int, chunk: int, h: torch.Tensor,
                             history_out: torch.Tensor,
-                            fresh: bool = False) -> torch.Tensor:
+                            fresh: bool = False,
+                            dft_power=fp.dft_power) -> torch.Tensor:
     """The plain PyTorch version: (N,) float32, and the next history
     written into ``history_out`` (``fresh``: the history set to byte 127
-    first)."""
+    first). ``dft_power`` gives |DFT|^2 of the polyphase sums (the chirp-Z
+    form passes its own)."""
     F, two_n = raw_u8.shape
     N = two_n // 2
     if fresh:
         history.fill_(127)
     virtual = torch.cat([history, raw_u8])
-    X = torch.fft.fft(pfb_sums_reference(virtual, h, F), dim=-1)
-    pwr = X.real * X.real + X.imag * X.imag
+    pwr = dft_power(pfb_sums_reference(virtual, h, F))
     pwr[n_valid:] = 0.0
     history_out.copy_(virtual[n_valid:n_valid + h.shape[0] - 1])
     return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)

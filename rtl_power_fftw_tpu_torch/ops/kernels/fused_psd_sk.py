@@ -69,12 +69,15 @@ def sk_keep(s1: torch.Tensor, s2: torch.Tensor, M, sigma: float
 
 def fused_psd_sk_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                            window: Optional[torch.Tensor] = None,
-                           sigma: float = 0.0) -> torch.Tensor:
+                           sigma: float = 0.0,
+                           frame_power=fp._frame_power) -> torch.Tensor:
     """The plain PyTorch version: (F, 2N) uint8 -> (2, N) float32 (s1, s2),
-    with ``sigma > 0`` (4, N) (s1, s2, s1 * keep, n_valid * keep)."""
+    with ``sigma > 0`` (4, N) (s1, s2, s1 * keep, n_valid * keep).
+    ``frame_power(raw_u8, window)`` gives each frame's |DFT|^2 (the
+    chirp-Z form passes its own)."""
     F, two_n = raw_u8.shape
     N = two_n // 2
-    p = fp._frame_power(raw_u8, window)
+    p = frame_power(raw_u8, window)
     p[n_valid:] = 0.0
     s1 = p.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
     s2 = (p * p).reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)

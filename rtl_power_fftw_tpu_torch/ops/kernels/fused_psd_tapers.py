@@ -150,11 +150,12 @@ def check_tapers(tapers: torch.Tensor, raw_u8: torch.Tensor) -> None:
 
 
 def fused_psd_tapers_reference(raw_u8: torch.Tensor, n_valid: int,
-                               chunk: int, tapers: torch.Tensor
-                               ) -> torch.Tensor:
+                               chunk: int, tapers: torch.Tensor,
+                               dft_power=fp.dft_power) -> torch.Tensor:
     """The plain PyTorch version, in the JAX package's ``_mt_core`` order:
-    the (F * K, N) tapered batch (frame-major), |FFT|^2, frames f >=
-    n_valid dropped, the chunked sum over its rows, divided by K."""
+    the (F * K, N) tapered batch (frame-major), |FFT|^2 (``dft_power``;
+    the chirp-Z form passes its own), frames f >= n_valid dropped, the
+    chunked sum over its rows, divided by K."""
     F, two_n = raw_u8.shape
     N = two_n // 2
     K = tapers.shape[0]
@@ -163,8 +164,7 @@ def fused_psd_tapers_reference(raw_u8: torch.Tensor, n_valid: int,
     im = (v[..., 1] - 127).to(torch.float32)
     re_t = (re[:, None, :] * tapers[None]).reshape(F * K, N)
     im_t = (im[:, None, :] * tapers[None]).reshape(F * K, N)
-    X = torch.fft.fft(torch.complex(re_t, im_t), dim=-1)
-    p = X.real * X.real + X.imag * X.imag
+    p = dft_power(torch.complex(re_t, im_t))
     p[n_valid * K:] = 0.0
     total = p.reshape(F * K // chunk, chunk, N).sum(dim=1).sum(dim=0)
     return total / torch.tensor(K, dtype=torch.float32)

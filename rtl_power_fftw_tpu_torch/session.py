@@ -59,7 +59,9 @@ def check_ported(params: Params) -> None:
     ``--multitaper``, ``--sk-file``, ``--sk-excise``) at N their kernels
     do not take (``ops.spectral.estimator_route``: over ``--streams`` the
     powers of two from 64 to 16384, on one stream the even 7-smooth N up to
-    16384 too), ``--shard-transform`` and ``--profile``."""
+    16384 and the other even N up to 8192 too, and the spectral kurtosis
+    under ``--fft-backend bluestein`` at any even N up to 8192),
+    ``--shard-transform`` and ``--profile``."""
     unported = []
     if params.shard_transform:
         unported.append("--shard-transform")

@@ -241,7 +241,14 @@ def chirp_tables(N, dtype):
 def chirp_power(raw, window=None, dtype=np.complex64):
     """|DFT|^2 of each frame as psd_chirp_kernel computes it, thread by
     thread, (F, N) in natural order."""
-    F, N = raw.shape[0], raw.shape[1] // 2
+    return chirp_power_of(dequantize(raw, window, dtype), dtype)
+
+
+def chirp_power_of(z, dtype=np.complex64):
+    """|DFT|^2 of each row of the (F, N) samples ``z`` (the frame's,
+    dequantized and windowed) as psd_chirp_kernel computes it from pass
+    0's samples on, thread by thread, (F, N) in natural order."""
+    F, N = z.shape
     M = fb.chirp_size(N)
     plan = fp.PASS_PLAN[M]
     R, TF = plan[0], M // plan[0]
@@ -250,7 +257,7 @@ def chirp_power(raw, window=None, dtype=np.complex64):
     t = np.arange(TF)
     s = t[:, None] + np.arange(HALF)[None, :] * TF          # (TF, HALF)
     x = np.zeros((F, M), dtype)
-    x[:, :N] = dequantize(raw, window, dtype) * a
+    x[:, :N] = z * a
     v = np.zeros((F, TF, R), dtype)
     v[..., :HALF] = x[:, s]
     v = dif_regs_from(half_zero_stage(v, w16), w16, R // 4)

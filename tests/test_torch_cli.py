@@ -34,7 +34,9 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--shard-transform"],
-    ["-b", "998", "--sk-file", "sk.dat"],
+    ["-b", "9998", "--sk-file", "sk.dat"],
+    ["--streams", "2", "--sk-file", "sk.dat", "-b", "998"],
+    ["--sk-file", "sk.dat", "--fft-backend", "bluestein", "-b", "16382"],
     ["-b", "32768", "--sk-file", "sk.dat"],
     ["--streams", "2", "--sk-file", "sk.dat", "-b", "500"],
     ["--sk-excise", "3", "--fft-backend", "xla"],
@@ -81,6 +83,9 @@ def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
      "plain_sk (backend=auto, N=256)"),
     (["-b", "500", "--multitaper", "2"], "plain_multitaper (N=500)"),
     (["-b", "32", "--pfb-taps", "4"], "plain_pfb (N=32)"),
+    (["-b", "998", "--sk-file", "sk.dat"], "plain_sk (backend=auto, N=998)"),
+    (["-b", "2048", "--sk-file", "sk.dat", "--fft-backend", "bluestein"],
+     "plain_sk (backend=bluestein, N=2048)"),
 ])
 def test_single_stream_estimators_exit_0(extra, path, capsys, tmp_path,
                                          monkeypatch):
