@@ -350,6 +350,37 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    --window-function hann`` and ``-b 2048 --sk-file --fft-backend
    bluestein`` (each SK file against the float64 SK of its frames).
 
+21. the CLI estimators over ``--streams`` at the awkward bin counts (the
+   streams forms SK-M-S, MT-M-S, PFB-M-S of ``fused_psd_mixed_est`` and
+   SK-B-S, MT-B-S, PFB-B-S of ``fused_psd_chirp_est``: each one-stream
+   form with the stream folded into its grid, the counts on the card):
+   registers, spill, shared memory and blocks per SM beside the
+   one-stream forms' at 500, 2400, 12000, 16000 and 998, 4094, 8188
+   bins; each against its plain version and the per-stream float64
+   golden (``hold_streams``), twice (the same bits), at S = 2 and 16
+   with uneven counts (mixed 500, 2400 Hann, 12000, 16000 Hann, 30;
+   chirp-Z 998, 22 Hann, 4094 Hann, 8188, 2048), SK with and without the
+   gate; SK's s1 the PSD streams entry's rows (M-S, B-S) bit for bit,
+   each stream's rows the one-stream form's on the same groups, the gate
+   each stream's own ``sk_keep`` and a burst in one stream gating that
+   stream alone; the PFB over three steps and a reset, its histories
+   plain's, the virtual rows' and the one-stream form's; 60-seed yards at
+   500 and 998 (2 streams of 32 frames; SK's s2 with and without Hann,
+   MT K = 7, PFB P = 4); a call, the device's time beside two one-stream
+   calls and M-S / B-S in turns, the wrapper's host time, plain,
+   ``torch.fft.fft`` and the bound at S = 2, F = 2048 (2400 and 998
+   bins), and the device time at each drive's step; nine drives through
+   ``cli.main``, each on its streams form alone: the man-page scan
+   ``--streams 2 --sk-file``, ``--streams 2 --pfb-taps 4 -b 500``,
+   ``--streams 2 --sk-file -b 998``, ``--streams 2 --sk-excise 3 -b
+   998`` on two recordings with a burst in one, ``--streams 4
+   --multitaper 7 -b 2400``, ``--streams 2 --sk-file -b 2048
+   --fft-backend bluestein``, ``--streams 16 --frames-per-step 256 -b
+   500 --sk-file`` (config 5's shape at the man page's bins),
+   ``--streams 2 --multitaper 7 -b 998`` and ``--streams 2 --pfb-taps 4
+   -b 4094`` (each SK file against the float64 SK of every stream's
+   frames).
+
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
@@ -1044,7 +1075,8 @@ def launch_counts(fp, ff) -> dict:
     "FR", "PFB-C", "CSD" and "SCF" (FR and CSD with their windowed forms)
     the library estimators' kernels, "SK-M", "MT-M" and "PFB-M" the CLI
     estimators' forms of the mixed-radix kernel, "SK-B", "MT-B" and
-    "PFB-B" their forms of the chirp-Z kernel, "M/B control" the kernel M and
+    "PFB-B" their forms of the chirp-Z kernel, "SK-M-S" ... "PFB-B-S" the
+    streams forms of those six, "M/B control" the kernel M and
     B replaced (and its plain versions), "probes" every probe variant
     together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
@@ -1091,6 +1123,12 @@ def launch_counts(fp, ff) -> dict:
             "SK-B": fp.COUNTS.kernel_sk_chirp,
             "MT-B": fp.COUNTS.kernel_tapers_chirp,
             "PFB-B": fp.COUNTS.kernel_pfb_chirp,
+            "SK-M-S": fp.COUNTS.kernel_sk_mixed_streams,
+            "MT-M-S": fp.COUNTS.kernel_tapers_mixed_streams,
+            "PFB-M-S": fp.COUNTS.kernel_pfb_mixed_streams,
+            "SK-B-S": fp.COUNTS.kernel_sk_chirp_streams,
+            "MT-B-S": fp.COUNTS.kernel_tapers_chirp_streams,
+            "PFB-B-S": fp.COUNTS.kernel_pfb_chirp_streams,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -1132,7 +1170,10 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1,
             "BL-S windowed": "cuda_chirp_large", "SK-M": "cuda_sk",
             "MT-M": "cuda_multitaper", "PFB-M": "cuda_pfb",
             "SK-B": "cuda_sk", "MT-B": "cuda_multitaper",
-            "PFB-B": "cuda_pfb"}.get(kernel, "cuda")
+            "PFB-B": "cuda_pfb", "SK-M-S": "cuda_sk",
+            "MT-M-S": "cuda_multitaper", "PFB-M-S": "cuda_pfb",
+            "SK-B-S": "cuda_sk", "MT-B-S": "cuda_multitaper",
+            "PFB-B-S": "cuda_pfb"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -2315,17 +2356,19 @@ def phase_awkward(dev, rng, fp, fm, fb, adapt_batch, make_window, cli, ff,
 def drive_man_page(cli, fp, ff, tmp, streams: int, sk: bool = False) -> int:
     """The man-page session (matrix mode) through the CLI on the
     mixed-radix kernel (its streams entry over ``streams`` > 1; with
-    ``sk``, one stream with ``--sk-file`` on SK-M): exit 0, the kernel's
-    path, a .met of one 500-bin scan, a .bin (dB) within 1e-5 of the
-    float64 golden of the recorded stream(s) in linear power, its peak at
-    the tone, the SK file (``sk``) within 1e-4 of the float64 SK of the
-    same frames, and launches of the kernel alone. Returns them."""
+    ``sk``, ``--sk-file`` on SK-M, or over streams on SK-M-S): exit 0,
+    the kernel's path, a .met of one 500-bin scan, a .bin (dB) within 1e-5
+    of the float64 golden of the recorded stream(s) in linear power, its
+    peak at the tone, the SK file (``sk``) within 1e-4 of the float64 SK
+    of the same frames (every stream's together, M = streams x 100), and
+    launches of the kernel alone. Returns them."""
     N, repeats = 500, 100
     stem = os.path.join(tmp, f"man_page_{streams}{'_sk' * sk}")
     record = stem + ".iq"
     argv = MAN_PAGE_ARGV + ["-m", stem, "--record", record]
     shown = MAN_PAGE_ARGV + (["--sk-file"] if sk else [])
-    key = "SK-M" if sk else "M" if streams == 1 else "M streams"
+    key = ("SK-M-S" if streams > 1 else "SK-M") if sk else (
+        "M" if streams == 1 else "M streams")
     if streams > 1:
         argv += ["--streams", str(streams)]
         shown += ["--streams", str(streams)]
@@ -2352,7 +2395,9 @@ def drive_man_page(cli, fp, ff, tmp, streams: int, sk: bool = False) -> int:
     sk_line = ""
     if sk:
         sk_file, sk_err = sk_file_error(
-            stem + ".sk", recorded_frames(record, N)[:repeats], repeats)
+            stem + ".sk", np.concatenate([recorded_frames(r, N)[:repeats]
+                                          for r in records]),
+            streams * repeats)
         sk_line = (f"; SK file {len(sk_file)} bins, max |SK - float64 "
                    f"golden| {sk_err:.3e} (<= 1e-4)")
         check(len(sk_file) == N and sk_err <= 1e-4,
@@ -3597,24 +3642,27 @@ def phase_estimator_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
                   "rtl_power_fftw_tpu/models/pfb.py:262", "PFB-S", "PFB-S")]
 
 
-def drive_streams_sk_excise(cli, fp, ff, tmp) -> int:
+def drive_streams_sk_excise(cli, fp, ff, tmp, S: int = C5_STREAMS,
+                            N: int = 2048, key: str = "SK-S",
+                            burst_stream: int = 5) -> int:
     """``--streams 16 --sk-excise 3`` through the CLI on 16 recorded
-    streams of 512 2048-bin frames (two 256-frame blocks each), a tone
-    burst in block 1 of stream 5 only: each stream's file comes from its
-    own recording (the session's ``make_sources`` is given one per stream
-    for this drive), exit 0, the SK streams kernel alone, the spectrum
-    within 1e-5 of the float64 golden of the excised average (each
-    stream's blocks gated on their own float64 SK) at every bin whose
-    float64 SK stays 1e-3 of the limit away from it in every block, the
-    burst's bin back at the noise floor, the kept fraction of
+    streams of 512 2048-bin frames (two 256-frame blocks each; ``S``
+    streams of ``N`` bins on the streams form ``key``), a tone burst in
+    block 1 of stream 5 (``burst_stream``) only: each stream's file comes
+    from its own recording (the session's ``make_sources`` is given one
+    per stream for this drive), exit 0, the SK streams kernel alone, the
+    spectrum within 1e-5 of the float64 golden of the excised average
+    (each stream's blocks gated on their own float64 SK) at every bin
+    whose float64 SK stays 1e-3 of the limit away from it in every block,
+    the burst's bin back at the noise floor, the kept fraction of
     --stats-json. Returns the kernel's launches."""
     from rtl_power_fftw_tpu_torch import session as session_mod
     from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
     from rtl_power_fftw_tpu_torch.sources import FileSource
-    S, N, F, blocks, burst_stream = C5_STREAMS, 2048, 256, 2, 5
+    F, blocks = 256, 2
     repeats = F * blocks
     rng = np.random.default_rng(43)
-    base = os.path.join(tmp, "streams_rfi.iq")
+    base = os.path.join(tmp, f"streams_rfi_{N}.iq")
     frames = []
     for s in range(S):
         iq = rng.normal(127.0, 6.0, size=2 * N * repeats)
@@ -3626,7 +3674,7 @@ def drive_streams_sk_excise(cli, fp, ff, tmp) -> int:
         raw_np = np.clip(np.round(iq), 0, 255).astype(np.uint8)
         raw_np.tofile(f"{base}.s{s}")
         frames.append(raw_np.reshape(-1, 2 * N))
-    stats = os.path.join(tmp, "streams_rfi_stats.jsonl")
+    stats = os.path.join(tmp, f"streams_rfi_stats_{N}.jsonl")
     argv = ["-f", "100M", "-b", str(N), "-n", str(repeats), "-l",
             "--streams", str(S), "--frames-per-step", str(F), "--sk-excise",
             "3", "--stats-json", stats, "--source", f"file:{base}.s0"]
@@ -3643,7 +3691,7 @@ def drive_streams_sk_excise(cli, fp, ff, tmp) -> int:
     check(rc == 0, f"streams sk-excise drive exited {rc}")
     check("Transform path: cuda_sk " in err
           and f"Parallel streams: {S} (mesh size 1)" in err,
-          "streams sk-excise drive off SK-S")
+          f"streams sk-excise drive off {key}")
     s1 = np.zeros(N)
     clean = np.zeros(N)
     kept = np.zeros(N)
@@ -3689,8 +3737,8 @@ def drive_streams_sk_excise(cli, fp, ff, tmp) -> int:
     check(abs(rec["sk_kept_fraction"] - frac)
           <= np.fft.fftshift(near).sum() * F / (total * N) + 1e-9,
           "streams sk-excise drive: kept fraction")
-    check_only(counts, "SK-S", "streams sk-excise drive")
-    return counts["SK-S"]
+    check_only(counts, key, "streams sk-excise drive")
+    return counts[key]
 
 
 def drive_streams_pfb_scan(cli, fp, ff, tmp) -> int:
@@ -5992,6 +6040,601 @@ def phase_chirp_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff,
                   "rtl_power_fftw_tpu/models/pfb.py:48")]
 
 
+
+# Phase 21's CLI drives over --streams at the awkward bin counts (the tone
+# source, linear output), less their "--record <path>" and SK files: the
+# man-page scan over two streams with --sk-file (drive_man_page), and
+# these; the burst drive is drive_streams_sk_excise at 998 bins over 2.
+AWK_PFB_ARGV = ["-f", "100M", "-n", "400", "-b", "500", "-l", "--streams",
+                "2", "--pfb-taps", "4", "--source", SOURCE]
+AWK_SK998_ARGV = ["-f", "100M", "-n", "100", "-b", "998", "-l",
+                  "--streams", "2", "--source", SOURCE]
+AWK_MT_ARGV = ["-f", "100M", "-n", "1000", "-b", "2400", "-l", "--streams",
+               "4", "--multitaper", "7", "--source", SOURCE]
+AWK_SK_BLUESTEIN_ARGV = ["-f", "100M", "-n", "400", "-b", "2048", "-l",
+                         "--streams", "2", "--fft-backend", "bluestein",
+                         "--source", SOURCE]
+AWK_C5_ARGV = ["-f", "100M", "-n", "1024", "-b", "500", "--streams",
+               str(C5_STREAMS), "--frames-per-step", "256", "-l", "--source",
+               SOURCE]
+AWK_MT998_ARGV = ["-f", "100M", "-n", "400", "-b", "998", "-l", "--streams",
+                  "2", "--multitaper", "7", "--source", SOURCE]
+AWK_PFB4094_ARGV = ["-f", "100M", "-n", "200", "-b", "4094", "-l",
+                    "--streams", "2", "--pfb-taps", "4", "--source", SOURCE]
+
+
+def drive_awkward_streams(label, argv, key, kind, cli, fp, ff, tmp) -> int:
+    """One drive over ``--streams`` through ``cli.main`` (drive()): the
+    streams form ``key`` alone, the spectrum against the mean of the
+    per-stream float64 goldens of the recorded streams (``kind`` SK: their
+    s1; MT: K = 7 tapers; PFB: P = 4 from reset histories), and for SK the
+    SK file (M = S repeats) within 1e-4 of the float64 SK of every
+    stream's frames together. Returns the drive's launches of ``key``."""
+    from rtl_power_fftw_tpu_torch.models.multitaper import _session_tapers
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    N = int(argv[argv.index("-b") + 1])
+    repeats = int(argv[argv.index("-n") + 1])
+    S = int(argv[argv.index("--streams") + 1])
+    tag = re.sub(r"\W+", "_", label)
+    record = os.path.join(tmp, f"{tag}.iq")
+    sk_path = os.path.join(tmp, f"{tag}.sk")
+    extra = [f"--sk-file={sk_path}"] if kind == "SK" else []
+
+    def frames():
+        return [recorded_frames(f"{record}.s{s}", N)[:repeats]
+                for s in range(S)]
+
+    def golden():
+        if kind == "MT":
+            tp = _session_tapers(N, 4.0, 7)
+            pwr = sum(golden_tapers(x, repeats, tp) for x in frames())
+        elif kind == "PFB":
+            h = pfb_prototype(N, 4).reshape(4, N)
+            warm = np.full((3, 2 * N), 127, np.uint8)
+            pwr = sum(golden_pfb(np.concatenate([warm, x]), repeats, h)
+                      for x in frames())
+        else:
+            pwr = sum(golden_moments(x, repeats)[0] for x in frames())
+        return golden_finalize_linear(np.fft.fftshift(pwr), S * repeats,
+                                      RATE)
+
+    launches = drive(label, argv + extra + ["--record", record], cli, fp,
+                     ff, key, N, golden, GOLDEN_RTOL, streams=S,
+                     peak_bins=4 if kind == "MT" else 1)
+    if kind == "SK":
+        sk_file, sk_err = sk_file_error(sk_path, np.concatenate(frames()),
+                                        S * repeats)
+        print(f"e2e {label} SK file: {len(sk_file)} bins, '# Spectra "
+              f"accumulated: {S * repeats}' (S x repeats), max |SK - "
+              f"float64 golden| {sk_err:.3e} (<= 1e-4)")
+        check(len(sk_file) == N and sk_err <= 1e-4, f"{label}: SK file")
+    return launches
+
+
+def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
+                          card):
+    """21. The CLI estimators over ``--streams`` at the awkward bin counts
+    (the streams forms SK-M-S, MT-M-S, PFB-M-S of ``fused_psd_mixed_est``
+    and SK-B-S, MT-B-S, PFB-B-S of ``fused_psd_chirp_est``): each form's
+    registers, spill, shared bytes and blocks per SM beside its one-stream
+    form's; each against its plain version and the per-stream float64
+    golden (``hold_streams``), twice (the same bits), at S = 2 and 16 with
+    uneven counts, SK with and without Hann and the gate; SK's s1 the PSD
+    streams entry's rows (M-S, B-S) bit for bit, each stream's rows the
+    one-stream form's on the same groups, the gate on each stream's own
+    count (a burst in one stream gates only that stream's bin); the PFB's
+    histories over three steps and a reset against plain's and the
+    one-stream form's; 60-seed yards at 500 and 998 with S = 2; times at
+    S = 2, F = 2048 (2400 mixed, 998 chirp-Z) beside two one-stream calls,
+    M-S or B-S, ``torch.fft.fft`` and the bound, and at the drives' steps;
+    nine drives, each on its streams form alone. Returns the kernels-line
+    entries."""
+    from rtl_power_fftw_tpu_torch.models.multitaper import _session_tapers
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_bluestein as fb
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_est as fc
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_mixed_est as fe
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_sk as fsk
+    t0 = time.perf_counter()
+    fams = {
+        "M": dict(mod=fe, sk=fe.fused_psd_sk_mixed_streams,
+                  mt=fe.fused_psd_tapers_mixed_streams,
+                  pfb=fe.fused_psd_pfb_mixed_streams,
+                  sk1=fe.fused_psd_sk_mixed, mt1=fe.fused_psd_tapers_mixed,
+                  pfb1=fe.fused_psd_pfb_mixed,
+                  psd=fm.fused_psd_mixed_streams,
+                  sk_ref=fe.fused_psd_sk_streams_reference,
+                  mt_ref=fe.fused_psd_tapers_streams_reference,
+                  pfb_ref=fe.fused_psd_pfb_streams_reference,
+                  psd_key="M streams"),
+        "B": dict(mod=fc, sk=fc.fused_psd_sk_chirp_streams,
+                  mt=fc.fused_psd_tapers_chirp_streams,
+                  pfb=fc.fused_psd_pfb_chirp_streams,
+                  sk1=fc.fused_psd_sk_chirp, mt1=fc.fused_psd_tapers_chirp,
+                  pfb1=fc.fused_psd_pfb_chirp,
+                  psd=fb.fused_psd_bluestein_streams,
+                  sk_ref=fc.sk_chirp_streams_reference,
+                  mt_ref=fc.tapers_chirp_streams_reference,
+                  pfb_ref=fc.pfb_chirp_streams_reference,
+                  psd_key="B streams")}
+
+    # Registers, spill, shared memory and residency beside the one-stream
+    # forms'.
+    for fam, sizes in (("M", (500, 2400, 12000, 16000)),
+                       ("B", (998, 4094, 8188))):
+        mod = fams[fam]["mod"]
+        for N in sizes:
+            for name, cut, w in (("SK", mod.SK, False),
+                                 ("SK windowed", mod.SK, True),
+                                 ("MT", mod.TAPERS, True),
+                                 ("PFB", mod.PFB, False)):
+                a = mod.kernel_attributes(N, cut, w)
+                b = mod.kernel_attributes(N, cut, w, streams=True)
+                print(f"occupancy {name.split()[0]}-{fam}-S"
+                      f"{' windowed' if w and cut == mod.SK else ''} N={N} "
+                      f"on {card}: {b['registers']} registers, "
+                      f"{b['spill_bytes']} B spill, {b['static_smem']} + "
+                      f"{b['dynamic_smem']} B shared, {b['threads']} "
+                      f"threads, {b['blocks_per_sm']} blocks/SM; the "
+                      f"one-stream form {a['registers']} registers, "
+                      f"{a['spill_bytes']} B spill, {a['static_smem']} + "
+                      f"{a['dynamic_smem']} B shared, {a['blocks_per_sm']} "
+                      f"blocks/SM")
+    reset_counts(fp, ff)
+    want = {k: 0 for k in ("SK-M-S", "MT-M-S", "PFB-M-S", "SK-B-S",
+                           "MT-B-S", "PFB-B-S", "SK-M", "MT-M", "PFB-M",
+                           "SK-B", "MT-B", "PFB-B", "M streams",
+                           "B streams")}
+
+    def case(fam, N, S, F, wname):
+        """Each form of ``fam`` at S streams of F frames, uneven counts
+        (F - 1 and 2 at S = 2; F, 0, 3, F - 1, 1, ... at S = 16): twice,
+        against plain and the per-stream golden, SK's s1 the PSD streams
+        entry's, each stream the one-stream form's on the same groups; the
+        PFB over three steps and a reset."""
+        f = fams[fam]
+        mod = f["mod"]
+        chunk = adapt_batch(F)[1]
+        counts = (np.array([F - 1, 2], np.int32) if S == 2 else
+                  np.resize(np.array([F, 0, 3, F - 1, 1, F, F // 2 + 1, 2],
+                                     np.int32), S))
+        nv = torch.from_numpy(counts).to(dev)
+        nv_cpu = torch.from_numpy(counts)
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        head = (f"awkward streams {fam} N={N} S={S} F={F} chunk={chunk} "
+                f"window={wname} counts {counts.tolist()}")
+        gold = [golden_moments(raw_np[s], int(c), w_np)
+                for s, c in enumerate(counts)]
+        sk_group = mod.sk_group(S * F, chunk, N, w is not None, dev.index)
+        for sigma in (0.0, 3.0):
+            got = f["sk"](raw, nv, chunk, w, sigma)
+            again = f["sk"](raw, nv, chunk, w, sigma)
+            psd = f["psd"](raw, nv, chunk, w)
+            ref = f["sk_ref"](raw, nv, chunk, w, sigma)
+            singles = [f["sk1"](raw[s], int(c), chunk, w, sigma,
+                                group=sk_group)
+                       for s, c in enumerate(counts)]
+            torch.cuda.synchronize()
+            want[f"SK-{fam}-S"] += 2
+            want[f["psd_key"]] += 1
+            want[f"SK-{fam}"] += S
+            label = f"SK-{fam}-S {head} gate={sigma:g}"
+            check(torch.equal(got, again), f"{label}: not deterministic")
+            check(torch.equal(got[:, 0], psd),
+                  f"{label}: s1 is not {f['psd_key']}'s rows")
+            check(all(torch.equal(got[s], singles[s]) for s in range(S)),
+                  f"{label}: a stream is not the one-stream form's")
+            g_np, r_np = got.cpu().numpy(), ref.cpu().numpy()
+            line = [f"s{i + 1}: " + hold_streams(
+                f"{label} s{i + 1}", g_np[:, i], r_np[:, i],
+                np.stack([g[i] for g in gold]), counts,
+                (i + 1) * GOLDEN_RTOL) for i in range(2)]
+            if sigma > 0.0:
+                M = torch.from_numpy(counts.astype(np.float32))[:, None]
+                keep = fsk.sk_keep(got[:, 0].cpu(), got[:, 1].cpu(), M,
+                                   sigma).numpy()
+                check(np.array_equal(g_np[:, 3], M.numpy() * keep)
+                      and np.array_equal(g_np[:, 2], g_np[:, 0] * keep),
+                      f"{label}: the gate is not each stream's sk_keep")
+                line.append(f"gate {int(keep.sum())} of {S * N} "
+                            "stream-bins kept, each stream's sk_keep")
+            print(f"{label} ({sk_group} frames a block): the same bits "
+                  f"twice, s1 {f['psd_key']}'s rows, each stream the "
+                  f"one-stream form's; " + "; ".join(line))
+        K = 7
+        tp_np = _session_tapers(N, 4.0 if N > 30 else 2.0, K)
+        tp = torch.from_numpy(tp_np).to(dev)
+        mt_group = mod.tapers_group(S * F, chunk, N, K, dev.index,
+                                    streams=True)
+        got = f["mt"](raw, nv, chunk, tp)
+        again = f["mt"](raw, nv, chunk, tp)
+        ref = f["mt_ref"](raw, nv, chunk, tp)
+        singles = [f["mt1"](raw[s], int(c), chunk, tp, group=mt_group)
+                   for s, c in enumerate(counts)]
+        torch.cuda.synchronize()
+        want[f"MT-{fam}-S"] += 2
+        want[f"MT-{fam}"] += S
+        label = f"MT-{fam}-S {head} K={K}"
+        check(torch.equal(got, again), f"{label}: not deterministic")
+        check(all(torch.equal(got[s], singles[s]) for s in range(S)),
+              f"{label}: a stream is not the one-stream form's")
+        gold_mt = np.stack([golden_tapers(raw_np[s], int(c), tp_np)
+                            for s, c in enumerate(counts)])
+        print(f"{label} ({mt_group} frames a block): the same bits twice, "
+              f"each stream the one-stream form's; " + hold_streams(
+                  label, got.cpu().numpy(), ref.cpu().numpy(), gold_mt,
+                  counts))
+        P = 4
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        pfb_group = mod.pfb_group(S * F, chunk, N, dev.index, streams=True)
+        hist = [torch.empty((S, P - 1, 2 * N), dtype=torch.uint8,
+                            device=dev) for _ in range(3)]
+        hist_p = [torch.empty((S, P - 1, 2 * N), dtype=torch.uint8)
+                  for _ in range(2)]
+        hs = [[torch.empty((P - 1, 2 * N), dtype=torch.uint8, device=dev)
+               for _ in range(2)] for _ in range(S)]
+        virtual = [None] * S
+        schedule = [counts, np.roll(counts, 1), np.roll(counts, 3), counts]
+        for k, cnt in enumerate(schedule):
+            fresh = k in (0, 3)
+            step_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+            step = torch.from_numpy(step_np).to(dev)
+            c_dev = torch.from_numpy(cnt).to(dev)
+            got = f["pfb"](step, hist[0], c_dev, chunk, h, hist[1],
+                           fresh=fresh)
+            again = f["pfb"](step, hist[0], c_dev, chunk, h, hist[2])
+            ref = f["pfb_ref"](step.cpu(), hist_p[0], torch.from_numpy(cnt),
+                               chunk, h.cpu(), hist_p[1], fresh=fresh)
+            singles = [f["pfb1"](step[s], hs[s][0], int(c), chunk, h,
+                                 hs[s][1], fresh=fresh, group=pfb_group)
+                       for s, c in enumerate(cnt)]
+            torch.cuda.synchronize()
+            want[f"PFB-{fam}-S"] += 2
+            want[f"PFB-{fam}"] += S
+            gold_p = []
+            for s, c in enumerate(cnt):
+                if fresh:
+                    virtual[s] = np.full((P - 1, 2 * N), 127, np.uint8)
+                v = np.concatenate([virtual[s], step_np[s]])
+                gold_p.append(golden_pfb(v, int(c), h_np))
+                virtual[s] = v[int(c):int(c) + P - 1]
+            same_hist = (torch.equal(hist[1], hist[2])
+                         and torch.equal(hist[1].cpu(), hist_p[1])
+                         and np.array_equal(hist[1].cpu().numpy(),
+                                            np.stack(virtual)))
+            same_one = all(torch.equal(got[s], singles[s])
+                           and torch.equal(hist[1][s], hs[s][1])
+                           for s in range(S))
+            label = (f"PFB-{fam}-S {head} P={P} step {k}"
+                     f"{' (a reset)' if k == 3 else ''}")
+            check(torch.equal(got, again) and same_hist and same_one,
+                  f"{label}: the same bits twice, histories {same_hist}, "
+                  f"one-stream bits {same_one}")
+            print(f"{label} counts {cnt.tolist()} ({pfb_group} frames a "
+                  "block): the same bits twice, histories on the card "
+                  "plain's and the virtual rows' bit for bit, each "
+                  "stream's rows and history the one-stream form's; "
+                  + hold_streams(label, got.cpu().numpy(), ref.numpy(),
+                                 np.stack(gold_p), cnt))
+            hist[0], hist[1] = hist[1], hist[0]
+            hist_p.reverse()
+            for s in range(S):
+                hs[s].reverse()
+
+    man_F = adapt_batch(drive_frames_per_step(MAN_PAGE_ARGV, 2))[0]
+    for fam, N, S, F, wname in (("M", 500, 2, man_F, None),
+                                ("M", 2400, 16, 64, "hann"),
+                                ("M", 12000, 2, 16, None),
+                                ("M", 16000, 2, 16, "hann"),
+                                ("M", 30, 16, 64, None),
+                                ("B", 998, 2, 64, None),
+                                ("B", 22, 16, 64, "hann"),
+                                ("B", 4094, 2, 32, "hann"),
+                                ("B", 8188, 2, 16, None),
+                                ("B", 2048, 2, 64, None)):
+        case(fam, N, S, F, wname)
+
+    # A burst in one stream: that stream's bin is gated on its own count,
+    # the other streams keep it.
+    for fam, N in (("M", 500), ("B", 998)):
+        S, F = 4, 64
+        iq = rng.normal(127.0, 6.0, size=(S, F, 2 * N))
+        burst = 40.0 * np.exp(2j * np.pi * 9 * np.arange(N) / N)
+        iq[1, :F // 4, 0::2] += burst.real
+        iq[1, :F // 4, 1::2] += burst.imag
+        raw = torch.from_numpy(np.clip(np.round(iq), 0, 255).astype(
+            np.uint8)).to(dev)
+        counts = np.array([F, F, F - 4, 0], np.int32)
+        rows = fams[fam]["sk"](raw, torch.from_numpy(counts).to(dev), 16,
+                               None, 3.0).cpu().numpy()
+        want[f"SK-{fam}-S"] += 1
+        kept = rows[:, 3, 9]
+        check(kept[1] == 0.0 and kept[0] == F and kept[2] == F - 4
+              and kept[3] == 0, f"SK-{fam}-S burst: kept {kept}")
+        print(f"awkward streams SK-{fam}-S N={N} S={S} F={F}, a burst at "
+              f"bin 9 in stream 1's first {F // 4} frames, counts "
+              f"{counts.tolist()}: kept at bin 9 {kept.tolist()} (the "
+              "burst stream gated alone, on its own count)")
+    counts_now = launch_counts(fp, ff)
+    check(all(counts_now[k] == v for k, v in want.items())
+          and not any(v for k, v in counts_now.items() if k not in want),
+          f"awkward streams launch counts: {counts_now}, expected {want}")
+    print(f"wall: awkward streams checks in {time.perf_counter() - t0:.1f} s")
+
+    # The yards: 60 seeds of 35 dB tones at 500 and 998 bins, two streams
+    # of 32 frames a seed, each stream's rows against the float64 golden
+    # and the scipy float32 class.
+    reset_counts(fp, ff)
+    S, Fy = 2, 32
+    yard_nv = torch.full((S,), Fy, dtype=torch.int32, device=dev)
+    for fam, N in (("M", 500), ("B", 998)):
+        f = fams[fam]
+
+        def split(r, N=N):
+            return r.reshape(S, Fy, 2 * N)
+
+        def z64s(r, N=N):
+            return dequant64(r).reshape(S, Fy, N)
+
+        for wname in (None, "hann"):
+            w_np = None if wname is None else make_window(wname, N)
+            w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+            wz = 1.0 if w_np is None else w_np.astype(np.float64)
+            estimator_yard(
+                f"SK-{fam}-S s2{' hann' if wname else ''} (2 streams of "
+                f"{Fy} frames)",
+                lambda r, f=f, w=w, split=split: f["sk"](
+                    torch.from_numpy(split(r)).to(dev), yard_nv, Fy,
+                    w)[:, 1].cpu().numpy(),
+                lambda r, w_np=w_np, split=split: np.stack(
+                    [golden_moments(x, Fy, w_np)[1] for x in split(r)]),
+                lambda r, wz=wz, z64s=z64s: (f32_class_rows(z64s(r) * wz)
+                                             ** 2).sum(1),
+                N, S * Fy, 21000 + N + (wname is not None))
+        tp_np = _session_tapers(N, 4.0, 7)
+        tp = torch.from_numpy(tp_np).to(dev)
+        estimator_yard(
+            f"MT-{fam}-S K=7 (2 streams of {Fy} frames)",
+            lambda r, f=f, tp=tp, split=split: f["mt"](
+                torch.from_numpy(split(r)).to(dev), yard_nv, Fy,
+                tp).cpu().numpy(),
+            lambda r, tp_np=tp_np, split=split: np.stack(
+                [golden_tapers(x, Fy, tp_np) for x in split(r)]),
+            lambda r, tp_np=tp_np, z64s=z64s: f32_class_rows(
+                z64s(r)[:, :, None, :] * tp_np.astype(np.float64)[None, None]
+            ).mean(2).sum(1), N, S * Fy, 21100 + N)
+        P = 4
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        hist = [torch.empty((S, P - 1, 2 * N), dtype=torch.uint8,
+                            device=dev) for _ in range(2)]
+        warm = np.full((P - 1, 2 * N), 127, np.uint8)
+
+        def pfb_class(r, h_np=h_np, warm=warm, split=split):
+            rows = []
+            for x in split(r):
+                sums = fpf.pfb_sums_reference(
+                    torch.from_numpy(np.concatenate([warm, x])),
+                    torch.from_numpy(h_np), Fy).numpy()
+                rows.append(f32_class_rows(sums.astype(np.complex128)).sum(0))
+            return np.stack(rows)
+
+        estimator_yard(
+            f"PFB-{fam}-S P=4 (2 streams of {Fy} frames)",
+            lambda r, f=f, h=h, hist=hist, split=split: f["pfb"](
+                torch.from_numpy(split(r)).to(dev), hist[0], yard_nv, Fy, h,
+                hist[1], fresh=True).cpu().numpy(),
+            lambda r, h_np=h_np, warm=warm, split=split: np.stack(
+                [golden_pfb(np.concatenate([warm, x]), Fy, h_np)
+                 for x in split(r)]),
+            pfb_class, N, S * Fy, 21200 + N)
+    counts_now = launch_counts(fp, ff)
+    check(all(counts_now[f"{k}-{fam}-S"] == (120 if k == "SK" else 60)
+              for k in ("SK", "MT", "PFB") for fam in "MB")
+          and sum(counts_now.values()) == 480,
+          f"awkward streams yards' launches: {counts_now}")
+    print(f"wall: awkward streams yards in {time.perf_counter() - t0:.1f} s")
+
+    # Times (PERF.md states their prediction) at S = 2, F = 2048 (2400
+    # bins for the mixed-radix forms, 998 for the chirp-Z forms: phase
+    # 13's M-S and B-S shapes): a call (median of 60 event-timed calls),
+    # the device's part beside two one-stream calls of the form on the
+    # same frames and the PSD streams entry, in turns, the wrapper's host
+    # part, the plain version, torch.fft.fft on the same transforms and
+    # the bound at S F frames; then the device time at each drive's step.
+    times = {}
+    S, F = 2, 2048
+    for fam, N in (("M", 2400), ("B", 998)):
+        f = fams[fam]
+        chunk = adapt_batch(F)[1]
+        raw = torch.from_numpy(rng.integers(0, 256, (S, F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        full = torch.full((S,), F, dtype=torch.int32, device=dev)
+        z = torch.complex(raw[..., 0::2].float() - 127.0,
+                          raw[..., 1::2].float() - 127.0).reshape(S * F, N)
+        tp = torch.from_numpy(_session_tapers(N, 4.0, 7)).to(dev)
+        P = 4
+        h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+        hist = [torch.full((S, P - 1, 2 * N), 127, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
+        one_hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8,
+                               device=dev) for _ in range(2)]
+        forms = {
+            "SK": (lambda: f["sk"](raw, full, chunk),
+                   lambda: f["sk_ref"](raw, full, chunk),
+                   lambda: [f["sk1"](raw[s], F, chunk) for s in range(S)],
+                   z, estimator_bound_ms("SK", S * F, N)),
+            "MT": (lambda: f["mt"](raw, full, chunk, tp),
+                   lambda: f["mt_ref"](raw, full, chunk, tp),
+                   lambda: [f["mt1"](raw[s], F, chunk, tp)
+                            for s in range(S)],
+                   (z[:, None, :] * tp[None]).reshape(S * F * 7, N),
+                   estimator_bound_ms("MT", S * F, N, K=7)),
+            "PFB": (lambda: f["pfb"](raw, hist[0], full, chunk, h, hist[1]),
+                    lambda: f["pfb_ref"](raw, hist[0], full, chunk, h,
+                                         hist[1]),
+                    lambda: [f["pfb1"](raw[s], one_hist[0], F, chunk, h,
+                                       one_hist[1]) for s in range(S)],
+                    torch.cat([fpf.pfb_sums_reference(
+                        torch.cat([hist[0][s], raw[s]]), h, F)
+                        for s in range(S)]),
+                    estimator_bound_ms("PFB", S * F, N, P=P))}
+
+        def psd_call(f=f, raw=raw, full=full, chunk=chunk):
+            return f["psd"](raw, full, chunk)
+
+        for kind, (kernel, plain_fn, singles, zz, bound) in forms.items():
+            got = kernel().double()
+            ref = plain_fn().double()
+            rel = max_rel(got.cpu().numpy(), ref.cpu().numpy())
+            check(rel <= UNIFORM_RTOL, f"{kind}-{fam}-S timed shape: {rel} "
+                  "vs plain")
+            kd, sd, pd = [], [], []
+            for _ in range(2):
+                kd.append(device_times_us(kernel))
+                sd.append(device_times_us(singles, calls=10))
+                pd.append(device_times_us(psd_call))
+            t = {"max_abs": float((got - ref).abs().max()), "bound": bound,
+                 "call": event_times_us(kernel),
+                 "plain": event_times_us(plain_fn, iters=20, warmup=3),
+                 "host": host_us(kernel),
+                 "singles": event_times_us(singles, iters=20, warmup=3),
+                 "lib": event_times_us(lambda: torch.fft.fft(zz, dim=-1)),
+                 "lib_device": device_times_us(lambda: torch.fft.fft(
+                     zz, dim=-1)),
+                 "device": min(kd), "singles_device": min(sd),
+                 "psd_device": min(pd)}
+            times[(kind, fam)] = t
+            b_us = 1e3 * bound[0]
+            print(f"time awkward streams {kind}-{fam}-S S={S} N={N} F={F}"
+                  f"{' K=7' if kind == 'MT' else ''}"
+                  f"{' P=4' if kind == 'PFB' else ''} on {card}: a call "
+                  f"{t['call']:.1f} us, device {kd[0]:.1f}/{kd[1]:.1f} us, "
+                  f"host {t['host']:.1f} us "
+                  f"({S * F * N / t['device'] / 1e3:.2f} GS/s on the "
+                  f"device); two one-stream calls "
+                  f"{t['singles']:.1f} us, device {sd[0]:.1f}/{sd[1]:.1f} "
+                  f"(streams/two {t['device'] / t['singles_device']:.3f}); "
+                  f"{f['psd_key']} device {pd[0]:.1f}/{pd[1]:.1f} us "
+                  f"(form/{f['psd_key']} {t['device'] / t['psd_device']:.3f})"
+                  f"; plain {t['plain']:.1f} us; torch.fft.fft of the "
+                  f"{tuple(zz.shape)} complex64 transforms {t['lib']:.1f} us "
+                  f"a call (device {t['lib_device']:.1f}); bound "
+                  f"{b_us:.2f} us ({bound[1]}), device/bound "
+                  f"{t['device'] / b_us:.1f}x; max abs vs plain "
+                  f"{t['max_abs']:.4g}, max rel {rel:.3e}")
+    # Each drive's own step, every frame valid: the form's device time
+    # beside the PSD streams entry's on the same frames.
+    for label, kind, fam, argv, S in (
+            ("man page --streams 2 --sk-file", "SK", "M", MAN_PAGE_ARGV, 2),
+            ("--streams 2 --pfb-taps 4 -b 500", "PFB", "M", AWK_PFB_ARGV,
+             2),
+            ("--streams 2 --sk-file -b 998", "SK", "B", AWK_SK998_ARGV, 2),
+            ("--streams 4 --multitaper 7 -b 2400", "MT", "M", AWK_MT_ARGV,
+             4),
+            ("--streams 2 --sk-file -b 2048 bluestein", "SK", "B",
+             AWK_SK_BLUESTEIN_ARGV, 2),
+            ("--streams 16 -b 500 --sk-file", "SK", "M", AWK_C5_ARGV, 16),
+            ("--streams 2 --multitaper 7 -b 998", "MT", "B", AWK_MT998_ARGV,
+             2),
+            ("--streams 2 --pfb-taps 4 -b 4094", "PFB", "B",
+             AWK_PFB4094_ARGV, 2)):
+        f = fams[fam]
+        N = int(argv[argv.index("-b") + 1])
+        F, chunk = adapt_batch(256 if "--frames-per-step" in argv
+                               else drive_frames_per_step(argv, S))
+        raw = torch.from_numpy(rng.integers(0, 256, (S, F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        full = torch.full((S,), F, dtype=torch.int32, device=dev)
+        if kind == "SK":
+            def kernel(f=f, raw=raw, full=full, chunk=chunk):
+                return f["sk"](raw, full, chunk)
+        elif kind == "MT":
+            tp = torch.from_numpy(_session_tapers(N, 4.0, 7)).to(dev)
+
+            def kernel(f=f, raw=raw, full=full, chunk=chunk, tp=tp):
+                return f["mt"](raw, full, chunk, tp)
+        else:
+            h = torch.from_numpy(pfb_prototype(N, 4).reshape(4, N)).to(dev)
+            hist = [torch.full((S, 3, 2 * N), 127, dtype=torch.uint8,
+                               device=dev) for _ in range(2)]
+
+            def kernel(f=f, raw=raw, full=full, chunk=chunk, h=h,
+                       hist=hist):
+                return f["pfb"](raw, hist[0], full, chunk, h, hist[1])
+
+        def psd_call(f=f, raw=raw, full=full, chunk=chunk):
+            return f["psd"](raw, full, chunk)
+        kd = device_times_us(kernel)
+        pd = device_times_us(psd_call)
+        print(f"time awkward streams {kind}-{fam}-S at the drive step of "
+              f"{label} (S={S} N={N} F={F}) on {card}: device {kd:.1f} us, "
+              f"{f['psd_key']} {pd:.1f} us, {kd / pd:.3f}x; a call "
+              f"{event_times_us(kernel, iters=20, warmup=3):.1f} us")
+    print(f"wall: awkward streams times in {time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its streams form alone.
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["SK-M-S"] = drive_man_page(cli, fp, ff, tmp, 2, sk=True)
+        launches["SK-M-S"] += drive_awkward_streams(
+            "awkward streams --streams 16 -b 500 --sk-file", AWK_C5_ARGV,
+            "SK-M-S", "SK", cli, fp, ff, tmp)
+        launches["PFB-M-S"] = drive_awkward_streams(
+            "awkward streams --streams 2 --pfb-taps 4 -b 500", AWK_PFB_ARGV,
+            "PFB-M-S", "PFB", cli, fp, ff, tmp)
+        launches["MT-M-S"] = drive_awkward_streams(
+            "awkward streams --streams 4 --multitaper 7 -b 2400",
+            AWK_MT_ARGV, "MT-M-S", "MT", cli, fp, ff, tmp)
+        launches["SK-B-S"] = drive_awkward_streams(
+            "awkward streams --streams 2 --sk-file -b 998", AWK_SK998_ARGV,
+            "SK-B-S", "SK", cli, fp, ff, tmp)
+        launches["SK-B-S"] += drive_streams_sk_excise(
+            cli, fp, ff, tmp, S=2, N=998, key="SK-B-S", burst_stream=1)
+        launches["SK-B-S"] += drive_awkward_streams(
+            "awkward streams --streams 2 --sk-file -b 2048 --fft-backend "
+            "bluestein", AWK_SK_BLUESTEIN_ARGV, "SK-B-S", "SK", cli, fp,
+            ff, tmp)
+        launches["MT-B-S"] = drive_awkward_streams(
+            "awkward streams --streams 2 --multitaper 7 -b 998",
+            AWK_MT998_ARGV, "MT-B-S", "MT", cli, fp, ff, tmp)
+        launches["PFB-B-S"] = drive_awkward_streams(
+            "awkward streams --streams 2 --pfb-taps 4 -b 4094",
+            AWK_PFB4094_ARGV, "PFB-B-S", "PFB", cli, fp, ff, tmp)
+    print(f"wall: awkward streams phase in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, kind, fam, replaces):
+        t = times[(kind, fam)]
+        return {"name": name, "route": "cuda",
+                "source": CSRC + ("fused_psd_mixed_est.cu" if fam == "M"
+                                  else "fused_psd_chirp_est.cu"),
+                "replaces": replaces, "launches": launches[f"{kind}-{fam}-S"],
+                "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+                "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+                "device_ms": t["device"] / 1000.0,
+                "host_ms": t["host"] / 1000.0,
+                "singles_ms": t["singles"] / 1000.0,
+                "singles_device_ms": t["singles_device"] / 1000.0,
+                "streams_psd_device_ms": t["psd_device"] / 1000.0}
+
+    return [entry(f"fused_psd_{name}_{fam_name}_streams ({kind}-{fam}-S)",
+                  kind, fam, replaces)
+            for fam, fam_name in (("M", "mixed"), ("B", "chirp"))
+            for kind, name, replaces in (
+                ("SK", "sk", "rtl_power_fftw_tpu/models/kurtosis.py:205"),
+                ("MT", "tapers",
+                 "rtl_power_fftw_tpu/models/multitaper.py:227"),
+                ("PFB", "pfb", "rtl_power_fftw_tpu/models/pfb.py:262"))]
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -6085,7 +6728,9 @@ def main() -> int:
             ("fused_psd_pfb", "pfb_channelize_kernel", ""),
             ("fused_psd_csd", "psd_csd_kernel", ""),
             ("fused_psd_mixed_est", "psd_ring_est_kernel", ""),
-            ("fused_psd_chirp_est", "psd_chirp_est_kernel", "")):
+            ("fused_psd_chirp_est", "psd_chirp_est_kernel", ""),
+            ("fused_psd_mixed_est", "psd_ring_est_streams_kernel", ""),
+            ("fused_psd_chirp_est", "psd_chirp_est_streams_kernel", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -6373,6 +7018,13 @@ def main() -> int:
         cli, ff, card)
     lap("chirp estimators")
 
+    # 21. The CLI estimators over --streams at the awkward bin counts
+    # (SK-M-S ... PFB-B-S).
+    awkward_streams = phase_awkward_streams(
+        dev, np.random.default_rng(20261025), fp, adapt_batch, make_window,
+        cli, ff, card)
+    lap("awkward streams estimators")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -6422,7 +7074,8 @@ def main() -> int:
               large_w_launches, large_abs["hann"],
               ("L", 65536, 16, "hann")),
     ] + awkward + estimators + large_awkward + estimator_streams
-      + large_streams + library + mixed_estimators + chirp_estimators + [
+      + large_streams + library + mixed_estimators + chirp_estimators
+      + awkward_streams + [
         probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),

@@ -16,7 +16,9 @@ to 16384 and its chirp-Z form SK-B of
 and under ``--fft-backend bluestein``, on one stream; their plain PyTorch
 version on the CPU), which accumulates both moments in one pass, its s1
 the plain PSD step's bit for bit; over S streams its streams entry, which
-gates each stream on its own block before the sum over streams.
+gates each stream on its own block before the sum over streams (the
+streams form of the route's kernel: ``fused_psd_sk.cu``'s entry, SK-M-S
+or SK-B-S).
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.kernels.fused_psd_chirp_est import fused_psd_sk_chirp
-from ..ops.kernels.fused_psd_mixed_est import fused_psd_sk_mixed
+from ..ops.kernels.fused_psd_chirp_est import (fused_psd_sk_chirp,
+                                               fused_psd_sk_chirp_streams)
+from ..ops.kernels.fused_psd_mixed_est import (fused_psd_sk_mixed,
+                                               fused_psd_sk_mixed_streams)
 from ..ops.kernels.fused_psd_sk import (fused_psd_sk, fused_psd_sk_streams,
                                         sk_keep)
 from ..ops.spectral import (FrameSlicer, adapt_batch, bin_frequencies,
@@ -40,6 +44,10 @@ _sk_keep = sk_keep
 #: The SK step's kernel by ``estimator_route``'s route.
 SK_KERNELS = {"regs": fused_psd_sk, "mixed": fused_psd_sk_mixed,
               "bluestein": fused_psd_sk_chirp}
+#: The SK streams step's kernel by the same route over streams.
+SK_STREAMS_KERNELS = {"regs": fused_psd_sk_streams,
+                      "mixed": fused_psd_sk_mixed_streams,
+                      "bluestein": fused_psd_sk_chirp_streams}
 
 
 def compute_sk(s1: np.ndarray, s2: np.ndarray, M: int) -> np.ndarray:
@@ -116,18 +124,22 @@ class ShardedSkStep:
     ``excise_sigma > 0`` the four fields of :class:`SkSessionStep`, each
     stream gated on its own block's SK with its own M = n_valid[s] before
     the sum over streams, so one stream's burst never touches the others.
-    Stateless. Each stream's rows are those of the streams kernel
-    (``fused_psd_sk_streams``; "cuda_sk" on a card, "plain_sk" on the
-    CPU); only the N and ``backend`` that :class:`SkSessionStep` takes are
-    taken."""
+    Stateless. Each stream's rows are those of the route's streams kernel
+    (``estimator_route`` over streams: ``fused_psd_sk_streams`` at the
+    powers of two, ``fused_psd_sk_mixed_streams`` at the other even
+    7-smooth N up to 16384, ``fused_psd_sk_chirp_streams`` at the other
+    even N up to 8192 and under ``bluestein``; "cuda_sk" on a card,
+    "plain_sk" on the CPU); only the N and ``backend`` that
+    :class:`SkSessionStep` takes are taken."""
 
     def __init__(self, devices, N: int, frames_per_step: int, streams: int,
                  window: Optional[np.ndarray] = None,
                  excise_sigma: float = 0.0, backend: str = "auto"):
         one_device(devices)
         self._sigma = float(excise_sigma)
-        estimator_route(N, "--sk-excise" if self._sigma > 0.0
-                        else "--sk-file", backend, sharded=True)
+        self._kernel = SK_STREAMS_KERNELS[estimator_route(
+            N, "--sk-excise" if self._sigma > 0.0 else "--sk-file", backend,
+            sharded=True)]
         self.devices = list(devices)
         self.device = torch.device(devices[0])
         self.N = N
@@ -149,8 +161,8 @@ class ShardedSkStep:
         (len(fields), N)), on the device; on CUDA computed asynchronously
         on the current stream."""
         raw, n_valid = stream_batch(self, raw, n_valid)
-        rows = fused_psd_sk_streams(raw, n_valid, self._chunk, self.window,
-                                    self._sigma)
+        rows = self._kernel(raw, n_valid, self._chunk, self.window,
+                            self._sigma)
         return rows[:, 0], rows.sum(dim=0)
 
 

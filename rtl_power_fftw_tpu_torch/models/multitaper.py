@@ -12,8 +12,8 @@ the other even 7-smooth N up to 16384 and its chirp-Z form MT-B of
 8192, on one stream; their plain PyTorch version on the CPU): one block
 runs every taper of its frames, each raw frame staged once in a
 shared-memory ring (MT-M and MT-B: the tapers on the grid's y axis); over
-S streams its streams entry, one row a stream. DPSS tapers come from
-scipy.
+S streams the streams form of the route's kernel, one row a stream. DPSS
+tapers come from scipy.
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ import numpy as np
 import torch
 
 from ..exceptions import ReturnValue, RPFexception
-from ..ops.kernels.fused_psd_chirp_est import fused_psd_tapers_chirp
-from ..ops.kernels.fused_psd_mixed_est import fused_psd_tapers_mixed
+from ..ops.kernels.fused_psd_chirp_est import (
+    fused_psd_tapers_chirp, fused_psd_tapers_chirp_streams)
+from ..ops.kernels.fused_psd_mixed_est import (
+    fused_psd_tapers_mixed, fused_psd_tapers_mixed_streams)
 from ..ops.kernels.fused_psd_tapers import (fused_psd_tapers,
                                             fused_psd_tapers_streams)
 from ..ops.spectral import (FrameSlicer, adapt_batch, bin_frequencies,
@@ -61,6 +63,10 @@ def _session_tapers(N: int, NW: float, K: int) -> np.ndarray:
 #: The multitaper step's kernel by ``estimator_route``'s route.
 TAPERS_KERNELS = {"regs": fused_psd_tapers, "mixed": fused_psd_tapers_mixed,
                   "bluestein": fused_psd_tapers_chirp}
+#: The multitaper streams step's kernel by the same route over streams.
+TAPERS_STREAMS_KERNELS = {"regs": fused_psd_tapers_streams,
+                          "mixed": fused_psd_tapers_mixed_streams,
+                          "bluestein": fused_psd_tapers_chirp_streams}
 
 
 def tapers_kernel(N: int):
@@ -116,14 +122,17 @@ class ShardedMultitaperStep:
     streams), on ``devices[0]``. Stateless: the eigenspectrum sums commute
     with any partition of the frames, so the combined row is
     :class:`MultitaperSessionStep` run on each stream and summed. The rows
-    are the streams kernel's (``fused_psd_tapers_streams``, the K tapers
+    are the route's streams kernel's (``fused_psd_tapers_streams``,
+    ``fused_psd_tapers_mixed_streams`` or ``fused_psd_tapers_chirp_streams``
+    where the single-stream step takes the same family, the K tapers
     shared; "cuda_multitaper" on a card, "plain_multitaper" on the CPU).
     ``--precision`` does not apply, as on one stream."""
 
     def __init__(self, devices, N: int, frames_per_step: int, streams: int,
                  K: int, NW: float = 4.0):
         one_device(devices)
-        estimator_route(N, "--multitaper", sharded=True)
+        self._kernel = TAPERS_STREAMS_KERNELS[estimator_route(
+            N, "--multitaper", sharded=True)]
         self.devices = list(devices)
         self.device = torch.device(devices[0])
         self.N = N
@@ -141,8 +150,7 @@ class ShardedMultitaperStep:
         (N,)), on the device; on CUDA computed asynchronously on the
         current stream."""
         raw, n_valid = stream_batch(self, raw, n_valid)
-        per_stream = fused_psd_tapers_streams(raw, n_valid, self._chunk,
-                                              self.tapers)
+        per_stream = self._kernel(raw, n_valid, self._chunk, self.tapers)
         return per_stream, per_stream.sum(dim=0)
 
 

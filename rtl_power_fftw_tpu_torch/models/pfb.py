@@ -13,8 +13,8 @@ the other even 7-smooth N up to 16384 and its chirp-Z form PFB-B of
 ``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to
 8192, on one stream; their plain PyTorch version on the CPU), which
 builds each frame's polyphase sum from its history and slot rows and
-transforms it; over S streams its streams entry, each stream's history on
-the device.
+transforms it; over S streams the streams form of the route's kernel,
+each stream's history on the device.
 
 ``pfb_psd(prototype=np.ones(M), taps=1)`` is exactly the Bartlett
 estimator (models/bartlett.py).
@@ -28,8 +28,10 @@ import numpy as np
 import torch
 
 from ..auxdata import make_window
-from ..ops.kernels.fused_psd_chirp_est import fused_psd_pfb_chirp
-from ..ops.kernels.fused_psd_mixed_est import fused_psd_pfb_mixed
+from ..ops.kernels.fused_psd_chirp_est import (fused_psd_pfb_chirp,
+                                               fused_psd_pfb_chirp_streams)
+from ..ops.kernels.fused_psd_mixed_est import (fused_psd_pfb_mixed,
+                                               fused_psd_pfb_mixed_streams)
 from ..ops.kernels.fused_psd_pfb import (MAX_TAPS, fused_psd_pfb,
                                          fused_psd_pfb_streams)
 from ..ops.kernels.fused_psd_pfb import pfb_channelize as _channelize
@@ -59,6 +61,10 @@ def pfb_prototype(M: int, taps: int = 4,
 #: The PFB step's kernel by ``estimator_route``'s route.
 PFB_KERNELS = {"regs": fused_psd_pfb, "mixed": fused_psd_pfb_mixed,
                "bluestein": fused_psd_pfb_chirp}
+#: The PFB streams step's kernel by the same route over streams.
+PFB_STREAMS_KERNELS = {"regs": fused_psd_pfb_streams,
+                       "mixed": fused_psd_pfb_mixed_streams,
+                       "bluestein": fused_psd_pfb_chirp_streams}
 
 
 class _PfbRunner:
@@ -154,16 +160,19 @@ class ShardedPfbStep:
     engine calls per acquisition, sets every stream's history to byte 127
     on the next step, so history never leaks across retunes or crosses
     streams. The combined row is :class:`PfbSessionStep` run on each
-    stream and summed. The rows are the streams kernel's
-    (``fused_psd_pfb_streams``; "cuda_pfb" on a card, "plain_pfb" on the
-    CPU); ``window`` names the prototype's window."""
+    stream and summed. The rows are the route's streams kernel's
+    (``fused_psd_pfb_streams``, ``fused_psd_pfb_mixed_streams`` or
+    ``fused_psd_pfb_chirp_streams`` where the single-stream step takes the
+    same family; "cuda_pfb" on a card, "plain_pfb" on the CPU); ``window``
+    names the prototype's window."""
 
     def __init__(self, devices, N: int, frames_per_step: int, streams: int,
                  taps: int = 4, window: str = "hann"):
         one_device(devices)
         if taps < 2:
             raise ValueError("pfb taps must be >= 2")
-        estimator_route(N, "--pfb-taps", sharded=True)
+        self._kernel = PFB_STREAMS_KERNELS[estimator_route(
+            N, "--pfb-taps", sharded=True)]
         self.devices = list(devices)
         self.device = torch.device(devices[0])
         self.N = N
@@ -190,9 +199,8 @@ class ShardedPfbStep:
         current stream, the next histories written behind it."""
         raw, n_valid = stream_batch(self, raw, n_valid)
         history, history_out = self._history
-        per_stream = fused_psd_pfb_streams(raw, history, n_valid,
-                                           self._chunk, self.h, history_out,
-                                           fresh=self._fresh)
+        per_stream = self._kernel(raw, history, n_valid, self._chunk,
+                                  self.h, history_out, fresh=self._fresh)
         self._fresh = False
         self._history.reverse()
         return per_stream, per_stream.sum(dim=0)

@@ -129,6 +129,22 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _P],
         # plan, cut (1 SK, 2 tapers, 3 PFB), windowed, device, attrs (int[6])
         "rpf_fused_psd_mixed_est_attributes": [_P, _I, _I, _I, _P],
+        # SK-M-S: raw, twiddle, order, window, n_valid, partial, out, plan,
+        # device, S, F, group, two_sigma, width, stream
+        "rpf_fused_psd_sk_mixed_streams": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _F, _I, _P],
+        # MT-M-S: raw, twiddle, order, tapers, n_valid, partial, out, plan,
+        # device, S, F, group, K, width, stream
+        "rpf_fused_psd_tapers_mixed_streams": [_P, _P, _P, _P, _P, _P, _P,
+                                               _P, _I, _I, _I, _I, _I, _I,
+                                               _P],
+        # PFB-M-S: raw, history, twiddle, order, h, n_valid, partial, out,
+        # history_out, plan, device, S, F, group, P, fresh, width, stream
+        "rpf_fused_psd_pfb_mixed_streams": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _P, _P, _I, _I, _I, _I, _I, _I,
+                                            _I, _P],
+        # the streams forms' attributes, as above
+        "rpf_fused_psd_mixed_est_streams_attributes": [_P, _I, _I, _I, _P],
     },
     "fused_psd_chirp_est": {
         # SK-B: raw, twiddle, window, chirp, spectrum, partial, out, device,
@@ -147,6 +163,25 @@ SIGNATURES = {
         # log2m, bins, cut (1 SK, 2 tapers, 3 PFB), windowed, device, attrs
         # (int[6])
         "rpf_fused_psd_chirp_est_attributes": [_I, _I, _I, _I, _I, _P],
+        # SK-B-S: raw, twiddle, window, chirp, spectrum, n_valid, partial,
+        # out, device, log2m, bins, S, F, group, two_sigma, width, stream
+        "rpf_fused_psd_sk_chirp_streams": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _I, _I, _F, _I,
+                                           _P],
+        # MT-B-S: raw, twiddle, tapers, chirp, spectrum, n_valid, partial,
+        # out, device, log2m, bins, S, F, group, K, width, stream
+        "rpf_fused_psd_tapers_chirp_streams": [_P, _P, _P, _P, _P, _P, _P,
+                                               _P, _I, _I, _I, _I, _I, _I,
+                                               _I, _I, _P],
+        # PFB-B-S: raw, history, twiddle, h, chirp, spectrum, n_valid,
+        # partial, out, history_out, device, log2m, bins, S, F, group, P,
+        # fresh, width, stream
+        "rpf_fused_psd_pfb_chirp_streams": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _P, _P, _I, _I, _I, _I, _I, _I,
+                                            _I, _I, _I, _P],
+        # the streams forms' attributes, as above
+        "rpf_fused_psd_chirp_est_streams_attributes": [_I, _I, _I, _I, _I,
+                                                       _P],
     },
     "fused_psd_mixed_large": {
         # raw, tw1, bin1, inter, window, tw2, order2, scratch, partial,

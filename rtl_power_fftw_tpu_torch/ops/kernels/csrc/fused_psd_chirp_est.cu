@@ -59,6 +59,17 @@
 // too; SK-B's second array then spills a few more bytes than B
 // (chip_smoke.py prints registers, spill and blocks an SM at each M).
 //
+// The streams forms (SK-B-S, MT-B-S, PFB-B-S: the --streams steps) run S
+// streams of F frames, (S*F, 2N), with an (S,) count array read on the
+// device: psd_chirp_est_streams_kernel is psd_chirp_est_kernel's body with
+// the stream folded into the grid's x axis as psd_chirp_kernel folds it
+// (block g serves stream g / G_s, that stream's frames, count and PFB
+// history rows), a kernel of its own so that the single-stream forms keep
+// their SASS; the second passes as fused_psd_mixed_est.cu's streams
+// forms', so each stream's rows are the single-stream form's on the same
+// groups and SK-B-S's s1 is rpf_fused_psd_chirp_streams's row, bit for
+// bit.
+//
 // What bounds them on an H100: B's bound (the frames' 2 bytes a sample,
 // and the FP32 work of two M-point transforms a frame, ~34 flop/byte at
 // 998 bins: operations), times K transforms for MT-B (the frames read once
@@ -74,6 +85,7 @@
 #include "device.cuh"
 #include "fused_psd_chirp.cuh"
 #include "fused_psd_est.cuh"
+#include "pfb_history.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -298,6 +310,225 @@ psd_chirp_est_kernel(const uint8_t* __restrict__ raw,      // (F, 2N)
   }
 }
 
+// The streams forms: begin (each repeats psd_chirp_est_kernel's body line
+// for line with the stream resolved from the block, so that the
+// single-stream kernels above keep their SASS).
+
+// psd_chirp_est_kernel over S streams of F frames, the stream folded into
+// the grid's x axis as psd_chirp_kernel folds it: block g (taper
+// blockIdx.y for kChirpTapers) serves stream s = g / G_s and sums its
+// cut's function over that stream's frames [j*group, min((j+1)*group, F,
+// counts[s])), j = g - s*G_s, into the partial rows the single-stream form
+// writes at block g of a grid of S*G_s: kChirpSk s1 at row g and s2 at row
+// S*G_s + g, kChirpTapers row y*S*G_s + g (= (y*S + s)*G_s + j, the order
+// est_streams_kernel reads), kChirpPfb row g. `history`: the PFB's (S, P -
+// 1, 2N) rows (taps = P), stream s's at s*(P - 1)*2N, else null.
+template <int LOG2M, bool WINDOWED, int CUT>
+__global__ void __launch_bounds__(ChirpShape<LOG2M>::THREADS,
+                                  ChirpShape<LOG2M>::MIN_BLOCKS)
+psd_chirp_est_streams_kernel(
+    const uint8_t* __restrict__ raw,      // (S*F, 2N)
+    const float2* __restrict__ twiddle,   // pass_twiddles(M)
+    const float* __restrict__ window,
+    const float2* __restrict__ chirp,     // (N,) a
+    const float2* __restrict__ spectrum,  // (M,) B / M
+    const uint8_t* __restrict__ history,  // (S, P-1, 2N) or null
+    float* __restrict__ partial, int bins, int row, int width, int F,
+    int group, int blocks_per_stream, const int* __restrict__ counts,
+    int taps) {
+  static_assert(CUT != kChirpTapers || WINDOWED, "a taper is a window");
+  static_assert(CUT != kChirpPfb || !WINDOWED, "h is no window");
+  using P = RegsPlan<LOG2M>;
+  using C = ChirpShape<LOG2M>;
+  constexpr int R = P::R, TF = P::TF, HALF = C::HALF;
+  constexpr int LAST = P::PASSES - 1;
+  constexpr int RL = pass_radix(LOG2M, LAST);
+  constexpr int BL = log2_of(RL);
+  static_assert(P::PASSES >= 2, "the turn is the last pass's butterfly, "
+                "and a ring slot is rewritten only after the barrier that "
+                "ends pass 0");
+  extern __shared__ float4 chirp_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid / TF;
+  const int t = tid % TF;
+  const int slot = ring_slot(bins);
+  float2* x = reinterpret_cast<float2*>(chirp_smem) + lane * C::XSTRIDE;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(chirp_smem) +
+                  C::LANES * C::XSTRIDE * 8 + lane * ring_bytes(bins);
+  if constexpr (CUT == kChirpTapers) window += blockIdx.y * bins;
+
+  // The window (the block's taper) at the thread's samples, held in
+  // registers where a thread has registers to spare (below 1024 threads).
+  constexpr bool HOLD = WINDOWED && C::THREADS < 1024;
+  float win[HOLD ? HALF : 1];
+  if constexpr (HOLD) {
+#pragma unroll
+    for (int k = 0; k < HALF; ++k) {
+      const int s = t + k * TF;
+      win[k] = s < bins ? __ldg(window + s) : 0.0f;
+    }
+  }
+  float acc[HALF];
+  float acc2[CUT == kChirpSk ? HALF : 1];   // kChirpSk: the sums of |X|^4
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) acc[k] = 0.0f;
+  if constexpr (CUT == kChirpSk) {
+#pragma unroll
+    for (int k = 0; k < HALF; ++k) acc2[k] = 0.0f;
+  }
+
+  const int stream = blockIdx.x / blocks_per_stream;
+  const int nv = __ldg(counts + stream);
+  const int f0 = (blockIdx.x - stream * blocks_per_stream) * group;
+  const int f1 = min(f0 + group, min(F, nv));
+  const int iters = (max(f1 - f0, 0) + C::LANES - 1) / C::LANES;
+  const uint8_t* frames = raw + static_cast<size_t>(stream) * F * 2 * bins;
+  const uint8_t* rows =
+      CUT == kChirpPfb && taps > 1
+          ? history + static_cast<size_t>(stream) * (taps - 1) * 2 * bins
+          : nullptr;
+
+  // Lane frame i of the block into ring slot i & 1 (an empty group past
+  // the lane's last frame, so that every thread counts the same groups).
+  auto prefetch = [&](int i) {
+    const int f = f0 + lane + C::LANES * i;
+    if (i < iters && f < f1) {
+      ring_copy(ring + (i & 1) * slot,
+                frames + static_cast<size_t>(f) * 2 * bins, 2 * bins, width,
+                t, TF);
+    }
+    cp_async_commit();
+  };
+
+  prefetch(0);
+  for (int i = 0; i < iters; ++i) {
+    prefetch(i + 1);
+    cp_async_wait<1>();   // this thread's copies of frame i have landed
+    __syncthreads();      // everyone's; x is free (pass 0 of frame i-1)
+    const int f = f0 + lane + C::LANES * i;
+    const bool active = f < f1;
+    float2 v[R];
+    if (active) {
+      const uint16_t* iq =
+          reinterpret_cast<const uint16_t*>(ring + (i & 1) * slot);
+#pragma unroll
+      for (int k = 0; k < HALF; ++k) {
+        const int s = t + k * TF;
+        float2 y = make_float2(0.0f, 0.0f);
+        if (s < bins) {
+          if constexpr (CUT == kChirpPfb) {
+            y = cmulf(pfb_sample(iq, frames, rows, window, f, taps, bins,
+                                 s),
+                      __ldg(chirp + s));
+          } else {
+            float w = 0.0f;
+            if constexpr (HOLD) {
+              w = win[k];
+            } else if constexpr (WINDOWED) {
+              w = __ldg(window + s);
+            }
+            y = cmulf(ring_sample<WINDOWED>(iq, s, w), __ldg(chirp + s));
+          }
+        }
+        v[k] = y;
+      }
+      // Pass 0 from registers: butterfly t, outputs to t + k1 * TF.
+      dif_stage_half_zero<R>(v);
+      dif_regs<R, R / 4>(v, 0);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k1 = rev_bits(r, log2_of(R));
+        float2 y = v[r];
+        if (k1 != 0) {
+          const float2 w = __ldg(twiddle + k1 * TF + t);
+          y = cmul(y, w.x, w.y);
+        }
+        x[pad_index(t + k1 * TF)] = y;
+      }
+    }
+    __syncthreads();
+    if constexpr (P::PASSES > 2) {
+      if (active) regs_pass<LOG2M, 1>(v, x, twiddle, t);
+      __syncthreads();
+    }
+    if constexpr (P::PASSES > 3) {
+      if (active) regs_pass<LOG2M, 2>(v, x, twiddle, t);
+      __syncthreads();
+    }
+    if (active) {
+      // The last forward pass leaves output rev_bits(r) of butterfly
+      // b = t + i2*TF in v[i2*RL + r]: element b*RL + rev_bits(r).
+      regs_pass<LOG2M, LAST>(v, x, twiddle, t);
+#pragma unroll
+      for (int i2 = 0; i2 < R / RL; ++i2) {
+        const int base = (t + i2 * TF) * RL;
+        float2 u[RL];
+        turn_inputs<RL>(u, v, i2 * RL, spectrum + base);
+        dif_regs<RL>(u, 0);
+#pragma unroll
+        for (int r = 0; r < RL; ++r) {
+          x[pad_index(base + rev_bits(r, BL))] = u[r];
+        }
+      }
+    }
+    __syncthreads();
+    if constexpr (P::PASSES > 3) {
+      if (active) regs_pass_t<LOG2M, 2>(v, x, twiddle, t);
+      __syncthreads();
+    }
+    if constexpr (P::PASSES > 2) {
+      if (active) regs_pass_t<LOG2M, 1>(v, x, twiddle, t);
+      __syncthreads();
+    }
+    if (active) {
+      regs_pass_t<LOG2M, 0>(v, x, twiddle, t);
+      if constexpr (CUT == kChirpSk) {
+        add_half_power_sk<R>(acc, acc2, v);
+      } else {
+        add_half_power<R>(acc, v);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every lane is done with its exchange buffer
+
+  // The lanes' sums by bin (kChirpSk: the |X|^4 sums in a second plane
+  // after them), then added lane by lane in order.
+  float* by_bin = reinterpret_cast<float*>(chirp_smem);   // (LANES, row)
+  float* by_bin2 = by_bin + C::LANES * row;               // kChirpSk's
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) {
+    const int bin = t + k * TF;
+    if (bin < bins) {
+      by_bin[lane * row + bin] = acc[k];
+      if constexpr (CUT == kChirpSk) by_bin2[lane * row + bin] = acc2[k];
+    }
+  }
+  __syncthreads();
+  const size_t prow = static_cast<size_t>(
+      CUT == kChirpTapers ? blockIdx.y * gridDim.x + blockIdx.x : blockIdx.x);
+  float* out = partial + prow * row;
+  float* out2 = partial + (static_cast<size_t>(gridDim.x) + blockIdx.x) * row;
+  for (int q = tid; q < row; q += C::THREADS) {
+    float sum = 0.0f;
+    float sum2 = 0.0f;
+    if (q < bins) {
+      sum = by_bin[q];
+#pragma unroll
+      for (int l = 1; l < C::LANES; ++l) sum += by_bin[l * row + q];
+      if constexpr (CUT == kChirpSk) {
+        sum2 = by_bin2[q];
+#pragma unroll
+        for (int l = 1; l < C::LANES; ++l) sum2 += by_bin2[l * row + q];
+      }
+    }
+    out[q] = sum;
+    if constexpr (CUT == kChirpSk) out2[q] = sum2;
+  }
+}
+
+// The streams forms: end.
+
 using EstKernel = void (*)(const uint8_t*, const float2*, const float*,
                            const float2*, const float2*, const uint8_t*,
                            float*, int, int, int, int, int, int, int);
@@ -388,6 +619,112 @@ cudaError_t launch_est(int cut, const void* raw, const void* twiddle,
       static_cast<const float2*>(spectrum),
       static_cast<const uint8_t*>(history), static_cast<float*>(partial),
       bins, row, width, F, group, n_valid, taps);
+  return cudaGetLastError();
+}
+
+using StreamsKernel = void (*)(const uint8_t*, const float2*, const float*,
+                               const float2*, const float2*, const uint8_t*,
+                               float*, int, int, int, int, int, int,
+                               const int*, int);
+
+struct StreamsInfo {
+  StreamsKernel kernel;
+  int threads;
+  int (*smem)(int bins);
+};
+
+template <int LOG2M, bool WINDOWED, int CUT>
+StreamsInfo streams_info() {
+  return {psd_chirp_est_streams_kernel<LOG2M, WINDOWED, CUT>,
+          ChirpShape<LOG2M>::THREADS, chirp_smem_bytes<LOG2M>};
+}
+
+template <bool WINDOWED, int CUT>
+StreamsInfo streams_of(int log2m) {
+  switch (log2m) {
+    case 6: return streams_info<6, WINDOWED, CUT>();
+    case 7: return streams_info<7, WINDOWED, CUT>();
+    case 8: return streams_info<8, WINDOWED, CUT>();
+    case 9: return streams_info<9, WINDOWED, CUT>();
+    case 10: return streams_info<10, WINDOWED, CUT>();
+    case 11: return streams_info<11, WINDOWED, CUT>();
+    case 12: return streams_info<12, WINDOWED, CUT>();
+    case 13: return streams_info<13, WINDOWED, CUT>();
+    default: return streams_info<14, WINDOWED, CUT>();
+  }
+}
+
+// est_pick for the streams forms.
+StreamsInfo streams_pick(int cut, bool windowed, int log2m, int bins) {
+  if (!chirp_size_ok(log2m, bins)) return StreamsInfo{nullptr, 0, nullptr};
+  if (cut == kChirpSk) {
+    return windowed ? streams_of<true, kChirpSk>(log2m)
+                    : streams_of<false, kChirpSk>(log2m);
+  }
+  if (cut == kChirpTapers && windowed) {
+    return streams_of<true, kChirpTapers>(log2m);
+  }
+  if (cut == kChirpPfb && !windowed) return streams_of<false, kChirpPfb>(log2m);
+  return StreamsInfo{nullptr, 0, nullptr};
+}
+
+std::atomic<unsigned long long>
+    streams_done[3][2][kRegsMaxLog2N - kRegsMinLog2N + 1];
+
+// est_prepare for the streams forms.
+cudaError_t streams_prepare(int cut, bool windowed, int log2m, int bins,
+                            int device, StreamsInfo* info, int* smem) {
+  *info = streams_pick(cut, windowed, log2m, bins);
+  if (info->kernel == nullptr) return cudaErrorInvalidValue;
+  *smem = info->smem(bins);
+  cudaError_t e = use_device(device);
+  if (e == cudaSuccess) {
+    e = opt_in_smem(info->kernel,
+                    *smem <= 48 * 1024 ? *smem : kChirpMaxSmem, device,
+                    streams_done[cut - 1][windowed][log2m - kRegsMinLog2N]);
+  }
+  return e;
+}
+
+// S streams of F frames in groups of `group` (a divisor of F), their
+// blocks within a grid's x axis.
+bool streams_args_ok(int S, int F, int group, const void* counts) {
+  return S > 0 && F > 0 && group > 0 && F % group == 0 &&
+         counts != nullptr &&
+         static_cast<long long>(S) * (F / group) <= 0x7fffffffLL;
+}
+
+// The first pass of a cut's streams form on a grid of S * G_s x `rows_y`
+// blocks, G_s = F / group.
+cudaError_t launch_est_streams_first(int cut, const void* raw,
+                                     const void* twiddle, const void* window,
+                                     const void* chirp, const void* spectrum,
+                                     const void* history, const void* counts,
+                                     void* partial, int device, int log2m,
+                                     int bins, int S, int F, int group,
+                                     int taps, int rows_y, int width,
+                                     cudaStream_t st) {
+  const bool windowed = cut == kChirpTapers || (cut == kChirpSk && window);
+  if (!width_ok(raw, bins, width) || twiddle == nullptr ||
+      chirp == nullptr || spectrum == nullptr ||
+      !streams_args_ok(S, F, group, counts) ||
+      (cut != kChirpSk && window == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  StreamsInfo info;
+  int smem = 0;
+  const cudaError_t e =
+      streams_prepare(cut, windowed, log2m, bins, device, &info, &smem);
+  if (e != cudaSuccess) return e;
+  const int row = (bins + kSumBins - 1) / kSumBins * kSumBins;
+  const int G_s = F / group;
+  info.kernel<<<dim3(S * G_s, rows_y), info.threads, smem, st>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const float2*>(twiddle),
+      static_cast<const float*>(window), static_cast<const float2*>(chirp),
+      static_cast<const float2*>(spectrum),
+      static_cast<const uint8_t*>(history), static_cast<float*>(partial),
+      bins, row, width, F, group, G_s, static_cast<const int*>(counts),
+      taps);
   return cudaGetLastError();
 }
 
@@ -510,6 +847,100 @@ int rpf_fused_psd_pfb_chirp(const void* raw, const void* history,
   return static_cast<int>(e);
 }
 
+// SK-B-S: S streams of F frames. raw: (S*F, 2N) u8, stream s in rows
+// [s*F, (s+1)*F), `width`-byte aligned; n_valid: (S,) int32 on the
+// device, read by the kernels when they run (a count outside [0, F] acts
+// as its nearest bound); group must divide F (G_s = F / group blocks a
+// stream); partial: (2 * S * G_s, row) f32 scratch; out: (S, 2, row) f32
+// (s1, s2 of each stream), or with two_sigma > 0 (S, 4, row), each stream
+// gated on its own moments and count. Other arguments as
+// rpf_fused_psd_sk_chirp.
+int rpf_fused_psd_sk_chirp_streams(const void* raw, const void* twiddle,
+                                   const void* window, const void* chirp,
+                                   const void* spectrum, const void* n_valid,
+                                   void* partial, void* out, int device,
+                                   int log2m, int bins, int S, int F,
+                                   int group, float two_sigma, int width,
+                                   void* stream) {
+  if (!(two_sigma >= 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = launch_est_streams_first(
+      kChirpSk, raw, twiddle, window, chirp, spectrum, nullptr, n_valid,
+      partial, device, log2m, bins, S, F, group, 1, 1, width, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int G_s = F / group;
+  const int row = (bins + kSumBins - 1) / kSumBins * kSumBins;
+  e = two_sigma > 0.0f
+          ? launch_est_streams<kEstSkGate>(partial, S, G_s, 1, row, n_valid,
+                                           F, 0, two_sigma, out, st)
+          : launch_est_streams<kEstSk>(partial, S, G_s, 1, row, n_valid, F,
+                                       0, two_sigma, out, st);
+  return static_cast<int>(e);
+}
+
+// MT-B-S: tapers: (K, N) f32, 1 <= K <= 32, shared by the streams;
+// partial: (K * S * G_s, row) f32 scratch; out: (S, row) f32. Other
+// arguments as rpf_fused_psd_sk_chirp_streams.
+int rpf_fused_psd_tapers_chirp_streams(const void* raw, const void* twiddle,
+                                       const void* tapers, const void* chirp,
+                                       const void* spectrum,
+                                       const void* n_valid, void* partial,
+                                       void* out, int device, int log2m,
+                                       int bins, int S, int F, int group,
+                                       int K, int width, void* stream) {
+  if (K < 1 || K > 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = launch_est_streams_first(
+      kChirpTapers, raw, twiddle, tapers, chirp, spectrum, nullptr, n_valid,
+      partial, device, log2m, bins, S, F, group, 1, K, width, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int row = (bins + kSumBins - 1) / kSumBins * kSumBins;
+  return static_cast<int>(launch_est_streams<kEstTapers>(
+      partial, S, F / group, K, row, n_valid, F, K, 0.0f, out, st));
+}
+
+// PFB-B-S: history, history_out: (S, P - 1, 2N) u8, distinct, 4-byte
+// aligned (null when P = 1), stream s's rows together; h: (P, N) f32, 1
+// <= P <= 32; partial: (S * G_s, row) f32 scratch; out: (S, row) f32;
+// fresh: set every stream's history to byte 127 first. After the sum,
+// each stream's next history (rows n_valid[s] .. n_valid[s] + P - 2 of its
+// virtual array) is written to history_out on the stream
+// (pfb_history.cuh). Other arguments as rpf_fused_psd_sk_chirp_streams.
+int rpf_fused_psd_pfb_chirp_streams(const void* raw, const void* history,
+                                    const void* twiddle, const void* h,
+                                    const void* chirp, const void* spectrum,
+                                    const void* n_valid, void* partial,
+                                    void* out, void* history_out, int device,
+                                    int log2m, int bins, int S, int F,
+                                    int group, int P, int fresh, int width,
+                                    void* stream) {
+  if (P < 1 || P > 32 || S > kMaxGridY || !chirp_size_ok(log2m, bins) ||
+      (P > 1 && (history == nullptr || history_out == nullptr ||
+                 history == history_out)) ||
+      !streams_args_ok(S, F, group, n_valid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int row_bytes = 2 * bins;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fresh && P > 1) {
+    e = cudaMemsetAsync(const_cast<void*>(history), 127,
+                        static_cast<size_t>(S) * (P - 1) * row_bytes, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  e = launch_est_streams_first(kChirpPfb, raw, twiddle, h, chirp, spectrum,
+                               history, n_valid, partial, device, log2m,
+                               bins, S, F, group, P, 1, width, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int row = (bins + kSumBins - 1) / kSumBins * kSumBins;
+  e = launch_psd_sum(partial, F / group, row, out, st, S);
+  if (e != cudaSuccess || P == 1) return static_cast<int>(e);
+  return static_cast<int>(launch_pfb_history(raw, history, history_out,
+                                             n_valid, S, F, P, row_bytes,
+                                             st));
+}
+
 // What the first pass of `cut` (1 SK, 2 the tapers, 3 the PFB), windowed
 // or not, gets at M = 2^log2m, N = bins on `device`: attrs[0..5] as
 // rpf_fused_psd_chirp_attributes. Launches nothing.
@@ -521,6 +952,22 @@ int rpf_fused_psd_chirp_est_attributes(int log2m, int bins, int cut,
   int smem = 0;
   cudaError_t e =
       est_prepare(cut, windowed != 0, log2m, bins, device, &info, &smem);
+  if (e == cudaSuccess) {
+    e = kernel_attributes(info.kernel, info.threads, smem, attrs);
+  }
+  return static_cast<int>(e);
+}
+
+// What the streams form of `cut` gets, as
+// rpf_fused_psd_chirp_est_attributes. Launches nothing.
+int rpf_fused_psd_chirp_est_streams_attributes(int log2m, int bins, int cut,
+                                               int windowed, int device,
+                                               int* attrs) {
+  if (attrs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  StreamsInfo info;
+  int smem = 0;
+  cudaError_t e =
+      streams_prepare(cut, windowed != 0, log2m, bins, device, &info, &smem);
   if (e == cudaSuccess) {
     e = kernel_attributes(info.kernel, info.threads, smem, attrs);
   }

@@ -49,6 +49,19 @@
 // last pass) are here, the PFB sample (pfb_sample, which the chirp-Z
 // kernel's PFB form shares) in frame_ring.cuh.
 //
+// The streams forms (SK-M-S, MT-M-S, PFB-M-S: the --streams steps) run S
+// streams of F frames, (S*F, 2N), with an (S,) count array read on the
+// device: psd_ring_est_streams_kernel is psd_ring_est_kernel's body with
+// the stream folded into the grid's x axis as psd_ring_kernel folds it
+// (block g serves stream g / G_s, that stream's frames, count and PFB
+// history rows), a kernel of its own so that the single-stream forms keep
+// their SASS. Each stream's partial rows lie where est_streams_kernel
+// (fused_psd_est.cuh) reads them, so on the same groups a stream's rows
+// are the single-stream form's, and SK-M-S's s1 is
+// rpf_fused_psd_mixed_streams's row, bit for bit; SK gates each stream on
+// its own moments and count. The PFB's next histories come from each
+// stream's own valid rows (pfb_history.cuh).
+//
 // What bounds them on an H100: the mixed-radix kernel's bound (the frames'
 // 2 bytes a sample and the FP32 transform about equally, ~19 flop/byte at
 // 2400 bins), times K transforms for MT-M (the frames read once a taper,
@@ -67,6 +80,7 @@
 #include "fused_psd_est.cuh"
 #include "fused_psd_mixed.cuh"   // kMixedMaxSmem, read by the ring's header
 #include "fused_psd_mixed_ring.cuh"
+#include "pfb_history.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -278,6 +292,175 @@ psd_ring_est_kernel(const uint8_t* __restrict__ raw,     // (F, 2N)
   }
 }
 
+// The streams forms: begin (each repeats psd_ring_est_kernel's body line
+// for line with the stream resolved from the block, so that the
+// single-stream kernels above keep their SASS).
+
+// psd_ring_est_kernel over S streams of F frames, the stream folded into
+// the grid's x axis as psd_ring_kernel folds it: block g (taper
+// blockIdx.y for kRingTapers) serves stream s = g / G_s and sums its cut's
+// function over that stream's frames [j*group, min((j+1)*group, F,
+// counts[s])), j = g - s*G_s, into the partial rows the single-stream
+// form writes at block g of a grid of S*G_s: kRingSk s1 at row g and s2 at
+// row S*G_s + g, kRingTapers row y*S*G_s + g (= (y*S + s)*G_s + j, the
+// order est_streams_kernel reads), kRingPfb row g. `history`: the PFB's
+// (S, P - 1, 2N) rows (taps = P), stream s's at s*(P - 1)*2N, else null.
+template <bool WINDOWED, int ACC, int CUT>
+__global__ void __launch_bounds__(kRingMaxThreads, 1)
+psd_ring_est_streams_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
+                            const float2* __restrict__ twiddle,
+                            const int* __restrict__ order,
+                            const float* __restrict__ window,
+                            const uint8_t* __restrict__ history,
+                            float* __restrict__ partial,
+                            const RingPlan p, int width, int F, int group,
+                            int blocks_per_stream,
+                            const int* __restrict__ counts, int taps) {
+  static_assert(CUT != kRingTapers || WINDOWED, "a taper is a window");
+  static_assert(CUT != kRingPfb || !WINDOWED, "h is no window");
+  extern __shared__ float4 ring_smem[];
+  __shared__ int4 tab[kMixedMaxPasses];   // radix, stride, magic, twoff
+  __shared__ int tab_rounds[kMixedMaxPasses];
+  const int n = p.n, tf = p.tf, P = p.passes;
+  const int threads = tf * p.lanes;
+  const int tid = threadIdx.x;
+  const int lane = tid / tf;
+  const int t = tid - lane * tf;
+#pragma unroll
+  for (int j = 0; j < kMixedMaxPasses; ++j) {
+    if (tid == j) {
+      tab[j] = make_int4(p.radix[j], p.stride[j], p.magic[j], p.twoff[j]);
+      tab_rounds[j] = p.rounds[j];
+    }
+  }
+  uint8_t* smem = reinterpret_cast<uint8_t*>(ring_smem);
+  float2* xs = reinterpret_cast<float2*>(smem) + lane * n;
+  uint8_t* ring = smem + round16(p.lanes * n * 8) + lane * ring_bytes(n);
+  const int slot = ring_slot(n);
+  if constexpr (CUT == kRingTapers) window += blockIdx.y * n;
+
+  float acc[ACC];
+  float acc2[CUT == kRingSk ? ACC : 1];   // kRingSk: the sums of |X|^4
+#pragma unroll
+  for (int k = 0; k < ACC; ++k) acc[k] = 0.0f;
+  if constexpr (CUT == kRingSk) {
+#pragma unroll
+    for (int k = 0; k < ACC; ++k) acc2[k] = 0.0f;
+  }
+
+  const int stream = blockIdx.x / blocks_per_stream;
+  const int nv = __ldg(counts + stream);
+  const int f0 = (blockIdx.x - stream * blocks_per_stream) * group;
+  const int f1 = min(f0 + group, min(F, nv));
+  const int iters = (max(f1 - f0, 0) + p.lanes - 1) / p.lanes;
+  const uint8_t* frames = raw + static_cast<size_t>(stream) * F * 2 * n;
+  const uint8_t* rows =
+      CUT == kRingPfb && taps > 1
+          ? history + static_cast<size_t>(stream) * (taps - 1) * 2 * n
+          : nullptr;
+
+  // Lane frame i of the block into ring slot i & 1 (an empty group past
+  // the lane's last frame, so that every thread counts the same groups).
+  auto prefetch = [&](int i) {
+    const int f = f0 + lane + p.lanes * i;
+    if (i < iters && f < f1) {
+      ring_copy(ring + (i & 1) * slot,
+                frames + static_cast<size_t>(f) * 2 * n, 2 * n, width, t,
+                tf);
+    }
+    cp_async_commit();
+  };
+
+  prefetch(0);
+  for (int i = 0; i < iters; ++i) {
+    prefetch(i + 1);
+    cp_async_wait<1>();   // this thread's copies of frame i have landed
+    __syncthreads();      // everyone's; xs is free (last pass of frame i-1)
+    const int f = f0 + lane + p.lanes * i;
+    const bool active = f < f1;
+    const uint16_t* iq =
+        reinterpret_cast<const uint16_t*>(ring + (i & 1) * slot);
+    if (active) {
+      with_radix(p.radix[0], [&](auto rc) {
+        constexpr int R = decltype(rc)::value;
+        if constexpr (CUT == kRingPfb) {
+          ring_first_by<R>(
+              [&](int s) {
+                return pfb_sample(iq, frames, rows, window, f, taps, n, s);
+              },
+              twiddle, xs, n, P == 1, p.rounds[0], t, tf);
+        } else {
+          ring_first_by<R>(
+              [&](int s) {
+                return ring_sample<WINDOWED>(
+                    iq, s, WINDOWED ? __ldg(window + s) : 0.0f);
+              },
+              twiddle, xs, n, P == 1, p.rounds[0], t, tf);
+        }
+      });
+    }
+    for (int j = 1; j < P - 1; ++j) {
+      __syncthreads();
+      if (active) {
+        const int4 e = tab[j];
+        const int rounds = tab_rounds[j];
+        with_radix(e.x, [&](auto rc) {
+          ring_mid<decltype(rc)::value>(xs, twiddle + e.w, e.y,
+                                        static_cast<unsigned>(e.z), n,
+                                        rounds, t, tf);
+        });
+      }
+    }
+    __syncthreads();
+    if (active) {
+      with_radix(tab[P - 1].x, [&](auto rc) {
+        if constexpr (CUT == kRingSk) {
+          ring_last_sk<decltype(rc)::value, ACC>(xs, acc, acc2, n, t, tf);
+        } else {
+          ring_last<decltype(rc)::value, ACC>(xs, acc, n, t, tf);
+        }
+      });
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every lane is done with its exchange buffer
+
+  // The lanes' sums at their elements (kRingSk: the |X|^4 sums after
+  // them, in the exchange buffers' room), then each bin's element added
+  // lane by lane in order.
+  float* by_elem = reinterpret_cast<float*>(smem);   // (lanes, n)
+  float* by_elem2 = by_elem + p.lanes * n;           // kRingSk's
+  with_radix(tab[P - 1].x, [&](auto rc) {
+    ring_gather<decltype(rc)::value, ACC>(by_elem + lane * n, acc, n, t, tf);
+    if constexpr (CUT == kRingSk) {
+      ring_gather<decltype(rc)::value, ACC>(by_elem2 + lane * n, acc2, n, t,
+                                            tf);
+    }
+  });
+  __syncthreads();
+  const size_t row = static_cast<size_t>(
+      CUT == kRingTapers ? blockIdx.y * gridDim.x + blockIdx.x : blockIdx.x);
+  float* out = partial + row * p.row;
+  float* out2 = partial + (static_cast<size_t>(gridDim.x) + blockIdx.x) * p.row;
+  for (int k = tid; k < p.row; k += threads) {
+    float sum = 0.0f;
+    float sum2 = 0.0f;
+    if (k < n) {
+      const int q = __ldg(order + k);
+      sum = by_elem[q];
+      for (int l = 1; l < p.lanes; ++l) sum += by_elem[l * n + q];
+      if constexpr (CUT == kRingSk) {
+        sum2 = by_elem2[q];
+        for (int l = 1; l < p.lanes; ++l) sum2 += by_elem2[l * n + q];
+      }
+    }
+    out[k] = sum;
+    if constexpr (CUT == kRingSk) out2[k] = sum2;
+  }
+}
+
+// The streams forms: end.
+
 using EstKernel = void (*)(const uint8_t*, const float2*, const int*,
                            const float*, const uint8_t*, float*,
                            const RingPlan, int, int, int, int, int);
@@ -349,6 +532,90 @@ cudaError_t launch_est(int cut, const void* raw, const void* twiddle,
       static_cast<const int*>(order), static_cast<const float*>(window),
       static_cast<const uint8_t*>(history), static_cast<float*>(partial), *p,
       width, F, group, n_valid, taps);
+  return cudaGetLastError();
+}
+
+using StreamsKernel = void (*)(const uint8_t*, const float2*, const int*,
+                               const float*, const uint8_t*, float*,
+                               const RingPlan, int, int, int, int,
+                               const int*, int);
+
+// The streams instantiations, laid out as est_kernel's.
+StreamsKernel streams_kernel(int cut, bool windowed, int index) {
+  static const StreamsKernel kernels[3][2][2] = {
+      {{psd_ring_est_streams_kernel<false, kRingAccSmall, kRingSk>,
+        psd_ring_est_streams_kernel<false, kRingAccLarge, kRingSk>},
+       {psd_ring_est_streams_kernel<true, kRingAccSmall, kRingSk>,
+        psd_ring_est_streams_kernel<true, kRingAccLarge, kRingSk>}},
+      {{nullptr, nullptr},
+       {psd_ring_est_streams_kernel<true, kRingAccSmall, kRingTapers>,
+        psd_ring_est_streams_kernel<true, kRingAccLarge, kRingTapers>}},
+      {{psd_ring_est_streams_kernel<false, kRingAccSmall, kRingPfb>,
+        psd_ring_est_streams_kernel<false, kRingAccLarge, kRingPfb>},
+       {nullptr, nullptr}}};
+  if (cut < kRingSk || cut > kRingPfb || index < 0 || index > 1) {
+    return nullptr;
+  }
+  return kernels[cut - 1][windowed][index];
+}
+
+std::atomic<unsigned long long> streams_done[3][2][2];
+
+// est_pick for the streams forms.
+StreamsKernel streams_pick(const int* plan, int cut, bool windowed,
+                           RingPlan* p, int* smem,
+                           std::atomic<unsigned long long>** done) {
+  if (read_ring_plan(plan, p) != cudaSuccess) return nullptr;
+  const int index = ring_pick(*p, smem);
+  const StreamsKernel kernel = streams_kernel(cut, windowed, index);
+  if (kernel != nullptr) *done = &streams_done[cut - 1][windowed][index];
+  return kernel;
+}
+
+// opt_in for a streams form.
+cudaError_t opt_in(StreamsKernel kernel, int smem, int device,
+                   std::atomic<unsigned long long>& done) {
+  return opt_in_smem(kernel, smem <= 48 * 1024 ? smem : kRingMaxSmem, device,
+                     done);
+}
+
+// S streams of F frames in groups of `group` (a divisor of F), their
+// blocks within a grid's x axis.
+bool streams_args_ok(int S, int F, int group, const void* counts) {
+  return S > 0 && F > 0 && group > 0 && F % group == 0 &&
+         counts != nullptr &&
+         static_cast<long long>(S) * (F / group) <= 0x7fffffffLL;
+}
+
+// The first pass of a cut's streams form on a grid of S * G_s x `rows_y`
+// blocks, G_s = F / group.
+cudaError_t launch_est_streams_first(int cut, const void* raw,
+                                     const void* twiddle, const void* order,
+                                     const void* window, const void* history,
+                                     const void* counts, void* partial,
+                                     const int* plan, int device, int S,
+                                     int F, int group, int taps, int rows_y,
+                                     int width, cudaStream_t st,
+                                     RingPlan* p) {
+  int smem = 0;
+  std::atomic<unsigned long long>* done = nullptr;
+  const bool windowed = cut == kRingTapers || (cut == kRingSk && window);
+  const StreamsKernel kernel =
+      streams_pick(plan, cut, windowed, p, &smem, &done);
+  if (kernel == nullptr || !width_ok(raw, p->n, width) || order == nullptr ||
+      !streams_args_ok(S, F, group, counts) ||
+      (cut != kRingSk && window == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = use_device(device);
+  if (e == cudaSuccess) e = opt_in(kernel, smem, device, *done);
+  if (e != cudaSuccess) return e;
+  const int G_s = F / group;
+  kernel<<<dim3(S * G_s, rows_y), p->tf * p->lanes, smem, st>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const float2*>(twiddle),
+      static_cast<const int*>(order), static_cast<const float*>(window),
+      static_cast<const uint8_t*>(history), static_cast<float*>(partial), *p,
+      width, F, group, G_s, static_cast<const int*>(counts), taps);
   return cudaGetLastError();
 }
 
@@ -468,6 +735,99 @@ int rpf_fused_psd_pfb_mixed(const void* raw, const void* history,
   return static_cast<int>(e);
 }
 
+// SK-M-S: S streams of F frames. raw: (S*F, 2N) u8, stream s in rows
+// [s*F, (s+1)*F), `width`-byte aligned; n_valid: (S,) int32 on the
+// device, read by the kernels when they run (a count outside [0, F] acts
+// as its nearest bound); group must divide F (G_s = F / group blocks a
+// stream); partial: (2 * S * G_s, row) f32 scratch; out: (S, 2, row) f32
+// (s1, s2 of each stream), or with two_sigma > 0 (S, 4, row), each stream
+// gated on its own moments and count. Other arguments as
+// rpf_fused_psd_sk_mixed.
+int rpf_fused_psd_sk_mixed_streams(const void* raw, const void* twiddle,
+                                   const void* order, const void* window,
+                                   const void* n_valid, void* partial,
+                                   void* out, const int* plan, int device,
+                                   int S, int F, int group, float two_sigma,
+                                   int width, void* stream) {
+  if (!(two_sigma >= 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RingPlan p;
+  cudaError_t e = launch_est_streams_first(
+      kRingSk, raw, twiddle, order, window, nullptr, n_valid, partial, plan,
+      device, S, F, group, 1, 1, width, st, &p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int G_s = F / group;
+  e = two_sigma > 0.0f
+          ? launch_est_streams<kEstSkGate>(partial, S, G_s, 1, p.row,
+                                           n_valid, F, 0, two_sigma, out, st)
+          : launch_est_streams<kEstSk>(partial, S, G_s, 1, p.row, n_valid, F,
+                                       0, two_sigma, out, st);
+  return static_cast<int>(e);
+}
+
+// MT-M-S: tapers: (K, N) f32, 1 <= K <= 32, shared by the streams;
+// partial: (K * S * G_s, row) f32 scratch; out: (S, row) f32. Other
+// arguments as rpf_fused_psd_sk_mixed_streams.
+int rpf_fused_psd_tapers_mixed_streams(const void* raw, const void* twiddle,
+                                       const void* order, const void* tapers,
+                                       const void* n_valid, void* partial,
+                                       void* out, const int* plan,
+                                       int device, int S, int F, int group,
+                                       int K, int width, void* stream) {
+  if (K < 1 || K > 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RingPlan p;
+  cudaError_t e = launch_est_streams_first(
+      kRingTapers, raw, twiddle, order, tapers, nullptr, n_valid, partial,
+      plan, device, S, F, group, 1, K, width, st, &p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_est_streams<kEstTapers>(
+      partial, S, F / group, K, p.row, n_valid, F, K, 0.0f, out, st));
+}
+
+// PFB-M-S: history, history_out: (S, P - 1, 2N) u8, distinct, 4-byte
+// aligned (null when P = 1), stream s's rows together; h: (P, N) f32, 1
+// <= P <= 32; partial: (S * G_s, row) f32 scratch; out: (S, row) f32;
+// fresh: set every stream's history to byte 127 first. After the sum,
+// each stream's next history (rows n_valid[s] .. n_valid[s] + P - 2 of its
+// virtual array) is written to history_out on the stream
+// (pfb_history.cuh). Other arguments as rpf_fused_psd_sk_mixed_streams.
+int rpf_fused_psd_pfb_mixed_streams(const void* raw, const void* history,
+                                    const void* twiddle, const void* order,
+                                    const void* h, const void* n_valid,
+                                    void* partial, void* out,
+                                    void* history_out, const int* plan,
+                                    int device, int S, int F, int group,
+                                    int P, int fresh, int width,
+                                    void* stream) {
+  RingPlan p;
+  if (P < 1 || P > 32 || S > kMaxGridY ||
+      (P > 1 && (history == nullptr || history_out == nullptr ||
+                 history == history_out)) ||
+      read_ring_plan(plan, &p) != cudaSuccess ||
+      !streams_args_ok(S, F, group, n_valid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int row_bytes = 2 * p.n;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fresh && P > 1) {
+    e = cudaMemsetAsync(const_cast<void*>(history), 127,
+                        static_cast<size_t>(S) * (P - 1) * row_bytes, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  e = launch_est_streams_first(kRingPfb, raw, twiddle, order, h, history,
+                               n_valid, partial, plan, device, S, F, group,
+                               P, 1, width, st, &p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = launch_psd_sum(partial, F / group, p.row, out, st, S);
+  if (e != cudaSuccess || P == 1) return static_cast<int>(e);
+  return static_cast<int>(launch_pfb_history(raw, history, history_out,
+                                             n_valid, S, F, P, row_bytes,
+                                             st));
+}
+
 // What the first pass of `cut` (1 SK, 2 the tapers, 3 the PFB), windowed
 // or not, gets with the plan on `device`: attrs[0..5] as
 // rpf_fused_psd_mixed_attributes. Launches nothing.
@@ -479,6 +839,27 @@ int rpf_fused_psd_mixed_est_attributes(const int* plan, int cut,
   std::atomic<unsigned long long>* done = nullptr;
   const EstKernel kernel =
       est_pick(plan, cut, windowed != 0, &p, &smem, &done);
+  if (kernel == nullptr || attrs == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e == cudaSuccess) e = opt_in(kernel, smem, device, *done);
+  if (e == cudaSuccess) {
+    e = kernel_attributes(kernel, p.tf * p.lanes, smem, attrs);
+  }
+  return static_cast<int>(e);
+}
+
+// What the streams form of `cut` gets, as
+// rpf_fused_psd_mixed_est_attributes. Launches nothing.
+int rpf_fused_psd_mixed_est_streams_attributes(const int* plan, int cut,
+                                               int windowed, int device,
+                                               int* attrs) {
+  RingPlan p;
+  int smem = 0;
+  std::atomic<unsigned long long>* done = nullptr;
+  const StreamsKernel kernel =
+      streams_pick(plan, cut, windowed != 0, &p, &smem, &done);
   if (kernel == nullptr || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -64,7 +64,8 @@
 // stream's rows and count resolved from the block, their bodies line for
 // line (the single-stream kernels stay as they were: their SASS is held to
 // the earlier build's). Each stream's next history comes from its own
-// valid rows, by pfb_history_kernel: rows n_valid[s] .. n_valid[s] + P - 2
+// valid rows, by pfb_history_kernel (pfb_history.cuh, which the awkward-N
+// estimator libraries share): rows n_valid[s] .. n_valid[s] + P - 2
 // of its virtual array, read from the count on the device (the JAX
 // package's ShardedPfbStep, pfb.py:372-380, keeps them on the host: a
 // stream with no valid frame keeps its history, one with fewer than P - 1
@@ -89,6 +90,7 @@
 #include "device.cuh"
 #include "fused_psd_est.cuh"
 #include "fused_psd_regs.cuh"
+#include "pfb_history.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -489,31 +491,6 @@ psd_pfb_ring_streams_kernel(const uint8_t* __restrict__ raw,  // (S*F, 2N)
                        tid);
 }
 
-// Each stream's next history: block (r, s) writes row r < P - 1 of stream
-// s's history_out, row n_valid[s] + r of its virtual array (history rows,
-// then slot rows; the count clamped to [0, F]), 4 bytes a thread.
-__global__ void __launch_bounds__(256)
-pfb_history_kernel(const uint8_t* __restrict__ raw,      // (S*F, 2N)
-                   const uint8_t* __restrict__ history,  // (S, P-1, 2N)
-                   uint8_t* __restrict__ history_out,    // (S, P-1, 2N)
-                   const int* __restrict__ counts, int F, int P,
-                   int row_bytes) {
-  const int r = blockIdx.x;
-  const int s = blockIdx.y;
-  const int nv = min(max(__ldg(counts + s), 0), F);
-  const int v = nv + r;   // its row of the virtual array
-  const size_t rows = static_cast<size_t>(P - 1);
-  const size_t slot_row = static_cast<size_t>(s) * F + v - (P - 1);
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(
-      v < P - 1 ? history + (s * rows + v) * row_bytes
-                : raw + slot_row * row_bytes);
-  uint32_t* dst =
-      reinterpret_cast<uint32_t*>(history_out + (s * rows + r) * row_bytes);
-  for (int i = threadIdx.x; i < row_bytes / 4; i += blockDim.x) {
-    dst[i] = __ldg(src + i);
-  }
-}
-
 // The channelizer: output frame j of the (T + P - 1, 2N) raw rows `rows`
 // (block g takes frames [g * group, min((g + 1) * group, T)), lane l frames
 // g * group + l + LANES * i) is X_j = DFT(sum over p of h[p] x_{j+p}),
@@ -894,11 +871,9 @@ int rpf_fused_psd_pfb_streams(const void* raw, const void* history,
   if (e != cudaSuccess) return static_cast<int>(e);
   e = launch_psd_sum(partial, g, N, out, st, S);
   if (e != cudaSuccess || P == 1) return static_cast<int>(e);
-  pfb_history_kernel<<<dim3(P - 1, S), 256, 0, st>>>(
-      static_cast<const uint8_t*>(raw), static_cast<const uint8_t*>(history),
-      static_cast<uint8_t*>(history_out), static_cast<const int*>(n_valid), F,
-      P, static_cast<int>(row_bytes));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_pfb_history(raw, history, history_out,
+                                             n_valid, S, F, P,
+                                             static_cast<int>(row_bytes), st));
 }
 
 // What the kernel (ring: the ring kernel at P taps, with stage_h h

@@ -162,7 +162,8 @@ class LaunchCounts:
     (:mod:`.fused_psd_mixed_est`: SK-M, MT-M, PFB-M), and
     ``kernel_sk_chirp``, ``kernel_tapers_chirp`` and ``kernel_pfb_chirp``
     their forms of the chirp-Z kernel (:mod:`.fused_psd_chirp_est`: SK-B,
-    MT-B, PFB-B), with ``plain_frames``,
+    MT-B, PFB-B), with ``_streams`` after each of those six the streams
+    forms' (SK-M-S ... PFB-B-S), and ``plain_frames``,
     ``plain_pfb_channelize``, ``plain_csd`` and ``plain_scf`` their plain
     versions' calls (each also counted in ``plain``, every plain
     version's).
@@ -218,6 +219,12 @@ class LaunchCounts:
         self.kernel_sk_chirp = 0
         self.kernel_tapers_chirp = 0
         self.kernel_pfb_chirp = 0
+        self.kernel_sk_mixed_streams = 0
+        self.kernel_tapers_mixed_streams = 0
+        self.kernel_pfb_mixed_streams = 0
+        self.kernel_sk_chirp_streams = 0
+        self.kernel_tapers_chirp_streams = 0
+        self.kernel_pfb_chirp_streams = 0
         self.plain = 0
         self.plain_frames = 0
         self.plain_pfb_channelize = 0

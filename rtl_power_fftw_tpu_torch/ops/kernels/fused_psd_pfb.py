@@ -187,18 +187,20 @@ def fused_psd_pfb_streams_reference(raw_u8: torch.Tensor,
                                     n_valid: torch.Tensor, chunk: int,
                                     h: torch.Tensor,
                                     history_out: torch.Tensor,
-                                    fresh: bool = False) -> torch.Tensor:
+                                    fresh: bool = False,
+                                    dft_power=fp.dft_power) -> torch.Tensor:
     """The plain PyTorch version of :func:`fused_psd_pfb_streams`: each
-    stream as :func:`fused_psd_pfb_reference` takes it, with its count
-    clamped to [0, F], -> (S, N), and each stream's next history written
-    into its rows of ``history_out``."""
+    stream as :func:`fused_psd_pfb_reference` takes it (``dft_power``
+    too), with its count clamped to [0, F], -> (S, N), and each stream's
+    next history written into its rows of ``history_out``."""
     S, F = raw_u8.shape[:2]
     counts = n_valid.clamp(0, F).tolist()
     if fresh:
         history.fill_(127)
     return torch.stack([
         fused_psd_pfb_reference(raw_u8[s], history[s], counts[s], chunk, h,
-                                history_out[s]) for s in range(S)])
+                                history_out[s], dft_power=dft_power)
+        for s in range(S)])
 
 
 def fused_psd_pfb(raw_u8: torch.Tensor, history: torch.Tensor, n_valid: int,

@@ -91,16 +91,19 @@ def fused_psd_sk_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
 def fused_psd_sk_streams_reference(raw_u8: torch.Tensor,
                                    n_valid: torch.Tensor, chunk: int,
                                    window: Optional[torch.Tensor] = None,
-                                   sigma: float = 0.0) -> torch.Tensor:
+                                   sigma: float = 0.0,
+                                   frame_power=fp._frame_power
+                                   ) -> torch.Tensor:
     """The plain PyTorch version of :func:`fused_psd_sk_streams`: (S, F,
     2N) uint8, (S,) counts -> (S, 2, N) float32 (s1, s2) of each stream's
     first n_valid[s] frames (a count outside [0, F] acts as its nearest
     bound), with ``sigma > 0`` (S, 4, N), each stream gated on its own
-    moments with M = its count."""
+    moments with M = its count. ``frame_power`` as
+    :func:`fused_psd_sk_reference` takes it."""
     S, F, two_n = raw_u8.shape
     N = two_n // 2
     counts = n_valid.to(raw_u8.device).clamp(0, F)
-    p = fp._frame_power(raw_u8, window)
+    p = frame_power(raw_u8, window)
     keep = torch.arange(F, device=raw_u8.device)[None, :] < counts[:, None]
     p = torch.where(keep[..., None], p, 0.0)
     s1 = p.reshape(S, F // chunk, chunk, N).sum(dim=2).sum(dim=1)

@@ -172,10 +172,12 @@ def fused_psd_tapers_reference(raw_u8: torch.Tensor, n_valid: int,
 
 def fused_psd_tapers_streams_reference(raw_u8: torch.Tensor,
                                        n_valid: torch.Tensor, chunk: int,
-                                       tapers: torch.Tensor) -> torch.Tensor:
+                                       tapers: torch.Tensor,
+                                       dft_power=fp.dft_power
+                                       ) -> torch.Tensor:
     """The plain PyTorch version of :func:`fused_psd_tapers_streams`: each
-    stream as :func:`fused_psd_tapers_reference` takes it, with its count
-    clamped to [0, F], -> (S, N)."""
+    stream as :func:`fused_psd_tapers_reference` takes it (``dft_power``
+    too), with its count clamped to [0, F], -> (S, N)."""
     S, F, two_n = raw_u8.shape
     N = two_n // 2
     K = tapers.shape[0]
@@ -185,8 +187,7 @@ def fused_psd_tapers_streams_reference(raw_u8: torch.Tensor,
     im = (v[..., 1] - 127).to(torch.float32)
     re_t = (re[:, :, None, :] * tapers[None, None]).reshape(S, F * K, N)
     im_t = (im[:, :, None, :] * tapers[None, None]).reshape(S, F * K, N)
-    X = torch.fft.fft(torch.complex(re_t, im_t), dim=-1)
-    p = X.real * X.real + X.imag * X.imag
+    p = dft_power(torch.complex(re_t, im_t))
     keep = (torch.arange(F * K, device=raw_u8.device)[None, :]
             < counts[:, None] * K)
     p = torch.where(keep[..., None], p, 0.0)

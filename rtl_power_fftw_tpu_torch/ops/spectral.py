@@ -137,62 +137,56 @@ def transform_route(N: int, backend: str = "auto", fast: bool = False
 SK_BACKENDS = ("auto", "pallas", "hybrid", "fft4")
 
 
-#: The session's estimator options: on one stream they also take the even
-#: 7-smooth N of the mixed-radix kernel and the other even N of the chirp-Z
-#: kernel (their forms of them, ``kernels/csrc/fused_psd_mixed_est.cu`` and
-#: ``kernels/csrc/fused_psd_chirp_est.cu``).
+#: The session's estimator options: on one stream and over ``--streams``
+#: they also take the even 7-smooth N of the mixed-radix kernel and the
+#: other even N of the chirp-Z kernel (their forms of them,
+#: ``kernels/csrc/fused_psd_mixed_est.cu`` and
+#: ``kernels/csrc/fused_psd_chirp_est.cu``, each with a streams form).
 CLI_ESTIMATORS = ("--sk-file", "--sk-excise", "--multitaper", "--pfb-taps")
 
 
 def estimator_route(N: int, flag: str, backend: str = "auto",
                     sharded: bool = False) -> str:
-    """The kernel family of the estimator of ``flag`` at N bins: "regs"
-    (variants of K1's group kernel, the powers of two from 64 to 16384),
-    "mixed" (the session's estimators, :data:`CLI_ESTIMATORS`, on one
-    stream at the other even 7-smooth N up to 16384: forms of the
-    mixed-radix kernel) or "bluestein" (the same on one stream at the
-    other even N up to 8192, and the spectral-kurtosis step under
+    """The kernel family of the estimator of ``flag`` at N bins, on one
+    stream or over streams (``sharded``: the ``--streams`` steps, each
+    family's streams form): "regs" (variants of K1's group kernel, the
+    powers of two from 64 to 16384), "mixed" (the session's estimators,
+    :data:`CLI_ESTIMATORS`, at the other even 7-smooth N up to 16384:
+    forms of the mixed-radix kernel) or "bluestein" (the same at the other
+    even N up to 8192, and the spectral-kurtosis step under
     ``--fft-backend bluestein`` at any even N up to 8192, as the PSD step
     takes that name: forms of the chirp-Z kernel). Raise
     RPFexception(InvalidArgument), "Not yet ported", anywhere else: the
-    library-only estimators (``flag`` their names) at other N, an
-    estimator over streams (``sharded``: the ``--streams`` steps, whose
-    kernels are K1's) at other N or under ``bluestein``, the other even N
-    in (8192, 16384] and every N above 16384. The spectral-kurtosis step
+    library-only estimators (``flag`` their names) at other N, the other
+    even N in (8192, 16384] (9998 among them, and 16382 under
+    ``bluestein``) and every N above 16384. The spectral-kurtosis step
     also takes only the ``--fft-backend`` names of :data:`SK_BACKENDS` and
     ``bluestein`` (the other two estimators ignore the option, as the JAX
     package's do). The same check and message on the CPU and on the
     card."""
     session = flag in CLI_ESTIMATORS
+    over = " over --streams" if sharded else ""
     if session and flag.startswith("--sk") and backend == "bluestein":
         if not fused_psd_bluestein_eligible(N):
-            raise _unported(f"{flag} with --fft-backend bluestein at {N} bins "
-                            "(the chirp-Z estimator kernels take even N up "
-                            f"to {CHIRP_MAX_N})")
-        if sharded:
-            raise _unported(f"{flag} over --streams with --fft-backend "
-                            "bluestein")
+            raise _unported(f"{flag}{over} with --fft-backend bluestein at "
+                            f"{N} bins (the chirp-Z estimator kernels take "
+                            f"even N up to {CHIRP_MAX_N})")
         return "bluestein"
     if fused_psd_eligible(N):
         route = "regs"
     elif session and (fused_psd_mixed_eligible(N)
                       or fused_psd_bluestein_eligible(N)):
-        if sharded:
-            raise _unported(f"{flag} over --streams at {N} bins (the "
-                            "estimators' streams kernels take powers of two "
-                            f"from {MIN_N} to {REGS_MAX_N})")
         route = "mixed" if fused_psd_mixed_eligible(N) else "bluestein"
     elif session:
-        raise _unported(f"{flag} at {N} bins (the estimator kernels take "
-                        f"powers of two from {MIN_N} to {REGS_MAX_N} and, "
-                        "on one stream, even 7-smooth N up to "
-                        f"{REGS_MAX_N} and other even N up to "
-                        f"{CHIRP_MAX_N})")
+        raise _unported(f"{flag}{over} at {N} bins (the estimator kernels "
+                        f"take powers of two from {MIN_N} to {REGS_MAX_N}, "
+                        f"even 7-smooth N up to {REGS_MAX_N} and other "
+                        f"even N up to {CHIRP_MAX_N})")
     else:
         raise _unported(f"{flag} at {N} bins (the estimator kernels take "
                         f"powers of two from {MIN_N} to {REGS_MAX_N})")
     if flag.startswith("--sk") and backend not in SK_BACKENDS:
-        raise _unported(f"{flag} with --fft-backend {backend}")
+        raise _unported(f"{flag}{over} with --fft-backend {backend}")
     return route
 
 

@@ -35,10 +35,11 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
 @pytest.mark.parametrize("extra", [
     ["--shard-transform"],
     ["-b", "9998", "--sk-file", "sk.dat"],
-    ["--streams", "2", "--sk-file", "sk.dat", "-b", "998"],
+    ["--streams", "2", "--sk-file", "sk.dat", "-b", "9998"],
     ["--sk-file", "sk.dat", "--fft-backend", "bluestein", "-b", "16382"],
     ["-b", "32768", "--sk-file", "sk.dat"],
-    ["--streams", "2", "--sk-file", "sk.dat", "-b", "500"],
+    ["--streams", "2", "--sk-file", "sk.dat", "-b", "16382",
+     "--fft-backend", "bluestein"],
     ["--sk-excise", "3", "--fft-backend", "xla"],
     ["--fft-backend", "fourstep"],
     ["--fft-backend", "xla", "--window-function", "hann"],
@@ -48,7 +49,8 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
     ["--streams", "2", "--shard-transform"],
     ["--streams", "2", "--fft-backend", "xla"],
     ["--streams", "2", "--multitaper", "7", "-b", "20000"],
-    ["--streams", "2", "--pfb-taps", "4", "-b", "500"],
+    ["--streams", "2", "--sk-file", "sk.dat", "--fft-backend", "xla", "-b",
+     "500"],
     ["-b", "20000", "--multitaper", "7"],
 ])
 def test_unported_options_exit_3(extra, capsys):
@@ -86,11 +88,17 @@ def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
     (["-b", "998", "--sk-file", "sk.dat"], "plain_sk (backend=auto, N=998)"),
     (["-b", "2048", "--sk-file", "sk.dat", "--fft-backend", "bluestein"],
      "plain_sk (backend=bluestein, N=2048)"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "998"],
+     "plain_sk (backend=auto, N=998)"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "500"],
+     "plain_sk (backend=auto, N=500)"),
+    (["--streams", "2", "--pfb-taps", "4", "-b", "500"], "plain_pfb (N=500)"),
 ])
 def test_single_stream_estimators_exit_0(extra, path, capsys, tmp_path,
                                          monkeypatch):
     """The four estimator options run their kernels' path, on one stream
-    and over ``--streams`` (on the CPU, the plain versions)."""
+    and over ``--streams``, at the powers of two and the awkward bin counts
+    (on the CPU, the plain versions)."""
     monkeypatch.chdir(tmp_path)
     assert cli.main(SMALL + extra, device=CPU) == 0
     captured = capsys.readouterr()

@@ -64,16 +64,19 @@ SIZES = [22, 998, 4094, 8188]
     (500, "--sk-excise", "bluestein", False, "bluestein"),
     (2048, "--pfb-taps", "bluestein", False, "regs"),
     (2048, "--sk-file", "auto", False, "regs"),
-    (998, "--pfb-taps", "auto", True, None),
+    (998, "--pfb-taps", "auto", True, "bluestein"),
     (9998, "--multitaper", "auto", False, None),
     (998, "spectrogram", "auto", False, None),
+    (2048, "--sk-file", "bluestein", True, "bluestein"),
+    (22, "--sk-excise", "auto", True, "bluestein"),
+    (9998, "--pfb-taps", "auto", True, None),
 ])
 def test_estimator_route(N, flag, backend, sharded, route):
-    """The session's estimators take the chirp-Z kernel's N on one stream,
-    and the SK step any even N up to 8192 under ``bluestein`` (the other
-    estimators ignore the option); over streams, at the other N in (8192,
-    16384] and for the library-only estimators the exit-3 message names
-    the case."""
+    """The session's estimators take the chirp-Z kernel's N on one stream
+    and over streams, and the SK step any even N up to 8192 under
+    ``bluestein`` (the other estimators ignore the option); at the other
+    N in (8192, 16384] and for the library-only estimators the exit-3
+    message names the case."""
     if route is not None:
         assert spectral.estimator_route(N, flag, backend, sharded) == route
         return
@@ -86,7 +89,8 @@ def test_estimator_route(N, flag, backend, sharded, route):
 
 @pytest.mark.parametrize("N,sharded,what", [
     (16382, False, "--sk-file with --fft-backend bluestein at 16382 bins"),
-    (2048, True, "--sk-file over --streams with --fft-backend bluestein"),
+    (16382, True, "--sk-file over --streams with --fft-backend bluestein "
+     "at 16382 bins"),
 ])
 def test_sk_under_bluestein_still_exits_3(N, sharded, what):
     with pytest.raises(RPFexception, match="Not yet ported") as e:
@@ -276,6 +280,10 @@ def test_matrix_scan_matches_jax(scan, extra, tmp_path):
     (["-b", "8188", "-n", "2", "--sk-file", "sk.dat", "--window-function",
       "hann"], "plain_sk (backend=auto, N=8188)"),
     (["-b", "22", "--pfb-taps", "4"], "plain_pfb (N=22)"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "998"],
+     "plain_sk (backend=auto, N=998)"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "2048",
+      "--fft-backend", "bluestein"], "plain_sk (backend=bluestein, N=2048)"),
 ])
 def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -286,12 +294,13 @@ def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,what", [
     (["-b", "9998", "--sk-file", "sk.dat"], "--sk-file at 9998 bins"),
-    (["--streams", "2", "--sk-file", "sk.dat", "-b", "998"],
-     "--sk-file over --streams at 998 bins"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "16382",
+      "--fft-backend", "bluestein"],
+     "--sk-file over --streams with --fft-backend bluestein at 16382 bins"),
     (["--sk-file", "sk.dat", "--fft-backend", "bluestein", "-b", "16382"],
      "--sk-file with --fft-backend bluestein at 16382 bins"),
-    (["--streams", "2", "--pfb-taps", "4", "-b", "500"],
-     "--pfb-taps over --streams at 500 bins"),
+    (["--streams", "2", "--sk-file", "sk.dat", "--fft-backend", "xla",
+      "-b", "500"], "--sk-file over --streams with --fft-backend xla"),
     (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
     (["-b", "65536", "--sk-file", "sk.dat"], "--sk-file at 65536 bins"),
 ])

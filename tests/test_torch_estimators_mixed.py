@@ -91,15 +91,16 @@ def run_steps(step, jstep, raw, F):
     (256, "--sk-file", False, "regs"), (500, "--sk-file", False, "mixed"),
     (12, "--sk-excise", False, "mixed"), (2, "--multitaper", False, "mixed"),
     (32, "--pfb-taps", False, "mixed"), (16000, "--pfb-taps", False, "mixed"),
-    (256, "--pfb-taps", True, "regs"), (500, "--pfb-taps", True, None),
+    (256, "--pfb-taps", True, "regs"), (500, "--pfb-taps", True, "mixed"),
     (998, "--sk-file", False, "bluestein"), (9998, "--sk-file", False, None),
-    (998, "--sk-file", True, None), (20000, "--multitaper", False, None),
+    (998, "--sk-file", True, "bluestein"), (20000, "--multitaper", False, None),
     (500, "spectrogram", False, None), (500, "pfb_channelize", False, None),
+    (9998, "--multitaper", True, None), (20000, "--sk-file", True, None),
 ])
 def test_estimator_route(N, flag, sharded, route):
     """The session's estimators take the mixed-radix kernel's N (and the
-    chirp-Z kernel's, test_torch_estimators_chirp.py) on one stream; over
-    streams, at the other N above 8192, above 16384 and for the
+    chirp-Z kernel's, test_torch_estimators_chirp.py) on one stream and
+    over streams; at the other N above 8192, above 16384 and for the
     library-only estimators the exit-3 message names the case."""
     if route is not None:
         assert spectral.estimator_route(N, flag, sharded=sharded) == route
@@ -276,6 +277,9 @@ def test_matrix_scan_matches_jax(scan, cols, extra, tmp_path):
     (["-b", "32", "--pfb-taps", "4"], "plain_pfb (N=32)"),
     (["-b", "16000", "-n", "2", "--pfb-taps", "4"], "plain_pfb (N=16000)"),
     (["-b", "998", "--sk-file", "sk.dat"], "plain_sk (backend=auto, N=998)"),
+    (["--streams", "2", "--pfb-taps", "4", "-b", "500"], "plain_pfb (N=500)"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "500"],
+     "plain_sk (backend=auto, N=500)"),
 ])
 def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -285,10 +289,10 @@ def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--streams", "2", "--pfb-taps", "4", "-b", "500"],
-     "--pfb-taps over --streams at 500 bins"),
-    (["--streams", "2", "--sk-file", "sk.dat", "-b", "500"],
-     "--sk-file over --streams at 500 bins"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "9998"],
+     "--sk-file over --streams at 9998 bins"),
+    (["--streams", "2", "--multitaper", "7", "-b", "20000"],
+     "--multitaper over --streams at 20000 bins"),
     (["-b", "9998", "--sk-file", "sk.dat"], "--sk-file at 9998 bins"),
     (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
     (["-b", "500", "--sk-file", "sk.dat", "--fft-backend", "xla"],
