@@ -81,6 +81,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "device.cuh"
 #include "fused_psd_chirp.cuh"
@@ -532,63 +533,84 @@ psd_chirp_est_streams_kernel(
 using EstKernel = void (*)(const uint8_t*, const float2*, const float*,
                            const float2*, const float2*, const uint8_t*,
                            float*, int, int, int, int, int, int, int);
+using StreamsKernel = void (*)(const uint8_t*, const float2*, const float*,
+                               const float2*, const float2*, const uint8_t*,
+                               float*, int, int, int, int, int, int,
+                               const int*, int);
 
-struct EstInfo {
-  EstKernel kernel;
+// A cut's single-stream form, or its streams form (STREAMS), with its
+// block's threads and shared bytes at N = bins.
+template <bool STREAMS>
+struct FormInfo {
+  std::conditional_t<STREAMS, StreamsKernel, EstKernel> kernel;
   int threads;
   int (*smem)(int bins);
 };
+using EstInfo = FormInfo<false>;
+using StreamsInfo = FormInfo<true>;
 
-template <int LOG2M, bool WINDOWED, int CUT>
-EstInfo est_info() {
-  return {psd_chirp_est_kernel<LOG2M, WINDOWED, CUT>,
-          ChirpShape<LOG2M>::THREADS, chirp_smem_bytes<LOG2M>};
+template <bool STREAMS, int LOG2M, bool WINDOWED, int CUT>
+FormInfo<STREAMS> est_info() {
+  if constexpr (STREAMS) {
+    return {psd_chirp_est_streams_kernel<LOG2M, WINDOWED, CUT>,
+            ChirpShape<LOG2M>::THREADS, chirp_smem_bytes<LOG2M>};
+  } else {
+    return {psd_chirp_est_kernel<LOG2M, WINDOWED, CUT>,
+            ChirpShape<LOG2M>::THREADS, chirp_smem_bytes<LOG2M>};
+  }
 }
 
-template <bool WINDOWED, int CUT>
-EstInfo est_of(int log2m) {
+template <bool STREAMS, bool WINDOWED, int CUT>
+FormInfo<STREAMS> est_of(int log2m) {
   switch (log2m) {
-    case 6: return est_info<6, WINDOWED, CUT>();
-    case 7: return est_info<7, WINDOWED, CUT>();
-    case 8: return est_info<8, WINDOWED, CUT>();
-    case 9: return est_info<9, WINDOWED, CUT>();
-    case 10: return est_info<10, WINDOWED, CUT>();
-    case 11: return est_info<11, WINDOWED, CUT>();
-    case 12: return est_info<12, WINDOWED, CUT>();
-    case 13: return est_info<13, WINDOWED, CUT>();
-    default: return est_info<14, WINDOWED, CUT>();
+    case 6: return est_info<STREAMS, 6, WINDOWED, CUT>();
+    case 7: return est_info<STREAMS, 7, WINDOWED, CUT>();
+    case 8: return est_info<STREAMS, 8, WINDOWED, CUT>();
+    case 9: return est_info<STREAMS, 9, WINDOWED, CUT>();
+    case 10: return est_info<STREAMS, 10, WINDOWED, CUT>();
+    case 11: return est_info<STREAMS, 11, WINDOWED, CUT>();
+    case 12: return est_info<STREAMS, 12, WINDOWED, CUT>();
+    case 13: return est_info<STREAMS, 13, WINDOWED, CUT>();
+    default: return est_info<STREAMS, 14, WINDOWED, CUT>();
   }
 }
 
 // The kernel of `cut` (SK windowed or not, the tapers windowed, the PFB
-// not) at M = 2^log2m, N = bins; a null kernel where there is none.
-EstInfo est_pick(int cut, bool windowed, int log2m, int bins) {
-  if (!chirp_size_ok(log2m, bins)) return EstInfo{nullptr, 0, nullptr};
+// not; its streams form where STREAMS) at M = 2^log2m, N = bins; a null
+// kernel where there is none.
+template <bool STREAMS>
+FormInfo<STREAMS> est_pick(int cut, bool windowed, int log2m, int bins) {
+  if (!chirp_size_ok(log2m, bins)) return {nullptr, 0, nullptr};
   if (cut == kChirpSk) {
-    return windowed ? est_of<true, kChirpSk>(log2m)
-                    : est_of<false, kChirpSk>(log2m);
+    return windowed ? est_of<STREAMS, true, kChirpSk>(log2m)
+                    : est_of<STREAMS, false, kChirpSk>(log2m);
   }
-  if (cut == kChirpTapers && windowed) return est_of<true, kChirpTapers>(log2m);
-  if (cut == kChirpPfb && !windowed) return est_of<false, kChirpPfb>(log2m);
-  return EstInfo{nullptr, 0, nullptr};
+  if (cut == kChirpTapers && windowed) {
+    return est_of<STREAMS, true, kChirpTapers>(log2m);
+  }
+  if (cut == kChirpPfb && !windowed) {
+    return est_of<STREAMS, false, kChirpPfb>(log2m);
+  }
+  return {nullptr, 0, nullptr};
 }
 
 std::atomic<unsigned long long>
-    est_done[3][2][kRegsMaxLog2N - kRegsMinLog2N + 1];
+    est_done[2][3][2][kRegsMaxLog2N - kRegsMinLog2N + 1];
 
 // The kernel of `cut` with its shared bytes on `device`, opted into all of
 // kChirpMaxSmem where they are above the 48 KB default (once per device: a
 // later N of the same M may take more than this one).
+template <bool STREAMS>
 cudaError_t est_prepare(int cut, bool windowed, int log2m, int bins,
-                        int device, EstInfo* info, int* smem) {
-  *info = est_pick(cut, windowed, log2m, bins);
+                        int device, FormInfo<STREAMS>* info, int* smem) {
+  *info = est_pick<STREAMS>(cut, windowed, log2m, bins);
   if (info->kernel == nullptr) return cudaErrorInvalidValue;
   *smem = info->smem(bins);
   cudaError_t e = use_device(device);
   if (e == cudaSuccess) {
-    e = opt_in_smem(info->kernel,
-                    *smem <= 48 * 1024 ? *smem : kChirpMaxSmem, device,
-                    est_done[cut - 1][windowed][log2m - kRegsMinLog2N]);
+    e = opt_in_smem(
+        info->kernel, *smem <= 48 * 1024 ? *smem : kChirpMaxSmem, device,
+        est_done[STREAMS][cut - 1][windowed][log2m - kRegsMinLog2N]);
   }
   return e;
 }
@@ -622,78 +644,6 @@ cudaError_t launch_est(int cut, const void* raw, const void* twiddle,
   return cudaGetLastError();
 }
 
-using StreamsKernel = void (*)(const uint8_t*, const float2*, const float*,
-                               const float2*, const float2*, const uint8_t*,
-                               float*, int, int, int, int, int, int,
-                               const int*, int);
-
-struct StreamsInfo {
-  StreamsKernel kernel;
-  int threads;
-  int (*smem)(int bins);
-};
-
-template <int LOG2M, bool WINDOWED, int CUT>
-StreamsInfo streams_info() {
-  return {psd_chirp_est_streams_kernel<LOG2M, WINDOWED, CUT>,
-          ChirpShape<LOG2M>::THREADS, chirp_smem_bytes<LOG2M>};
-}
-
-template <bool WINDOWED, int CUT>
-StreamsInfo streams_of(int log2m) {
-  switch (log2m) {
-    case 6: return streams_info<6, WINDOWED, CUT>();
-    case 7: return streams_info<7, WINDOWED, CUT>();
-    case 8: return streams_info<8, WINDOWED, CUT>();
-    case 9: return streams_info<9, WINDOWED, CUT>();
-    case 10: return streams_info<10, WINDOWED, CUT>();
-    case 11: return streams_info<11, WINDOWED, CUT>();
-    case 12: return streams_info<12, WINDOWED, CUT>();
-    case 13: return streams_info<13, WINDOWED, CUT>();
-    default: return streams_info<14, WINDOWED, CUT>();
-  }
-}
-
-// est_pick for the streams forms.
-StreamsInfo streams_pick(int cut, bool windowed, int log2m, int bins) {
-  if (!chirp_size_ok(log2m, bins)) return StreamsInfo{nullptr, 0, nullptr};
-  if (cut == kChirpSk) {
-    return windowed ? streams_of<true, kChirpSk>(log2m)
-                    : streams_of<false, kChirpSk>(log2m);
-  }
-  if (cut == kChirpTapers && windowed) {
-    return streams_of<true, kChirpTapers>(log2m);
-  }
-  if (cut == kChirpPfb && !windowed) return streams_of<false, kChirpPfb>(log2m);
-  return StreamsInfo{nullptr, 0, nullptr};
-}
-
-std::atomic<unsigned long long>
-    streams_done[3][2][kRegsMaxLog2N - kRegsMinLog2N + 1];
-
-// est_prepare for the streams forms.
-cudaError_t streams_prepare(int cut, bool windowed, int log2m, int bins,
-                            int device, StreamsInfo* info, int* smem) {
-  *info = streams_pick(cut, windowed, log2m, bins);
-  if (info->kernel == nullptr) return cudaErrorInvalidValue;
-  *smem = info->smem(bins);
-  cudaError_t e = use_device(device);
-  if (e == cudaSuccess) {
-    e = opt_in_smem(info->kernel,
-                    *smem <= 48 * 1024 ? *smem : kChirpMaxSmem, device,
-                    streams_done[cut - 1][windowed][log2m - kRegsMinLog2N]);
-  }
-  return e;
-}
-
-// S streams of F frames in groups of `group` (a divisor of F), their
-// blocks within a grid's x axis.
-bool streams_args_ok(int S, int F, int group, const void* counts) {
-  return S > 0 && F > 0 && group > 0 && F % group == 0 &&
-         counts != nullptr &&
-         static_cast<long long>(S) * (F / group) <= 0x7fffffffLL;
-}
-
 // The first pass of a cut's streams form on a grid of S * G_s x `rows_y`
 // blocks, G_s = F / group.
 cudaError_t launch_est_streams_first(int cut, const void* raw,
@@ -714,7 +664,7 @@ cudaError_t launch_est_streams_first(int cut, const void* raw,
   StreamsInfo info;
   int smem = 0;
   const cudaError_t e =
-      streams_prepare(cut, windowed, log2m, bins, device, &info, &smem);
+      est_prepare(cut, windowed, log2m, bins, device, &info, &smem);
   if (e != cudaSuccess) return e;
   const int row = (bins + kSumBins - 1) / kSumBins * kSumBins;
   const int G_s = F / group;
@@ -967,7 +917,7 @@ int rpf_fused_psd_chirp_est_streams_attributes(int log2m, int bins, int cut,
   StreamsInfo info;
   int smem = 0;
   cudaError_t e =
-      streams_prepare(cut, windowed != 0, log2m, bins, device, &info, &smem);
+      est_prepare(cut, windowed != 0, log2m, bins, device, &info, &smem);
   if (e == cudaSuccess) {
     e = kernel_attributes(info.kernel, info.threads, smem, attrs);
   }

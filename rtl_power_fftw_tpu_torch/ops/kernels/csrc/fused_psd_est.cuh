@@ -190,6 +190,15 @@ est_streams_kernel(const float* __restrict__ partial, int S, int G_s, int Q,
   }
 }
 
+// S streams of F frames in groups of `group` (a divisor of F) with their
+// (S,) counts, the S * F / group blocks of a first pass within a grid's x
+// axis.
+inline bool streams_args_ok(int S, int F, int group, const void* counts) {
+  return S > 0 && F > 0 && group > 0 && F % group == 0 &&
+         counts != nullptr &&
+         static_cast<long long>(S) * (F / group) <= 0x7fffffffLL;
+}
+
 // Launches est_streams_kernel<MODE> on `stream` (arguments as above).
 template <int MODE>
 cudaError_t launch_est_streams(const void* partial, int S, int G_s, int Q,

@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "device.cuh"
 #include "fused_psd_est.cuh"
@@ -464,21 +465,39 @@ psd_ring_est_streams_kernel(const uint8_t* __restrict__ raw,     // (S*F, 2N)
 using EstKernel = void (*)(const uint8_t*, const float2*, const int*,
                            const float*, const uint8_t*, float*,
                            const RingPlan, int, int, int, int, int);
+using StreamsKernel = void (*)(const uint8_t*, const float2*, const int*,
+                               const float*, const uint8_t*, float*,
+                               const RingPlan, int, int, int, int,
+                               const int*, int);
+
+// A cut's single-stream form, or its streams form (STREAMS).
+template <bool STREAMS>
+using FormKernel = std::conditional_t<STREAMS, StreamsKernel, EstKernel>;
+
+template <bool STREAMS, bool WINDOWED, int ACC, int CUT>
+FormKernel<STREAMS> form() {
+  if constexpr (STREAMS) {
+    return psd_ring_est_streams_kernel<WINDOWED, ACC, CUT>;
+  } else {
+    return psd_ring_est_kernel<WINDOWED, ACC, CUT>;
+  }
+}
 
 // The instantiations, [cut - 1][windowed][class]: the classes are
 // psd_ring_kernel's (kRingAccSmall, kRingAccLarge last-pass sums a
 // thread); null where the cut has no such form.
-EstKernel est_kernel(int cut, bool windowed, int index) {
-  static const EstKernel kernels[3][2][2] = {
-      {{psd_ring_est_kernel<false, kRingAccSmall, kRingSk>,
-        psd_ring_est_kernel<false, kRingAccLarge, kRingSk>},
-       {psd_ring_est_kernel<true, kRingAccSmall, kRingSk>,
-        psd_ring_est_kernel<true, kRingAccLarge, kRingSk>}},
+template <bool STREAMS>
+FormKernel<STREAMS> est_kernel(int cut, bool windowed, int index) {
+  static const FormKernel<STREAMS> kernels[3][2][2] = {
+      {{form<STREAMS, false, kRingAccSmall, kRingSk>(),
+        form<STREAMS, false, kRingAccLarge, kRingSk>()},
+       {form<STREAMS, true, kRingAccSmall, kRingSk>(),
+        form<STREAMS, true, kRingAccLarge, kRingSk>()}},
       {{nullptr, nullptr},
-       {psd_ring_est_kernel<true, kRingAccSmall, kRingTapers>,
-        psd_ring_est_kernel<true, kRingAccLarge, kRingTapers>}},
-      {{psd_ring_est_kernel<false, kRingAccSmall, kRingPfb>,
-        psd_ring_est_kernel<false, kRingAccLarge, kRingPfb>},
+       {form<STREAMS, true, kRingAccSmall, kRingTapers>(),
+        form<STREAMS, true, kRingAccLarge, kRingTapers>()}},
+      {{form<STREAMS, false, kRingAccSmall, kRingPfb>(),
+        form<STREAMS, false, kRingAccLarge, kRingPfb>()},
        {nullptr, nullptr}}};
   if (cut < kRingSk || cut > kRingPfb || index < 0 || index > 1) {
     return nullptr;
@@ -486,23 +505,30 @@ EstKernel est_kernel(int cut, bool windowed, int index) {
   return kernels[cut - 1][windowed][index];
 }
 
-std::atomic<unsigned long long> est_done[3][2][2];
+std::atomic<unsigned long long> est_done[2][3][2][2];
 
-// The plan, the kernel of the cut for it and its shared bytes; null where
-// the plan is not one or the cut has no such form.
-EstKernel est_pick(const int* plan, int cut, bool windowed, RingPlan* p,
-                   int* smem, std::atomic<unsigned long long>** done) {
+// The plan, the kernel of the cut (its streams form where STREAMS) for it
+// and its shared bytes; null where the plan is not one or the cut has no
+// such form.
+template <bool STREAMS>
+FormKernel<STREAMS> est_pick(const int* plan, int cut, bool windowed,
+                             RingPlan* p, int* smem,
+                             std::atomic<unsigned long long>** done) {
   if (read_ring_plan(plan, p) != cudaSuccess) return nullptr;
   const int index = ring_pick(*p, smem);
-  const EstKernel kernel = est_kernel(cut, windowed, index);
-  if (kernel != nullptr) *done = &est_done[cut - 1][windowed][index];
+  const FormKernel<STREAMS> kernel =
+      est_kernel<STREAMS>(cut, windowed, index);
+  if (kernel != nullptr) {
+    *done = &est_done[STREAMS][cut - 1][windowed][index];
+  }
   return kernel;
 }
 
 // Opts `kernel` into all of kRingMaxSmem where a launch of `smem` bytes is
 // above the 48 KB default (once per device: a later plan of the same
 // kernel may take more than this one).
-cudaError_t opt_in(EstKernel kernel, int smem, int device,
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int smem, int device,
                    std::atomic<unsigned long long>& done) {
   return opt_in_smem(kernel, smem <= 48 * 1024 ? smem : kRingMaxSmem, device,
                      done);
@@ -517,7 +543,8 @@ cudaError_t launch_est(int cut, const void* raw, const void* twiddle,
   int smem = 0;
   std::atomic<unsigned long long>* done = nullptr;
   const bool windowed = cut == kRingTapers || (cut == kRingSk && window);
-  const EstKernel kernel = est_pick(plan, cut, windowed, p, &smem, &done);
+  const EstKernel kernel =
+      est_pick<false>(plan, cut, windowed, p, &smem, &done);
   if (kernel == nullptr || !width_ok(raw, p->n, width) || order == nullptr ||
       F <= 0 || group <= 0 || n_valid < 0 || n_valid > F ||
       (cut != kRingSk && window == nullptr)) {
@@ -535,58 +562,6 @@ cudaError_t launch_est(int cut, const void* raw, const void* twiddle,
   return cudaGetLastError();
 }
 
-using StreamsKernel = void (*)(const uint8_t*, const float2*, const int*,
-                               const float*, const uint8_t*, float*,
-                               const RingPlan, int, int, int, int,
-                               const int*, int);
-
-// The streams instantiations, laid out as est_kernel's.
-StreamsKernel streams_kernel(int cut, bool windowed, int index) {
-  static const StreamsKernel kernels[3][2][2] = {
-      {{psd_ring_est_streams_kernel<false, kRingAccSmall, kRingSk>,
-        psd_ring_est_streams_kernel<false, kRingAccLarge, kRingSk>},
-       {psd_ring_est_streams_kernel<true, kRingAccSmall, kRingSk>,
-        psd_ring_est_streams_kernel<true, kRingAccLarge, kRingSk>}},
-      {{nullptr, nullptr},
-       {psd_ring_est_streams_kernel<true, kRingAccSmall, kRingTapers>,
-        psd_ring_est_streams_kernel<true, kRingAccLarge, kRingTapers>}},
-      {{psd_ring_est_streams_kernel<false, kRingAccSmall, kRingPfb>,
-        psd_ring_est_streams_kernel<false, kRingAccLarge, kRingPfb>},
-       {nullptr, nullptr}}};
-  if (cut < kRingSk || cut > kRingPfb || index < 0 || index > 1) {
-    return nullptr;
-  }
-  return kernels[cut - 1][windowed][index];
-}
-
-std::atomic<unsigned long long> streams_done[3][2][2];
-
-// est_pick for the streams forms.
-StreamsKernel streams_pick(const int* plan, int cut, bool windowed,
-                           RingPlan* p, int* smem,
-                           std::atomic<unsigned long long>** done) {
-  if (read_ring_plan(plan, p) != cudaSuccess) return nullptr;
-  const int index = ring_pick(*p, smem);
-  const StreamsKernel kernel = streams_kernel(cut, windowed, index);
-  if (kernel != nullptr) *done = &streams_done[cut - 1][windowed][index];
-  return kernel;
-}
-
-// opt_in for a streams form.
-cudaError_t opt_in(StreamsKernel kernel, int smem, int device,
-                   std::atomic<unsigned long long>& done) {
-  return opt_in_smem(kernel, smem <= 48 * 1024 ? smem : kRingMaxSmem, device,
-                     done);
-}
-
-// S streams of F frames in groups of `group` (a divisor of F), their
-// blocks within a grid's x axis.
-bool streams_args_ok(int S, int F, int group, const void* counts) {
-  return S > 0 && F > 0 && group > 0 && F % group == 0 &&
-         counts != nullptr &&
-         static_cast<long long>(S) * (F / group) <= 0x7fffffffLL;
-}
-
 // The first pass of a cut's streams form on a grid of S * G_s x `rows_y`
 // blocks, G_s = F / group.
 cudaError_t launch_est_streams_first(int cut, const void* raw,
@@ -601,7 +576,7 @@ cudaError_t launch_est_streams_first(int cut, const void* raw,
   std::atomic<unsigned long long>* done = nullptr;
   const bool windowed = cut == kRingTapers || (cut == kRingSk && window);
   const StreamsKernel kernel =
-      streams_pick(plan, cut, windowed, p, &smem, &done);
+      est_pick<true>(plan, cut, windowed, p, &smem, &done);
   if (kernel == nullptr || !width_ok(raw, p->n, width) || order == nullptr ||
       !streams_args_ok(S, F, group, counts) ||
       (cut != kRingSk && window == nullptr)) {
@@ -838,7 +813,7 @@ int rpf_fused_psd_mixed_est_attributes(const int* plan, int cut,
   int smem = 0;
   std::atomic<unsigned long long>* done = nullptr;
   const EstKernel kernel =
-      est_pick(plan, cut, windowed != 0, &p, &smem, &done);
+      est_pick<false>(plan, cut, windowed != 0, &p, &smem, &done);
   if (kernel == nullptr || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -859,7 +834,7 @@ int rpf_fused_psd_mixed_est_streams_attributes(const int* plan, int cut,
   int smem = 0;
   std::atomic<unsigned long long>* done = nullptr;
   const StreamsKernel kernel =
-      streams_pick(plan, cut, windowed != 0, &p, &smem, &done);
+      est_pick<true>(plan, cut, windowed != 0, &p, &smem, &done);
   if (kernel == nullptr || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

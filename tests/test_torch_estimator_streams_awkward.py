@@ -46,8 +46,7 @@ from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed_est as fe
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_sk as fsk
-from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_tapers as fmt
-from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch
+from rtl_power_fftw_tpu_torch.ops.spectral import adapt_batch, estimator_route
 
 from test_torch_estimator_streams import (MESH, assert_combined_close,
                                           assert_rows_close, clamp,
@@ -58,8 +57,6 @@ from test_torch_kurtosis import assert_sk_files_match, run_both
 from test_torch_session import assert_text_outputs_match, mask_stderr, run
 
 CPU = torch.device("cpu")
-MIXED = [30, 500, 2400]
-CHIRP = [22, 998]
 TONE = "synthetic:tone=100.2M/35,noise=6,seed=1"
 
 
@@ -73,17 +70,11 @@ def _reset_interrupts():
 
 
 def streams_kernel(kind, N, backend="auto"):
-    """The streams form the route gives ``kind`` at N."""
-    return {"sk": kurtosis.SK_STREAMS_KERNELS,
-            "mt": multitaper.TAPERS_STREAMS_KERNELS,
-            "pfb": pfb.PFB_STREAMS_KERNELS}[kind][
-        fc_route(N, kind, backend)]
-
-
-def fc_route(N, kind, backend):
-    from rtl_power_fftw_tpu_torch.ops.spectral import estimator_route
-    flag = {"sk": "--sk-file", "mt": "--multitaper", "pfb": "--pfb-taps"}
-    return estimator_route(N, flag[kind], backend, sharded=True)
+    """The streams form the route over streams gives ``kind`` at N."""
+    table, flag = {"sk": (kurtosis.SK_STREAMS_KERNELS, "--sk-file"),
+                   "mt": (multitaper.TAPERS_STREAMS_KERNELS, "--multitaper"),
+                   "pfb": (pfb.PFB_STREAMS_KERNELS, "--pfb-taps")}[kind]
+    return table[estimator_route(N, flag, backend, sharded=True)]
 
 
 # --- the routes' streams forms ---------------------------------------------
