@@ -3172,13 +3172,15 @@ PFB_STREAMS_SCAN_ARGV = ["-f", "100M:103M", "-n", "100", "-b", "2048", "-q",
 
 
 def hold_streams(label, got, want, gold, counts,
-                 few_limit: float = GOLDEN_RTOL) -> str:
+                 few_limit: float = GOLDEN_RTOL,
+                 plain_factor: float = 0.0) -> str:
     """A streams entry's (S, N) rows against their plain version and the
     float64 golden: a stream of at least 64 frames by max rel (<= 1e-5 of
     both), one of fewer by its largest error over its mean row value
-    against the golden (<= ``few_limit``, plain's printed beside: its
-    smallest bins are single periodogram values near 0), one of none by
-    exact zeros."""
+    against the golden (<= ``few_limit``, or ``plain_factor`` times
+    plain's own where that is larger, est_errors' rule; plain's printed
+    beside: its smallest bins are single periodogram values near 0), one
+    of none by exact zeros."""
     rel_plain = rel_gold = few = few_plain = 0.0
     for s, c in enumerate(counts):
         if c == 0:
@@ -3192,12 +3194,14 @@ def hold_streams(label, got, want, gold, counts,
             few = max(few, float(np.abs(got[s] - gold[s]).max()) / scale)
             few_plain = max(few_plain,
                             float(np.abs(want[s] - gold[s]).max()) / scale)
+    limit = max(few_limit, plain_factor * few_plain)
     check(rel_plain <= UNIFORM_RTOL and rel_gold <= GOLDEN_RTOL
-          and few <= few_limit, f"{label}: {rel_plain} vs plain, "
-          f"{rel_gold} vs golden, {few} err/mean at few-frame streams")
+          and few <= limit, f"{label}: {rel_plain} vs plain, "
+          f"{rel_gold} vs golden, {few} err/mean at few-frame streams "
+          f"(limit {limit:.3g}, plain's {few_plain:.3e})")
     return (f"max rel vs plain {rel_plain:.3e}, vs float64 golden "
             f"{rel_gold:.3e} (streams of >= 64 frames); err/mean vs the "
-            f"golden {few:.3e} (<= {few_limit:g}; plain's {few_plain:.3e}) "
+            f"golden {few:.3e} (<= {limit:.3g}; plain's {few_plain:.3e}) "
             f"at 1..63 frames; zero rows exact")
 
 
@@ -6063,6 +6067,13 @@ AWK_PFB4094_ARGV = ["-f", "100M", "-n", "200", "-b", "4094", "-l",
                     "--streams", "2", "--pfb-taps", "4", "--source", SOURCE]
 
 
+# Phase 21 holds a stream of fewer than 64 frames as phases 19 and 20 hold
+# the one-stream forms, whose rows each stream's are bit for bit: within
+# its limit or this many times plain's own error over the mean, where
+# that is larger (est_errors).
+FEW_PLAIN = 3.0
+
+
 def drive_awkward_streams(label, argv, key, kind, cli, fp, ff, tmp) -> int:
     """One drive over ``--streams`` through ``cli.main`` (drive()): the
     streams form ``key`` alone, the spectrum against the mean of the
@@ -6235,7 +6246,7 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
             line = [f"s{i + 1}: " + hold_streams(
                 f"{label} s{i + 1}", g_np[:, i], r_np[:, i],
                 np.stack([g[i] for g in gold]), counts,
-                (i + 1) * GOLDEN_RTOL) for i in range(2)]
+                (i + 1) * GOLDEN_RTOL, FEW_PLAIN) for i in range(2)]
             if sigma > 0.0:
                 M = torch.from_numpy(counts.astype(np.float32))[:, None]
                 keep = fsk.sk_keep(got[:, 0].cpu(), got[:, 1].cpu(), M,
@@ -6270,7 +6281,7 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
         print(f"{label} ({mt_group} frames a block): the same bits twice, "
               f"each stream the one-stream form's; " + hold_streams(
                   label, got.cpu().numpy(), ref.cpu().numpy(), gold_mt,
-                  counts))
+                  counts, plain_factor=FEW_PLAIN))
         P = 4
         h_np = pfb_prototype(N, P).reshape(P, N)
         h = torch.from_numpy(h_np).to(dev)
@@ -6323,7 +6334,8 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
                   "plain's and the virtual rows' bit for bit, each "
                   "stream's rows and history the one-stream form's; "
                   + hold_streams(label, got.cpu().numpy(), ref.numpy(),
-                                 np.stack(gold_p), cnt))
+                                 np.stack(gold_p), cnt,
+                                 plain_factor=FEW_PLAIN))
             hist[0], hist[1] = hist[1], hist[0]
             hist_p.reverse()
             for s in range(S):
