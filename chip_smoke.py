@@ -6135,7 +6135,9 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
     one-stream form's on the same groups, the gate on each stream's own
     count (a burst in one stream gates only that stream's bin); the PFB's
     histories over three steps and a reset against plain's and the
-    one-stream form's; 60-seed yards at 500 and 998 with S = 2; times at
+    one-stream form's; the same holds at each drive's own step (S, F),
+    every frame valid and its last step's count among uneven ones, the
+    PFB over both steps; 60-seed yards at 500 and 998 with S = 2; times at
     S = 2, F = 2048 (2400 mixed, 998 chirp-Z) beside two one-stream calls,
     M-S or B-S, ``torch.fft.fft`` and the bound, and at the drives' steps;
     nine drives, each on its streams form alone. Returns the kernels-line
@@ -6201,30 +6203,19 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
                            "SK-B", "MT-B", "PFB-B", "M streams",
                            "B streams")}
 
-    def case(fam, N, S, F, wname):
-        """Each form of ``fam`` at S streams of F frames, uneven counts
-        (F - 1 and 2 at S = 2; F, 0, 3, F - 1, 1, ... at S = 16): twice,
-        against plain and the per-stream golden, SK's s1 the PSD streams
-        entry's, each stream the one-stream form's on the same groups; the
-        PFB over three steps and a reset."""
+    def hold_sk(fam, raw, raw_np, counts, chunk, w, w_np, sigmas, head):
+        """SK-fam-S on ``raw`` at ``counts``, for each gate of ``sigmas``:
+        twice, against plain and the per-stream golden, s1 the PSD streams
+        entry's rows, each stream the one-stream form's on the same
+        groups, the gate each stream's own sk_keep."""
         f = fams[fam]
-        mod = f["mod"]
-        chunk = adapt_batch(F)[1]
-        counts = (np.array([F - 1, 2], np.int32) if S == 2 else
-                  np.resize(np.array([F, 0, 3, F - 1, 1, F, F // 2 + 1, 2],
-                                     np.int32), S))
+        S, F, N = raw.shape[0], raw.shape[1], raw.shape[2] // 2
         nv = torch.from_numpy(counts).to(dev)
-        nv_cpu = torch.from_numpy(counts)
-        w_np = None if wname is None else make_window(wname, N)
-        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
-        raw_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
-        raw = torch.from_numpy(raw_np).to(dev)
-        head = (f"awkward streams {fam} N={N} S={S} F={F} chunk={chunk} "
-                f"window={wname} counts {counts.tolist()}")
         gold = [golden_moments(raw_np[s], int(c), w_np)
                 for s, c in enumerate(counts)]
-        sk_group = mod.sk_group(S * F, chunk, N, w is not None, dev.index)
-        for sigma in (0.0, 3.0):
+        sk_group = f["mod"].sk_group(S * F, chunk, N, w is not None,
+                                     dev.index)
+        for sigma in sigmas:
             got = f["sk"](raw, nv, chunk, w, sigma)
             again = f["sk"](raw, nv, chunk, w, sigma)
             psd = f["psd"](raw, nv, chunk, w)
@@ -6259,11 +6250,18 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
             print(f"{label} ({sk_group} frames a block): the same bits "
                   f"twice, s1 {f['psd_key']}'s rows, each stream the "
                   f"one-stream form's; " + "; ".join(line))
-        K = 7
+
+    def hold_mt(fam, raw, raw_np, counts, chunk, head, K=7):
+        """MT-fam-S on ``raw`` at ``counts``: twice, against plain and the
+        per-stream golden, each stream the one-stream form's on the same
+        groups."""
+        f = fams[fam]
+        S, F, N = raw.shape[0], raw.shape[1], raw.shape[2] // 2
+        nv = torch.from_numpy(counts).to(dev)
         tp_np = _session_tapers(N, 4.0 if N > 30 else 2.0, K)
         tp = torch.from_numpy(tp_np).to(dev)
-        mt_group = mod.tapers_group(S * F, chunk, N, K, dev.index,
-                                    streams=True)
+        mt_group = f["mod"].tapers_group(S * F, chunk, N, K, dev.index,
+                                         streams=True)
         got = f["mt"](raw, nv, chunk, tp)
         again = f["mt"](raw, nv, chunk, tp)
         ref = f["mt_ref"](raw, nv, chunk, tp)
@@ -6282,10 +6280,18 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
               f"each stream the one-stream form's; " + hold_streams(
                   label, got.cpu().numpy(), ref.cpu().numpy(), gold_mt,
                   counts, plain_factor=FEW_PLAIN))
-        P = 4
+
+    def hold_pfb(fam, N, S, F, chunk, schedule, resets, head, P=4):
+        """PFB-fam-S over the steps of ``schedule`` (each step's counts;
+        fresh histories at the steps of ``resets``), new frames each step:
+        twice, the histories on the card plain's and the virtual rows' bit
+        for bit, each stream's rows and history the one-stream form's,
+        against plain and the per-stream golden."""
+        f = fams[fam]
         h_np = pfb_prototype(N, P).reshape(P, N)
         h = torch.from_numpy(h_np).to(dev)
-        pfb_group = mod.pfb_group(S * F, chunk, N, dev.index, streams=True)
+        pfb_group = f["mod"].pfb_group(S * F, chunk, N, dev.index,
+                                       streams=True)
         hist = [torch.empty((S, P - 1, 2 * N), dtype=torch.uint8,
                             device=dev) for _ in range(3)]
         hist_p = [torch.empty((S, P - 1, 2 * N), dtype=torch.uint8)
@@ -6293,9 +6299,8 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
         hs = [[torch.empty((P - 1, 2 * N), dtype=torch.uint8, device=dev)
                for _ in range(2)] for _ in range(S)]
         virtual = [None] * S
-        schedule = [counts, np.roll(counts, 1), np.roll(counts, 3), counts]
         for k, cnt in enumerate(schedule):
-            fresh = k in (0, 3)
+            fresh = k in resets
             step_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
             step = torch.from_numpy(step_np).to(dev)
             c_dev = torch.from_numpy(cnt).to(dev)
@@ -6325,7 +6330,7 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
                            and torch.equal(hist[1][s], hs[s][1])
                            for s in range(S))
             label = (f"PFB-{fam}-S {head} P={P} step {k}"
-                     f"{' (a reset)' if k == 3 else ''}")
+                     f"{' (a reset)' if fresh and k else ''}")
             check(torch.equal(got, again) and same_hist and same_one,
                   f"{label}: the same bits twice, histories {same_hist}, "
                   f"one-stream bits {same_one}")
@@ -6340,6 +6345,28 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
             hist_p.reverse()
             for s in range(S):
                 hs[s].reverse()
+
+    def case(fam, N, S, F, wname):
+        """Each form of ``fam`` at S streams of F frames, uneven counts
+        (F - 1 and 2 at S = 2; F, 0, 3, F - 1, 1, ... at S = 16): twice,
+        against plain and the per-stream golden, SK's s1 the PSD streams
+        entry's, each stream the one-stream form's on the same groups; the
+        PFB over three steps and a reset."""
+        chunk = adapt_batch(F)[1]
+        counts = (np.array([F - 1, 2], np.int32) if S == 2 else
+                  np.resize(np.array([F, 0, 3, F - 1, 1, F, F // 2 + 1, 2],
+                                     np.int32), S))
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        head = (f"awkward streams {fam} N={N} S={S} F={F} chunk={chunk} "
+                f"window={wname} counts {counts.tolist()}")
+        hold_sk(fam, raw, raw_np, counts, chunk, w, w_np, (0.0, 3.0), head)
+        hold_mt(fam, raw, raw_np, counts, chunk, head)
+        hold_pfb(fam, N, S, F, chunk,
+                 [counts, np.roll(counts, 1), np.roll(counts, 3), counts],
+                 (0, 3), head)
 
     man_F = adapt_batch(drive_frames_per_step(MAN_PAGE_ARGV, 2))[0]
     for fam, N, S, F, wname in (("M", 500, 2, man_F, None),
@@ -6375,6 +6402,55 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
               f"bin 9 in stream 1's first {F // 4} frames, counts "
               f"{counts.tolist()}: kept at bin 9 {kept.tolist()} (the "
               "burst stream gated alone, on its own count)")
+
+    # Each drive's own step (S, F, chunk; its kernel, the gate), held as
+    # the cases above: every frame valid, then the drive's last step's
+    # count beside uneven ones (F - 1, a stream with none, one frame);
+    # the PFB over the two steps from a reset history, as a hop starts.
+    drive_steps = []
+    for label, kind, fam, argv, S, sigma in (
+            ("man page --streams 2 --sk-file", "SK", "M", MAN_PAGE_ARGV, 2,
+             0.0),
+            ("--streams 2 --pfb-taps 4 -b 500", "PFB", "M", AWK_PFB_ARGV, 2,
+             0.0),
+            ("--streams 2 --sk-file -b 998", "SK", "B", AWK_SK998_ARGV, 2,
+             0.0),
+            ("--streams 2 --sk-excise 3 -b 998", "SK", "B", None, 2, 3.0),
+            ("--streams 4 --multitaper 7 -b 2400", "MT", "M", AWK_MT_ARGV,
+             4, 0.0),
+            ("--streams 2 --sk-file -b 2048 bluestein", "SK", "B",
+             AWK_SK_BLUESTEIN_ARGV, 2, 0.0),
+            ("--streams 16 -b 500 --sk-file", "SK", "M", AWK_C5_ARGV, 16,
+             0.0),
+            ("--streams 2 --multitaper 7 -b 998", "MT", "B", AWK_MT998_ARGV,
+             2, 0.0),
+            ("--streams 2 --pfb-taps 4 -b 4094", "PFB", "B",
+             AWK_PFB4094_ARGV, 2, 0.0)):
+        if argv is None:   # drive_streams_sk_excise: 2 x 256 frames
+            N, repeats, F, chunk = 998, 512, *adapt_batch(256)
+        else:
+            N = int(argv[argv.index("-b") + 1])
+            repeats = int(argv[argv.index("-n") + 1])
+            F, chunk = adapt_batch(256 if "--frames-per-step" in argv
+                                   else drive_frames_per_step(argv, S))
+        last = repeats - (-(-repeats // F) - 1) * F
+        drive_steps.append((label, kind, fam, N, S, F, chunk, sigma))
+        full = np.full(S, F, np.int32)
+        uneven = np.resize(np.array([last, F - 1, 0, 1], np.int32), S)
+        head = (f"awkward streams {fam} at the drive step of {label} "
+                f"(N={N} S={S} F={F} chunk={chunk}, last step {last})")
+        if kind == "PFB":
+            hold_pfb(fam, N, S, F, chunk, [full, uneven], (0,), head)
+            continue
+        for counts in (full, uneven):
+            raw_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+            raw = torch.from_numpy(raw_np).to(dev)
+            at = f"{head} counts {counts.tolist()}"
+            if kind == "SK":
+                hold_sk(fam, raw, raw_np, counts, chunk, None, None,
+                        (sigma,), at)
+            else:
+                hold_mt(fam, raw, raw_np, counts, chunk, at)
     counts_now = launch_counts(fp, ff)
     check(all(counts_now[k] == v for k, v in want.items())
           and not any(v for k, v in counts_now.items() if k not in want),
@@ -6545,24 +6621,10 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
                   f"{t['max_abs']:.4g}, max rel {rel:.3e}")
     # Each drive's own step, every frame valid: the form's device time
     # beside the PSD streams entry's on the same frames.
-    for label, kind, fam, argv, S in (
-            ("man page --streams 2 --sk-file", "SK", "M", MAN_PAGE_ARGV, 2),
-            ("--streams 2 --pfb-taps 4 -b 500", "PFB", "M", AWK_PFB_ARGV,
-             2),
-            ("--streams 2 --sk-file -b 998", "SK", "B", AWK_SK998_ARGV, 2),
-            ("--streams 4 --multitaper 7 -b 2400", "MT", "M", AWK_MT_ARGV,
-             4),
-            ("--streams 2 --sk-file -b 2048 bluestein", "SK", "B",
-             AWK_SK_BLUESTEIN_ARGV, 2),
-            ("--streams 16 -b 500 --sk-file", "SK", "M", AWK_C5_ARGV, 16),
-            ("--streams 2 --multitaper 7 -b 998", "MT", "B", AWK_MT998_ARGV,
-             2),
-            ("--streams 2 --pfb-taps 4 -b 4094", "PFB", "B",
-             AWK_PFB4094_ARGV, 2)):
+    for label, kind, fam, N, S, F, chunk, sigma in drive_steps:
+        if sigma > 0.0:
+            continue
         f = fams[fam]
-        N = int(argv[argv.index("-b") + 1])
-        F, chunk = adapt_batch(256 if "--frames-per-step" in argv
-                               else drive_frames_per_step(argv, S))
         raw = torch.from_numpy(rng.integers(0, 256, (S, F, 2 * N),
                                             dtype=np.uint8)).to(dev)
         full = torch.full((S,), F, dtype=torch.int32, device=dev)
