@@ -11,14 +11,16 @@ time-variable interference push SK away from 1. The device step is the
 spectral-kurtosis kernel (``ops/kernels/csrc/fused_psd_sk.cu`` at the
 powers of two, its mixed-radix form SK-M of
 ``ops/kernels/csrc/fused_psd_mixed_est.cu`` at the other even 7-smooth N up
-to 16384 and its chirp-Z form SK-B of
+to 16384, its chirp-Z form SK-B of
 ``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192
-and under ``--fft-backend bluestein``, on one stream; their plain PyTorch
-version on the CPU), which accumulates both moments in one pass, its s1
-the plain PSD step's bit for bit; over S streams its streams entry, which
-gates each stream on its own block before the sum over streams (the
-streams form of the route's kernel: ``fused_psd_sk.cu``'s entry, SK-M-S
-or SK-B-S).
+and its form SK-BL of BL's passes,
+``ops/kernels/csrc/fused_psd_chirp_large_est.cu``, at the other even N in
+(8192, 16384], the chirp-Z forms also at any even N up to 16384 under
+``--fft-backend bluestein``; their plain PyTorch version on the CPU),
+which accumulates both moments in one pass, its s1 the plain PSD step's
+bit for bit; over S streams the same on every N (the streams form of the
+route's kernel: ``fused_psd_sk.cu``'s entry, SK-M-S, SK-B-S or SK-BL-S),
+which gates each stream on its own block before the sum over streams.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import torch
 
 from ..ops.kernels.fused_psd_chirp_est import (fused_psd_sk_chirp,
                                                fused_psd_sk_chirp_streams)
+from ..ops.kernels.fused_psd_chirp_large_est import (
+    fused_psd_sk_chirp_large, fused_psd_sk_chirp_large_streams)
 from ..ops.kernels.fused_psd_mixed_est import (fused_psd_sk_mixed,
                                                fused_psd_sk_mixed_streams)
 from ..ops.kernels.fused_psd_sk import (fused_psd_sk, fused_psd_sk_streams,
@@ -43,11 +47,13 @@ _sk_keep = sk_keep
 
 #: The SK step's kernel by ``estimator_route``'s route.
 SK_KERNELS = {"regs": fused_psd_sk, "mixed": fused_psd_sk_mixed,
-              "bluestein": fused_psd_sk_chirp}
+              "bluestein": fused_psd_sk_chirp,
+              "chirp_large": fused_psd_sk_chirp_large}
 #: The SK streams step's kernel by the same route over streams.
 SK_STREAMS_KERNELS = {"regs": fused_psd_sk_streams,
                       "mixed": fused_psd_sk_mixed_streams,
-                      "bluestein": fused_psd_sk_chirp_streams}
+                      "bluestein": fused_psd_sk_chirp_streams,
+                      "chirp_large": fused_psd_sk_chirp_large_streams}
 
 
 def compute_sk(s1: np.ndarray, s2: np.ndarray, M: int) -> np.ndarray:
@@ -78,12 +84,13 @@ class SkSessionStep:
     The path is "cuda_sk" on a CUDA device, "plain_sk" on the CPU. Only N
     of 64..16384 powers of two (the SK kernel), the other even 7-smooth N
     up to 16384 (SK-M, on the mixed-radix kernel's grid: its s1 is the
-    mixed-radix PSD step's) and the other even N up to 8192 (SK-B, on the
-    chirp-Z kernel's grid: its s1 is the chirp-Z PSD step's), and the
+    mixed-radix PSD step's), the other even N up to 8192 (SK-B, on the
+    chirp-Z kernel's grid: its s1 is the chirp-Z PSD step's) and the other
+    even N in (8192, 16384] (SK-BL, on BL's grid: its s1 is BL's), and the
     ``--fft-backend`` names the JAX package's SK step runs its auto
     transform for, are taken; under ``bluestein`` SK-B at any even N up
-    to 8192, as the PSD step runs B there
-    (``ops.spectral.estimator_route``)."""
+    to 8192 and SK-BL at any even N in (8192, 16384], as the PSD step
+    runs B and BL there (``ops.spectral.estimator_route``)."""
 
     def __init__(self, N: int, frames_per_step: int, device,
                  window: Optional[np.ndarray] = None,
@@ -128,7 +135,9 @@ class ShardedSkStep:
     (``estimator_route`` over streams: ``fused_psd_sk_streams`` at the
     powers of two, ``fused_psd_sk_mixed_streams`` at the other even
     7-smooth N up to 16384, ``fused_psd_sk_chirp_streams`` at the other
-    even N up to 8192 and under ``bluestein``; "cuda_sk" on a card,
+    even N up to 8192 and ``fused_psd_sk_chirp_large_streams`` at the
+    other even N in (8192, 16384], the last two also under ``bluestein``;
+    "cuda_sk" on a card,
     "plain_sk" on the CPU); only the N and ``backend`` that
     :class:`SkSessionStep` takes are taken."""
 

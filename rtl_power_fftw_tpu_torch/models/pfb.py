@@ -9,12 +9,14 @@ isolation over the plain periodogram (datastore.cxx:66-88) at the cost of
 P× the input history per frame. The device step is the PFB kernel
 (``ops/kernels/csrc/fused_psd_pfb.cu`` at the powers of two, its
 mixed-radix form PFB-M of ``ops/kernels/csrc/fused_psd_mixed_est.cu`` at
-the other even 7-smooth N up to 16384 and its chirp-Z form PFB-B of
-``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to
-8192, on one stream; their plain PyTorch version on the CPU), which
-builds each frame's polyphase sum from its history and slot rows and
-transforms it; over S streams the streams form of the route's kernel,
-each stream's history on the device.
+the other even 7-smooth N up to 16384, its chirp-Z form PFB-B of
+``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192
+and its form PFB-BL of BL's passes,
+``ops/kernels/csrc/fused_psd_chirp_large_est.cu``, at the other even N in
+(8192, 16384]; their plain PyTorch version on the CPU), which builds each
+frame's polyphase sum from its history and slot rows and transforms it;
+over S streams the streams form of the route's kernel on the same N, each
+stream's history on the device.
 
 ``pfb_psd(prototype=np.ones(M), taps=1)`` is exactly the Bartlett
 estimator (models/bartlett.py).
@@ -30,6 +32,8 @@ import torch
 from ..auxdata import make_window
 from ..ops.kernels.fused_psd_chirp_est import (fused_psd_pfb_chirp,
                                                fused_psd_pfb_chirp_streams)
+from ..ops.kernels.fused_psd_chirp_large_est import (
+    fused_psd_pfb_chirp_large, fused_psd_pfb_chirp_large_streams)
 from ..ops.kernels.fused_psd_mixed_est import (fused_psd_pfb_mixed,
                                                fused_psd_pfb_mixed_streams)
 from ..ops.kernels.fused_psd_pfb import (MAX_TAPS, fused_psd_pfb,
@@ -60,11 +64,13 @@ def pfb_prototype(M: int, taps: int = 4,
 
 #: The PFB step's kernel by ``estimator_route``'s route.
 PFB_KERNELS = {"regs": fused_psd_pfb, "mixed": fused_psd_pfb_mixed,
-               "bluestein": fused_psd_pfb_chirp}
+               "bluestein": fused_psd_pfb_chirp,
+               "chirp_large": fused_psd_pfb_chirp_large}
 #: The PFB streams step's kernel by the same route over streams.
 PFB_STREAMS_KERNELS = {"regs": fused_psd_pfb_streams,
                        "mixed": fused_psd_pfb_mixed_streams,
-                       "bluestein": fused_psd_pfb_chirp_streams}
+                       "bluestein": fused_psd_pfb_chirp_streams,
+                       "chirp_large": fused_psd_pfb_chirp_large_streams}
 
 
 class _PfbRunner:
@@ -74,7 +80,9 @@ class _PfbRunner:
     into the other, on the step's stream). The kernel is the route's
     (``estimator_route``): ``fused_psd_pfb`` at the powers of two,
     ``fused_psd_pfb_mixed`` at the other even 7-smooth N up to 16384,
-    ``fused_psd_pfb_chirp`` at the other even N up to 8192."""
+    ``fused_psd_pfb_chirp`` at the other even N up to 8192,
+    ``fused_psd_pfb_chirp_large`` at the other even N in (8192,
+    16384]."""
 
     def __init__(self, N: int, F: int, chunk: int, h: np.ndarray, device):
         self._kernel = PFB_KERNELS[estimator_route(N, "--pfb-taps")]
@@ -120,8 +128,9 @@ class PfbSessionStep:
     exactly N new samples, like the reference's spectra. ``window`` names
     the prototype's window (``--window-function``). The path is
     "cuda_pfb" on a CUDA device, "plain_pfb" on the CPU; N must be a power
-    of two from 64 to 16384, another even 7-smooth N up to 16384 (PFB-M)
-    or another even N up to 8192 (PFB-B; ``ops.spectral.estimator_route``)."""
+    of two from 64 to 16384, another even 7-smooth N up to 16384 (PFB-M),
+    another even N up to 8192 (PFB-B) or another even N in (8192, 16384]
+    (PFB-BL; ``ops.spectral.estimator_route``)."""
 
     def __init__(self, N: int, frames_per_step: int, taps: int = 4,
                  window: str = "hann", *, device):
@@ -161,9 +170,10 @@ class ShardedPfbStep:
     on the next step, so history never leaks across retunes or crosses
     streams. The combined row is :class:`PfbSessionStep` run on each
     stream and summed. The rows are the route's streams kernel's
-    (``fused_psd_pfb_streams``, ``fused_psd_pfb_mixed_streams`` or
-    ``fused_psd_pfb_chirp_streams`` where the single-stream step takes the
-    same family; "cuda_pfb" on a card, "plain_pfb" on the CPU); ``window``
+    (``fused_psd_pfb_streams``, ``fused_psd_pfb_mixed_streams``,
+    ``fused_psd_pfb_chirp_streams`` or
+    ``fused_psd_pfb_chirp_large_streams`` where the single-stream step
+    takes the same family; "cuda_pfb" on a card, "plain_pfb" on the CPU); ``window``
     names the prototype's window."""
 
     def __init__(self, devices, N: int, frames_per_step: int, streams: int,

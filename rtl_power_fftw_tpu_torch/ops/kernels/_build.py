@@ -183,6 +183,29 @@ SIGNATURES = {
         "rpf_fused_psd_chirp_est_streams_attributes": [_I, _I, _I, _I, _I,
                                                        _P],
     },
+    "fused_psd_chirp_large_est": {
+        # SK-BL: raw, twiddle, inter, window, chirp, spectrum, counts,
+        # scratch, partial, out, device, log2m, bins, width, S, F, group_a,
+        # group_b, group_c, two_sigma, stream
+        "rpf_fused_psd_sk_chirp_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                         _I, _F, _P],
+        # MT-BL: raw, twiddle, inter, tapers, chirp, spectrum, counts,
+        # scratch, partial, out, device, log2m, bins, width, S, F, group_a,
+        # group_b, group_c, K, stream
+        "rpf_fused_psd_tapers_chirp_large": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                             _P, _P, _I, _I, _I, _I, _I, _I,
+                                             _I, _I, _I, _I, _P],
+        # PFB-BL: raw, history, twiddle, inter, h, chirp, spectrum, counts,
+        # scratch, partial, out, history_out, device, log2m, bins, width,
+        # S, F, group_a, group_b, group_c, P, fresh, stream
+        "rpf_fused_psd_pfb_chirp_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _I, _P],
+        # log2m, which (0..5: passes A, A windowed, B, C, SK's C, the
+        # PFB's A), device, attrs (int[6])
+        "rpf_fused_psd_chirp_large_est_attributes": [_I, _I, _I, _P],
+    },
     "fused_psd_mixed_large": {
         # raw, tw1, bin1, inter, window, tw2, order2, scratch, partial,
         # out, plan1 (int[55]), plan2, device, log2c, n2p, width, F,

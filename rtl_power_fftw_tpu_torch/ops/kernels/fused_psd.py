@@ -163,7 +163,11 @@ class LaunchCounts:
     ``kernel_sk_chirp``, ``kernel_tapers_chirp`` and ``kernel_pfb_chirp``
     their forms of the chirp-Z kernel (:mod:`.fused_psd_chirp_est`: SK-B,
     MT-B, PFB-B), with ``_streams`` after each of those six the streams
-    forms' (SK-M-S ... PFB-B-S), and ``plain_frames``,
+    forms' (SK-M-S ... PFB-B-S), and ``kernel_sk_chirp_large``,
+    ``kernel_tapers_chirp_large`` and ``kernel_pfb_chirp_large`` their
+    forms of BL's passes (:mod:`.fused_psd_chirp_large_est`: SK-BL, MT-BL,
+    PFB-BL), with ``_streams`` after each the calls over streams (SK-BL-S
+    ... PFB-BL-S), and ``plain_frames``,
     ``plain_pfb_channelize``, ``plain_csd`` and ``plain_scf`` their plain
     versions' calls (each also counted in ``plain``, every plain
     version's).
@@ -225,6 +229,12 @@ class LaunchCounts:
         self.kernel_sk_chirp_streams = 0
         self.kernel_tapers_chirp_streams = 0
         self.kernel_pfb_chirp_streams = 0
+        self.kernel_sk_chirp_large = 0
+        self.kernel_tapers_chirp_large = 0
+        self.kernel_pfb_chirp_large = 0
+        self.kernel_sk_chirp_large_streams = 0
+        self.kernel_tapers_chirp_large_streams = 0
+        self.kernel_pfb_chirp_large_streams = 0
         self.plain = 0
         self.plain_frames = 0
         self.plain_pfb_channelize = 0

@@ -171,36 +171,50 @@ def _plain_tables(N: int, device: torch.device):
             torch.from_numpy(inter_twiddle(M, M1, M2)).to(device))
 
 
-def chirp_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
-                          window: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
-    """The plain PyTorch version: (F, 2N) uint8 -> (N,) float32, the three
-    passes in torch ops with the kernel's tables (dequantize, [window,] ×
-    a, zero to M; column DFTs, × W_M^(n2 k1); row DFTs, × B / M,
-    conjugate, row DFTs, × W_M^(k1 m2); column DFTs; m < N, × a, |.|^2,
-    frames f >= n_valid dropped, a two-stage sum)."""
-    F, two_n = raw_u8.shape
-    N = two_n // 2
+def chirp_large_dft_power(z: torch.Tensor) -> torch.Tensor:
+    """|DFT|^2 along the last axis by the three passes in torch ops, with
+    the kernel's tables: (..., N) complex64 -> (..., N) float32 (× a, zero
+    to M; column DFTs, × W_M^(n2 k1); row DFTs, × B / M, conjugate, row
+    DFTs, × W_M^(k1 m2); column DFTs; m < N, × a, |.|^2)."""
+    lead, N = z.shape[:-1], z.shape[-1]
+    F = z.reshape(-1, N).shape[0]
     M1, M2 = chirp_large_split(N)
-    a, B, inter = _plain_tables(N, raw_u8.device)
-    v = raw_u8.reshape(F, N, 2).to(torch.int32)
-    re = (v[..., 0] - 127).to(torch.float32)
-    im = (v[..., 1] - 127).to(torch.float32)
-    if window is not None:
-        re = re * window
-        im = im * window
-    u = torch.zeros((F, M1 * M2), dtype=torch.complex64,
-                    device=raw_u8.device)
-    u[:, :N] = torch.complex(re, im) * a
+    a, B, inter = _plain_tables(N, z.device)
+    u = torch.zeros((F, M1 * M2), dtype=torch.complex64, device=z.device)
+    u[:, :N] = z.reshape(F, N) * a
     y = torch.fft.fft(u.reshape(F, M1, M2), dim=1) * inter   # [f, k1, n2]
     Y = torch.fft.fft(y, dim=2)                              # [f, k1, k2]
     Z = torch.conj(Y * B.reshape(M2, M1).T)
     z = torch.fft.fft(Z, dim=2) * inter                      # [f, k1, m2]
     z = torch.fft.fft(z, dim=1)                              # [f, m1, m2]
     X = z.reshape(F, M1 * M2)[:, :N].conj() * a
-    pwr = X.real * X.real + X.imag * X.imag
+    return (X.real * X.real + X.imag * X.imag).reshape(*lead, N)
+
+
+def chirp_large_power(raw_u8: torch.Tensor,
+                      window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """|DFT|^2 of every frame by :func:`chirp_large_dft_power`: (..., 2N)
+    uint8, dequantized [and windowed] -> (..., N) float32."""
+    N = raw_u8.shape[-1] // 2
+    v = raw_u8.reshape(*raw_u8.shape[:-1], N, 2).to(torch.int32)
+    re = (v[..., 0] - 127).to(torch.float32)
+    im = (v[..., 1] - 127).to(torch.float32)
+    if window is not None:
+        re = re * window
+        im = im * window
+    return chirp_large_dft_power(torch.complex(re, im))
+
+
+def chirp_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+                          window: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The plain PyTorch version: (F, 2N) uint8 -> (N,) float32, the three
+    passes in torch ops with the kernel's tables (:func:`chirp_large_power`),
+    frames f >= n_valid dropped, a two-stage sum."""
+    F, two_n = raw_u8.shape
+    pwr = chirp_large_power(raw_u8, window)
     pwr[n_valid:] = 0.0
-    return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
+    return pwr.reshape(F // chunk, chunk, two_n // 2).sum(dim=1).sum(dim=0)
 
 
 def control_attributes(N: int, which: int,
@@ -436,20 +450,38 @@ class _Plan(NamedTuple):
 _plans: dict = {}
 
 
+@functools.lru_cache(maxsize=8)
+def device_tables(N: int, device: torch.device) -> tuple:
+    """The register passes' tables at N on the device, as the entries take
+    them: pass_twiddles(M1) then pass_twiddles(M2), W_M^(k1 n2) in
+    scratch's order (:func:`.fused_psd_large.regs_inter_twiddle` of M), the
+    chirp in the threads' order (:func:`chirp_regs_table`) and B / M by
+    element (:func:`spectrum_regs_table`)."""
+    t = chirp_regs_layout(N)
+    m1, m2 = t.regs["N1"], t.regs["N2"]
+    return tuple(torch.from_numpy(x).to(device) for x in (
+        np.concatenate([pass_twiddles(m1), pass_twiddles(m2)]),
+        regs_inter_twiddle(t.M), chirp_regs_table(N),
+        spectrum_regs_table(N)))
+
+
+def pass_residency(N: int, windowed: bool, index: int
+                   ) -> Tuple[int, int, int]:
+    """Blocks of passes A (windowed or not), B and C at N bins that card
+    ``index`` holds at once: the grids' inputs (:func:`regs_grid`,
+    :func:`streams_grid`)."""
+    return tuple(resident_blocks(N, which, index) for which in (
+        PASS_A_WINDOWED if windowed else PASS_A, PASS_B, PASS_C))
+
+
 def _plan(N: int, F: int, windowed: bool, device: torch.device) -> _Plan:
     key = (N, F, windowed, device.index)
     plan = _plans.get(key)
     if plan is None:
         from . import _build
         t = chirp_regs_layout(N)
-        m1, m2 = t.regs["N1"], t.regs["N2"]
-        keep = tuple(torch.from_numpy(x).to(device) for x in (
-            np.concatenate([pass_twiddles(m1), pass_twiddles(m2)]),
-            regs_inter_twiddle(t.M), chirp_regs_table(N),
-            spectrum_regs_table(N)))
-        groups = regs_grid(F, N, tuple(
-            resident_blocks(N, which, device.index) for which in (
-                PASS_A_WINDOWED if windowed else PASS_A, PASS_B, PASS_C)))
+        keep = device_tables(N, device)
+        groups = regs_grid(F, N, pass_residency(N, windowed, device.index))
         plan = _plans[key] = _Plan(
             _build.load("fused_psd_chirp_large"), t, groups,
             tuple(k.data_ptr() for k in keep), keep)
@@ -556,9 +588,8 @@ def fused_psd_chirp_large_streams(raw_u8: torch.Tensor,
     key = (N, S, F, windowed, device.index)
     groups = _streams_grids.get(key)
     if groups is None:
-        groups = _streams_grids[key] = streams_grid(S, F, N, tuple(
-            resident_blocks(N, which, device.index) for which in (
-                PASS_A_WINDOWED if windowed else PASS_A, PASS_B, PASS_C)))
+        groups = _streams_grids[key] = streams_grid(
+            S, F, N, pass_residency(N, windowed, device.index))
     rows = -(-F // groups[2])
     stream = _raw_stream(device.index)
     scratch, partial = workspace(

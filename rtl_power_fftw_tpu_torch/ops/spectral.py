@@ -19,12 +19,14 @@ import torch
 from ..exceptions import ReturnValue, RPFexception
 from .kernels.fused_psd import MAX_N as REGS_MAX_N
 from .kernels.fused_psd import MIN_N, fused_psd, fused_psd_eligible
-from .kernels.fused_psd_bluestein import MAX_N as CHIRP_MAX_N
 from .kernels.fused_psd_bluestein import (fused_psd_bluestein,
                                           fused_psd_bluestein_eligible)
 from .kernels.fused_psd_chirp_large import MAX_N as CHIRP_LARGE_MAX_N
 from .kernels.fused_psd_chirp_large import (fused_psd_chirp_large,
                                             fused_psd_chirp_large_eligible)
+from .kernels.fused_psd_chirp_large_est import MAX_N as EST_MAX_N
+from .kernels.fused_psd_chirp_large_est import \
+    fused_psd_chirp_large_est_eligible
 from .kernels.fused_psd_fast import fused_psd_fast, fused_psd_fast_eligible
 from .kernels.fused_psd_large import (MAX_N, fused_psd_large,
                                       fused_psd_large_eligible)
@@ -138,10 +140,12 @@ SK_BACKENDS = ("auto", "pallas", "hybrid", "fft4")
 
 
 #: The session's estimator options: on one stream and over ``--streams``
-#: they also take the even 7-smooth N of the mixed-radix kernel and the
-#: other even N of the chirp-Z kernel (their forms of them,
-#: ``kernels/csrc/fused_psd_mixed_est.cu`` and
-#: ``kernels/csrc/fused_psd_chirp_est.cu``, each with a streams form).
+#: they take every even N up to 16384: the powers of two on K1's
+#: variants, and the other N on the estimators' forms of the mixed-radix
+#: kernel, of the chirp-Z kernel and of BL's passes
+#: (``kernels/csrc/fused_psd_mixed_est.cu``,
+#: ``kernels/csrc/fused_psd_chirp_est.cu``,
+#: ``kernels/csrc/fused_psd_chirp_large_est.cu``, each with a streams form).
 CLI_ESTIMATORS = ("--sk-file", "--sk-excise", "--multitaper", "--pfb-taps")
 
 
@@ -152,36 +156,40 @@ def estimator_route(N: int, flag: str, backend: str = "auto",
     family's streams form): "regs" (variants of K1's group kernel, the
     powers of two from 64 to 16384), "mixed" (the session's estimators,
     :data:`CLI_ESTIMATORS`, at the other even 7-smooth N up to 16384:
-    forms of the mixed-radix kernel) or "bluestein" (the same at the other
-    even N up to 8192, and the spectral-kurtosis step under
-    ``--fft-backend bluestein`` at any even N up to 8192, as the PSD step
-    takes that name: forms of the chirp-Z kernel). Raise
-    RPFexception(InvalidArgument), "Not yet ported", anywhere else: the
-    library-only estimators (``flag`` their names) at other N, the other
-    even N in (8192, 16384] (9998 among them, and 16382 under
-    ``bluestein``) and every N above 16384. The spectral-kurtosis step
-    also takes only the ``--fft-backend`` names of :data:`SK_BACKENDS` and
-    ``bluestein`` (the other two estimators ignore the option, as the JAX
-    package's do). The same check and message on the CPU and on the
-    card."""
+    forms of the mixed-radix kernel), "bluestein" (the same at the other
+    even N up to 8192: forms of the chirp-Z kernel) or "chirp_large" (the
+    same at the other even N in (8192, 16384], 9998 and 16382 among them:
+    forms of BL's three passes). The spectral-kurtosis step under
+    ``--fft-backend bluestein`` runs the chirp-Z forms at any even N, as
+    the PSD step takes that name: "bluestein" up to 8192, "chirp_large" in
+    (8192, 16384]. Raise RPFexception(InvalidArgument), "Not yet ported",
+    anywhere else: the library-only estimators (``flag`` their names) at
+    other N, and the session's at every N above 16384 (20002 among them)
+    and at odd N. The spectral-kurtosis step also takes only the
+    ``--fft-backend`` names of :data:`SK_BACKENDS` and ``bluestein`` (the
+    other two estimators ignore the option, as the JAX package's do). The
+    same check and message on the CPU and on the card."""
     session = flag in CLI_ESTIMATORS
     over = " over --streams" if sharded else ""
     if session and flag.startswith("--sk") and backend == "bluestein":
-        if not fused_psd_bluestein_eligible(N):
-            raise _unported(f"{flag}{over} with --fft-backend bluestein at "
-                            f"{N} bins (the chirp-Z estimator kernels take "
-                            f"even N up to {CHIRP_MAX_N})")
-        return "bluestein"
+        if fused_psd_bluestein_eligible(N):
+            return "bluestein"
+        if fused_psd_chirp_large_est_eligible(N):
+            return "chirp_large"
+        raise _unported(f"{flag}{over} with --fft-backend bluestein at "
+                        f"{N} bins (the chirp-Z estimator kernels take "
+                        f"even N up to {EST_MAX_N})")
     if fused_psd_eligible(N):
         route = "regs"
-    elif session and (fused_psd_mixed_eligible(N)
-                      or fused_psd_bluestein_eligible(N)):
-        route = "mixed" if fused_psd_mixed_eligible(N) else "bluestein"
+    elif session and fused_psd_mixed_eligible(N):
+        route = "mixed"
+    elif session and fused_psd_bluestein_eligible(N):
+        route = "bluestein"
+    elif session and fused_psd_chirp_large_est_eligible(N):
+        route = "chirp_large"
     elif session:
         raise _unported(f"{flag}{over} at {N} bins (the estimator kernels "
-                        f"take powers of two from {MIN_N} to {REGS_MAX_N}, "
-                        f"even 7-smooth N up to {REGS_MAX_N} and other "
-                        f"even N up to {CHIRP_MAX_N})")
+                        f"take every even N up to {EST_MAX_N})")
     else:
         raise _unported(f"{flag} at {N} bins (the estimator kernels take "
                         f"powers of two from {MIN_N} to {REGS_MAX_N})")

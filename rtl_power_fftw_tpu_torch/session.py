@@ -57,10 +57,9 @@ def check_ported(params: Params) -> None:
     """Raise RPFexception(InvalidArgument) for options whose path this
     package does not have yet: the estimators (``--pfb-taps``,
     ``--multitaper``, ``--sk-file``, ``--sk-excise``) at N their kernels
-    do not take (``ops.spectral.estimator_route``: over ``--streams`` the
-    powers of two from 64 to 16384, on one stream the even 7-smooth N up to
-    16384 and the other even N up to 8192 too, and the spectral kurtosis
-    under ``--fft-backend bluestein`` at any even N up to 8192),
+    do not take (``ops.spectral.estimator_route``: on one stream and over
+    ``--streams`` they take every even N up to 16384, the spectral
+    kurtosis under ``--fft-backend bluestein`` too, and none above),
     ``--shard-transform`` and ``--profile``."""
     unported = []
     if params.shard_transform:
