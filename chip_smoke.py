@@ -381,6 +381,31 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    -b 4094`` (each SK file against the float64 SK of every stream's
    frames).
 
+22. the CLI estimators at the large chirp-Z bin counts
+   (``fused_psd_chirp_large_est``: SK-BL, MT-BL and PFB-BL on BL's
+   passes at M = 2^15, each written once for S >= 1 streams; SK-BL-S,
+   MT-BL-S, PFB-BL-S their calls over streams): each pass's registers,
+   spill and blocks per SM beside BL's (spill at most BL's); each form
+   against its plain version and the per-stream float64 golden
+   (``hold_streams``, phase 21's few-frame rule), twice (the same bits),
+   on one stream at N = 16382 (F = 256), 9998 with Hann, 12002, 8194 and
+   16384, n_valid F, F - 1, 1 and 0 (the PFB as four steps), and at S = 2
+   (16382) and 4 (9998 with Hann) with uneven counts (the PFB over four
+   steps and a reset), SK with and without the gate; SK's s1 BL's (BL-S's)
+   rows bit for bit, each stream's rows and history the S = 1 form's on
+   the same groups; the same at each drive's own step, every frame valid
+   and its last step's count among uneven ones; 60-seed yards of each
+   form (16382, 16 frames; 9998, two streams of 8); a call, the device's
+   time beside BL (BL-S) and, over streams, two one-stream calls in turns,
+   the wrapper's host time, plain, ``torch.fft.fft`` and the bound at
+   16382 F = 256 and S = 2 F = 128, and the device time at each drive's
+   step; eight drives through ``cli.main``, each on its form alone: ``-b
+   9998 --sk-file``, ``--sk-excise 3`` on the burst stream at 9998 bins,
+   ``-b 16382 --multitaper 7``, ``-b 12002 --pfb-taps 4``, ``-b 16384
+   --sk-file --fft-backend bluestein`` and, over ``--streams 2``, ``-b
+   9998 --sk-file``, ``-b 16382 --multitaper 7`` and ``-b 12002
+   --pfb-taps 4`` (each SK file against the float64 SK of its frames).
+
 Every kernel entry of the ``{"kernels": [...]}`` line carries its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, from the entry's shape), its launches in its
@@ -1076,7 +1101,9 @@ def launch_counts(fp, ff) -> dict:
     the library estimators' kernels, "SK-M", "MT-M" and "PFB-M" the CLI
     estimators' forms of the mixed-radix kernel, "SK-B", "MT-B" and
     "PFB-B" their forms of the chirp-Z kernel, "SK-M-S" ... "PFB-B-S" the
-    streams forms of those six, "M/B control" the kernel M and
+    streams forms of those six, "SK-BL", "MT-BL" and "PFB-BL" their forms
+    of BL's passes and "SK-BL-S" ... "PFB-BL-S" those over streams, "M/B
+    control" the kernel M and
     B replaced (and its plain versions), "probes" every probe variant
     together."""
     from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed as fm
@@ -1129,6 +1156,12 @@ def launch_counts(fp, ff) -> dict:
             "SK-B-S": fp.COUNTS.kernel_sk_chirp_streams,
             "MT-B-S": fp.COUNTS.kernel_tapers_chirp_streams,
             "PFB-B-S": fp.COUNTS.kernel_pfb_chirp_streams,
+            "SK-BL": fp.COUNTS.kernel_sk_chirp_large,
+            "MT-BL": fp.COUNTS.kernel_tapers_chirp_large,
+            "PFB-BL": fp.COUNTS.kernel_pfb_chirp_large,
+            "SK-BL-S": fp.COUNTS.kernel_sk_chirp_large_streams,
+            "MT-BL-S": fp.COUNTS.kernel_tapers_chirp_large_streams,
+            "PFB-BL-S": fp.COUNTS.kernel_pfb_chirp_large_streams,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -1173,7 +1206,10 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1,
             "PFB-B": "cuda_pfb", "SK-M-S": "cuda_sk",
             "MT-M-S": "cuda_multitaper", "PFB-M-S": "cuda_pfb",
             "SK-B-S": "cuda_sk", "MT-B-S": "cuda_multitaper",
-            "PFB-B-S": "cuda_pfb"}.get(kernel, "cuda")
+            "PFB-B-S": "cuda_pfb", "SK-BL": "cuda_sk",
+            "MT-BL": "cuda_multitaper", "PFB-BL": "cuda_pfb",
+            "SK-BL-S": "cuda_sk", "MT-BL-S": "cuda_multitaper",
+            "PFB-BL-S": "cuda_pfb"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -6709,6 +6745,672 @@ def phase_awkward_streams(dev, rng, fp, adapt_batch, make_window, cli, ff,
                  "rtl_power_fftw_tpu/models/multitaper.py:227"),
                 ("PFB", "pfb", "rtl_power_fftw_tpu/models/pfb.py:262"))]
 
+# Phase 22's CLI drives at the large chirp-Z bin counts (the tone source,
+# linear output), less their "--record <path>" and SK files; the burst
+# drive is drive_sk_excise at 9998 bins.
+BL_SK_ARGV = ["-f", "100M", "-n", "200", "-b", "9998", "-l", "--source",
+              SOURCE]
+BL_MT_ARGV = ["-f", "100M", "-n", "400", "-b", "16382", "-l",
+              "--multitaper", "7", "--source", SOURCE]
+BL_PFB_ARGV = ["-f", "100M", "-n", "400", "-b", "12002", "-l",
+               "--pfb-taps", "4", "--source", SOURCE]
+BL_SK_BLUESTEIN_ARGV = ["-f", "100M", "-n", "200", "-b", "16384", "-l",
+                        "--fft-backend", "bluestein", "--source", SOURCE]
+BL_SK_S_ARGV = ["-f", "100M", "-n", "200", "-b", "9998", "-l", "--streams",
+                "2", "--source", SOURCE]
+BL_MT_S_ARGV = ["-f", "100M", "-n", "200", "-b", "16382", "-l",
+                "--streams", "2", "--multitaper", "7", "--source", SOURCE]
+BL_PFB_S_ARGV = ["-f", "100M", "-n", "200", "-b", "12002", "-l",
+                 "--streams", "2", "--pfb-taps", "4", "--source", SOURCE]
+# Phase 22's cases: (N, F, window, SK gates) on one stream; (N, S, F,
+# window, counts) over streams; (S, F) of its timed calls at 16382 bins.
+BL_EST_ONE = ((16382, 256, None, (0.0, 3.0)), (9998, 64, "hann", (3.0,)),
+              (12002, 32, None, (0.0,)), (8194, 16, None, (0.0,)),
+              (16384, 16, None, (0.0,)))
+BL_EST_STREAMS = ((16382, 2, 128, None, (127, 2)),
+                  (9998, 4, 32, "hann", (32, 0, 3, 31)))
+BL_EST_TIMED = ((1, 256), (2, 128))
+
+
+def phase_large_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff,
+                           card):
+    """22. The CLI estimators at the large chirp-Z bin counts (SK-BL, MT-BL,
+    PFB-BL of ``fused_psd_chirp_large_est``, forms of BL's passes, and
+    their calls over streams SK-BL-S, MT-BL-S, PFB-BL-S): each pass's
+    registers, spill and blocks per SM beside BL's (spill at most BL's);
+    each form against its plain version and the per-stream float64 golden
+    (``hold_streams``: phase 21's few-frame rule), twice (the same bits),
+    on one stream at N = 16382 (F = 256), 9998 Hann, 12002, 8194 and 16384
+    with n_valid F, F - 1, 1 and 0 (the PFB as four steps of one stream)
+    and at S = 2 (16382) and 4 (9998 Hann) with uneven counts (the PFB
+    over four steps and a reset), SK with and without the gate; SK's s1
+    BL's (BL-S's) rows bit for bit, each stream's rows (and PFB history)
+    the S = 1 form's on the same groups, the gate each stream's own
+    ``sk_keep``; the same holds at each drive's own step, every frame
+    valid and at its last step's count among uneven ones; 60-seed yards of
+    each form (16382, 16 frames; 9998, two streams of 8); a call, the
+    device's time beside BL (BL-S) on the same frames and, over streams,
+    two one-stream calls, in turns, the wrapper's host time, plain,
+    ``torch.fft.fft`` and the bound at 16382 F = 256 and S = 2 F = 128;
+    the device time at each drive's step; eight drives, each on its form
+    alone. Returns the kernels-line entries."""
+    from rtl_power_fftw_tpu_torch.models.multitaper import _session_tapers
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_large as fbl
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_large_est as be
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_sk as fsk
+    t0 = time.perf_counter()
+
+    # Registers, spill, shared memory and residency of each pass beside
+    # BL's own (SK's pass C beside BL's C, the PFB's pass A beside BL's A).
+    names = ("BL-S pass A", "BL-S pass A windowed", "BL-S pass B",
+             "BL-S pass C", "SK-BL pass C", "PFB-BL pass A")
+    for which, name in enumerate(names):
+        a = be.kernel_attributes(16382, which, dev)
+        b = fbl.kernel_attributes(16382, (0, 1, 2, 3, 3, 0)[which], dev)
+        print(f"occupancy {name} (fused_psd_chirp_large_est) M=32768 on "
+              f"{card}: {a['registers']} registers, {a['spill_bytes']} B "
+              f"spill, {a['static_smem']} + {a['dynamic_smem']} B shared, "
+              f"{a['threads']} threads, {a['blocks_per_sm']} blocks/SM; "
+              f"BL's pass {b['registers']} registers, {b['spill_bytes']} B "
+              f"spill, {b['blocks_per_sm']} blocks/SM")
+        check(a["spill_bytes"] <= b["spill_bytes"],
+              f"{name}: spills more than BL's pass")
+
+    # Each drive: (N, S, F, its last step's count).
+    drives = (("SK-BL", BL_SK_ARGV, 1), ("SK-BL excise", None, 1),
+              ("MT-BL", BL_MT_ARGV, 1), ("PFB-BL", BL_PFB_ARGV, 1),
+              ("SK-BL bluestein", BL_SK_BLUESTEIN_ARGV, 1),
+              ("SK-BL-S", BL_SK_S_ARGV, 2), ("MT-BL-S", BL_MT_S_ARGV, 2),
+              ("PFB-BL-S", BL_PFB_S_ARGV, 2))
+    steps = {}
+    for key, argv, S in drives:
+        if argv is None:   # drive_sk_excise: 4 blocks of 256 frames
+            N, repeats, F = 9998, 1024, 256
+        else:
+            N = int(argv[argv.index("-b") + 1])
+            repeats = int(argv[argv.index("-n") + 1])
+            F = adapt_batch(drive_frames_per_step(argv, S))[0]
+        steps[key] = (N, S, F, repeats - (-(-repeats // F) - 1) * F)
+    reset_counts(fp, ff)
+    want = {k: 0 for k in ("SK-BL", "MT-BL", "PFB-BL", "SK-BL-S", "MT-BL-S",
+                           "PFB-BL-S", "BL", "BL windowed", "BL-S",
+                           "BL-S windowed")}
+
+    def psd_key(S, w):
+        return ("BL" if S == 1 else "BL-S") + (" windowed" if w is not None
+                                               else "")
+
+    def hold_sk(head, raw, raw_np, counts, chunk, w, w_np, sigmas):
+        """SK on (S, F, 2N) frames at ``counts``: the one-stream form at S =
+        1, else the streams form, twice; against plain and the per-stream
+        golden; s1 BL's (BL-S's) rows; each stream the S = 1 form's on the
+        same groups; the gate each stream's sk_keep."""
+        S, F, N = raw.shape[0], raw.shape[1], raw.shape[2] // 2
+        nv = torch.from_numpy(counts).to(dev)
+        gc = be.grid(N, S, F, w is not None, dev.index)[2]
+        gold = [golden_moments(raw_np[s], int(c), w_np)
+                for s, c in enumerate(counts)]
+        for sigma in sigmas:
+            if S == 1:
+                c = int(counts[0])
+
+                def form():
+                    return be.fused_psd_sk_chirp_large(raw[0], c, chunk, w,
+                                                       sigma)[None]
+                psd = fbl.fused_psd_chirp_large(raw[0], c, chunk, w)[None]
+                ref = be.sk_chirp_large_reference(raw[0], c, chunk, w,
+                                                  sigma)[None]
+            else:
+                def form():
+                    return be.fused_psd_sk_chirp_large_streams(
+                        raw, nv, chunk, w, sigma)
+                psd = fbl.fused_psd_chirp_large_streams(raw, nv, chunk, w)
+                ref = be.sk_chirp_large_streams_reference(raw, nv, chunk, w,
+                                                          sigma)
+            got, again = form(), form()
+            singles = [be.fused_psd_sk_chirp_large(
+                raw[s], int(c), chunk, w, sigma, group_c=gc)
+                for s, c in enumerate(counts)]
+            torch.cuda.synchronize()
+            key = "SK-BL" if S == 1 else "SK-BL-S"
+            want[key] += 2
+            want["SK-BL"] += S
+            want[psd_key(S, w)] += 1
+            label = f"SK-BL{'-S' * (S > 1)} {head} gate={sigma:g}"
+            check(torch.equal(got, again), f"{label}: not deterministic")
+            check(torch.equal(got[:, 0], psd), f"{label}: s1 is not "
+                  f"{psd_key(S, w)}'s rows")
+            check(all(torch.equal(got[s], singles[s]) for s in range(S)),
+                  f"{label}: a stream is not the S = 1 form's")
+            g_np, r_np = got.cpu().numpy(), ref.cpu().numpy()
+            line = [f"s{i + 1}: " + hold_streams(
+                f"{label} s{i + 1}", g_np[:, i], r_np[:, i],
+                np.stack([g[i] for g in gold]), counts,
+                (i + 1) * GOLDEN_RTOL, FEW_PLAIN) for i in range(2)]
+            if sigma > 0.0:
+                M = torch.from_numpy(counts.astype(np.float32))[:, None]
+                keep = fsk.sk_keep(got[:, 0].cpu(), got[:, 1].cpu(), M,
+                                   sigma).numpy()
+                check(np.array_equal(g_np[:, 3], M.numpy() * keep)
+                      and np.array_equal(g_np[:, 2], g_np[:, 0] * keep),
+                      f"{label}: the gate is not each stream's sk_keep")
+                line.append(f"gate {int(keep.sum())} of {S * N} "
+                            "stream-bins kept, each stream's sk_keep")
+            print(f"{label} (group_c {gc}): the same bits twice, s1 "
+                  f"{psd_key(S, w)}'s rows, each stream the S = 1 form's; "
+                  + "; ".join(line))
+
+    def hold_mt(head, raw, raw_np, counts, chunk, K=7):
+        """MT on (S, F, 2N) frames at ``counts``, as hold_sk holds SK."""
+        S, F, N = raw.shape[0], raw.shape[1], raw.shape[2] // 2
+        nv = torch.from_numpy(counts).to(dev)
+        gc = be.grid(N, S, F, True, dev.index)[2]
+        tp_np = _session_tapers(N, 4.0, K)
+        tp = torch.from_numpy(tp_np).to(dev)
+        if S == 1:
+            def form():
+                return be.fused_psd_tapers_chirp_large(
+                    raw[0], int(counts[0]), chunk, tp)[None]
+            ref = be.tapers_chirp_large_reference(raw[0], int(counts[0]),
+                                                  chunk, tp)[None]
+        else:
+            def form():
+                return be.fused_psd_tapers_chirp_large_streams(raw, nv,
+                                                               chunk, tp)
+            ref = be.tapers_chirp_large_streams_reference(raw, nv, chunk, tp)
+        got, again = form(), form()
+        singles = [be.fused_psd_tapers_chirp_large(raw[s], int(c), chunk, tp,
+                                                   group_c=gc)
+                   for s, c in enumerate(counts)]
+        torch.cuda.synchronize()
+        want["MT-BL" if S == 1 else "MT-BL-S"] += 2
+        want["MT-BL"] += S
+        label = f"MT-BL{'-S' * (S > 1)} {head} K={K}"
+        check(torch.equal(got, again), f"{label}: not deterministic")
+        check(all(torch.equal(got[s], singles[s]) for s in range(S)),
+              f"{label}: a stream is not the S = 1 form's")
+        gold = np.stack([golden_tapers(raw_np[s], int(c), tp_np)
+                         for s, c in enumerate(counts)])
+        print(f"{label} (group_c {gc}): the same bits twice, each stream "
+              f"the S = 1 form's; " + hold_streams(
+                  label, got.cpu().numpy(), ref.cpu().numpy(), gold, counts,
+                  plain_factor=FEW_PLAIN))
+
+    def hold_pfb(head, N, S, F, chunk, schedule, resets, P=4):
+        """PFB over the steps of ``schedule`` (each step's (S,) counts;
+        fresh histories at the steps of ``resets``), new frames each step:
+        twice, the histories on the card plain's and the virtual rows',
+        each stream's rows and history the S = 1 form's on the same
+        groups, against plain and the per-stream golden."""
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        gc = be.grid(N, S, F, False, dev.index)[2]
+        shape = (S, P - 1, 2 * N)
+        hist = [torch.empty(shape, dtype=torch.uint8, device=dev)
+                for _ in range(3)]
+        hist_p = [torch.empty(shape, dtype=torch.uint8, device=dev)
+                  for _ in range(2)]
+        hs = [[torch.empty(shape[1:], dtype=torch.uint8, device=dev)
+               for _ in range(2)] for _ in range(S)]
+        virtual = [None] * S
+        for k, cnt in enumerate(schedule):
+            fresh = k in resets
+            step_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+            step = torch.from_numpy(step_np).to(dev)
+            c_dev = torch.from_numpy(cnt).to(dev)
+            if S == 1:
+                c = int(cnt[0])
+                got = be.fused_psd_pfb_chirp_large(
+                    step[0], hist[0][0], c, chunk, h, hist[1][0],
+                    fresh=fresh)[None]
+                again = be.fused_psd_pfb_chirp_large(
+                    step[0], hist[0][0], c, chunk, h, hist[2][0])[None]
+                ref = be.pfb_chirp_large_reference(
+                    step[0], hist_p[0][0], c, chunk, h, hist_p[1][0],
+                    fresh=fresh)[None]
+            else:
+                got = be.fused_psd_pfb_chirp_large_streams(
+                    step, hist[0], c_dev, chunk, h, hist[1], fresh=fresh)
+                again = be.fused_psd_pfb_chirp_large_streams(
+                    step, hist[0], c_dev, chunk, h, hist[2])
+                ref = be.pfb_chirp_large_streams_reference(
+                    step, hist_p[0], c_dev, chunk, h, hist_p[1],
+                    fresh=fresh)
+            singles = [be.fused_psd_pfb_chirp_large(
+                step[s], hs[s][0], int(c), chunk, h, hs[s][1], fresh=fresh,
+                group_c=gc) for s, c in enumerate(cnt)]
+            torch.cuda.synchronize()
+            want["PFB-BL" if S == 1 else "PFB-BL-S"] += 2
+            want["PFB-BL"] += S
+            gold = []
+            for s, c in enumerate(cnt):
+                if fresh:
+                    virtual[s] = np.full((P - 1, 2 * N), 127, np.uint8)
+                v = np.concatenate([virtual[s], step_np[s]])
+                gold.append(golden_pfb(v, int(c), h_np))
+                virtual[s] = v[int(c):int(c) + P - 1]
+            same_hist = (torch.equal(hist[1], hist[2])
+                         and torch.equal(hist[1], hist_p[1])
+                         and np.array_equal(hist[1].cpu().numpy(),
+                                            np.stack(virtual)))
+            same_one = all(torch.equal(got[s], singles[s])
+                           and torch.equal(hist[1][s], hs[s][1])
+                           for s in range(S))
+            label = (f"PFB-BL{'-S' * (S > 1)} {head} P={P} step {k}"
+                     f"{' (a reset)' if fresh and k else ''}")
+            check(torch.equal(got, again) and same_hist and same_one,
+                  f"{label}: the same bits twice, histories {same_hist}, "
+                  f"S = 1 bits {same_one}")
+            print(f"{label} counts {cnt.tolist()} (group_c {gc}): the same "
+                  "bits twice, histories on the card plain's and the "
+                  "virtual rows' bit for bit, each stream's rows and "
+                  "history the S = 1 form's; " + hold_streams(
+                      label, got.cpu().numpy(), ref.cpu().numpy(),
+                      np.stack(gold),
+                      cnt, plain_factor=FEW_PLAIN))
+            hist[0], hist[1] = hist[1], hist[0]
+            hist_p.reverse()
+            for s in range(S):
+                hs[s].reverse()
+
+    def case(N, S, F, wname, sigmas, schedule, resets):
+        """SK, MT and the PFB at S streams of F frames over the counts of
+        ``schedule`` (SK and MT at each; the PFB as the schedule's steps
+        from a reset)."""
+        chunk = adapt_batch(F)[1]
+        w_np = None if wname is None else make_window(wname, N)
+        w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+        raw_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+        raw = torch.from_numpy(raw_np).to(dev)
+        for counts in schedule:
+            head = (f"large chirp-Z N={N} S={S} F={F} chunk={chunk} "
+                    f"window={wname} counts {counts.tolist()}")
+            hold_sk(head, raw, raw_np, counts, chunk, w, w_np, sigmas)
+            hold_mt(head, raw, raw_np, counts, chunk)
+        hold_pfb(f"large chirp-Z N={N} S={S} F={F} chunk={chunk}", N, S, F,
+                 chunk, schedule, resets)
+
+    for N, F, wname, sigmas in BL_EST_ONE:
+        case(N, 1, F, wname, sigmas,
+             [np.array([c], np.int32) for c in (F, F - 1, 1, 0)], (0,))
+    for N, S, F, wname, counts in BL_EST_STREAMS:
+        counts = np.array(counts, np.int32)
+        case(N, S, F, wname, (0.0, 3.0),
+             [counts, np.roll(counts, 1), np.roll(counts, 3), counts], (0, 3))
+    # Each drive's own step (N, S, F, chunk; the gate of the burst drive),
+    # every frame valid, then its last step's count beside uneven ones;
+    # the PFB over both steps from a reset history, as a hop starts.
+    for key, (N, S, F, last) in steps.items():
+        chunk = adapt_batch(F)[1]
+        head = (f"at the drive step of {key} (N={N} S={S} F={F} "
+                f"chunk={chunk}, last step {last})")
+        full = np.full(S, F, np.int32)
+        uneven = np.resize(np.array([last, F - 1, 0, 1], np.int32), S)
+        if key.startswith("PFB"):
+            hold_pfb(head, N, S, F, chunk, [full, uneven], (0,))
+            continue
+        for counts in (full, uneven):
+            raw_np = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+            raw = torch.from_numpy(raw_np).to(dev)
+            at = f"{head} counts {counts.tolist()}"
+            if key.startswith("SK"):
+                hold_sk(at, raw, raw_np, counts, chunk, None, None,
+                        (3.0 if key == "SK-BL excise" else 0.0,))
+            else:
+                hold_mt(at, raw, raw_np, counts, chunk)
+    counts_now = launch_counts(fp, ff)
+    check(all(counts_now[k] == v for k, v in want.items())
+          and not any(v for k, v in counts_now.items() if k not in want),
+          f"large chirp-Z estimator launch counts: {counts_now}, expected "
+          f"{want}")
+    print(f"wall: large chirp-Z estimator checks in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # The yards: 60 seeds of 35 dB tones, each form against the float64
+    # golden and the scipy float32 class: one stream at 16382 (16 frames a
+    # seed), two streams of 8 frames at 9998.
+    reset_counts(fp, ff)
+    for N, S, Fy in ((16382, 1, 16), (9998, 2, 8)):
+        nv = torch.full((S,), Fy, dtype=torch.int32, device=dev)
+        tag = "" if S == 1 else "-S"
+        head = "" if S == 1 else f" ({S} streams of {Fy} frames)"
+
+        def split(r, N=N, S=S, Fy=Fy):
+            return r.reshape(S, Fy, 2 * N)
+
+        def z64s(r, N=N, S=S, Fy=Fy):
+            return dequant64(r).reshape(S, Fy, N)
+
+        def on_card(r, split=split):
+            return torch.from_numpy(split(r)).to(dev)
+
+        if S == 1:
+            def sk_fn(r, on_card=on_card):
+                return be.fused_psd_sk_chirp_large(
+                    on_card(r)[0], Fy, Fy)[1:2].cpu().numpy()
+
+            def mt_fn(r, tp, on_card=on_card):
+                return be.fused_psd_tapers_chirp_large(
+                    on_card(r)[0], Fy, Fy, tp)[None].cpu().numpy()
+
+            def pfb_fn(r, h, hist, on_card=on_card):
+                return be.fused_psd_pfb_chirp_large(
+                    on_card(r)[0], hist[0][0], Fy, Fy, h, hist[1][0],
+                    fresh=True)[None].cpu().numpy()
+        else:
+            def sk_fn(r, on_card=on_card, nv=nv):
+                return be.fused_psd_sk_chirp_large_streams(
+                    on_card(r), nv, Fy)[:, 1].cpu().numpy()
+
+            def mt_fn(r, tp, on_card=on_card, nv=nv):
+                return be.fused_psd_tapers_chirp_large_streams(
+                    on_card(r), nv, Fy, tp).cpu().numpy()
+
+            def pfb_fn(r, h, hist, on_card=on_card, nv=nv):
+                return be.fused_psd_pfb_chirp_large_streams(
+                    on_card(r), hist[0], nv, Fy, h, hist[1],
+                    fresh=True).cpu().numpy()
+        estimator_yard(
+            f"SK-BL{tag} s2{head}", sk_fn,
+            lambda r, split=split: np.stack(
+                [golden_moments(x, Fy)[1] for x in split(r)]),
+            lambda r, z64s=z64s: (f32_class_rows(z64s(r)) ** 2).sum(1),
+            N, S * Fy, 22000 + N)
+        tp_np = _session_tapers(N, 4.0, 7)
+        tp = torch.from_numpy(tp_np).to(dev)
+        estimator_yard(
+            f"MT-BL{tag} K=7{head}", lambda r, tp=tp: mt_fn(r, tp),
+            lambda r, tp_np=tp_np, split=split: np.stack(
+                [golden_tapers(x, Fy, tp_np) for x in split(r)]),
+            lambda r, tp_np=tp_np, z64s=z64s: f32_class_rows(
+                z64s(r)[:, :, None, :] * tp_np.astype(np.float64)[None, None]
+            ).mean(2).sum(1), N, S * Fy, 22100 + N)
+        P = 4
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        hist = [torch.empty((S, P - 1, 2 * N), dtype=torch.uint8,
+                            device=dev) for _ in range(2)]
+        warm = np.full((P - 1, 2 * N), 127, np.uint8)
+
+        def pfb_class(r, h_np=h_np, warm=warm, split=split, Fy=Fy):
+            rows = []
+            for x in split(r):
+                sums = fpf.pfb_sums_reference(
+                    torch.from_numpy(np.concatenate([warm, x])),
+                    torch.from_numpy(h_np), Fy).numpy()
+                rows.append(f32_class_rows(sums.astype(np.complex128)).sum(0))
+            return np.stack(rows)
+
+        estimator_yard(
+            f"PFB-BL{tag} P=4{head}",
+            lambda r, h=h, hist=hist: pfb_fn(r, h, hist),
+            lambda r, h_np=h_np, warm=warm, split=split: np.stack(
+                [golden_pfb(np.concatenate([warm, x]), Fy, h_np)
+                 for x in split(r)]),
+            pfb_class, N, S * Fy, 22200 + N)
+    counts_now = launch_counts(fp, ff)
+    check(all(counts_now[k] == 60 for k in ("SK-BL", "MT-BL", "PFB-BL",
+                                            "SK-BL-S", "MT-BL-S",
+                                            "PFB-BL-S"))
+          and sum(counts_now.values()) == 360,
+          f"large chirp-Z estimator yards' launches: {counts_now}")
+    print(f"wall: large chirp-Z estimator yards in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # Times (PERF.md states their prediction): one stream at 16382 F = 256
+    # beside BL, S = 2 at F = 128 a stream beside two one-stream calls and
+    # BL-S, all on the same frames and in turns: a call (median of 60
+    # event-timed calls), the device's part (twice), the wrapper's host
+    # part, the plain version, torch.fft.fft on the same transforms (F
+    # frames; F K tapered frames; F polyphase sums) and the bound; then
+    # the device time at each drive's step beside BL (BL-S).
+    times = {}
+    N, K, P = 16382, 7, 4
+    tp = torch.from_numpy(_session_tapers(N, 4.0, K)).to(dev)
+    h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+    for S, F in BL_EST_TIMED:
+        chunk = adapt_batch(F)[1]
+        raw = torch.from_numpy(rng.integers(0, 256, (S, F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        nv = torch.full((S,), F, dtype=torch.int32, device=dev)
+        z = torch.complex(raw[..., 0::2].float() - 127.0,
+                          raw[..., 1::2].float() - 127.0).reshape(S * F, N)
+        hist = [torch.full((S, P - 1, 2 * N), 127, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
+        one_hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8,
+                               device=dev) for _ in range(2)]
+        if S == 1:
+            forms = {
+                "SK": (lambda: be.fused_psd_sk_chirp_large(raw[0], F, chunk),
+                       lambda: be.sk_chirp_large_reference(raw[0], F, chunk),
+                       z, estimator_bound_ms("SK", F, N)),
+                "MT": (lambda: be.fused_psd_tapers_chirp_large(
+                    raw[0], F, chunk, tp),
+                       lambda: be.tapers_chirp_large_reference(
+                           raw[0], F, chunk, tp),
+                       (z[:, None, :] * tp[None]).reshape(F * K, N),
+                       estimator_bound_ms("MT", F, N, K=K)),
+                "PFB": (lambda: be.fused_psd_pfb_chirp_large(
+                    raw[0], one_hist[0], F, chunk, h, one_hist[1]),
+                        lambda: be.pfb_chirp_large_reference(
+                            raw[0], one_hist[0], F, chunk, h, one_hist[1]),
+                        fpf.pfb_sums_reference(
+                            torch.cat([one_hist[0], raw[0]]), h, F),
+                        estimator_bound_ms("PFB", F, N, P=P))}
+
+            def psd_call(raw=raw, F=F, chunk=chunk):
+                return fbl.fused_psd_chirp_large(raw[0], F, chunk)
+            singles = {}
+        else:
+            forms = {
+                "SK": (lambda: be.fused_psd_sk_chirp_large_streams(
+                    raw, nv, chunk),
+                       lambda: be.sk_chirp_large_streams_reference(
+                           raw, nv, chunk),
+                       z, estimator_bound_ms("SK", S * F, N)),
+                "MT": (lambda: be.fused_psd_tapers_chirp_large_streams(
+                    raw, nv, chunk, tp),
+                       lambda: be.tapers_chirp_large_streams_reference(
+                           raw, nv, chunk, tp),
+                       (z[:, None, :] * tp[None]).reshape(S * F * K, N),
+                       estimator_bound_ms("MT", S * F, N, K=K)),
+                "PFB": (lambda: be.fused_psd_pfb_chirp_large_streams(
+                    raw, hist[0], nv, chunk, h, hist[1]),
+                        lambda: be.pfb_chirp_large_streams_reference(
+                            raw, hist[0], nv, chunk, h, hist[1]),
+                        torch.cat([fpf.pfb_sums_reference(
+                            torch.cat([hist[0][s], raw[s]]), h, F)
+                            for s in range(S)]),
+                        estimator_bound_ms("PFB", S * F, N, P=P))}
+
+            def psd_call(raw=raw, nv=nv, chunk=chunk):
+                return fbl.fused_psd_chirp_large_streams(raw, nv, chunk)
+            singles = {
+                "SK": lambda: [be.fused_psd_sk_chirp_large(raw[s], F, chunk)
+                               for s in range(S)],
+                "MT": lambda: [be.fused_psd_tapers_chirp_large(
+                    raw[s], F, chunk, tp) for s in range(S)],
+                "PFB": lambda: [be.fused_psd_pfb_chirp_large(
+                    raw[s], one_hist[0], F, chunk, h, one_hist[1])
+                    for s in range(S)]}
+        for kind, (kernel, plain_fn, zz, bound) in forms.items():
+            got = kernel().double()
+            ref = plain_fn().double()
+            rel = max_rel(got.cpu().numpy(), ref.cpu().numpy())
+            label = f"{kind}-BL{'-S' * (S > 1)}"
+            check(rel <= UNIFORM_RTOL, f"{label} timed shape: {rel} vs "
+                  "plain")
+            kd, bd, sd = [], [], []
+            for _ in range(2):
+                kd.append(device_times_us(kernel))
+                bd.append(device_times_us(psd_call))
+                if singles:
+                    sd.append(device_times_us(singles[kind], calls=10))
+            t = {"max_abs": float((got - ref).abs().max()), "bound": bound,
+                 "call": event_times_us(kernel),
+                 "plain": event_times_us(plain_fn, iters=20, warmup=3),
+                 # MT's 3 K + 1 launches a call: 20 calls keep the launch
+                 # queue from filling, which would count device time.
+                 "host": host_us(kernel, calls=20 if kind == "MT" else 100),
+                 "lib": event_times_us(lambda: torch.fft.fft(zz, dim=-1)),
+                 "lib_device": device_times_us(
+                     lambda: torch.fft.fft(zz, dim=-1)),
+                 "device": min(kd), "psd_device": min(bd)}
+            pair = ""
+            if singles:
+                t["singles"] = event_times_us(singles[kind], iters=20,
+                                              warmup=3)
+                t["singles_device"] = min(sd)
+                pair = (f"; two one-stream calls {t['singles']:.1f} us, "
+                        f"device {sd[0]:.1f}/{sd[1]:.1f} (streams/two "
+                        f"{t['device'] / t['singles_device']:.3f})")
+            times[label] = t
+            b_us = 1e3 * bound[0]
+            psd = "BL-S" if S > 1 else "BL"
+            print(f"time large chirp-Z estimator {label} S={S} N={N} F={F}"
+                  f"{f' K={K}' if kind == 'MT' else ''}"
+                  f"{f' P={P}' if kind == 'PFB' else ''} on {card}: a call "
+                  f"{t['call']:.1f} us, device {kd[0]:.1f}/{kd[1]:.1f} us, "
+                  f"host {t['host']:.1f} us "
+                  f"({S * F * N / t['device'] / 1e3:.2f} GS/s on the "
+                  f"device); {psd} on the same frames device "
+                  f"{bd[0]:.1f}/{bd[1]:.1f} us, form/{psd} "
+                  f"{t['device'] / t['psd_device']:.3f}{pair}; plain "
+                  f"{t['plain']:.1f} us; torch.fft.fft of the "
+                  f"{tuple(zz.shape)} complex64 transforms {t['lib']:.1f} us "
+                  f"a call (device {t['lib_device']:.1f}); bound "
+                  f"{b_us:.2f} us ({bound[1]}), device/bound "
+                  f"{t['device'] / b_us:.1f}x; max abs vs plain "
+                  f"{t['max_abs']:.4g}, max rel {rel:.3e}")
+    for key, (N, S, F, _) in steps.items():
+        chunk = adapt_batch(F)[1]
+        raw = torch.from_numpy(rng.integers(0, 256, (S, F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        nv = torch.full((S,), F, dtype=torch.int32, device=dev)
+        sigma = 3.0 if key == "SK-BL excise" else 0.0
+        tpk = torch.from_numpy(_session_tapers(N, 4.0, 7)).to(dev)
+        hk = torch.from_numpy(pfb_prototype(N, 4).reshape(4, N)).to(dev)
+        hist = [torch.full((S, 3, 2 * N), 127, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
+        if S == 1:
+            kernel = {
+                "SK": lambda: be.fused_psd_sk_chirp_large(raw[0], F, chunk,
+                                                          None, sigma),
+                "MT": lambda: be.fused_psd_tapers_chirp_large(raw[0], F,
+                                                              chunk, tpk),
+                "PFB": lambda: be.fused_psd_pfb_chirp_large(
+                    raw[0], hist[0][0], F, chunk, hk, hist[1][0])}
+            psd_call = (lambda: fbl.fused_psd_chirp_large(raw[0], F, chunk))
+        else:
+            kernel = {
+                "SK": lambda: be.fused_psd_sk_chirp_large_streams(
+                    raw, nv, chunk),
+                "MT": lambda: be.fused_psd_tapers_chirp_large_streams(
+                    raw, nv, chunk, tpk),
+                "PFB": lambda: be.fused_psd_pfb_chirp_large_streams(
+                    raw, hist[0], nv, chunk, hk, hist[1])}
+            psd_call = (lambda: fbl.fused_psd_chirp_large_streams(
+                raw, nv, chunk))
+        fn = kernel[key.split("-")[0]]
+        kd = device_times_us(fn)
+        pd = device_times_us(psd_call)
+        print(f"time large chirp-Z estimator at the drive step of {key} "
+              f"(S={S} N={N} F={F}) on {card}: device {kd:.1f} us, "
+              f"{'BL-S' if S > 1 else 'BL'} {pd:.1f} us, {kd / pd:.3f}x; a "
+              f"call {event_times_us(fn, iters=20, warmup=3):.1f} us")
+    print(f"wall: large chirp-Z estimator times in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its form alone.
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["SK-BL"] = drive_sk_excise(cli, fp, ff, tmp, N=9998,
+                                            key="SK-BL")
+        for key, argv in (("SK-BL", BL_SK_ARGV), ("MT-BL", BL_MT_ARGV),
+                          ("PFB-BL", BL_PFB_ARGV),
+                          ("SK-BL", BL_SK_BLUESTEIN_ARGV)):
+            N = int(argv[argv.index("-b") + 1])
+            repeats = int(argv[argv.index("-n") + 1])
+            tag = f"{key}_{N}"
+            record = os.path.join(tmp, f"{tag}.iq")
+            sk_path = os.path.join(tmp, f"{tag}.sk")
+            sk = key == "SK-BL"
+            extra = [f"--sk-file={sk_path}"] if sk else []
+
+            def golden(key=key, record=record, N=N, repeats=repeats):
+                raw_np = recorded_frames(record, N)[:repeats]
+                if key == "MT-BL":
+                    pwr = golden_tapers(raw_np, repeats,
+                                        _session_tapers(N, 4.0, 7))
+                elif key == "PFB-BL":
+                    pwr = golden_pfb(np.concatenate([np.full(
+                        (3, 2 * N), 127, np.uint8), raw_np]), repeats,
+                        pfb_prototype(N, 4).reshape(4, N))
+                else:
+                    pwr = golden_moments(raw_np, repeats)[0]
+                return golden_finalize_linear(np.fft.fftshift(pwr), repeats,
+                                              RATE)
+
+            # The tapers' spectral window is 2 NW = 8 bins wide: its peak
+            # may fall NW bins from the tone.
+            launches[key] = launches.get(key, 0) + drive(
+                f"large chirp-Z estimator {key} "
+                f"{' '.join(argv[argv.index('-b'):argv.index('--source')])}",
+                argv + extra + ["--record", record], cli, fp, ff, key, N,
+                golden, GOLDEN_RTOL, peak_bins=4 if key == "MT-BL" else 1)
+            if sk:
+                sk_file, sk_err = sk_file_error(
+                    sk_path, recorded_frames(record, N)[:repeats], repeats)
+                print(f"e2e large chirp-Z estimator SK-BL -b {N} SK file: "
+                      f"{len(sk_file)} bins, max |SK - float64 golden| "
+                      f"{sk_err:.3e} (<= 1e-4)")
+                check(len(sk_file) == N and sk_err <= 1e-4,
+                      f"SK-BL -b {N} drive: SK file")
+        for key, kind, argv in (("SK-BL-S", "SK", BL_SK_S_ARGV),
+                                ("MT-BL-S", "MT", BL_MT_S_ARGV),
+                                ("PFB-BL-S", "PFB", BL_PFB_S_ARGV)):
+            launches[key] = drive_awkward_streams(
+                f"large chirp-Z estimator {key} "
+                f"{' '.join(argv[argv.index('-b'):argv.index('--source')])}",
+                argv, key, kind, cli, fp, ff, tmp)
+    print(f"wall: large chirp-Z estimator phase in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def entry(name, key, replaces):
+        t = times[key]
+        out = {"name": name, "route": "cuda",
+               "source": CSRC + "fused_psd_chirp_large_est.cu",
+               "replaces": replaces, "launches": launches[key],
+               "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+               "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+               "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+               "device_ms": t["device"] / 1000.0,
+               "host_ms": t["host"] / 1000.0,
+               ("streams_psd_device_ms" if key.endswith("-S")
+                else "chirp_large_device_ms"): t["psd_device"] / 1000.0}
+        if "singles" in t:
+            out["singles_ms"] = t["singles"] / 1000.0
+            out["singles_device_ms"] = t["singles_device"] / 1000.0
+        return out
+
+    return [entry(f"fused_psd_{name}_chirp_large{'_streams' * s} "
+                  f"({kind}-BL{'-S' * s})", f"{kind}-BL{'-S' * s}",
+                  replaces[s])
+            for kind, name, replaces in (
+                ("SK", "sk", ("rtl_power_fftw_tpu/models/kurtosis.py:46",
+                              "rtl_power_fftw_tpu/models/kurtosis.py:205")),
+                ("MT", "tapers",
+                 ("rtl_power_fftw_tpu/models/multitaper.py:60",
+                  "rtl_power_fftw_tpu/models/multitaper.py:227")),
+                ("PFB", "pfb", ("rtl_power_fftw_tpu/models/pfb.py:48",
+                                "rtl_power_fftw_tpu/models/pfb.py:262")))
+            for s in (0, 1)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -6804,7 +7506,12 @@ def main() -> int:
             ("fused_psd_mixed_est", "psd_ring_est_kernel", ""),
             ("fused_psd_chirp_est", "psd_chirp_est_kernel", ""),
             ("fused_psd_mixed_est", "psd_ring_est_streams_kernel", ""),
-            ("fused_psd_chirp_est", "psd_chirp_est_streams_kernel", "")):
+            ("fused_psd_chirp_est", "psd_chirp_est_streams_kernel", ""),
+            ("fused_psd_chirp_large_est", "chirp_streams_a", ""),
+            ("fused_psd_chirp_large_est", "chirp_streams_b", ""),
+            ("fused_psd_chirp_large_est", "chirp_streams_c", ""),
+            ("fused_psd_chirp_large_est", "chirp_sk_c", ""),
+            ("fused_psd_chirp_large_est", "chirp_pfb_a", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -7099,6 +7806,13 @@ def main() -> int:
         cli, ff, card)
     lap("awkward streams estimators")
 
+    # 22. The CLI estimators at the large chirp-Z bin counts (SK-BL ...
+    # PFB-BL-S).
+    large_estimators = phase_large_estimators(
+        dev, np.random.default_rng(20261026), fp, adapt_batch, make_window,
+        cli, ff, card)
+    lap("large chirp-Z estimators")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
 
@@ -7149,7 +7863,7 @@ def main() -> int:
               ("L", 65536, 16, "hann")),
     ] + awkward + estimators + large_awkward + estimator_streams
       + large_streams + library + mixed_estimators + chirp_estimators
-      + awkward_streams + [
+      + awkward_streams + large_estimators + [
         probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),

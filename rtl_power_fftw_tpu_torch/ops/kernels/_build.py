@@ -344,7 +344,7 @@ class KernelBuildError(RuntimeError):
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
     path: Path
-    seconds: float        # 0.0 when an existing library was reused
+    seconds: float        # its nvcc's wall; 0.0 when a build was reused
     log: str              # nvcc's output (ptxas register/smem report)
 
 
@@ -397,17 +397,30 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildInfo]:
         running[name] = tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # Each process's output read on a thread of its own, so that its time
+    # is its own nvcc's wall and not the wait for the ones before it.
+    done = {}
+
+    def collect(name, proc):
+        stdout, stderr = proc.communicate()
+        done[name] = (time.perf_counter() - t0, stdout, stderr)
+
+    threads = [threading.Thread(target=collect, args=(name, proc))
+               for name, (_, proc) in running.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     failures = []
     for name, (tmp, proc) in running.items():
-        stdout, stderr = proc.communicate()
+        seconds, stdout, stderr = done[name]
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failures.append(f"nvcc failed on {source(name).name} with exit "
                             f"code {proc.returncode}:\n{stderr}")
             continue
         os.replace(tmp, outs[name])
-        infos[name] = BuildInfo(outs[name], time.perf_counter() - t0,
-                                stdout + stderr)
+        infos[name] = BuildInfo(outs[name], seconds, stdout + stderr)
     if failures:
         raise KernelBuildError("\n".join(failures))
     return infos

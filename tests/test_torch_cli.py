@@ -34,12 +34,8 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--shard-transform"],
-    ["-b", "9998", "--sk-file", "sk.dat"],
-    ["--streams", "2", "--sk-file", "sk.dat", "-b", "9998"],
-    ["--sk-file", "sk.dat", "--fft-backend", "bluestein", "-b", "16382"],
     ["-b", "32768", "--sk-file", "sk.dat"],
-    ["--streams", "2", "--sk-file", "sk.dat", "-b", "16382",
-     "--fft-backend", "bluestein"],
+    ["-b", "20002", "--sk-file", "sk.dat"],
     ["--sk-excise", "3", "--fft-backend", "xla"],
     ["--fft-backend", "fourstep"],
     ["--fft-backend", "xla", "--window-function", "hann"],

@@ -567,7 +567,7 @@ def test_sharded_estimator_steps_validation():
     with pytest.raises(RPFexception, match="2 devices") as e:
         kurtosis.ShardedSkStep([CPU, CPU], 256, 8, 2)
     assert int(e.value.return_value) == 3
-    for make in (lambda: kurtosis.ShardedSkStep(MESH, 9998, 8, 2),
+    for make in (lambda: kurtosis.ShardedSkStep(MESH, 20002, 8, 2),
                  lambda: kurtosis.ShardedSkStep(MESH, 256, 8, 2,
                                                 backend="xla"),
                  lambda: multitaper.ShardedMultitaperStep(MESH, 32768, 8, 2,

@@ -65,18 +65,18 @@ SIZES = [22, 998, 4094, 8188]
     (2048, "--pfb-taps", "bluestein", False, "regs"),
     (2048, "--sk-file", "auto", False, "regs"),
     (998, "--pfb-taps", "auto", True, "bluestein"),
-    (9998, "--multitaper", "auto", False, None),
+    (20002, "--multitaper", "auto", False, None),
     (998, "spectrogram", "auto", False, None),
     (2048, "--sk-file", "bluestein", True, "bluestein"),
     (22, "--sk-excise", "auto", True, "bluestein"),
-    (9998, "--pfb-taps", "auto", True, None),
+    (20002, "--pfb-taps", "auto", True, None),
 ])
 def test_estimator_route(N, flag, backend, sharded, route):
     """The session's estimators take the chirp-Z kernel's N on one stream
     and over streams, and the SK step any even N up to 8192 under
-    ``bluestein`` (the other estimators ignore the option); at the other
-    N in (8192, 16384] and for the library-only estimators the exit-3
-    message names the case."""
+    ``bluestein`` (the other estimators ignore the option); above 16384
+    (the N in (8192, 16384]: test_torch_estimators_chirp_large.py) and for
+    the library-only estimators the exit-3 message names the case."""
     if route is not None:
         assert spectral.estimator_route(N, flag, backend, sharded) == route
         return
@@ -88,9 +88,9 @@ def test_estimator_route(N, flag, backend, sharded, route):
 
 
 @pytest.mark.parametrize("N,sharded,what", [
-    (16382, False, "--sk-file with --fft-backend bluestein at 16382 bins"),
-    (16382, True, "--sk-file over --streams with --fft-backend bluestein "
-     "at 16382 bins"),
+    (20002, False, "--sk-file with --fft-backend bluestein at 20002 bins"),
+    (20002, True, "--sk-file over --streams with --fft-backend bluestein "
+     "at 20002 bins"),
 ])
 def test_sk_under_bluestein_still_exits_3(N, sharded, what):
     with pytest.raises(RPFexception, match="Not yet ported") as e:
@@ -293,12 +293,12 @@ def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-b", "9998", "--sk-file", "sk.dat"], "--sk-file at 9998 bins"),
-    (["--streams", "2", "--sk-file", "sk.dat", "-b", "16382",
+    (["-b", "20002", "--sk-file", "sk.dat"], "--sk-file at 20002 bins"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "20002",
       "--fft-backend", "bluestein"],
-     "--sk-file over --streams with --fft-backend bluestein at 16382 bins"),
-    (["--sk-file", "sk.dat", "--fft-backend", "bluestein", "-b", "16382"],
-     "--sk-file with --fft-backend bluestein at 16382 bins"),
+     "--sk-file over --streams with --fft-backend bluestein at 20002 bins"),
+    (["--sk-file", "sk.dat", "--fft-backend", "bluestein", "-b", "20002"],
+     "--sk-file with --fft-backend bluestein at 20002 bins"),
     (["--streams", "2", "--sk-file", "sk.dat", "--fft-backend", "xla",
       "-b", "500"], "--sk-file over --streams with --fft-backend xla"),
     (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),

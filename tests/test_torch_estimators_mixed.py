@@ -92,15 +92,17 @@ def run_steps(step, jstep, raw, F):
     (12, "--sk-excise", False, "mixed"), (2, "--multitaper", False, "mixed"),
     (32, "--pfb-taps", False, "mixed"), (16000, "--pfb-taps", False, "mixed"),
     (256, "--pfb-taps", True, "regs"), (500, "--pfb-taps", True, "mixed"),
-    (998, "--sk-file", False, "bluestein"), (9998, "--sk-file", False, None),
+    (998, "--sk-file", False, "bluestein"),
+    (20002, "--sk-file", False, None),
     (998, "--sk-file", True, "bluestein"), (20000, "--multitaper", False, None),
     (500, "spectrogram", False, None), (500, "pfb_channelize", False, None),
-    (9998, "--multitaper", True, None), (20000, "--sk-file", True, None),
+    (20002, "--multitaper", True, None), (20000, "--sk-file", True, None),
 ])
 def test_estimator_route(N, flag, sharded, route):
     """The session's estimators take the mixed-radix kernel's N (and the
     chirp-Z kernel's, test_torch_estimators_chirp.py) on one stream and
-    over streams; at the other N above 8192, above 16384 and for the
+    over streams (those of BL's forms in (8192, 16384],
+    test_torch_estimators_chirp_large.py); above 16384 and for the
     library-only estimators the exit-3 message names the case."""
     if route is not None:
         assert spectral.estimator_route(N, flag, sharded=sharded) == route
@@ -289,11 +291,11 @@ def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--streams", "2", "--sk-file", "sk.dat", "-b", "9998"],
-     "--sk-file over --streams at 9998 bins"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "20002"],
+     "--sk-file over --streams at 20002 bins"),
     (["--streams", "2", "--multitaper", "7", "-b", "20000"],
      "--multitaper over --streams at 20000 bins"),
-    (["-b", "9998", "--sk-file", "sk.dat"], "--sk-file at 9998 bins"),
+    (["-b", "20002", "--sk-file", "sk.dat"], "--sk-file at 20002 bins"),
     (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
     (["-b", "500", "--sk-file", "sk.dat", "--fft-backend", "xla"],
      "--sk-file with --fft-backend xla"),

@@ -322,9 +322,12 @@ def bl_tables(N):
             bl.spectrum_regs_table(N), header_w16().astype(np.complex64))
 
 
-def bl_pass_a(raw_f, N, window, tabs, width):
+def bl_pass_a(raw_f, N, window, tabs, width, load=None):
     """Pass A on one frame, every tile at once, from its ring as the
-    pieces of ``width`` bytes fill it: (M,) complex64 scratch."""
+    pieces of ``width`` bytes fill it: (M,) complex64 scratch. ``load(re,
+    im, n)``, where given, makes the samples of sample indices n from the
+    ring's dequantized values in place of the window (PFB-BL's polyphase
+    sums, tests/test_torch_estimators_chirp_large.py)."""
     t = bl.chirp_regs_layout(N)
     r = t.regs
     M1, M2, C, B, TF = r["N1"], r["N2"], r["C"], r["B"], r["TF1"]
@@ -349,7 +352,9 @@ def bl_pass_a(raw_f, N, window, tabs, width):
         n = rows[None] * M2 + j * C + c[None, :, None]
         re = ring[:, addr].astype(np.float32) - np.float32(127)
         im = ring[:, addr + 1].astype(np.float32) - np.float32(127)
-        if window is not None:
+        if load is not None:
+            re, im = load(re, im, n)
+        elif window is not None:
             w = np.asarray(window, np.float32)[np.minimum(n, N - 1)]
             re, im = re * w, im * w
         a = chirp[((j * r["subs"] + s) * 8 + k[None, None, :])
