@@ -61,6 +61,11 @@ that row s is :func:`fused_psd_chirp_large`'s output on stream s's frames
 and count with the same groups, bit for bit. Its plain version is
 :func:`chirp_large_streams_reference`; ``COUNTS.kernel_chirp_large_streams``
 and ``COUNTS.kernel_chirp_large_streams_windowed`` count its launches.
+Those streams passes, pass A's batch and the shapes beyond the large
+kernel's live in ``csrc/fused_psd_chirp_large_regs.cuh``, which the CLI
+estimators' forms of these passes (:mod:`.fused_psd_chirp_large_est`)
+share; :func:`device_tables` and :func:`pass_residency` are the tables and
+residency both take.
 """
 
 from __future__ import annotations

@@ -152,10 +152,10 @@ def test_compute_sk_is_the_jax_formula():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-b", "9998", "--sk-file", "x"], "--sk-file at 9998 bins"),
-    (["-b", "16382", "--sk-excise", "3"], "--sk-excise at 16382 bins"),
-    (["-b", "16382", "--sk-file", "x", "--fft-backend", "bluestein"],
-     "--sk-file with --fft-backend bluestein at 16382 bins"),
+    (["-b", "20002", "--sk-file", "x"], "--sk-file at 20002 bins"),
+    (["-b", "20002", "--sk-excise", "3"], "--sk-excise at 20002 bins"),
+    (["-b", "20002", "--sk-file", "x", "--fft-backend", "bluestein"],
+     "--sk-file with --fft-backend bluestein at 20002 bins"),
     (["-b", "32768", "--sk-file", "x"], "--sk-file at 32768 bins"),
     (["-b", "256", "--sk-file", "x", "--fft-backend", "xla"],
      "--sk-file with --fft-backend xla"),
