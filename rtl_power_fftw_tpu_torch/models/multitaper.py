@@ -8,13 +8,16 @@ fixed data length. The device step is the multitaper kernel
 (``ops/kernels/csrc/fused_psd_tapers.cu`` at the powers of two, its
 mixed-radix form MT-M of ``ops/kernels/csrc/fused_psd_mixed_est.cu`` at
 the other even 7-smooth N up to 16384, its chirp-Z form MT-B of
-``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192
-and its form MT-BL of BL's passes,
-``ops/kernels/csrc/fused_psd_chirp_large_est.cu``, at the other even N in
-(8192, 16384]; their plain PyTorch version on the CPU): one block runs
-every taper of its frames, each raw frame staged once in a shared-memory
-ring (MT-M and MT-B: the tapers on the grid's y axis; MT-BL: BL's passes
-once a taper); over S streams the streams form of the route's kernel on
+``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192,
+its form MT-L of the large kernel's passes,
+``ops/kernels/csrc/fused_psd_large_est.cu``, at the powers of two from
+32768 to 2^22, and its form MT-BL of BL's passes,
+``ops/kernels/csrc/fused_psd_chirp_large_est.cu``, at the other even N
+from 8194 to 2^21 with a prime factor above 7; their plain PyTorch
+version on the CPU): one block runs every taper of its frames, each raw
+frame staged once in a shared-memory ring (MT-M and MT-B: the tapers on
+the grid's y axis; MT-L and MT-BL: the large kernel's or BL's passes once
+a taper); over S streams the streams form of the route's kernel on
 the same N, one row a stream. DPSS tapers come from scipy.
 """
 
@@ -30,6 +33,8 @@ from ..ops.kernels.fused_psd_chirp_est import (
     fused_psd_tapers_chirp, fused_psd_tapers_chirp_streams)
 from ..ops.kernels.fused_psd_chirp_large_est import (
     fused_psd_tapers_chirp_large, fused_psd_tapers_chirp_large_streams)
+from ..ops.kernels.fused_psd_large_est import (
+    fused_psd_tapers_large, fused_psd_tapers_large_streams)
 from ..ops.kernels.fused_psd_mixed_est import (
     fused_psd_tapers_mixed, fused_psd_tapers_mixed_streams)
 from ..ops.kernels.fused_psd_tapers import (fused_psd_tapers,
@@ -67,21 +72,25 @@ def _session_tapers(N: int, NW: float, K: int) -> np.ndarray:
 #: The multitaper step's kernel by ``estimator_route``'s route.
 TAPERS_KERNELS = {"regs": fused_psd_tapers, "mixed": fused_psd_tapers_mixed,
                   "bluestein": fused_psd_tapers_chirp,
+                  "large": fused_psd_tapers_large,
                   "chirp_large": fused_psd_tapers_chirp_large}
 #: The multitaper streams step's kernel by the same route over streams.
 TAPERS_STREAMS_KERNELS = {"regs": fused_psd_tapers_streams,
                           "mixed": fused_psd_tapers_mixed_streams,
                           "bluestein": fused_psd_tapers_chirp_streams,
+                          "large": fused_psd_tapers_large_streams,
                           "chirp_large":
                               fused_psd_tapers_chirp_large_streams}
 
 
 def tapers_kernel(N: int):
     """The multitaper step's kernel at N bins (``estimator_route``):
-    ``fused_psd_tapers`` at the powers of two, ``fused_psd_tapers_mixed``
-    at the other even 7-smooth N up to 16384, ``fused_psd_tapers_chirp``
-    at the other even N up to 8192, ``fused_psd_tapers_chirp_large`` at
-    the other even N in (8192, 16384]."""
+    ``fused_psd_tapers`` at the powers of two up to 16384,
+    ``fused_psd_tapers_mixed`` at the other even 7-smooth N up to 16384,
+    ``fused_psd_tapers_chirp`` at the other even N up to 8192,
+    ``fused_psd_tapers_large`` at the powers of two from 32768 to 2^22,
+    ``fused_psd_tapers_chirp_large`` at the other even N up to 2^21 with a
+    prime factor above 7."""
     return TAPERS_KERNELS[estimator_route(N, "--multitaper")]
 
 
@@ -94,9 +103,10 @@ class MultitaperSessionStep:
     only the per-frame estimator changes (the mean of K eigenspectra
     instead of one periodogram, datastore.cxx:66-88). The path is
     "cuda_multitaper" on a CUDA device, "plain_multitaper" on the CPU; N
-    must be a power of two from 64 to 16384, another even 7-smooth N up
-    to 16384 (MT-M), another even N up to 8192 (MT-B) or another even N
-    in (8192, 16384] (MT-BL; ``ops.spectral.estimator_route``). ``--precision`` does not apply:
+    must be a power of two from 64 to 2^22 (MT-L from 32768), another even
+    7-smooth N up to 16384 (MT-M), another even N up to 8192 (MT-B) or
+    another even N up to 2^21 with a prime factor above 7 (MT-BL;
+    ``ops.spectral.estimator_route``). ``--precision`` does not apply:
     off its TPU band the JAX package runs the strict transform at either
     precision, and so does this step."""
 
@@ -131,8 +141,9 @@ class ShardedMultitaperStep:
     with any partition of the frames, so the combined row is
     :class:`MultitaperSessionStep` run on each stream and summed. The rows
     are the route's streams kernel's (``fused_psd_tapers_streams``,
-    ``fused_psd_tapers_mixed_streams``, ``fused_psd_tapers_chirp_streams``
-    or ``fused_psd_tapers_chirp_large_streams`` where the single-stream
+    ``fused_psd_tapers_mixed_streams``, ``fused_psd_tapers_chirp_streams``,
+    ``fused_psd_tapers_large_streams`` or
+    ``fused_psd_tapers_chirp_large_streams`` where the single-stream
     step takes the same family, the K tapers
     shared; "cuda_multitaper" on a card, "plain_multitaper" on the CPU).
     ``--precision`` does not apply, as on one stream."""

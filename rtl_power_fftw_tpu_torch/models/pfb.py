@@ -10,10 +10,13 @@ P× the input history per frame. The device step is the PFB kernel
 (``ops/kernels/csrc/fused_psd_pfb.cu`` at the powers of two, its
 mixed-radix form PFB-M of ``ops/kernels/csrc/fused_psd_mixed_est.cu`` at
 the other even 7-smooth N up to 16384, its chirp-Z form PFB-B of
-``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192
-and its form PFB-BL of BL's passes,
-``ops/kernels/csrc/fused_psd_chirp_large_est.cu``, at the other even N in
-(8192, 16384]; their plain PyTorch version on the CPU), which builds each
+``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192,
+its form PFB-L of the large kernel's passes,
+``ops/kernels/csrc/fused_psd_large_est.cu``, at the powers of two from
+32768 to 2^22, and its form PFB-BL of BL's passes,
+``ops/kernels/csrc/fused_psd_chirp_large_est.cu``, at the other even N
+from 8194 to 2^21 with a prime factor above 7; their plain PyTorch
+version on the CPU), which builds each
 frame's polyphase sum from its history and slot rows and transforms it;
 over S streams the streams form of the route's kernel on the same N, each
 stream's history on the device.
@@ -34,6 +37,8 @@ from ..ops.kernels.fused_psd_chirp_est import (fused_psd_pfb_chirp,
                                                fused_psd_pfb_chirp_streams)
 from ..ops.kernels.fused_psd_chirp_large_est import (
     fused_psd_pfb_chirp_large, fused_psd_pfb_chirp_large_streams)
+from ..ops.kernels.fused_psd_large_est import (fused_psd_pfb_large,
+                                               fused_psd_pfb_large_streams)
 from ..ops.kernels.fused_psd_mixed_est import (fused_psd_pfb_mixed,
                                                fused_psd_pfb_mixed_streams)
 from ..ops.kernels.fused_psd_pfb import (MAX_TAPS, fused_psd_pfb,
@@ -64,12 +69,13 @@ def pfb_prototype(M: int, taps: int = 4,
 
 #: The PFB step's kernel by ``estimator_route``'s route.
 PFB_KERNELS = {"regs": fused_psd_pfb, "mixed": fused_psd_pfb_mixed,
-               "bluestein": fused_psd_pfb_chirp,
+               "bluestein": fused_psd_pfb_chirp, "large": fused_psd_pfb_large,
                "chirp_large": fused_psd_pfb_chirp_large}
 #: The PFB streams step's kernel by the same route over streams.
 PFB_STREAMS_KERNELS = {"regs": fused_psd_pfb_streams,
                        "mixed": fused_psd_pfb_mixed_streams,
                        "bluestein": fused_psd_pfb_chirp_streams,
+                       "large": fused_psd_pfb_large_streams,
                        "chirp_large": fused_psd_pfb_chirp_large_streams}
 
 
@@ -78,11 +84,12 @@ class _PfbRunner:
     prototype and two (P - 1, 2N) history buffers on ``device``, swapped
     after each step (the kernel reads one and writes the next history
     into the other, on the step's stream). The kernel is the route's
-    (``estimator_route``): ``fused_psd_pfb`` at the powers of two,
-    ``fused_psd_pfb_mixed`` at the other even 7-smooth N up to 16384,
-    ``fused_psd_pfb_chirp`` at the other even N up to 8192,
-    ``fused_psd_pfb_chirp_large`` at the other even N in (8192,
-    16384]."""
+    (``estimator_route``): ``fused_psd_pfb`` at the powers of two up to
+    16384, ``fused_psd_pfb_mixed`` at the other even 7-smooth N up to
+    16384, ``fused_psd_pfb_chirp`` at the other even N up to 8192,
+    ``fused_psd_pfb_large`` at the powers of two from 32768 to 2^22,
+    ``fused_psd_pfb_chirp_large`` at the other even N up to 2^21 with a
+    prime factor above 7."""
 
     def __init__(self, N: int, F: int, chunk: int, h: np.ndarray, device):
         self._kernel = PFB_KERNELS[estimator_route(N, "--pfb-taps")]
@@ -128,9 +135,10 @@ class PfbSessionStep:
     exactly N new samples, like the reference's spectra. ``window`` names
     the prototype's window (``--window-function``). The path is
     "cuda_pfb" on a CUDA device, "plain_pfb" on the CPU; N must be a power
-    of two from 64 to 16384, another even 7-smooth N up to 16384 (PFB-M),
-    another even N up to 8192 (PFB-B) or another even N in (8192, 16384]
-    (PFB-BL; ``ops.spectral.estimator_route``)."""
+    of two from 64 to 2^22 (PFB-L from 32768), another even 7-smooth N up
+    to 16384 (PFB-M), another even N up to 8192 (PFB-B) or another even N
+    up to 2^21 with a prime factor above 7 (PFB-BL;
+    ``ops.spectral.estimator_route``)."""
 
     def __init__(self, N: int, frames_per_step: int, taps: int = 4,
                  window: str = "hann", *, device):
@@ -171,7 +179,7 @@ class ShardedPfbStep:
     streams. The combined row is :class:`PfbSessionStep` run on each
     stream and summed. The rows are the route's streams kernel's
     (``fused_psd_pfb_streams``, ``fused_psd_pfb_mixed_streams``,
-    ``fused_psd_pfb_chirp_streams`` or
+    ``fused_psd_pfb_chirp_streams``, ``fused_psd_pfb_large_streams`` or
     ``fused_psd_pfb_chirp_large_streams`` where the single-stream step
     takes the same family; "cuda_pfb" on a card, "plain_pfb" on the CPU); ``window``
     names the prototype's window."""

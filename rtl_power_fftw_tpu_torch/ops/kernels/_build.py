@@ -206,6 +206,24 @@ SIGNATURES = {
         # PFB's A), device, attrs (int[6])
         "rpf_fused_psd_chirp_large_est_attributes": [_I, _I, _I, _P],
     },
+    "fused_psd_large_est": {
+        # SK-L: raw, twiddle, inter, window, counts, scratch, partial, out,
+        # device, log2n, S, F, group_a, group_b, two_sigma, stream
+        "rpf_fused_psd_sk_large": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _F, _P],
+        # MT-L: raw, twiddle, inter, tapers, counts, scratch, partial, out,
+        # device, log2n, S, F, group_a, group_b, K, stream
+        "rpf_fused_psd_tapers_large": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _P],
+        # PFB-L: raw, history, twiddle, inter, h, counts, scratch, partial,
+        # out, history_out, device, log2n, S, F, group_a, group_b, P,
+        # fresh, stream
+        "rpf_fused_psd_pfb_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # log2n, which (0..4: passes A, A windowed, B, SK's B, the PFB's
+        # A), device, attrs (int[6])
+        "rpf_fused_psd_large_est_attributes": [_I, _I, _I, _P],
+    },
     "fused_psd_mixed_large": {
         # raw, tw1, bin1, inter, window, tw2, order2, scratch, partial,
         # out, plan1 (int[55]), plan2, device, log2c, n2p, width, F,

@@ -1,10 +1,12 @@
 // The CLI estimators' device steps at the large chirp-Z bin counts, for
 // NVIDIA Hopper (sm_90a): spectral kurtosis (SK-BL), the multitaper
 // (MT-BL) and the polyphase filterbank (PFB-BL) on BL's three register
-// passes (fused_psd_chirp_large.cu), at the even N in (8192, 16384] that
+// passes (fused_psd_chirp_large.cu), at the even N from 8194 to 2^21 that
 // neither the power-of-two kernels nor the mixed-radix ones take (9998,
-// 12002, 16382 among them), and SK-BL at any even N there under
-// --fft-backend bluestein (10000 and 16384 too). Each form takes S >= 1
+// 16382, 20002, 99998, 2097150 among them; the session routes the even
+// 7-smooth N above 16384 to neither), and SK-BL at any even N there under
+// --fft-backend bluestein (10000, 16384 and 32768 too). Each form takes
+// S >= 1
 // streams of F frames, (S*F, 2N), with an (S,) count array on the device;
 // the one-stream steps call it at S = 1.
 //
@@ -39,8 +41,8 @@
 //   MT-BL   a taper loop: passes A (windowed by taper row k of the (K, N)
 //           table), B and C once a taper over one (S F, M) scratch, which
 //           the next taper's pass A overwrites (64 MB at F = 256, M =
-//           2^15, where the taper on the grid would take 7 times that at K
-//           = 7); taper k's pass C writes partial row (k S + s) G_s + j,
+//           2^15, 256 MB at F = 8, M = 2^22, where the taper on the grid
+//           would take 7 times that at K = 7); taper k's pass C writes partial row (k S + s) G_s + j,
 //           and est_streams_kernel<kEstTapers> sums each stream's K G_s
 //           rows and divides by K. Each frame is read K times, as MT-B
 //           reads it;
@@ -50,11 +52,12 @@
 //           polyphase sum comes before the product with the chirp a[n].
 //           The next histories are pfb_history_kernel's (pfb_history.cuh).
 //
-// The passes are generic in log2 M and instantiated at 15 only: every N in
-// (8192, 16384] has M = chirp_size(N) = 2^15, and a later slice opens the
-// N above by instantiation. The grid is BL's own (the wrapper takes BL's
-// residency), so SK-BL's s1 at S = 1 is BL's output and each stream's rows
-// are the S = 1 form's on the same groups.
+// The passes are generic in log2 M and instantiated at BL's M = 2^15 ..
+// 2^22 (M = chirp_size(N): 2^15 for N in (8192, 16384], 2^22 for N in
+// (2^20, 2^21]); the entries dispatch on log2 M (at_log2m), and each M's
+// passes opt into their shared memory apart. The grid is BL's own (the
+// wrapper takes BL's residency), so SK-BL's s1 at S = 1 is BL's output and
+// each stream's rows are the S = 1 form's on the same groups.
 //
 // What bounds them on an H100: BL's bound (the frames' 2 bytes a sample;
 // the form moves 8M bytes of scratch a frame four times, which the bound
@@ -66,6 +69,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "device.cuh"
 #include "fused_psd_chirp_large_regs.cuh"
@@ -76,36 +80,9 @@
 
 namespace {
 
-// The M = 2^log2m instantiated here.
-constexpr int kEstLog2M = 15;
-
-// PFB-BL's sample n of output frame j: sum over p < P, in order from zero,
-// of h[p, n] times virtual row j + p (row r < P - 1 of `history`, else
-// frame r - (P - 1) of `frames`), the last row's value `own` from the
-// ring; each product and sum rounded on its own, as frame_ring.cuh's
-// pfb_sample adds them.
-__device__ __forceinline__ float2 pfb_sum(unsigned own,
-                                          const uint8_t* __restrict__ frames,
-                                          const uint8_t* __restrict__ history,
-                                          const float* __restrict__ h, int j,
-                                          int P, int bins, int n) {
-  float re = 0.0f;
-  float im = 0.0f;
-  for (int p = 0; p < P; ++p) {
-    unsigned u = own;
-    if (p < P - 1) {
-      const int r = j + p;
-      const uint8_t* row =
-          r < P - 1 ? history + static_cast<size_t>(r) * 2 * bins
-                    : frames + static_cast<size_t>(r - (P - 1)) * 2 * bins;
-      u = __ldg(reinterpret_cast<const uint16_t*>(row) + n);
-    }
-    const float hv = __ldg(h + static_cast<size_t>(p) * bins + n);
-    re = __fadd_rn(re, __fmul_rn(dequant_byte(u & 0xFFu), hv));
-    im = __fadd_rn(im, __fmul_rn(dequant_byte(u >> 8), hv));
-  }
-  return make_float2(re, im);
-}
+// The M = 2^log2m instantiated here: BL's own, 2^15 .. 2^22.
+constexpr int kEstMinLog2M = 15;
+constexpr int kEstMaxLog2M = 22;
 
 // chirp_a_batch with PFB-BL's load: batch s of output frame j on thread
 // (c, t), the polyphase sums of the column's samples n = (t + k TF1) M2 +
@@ -340,14 +317,15 @@ constexpr int pass_threads(int which) {
                     : LargeRegs<LOG2M>::THREADS_A;
 }
 
-// The devices (a bit each) on which a pass is opted into its shared
-// memory.
+// The devices (a bit each) on which a pass at M = 2^LOG2M is opted into
+// its shared memory.
+template <int LOG2M>
 std::atomic<unsigned long long> pass_done[kPasses];
 
 template <int LOG2M>
 cudaError_t prepare(int which, int device) {
   return opt_in_smem(pass_kernel<LOG2M>(which), pass_smem<LOG2M>(which),
-                     device, pass_done[which]);
+                     device, pass_done<LOG2M>[which]);
 }
 
 // A form's launch: S streams of F frames, frames a block of passes A, B
@@ -479,7 +457,7 @@ cudaError_t launch_pfb(const Launch& l, const uint8_t* history,
 // The checks every entry makes of a launch at M = 2^log2m.
 bool launch_ok(const Launch& l, int log2m) {
   const int M = 1 << log2m;
-  return log2m == kEstLog2M && l.S > 0 && l.S <= kMaxGridY && l.F > 0 &&
+  return log2m >= kEstMinLog2M && log2m <= kEstMaxLog2M && l.S > 0 && l.S <= kMaxGridY && l.F > 0 &&
          l.group_a > 0 && l.group_b > 0 && l.group_c > 0 && l.bins >= 2 &&
          l.bins % 2 == 0 && 2 * l.bins <= M && 4 * l.bins > M &&
          (l.width == 4 || l.width == 8 || l.width == 16) &&
@@ -487,6 +465,22 @@ bool launch_ok(const Launch& l, int log2m) {
          reinterpret_cast<uintptr_t>(l.raw) % l.width == 0 &&
          l.twiddle != nullptr && l.inter != nullptr && l.chirp != nullptr &&
          l.spectrum != nullptr && l.counts != nullptr && l.scratch != nullptr;
+}
+
+// fn(std::integral_constant<int, log2m>) for an instantiated log2m.
+template <typename Fn>
+cudaError_t at_log2m(int log2m, Fn fn) {
+  switch (log2m) {
+    case 15: return fn(std::integral_constant<int, 15>{});
+    case 16: return fn(std::integral_constant<int, 16>{});
+    case 17: return fn(std::integral_constant<int, 17>{});
+    case 18: return fn(std::integral_constant<int, 18>{});
+    case 19: return fn(std::integral_constant<int, 19>{});
+    case 20: return fn(std::integral_constant<int, 20>{});
+    case 21: return fn(std::integral_constant<int, 21>{});
+    case 22: return fn(std::integral_constant<int, 22>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 Launch make_launch(const void* raw, const void* twiddle, const void* inter,
@@ -519,7 +513,7 @@ extern "C" {
 // (S*F, M) complex64; partial: (2, S * ceil(F / group_c), row) f32; out:
 // (S, 2, row) f32 (s1, s2 of each stream), or with two_sigma > 0 (S, 4,
 // row), each stream gated on its own moments and count; row = N rounded
-// up to 32; M = 2^log2m = chirp_size(N), 15 the one instantiated. Returns
+// up to 32; M = 2^log2m = chirp_size(N), 15..22. Returns
 // a cudaError_t (0 on success); does not synchronise.
 int rpf_fused_psd_sk_chirp_large(const void* raw, const void* twiddle,
                                  const void* inter, const void* window,
@@ -538,9 +532,11 @@ int rpf_fused_psd_sk_chirp_large(const void* raw, const void* twiddle,
   }
   cudaError_t e = use_device(device);
   if (e == cudaSuccess) {
-    e = launch_sk<kEstLog2M>(l, static_cast<const float*>(window),
-                             static_cast<float*>(partial),
-                             static_cast<float*>(out), two_sigma, device);
+    e = at_log2m(log2m, [&](auto m) {
+      return launch_sk<decltype(m)::value>(
+          l, static_cast<const float*>(window), static_cast<float*>(partial),
+          static_cast<float*>(out), two_sigma, device);
+    });
   }
   return static_cast<int>(e);
 }
@@ -565,9 +561,11 @@ int rpf_fused_psd_tapers_chirp_large(const void* raw, const void* twiddle,
   }
   cudaError_t e = use_device(device);
   if (e == cudaSuccess) {
-    e = launch_tapers<kEstLog2M>(l, static_cast<const float*>(tapers), K,
-                                 static_cast<float*>(partial),
-                                 static_cast<float*>(out), device);
+    e = at_log2m(log2m, [&](auto m) {
+      return launch_tapers<decltype(m)::value>(
+          l, static_cast<const float*>(tapers), K,
+          static_cast<float*>(partial), static_cast<float*>(out), device);
+    });
   }
   return static_cast<int>(e);
 }
@@ -606,10 +604,12 @@ int rpf_fused_psd_pfb_chirp_large(const void* raw, const void* history,
                         static_cast<size_t>(S) * (P - 1) * 2 * bins, l.st);
   }
   if (e == cudaSuccess) {
-    e = launch_pfb<kEstLog2M>(l, static_cast<const uint8_t*>(history),
-                              static_cast<const float*>(h), P,
-                              static_cast<float*>(partial),
-                              static_cast<float*>(out), device);
+    e = at_log2m(log2m, [&](auto m) {
+      return launch_pfb<decltype(m)::value>(
+          l, static_cast<const uint8_t*>(history),
+          static_cast<const float*>(h), P, static_cast<float*>(partial),
+          static_cast<float*>(out), device);
+    });
   }
   if (e != cudaSuccess || P == 1) return static_cast<int>(e);
   return static_cast<int>(launch_pfb_history(raw, history, history_out,
@@ -624,16 +624,21 @@ int rpf_fused_psd_pfb_chirp_large(const void* raw, const void* history,
 // reside on one SM. Launches nothing.
 int rpf_fused_psd_chirp_large_est_attributes(int log2m, int which,
                                              int device, int* attrs) {
-  if (log2m != kEstLog2M || which < 0 || which >= kPasses ||
-      attrs == nullptr) {
+  if (log2m < kEstMinLog2M || log2m > kEstMaxLog2M || which < 0 ||
+      which >= kPasses || attrs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = use_device(device);
-  if (e == cudaSuccess) e = prepare<kEstLog2M>(which, device);
   if (e == cudaSuccess) {
-    e = kernel_attributes(pass_kernel<kEstLog2M>(which),
-                          pass_threads<kEstLog2M>(which),
-                          pass_smem<kEstLog2M>(which), attrs);
+    e = at_log2m(log2m, [&](auto m) {
+      constexpr int L = decltype(m)::value;
+      cudaError_t r = prepare<L>(which, device);
+      if (r == cudaSuccess) {
+        r = kernel_attributes(pass_kernel<L>(which), pass_threads<L>(which),
+                              pass_smem<L>(which), attrs);
+      }
+      return r;
+    });
   }
   return static_cast<int>(e);
 }

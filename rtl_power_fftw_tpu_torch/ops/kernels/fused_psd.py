@@ -167,7 +167,11 @@ class LaunchCounts:
     ``kernel_tapers_chirp_large`` and ``kernel_pfb_chirp_large`` their
     forms of BL's passes (:mod:`.fused_psd_chirp_large_est`: SK-BL, MT-BL,
     PFB-BL), with ``_streams`` after each the calls over streams (SK-BL-S
-    ... PFB-BL-S), and ``plain_frames``,
+    ... PFB-BL-S), and ``kernel_sk_large``, ``kernel_tapers_large`` and
+    ``kernel_pfb_large`` their forms of the large kernel's passes
+    (:mod:`.fused_psd_large_est`: SK-L, MT-L, PFB-L), with ``_streams``
+    after each the calls over streams (SK-L-S ... PFB-L-S), and
+    ``plain_frames``,
     ``plain_pfb_channelize``, ``plain_csd`` and ``plain_scf`` their plain
     versions' calls (each also counted in ``plain``, every plain
     version's).
@@ -235,6 +239,12 @@ class LaunchCounts:
         self.kernel_sk_chirp_large_streams = 0
         self.kernel_tapers_chirp_large_streams = 0
         self.kernel_pfb_chirp_large_streams = 0
+        self.kernel_sk_large = 0
+        self.kernel_tapers_large = 0
+        self.kernel_pfb_large = 0
+        self.kernel_sk_large_streams = 0
+        self.kernel_tapers_large_streams = 0
+        self.kernel_pfb_large_streams = 0
         self.plain = 0
         self.plain_frames = 0
         self.plain_pfb_channelize = 0

@@ -1,9 +1,9 @@
 """The CLI estimators' steps at the large chirp-Z bin counts: spectral
 kurtosis (SK-BL), the multitaper (MT-BL) and the polyphase filterbank
-(PFB-BL) at the even N in (8192, 16384] that the power-of-two and
-mixed-radix kernels do not take (9998, 12002, 16382 among them), and SK-BL
-at any even N there under ``--fft-backend bluestein`` (10000 and 16384
-too).
+(PFB-BL) at the even N from 8194 to 2^21 with a prime factor above 7
+(9998, 16382, 20002, 99998, 2097150 among them; BL's M = chirp_size(N)
+from 2^15 to 2^22), and SK-BL at any even N there under ``--fft-backend
+bluestein`` (10000, 16384 and 32768 too).
 
 The JAX package computes these estimators in XLA at every N
 (``rtl_power_fftw_tpu/models/kurtosis.py:_sk_step``,
@@ -76,10 +76,10 @@ from .fused_psd_tapers import (check_tapers, fused_psd_tapers_reference,
                                fused_psd_tapers_streams_reference)
 
 LIBRARY = "fused_psd_chirp_large_est"
-#: The bins the forms take: BL's from 8194 up to 16384, where M =
-#: chirp_size(N) = 2^15, the one size the source instantiates.
+#: The bins the forms take: BL's, every even N from 8194 to 2^21 (M =
+#: chirp_size(N) from 2^15 to 2^22, each instantiated in the source).
 MIN_N = bl.MIN_N
-MAX_N = 16384
+MAX_N = bl.MAX_N
 #: The passes :func:`kernel_attributes` asks of, kept in step with the
 #: source's attributes entry: BL-S's pass A (unwindowed, windowed), B and
 #: C, SK's pass C and the PFB's pass A.
@@ -87,8 +87,8 @@ PASS_A, PASS_A_WINDOWED, PASS_B, PASS_C, SK_PASS_C, PFB_PASS_A = range(6)
 
 
 def fused_psd_chirp_large_est_eligible(N: int) -> bool:
-    """True iff the forms take N bins: even, 8194..16384."""
-    return bl.fused_psd_chirp_large_eligible(N) and N <= MAX_N
+    """True iff the forms take N bins: even, 8194..2^21."""
+    return bl.fused_psd_chirp_large_eligible(N)
 
 
 def sk_chirp_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -265,7 +265,7 @@ def fused_psd_sk_chirp_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
                              window: Optional[torch.Tensor] = None,
                              sigma: float = 0.0,
                              group_c: Optional[int] = None) -> torch.Tensor:
-    """SK-BL: (F, 2N) uint8 frames, N even in (8192, 16384], ``n_valid``
+    """SK-BL: (F, 2N) uint8 frames, N even in (8192, 2^21], ``n_valid``
     real frames -> (2, N) float32 rows s1 = sum of |DFT|^2 and s2 = sum of
     |DFT|^4 over those frames; with ``sigma > 0`` (4, N), adding s1 * keep
     and n_valid * keep. ``window``: an (N,) float32 tensor on the same
@@ -295,7 +295,7 @@ def fused_psd_tapers_chirp_large(raw_u8: torch.Tensor, n_valid: int,
                                  chunk: int, tapers: torch.Tensor,
                                  group_c: Optional[int] = None
                                  ) -> torch.Tensor:
-    """MT-BL: (F, 2N) uint8 frames, N even in (8192, 16384], ``n_valid``
+    """MT-BL: (F, 2N) uint8 frames, N even in (8192, 2^21], ``n_valid``
     real frames, (K, N) float32 ``tapers`` on the same device -> (N,)
     float32: the sum over those frames of the mean over the K tapers of
     |DFT(x * taper_k)|^2.
@@ -322,7 +322,7 @@ def fused_psd_pfb_chirp_large(raw_u8: torch.Tensor, history: torch.Tensor,
                               n_valid: int, chunk: int, h: torch.Tensor,
                               history_out: torch.Tensor, fresh: bool = False,
                               group_c: Optional[int] = None) -> torch.Tensor:
-    """PFB-BL: (F, 2N) uint8 frames (N even in (8192, 16384]) after (P - 1,
+    """PFB-BL: (F, 2N) uint8 frames (N even in (8192, 2^21]) after (P - 1,
     2N) uint8 ``history`` rows, ``n_valid`` real frames, a (P, N) float32
     prototype ``h`` -> (N,) float32 sum over those frames of |DFT(polyphase
     sum)|^2; the next history goes to ``history_out`` (distinct from
@@ -355,7 +355,7 @@ def fused_psd_sk_chirp_large_streams(raw_u8: torch.Tensor,
                                      window: Optional[torch.Tensor] = None,
                                      sigma: float = 0.0) -> torch.Tensor:
     """SK-BL-S: (S, F, 2N) uint8 frames of S streams (N even in (8192,
-    16384]), ``n_valid`` (S,) int32 real frames per stream on the frames'
+    2^21]), ``n_valid`` (S,) int32 real frames per stream on the frames'
     device -> (S, 2, N) float32, rows s1 and s2 of each stream's first
     n_valid[s] frames (a count outside [0, F] acts as its nearest bound);
     with ``sigma > 0`` (S, 4, N), adding s1 * keep and n_valid[s] * keep,
@@ -413,7 +413,7 @@ def fused_psd_pfb_chirp_large_streams(raw_u8: torch.Tensor,
                                       history_out: torch.Tensor,
                                       fresh: bool = False) -> torch.Tensor:
     """PFB-BL-S: (S, F, 2N) uint8 frames of S streams (N even in (8192,
-    16384]), each after its (P - 1, 2N) rows of the (S, P - 1, 2N) uint8
+    2^21]), each after its (P - 1, 2N) rows of the (S, P - 1, 2N) uint8
     ``history``, ``n_valid`` (S,) int32 real frames per stream, a (P, N)
     float32 prototype ``h`` -> (S, N) float32, row s
     :func:`fused_psd_pfb_chirp_large` of stream s (a count outside [0, F]

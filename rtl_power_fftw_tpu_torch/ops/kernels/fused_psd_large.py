@@ -293,28 +293,46 @@ def _device_tables(N: int, device: torch.device
             torch.from_numpy(inter_tables(N)).to(device))
 
 
-def fused_psd_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
-                              window: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
-    """The plain PyTorch version: (F, 2N) uint8 -> (N,) float32, the four
-    steps written out in torch ops."""
-    F, two_n = raw_u8.shape
-    N = two_n // 2
+def large_dft_power(z: torch.Tensor) -> torch.Tensor:
+    """|DFT|^2 along the last axis by the four steps in torch ops, with
+    the kernel's inter-stage twiddle: (..., N) complex64 -> (..., N)
+    float32 (column DFTs over n1, × W_N^(n2 k1), row DFTs over n2, |.|^2,
+    bin k1 + N1·k2)."""
+    lead, N = z.shape[:-1], z.shape[-1]
     n1, n2 = large_split(N)
-    v = raw_u8.reshape(F, N, 2).to(torch.int32)
+    x = z.reshape(-1, n1, n2)                           # [f, n1, n2]
+    y = torch.fft.fft(x, dim=1)                         # [f, k1, n2]
+    y = y * _plain_twiddle(N, z.device)
+    X = torch.fft.fft(y, dim=2)                         # [f, k1, k2]
+    pwr = X.real * X.real + X.imag * X.imag
+    # Bin k1 + N1·k2: read [f, k2, k1] flat.
+    return pwr.transpose(1, 2).reshape(*lead, N)
+
+
+def large_power(raw_u8: torch.Tensor,
+                window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """|DFT|^2 of every frame by :func:`large_dft_power`: (..., 2N) uint8,
+    dequantized [and windowed] -> (..., N) float32."""
+    N = raw_u8.shape[-1] // 2
+    v = raw_u8.reshape(*raw_u8.shape[:-1], N, 2).to(torch.int32)
     re = (v[..., 0] - 127).to(torch.float32)
     im = (v[..., 1] - 127).to(torch.float32)
     if window is not None:
         re = re * window
         im = im * window
-    x = torch.complex(re, im).reshape(F, n1, n2)        # [f, n1, n2]
-    y = torch.fft.fft(x, dim=1)                         # [f, k1, n2]
-    y = y * _plain_twiddle(N, raw_u8.device)
-    X = torch.fft.fft(y, dim=2)                         # [f, k1, k2]
-    pwr = X.real * X.real + X.imag * X.imag
+    return large_dft_power(torch.complex(re, im))
+
+
+def fused_psd_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
+                              window: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """The plain PyTorch version: (F, 2N) uint8 -> (N,) float32, the four
+    steps written out in torch ops (:func:`large_power`), frames f >=
+    n_valid dropped, a two-stage sum."""
+    F, two_n = raw_u8.shape
+    N = two_n // 2
+    pwr = large_power(raw_u8, window)
     pwr[n_valid:] = 0.0
-    # Bin k1 + N1·k2: read [f, k2, k1] flat.
-    pwr = pwr.transpose(1, 2).reshape(F, N)
     return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
 
 
@@ -367,16 +385,26 @@ def keep_newest(cache: collections.OrderedDict) -> None:
         cache.popitem(last=False)
 
 
+@functools.lru_cache(maxsize=16)
+def device_tables(N: int, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The register passes' tables on ``device``: pass_twiddles(N1) then
+    pass_twiddles(N2), and the inter-stage twiddle in scratch's order
+    (:func:`regs_inter_twiddle`); the large kernel and the estimators'
+    forms of its passes (:mod:`.fused_psd_large_est`) read the same."""
+    n1, n2 = large_split(N)
+    return (torch.from_numpy(np.concatenate(
+        [pass_twiddles(n1), pass_twiddles(n2)])).to(device),
+            torch.from_numpy(regs_inter_twiddle(N)).to(device))
+
+
 def _plan(N: int, F: int, chunk: int, windowed: bool,
           device: torch.device) -> _Plan:
     key = (N, F, chunk, windowed, device.index)
     plan = _plans.get(key)
     if plan is None:
         from . import _build
-        n1, n2 = large_split(N)
-        tables = (torch.from_numpy(np.concatenate(
-            [pass_twiddles(n1), pass_twiddles(n2)])).to(device),
-                  torch.from_numpy(regs_inter_twiddle(N)).to(device))
+        tables = device_tables(N, device)
         plan = _plans[key] = _Plan(
             _build.load("fused_psd_large"), N.bit_length() - 1,
             *regs_grid(F, N,

@@ -24,12 +24,12 @@ from .kernels.fused_psd_bluestein import (fused_psd_bluestein,
 from .kernels.fused_psd_chirp_large import MAX_N as CHIRP_LARGE_MAX_N
 from .kernels.fused_psd_chirp_large import (fused_psd_chirp_large,
                                             fused_psd_chirp_large_eligible)
-from .kernels.fused_psd_chirp_large_est import MAX_N as EST_MAX_N
 from .kernels.fused_psd_chirp_large_est import \
     fused_psd_chirp_large_est_eligible
 from .kernels.fused_psd_fast import fused_psd_fast, fused_psd_fast_eligible
 from .kernels.fused_psd_large import (MAX_N, fused_psd_large,
                                       fused_psd_large_eligible)
+from .kernels.fused_psd_large_est import fused_psd_large_est_eligible
 from .kernels.fused_psd_mixed import fused_psd_mixed, fused_psd_mixed_eligible
 from .kernels.fused_psd_mixed_large import (fused_psd_mixed_large,
                                             fused_psd_mixed_large_eligible)
@@ -140,13 +140,24 @@ SK_BACKENDS = ("auto", "pallas", "hybrid", "fft4")
 
 
 #: The session's estimator options: on one stream and over ``--streams``
-#: they take every even N up to 16384: the powers of two on K1's
-#: variants, and the other N on the estimators' forms of the mixed-radix
-#: kernel, of the chirp-Z kernel and of BL's passes
-#: (``kernels/csrc/fused_psd_mixed_est.cu``,
+#: they take every even N up to 16384, every power of two up to 2^22 and
+#: every even N up to 2^21 with a prime factor above 7: the powers of two
+#: up to 16384 on K1's variants, those above on the estimators' forms of
+#: the large kernel's passes (``kernels/csrc/fused_psd_large_est.cu``), and
+#: the other N on their forms of the mixed-radix kernel, of the chirp-Z
+#: kernel and of BL's passes (``kernels/csrc/fused_psd_mixed_est.cu``,
 #: ``kernels/csrc/fused_psd_chirp_est.cu``,
-#: ``kernels/csrc/fused_psd_chirp_large_est.cu``, each with a streams form).
+#: ``kernels/csrc/fused_psd_chirp_large_est.cu``), each form with S >= 1
+#: streams. The even 7-smooth N above 16384 that are not powers of two
+#: (20000, 100000, 10^6) still exit 3: ML's forms are not written.
 CLI_ESTIMATORS = ("--sk-file", "--sk-excise", "--multitaper", "--pfb-taps")
+
+#: What the session's estimators take, as their exit-3 messages state it.
+_EST_RANGE = (f"the estimator kernels take every even N up to "
+              f"{REGS_MAX_N}, powers of two up to {MAX_N} and other even N "
+              f"up to {CHIRP_LARGE_MAX_N} with a prime factor above 7; not "
+              f"yet the even 7-smooth N above {REGS_MAX_N} that are not "
+              "powers of two, nor odd N")
 
 
 def estimator_route(N: int, flag: str, backend: str = "auto",
@@ -157,18 +168,22 @@ def estimator_route(N: int, flag: str, backend: str = "auto",
     powers of two from 64 to 16384), "mixed" (the session's estimators,
     :data:`CLI_ESTIMATORS`, at the other even 7-smooth N up to 16384:
     forms of the mixed-radix kernel), "bluestein" (the same at the other
-    even N up to 8192: forms of the chirp-Z kernel) or "chirp_large" (the
-    same at the other even N in (8192, 16384], 9998 and 16382 among them:
+    even N up to 8192: forms of the chirp-Z kernel), "large" (the same at
+    the powers of two from 32768 to 2^22: forms of the large kernel's two
+    passes) or "chirp_large" (the same at the even N from 8194 to 2^21
+    with a prime factor above 7, 9998, 16382, 20002 and 99998 among them:
     forms of BL's three passes). The spectral-kurtosis step under
-    ``--fft-backend bluestein`` runs the chirp-Z forms at any even N, as
-    the PSD step takes that name: "bluestein" up to 8192, "chirp_large" in
-    (8192, 16384]. Raise RPFexception(InvalidArgument), "Not yet ported",
-    anywhere else: the library-only estimators (``flag`` their names) at
-    other N, and the session's at every N above 16384 (20002 among them)
-    and at odd N. The spectral-kurtosis step also takes only the
-    ``--fft-backend`` names of :data:`SK_BACKENDS` and ``bluestein`` (the
-    other two estimators ignore the option, as the JAX package's do). The
-    same check and message on the CPU and on the card."""
+    ``--fft-backend bluestein`` runs the chirp-Z forms at any even N up to
+    2^21, as the PSD step takes that name: "bluestein" up to 8192,
+    "chirp_large" above. Raise RPFexception(InvalidArgument), "Not yet
+    ported", anywhere else: the library-only estimators (``flag`` their
+    names) at other N, and the session's at the even 7-smooth N above
+    16384 that are not powers of two (20000, 100000), at the other N above
+    2^21 (4194302) and at odd N. The spectral-kurtosis step also takes
+    only the ``--fft-backend`` names of :data:`SK_BACKENDS` and
+    ``bluestein`` (the other two estimators ignore the option, as the JAX
+    package's do). The same check and message on the CPU and on the
+    card."""
     session = flag in CLI_ESTIMATORS
     over = " over --streams" if sharded else ""
     if session and flag.startswith("--sk") and backend == "bluestein":
@@ -178,18 +193,20 @@ def estimator_route(N: int, flag: str, backend: str = "auto",
             return "chirp_large"
         raise _unported(f"{flag}{over} with --fft-backend bluestein at "
                         f"{N} bins (the chirp-Z estimator kernels take "
-                        f"even N up to {EST_MAX_N})")
+                        f"even N up to {CHIRP_LARGE_MAX_N})")
     if fused_psd_eligible(N):
         route = "regs"
     elif session and fused_psd_mixed_eligible(N):
         route = "mixed"
     elif session and fused_psd_bluestein_eligible(N):
         route = "bluestein"
-    elif session and fused_psd_chirp_large_est_eligible(N):
+    elif session and fused_psd_large_est_eligible(N):
+        route = "large"
+    elif (session and fused_psd_chirp_large_est_eligible(N)
+          and not fused_psd_mixed_large_eligible(N)):
         route = "chirp_large"
     elif session:
-        raise _unported(f"{flag}{over} at {N} bins (the estimator kernels "
-                        f"take every even N up to {EST_MAX_N})")
+        raise _unported(f"{flag}{over} at {N} bins ({_EST_RANGE})")
     else:
         raise _unported(f"{flag} at {N} bins (the estimator kernels take "
                         f"powers of two from {MIN_N} to {REGS_MAX_N})")

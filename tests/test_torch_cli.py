@@ -34,8 +34,8 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--shard-transform"],
-    ["-b", "32768", "--sk-file", "sk.dat"],
-    ["-b", "20002", "--sk-file", "sk.dat"],
+    ["-b", "100000", "--sk-file", "sk.dat"],
+    ["-b", "2097154", "--sk-file", "sk.dat", "--fft-backend", "bluestein"],
     ["--sk-excise", "3", "--fft-backend", "xla"],
     ["--fft-backend", "fourstep"],
     ["--fft-backend", "xla", "--window-function", "hann"],
@@ -89,6 +89,10 @@ def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
     (["--streams", "2", "--sk-file", "sk.dat", "-b", "500"],
      "plain_sk (backend=auto, N=500)"),
     (["--streams", "2", "--pfb-taps", "4", "-b", "500"], "plain_pfb (N=500)"),
+    (["-b", "32768", "--sk-file", "sk.dat"],
+     "plain_sk (backend=auto, N=32768)"),
+    (["-b", "20002", "--sk-file", "sk.dat"],
+     "plain_sk (backend=auto, N=20002)"),
 ])
 def test_single_stream_estimators_exit_0(extra, path, capsys, tmp_path,
                                          monkeypatch):

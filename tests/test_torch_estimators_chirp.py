@@ -65,11 +65,11 @@ SIZES = [22, 998, 4094, 8188]
     (2048, "--pfb-taps", "bluestein", False, "regs"),
     (2048, "--sk-file", "auto", False, "regs"),
     (998, "--pfb-taps", "auto", True, "bluestein"),
-    (20002, "--multitaper", "auto", False, None),
+    (100000, "--multitaper", "auto", False, None),
     (998, "spectrogram", "auto", False, None),
     (2048, "--sk-file", "bluestein", True, "bluestein"),
     (22, "--sk-excise", "auto", True, "bluestein"),
-    (20002, "--pfb-taps", "auto", True, None),
+    (4194302, "--pfb-taps", "auto", True, None),
 ])
 def test_estimator_route(N, flag, backend, sharded, route):
     """The session's estimators take the chirp-Z kernel's N on one stream
@@ -88,9 +88,10 @@ def test_estimator_route(N, flag, backend, sharded, route):
 
 
 @pytest.mark.parametrize("N,sharded,what", [
-    (20002, False, "--sk-file with --fft-backend bluestein at 20002 bins"),
-    (20002, True, "--sk-file over --streams with --fft-backend bluestein "
-     "at 20002 bins"),
+    (2097154, False, "--sk-file with --fft-backend bluestein at 2097154 "
+     "bins"),
+    (2097154, True, "--sk-file over --streams with --fft-backend bluestein "
+     "at 2097154 bins"),
 ])
 def test_sk_under_bluestein_still_exits_3(N, sharded, what):
     with pytest.raises(RPFexception, match="Not yet ported") as e:
@@ -293,16 +294,17 @@ def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-b", "20002", "--sk-file", "sk.dat"], "--sk-file at 20002 bins"),
-    (["--streams", "2", "--sk-file", "sk.dat", "-b", "20002",
+    (["-b", "100000", "--sk-file", "sk.dat"], "--sk-file at 100000 bins"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "2097154",
       "--fft-backend", "bluestein"],
-     "--sk-file over --streams with --fft-backend bluestein at 20002 bins"),
-    (["--sk-file", "sk.dat", "--fft-backend", "bluestein", "-b", "20002"],
-     "--sk-file with --fft-backend bluestein at 20002 bins"),
+     "--sk-file over --streams with --fft-backend bluestein at 2097154 "
+     "bins"),
+    (["--sk-file", "sk.dat", "--fft-backend", "bluestein", "-b", "2097154"],
+     "--sk-file with --fft-backend bluestein at 2097154 bins"),
     (["--streams", "2", "--sk-file", "sk.dat", "--fft-backend", "xla",
       "-b", "500"], "--sk-file over --streams with --fft-backend xla"),
     (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
-    (["-b", "65536", "--sk-file", "sk.dat"], "--sk-file at 65536 bins"),
+    (["-b", "3000000", "--sk-file", "sk.dat"], "--sk-file at 3000000 bins"),
 ])
 def test_cli_still_exits_3(extra, what, capsys):
     argv = ["-f", "100M", "-n", "8", "--source", "synthetic:"] + extra

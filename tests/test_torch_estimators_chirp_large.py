@@ -115,9 +115,9 @@ def close(got, want, n_valid, rtol=2e-5):
     (16384, "--sk-file", "auto", False, "regs"),
     (16384, "--pfb-taps", "bluestein", False, "regs"),
     (8192, "--sk-file", "bluestein", False, "bluestein"),
-    (20002, "--sk-file", "auto", False, None),
-    (20002, "--multitaper", "auto", True, None),
-    (32768, "--pfb-taps", "auto", False, None),
+    (20000, "--sk-file", "auto", False, None),
+    (100000, "--multitaper", "auto", True, None),
+    (4194302, "--pfb-taps", "auto", False, None),
     (9998, "spectrogram", "auto", False, None),
 ])
 def test_estimator_route(N, flag, backend, sharded, route):
@@ -139,10 +139,10 @@ def test_estimator_route(N, flag, backend, sharded, route):
 @pytest.mark.parametrize("sharded", [False, True])
 def test_sk_under_bluestein_above_16384_exits_3(sharded):
     with pytest.raises(RPFexception, match="Not yet ported") as e:
-        spectral.estimator_route(20002, "--sk-file", "bluestein", sharded)
+        spectral.estimator_route(2097154, "--sk-file", "bluestein", sharded)
     assert (f"--sk-file{' over --streams' * sharded} with --fft-backend "
-            "bluestein at 20002 bins (the chirp-Z estimator kernels take "
-            "even N up to 16384)") in str(e.value)
+            "bluestein at 2097154 bins (the chirp-Z estimator kernels take "
+            "even N up to 2097152)") in str(e.value)
 
 
 @pytest.mark.parametrize("table,one,streams", [
@@ -161,12 +161,14 @@ def test_each_step_maps_the_route_to_its_form(table, one, streams):
 
 @pytest.mark.parametrize("N,ok", [(8192, False), (8194, True), (9998, True),
                                   (16382, True), (16384, True),
-                                  (16386, False), (20002, False),
-                                  (9999, False)])
+                                  (16386, True), (20002, True),
+                                  (9999, False), (2097150, True),
+                                  (2097152, True), (2097154, False)])
 def test_eligible(N, ok):
+    """BL's even N, 8194..2^21, at M = chirp_size(N) from 2^15 to 2^22."""
     assert be.fused_psd_chirp_large_est_eligible(N) is ok
     if ok:
-        assert bl.chirp_regs_layout(N).log2m == 15
+        assert bl.chirp_regs_layout(N).log2m == (2 * N - 1).bit_length()
 
 
 # --- the session steps against the JAX steps ---
@@ -456,13 +458,13 @@ def test_cli_sk_under_bluestein_exits_0(bins, streams, capsys, tmp_path,
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-b", "32768", "--sk-file", "sk.dat"], "--sk-file at 32768 bins"),
+    (["-b", "100000", "--sk-file", "sk.dat"], "--sk-file at 100000 bins"),
     (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
-    (["-b", "20002", "--sk-file", "sk.dat"], "--sk-file at 20002 bins"),
-    (["--streams", "2", "-b", "20002", "--pfb-taps", "4"],
-     "--pfb-taps over --streams at 20002 bins"),
-    (["-b", "20002", "--sk-file", "sk.dat", "--fft-backend", "bluestein"],
-     "--sk-file with --fft-backend bluestein at 20002 bins"),
+    (["-b", "1000000", "--sk-file", "sk.dat"], "--sk-file at 1000000 bins"),
+    (["--streams", "2", "-b", "20000", "--pfb-taps", "4"],
+     "--pfb-taps over --streams at 20000 bins"),
+    (["-b", "2097154", "--sk-file", "sk.dat", "--fft-backend", "bluestein"],
+     "--sk-file with --fft-backend bluestein at 2097154 bins"),
 ])
 def test_cli_still_exits_3(extra, what, capsys):
     argv = ["-f", "100M", "-n", "8", "--source", "synthetic:"] + extra
@@ -511,7 +513,7 @@ def test_chip_smoke_drive_steps_are_the_sessions(drive, kind, N, streams,
 # --- the wrappers ---
 
 
-@pytest.mark.parametrize("N", [8192, 16386, 20002])
+@pytest.mark.parametrize("N", [8192, 2097154, 20001])
 def test_wrappers_refuse_n_the_forms_do_not_take(N):
     raw = torch.zeros((8, 2 * N), dtype=torch.uint8)
     hist = torch.zeros((1, 2 * N), dtype=torch.uint8)
@@ -829,8 +831,8 @@ def test_one_stream_s1_is_bl_transcription():
 def test_bl_and_its_forms_share_the_passes_header():
     """BL's streams passes and pass A's batch live in one header that BL
     and the forms both include, not in a copy; the forms' source
-    instantiates log2 M = 15 alone and names its passes as
-    PASS_A .. PFB_PASS_A number them."""
+    instantiates BL's log2 M, 15 to 22, each in its dispatch, and names its
+    passes as PASS_A .. PFB_PASS_A number them."""
     header = (CSRC / "fused_psd_chirp_large_regs.cuh").read_text()
     bl_src = (CSRC / "fused_psd_chirp_large.cu").read_text()
     est = (CSRC / "fused_psd_chirp_large_est.cu").read_text()
@@ -840,8 +842,13 @@ def test_bl_and_its_forms_share_the_passes_header():
                  "chirp_a_batch(", "struct ChirpRegs"):
         assert name in header
         assert name not in bl_src and name not in est
-    assert int(re.search(r"constexpr int kEstLog2M = (\d+);",
+    assert int(re.search(r"constexpr int kEstMinLog2M = (\d+);",
                          est).group(1)) == 15
+    assert int(re.search(r"constexpr int kEstMaxLog2M = (\d+);",
+                         est).group(1)) == 22
+    assert [int(m) for m in re.findall(
+        r"case (\d+): return fn\(std::integral_constant<int, (?:\d+)>",
+        est)] == list(range(15, 23))
     order = re.findall(r"case (\d): return reinterpret_cast<const void\*>\("
                        r"(\w+)<", est)
     assert [int(i) for i, _ in order] == [be.PASS_A, be.PASS_A_WINDOWED,

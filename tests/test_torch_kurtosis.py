@@ -152,11 +152,11 @@ def test_compute_sk_is_the_jax_formula():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-b", "20002", "--sk-file", "x"], "--sk-file at 20002 bins"),
-    (["-b", "20002", "--sk-excise", "3"], "--sk-excise at 20002 bins"),
-    (["-b", "20002", "--sk-file", "x", "--fft-backend", "bluestein"],
-     "--sk-file with --fft-backend bluestein at 20002 bins"),
-    (["-b", "32768", "--sk-file", "x"], "--sk-file at 32768 bins"),
+    (["-b", "100000", "--sk-file", "x"], "--sk-file at 100000 bins"),
+    (["-b", "20000", "--sk-excise", "3"], "--sk-excise at 20000 bins"),
+    (["-b", "2097154", "--sk-file", "x", "--fft-backend", "bluestein"],
+     "--sk-file with --fft-backend bluestein at 2097154 bins"),
+    (["-b", "4194302", "--sk-file", "x"], "--sk-file at 4194302 bins"),
     (["-b", "256", "--sk-file", "x", "--fft-backend", "xla"],
      "--sk-file with --fft-backend xla"),
 ])
