@@ -113,33 +113,4 @@ __device__ __forceinline__ float2 pfb_sample(const uint16_t* iq,
   return make_float2(re, im);
 }
 
-// The polyphase sum of the large kernels' PFB forms (fused_psd_large_est.cu,
-// fused_psd_chirp_large_est.cu), sample n of output frame j: sum over p <
-// P, in order from zero, of h[p, n] times virtual row j + p (row r < P - 1
-// of `history`, else frame r - (P - 1) of `frames`), the last row's value
-// `own` from the pass's ring; each product and sum rounded on its own, as
-// pfb_sample adds them.
-__device__ __forceinline__ float2 pfb_sum(unsigned own,
-                                          const uint8_t* __restrict__ frames,
-                                          const uint8_t* __restrict__ history,
-                                          const float* __restrict__ h, int j,
-                                          int P, int bins, int n) {
-  float re = 0.0f;
-  float im = 0.0f;
-  for (int p = 0; p < P; ++p) {
-    unsigned u = own;
-    if (p < P - 1) {
-      const int r = j + p;
-      const uint8_t* row =
-          r < P - 1 ? history + static_cast<size_t>(r) * 2 * bins
-                    : frames + static_cast<size_t>(r - (P - 1)) * 2 * bins;
-      u = __ldg(reinterpret_cast<const uint16_t*>(row) + n);
-    }
-    const float hv = __ldg(h + static_cast<size_t>(p) * bins + n);
-    re = __fadd_rn(re, __fmul_rn(dequant_byte(u & 0xFFu), hv));
-    im = __fadd_rn(im, __fmul_rn(dequant_byte(u >> 8), hv));
-  }
-  return make_float2(re, im);
-}
-
 }  // namespace

@@ -6,9 +6,8 @@
 // 16382, 20002, 99998, 2097150 among them; the session routes the even
 // 7-smooth N above 16384 to neither), and SK-BL at any even N there under
 // --fft-backend bluestein (10000, 16384 and 32768 too). Each form takes
-// S >= 1
-// streams of F frames, (S*F, 2N), with an (S,) count array on the device;
-// the one-stream steps call it at S = 1.
+// S >= 1 streams of F frames, (S*F, 2N), with an (S,) count array on the
+// device; the one-stream steps call it at S = 1.
 //
 // They replace no Pallas kernel: the JAX package computes these estimators
 // in XLA at every N (rtl_power_fftw_tpu/models/kurtosis.py:_sk_step 46-93,
@@ -42,15 +41,16 @@
 //           table), B and C once a taper over one (S F, M) scratch, which
 //           the next taper's pass A overwrites (64 MB at F = 256, M =
 //           2^15, 256 MB at F = 8, M = 2^22, where the taper on the grid
-//           would take 7 times that at K = 7); taper k's pass C writes partial row (k S + s) G_s + j,
-//           and est_streams_kernel<kEstTapers> sums each stream's K G_s
-//           rows and divides by K. Each frame is read K times, as MT-B
-//           reads it;
+//           would take 7 times that at K = 7); taper k's pass C writes
+//           partial row (k S + s) G_s + j, and est_streams_kernel
+//           <kEstTapers> sums each stream's K G_s rows and divides by K.
+//           Each frame is read K times, as MT-B reads it;
 //   PFB-BL  pass A: chirp_pfb_a's load takes the frame's own row from the
 //           ring, as BL's pass A does, the P - 1 older rows from the
 //           history or the earlier frames through L1/L2, and h (P, N); the
 //           polyphase sum comes before the product with the chirp a[n].
-//           The next histories are pfb_history_kernel's (pfb_history.cuh).
+//           The next histories are launch_pfb_history's (pfb_history.cuh:
+//           its wide kernel for the rows of 2N >= 64 KB, M >= 2^16).
 //
 // The passes are generic in log2 M and instantiated at BL's M = 2^15 ..
 // 2^22 (M = chirp_size(N): 2^15 for N in (8192, 16384], 2^22 for N in
@@ -83,6 +83,34 @@ namespace {
 // The M = 2^log2m instantiated here: BL's own, 2^15 .. 2^22.
 constexpr int kEstMinLog2M = 15;
 constexpr int kEstMaxLog2M = 22;
+
+// PFB-BL's sample n of output frame j: sum over p < P, in order from zero,
+// of h[p, n] times virtual row j + p (row r < P - 1 of `history`, else
+// frame r - (P - 1) of `frames`), the last row's value `own` from the
+// ring; each product and sum rounded on its own, as frame_ring.cuh's
+// pfb_sample adds them.
+__device__ __forceinline__ float2 pfb_sum(unsigned own,
+                                          const uint8_t* __restrict__ frames,
+                                          const uint8_t* __restrict__ history,
+                                          const float* __restrict__ h, int j,
+                                          int P, int bins, int n) {
+  float re = 0.0f;
+  float im = 0.0f;
+  for (int p = 0; p < P; ++p) {
+    unsigned u = own;
+    if (p < P - 1) {
+      const int r = j + p;
+      const uint8_t* row =
+          r < P - 1 ? history + static_cast<size_t>(r) * 2 * bins
+                    : frames + static_cast<size_t>(r - (P - 1)) * 2 * bins;
+      u = __ldg(reinterpret_cast<const uint16_t*>(row) + n);
+    }
+    const float hv = __ldg(h + static_cast<size_t>(p) * bins + n);
+    re = __fadd_rn(re, __fmul_rn(dequant_byte(u & 0xFFu), hv));
+    im = __fadd_rn(im, __fmul_rn(dequant_byte(u >> 8), hv));
+  }
+  return make_float2(re, im);
+}
 
 // chirp_a_batch with PFB-BL's load: batch s of output frame j on thread
 // (c, t), the polyphase sums of the column's samples n = (t + k TF1) M2 +

@@ -36,7 +36,9 @@
 //           of partial rows, (2, S G_s, N), both staged by bin through the
 //           exchange as pass B stages its one plane; est_streams_kernel
 //           (fused_psd_est.cuh) adds each stream's rows in psd_sum.cuh's
-//           order, with the gate of --sk-excise;
+//           order, with the gate of --sk-excise; with one group a stream
+//           and no gate pass B writes the (S, 2, N) output itself, as the
+//           large kernel's pass B writes its one row;
 //   MT-L    a taper loop: pass A windowed by taper row k of the (K, N)
 //           table and pass B, once a taper over one (S F, N) scratch,
 //           which the next taper's pass A overwrites (256 MB at F = 8, N =
@@ -47,9 +49,10 @@
 //           it;
 //   PFB-L   pass A: large_pfb_a's load takes the frame's own row from the
 //           ring, as pass A does, the P - 1 older rows from the history or
-//           the earlier frames through L1/L2, and h (P, N) (frame_ring.cuh:
-//           pfb_sum); the polyphase sum comes before the column transform.
-//           The next histories are pfb_history_kernel's (pfb_history.cuh).
+//           the earlier frames through L1/L2, and h (P, N), tap by tap
+//           over a thread's 16 samples; the polyphase sum comes before the
+//           column transform. The next histories are
+//           pfb_history_wide_kernel's (pfb_history.cuh).
 //
 // The passes are instantiated at every log2 N from 15 to 22; the entries
 // dispatch on it (at_log2n). The grid is the large kernel's own (the
@@ -71,7 +74,6 @@
 #include <type_traits>
 
 #include "device.cuh"
-#include "frame_ring.cuh"   // pfb_sum
 #include "fused_psd_est.cuh"
 #include "fused_psd_large_regs.cuh"
 #include "fused_psd_large_streams.cuh"
@@ -87,7 +89,11 @@ constexpr int kMaxLog2N = 22;
 // regs_a_batch with PFB-L's load: batch s of output frame j on thread (c,
 // t), the polyphase sums of the column's 16 samples n = (t + k TF1) N2 +
 // c0 + s B + c, the frame's own row from the ring; then pass A's passes
-// and stores.
+// and stores. Each sum is PFB-BL's pfb_sum (p in order from zero, each
+// product and sum rounded on its own), taken tap by tap over the 16
+// samples, so that a thread has 16 loads of a tap's row and of h in
+// flight at once (a sample at a time, PFB-L's first form, waited for each
+// tap's two loads in turn: probes/large_estimator_builds.py).
 template <int LOG2N>
 __device__ __forceinline__ void pfb_a_batch(
     int s, const uint8_t* tile, const uint8_t* __restrict__ frames,
@@ -100,14 +106,37 @@ __device__ __forceinline__ void pfb_a_batch(
   if (s > 0) __syncthreads();   // x is free (last pass of batch s - 1)
   const int col = s * L::B + c;
   const int byte = 2 * col;
+  const int n0 = c0 + col;   // sample k: (t + k TF) N2 + n0
   float2 v[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const int row = t + k * TF;
-    const unsigned own = *reinterpret_cast<const uint16_t*>(
-        tile + ring_offset<LOG2N>(row, byte >> 4) + (byte & 15));
-    v[k] = pfb_sum(own, frames, history, h, j, taps, L::N,
-                   (row << L::LOG2N2) + c0 + col);
+  for (int k = 0; k < 16; ++k) v[k] = make_float2(0.0f, 0.0f);
+  for (int p = 0; p < taps; ++p) {
+    const float* hp = h + static_cast<size_t>(p) * L::N + n0;
+    if (p < taps - 1) {
+      const int r = j + p;   // virtual row: history, then frames
+      const uint16_t* row = reinterpret_cast<const uint16_t*>(
+          r < taps - 1 ? history + static_cast<size_t>(r) * 2 * L::N
+                       : frames + static_cast<size_t>(r - (taps - 1)) * 2 *
+                                      L::N) + n0;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int off = (t + k * TF) << L::LOG2N2;
+        const unsigned u = __ldg(row + off);
+        const float hv = __ldg(hp + off);
+        v[k].x = __fadd_rn(v[k].x, __fmul_rn(dequant_byte(u & 0xFFu), hv));
+        v[k].y = __fadd_rn(v[k].y, __fmul_rn(dequant_byte(u >> 8), hv));
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int row = t + k * TF;
+        const unsigned u = *reinterpret_cast<const uint16_t*>(
+            tile + ring_offset<LOG2N>(row, byte >> 4) + (byte & 15));
+        const float hv = __ldg(hp + (row << L::LOG2N2));
+        v[k].x = __fadd_rn(v[k].x, __fmul_rn(dequant_byte(u & 0xFFu), hv));
+        v[k].y = __fadd_rn(v[k].y, __fmul_rn(dequant_byte(u >> 8), hv));
+      }
+    }
   }
   first_pass<L::LOG2N1>(v, x, twiddle, t,
                         [c](int e) { return col_index<LOG2N>(c, e); });
@@ -181,16 +210,23 @@ large_pfb_a(const uint8_t* __restrict__ raw,       // (S*F, 2N)
 }
 
 // SK-L's pass B: large_streams_b with a sum of |X|^4 beside each sum of
-// |X|^2 (the latter large_regs_b's expression), the s1 row to partial row
-// s G_s + x / TILES_B of `rows` and the s2 row to row (S + s) G_s + x /
-// TILES_B, each staged by bin through the exchange as pass B stages its
-// row.
+// |X|^2 (the latter large_regs_b's expression), the s1 row of block (x,
+// s) to row r = s G_s + x / TILES_B of `rows` (at r * row_stride) and the
+// s2 row plane_stride floats after it, each staged by bin through the
+// exchange as pass B stages its row: partial rows (2, S*G_s, N) with
+// row_stride N and plane_stride S G_s N, or, with one group a stream, the
+// (S, 2, N) output itself, row_stride 2N and plane_stride N. One block an
+// SM where N2 >= 512 (255 registers), where two (128) spill 216-232 B a
+// thread and ran 1.17x slower at 2^20 F = 8; two below, where they spill
+// nothing (probes/large_estimator_builds.py on an H100).
 template <int LOG2N>
-__global__ void __launch_bounds__(LargeRegs<LOG2N>::THREADS_B, 2)
+__global__ void __launch_bounds__(LargeRegs<LOG2N>::THREADS_B,
+                                  LargeRegs<LOG2N>::N2 >= 512 ? 1 : 2)
 large_sk_b(const float2* __restrict__ scratch,   // (S*F, N)
            const float2* __restrict__ twiddle,   // pass_twiddles(N2)
-           float* __restrict__ rows,             // (2, S*G_s, N)
-           int F, int group, int G_s, const int* __restrict__ counts) {
+           float* __restrict__ rows,
+           int F, int group, int G_s, const int* __restrict__ counts,
+           int row_stride, int plane_stride) {
   using L = LargeRegs<LOG2N>;
   using P = RegsPlan<L::LOG2N2>;
   constexpr int TF = L::TF2;
@@ -261,7 +297,7 @@ large_sk_b(const float2* __restrict__ scratch,   // (S*F, N)
   }
 
   // Each plane's bins k0 + r + N1 k2 through shared memory, as pass B
-  // writes its row: s1 to row blk.rest, s2 to row S G_s + blk.rest.
+  // writes its row.
   float* by_bin = reinterpret_cast<float*>(large_smem);
 #pragma unroll 1
   for (int plane = 0; plane < 2; ++plane) {
@@ -272,8 +308,8 @@ large_sk_b(const float2* __restrict__ scratch,   // (S*F, N)
       by_bin[r * L::XSR + pad_index(k2)] = plane == 0 ? acc[k] : acc2[k];
     }
     __syncthreads();
-    float* out = rows + (static_cast<size_t>(plane) * gridDim.y * G_s +
-                         blk.rest) * L::N;
+    float* out = rows + static_cast<size_t>(plane) * plane_stride +
+                 static_cast<size_t>(blk.rest) * row_stride;
 #pragma unroll 4
     for (int j = tid; j < L::B2 * L::N2; j += L::THREADS_B) {
       const int rr = j % L::B2;
@@ -391,6 +427,9 @@ cudaError_t launch_b(const Launch& l, float* rows, int device) {
   return cudaGetLastError();
 }
 
+// SK-L: pass A, SK's pass B and, with the gate or more than one group a
+// stream, the sum of each stream's rows; else pass B writes the output
+// rows itself (a float64 sum of one row from 0.0 is that row).
 template <int LOG2N>
 cudaError_t launch_sk(const Launch& l, const float* window, float* partial,
                       float* out, float two_sigma, int device) {
@@ -398,12 +437,14 @@ cudaError_t launch_sk(const Launch& l, const float* window, float* partial,
   cudaError_t e = launch_a<LOG2N>(l, window, device);
   if (e == cudaSuccess) e = prepare<LOG2N>(3, device);
   if (e != cudaSuccess) return e;
+  const bool direct = two_sigma == 0.0f && l.g_b() == 1;
   large_sk_b<LOG2N>
       <<<dim3(l.g_b() * L::TILES_B, l.S), L::THREADS_B, L::SMEM_B, l.st>>>(
-          l.scratch, twiddle_b<LOG2N>(l), partial, l.F, l.group_b, l.g_b(),
-          l.counts);
+          l.scratch, twiddle_b<LOG2N>(l), direct ? out : partial, l.F,
+          l.group_b, l.g_b(), l.counts, direct ? 2 * L::N : L::N,
+          direct ? L::N : l.S * l.g_b() * L::N);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || direct) return e;
   return two_sigma > 0.0f
              ? launch_est_streams<kEstSkGate>(partial, l.S, l.g_b(), 1, L::N,
                                               l.counts, l.F, 0, two_sigma,
