@@ -425,6 +425,7 @@ prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import io
@@ -498,6 +499,22 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+_POOL = None
+
+
+def host_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """The yards' pool for their host-side work a seed (numpy goldens,
+    the scipy float32 class, the errors): numpy and scipy.fft release the
+    GIL, so the seeds' host work runs on the host's cores while the main
+    thread makes the card's calls. Each seed's numbers are those a serial
+    loop gives."""
+    global _POOL
+    if _POOL is None:
+        _POOL = concurrent.futures.ThreadPoolExecutor(
+            max_workers=os.cpu_count() or 4)
+    return _POOL
 
 
 def max_rel(got, want) -> float:
@@ -707,16 +724,19 @@ def tone_yard(label, dev, fp, make_window, wname, sizes, seed0,
     for N, F in sizes:
         w_np = None if wname is None else make_window(wname, N)
         w = None if w_np is None else torch.from_numpy(w_np).to(dev)
-        ours, cls, plain = [], [], []
+        def errors(raw_np, got, plain_got, w_np=w_np, F=F):
+            gold = golden_partial(raw_np, F, w_np)
+            return (max_rel(got, gold), max_rel(plain_got, gold),
+                    max_rel(scipy_f32_class(raw_np, w_np), gold))
+
+        seeds = []
         for seed in range(60):
             raw_np = tone_frames(N, F, seed0 + seed)
-            gold = golden_partial(raw_np, F, w_np)
             raw = torch.from_numpy(raw_np).to(dev)
-            ours.append(max_rel(kernel(raw, F, F, w).cpu().numpy(),
-                                gold))
-            plain.append(max_rel(plain_fn(raw, F, F, w)
-                                 .cpu().numpy(), gold))
-            cls.append(max_rel(scipy_f32_class(raw_np, w_np), gold))
+            seeds.append(host_pool().submit(
+                errors, raw_np, kernel(raw, F, F, w).cpu().numpy(),
+                plain_fn(raw, F, F, w).cpu().numpy()))
+        ours, plain, cls = zip(*(f.result() for f in seeds))
         e, c = np.asarray(ours), np.asarray(cls)
         r = e / c
         med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
@@ -1474,13 +1494,18 @@ def device_yard(label, dev, kernel, plain_fn, make_window, wname, N, F,
     and max <= 3x its error, the per-seed p99 of the ratio printed."""
     w_np = None if wname is None else make_window(wname, N)
     w = None if w_np is None else torch.from_numpy(w_np).to(dev)
-    ours, cls, plain = [], [], []
+    def errors(raw_np, gold, got, plain_got):
+        return (max_rel(got, gold), max_rel(plain_got, gold),
+                max_rel(scipy_f32_class(raw_np, w_np), gold))
+
+    seeds = []
     for seed in range(60):
         raw = tone_frames_dev(N, F, seed0 + seed, dev)
-        gold = golden_partial_dev(raw, w)
-        ours.append(max_rel(kernel(raw, F, F, w).cpu().numpy(), gold))
-        plain.append(max_rel(plain_fn(raw, F, F, w).cpu().numpy(), gold))
-        cls.append(max_rel(scipy_f32_class(raw.cpu().numpy(), w_np), gold))
+        seeds.append(host_pool().submit(
+            errors, raw.cpu().numpy(), golden_partial_dev(raw, w),
+            kernel(raw, F, F, w).cpu().numpy(),
+            plain_fn(raw, F, F, w).cpu().numpy()))
+    ours, plain, cls = zip(*(f.result() for f in seeds))
     e, c = np.asarray(ours), np.asarray(cls)
     r = e / c
     med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
@@ -2565,12 +2590,15 @@ def estimator_yard(label, kernel_fn, golden_fn, class_fn, N, F, seed0):
     through ``kernel_fn(raw_np) -> numpy``, against the float64
     ``golden_fn(raw_np)``, and the scipy float32 class ``class_fn(raw_np)``:
     median <= 1.5x and max <= 3x its error, per-seed p99 printed."""
-    ours, cls = [], []
+    def errors(raw_np, got):
+        gold = golden_fn(raw_np)
+        return max_rel(got, gold), max_rel(class_fn(raw_np), gold)
+
+    seeds = []
     for seed in range(60):
         raw_np = tone_frames(N, F, seed0 + seed)
-        gold = golden_fn(raw_np)
-        ours.append(max_rel(kernel_fn(raw_np), gold))
-        cls.append(max_rel(class_fn(raw_np), gold))
+        seeds.append(host_pool().submit(errors, raw_np, kernel_fn(raw_np)))
+    ours, cls = zip(*(f.result() for f in seeds))
     e, c = np.asarray(ours), np.asarray(cls)
     r = e / c
     med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
@@ -4496,11 +4524,14 @@ def yard_by_scale(label, kernel_fn, golden_fn, class_fn, metric, N, F,
     (tone_frames, F + extra rows as each function takes them), the
     kernel's and the scipy float32 class's ``metric(got, golden)``:
     median <= 1.5x and max <= 3x the class's, per-seed p99 printed."""
-    ours, cls = [], []
-    for seed in range(60):
-        gold = golden_fn(seed0 + seed)
-        ours.append(metric(kernel_fn(seed0 + seed), gold))
-        cls.append(metric(class_fn(seed0 + seed), gold))
+    def errors(seed, got):
+        gold = golden_fn(seed)
+        return metric(got, gold), metric(class_fn(seed), gold)
+
+    seeds = [host_pool().submit(errors, seed0 + seed,
+                                kernel_fn(seed0 + seed))
+             for seed in range(60)]
+    ours, cls = zip(*(f.result() for f in seeds))
     e, c = np.asarray(ours), np.asarray(cls)
     r = e / c
     med_r, max_r = np.median(e) / np.median(c), e.max() / c.max()
@@ -7466,6 +7497,10 @@ EST23_ONE_ARGV = {
                         "--fft-backend", "bluestein", "--source",
                         LINE_SOURCE],
 }
+# Phase 23's drives that write matrix output (-q -m), at 2^20 bins and
+# above: their 1-4M lines of text would take longer to format and parse
+# than the session to run.
+EST23_MATRIX = ("MT-L", "PFB-L", "PFB-BL")
 EST23_STREAMS_ARGV = {
     "SK-L-S": ["-f", "100M", "-n", "64", "-b", "65536", "-l", "--streams",
                "2", "--source", LINE_SOURCE],
@@ -7479,12 +7514,18 @@ EST23_STREAMS_ARGV = {
 }
 # Phase 23's cases, by family ("L": the large kernel's forms, "BL": BL's
 # at M = 2^16 .. 2^22): (N, F, window, SK gates) on one stream, each at
-# n_valid F, F - 1, 1 and 0; (N, S, F, window, counts) over streams.
+# n_valid F, F - 1, 1 and 0 (at the largest N, 2^22 and M = 2^22, F and
+# 1); (N, S, F, window, counts) over streams; the N of the other sizes
+# (M) at which SK's s1 is held to the base kernel's bits, every frame
+# valid.
 EST23_ONE = {"L": ((32768, 16, None, (0.0, 3.0)), (65536, 16, "hann", (3.0,)),
                    (1 << 20, 8, None, (0.0,)), (1 << 22, 8, None, (0.0,))),
              "BL": ((20002, 16, None, (0.0, 3.0)),
                     (32770, 16, "hann", (3.0,)), (99998, 8, None, (0.0,)),
                     (2097150, 8, None, (0.0,)))}
+EST23_LARGEST = (1 << 22, 2097150)
+EST23_S1 = {"L": (1 << 17, 1 << 18, 1 << 19, 1 << 21),
+            "BL": (262142, 524286, 1048574)}
 EST23_STREAMS = {"L": ((65536, 2, 16, None, (16, 5)),
                        (1 << 20, 2, 8, "hann", (3, 8))),
                  "BL": ((99998, 2, 8, None, (8, 3)),
@@ -7502,6 +7543,35 @@ CLASS_FEW_N = 1 << 20
 EST23_TIMED = {"L": ((65536, 16, "hann"), (1 << 20, 8, None)),
                "BL": ((99998, 64, None), (2097150, 8, None))}
 EST23_TIMED_STREAMS = {"L": (65536, 16, "hann"), "BL": (99998, 32, None)}
+
+
+def matrix_estimator_drive(label, argv, cli, fp, ff, kernel, N, golden_fn,
+                           peak_bins, matrix_bin) -> int:
+    """drive()'s checks on a matrix-mode drive (``argv`` writes the
+    float32 row ``matrix_bin``): exit 0, ``kernel``'s path alone, a finite
+    N-bin linear row peaking at 100.2 MHz (within ``peak_bins`` bins),
+    within 1e-5 of ``golden_fn()``. Returns the kernel's launches."""
+    reset_counts(fp, ff)
+    rc, _, err, wall = run_cli(argv, cli.main)
+    counts = launch_counts(fp, ff)
+    log(err[-1200:])
+    check(rc == 0, f"{label} drive exited {rc}")
+    path = {"SK": "cuda_sk", "MT": "cuda_multitaper",
+            "PFB": "cuda_pfb"}[kernel.split("-")[0]]
+    check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
+    vals = np.fromfile(matrix_bin, dtype=np.float32)
+    check(vals.size == N and np.all(np.isfinite(vals)),
+          f"{label} drive: .bin holds {vals.size} values")
+    peak = 100e6 + (int(np.argmax(vals)) - N // 2) * RATE / N
+    check(abs(peak - 100.2e6) <= peak_bins * RATE / N,
+          f"{label} drive: peak at {peak}")
+    err_gold = max_rel(vals, golden_fn())
+    print(f"e2e {label} ({' '.join(argv)}): exit 0 in {wall:.2f} s wall; "
+          f"peak {peak / 1e6:.4f} MHz; .bin max rel vs float64 golden "
+          f"{err_gold:.3e} (<= {GOLDEN_RTOL:g}); launches {counts}")
+    check(err_gold <= GOLDEN_RTOL, f"{label} drive vs float64 golden")
+    check_only(counts, kernel, f"{label} drive")
+    return counts[kernel]
 
 
 def golden_moments_dev(raw, n_valid, window=None):
@@ -7867,7 +7937,13 @@ def phase_estimators_above_16384(dev, rng, fp, adapt_batch, make_window,
     for f in ("L", "BL"):
         for N, F, wname, sigmas in EST23_ONE[f]:
             case(f, N, 1, F, wname, sigmas,
-                 [np.array([c], np.int32) for c in (F, F - 1, 1, 0)], (0,))
+                 [np.array([c], np.int32) for c in (
+                     (F, 1) if N in EST23_LARGEST else (F, F - 1, 1, 0))],
+                 (0,))
+        for N in EST23_S1[f]:
+            hold_sk(f, f"N={N} S=1 F=8 chunk=8 window=None counts [8]",
+                    frames_dev(1, 8, N), np.array([8], np.int32), 8, None,
+                    (0.0,))
         for N, S, F, wname, counts in EST23_STREAMS[f]:
             counts = np.array(counts, np.int32)
             case(f, N, S, F, wname, (0.0, 3.0),
@@ -7938,15 +8014,14 @@ def phase_estimators_above_16384(dev, rng, fp, adapt_batch, make_window,
             f"SK-{f} s2{tail}",
             lambda r, f=f, w=w, Fy=Fy: fn(f, "sk")(on_card(r), Fy, Fy,
                                                    w)[1].cpu().numpy(),
-            lambda r, w=w, Fy=Fy: golden_moments_dev(on_card(r), Fy, w)[1],
+            lambda r, w_np=w_np, Fy=Fy: golden_moments(r, Fy, w_np)[1],
             lambda r, z64=z64: (f32_class_rows(z64(r)) ** 2).sum(0),
             N, Fy, 23000 + N)
         estimator_yard(
             f"MT-{f} K=7",
             lambda r, f=f, tp=tp, Fy=Fy: fn(f, "tapers")(
                 on_card(r), Fy, Fy, tp).cpu().numpy(),
-            lambda r, tp_np=tp_np, Fy=Fy: golden_tapers_dev(
-                on_card(r), Fy, tp_np),
+            lambda r, tp_np=tp_np, Fy=Fy: golden_tapers(r, Fy, tp_np),
             lambda r, tp_np=tp_np: f32_class_rows(
                 dequant64(r)[:, None, :] * tp_np.astype(np.float64)[None]
             ).mean(1).sum(0), N, Fy, 23100 + N)
@@ -7962,8 +8037,8 @@ def phase_estimators_above_16384(dev, rng, fp, adapt_batch, make_window,
             lambda r, f=f, h=h, hist=hist, Fy=Fy: fn(f, "pfb")(
                 on_card(r), hist[0], Fy, Fy, h, hist[1],
                 fresh=True).cpu().numpy(),
-            lambda r, h_np=h_np, warm=warm, Fy=Fy: golden_pfb_dev(
-                on_card(np.concatenate([warm, r])), Fy, h_np),
+            lambda r, h_np=h_np, warm=warm, Fy=Fy: golden_pfb(
+                np.concatenate([warm, r]), Fy, h_np),
             pfb_class, N, Fy, 23200 + N)
     counts_now = launch_counts(fp, ff)
     check(all(counts_now[k] == 120 for k in ("SK-L", "MT-L", "PFB-L"))
@@ -8161,13 +8236,20 @@ def phase_estimators_above_16384(dev, rng, fp, adapt_batch, make_window,
                 return golden_finalize_linear(np.fft.fftshift(pwr), repeats,
                                               RATE)
 
+            opts = " ".join(argv[argv.index("-b"):argv.index("--source")])
+            label = f"estimator above 16384 bins {key} {opts}"
             # The tapers' spectral window is 2 NW = 8 bins wide: its peak
             # may fall NW bins from the tone.
+            peak_bins = 4 if kind == "MT" else 1
+            if key in EST23_MATRIX:
+                launches[form] += matrix_estimator_drive(
+                    label, argv + ["-q", "-m", os.path.join(tmp, tag),
+                                   "--record", record], cli, fp, ff, form,
+                    N, golden, peak_bins, os.path.join(tmp, tag) + ".bin")
+                continue
             launches[form] += drive(
-                f"estimator above 16384 bins {key} "
-                f"{' '.join(argv[argv.index('-b'):argv.index('--source')])}",
-                argv + extra + ["--record", record], cli, fp, ff, form, N,
-                golden, GOLDEN_RTOL, peak_bins=4 if kind == "MT" else 1)
+                label, argv + extra + ["--record", record], cli, fp, ff,
+                form, N, golden, GOLDEN_RTOL, peak_bins=peak_bins)
             if kind == "SK":
                 frames_np = recorded_frames(record, N)[:repeats]
                 sk_file, sk_err = sk_file_error(sk_path, frames_np, repeats)
