@@ -1126,7 +1126,9 @@ def launch_counts(fp, ff) -> dict:
     streams forms of those six, "SK-BL", "MT-BL" and "PFB-BL" their forms
     of BL's passes and "SK-BL-S" ... "PFB-BL-S" those over streams,
     "SK-L", "MT-L" and "PFB-L" their forms of the large kernel's passes
-    and "SK-L-S" ... "PFB-L-S" those over streams, "M/B control" the
+    and "SK-L-S" ... "PFB-L-S" those over streams, "SK-ML", "MT-ML" and
+    "PFB-ML" their forms of ML's passes and "SK-ML-S" ... "PFB-ML-S" those
+    over streams, "M/B control" the
     kernel M and
     B replaced (and its plain versions), "probes" every probe variant
     together."""
@@ -1192,6 +1194,12 @@ def launch_counts(fp, ff) -> dict:
             "SK-L-S": fp.COUNTS.kernel_sk_large_streams,
             "MT-L-S": fp.COUNTS.kernel_tapers_large_streams,
             "PFB-L-S": fp.COUNTS.kernel_pfb_large_streams,
+            "SK-ML": fp.COUNTS.kernel_sk_mixed_large,
+            "MT-ML": fp.COUNTS.kernel_tapers_mixed_large,
+            "PFB-ML": fp.COUNTS.kernel_pfb_mixed_large,
+            "SK-ML-S": fp.COUNTS.kernel_sk_mixed_large_streams,
+            "MT-ML-S": fp.COUNTS.kernel_tapers_mixed_large_streams,
+            "PFB-ML-S": fp.COUNTS.kernel_pfb_mixed_large_streams,
             "K3 control": ff.CONTROL_COUNTS.kernel
             + ff.CONTROL_COUNTS.plain + ff.CUT_COUNTS.kernel,
             "M/B control": fm.CONTROL_COUNTS.kernel_mixed
@@ -1242,7 +1250,10 @@ def drive(label, argv, cli, fp, ff, kernel, N, golden_fn, rtol, streams=1,
             "PFB-BL-S": "cuda_pfb", "SK-L": "cuda_sk",
             "MT-L": "cuda_multitaper", "PFB-L": "cuda_pfb",
             "SK-L-S": "cuda_sk", "MT-L-S": "cuda_multitaper",
-            "PFB-L-S": "cuda_pfb"}.get(kernel, "cuda")
+            "PFB-L-S": "cuda_pfb", "SK-ML": "cuda_sk",
+            "MT-ML": "cuda_multitaper", "PFB-ML": "cuda_pfb",
+            "SK-ML-S": "cuda_sk", "MT-ML-S": "cuda_multitaper",
+            "PFB-ML-S": "cuda_pfb"}.get(kernel, "cuda")
     check(f"Transform path: {path} " in err, f"{label} drive off {kernel}")
     if streams > 1:
         check(f"Parallel streams: {streams} (mesh size 1)" in err,
@@ -3128,7 +3139,7 @@ def phase_estimators(dev, rng, fp, adapt_batch, make_window, cli, ff, card):
 
 
 def drive_sk_excise(cli, fp, ff, tmp, N: int = 2048, key: str = "SK",
-                    window: Optional[str] = None) -> int:
+                    window: Optional[str] = None, overlap: int = 0) -> int:
     """``--sk-excise 3`` through the CLI on a recorded N-bin stream (2048,
     the SK kernel's; 500, SK-M's: ``key``; with ``--window-function
     window`` where given) with a tone burst in one of
@@ -3136,7 +3147,9 @@ def drive_sk_excise(cli, fp, ff, tmp, N: int = 2048, key: str = "SK",
     stream): exit 0, the kernel ``key`` alone, the spectrum within 1e-5 of
     the float64 golden of the excised average (each block gated on its own
     float64 SK), the burst's bin back at the noise floor, and the
-    --stats-json record. Returns the kernel's launches."""
+    --stats-json record. With ``overlap`` (percent, --welch-overlap) the
+    frames start a hop of N (100 - overlap) / 100 samples apart, as
+    recorded_golden takes them. Returns the kernel's launches."""
     from rtl_power_fftw_tpu_torch.models.kurtosis import compute_sk
     F, blocks = 256, 4
     repeats = F * blocks
@@ -3154,6 +3167,7 @@ def drive_sk_excise(cli, fp, ff, tmp, N: int = 2048, key: str = "SK",
     argv = (["-f", "100M", "-b", str(N), "-n", str(repeats), "-l",
              "--frames-per-step", str(F), "--sk-excise", "3"]
             + ([] if window is None else ["--window-function", window])
+            + ([] if not overlap else ["--welch-overlap", str(overlap)])
             + ["--stats-json", stats, "--source", f"file:{path}"])
     from rtl_power_fftw_tpu_torch.auxdata import make_window
     w = None if window is None else make_window(window, N)
@@ -3163,7 +3177,9 @@ def drive_sk_excise(cli, fp, ff, tmp, N: int = 2048, key: str = "SK",
     log(err[-800:])
     check(rc == 0, f"sk-excise drive exited {rc}")
     check("Transform path: cuda_sk " in err, "sk-excise drive off SK")
-    frames_np = raw_np.reshape(-1, 2 * N)
+    hop = N - N * overlap // 100
+    frames_np = np.stack([raw_np[2 * hop * f:2 * hop * f + 2 * N]
+                          for f in range(repeats)])
     s1 = np.zeros(N)
     clean = np.zeros(N)
     kept = np.zeros(N)
@@ -8297,6 +8313,698 @@ def phase_estimators_above_16384(dev, rng, fp, adapt_batch, make_window,
             for s in (0, 1)]
 
 
+# Phase 24's CLI drives at ML's bin counts (the line source, linear output),
+# less their "--record <path>" and SK files; the burst drive is
+# drive_sk_excise at 20000 bins with Hann and 50% Welch overlap. Those at
+# 10^6 bins and above write matrix output (-q -m), as phase 23's largest.
+EST24_ONE_ARGV = {
+    "SK-ML": ["-f", "100M", "-n", "64", "-b", "100000", "-l", "--source",
+              LINE_SOURCE],
+    "MT-ML": ["-f", "100M", "-n", "8", "-b", "1000000", "-l",
+              "--multitaper", "7", "--source", LINE_SOURCE],
+    "PFB-ML": ["-f", "100M", "-n", "64", "-b", "100000", "-l",
+               "--pfb-taps", "4", "--source", LINE_SOURCE],
+    "PFB-ML 4167450": ["-f", "100M", "-n", "8", "-b", "4167450", "-l",
+                       "--pfb-taps", "4", "--source", LINE_SOURCE],
+    "SK-ML matrix": ["-f", "100M", "-n", "8", "-b", "1000000", "-l",
+                     "--source", LINE_SOURCE],
+}
+EST24_MATRIX = ("MT-ML", "PFB-ML 4167450", "SK-ML matrix")
+EST24_STREAMS_ARGV = {
+    "SK-ML-S": ["-f", "100M", "-n", "32", "-b", "100000", "-l", "--streams",
+                "2", "--source", LINE_SOURCE],
+    "MT-ML-S": ["-f", "100M", "-n", "32", "-b", "20000", "-l", "--streams",
+                "2", "--multitaper", "7", "--source", LINE_SOURCE],
+    "PFB-ML-S": ["-f", "100M", "-n", "32", "-b", "49152", "-l", "--streams",
+                 "2", "--pfb-taps", "4", "--source", LINE_SOURCE],
+}
+# Phase 24's cases: (N, F, window, SK gates) on one stream, each at n_valid
+# F, F - 1, 1 and 0; (N, S, F, window, counts) over streams.
+EST24_ONE = ((20000, 16, None, (0.0, 3.0)), (20000, 16, "hann", (3.0,)),
+             (49152, 16, None, (0.0,)), (100000, 8, None, (0.0,)),
+             (10 ** 6, 8, None, (0.0,)), (4167450, 2, None, (0.0,)))
+EST24_STREAMS = ((100000, 2, 8, None, (8, 3)),
+                 (20000, 4, 8, "hann", (8, 0, 3, 7)))
+# Phase 24's timed shapes: (N, F, window) of one stream beside ML (the
+# shapes PERF.md times ML at), and (N, F a stream, window) at S = 2 beside
+# two one-stream calls and ML-S.
+EST24_TIMED = ((10 ** 6, 8, None), (100000, 64, None))
+EST24_TIMED_STREAMS = (100000, 32, None)
+# The yards: (N, frames a seed, window).
+EST24_YARDS = ((20000, 8, "hann"), (100000, 4, None), (10 ** 6, 2, None))
+
+
+def phase_estimators_ml(dev, rng, fp, adapt_batch, make_window, cli, ff,
+                        card):
+    """24. The CLI estimators at the large even 7-smooth bin counts: SK-ML,
+    MT-ML, PFB-ML of ``fused_psd_mixed_large_est`` (forms of ML's two
+    passes at every even 7-smooth N from 16386 to 2^22 that is not a power
+    of two), each written once for S >= 1 streams: each pass's registers,
+    spill and blocks per SM beside ML's at each tested N; each form against
+    its plain version and the per-stream float64 golden
+    (``hold_streams``), twice (the same bits), on one stream at n_valid F,
+    F - 1, 1 and 0 (EST24_ONE; the PFB as four steps from a reset) and at
+    S = 2 and 4 with uneven counts (EST24_STREAMS; the PFB over four steps
+    and a reset); SK's s1 ML's (ML-S's) rows bit for bit at every case and
+    timed shape, each stream's rows (and PFB history) the S = 1 form's on
+    the same groups, the gate each stream's own ``sk_keep``; the same at
+    each drive's own step, every frame valid and at its last step's count
+    among uneven ones; 60-seed yards of each form (EST24_YARDS); a call,
+    the device's time beside ML on the same frames, in turns, the
+    wrapper's host time, plain, ``torch.fft.fft`` and the bound at
+    EST24_TIMED, and at S = 2 beside two one-stream calls and ML-S; each
+    form's device time by pass from the profiler beside ML's; nine drives,
+    each on its form alone. The float64 golden is cuFFT's in float64 on
+    the card (power64_dev). Returns the kernels-line entries."""
+    from rtl_power_fftw_tpu_torch.models.multitaper import \
+        _session_tapers as _tapers
+    from rtl_power_fftw_tpu_torch.models.pfb import \
+        pfb_prototype as _prototype
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_mixed_large \
+        as fml
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_mixed_large_est as me
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_sk as fsk
+    t0 = time.perf_counter()
+    _session_tapers = functools.lru_cache(maxsize=None)(_tapers)
+    pfb_prototype = functools.lru_cache(maxsize=None)(_prototype)
+
+    def fn(kind, streams=False):
+        return getattr(me, f"fused_psd_{kind}_mixed_large"
+                       + ("_streams" if streams else ""))
+
+    def ref(kind, streams=False):
+        return getattr(me, f"{kind}_mixed_large"
+                       + ("_streams" if streams else "") + "_reference")
+
+    # Registers, spill, shared memory and residency of each pass beside
+    # ML's (SK's pass B beside ML's pass B, the PFB's pass A beside pass A).
+    ns = sorted({N for N, *_ in EST24_ONE} | {16464})
+    for N in ns:
+        t = fml.ml_layout(N)
+        for which, (name, base) in enumerate((
+                ("ML-S pass A", fml.PASS_A),
+                ("ML-S pass A windowed", fml.PASS_A_WINDOWED),
+                ("ML-S pass B", fml.PASS_B), ("SK-ML pass B", fml.PASS_B),
+                ("PFB-ML pass A", fml.PASS_A))):
+            a = me.kernel_attributes(N, which, dev)
+            b = fml.kernel_attributes(N, base, dev)
+            print(f"occupancy {name} (fused_psd_mixed_large_est) N={N} "
+                  f"({t.N1} x {t.N2}, class "
+                  f"{'large' if t.which_b == fml.PASS_B_LARGE else 'small'}"
+                  f") on {card}: {a['registers']} registers, "
+                  f"{a['spill_bytes']} B spill, {a['static_smem']} + "
+                  f"{a['dynamic_smem']} B shared, {a['threads']} threads, "
+                  f"{a['blocks_per_sm']} blocks/SM; ML's pass "
+                  f"{b['registers']} registers, {b['spill_bytes']} B spill, "
+                  f"{b['blocks_per_sm']} blocks/SM")
+
+    # Each drive's step: (N, S, F, its last step's count).
+    steps = {}
+    for key, argv in list(EST24_ONE_ARGV.items()) + list(
+            EST24_STREAMS_ARGV.items()):
+        S = 2 if key.endswith("-S") else 1
+        N = int(argv[argv.index("-b") + 1])
+        repeats = int(argv[argv.index("-n") + 1])
+        F = adapt_batch(drive_frames_per_step(argv, S))[0]
+        steps[key] = (N, S, F, repeats - (-(-repeats // F) - 1) * F)
+    steps["SK-ML excise"] = (20000, 1, 256, 256)
+    reset_counts(fp, ff)
+    forms = [f"{k}-ML{s}" for k in ("SK", "MT", "PFB") for s in ("", "-S")]
+    want = {k: 0 for k in forms + ["ML", "ML windowed", "ML-S",
+                                   "ML-S windowed"]}
+
+    def psd_key(S, w):
+        return "ML" + ("-S" if S > 1 else "") + (
+            " windowed" if w is not None else "")
+
+    def group_of(N, S, F, windowed):
+        return me.grid(N, S, F, windowed, dev.index)[1]
+
+    def hold_sk(head, raw, counts, chunk, w, sigmas):
+        """SK on (S, F, 2N) frames at ``counts``: the one-stream form at S =
+        1, else the streams form, twice; against plain and the per-stream
+        golden; s1 ML's (ML-S's) rows; each stream the S = 1 form's on the
+        same groups; the gate each stream's sk_keep."""
+        S, F, N = raw.shape[0], raw.shape[1], raw.shape[2] // 2
+        nv = torch.from_numpy(counts).to(dev)
+        grp = {"group_b": group_of(N, S, F, w is not None)}
+        gold = [golden_moments_dev(raw[s], int(c), w)
+                for s, c in enumerate(counts)]
+        tag = "SK-ML" + ("-S" if S > 1 else "")
+        for sigma in sigmas:
+            if S == 1:
+                c = int(counts[0])
+
+                def form():
+                    return fn("sk")(raw[0], c, chunk, w, sigma)[None]
+                psd = fml.fused_psd_mixed_large(raw[0], c, chunk, w)[None]
+                want_ = ref("sk")(raw[0], c, chunk, w, sigma)[None]
+            else:
+                def form():
+                    return fn("sk", True)(raw, nv, chunk, w, sigma)
+                psd = fml.fused_psd_mixed_large_streams(raw, nv, chunk, w)
+                want_ = ref("sk", True)(raw, nv, chunk, w, sigma)
+            got, again = form(), form()
+            singles = [fn("sk")(raw[s], int(c), chunk, w, sigma, **grp)
+                       for s, c in enumerate(counts)]
+            torch.cuda.synchronize()
+            want[tag] += 2
+            want["SK-ML"] += S
+            want[psd_key(S, w)] += 1
+            label = f"{tag} {head} gate={sigma:g}"
+            check(torch.equal(got, again), f"{label}: not deterministic")
+            check(torch.equal(got[:, 0], psd),
+                  f"{label}: s1 is not {psd_key(S, w)}'s rows")
+            check(all(torch.equal(got[s], singles[s]) for s in range(S)),
+                  f"{label}: a stream is not the S = 1 form's")
+            g_np, r_np = got.cpu().numpy(), want_.cpu().numpy()
+            line = [f"s{i + 1}: " + hold_streams(
+                f"{label} s{i + 1}", g_np[:, i], r_np[:, i],
+                np.stack([g[i] for g in gold]), counts,
+                (i + 1) * GOLDEN_RTOL, FEW_PLAIN) for i in range(2)]
+            if sigma > 0.0:
+                M = torch.from_numpy(counts.astype(np.float32))[:, None]
+                keep = fsk.sk_keep(got[:, 0].cpu(), got[:, 1].cpu(), M,
+                                   sigma).numpy()
+                check(np.array_equal(g_np[:, 3], M.numpy() * keep)
+                      and np.array_equal(g_np[:, 2], g_np[:, 0] * keep),
+                      f"{label}: the gate is not each stream's sk_keep")
+                line.append(f"gate {int(keep.sum())} of {S * N} "
+                            "stream-bins kept, each stream's sk_keep")
+            print(f"{label} ({grp}): the same bits twice, s1 "
+                  f"{psd_key(S, w)}'s rows, each stream the S = 1 form's; "
+                  + "; ".join(line))
+
+    def hold_mt(head, raw, counts, chunk, K=7):
+        """MT on (S, F, 2N) frames at ``counts``, as hold_sk holds SK."""
+        S, F, N = raw.shape[0], raw.shape[1], raw.shape[2] // 2
+        nv = torch.from_numpy(counts).to(dev)
+        grp = {"group_b": group_of(N, S, F, True)}
+        tp_np = _session_tapers(N, 4.0, K)
+        tp = torch.from_numpy(tp_np).to(dev)
+        if S == 1:
+            def form():
+                return fn("tapers")(raw[0], int(counts[0]), chunk, tp)[None]
+            want_ = ref("tapers")(raw[0], int(counts[0]), chunk, tp)[None]
+        else:
+            def form():
+                return fn("tapers", True)(raw, nv, chunk, tp)
+            want_ = ref("tapers", True)(raw, nv, chunk, tp)
+        got, again = form(), form()
+        singles = [fn("tapers")(raw[s], int(c), chunk, tp, **grp)
+                   for s, c in enumerate(counts)]
+        torch.cuda.synchronize()
+        tag = "MT-ML" + ("-S" if S > 1 else "")
+        want[tag] += 2
+        want["MT-ML"] += S
+        label = f"{tag} {head} K={K}"
+        check(torch.equal(got, again), f"{label}: not deterministic")
+        check(all(torch.equal(got[s], singles[s]) for s in range(S)),
+              f"{label}: a stream is not the S = 1 form's")
+        gold = np.stack([golden_tapers_dev(raw[s], int(c), tp_np)
+                         for s, c in enumerate(counts)])
+        print(f"{label} ({grp}): the same bits twice, each stream the S = 1 "
+              "form's; " + hold_streams(
+                  label, got.cpu().numpy(), want_.cpu().numpy(), gold,
+                  counts, plain_factor=FEW_PLAIN))
+
+    def hold_pfb(head, N, S, F, chunk, schedule, resets, P=4):
+        """PFB over the steps of ``schedule`` (each step's (S,) counts;
+        fresh histories at the steps of ``resets``), new frames each step:
+        twice, the histories on the card plain's and the virtual rows',
+        each stream's rows and history the S = 1 form's on the same
+        groups, against plain and the per-stream golden (from 2^20 bins
+        also by the scipy float32 class, as phase 23 holds them)."""
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        grp = {"group_b": group_of(N, S, F, False)}
+        shape = (S, P - 1, 2 * N)
+        hist = [torch.empty(shape, dtype=torch.uint8, device=dev)
+                for _ in range(3)]
+        hist_p = [torch.empty(shape, dtype=torch.uint8, device=dev)
+                  for _ in range(2)]
+        hs = [[torch.empty(shape[1:], dtype=torch.uint8, device=dev)
+               for _ in range(2)] for _ in range(S)]
+        virtual = [None] * S
+        tag = "PFB-ML" + ("-S" if S > 1 else "")
+        for k, cnt in enumerate(schedule):
+            fresh = k in resets
+            step = frames_dev(S, F, N)
+            c_dev = torch.from_numpy(cnt).to(dev)
+            if S == 1:
+                c = int(cnt[0])
+                got = fn("pfb")(step[0], hist[0][0], c, chunk, h,
+                                hist[1][0], fresh=fresh)[None]
+                again = fn("pfb")(step[0], hist[0][0], c, chunk, h,
+                                  hist[2][0])[None]
+                want_ = ref("pfb")(step[0], hist_p[0][0], c, chunk, h,
+                                   hist_p[1][0], fresh=fresh)[None]
+            else:
+                got = fn("pfb", True)(step, hist[0], c_dev, chunk, h,
+                                      hist[1], fresh=fresh)
+                again = fn("pfb", True)(step, hist[0], c_dev, chunk, h,
+                                        hist[2])
+                want_ = ref("pfb", True)(step, hist_p[0], c_dev, chunk, h,
+                                         hist_p[1], fresh=fresh)
+            singles = [fn("pfb")(step[s], hs[s][0], int(c), chunk, h,
+                                 hs[s][1], fresh=fresh, **grp)
+                       for s, c in enumerate(cnt)]
+            torch.cuda.synchronize()
+            want[tag] += 2
+            want["PFB-ML"] += S
+            gold, cls = [], np.ones(S)
+            for s, c in enumerate(cnt):
+                if fresh:
+                    virtual[s] = torch.full((P - 1, 2 * N), 127,
+                                            dtype=torch.uint8, device=dev)
+                v = torch.cat([virtual[s], step[s]])
+                gold.append(golden_pfb_dev(v, int(c), h_np))
+                if N >= CLASS_FEW_N and c > 0:
+                    sums = fpf.pfb_sums_reference(v, h, int(c)).cpu().numpy()
+                    cls[s] = max_rel(f32_class_rows(
+                        sums.astype(np.complex128)).sum(0), gold[-1])
+                virtual[s] = v[int(c):int(c) + P - 1]
+            same_hist = (torch.equal(hist[1], hist[2])
+                         and torch.equal(hist[1], hist_p[1])
+                         and torch.equal(hist[1], torch.stack(virtual)))
+            same_one = all(torch.equal(got[s], singles[s])
+                           and torch.equal(hist[1][s], hs[s][1])
+                           for s in range(S))
+            label = (f"{tag} {head} P={P} step {k}"
+                     f"{' (a reset)' if fresh and k else ''}")
+            check(torch.equal(got, again) and same_hist and same_one,
+                  f"{label}: the same bits twice, histories {same_hist}, "
+                  f"S = 1 bits {same_one}")
+            print(f"{label} counts {cnt.tolist()} ({grp}): the same bits "
+                  "twice, histories on the card plain's and the virtual "
+                  "rows' bit for bit, each stream's rows and history the S "
+                  "= 1 form's; " + hold_streams(
+                      label, got.cpu().numpy(), want_.cpu().numpy(),
+                      np.stack(gold), cnt, plain_factor=FEW_PLAIN,
+                      class_rel=cls if N >= CLASS_FEW_N else None))
+            hist[0], hist[1] = hist[1], hist[0]
+            hist_p.reverse()
+            for s in range(S):
+                hs[s].reverse()
+
+    def frames_dev(S, F, N):
+        return torch.randint(0, 256, (S, F, 2 * N), dtype=torch.uint8,
+                             device=dev, generator=torch.Generator(
+                                 device=dev).manual_seed(
+                                     int(rng.integers(1 << 30))))
+
+    def window_dev(wname, N):
+        return (None if wname is None else
+                torch.from_numpy(make_window(wname, N)).to(dev))
+
+    def case(N, S, F, wname, sigmas, schedule, resets):
+        chunk = adapt_batch(F)[1]
+        w = window_dev(wname, N)
+        raw = frames_dev(S, F, N)
+        for counts in schedule:
+            head = (f"N={N} S={S} F={F} chunk={chunk} window={wname} "
+                    f"counts {counts.tolist()}")
+            hold_sk(head, raw, counts, chunk, w, sigmas)
+            if wname is None or S > 1:
+                hold_mt(head, raw, counts, chunk)
+        if wname is None or S > 1:
+            hold_pfb(f"N={N} S={S} F={F} chunk={chunk}", N, S, F, chunk,
+                     schedule, resets)
+        print(f"wall: estimators at ML's N, N={N} S={S} F={F} held at "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    for N, F, wname, sigmas in EST24_ONE:
+        case(N, 1, F, wname, sigmas,
+             [np.array([c], np.int32) for c in sorted({F, F - 1, 1, 0},
+                                                      reverse=True)], (0,))
+    for N, S, F, wname, counts in EST24_STREAMS:
+        counts = np.array(counts, np.int32)
+        case(N, S, F, wname, (0.0, 3.0),
+             [counts, np.roll(counts, 1), np.roll(counts, 3), counts],
+             (0, 3))
+    # Each drive's own step, every frame valid, then its last step's count
+    # beside uneven ones; the PFB over both steps from a reset history.
+    for key, (N, S, F, last) in steps.items():
+        chunk = adapt_batch(F)[1]
+        head = (f"at the drive step of {key} (N={N} S={S} F={F} "
+                f"chunk={chunk}, last step {last})")
+        full = np.full(S, F, np.int32)
+        uneven = np.resize(np.array([last, F - 1, 0, 1], np.int32), S)
+        if key.startswith("PFB"):
+            hold_pfb(head, N, S, F, chunk, [full, uneven], (0,))
+            continue
+        for counts in (full, uneven):
+            raw = frames_dev(S, F, N)
+            at = f"{head} counts {counts.tolist()}"
+            if key.startswith("SK"):
+                excise = key == "SK-ML excise"
+                hold_sk(at, raw, counts, chunk,
+                        window_dev("hann" if excise else None, N),
+                        (3.0 if excise else 0.0,))
+            else:
+                hold_mt(at, raw, counts, chunk)
+    counts_now = launch_counts(fp, ff)
+    check(all(counts_now[k] == v for k, v in want.items())
+          and not any(v for k, v in counts_now.items() if k not in want),
+          f"estimators at ML's N: launch counts {counts_now}, expected "
+          f"{want}")
+    print(f"wall: estimators at ML's N checks in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # The yards: 60 seeds of 35 dB tones, each form against the float64
+    # golden and the scipy float32 class, one stream.
+    reset_counts(fp, ff)
+    for N, Fy, wname in EST24_YARDS:
+        w_np = None if wname is None else make_window(wname, N)
+        w = window_dev(wname, N)
+        wd = 1.0 if w_np is None else w_np.astype(np.float64)
+
+        def on_card(r):
+            return torch.from_numpy(r).to(dev)
+
+        def z64(r, wd=wd):
+            return dequant64(r) * wd
+
+        tp_np = _session_tapers(N, 4.0, 7)
+        tp = torch.from_numpy(tp_np).to(dev)
+        P = 4
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        hist = [torch.empty((P - 1, 2 * N), dtype=torch.uint8, device=dev)
+                for _ in range(2)]
+        warm = np.full((P - 1, 2 * N), 127, np.uint8)
+        tail = f" {wname}" if wname else ""
+        estimator_yard(
+            f"SK-ML s2{tail}",
+            lambda r, w=w, Fy=Fy: fn("sk")(on_card(r), Fy, Fy,
+                                           w)[1].cpu().numpy(),
+            lambda r, w_np=w_np, Fy=Fy: golden_moments(r, Fy, w_np)[1],
+            lambda r, z64=z64: (f32_class_rows(z64(r)) ** 2).sum(0),
+            N, Fy, 24000 + N)
+        estimator_yard(
+            "MT-ML K=7",
+            lambda r, tp=tp, Fy=Fy: fn("tapers")(
+                on_card(r), Fy, Fy, tp).cpu().numpy(),
+            lambda r, tp_np=tp_np, Fy=Fy: golden_tapers(r, Fy, tp_np),
+            lambda r, tp_np=tp_np: f32_class_rows(
+                dequant64(r)[:, None, :] * tp_np.astype(np.float64)[None]
+            ).mean(1).sum(0), N, Fy, 24100 + N)
+
+        def pfb_class(r, h_np=h_np, warm=warm, Fy=Fy):
+            sums = fpf.pfb_sums_reference(
+                torch.from_numpy(np.concatenate([warm, r])),
+                torch.from_numpy(h_np), Fy).numpy()
+            return f32_class_rows(sums.astype(np.complex128)).sum(0)
+
+        estimator_yard(
+            "PFB-ML P=4",
+            lambda r, h=h, hist=hist, Fy=Fy: fn("pfb")(
+                on_card(r), hist[0], Fy, Fy, h, hist[1],
+                fresh=True).cpu().numpy(),
+            lambda r, h_np=h_np, warm=warm, Fy=Fy: golden_pfb(
+                np.concatenate([warm, r]), Fy, h_np),
+            pfb_class, N, Fy, 24200 + N)
+    counts_now = launch_counts(fp, ff)
+    check(all(counts_now[k] == 60 * len(EST24_YARDS)
+              for k in ("SK-ML", "MT-ML", "PFB-ML"))
+          and sum(counts_now.values()) == 180 * len(EST24_YARDS),
+          f"estimators at ML's N, the yards' launches: {counts_now}")
+    print(f"wall: estimators at ML's N yards in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # Times (PERF.md states their prediction), each form beside ML on the
+    # same frames, in turns: a call (median of 60 event-timed calls), the
+    # device's part (twice), the wrapper's host part, the plain version,
+    # torch.fft.fft on the same transforms (F frames; F K tapered frames;
+    # F polyphase sums) and the bound; over S = 2 streams beside two
+    # one-stream calls and ML-S; then each form's device time by pass.
+    times = {}
+    K, P = 7, 4
+    timed = [(N, 1, F, wname) for N, F, wname in EST24_TIMED] + [
+        (EST24_TIMED_STREAMS[0], 2, *EST24_TIMED_STREAMS[1:])]
+    for N, S, F, wname in timed:
+        chunk = adapt_batch(F)[1]
+        w = window_dev(wname, N)
+        raw = frames_dev(S, F, N)
+        nv = torch.full((S,), F, dtype=torch.int32, device=dev)
+        z = torch.complex(raw[..., 0::2].float() - 127.0,
+                          raw[..., 1::2].float() - 127.0).reshape(S * F, N)
+        if w is not None:
+            z = z * w
+        tp = torch.from_numpy(_session_tapers(N, 4.0, K)).to(dev)
+        h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+        hist = [torch.full((S, P - 1, 2 * N), 127, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
+        bound = {"SK": estimator_bound_ms("SK", S * F, N, w is not None),
+                 "MT": estimator_bound_ms("MT", S * F, N, K=K),
+                 "PFB": estimator_bound_ms("PFB", S * F, N, P=P)}
+        zz = {"SK": z, "MT": (z[:, None, :] * tp[None]).reshape(-1, N),
+              "PFB": torch.cat([fpf.pfb_sums_reference(
+                  torch.cat([hist[0][s], raw[s]]), h, F)
+                  for s in range(S)])}
+        if S == 1:
+            calls = {
+                "SK": (lambda: fn("sk")(raw[0], F, chunk, w),
+                       lambda: ref("sk")(raw[0], F, chunk, w)),
+                "MT": (lambda: fn("tapers")(raw[0], F, chunk, tp),
+                       lambda: ref("tapers")(raw[0], F, chunk, tp)),
+                "PFB": (lambda: fn("pfb")(raw[0], hist[0][0], F, chunk, h,
+                                          hist[1][0]),
+                        lambda: ref("pfb")(raw[0], hist[0][0], F, chunk, h,
+                                           hist[1][0]))}
+
+            def psd_call(raw=raw, F=F, chunk=chunk, w=w):
+                return fml.fused_psd_mixed_large(raw[0], F, chunk, w)
+            singles = {}
+            s1 = calls["SK"][0]()[0]
+            check(torch.equal(s1, psd_call()),
+                  f"SK-ML timed shape N={N} F={F}: s1 is not ML's output")
+        else:
+            calls = {
+                "SK": (lambda: fn("sk", True)(raw, nv, chunk, w),
+                       lambda: ref("sk", True)(raw, nv, chunk, w)),
+                "MT": (lambda: fn("tapers", True)(raw, nv, chunk, tp),
+                       lambda: ref("tapers", True)(raw, nv, chunk, tp)),
+                "PFB": (lambda: fn("pfb", True)(raw, hist[0], nv, chunk, h,
+                                                hist[1]),
+                        lambda: ref("pfb", True)(raw, hist[0], nv, chunk, h,
+                                                 hist[1]))}
+
+            def psd_call(raw=raw, nv=nv, chunk=chunk, w=w):
+                return fml.fused_psd_mixed_large_streams(raw, nv, chunk, w)
+            singles = {
+                "SK": lambda: [fn("sk")(raw[s], F, chunk, w)
+                               for s in range(S)],
+                "MT": lambda: [fn("tapers")(raw[s], F, chunk, tp)
+                               for s in range(S)],
+                "PFB": lambda: [fn("pfb")(raw[s], hist[0][s], F, chunk, h,
+                                          hist[1][s]) for s in range(S)]}
+            check(torch.equal(calls["SK"][0]()[:, 0], psd_call()),
+                  f"SK-ML-S timed shape N={N}: s1 is not ML-S's rows")
+        for kind, (kernel, plain_fn) in calls.items():
+            got = kernel().double()
+            plain = plain_fn().double()
+            rel = max_rel(got.cpu().numpy(), plain.cpu().numpy())
+            label = f"{kind}-ML{'-S' * (S > 1)}"
+            check(rel <= UNIFORM_RTOL, f"{label} timed shape N={N}: {rel} "
+                  "vs plain")
+            kd, bd, sd = [], [], []
+            for _ in range(2):
+                kd.append(device_times_us(kernel))
+                bd.append(device_times_us(psd_call))
+                if singles:
+                    sd.append(device_times_us(singles[kind], calls=10))
+            t = {"N": N, "S": S, "F": F, "window": wname,
+                 "max_abs": float((got - plain).abs().max()),
+                 "bound": bound[kind], "call": event_times_us(kernel),
+                 "plain": event_times_us(plain_fn, iters=20, warmup=3),
+                 "host": host_us(kernel, calls=20 if kind == "MT" else 100),
+                 "lib": event_times_us(
+                     lambda: torch.fft.fft(zz[kind], dim=-1)),
+                 "lib_device": device_times_us(
+                     lambda: torch.fft.fft(zz[kind], dim=-1)),
+                 "device": min(kd), "psd_device": min(bd)}
+            pair = ""
+            if singles:
+                t["singles"] = event_times_us(singles[kind], iters=20,
+                                              warmup=3)
+                t["singles_device"] = min(sd)
+                pair = (f"; two one-stream calls {t['singles']:.1f} us, "
+                        f"device {sd[0]:.1f}/{sd[1]:.1f} (streams/two "
+                        f"{t['device'] / t['singles_device']:.3f})")
+            times.setdefault(label, []).append(t)
+            b_us = 1e3 * t["bound"][0]
+            psd = psd_key(S, w)
+            print(f"time estimator at ML's N {label} S={S} N={N} F={F} "
+                  f"window={wname}{f' K={K}' if kind == 'MT' else ''}"
+                  f"{f' P={P}' if kind == 'PFB' else ''} on {card}: a call "
+                  f"{t['call']:.1f} us, device {kd[0]:.1f}/{kd[1]:.1f} us, "
+                  f"host {t['host']:.1f} us "
+                  f"({S * F * N / t['device'] / 1e3:.2f} GS/s on the "
+                  f"device); {psd} on the same frames device "
+                  f"{bd[0]:.1f}/{bd[1]:.1f} us, form/{psd.split()[0]} "
+                  f"{t['device'] / t['psd_device']:.3f}{pair}; plain "
+                  f"{t['plain']:.1f} us; torch.fft.fft of the "
+                  f"{tuple(zz[kind].shape)} complex64 transforms "
+                  f"{t['lib']:.1f} us a call (device {t['lib_device']:.1f});"
+                  f" bound {b_us:.2f} us ({t['bound'][1]}), device/bound "
+                  f"{t['device'] / b_us:.1f}x; max abs vs plain "
+                  f"{t['max_abs']:.4g}, max rel {rel:.3e}")
+        if S == 1 and N == EST24_TIMED[0][0]:
+            # By pass, beside ML's, until every pass shows every launch.
+            profile_calls(f"ML N={N} F={F}", psd_call,
+                          ["ml_cols_kernel", "ml_rows_kernel"],
+                          whole=("ml_cols_kernel", "ml_rows_kernel"),
+                          tries=4)
+            profile_calls(f"SK-ML N={N} F={F}", calls["SK"][0],
+                          ["ml_streams_cols", "ml_sk_rows",
+                           "est_streams_kernel"],
+                          whole=("ml_streams_cols", "ml_sk_rows"), tries=4)
+            profile_calls(f"MT-ML N={N} F={F} K={K}", calls["MT"][0],
+                          ["ml_streams_cols", "ml_streams_rows",
+                           "est_streams_kernel"],
+                          whole=("est_streams_kernel",), tries=4)
+            profile_calls(f"PFB-ML N={N} F={F} P={P}", calls["PFB"][0],
+                          ["ml_pfb_cols", "ml_streams_rows",
+                           "streams_rows_sum", "pfb_history"],
+                          whole=("ml_pfb_cols", "ml_streams_rows",
+                                 "pfb_history"), tries=4)
+    for key, (N, S, F, _) in steps.items():
+        chunk = adapt_batch(F)[1]
+        raw = frames_dev(S, F, N)
+        nv = torch.full((S,), F, dtype=torch.int32, device=dev)
+        excise = key == "SK-ML excise"
+        w = window_dev("hann" if excise else None, N)
+        kind = key.split("-")[0]
+        if kind == "MT":
+            tpk = torch.from_numpy(_session_tapers(N, 4.0, 7)).to(dev)
+        if kind == "PFB":
+            hk = torch.from_numpy(pfb_prototype(N, 4).reshape(4, N)).to(dev)
+            hist = [torch.full((S, 3, 2 * N), 127, dtype=torch.uint8,
+                               device=dev) for _ in range(2)]
+        if S == 1:
+            kernel = {
+                "SK": lambda: fn("sk")(raw[0], F, chunk, w,
+                                       3.0 if excise else 0.0),
+                "MT": lambda: fn("tapers")(raw[0], F, chunk, tpk),
+                "PFB": lambda: fn("pfb")(raw[0], hist[0][0], F, chunk, hk,
+                                         hist[1][0])}[kind]
+
+            def psd_call(raw=raw, F=F, chunk=chunk, w=w):
+                return fml.fused_psd_mixed_large(raw[0], F, chunk, w)
+        else:
+            kernel = {
+                "SK": lambda: fn("sk", True)(raw, nv, chunk),
+                "MT": lambda: fn("tapers", True)(raw, nv, chunk, tpk),
+                "PFB": lambda: fn("pfb", True)(raw, hist[0], nv, chunk, hk,
+                                               hist[1])}[kind]
+
+            def psd_call(raw=raw, nv=nv, chunk=chunk):
+                return fml.fused_psd_mixed_large_streams(raw, nv, chunk)
+        kd = device_times_us(kernel, calls=10)
+        pd = device_times_us(psd_call, calls=10)
+        print(f"time estimator at ML's N at the drive step of {key} (S={S} "
+              f"N={N} F={F}) on {card}: device {kd:.1f} us, "
+              f"{psd_key(S, w)} {pd:.1f} us, {kd / pd:.3f}x; a call "
+              f"{event_times_us(kernel, iters=20, warmup=3):.1f} us")
+    print(f"wall: estimators at ML's N times in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # The drives, each on its form alone.
+    launches = {k: 0 for k in forms}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["SK-ML"] += drive_sk_excise(cli, fp, ff, tmp, N=20000,
+                                             key="SK-ML", window="hann",
+                                             overlap=50)
+        for key, argv in EST24_ONE_ARGV.items():
+            form = key.split()[0]
+            kind = form.split("-")[0]
+            N = int(argv[argv.index("-b") + 1])
+            repeats = int(argv[argv.index("-n") + 1])
+            tag = re.sub(r"\W+", "_", f"{key}_{N}")
+            record = os.path.join(tmp, f"{tag}.iq")
+            sk_path = os.path.join(tmp, f"{tag}.sk")
+            extra = [f"--sk-file={sk_path}"] if kind == "SK" else []
+
+            def golden(kind=kind, record=record, N=N, repeats=repeats):
+                raw_d = torch.from_numpy(
+                    recorded_frames(record, N)[:repeats]).to(dev)
+                if kind == "MT":
+                    pwr = golden_tapers_dev(raw_d, repeats,
+                                            _session_tapers(N, 4.0, 7))
+                elif kind == "PFB":
+                    pwr = golden_pfb_dev(torch.cat([torch.full(
+                        (3, 2 * N), 127, dtype=torch.uint8, device=dev),
+                        raw_d]), repeats, pfb_prototype(N, 4).reshape(4, N))
+                else:
+                    pwr = golden_moments_dev(raw_d, repeats)[0]
+                return golden_finalize_linear(np.fft.fftshift(pwr), repeats,
+                                              RATE)
+
+            opts = " ".join(argv[argv.index("-b"):argv.index("--source")])
+            label = f"estimator at ML's N {key} {opts}"
+            peak_bins = 4 if kind == "MT" else 1
+            if key in EST24_MATRIX:
+                launches[form] += matrix_estimator_drive(
+                    label, argv + extra + ["-q", "-m", os.path.join(tmp, tag),
+                                           "--record", record], cli, fp, ff,
+                    form, N, golden, peak_bins,
+                    os.path.join(tmp, tag) + ".bin")
+            else:
+                launches[form] += drive(
+                    label, argv + extra + ["--record", record], cli, fp, ff,
+                    form, N, golden, GOLDEN_RTOL, peak_bins=peak_bins)
+            if kind == "SK":
+                frames_np = recorded_frames(record, N)[:repeats]
+                sk_file, sk_err = sk_file_error(sk_path, frames_np, repeats)
+                print(f"e2e estimator at ML's N {key} -b {N} SK file: "
+                      f"{len(sk_file)} bins, max |SK - float64 golden| "
+                      f"{sk_err:.3e} (<= 1e-4)")
+                check(len(sk_file) == N and sk_err <= 1e-4,
+                      f"{key} -b {N} drive: SK file")
+        for key, argv in EST24_STREAMS_ARGV.items():
+            launches[key] += drive_awkward_streams(
+                f"estimator at ML's N {key} "
+                f"{' '.join(argv[argv.index('-b'):argv.index('--source')])}",
+                argv, key, key.split("-")[0], cli, fp, ff, tmp)
+    check(all(launches[k] > 0 for k in forms),
+          f"estimators at ML's N: a form no drive launched: {launches}")
+    print(f"wall: estimators at ML's N phase in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def entry(name, key, replaces):
+        t = times[key][0]
+        out = {"name": name, "route": "cuda",
+               "source": CSRC + "fused_psd_mixed_large_est.cu",
+               "replaces": replaces, "launches": launches[key],
+               "max_abs_err": t["max_abs"], "ms": t["call"] / 1000.0,
+               "plain_ms": t["plain"] / 1000.0, "bound_ms": t["bound"][0],
+               "bound_by": t["bound"][1], "library_ms": t["lib"] / 1000.0,
+               "device_ms": t["device"] / 1000.0,
+               "host_ms": t["host"] / 1000.0,
+               ("streams_psd_device_ms" if key.endswith("-S")
+                else "ml_device_ms"): t["psd_device"] / 1000.0}
+        if "singles" in t:
+            out["singles_ms"] = t["singles"] / 1000.0
+            out["singles_device_ms"] = t["singles_device"] / 1000.0
+        return out
+
+    return [entry(f"fused_psd_{name}_mixed_large{'_streams' * s} "
+                  f"({kind}-ML{'-S' * s})", f"{kind}-ML{'-S' * s}",
+                  replaces[s])
+            for kind, name, replaces in (
+                ("SK", "sk", ("rtl_power_fftw_tpu/models/kurtosis.py:46",
+                              "rtl_power_fftw_tpu/models/kurtosis.py:205")),
+                ("MT", "tapers",
+                 ("rtl_power_fftw_tpu/models/multitaper.py:60",
+                  "rtl_power_fftw_tpu/models/multitaper.py:227")),
+                ("PFB", "pfb", ("rtl_power_fftw_tpu/models/pfb.py:48",
+                                "rtl_power_fftw_tpu/models/pfb.py:262")))
+            for s in (0, 1)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -8401,7 +9109,10 @@ def main() -> int:
             ("fused_psd_large_est", "large_streams_a", ""),
             ("fused_psd_large_est", "large_streams_b", ""),
             ("fused_psd_large_est", "large_sk_b", ""),
-            ("fused_psd_large_est", "large_pfb_a", "")):
+            ("fused_psd_large_est", "large_pfb_a", ""),
+            ("fused_psd_mixed_large_est", "ml_streams_cols", ""),
+            ("fused_psd_mixed_large_est", "ml_streams_rows", ""),
+            ("fused_psd_mixed_large_est", "ml_sk_rows", "")):
         for entry_name, summary in template_ptxas(infos[lib].log, marker,
                                                   first):
             print(f"ptxas {lib} {entry_name}: {summary}")
@@ -8711,9 +9422,15 @@ def main() -> int:
         dev, np.random.default_rng(20261027), fp, adapt_batch, make_window,
         cli, ff, card)
     lap("estimators above 16384 bins")
-    print(f"wall: the whole script to phase 23's end in "
-          f"{time.perf_counter() - t_start:.1f} s (PR 26's run: 803.1 s to "
-          f"phase 22's end)")
+
+    # 24. The CLI estimators at ML's bin counts (SK-ML ... PFB-ML-S).
+    estimators_ml = phase_estimators_ml(
+        dev, np.random.default_rng(20261028), fp, adapt_batch, make_window,
+        cli, ff, card)
+    lap("estimators at ML's N")
+    print(f"wall: the whole script to phase 24's end in "
+          f"{time.perf_counter() - t_start:.1f} s (PR 27's run: 747.2 s to "
+          f"phase 23's end)")
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
@@ -8765,7 +9482,8 @@ def main() -> int:
               ("L", 65536, 16, "hann")),
     ] + awkward + estimators + large_awkward + estimator_streams
       + large_streams + library + mixed_estimators + chirp_estimators
-      + awkward_streams + large_estimators + estimators_above + [
+      + awkward_streams + large_estimators + estimators_above
+      + estimators_ml + [
         probe_entry(name, tpu, key)
          for name, tpu, key in (("fused_psd_probe P1 (profile_kernel: full)",
                                  "P1", "k3"),

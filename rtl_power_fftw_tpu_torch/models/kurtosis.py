@@ -15,14 +15,16 @@ to 16384, its chirp-Z form SK-B of
 ``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192,
 its form SK-L of the large kernel's passes,
 ``ops/kernels/csrc/fused_psd_large_est.cu``, at the powers of two from
-32768 to 2^22, and its form SK-BL of BL's passes,
+32768 to 2^22, its form SK-ML of ML's passes,
+``ops/kernels/csrc/fused_psd_mixed_large_est.cu``, at the other even
+7-smooth N from 16386 to 2^22, and its form SK-BL of BL's passes,
 ``ops/kernels/csrc/fused_psd_chirp_large_est.cu``, at the other even N
 from 8194 to 2^21 with a prime factor above 7, the chirp-Z forms also at
 any even N up to 2^21 under ``--fft-backend bluestein``; their plain
 PyTorch version on the CPU), which accumulates both moments in one pass,
 its s1 the plain PSD step's bit for bit; over S streams the same on every
 N (the streams form of the route's kernel: ``fused_psd_sk.cu``'s entry,
-SK-M-S, SK-B-S, SK-L-S or SK-BL-S),
+SK-M-S, SK-B-S, SK-L-S, SK-ML-S or SK-BL-S),
 which gates each stream on its own block before the sum over streams.
 """
 
@@ -41,6 +43,8 @@ from ..ops.kernels.fused_psd_large_est import (fused_psd_sk_large,
                                                fused_psd_sk_large_streams)
 from ..ops.kernels.fused_psd_mixed_est import (fused_psd_sk_mixed,
                                                fused_psd_sk_mixed_streams)
+from ..ops.kernels.fused_psd_mixed_large_est import (
+    fused_psd_sk_mixed_large, fused_psd_sk_mixed_large_streams)
 from ..ops.kernels.fused_psd_sk import (fused_psd_sk, fused_psd_sk_streams,
                                         sk_keep)
 from ..ops.spectral import (FrameSlicer, adapt_batch, bin_frequencies,
@@ -53,12 +57,14 @@ _sk_keep = sk_keep
 #: The SK step's kernel by ``estimator_route``'s route.
 SK_KERNELS = {"regs": fused_psd_sk, "mixed": fused_psd_sk_mixed,
               "bluestein": fused_psd_sk_chirp, "large": fused_psd_sk_large,
+              "mixed_large": fused_psd_sk_mixed_large,
               "chirp_large": fused_psd_sk_chirp_large}
 #: The SK streams step's kernel by the same route over streams.
 SK_STREAMS_KERNELS = {"regs": fused_psd_sk_streams,
                       "mixed": fused_psd_sk_mixed_streams,
                       "bluestein": fused_psd_sk_chirp_streams,
                       "large": fused_psd_sk_large_streams,
+                      "mixed_large": fused_psd_sk_mixed_large_streams,
                       "chirp_large": fused_psd_sk_chirp_large_streams}
 
 
@@ -93,8 +99,10 @@ class SkSessionStep:
     mixed-radix PSD step's), the other even N up to 8192 (SK-B, on the
     chirp-Z kernel's grid: its s1 is the chirp-Z PSD step's), the powers
     of two from 32768 to 2^22 (SK-L, on the large kernel's grid: its s1 is
-    the large kernel's) and the other even N from 8194 to 2^21 with a
-    prime factor above 7 (SK-BL, on BL's grid: its s1 is BL's), and the
+    the large kernel's), the other even 7-smooth N from 16386 to 2^22
+    (SK-ML, on ML's grid: its s1 is ML's) and the other even N from 8194
+    to 2^21 with a prime factor above 7 (SK-BL, on BL's grid: its s1 is
+    BL's), and the
     ``--fft-backend`` names the JAX package's SK step runs its auto
     transform for, are taken; under ``bluestein`` SK-B at any even N up
     to 8192 and SK-BL at any even N in (8192, 2^21], as the PSD step runs
@@ -144,8 +152,10 @@ class ShardedSkStep:
     powers of two up to 16384, ``fused_psd_sk_mixed_streams`` at the other
     even 7-smooth N up to 16384, ``fused_psd_sk_chirp_streams`` at the
     other even N up to 8192, ``fused_psd_sk_large_streams`` at the powers
-    of two from 32768 to 2^22 and ``fused_psd_sk_chirp_large_streams`` at
-    the other even N up to 2^21 with a prime factor above 7, the chirp-Z
+    of two from 32768 to 2^22, ``fused_psd_sk_mixed_large_streams`` at the
+    other even 7-smooth N from 16386 to 2^22 and
+    ``fused_psd_sk_chirp_large_streams`` at the other even N up to 2^21
+    with a prime factor above 7, the chirp-Z
     forms also under ``bluestein``; "cuda_sk" on a card, "plain_sk" on the
     CPU); only the N and ``backend`` that
     :class:`SkSessionStep` takes are taken."""

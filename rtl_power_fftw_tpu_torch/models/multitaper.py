@@ -11,13 +11,15 @@ the other even 7-smooth N up to 16384, its chirp-Z form MT-B of
 ``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192,
 its form MT-L of the large kernel's passes,
 ``ops/kernels/csrc/fused_psd_large_est.cu``, at the powers of two from
-32768 to 2^22, and its form MT-BL of BL's passes,
+32768 to 2^22, its form MT-ML of ML's passes,
+``ops/kernels/csrc/fused_psd_mixed_large_est.cu``, at the other even
+7-smooth N from 16386 to 2^22, and its form MT-BL of BL's passes,
 ``ops/kernels/csrc/fused_psd_chirp_large_est.cu``, at the other even N
 from 8194 to 2^21 with a prime factor above 7; their plain PyTorch
 version on the CPU): one block runs every taper of its frames, each raw
 frame staged once in a shared-memory ring (MT-M and MT-B: the tapers on
-the grid's y axis; MT-L and MT-BL: the large kernel's or BL's passes once
-a taper); over S streams the streams form of the route's kernel on
+the grid's y axis; MT-L, MT-ML and MT-BL: the large kernel's, ML's or
+BL's passes once a taper); over S streams the streams form of the route's kernel on
 the same N, one row a stream. DPSS tapers come from scipy.
 """
 
@@ -37,6 +39,8 @@ from ..ops.kernels.fused_psd_large_est import (
     fused_psd_tapers_large, fused_psd_tapers_large_streams)
 from ..ops.kernels.fused_psd_mixed_est import (
     fused_psd_tapers_mixed, fused_psd_tapers_mixed_streams)
+from ..ops.kernels.fused_psd_mixed_large_est import (
+    fused_psd_tapers_mixed_large, fused_psd_tapers_mixed_large_streams)
 from ..ops.kernels.fused_psd_tapers import (fused_psd_tapers,
                                             fused_psd_tapers_streams)
 from ..ops.spectral import (FrameSlicer, adapt_batch, bin_frequencies,
@@ -73,12 +77,15 @@ def _session_tapers(N: int, NW: float, K: int) -> np.ndarray:
 TAPERS_KERNELS = {"regs": fused_psd_tapers, "mixed": fused_psd_tapers_mixed,
                   "bluestein": fused_psd_tapers_chirp,
                   "large": fused_psd_tapers_large,
+                  "mixed_large": fused_psd_tapers_mixed_large,
                   "chirp_large": fused_psd_tapers_chirp_large}
 #: The multitaper streams step's kernel by the same route over streams.
 TAPERS_STREAMS_KERNELS = {"regs": fused_psd_tapers_streams,
                           "mixed": fused_psd_tapers_mixed_streams,
                           "bluestein": fused_psd_tapers_chirp_streams,
                           "large": fused_psd_tapers_large_streams,
+                          "mixed_large":
+                              fused_psd_tapers_mixed_large_streams,
                           "chirp_large":
                               fused_psd_tapers_chirp_large_streams}
 
@@ -89,7 +96,8 @@ def tapers_kernel(N: int):
     ``fused_psd_tapers_mixed`` at the other even 7-smooth N up to 16384,
     ``fused_psd_tapers_chirp`` at the other even N up to 8192,
     ``fused_psd_tapers_large`` at the powers of two from 32768 to 2^22,
-    ``fused_psd_tapers_chirp_large`` at the other even N up to 2^21 with a
+    ``fused_psd_tapers_mixed_large`` at the other even 7-smooth N from
+    16386 to 2^22, ``fused_psd_tapers_chirp_large`` at the other even N up to 2^21 with a
     prime factor above 7."""
     return TAPERS_KERNELS[estimator_route(N, "--multitaper")]
 
@@ -142,7 +150,8 @@ class ShardedMultitaperStep:
     :class:`MultitaperSessionStep` run on each stream and summed. The rows
     are the route's streams kernel's (``fused_psd_tapers_streams``,
     ``fused_psd_tapers_mixed_streams``, ``fused_psd_tapers_chirp_streams``,
-    ``fused_psd_tapers_large_streams`` or
+    ``fused_psd_tapers_large_streams``,
+    ``fused_psd_tapers_mixed_large_streams`` or
     ``fused_psd_tapers_chirp_large_streams`` where the single-stream
     step takes the same family, the K tapers
     shared; "cuda_multitaper" on a card, "plain_multitaper" on the CPU).

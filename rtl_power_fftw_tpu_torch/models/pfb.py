@@ -13,7 +13,9 @@ the other even 7-smooth N up to 16384, its chirp-Z form PFB-B of
 ``ops/kernels/csrc/fused_psd_chirp_est.cu`` at the other even N up to 8192,
 its form PFB-L of the large kernel's passes,
 ``ops/kernels/csrc/fused_psd_large_est.cu``, at the powers of two from
-32768 to 2^22, and its form PFB-BL of BL's passes,
+32768 to 2^22, its form PFB-ML of ML's passes,
+``ops/kernels/csrc/fused_psd_mixed_large_est.cu``, at the other even
+7-smooth N from 16386 to 2^22, and its form PFB-BL of BL's passes,
 ``ops/kernels/csrc/fused_psd_chirp_large_est.cu``, at the other even N
 from 8194 to 2^21 with a prime factor above 7; their plain PyTorch
 version on the CPU), which builds each
@@ -41,6 +43,8 @@ from ..ops.kernels.fused_psd_large_est import (fused_psd_pfb_large,
                                                fused_psd_pfb_large_streams)
 from ..ops.kernels.fused_psd_mixed_est import (fused_psd_pfb_mixed,
                                                fused_psd_pfb_mixed_streams)
+from ..ops.kernels.fused_psd_mixed_large_est import (
+    fused_psd_pfb_mixed_large, fused_psd_pfb_mixed_large_streams)
 from ..ops.kernels.fused_psd_pfb import (MAX_TAPS, fused_psd_pfb,
                                          fused_psd_pfb_streams)
 from ..ops.kernels.fused_psd_pfb import pfb_channelize as _channelize
@@ -70,12 +74,14 @@ def pfb_prototype(M: int, taps: int = 4,
 #: The PFB step's kernel by ``estimator_route``'s route.
 PFB_KERNELS = {"regs": fused_psd_pfb, "mixed": fused_psd_pfb_mixed,
                "bluestein": fused_psd_pfb_chirp, "large": fused_psd_pfb_large,
+               "mixed_large": fused_psd_pfb_mixed_large,
                "chirp_large": fused_psd_pfb_chirp_large}
 #: The PFB streams step's kernel by the same route over streams.
 PFB_STREAMS_KERNELS = {"regs": fused_psd_pfb_streams,
                        "mixed": fused_psd_pfb_mixed_streams,
                        "bluestein": fused_psd_pfb_chirp_streams,
                        "large": fused_psd_pfb_large_streams,
+                       "mixed_large": fused_psd_pfb_mixed_large_streams,
                        "chirp_large": fused_psd_pfb_chirp_large_streams}
 
 
@@ -88,7 +94,8 @@ class _PfbRunner:
     16384, ``fused_psd_pfb_mixed`` at the other even 7-smooth N up to
     16384, ``fused_psd_pfb_chirp`` at the other even N up to 8192,
     ``fused_psd_pfb_large`` at the powers of two from 32768 to 2^22,
-    ``fused_psd_pfb_chirp_large`` at the other even N up to 2^21 with a
+    ``fused_psd_pfb_mixed_large`` at the other even 7-smooth N from 16386
+    to 2^22, ``fused_psd_pfb_chirp_large`` at the other even N up to 2^21 with a
     prime factor above 7."""
 
     def __init__(self, N: int, F: int, chunk: int, h: np.ndarray, device):
@@ -179,7 +186,8 @@ class ShardedPfbStep:
     streams. The combined row is :class:`PfbSessionStep` run on each
     stream and summed. The rows are the route's streams kernel's
     (``fused_psd_pfb_streams``, ``fused_psd_pfb_mixed_streams``,
-    ``fused_psd_pfb_chirp_streams``, ``fused_psd_pfb_large_streams`` or
+    ``fused_psd_pfb_chirp_streams``, ``fused_psd_pfb_large_streams``,
+    ``fused_psd_pfb_mixed_large_streams`` or
     ``fused_psd_pfb_chirp_large_streams`` where the single-stream step
     takes the same family; "cuda_pfb" on a card, "plain_pfb" on the CPU); ``window``
     names the prototype's window."""

@@ -224,6 +224,29 @@ SIGNATURES = {
         # A), device, attrs (int[6])
         "rpf_fused_psd_large_est_attributes": [_I, _I, _I, _P],
     },
+    "fused_psd_mixed_large_est": {
+        # SK-ML: raw, tw1, bin1, inter, window, tw2, order2, counts,
+        # scratch, partial, out, plan1 (int[55]), plan2, device, log2c, n2p,
+        # width, S, F, group_a, group_b, two_sigma, stream
+        "rpf_fused_psd_sk_mixed_large": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+            _I, _I, _I, _I, _I, _F, _P],
+        # MT-ML: raw, tw1, bin1, inter, tapers, tw2, order2, counts,
+        # scratch, partial, out, plan1, plan2, device, log2c, n2p, width,
+        # S, F, group_a, group_b, K, stream
+        "rpf_fused_psd_tapers_mixed_large": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+            _I, _I, _I, _I, _I, _I, _P],
+        # PFB-ML: raw, history, tw1, bin1, inter, h, tw2, order2, counts,
+        # scratch, partial, out, history_out, plan1, plan2, device, log2c,
+        # n2p, width, S, F, group_a, group_b, P, fresh, stream
+        "rpf_fused_psd_pfb_mixed_large": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # which (0..6: passes A, A windowed, B small, B large, SK's B
+        # small, large, the PFB's A), smem, threads, device, attrs (int[6])
+        "rpf_fused_psd_mixed_large_est_attributes": [_I, _I, _I, _I, _P],
+    },
     "fused_psd_mixed_large": {
         # raw, tw1, bin1, inter, window, tw2, order2, scratch, partial,
         # out, plan1 (int[55]), plan2, device, log2c, n2p, width, F,

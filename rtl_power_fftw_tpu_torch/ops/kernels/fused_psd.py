@@ -171,7 +171,11 @@ class LaunchCounts:
     ``kernel_pfb_large`` their forms of the large kernel's passes
     (:mod:`.fused_psd_large_est`: SK-L, MT-L, PFB-L), with ``_streams``
     after each the calls over streams (SK-L-S ... PFB-L-S), and
-    ``plain_frames``,
+    ``kernel_sk_mixed_large``, ``kernel_tapers_mixed_large`` and
+    ``kernel_pfb_mixed_large`` their forms of ML's passes
+    (:mod:`.fused_psd_mixed_large_est`: SK-ML, MT-ML, PFB-ML), with
+    ``_streams`` after each the calls over streams (SK-ML-S ... PFB-ML-S),
+    and ``plain_frames``,
     ``plain_pfb_channelize``, ``plain_csd`` and ``plain_scf`` their plain
     versions' calls (each also counted in ``plain``, every plain
     version's).
@@ -245,6 +249,12 @@ class LaunchCounts:
         self.kernel_sk_large_streams = 0
         self.kernel_tapers_large_streams = 0
         self.kernel_pfb_large_streams = 0
+        self.kernel_sk_mixed_large = 0
+        self.kernel_tapers_mixed_large = 0
+        self.kernel_pfb_mixed_large = 0
+        self.kernel_sk_mixed_large_streams = 0
+        self.kernel_tapers_mixed_large_streams = 0
+        self.kernel_pfb_mixed_large_streams = 0
         self.plain = 0
         self.plain_frames = 0
         self.plain_pfb_channelize = 0

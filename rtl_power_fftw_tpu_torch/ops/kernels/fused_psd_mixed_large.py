@@ -254,22 +254,39 @@ def fused_psd_mixed_large_reference(raw_u8: torch.Tensor, n_valid: int,
     steps written out in torch ops with the kernel's twiddle table."""
     F, two_n = raw_u8.shape
     N = two_n // 2
+    pwr = mixed_large_power(raw_u8, window)
+    pwr[n_valid:] = 0.0
+    return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
+
+
+def mixed_large_dft_power(z: torch.Tensor) -> torch.Tensor:
+    """|DFT|^2 along the last axis by the plain version's four steps in
+    torch ops (:func:`mixed_large_split`, the kernel's twiddle table):
+    (..., N) complex64 -> (..., N) float32 (column DFTs over n1, ×
+    W_N^(n2 k1), row DFTs over n2, |.|^2, bin k1 + N1·k2)."""
+    lead, N = z.shape[:-1], z.shape[-1]
     n1, n2 = mixed_large_split(N)
-    v = raw_u8.reshape(F, N, 2).to(torch.int32)
+    x = z.reshape(-1, n1, n2)                           # [f, n1, n2]
+    y = torch.fft.fft(x, dim=1)                         # [f, k1, n2]
+    y = y * _plain_twiddle(N, z.device)
+    X = torch.fft.fft(y, dim=2)                         # [f, k1, k2]
+    pwr = X.real * X.real + X.imag * X.imag
+    # Bin k1 + N1·k2: read [f, k2, k1] flat.
+    return pwr.transpose(1, 2).reshape(*lead, N)
+
+
+def mixed_large_power(raw_u8: torch.Tensor,
+                      window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """|DFT|^2 of every frame by :func:`mixed_large_dft_power`: (..., 2N)
+    uint8, dequantized [and windowed] -> (..., N) float32."""
+    N = raw_u8.shape[-1] // 2
+    v = raw_u8.reshape(*raw_u8.shape[:-1], N, 2).to(torch.int32)
     re = (v[..., 0] - 127).to(torch.float32)
     im = (v[..., 1] - 127).to(torch.float32)
     if window is not None:
         re = re * window
         im = im * window
-    x = torch.complex(re, im).reshape(F, n1, n2)        # [f, n1, n2]
-    y = torch.fft.fft(x, dim=1)                         # [f, k1, n2]
-    y = y * _plain_twiddle(N, raw_u8.device)
-    X = torch.fft.fft(y, dim=2)                         # [f, k1, k2]
-    pwr = X.real * X.real + X.imag * X.imag
-    pwr[n_valid:] = 0.0
-    # Bin k1 + N1·k2: read [f, k2, k1] flat.
-    pwr = pwr.transpose(1, 2).reshape(F, N)
-    return pwr.reshape(F // chunk, chunk, N).sum(dim=1).sum(dim=0)
+    return mixed_large_dft_power(torch.complex(re, im))
 
 
 @functools.lru_cache(maxsize=4)

@@ -11,7 +11,8 @@ passes) and the library estimators' ``fused_psd_frames``,
 ``fused_psd_csd`` and ``fused_psd_scf`` and the estimators' forms of the
 mixed-radix kernel, ``fused_psd_mixed_est``, of the chirp-Z kernel,
 ``fused_psd_chirp_est``, of BL's passes, ``fused_psd_chirp_large_est``,
-and of the large kernel's passes, ``fused_psd_large_est``
+of the large kernel's passes, ``fused_psd_large_est``, and of ML's
+passes, ``fused_psd_mixed_large_est``
 (a source the earlier tree lacks has no earlier kernels) are each compiled twice with the build's own nvcc
 flags, from ``csrc/`` and from the earlier tree's ``csrc/``, and
 ``cuobjdump -sass`` of the two libraries is compared kernel by kernel:
@@ -57,7 +58,8 @@ SOURCES = ("fused_psd", "fused_psd_fast", "fused_psd_large", "fused_psd_probe",
            "fused_psd_pfb", "fused_psd_mixed_large", "fused_psd_chirp_large",
            "fused_psd_frames", "fused_psd_csd", "fused_psd_scf",
            "fused_psd_mixed_est", "fused_psd_chirp_est",
-           "fused_psd_chirp_large_est", "fused_psd_large_est")
+           "fused_psd_chirp_large_est", "fused_psd_large_est",
+           "fused_psd_mixed_large_est")
 #: The parent tree's kernels, written by ``--write-digest``.
 DIGEST = Path(__file__).with_name("sass_digest.json")
 

@@ -33,6 +33,8 @@ from .kernels.fused_psd_large_est import fused_psd_large_est_eligible
 from .kernels.fused_psd_mixed import fused_psd_mixed, fused_psd_mixed_eligible
 from .kernels.fused_psd_mixed_large import (fused_psd_mixed_large,
                                             fused_psd_mixed_large_eligible)
+from .kernels.fused_psd_mixed_large_est import \
+    fused_psd_mixed_large_est_eligible
 
 # Frames are reduced in chunks of this size before the cross-chunk sum;
 # two-stage summation keeps f32 rounding error at ~(CHUNK + F/CHUNK)·ε.
@@ -140,24 +142,26 @@ SK_BACKENDS = ("auto", "pallas", "hybrid", "fft4")
 
 
 #: The session's estimator options: on one stream and over ``--streams``
-#: they take every even N up to 16384, every power of two up to 2^22 and
-#: every even N up to 2^21 with a prime factor above 7: the powers of two
-#: up to 16384 on K1's variants, those above on the estimators' forms of
-#: the large kernel's passes (``kernels/csrc/fused_psd_large_est.cu``), and
-#: the other N on their forms of the mixed-radix kernel, of the chirp-Z
-#: kernel and of BL's passes (``kernels/csrc/fused_psd_mixed_est.cu``,
+#: they take every even N up to 2^21 and every even 7-smooth N up to 2^22:
+#: the powers of two up to 16384 on K1's variants, those above on the
+#: estimators' forms of the large kernel's passes
+#: (``kernels/csrc/fused_psd_large_est.cu``), the other even 7-smooth N
+#: above 16384 on their forms of ML's passes
+#: (``kernels/csrc/fused_psd_mixed_large_est.cu``), and the other N on
+#: their forms of the mixed-radix kernel, of the chirp-Z kernel and of BL's
+#: passes (``kernels/csrc/fused_psd_mixed_est.cu``,
 #: ``kernels/csrc/fused_psd_chirp_est.cu``,
 #: ``kernels/csrc/fused_psd_chirp_large_est.cu``), each form with S >= 1
-#: streams. The even 7-smooth N above 16384 that are not powers of two
-#: (20000, 100000, 10^6) still exit 3: ML's forms are not written.
+#: streams: every N the PSD step takes. The even N in (2^21, 2^22] with a
+#: prime factor above 7 (4194302), N above 2^22 and odd N exit 3, as the
+#: PSD step does there.
 CLI_ESTIMATORS = ("--sk-file", "--sk-excise", "--multitaper", "--pfb-taps")
 
 #: What the session's estimators take, as their exit-3 messages state it.
 _EST_RANGE = (f"the estimator kernels take every even N up to "
-              f"{REGS_MAX_N}, powers of two up to {MAX_N} and other even N "
-              f"up to {CHIRP_LARGE_MAX_N} with a prime factor above 7; not "
-              f"yet the even 7-smooth N above {REGS_MAX_N} that are not "
-              "powers of two, nor odd N")
+              f"{CHIRP_LARGE_MAX_N} and every even 7-smooth N up to "
+              f"{MAX_N}; not the other even N above {CHIRP_LARGE_MAX_N}, "
+              "nor odd N")
 
 
 def estimator_route(N: int, flag: str, backend: str = "auto",
@@ -170,16 +174,18 @@ def estimator_route(N: int, flag: str, backend: str = "auto",
     forms of the mixed-radix kernel), "bluestein" (the same at the other
     even N up to 8192: forms of the chirp-Z kernel), "large" (the same at
     the powers of two from 32768 to 2^22: forms of the large kernel's two
-    passes) or "chirp_large" (the same at the even N from 8194 to 2^21
-    with a prime factor above 7, 9998, 16382, 20002 and 99998 among them:
-    forms of BL's three passes). The spectral-kurtosis step under
-    ``--fft-backend bluestein`` runs the chirp-Z forms at any even N up to
-    2^21, as the PSD step takes that name: "bluestein" up to 8192,
-    "chirp_large" above. Raise RPFexception(InvalidArgument), "Not yet
-    ported", anywhere else: the library-only estimators (``flag`` their
-    names) at other N, and the session's at the even 7-smooth N above
-    16384 that are not powers of two (20000, 100000), at the other N above
-    2^21 (4194302) and at odd N. The spectral-kurtosis step also takes
+    passes), "mixed_large" (the same at the even 7-smooth N from 16386 to
+    2^22 that are not powers of two, 20000, 49152, 100000 and 10^6 among
+    them: forms of ML's two passes) or "chirp_large" (the same at the even
+    N from 8194 to 2^21 with a prime factor above 7, 9998, 16382, 20002 and
+    99998 among them: forms of BL's three passes). The spectral-kurtosis
+    step under ``--fft-backend bluestein`` runs the chirp-Z forms at any
+    even N up to 2^21, as the PSD step takes that name: "bluestein" up to
+    8192, "chirp_large" above. Raise RPFexception(InvalidArgument), "Not
+    yet ported", anywhere else: the library-only estimators (``flag`` their
+    names) at other N, and the session's where the PSD step exits 3 too,
+    at the even N above 2^21 with a prime factor above 7 (4194302), above
+    2^22 and at odd N. The spectral-kurtosis step also takes
     only the ``--fft-backend`` names of :data:`SK_BACKENDS` and
     ``bluestein`` (the other two estimators ignore the option, as the JAX
     package's do). The same check and message on the CPU and on the
@@ -202,8 +208,9 @@ def estimator_route(N: int, flag: str, backend: str = "auto",
         route = "bluestein"
     elif session and fused_psd_large_est_eligible(N):
         route = "large"
-    elif (session and fused_psd_chirp_large_est_eligible(N)
-          and not fused_psd_mixed_large_eligible(N)):
+    elif session and fused_psd_mixed_large_est_eligible(N):
+        route = "mixed_large"
+    elif session and fused_psd_chirp_large_est_eligible(N):
         route = "chirp_large"
     elif session:
         raise _unported(f"{flag}{over} at {N} bins ({_EST_RANGE})")

@@ -58,11 +58,10 @@ def check_ported(params: Params) -> None:
     package does not have yet: the estimators (``--pfb-taps``,
     ``--multitaper``, ``--sk-file``, ``--sk-excise``) at N their kernels
     do not take (``ops.spectral.estimator_route``: on one stream and over
-    ``--streams`` they take every even N up to 16384, every power of two
-    up to 2^22 and every other even N up to 2^21 with a prime factor above
-    7, the spectral kurtosis under ``--fft-backend bluestein`` any even N
-    up to 2^21; not the even 7-smooth N above 16384 that are not powers of
-    two, nor odd N),
+    ``--streams`` they take every even N up to 2^21 and every even
+    7-smooth N up to 2^22, every N the PSD step takes, the spectral
+    kurtosis under ``--fft-backend bluestein`` any even N up to 2^21; not
+    the other even N above 2^21 (4194302), nor N above 2^22, nor odd N),
     ``--shard-transform`` and ``--profile``."""
     unported = []
     if params.shard_transform:

@@ -34,7 +34,7 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--shard-transform"],
-    ["-b", "100000", "--sk-file", "sk.dat"],
+    ["-b", "4194302", "--sk-file", "sk.dat"],
     ["-b", "2097154", "--sk-file", "sk.dat", "--fft-backend", "bluestein"],
     ["--sk-excise", "3", "--fft-backend", "xla"],
     ["--fft-backend", "fourstep"],
@@ -44,10 +44,10 @@ def test_no_cuda_device_exits_7(monkeypatch, capsys):
     ["--fft-backend", "matmul"],
     ["--streams", "2", "--shard-transform"],
     ["--streams", "2", "--fft-backend", "xla"],
-    ["--streams", "2", "--multitaper", "7", "-b", "20000"],
+    ["--streams", "2", "--multitaper", "7", "-b", "4194302"],
     ["--streams", "2", "--sk-file", "sk.dat", "--fft-backend", "xla", "-b",
      "500"],
-    ["-b", "20000", "--multitaper", "7"],
+    ["-b", "4194306", "--multitaper", "7"],
 ])
 def test_unported_options_exit_3(extra, capsys):
     assert cli.main(SMALL + extra, device=CPU) == 3
@@ -93,6 +93,11 @@ def test_windowed_and_relaxed_sessions_exit_0(extra, path, capsys):
      "plain_sk (backend=auto, N=32768)"),
     (["-b", "20002", "--sk-file", "sk.dat"],
      "plain_sk (backend=auto, N=20002)"),
+    (["-b", "100000", "--sk-file", "sk.dat"],
+     "plain_sk (backend=auto, N=100000)"),
+    (["--streams", "2", "--multitaper", "7", "-b", "20000"],
+     "plain_multitaper (N=20000)"),
+    (["-b", "20000", "--multitaper", "7"], "plain_multitaper (N=20000)"),
 ])
 def test_single_stream_estimators_exit_0(extra, path, capsys, tmp_path,
                                          monkeypatch):

@@ -567,12 +567,12 @@ def test_sharded_estimator_steps_validation():
     with pytest.raises(RPFexception, match="2 devices") as e:
         kurtosis.ShardedSkStep([CPU, CPU], 256, 8, 2)
     assert int(e.value.return_value) == 3
-    for make in (lambda: kurtosis.ShardedSkStep(MESH, 100000, 8, 2),
+    for make in (lambda: kurtosis.ShardedSkStep(MESH, 4194306, 8, 2),
                  lambda: kurtosis.ShardedSkStep(MESH, 256, 8, 2,
                                                 backend="xla"),
                  lambda: multitaper.ShardedMultitaperStep(MESH, 4194302, 8, 2,
                                                           K=2),
-                 lambda: pfb.ShardedPfbStep(MESH, 20000, 8, 2)):
+                 lambda: pfb.ShardedPfbStep(MESH, 8388608, 8, 2)):
         with pytest.raises(RPFexception, match="Not yet ported") as e:
             make()
         assert int(e.value.return_value) == 3

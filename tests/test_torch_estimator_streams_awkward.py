@@ -680,14 +680,14 @@ def test_streams_references_take_the_one_stream_transforms():
 
 
 def test_sharded_steps_still_refuse_what_is_not_ported():
-    for make in (lambda: kurtosis.ShardedSkStep(MESH, 100000, 8, 2),
+    for make in (lambda: kurtosis.ShardedSkStep(MESH, 4194306, 8, 2),
                  lambda: kurtosis.ShardedSkStep(MESH, 2097154, 8, 2,
                                                 backend="bluestein"),
                  lambda: kurtosis.ShardedSkStep(MESH, 500, 8, 2,
                                                 backend="xla"),
-                 lambda: multitaper.ShardedMultitaperStep(MESH, 20000, 8, 2,
+                 lambda: multitaper.ShardedMultitaperStep(MESH, 4194302, 8, 2,
                                                           K=7),
-                 lambda: pfb.ShardedPfbStep(MESH, 1000000, 8, 2)):
+                 lambda: pfb.ShardedPfbStep(MESH, 8388608, 8, 2)):
         with pytest.raises(RPFexception, match="Not yet ported") as e:
             make()
         assert int(e.value.return_value) == 3

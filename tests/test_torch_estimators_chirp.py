@@ -65,7 +65,7 @@ SIZES = [22, 998, 4094, 8188]
     (2048, "--pfb-taps", "bluestein", False, "regs"),
     (2048, "--sk-file", "auto", False, "regs"),
     (998, "--pfb-taps", "auto", True, "bluestein"),
-    (100000, "--multitaper", "auto", False, None),
+    (4194306, "--multitaper", "auto", False, None),
     (998, "spectrogram", "auto", False, None),
     (2048, "--sk-file", "bluestein", True, "bluestein"),
     (22, "--sk-excise", "auto", True, "bluestein"),
@@ -294,7 +294,7 @@ def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-b", "100000", "--sk-file", "sk.dat"], "--sk-file at 100000 bins"),
+    (["-b", "4194302", "--sk-file", "sk.dat"], "--sk-file at 4194302 bins"),
     (["--streams", "2", "--sk-file", "sk.dat", "-b", "2097154",
       "--fft-backend", "bluestein"],
      "--sk-file over --streams with --fft-backend bluestein at 2097154 "
@@ -303,8 +303,9 @@ def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
      "--sk-file with --fft-backend bluestein at 2097154 bins"),
     (["--streams", "2", "--sk-file", "sk.dat", "--fft-backend", "xla",
       "-b", "500"], "--sk-file over --streams with --fft-backend xla"),
-    (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
-    (["-b", "3000000", "--sk-file", "sk.dat"], "--sk-file at 3000000 bins"),
+    (["-b", "4194306", "--multitaper", "7"],
+     "--multitaper at 4194306 bins"),
+    (["-b", "8388608", "--sk-file", "sk.dat"], "--sk-file at 8388608 bins"),
 ])
 def test_cli_still_exits_3(extra, what, capsys):
     argv = ["-f", "100M", "-n", "8", "--source", "synthetic:"] + extra

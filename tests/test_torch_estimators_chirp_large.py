@@ -115,8 +115,8 @@ def close(got, want, n_valid, rtol=2e-5):
     (16384, "--sk-file", "auto", False, "regs"),
     (16384, "--pfb-taps", "bluestein", False, "regs"),
     (8192, "--sk-file", "bluestein", False, "bluestein"),
-    (20000, "--sk-file", "auto", False, None),
-    (100000, "--multitaper", "auto", True, None),
+    (4194306, "--sk-file", "auto", False, None),
+    (8388608, "--multitaper", "auto", True, None),
     (4194302, "--pfb-taps", "auto", False, None),
     (9998, "spectrogram", "auto", False, None),
 ])
@@ -458,11 +458,11 @@ def test_cli_sk_under_bluestein_exits_0(bins, streams, capsys, tmp_path,
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-b", "100000", "--sk-file", "sk.dat"], "--sk-file at 100000 bins"),
-    (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
-    (["-b", "1000000", "--sk-file", "sk.dat"], "--sk-file at 1000000 bins"),
-    (["--streams", "2", "-b", "20000", "--pfb-taps", "4"],
-     "--pfb-taps over --streams at 20000 bins"),
+    (["-b", "4194302", "--sk-file", "sk.dat"], "--sk-file at 4194302 bins"),
+    (["-b", "4194306", "--multitaper", "7"], "--multitaper at 4194306 bins"),
+    (["-b", "8388608", "--sk-file", "sk.dat"], "--sk-file at 8388608 bins"),
+    (["--streams", "2", "-b", "4194302", "--pfb-taps", "4"],
+     "--pfb-taps over --streams at 4194302 bins"),
     (["-b", "2097154", "--sk-file", "sk.dat", "--fft-backend", "bluestein"],
      "--sk-file with --fft-backend bluestein at 2097154 bins"),
 ])

@@ -122,9 +122,9 @@ def close_to_both(got, want, direct, n_valid, rtol=2e-5):
     (20000, "--sk-excise", "bluestein", True, "chirp_large"),
     (1 << 21, "--sk-file", "bluestein", False, "chirp_large"),
     (32768, "--multitaper", "bluestein", False, "large"),
-    (20000, "--multitaper", "auto", False, None),
-    (100000, "--sk-file", "auto", True, None),
-    (1000000, "--pfb-taps", "auto", False, None),
+    (4194302, "--multitaper", "auto", False, None),
+    (4194306, "--sk-file", "auto", True, None),
+    (8388608, "--pfb-taps", "auto", False, None),
     (4194302, "--sk-file", "auto", False, None),
     (20001, "--multitaper", "auto", False, None),
     (32768, "spectrogram", "auto", False, None),
@@ -143,15 +143,16 @@ def test_estimator_route(N, flag, backend, sharded, route):
     assert f"{flag}{' over --streams' * sharded} at {N} bins" \
         in str(e.value)
     if flag.startswith("--"):
-        assert "not yet the even 7-smooth N above 16384 that are not " \
-            "powers of two, nor odd N" in str(e.value)
+        assert "not the other even N above 2097152, nor odd N" \
+            in str(e.value)
 
 
 def test_every_estimator_n_above_16384_has_its_route():
-    """Every power of two from 32768 to 2^22 is "large" and every even N
-    from 16386 to 2^21 with a prime factor above 7 "chirp_large" (a
-    sample of 200), on one stream and over streams; under ``bluestein``
-    SK takes every even N in (8192, 2^21] on BL's forms."""
+    """Every power of two from 32768 to 2^22 is "large", every even N
+    from 16386 to 2^21 with a prime factor above 7 "chirp_large" and
+    every other (7-smooth) one "mixed_large" (a sample of 200), on one
+    stream and over streams; under ``bluestein`` SK takes every even N in
+    (8192, 2^21] on BL's forms."""
     for log2n in range(15, 23):
         for sharded in (False, True):
             assert spectral.estimator_route(1 << log2n, "--sk-file",
@@ -167,8 +168,8 @@ def test_every_estimator_n_above_16384_has_its_route():
             assert spectral.estimator_route(N, "--multitaper",
                                             sharded=True) == "chirp_large"
         elif N & (N - 1):
-            with pytest.raises(RPFexception, match="Not yet ported"):
-                spectral.estimator_route(N, "--multitaper")
+            assert spectral.estimator_route(N, "--multitaper") \
+                == "mixed_large"
         assert spectral.estimator_route(N, "--sk-file",
                                         "bluestein") == "chirp_large"
 
@@ -456,10 +457,10 @@ def test_matrix_session_matches_jax(bins, extra, tmp_path):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
-    (["-b", "100000", "--sk-file", "sk.dat"], "--sk-file at 100000 bins"),
-    (["--streams", "2", "-b", "1000000", "--pfb-taps", "4"],
-     "--pfb-taps over --streams at 1000000 bins"),
+    (["-b", "4194302", "--multitaper", "7"], "--multitaper at 4194302 bins"),
+    (["-b", "4194306", "--sk-file", "sk.dat"], "--sk-file at 4194306 bins"),
+    (["--streams", "2", "-b", "4194302", "--pfb-taps", "4"],
+     "--pfb-taps over --streams at 4194302 bins"),
     (["-b", "2097154", "--sk-file", "sk.dat", "--fft-backend", "bluestein"],
      "--sk-file with --fft-backend bluestein at 2097154 bins"),
 ])

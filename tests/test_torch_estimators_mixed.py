@@ -93,10 +93,10 @@ def run_steps(step, jstep, raw, F):
     (32, "--pfb-taps", False, "mixed"), (16000, "--pfb-taps", False, "mixed"),
     (256, "--pfb-taps", True, "regs"), (500, "--pfb-taps", True, "mixed"),
     (998, "--sk-file", False, "bluestein"),
-    (100000, "--sk-file", False, None),
-    (998, "--sk-file", True, "bluestein"), (20000, "--multitaper", False, None),
+    (4194302, "--sk-file", False, None),
+    (998, "--sk-file", True, "bluestein"), (4194306, "--multitaper", False, None),
     (500, "spectrogram", False, None), (500, "pfb_channelize", False, None),
-    (1000000, "--multitaper", True, None), (20000, "--sk-file", True, None),
+    (8388608, "--multitaper", True, None), (4194302, "--sk-file", True, None),
 ])
 def test_estimator_route(N, flag, sharded, route):
     """The session's estimators take the mixed-radix kernel's N (and the
@@ -291,12 +291,12 @@ def test_cli_exits_0(extra, path, capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--streams", "2", "--sk-file", "sk.dat", "-b", "100000"],
-     "--sk-file over --streams at 100000 bins"),
-    (["--streams", "2", "--multitaper", "7", "-b", "20000"],
-     "--multitaper over --streams at 20000 bins"),
-    (["-b", "1000000", "--sk-file", "sk.dat"], "--sk-file at 1000000 bins"),
-    (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
+    (["--streams", "2", "--sk-file", "sk.dat", "-b", "4194302"],
+     "--sk-file over --streams at 4194302 bins"),
+    (["--streams", "2", "--multitaper", "7", "-b", "4194306"],
+     "--multitaper over --streams at 4194306 bins"),
+    (["-b", "8388608", "--sk-file", "sk.dat"], "--sk-file at 8388608 bins"),
+    (["-b", "4194302", "--multitaper", "7"], "--multitaper at 4194302 bins"),
     (["-b", "500", "--sk-file", "sk.dat", "--fft-backend", "xla"],
      "--sk-file with --fft-backend xla"),
 ])

@@ -152,8 +152,8 @@ def test_compute_sk_is_the_jax_formula():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-b", "100000", "--sk-file", "x"], "--sk-file at 100000 bins"),
-    (["-b", "20000", "--sk-excise", "3"], "--sk-excise at 20000 bins"),
+    (["-b", "8388608", "--sk-file", "x"], "--sk-file at 8388608 bins"),
+    (["-b", "4194306", "--sk-excise", "3"], "--sk-excise at 4194306 bins"),
     (["-b", "2097154", "--sk-file", "x", "--fft-backend", "bluestein"],
      "--sk-file with --fft-backend bluestein at 2097154 bins"),
     (["-b", "4194302", "--sk-file", "x"], "--sk-file at 4194302 bins"),

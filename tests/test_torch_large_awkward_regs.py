@@ -869,7 +869,7 @@ def test_ml_transcription_float32_against_golden(N, F, n_valid, window):
 
 
 def test_ml_constants_are_the_sources():
-    text = (CSRC / "fused_psd_mixed_large.cu").read_text()
+    text = (CSRC / "fused_psd_mixed_large_streams.cuh").read_text()
     assert int(re.search(r"constexpr int kColsThreads = (\d+);",
                          text).group(1)) == ml.COLS_THREADS
     assert int(re.search(r"constexpr int kRowsThreads = (\d+);",
