@@ -666,23 +666,36 @@ class _Plan(NamedTuple):
 _plans: dict = {}
 
 
+@functools.lru_cache(maxsize=8)
+def device_tables(N: int, index: int):
+    """The kernel's tables at N on card ``index`` (plan_twiddles of N1's
+    plan, the bin of each of its elements, the tile-major inter-stage
+    twiddle, plan_twiddles of N2's plan, element_of_bin of its bins) and
+    both plans' ints, shared by ML and the estimators' forms of its
+    passes (:mod:`.fused_psd_mixed_large_est`)."""
+    t = ml_layout(N)
+    device = torch.device("cuda", index)
+    keep = tuple(torch.from_numpy(x).to(device) for x in (
+        plan_twiddles(t.plan1), bin_of_element(t.plan1),
+        ml_inter_twiddle(N), plan_twiddles(t.plan2),
+        element_of_bin(t.plan2, np.arange(t.N2)).astype(np.int32)))
+    ints = tuple((ctypes.c_int * len(x))(*x)
+                 for x in (la.ints() for la in t.launches()))
+    return keep, ints
+
+
 def _plan(N: int, F: int, windowed: bool, device: torch.device) -> _Plan:
     key = (N, F, windowed, device.index)
     plan = _plans.get(key)
     if plan is None:
         from . import _build
         t = ml_layout(N)
-        keep = tuple(torch.from_numpy(x).to(device) for x in (
-            plan_twiddles(t.plan1), bin_of_element(t.plan1),
-            ml_inter_twiddle(N), plan_twiddles(t.plan2),
-            element_of_bin(t.plan2, np.arange(t.N2)).astype(np.int32)))
+        keep, ints = device_tables(N, device.index)
         tiles_a, tiles_b = t.tiles
         group_a = large_group(F, tiles_a, resident_blocks(
             N, PASS_A_WINDOWED if windowed else PASS_A, device.index))
         group_b = large_group(F, tiles_b,
                               resident_blocks(N, PASS_B, device.index))
-        ints = tuple((ctypes.c_int * len(x))(*x)
-                     for x in (la.ints() for la in t.launches()))
         plan = _plans[key] = _Plan(
             _build.load("fused_psd_mixed_large"), t, group_a, group_b, ints,
             tuple(k.data_ptr() for k in keep), keep)

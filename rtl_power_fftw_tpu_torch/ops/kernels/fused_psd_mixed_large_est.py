@@ -59,13 +59,11 @@ import ctypes
 import functools
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from . import fused_psd as fp
 from . import fused_psd_mixed_large as ml
 from .fused_psd_large import _raw_stream
-from .fused_psd_mixed import element_of_bin, plan_twiddles
 from .fused_psd_mixed_est import check_group, check_streams_histories
 from .fused_psd_pfb import (check_pfb_args, check_pfb_streams_args,
                             fused_psd_pfb_reference,
@@ -191,23 +189,6 @@ def grid(N: int, S: int, F: int, windowed: bool,
     return ml.streams_grid(S, F, N, windowed, index)
 
 
-@functools.lru_cache(maxsize=8)
-def device_tables(N: int, index: int):
-    """ML's tables at N on card ``index`` (plan_twiddles of N1's plan, the
-    bin of each of its elements, the tile-major inter-stage twiddle,
-    plan_twiddles of N2's plan, element_of_bin of its bins), kept alive
-    here, and both plans' ints."""
-    t = ml.ml_layout(N)
-    dev = torch.device("cuda", index)
-    keep = tuple(torch.from_numpy(x).to(dev) for x in (
-        plan_twiddles(t.plan1), ml.bin_of_element(t.plan1),
-        ml.ml_inter_twiddle(N), plan_twiddles(t.plan2),
-        element_of_bin(t.plan2, np.arange(t.N2)).astype(np.int32)))
-    ints = tuple((ctypes.c_int * len(x))(*x)
-                 for x in (la.ints() for la in t.launches()))
-    return keep, ints
-
-
 def _launch(kernel: str, raw3: torch.Tensor, extra: Optional[torch.Tensor],
             planes: int, out_shape: tuple, windowed: bool,
             group_b: Optional[int], call) -> torch.Tensor:
@@ -233,7 +214,7 @@ def _launch(kernel: str, raw3: torch.Tensor, extra: Optional[torch.Tensor],
         2 * S * F * t.N1 * t.n2p, rows * t.row, device)
     out = torch.empty((*out_shape, t.row), dtype=torch.float32,
                       device=device)
-    keep, ints = device_tables(N, device.index)
+    keep, ints = ml.device_tables(N, device.index)
     err = call(lib, tuple(k.data_ptr() for k in keep),
                tuple(ctypes.addressof(i) for i in ints), scratch, partial,
                out.data_ptr(), t, ml.ml_copy_width(N, raw3.data_ptr()),

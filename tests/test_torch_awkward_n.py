@@ -117,7 +117,8 @@ def test_transform_route(N, backend, fast, route):
     (["-b", str(1 << 23)], 3, f"{1 << 23} bins"),
     (["-b", "4194302"], 3, "4194302 bins"),
     (["-b", "4194302", "--streams", "2"], 3, "4194302 bins"),
-    (["-b", "20000", "--multitaper", "7"], 3, "--multitaper at 20000 bins"),
+    (["-b", "4194302", "--multitaper", "7"], 3,
+     "--multitaper at 4194302 bins"),
 ])
 def test_awkward_bins_above_the_kernels_exit_3(extra, rc, what, capsys):
     argv = ["-f", "100M", "-n", "4", "--source", "synthetic:"] + extra

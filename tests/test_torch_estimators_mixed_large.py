@@ -52,6 +52,7 @@ from rtl_power_fftw_tpu_torch.ops.kernels.fused_psd_pfb import \
     pfb_sums_reference
 from rtl_power_fftw_tpu_torch.ops.spectral import PsdStep
 
+from test_torch_awkward_n import CHIP_SMOKE
 from test_torch_estimator_streams import (MESH, assert_combined_close,
                                           assert_rows_close, jax_mesh,
                                           stream_rows_sum, streams_bytes)
@@ -767,3 +768,40 @@ def test_pfb_loads_keep_the_h_and_row_reads_rounded_on_their_own():
     assert body.count("__fadd_rn(v[m].x, __fmul_rn(") == 2
     assert body.count("__fadd_rn(v[m].y, __fmul_rn(") == 2
     assert "fmaf" not in body
+
+
+@pytest.mark.parametrize("drive,kind,streams", [
+    ("SK-ML", "sk", 1), ("PFB-ML", "pfb", 1), ("SK-ML-S", "sk", 2),
+    ("MT-ML-S", "mt", 2), ("PFB-ML-S", "pfb", 2)])
+def test_chip_smoke_drive_steps_are_the_sessions(drive, kind, streams,
+                                                 monkeypatch, tmp_path):
+    """chip_smoke.py phase 24 holds each form at the step its drive runs,
+    sized by its drive_frames_per_step: the session on the same argv hands
+    the form those frames and chunk, and nothing else (each call after the
+    first returns the first's rows, as only the shapes are held here)."""
+    argv = list((CHIP_SMOKE.EST24_STREAMS_ARGV if streams > 1
+                 else CHIP_SMOKE.EST24_ONE_ARGV)[drive])
+    N = int(argv[argv.index("-b") + 1])
+    if kind == "sk":
+        argv += ["--sk-file", str(tmp_path / "sk.txt")]
+    table = {"sk": (kurtosis.SK_KERNELS, kurtosis.SK_STREAMS_KERNELS),
+             "mt": (multitaper.TAPERS_KERNELS,
+                    multitaper.TAPERS_STREAMS_KERNELS),
+             "pfb": (pfb.PFB_KERNELS, pfb.PFB_STREAMS_KERNELS)}[kind][
+                 streams > 1]
+    form = table["mixed_large"]
+    at = 3 if kind == "pfb" else 2   # the chunk's argument
+    seen, first = [], []
+
+    def recorded(*args, **kwargs):
+        seen.append((tuple(args[0].shape), args[at]))
+        if not first:
+            first.append(form(*args, **kwargs))
+        return first[0]
+
+    monkeypatch.setitem(table, "mixed_large", recorded)
+    rv, _, _ = run(argv, port=True)
+    F, chunk = spectral.adapt_batch(
+        CHIP_SMOKE.drive_frames_per_step(argv, streams))
+    shape = (F, 2 * N) if streams == 1 else (streams, F, 2 * N)
+    assert int(rv) == 0 and seen and set(seen) == {(shape, chunk)}

@@ -405,7 +405,8 @@ def test_session_matrix_and_record_match_jax_session(name, tmp_path):
     (["-b", "8388608", "-n", "1"], "8388608 bins"),
     (["-b", "8388608", "--streams", "2"], "8388608 bins"),
     (["-b", "4194302", "--streams", "2"], "4194302 bins"),
-    (["-b", "20000", "--multitaper", "7"], "--multitaper at 20000 bins"),
+    (["-b", "4194302", "--multitaper", "7"],
+     "--multitaper at 4194302 bins"),
     (["-b", "65536", "--fft-backend", "pallas", "--precision", "high"],
      "--precision high at 65536 bins"),
 ])
