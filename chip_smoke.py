@@ -9501,8 +9501,7 @@ def main() -> int:
         cli, ff, card)
     lap("estimators at ML's N")
     print(f"wall: the whole script to phase 24's end in "
-          f"{time.perf_counter() - t_start:.1f} s (PR 27's run: 747.2 s to "
-          f"phase 23's end)")
+          f"{time.perf_counter() - t_start:.1f} s of its 1200 s limit")
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")
