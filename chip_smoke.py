@@ -1126,7 +1126,10 @@ def launch_counts(fp, ff) -> dict:
     streams forms of those six, "SK-BL", "MT-BL" and "PFB-BL" their forms
     of BL's passes and "SK-BL-S" ... "PFB-BL-S" those over streams,
     "SK-L", "MT-L" and "PFB-L" their forms of the large kernel's passes
-    and "SK-L-S" ... "PFB-L-S" those over streams, "SK-ML", "MT-ML" and
+    and "SK-L-S" ... "PFB-L-S" those over streams, "PFB-L control",
+    "PFB-L-S control", "PFB-BL control" and "PFB-BL-S control" the first
+    forms of those four PFB forms (the controls of their redesign),
+    "SK-ML", "MT-ML" and
     "PFB-ML" their forms of ML's passes and "SK-ML-S" ... "PFB-ML-S" those
     over streams, "M/B control" the
     kernel M and
@@ -1194,6 +1197,11 @@ def launch_counts(fp, ff) -> dict:
             "SK-L-S": fp.COUNTS.kernel_sk_large_streams,
             "MT-L-S": fp.COUNTS.kernel_tapers_large_streams,
             "PFB-L-S": fp.COUNTS.kernel_pfb_large_streams,
+            "PFB-L control": fp.COUNTS.kernel_pfb_large_control,
+            "PFB-L-S control": fp.COUNTS.kernel_pfb_large_streams_control,
+            "PFB-BL control": fp.COUNTS.kernel_pfb_chirp_large_control,
+            "PFB-BL-S control":
+                fp.COUNTS.kernel_pfb_chirp_large_streams_control,
             "SK-ML": fp.COUNTS.kernel_sk_mixed_large,
             "MT-ML": fp.COUNTS.kernel_tapers_mixed_large,
             "PFB-ML": fp.COUNTS.kernel_pfb_mixed_large,
@@ -9077,6 +9085,285 @@ def phase_estimators_ml(dev, rng, fp, adapt_batch, make_window, cli, ff,
             for s in (0, 1)]
 
 
+# Phase 25's shapes by family (one stream, P = 4: phases 22 and 23's timed
+# shapes and each family's largest), its S = 2 cases (N, F a stream,
+# uneven counts; the first timed), its other tap counts (at one small-F
+# shape where the route takes the pre-pass) and n_valid cases (F - 1, 1
+# and 0 at one shape), and the shapes profiled by pass.
+PFB25_ONE = {"L": ((65536, 16), (1 << 20, 8), (1 << 22, 8)),
+             "BL": ((16382, 256), (99998, 64), (2097150, 8))}
+PFB25_STREAMS = {"L": ((65536, 16, (16, 9)), (1 << 18, 8, (8, 5))),
+                 "BL": ((99998, 32, (32, 17)),)}
+PFB25_TAPS = {"L": (1 << 18, 8, (2, 16, 32)), "BL": (16382, 16, (2, 16, 32))}
+PFB25_COUNTS = {"L": (1 << 20, 8), "BL": (99998, 64)}
+PFB25_PROFILED = {"L": ((1 << 20, 8), (1 << 22, 8)), "BL": ((2097150, 8),)}
+# The yardsticks PERF.md's rows lacked at their timed shapes: (row, kind
+# of estimator_bound_ms, N, F, the complex64 transforms torch.fft.fft
+# takes: F frames, F K tapered frames at K = 7).
+PFB25_YARDSTICKS = (("SK-L", "SK", 1 << 22, 8, 8),
+                    ("MT-L", "MT", 1 << 22, 8, 56),
+                    ("SK-BL", "SK", 99998, 64, 64),
+                    ("SK-BL", "SK", 2097150, 8, 8),
+                    ("MT-BL", "MT", 99998, 64, 448),
+                    ("MT-BL", "MT", 2097150, 8, 56),
+                    ("PFB-ML", "PFB", 4167450, 8, 8))
+
+
+def phase_pfb_loads(dev, rng, fp, ff, card):
+    """25. PFB-L and PFB-BL's polyphase load redesigned: the pre-pass of
+    ``csrc/pfb_sums.cuh`` and pass A on its sums, routed by each wrapper's
+    ``PFB_ROUTE``, one stream and over streams, beside their controls (the
+    first forms, the sums in pass A's load): registers, spill, shared
+    memory and blocks per SM of each new pass beside the control's pass A
+    and the base kernel's; each form's output and next history the
+    control's bit for bit, and within the budgets of phases 22 and 23 of
+    its plain version and the per-stream float64 golden (``hold_streams``,
+    the FFTW-class budget from CLASS_FEW_N) at PFB25_ONE, PFB25_STREAMS,
+    PFB25_TAPS and PFB25_COUNTS; a call (median of 60 event-timed calls),
+    the device's time (twice) of each form, its control, the base kernel
+    and torch.fft.fft on the polyphase sums, in turns, with the plain
+    version's and the bound, at PFB25_ONE and the S = 2 shapes (there also
+    two one-stream calls and the base's streams entry); each form's device
+    time by pass at PFB25_PROFILED. Returns {form: fields of its control}
+    for the kernels line's entries of PFB-L, PFB-L-S, PFB-BL and
+    PFB-BL-S."""
+    from rtl_power_fftw_tpu_torch.models.pfb import pfb_prototype
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_large as fbl
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_large_est as be
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large as fl
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_large_est as le
+    from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
+    t0 = time.perf_counter()
+    # Each family: its module, the name its functions carry, the base
+    # kernel (one stream, streams) and its attributes, the base's pass A.
+    fam = {"L": (le, "large", fl.fused_psd_large,
+                 fl.fused_psd_large_streams, fl.kernel_attributes,
+                 fl.PASS_A),
+           "BL": (be, "chirp_large", fbl.fused_psd_chirp_large,
+                  fbl.fused_psd_chirp_large_streams, fbl.kernel_attributes,
+                  fbl.PASS_A)}
+
+    def form(f, streams=False, control=False):
+        mod, name = fam[f][0], fam[f][1]
+        return getattr(mod, f"fused_psd_pfb_{name}"
+                       + ("_streams" if streams else "")
+                       + ("_control" if control else ""))
+
+    def plain(f, streams=False):
+        mod, name = fam[f][0], fam[f][1]
+        return getattr(mod, f"pfb_{name}" + ("_streams" if streams else "")
+                       + "_reference")
+
+    # 1. What each pass gets on the card.
+    for f, shapes in PFB25_ONE.items():
+        mod = fam[f][0]
+        for N, _ in shapes:
+            base = fam[f][4](N, fam[f][5], dev)
+            parts = []
+            for which, name in ((mod.PFB_PASS_A, "pass A on the sums"),
+                                (mod.PFB_SUMS, "pre-pass P <= 4"),
+                                (mod.PFB_SUMS_32, "pre-pass P <= 32"),
+                                (mod.PFB_CONTROL_A, "the control's pass A")):
+                a = mod.kernel_attributes(N, which, dev)
+                parts.append(f"{name} {a['registers']} registers, "
+                             f"{a['spill_bytes']} B spill, "
+                             f"{a['static_smem']} + {a['dynamic_smem']} B "
+                             f"shared, {a['threads']} threads, "
+                             f"{a['blocks_per_sm']} blocks/SM")
+            print(f"occupancy PFB-{f} N={N} on {card}: " + "; ".join(parts)
+                  + f"; the base kernel's pass A {base['registers']} "
+                  f"registers, {base['spill_bytes']} B spill, "
+                  f"{base['blocks_per_sm']} blocks/SM; route "
+                  f"{mod.pfb_route(N, 4)} at P = 4")
+
+    def frames_dev(S, F, N):
+        return torch.randint(0, 256, (S, F, 2 * N), dtype=torch.uint8,
+                             device=dev, generator=torch.Generator(
+                                 device=dev).manual_seed(
+                                     int(rng.integers(1 << 30))))
+
+    # 2. The control's bits, and plain's and the golden's budgets.
+    def bits(f, N, F, P, counts, label):
+        S = len(counts)
+        raw = frames_dev(S, F, N)
+        hist = frames_dev(S, P - 1, N)
+        h_np = pfb_prototype(N, P).reshape(P, N)
+        h = torch.from_numpy(h_np).to(dev)
+        outs = [torch.empty_like(hist) for _ in range(3)]
+        c_dev = torch.tensor(counts, dtype=torch.int32, device=dev)
+        if S == 1:
+            got = form(f)(raw[0], hist[0], counts[0], F, h, outs[0][0])[None]
+            ctl = form(f, control=True)(raw[0], hist[0], counts[0], F, h,
+                                        outs[1][0])[None]
+            want = plain(f)(raw[0], hist[0], counts[0], F, h,
+                            outs[2][0])[None]
+        else:
+            got = form(f, True)(raw, hist, c_dev, F, h, outs[0])
+            ctl = form(f, True, True)(raw, hist, c_dev, F, h, outs[1])
+            want = plain(f, True)(raw, hist, c_dev, F, h, outs[2])
+        torch.cuda.synchronize()
+        gold, cls = [], np.ones(S)
+        for s, c in enumerate(counts):
+            v = torch.cat([hist[s], raw[s]])
+            gold.append(golden_pfb_dev(v, c, h_np))
+            if N >= CLASS_FEW_N and c > 0:
+                sums = fpf.pfb_sums_reference(v, h, c).cpu().numpy()
+                cls[s] = max_rel(f32_class_rows(
+                    sums.astype(np.complex128)).sum(0), gold[-1])
+        same = torch.equal(got, ctl) and torch.equal(outs[0], outs[1])
+        check(same and torch.equal(outs[0], outs[2]),
+              f"PFB-{f} {label}: not the control's bits ({same}) or not "
+              "plain's history")
+        print(f"bits PFB-{f}{'-S' * (S > 1)} {label} N={N} F={F} P={P} "
+              f"counts {list(counts)} (route {fam[f][0].pfb_route(N, P)}) "
+              f"on {card}: output and next history the control's bit for "
+              "bit, the history plain's; " + hold_streams(
+                  f"PFB-{f} {label}", got.cpu().numpy(),
+                  want.cpu().numpy(), np.stack(gold), counts,
+                  plain_factor=FEW_PLAIN,
+                  class_rel=cls if N >= CLASS_FEW_N else None))
+
+    for f in fam:
+        for N, F in PFB25_ONE[f]:
+            bits(f, N, F, 4, (F,), "every frame")
+        for N, F, counts in PFB25_STREAMS[f]:
+            bits(f, N, F, 4, counts, "over streams")
+        N, F, taps = PFB25_TAPS[f]
+        for P in taps:
+            bits(f, N, F, P, (F,), f"P={P}")
+        N, F = PFB25_COUNTS[f]
+        for c in (F - 1, 1, 0):
+            bits(f, N, F, 4, (c,), f"n_valid {c}")
+    print(f"wall: PFB loads' bits in {time.perf_counter() - t0:.1f} s")
+
+    # 3. Times, in turns on the same frames.
+    times = {}
+    P = 4
+    timed = [(f, N, 1, F) for f in fam for N, F in PFB25_ONE[f]] + [
+        (f, *PFB25_STREAMS[f][0][:1], 2, PFB25_STREAMS[f][0][1]) for f in fam]
+    for f, N, S, F in timed:
+        raw = frames_dev(S, F, N)
+        h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+        hist = [torch.full((S, P - 1, 2 * N), 127, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
+        nv = torch.full((S,), F, dtype=torch.int32, device=dev)
+        z = torch.cat([fpf.pfb_sums_reference(torch.cat([hist[0][s],
+                                                          raw[s]]), h, F)
+                       for s in range(S)])
+        if S == 1:
+            calls = {
+                "form": lambda: form(f)(raw[0], hist[0][0], F, F, h,
+                                        hist[1][0]),
+                "control": lambda: form(f, control=True)(
+                    raw[0], hist[0][0], F, F, h, hist[1][0]),
+                "base": lambda: fam[f][2](raw[0], F, F),
+                "fft": lambda: torch.fft.fft(z, dim=-1)}
+            plain_fn = lambda: plain(f)(raw[0], hist[0][0], F, F, h,
+                                        hist[1][0])
+        else:
+            calls = {
+                "form": lambda: form(f, True)(raw, hist[0], nv, F, h,
+                                              hist[1]),
+                "control": lambda: form(f, True, True)(raw, hist[0], nv, F,
+                                                       h, hist[1]),
+                "base": lambda: fam[f][3](raw, nv, F),
+                "fft": lambda: torch.fft.fft(z, dim=-1),
+                "two": lambda: [form(f)(raw[s], hist[0][s], F, F, h,
+                                        hist[1][s]) for s in range(S)]}
+            plain_fn = lambda: plain(f, True)(raw, hist[0], nv, F, h,
+                                              hist[1])
+        got = calls["form"]().double()
+        want = plain_fn().double()
+        rel = max_rel(got.cpu().numpy(), want.cpu().numpy())
+        check(rel <= UNIFORM_RTOL, f"PFB-{f} S={S} N={N}: {rel} vs plain")
+        dev_us = {k: [] for k in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for k in order:
+                dev_us[k].append(device_times_us(
+                    calls[k], calls=10 if k == "two" else 20))
+        t = {"N": N, "S": S, "F": F,
+             "max_abs": float((got - want).abs().max()),
+             "bound": estimator_bound_ms("PFB", S * F, N, P=P),
+             "call": event_times_us(calls["form"]),
+             "control_call": event_times_us(calls["control"]),
+             "plain": event_times_us(plain_fn, iters=20, warmup=3),
+             "lib": event_times_us(calls["fft"]),
+             **{f"{k}_device": min(v) for k, v in dev_us.items()}}
+        label = f"PFB-{f}{'-S' * (S > 1)}"
+        times.setdefault(label, []).append(t)
+        b_us = 1e3 * t["bound"][0]
+        two = (f"; two one-stream calls {t['two_device']:.1f} us "
+               f"({'/'.join(f'{x:.1f}' for x in dev_us['two'])}), "
+               f"streams/two {t['form_device'] / t['two_device']:.3f}"
+               if S > 1 else "")
+        print(f"time {label} N={N} S={S} F={F} P={P} (route "
+              f"{fam[f][0].pfb_route(N, P)}) on {card}: a call "
+              f"{t['call']:.1f} us, device {t['form_device']:.1f} us "
+              f"({'/'.join(f'{x:.1f}' for x in dev_us['form'])}); the "
+              f"control a call {t['control_call']:.1f} us, device "
+              f"{t['control_device']:.1f} us "
+              f"({'/'.join(f'{x:.1f}' for x in dev_us['control'])}), "
+              f"form/control {t['form_device'] / t['control_device']:.3f}; "
+              f"the base kernel {t['base_device']:.1f} us "
+              f"({'/'.join(f'{x:.1f}' for x in dev_us['base'])}), "
+              f"form/base {t['form_device'] / t['base_device']:.3f}, "
+              f"control/base {t['control_device'] / t['base_device']:.3f}"
+              f"{two}; torch.fft.fft of the {tuple(z.shape)} complex64 "
+              f"sums {t['lib']:.1f} us a call (device "
+              f"{t['fft_device']:.1f}), form/fft "
+              f"{t['form_device'] / t['fft_device']:.3f}; plain "
+              f"{t['plain']:.1f} us; bound {b_us:.2f} us ({t['bound'][1]}),"
+              f" device/bound {t['form_device'] / b_us:.1f}x; max abs vs "
+              f"plain {t['max_abs']:.4g}, max rel {rel:.3e}")
+    # The other rows' bounds and torch.fft.fft times at their timed shapes.
+    for row, kind, N, F, frames in PFB25_YARDSTICKS:
+        z = torch.complex(*(torch.randn((frames, N), device=dev)
+                            for _ in range(2)))
+        lib_us = device_times_us(lambda: torch.fft.fft(z, dim=-1), calls=5)
+        b_ms, b_by = estimator_bound_ms(kind, F, N, K=7, P=4)
+        print(f"yardstick {row} N={N} F={F} on {card}: torch.fft.fft of "
+              f"the ({frames}, {N}) complex64 transforms device "
+              f"{lib_us:.1f} us; bound {1e3 * b_ms:.2f} us ({b_by})")
+        del z
+    # 4. By pass.
+    markers = {"L": ["pfb_sums_kernel", "large_pfb_sums_a", "large_pfb_a",
+                     "large_streams_b", "pfb_history"],
+               "BL": ["pfb_sums_kernel", "chirp_pfb_sums_a", "chirp_pfb_a",
+                      "chirp_streams_b", "chirp_streams_c", "pfb_history"]}
+    for f, shapes in PFB25_PROFILED.items():
+        for N, F in shapes:
+            raw = frames_dev(1, F, N)[0]
+            h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+            hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8,
+                               device=dev) for _ in range(2)]
+            for control in (False, True):
+                profile_calls(
+                    f"PFB-{f}{' control' * control} N={N} F={F} P={P}",
+                    lambda: form(f, control=control)(raw, hist[0], F, F, h,
+                                                     hist[1]),
+                    markers[f], whole=["pfb_history"], tries=4)
+    print(f"wall: PFB loads phase in {time.perf_counter() - t0:.1f} s")
+    control_names = {"L": "large_pfb_a", "BL": "chirp_pfb_a"}
+    # Each form's control at its first timed shape (the kernels line's
+    # entry is phases 22 and 23's, on the same shapes), and every timed
+    # shape's device times.
+    return {label: {
+        "control": control_names[label.split("-")[1]] + " (the first form)",
+        "control_ms": ts[0]["control_call"] / 1000.0,
+        "control_device_ms": ts[0]["control_device"] / 1000.0,
+        "pfb25_shapes": [[t["N"], t["S"], t["F"], P] for t in ts],
+        "pfb25_device_ms": [t["form_device"] / 1000.0 for t in ts],
+        "pfb25_control_device_ms": [t["control_device"] / 1000.0
+                                    for t in ts],
+        "pfb25_base_device_ms": [t["base_device"] / 1000.0 for t in ts],
+        "pfb25_fft_device_ms": [t["fft_device"] / 1000.0 for t in ts],
+        "pfb25_bound_ms": [t["bound"][0] for t in ts]}
+        for label, ts in times.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run.")
@@ -9500,8 +9787,18 @@ def main() -> int:
         dev, np.random.default_rng(20261028), fp, adapt_batch, make_window,
         cli, ff, card)
     lap("estimators at ML's N")
-    print(f"wall: the whole script to phase 24's end in "
+
+    # 25. PFB-L and PFB-BL's polyphase load redesigned, beside their
+    # controls.
+    pfb_controls = phase_pfb_loads(dev, np.random.default_rng(20261029), fp,
+                                   ff, card)
+    lap("PFB loads")
+    print(f"wall: the whole script to phase 25's end in "
           f"{time.perf_counter() - t_start:.1f} s of its 1200 s limit")
+    for e in estimators_above + large_estimators:
+        label = re.search(r"\((PFB-B?L(?:-S)?)\)", e["name"])
+        if label and label.group(1) in pfb_controls:
+            e.update(pfb_controls[label.group(1)])
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
                   for m in sys.modules), "jax was imported")

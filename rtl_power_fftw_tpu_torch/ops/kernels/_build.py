@@ -202,8 +202,13 @@ SIGNATURES = {
         "rpf_fused_psd_pfb_chirp_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _I, _I, _P],
-        # log2m, which (0..5: passes A, A windowed, B, C, SK's C, the
-        # PFB's A), device, attrs (int[6])
+        # PFB-BL's control (its first form): PFB-BL's arguments
+        "rpf_fused_psd_pfb_chirp_large_control": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+            _I, _I, _I, _I, _I, _I, _I, _P],
+        # log2m, which (0..8: passes A, A windowed, B, C, SK's C, the
+        # PFB's A, its pre-pass at P <= 4 and <= 32, the control's PFB A),
+        # device, attrs (int[6])
         "rpf_fused_psd_chirp_large_est_attributes": [_I, _I, _I, _P],
     },
     "fused_psd_large_est": {
@@ -220,8 +225,13 @@ SIGNATURES = {
         # fresh, stream
         "rpf_fused_psd_pfb_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        # log2n, which (0..4: passes A, A windowed, B, SK's B, the PFB's
-        # A), device, attrs (int[6])
+        # PFB-L's control (its first form): PFB-L's arguments
+        "rpf_fused_psd_pfb_large_control": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _P, _P, _I, _I, _I, _I, _I, _I,
+                                            _I, _I, _P],
+        # log2n, which (0..7: passes A, A windowed, B, SK's B, the PFB's
+        # A, its pre-pass at P <= 4 and <= 32, the control's PFB A),
+        # device, attrs (int[6])
         "rpf_fused_psd_large_est_attributes": [_I, _I, _I, _P],
     },
     "fused_psd_mixed_large_est": {

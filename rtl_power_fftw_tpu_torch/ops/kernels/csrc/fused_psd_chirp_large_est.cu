@@ -45,12 +45,17 @@
 //           partial row (k S + s) G_s + j, and est_streams_kernel
 //           <kEstTapers> sums each stream's K G_s rows and divides by K.
 //           Each frame is read K times, as MT-B reads it;
-//   PFB-BL  pass A: chirp_pfb_a's load takes the frame's own row from the
-//           ring, as BL's pass A does, the P - 1 older rows from the
-//           history or the earlier frames through L1/L2, and h (P, N); the
-//           polyphase sum comes before the product with the chirp a[n].
-//           The next histories are launch_pfb_history's (pfb_history.cuh:
-//           its wide kernel for the rows of 2N >= 64 KB, M >= 2^16).
+//   PFB-BL  a pre-pass, pfb_sums_kernel (pfb_sums.cuh), forms every
+//           polyphase sum (n1 < M1 / 2, n < N) in one streaming pass over
+//           the stream's virtual rows and writes it into the scratch where
+//           pass A writes that value; pass A, chirp_pfb_sums_a, reads its
+//           batch's sums from there in place of the ring, then the product
+//           with the chirp a[n]. The next histories are
+//           launch_pfb_history's (pfb_history.cuh: its wide kernel for the
+//           rows of 2N >= 64 KB, M >= 2^16). Its first form, chirp_pfb_a
+//           (the sums in pass A's load: the own row from the ring, the
+//           older rows and h through L1/L2, a sample at a time), stays as
+//           the control, rpf_fused_psd_pfb_chirp_large_control.
 //
 // The passes are generic in log2 M and instantiated at BL's M = 2^15 ..
 // 2^22 (M = chirp_size(N): 2^15 for N in (8192, 16384], 2^22 for N in
@@ -61,9 +66,9 @@
 //
 // What bounds them on an H100: BL's bound (the frames' 2 bytes a sample;
 // the form moves 8M bytes of scratch a frame four times, which the bound
-// of the function does not count), times K passes for MT-BL, and plus the
-// P - 1 older rows and h through L1/L2 for PFB-BL (the function's bytes
-// are the frames once).
+// of the function does not count), times K passes for MT-BL, and for
+// PFB-BL plus h (4 P N bytes) and the history once, and the pre-pass's
+// sums, 8N bytes a frame written and read back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +81,7 @@
 #include "fused_psd_est.cuh"
 #include "large_streams.cuh"
 #include "pfb_history.cuh"
+#include "pfb_sums.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -225,6 +231,87 @@ chirp_pfb_a(const uint8_t* __restrict__ raw,       // (S*F, 2 bins)
   cp_async_wait<0>();
 }
 
+// PFB-BL's pass A: chirp_streams_a whose batch takes the column's 8
+// polyphase sums (rows n1 < M1 / 2, 0 where n >= bins) from the scratch,
+// where pfb_sums_kernel wrote them in the threads' order in the place
+// this batch writes its run (value k of thread tid at k THREADS_A + tid:
+// the run's first half), in place of the raw frame: copied as they lie
+// into a ring of two slots by cp.async, the next batch's while this one
+// is transformed, as large_pfb_sums_a copies them; times a[n]; then BL's
+// pass 0 and regs_a_rest. Two blocks an SM.
+template <int LOG2M>
+__global__ void __launch_bounds__(LargeRegs<LOG2M>::THREADS_A, 2)
+chirp_pfb_sums_a(const float2* __restrict__ twiddle,   // pass_twiddles(M1)
+                 const float2* __restrict__ inter,     // W_M^(k1 n2)
+                 const float2* __restrict__ chirp,     // a, threads' order
+                 float2* scratch,   // (S*F, M): the sums in, pass A out
+                 int bins, int F, int group, int G_s,
+                 const int* __restrict__ counts) {
+  using L = LargeRegs<LOG2M>;
+  using CR = ChirpRegs<LOG2M>;
+  constexpr int TF = L::TF1;
+  constexpr int RUN = L::N1 * L::B;       // a batch's run of scratch
+  constexpr int HALF = 8 * L::THREADS_A;  // its sums, 8 a thread
+  extern __shared__ float4 large_smem[];
+  float2* x = reinterpret_cast<float2*>(large_smem);
+  float2* ring = x + L::XBYTES_A / 8;
+  const int tid = threadIdx.x;
+  const int c = col_of<LOG2M>(tid);
+  const int t = row_of<LOG2M>(tid);
+  const int tile = blockIdx.x % L::TILES_A;
+  const int c0 = tile * L::C;
+  const StreamsBlock blk = streams_block(L::TILES_A, F, group, G_s, counts);
+  const int batches = blk.frames * L::SUBS;
+  auto run_of = [&](int q) {
+    return scratch + static_cast<size_t>(blk.first + q / L::SUBS) * L::N +
+           (c0 / L::B + q % L::SUBS) * RUN;
+  };
+  auto prefetch = [&](int q) {
+    if (q < batches) {
+      sums_prefetch(ring + (q & 1) * HALF, run_of(q), HALF, tid,
+                    L::THREADS_A);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+  for (int q = 0; q < batches; ++q) {
+    prefetch(q + 1);
+    cp_async_wait<1>();   // this thread's copies of batch q have landed
+    __syncthreads();      // everyone's; x is free (batch q - 1's stores)
+    const int s = q % L::SUBS;
+    const int col = s * L::B + c;
+    const float2* slot = ring + (q & 1) * HALF + tid;
+    const float2* a = chirp + (tile * L::SUBS + s) * CR::CHIRP_A;
+    float2 v[16];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int row = t + k * TF;
+      const int n = (row << L::LOG2N2) + c0 + col;
+      float2 y = make_float2(0.0f, 0.0f);
+      if (n < bins) {
+        y = cmulf(slot[k * L::THREADS_A], __ldg(a + k * L::THREADS_A + tid));
+      }
+      v[k] = y;
+    }
+    dif_stage_half_zero<16>(v);
+    dif_regs<16, 4>(v, 0);
+    first_store<L::LOG2N1>(v, x, twiddle, t,
+                           [c](int e) { return col_index<LOG2M>(c, e); });
+    regs_a_rest<LOG2M>(s, v, x, twiddle, inter,
+                       scratch + static_cast<size_t>(blk.first +
+                                                     q / L::SUBS) * L::N,
+                       c, t, c0);
+  }
+  cp_async_wait<0>();
+}
+
+// Shared memory of chirp_pfb_sums_a: the exchange and two slots of a
+// batch's sums.
+template <int LOG2M>
+constexpr int sums_a_smem() {
+  return LargeRegs<LOG2M>::XBYTES_A + 2 * 8 * LargeRegs<LOG2M>::THREADS_A * 8;
+}
+
 // SK-BL's pass C: chirp_streams_c with a sum of |z|^4 beside each sum of
 // |z|^2 (the latter BL's expression), the s1 row to partial row s G_s +
 // x / TILES_C of `rows` and the s2 row to row (S + s) G_s + x / TILES_C.
@@ -316,8 +403,11 @@ chirp_sk_c(const float2* __restrict__ scratch,   // (S*F, M)
 
 // The passes of this library, as the attributes entry numbers them: BL-S's
 // pass A unwindowed (0) and windowed (1), pass B (2), pass C (3), and the
-// forms' own SK pass C (4) and PFB pass A (5).
-constexpr int kPasses = 6;
+// forms' own SK pass C (4), PFB pass A (5), the PFB's pre-pass at the tap
+// classes 4 (6) and 32 (7), and the control's PFB pass A (8).
+constexpr int kPasses = 9;
+constexpr int kPfbPassA = 5;
+constexpr int kPfbControlA = 8;
 
 template <int LOG2M>
 const void* pass_kernel(int which) {
@@ -327,6 +417,9 @@ const void* pass_kernel(int which) {
     case 2: return reinterpret_cast<const void*>(chirp_streams_b<LOG2M>);
     case 3: return reinterpret_cast<const void*>(chirp_streams_c<LOG2M>);
     case 4: return reinterpret_cast<const void*>(chirp_sk_c<LOG2M>);
+    case 5: return reinterpret_cast<const void*>(chirp_pfb_sums_a<LOG2M>);
+    case 6: return sums_kernel<4>();
+    case 7: return sums_kernel<32>();
     default: return reinterpret_cast<const void*>(chirp_pfb_a<LOG2M>);
   }
 }
@@ -336,13 +429,16 @@ constexpr int pass_smem(int which) {
   using CR = ChirpRegs<LOG2M>;
   return which == 2 ? CR::SMEM_B
          : which == 3 || which == 4 ? CR::SMEM_C
+         : which == kPfbPassA       ? sums_a_smem<LOG2M>()
+         : which == 6 || which == 7 ? 0
                                     : CR::SMEM_A;
 }
 
 template <int LOG2M>
 constexpr int pass_threads(int which) {
   return which == 2 ? LargeRegs<LOG2M>::THREADS_B
-                    : LargeRegs<LOG2M>::THREADS_A;
+         : which == 6 || which == 7 ? kSumsThreads
+                                    : LargeRegs<LOG2M>::THREADS_A;
 }
 
 // The devices (a bit each) on which a pass at M = 2^LOG2M is opted into
@@ -461,18 +557,34 @@ cudaError_t launch_tapers(const Launch& l, const float* tapers, int K,
                                         l.counts, l.F, K, 0.0f, out, l.st);
 }
 
+// PFB-BL: the pre-pass and chirp_pfb_sums_a, or with `load` the first
+// form's chirp_pfb_a (the sums in its load); then passes B and C and the
+// sum.
 template <int LOG2M>
 cudaError_t launch_pfb(const Launch& l, const uint8_t* history,
                        const float* h, int P, float* partial, float* out,
-                       int device) {
+                       int device, bool load) {
   using L = LargeRegs<LOG2M>;
   using CR = ChirpRegs<LOG2M>;
-  cudaError_t e = prepare<LOG2M>(5, device);
+  const dim3 grid(l.g_a() * L::TILES_A, l.S);
+  cudaError_t e = prepare<LOG2M>(load ? kPfbControlA : kPfbPassA, device);
   if (e != cudaSuccess) return e;
-  chirp_pfb_a<LOG2M>
-      <<<dim3(l.g_a() * L::TILES_A, l.S), L::THREADS_A, CR::SMEM_A, l.st>>>(
-          l.raw, history, h, l.twiddle, l.inter, l.chirp, l.scratch, l.bins,
-          l.width, l.F, l.group_a, l.g_a(), l.counts, P);
+  if (load) {
+    chirp_pfb_a<LOG2M><<<grid, L::THREADS_A, CR::SMEM_A, l.st>>>(
+        l.raw, history, h, l.twiddle, l.inter, l.chirp, l.scratch, l.bins,
+        l.width, l.F, l.group_a, l.g_a(), l.counts, P);
+  } else {
+    const SumsShape shape{l.bins,        L::LOG2N2,     L::LOG2N1,
+                          log2_of(L::B), log2_of(L::V), CR::ROWS_A,
+                          L::N};
+    e = launch_pfb_sums(l.raw, history, h, l.scratch, shape, l.S, l.F, P,
+                        l.counts, l.st);
+    if (e != cudaSuccess) return e;
+    chirp_pfb_sums_a<LOG2M><<<grid, L::THREADS_A, sums_a_smem<LOG2M>(),
+                              l.st>>>(
+        l.twiddle, l.inter, l.chirp, l.scratch, l.bins, l.F, l.group_a,
+        l.g_a(), l.counts);
+  }
   e = cudaGetLastError();
   if (e == cudaSuccess) e = launch_b<LOG2M>(l, device);
   if (e == cudaSuccess) {
@@ -525,6 +637,47 @@ Launch make_launch(const void* raw, const void* twiddle, const void* inter,
           static_cast<float2*>(scratch),
           bins, width, S, F, group_a, group_b, group_c,
           static_cast<cudaStream_t>(stream)};
+}
+
+// PFB-BL's entry: the pre-pass and pass A on its sums, which the card
+// measured faster than the first form at every M and P
+// (probes/large_estimator_builds.py, route sweep), or with `control` the
+// first form.
+int pfb_entry(const void* raw, const void* history, const void* twiddle,
+              const void* inter, const void* h, const void* chirp,
+              const void* spectrum, const void* counts, void* scratch,
+              void* partial, void* out, void* history_out, int device,
+              int log2m, int bins, int width, int S, int F, int group_a,
+              int group_b, int group_c, int P, int fresh, void* stream,
+              bool control) {
+  const Launch l = make_launch(raw, twiddle, inter, chirp, spectrum, counts,
+                               scratch, bins, width, S, F, group_a, group_b,
+                               group_c, stream);
+  if (!launch_ok(l, log2m) || P < 1 || P > 32 || h == nullptr ||
+      out == nullptr ||
+      (P > 1 && (history == nullptr || history_out == nullptr ||
+                 history == history_out ||
+                 reinterpret_cast<uintptr_t>(history) % 4 != 0 ||
+                 reinterpret_cast<uintptr_t>(history_out) % 4 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e == cudaSuccess && fresh && P > 1) {
+    e = cudaMemsetAsync(const_cast<void*>(history), 127,
+                        static_cast<size_t>(S) * (P - 1) * 2 * bins, l.st);
+  }
+  if (e == cudaSuccess) {
+    e = at_log2m(log2m, [&](auto m) {
+      return launch_pfb<decltype(m)::value>(
+          l, static_cast<const uint8_t*>(history),
+          static_cast<const float*>(h), P, static_cast<float*>(partial),
+          static_cast<float*>(out), device, control);
+    });
+  }
+  if (e != cudaSuccess || P == 1) return static_cast<int>(e);
+  return static_cast<int>(launch_pfb_history(raw, history, history_out,
+                                             counts, S, F, P, 2 * bins,
+                                             l.st));
 }
 
 }  // namespace
@@ -604,8 +757,8 @@ int rpf_fused_psd_tapers_chirp_large(const void* raw, const void* twiddle,
 // a stream); out: (S, row) f32; fresh: set every stream's history to byte
 // 127 first. After the sum, each stream's next history (rows n_valid[s] ..
 // n_valid[s] + P - 2 of its virtual array) is written to history_out on
-// the stream (pfb_history.cuh). Other arguments as
-// rpf_fused_psd_sk_chirp_large.
+// the stream (pfb_history.cuh). The sums by the pre-pass, then pass A over
+// them. Other arguments as rpf_fused_psd_sk_chirp_large.
 int rpf_fused_psd_pfb_chirp_large(const void* raw, const void* history,
                                   const void* twiddle, const void* inter,
                                   const void* h, const void* chirp,
@@ -615,39 +768,31 @@ int rpf_fused_psd_pfb_chirp_large(const void* raw, const void* history,
                                   int bins, int width, int S, int F,
                                   int group_a, int group_b, int group_c,
                                   int P, int fresh, void* stream) {
-  const Launch l = make_launch(raw, twiddle, inter, chirp, spectrum, counts,
-                               scratch, bins, width, S, F, group_a, group_b,
-                               group_c, stream);
-  if (!launch_ok(l, log2m) || P < 1 || P > 32 || h == nullptr ||
-      out == nullptr ||
-      (P > 1 && (history == nullptr || history_out == nullptr ||
-                 history == history_out ||
-                 reinterpret_cast<uintptr_t>(history) % 4 != 0 ||
-                 reinterpret_cast<uintptr_t>(history_out) % 4 != 0))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t e = use_device(device);
-  if (e == cudaSuccess && fresh && P > 1) {
-    e = cudaMemsetAsync(const_cast<void*>(history), 127,
-                        static_cast<size_t>(S) * (P - 1) * 2 * bins, l.st);
-  }
-  if (e == cudaSuccess) {
-    e = at_log2m(log2m, [&](auto m) {
-      return launch_pfb<decltype(m)::value>(
-          l, static_cast<const uint8_t*>(history),
-          static_cast<const float*>(h), P, static_cast<float*>(partial),
-          static_cast<float*>(out), device);
-    });
-  }
-  if (e != cudaSuccess || P == 1) return static_cast<int>(e);
-  return static_cast<int>(launch_pfb_history(raw, history, history_out,
-                                             counts, S, F, P, 2 * bins,
-                                             l.st));
+  return pfb_entry(raw, history, twiddle, inter, h, chirp, spectrum, counts,
+                   scratch, partial, out, history_out, device, log2m, bins,
+                   width, S, F, group_a, group_b, group_c, P, fresh, stream,
+                   false);
+}
+
+// The control of rpf_fused_psd_pfb_chirp_large, the same arguments:
+// PFB-BL's first form, the sums in pass A's load (chirp_pfb_a).
+int rpf_fused_psd_pfb_chirp_large_control(
+    const void* raw, const void* history, const void* twiddle,
+    const void* inter, const void* h, const void* chirp, const void* spectrum,
+    const void* counts, void* scratch, void* partial, void* out,
+    void* history_out, int device, int log2m, int bins, int width, int S,
+    int F, int group_a, int group_b, int group_c, int P, int fresh,
+    void* stream) {
+  return pfb_entry(raw, history, twiddle, inter, h, chirp, spectrum, counts,
+                   scratch, partial, out, history_out, device, log2m, bins,
+                   width, S, F, group_a, group_b, group_c, P, fresh, stream,
+                   true);
 }
 
 // Writes what a pass gets at M = 2^log2m on `device` into attrs[0..5]
 // (which: 0 pass A, 1 pass A windowed, 2 pass B, 3 pass C, 4 SK's pass C,
-// 5 the PFB's pass A): registers and local (spill) bytes a thread, static
+// 5 the PFB's pass A, 6 and 7 its pre-pass at P <= 4 and P <= 32, 8 the
+// control's PFB pass A): registers and local (spill) bytes a thread, static
 // and dynamic shared bytes a block, threads a block, and the blocks that
 // reside on one SM. Launches nothing.
 int rpf_fused_psd_chirp_large_est_attributes(int log2m, int which,

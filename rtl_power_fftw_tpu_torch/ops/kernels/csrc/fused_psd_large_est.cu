@@ -47,12 +47,15 @@
 //           est_streams_kernel<kEstTapers> sums each stream's K G_s rows
 //           and divides by K. Each frame is read K times, as MT-BL reads
 //           it;
-//   PFB-L   pass A: large_pfb_a's load takes the frame's own row from the
-//           ring, as pass A does, the P - 1 older rows from the history or
-//           the earlier frames through L1/L2, and h (P, N), tap by tap
-//           over a thread's 16 samples; the polyphase sum comes before the
-//           column transform. The next histories are
-//           pfb_history_wide_kernel's (pfb_history.cuh).
+//   PFB-L   a pre-pass, pfb_sums_kernel (pfb_sums.cuh), forms every
+//           polyphase sum in one streaming pass over the stream's virtual
+//           rows and writes it into the scratch where pass A writes that
+//           value; pass A, large_pfb_sums_a, reads its batch's sums from
+//           there in place of the ring. The next histories are
+//           pfb_history_wide_kernel's (pfb_history.cuh). Its first form,
+//           large_pfb_a (the sums in pass A's load: the own row from the
+//           ring, the older rows and h through L1/L2), stays as the
+//           control, rpf_fused_psd_pfb_large_control.
 //
 // The passes are instantiated at every log2 N from 15 to 22; the entries
 // dispatch on it (at_log2n). The grid is the large kernel's own (the
@@ -62,10 +65,10 @@
 // What bounds them on an H100: the large kernel's bound (the frames' 2
 // bytes a sample; the form moves 8N bytes of scratch a frame twice each
 // way, which the bound of the function does not count), times K passes for
-// MT-L, and for PFB-L the prototype h, 4 P N bytes, and the P - 1 older
-// rows through L1/L2 a frame: at 2^22 and P = 4, 64 MB of h a frame
-// against 8 MB of frames, above the 50 MB L2, so there h's reads are the
-// floor.
+// MT-L, and for PFB-L the prototype h, 4 P N bytes, once, and the
+// pre-pass's sums, 8N bytes a frame written and read back (the control
+// read h and the P - 1 older rows through L1/L2 a frame: at 2^22 and P =
+// 4, 64 MB of h a frame against 8 MB of frames, above the 50 MB L2).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +82,7 @@
 #include "fused_psd_large_streams.cuh"
 #include "large_streams.cuh"
 #include "pfb_history.cuh"
+#include "pfb_sums.cuh"
 #include "psd_sum.cuh"
 
 namespace {
@@ -209,6 +213,70 @@ large_pfb_a(const uint8_t* __restrict__ raw,       // (S*F, 2N)
   cp_async_wait<0>();
 }
 
+// PFB-L's pass A: large_streams_a whose batch takes the column's 16
+// polyphase sums from the scratch, where pfb_sums_kernel wrote them in the
+// threads' order in the place this batch writes its run (value k of
+// thread tid at k THREADS_A + tid), in place of the raw frame: a batch's
+// N1 B sums are copied as they lie into a ring of two slots by cp.async
+// (sums_prefetch), the next batch's while this one is transformed, and a
+// warp reads 256 bytes in a row of its slot; then pass A's passes and
+// stores over them. Two blocks an SM (~99 KB each).
+template <int LOG2N>
+__global__ void __launch_bounds__(LargeRegs<LOG2N>::THREADS_A, 2)
+large_pfb_sums_a(const float2* __restrict__ twiddle,   // pass_twiddles(N1)
+                 const float2* __restrict__ inter,     // W_N^(k1 n2)
+                 float2* scratch,   // (S*F, N): the sums in, pass A out
+                 int F, int group, int G_s, const int* __restrict__ counts) {
+  using L = LargeRegs<LOG2N>;
+  constexpr int RUN = L::N1 * L::B;   // a batch's sums, 16 a thread
+  extern __shared__ float4 large_smem[];
+  float2* x = reinterpret_cast<float2*>(large_smem);
+  float2* ring = x + L::XBYTES_A / 8;
+  const int tid = threadIdx.x;
+  const int c = col_of<LOG2N>(tid);
+  const int t = row_of<LOG2N>(tid);
+  const int c0 = (blockIdx.x % L::TILES_A) * L::C;
+  const StreamsBlock blk = streams_block(L::TILES_A, F, group, G_s, counts);
+  const int batches = blk.frames * L::SUBS;
+  // Batch q: frame q / SUBS of the block, columns (q mod SUBS) B + c of
+  // its tile; its run is read (copied) before any thread stores it.
+  auto run_of = [&](int q) {
+    return scratch + static_cast<size_t>(blk.first + q / L::SUBS) * L::N +
+           (c0 / L::B + q % L::SUBS) * RUN;
+  };
+  auto prefetch = [&](int q) {
+    if (q < batches) {
+      sums_prefetch(ring + (q & 1) * RUN, run_of(q), RUN, tid, L::THREADS_A);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+  for (int q = 0; q < batches; ++q) {
+    prefetch(q + 1);
+    cp_async_wait<1>();   // this thread's copies of batch q have landed
+    __syncthreads();      // everyone's; x is free (batch q - 1's stores)
+    const float2* slot = ring + (q & 1) * RUN + tid;
+    float2 v[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = slot[k * L::THREADS_A];
+    first_pass<L::LOG2N1>(v, x, twiddle, t,
+                          [c](int e) { return col_index<LOG2N>(c, e); });
+    regs_a_rest<LOG2N>(q % L::SUBS, v, x, twiddle, inter,
+                       scratch + static_cast<size_t>(blk.first +
+                                                     q / L::SUBS) * L::N,
+                       c, t, c0);
+  }
+  cp_async_wait<0>();
+}
+
+// Shared memory of large_pfb_sums_a: the exchange and two slots of a
+// batch's sums.
+template <int LOG2N>
+constexpr int sums_a_smem() {
+  return LargeRegs<LOG2N>::XBYTES_A +
+         2 * LargeRegs<LOG2N>::N1 * LargeRegs<LOG2N>::B * 8;
+}
+
 // SK-L's pass B: large_streams_b with a sum of |X|^4 beside each sum of
 // |X|^2 (the latter large_regs_b's expression), the s1 row of block (x,
 // s) to row r = s G_s + x / TILES_B of `rows` (at r * row_stride) and the
@@ -321,8 +389,11 @@ large_sk_b(const float2* __restrict__ scratch,   // (S*F, N)
 
 // The passes of this library, as the attributes entry numbers them: L-S's
 // pass A unwindowed (0) and windowed (1), pass B (2), and the forms' own
-// SK pass B (3) and PFB pass A (4).
-constexpr int kPasses = 5;
+// SK pass B (3), PFB pass A (4), the PFB's pre-pass at the tap classes 4
+// (5) and 32 (6), and the control's PFB pass A (7).
+constexpr int kPasses = 8;
+constexpr int kPfbPassA = 4;
+constexpr int kPfbControlA = 7;
 
 template <int LOG2N>
 const void* pass_kernel(int which) {
@@ -331,6 +402,9 @@ const void* pass_kernel(int which) {
     case 1: return reinterpret_cast<const void*>(large_streams_a<LOG2N, true>);
     case 2: return reinterpret_cast<const void*>(large_streams_b<LOG2N>);
     case 3: return reinterpret_cast<const void*>(large_sk_b<LOG2N>);
+    case 4: return reinterpret_cast<const void*>(large_pfb_sums_a<LOG2N>);
+    case 5: return sums_kernel<4>();
+    case 6: return sums_kernel<32>();
     default: return reinterpret_cast<const void*>(large_pfb_a<LOG2N>);
   }
 }
@@ -338,13 +412,16 @@ const void* pass_kernel(int which) {
 template <int LOG2N>
 constexpr int pass_smem(int which) {
   return which == 2 || which == 3 ? LargeRegs<LOG2N>::SMEM_B
-                                  : LargeRegs<LOG2N>::SMEM_A;
+         : which == kPfbPassA     ? sums_a_smem<LOG2N>()
+         : which == 5 || which == 6 ? 0
+                                    : LargeRegs<LOG2N>::SMEM_A;
 }
 
 template <int LOG2N>
 constexpr int pass_threads(int which) {
   return which == 2 || which == 3 ? LargeRegs<LOG2N>::THREADS_B
-                                  : LargeRegs<LOG2N>::THREADS_A;
+         : which == 5 || which == 6 ? kSumsThreads
+                                    : LargeRegs<LOG2N>::THREADS_A;
 }
 
 // The devices (a bit each) on which a pass at N = 2^LOG2N is opted into
@@ -469,17 +546,31 @@ cudaError_t launch_tapers(const Launch& l, const float* tapers, int K,
                                         l.counts, l.F, K, 0.0f, out, l.st);
 }
 
+// PFB-L: the pre-pass and large_pfb_sums_a, or with `load` the first
+// form's large_pfb_a (the sums in its load); then pass B and the sum.
 template <int LOG2N>
 cudaError_t launch_pfb(const Launch& l, const uint8_t* history,
                        const float* h, int P, float* partial, float* out,
-                       int device) {
+                       int device, bool load) {
   using L = LargeRegs<LOG2N>;
-  cudaError_t e = prepare<LOG2N>(4, device);
+  const dim3 grid(l.g_a() * L::TILES_A, l.S);
+  cudaError_t e = prepare<LOG2N>(load ? kPfbControlA : kPfbPassA, device);
   if (e != cudaSuccess) return e;
-  large_pfb_a<LOG2N>
-      <<<dim3(l.g_a() * L::TILES_A, l.S), L::THREADS_A, L::SMEM_A, l.st>>>(
-          l.raw, history, h, l.twiddle, l.inter, l.scratch, l.F, l.group_a,
-          l.g_a(), l.counts, P);
+  if (load) {
+    large_pfb_a<LOG2N><<<grid, L::THREADS_A, L::SMEM_A, l.st>>>(
+        l.raw, history, h, l.twiddle, l.inter, l.scratch, l.F, l.group_a,
+        l.g_a(), l.counts, P);
+  } else {
+    const SumsShape shape{L::N,          L::LOG2N2,     L::LOG2N1,
+                          log2_of(L::B), log2_of(L::V), L::N1,
+                          L::N};
+    e = launch_pfb_sums(l.raw, history, h, l.scratch, shape, l.S, l.F, P,
+                        l.counts, l.st);
+    if (e != cudaSuccess) return e;
+    large_pfb_sums_a<LOG2N><<<grid, L::THREADS_A, sums_a_smem<LOG2N>(),
+                              l.st>>>(
+        l.twiddle, l.inter, l.scratch, l.F, l.group_a, l.g_a(), l.counts);
+  }
   e = cudaGetLastError();
   if (e == cudaSuccess) {
     e = launch_b<LOG2N>(l, l.g_b() == 1 ? out : partial, device);
@@ -523,6 +614,63 @@ Launch make_launch(const void* raw, const void* twiddle, const void* inter,
           static_cast<float2*>(scratch),
           S, F, group_a, group_b,
           static_cast<cudaStream_t>(stream)};
+}
+
+// PFB-L's route at N = 2^log2n and P taps (fused_psd_large_est.PFB_LOAD
+// mirrors it): 1 where the first form's pass A, the sums in its load
+// (large_pfb_a), took less device time on an H100 than the pre-pass and
+// pass A on its sums (probes/large_estimator_builds.py, route sweep: 16
+// frames up to 2^17, 8 above), by log2 N and the tap class of P
+// (sums_taps: 2, 4, 8, 16, 32). Where N1 <= 256 a half-warp of the first
+// form loads 16 adjacent columns, and a few taps re-read from L2 cost
+// less than the sums' trip through device memory.
+constexpr unsigned char kPfbLoad[kMaxLog2N - kMinLog2N + 1][5] = {
+    {1, 1, 1, 1, 1},   // 2^15
+    {1, 1, 1, 1, 1},   // 2^16
+    {1, 1, 1, 0, 0},   // 2^17
+    {0, 0, 0, 0, 0},   // 2^18
+    {0, 0, 0, 0, 0},   // 2^19
+    {0, 0, 0, 0, 0},   // 2^20
+    {0, 0, 0, 0, 0},   // 2^21
+    {0, 0, 0, 0, 0},   // 2^22
+};
+
+// PFB-L's entry: by the route, or with `control` the first form.
+int pfb_entry(const void* raw, const void* history, const void* twiddle,
+              const void* inter, const void* h, const void* counts,
+              void* scratch, void* partial, void* out, void* history_out,
+              int device, int log2n, int S, int F, int group_a, int group_b,
+              int P, int fresh, void* stream, bool control) {
+  const Launch l = make_launch(raw, twiddle, inter, counts, scratch, S, F,
+                               group_a, group_b, stream);
+  if (!launch_ok(l, log2n) || P < 1 || P > 32 || h == nullptr ||
+      out == nullptr ||
+      (P > 1 && (history == nullptr || history_out == nullptr ||
+                 history == history_out ||
+                 reinterpret_cast<uintptr_t>(history) % 4 != 0 ||
+                 reinterpret_cast<uintptr_t>(history_out) % 4 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int bins = 1 << log2n;
+  cudaError_t e = use_device(device);
+  if (e == cudaSuccess && fresh && P > 1) {
+    e = cudaMemsetAsync(const_cast<void*>(history), 127,
+                        static_cast<size_t>(S) * (P - 1) * 2 * bins, l.st);
+  }
+  if (e == cudaSuccess) {
+    e = at_log2n(log2n, [&](auto n) {
+      return launch_pfb<decltype(n)::value>(
+          l, static_cast<const uint8_t*>(history),
+          static_cast<const float*>(h), P, static_cast<float*>(partial),
+          static_cast<float*>(out), device,
+          control ||
+              kPfbLoad[log2n - kMinLog2N][log2_of(sums_taps(P)) - 1] != 0);
+    });
+  }
+  if (e != cudaSuccess || P == 1) return static_cast<int>(e);
+  return static_cast<int>(launch_pfb_history(raw, history, history_out,
+                                             counts, S, F, P, 2 * bins,
+                                             l.st));
 }
 
 }  // namespace
@@ -595,46 +743,37 @@ int rpf_fused_psd_tapers_large(const void* raw, const void* twiddle,
 // stream); out: (S, N) f32; fresh: set every stream's history to byte 127
 // first. After the sum, each stream's next history (rows n_valid[s] ..
 // n_valid[s] + P - 2 of its virtual array) is written to history_out on
-// the stream (pfb_history.cuh). Other arguments as rpf_fused_psd_sk_large.
+// the stream (pfb_history.cuh). The sums by the pre-pass, then pass A over
+// them. Other arguments as rpf_fused_psd_sk_large.
 int rpf_fused_psd_pfb_large(const void* raw, const void* history,
                             const void* twiddle, const void* inter,
                             const void* h, const void* counts, void* scratch,
                             void* partial, void* out, void* history_out,
                             int device, int log2n, int S, int F, int group_a,
                             int group_b, int P, int fresh, void* stream) {
-  const Launch l = make_launch(raw, twiddle, inter, counts, scratch, S, F,
-                               group_a, group_b, stream);
-  if (!launch_ok(l, log2n) || P < 1 || P > 32 || h == nullptr ||
-      out == nullptr ||
-      (P > 1 && (history == nullptr || history_out == nullptr ||
-                 history == history_out ||
-                 reinterpret_cast<uintptr_t>(history) % 4 != 0 ||
-                 reinterpret_cast<uintptr_t>(history_out) % 4 != 0))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int bins = 1 << log2n;
-  cudaError_t e = use_device(device);
-  if (e == cudaSuccess && fresh && P > 1) {
-    e = cudaMemsetAsync(const_cast<void*>(history), 127,
-                        static_cast<size_t>(S) * (P - 1) * 2 * bins, l.st);
-  }
-  if (e == cudaSuccess) {
-    e = at_log2n(log2n, [&](auto n) {
-      return launch_pfb<decltype(n)::value>(
-          l, static_cast<const uint8_t*>(history),
-          static_cast<const float*>(h), P, static_cast<float*>(partial),
-          static_cast<float*>(out), device);
-    });
-  }
-  if (e != cudaSuccess || P == 1) return static_cast<int>(e);
-  return static_cast<int>(launch_pfb_history(raw, history, history_out,
-                                             counts, S, F, P, 2 * bins,
-                                             l.st));
+  return pfb_entry(raw, history, twiddle, inter, h, counts, scratch, partial,
+                   out, history_out, device, log2n, S, F, group_a, group_b,
+                   P, fresh, stream, false);
+}
+
+// The control of rpf_fused_psd_pfb_large, the same arguments: PFB-L's
+// first form, the sums in pass A's load (large_pfb_a).
+int rpf_fused_psd_pfb_large_control(const void* raw, const void* history,
+                                    const void* twiddle, const void* inter,
+                                    const void* h, const void* counts,
+                                    void* scratch, void* partial, void* out,
+                                    void* history_out, int device, int log2n,
+                                    int S, int F, int group_a, int group_b,
+                                    int P, int fresh, void* stream) {
+  return pfb_entry(raw, history, twiddle, inter, h, counts, scratch, partial,
+                   out, history_out, device, log2n, S, F, group_a, group_b,
+                   P, fresh, stream, true);
 }
 
 // Writes what a pass gets at N = 2^log2n on `device` into attrs[0..5]
 // (which: 0 pass A, 1 pass A windowed, 2 pass B, 3 SK's pass B, 4 the
-// PFB's pass A): registers and local (spill) bytes a thread, static and
+// PFB's pass A, 5 and 6 its pre-pass at P <= 4 and P <= 32, 7 the
+// control's PFB pass A): registers and local (spill) bytes a thread, static and
 // dynamic shared bytes a block, threads a block, and the blocks that
 // reside on one SM. Launches nothing.
 int rpf_fused_psd_large_est_attributes(int log2n, int which, int device,

@@ -171,6 +171,10 @@ class LaunchCounts:
     ``kernel_pfb_large`` their forms of the large kernel's passes
     (:mod:`.fused_psd_large_est`: SK-L, MT-L, PFB-L), with ``_streams``
     after each the calls over streams (SK-L-S ... PFB-L-S), and
+    ``kernel_pfb_large_control``, ``kernel_pfb_large_streams_control``,
+    ``kernel_pfb_chirp_large_control`` and
+    ``kernel_pfb_chirp_large_streams_control`` the first forms of PFB-L,
+    PFB-L-S, PFB-BL and PFB-BL-S (the controls of their redesign), and
     ``kernel_sk_mixed_large``, ``kernel_tapers_mixed_large`` and
     ``kernel_pfb_mixed_large`` their forms of ML's passes
     (:mod:`.fused_psd_mixed_large_est`: SK-ML, MT-ML, PFB-ML), with
@@ -249,6 +253,10 @@ class LaunchCounts:
         self.kernel_sk_large_streams = 0
         self.kernel_tapers_large_streams = 0
         self.kernel_pfb_large_streams = 0
+        self.kernel_pfb_large_control = 0
+        self.kernel_pfb_large_streams_control = 0
+        self.kernel_pfb_chirp_large_control = 0
+        self.kernel_pfb_chirp_large_streams_control = 0
         self.kernel_sk_mixed_large = 0
         self.kernel_tapers_mixed_large = 0
         self.kernel_pfb_mixed_large = 0

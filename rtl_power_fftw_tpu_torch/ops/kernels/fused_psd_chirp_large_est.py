@@ -27,11 +27,16 @@ one-stream wrappers call it at S = 1:
   taper (pass A windowed by the taper) over one scratch, taper k's rows in
   plane k of the partial rows, summed in float64 and divided by K.
 * :func:`fused_psd_pfb_chirp_large`: |DFT(S_j)|^2 of the polyphase sums
-  S_j = sum over p of h[p] x_{j+p} (p in order from zero, float32, no FMA),
-  each taken before the chirp product in pass A (the frame's own row from
-  pass A's ring, the P - 1 older rows through L1/L2), over P - 1 history
-  rows and the F frames; the next history written to ``history_out`` on
-  the stream.
+  S_j = sum over p of h[p] x_{j+p} (p in order from zero, float32, no FMA)
+  over P - 1 history rows and the F frames, formed by the pre-pass of
+  ``csrc/pfb_sums.cuh`` (rows n1 < M1 / 2, n < N) into the scratch in pass
+  A's threads' order (:func:`.fused_psd_large_est.sums_place` of
+  :func:`sums_shape`), which pass A reads back in place of its ring
+  before the chirp product; the next history written to ``history_out``
+  on the stream. :func:`fused_psd_pfb_chirp_large_control`
+  runs its first form, the sums in pass A's load (the own row from the
+  ring, the older rows and h through L1/L2), on the same arguments: the
+  same bits.
 
 :func:`fused_psd_sk_chirp_large_streams`,
 :func:`fused_psd_tapers_chirp_large_streams` and
@@ -40,7 +45,8 @@ S streams of F frames, (S, F, 2N), on BL-S's grid
 (:func:`.fused_psd_chirp_large.streams_grid`): each stream's rows are the
 one-stream form's on the same groups (the one-stream wrappers' ``group_c``),
 and SK-BL-S's s1 is :func:`.fused_psd_chirp_large.
-fused_psd_chirp_large_streams`'s row bit for bit.
+fused_psd_chirp_large_streams`'s row bit for bit; PFB-BL-S's control is
+:func:`fused_psd_pfb_chirp_large_streams_control`.
 
 Each dispatches on the tensor's device: a CPU tensor runs the plain
 PyTorch version (:func:`sk_chirp_large_reference`,
@@ -50,7 +56,9 @@ in torch ops, :func:`.fused_psd_chirp_large.chirp_large_dft_power`, for the
 transform); a CUDA tensor the kernels, or raises. ``COUNTS.
 kernel_sk_chirp_large``, ``kernel_tapers_chirp_large`` and
 ``kernel_pfb_chirp_large`` (in :mod:`.fused_psd`) count their launches,
-with ``_streams`` after each the streams wrappers'.
+with ``_streams`` after each the streams wrappers', and
+``kernel_pfb_chirp_large_control`` and
+``kernel_pfb_chirp_large_streams_control`` the controls'.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ import torch
 
 from . import fused_psd as fp
 from . import fused_psd_chirp_large as bl
+from . import fused_psd_large as fl
 from .fused_psd_large import _raw_stream
 from .fused_psd_mixed import copy_width
 from .fused_psd_mixed_est import check_group, check_streams_histories
@@ -82,13 +91,48 @@ MIN_N = bl.MIN_N
 MAX_N = bl.MAX_N
 #: The passes :func:`kernel_attributes` asks of, kept in step with the
 #: source's attributes entry: BL-S's pass A (unwindowed, windowed), B and
-#: C, SK's pass C and the PFB's pass A.
-PASS_A, PASS_A_WINDOWED, PASS_B, PASS_C, SK_PASS_C, PFB_PASS_A = range(6)
+#: C, SK's pass C, the PFB's pass A, its pre-pass at the tap classes 4 and
+#: 32 and the control's PFB pass A.
+(PASS_A, PASS_A_WINDOWED, PASS_B, PASS_C, SK_PASS_C, PFB_PASS_A, PFB_SUMS,
+ PFB_SUMS_32, PFB_CONTROL_A) = range(9)
 
 
 def fused_psd_chirp_large_est_eligible(N: int) -> bool:
     """True iff the forms take N bins: even, 8194..2^21."""
     return bl.fused_psd_chirp_large_eligible(N)
+
+
+def pfb_route(N: int, P: int) -> str:
+    """PFB-BL's route at N bins and P taps, as PFB-L's
+    (:func:`.fused_psd_large_est.pfb_route`): "sums" (the pre-pass, then
+    pass A on its sums) at every N and P, where the card measured it
+    faster than the first form's pass A ("load", which the control
+    runs)."""
+    return "sums"
+
+
+def pfb_smem(N: int, route: str) -> int:
+    """Dynamic shared memory of the PFB's pass A on a route at N: the
+    first form's, BL's pass A (the exchange and two slots of the tile's
+    rows below M1 / 2); on the sums, the exchange and two slots of a
+    batch's 8 THREADS_A sums (``sums_a_smem`` of the source)."""
+    r = bl.chirp_regs_layout(N).regs
+    xbytes = 8 * r["B"] * r["XS"]
+    if route == "load":
+        return xbytes + 2 * (r["N1"] // 2) * 2 * r["C"]
+    return xbytes + 2 * 8 * r["threads_a"] * 8
+
+
+def sums_shape(N: int) -> dict:
+    """The PFB pre-pass's ``SumsShape`` at N (:func:`.fused_psd_large_est.
+    sums_shape`'s fields): M's (n1, n2) array, the rows n1 < M1 / 2 that
+    hold samples, M float2 a frame of scratch."""
+    t = bl.chirp_regs_layout(N)
+    r = t.regs
+    lg = lambda x: x.bit_length() - 1
+    return {"bins": N, "log2n2": lg(r["N2"]), "log2n1": lg(r["N1"]),
+            "log2b": lg(r["B"]), "log2v": lg(r["V"]), "rows": r["N1"] // 2,
+            "frame": t.M}
 
 
 def sk_chirp_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -176,15 +220,28 @@ def grid(N: int, S: int, F: int, windowed: bool,
     return bl.streams_grid(S, F, N, bl.pass_residency(N, windowed, index))
 
 
+@functools.lru_cache(maxsize=64)
+def sums_resident(N: int, index: int) -> int:
+    """Blocks of PFB-BL's pass A on the pre-pass's sums that card
+    ``index`` holds at once: its SMs times the blocks one SM holds."""
+    device = torch.device("cuda", index)
+    per_sm = kernel_attributes(N, PFB_PASS_A, device)["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * max(1, per_sm)
+
+
 def _launch(kernel: str, raw3: torch.Tensor, extra: Optional[torch.Tensor],
             planes: int, out_shape: tuple, windowed: bool,
-            group_c: Optional[int], call) -> torch.Tensor:
+            group_c: Optional[int], call,
+            sums_a: bool = False) -> torch.Tensor:
     """Check the loads' alignment, take the (S F, M) complex64 scratch and
     ``planes`` planes of each stream's partial rows, make the (*out_shape,
     row) output, and run ``call(lib, twiddle, inter, chirp, spectrum,
     scratch, partial, out, log2m, width, groups, stream)`` on the current
     stream with BL's tables at N; ``raw3`` is (S, F, 2N). Returns the
-    output's first N columns."""
+    output's first N columns. With ``sums_a`` pass A runs on the PFB
+    pre-pass's sums, on a grid from its own residency
+    (:func:`sums_resident`); pass A's frames a block change no bit."""
     from . import _build
     fp.check_alignment(kernel, raw3, RAW_ALIGN, extra, WINDOW_ALIGN)
     S, F, N = raw3.shape[0], raw3.shape[1], raw3.shape[2] // 2
@@ -193,6 +250,10 @@ def _launch(kernel: str, raw3: torch.Tensor, extra: Optional[torch.Tensor],
     groups = grid(N, S, F, windowed, device.index)
     if group_c is not None:
         groups = (*groups[:2], int(group_c))
+    if sums_a:
+        groups = (fl.large_group(F, S * t.regs["tiles_a"],
+                                 sums_resident(N, device.index)),
+                  *groups[1:])
     rows = planes * S * -(-F // groups[2])
     lib = _build.load(LIBRARY)
     stream = _raw_stream(device.index)
@@ -244,7 +305,8 @@ def _tapers(kernel, raw3, counts, tapers, group_c):
             log2m, N, width, S, F, *groups, K, stream))
 
 
-def _pfb(kernel, raw3, history, counts, h, history_out, fresh, group_c):
+def _pfb(kernel, raw3, history, counts, h, history_out, fresh, group_c,
+         control=False):
     S, F, N = raw3.shape[0], raw3.shape[1], raw3.shape[2] // 2
     P = h.shape[0]
     device = raw3.device
@@ -253,12 +315,57 @@ def _pfb(kernel, raw3, history, counts, h, history_out, fresh, group_c):
     return _launch(
         kernel, raw3, h, 1, (S,), False, group_c,
         lambda lib, twiddle, inter, chirp, spectrum, scratch, partial, out,
-        log2m, width, groups, stream: lib.rpf_fused_psd_pfb_chirp_large(
+        log2m, width, groups, stream: (
+            lib.rpf_fused_psd_pfb_chirp_large_control if control
+            else lib.rpf_fused_psd_pfb_chirp_large)(
             raw3.data_ptr(), history.data_ptr() if P > 1 else None, twiddle,
             inter, h.data_ptr(), chirp, spectrum, counts.data_ptr(), scratch,
             partial, out, history_out.data_ptr() if P > 1 else None,
             device.index, log2m, N, width, S, F, *groups, P, int(fresh),
-            stream))
+            stream),
+        sums_a=not control and pfb_route(N, P) == "sums")
+
+
+
+def _counted(count: str, out: torch.Tensor) -> torch.Tensor:
+    """``out``, one launch more in ``COUNTS.<count>``."""
+    setattr(fp.COUNTS, count, getattr(fp.COUNTS, count) + 1)
+    return out
+
+
+def _pfb_one(kernel, count, control, raw_u8, history, n_valid, chunk, h,
+             history_out, fresh, group_c):
+    """The one-stream PFB wrappers' body: the form, or with ``control``
+    its first form, counted in ``COUNTS.<count>``; a CPU tensor the plain
+    version."""
+    n_valid = int(n_valid)
+    fp.check_args(kernel, fused_psd_chirp_large_est_eligible, raw_u8, n_valid,
+                  chunk, None)
+    check_pfb_args(raw_u8, history, h, history_out)
+    check_group(group_c, raw_u8.shape[0])
+    if not fp._on_cuda(kernel, raw_u8):
+        fp.COUNTS.plain += 1
+        return pfb_chirp_large_reference(raw_u8, history, n_valid, chunk, h,
+                                         history_out, fresh)
+    return _counted(count, _pfb(
+        kernel, raw_u8[None], history, _one_count(n_valid, raw_u8.device),
+        h, history_out, fresh, group_c, control)[0])
+
+
+def _pfb_streams(kernel, count, control, raw_u8, history, n_valid, chunk, h,
+                 history_out, fresh):
+    """The streams PFB wrappers' body: the form, or with ``control`` its
+    first form, counted in ``COUNTS.<count>``; a CPU tensor the plain
+    version."""
+    fp.check_streams_args(raw_u8, n_valid, chunk, None, kernel,
+                          fused_psd_chirp_large_est_eligible)
+    check_pfb_streams_args(raw_u8, history, h, history_out)
+    if not fp._on_cuda(kernel, raw_u8):
+        fp.COUNTS.plain += 1
+        return pfb_chirp_large_streams_reference(raw_u8, history, n_valid,
+                                                 chunk, h, history_out, fresh)
+    return _counted(count, _pfb(kernel, raw_u8, history, n_valid, h,
+                                history_out, fresh, None, control))
 
 
 def fused_psd_sk_chirp_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -333,21 +440,26 @@ def fused_psd_pfb_chirp_large(raw_u8: torch.Tensor, history: torch.Tensor,
     ``history_out`` is written after the sum on that stream), on BL's grid,
     or with ``group_c`` frames a pass-C block where given; a CPU tensor
     runs the plain version."""
-    kernel = "fused_psd_pfb_chirp_large"
-    n_valid = int(n_valid)
-    fp.check_args(kernel, fused_psd_chirp_large_est_eligible, raw_u8, n_valid,
-                  chunk, None)
-    check_pfb_args(raw_u8, history, h, history_out)
-    check_group(group_c, raw_u8.shape[0])
-    if not fp._on_cuda(kernel, raw_u8):
-        fp.COUNTS.plain += 1
-        return pfb_chirp_large_reference(raw_u8, history, n_valid, chunk, h,
-                                         history_out, fresh)
-    out = _pfb(kernel, raw_u8[None], history,
-               _one_count(n_valid, raw_u8.device), h, history_out, fresh,
-               group_c)
-    fp.COUNTS.kernel_pfb_chirp_large += 1
-    return out[0]
+    return _pfb_one("fused_psd_pfb_chirp_large", "kernel_pfb_chirp_large",
+                    False, raw_u8, history, n_valid, chunk, h, history_out,
+                    fresh, group_c)
+
+
+def fused_psd_pfb_chirp_large_control(raw_u8: torch.Tensor,
+                                      history: torch.Tensor, n_valid: int,
+                                      chunk: int, h: torch.Tensor,
+                                      history_out: torch.Tensor,
+                                      fresh: bool = False,
+                                      group_c: Optional[int] = None
+                                      ) -> torch.Tensor:
+    """:func:`fused_psd_pfb_chirp_large` by its first form (the control,
+    timed beside it): the polyphase sums in pass A's load. The same
+    arguments, output and next history, bit for bit. Counted in
+    ``COUNTS.kernel_pfb_chirp_large_control``; a CPU tensor runs the plain
+    version."""
+    return _pfb_one("fused_psd_pfb_chirp_large_control",
+                    "kernel_pfb_chirp_large_control", True, raw_u8, history,
+                    n_valid, chunk, h, history_out, fresh, group_c)
 
 
 def fused_psd_sk_chirp_large_streams(raw_u8: torch.Tensor,
@@ -426,16 +538,22 @@ def fused_psd_pfb_chirp_large_streams(raw_u8: torch.Tensor,
     they read ``n_valid`` from device memory when they run, and write
     ``history_out`` after the sum) on BL-S's grid; a CPU tensor runs the
     plain version."""
-    kernel = "fused_psd_pfb_chirp_large_streams"
-    fp.check_streams_args(raw_u8, n_valid, chunk, None, kernel,
-                          fused_psd_chirp_large_est_eligible)
-    check_pfb_streams_args(raw_u8, history, h, history_out)
-    if not fp._on_cuda(kernel, raw_u8):
-        fp.COUNTS.plain += 1
-        return pfb_chirp_large_streams_reference(raw_u8, history, n_valid,
-                                                 chunk, h, history_out,
-                                                 fresh)
-    out = _pfb(kernel, raw_u8, history, n_valid, h, history_out, fresh,
-               None)
-    fp.COUNTS.kernel_pfb_chirp_large_streams += 1
-    return out
+    return _pfb_streams("fused_psd_pfb_chirp_large_streams",
+                        "kernel_pfb_chirp_large_streams", False, raw_u8,
+                        history, n_valid, chunk, h, history_out, fresh)
+
+
+def fused_psd_pfb_chirp_large_streams_control(raw_u8: torch.Tensor,
+                                              history: torch.Tensor,
+                                              n_valid: torch.Tensor,
+                                              chunk: int, h: torch.Tensor,
+                                              history_out: torch.Tensor,
+                                              fresh: bool = False
+                                              ) -> torch.Tensor:
+    """:func:`fused_psd_pfb_chirp_large_streams` by its first form (the
+    control): the same arguments, output and next histories, bit for bit.
+    Counted in ``COUNTS.kernel_pfb_chirp_large_streams_control``; a CPU
+    tensor runs the plain version."""
+    return _pfb_streams("fused_psd_pfb_chirp_large_streams_control",
+                        "kernel_pfb_chirp_large_streams_control", True, raw_u8,
+                        history, n_valid, chunk, h, history_out, fresh)

@@ -24,14 +24,21 @@ wrappers call it at S = 1:
   A windowed by the taper) over one scratch, taper k's rows in plane k of
   the partial rows, summed in float64 and divided by K.
 * :func:`fused_psd_pfb_large`: |DFT(S_j)|^2 of the polyphase sums S_j =
-  sum over p of h[p] x_{j+p} (p in order from zero, float32, no FMA), each
-  taken in pass A's load (the frame's own row from pass A's ring, the P - 1
-  older rows through L1/L2), over P - 1 history rows and the F frames; the
-  next history written to ``history_out`` on the stream.
+  sum over p of h[p] x_{j+p} (p in order from zero, float32, no FMA) over
+  P - 1 history rows and the F frames, formed by a pre-pass
+  (``csrc/pfb_sums.cuh``: one streaming pass over n, h and the older rows
+  in registers) into the scratch, in pass A's threads' order where pass A
+  writes its batch (:func:`sums_place`), which pass A reads back in place
+  of its ring; the next history written to ``history_out`` on the
+  stream.
+  :func:`fused_psd_pfb_large_control` runs its first form, the sums in
+  pass A's load (the own row from the ring, the older rows and h through
+  L1/L2), on the same arguments: the same bits.
 
 :func:`fused_psd_sk_large_streams`, :func:`fused_psd_tapers_large_streams`
-and :func:`fused_psd_pfb_large_streams` (SK-L-S, MT-L-S, PFB-L-S) take S
-streams of F frames, (S, F, 2N), on L-S's grid
+and :func:`fused_psd_pfb_large_streams` (SK-L-S, MT-L-S, PFB-L-S; PFB-L-S's
+control :func:`fused_psd_pfb_large_streams_control`) take S streams of F
+frames, (S, F, 2N), on L-S's grid
 (:func:`.fused_psd_large.streams_grid`): each stream's rows are the
 one-stream form's on the same groups (the one-stream wrappers'
 ``group_b``), and SK-L-S's s1 is :func:`.fused_psd_large.
@@ -44,7 +51,9 @@ counterparts' with the large kernel's four steps in torch ops,
 :func:`.fused_psd_large.large_dft_power`, for the transform); a CUDA
 tensor the kernels, or raises. ``COUNTS.kernel_sk_large``,
 ``kernel_tapers_large`` and ``kernel_pfb_large`` (in :mod:`.fused_psd`)
-count their launches, with ``_streams`` after each the streams wrappers'.
+count their launches, with ``_streams`` after each the streams wrappers',
+and ``kernel_pfb_large_control`` and ``kernel_pfb_large_streams_control``
+the controls'.
 """
 
 from __future__ import annotations
@@ -73,13 +82,105 @@ MIN_N = fl.MIN_N
 MAX_N = fl.MAX_N
 #: The passes :func:`kernel_attributes` asks of, kept in step with the
 #: source's attributes entry: L-S's pass A (unwindowed, windowed) and B,
-#: SK's pass B and the PFB's pass A.
-PASS_A, PASS_A_WINDOWED, PASS_B, SK_PASS_B, PFB_PASS_A = range(5)
+#: SK's pass B, the PFB's pass A, its pre-pass at the tap classes 4 and 32
+#: (:func:`sums_taps`) and the control's PFB pass A.
+(PASS_A, PASS_A_WINDOWED, PASS_B, SK_PASS_B, PFB_PASS_A, PFB_SUMS,
+ PFB_SUMS_32, PFB_CONTROL_A) = range(8)
+#: The PFB pre-pass's block: SUMS_ROWS rows of SUMS_COLS samples, two a
+#: thread, and the blocks its grid aims at (``kSumsRows``, ``kSumsCols``,
+#: ``kSumsBlocks`` of ``csrc/pfb_sums.cuh``).
+SUMS_ROWS, SUMS_COLS, SUMS_BLOCKS = 16, 32, 2048
+#: The pre-pass's turn through shared memory: SUMS_TURN float2 a column
+#: (its 16 rows and a pad; ``kSumsTurn``).
+SUMS_TURN = 17
+#: The tap classes of the pre-pass's registers (``sums_taps``).
+TAP_CLASSES = (2, 4, 8, 16, 32)
+#: PFB-L's route (``kPfbLoad`` of the source): by log2 N, 1 for each tap
+#: class of TAP_CLASSES where the first form (the polyphase sums in pass
+#: A's load, which the control runs at every P) runs, 0 where the
+#: pre-pass and pass A on its sums do; whichever the card measured faster
+#: (``probes/large_estimator_builds.py``'s route sweep).
+PFB_LOAD = {15: (1, 1, 1, 1, 1), 16: (1, 1, 1, 1, 1), 17: (1, 1, 1, 0, 0),
+            18: (0, 0, 0, 0, 0), 19: (0, 0, 0, 0, 0), 20: (0, 0, 0, 0, 0),
+            21: (0, 0, 0, 0, 0), 22: (0, 0, 0, 0, 0)}
 
 
 def fused_psd_large_est_eligible(N: int) -> bool:
     """True iff the forms take N bins: a power of two, 32768..2^22."""
     return fl.fused_psd_large_eligible(N)
+
+
+def pfb_route(N: int, P: int) -> str:
+    """PFB-L's route at N bins and P taps: "load" (the first form's pass
+    A, the sums in its load) or "sums" (the pre-pass, then pass A on its
+    sums)."""
+    load = PFB_LOAD[N.bit_length() - 1][TAP_CLASSES.index(sums_taps(P))]
+    return "load" if load else "sums"
+
+
+def pfb_smem(N: int, route: str) -> int:
+    """Dynamic shared memory of the PFB's pass A on a route at N: the
+    first form's, the large kernel's pass A (the exchange and two raw tile
+    slots); on the sums, the exchange and two slots of a batch's sums
+    (``sums_a_smem`` of the source). The pre-pass takes 4352 B of static
+    shared memory at every N and P."""
+    t = fl.regs_layout(N)
+    if route == "load":
+        return t["smem_a"]
+    return 8 * t["B"] * t["XS"] + 2 * t["N1"] * t["B"] * 8
+
+
+def sums_taps(P: int) -> int:
+    """The tap class the pre-pass's registers are sized for at P taps
+    (``sums_taps`` of ``csrc/pfb_sums.cuh``): 2, 4, 8, 16 or 32."""
+    return next(c for c in TAP_CLASSES if P <= c)
+
+
+def sums_shape(N: int) -> dict:
+    """The pre-pass's ``SumsShape`` at N: bins, log2 N2, log2 N1, log2 B,
+    log2 V (pass A's layout, :func:`.fused_psd_large.regs_layout`), the
+    rows with a sample and the float2 a frame of scratch."""
+    t = fl.regs_layout(N)
+    lg = lambda x: x.bit_length() - 1
+    return {"bins": N, "log2n2": lg(t["N2"]), "log2n1": lg(t["N1"]),
+            "log2b": lg(t["B"]), "log2v": lg(t["V"]), "rows": t["N1"],
+            "frame": N}
+
+
+def sums_place(shape: dict, n1, n2):
+    """Where the pre-pass writes sum (n1, n2) of a frame (``sums_place``
+    of the source): value k of pass A's thread tid of batch n2 / B, tid
+    the thread of column c = n2 mod B that holds row n1 = t + k TF1
+    (:func:`.fused_psd_large.thread_map` inverted), at (n2 / B) N1 B + k
+    THREADS_A + tid: the run that batch writes, in its threads' order."""
+    b, v, l1 = 1 << shape["log2b"], 1 << shape["log2v"], shape["log2n1"]
+    tf = 1 << (l1 - 4)
+    c, t, k = n2 & (b - 1), n1 & (tf - 1), n1 >> (l1 - 4)
+    per = 16 >> shape["log2v"]
+    tid = (c & (v - 1)) + v * (t % per) + 16 * ((c >> shape["log2v"])
+                                              + (b // v) * (t // per))
+    return ((n2 >> shape["log2b"]) << (l1 + shape["log2b"])) + k * b * tf \
+        + tid
+
+
+def sums_frames(shape: dict, S: int, F: int) -> int:
+    """The pre-pass's frames a block over S streams of F frames
+    (``sums_frames`` of the source): all F where its (rows / 16) (N2 / 32)
+    S blocks a frame reach SUMS_BLOCKS, else the frames split into the
+    fewest groups that do, at most one a frame."""
+    blocks = ((shape["rows"] // SUMS_ROWS)
+              * ((1 << shape["log2n2"]) // SUMS_COLS) * S)
+    groups = min(F, max(1, -(-SUMS_BLOCKS // blocks)))
+    return -(-F // groups)
+
+
+def sums_grid(shape: dict, S: int, F: int) -> Tuple[int, int, int]:
+    """The pre-pass's grid over S streams of F frames: (rows / 16) (N2 /
+    32) blocks of 16 x 32 samples, a row of them a stream, a plane of rows
+    a group of :func:`sums_frames` frames."""
+    return ((shape["rows"] // SUMS_ROWS)
+            * ((1 << shape["log2n2"]) // SUMS_COLS), S,
+            -(-F // sums_frames(shape, S, F)))
 
 
 def sk_large_reference(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -165,14 +266,28 @@ def grid(N: int, S: int, F: int, windowed: bool,
         fl.resident_blocks(N, fl.PASS_B, index))
 
 
+@functools.lru_cache(maxsize=64)
+def sums_resident(N: int, index: int) -> int:
+    """Blocks of PFB-L's pass A on the pre-pass's sums that card ``index``
+    holds at once: its SMs times the blocks one SM holds (two)."""
+    device = torch.device("cuda", index)
+    per_sm = kernel_attributes(N, PFB_PASS_A, device)["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * max(1, per_sm)
+
+
 def _launch(kernel: str, raw3: torch.Tensor, extra: Optional[torch.Tensor],
             planes: int, out_shape: tuple, windowed: bool,
-            group_b: Optional[int], call) -> torch.Tensor:
+            group_b: Optional[int], call,
+            sums_a: bool = False) -> torch.Tensor:
     """Check the loads' alignment, take the (S F, N) complex64 scratch and
     ``planes`` planes of each stream's partial rows, make the (*out_shape,
     N) output, and run ``call(lib, twiddle, inter, scratch, partial, out,
     log2n, groups, stream)`` on the current stream with the large kernel's
-    tables at N; ``raw3`` is (S, F, 2N)."""
+    tables at N; ``raw3`` is (S, F, 2N). With ``sums_a`` pass A runs on
+    the PFB pre-pass's sums, on a grid from its own residency
+    (:func:`sums_resident`: two blocks an SM where the large kernel's pass
+    A holds three); pass A's frames a block change no bit."""
     from . import _build
     fp.check_alignment(kernel, raw3, fl.RAW_ALIGN, extra, fl.WINDOW_ALIGN)
     S, F, N = raw3.shape[0], raw3.shape[1], raw3.shape[2] // 2
@@ -180,6 +295,9 @@ def _launch(kernel: str, raw3: torch.Tensor, extra: Optional[torch.Tensor],
     groups = grid(N, S, F, windowed, device.index)[:2]
     if group_b is not None:
         groups = (groups[0], int(group_b))
+    if sums_a:
+        groups = (fl.large_group(F, S * fl.regs_layout(N)["tiles_a"],
+                                 sums_resident(N, device.index)), groups[1])
     rows = planes * S * -(-F // groups[1])
     lib = _build.load(LIBRARY)
     stream = fl._raw_stream(device.index)
@@ -227,7 +345,8 @@ def _tapers(kernel, raw3, counts, tapers, group_b):
             S, F, *groups, K, stream))
 
 
-def _pfb(kernel, raw3, history, counts, h, history_out, fresh, group_b):
+def _pfb(kernel, raw3, history, counts, h, history_out, fresh, group_b,
+         control=False):
     S, F = raw3.shape[0], raw3.shape[1]
     P = h.shape[0]
     device = raw3.device
@@ -236,11 +355,55 @@ def _pfb(kernel, raw3, history, counts, h, history_out, fresh, group_b):
     return _launch(
         kernel, raw3, h, 1, (S,), False, group_b,
         lambda lib, twiddle, inter, scratch, partial, out, log2n, groups,
-        stream: lib.rpf_fused_psd_pfb_large(
+        stream: (lib.rpf_fused_psd_pfb_large_control if control
+                 else lib.rpf_fused_psd_pfb_large)(
             raw3.data_ptr(), history.data_ptr() if P > 1 else None, twiddle,
             inter, h.data_ptr(), counts.data_ptr(), scratch, partial, out,
             history_out.data_ptr() if P > 1 else None, device.index, log2n,
-            S, F, *groups, P, int(fresh), stream))
+            S, F, *groups, P, int(fresh), stream),
+        sums_a=not control and pfb_route(raw3.shape[2] // 2, P) == "sums")
+
+
+
+def _counted(count: str, out: torch.Tensor) -> torch.Tensor:
+    """``out``, one launch more in ``COUNTS.<count>``."""
+    setattr(fp.COUNTS, count, getattr(fp.COUNTS, count) + 1)
+    return out
+
+
+def _pfb_one(kernel, count, control, raw_u8, history, n_valid, chunk, h,
+             history_out, fresh, group_b):
+    """The one-stream PFB wrappers' body: the form, or with ``control``
+    its first form, counted in ``COUNTS.<count>``; a CPU tensor the plain
+    version."""
+    n_valid = int(n_valid)
+    fp.check_args(kernel, fused_psd_large_est_eligible, raw_u8, n_valid,
+                  chunk, None)
+    check_pfb_args(raw_u8, history, h, history_out)
+    check_group(group_b, raw_u8.shape[0])
+    if not fp._on_cuda(kernel, raw_u8):
+        fp.COUNTS.plain += 1
+        return pfb_large_reference(raw_u8, history, n_valid, chunk, h,
+                                   history_out, fresh)
+    return _counted(count, _pfb(
+        kernel, raw_u8[None], history, _one_count(n_valid, raw_u8.device),
+        h, history_out, fresh, group_b, control)[0])
+
+
+def _pfb_streams(kernel, count, control, raw_u8, history, n_valid, chunk, h,
+                 history_out, fresh):
+    """The streams PFB wrappers' body: the form, or with ``control`` its
+    first form, counted in ``COUNTS.<count>``; a CPU tensor the plain
+    version."""
+    fp.check_streams_args(raw_u8, n_valid, chunk, None, kernel,
+                          fused_psd_large_est_eligible)
+    check_pfb_streams_args(raw_u8, history, h, history_out)
+    if not fp._on_cuda(kernel, raw_u8):
+        fp.COUNTS.plain += 1
+        return pfb_large_streams_reference(raw_u8, history, n_valid,
+                                           chunk, h, history_out, fresh)
+    return _counted(count, _pfb(kernel, raw_u8, history, n_valid, h,
+                                history_out, fresh, None, control))
 
 
 def fused_psd_sk_large(raw_u8: torch.Tensor, n_valid: int, chunk: int,
@@ -314,21 +477,25 @@ def fused_psd_pfb_large(raw_u8: torch.Tensor, history: torch.Tensor,
     ``history_out`` is written after the sum on that stream), on the large
     kernel's grid, or with ``group_b`` frames a pass-B block where given; a
     CPU tensor runs the plain version."""
-    kernel = "fused_psd_pfb_large"
-    n_valid = int(n_valid)
-    fp.check_args(kernel, fused_psd_large_est_eligible, raw_u8, n_valid,
-                  chunk, None)
-    check_pfb_args(raw_u8, history, h, history_out)
-    check_group(group_b, raw_u8.shape[0])
-    if not fp._on_cuda(kernel, raw_u8):
-        fp.COUNTS.plain += 1
-        return pfb_large_reference(raw_u8, history, n_valid, chunk, h,
-                                   history_out, fresh)
-    out = _pfb(kernel, raw_u8[None], history,
-               _one_count(n_valid, raw_u8.device), h, history_out, fresh,
-               group_b)
-    fp.COUNTS.kernel_pfb_large += 1
-    return out[0]
+    return _pfb_one("fused_psd_pfb_large", "kernel_pfb_large", False,
+                    raw_u8, history, n_valid, chunk, h, history_out, fresh,
+                    group_b)
+
+
+def fused_psd_pfb_large_control(raw_u8: torch.Tensor, history: torch.Tensor,
+                                n_valid: int, chunk: int, h: torch.Tensor,
+                                history_out: torch.Tensor,
+                                fresh: bool = False,
+                                group_b: Optional[int] = None
+                                ) -> torch.Tensor:
+    """:func:`fused_psd_pfb_large` by its first form (the control, timed
+    beside it): the polyphase sums in pass A's load. The same arguments,
+    output and next history, bit for bit. Counted in
+    ``COUNTS.kernel_pfb_large_control``; a CPU tensor runs the plain
+    version."""
+    return _pfb_one("fused_psd_pfb_large_control",
+                    "kernel_pfb_large_control", True, raw_u8, history,
+                    n_valid, chunk, h, history_out, fresh, group_b)
 
 
 def fused_psd_sk_large_streams(raw_u8: torch.Tensor, n_valid: torch.Tensor,
@@ -404,15 +571,22 @@ def fused_psd_pfb_large_streams(raw_u8: torch.Tensor, history: torch.Tensor,
     they read ``n_valid`` from device memory when they run, and write
     ``history_out`` after the sum) on L-S's grid; a CPU tensor runs the
     plain version."""
-    kernel = "fused_psd_pfb_large_streams"
-    fp.check_streams_args(raw_u8, n_valid, chunk, None, kernel,
-                          fused_psd_large_est_eligible)
-    check_pfb_streams_args(raw_u8, history, h, history_out)
-    if not fp._on_cuda(kernel, raw_u8):
-        fp.COUNTS.plain += 1
-        return pfb_large_streams_reference(raw_u8, history, n_valid, chunk,
-                                           h, history_out, fresh)
-    out = _pfb(kernel, raw_u8, history, n_valid, h, history_out, fresh,
-               None)
-    fp.COUNTS.kernel_pfb_large_streams += 1
-    return out
+    return _pfb_streams("fused_psd_pfb_large_streams",
+                        "kernel_pfb_large_streams", False, raw_u8, history,
+                        n_valid, chunk, h, history_out, fresh)
+
+
+def fused_psd_pfb_large_streams_control(raw_u8: torch.Tensor,
+                                        history: torch.Tensor,
+                                        n_valid: torch.Tensor, chunk: int,
+                                        h: torch.Tensor,
+                                        history_out: torch.Tensor,
+                                        fresh: bool = False
+                                        ) -> torch.Tensor:
+    """:func:`fused_psd_pfb_large_streams` by its first form (the
+    control): the same arguments, output and next histories, bit for bit.
+    Counted in ``COUNTS.kernel_pfb_large_streams_control``; a CPU tensor
+    runs the plain version."""
+    return _pfb_streams("fused_psd_pfb_large_streams_control",
+                        "kernel_pfb_large_streams_control", True, raw_u8,
+                        history, n_valid, chunk, h, history_out, fresh)

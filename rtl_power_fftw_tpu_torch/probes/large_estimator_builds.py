@@ -1,31 +1,63 @@
-"""The CLI estimators' forms of the large kernel's passes, measured on the
+"""The CLI estimators' forms of the large kernels' passes, measured on the
 card: SK-L, MT-L and PFB-L (``ops/kernels/csrc/fused_psd_large_est.cu``)
-beside the large kernel on the same frames, SK-L and PFB-L as shipped and
-in their first forms, and each form's device time by kernel. The builds
-are copies of the sources edited before nvcc
+beside the large kernel, and PFB-BL (``csrc/fused_psd_chirp_large_est.cu``)
+beside BL, on the same frames; SK-L and the PFB forms as shipped, PFB-L
+and PFB-BL also by their controls (build ``ctl``: their first forms, the
+polyphase sums in pass A's load, which the libraries keep as
+``rpf_fused_psd_pfb_large_control`` and ``rpf_fused_psd_pfb_chirp_large_
+control``), and in other builds; each form's device time by kernel. The
+builds are copies of the sources edited before nvcc
 (:func:`.large_awkward_builds.build_sources`):
 
 * ``sk_b2``: SK's pass B (``large_sk_b``) at two blocks an SM at every N
   (128 registers; it spills 216-232 B a thread at N2 >= 512); shipped,
   one block an SM there (255 registers, no spill);
-* ``pfb_k``: PFB-L's pass A load a sample at a time (PFB-BL's
-  ``pfb_sum``: the P taps of one sample, then the next); shipped, tap by
-  tap over a thread's 16 samples;
+* ``pfb_k``: the control's pass A load a sample at a time (PFB-BL's
+  control's ``pfb_sum``: the P taps of one sample, then the next); the
+  control as kept, tap by tap over a thread's 16 samples;
 * ``hist1``: the PFB's next histories by ``pfb_history_kernel``, one
   block a row, at every N; shipped, ``pfb_history_wide_kernel`` from rows
-  of 64 KB (N >= 32768).
+  of 64 KB (N >= 32768);
+* ``sums_d4``: the pre-pass (``pfb_sums_kernel``) with four frames' own
+  rows in flight a thread; shipped, eight;
+* ``sums_pad0``: the pre-pass's turn through shared memory unpadded (16
+  float2 a column: its stores conflict 16 ways); shipped, 17;
+* ``sums_flat``: the pre-pass writing each sum from the thread that forms
+  it (8-byte pieces 128 bytes apart where B < 16); shipped, turned
+  through shared memory into 256-byte runs;
+* ``sums_whole``: the pre-pass with all of a stream's frames a block;
+  shipped, frames split into groups until the grid has 2048 blocks;
+* ``sums_all``: PFB-L on the pre-pass at every (N, P), the route sweep's
+  "sums" candidate; shipped, the route table ``kPfbLoad`` (PFB-BL ships
+  the pre-pass at every (M, P)).
+
+Which build ships at which (N, P) (device µs on an NVIDIA H100 80GB
+HBM3, 700.00 W, PR 29's route sweep): PFB-L's first form, the sums in
+pass A's load, at 32768 and 65536 for every P (the pre-pass 1.23-1.47x
+its time: one frame a block there, N1 <= 256, a half-warp's loads 16
+adjacent columns) and at 2^17 for P <= 8 (1.15-1.37x); the pre-pass and
+pass A on its sums at 2^17 for P > 8 (0.91-0.97x) and from 2^18 for
+every P (0.10-0.99x; 783.1 against 2798.8 at 2^22 F=8 P=4); PFB-BL the
+pre-pass at every M and P (0.19-0.98x; 1141.8 against 1926.9 at
+2097150 F=8 P=4). The builds at 2^22 F=8 P=4 against the shipped 783.5:
+``sums_d4`` 785.1, ``sums_pad0`` 853.6, ``sums_flat`` 1319.2,
+``sums_whole`` 783.8 (at 65536 F=256: 214.8-215.4 each, the first form
+there). A ring of P + 1 virtual-row tiles with h resident in pass A
+was not built: from N1 = 512 h's slice alone is 128-256 KB a block, and
+where it fits the block runs one to an SM on a grid of one frame a
+block at 65536 F = 16.
 
 At each N:F it prints the device µs a call (calls queued behind a sleep
-kernel, the least of three runs) of the large kernel and of SK-L or PFB-L
-as shipped and in each build, twice in turns; then, at 2^20:8 and 2^22:8,
-the device µs of each kernel a form launches, summed over its launches in
-one call, from torch.profiler (whose records the card has been seen to
-drop: the run is repeated until one holds every launch, up to four
-times).
+kernel, the least of three runs) of the base kernel and of each form as
+shipped, by its control and in each build, twice in turns; then, at 2^20:8
+and 2^22:8 (the large kernel's forms) and 2097150:8 (BL's), the device µs
+of each kernel a form launches, summed over its launches in one call, from
+torch.profiler (whose records the card has been seen to drop: the run is
+repeated until one holds every launch, up to four times).
 
 Run: ``python -m rtl_power_fftw_tpu_torch.probes.large_estimator_builds``.
-Needs a CUDA card and nvcc; without a card it exits 1. The copy and its
-library go to ``ops/kernels/build/large_estimator_builds/``.
+Needs a CUDA card and nvcc; without a card it exits 1. The copies and
+their libraries go to ``ops/kernels/build/large_estimator_builds/``.
 """
 
 from __future__ import annotations
@@ -34,6 +66,7 @@ import ctypes
 import shutil
 import subprocess
 import sys
+import threading
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -42,6 +75,8 @@ import torch
 from ..models.multitaper import _session_tapers
 from ..models.pfb import pfb_prototype
 from ..ops.kernels import _build
+from ..ops.kernels import fused_psd_chirp_large as fbl
+from ..ops.kernels import fused_psd_chirp_large_est as be
 from ..ops.kernels import fused_psd_large as fl
 from ..ops.kernels import fused_psd_large_est as le
 from ._timing import card
@@ -77,7 +112,8 @@ PFB_K_LOAD = """\
     v[k] = make_float2(re, im);
   }
 """
-#: Source edits of each build: (source, [(old, new)]).
+#: Source edits of each build: (source, [(old, new)]); a header's edits
+#: are built into LIBRARY.
 BUILDS = {
     "sk_b2": ("fused_psd_large_est.cu",
               [("LargeRegs<LOG2N>::N2 >= 512 ? 1 : 2)\nlarge_sk_b(",
@@ -87,21 +123,69 @@ BUILDS = {
     "hist1": ("pfb_history.cuh",
               [("constexpr int kWideHistoryBytes = 65536;",
                 "constexpr int kWideHistoryBytes = 1 << 30;")]),
+    "sums_d4": ("pfb_sums.cuh",
+                [("constexpr int kSumsDepth = 8;",
+                  "constexpr int kSumsDepth = 4;")]),
+    "sums_pad0": ("pfb_sums.cuh",
+                  [("constexpr int kSumsTurn = kSumsRows + 1;",
+                    "constexpr int kSumsTurn = kSumsRows;")]),
+    "sums_flat": ("pfb_sums.cuh",
+                  [("const bool turned = shape.log2b < 4;",
+                    "const bool turned = false;")]),
+    "sums_whole": ("pfb_sums.cuh",
+                   [("constexpr int kSumsBlocks = 2048;",
+                     "constexpr int kSumsBlocks = 1;")]),
+    "sums_all": ("fused_psd_large_est.cu",
+                 [("control ||\n              kPfbLoad[log2n - kMinLog2N]"
+                   "[log2_of(sums_taps(P)) - 1] != 0);", "control);")]),
 }
-#: The shipped load of PFB-L's pass A, which ``pfb_k`` replaces: from its
+#: The form each build is timed as: SK-L, PFB-L or PFB-BL as shipped, or
+#: the PFB-L control.
+BUILD_FORM = {"sk_b2": "SK-L", "pfb_k": "PFB-L ctl", "hist1": "PFB-L",
+              "sums_d4": "PFB-L", "sums_pad0": "PFB-L", "sums_flat": "PFB-L",
+              "sums_whole": "PFB-L", "sums_all": "route"}
+#: The control's load of PFB-L's pass A, which ``pfb_k`` replaces: from its
 #: accumulators' zeroing to the end of its tap loop.
 PFB_LOAD_BEGIN = "  float2 v[16];\n#pragma unroll\n  for (int k = 0; k < 16; ++k) v[k]"
 PFB_LOAD_END = "  first_pass<L::LOG2N1>(v, x, twiddle, t,\n"
-#: N:F (and a Hann window) of the timed shapes: phase 23's and the
-#: excision drive's step.
+#: N:F (and a Hann window) of the timed shapes of the large kernel's forms
+#: (phase 23's, the excision drive's step and phase 25's 2^22), and of
+#: BL's PFB (phase 22's and phase 25's).
 SHAPES = ((65536, 16, True), (1 << 20, 8, False), (1 << 22, 8, False),
           (65536, 256, True))
+BL_SHAPES = ((16382, 256), (99998, 64), (2097150, 8))
+#: The route sweep: the PFB forms' two routes (the pre-pass, build
+#: ``sums_all``; the first form, the control) and as shipped at every log2
+#: N (log2 M) the forms take and these tap counts, F frames.
+ROUTE_TAPS = (2, 4, 8, 16, 32)
+ROUTE_N = {"L": tuple(1 << k for k in range(15, 23)),
+           "BL": (16382, 32766, 65534, 131070, 262142, 524286, 1048574,
+                  2097150)}
+
+
+def route_frames(N: int) -> int:
+    """The sweep's frames at N: 16 up to 2^17 bins, 8 above."""
+    return 16 if N <= 1 << 17 else 8
 #: The kernels each form launches, by the name torch.profiler gives them.
 KERNELS = {"L": ["large_regs_a", "large_regs_b"],
            "SK-L": ["large_streams_a", "large_sk_b"],
            "MT-L": ["large_streams_a", "large_streams_b",
                     "est_streams_kernel"],
-           "PFB-L": ["large_pfb_a", "large_streams_b", "pfb_history_kernel"]}
+           "PFB-L": ["pfb_sums_kernel", "large_pfb_sums_a",
+                     "large_streams_b", "pfb_history"],
+           "PFB-L ctl": ["large_pfb_a", "large_streams_b", "pfb_history"],
+           "BL": ["chirp_regs_a", "chirp_regs_b", "chirp_regs_c"],
+           "PFB-BL": ["pfb_sums_kernel", "chirp_pfb_sums_a",
+                      "chirp_streams_b", "chirp_streams_c", "pfb_history"],
+           "PFB-BL ctl": ["chirp_pfb_a", "chirp_streams_b",
+                          "chirp_streams_c", "pfb_history"]}
+
+
+def library_of(name: str) -> str:
+    """The library build ``name`` compiles: its source's, or LIBRARY for
+    a header's edits."""
+    source = BUILDS[name][0]
+    return source[:-3] if source.endswith(".cu") else LIBRARY
 
 
 def edited(name: str, text: str) -> str:
@@ -133,7 +217,8 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         path.write_text(edited(name, path.read_text()))
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-             str(root / f"lib{name}.so"), str(src / f"{LIBRARY}.cu")],
+             str(root / f"lib{name}.so"),
+             str(src / f"{library_of(name)}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -141,7 +226,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             raise _build.KernelBuildError(f"{name}: {err[-4000:]}")
         lib = ctypes.CDLL(str(root / f"lib{name}.so"))
-        for fn, argtypes in _build.SIGNATURES[LIBRARY].items():
+        for fn, argtypes in _build.SIGNATURES[library_of(name)].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.rpf_cuda_error_string.argtypes = [ctypes.c_int]
@@ -177,63 +262,165 @@ def by_kernel(fn: Callable[[], object], names: List[str],
     return None
 
 
+def _timed(forms: Dict[str, Callable[[], object]], libs, shipped) -> Dict:
+    """Device µs of each form twice in turns: {label: [us, us]}; a form
+    named "<form> <build>" runs with that build's library in its
+    library's place."""
+    times: Dict[str, List[float]] = {}
+    for _ in range(2):
+        for label, fn in forms.items():
+            build = label.split()[-1]
+            if build in libs:
+                lib = library_of(build)
+                _build._libs[lib] = libs[build]
+            times.setdefault(label, []).append(device_us(fn))
+            _build._libs.update(shipped)
+    return times
+
+
+def _print_times(head: str, times: Dict[str, List[float]]) -> None:
+    print(head + ", ".join(f"{name} {min(t):.1f} us ({t[0]:.1f}/{t[1]:.1f})"
+                           for name, t in times.items()))
+
+
+def _split(form: str, label: str, fn) -> None:
+    split = by_kernel(fn, KERNELS[form])
+    if split is None:
+        print(f"{label} by kernel: not measured (no profiler run held "
+              "every launch)")
+        return
+    print(f"{label} by kernel: " + "; ".join(
+        f"{k} {us:.1f} us a call ({n} launches)"
+        for k, (n, us) in split.items()))
+
+
+def route_sweep(dev, rng, libs, shipped) -> None:
+    """PFB-L and PFB-BL on the pre-pass (PFB-L's build ``sums_all``,
+    PFB-BL as shipped), by their first form (the control) and as shipped
+    (the route table) at every N of ROUTE_N and P of ROUTE_TAPS, in turns:
+    device µs and the ratio of the two routes."""
+    for f, Ns in ROUTE_N.items():
+        new, ctl, lib, build = (
+            (le.fused_psd_pfb_large, le.fused_psd_pfb_large_control, LIBRARY,
+             "sums_all") if f == "L" else
+            (be.fused_psd_pfb_chirp_large,
+             be.fused_psd_pfb_chirp_large_control,
+             "fused_psd_chirp_large_est", None))
+        for N in Ns:
+            F = route_frames(N)
+            raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                                dtype=np.uint8)).to(dev)
+            for P in ROUTE_TAPS:
+                h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+                hist = [torch.full((P - 1, 2 * N), 127,
+                                   dtype=torch.uint8, device=dev)
+                        for _ in range(2)]
+                calls = {"sums": new, "load": ctl, "shipped": new}
+                t = {k: [] for k in calls}
+                for order in (list(calls), list(calls)[::-1]):
+                    for k in order:
+                        if k == "sums" and build:
+                            _build._libs[lib] = libs[build]
+                        t[k].append(device_us(
+                            lambda: calls[k](raw, hist[0], F, F, h, hist[1]),
+                            calls=10))
+                        _build._libs.update(shipped)
+                a, b, c = (min(t[k]) for k in calls)
+                route = (le if f == "L" else be).pfb_route(N, P)
+                print(f"route PFB-{f} N={N} F={F} P={P}: pre-pass {a:.1f} "
+                      f"us ({t['sums'][0]:.1f}/{t['sums'][1]:.1f}), first "
+                      f"form {b:.1f} us ({t['load'][0]:.1f}/"
+                      f"{t['load'][1]:.1f}), pre-pass/first form "
+                      f"{a / b:.3f}; shipped ({route}) {c:.1f} us")
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", torch.cuda.current_device())
+    # The shipped libraries build beside the copies, all at once.
+    base = threading.Thread(target=_build.build, args=(
+        [LIBRARY, "fused_psd_chirp_large_est", "fused_psd_large",
+         "fused_psd_chirp_large"],))
+    base.start()
     libs = build_all()
-    shipped = _build.load(LIBRARY)
+    base.join()
+    shipped = {name: _build.load(name)
+               for name in (LIBRARY, "fused_psd_chirp_large_est")}
     print(f"# large estimator builds on {card(dev)}")
     rng = np.random.default_rng(0)
+    P = 4
     for N, F, hann in SHAPES:
         raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                             dtype=np.uint8)).to(dev)
         w = (torch.from_numpy((0.5 - 0.5 * np.cos(
             2 * np.pi * np.arange(N) / N)).astype(np.float32)).to(dev)
              if hann else None)
-        h = torch.from_numpy(pfb_prototype(N, 4).reshape(4, N)).to(dev)
-        hist = [torch.full((3, 2 * N), 127, dtype=torch.uint8, device=dev)
-                for _ in range(2)]
-        forms = {"SK-L": (["shipped", "sk_b2"],
-                          lambda: le.fused_psd_sk_large(raw, F, F, w)),
-                 "PFB-L": (["shipped", "pfb_k", "hist1"],
-                           lambda: le.fused_psd_pfb_large(
-                               raw, hist[0], F, F, h, hist[1]))}
-        times: Dict[str, List[float]] = {}
-        for _ in range(2):
-            times.setdefault("L", []).append(
-                device_us(lambda: fl.fused_psd_large(raw, F, F, w)))
-            for form, (names, fn) in forms.items():
-                for name in names:
-                    _build._libs[LIBRARY] = libs.get(name, shipped)
-                    times.setdefault(f"{form} {name}", []).append(
-                        device_us(fn))
-        _build._libs[LIBRARY] = shipped
-        print(f"N={N} F={F} hann={hann}: " + ", ".join(
-            f"{name} {min(t):.1f} us ({t[0]:.1f}/{t[1]:.1f})"
-            for name, t in times.items()))
+        h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+        hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
+        calls = {
+            "L": lambda: fl.fused_psd_large(raw, F, F, w),
+            "SK-L": lambda: le.fused_psd_sk_large(raw, F, F, w),
+            "PFB-L": lambda: le.fused_psd_pfb_large(raw, hist[0], F, F, h,
+                                                    hist[1]),
+            "PFB-L ctl": lambda: le.fused_psd_pfb_large_control(
+                raw, hist[0], F, F, h, hist[1])}
+        forms = {"L": calls["L"], "SK-L shipped": calls["SK-L"],
+                 "PFB-L shipped": calls["PFB-L"],
+                 "PFB-L ctl": calls["PFB-L ctl"]}
+        for name, form in BUILD_FORM.items():
+            if form in calls:
+                forms[f"{form} {name}"] = calls[form]
+        _print_times(f"N={N} F={F} hann={hann} P={P}: ",
+                     _timed(forms, libs, shipped))
+    for N, F in BL_SHAPES:
+        raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+        hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
+        forms = {
+            "BL": lambda: fbl.fused_psd_chirp_large(raw, F, F),
+            "PFB-BL shipped": lambda: be.fused_psd_pfb_chirp_large(
+                raw, hist[0], F, F, h, hist[1]),
+            "PFB-BL ctl": lambda: be.fused_psd_pfb_chirp_large_control(
+                raw, hist[0], F, F, h, hist[1])}
+        for name, form in BUILD_FORM.items():
+            if form == "PFB-BL":
+                forms[f"{form} {name}"] = forms["PFB-BL shipped"]
+        _print_times(f"N={N} F={F} P={P}: ", _timed(forms, libs, shipped))
     for N, F in ((1 << 20, 8), (1 << 22, 8)):
         raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                             dtype=np.uint8)).to(dev)
         tp = torch.from_numpy(_session_tapers(N, 4.0, 7)).to(dev)
-        h = torch.from_numpy(pfb_prototype(N, 4).reshape(4, N)).to(dev)
-        hist = [torch.full((3, 2 * N), 127, dtype=torch.uint8, device=dev)
-                for _ in range(2)]
+        h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+        hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
         for form, fn in (
                 ("L", lambda: fl.fused_psd_large(raw, F, F)),
                 ("SK-L", lambda: le.fused_psd_sk_large(raw, F, F)),
                 ("MT-L", lambda: le.fused_psd_tapers_large(raw, F, F, tp)),
                 ("PFB-L", lambda: le.fused_psd_pfb_large(
+                    raw, hist[0], F, F, h, hist[1])),
+                ("PFB-L ctl", lambda: le.fused_psd_pfb_large_control(
                     raw, hist[0], F, F, h, hist[1]))):
-            split = by_kernel(fn, KERNELS[form])
-            if split is None:
-                print(f"{form} N={N} F={F} by kernel: not measured (no "
-                      "profiler run held every launch)")
-                continue
-            print(f"{form} N={N} F={F} by kernel: " + "; ".join(
-                f"{k} {us:.1f} us a call ({n} launches)"
-                for k, (n, us) in split.items()))
+            _split(form, f"{form} N={N} F={F}", fn)
+    route_sweep(dev, rng, libs, shipped)
+    N, F = BL_SHAPES[-1]
+    raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
+                                        dtype=np.uint8)).to(dev)
+    h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+    hist = [torch.full((P - 1, 2 * N), 127, dtype=torch.uint8, device=dev)
+            for _ in range(2)]
+    for form, fn in (
+            ("BL", lambda: fbl.fused_psd_chirp_large(raw, F, F)),
+            ("PFB-BL", lambda: be.fused_psd_pfb_chirp_large(
+                raw, hist[0], F, F, h, hist[1])),
+            ("PFB-BL ctl", lambda: be.fused_psd_pfb_chirp_large_control(
+                raw, hist[0], F, F, h, hist[1]))):
+        _split(form, f"{form} N={N} F={F}", fn)
     return 0
 
 

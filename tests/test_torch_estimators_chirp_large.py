@@ -47,6 +47,7 @@ from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_chirp_large as bl
 from rtl_power_fftw_tpu_torch.ops.kernels import \
     fused_psd_chirp_large_est as be
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large as fl
+from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large_est as le
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
 from rtl_power_fftw_tpu_torch.ops.spectral import PsdStep
 
@@ -658,14 +659,188 @@ def polyphase_load(virtual, j, P, h):
     return load
 
 
+def prepass_sums(virtual, h, counts, shape):
+    """pfb_sums_kernel (csrc/pfb_sums.cuh) transcribed over its grid, on
+    S streams' virtual arrays (S, P - 1 + F, 2 bins) u8: block (x, s, g),
+    thread tid takes samples (n1, n2) and (n1, n2 + 1), n1 = (x / cols) 16
+    + tid / 16, n2 = (x mod cols) 32 + 2 (tid mod 16), where n1 < rows and
+    n < bins, over frames [g G, (g + 1) G) (G: ``sums_frames``); it holds
+    h[0 .. P-1] of them and a window of their P - 1 older rows (virtual
+    rows g G .. g G + P - 2 at first: the history's, then the frames'),
+    forms frame j's sums from the window and frame j's own row (p in order
+    from zero, each product and sum rounded to float32 on its own) for j <
+    counts[s], writes each at ``sums_place`` of stream s's frame j (where
+    B < 16
+    turned through shared memory: sample i of the block, (i mod 16, i /
+    16), at turn[(i / 16) 17 + i mod 16], thread i writing samples i and i
+    + 256), and slides
+    the window by that own row. Returns (scratch (S, F, frame) complex64,
+    NaN where nothing was written; the virtual row each window slot held
+    at frame j, (S, F, P - 1), -1 where j was not formed)."""
+    S, V = virtual.shape[:2]
+    P = h.shape[0]
+    F = V - (P - 1)
+    bins = virtual.shape[2] // 2
+    rows, cols = le.SUMS_ROWS, le.SUMS_COLS
+    blocks, grid_s, groups = le.sums_grid(shape, S, F)
+    group = le.sums_frames(shape, S, F)
+    assert grid_s == S and (groups - 1) * group < F <= groups * group
+    per_row = (1 << shape["log2n2"]) // cols
+    x = np.arange(blocks)[:, None]
+    tid = np.arange(rows * cols // 2)[None, :]
+    r_, q_ = tid // (cols // 2), 2 * (tid % (cols // 2))
+    n1 = np.stack([(x // per_row) * rows + r_] * 2, -1)
+    n2 = (x % per_row) * cols + q_
+    n2 = np.stack([n2, n2 + 1], -1)
+    if shape["log2b"] < 4:
+        # The turn: what thread (r, q) leaves at turn[(q + d) 17 + r] is
+        # what thread i mod 256 writes as sample i = (q + d) 16 + r.
+        slot = {}
+        for d in (0, 1):
+            i = (q_ + d) * rows + r_
+            at = (i // rows) * le.SUMS_TURN + i % rows
+            assert ((at == (q_ + d) * le.SUMS_TURN + r_)).all()
+            slot.update(zip(at.ravel().tolist(), i.ravel().tolist()))
+        assert sorted(slot.values()) == list(range(rows * cols))
+    n = (n1 << shape["log2n2"]) + n2
+    keep = (n1 < shape["rows"]) & (n < bins)
+    assert (keep[..., 0] == keep[..., 1]).all()
+    n1, n2, n = n1[keep], n2[keep], n[keep]
+    assert np.unique(n).size == n.size
+    pos = le.sums_place(shape, n1, n2)
+    assert np.unique(pos).size == pos.size and pos.max() < shape["frame"]
+    scratch = np.full((S, F, shape["frame"]), np.nan, np.complex64)
+    held = np.full((S, F, P - 1), -1, np.int64)
+
+    def deq(row):
+        return (row[2 * n].astype(np.float32) - np.float32(127),
+                row[2 * n + 1].astype(np.float32) - np.float32(127))
+
+    for s, g in np.ndindex(S, groups):
+        hv = [h[p][n] for p in range(P)]
+        first = g * group
+        window = [deq(virtual[s, first + p]) for p in range(P - 1)]
+        rows = [first + p for p in range(P - 1)]
+        for j in range(first, min(first + group, max(counts[s], 0), F)):
+            ore, oim = deq(virtual[s, j + P - 1])
+            assert (held[s, j] == -1).all()   # one block forms frame j
+            held[s, j] = rows
+            re = np.zeros(n.shape, np.float32)
+            im = np.zeros(n.shape, np.float32)
+            for p in range(P - 1):
+                re = re + window[p][0] * hv[p]
+                im = im + window[p][1] * hv[p]
+            re = re + ore * hv[P - 1]
+            im = im + oim * hv[P - 1]
+            scratch[s, j, pos] = re + 1j * im
+            window = window[1:] + [(ore, oim)]
+            rows = rows[1:] + [j + P - 1]
+    return scratch, held
+
+
+def pass_a_sums_reads(shape, t, groups, S, F, counts, k_rows):
+    """The sums pass A reads on a pass-A grid of ``groups`` frames a
+    block over S streams: for block (x, s), frame f of its group (f <
+    counts[s]), batch b and thread tid = (c, tt), value k < k_rows: the
+    scratch place (c0 / B + b) N1 B + k THREADS_A + tid of frame s F + f
+    and the sample n = (tt + k TF1) N2 + c0 + b B + c it transforms.
+    Returns (stream, frame, place, n) arrays of the reads with n < bins."""
+    B, C, N1, N2, TF = t["B"], t["C"], t["N1"], t["N2"], t["TF1"]
+    col, th = fl.thread_map(N1 * N2)
+    tid = np.arange(t["threads_a"])
+    k = np.arange(k_rows)
+    out = []
+    for s in range(S):
+        for x in range(t["tiles_a"] * -(-F // groups)):
+            c0 = (x % t["tiles_a"]) * C
+            f0 = (x // t["tiles_a"]) * groups
+            for f in range(f0, min(f0 + groups, min(max(counts[s], 0), F))):
+                for b in range(t["subs"]):
+                    place = ((c0 // B + b) * N1 * B
+                             + k * t["threads_a"] + tid[:, None])
+                    n = ((th[:, None] + k * TF) * N2 + c0 + b * B
+                         + col[:, None])
+                    m = n < shape["bins"]
+                    out.append((np.full(m.sum(), s), np.full(m.sum(), f),
+                                place[m], n[m]))
+    return tuple(np.concatenate(a) for a in zip(*out))
+
+
+def hold_prepass(virtual, h, counts, shape, t, groups, k_rows):
+    """The transcribed pre-pass's sums are the plain sums bit for bit at
+    every frame j < counts[s], nothing else of the scratch is written, its
+    window held virtual rows j .. j + P - 2 at frame j (the history's rows
+    while j + p < P - 1, then the frames'), and every sum pass A reads on
+    its grid was written, as sample n's. Returns the scratch."""
+    S = virtual.shape[0]
+    P = h.shape[0]
+    F = virtual.shape[1] - (P - 1)
+    scratch, held = prepass_sums(virtual, h, counts, shape)
+    st, fr, place, n = pass_a_sums_reads(shape, t, groups, S, F, counts,
+                                         k_rows)
+    for s in range(S):
+        nv = min(max(counts[s], 0), F)
+        plain = fpf.pfb_sums_reference(torch.from_numpy(virtual[s]),
+                                       torch.from_numpy(h), F).numpy()
+        for j in range(F):
+            if j < nv:
+                assert (held[s, j] == j + np.arange(P - 1)).all()
+                assert ((held[s, j] < P - 1)
+                        == (j + np.arange(P - 1) < P - 1)).all()
+                assert (~np.isnan(scratch[s, j])).sum() == shape["bins"]
+            else:
+                assert (held[s, j] == -1).all()
+                assert np.isnan(scratch[s, j]).all()
+        mine = st == s
+        np.testing.assert_array_equal(scratch[s, fr[mine], place[mine]],
+                                      plain[fr[mine], n[mine]])
+    return scratch
+
+
+def sums_load(scratch_f, shape):
+    """A pass-A load from the pre-pass's sums of one frame: sample n's sum
+    at its ``sums_place``, 0 at n >= bins (which pass A does not read)."""
+
+    def load(re_own, im_own, n):
+        ok = n < shape["bins"]
+        nn = np.where(ok, n, 0)
+        v = scratch_f[le.sums_place(shape, nn >> shape["log2n2"],
+                                    nn & ((1 << shape["log2n2"]) - 1))]
+        v = np.where(ok, v, 0).astype(np.complex64)
+        return v.real.astype(np.float32), v.imag.astype(np.float32)
+    return load
+
+
+@pytest.mark.parametrize("N,P,F,counts", [(8194, 4, 3, (3, 1)),
+                                          (12002, 2, 2, (2,)),
+                                          (16382, 16, 3, (0, 3, 2)),
+                                          (9998, 32, 2, (1, 2))])
+def test_pfb_prepass_transcription(N, P, F, counts):
+    """PFB-BL's pre-pass (rows n1 < M1 / 2 of M's array, n < N) over S
+    streams with uneven counts: its window holds the virtual rows each
+    output frame needs, its sums are the plain sums bit for bit, and pass
+    A on BL-S's grid reads each of its samples' sums (8 rows a thread)."""
+    S = len(counts)
+    rng = np.random.default_rng(N + P + S)
+    virtual = rng.integers(0, 256, (S, P - 1 + F, 2 * N), dtype=np.uint8)
+    h = pfb.pfb_prototype(N, P, "hann").reshape(P, N)
+    shape = be.sums_shape(N)
+    t = bl.chirp_regs_layout(N).regs
+    group_a = bl.streams_grid(S, F, N, (RESIDENT,) * 3)[0]
+    hold_prepass(virtual, h, list(counts), shape, t, group_a, 8)
+
+
+@pytest.mark.parametrize("form", ["control", "sums"])
 @pytest.mark.parametrize("N,P,F,nv", [(8194, 4, 3, 3), (12002, 2, 2, 1),
                                       (16382, 4, 2, 2)])
-def test_pfb_pass_a_rows_transcription(N, P, F, nv):
-    """PFB-BL's pass A: frame j's own row from the ring (the ring filled
-    from virtual row j + P - 1), the older rows from the history or the
-    earlier frames, the polyphase sum before the chirp product: the sums
-    are the plain version's bit for bit, and BL's transcription of them
-    sums within 1e-5 of the float64 form and of the plain PFB-BL."""
+def test_pfb_pass_a_rows_transcription(N, P, F, nv, form):
+    """PFB-BL's pass A, in its control's form (frame j's own row from the
+    ring, filled from virtual row j + P - 1, the older rows from the
+    history or the earlier frames) or on the pre-pass's sums (read from
+    the scratch where the pre-pass wrote them), the polyphase sum before
+    the chirp product: the sums are the plain version's bit for bit, and
+    BL's transcription of them sums within 1e-5 of the float64 form and
+    of the plain PFB-BL."""
     rng = np.random.default_rng(N + P)
     slot = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
     history = rng.integers(0, 256, (P - 1, 2 * N), dtype=np.uint8)
@@ -673,12 +848,19 @@ def test_pfb_pass_a_rows_transcription(N, P, F, nv):
     virtual = np.concatenate([history, slot])
     plain_sums = fpf.pfb_sums_reference(torch.from_numpy(virtual),
                                         torch.from_numpy(h), F).numpy()
+    shape = be.sums_shape(N)
+    scratch = prepass_sums(virtual[None], h, [nv], shape)[0][0]
+
+    def load_of(j):
+        return (polyphase_load(virtual, j, P, h) if form == "control"
+                else sums_load(scratch[j], shape))
+
     n = np.arange(N)
     for j in range(nv):
         own = virtual[j + P - 1]
         re = own[0::2].astype(np.float32) - np.float32(127)
         im = own[1::2].astype(np.float32) - np.float32(127)
-        sr, si = polyphase_load(virtual, j, P, h)(re, im, n)
+        sr, si = load_of(j)(re, im, n)
         np.testing.assert_array_equal((sr + 1j * si).astype(np.complex64),
                                       plain_sums[j])
     tabs = bl_tables(N)
@@ -689,7 +871,7 @@ def test_pfb_pass_a_rows_transcription(N, P, F, nv):
         acc = np.zeros(m.shape, np.float32)
         for j in range(g * group_c, min((g + 1) * group_c, F, nv)):
             acc += pass_c_powers(virtual[j + P - 1], N, tabs,
-                                 load=polyphase_load(virtual, j, P, h))
+                                 load=load_of(j))
         row = np.full(bl.chirp_regs_layout(N).row, np.nan, np.float32)
         row[m[m < N]] = acc[m < N]
         rows.append(row)
@@ -832,7 +1014,9 @@ def test_bl_and_its_forms_share_the_passes_header():
     """BL's streams passes and pass A's batch live in one header that BL
     and the forms both include, not in a copy; the forms' source
     instantiates BL's log2 M, 15 to 22, each in its dispatch, and names its
-    passes as PASS_A .. PFB_PASS_A number them."""
+    passes as PASS_A .. PFB_CONTROL_A number them (the PFB's pass A on the
+    pre-pass's sums, the pre-pass at two tap classes, the control's pass A
+    last)."""
     header = (CSRC / "fused_psd_chirp_large_regs.cuh").read_text()
     bl_src = (CSRC / "fused_psd_chirp_large.cu").read_text()
     est = (CSRC / "fused_psd_chirp_large_est.cu").read_text()
@@ -852,8 +1036,15 @@ def test_bl_and_its_forms_share_the_passes_header():
     order = re.findall(r"case (\d): return reinterpret_cast<const void\*>\("
                        r"(\w+)<", est)
     assert [int(i) for i, _ in order] == [be.PASS_A, be.PASS_A_WINDOWED,
-                                          be.PASS_B, be.PASS_C, be.SK_PASS_C]
+                                          be.PASS_B, be.PASS_C, be.SK_PASS_C,
+                                          be.PFB_PASS_A]
     assert [k for _, k in order] == ["chirp_streams_a", "chirp_streams_a",
                                      "chirp_streams_b", "chirp_streams_c",
-                                     "chirp_sk_c"]
-    assert "chirp_pfb_a<LOG2M>" in est and be.PFB_PASS_A == 5
+                                     "chirp_sk_c", "chirp_pfb_sums_a"]
+    assert f"case {be.PFB_SUMS}: return sums_kernel<4>();" in est
+    assert f"case {be.PFB_SUMS_32}: return sums_kernel<32>();" in est
+    assert ("default: return reinterpret_cast<const void*>(chirp_pfb_a<LOG2M>)"
+            in est)
+    assert int(re.search(r"constexpr int kPasses = (\d+);", est).group(1)) \
+        == be.PFB_CONTROL_A + 1
+    assert '#include "pfb_sums.cuh"' in est

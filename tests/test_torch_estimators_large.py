@@ -59,7 +59,9 @@ from test_torch_estimator_streams import (MESH, assert_combined_close,
                                           assert_rows_close, jax_mesh,
                                           stream_rows_sum, streams_bytes)
 from test_torch_estimators_chirp_large import (close, direct_pfb_steps,
-                                               polyphase_load, power64)
+                                               hold_prepass, polyphase_load,
+                                               power64, prepass_sums,
+                                               sums_load)
 from test_torch_estimators_mixed import TONE, frames, z64
 from test_torch_fused_psd_large_regs import (SOURCE, batch_transform,
                                              col_index, col_of,
@@ -740,27 +742,55 @@ def test_second_plane_transcription(N, counts, wname):
         close(s2, plain, c, 2e-5 if c >= 8 else max(2e-5, 3 * own))
 
 
+@pytest.mark.parametrize("N,P,F,counts", [(32768, 4, 3, (3, 1)),
+                                          (65536, 2, 2, (2,)),
+                                          (32768, 16, 3, (0, 3, 2)),
+                                          (65536, 32, 2, (1, 2))])
+def test_pfb_prepass_transcription(N, P, F, counts):
+    """PFB-L's pre-pass (every sample of the frame's N1 x N2 array) over S
+    streams with uneven counts: its window holds the virtual rows each
+    output frame needs, its sums are the plain sums bit for bit, and pass
+    A on L-S's grid reads each sample's sum (16 rows a thread) where the
+    pre-pass wrote it."""
+    S = len(counts)
+    rng = np.random.default_rng(N + P + S)
+    virtual = rng.integers(0, 256, (S, P - 1 + F, 2 * N), dtype=np.uint8)
+    h = pfb.pfb_prototype(N, P, "hann").reshape(P, N)
+    group_a = fl.streams_grid(S, F, N, *h100_resident(N))[0]
+    hold_prepass(virtual, h, list(counts), le.sums_shape(N),
+                 fl.regs_layout(N), group_a, 16)
+
+
+@pytest.mark.parametrize("form", ["control", "sums"])
 @pytest.mark.parametrize("N,P,F,nv", [(32768, 4, 3, 3), (65536, 2, 2, 1)])
-def test_pfb_pass_a_rows_transcription(N, P, F, nv):
-    """PFB-L's pass A: frame j's own row from the ring (filled from
-    virtual row j + P - 1), the older rows from the history or the earlier
-    frames, the polyphase sum before the column transform: the large
-    kernel's transcription of those sums, through pass B, sums within 1e-5
-    of the float64 form and of the plain PFB-L, and the next history is
-    the virtual rows from n_valid."""
+def test_pfb_pass_a_rows_transcription(N, P, F, nv, form):
+    """PFB-L's pass A, in its control's form (frame j's own row from the
+    ring, filled from virtual row j + P - 1, the older rows from the
+    history or the earlier frames) or on the pre-pass's sums (read from
+    the scratch where the pre-pass wrote them), the polyphase sum before
+    the column transform: the large kernel's transcription of those sums,
+    through pass B, sums within 1e-5 of the float64 form and of the plain
+    PFB-L, and the next history is the virtual rows from n_valid."""
     rng = np.random.default_rng(N + P)
     slot = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
     history = rng.integers(0, 256, (P - 1, 2 * N), dtype=np.uint8)
     h = pfb.pfb_prototype(N, P, "hann").reshape(P, N)
     virtual = np.concatenate([history, slot])
     t = fl.regs_layout(N)
+    shape = le.sums_shape(N)
+    scratch = prepass_sums(virtual[None], h, [nv], shape)[0][0]
+
+    def load_of(j):
+        return (polyphase_load(virtual, j, P, h) if form == "control"
+                else sums_load(scratch[j], shape))
+
     group_a, group_b, G = fl.regs_grid(F, N, *h100_resident(N))
     rows = []
     for g in range(G):
         acc = np.zeros((t["tiles_b"], 256, 16), np.float32)
         for j in range(g * group_b, min((g + 1) * group_b, F, nv)):
             acc += pass_b_power(pass_a_load(
-                virtual[j + P - 1], N, polyphase_load(virtual, j, P, h)), N)
+                virtual[j + P - 1], N, load_of(j)), N)
         rows.append(pass_b_bins(acc, t))
     got = np.sum(np.asarray(rows, np.float64), 0)
     s64 = sum(z64(virtual)[p:p + nv] * h[p].astype(np.float64)
@@ -816,8 +846,9 @@ def test_taper_loop_rows_transcription(N, K, counts):
 def test_the_large_kernel_and_its_forms_share_the_streams_passes():
     """L-S's passes live in one header that the large kernel and the forms
     both include, not in a copy; the forms' source instantiates every log2
-    N from 15 to 22 and names its passes as PASS_A .. PFB_PASS_A number
-    them."""
+    N from 15 to 22 and names its passes as PASS_A .. PFB_CONTROL_A number
+    them (the PFB's pass A on the pre-pass's sums, the pre-pass at two tap
+    classes, the control's pass A last)."""
     header = (CSRC / "fused_psd_large_streams.cuh").read_text()
     large = (CSRC / "fused_psd_large.cu").read_text()
     est = (CSRC / "fused_psd_large_est.cu").read_text()
@@ -832,10 +863,105 @@ def test_the_large_kernel_and_its_forms_share_the_streams_passes():
     order = re.findall(r"case (\d): return reinterpret_cast<const void\*>\("
                        r"(\w+)<", est)
     assert [int(i) for i, _ in order] == [le.PASS_A, le.PASS_A_WINDOWED,
-                                          le.PASS_B, le.SK_PASS_B]
+                                          le.PASS_B, le.SK_PASS_B,
+                                          le.PFB_PASS_A]
     assert [k for _, k in order] == ["large_streams_a", "large_streams_a",
-                                     "large_streams_b", "large_sk_b"]
-    assert "large_pfb_a<LOG2N>" in est and le.PFB_PASS_A == 4
+                                     "large_streams_b", "large_sk_b",
+                                     "large_pfb_sums_a"]
+    assert f"case {le.PFB_SUMS}: return sums_kernel<4>();" in est
+    assert f"case {le.PFB_SUMS_32}: return sums_kernel<32>();" in est
+    assert ("default: return reinterpret_cast<const void*>(large_pfb_a<LOG2N>)"
+            in est)
+    assert int(re.search(r"constexpr int kPasses = (\d+);", est).group(1)) \
+        == le.PFB_CONTROL_A + 1
+    assert '#include "pfb_sums.cuh"' in est
+
+
+def c_table(text, name):
+    """The int values of the constexpr array ``name`` of a source, in
+    order (its comments dropped)."""
+    body = text[text.index(name):]
+    body = body[body.index("= {") + 3:body.index("};")]
+    return [int(v) for v in re.findall(r"\d+", re.sub(r"//[^\n]*", "",
+                                                      body))]
+
+
+#: Shared memory a block can take on an H100, and an SM's.
+BLOCK_SMEM, SM_SMEM = 232448, 233472
+
+
+@pytest.mark.parametrize("library", ["fused_psd_large_est",
+                                     "fused_psd_chirp_large_est"])
+def test_pfb_route_table_is_the_sources(library):
+    """PFB-L's route by (log2 N, tap class) is the source's kPfbLoad, a row
+    a log2 from 15 to 22, a column a class of sums_taps; PFB-BL's source
+    has no table (the pre-pass at every M and P); each control takes the
+    first form at every P."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_large_est as be
+    text = (CSRC / f"{library}.cu").read_text()
+    if library == "fused_psd_chirp_large_est":
+        assert "kPfbLoad" not in text
+        assert "static_cast<float*>(out), device, control);" in text
+        assert {be.pfb_route(N, P) for N in (8194, 99998, 2097150)
+                for P in range(1, 33)} == {"sums"}
+        return
+    assert c_table(text, "kPfbLoad[") == [v for k in range(15, 23)
+                                          for v in le.PFB_LOAD[k]]
+    assert "control ||\n              kPfbLoad[" in text
+    assert le.TAP_CLASSES == tuple(le.sums_taps(P) for P in (2, 4, 8, 16, 32))
+    assert [le.sums_taps(P) for P in range(1, 33)] == [
+        next(c for c in le.TAP_CLASSES if P <= c) for P in range(1, 33)]
+
+
+@pytest.mark.parametrize("log2n", range(15, 23))
+def test_pfb_shared_memory_plan_fits(log2n):
+    """Every (log2 N, P <= 32) of PFB-L's and PFB-BL's route tables runs a
+    pass A whose shared memory fits a block's 227 KB: the first form's
+    where the table gives it, the exchange and two slots of a batch's sums
+    elsewhere, two blocks of which fit an SM; the pre-pass's 16 x 32
+    samples turn through 4352 B."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_large_est as be
+    N = 1 << log2n
+    bl_n = (1 << (log2n - 1)) - 2      # an even N with M = 2^log2n
+    for m, n in ((le, N), (be, bl_n)):
+        for P in range(1, 33):
+            route = m.pfb_route(n, P)
+            smem = m.pfb_smem(n, route)
+            assert smem <= BLOCK_SMEM, (n, P, route, smem)
+            if route == "sums":
+                assert 2 * (smem + 1024) <= SM_SMEM
+        assert 8 * le.SUMS_TURN * le.SUMS_COLS == 4352
+    t = fl.regs_layout(N)
+    assert le.pfb_smem(N, "load") == t["smem_a"]
+
+
+def test_pfb_controls_run_plain_on_the_cpu():
+    """On the CPU the PFB forms' controls count as plain calls, as the
+    forms do, and give the forms' outputs and histories."""
+    from rtl_power_fftw_tpu_torch.ops.kernels import \
+        fused_psd_chirp_large_est as be
+    fp.COUNTS.reset()
+    for m, N, name in ((le, 32768, "large"), (be, 8194, "chirp_large")):
+        raw = torch.from_numpy(frames(3, N, 29))
+        h = torch.from_numpy(pfb.pfb_prototype(N, 4).reshape(4, N))
+        hist = torch.from_numpy(frames(3, N, 30))
+        outs = [torch.empty_like(hist) for _ in range(4)]
+        one = getattr(m, f"fused_psd_pfb_{name}")(raw, hist, 2, 3, h,
+                                                   outs[0])
+        ctl = getattr(m, f"fused_psd_pfb_{name}_control")(raw, hist, 2, 3, h,
+                                                          outs[1])
+        nv = torch.tensor([2], dtype=torch.int32)
+        s = getattr(m, f"fused_psd_pfb_{name}_streams")(
+            raw[None], hist[None], nv, 3, h, outs[2][None])
+        sc = getattr(m, f"fused_psd_pfb_{name}_streams_control")(
+            raw[None], hist[None], nv, 3, h, outs[3][None])
+        assert torch.equal(one, ctl) and torch.equal(s, sc)
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+    counts = vars(fp.COUNTS)
+    assert counts["plain"] == 8
+    assert not any(v for k, v in counts.items() if k != "plain")
 
 
 def test_wide_history_blocks_cover_each_row_once():
