@@ -32,7 +32,7 @@ builds are copies of the sources edited before nvcc
   the pre-pass at every (M, P)).
 
 Which build ships at which (N, P) (device µs on an NVIDIA H100 80GB
-HBM3, 700.00 W, PR 29's route sweep): PFB-L's first form, the sums in
+HBM3, 700.00 W, this probe's route sweep): PFB-L's first form, the sums in
 pass A's load, at 32768 and 65536 for every P (the pre-pass 1.23-1.47x
 its time: one frame a block there, N1 <= 256, a half-warp's loads 16
 adjacent columns) and at 2^17 for P <= 8 (1.15-1.37x); the pre-pass and
