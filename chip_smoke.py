@@ -9087,16 +9087,22 @@ def phase_estimators_ml(dev, rng, fp, adapt_batch, make_window, cli, ff,
 
 # Phase 25's shapes by family (one stream, P = 4: phases 22 and 23's timed
 # shapes and each family's largest), its S = 2 cases (N, F a stream,
-# uneven counts; the first timed), its other tap counts (at one small-F
-# shape where the route takes the pre-pass) and n_valid cases (F - 1, 1
-# and 0 at one shape), and the shapes profiled by pass.
+# uneven counts; each timed), its other tap counts (each tap class, and 6
+# inside one, where the routes of the classes differ; PFB-L's P = 2 on the
+# ring too) and n_valid cases (F - 1, 1 and 0 at one shape), and the
+# shapes profiled by pass.
 PFB25_ONE = {"L": ((65536, 16), (1 << 20, 8), (1 << 22, 8)),
              "BL": ((16382, 256), (99998, 64), (2097150, 8))}
-PFB25_STREAMS = {"L": ((65536, 16, (16, 9)), (1 << 18, 8, (8, 5))),
+PFB25_STREAMS = {"L": ((65536, 16, (16, 9)), (1 << 18, 8, (8, 5)),
+                       (32768, 64, (64, 37))),
                  "BL": ((99998, 32, (32, 17)),)}
-PFB25_TAPS = {"L": (1 << 18, 8, (2, 16, 32)), "BL": (16382, 16, (2, 16, 32))}
+PFB25_TAPS = {"L": ((65536, 64, (2, 6, 8, 16, 32)), (1 << 18, 8, (2,))),
+              "BL": ((16382, 16, (2, 6, 8, 16, 32)),)}
 PFB25_COUNTS = {"L": (1 << 20, 8), "BL": (99998, 64)}
 PFB25_PROFILED = {"L": ((1 << 20, 8), (1 << 22, 8)), "BL": ((2097150, 8),)}
+# Phase 25's CLI drive: PFB-L at 2^20 bins, P = 4, where the route takes
+# the ring.
+PFB25_DRIVE_N = 1 << 20
 # The yardsticks PERF.md's rows lacked at their timed shapes: (row, kind
 # of estimator_bound_ms, N, F, the complex64 transforms torch.fft.fft
 # takes: F frames, F K tapered frames at K = 7).
@@ -9160,13 +9166,18 @@ def phase_pfb_loads(dev, rng, fp, ff, card):
     # 1. What each pass gets on the card.
     for f, shapes in PFB25_ONE.items():
         mod = fam[f][0]
-        for N, _ in shapes:
+        for N, F in shapes:
             base = fam[f][4](N, fam[f][5], dev)
             parts = []
-            for which, name in ((mod.PFB_PASS_A, "pass A on the sums"),
-                                (mod.PFB_SUMS, "pre-pass P <= 4"),
-                                (mod.PFB_SUMS_32, "pre-pass P <= 32"),
-                                (mod.PFB_CONTROL_A, "the control's pass A")):
+            passes = [(mod.PFB_PASS_A, "pass A on the sums"),
+                      (mod.PFB_SUMS, "pre-pass P <= 4"),
+                      (mod.PFB_SUMS_32, "pre-pass P <= 32"),
+                      (mod.PFB_CONTROL_A, "the control's pass A")]
+            if f == "L" and N <= le.RING_MAX_N:
+                passes += [(le.PFB_RING_A, "the ring's pass A P = 4"),
+                           (le.PFB_RING_RES_A,
+                            "the ring's pass A h resident P = 4")]
+            for which, name in passes:
                 a = mod.kernel_attributes(N, which, dev)
                 parts.append(f"{name} {a['registers']} registers, "
                              f"{a['spill_bytes']} B spill, "
@@ -9177,7 +9188,7 @@ def phase_pfb_loads(dev, rng, fp, ff, card):
                   + f"; the base kernel's pass A {base['registers']} "
                   f"registers, {base['spill_bytes']} B spill, "
                   f"{base['blocks_per_sm']} blocks/SM; route "
-                  f"{mod.pfb_route(N, 4)} at P = 4")
+                  f"{mod.pfb_route(N, 4, F)} at P = 4, F = {F}")
 
     def frames_dev(S, F, N):
         return torch.randint(0, 256, (S, F, 2 * N), dtype=torch.uint8,
@@ -9186,12 +9197,17 @@ def phase_pfb_loads(dev, rng, fp, ff, card):
                                      int(rng.integers(1 << 30))))
 
     # 2. The control's bits, and plain's and the golden's budgets.
-    def bits(f, N, F, P, counts, label):
+    def bits(f, N, F, P, counts, label, aligned=True):
         S = len(counts)
         raw = frames_dev(S, F, N)
         hist = frames_dev(S, P - 1, N)
         h_np = pfb_prototype(N, P).reshape(P, N)
         h = torch.from_numpy(h_np).to(dev)
+        if not aligned:   # the history and h as views 4 bytes past 16
+            hist = torch.cat([torch.zeros(4, dtype=torch.uint8, device=dev),
+                              hist.reshape(-1)])[4:].view(hist.shape)
+            h = torch.cat([torch.zeros(1, device=dev),
+                           h.reshape(-1)])[1:].view(h.shape)
         outs = [torch.empty_like(hist) for _ in range(3)]
         c_dev = torch.tensor(counts, dtype=torch.int32, device=dev)
         if S == 1:
@@ -9218,7 +9234,8 @@ def phase_pfb_loads(dev, rng, fp, ff, card):
               f"PFB-{f} {label}: not the control's bits ({same}) or not "
               "plain's history")
         print(f"bits PFB-{f}{'-S' * (S > 1)} {label} N={N} F={F} P={P} "
-              f"counts {list(counts)} (route {fam[f][0].pfb_route(N, P)}) "
+              f"counts {list(counts)} (route "
+              f"{fam[f][0].pfb_route(N, P, S * F)}) "
               f"on {card}: output and next history the control's bit for "
               "bit, the history plain's; " + hold_streams(
                   f"PFB-{f} {label}", got.cpu().numpy(),
@@ -9231,19 +9248,20 @@ def phase_pfb_loads(dev, rng, fp, ff, card):
             bits(f, N, F, 4, (F,), "every frame")
         for N, F, counts in PFB25_STREAMS[f]:
             bits(f, N, F, 4, counts, "over streams")
-        N, F, taps = PFB25_TAPS[f]
-        for P in taps:
-            bits(f, N, F, P, (F,), f"P={P}")
+        for N, F, taps in PFB25_TAPS[f]:
+            for P in taps:
+                bits(f, N, F, P, (F,), f"P={P}")
         N, F = PFB25_COUNTS[f]
         for c in (F - 1, 1, 0):
             bits(f, N, F, 4, (c,), f"n_valid {c}")
+        bits(f, N, F, 4, (F,), "history and h 4-byte views", aligned=False)
     print(f"wall: PFB loads' bits in {time.perf_counter() - t0:.1f} s")
 
     # 3. Times, in turns on the same frames.
     times = {}
     P = 4
     timed = [(f, N, 1, F) for f in fam for N, F in PFB25_ONE[f]] + [
-        (f, *PFB25_STREAMS[f][0][:1], 2, PFB25_STREAMS[f][0][1]) for f in fam]
+        (f, N, 2, F) for f in fam for N, F, _ in PFB25_STREAMS[f]]
     for f, N, S, F in timed:
         raw = frames_dev(S, F, N)
         h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
@@ -9293,6 +9311,7 @@ def phase_pfb_loads(dev, rng, fp, ff, card):
              "lib": event_times_us(calls["fft"]),
              **{f"{k}_device": min(v) for k, v in dev_us.items()}}
         label = f"PFB-{f}{'-S' * (S > 1)}"
+        t["route"] = fam[f][0].pfb_route(N, P, S * F)
         times.setdefault(label, []).append(t)
         b_us = 1e3 * t["bound"][0]
         two = (f"; two one-stream calls {t['two_device']:.1f} us "
@@ -9300,7 +9319,7 @@ def phase_pfb_loads(dev, rng, fp, ff, card):
                f"streams/two {t['form_device'] / t['two_device']:.3f}"
                if S > 1 else "")
         print(f"time {label} N={N} S={S} F={F} P={P} (route "
-              f"{fam[f][0].pfb_route(N, P)}) on {card}: a call "
+              f"{t['route']}) on {card}: a call "
               f"{t['call']:.1f} us, device {t['form_device']:.1f} us "
               f"({'/'.join(f'{x:.1f}' for x in dev_us['form'])}); the "
               f"control a call {t['control_call']:.1f} us, device "
@@ -9328,9 +9347,30 @@ def phase_pfb_loads(dev, rng, fp, ff, card):
               f"the ({frames}, {N}) complex64 transforms device "
               f"{lib_us:.1f} us; bound {1e3 * b_ms:.2f} us ({b_by})")
         del z
+    # The CLI on PFB-L's ring route (no drive of phases 22 and 23 takes
+    # it): matrix output, on PFB-L alone, against the float64 golden.
+    from rtl_power_fftw_tpu_torch import cli
+    N = PFB25_DRIVE_N
+    with tempfile.TemporaryDirectory() as tmp:
+        record = os.path.join(tmp, "pfb25.iq")
+
+        def golden():
+            raw_d = torch.from_numpy(recorded_frames(record, N)[:8]).to(dev)
+            pwr = golden_pfb_dev(torch.cat([torch.full(
+                (3, 2 * N), 127, dtype=torch.uint8, device=dev), raw_d]), 8,
+                pfb_prototype(N, 4).reshape(4, N))
+            return golden_finalize_linear(np.fft.fftshift(pwr), 8, RATE)
+
+        ring_drive = matrix_estimator_drive(
+            f"PFB-L -b {N} --pfb-taps 4 (route {le.pfb_route(N, 4, 8)})",
+            ["-f", "100M", "-n", "8", "-b", str(N), "-l", "--pfb-taps", "4",
+             "--source", LINE_SOURCE, "-q", "-m", os.path.join(tmp, "pfb25"),
+             "--record", record], cli, fp, ff, "PFB-L", N, golden, 1,
+            os.path.join(tmp, "pfb25") + ".bin")
+
     # 4. By pass.
     markers = {"L": ["pfb_sums_kernel", "large_pfb_sums_a", "large_pfb_a",
-                     "large_streams_b", "pfb_history"],
+                     "large_pfb_ring_a", "large_streams_b", "pfb_history"],
                "BL": ["pfb_sums_kernel", "chirp_pfb_sums_a", "chirp_pfb_a",
                       "chirp_streams_b", "chirp_streams_c", "pfb_history"]}
     for f, shapes in PFB25_PROFILED.items():
@@ -9347,14 +9387,33 @@ def phase_pfb_loads(dev, rng, fp, ff, card):
                     markers[f], whole=["pfb_history"], tries=4)
     print(f"wall: PFB loads phase in {time.perf_counter() - t0:.1f} s")
     control_names = {"L": "large_pfb_a", "BL": "chirp_pfb_a"}
-    # Each form's control at its first timed shape (the kernels line's
-    # entry is phases 22 and 23's, on the same shapes), and every timed
-    # shape's device times.
+
+    # Each form's headline fields, its control's beside them, at its first
+    # timed shape whose route is not the first form (the kernels line's
+    # entry then times the redesigned passes, not the control's kernel
+    # twice), and every timed shape's device times.
+    def headline(ts):
+        t = next(t for t in ts if t["route"] != "load")
+        return {"ms": t["call"] / 1000.0, "device_ms": t["form_device"]
+                / 1000.0, "plain_ms": t["plain"] / 1000.0,
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["lib"] / 1000.0, "max_abs_err": t["max_abs"],
+                "timed_shape": [t["N"], t["S"], t["F"], P],
+                "timed_route": t["route"],
+                "control_ms": t["control_call"] / 1000.0,
+                "control_device_ms": t["control_device"] / 1000.0,
+                "base_device_ms": t["base_device"] / 1000.0,
+                **({"singles_device_ms": t["two_device"] / 1000.0}
+                   if "two_device" in t else {})}
+
     return {label: {
         "control": control_names[label.split("-")[1]] + " (the first form)",
-        "control_ms": ts[0]["control_call"] / 1000.0,
-        "control_device_ms": ts[0]["control_device"] / 1000.0,
+        **headline(ts),
+        **({"pfb25_drive": {"N": PFB25_DRIVE_N, "launches": ring_drive,
+                            "route": le.pfb_route(PFB25_DRIVE_N, P, 8)}}
+           if label == "PFB-L" else {}),
         "pfb25_shapes": [[t["N"], t["S"], t["F"], P] for t in ts],
+        "pfb25_routes": [t["route"] for t in ts],
         "pfb25_device_ms": [t["form_device"] / 1000.0 for t in ts],
         "pfb25_control_device_ms": [t["control_device"] / 1000.0
                                     for t in ts],
@@ -9798,6 +9857,12 @@ def main() -> int:
     for e in estimators_above + large_estimators:
         label = re.search(r"\((PFB-B?L(?:-S)?)\)", e["name"])
         if label and label.group(1) in pfb_controls:
+            # The fields timed at phase 22 or 23's shape give way to phase
+            # 25's, all at one shape.
+            for k in ("host_ms", "large_device_ms", "chirp_large_device_ms",
+                      "streams_psd_device_ms", "singles_ms",
+                      "singles_device_ms"):
+                e.pop(k, None)
             e.update(pfb_controls[label.group(1)])
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")

@@ -47,15 +47,18 @@
 //           est_streams_kernel<kEstTapers> sums each stream's K G_s rows
 //           and divides by K. Each frame is read K times, as MT-BL reads
 //           it;
-//   PFB-L   a pre-pass, pfb_sums_kernel (pfb_sums.cuh), forms every
-//           polyphase sum in one streaming pass over the stream's virtual
-//           rows and writes it into the scratch where pass A writes that
-//           value; pass A, large_pfb_sums_a, reads its batch's sums from
-//           there in place of the ring. The next histories are
-//           pfb_history_wide_kernel's (pfb_history.cuh). Its first form,
-//           large_pfb_a (the sums in pass A's load: the own row from the
-//           ring, the older rows and h through L1/L2), stays as the
-//           control, rpf_fused_psd_pfb_large_control.
+//   PFB-L   pass A by the route table kPfbRoute (by N, frames a call and
+//           taps): large_pfb_ring_a, the sums from a shared-memory ring of
+//           the stream's virtual rows and h in 16-byte runs; or a
+//           pre-pass, pfb_sums_kernel (pfb_sums.cuh), that forms every
+//           polyphase sum in one streaming pass over the virtual rows and
+//           writes it into the scratch where pass A writes that value,
+//           then large_pfb_sums_a, which reads its batch's sums from there
+//           in place of the ring; or the first form, large_pfb_a (the sums
+//           in pass A's load: the own row from the ring, the older rows
+//           and h through L1/L2), which also runs as the control,
+//           rpf_fused_psd_pfb_large_control. The next histories are
+//           pfb_history_wide_kernel's (pfb_history.cuh).
 //
 // The passes are instantiated at every log2 N from 15 to 22; the entries
 // dispatch on it (at_log2n). The grid is the large kernel's own (the
@@ -68,7 +71,9 @@
 // MT-L, and for PFB-L the prototype h, 4 P N bytes, once, and the
 // pre-pass's sums, 8N bytes a frame written and read back (the control
 // read h and the P - 1 older rows through L1/L2 a frame: at 2^22 and P =
-// 4, 64 MB of h a frame against 8 MB of frames, above the 50 MB L2).
+// 4, 64 MB of h a frame against 8 MB of frames, above the 50 MB L2; the
+// ring reads the older rows once a block and h once a block resident, or
+// once a frame streamed).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -277,6 +282,189 @@ constexpr int sums_a_smem() {
          2 * LargeRegs<LOG2N>::N1 * LargeRegs<LOG2N>::B * 8;
 }
 
+// 16 bytes from global to shared memory by cp.async, or, where the source
+// is not 16-byte aligned (a history or h that is a view), by four 4-byte
+// copies.
+__device__ __forceinline__ void cp_async_piece(void* dst, const void* src,
+                                               bool wide) {
+  if (wide) {
+    cp_async16(dst, src);
+    return;
+  }
+#pragma unroll
+  for (int b = 0; b < 16; b += 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_address(static_cast<uint8_t*>(dst) + b)),
+                 "l"(static_cast<const uint8_t*>(src) + b)
+                 : "memory");
+  }
+}
+
+// Shared memory of large_pfb_ring_a at P taps: the exchange (which holds
+// the two h tiles of the streamed form while a batch forms its sums), P
+// raw tile slots, and in the resident form h's (P, N1, C) slice.
+template <int LOG2N>
+__host__ __device__ constexpr int ring_a_smem(int taps, bool resident) {
+  using L = LargeRegs<LOG2N>;
+  return L::XBYTES_A + taps * L::SLOT_A +
+         (resident ? taps * L::N1 * L::C * 4 : 0);
+}
+
+// PFB-L's pass A on a ring of virtual rows: large_pfb_a's sums (p in
+// order from zero, each product and sum rounded on its own, tap by tap
+// over a thread's 16 samples) with every operand read from shared memory.
+// The block's tile of the stream's virtual rows (P - 1 history rows, then
+// the frames) lies in a ring of P slots, virtual row v in slot v mod P, in
+// the own row's layout (ring_offset): its first output frame j0 loads rows
+// j0 .. j0 + P - 1 once, and each later frame one row, j + P, into the slot
+// of row j as soon as frame j's sums are formed, so that it lands during
+// frame j's transform. h enters as whole 16-byte runs of a row: RESIDENT,
+// the block's (P, N1, C) slice once, beside the ring; else tap by tap, the
+// batch's (N1, B) tile of tap p + 1 copied into one half of the exchange
+// while tap p is summed from the other (the exchange is free until the
+// batch's first pass). The ring route of rpf_fused_psd_pfb_large; its
+// frames a block from its own residency (ring_group).
+template <int LOG2N, bool RESIDENT>
+__global__ void __launch_bounds__(LargeRegs<LOG2N>::THREADS_A,
+                                  RESIDENT ? 1 : 2)
+large_pfb_ring_a(const uint8_t* __restrict__ raw,       // (S*F, 2N)
+                 const uint8_t* __restrict__ history,   // (S, P-1, 2N)
+                 const float* __restrict__ h,           // (P, N)
+                 const float2* __restrict__ twiddle,    // pass_twiddles(N1)
+                 const float2* __restrict__ inter,      // W_N^(k1 n2)
+                 float2* __restrict__ scratch,          // (S*F, N)
+                 int F, int group, int G_s, const int* __restrict__ counts,
+                 int taps) {
+  using L = LargeRegs<LOG2N>;
+  constexpr int TF = L::TF1;
+  constexpr int HTILE = L::N1 * L::B;   // floats of a (batch, tap) h tile
+  constexpr int HSTRIDE = RESIDENT ? L::C : L::B;
+  static_assert(L::B % 4 == 0, "an h tile row is whole 16-byte runs");
+  static_assert(2 * HTILE * 4 <= L::XBYTES_A, "two h tiles fit the exchange");
+  static_assert(HTILE / 4 == 4 * L::THREADS_A, "four h runs a thread");
+  extern __shared__ float4 large_smem[];
+  float2* x = reinterpret_cast<float2*>(large_smem);
+  float* hx = reinterpret_cast<float*>(large_smem);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(large_smem) + L::XBYTES_A;
+  float* hres = reinterpret_cast<float*>(ring + taps * L::SLOT_A);
+  const int tid = threadIdx.x;
+  const int c = col_of<LOG2N>(tid);
+  const int t = row_of<LOG2N>(tid);
+  const int c0 = (blockIdx.x % L::TILES_A) * L::C;
+  const StreamsBlock blk = streams_block(L::TILES_A, F, group, G_s, counts);
+  const int first = blk.first;
+  const int frames = blk.frames;
+  if (frames == 0) return;
+  const int stream = blockIdx.y;
+  const int j0 = first - stream * F;
+  const uint8_t* own = raw + static_cast<size_t>(stream) * F * 2 * L::N;
+  const uint8_t* old =
+      taps > 1 ? history + static_cast<size_t>(stream) * (taps - 1) * 2 * L::N
+               : nullptr;
+  const bool old_wide = (reinterpret_cast<uintptr_t>(old) & 15) == 0;
+  const bool h_wide = (reinterpret_cast<uintptr_t>(h) & 15) == 0;
+
+  // Virtual row v's tile into slot v mod P.
+  auto load_row = [&](int v) {
+    const bool hist = v < taps - 1;
+    const uint8_t* src =
+        (hist ? old + static_cast<size_t>(v) * 2 * L::N
+              : own + static_cast<size_t>(v - (taps - 1)) * 2 * L::N) +
+        2 * c0;
+    uint8_t* dst = ring + (v % taps) * L::SLOT_A;
+#pragma unroll
+    for (int q = 0; q < L::COPIES_A; ++q) {
+      const int e = tid + q * L::THREADS_A;
+      const int row = e / L::PARTS;
+      const int part = e % L::PARTS;
+      cp_async_piece(dst + ring_offset<LOG2N>(row, part),
+                     src + static_cast<size_t>(row) * 2 * L::N2 + 16 * part,
+                     !hist || old_wide);
+    }
+  };
+  // Batch s's h tile of tap p into half `half` of the exchange.
+  auto load_h = [&](int s, int p, int half) {
+    const float* src = h + static_cast<size_t>(p) * L::N + c0 + s * L::B;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = tid + q * L::THREADS_A;
+      const int row = e / (L::B / 4);
+      const int part = e % (L::B / 4);
+      cp_async_piece(hx + half * HTILE + row * L::B + 4 * part,
+                     src + static_cast<size_t>(row) * L::N2 + 4 * part,
+                     h_wide);
+    }
+    cp_async_commit();
+  };
+
+  for (int p = 0; p < taps; ++p) load_row(j0 + p);
+  if constexpr (RESIDENT) {
+    for (int e = tid; e < taps * L::N1 * (L::C / 4); e += L::THREADS_A) {
+      const int p = e / (L::N1 * (L::C / 4));
+      const int row = (e / (L::C / 4)) % L::N1;
+      const int part = e % (L::C / 4);
+      cp_async_piece(hres + (p * L::N1 + row) * L::C + 4 * part,
+                     h + static_cast<size_t>(p) * L::N +
+                         static_cast<size_t>(row) * L::N2 + c0 + 4 * part,
+                     h_wide);
+    }
+  }
+  cp_async_commit();
+  for (int i = 0; i < frames; ++i) {
+    const int j = j0 + i;
+    cp_async_wait<0>();   // rows j .. j + P - 1 (and h's slice) have landed
+    __syncthreads();      // everyone's; x is free (last pass of frame i-1)
+    float2* out = scratch + static_cast<size_t>(first + i) * L::N;
+#pragma unroll 1
+    for (int s = 0; s < L::SUBS; ++s) {
+      if (s > 0) __syncthreads();   // x is free (last pass of batch s - 1)
+      const int col = s * L::B + c;
+      const int byte = 2 * col;
+      float2 v[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) v[k] = make_float2(0.0f, 0.0f);
+      if constexpr (!RESIDENT) load_h(s, 0, 0);
+      for (int p = 0; p < taps; ++p) {
+        const uint8_t* tile = ring + ((j + p) % taps) * L::SLOT_A;
+        const float* hp;
+        if constexpr (RESIDENT) {
+          hp = hres + p * L::N1 * L::C + col;
+        } else {
+          if (p + 1 < taps) {
+            load_h(s, p + 1, (p + 1) & 1);
+            cp_async_wait<1>();   // tap p's tile has landed
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+          hp = hx + (p & 1) * HTILE + c;
+        }
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const int row = t + k * TF;
+          const unsigned u = *reinterpret_cast<const uint16_t*>(
+              tile + ring_offset<LOG2N>(row, byte >> 4) + (byte & 15));
+          const float hv = hp[row * HSTRIDE];
+          v[k].x = __fadd_rn(v[k].x, __fmul_rn(dequant_byte(u & 0xFFu), hv));
+          v[k].y = __fadd_rn(v[k].y, __fmul_rn(dequant_byte(u >> 8), hv));
+        }
+        // Every thread has read tap p's h before tap p + 2's copy (and
+        // the exchange before the first pass).
+        if constexpr (!RESIDENT) __syncthreads();
+      }
+      if (s == L::SUBS - 1 && i + 1 < frames) {
+        if constexpr (RESIDENT) __syncthreads();   // row j's slot is read
+        load_row(j + taps);
+        cp_async_commit();
+      }
+      first_pass<L::LOG2N1>(v, x, twiddle, t,
+                            [c](int e) { return col_index<LOG2N>(c, e); });
+      regs_a_rest<LOG2N>(s, v, x, twiddle, inter, out, c, t, c0);
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // SK-L's pass B: large_streams_b with a sum of |X|^4 beside each sum of
 // |X|^2 (the latter large_regs_b's expression), the s1 row of block (x,
 // s) to row r = s G_s + x / TILES_B of `rows` (at r * row_stride) and the
@@ -390,13 +578,33 @@ large_sk_b(const float2* __restrict__ scratch,   // (S*F, N)
 // The passes of this library, as the attributes entry numbers them: L-S's
 // pass A unwindowed (0) and windowed (1), pass B (2), and the forms' own
 // SK pass B (3), PFB pass A (4), the PFB's pre-pass at the tap classes 4
-// (5) and 32 (6), and the control's PFB pass A (7).
-constexpr int kPasses = 8;
+// (5) and 32 (6), the control's PFB pass A (7), and the PFB's pass A on
+// the ring, h streamed (8) and h resident (9), at P = 4.
+constexpr int kPasses = 10;
 constexpr int kPfbPassA = 4;
 constexpr int kPfbControlA = 7;
+constexpr int kPfbRingA = 8;
+constexpr int kPfbRingResA = 9;
+// The ring's dynamic shared memory opt-in at every P: a block's most.
+constexpr int kRingSmemMax = 232448;
+
+// The ring route exists where an h tile row is whole 16-byte runs (B >= 4:
+// N <= 2^21).
+template <int LOG2N>
+constexpr bool ring_built() {
+  return LargeRegs<LOG2N>::B % 4 == 0;
+}
 
 template <int LOG2N>
 const void* pass_kernel(int which) {
+  if constexpr (ring_built<LOG2N>()) {
+    if (which == kPfbRingA) {
+      return reinterpret_cast<const void*>(large_pfb_ring_a<LOG2N, false>);
+    }
+    if (which == kPfbRingResA) {
+      return reinterpret_cast<const void*>(large_pfb_ring_a<LOG2N, true>);
+    }
+  }
   switch (which) {
     case 0: return reinterpret_cast<const void*>(large_streams_a<LOG2N, false>);
     case 1: return reinterpret_cast<const void*>(large_streams_a<LOG2N, true>);
@@ -414,6 +622,8 @@ constexpr int pass_smem(int which) {
   return which == 2 || which == 3 ? LargeRegs<LOG2N>::SMEM_B
          : which == kPfbPassA     ? sums_a_smem<LOG2N>()
          : which == 5 || which == 6 ? 0
+         : which == kPfbRingA       ? ring_a_smem<LOG2N>(4, false)
+         : which == kPfbRingResA    ? ring_a_smem<LOG2N>(4, true)
                                     : LargeRegs<LOG2N>::SMEM_A;
 }
 
@@ -432,7 +642,9 @@ std::atomic<unsigned long long> pass_done[kPasses];
 
 template <int LOG2N>
 cudaError_t prepare(int which, int device) {
-  const int smem = pass_smem<LOG2N>(which);
+  const int smem = which == kPfbRingA || which == kPfbRingResA
+                       ? kRingSmemMax
+                       : pass_smem<LOG2N>(which);
   if (smem <= 48 * 1024) return cudaSuccess;
   std::atomic<unsigned long long>& done = pass_done<LOG2N>[which];
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
@@ -546,21 +758,79 @@ cudaError_t launch_tapers(const Launch& l, const float* tapers, int K,
                                         l.counts, l.F, K, 0.0f, out, l.st);
 }
 
-// PFB-L: the pre-pass and large_pfb_sums_a, or with `load` the first
-// form's large_pfb_a (the sums in its load); then pass B and the sum.
+// PFB-L's routes (kPfbRoute): the pre-pass and large_pfb_sums_a; the
+// first form's large_pfb_a (the sums in its load); the ring of virtual
+// rows, large_pfb_ring_a, h streamed tap by tap or resident.
+enum PfbRoute { kRouteSums = 0, kRouteLoad = 1, kRouteRing = 2,
+                kRouteRingRes = 3 };
+
+// Frames a block of the ring's pass A over S streams of F frames at P
+// taps: the fewest for which its blocks at this P's shared memory fit the
+// card at once, as fused_psd_large.large_group takes pass A's from its
+// residency (the ring's rows enter a block once over its frames).
+template <int LOG2N, bool RESIDENT>
+cudaError_t ring_group(const Launch& l, int P, int device, int* group) {
+  using L = LargeRegs<LOG2N>;
+  int per_sm = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, large_pfb_ring_a<LOG2N, RESIDENT>, L::THREADS_A,
+      ring_a_smem<LOG2N>(P, RESIDENT));
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  const int fit = per_sm * sms / (l.S * L::TILES_A);
+  *group = (l.F + (fit > 1 ? fit : 1) - 1) / (fit > 1 ? fit : 1);
+  return e;
+}
+
+template <int LOG2N, bool RESIDENT>
+cudaError_t launch_ring(const Launch& l, const uint8_t* history,
+                        const float* h, int P, int device) {
+  using L = LargeRegs<LOG2N>;
+  cudaError_t e = prepare<LOG2N>(RESIDENT ? kPfbRingResA : kPfbRingA, device);
+  int group = l.F;
+  if (e == cudaSuccess) e = ring_group<LOG2N, RESIDENT>(l, P, device, &group);
+  if (e != cudaSuccess) return e;
+  const int G = (l.F + group - 1) / group;
+  large_pfb_ring_a<LOG2N, RESIDENT>
+      <<<dim3(G * L::TILES_A, l.S), L::THREADS_A,
+         ring_a_smem<LOG2N>(P, RESIDENT), l.st>>>(
+          l.raw, history, h, l.twiddle, l.inter, l.scratch, l.F, group, G,
+          l.counts, P);
+  return cudaGetLastError();
+}
+
+// PFB-L on a route: its pass A, then pass B and the sum.
 template <int LOG2N>
 cudaError_t launch_pfb(const Launch& l, const uint8_t* history,
                        const float* h, int P, float* partial, float* out,
-                       int device, bool load) {
+                       int device, int route) {
   using L = LargeRegs<LOG2N>;
   const dim3 grid(l.g_a() * L::TILES_A, l.S);
-  cudaError_t e = prepare<LOG2N>(load ? kPfbControlA : kPfbPassA, device);
-  if (e != cudaSuccess) return e;
-  if (load) {
+  cudaError_t e = cudaSuccess;
+  if (route == kRouteRing || route == kRouteRingRes) {
+    // The table gives the ring only where it is built and fits at every P
+    // of the class (tests/test_torch_estimators_large.py holds it).
+    if constexpr (ring_built<LOG2N>()) {
+      if (ring_a_smem<LOG2N>(P, route == kRouteRingRes) > kRingSmemMax) {
+        return cudaErrorInvalidValue;
+      }
+      e = route == kRouteRing
+              ? launch_ring<LOG2N, false>(l, history, h, P, device)
+              : launch_ring<LOG2N, true>(l, history, h, P, device);
+    } else {
+      e = cudaErrorInvalidValue;
+    }
+  } else if (route == kRouteLoad) {
+    e = prepare<LOG2N>(kPfbControlA, device);
+    if (e != cudaSuccess) return e;
     large_pfb_a<LOG2N><<<grid, L::THREADS_A, L::SMEM_A, l.st>>>(
         l.raw, history, h, l.twiddle, l.inter, l.scratch, l.F, l.group_a,
         l.g_a(), l.counts, P);
+    e = cudaGetLastError();
   } else {
+    e = prepare<LOG2N>(kPfbPassA, device);
+    if (e != cudaSuccess) return e;
     const SumsShape shape{L::N,          L::LOG2N2,     L::LOG2N1,
                           log2_of(L::B), log2_of(L::V), L::N1,
                           L::N};
@@ -570,8 +840,8 @@ cudaError_t launch_pfb(const Launch& l, const uint8_t* history,
     large_pfb_sums_a<LOG2N><<<grid, L::THREADS_A, sums_a_smem<LOG2N>(),
                               l.st>>>(
         l.twiddle, l.inter, l.scratch, l.F, l.group_a, l.g_a(), l.counts);
+    e = cudaGetLastError();
   }
-  e = cudaGetLastError();
   if (e == cudaSuccess) {
     e = launch_b<LOG2N>(l, l.g_b() == 1 ? out : partial, device);
   }
@@ -616,23 +886,28 @@ Launch make_launch(const void* raw, const void* twiddle, const void* inter,
           static_cast<cudaStream_t>(stream)};
 }
 
-// PFB-L's route at N = 2^log2n and P taps (fused_psd_large_est.PFB_LOAD
-// mirrors it): 1 where the first form's pass A, the sums in its load
-// (large_pfb_a), took less device time on an H100 than the pre-pass and
-// pass A on its sums (probes/large_estimator_builds.py, route sweep: 16
-// frames up to 2^17, 8 above), by log2 N and the tap class of P
-// (sums_taps: 2, 4, 8, 16, 32). Where N1 <= 256 a half-warp of the first
-// form loads 16 adjacent columns, and a few taps re-read from L2 cost
-// less than the sums' trip through device memory.
-constexpr unsigned char kPfbLoad[kMaxLog2N - kMinLog2N + 1][5] = {
-    {1, 1, 1, 1, 1},   // 2^15
-    {1, 1, 1, 1, 1},   // 2^16
-    {1, 1, 1, 0, 0},   // 2^17
-    {0, 0, 0, 0, 0},   // 2^18
-    {0, 0, 0, 0, 0},   // 2^19
-    {0, 0, 0, 0, 0},   // 2^20
-    {0, 0, 0, 0, 0},   // 2^21
-    {0, 0, 0, 0, 0},   // 2^22
+// PFB-L's route at N = 2^log2n, P taps and S F frames a call
+// (fused_psd_large_est.PFB_ROUTE mirrors it), by log2 N, few (S F <
+// kPfbManyFrames) or many frames, and the tap class of P (sums_taps: 2, 4,
+// 8, 16, 32), a PfbRoute: whichever took the least device time on an H100
+// at 16, 64 and 256 frames up to 2^17 and at 8 to 64 above
+// (probes/large_estimator_builds.py, route sweep). At N1 <= 256 and few
+// frames a half-warp of the first form loads 16 adjacent columns, and a
+// few taps re-read from L2 cost less than the ring's copies or the sums'
+// trip through device memory; with many frames a block, or from N1 = 512,
+// the ring's rows and h enter a block once. The ring routes are given
+// only where every P of the class fits a block's shared memory
+// (ring_a_smem) and the ring is built.
+constexpr int kPfbManyFrames = 64;
+constexpr unsigned char kPfbRoute[kMaxLog2N - kMinLog2N + 1][2][5] = {
+    {{1, 1, 1, 1, 1}, {3, 3, 3, 0, 0}},   // 2^15
+    {{1, 1, 1, 1, 1}, {1, 3, 3, 0, 0}},   // 2^16
+    {{1, 1, 3, 0, 0}, {1, 3, 3, 0, 0}},   // 2^17
+    {{2, 2, 0, 0, 0}, {2, 2, 0, 0, 0}},   // 2^18
+    {{2, 2, 0, 0, 0}, {2, 2, 0, 0, 0}},   // 2^19
+    {{3, 3, 0, 0, 0}, {3, 3, 0, 0, 0}},   // 2^20
+    {{3, 3, 0, 0, 0}, {3, 3, 0, 0, 0}},   // 2^21
+    {{0, 0, 0, 0, 0}, {0, 0, 0, 0, 0}},   // 2^22
 };
 
 // PFB-L's entry: by the route, or with `control` the first form.
@@ -663,8 +938,9 @@ int pfb_entry(const void* raw, const void* history, const void* twiddle,
           l, static_cast<const uint8_t*>(history),
           static_cast<const float*>(h), P, static_cast<float*>(partial),
           static_cast<float*>(out), device,
-          control ||
-              kPfbLoad[log2n - kMinLog2N][log2_of(sums_taps(P)) - 1] != 0);
+          control ? kRouteLoad
+                  : kPfbRoute[log2n - kMinLog2N][S * F >= kPfbManyFrames]
+                             [log2_of(sums_taps(P)) - 1]);
     });
   }
   if (e != cudaSuccess || P == 1) return static_cast<int>(e);
@@ -743,8 +1019,8 @@ int rpf_fused_psd_tapers_large(const void* raw, const void* twiddle,
 // stream); out: (S, N) f32; fresh: set every stream's history to byte 127
 // first. After the sum, each stream's next history (rows n_valid[s] ..
 // n_valid[s] + P - 2 of its virtual array) is written to history_out on
-// the stream (pfb_history.cuh). The sums by the pre-pass, then pass A over
-// them. Other arguments as rpf_fused_psd_sk_large.
+// the stream (pfb_history.cuh). Pass A by the route (kPfbRoute). Other
+// arguments as rpf_fused_psd_sk_large.
 int rpf_fused_psd_pfb_large(const void* raw, const void* history,
                             const void* twiddle, const void* inter,
                             const void* h, const void* counts, void* scratch,
@@ -773,9 +1049,10 @@ int rpf_fused_psd_pfb_large_control(const void* raw, const void* history,
 // Writes what a pass gets at N = 2^log2n on `device` into attrs[0..5]
 // (which: 0 pass A, 1 pass A windowed, 2 pass B, 3 SK's pass B, 4 the
 // PFB's pass A, 5 and 6 its pre-pass at P <= 4 and P <= 32, 7 the
-// control's PFB pass A): registers and local (spill) bytes a thread, static and
-// dynamic shared bytes a block, threads a block, and the blocks that
-// reside on one SM. Launches nothing.
+// control's PFB pass A, 8 and 9 the PFB's pass A on the ring at P = 4, h
+// streamed and h resident, N <= 2^21): registers and local (spill) bytes a
+// thread, static and dynamic shared bytes a block, threads a block, and
+// the blocks that reside on one SM. Launches nothing.
 int rpf_fused_psd_large_est_attributes(int log2n, int which, int device,
                                        int* attrs) {
   if (log2n < kMinLog2N || log2n > kMaxLog2N || which < 0 ||
@@ -786,6 +1063,10 @@ int rpf_fused_psd_large_est_attributes(int log2n, int which, int device,
   if (e == cudaSuccess) {
     e = at_log2n(log2n, [&](auto n) {
       constexpr int L = decltype(n)::value;
+      if (!ring_built<L>() &&
+          (which == kPfbRingA || which == kPfbRingResA)) {
+        return cudaErrorInvalidValue;
+      }
       cudaError_t r = prepare<L>(which, device);
       if (r == cudaSuccess) {
         r = kernel_attributes(pass_kernel<L>(which), pass_threads<L>(which),

@@ -102,17 +102,18 @@ def fused_psd_chirp_large_est_eligible(N: int) -> bool:
     return bl.fused_psd_chirp_large_eligible(N)
 
 
-def pfb_route(N: int, P: int) -> str:
-    """PFB-BL's route at N bins and P taps, as PFB-L's
+def pfb_route(N: int, P: int, frames: int) -> str:
+    """PFB-BL's route at N bins, P taps and ``frames`` a call, as PFB-L's
     (:func:`.fused_psd_large_est.pfb_route`): "sums" (the pre-pass, then
-    pass A on its sums) at every N and P, where the card measured it
-    faster than the first form's pass A ("load", which the control
-    runs)."""
+    pass A on its sums) at every N, P and frame count, where the card
+    measured it faster than the first form's pass A ("load", which the
+    control runs)."""
     return "sums"
 
 
-def pfb_smem(N: int, route: str) -> int:
-    """Dynamic shared memory of the PFB's pass A on a route at N: the
+def pfb_smem(N: int, route: str, P: int = 4) -> int:
+    """Dynamic shared memory of the PFB's pass A on a route at N (at
+    every P taps): the
     first form's, BL's pass A (the exchange and two slots of the tile's
     rows below M1 / 2); on the sums, the exchange and two slots of a
     batch's 8 THREADS_A sums (``sums_a_smem`` of the source)."""
@@ -323,7 +324,7 @@ def _pfb(kernel, raw3, history, counts, h, history_out, fresh, group_c,
             partial, out, history_out.data_ptr() if P > 1 else None,
             device.index, log2m, N, width, S, F, *groups, P, int(fresh),
             stream),
-        sums_a=not control and pfb_route(N, P) == "sums")
+        sums_a=not control and pfb_route(N, P, S * F) == "sums")
 
 
 

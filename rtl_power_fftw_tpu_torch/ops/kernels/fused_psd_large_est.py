@@ -83,9 +83,10 @@ MAX_N = fl.MAX_N
 #: The passes :func:`kernel_attributes` asks of, kept in step with the
 #: source's attributes entry: L-S's pass A (unwindowed, windowed) and B,
 #: SK's pass B, the PFB's pass A, its pre-pass at the tap classes 4 and 32
-#: (:func:`sums_taps`) and the control's PFB pass A.
+#: (:func:`sums_taps`), the control's PFB pass A, and the PFB's pass A on
+#: the ring at P = 4, h streamed and h resident (N <= 2^21).
 (PASS_A, PASS_A_WINDOWED, PASS_B, SK_PASS_B, PFB_PASS_A, PFB_SUMS,
- PFB_SUMS_32, PFB_CONTROL_A) = range(8)
+ PFB_SUMS_32, PFB_CONTROL_A, PFB_RING_A, PFB_RING_RES_A) = range(10)
 #: The PFB pre-pass's block: SUMS_ROWS rows of SUMS_COLS samples, two a
 #: thread, and the blocks its grid aims at (``kSumsRows``, ``kSumsCols``,
 #: ``kSumsBlocks`` of ``csrc/pfb_sums.cuh``).
@@ -95,14 +96,28 @@ SUMS_ROWS, SUMS_COLS, SUMS_BLOCKS = 16, 32, 2048
 SUMS_TURN = 17
 #: The tap classes of the pre-pass's registers (``sums_taps``).
 TAP_CLASSES = (2, 4, 8, 16, 32)
-#: PFB-L's route (``kPfbLoad`` of the source): by log2 N, 1 for each tap
-#: class of TAP_CLASSES where the first form (the polyphase sums in pass
-#: A's load, which the control runs at every P) runs, 0 where the
-#: pre-pass and pass A on its sums do; whichever the card measured faster
+#: PFB-L's routes, as ``PfbRoute`` of the source numbers them: the
+#: pre-pass and pass A on its sums; the first form (the polyphase sums in
+#: pass A's load, which the control runs at every P); pass A on the ring of
+#: virtual rows, h streamed tap by tap or resident.
+ROUTES = ("sums", "load", "ring", "ring_res")
+#: PFB-L's route table (``kPfbRoute`` of the source): by log2 N, for few
+#: frames a call (S F < MANY_FRAMES) then many, the index in ROUTES of
+#: each tap class of TAP_CLASSES, whichever the card measured faster
 #: (``probes/large_estimator_builds.py``'s route sweep).
-PFB_LOAD = {15: (1, 1, 1, 1, 1), 16: (1, 1, 1, 1, 1), 17: (1, 1, 1, 0, 0),
-            18: (0, 0, 0, 0, 0), 19: (0, 0, 0, 0, 0), 20: (0, 0, 0, 0, 0),
-            21: (0, 0, 0, 0, 0), 22: (0, 0, 0, 0, 0)}
+PFB_ROUTE = {15: ((1, 1, 1, 1, 1), (3, 3, 3, 0, 0)),
+             16: ((1, 1, 1, 1, 1), (1, 3, 3, 0, 0)),
+             17: ((1, 1, 3, 0, 0), (1, 3, 3, 0, 0)),
+             18: ((2, 2, 0, 0, 0), (2, 2, 0, 0, 0)),
+             19: ((2, 2, 0, 0, 0), (2, 2, 0, 0, 0)),
+             20: ((3, 3, 0, 0, 0), (3, 3, 0, 0, 0)),
+             21: ((3, 3, 0, 0, 0), (3, 3, 0, 0, 0)),
+             22: ((0, 0, 0, 0, 0), (0, 0, 0, 0, 0))}
+#: Frames a call (S F) from which the table's second column holds
+#: (``kPfbManyFrames``).
+MANY_FRAMES = 64
+#: The largest N the ring routes take: an h tile row of B >= 4 floats.
+RING_MAX_N = 1 << 21
 
 
 def fused_psd_large_est_eligible(N: int) -> bool:
@@ -110,24 +125,28 @@ def fused_psd_large_est_eligible(N: int) -> bool:
     return fl.fused_psd_large_eligible(N)
 
 
-def pfb_route(N: int, P: int) -> str:
-    """PFB-L's route at N bins and P taps: "load" (the first form's pass
-    A, the sums in its load) or "sums" (the pre-pass, then pass A on its
-    sums)."""
-    load = PFB_LOAD[N.bit_length() - 1][TAP_CLASSES.index(sums_taps(P))]
-    return "load" if load else "sums"
+def pfb_route(N: int, P: int, frames: int) -> str:
+    """PFB-L's route at N bins, P taps and ``frames`` (S F) a call, one of
+    ROUTES."""
+    return ROUTES[PFB_ROUTE[N.bit_length() - 1][int(frames >= MANY_FRAMES)][
+        TAP_CLASSES.index(sums_taps(P))]]
 
 
-def pfb_smem(N: int, route: str) -> int:
-    """Dynamic shared memory of the PFB's pass A on a route at N: the
-    first form's, the large kernel's pass A (the exchange and two raw tile
-    slots); on the sums, the exchange and two slots of a batch's sums
-    (``sums_a_smem`` of the source). The pre-pass takes 4352 B of static
-    shared memory at every N and P."""
+def pfb_smem(N: int, route: str, P: int = 4) -> int:
+    """Dynamic shared memory of the PFB's pass A on a route at N and P
+    taps: the first form's, the large kernel's pass A (the exchange and two
+    raw tile slots); on the sums, the exchange and two slots of a batch's
+    sums (``sums_a_smem`` of the source); on the ring, the exchange, P raw
+    tile slots and, h resident, h's (P, N1, C) slice (``ring_a_smem``).
+    The pre-pass takes 4352 B of static shared memory at every N and P."""
     t = fl.regs_layout(N)
+    exchange = 8 * t["B"] * t["XS"]
     if route == "load":
         return t["smem_a"]
-    return 8 * t["B"] * t["XS"] + 2 * t["N1"] * t["B"] * 8
+    if route == "sums":
+        return exchange + 2 * t["N1"] * t["B"] * 8
+    resident = 4 * P * t["N1"] * t["C"] if route == "ring_res" else 0
+    return exchange + P * t["N1"] * 2 * t["C"] + resident
 
 
 def sums_taps(P: int) -> int:
@@ -361,7 +380,8 @@ def _pfb(kernel, raw3, history, counts, h, history_out, fresh, group_b,
             inter, h.data_ptr(), counts.data_ptr(), scratch, partial, out,
             history_out.data_ptr() if P > 1 else None, device.index, log2n,
             S, F, *groups, P, int(fresh), stream),
-        sums_a=not control and pfb_route(raw3.shape[2] // 2, P) == "sums")
+        sums_a=not control and pfb_route(raw3.shape[2] // 2, P,
+                                          S * F) == "sums")
 
 
 

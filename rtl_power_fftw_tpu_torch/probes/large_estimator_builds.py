@@ -62,6 +62,7 @@ their libraries go to ``ops/kernels/build/large_estimator_builds/``.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -136,14 +137,38 @@ BUILDS = {
                    [("constexpr int kSumsBlocks = 2048;",
                      "constexpr int kSumsBlocks = 1;")]),
     "sums_all": ("fused_psd_large_est.cu",
-                 [("control ||\n              kPfbLoad[log2n - kMinLog2N]"
-                   "[log2_of(sums_taps(P)) - 1] != 0);", "control);")]),
+                 [(None, "control ? kRouteLoad : kRouteSums);")]),
+    "ring": ("fused_psd_large_est.cu",
+             [(None, "control ? kRouteLoad : kRouteRing);"),
+              (None, "false")]),
+    "ring_res": ("fused_psd_large_est.cu",
+                 [(None, "control ? kRouteLoad : kRouteRingRes);"),
+                  (None, "true")]),
 }
 #: The form each build is timed as: SK-L, PFB-L or PFB-BL as shipped, or
 #: the PFB-L control.
 BUILD_FORM = {"sk_b2": "SK-L", "pfb_k": "PFB-L ctl", "hist1": "PFB-L",
               "sums_d4": "PFB-L", "sums_pad0": "PFB-L", "sums_flat": "PFB-L",
-              "sums_whole": "PFB-L", "sums_all": "route"}
+              "sums_whole": "PFB-L", "sums_all": "route", "ring": "PFB-L",
+              "ring_res": "PFB-L"}
+#: The ring builds' edits: PFB-L's pass A on the ring (h resident or not,
+#: the second edit's word) at every N and P but the control's, where the
+#: ring is built and its shared memory at P fits a block, else on the
+#: pre-pass.
+ENTRY_ROUTE = ("control ? kRouteLoad\n                  : kPfbRoute["
+               "log2n - kMinLog2N][S * F >= kPfbManyFrames]\n"
+               "                             [log2_of(sums_taps(P)) - 1]);")
+RING_AT = ("  const dim3 grid(l.g_a() * L::TILES_A, l.S);\n"
+           "  cudaError_t e = cudaSuccess;\n")
+RING_EDIT = """\
+  if (route == kRouteRing || route == kRouteRingRes) {{
+    bool fits = false;
+    if constexpr (ring_built<LOG2N>()) {{
+      fits = ring_a_smem<LOG2N>(P, {0}) <= kRingSmemMax;
+    }}
+    if (!fits) route = kRouteSums;
+  }}
+"""
 #: The control's load of PFB-L's pass A, which ``pfb_k`` replaces: from its
 #: accumulators' zeroing to the end of its tap loop.
 PFB_LOAD_BEGIN = "  float2 v[16];\n#pragma unroll\n  for (int k = 0; k < 16; ++k) v[k]"
@@ -154,13 +179,28 @@ PFB_LOAD_END = "  first_pass<L::LOG2N1>(v, x, twiddle, t,\n"
 SHAPES = ((65536, 16, True), (1 << 20, 8, False), (1 << 22, 8, False),
           (65536, 256, True))
 BL_SHAPES = ((16382, 256), (99998, 64), (2097150, 8))
-#: The route sweep: the PFB forms' two routes (the pre-pass, build
-#: ``sums_all``; the first form, the control) and as shipped at every log2
-#: N (log2 M) the forms take and these tap counts, F frames.
+#: The route sweep: the PFB forms' routes (the pre-pass, build
+#: ``sums_all``; the first form, the control; for PFB-L up to RING_MAX_N
+#: the ring, builds ``ring`` and ``ring_res``) and as shipped at every log2
+#: N (log2 M) the forms take and these tap counts, F frames; then PFB-L's
+#: at the drives' own frames (ROUTE_DRIVES: N, F a stream, S streams).
 ROUTE_TAPS = (2, 4, 8, 16, 32)
 ROUTE_N = {"L": tuple(1 << k for k in range(15, 23)),
            "BL": (16382, 32766, 65534, 131070, 262142, 524286, 1048574,
                   2097150)}
+ROUTE_DRIVES = ((32768, 64, 2), (65536, 256, 1), (1 << 20, 8, 1))
+#: The ring builds' bit checks against the control: (N, F, P, counts a
+#: stream, history and h 16-byte aligned).
+RING_BITS = ((65536, 16, 4, (16,), True), (65536, 16, 4, (15,), True),
+             (65536, 256, 4, (256,), True), (1 << 20, 8, 4, (8,), True),
+             (1 << 20, 8, 4, (1,), True), (1 << 20, 8, 4, (0,), True),
+             (1 << 20, 8, 4, (8,), False), (1 << 18, 8, 1, (8,), True),
+             (1 << 18, 8, 2, (8,), True), (1 << 18, 8, 3, (8,), True),
+             (1 << 18, 8, 6, (8,), True), (1 << 18, 8, 8, (8,), True),
+             (1 << 21, 8, 4, (8,), True), (32768, 64, 4, (64, 37), True),
+             (1 << 18, 8, 4, (8, 5), True))
+#: The parts of a run, all by default.
+PARTS = ("bits", "shapes", "bl", "split", "route")
 
 
 def route_frames(N: int) -> int:
@@ -174,6 +214,8 @@ KERNELS = {"L": ["large_regs_a", "large_regs_b"],
            "PFB-L": ["pfb_sums_kernel", "large_pfb_sums_a",
                      "large_streams_b", "pfb_history"],
            "PFB-L ctl": ["large_pfb_a", "large_streams_b", "pfb_history"],
+           "PFB-L ring": ["large_pfb_ring_a", "large_streams_b",
+                          "pfb_history"],
            "BL": ["chirp_regs_a", "chirp_regs_b", "chirp_regs_c"],
            "PFB-BL": ["pfb_sums_kernel", "chirp_pfb_sums_a",
                       "chirp_streams_b", "chirp_streams_c", "pfb_history"],
@@ -194,6 +236,12 @@ def edited(name: str, text: str) -> str:
     PFB_LOAD_END. Raises where the source no longer reads as an edit
     expects."""
     edits = BUILDS[name][1]
+    if name == "sums_all":
+        return build_sources(text, [(ENTRY_ROUTE, edits[0][1])])
+    if name.startswith("ring"):
+        return build_sources(text, [
+            (ENTRY_ROUTE, edits[0][1]),
+            (RING_AT, RING_AT + RING_EDIT.format(edits[1][1]))])
     if edits[0][0] is None:
         if text.count(PFB_LOAD_BEGIN) != 1:
             raise ValueError(f"no single {PFB_LOAD_BEGIN!r}")
@@ -203,12 +251,13 @@ def edited(name: str, text: str) -> str:
     return build_sources(text, edits)
 
 
-def build_all() -> Dict[str, ctypes.CDLL]:
-    """Each build from its edited copy of the sources, one nvcc each, all
-    at once."""
+def build_all(names) -> Dict[str, ctypes.CDLL]:
+    """Each build of ``names`` from its edited copy of the sources, one
+    nvcc each, all at once."""
     root = _build.BUILD_DIR / "large_estimator_builds"
     procs = {}
-    for name, (source, _) in BUILDS.items():
+    for name in names:
+        source = BUILDS[name][0]
         src = root / name
         if src.exists():
             shutil.rmtree(src)
@@ -294,47 +343,130 @@ def _split(form: str, label: str, fn) -> None:
         for k, (n, us) in split.items()))
 
 
-def route_sweep(dev, rng, libs, shipped) -> None:
-    """PFB-L and PFB-BL on the pre-pass (PFB-L's build ``sums_all``,
-    PFB-BL as shipped), by their first form (the control) and as shipped
-    (the route table) at every N of ROUTE_N and P of ROUTE_TAPS, in turns:
-    device µs and the ratio of the two routes."""
-    for f, Ns in ROUTE_N.items():
-        new, ctl, lib, build = (
-            (le.fused_psd_pfb_large, le.fused_psd_pfb_large_control, LIBRARY,
-             "sums_all") if f == "L" else
-            (be.fused_psd_pfb_chirp_large,
-             be.fused_psd_pfb_chirp_large_control,
-             "fused_psd_chirp_large_est", None))
-        for N in Ns:
-            F = route_frames(N)
-            raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
-                                                dtype=np.uint8)).to(dev)
-            for P in ROUTE_TAPS:
-                h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
-                hist = [torch.full((P - 1, 2 * N), 127,
-                                   dtype=torch.uint8, device=dev)
-                        for _ in range(2)]
-                calls = {"sums": new, "load": ctl, "shipped": new}
-                t = {k: [] for k in calls}
-                for order in (list(calls), list(calls)[::-1]):
-                    for k in order:
-                        if k == "sums" and build:
-                            _build._libs[lib] = libs[build]
-                        t[k].append(device_us(
-                            lambda: calls[k](raw, hist[0], F, F, h, hist[1]),
-                            calls=10))
-                        _build._libs.update(shipped)
-                a, b, c = (min(t[k]) for k in calls)
-                route = (le if f == "L" else be).pfb_route(N, P)
-                print(f"route PFB-{f} N={N} F={F} P={P}: pre-pass {a:.1f} "
-                      f"us ({t['sums'][0]:.1f}/{t['sums'][1]:.1f}), first "
-                      f"form {b:.1f} us ({t['load'][0]:.1f}/"
-                      f"{t['load'][1]:.1f}), pre-pass/first form "
-                      f"{a / b:.3f}; shipped ({route}) {c:.1f} us")
+def _with(libs, shipped, build, fn):
+    """``fn()`` with build ``build``'s library in its library's place
+    (None: as shipped)."""
+    if build:
+        _build._libs[library_of(build)] = libs[build]
+    try:
+        return fn()
+    finally:
+        _build._libs.update(shipped)
+
+
+def _pfb_call(form, raw, hist, h, F, counts, out_hist=None):
+    """One PFB call on S = len(counts) streams: the one-stream entry at S
+    = 1 (``counts`` a tuple), else the streams entry with ``counts`` an
+    (S,) int32 tensor on the card (made before the call, so that a timed
+    call copies nothing from the host); returns (output, next history)."""
+    out_hist = torch.empty_like(hist) if out_hist is None else out_hist
+    if len(counts) == 1:
+        return form(raw[0], hist[0], counts[0], F, h, out_hist[0]), out_hist
+    return form(raw, hist, counts, F, h, out_hist), out_hist
+
+
+def _forms(S):
+    return ((le.fused_psd_pfb_large, le.fused_psd_pfb_large_control)
+            if S == 1 else (le.fused_psd_pfb_large_streams,
+                            le.fused_psd_pfb_large_streams_control))
+
+
+def ring_bits(dev, rng, libs, shipped) -> None:
+    """Each ring build's output and next history against the control's,
+    bit for bit, at RING_BITS (history and h as 4-byte-aligned views where
+    the case says so)."""
+    for build in ("ring", "ring_res"):
+        if build not in libs:
+            continue
+        for N, F, P, counts, aligned in RING_BITS:
+            S = len(counts)
+            raw = torch.from_numpy(rng.integers(
+                0, 256, (S, F, 2 * N), dtype=np.uint8)).to(dev)
+            skew = 0 if aligned else 4
+            hist = torch.from_numpy(rng.integers(
+                0, 256, S * max(P - 1, 0) * 2 * N + skew,
+                dtype=np.uint8)).to(dev)[skew:].view(S, max(P - 1, 0), 2 * N)
+            h = torch.empty(P * N + 1, device=dev)[1 - skew // 4:][:P * N]
+            h.copy_(torch.from_numpy(pfb_prototype(N, P)))
+            h = h.view(P, N)
+            form, ctl = _forms(S)
+            if S > 1:
+                counts = torch.tensor(counts, dtype=torch.int32, device=dev)
+            got = _with(libs, shipped, build,
+                        lambda: _pfb_call(form, raw, hist, h, F, counts))
+            want = _pfb_call(ctl, raw, hist, h, F, counts)
+            torch.cuda.synchronize()
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                 want[1])
+            print(f"bits {build} N={N} F={F} P={P} counts "
+                  f"{list(counts) if S == 1 else counts.tolist()} "
+                  f"aligned {aligned}: {'the control' if same else 'NOT'}"
+                  f" bit for bit")
+
+
+def route_sweep(dev, rng, libs, shipped, cases=None) -> None:
+    """PFB-L and PFB-BL on each route (PFB-L's pre-pass by build
+    ``sums_all``, its ring by ``ring`` and ``ring_res`` up to RING_MAX_N;
+    PFB-BL's pre-pass as shipped; the first form by the control) and as
+    shipped, at every N of ROUTE_N and P of ROUTE_TAPS, then PFB-L at
+    ROUTE_DRIVES, in turns: device µs and each route's ratio to the first
+    form."""
+    cases = cases or [(f, N, route_frames(N), 1) for f, Ns in ROUTE_N.items()
+                      for N in Ns] + [("L", N, F, S)
+                                      for N, F, S in ROUTE_DRIVES]
+    for f, N, F, S in cases:
+        mod = le if f == "L" else be
+        if f == "L":
+            new, ctl = _forms(S)
+            builds = {"sums": "sums_all", "load": None}
+            if N <= le.RING_MAX_N:
+                builds.update(ring="ring", ring_res="ring_res")
+        else:
+            new, ctl = (be.fused_psd_pfb_chirp_large,
+                        be.fused_psd_pfb_chirp_large_control)
+            builds = {"sums": None, "load": None}
+        builds = {k: b for k, b in builds.items() if b is None or b in libs}
+        builds["shipped"] = None
+        raw = torch.from_numpy(rng.integers(0, 256, (S, F, 2 * N),
+                                            dtype=np.uint8)).to(dev)
+        for P in ROUTE_TAPS:
+            h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
+            hist = torch.full((S, P - 1, 2 * N), 127, dtype=torch.uint8,
+                              device=dev)
+            counts = ((F,) if S == 1 else
+                      torch.full((S,), F, dtype=torch.int32, device=dev))
+            out_hist = torch.empty_like(hist)
+            t = {k: [] for k in builds}
+            for order in (list(builds), list(builds)[::-1]):
+                for k in order:
+                    fn = ctl if k == "load" else new
+                    t[k].append(_with(libs, shipped, builds[k], lambda: (
+                        device_us(lambda: _pfb_call(fn, raw, hist, h, F,
+                                                    counts, out_hist),
+                                  calls=10))))
+            best = {k: min(v) for k, v in t.items()}
+            print(f"route PFB-{f} N={N} S={S} F={F} P={P}: " + ", ".join(
+                f"{k} {best[k]:.1f} us ({v[0]:.1f}/{v[1]:.1f}, "
+                f"{best[k] / best['load']:.3f} of the first form)"
+                for k, v in t.items() if k != "shipped")
+                + f"; shipped ({mod.pfb_route(N, P, S * F)}) "
+                f"{best['shipped']:.1f}"
+                " us")
 
 
 def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m rtl_power_fftw_tpu_torch.probes."
+             "large_estimator_builds", description=__doc__.split("\n")[0])
+    p.add_argument("--builds", nargs="*", default=list(BUILDS),
+                   choices=list(BUILDS), help="the builds to make and time")
+    p.add_argument("--parts", nargs="*", default=list(PARTS),
+                   choices=PARTS, help="the parts of the run")
+    p.add_argument("--route-cases", nargs="*", default=None,
+                   metavar="FAMILY:N:F:S",
+                   help="the route sweep's cases (default: ROUTE_N at "
+                        "route_frames, then ROUTE_DRIVES)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -344,14 +476,16 @@ def main(argv=None) -> int:
         [LIBRARY, "fused_psd_chirp_large_est", "fused_psd_large",
          "fused_psd_chirp_large"],))
     base.start()
-    libs = build_all()
+    libs = build_all(args.builds)
     base.join()
     shipped = {name: _build.load(name)
                for name in (LIBRARY, "fused_psd_chirp_large_est")}
     print(f"# large estimator builds on {card(dev)}")
     rng = np.random.default_rng(0)
     P = 4
-    for N, F, hann in SHAPES:
+    if "bits" in args.parts:
+        ring_bits(dev, rng, libs, shipped)
+    for N, F, hann in SHAPES if "shapes" in args.parts else ():
         raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                             dtype=np.uint8)).to(dev)
         w = (torch.from_numpy((0.5 - 0.5 * np.cos(
@@ -371,11 +505,12 @@ def main(argv=None) -> int:
                  "PFB-L shipped": calls["PFB-L"],
                  "PFB-L ctl": calls["PFB-L ctl"]}
         for name, form in BUILD_FORM.items():
-            if form in calls:
+            if form in calls and name in libs and not (
+                    name.startswith("ring") and N > le.RING_MAX_N):
                 forms[f"{form} {name}"] = calls[form]
         _print_times(f"N={N} F={F} hann={hann} P={P}: ",
                      _timed(forms, libs, shipped))
-    for N, F in BL_SHAPES:
+    for N, F in BL_SHAPES if "bl" in args.parts else ():
         raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                             dtype=np.uint8)).to(dev)
         h = torch.from_numpy(pfb_prototype(N, P).reshape(P, N)).to(dev)
@@ -388,10 +523,10 @@ def main(argv=None) -> int:
             "PFB-BL ctl": lambda: be.fused_psd_pfb_chirp_large_control(
                 raw, hist[0], F, F, h, hist[1])}
         for name, form in BUILD_FORM.items():
-            if form == "PFB-BL":
+            if form == "PFB-BL" and name in libs:
                 forms[f"{form} {name}"] = forms["PFB-BL shipped"]
         _print_times(f"N={N} F={F} P={P}: ", _timed(forms, libs, shipped))
-    for N, F in ((1 << 20, 8), (1 << 22, 8)):
+    for N, F in ((1 << 20, 8), (1 << 22, 8)) if "split" in args.parts else ():
         raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                             dtype=np.uint8)).to(dev)
         tp = torch.from_numpy(_session_tapers(N, 4.0, 7)).to(dev)
@@ -407,7 +542,17 @@ def main(argv=None) -> int:
                 ("PFB-L ctl", lambda: le.fused_psd_pfb_large_control(
                     raw, hist[0], F, F, h, hist[1]))):
             _split(form, f"{form} N={N} F={F}", fn)
-    route_sweep(dev, rng, libs, shipped)
+        if "ring" in libs and N <= le.RING_MAX_N:
+            _with(libs, shipped, "ring", lambda: _split(
+                "PFB-L ring", f"PFB-L ring N={N} F={F}",
+                lambda: le.fused_psd_pfb_large(raw, hist[0], F, F, h,
+                                               hist[1])))
+    if "route" in args.parts:
+        route_sweep(dev, rng, libs, shipped, [
+            (f, int(N), int(F), int(S)) for f, N, F, S in (
+                c.split(":") for c in args.route_cases or ())])
+    if "split" not in args.parts:
+        return 0
     N, F = BL_SHAPES[-1]
     raw = torch.from_numpy(rng.integers(0, 256, (F, 2 * N),
                                         dtype=np.uint8)).to(dev)

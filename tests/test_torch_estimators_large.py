@@ -51,6 +51,7 @@ from rtl_power_fftw_tpu_torch.ops.kernels import \
     fused_psd_chirp_large_est as be
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large as fl
 from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_large_est as le
+from rtl_power_fftw_tpu_torch.ops.kernels import fused_psd_pfb as fpf
 from rtl_power_fftw_tpu_torch.ops.spectral import PsdStep
 from rtl_power_fftw_tpu_torch.probes import large_estimator_builds
 
@@ -807,6 +808,110 @@ def test_pfb_pass_a_rows_transcription(N, P, F, nv, form):
     np.testing.assert_array_equal(hist[1].numpy(), virtual[nv:nv + P - 1])
 
 
+def ring_sums(history, raw, h, counts, group, resident):
+    """PFB-L's pass A on the ring (``large_pfb_ring_a``), its polyphase
+    sums transcribed over its grid: block (tile, group, stream) loads
+    virtual rows j0 .. j0 + P - 1 (row v from the history where v < P - 1,
+    else frame v - (P - 1)) into ring slots v mod P in the own row's
+    layout (ring_offset), and after each frame j but its last row j + P
+    into slot j mod P; frame j's sum takes tap p from slot (j + p) mod P,
+    which must hold virtual row j + p, and h from the resident (P, N1, C)
+    slice or from batch s's (N1, B) tile of tap p. Returns ((S, F, N)
+    complex64 sums, NaN where no block forms one; the loads by source)."""
+    S, F, N2x = raw.shape
+    N = N2x // 2
+    P = h.shape[0]
+    t = fl.regs_layout(N)
+    N1, N2, C, B = t["N1"], t["N2"], t["C"], t["B"]
+    parts = 2 * C // 16
+    q = np.arange(N1 * parts)
+    qrow, qpart = q // parts, q % parts
+    rows = np.arange(N1)[:, None]
+    cols = np.arange(C)[None, :]
+    byte = 2 * cols
+    addr = ring_offset(t, np.broadcast_to(rows, (N1, C)), byte >> 4) \
+        + (byte & 15)
+    out = np.full((S, F, N), np.nan, np.complex64)
+    loads = {"history": 0, "frames": 0}
+    for s in range(S):
+        nv = min(max(counts[s], 0), F)
+        for j0 in range(0, F, group):
+            frames = max(min(j0 + group, nv) - j0, 0)
+            for c0 in range(0, N2, C) if frames else ():
+                ring = np.zeros((P, N1 * 2 * C), np.uint8)
+                holds = [-1] * P
+
+                def load(v):
+                    src_row = (history[s, v] if v < P - 1
+                               else raw[s, v - (P - 1)])
+                    loads["history" if v < P - 1 else "frames"] += 1
+                    src = qrow * 2 * N2 + 2 * c0 + 16 * qpart
+                    dst = ring_offset(t, qrow, qpart)
+                    for b in range(16):
+                        ring[v % P, dst + b] = src_row[src + b]
+                    holds[v % P] = v
+
+                hsl = np.stack([h[p].reshape(N1, N2)[:, c0:c0 + C]
+                                for p in range(P)])
+                for p in range(P):
+                    load(j0 + p)
+                for i in range(frames):
+                    j = j0 + i
+                    re = np.zeros((N1, C), np.float32)
+                    im = np.zeros((N1, C), np.float32)
+                    for p in range(P):
+                        slot = (j + p) % P
+                        assert holds[slot] == j + p
+                        if resident:
+                            hv = hsl[p]
+                        else:
+                            hv = np.concatenate(
+                                [hsl[p][:, b * B:(b + 1) * B]
+                                 for b in range(C // B)], axis=1)
+                        xr = ring[slot][addr].astype(np.float32) \
+                            - np.float32(127)
+                        xi = ring[slot][addr + 1].astype(np.float32) \
+                            - np.float32(127)
+                        re = re + xr * hv
+                        im = im + xi * hv
+                    if i + 1 < frames:
+                        load(j + P)
+                    n = rows * N2 + c0 + cols
+                    out[s, j, n] = re + 1j * im
+    return out, loads
+
+
+@pytest.mark.parametrize("N,P,F,counts,group,resident", [
+    (32768, 4, 5, (5, 3), 2, False), (65536, 3, 4, (4,), 3, True),
+    (1 << 20, 2, 2, (2, 1), 1, False), (32768, 1, 3, (3,), 2, False),
+    (65536, 6, 3, (0, 3), 3, True)])
+def test_pfb_ring_transcription(N, P, F, counts, group, resident):
+    """PFB-L's ring of virtual rows over S streams with uneven counts and
+    a group start past the history (group < F): every slot a frame reads
+    holds the virtual row its tap needs, the history's rows are loaded
+    only by blocks whose first frame needs them, and the sums are the
+    plain sums bit for bit (h resident or streamed)."""
+    S = len(counts)
+    rng = np.random.default_rng(N + P + S)
+    history = rng.integers(0, 256, (S, max(P - 1, 0), 2 * N), dtype=np.uint8)
+    raw = rng.integers(0, 256, (S, F, 2 * N), dtype=np.uint8)
+    h = pfb.pfb_prototype(N, P, "hann").reshape(P, N)
+    got, loads = ring_sums(history, raw, h, counts, group, resident)
+    tiles = fl.regs_layout(N)["tiles_a"]
+    firsts = [j0 for s in range(S) for j0 in range(0, F, group)
+              if j0 < min(counts[s], F)]
+    assert loads["history"] == tiles * sum(max(P - 1 - j0, 0)
+                                           for j0 in firsts)
+    for s, c in enumerate(counts):
+        c = min(c, F)
+        want = fpf.pfb_sums_reference(
+            torch.from_numpy(np.concatenate([history[s], raw[s]])),
+            torch.from_numpy(h), c).numpy()
+        assert np.array_equal(got[s, :c].view(np.uint64),
+                              want.view(np.uint64))
+        assert np.isnan(got[s, c:]).all()
+
+
 @pytest.mark.parametrize("N,K,counts", [(32768, 2, (3, 0)),
                                         (65536, 3, (2, 1))])
 def test_taper_loop_rows_transcription(N, K, counts):
@@ -846,9 +951,10 @@ def test_taper_loop_rows_transcription(N, K, counts):
 def test_the_large_kernel_and_its_forms_share_the_streams_passes():
     """L-S's passes live in one header that the large kernel and the forms
     both include, not in a copy; the forms' source instantiates every log2
-    N from 15 to 22 and names its passes as PASS_A .. PFB_CONTROL_A number
+    N from 15 to 22 and names its passes as PASS_A .. PFB_RING_RES_A number
     them (the PFB's pass A on the pre-pass's sums, the pre-pass at two tap
-    classes, the control's pass A last)."""
+    classes, the control's pass A, the ring's pass A at P = 4, h streamed
+    and h resident)."""
     header = (CSRC / "fused_psd_large_streams.cuh").read_text()
     large = (CSRC / "fused_psd_large.cu").read_text()
     est = (CSRC / "fused_psd_large_est.cu").read_text()
@@ -873,7 +979,11 @@ def test_the_large_kernel_and_its_forms_share_the_streams_passes():
     assert ("default: return reinterpret_cast<const void*>(large_pfb_a<LOG2N>)"
             in est)
     assert int(re.search(r"constexpr int kPasses = (\d+);", est).group(1)) \
-        == le.PFB_CONTROL_A + 1
+        == le.PFB_RING_RES_A + 1
+    for which, resident in ((le.PFB_RING_A, "false"),
+                            (le.PFB_RING_RES_A, "true")):
+        assert re.search(rf"which == kPfbRing{'Res' * (resident == 'true')}"
+                         rf"A\s+\? ring_a_smem<LOG2N>\(4, {resident}\)", est)
     assert '#include "pfb_sums.cuh"' in est
 
 
@@ -893,9 +1003,11 @@ BLOCK_SMEM, SM_SMEM = 232448, 233472
 @pytest.mark.parametrize("library", ["fused_psd_large_est",
                                      "fused_psd_chirp_large_est"])
 def test_pfb_route_table_is_the_sources(library):
-    """PFB-L's route by (log2 N, tap class) is the source's kPfbLoad, a row
-    a log2 from 15 to 22, a column a class of sums_taps; PFB-BL's source
-    has no table (the pre-pass at every M and P); each control takes the
+    """PFB-L's route by (log2 N, frames, tap class) is the source's
+    kPfbRoute, a row a log2 from 15 to 22, a column for few then many
+    frames a call (from kPfbManyFrames), an entry a class of sums_taps,
+    each value a PfbRoute numbered as ROUTES; PFB-BL's source has no table
+    (the pre-pass at every M, P and frame count); each control takes the
     first form at every P."""
     from rtl_power_fftw_tpu_torch.ops.kernels import \
         fused_psd_chirp_large_est as be
@@ -903,12 +1015,21 @@ def test_pfb_route_table_is_the_sources(library):
     if library == "fused_psd_chirp_large_est":
         assert "kPfbLoad" not in text
         assert "static_cast<float*>(out), device, control);" in text
-        assert {be.pfb_route(N, P) for N in (8194, 99998, 2097150)
-                for P in range(1, 33)} == {"sums"}
+        assert {be.pfb_route(N, P, F) for N in (8194, 99998, 2097150)
+                for P in range(1, 33) for F in (1, 64)} == {"sums"}
         return
-    assert c_table(text, "kPfbLoad[") == [v for k in range(15, 23)
-                                          for v in le.PFB_LOAD[k]]
-    assert "control ||\n              kPfbLoad[" in text
+    assert c_table(text, "kPfbRoute[") == [v for k in range(15, 23)
+                                           for few_many in le.PFB_ROUTE[k]
+                                           for v in few_many]
+    assert ("control ? kRouteLoad\n                  : kPfbRoute[log2n - "
+            "kMinLog2N][S * F >= kPfbManyFrames]") in text
+    assert int(re.search(r"constexpr int kPfbManyFrames = (\d+);",
+                         text).group(1)) == le.MANY_FRAMES
+    assert le.pfb_route(1 << 16, 4, le.MANY_FRAMES - 1) == "load"
+    assert le.pfb_route(1 << 16, 4, le.MANY_FRAMES) == "ring_res"
+    enum = dict(re.findall(r"(kRoute\w+) = (\d+)", text))
+    assert enum == {"kRoute" + "".join(w.capitalize() for w in name.split(
+        "_")): str(i) for i, name in enumerate(le.ROUTES)}
     assert le.TAP_CLASSES == tuple(le.sums_taps(P) for P in (2, 4, 8, 16, 32))
     assert [le.sums_taps(P) for P in range(1, 33)] == [
         next(c for c in le.TAP_CLASSES if P <= c) for P in range(1, 33)]
@@ -918,23 +1039,30 @@ def test_pfb_route_table_is_the_sources(library):
 def test_pfb_shared_memory_plan_fits(log2n):
     """Every (log2 N, P <= 32) of PFB-L's and PFB-BL's route tables runs a
     pass A whose shared memory fits a block's 227 KB: the first form's
-    where the table gives it, the exchange and two slots of a batch's sums
-    elsewhere, two blocks of which fit an SM; the pre-pass's 16 x 32
-    samples turn through 4352 B."""
+    where the table gives it, the ring's (P raw slots, h resident or two
+    of its tiles in the exchange) only at N <= 2^21, the exchange and two
+    slots of a batch's sums elsewhere, two blocks of which fit an SM; the
+    pre-pass's 16 x 32 samples turn through 4352 B."""
     from rtl_power_fftw_tpu_torch.ops.kernels import \
         fused_psd_chirp_large_est as be
     N = 1 << log2n
     bl_n = (1 << (log2n - 1)) - 2      # an even N with M = 2^log2n
     for m, n in ((le, N), (be, bl_n)):
-        for P in range(1, 33):
-            route = m.pfb_route(n, P)
-            smem = m.pfb_smem(n, route)
+        for P, frames in ((P, F) for P in range(1, 33) for F in (1, 64)):
+            route = m.pfb_route(n, P, frames)
+            smem = m.pfb_smem(n, route, P)
             assert smem <= BLOCK_SMEM, (n, P, route, smem)
+            if route.startswith("ring"):
+                assert m is le and n <= le.RING_MAX_N, (n, P, route)
             if route == "sums":
                 assert 2 * (smem + 1024) <= SM_SMEM
         assert 8 * le.SUMS_TURN * le.SUMS_COLS == 4352
     t = fl.regs_layout(N)
     assert le.pfb_smem(N, "load") == t["smem_a"]
+    ring = 8 * t["B"] * t["XS"] + 4 * t["N1"] * 2 * t["C"]
+    assert le.pfb_smem(N, "ring") == ring
+    assert le.pfb_smem(N, "ring_res") == ring + 16 * t["N1"] * t["C"]
+    assert 2 * 4 * t["N1"] * t["B"] <= 8 * t["B"] * t["XS"]
 
 
 def test_pfb_controls_run_plain_on_the_cpu():
