@@ -27,25 +27,35 @@ builds are copies of the sources edited before nvcc
   through shared memory into 256-byte runs;
 * ``sums_whole``: the pre-pass with all of a stream's frames a block;
   shipped, frames split into groups until the grid has 2048 blocks;
-* ``sums_all``: PFB-L on the pre-pass at every (N, P), the route sweep's
-  "sums" candidate; shipped, the route table ``kPfbLoad`` (PFB-BL ships
-  the pre-pass at every (M, P)).
+* ``sums_all``: PFB-L on the pre-pass at every (N, P, frames), the route
+  sweep's "sums" candidate;
+* ``ring``, ``ring_res``: PFB-L's pass A on the ring of virtual rows
+  (``large_pfb_ring_a``), h streamed tap by tap or resident, at every (N,
+  P, frames) where it is built and fits (else the pre-pass), the route
+  sweep's "ring" candidates; each bit-checked against the control.
 
-Which build ships at which (N, P) (device µs on an NVIDIA H100 80GB
-HBM3, 700.00 W, this probe's route sweep): PFB-L's first form, the sums in
-pass A's load, at 32768 and 65536 for every P (the pre-pass 1.23-1.47x
-its time: one frame a block there, N1 <= 256, a half-warp's loads 16
-adjacent columns) and at 2^17 for P <= 8 (1.15-1.37x); the pre-pass and
-pass A on its sums at 2^17 for P > 8 (0.91-0.97x) and from 2^18 for
-every P (0.10-0.99x; 783.1 against 2798.8 at 2^22 F=8 P=4); PFB-BL the
-pre-pass at every M and P (0.19-0.98x; 1141.8 against 1926.9 at
-2097150 F=8 P=4). The builds at 2^22 F=8 P=4 against the shipped 783.5:
+Shipped: the route table ``kPfbRoute`` (``fused_psd_large_est.PFB_ROUTE``)
+by log2 N, few (S F < 64) or many frames a call, and tap class; PFB-BL the
+pre-pass at every (M, P). Device µs on an NVIDIA H100 80GB HBM3, 700.00 W
+(route sweeps, this probe): at 32768–2^17 with 16 frames the first form
+(the ring 1.00–1.37x it, the pre-pass 1.15–1.47x), but the pre-pass at
+2^17 for P >= 16 and ``ring_res`` at 2^17 P = 8 (0.92x); with 64 or 256
+frames (and S = 2 F = 64 at 32768) ``ring_res`` for P <= 8 (0.63–0.97x the
+first form; 2^16–2^17 P = 2 the first form, ``ring_res`` 1.03–1.06x) and
+the pre-pass for P >= 16 (0.52–0.87x, but 1.19x at 2^17 F=64 P=32, the
+one many-frame case the first form won); from 2^18 at P <= 4 the ring
+(``ring`` to 2^19: 0.80–0.94x the pre-pass at F = 8, 0.77–0.90x at F =
+64; ``ring_res`` at 2^20–2^21: 0.78–0.89x, 159.1 against 178.5 at 2^20
+F=8 P=4), at P >= 8
+the pre-pass (the streamed ring 1.13–1.75x it at P = 8, one block an SM;
+P >= 16 does not fit), and at 2^22 the pre-pass at every P (783.1 against
+2798.8 at F=8 P=4; the ring is not built there, an h tile row being 8
+bytes). The frame counts 17–63 were not swept. PFB-BL's pre-pass:
+0.19–0.98x its first form (1141.8 against 1926.9 at 2097150 F=8 P=4).
+The pre-pass's builds at 2^22 F=8 P=4 against the shipped 783.5:
 ``sums_d4`` 785.1, ``sums_pad0`` 853.6, ``sums_flat`` 1319.2,
-``sums_whole`` 783.8 (at 65536 F=256: 214.8-215.4 each, the first form
-there). A ring of P + 1 virtual-row tiles with h resident in pass A
-was not built: from N1 = 512 h's slice alone is 128-256 KB a block, and
-where it fits the block runs one to an SM on a grid of one frame a
-block at 65536 F = 16.
+``sums_whole`` 783.8 (at 65536 F=256: 214.8–215.4 each, the first form
+there).
 
 At each N:F it prints the device µs a call (calls queued behind a sleep
 kernel, the least of three runs) of the base kernel and of each form as
